@@ -1,0 +1,25 @@
+"""srbd_horizon_tpu_torch — the PyTorch/CUDA port of `srbd_horizon_tpu`.
+
+The port runs the warm-started closed-loop SRBD fleet MPC tick on an
+NVIDIA H100. Plain tensor code is PyTorch; the two sequential hot loops
+of each solver iteration are hand-written CUDA kernels
+(`csrc/riccati_backward.cu`, `csrc/srbd_rollout.cu`) with plain PyTorch
+twins that the CPU tests hold against the JAX package.
+
+Layout (mirrors the JAX package):
+    config        SRBDConfig / DDPOptions (torch dtypes)
+    math/         quaternion helpers, batch-first small-matrix algebra
+    models/       Kangaroo constants, SRBD dynamics
+    ocp/          variable layouts, Euler step, the OCP container
+    problems/     build_srbd_problem
+    wpg           walking-pattern generator
+    solvers/      MSDDP, the batched production path
+    kernels/      CUDA kernel wrappers, their plain twins, the nvcc build
+    runtime/      MPCLoop.tick_batch, chunk_map
+    convert       numpy state from the JAX side -> tensors on a device
+
+Entry points take `device=` and default to "cuda"; they raise when CUDA
+is absent and no device was given. Nothing here imports JAX.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,63 @@
+"""Carry state across from the JAX package: numpy arrays in, the port's
+tensors out, on a given device and dtype.
+
+The caller turns JAX arrays into numpy (`np.asarray`) on its own side,
+so nothing here knows of JAX. Floating leaves take `dtype`; integer and
+boolean leaves keep their kind (int32 counters, bool flags).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from srbd_horizon_tpu_torch.config import resolve_device
+from srbd_horizon_tpu_torch.runtime.loop import LoopCarry, TickInput
+from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution
+from srbd_horizon_tpu_torch.wpg import WPGState
+
+
+def to_tensor(a, *, device, dtype) -> torch.Tensor:
+    """One array: floats to `dtype`, ints to int32, bools stay bool."""
+    arr = np.array(a)                      # a writable copy
+    if arr.dtype == np.bool_:
+        return torch.as_tensor(arr, device=device)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.as_tensor(arr.astype(np.int32), device=device)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def params_from_numpy(params: Mapping[str, np.ndarray], *, device="cuda",
+                      dtype=torch.float32) -> dict:
+    """OCP params: name -> (ns+1, dim) or (B, ns+1, dim)."""
+    dev = resolve_device(device)
+    return {k: to_tensor(v, device=dev, dtype=dtype) for k, v in params.items()}
+
+
+def tick_input_from_numpy(action, rdot_ref, w_ref, *, device="cuda",
+                          dtype=torch.float32) -> TickInput:
+    dev = resolve_device(device)
+    return TickInput(
+        action=to_tensor(action, device=dev, dtype=dtype),
+        rdot_ref=to_tensor(rdot_ref, device=dev, dtype=dtype),
+        w_ref=to_tensor(w_ref, device=dev, dtype=dtype),
+    )
+
+
+def carry_from_numpy(x, sol: Mapping[str, np.ndarray], params,
+                     step_counter, *, device="cuda",
+                     dtype=torch.float32) -> LoopCarry:
+    """A fleet LoopCarry from the state x (B, nx), the DDPSolution fields
+    by name (X, U, cost, converged, iterations, defect_norm), the params
+    and the WPG step counter (B,)."""
+    dev = resolve_device(device)
+    return LoopCarry(
+        x=to_tensor(x, device=dev, dtype=dtype),
+        sol=DDPSolution(**{f: to_tensor(sol[f], device=dev, dtype=dtype)
+                           for f in DDPSolution._fields}),
+        params=params_from_numpy(params, device=dev, dtype=dtype),
+        wpg_state=WPGState(step_counter=to_tensor(step_counter, device=dev,
+                                                  dtype=dtype)),
+    )

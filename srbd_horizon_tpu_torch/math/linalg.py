@@ -1,0 +1,98 @@
+"""Batch-first small-matrix algebra — the port of the `lm_*` contractions
+and `lm_spd_inverse` of srbd_horizon_tpu/math/linalg.py.
+
+The JAX package keeps these lane-major ((n, m, B), batch last) for the
+TPU's vector lanes. Here the batch leads ((..., n, m)), the layout the
+CUDA kernels read and PyTorch's batched matmul takes. These functions are
+the plain twins of the pieces of the Riccati kernel (K1) and of its
+in-kernel SPD inverse (K2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def lm_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """C[..., i, j] = Σ_k A[..., i, k] B[..., k, j]."""
+    return A @ B
+
+
+def lm_matmul_tn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """C[..., i, j] = Σ_k A[..., k, i] B[..., k, j] — first operand transposed."""
+    return A.transpose(-1, -2) @ B
+
+
+def lm_matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y[..., i] = Σ_k A[..., i, k] v[..., k]."""
+    return (A @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def lm_matvec_tn(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y[..., i] = Σ_k A[..., k, i] v[..., k]."""
+    return (A.transpose(-1, -2) @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def lm_transpose(A: torch.Tensor) -> torch.Tensor:
+    return A.transpose(-1, -2)
+
+
+def _lm_inv2(A):
+    a, b = A[..., 0, 0], A[..., 0, 1]
+    c, d = A[..., 1, 0], A[..., 1, 1]
+    det = a * d - b * c
+    row0 = torch.stack([d, -b], dim=-1)
+    row1 = torch.stack([-c, a], dim=-1)
+    return torch.stack([row0, row1], dim=-2) / det[..., None, None]
+
+
+def _lm_inv3(A):
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    adj = torch.stack(
+        [
+            torch.stack([c00, c01, c02], dim=-1),
+            torch.stack([c10, c11, c12], dim=-1),
+            torch.stack([c20, c21, c22], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def lm_spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Recursive block-Schur SPD inverse of (..., n, n): split at k=n//2,
+    invert A11 and the Schur complement S = A22 − A21 A11⁻¹ A12
+    recursively, closed forms at n ≤ 3, symmetrize each level."""
+    n = A.shape[-1]
+    if n == 1:
+        return 1.0 / A
+    if n == 2:
+        return _lm_inv2(A)
+    if n == 3:
+        return _lm_inv3(A)
+    k = n // 2
+    A11, A12 = A[..., :k, :k], A[..., :k, k:]
+    A21, A22 = A[..., k:, :k], A[..., k:, k:]
+    iA11 = lm_spd_inverse(A11)
+    iA11_A12 = lm_matmul(iA11, A12)
+    S = A22 - lm_matmul(A21, iA11_A12)
+    iS = lm_spd_inverse(S)
+    B12 = -lm_matmul(iA11_A12, iS)
+    B11 = iA11 - lm_matmul(B12, lm_matmul(A21, iA11))
+    B21 = lm_transpose(B12)
+    top = torch.cat([B11, B12], dim=-1)
+    bot = torch.cat([B21, iS], dim=-1)
+    out = torch.cat([top, bot], dim=-2)
+    return 0.5 * (out + lm_transpose(out))

@@ -1,0 +1,429 @@
+"""Multiple-shooting Gauss-Newton DDP — the production batched path of
+srbd_horizon_tpu/solvers/msddp.py (`MSDDP.solve_batch`), ported to
+PyTorch.
+
+One iteration for a fleet of B members:
+  1. sliced linearization (`torch.func.jacfwd` under `torch.func.vmap`,
+     over the declared row slices only);
+  2. the blocksparse backward Riccati sweep — kernel K1
+     (`kernels/riccati.py`);
+  3. the α₀ rollout trial and, for members that reject it, the gated,
+     compacted backtracking fan — kernel K3 (`kernels/rollout.py`) runs
+     every α of a fan in one launch;
+  4. the masked update; active-set compaction across iterations.
+
+The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
+the fan deepening, the fan and active-set compaction) are host decisions
+here: each reads one small device value back. `MSDDP.host_syncs` counts
+those reads. Compaction gathers exactly the members concerned; each
+member's arithmetic is independent of its position in the batch, so only
+the per-member semantics of the JAX path are kept, not its fixed-size
+gathers. Decisions that depend on the JAX batch size (the fan-compaction
+threshold inside a compacted iteration) use the size JAX would see.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from srbd_horizon_tpu_torch.config import DDPOptions, check_options
+from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
+from srbd_horizon_tpu_torch.kernels.rollout import srbd_rollout
+from srbd_horizon_tpu_torch.ocp.spec import OCP
+
+
+class DDPSolution(NamedTuple):
+    """Solver state/result, batch-first: X (B, ns+1, nx), U (B, ns, nu),
+    cost (B,), converged (B,) bool, iterations (B,) int32,
+    defect_norm (B,)."""
+
+    X: torch.Tensor
+    U: torch.Tensor
+    cost: torch.Tensor
+    converged: torch.Tensor
+    iterations: torch.Tensor
+    defect_norm: torch.Tensor
+
+
+class _IterState(NamedTuple):
+    X: torch.Tensor
+    U: torch.Tensor
+    cost: torch.Tensor
+    converged: torch.Tensor
+    it: torch.Tensor
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(b,) or (K, b) mask -> broadcastable against `like`."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return a.index_select(0, idx)
+
+
+@dataclasses.dataclass
+class MSDDP:
+    """Multiple-shooting GN-DDP over a fixed OCP; `solve_batch` is the
+    fleet path. `host_syncs` counts the device→host reads it has made."""
+
+    ocp: OCP
+    opts: DDPOptions = DDPOptions()
+    host_syncs: int = 0
+    rows: RiccatiRows = dataclasses.field(init=False, repr=False)
+    _wc_by_dtype: dict = dataclasses.field(default_factory=dict, init=False,
+                                           repr=False)
+
+    def __post_init__(self):
+        check_options(self.opts)
+        ocp = self.ocp
+        if any(r is None for r in (ocp.residual_x_rows, ocp.residual_u_rows,
+                                   ocp.dynamics_x_rows, ocp.dynamics_u_rows)):
+            raise NotImplementedError(
+                "the port's solver needs the OCP's declared row sparsity "
+                "(blocksparse path only)"
+            )
+        if (ocp.dynamics_u_cols is not None
+                and len(set(ocp.dynamics_u_cols)) < ocp.nu):
+            raise NotImplementedError(
+                "column-sparse B (dynamics_u_cols) is not ported yet"
+            )
+        if not {"m_scaled", "inertia_scaled"} <= set(ocp.constants):
+            raise NotImplementedError(
+                "the rollout kernel is SRBD-specific: the OCP's constants "
+                "need 'm_scaled' and 'inertia_scaled'"
+            )
+        self.rows = RiccatiRows.from_ocp(ocp)
+
+    def _host(self, t: torch.Tensor):
+        """Read a small device value on the host (one counted sync)."""
+        self.host_syncs += 1
+        return t.tolist()
+
+    # ---------- cost evaluation ----------
+
+    def _wc(self, dtype) -> float:
+        """√constraint_weight, rounded in the working dtype (as the JAX
+        package computes it)."""
+        if dtype not in self._wc_by_dtype:
+            self._wc_by_dtype[dtype] = float(torch.sqrt(torch.tensor(
+                self.opts.constraint_weight, dtype=dtype)))
+        return self._wc_by_dtype[dtype]
+
+    def _stage_rho(self, x, u, p):
+        """Stacked stage residual [residual; √w_c · eq]."""
+        r = self.ocp.stage_residual(x, u, p)
+        h = self.ocp.stage_eq(x, u, p)
+        return torch.cat([r, self._wc(x.dtype) * h], dim=-1)
+
+    def total_cost(self, X, U, params):
+        """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx)."""
+        ns = self.ocp.ns
+        p_stage = {k: v[..., :ns, :] for k, v in params.items()}
+        rho = self._stage_rho(X[..., :ns, :], U, p_stage)
+        rt = self.ocp.terminal_residual(X[..., ns, :],
+                                        self.ocp.params_at(params, ns))
+        return torch.sum(rho * rho, dim=(-1, -2)) + torch.sum(rt * rt, dim=-1)
+
+    def _true_defects(self, X, U, params):
+        ns = self.ocp.ns
+        p_stage = {k: v[..., :ns, :] for k, v in params.items()}
+        F = self.ocp.step(X[..., :ns, :], U, p_stage, self.ocp.dt)
+        return F - X[..., 1:, :]
+
+    # ---------- linearization ----------
+
+    def _linearize_sliced(self, X, U, params):
+        """Jacobian rows the blocksparse sweep reads, per member and node:
+        Sx = (A − I)[rx] (B,ns,|rx|,nx), Bs = B[ru] (B,ns,|ru|,nu),
+        Jxp = ∂ρ[gx]/∂x, Jup = ∂ρ[gu]/∂u, plus ρ (B,ns,nr), rt (B,nt),
+        Jt (B,nt,nx) and the defects d (B,ns,nx). One jacfwd per stack
+        over the (B·ns) flattened member-nodes."""
+        ocp = self.ocp
+        ns, nx, nu, dt = ocp.ns, ocp.nx, ocp.nu, ocp.dt
+        Bsz = X.shape[0]
+        idx = self.rows.index(X.device)
+        rx, ru, gx, gu = idx["rx"], idx["ru"], idx["gx"], idx["gu"]
+
+        Xs = X[:, :ns].reshape(Bsz * ns, nx)
+        Us = U.reshape(Bsz * ns, nu)
+        P = {k: v[:, :ns].reshape(Bsz * ns, v.shape[-1])
+             for k, v in params.items()}
+
+        def f_x(x, u, p):
+            return ocp.step(x, u, p, dt).index_select(-1, rx)
+
+        def f_u(x, u, p):
+            return ocp.step(x, u, p, dt).index_select(-1, ru)
+
+        def rho_x(x, u, p):
+            return self._stage_rho(x, u, p).index_select(-1, gx)
+
+        def rho_u(x, u, p):
+            return self._stage_rho(x, u, p).index_select(-1, gu)
+
+        vmap, jacfwd = torch.func.vmap, torch.func.jacfwd
+        F = ocp.step(Xs, Us, P, dt)
+        rho = self._stage_rho(Xs, Us, P)
+        eye_rx = torch.eye(nx, dtype=X.dtype, device=X.device).index_select(0, rx)
+        Sx = vmap(jacfwd(f_x, argnums=0))(Xs, Us, P) - eye_rx
+        Bs = vmap(jacfwd(f_u, argnums=1))(Xs, Us, P)
+        Jxp = vmap(jacfwd(rho_x, argnums=0))(Xs, Us, P)
+        Jup = vmap(jacfwd(rho_u, argnums=1))(Xs, Us, P)
+
+        p_term = ocp.params_at(params, ns)
+        rt = ocp.terminal_residual(X[:, ns], p_term)
+        Jt = vmap(jacfwd(ocp.terminal_residual))(X[:, ns], p_term)
+        d = F - X[:, 1:].reshape(Bsz * ns, nx)
+
+        def per_node(a):
+            return a.reshape((Bsz, ns) + a.shape[1:]).contiguous()
+
+        return dict(Sx=per_node(Sx), Bs=per_node(Bs), Jxp=per_node(Jxp),
+                    Jup=per_node(Jup), rho=per_node(rho), rt=rt,
+                    Jt=Jt.contiguous(), d=per_node(d))
+
+    # ---------- backward sweep and rollout (the kernels) ----------
+
+    def _backward_lanemajor(self, lin, mu):
+        """Blocksparse Riccati sweep (K1): batch-first lin in, ks (B,ns,nu),
+        Ks (B,ns,nu,nx), dV1 (B,), dV2 (B,) out."""
+        return riccati_backward(
+            lin["Sx"], lin["Bs"], lin["Jxp"], lin["Jup"], lin["rho"],
+            lin["d"], lin["Jt"], lin["rt"], mu, self.rows,
+        )
+
+    def _rollout(self, x0, X, U, ks, Ks, d, alphas):
+        """Nonlinear rollout with defect contraction for every α (K3):
+        Xn (nα,B,ns+1,nx), Un (nα,B,ns,nu)."""
+        c = self.ocp.constants
+        return srbd_rollout(x0, X, U, ks, Ks, d, alphas, self.ocp.dt,
+                            c["m_scaled"], c["inertia_scaled"])
+
+    # ---------- one batched iteration ----------
+
+    def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
+        """Rollout + cost + Armijo test for the α vector `al` (K,): each
+        result has a leading (K,) axis."""
+        opts = self.opts
+        nu_w = opts.defect_weight
+        Xn, Un = self._rollout(x0, X, U, ks, Ks, d, al)
+        new_cost = self.total_cost(Xn, Un, params)             # (K, b)
+        a = al[:, None]
+        new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+        expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
+        ok = (
+            ((merit0 - new_merit) >= opts.beta * torch.clamp(expected, min=1e-16))
+            & torch.isfinite(new_merit)
+            & (a >= opts.alpha_converge_threshold)
+        )
+        return Xn, Un, new_cost, new_merit, ok
+
+    def _run_fan(self, alphas, data):
+        """Chunked deepening: width-K fans of ever-smaller α until every
+        active member has an accepted step, nothing resolvable is left,
+        or α passed the max_line_search_steps floor. Seeded by the α₀
+        trial; the first chunk always runs (the caller only fans when
+        some member needs it)."""
+        opts = self.opts
+        K = opts.parallel_line_search_width
+        f = opts.line_search_decrease_factor
+        n_chunks = -(-opts.max_line_search_steps // K)
+        (x0b, Xb0, Ub0, ksb, Ksb, db, paramsb, costb0, merit0b, Db,
+         dV1b, dV2b, expected0b, noiseb, activeb,
+         X1b, U1b, cost1b, merit1b, ok1b) = data
+
+        Xb = torch.where(_bcast(ok1b, X1b), X1b, Xb0)
+        Ub = torch.where(_bcast(ok1b, U1b), U1b, Ub0)
+        costb = torch.where(ok1b, cost1b, costb0)
+        meritb = torch.where(ok1b, merit1b, merit0b)
+        found = ok1b
+        c = 0
+        while True:
+            al = alphas * (f ** float(c * K + 1))
+            Xs, Us, costs, merits, oks = self._trial(
+                al, x0b, Xb0, Ub0, ksb, Ksb, db, paramsb, merit0b, Db,
+                dV1b, dV2b)
+            pick_idx = torch.argmax(oks.to(torch.int8), dim=0)     # first True
+
+            def pick(arr):
+                ix = pick_idx.reshape((1,) + pick_idx.shape
+                                      + (1,) * (arr.dim() - 2))
+                return arr.gather(0, ix.expand((1,) + arr.shape[1:]))[0]
+
+            hit = torch.any(oks, dim=0) & ~found
+            Xb = torch.where(_bcast(hit, Xb), pick(Xs), Xb)
+            Ub = torch.where(_bcast(hit, Ub), pick(Us), Ub)
+            costb = torch.where(hit, pick(costs), costb)
+            meritb = torch.where(hit, pick(merits), meritb)
+            found = found | hit
+            c += 1
+            if c >= n_chunks:
+                break
+            worth = expected0b * (f ** float(c * K)) > noiseb
+            if not self._host(torch.any(activeb & ~found & worth)):
+                break
+        return Xb, Ub, costb, meritb, found
+
+    def _iteration_batch(self, state: _IterState, x0, params,
+                         lanes: Optional[int] = None):
+        """One DDP iteration for a batch (per-member α selection, masked
+        updates). `lanes` is the batch size the JAX path would see for
+        this call (the compaction level), which sets the fan-compaction
+        threshold; it defaults to the batch size."""
+        opts = self.opts
+        dtype = state.X.dtype
+        Bsz = state.cost.shape[0]
+        lanes = Bsz if lanes is None else lanes
+
+        lin = self._linearize_sliced(state.X, state.U, params)
+        ks, Ks, dV1, dV2 = self._backward_lanemajor(lin, opts.mu0)
+        d = lin["d"]
+
+        nu_w = opts.defect_weight
+        D = torch.sum(d * d, dim=(1, 2))
+        merit0 = state.cost + nu_w * D
+        K_ls = opts.parallel_line_search_width
+        alphas = opts.alpha_0 * (
+            opts.line_search_decrease_factor
+            ** torch.arange(K_ls, dtype=dtype, device=state.X.device)
+        )
+
+        # α₀ alone first: at warm steady state every active member takes it
+        X1, U1, cost1, merit1, ok1 = (
+            v[0] for v in self._trial(alphas[:1], x0, state.X, state.U, ks,
+                                      Ks, d, params, merit0, D, dV1, dV2)
+        )
+        active = ~state.converged
+        a0 = opts.alpha_0
+        expected0 = -(a0 * dV1 + a0 ** 2 * dV2) + (2.0 * a0 - a0 ** 2) * nu_w * D
+        m1 = torch.clamp(merit0, min=1.0)
+        noise = torch.maximum(32.0 * torch.finfo(dtype).eps * m1,
+                              opts.cost_reduction_ths * m1)
+        # only members whose predicted reduction is resolvable above the
+        # merit's rounding floor are worth backtracking
+        worth0 = expected0 > noise
+        need = active & ~ok1 & worth0
+        n_need = self._host(torch.sum(need))
+
+        full_data = (
+            x0, state.X, state.U, ks, Ks, d, params, state.cost,
+            merit0, D, dV1, dV2, expected0, noise, active,
+            X1, U1, cost1, merit1, ok1,
+        )
+        M = opts.line_search_compact
+        if n_need == 0:
+            Xn, Un, new_cost, new_merit, accepted = X1, U1, cost1, merit1, ok1
+        elif 0 < M < lanes and n_need <= M:
+            # fan only the members that need it
+            idx = torch.argsort((~need).to(torch.int8), stable=True)[:n_need]
+            sub = tuple(
+                {k: _take(v, idx) for k, v in a.items()} if isinstance(a, dict)
+                else _take(a, idx)
+                for a in full_data
+            )
+            Xs, Us, costs, merits, found_s = self._run_fan(alphas, sub)
+            Xn = torch.where(_bcast(ok1, X1), X1, state.X).index_copy(0, idx, Xs)
+            Un = torch.where(_bcast(ok1, U1), U1, state.U).index_copy(0, idx, Us)
+            new_cost = torch.where(ok1, cost1, state.cost).index_copy(0, idx, costs)
+            new_merit = torch.where(ok1, merit1, merit0).index_copy(0, idx, merits)
+            accepted = ok1.index_copy(0, idx, found_s)
+        else:
+            Xn, Un, new_cost, new_merit, accepted = self._run_fan(alphas, full_data)
+
+        upd = accepted & active
+        merit_red = merit0 - new_merit
+        conv_now = (~accepted) | (
+            merit_red <= opts.cost_reduction_ths * torch.clamp(merit0, min=1.0)
+        )
+        return _IterState(
+            X=torch.where(_bcast(upd, Xn), Xn, state.X),
+            U=torch.where(_bcast(upd, Un), Un, state.U),
+            cost=torch.where(upd, new_cost, state.cost),
+            converged=torch.where(active, conv_now, state.converged),
+            it=torch.where(active, state.it + 1, state.it),
+        )
+
+    def compaction_levels(self, Bsz: int):
+        """Compacted sub-batch sizes [B/2, B/4, …] (at most
+        `opts.active_compact_levels`, none below 32 lanes)."""
+        levels = []
+        M = Bsz
+        for _ in range(self.opts.active_compact_levels):
+            M //= 2
+            if M >= 32:
+                levels.append(M)
+        return levels
+
+    def _iteration_compacted(self, state: _IterState, x0, params, n_active: int):
+        """Active-set compaction: when the `n_active` still-active members
+        fit in a level B/2^l, iterate just those members and scatter the
+        results back; otherwise iterate the whole batch."""
+        Bsz = state.cost.shape[0]
+        fitting = [M for M in self.compaction_levels(Bsz) if n_active <= M]
+        if not fitting:
+            return self._iteration_batch(state, x0, params)
+        idx = torch.argsort(state.converged.to(torch.int8), stable=True)[:n_active]
+        sub = _IterState(*(_take(a, idx) for a in state))
+        out = self._iteration_batch(
+            sub, _take(x0, idx), {k: _take(v, idx) for k, v in params.items()},
+            lanes=min(fitting),
+        )
+        return _IterState(*(base.index_copy(0, idx, new)
+                            for base, new in zip(state, out)))
+
+    # ---------- public API ----------
+
+    def init(self, x0, U0: Optional[torch.Tensor] = None) -> DDPSolution:
+        """Cold start for x0 (B, nx): X = x0 on every node, U = 0 (or U0)."""
+        ns, nu = self.ocp.ns, self.ocp.nu
+        lead = x0.shape[:-1]
+        U = (torch.zeros(lead + (ns, nu), dtype=x0.dtype, device=x0.device)
+             if U0 is None else U0)
+        X = x0[..., None, :].expand(lead + (ns + 1, x0.shape[-1])).clone()
+        z = torch.zeros(lead, dtype=x0.dtype, device=x0.device)
+        return DDPSolution(
+            X=X, U=U, cost=z, converged=torch.zeros(lead, dtype=torch.bool,
+                                                    device=x0.device),
+            iterations=torch.zeros(lead, dtype=torch.int32, device=x0.device),
+            defect_norm=z.clone(),
+        )
+
+    def solve_batch(self, sols: DDPSolution, x0, params) -> DDPSolution:
+        """Batched MS-DDP solve over a leading fleet axis: per-member α
+        selection and masked convergence, the same semantics as the JAX
+        package's `solve_batch`."""
+        opts = self.opts
+        # node 0 is pinned to the measured state: a stale warm start's x0
+        # gap becomes the node-0 defect
+        X = sols.X.clone()
+        X[:, 0] = x0
+        cost0 = self.total_cost(X, sols.U, params)
+        Bsz = cost0.shape[0]
+        state = _IterState(
+            X=X, U=sols.U, cost=cost0,
+            converged=torch.zeros(Bsz, dtype=torch.bool, device=X.device),
+            it=torch.zeros(Bsz, dtype=torch.int32, device=X.device),
+        )
+        while True:
+            active = ~state.converged
+            n_cont, n_active = self._host(torch.stack([
+                torch.sum(active & (state.it < opts.max_iters)),
+                torch.sum(active),
+            ]))
+            if n_cont == 0:
+                break
+            if opts.active_compact_levels > 0:
+                state = self._iteration_compacted(state, x0, params, n_active)
+            else:
+                state = self._iteration_batch(state, x0, params)
+
+        defects = self._true_defects(state.X, state.U, params)
+        return DDPSolution(
+            X=state.X, U=state.U, cost=state.cost,
+            converged=state.converged, iterations=state.it,
+            defect_norm=torch.amax(torch.abs(defects), dim=(1, 2)),
+        )

@@ -1,0 +1,85 @@
+"""PyTorch port, isolation: no file of `srbd_horizon_tpu_torch/` nor
+`chip_smoke.py` imports JAX or the JAX package, and the entry points run
+on CUDA unless the caller asks for the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from srbd_horizon_tpu_torch.config import SRBDConfig, resolve_device
+from srbd_horizon_tpu_torch.convert import params_from_numpy
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop, walk_command
+from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "srbd_horizon_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "srbd_horizon_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_port_package_is_complete():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for required in (
+        "srbd_horizon_tpu_torch/kernels/riccati.py",
+        "srbd_horizon_tpu_torch/kernels/rollout.py",
+        "srbd_horizon_tpu_torch/kernels/build.py",
+        "srbd_horizon_tpu_torch/solvers/msddp.py",
+        "srbd_horizon_tpu_torch/runtime/loop.py",
+    ):
+        assert required in names
+    for src in ("riccati_backward.cu", "srbd_rollout.cu"):
+        assert (ROOT / "srbd_horizon_tpu_torch" / "csrc" / src).exists()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """Behave as a machine without a CUDA device, wherever the test runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    "build_srbd_loop", "build_srbd_problem", "wpg_build", "walk_command",
+    "params_from_numpy",
+])
+def test_entry_points_default_to_cuda(no_cuda, entry):
+    call = {
+        "build_srbd_loop": lambda: build_srbd_loop(),
+        "build_srbd_problem": lambda: build_srbd_problem(
+            SRBDConfig(), kangaroo_line_feet()),
+        "wpg_build": lambda: WalkingPatternGenerator.build(0.0, 20),
+        "walk_command": lambda: walk_command(4),
+        "params_from_numpy": lambda: params_from_numpy({}),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+def test_cpu_is_used_only_when_asked(no_cuda):
+    assert resolve_device("cpu").type == "cpu"
+    loop, prob = build_srbd_loop(device="cpu")
+    assert prob.initial_state.device.type == "cpu"
+    assert prob.initial_state.dtype == torch.float32
