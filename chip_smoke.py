@@ -10,11 +10,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
      convolutions;
   2. kernels against their plain PyTorch versions at the fleet width
      (B=512, ns=20, nx=37, nu=24) on inputs from a real linearization of
-     perturbed SRBD states: in float64 to 1e-9 relative; in float32 the
-     kernel's error against the float64 plain result must stay within 2×
-     the float32 plain version's own error plus 1e-6 relative (the 1e6
-     constraint weight makes Quu poorly conditioned); plus each kernel's
-     time from CUDA events, the plain version's, and the bound;
+     perturbed SRBD states: in float64 to 1e-9 relative; in float32
+     against the float64 plain result, K1 to 1e-6 relative (it computes
+     in float64 on chip, so only float32 storage rounding remains) and K3
+     within 2× the float32 plain version's own error plus 1e-6 relative;
+     plus each kernel's time from CUDA events, the plain version's, and
+     the bound;
   3. the main path: the warm-started closed-loop SRBD fleet tick
      `MPCLoop.tick_batch` at B=512 in float32 (3 warm-up ticks, 20 timed
      ticks of the walk command), with the kernels' launch counts read
@@ -40,6 +41,12 @@ B_MAIN = 512
 B_LARGE = 4096
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+# K1 carries float32 tensors in float64 on chip, so against the float64
+# plain result only the float32 rounding of its inputs and outputs is
+# left (unit roundoff 6e-8); 1e-6 of each output's largest value is ~16
+# units. The float32 plain twin errs ~1e-2 (Quu is ill-conditioned under
+# the 1e6 constraint weight), so a rule scaled by it would test nothing.
+K1_F32_TOL = 1e-6
 
 
 def fail(msg):
@@ -265,10 +272,10 @@ def main():
     k1_e32 = {n: rel_err(g, r) for n, g, r in zip(names, got32, ref64)}
     k1_p32 = {n: rel_err(g, r) for n, g, r in zip(names, plain32, ref64)}
     k1_abs32 = max(abs_err(g, r) for g, r in zip(got32, ref64))
-    k1_ok32 = all(k1_e32[n] <= 2 * k1_p32[n] + 1e-6 for n in names)
+    k1_ok32 = all(k1_e32[n] <= K1_F32_TOL for n in names)
     emit("k1_check", f64_rel_err=k1_e64, f64_tol=1e-9,
-         f32_rel_err=k1_e32, f32_plain_rel_err=k1_p32,
-         f32_rule="kernel <= 2*plain + 1e-6", f32_max_abs_err=k1_abs32)
+         f32_rel_err=k1_e32, f32_tol=K1_F32_TOL, f32_plain_rel_err=k1_p32,
+         f32_max_abs_err=k1_abs32)
     if not (k1_e64 <= 1e-9 and k1_ok32):
         fail("K1 (riccati_backward) disagrees with its plain version")
 
@@ -445,7 +452,7 @@ def main():
              max_abs_err=k1_abs32, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bound * 1e3, bound_by=k1_by, library_ms=None,
              max_rel_err_f64=k1_e64, tol_f64=1e-9,
-             max_rel_err_f32=max(k1_e32.values()),
+             max_rel_err_f32=max(k1_e32.values()), tol_f32=K1_F32_TOL,
              plain_rel_err_f32=max(k1_p32.values())),
         dict(name="srbd_rollout", route="cuda", source=k3.SOURCE,
              replaces=k3.REPLACES, launches=launches["srbd_rollout"],
@@ -453,6 +460,7 @@ def main():
              bound_ms=k3_bound * 1e3, bound_by=k3_by, library_ms=None,
              max_rel_err_f64=k3_e64, tol_f64=1e-9,
              max_rel_err_f32=max(k3_e32.values()),
+             tol_f32="2*plain_rel_err_f32 + 1e-6",
              plain_rel_err_f32=max(k3_p32.values())),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,12 @@
 """Typed configuration: the port's own copy of `SRBDConfig` and
 `DDPOptions` (srbd_horizon_tpu/config.py), with `dtype` a torch dtype.
 
-Only the options the production batched path implements are honoured;
-`MSDDP` rejects the others at construction (see `check_options`).
+Only fields the port reads are carried: a field of the JAX dataclasses
+that nothing here reads (the LIP and isrbd gains and bounds, the scan
+unroll factors, the Quu solver choice) is absent, so setting it raises
+`TypeError`; it comes back with the code that reads it. Of the options
+kept, `MSDDP` rejects at construction those whose path is not ported
+(see `check_options`).
 """
 
 from __future__ import annotations
@@ -33,19 +37,9 @@ class SRBDConfig:
     force_switch_weight: float = 1e2
     min_qddot_gain: float = 1e0
     min_f_gain: float = 1e-2
-    zmp_tracking_gain: float = 1e3
-    rz_tracking_gain_isrbd: float = 2e3
 
     # physics
-    friction_cone_coefficient: float = 0.8
     force_scaling: float = 1000.0
-    gravity: float = 9.81
-    lip_height: float = 0.88
-
-    # runtime
-    hz: float = 10.0
-    max_contact_force: float = 1000.0
-    max_contact_velocity: float = 10.0
 
     # numerics
     dtype: torch.dtype = torch.float32
@@ -57,10 +51,6 @@ class SRBDConfig:
     @property
     def dt(self) -> float:
         return self.T / self.ns
-
-    @property
-    def eta2(self) -> float:
-        return self.gravity / self.lip_height
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +71,7 @@ class DDPOptions:
     line_search_mode: str = "parallel"
     parallel_line_search_width: int = 4
     line_search_compact: int = 64
-    quu_solver: str = "schur"
     riccati_mode: str = "sequential"
-    backward_unroll: int = 1
     backward_contract: str = "blocksparse"
     backward_pair_nodes: bool = False
     analytic_jacobians: bool = False
@@ -94,7 +82,6 @@ class DDPOptions:
     linearize_precision: str = "f32"
     linearize_ad: str = "fwd"
     active_compact_levels: int = 4
-    rollout_unroll: int = 1
     rollout_lane_major: bool = False
     forward_pass: str = "nonlinear"
     defect_weight: float = 1e5

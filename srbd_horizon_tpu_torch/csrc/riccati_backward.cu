@@ -35,7 +35,12 @@
 // only. The 1e6 constraint weight makes Quu ill-conditioned: carried in
 // float32, the recursion loses ~1e-2 relative in the gains (the plain
 // float32 twin does), while float32 inputs carried in float64 lose ~1e-7.
-// Shared memory is then ~84 KB per block for either type.
+// Shared memory is then ~84 KB per block for either type. So for float32
+// tensors this kernel and the float32 plain twin (the CPU path, and the
+// JAX float32 sweep) differ by ~1e-2 in the gains: the kernel is the
+// closer of them to the float64 sweep. A faster version has to keep the
+// float64 arithmetic: on this card its tensor-core route is FP64 DMMA
+// (mma.sync m8n8k4 f64), not the float32/TF32 tensor cores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.

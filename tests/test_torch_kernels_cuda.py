@@ -1,7 +1,8 @@
 """PyTorch port, the CUDA kernels against their plain versions on the card,
 with the tolerances of chip_smoke.py: float64 to 1e-9 relative; in
-float32 the kernel's error against the float64 plain result stays within
-2× the float32 plain version's own error plus 1e-6 relative. Skipped
+float32 against the float64 plain result, K1 to 1e-6 relative (it
+computes in float64 on chip, so only float32 storage rounding remains)
+and K3 within 2× the float32 plain version's own error plus 1e-6. Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
@@ -18,6 +19,7 @@ pytestmark = pytest.mark.cuda
 
 ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
 B = 64
+K1_F32_TOL = 1e-6
 
 
 def _rel(got, want):
@@ -59,9 +61,8 @@ def test_riccati_kernel_matches_plain(card_case):
     for g, r in zip(got, ref):
         assert _rel(g, r) <= 1e-9
     got32 = _k1(card_case, torch.float32, k1.riccati_backward)
-    plain32 = _k1(card_case, torch.float32, k1.riccati_backward_plain)
-    for g, p, r in zip(got32, plain32, ref):
-        assert _rel(g, r) <= 2 * _rel(p, r) + 1e-6
+    for g, r in zip(got32, ref):
+        assert _rel(g, r) <= K1_F32_TOL
 
 
 def test_rollout_kernel_matches_plain(card_case):

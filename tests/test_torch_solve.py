@@ -20,7 +20,7 @@ from _torch_parity import (
     to_jax,
     to_torch,
 )
-from srbd_horizon_tpu_torch.config import DDPOptions
+from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
 torch.set_num_threads(1)
@@ -164,3 +164,19 @@ def test_unported_options_raise(field, value, exc):
     opts = dataclasses.replace(DDPOptions(), **{field: value})
     with pytest.raises(exc):
         MSDDP(tp.ocp, opts)
+
+
+@pytest.mark.parametrize("cls,field,value", [
+    (DDPOptions, "quu_solver", "cholesky"),
+    (DDPOptions, "backward_unroll", 2),
+    (DDPOptions, "rollout_unroll", 2),
+    (SRBDConfig, "gravity", 9.0),
+    (SRBDConfig, "zmp_tracking_gain", 1.0),
+    (SRBDConfig, "friction_cone_coefficient", 0.5),
+    (SRBDConfig, "max_contact_force", 500.0),
+])
+def test_unread_options_are_refused(cls, field, value):
+    """A JAX field that nothing in the port reads is not carried, so
+    setting it fails instead of being ignored."""
+    with pytest.raises(TypeError):
+        cls(**{field: value})
