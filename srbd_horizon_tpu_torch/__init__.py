@@ -1,10 +1,11 @@
 """srbd_horizon_tpu_torch — the PyTorch/CUDA port of `srbd_horizon_tpu`.
 
 The port runs the warm-started closed-loop SRBD fleet MPC tick on an
-NVIDIA H100. Plain tensor code is PyTorch; the two sequential hot loops
-of each solver iteration are hand-written CUDA kernels
-(`csrc/riccati_backward.cu`, `csrc/srbd_rollout.cu`) with plain PyTorch
-twins that the CPU tests hold against the JAX package.
+NVIDIA H100. Plain tensor code is PyTorch; each solver iteration runs
+three hand-written CUDA kernels — the closed-form linearization
+(`csrc/srbd_linearize.cu`), the Riccati sweep (`csrc/riccati_backward.cu`)
+and the line-search trial with its cost (`csrc/srbd_rollout.cu`) — with
+plain PyTorch twins that the CPU tests hold against the JAX package.
 
 Layout (mirrors the JAX package):
     config        SRBDConfig / DDPOptions (torch dtypes)

@@ -112,8 +112,9 @@ def check_options(opts: DDPOptions) -> None:
         )
     if opts.analytic_jacobians:
         raise NotImplementedError(
-            "analytic_jacobians=True: the closed-form linearization is not "
-            "ported yet"
+            "analytic_jacobians=True selects the JAX package's dense "
+            "linearization path, which the port does not have: the port's "
+            "sliced linearization is already the closed form (kernel K4)"
         )
     for name, allowed in _REJECTED_KNOBS.items():
         if getattr(opts, name) != allowed:

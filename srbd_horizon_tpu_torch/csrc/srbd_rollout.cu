@@ -1,23 +1,33 @@
-// K3 — the line-search rollout of the batched MS-DDP solver on the SRBD
-// problem, every step size α of one call in one launch.
+// K3 — the line-search trial of the batched MS-DDP solver on the SRBD
+// problem: the rollout, its cost and the Armijo test for every step size
+// α of one call, in one launch.
 //
 // Replaces: `MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:1391-1410),
-// a `lax.scan` over the horizon that XLA fused on the TPU (the JAX package
-// wrote no Pallas kernel for it), with the SRBD Euler step
-// (srbd_horizon_tpu/models/srbd.py::srbd_xdot) fused in. Plain twin:
-// `kernels/rollout.py::srbd_rollout_plain`. Per member and α, for
+// a `lax.scan` over the horizon, and the trial's `total_cost`/`_stage_rho`
+// (:150-165) with the Armijo test (:843-853), all of which XLA fused on the
+// TPU (the JAX package wrote no Pallas kernel for them), with the SRBD
+// Euler step (srbd_horizon_tpu/models/srbd.py::srbd_xdot) fused in. Plain
+// twin: `kernels/rollout.py::srbd_trial_plain`. Per member and α, for
 // n = 0 … ns−1:
 //     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
 //     x̂ₙ₊₁ = x̂ₙ + dt·ẋ(x̂ₙ, uₙ) − (1 − α) dₙ
-// where ẋ is the SRBD double integrator with fSRBD accelerations
-// (R(o) I Rᵀ, the Cramer 3×3 solve, ȯ = ½ ω⊗o). The SRBD step reads no
-// OCP parameter, only the scaled mass and inertia.
+// then
+//     cost  = Σₙ ‖ρ(x̂ₙ, uₙ, pₙ)‖² + ‖ρ_N(x̂_N, p_N)‖²
+//     merit = cost + ν (1 − α)² D
+//     exp   = −(α ΔV₁ + α² ΔV₂) + (2α − α²) ν D
+//     ok    = merit0 − merit ≥ β max(exp, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min
+// where ẋ is the SRBD double integrator with fSRBD accelerations and ρ the
+// stacked stage residual (csrc/srbd_common.cuh holds both, shared with K4).
+// A NaN `exp` stays NaN through the max (as torch.clamp and jnp.maximum
+// keep it), so the comparison, and `ok`, is false. Built without
+// --use_fast_math, so isfinite and NaN comparisons are exact.
 //
-// What bounds it on an H100: one (member, α) reads the gains, the plan
-// and the defects, ~1.0k values per node (4 KB in f32), and does ~2.3k
-// FLOP per node. At B=512, ns=20 and one α that is ~41 MB (0.012 ms at
-// 3.35 TB/s) against 24 MFLOP, so bytes bound it; in practice the
-// 20-step dependent chain per member and the launch dominate at this size.
+// What bounds it on an H100: one (member, α) reads the gains, the plan,
+// the defects and 20 parameter values per node, ~1.0k values per node
+// (4 KB in f32), and does ~2.3k FLOP of rollout and ~0.4k of residual per
+// node. At B=512, ns=20 and one α that is ~42 MB (0.013 ms at 3.35 TB/s)
+// against ~28 MFLOP, so bytes bound it; in practice the 20-step dependent
+// chain per member and the launch dominate at this size.
 //
 // Design: one warp per (member, α); consecutive warps of a block are the
 // α's of one member, so the member's gains are read once from device
@@ -25,138 +35,53 @@
 // spread over the lanes; lane 0 evaluates the coupled rigid-body part of
 // ẋ (a few hundred dependent flops) while the other lanes copy the
 // integrator rows. The state lives in per-warp shared memory across the
-// node loop. Simple first: no cross-node prefetch.
+// node loop. At each node the lanes evaluate the 73 residual rows (three
+// per lane) and keep their squares in a register; the terminal rows
+// follow the loop, and one warp reduction (shuffles) gives the cost. The
+// sum is taken in another order than the plain twin's, so the two agree
+// to rounding, not bit for bit. Simple first: no cross-node prefetch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "srbd_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 
-// Rigid-body part of ẋ on one thread: writes ȯ (xd[3:7]), r̈
-// (xd[7+3nc:10+3nc]) and ω̇ (xd[10+3nc:13+3nc]).
-template <typename T>
-__device__ void srbd_body_rates(const T* x, const T* u, int nc, T m_scaled,
-                                const T* I, T* xd) {
-  const T* r = x;
-  const T* o = x + 3;
-  const T* w = x + 10 + 3 * nc;
-  // R = quat_to_rot(o), not normalized
-  const T qx = o[0], qy = o[1], qz = o[2], qw = o[3];
-  const T xx = qx * qx, yy = qy * qy, zz = qz * qz;
-  const T xy = qx * qy, xz = qx * qz, yz = qy * qz;
-  const T wx = qw * qx, wy = qw * qy, wz = qw * qz;
-  const T ww = qw * qw;
-  T R[9];
-  R[0] = ww + xx - yy - zz;
-  R[1] = T(2) * (xy - wz);
-  R[2] = T(2) * (xz + wy);
-  R[3] = T(2) * (xy + wz);
-  R[4] = ww - xx + yy - zz;
-  R[5] = T(2) * (yz - wx);
-  R[6] = T(2) * (xz - wy);
-  R[7] = T(2) * (yz + wx);
-  R[8] = ww - xx - yy + zz;
-  // Iw = (R I) Rᵀ
-  T RI[9], A[9];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-      for (int k = 0; k < 3; ++k) s += R[i * 3 + k] * I[k * 3 + j];
-      RI[i * 3 + j] = s;
-    }
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-      for (int k = 0; k < 3; ++k) s += RI[i * 3 + k] * R[j * 3 + k];
-      A[i * 3 + j] = s;
-    }
-  // forces, torques
-  T f_tot[3] = {T(0), T(0), T(0)};
-  T tau[3] = {T(0), T(0), T(0)};
-  for (int q = 0; q < nc; ++q) {
-    const T* f = u + 6 * q + 3;
-    const T* c = x + 7 + 3 * q;
-    const T p0 = c[0] - r[0], p1 = c[1] - r[1], p2 = c[2] - r[2];
-    f_tot[0] += f[0];
-    f_tot[1] += f[1];
-    f_tot[2] += f[2];
-    tau[0] += p1 * f[2] - p2 * f[1];
-    tau[1] += p2 * f[0] - p0 * f[2];
-    tau[2] += p0 * f[1] - p1 * f[0];
-  }
-  T* rdd = xd + 7 + 3 * nc;
-  rdd[0] = f_tot[0] / m_scaled;
-  rdd[1] = f_tot[1] / m_scaled;
-  rdd[2] = f_tot[2] / m_scaled - T(9.81);
-  // ω̇ = Iw⁻¹ (τ − ω × Iw ω), Cramer
-  T Iw[3];
-  for (int i = 0; i < 3; ++i)
-    Iw[i] = A[i * 3 + 0] * w[0] + A[i * 3 + 1] * w[1] + A[i * 3 + 2] * w[2];
-  const T b0 = tau[0] - (w[1] * Iw[2] - w[2] * Iw[1]);
-  const T b1 = tau[1] - (w[2] * Iw[0] - w[0] * Iw[2]);
-  const T b2 = tau[2] - (w[0] * Iw[1] - w[1] * Iw[0]);
-  const T a00 = A[0], a01 = A[1], a02 = A[2];
-  const T a10 = A[3], a11 = A[4], a12 = A[5];
-  const T a20 = A[6], a21 = A[7], a22 = A[8];
-  const T c00 = a11 * a22 - a12 * a21;
-  const T c01 = a02 * a21 - a01 * a22;
-  const T c02 = a01 * a12 - a02 * a11;
-  const T c10 = a12 * a20 - a10 * a22;
-  const T c11 = a00 * a22 - a02 * a20;
-  const T c12 = a02 * a10 - a00 * a12;
-  const T c20 = a10 * a21 - a11 * a20;
-  const T c21 = a01 * a20 - a00 * a21;
-  const T c22 = a00 * a11 - a01 * a10;
-  const T det = a00 * c00 + a01 * c10 + a02 * c20;
-  T* wd = xd + 10 + 3 * nc;
-  wd[0] = (c00 * b0 + c01 * b1 + c02 * b2) / det;
-  wd[1] = (c10 * b0 + c11 * b1 + c12 * b2) / det;
-  wd[2] = (c20 * b0 + c21 * b1 + c22 * b2) / det;
-  // ȯ = ½ (ω,0) ⊗ o
-  const T v0 = T(0) * qx + qw * w[0] + (w[1] * qz - w[2] * qy);
-  const T v1 = T(0) * qy + qw * w[1] + (w[2] * qx - w[0] * qz);
-  const T v2 = T(0) * qz + qw * w[2] + (w[0] * qy - w[1] * qx);
-  const T s = T(0) * qw - (w[0] * qx + w[1] * qy + w[2] * qz);
-  xd[3] = T(0.5) * v0;
-  xd[4] = T(0.5) * v1;
-  xd[5] = T(0.5) * v2;
-  xd[6] = T(0.5) * s;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-srbd_rollout_kernel(const T* __restrict__ x0, const T* __restrict__ X,
-                    const T* __restrict__ U, const T* __restrict__ ks,
-                    const T* __restrict__ Ks, const T* __restrict__ d,
-                    const T* __restrict__ alphas,
-                    const T* __restrict__ inertia, int B, int ns, int nc,
-                    int nA, T dt, T m_scaled, T* __restrict__ Xn,
-                    T* __restrict__ Un) {
+srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
+                  const T* __restrict__ U, const T* __restrict__ ks,
+                  const T* __restrict__ Ks, const T* __restrict__ d,
+                  const T* __restrict__ alphas, srbd::Params<T> P,
+                  const T* __restrict__ merit0, const T* __restrict__ Dsq,
+                  const T* __restrict__ dV1, const T* __restrict__ dV2,
+                  int B, int ns, int nA, srbd::Consts<T> k, T nu_w, T beta,
+                  T alpha_min, T* __restrict__ Xn, T* __restrict__ Un,
+                  T* __restrict__ cost_out, T* __restrict__ merit_out,
+                  bool* __restrict__ ok_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nx = 13 + 6 * nc, nu = 6 * nc;
+  const int nx = k.nx, nu = k.nu, nc = k.nc;
+  const int pw = srbd::param_width(nc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (g >= static_cast<long long>(B) * nA) return;   // whole warp leaves
   const size_t b = g / nA;
   const size_t a = g % nA;
 
-  T* xh = reinterpret_cast<T*>(smem_raw) + warp * (3 * nx + nu + 9);
+  T* xh = reinterpret_cast<T*>(smem_raw) + warp * (3 * nx + nu + pw);
   T* dx = xh + nx;
   T* u = dx + nx;
   T* xd = u + nu;
-  T* I = xd + nx;
+  T* p = xd + nx;
   const T alpha = alphas[a];
   const T om = T(1) - alpha;
   for (int j = lane; j < nx; j += 32) xh[j] = x0[b * nx + j];
-  for (int j = lane; j < 9; j += 32) I[j] = inertia[j];
   __syncwarp();
 
-  const int i_rdot = 7 + 3 * nc, i_cdot = 13 + 3 * nc;
+  T acc = T(0);   // this lane's share of Σ‖ρ‖²
   for (int n = 0; n < ns; ++n) {
     const T* Xb = X + (b * (ns + 1) + n) * nx;
     T* Xo = Xn + ((a * B + b) * (ns + 1) + n) * nx;
@@ -164,6 +89,7 @@ srbd_rollout_kernel(const T* __restrict__ x0, const T* __restrict__ X,
       dx[j] = xh[j] - Xb[j];
       Xo[j] = xh[j];
     }
+    srbd::load_params(P, b * (ns + 1) + n, nc, lane, p);
     __syncwarp();
     const size_t bn = b * ns + n;
     const T* Kb = Ks + bn * nu * nx;
@@ -176,58 +102,87 @@ srbd_rollout_kernel(const T* __restrict__ x0, const T* __restrict__ X,
       Uo[i] = ui;
     }
     __syncwarp();
-    if (lane == 0) srbd_body_rates(xh, u, nc, m_scaled, I, xd);
-    for (int j = lane; j < nx; j += 32) {   // integrator rows
-      if (j < 3) {
-        xd[j] = xh[i_rdot + j];                         // ṙ
-      } else if (j >= 7 && j < 7 + 3 * nc) {
-        xd[j] = xh[i_cdot + (j - 7)];                   // ċ
-      } else if (j >= i_cdot) {
-        const int e = j - i_cdot;                       // c̈ from u
-        xd[j] = u[6 * (e / 3) + e % 3];
-      }
+    if (lane == 0) srbd::body_rates(xh, u, k, xd);
+    for (int j = lane; j < nx; j += 32) {
+      T v;
+      if (srbd::integrator_row(j, xh, u, k, &v)) xd[j] = v;
+    }
+    __syncwarp();
+    for (int r = lane; r < k.n_rho; r += 32) {
+      const T v = srbd::stage_rho_row(r, xh, u, xd, p, k);
+      acc += v * v;
     }
     __syncwarp();
     const T* db = d + bn * nx;
-    for (int j = lane; j < nx; j += 32) xh[j] = (xh[j] + dt * xd[j]) - om * db[j];
+    for (int j = lane; j < nx; j += 32) xh[j] = (xh[j] + k.dt * xd[j]) - om * db[j];
     __syncwarp();
   }
   T* Xo = Xn + ((a * B + b) * (ns + 1) + ns) * nx;
   for (int j = lane; j < nx; j += 32) Xo[j] = xh[j];
+  srbd::load_params(P, b * (ns + 1) + ns, nc, lane, p);
+  __syncwarp();
+  if (lane < 15) {
+    const T v = srbd::tracking_row(lane, xh, p, k);
+    acc += v * v;
+  }
+  const T cost = srbd::warp_sum(acc);
+  if (lane == 0) {
+    const T D = Dsq[b];
+    const T merit = cost + (nu_w * (om * om)) * D;
+    const T expected = -(alpha * dV1[b] + (alpha * alpha) * dV2[b]) +
+                       ((T(2) * alpha - alpha * alpha) * nu_w) * D;
+    const T exp_min = expected < T(1e-16) ? T(1e-16) : expected;  // NaN stays
+    const size_t o = a * B + b;
+    cost_out[o] = cost;
+    merit_out[o] = merit;
+    ok_out[o] = (merit0[b] - merit >= beta * exp_min) && isfinite(merit) &&
+                (alpha >= alpha_min);
+  }
 }
 
 template <typename T>
 int launch(const void* x0, const void* X, const void* U, const void* ks,
            const void* Ks, const void* d, const void* alphas,
-           const void* inertia, int B, int ns, int nc, int nA, double dt,
-           double m_scaled, void* Xn, void* Un, void* stream) {
+           const void* const* params, const void* merit0, const void* D,
+           const void* dV1, const void* dV2, int B, int ns, int nc, int cm,
+           int n_legs, int nA, const double* scalars, double nu_w,
+           double beta, double alpha_min, void* Xn, void* Un, void* cost,
+           void* merit, void* ok, void* stream) {
   const long long pairs = static_cast<long long>(B) * nA;
   if (pairs == 0) return 0;
-  const int nx = 13 + 6 * nc, nu = 6 * nc;
-  const size_t bytes = sizeof(T) * kWarps * (3 * nx + nu + 9);
+  const srbd::Consts<T> k = srbd::make_consts<T>(scalars, nc, cm, n_legs);
+  const size_t bytes =
+      sizeof(T) * kWarps * (3 * k.nx + k.nu + srbd::param_width(nc));
   const unsigned blocks = static_cast<unsigned>((pairs + kWarps - 1) / kWarps);
-  srbd_rollout_kernel<T><<<blocks, 32 * kWarps, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  srbd_trial_kernel<T><<<blocks, 32 * kWarps, bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x0), static_cast<const T*>(X),
       static_cast<const T*>(U), static_cast<const T*>(ks),
       static_cast<const T*>(Ks), static_cast<const T*>(d),
-      static_cast<const T*>(alphas), static_cast<const T*>(inertia), B, ns,
-      nc, nA, static_cast<T>(dt), static_cast<T>(m_scaled),
-      static_cast<T*>(Xn), static_cast<T*>(Un));
+      static_cast<const T*>(alphas), srbd::make_params<T>(params),
+      static_cast<const T*>(merit0), static_cast<const T*>(D),
+      static_cast<const T*>(dV1), static_cast<const T*>(dV2), B, ns, nA, k,
+      static_cast<T>(nu_w), static_cast<T>(beta), static_cast<T>(alpha_min),
+      static_cast<T*>(Xn), static_cast<T*>(Un), static_cast<T*>(cost),
+      static_cast<T*>(merit), static_cast<bool*>(ok));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define ROLLOUT_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* x0, const void* X, const void* U,          \
-                      const void* ks, const void* Ks, const void* d,         \
-                      const void* alphas, const void* inertia, int B,        \
-                      int ns, int nc, int nA, double dt, double m_scaled,    \
-                      void* Xn, void* Un, void* stream) {                    \
-    return launch<T>(x0, X, U, ks, Ks, d, alphas, inertia, B, ns, nc, nA,   \
-                     dt, m_scaled, Xn, Un, stream);                          \
+#define TRIAL_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(                                                        \
+      const void* x0, const void* X, const void* U, const void* ks,           \
+      const void* Ks, const void* d, const void* alphas,                      \
+      const void* const* params, const void* merit0, const void* D,           \
+      const void* dV1, const void* dV2, int B, int ns, int nc, int cm,        \
+      int n_legs, int nA, const double* scalars, double nu_w, double beta,    \
+      double alpha_min, void* Xn, void* Un, void* cost, void* merit,          \
+      void* ok, void* stream) {                                               \
+    return launch<T>(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,     \
+                     dV2, B, ns, nc, cm, n_legs, nA, scalars, nu_w, beta,     \
+                     alpha_min, Xn, Un, cost, merit, ok, stream);             \
   }
 
-ROLLOUT_ENTRY(srbd_rollout_f32, float)
-ROLLOUT_ENTRY(srbd_rollout_f64, double)
+TRIAL_ENTRY(srbd_trial_f32, float)
+TRIAL_ENTRY(srbd_trial_f64, double)

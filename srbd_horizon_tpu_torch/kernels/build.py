@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library under `build/kernels/`
-(listed in `.gitignore`), then loaded with `ctypes`. The build runs at
+(listed in `.gitignore`), then loaded with `ctypes`. K3 and K4 include
+`csrc/srbd_common.cuh`; a change to any file under `csrc/` rebuilds
+every library. The build runs at
 first use; `build_all` starts one `nvcc` per stale source, all at once.
 Nothing here runs when the module is imported.
 """
@@ -18,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("riccati_backward", "srbd_rollout")
+KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

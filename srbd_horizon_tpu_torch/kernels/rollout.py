@@ -1,18 +1,23 @@
-"""K3: the SRBD multiple-shooting rollout over a vector of step sizes.
+"""K3: the SRBD line-search trial — rollout, cost and Armijo test — over a
+vector of step sizes.
 
-`srbd_rollout` is the wrapper the solver calls. A CPU tensor goes to
-`srbd_rollout_plain`, the PyTorch transcription of the JAX package's
-`MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:1391-1410) for the
-SRBD Euler step, evaluated for every α at once; a CUDA tensor launches
-the hand-written kernel in `csrc/srbd_rollout.cu`, or raises.
+`srbd_trial` is the wrapper the solver calls. A CPU tensor goes to
+`srbd_trial_plain`: `srbd_rollout_plain`, the PyTorch transcription of
+the JAX package's `MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:
+1391-1410) for the SRBD Euler step evaluated for every α at once, then
+the trial's `total_cost` and Armijo test (:843-853); a CUDA tensor
+launches the hand-written kernel in `csrc/srbd_rollout.cu`, which does all
+three in one launch, or raises.
 
 Per member and α, from x̂₀ = x0, for n = 0 … ns−1:
 
     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
     x̂ₙ₊₁ = x̂ₙ + dt·srbd_xdot(x̂ₙ, uₙ) − (1 − α) dₙ
 
-The SRBD step reads no OCP parameter, only the scaled mass and inertia.
-Outputs are Xn (nα, B, ns+1, nx) and Un (nα, B, ns, nu).
+then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖², merit = cost + ν(1−α)²D and
+ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
+expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD. Outputs are Xn (nα, B, ns+1, nx),
+Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
 """
 
 from __future__ import annotations
@@ -22,11 +27,12 @@ import ctypes
 import torch
 
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.linearize import kernel_params
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
 
-# the function K3 replaces (an XLA-fused scan; the JAX package wrote no
-# Pallas kernel for it)
+# the functions K3 replaces (an XLA-fused scan and the trial's cost and
+# Armijo test; the JAX package wrote no Pallas kernel for them)
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1391"
 SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_rollout.cu"
 
@@ -51,6 +57,26 @@ def srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float,
     return torch.stack(Xs, dim=2), torch.stack(Us, dim=2)
 
 
+def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
+                     dV2, terms, dt: float, wc: float, nu_w: float,
+                     beta: float, alpha_min: float):
+    """Plain PyTorch K3: `srbd_rollout_plain`, the cost Σ‖ρ‖² of each rolled
+    plan (`terms` is the problem's `SRBDTerms`, wc = √w_c) and the Armijo
+    test. params leaves (B,ns+1,dim); merit0, D, dV1, dV2 (B,)."""
+    Xn, Un = srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
+                                terms.m_scaled, terms.inertia_scaled)
+    new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
+    a = alphas[:, None]
+    new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
+    ok = (
+        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
+        & torch.isfinite(new_merit)
+        & (a >= alpha_min)
+    )
+    return Xn, Un, new_cost, new_merit, ok
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
@@ -58,30 +84,32 @@ _D = ctypes.c_double
 
 def _kernel_fn(dtype):
     lib = library("srbd_rollout")
-    fn = lib.srbd_rollout_f32 if dtype == torch.float32 else lib.srbd_rollout_f64
+    fn = lib.srbd_trial_f32 if dtype == torch.float32 else lib.srbd_trial_f64
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 4 + [_D, _D] + [_P] * 3
+        fn.argtypes = ([_P] * 12 + [_I] * 6 + [_P] + [_D] * 3 + [_P] * 6)
         fn.restype = _I
     return fn
 
 
-def srbd_rollout(x0, X, U, ks, Ks, d, alphas, dt: float, m_scaled: float,
-                 inertia_scaled):
-    """K3. Same contract as `srbd_rollout_plain`; launches the CUDA kernel
-    for CUDA tensors (and counts the launch in `srbd_rollout.launches`)."""
+def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
+               terms, dt: float, wc: float, nu_w: float, beta: float,
+               alpha_min: float):
+    """K3. Same contract as `srbd_trial_plain`; launches the CUDA kernel
+    for CUDA tensors (and counts the launch in `srbd_trial.launches`)."""
     if d.device.type == "cpu":
-        return srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, m_scaled,
-                                  inertia_scaled)
+        return srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
+                                D, dV1, dV2, terms, dt, wc, nu_w, beta,
+                                alpha_min)
     if d.device.type != "cuda":
-        raise ValueError(f"srbd_rollout runs on cpu or cuda, got {d.device}")
+        raise ValueError(f"srbd_trial runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"srbd_rollout takes float32 or float64, got {dtype}")
+        raise ValueError(f"srbd_trial takes float32 or float64, got {dtype}")
     Bsz, ns, nx = d.shape
-    nu = U.shape[-1]
-    nc = (nx - 13) // 6
-    if nx != 13 + 6 * nc or nu != 6 * nc:
-        raise ValueError(f"not an SRBD layout: nx={nx}, nu={nu}")
+    nc = terms.nc
+    nu = 6 * nc
+    if nx != 13 + 6 * nc:
+        raise ValueError(f"not an SRBD layout: nx={nx}, nc={nc}")
     nA = alphas.shape[0]
     check_tensor("x0", x0, (Bsz, nx), dtype, dev)
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
@@ -90,23 +118,32 @@ def srbd_rollout(x0, X, U, ks, Ks, d, alphas, dt: float, m_scaled: float,
     check_tensor("Ks", Ks, (Bsz, ns, nu, nx), dtype, dev)
     check_tensor("d", d, (Bsz, ns, nx), dtype, dev)
     check_tensor("alphas", alphas, (nA,), dtype, dev)
-    check_tensor("inertia_scaled", inertia_scaled, (3, 3), dtype, dev)
+    for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
+        check_tensor(name, t, (Bsz,), dtype, dev)
+    pt = kernel_params(params, Bsz, ns, nc, dtype, dev)
     Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
     Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
+    cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    scalars = (_D * 24)(*terms.kernel_scalars(dt, wc))
     fn = _kernel_fn(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
-            Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(),
-            inertia_scaled.data_ptr(),
-            Bsz, ns, nc, nA, float(dt), float(m_scaled),
-            Xn.data_ptr(), Un.data_ptr(), stream,
+            Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(), ptrs,
+            merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+            Bsz, ns, nc, terms.contact_model, terms.number_of_legs, nA,
+            scalars, float(nu_w), float(beta), float(alpha_min),
+            Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
+            ok.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"srbd_rollout kernel failed: CUDA error {err}")
-    srbd_rollout.launches += 1
-    return Xn, Un
+        raise RuntimeError(f"srbd_trial kernel failed: CUDA error {err}")
+    srbd_trial.launches += 1
+    return Xn, Un, cost, merit, ok
 
 
-srbd_rollout.launches = 0
+srbd_trial.launches = 0

@@ -1,15 +1,17 @@
 """SRBD walking OCP — the port of srbd_horizon_tpu/problems/srbd.py
-(`build_srbd_problem`, without the closed-form `stage_jacobians`).
+(`build_srbd_problem`). Its closed-form `stage_jacobians` is the
+linearization kernel K4 (`kernels/linearize.py`).
 
 For the Kangaroo line feet (nc=4): nx=37, nu=24, 57 residual rows, 16
 equality rows, 15 terminal rows. Every callable broadcasts over leading
-batch axes and is traceable by `torch.func`.
+batch axes. The residual stacks are methods of `SRBDTerms`, which also
+carries the constants the kernels K3 and K4 read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,141 @@ class SRBDProblem:
     force_scaling: float
     nc: int
     contact_model: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SRBDTerms:
+    """The SRBD stage, equality and terminal residuals and the constants
+    they read (the residual weights are √gain, as in the reference). The
+    OCP's residual callables are these methods; the CUDA kernels K3 and K4
+    evaluate the same rows from `kernel_scalars`."""
+
+    nc: int
+    contact_model: int
+    number_of_legs: int
+    m_scaled: float
+    inertia_scaled: torch.Tensor     # (3, 3)
+    w_r: float
+    w_rdot: float
+    w_w: float
+    w_rel: float
+    w_qddot: float
+    w_minf: float
+    w_fswitch: float
+    com_z: float
+    d1: Tuple[float, float]
+    d2: Tuple[float, float]
+    _cache: Dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    @property
+    def n_rho(self) -> int:
+        """Rows of the stacked stage residual [residual; eq]."""
+        cm = self.contact_model
+        return 21 + 9 * self.nc + 2 * self.number_of_legs * (cm - 1) + 3 * self.nc
+
+    def _accels(self, s, i):
+        I_world = srbd_model.world_inertia(self.inertia_scaled, s["o"])
+        return srbd_model.f_srbd(self.m_scaled, I_world, i["f"], s["r"],
+                                 s["c"], s["w"])
+
+    def _rel_rows(self, c, w):
+        cm, nc, d1, d2 = self.contact_model, self.nc, self.d1, self.d2
+        return [
+            w * (-c[..., 0, 1] + c[..., cm, 1] - d1[1])[..., None],
+            w * (-c[..., 0, 0] + c[..., cm, 0] - d1[0])[..., None],
+            w * (-c[..., cm - 1, 1] + c[..., nc - 1, 1] - d2[1])[..., None],
+            w * (-c[..., cm - 1, 0] + c[..., nc - 1, 0] - d2[0])[..., None],
+        ]
+
+    def stage_residual(self, x, u, p):
+        nc = self.nc
+        s = srbd_model.split_srbd_state(x, nc)
+        i = srbd_model.split_srbd_input(u, nc)
+        lead = x.shape[:-1]
+        mt = p["mask_track"][..., 0:1]
+        otg = p["orientation_tracking_gain"][..., 0:1]
+        qerr = quat_product(s["o"], p["oref"])
+        rddot, wdot = self._accels(s, i)
+        qddot = torch.cat([rddot, wdot, i["cddot"].reshape(*lead, 3 * nc)], dim=-1)
+        res = [
+            mt * self.w_r * (s["r"][..., 2:3] - self.com_z),
+            mt * otg * qerr[..., :3],
+            mt * otg * (qerr[..., 3:4] - 1.0),
+            mt * self.w_rdot * (s["rdot"] - p["rdot_ref"]),
+            mt * self.w_w * (s["w"] - p["w_ref"]),
+            *self._rel_rows(s["c"], mt * self.w_rel),
+            self.w_qddot * qddot,
+            (self.w_minf * i["f"]).reshape(*lead, 3 * nc),
+            (self.w_fswitch * (1.0 - p["cdot_switch"])[..., :, None]
+             * i["f"]).reshape(*lead, 3 * nc),
+        ]
+        return torch.cat(res, dim=-1)
+
+    def terminal_residual(self, x, p):
+        s = srbd_model.split_srbd_state(x, self.nc)
+        otg = p["orientation_tracking_gain"][..., 0:1]
+        qerr = quat_product(s["o"], p["oref"])
+        res = [
+            self.w_r * (s["r"][..., 2:3] - self.com_z),
+            otg * qerr[..., :3],
+            otg * (qerr[..., 3:4] - 1.0),
+            self.w_rdot * (s["rdot"] - p["rdot_ref"]),
+            self.w_w * (s["w"] - p["w_ref"]),
+            *self._rel_rows(s["c"], self.w_rel),
+        ]
+        return torch.cat(res, dim=-1)
+
+    def stage_eq(self, x, u, p):
+        """relative_vel, cz_tracking, cdotxy_tracking — state-only."""
+        del u
+        nc, cm = self.nc, self.contact_model
+        s = srbd_model.split_srbd_state(x, nc)
+        lead = x.shape[:-1]
+        res = []
+        for leg in range(self.number_of_legs):
+            base = leg * cm
+            for i in range(1, cm):
+                res.append(s["cdot"][..., base, :2] - s["cdot"][..., base + i, :2])
+        res.append(s["c"][..., :, 2] - p["c_ref"])
+        res.append(
+            (p["cdot_switch"][..., :, None] * s["cdot"][..., :, :2]).reshape(
+                *lead, 2 * nc
+            )
+        )
+        return torch.cat(res, dim=-1)
+
+    def terminal_eq(self, x, p):
+        return self.stage_eq(x, None, p)
+
+    def stage_rho(self, x, u, p, wc: float):
+        """Stacked stage residual [residual; √w_c · eq] (wc = √w_c)."""
+        return torch.cat([self.stage_residual(x, u, p),
+                          wc * self.stage_eq(x, u, p)], dim=-1)
+
+    def total_cost(self, X, U, params, wc: float):
+        """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx);
+        params leaves are (…, ns+1, dim)."""
+        ns = U.shape[-2]
+        p_stage = {k: v[..., :ns, :] for k, v in params.items()}
+        rho = self.stage_rho(X[..., :ns, :], U, p_stage, wc)
+        rt = self.terminal_residual(X[..., ns, :],
+                                    {k: v[..., ns, :] for k, v in params.items()})
+        return torch.sum(rho * rho, dim=(-1, -2)) + torch.sum(rt * rt, dim=-1)
+
+    def kernel_scalars(self, dt: float, wc: float) -> Tuple[float, ...]:
+        """The 24 host scalars of csrc/srbd_common.cuh (`srbd::Consts`):
+        dt, m_scaled, the scaled inertia, the weights, √w_c, com_z, d1, d2."""
+        key = (float(dt), float(wc))
+        if key not in self._cache:
+            inertia = [float(v) for v in self.inertia_scaled.reshape(-1).tolist()]
+            self._cache[key] = (
+                float(dt), float(self.m_scaled), *inertia,
+                self.w_r, self.w_rdot, self.w_w, self.w_rel, self.w_qddot,
+                self.w_minf, self.w_fswitch, float(wc), self.com_z,
+                self.d1[0], self.d1[1], self.d2[0], self.d2[1],
+            )
+        return self._cache[key]
 
 
 def _layouts(nc: int):
@@ -74,106 +211,34 @@ def build_srbd_problem(
     feet0 = t(robot.foot_positions)
     inertia = t(robot.inertia)
     m = float(robot.mass)
+    inertia_scaled = inertia / fs
+    d1 = feet0[cm, :2] - feet0[0, :2]
+    d2 = feet0[nc - 1, :2] - feet0[cm - 1, :2]
+    sq = lambda g: float(np.sqrt(g))
+    terms = SRBDTerms(
+        nc=nc, contact_model=cm, number_of_legs=n_legs,
+        m_scaled=m / fs, inertia_scaled=inertia_scaled,
+        w_r=sq(cfg.r_tracking_gain),
+        w_rdot=sq(cfg.rdot_tracking_gain),
+        w_w=sq(cfg.w_tracking_gain),
+        w_rel=sq(cfg.rel_position_gain),
+        w_qddot=sq(cfg.min_qddot_gain),
+        w_minf=fs * sq(cfg.min_f_gain),
+        w_fswitch=fs * sq(cfg.force_switch_weight),
+        com_z=float(com[2]),
+        d1=(float(d1[0]), float(d1[1])),
+        d2=(float(d2[0]), float(d2[1])),
+    )
     constants = dict(
         m_scaled=m / fs,
-        inertia_scaled=inertia / fs,
+        inertia_scaled=inertia_scaled,
         com=com,
         feet0=feet0,
         m=m,
         inertia=inertia,
         force_scaling=fs,
+        srbd_terms=terms,
     )
-
-    d1 = feet0[cm, :2] - feet0[0, :2]
-    d2 = feet0[nc - 1, :2] - feet0[cm - 1, :2]
-    com_z = com[2]
-
-    sq = lambda g: float(np.sqrt(g))
-    w_r = sq(cfg.r_tracking_gain)
-    w_rdot = sq(cfg.rdot_tracking_gain)
-    w_w = sq(cfg.w_tracking_gain)
-    w_rel = sq(cfg.rel_position_gain)
-    w_qddot = sq(cfg.min_qddot_gain)
-    w_minf = fs * sq(cfg.min_f_gain)
-    w_fswitch = fs * sq(cfg.force_switch_weight)
-
-    def split(x, u):
-        return (
-            srbd_model.split_srbd_state(x, nc),
-            srbd_model.split_srbd_input(u, nc),
-        )
-
-    def _accels(s, i):
-        I_world = srbd_model.world_inertia(constants["inertia_scaled"], s["o"])
-        return srbd_model.f_srbd(
-            constants["m_scaled"], I_world, i["f"], s["r"], s["c"], s["w"]
-        )
-
-    def _rel_rows(c, w):
-        return [
-            w * (-c[..., 0, 1] + c[..., cm, 1] - d1[1])[..., None],
-            w * (-c[..., 0, 0] + c[..., cm, 0] - d1[0])[..., None],
-            w * (-c[..., cm - 1, 1] + c[..., nc - 1, 1] - d2[1])[..., None],
-            w * (-c[..., cm - 1, 0] + c[..., nc - 1, 0] - d2[0])[..., None],
-        ]
-
-    def stage_residual(x, u, p):
-        s, i = split(x, u)
-        lead = x.shape[:-1]
-        mt = p["mask_track"][..., 0:1]
-        otg = p["orientation_tracking_gain"][..., 0:1]
-        qerr = quat_product(s["o"], p["oref"])
-        rddot, wdot = _accels(s, i)
-        qddot = torch.cat([rddot, wdot, i["cddot"].reshape(*lead, 3 * nc)], dim=-1)
-        res = [
-            mt * w_r * (s["r"][..., 2:3] - com_z),
-            mt * otg * qerr[..., :3],
-            mt * otg * (qerr[..., 3:4] - 1.0),
-            mt * w_rdot * (s["rdot"] - p["rdot_ref"]),
-            mt * w_w * (s["w"] - p["w_ref"]),
-            *_rel_rows(s["c"], mt * w_rel),
-            w_qddot * qddot,
-            (w_minf * i["f"]).reshape(*lead, 3 * nc),
-            (w_fswitch * (1.0 - p["cdot_switch"])[..., :, None] * i["f"]).reshape(
-                *lead, 3 * nc
-            ),
-        ]
-        return torch.cat(res, dim=-1)
-
-    def terminal_residual(x, p):
-        s = srbd_model.split_srbd_state(x, nc)
-        otg = p["orientation_tracking_gain"][..., 0:1]
-        qerr = quat_product(s["o"], p["oref"])
-        res = [
-            w_r * (s["r"][..., 2:3] - com_z),
-            otg * qerr[..., :3],
-            otg * (qerr[..., 3:4] - 1.0),
-            w_rdot * (s["rdot"] - p["rdot_ref"]),
-            w_w * (s["w"] - p["w_ref"]),
-            *_rel_rows(s["c"], w_rel),
-        ]
-        return torch.cat(res, dim=-1)
-
-    def stage_eq(x, u, p):
-        """relative_vel, cz_tracking, cdotxy_tracking — state-only."""
-        del u
-        s = srbd_model.split_srbd_state(x, nc)
-        lead = x.shape[:-1]
-        res = []
-        for leg in range(n_legs):
-            base = leg * cm
-            for i in range(1, cm):
-                res.append(s["cdot"][..., base, :2] - s["cdot"][..., base + i, :2])
-        res.append(s["c"][..., :, 2] - p["c_ref"])
-        res.append(
-            (p["cdot_switch"][..., :, None] * s["cdot"][..., :, :2]).reshape(
-                *lead, 2 * nc
-            )
-        )
-        return torch.cat(res, dim=-1)
-
-    def terminal_eq(x, p):
-        return stage_eq(x, None, p)
 
     xdot = lambda x, u, p: srbd_model.srbd_xdot(x, u, constants)
     step = integrators.euler(xdot)
@@ -202,10 +267,10 @@ def build_srbd_problem(
         input_layout=input_layout,
         step=step,
         xdot=xdot,
-        stage_residual=stage_residual,
-        terminal_residual=terminal_residual,
-        stage_eq=stage_eq,
-        terminal_eq=terminal_eq,
+        stage_residual=terms.stage_residual,
+        terminal_residual=terms.terminal_residual,
+        stage_eq=terms.stage_eq,
+        terminal_eq=terms.terminal_eq,
         # stacked rows [residual(21+9nc); eq(2·legs·(cm−1)+3nc)]:
         #   x-rows: rz/o/rdot/w/rel (0:15), wdot (18:21), all eq rows
         #   u-rows: rddot/wdot/cddot/min_f/fswitch (15:21+9nc)

@@ -3,14 +3,17 @@ srbd_horizon_tpu/solvers/msddp.py (`MSDDP.solve_batch`), ported to
 PyTorch.
 
 One iteration for a fleet of B members:
-  1. sliced linearization (`torch.func.jacfwd` under `torch.func.vmap`,
-     over the declared row slices only);
+  1. the sliced linearization in closed form, over the declared row
+     slices only — kernel K4 (`kernels/linearize.py`);
   2. the blocksparse backward Riccati sweep — kernel K1
      (`kernels/riccati.py`);
-  3. the α₀ rollout trial and, for members that reject it, the gated,
-     compacted backtracking fan — kernel K3 (`kernels/rollout.py`) runs
-     every α of a fan in one launch;
+  3. the α₀ trial and, for members that reject it, the gated, compacted
+     backtracking fan — kernel K3 (`kernels/rollout.py`) rolls out, costs
+     and Armijo-tests every α of a trial in one launch;
   4. the masked update; active-set compaction across iterations.
+
+The kernels are SRBD-specific: they read the problem's `SRBDTerms`
+(`ocp.constants["srbd_terms"]`).
 
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
@@ -25,13 +28,14 @@ threshold inside a compacted iteration) use the size JAX would see.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions, check_options
+from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
-from srbd_horizon_tpu_torch.kernels.rollout import srbd_rollout
+from srbd_horizon_tpu_torch.kernels.rollout import srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
 
 
@@ -68,11 +72,16 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class MSDDP:
     """Multiple-shooting GN-DDP over a fixed OCP; `solve_batch` is the
-    fleet path. `host_syncs` counts the device→host reads it has made."""
+    fleet path. `host_syncs` counts the device→host reads it has made.
+    `on_phase`, when set, is called with the name of each phase as it
+    starts ("linearize", "sweep", "trial", "fan", "update", and "glue" for
+    the rest), so a caller can time the phases inside a real solve."""
 
     ocp: OCP
     opts: DDPOptions = DDPOptions()
     host_syncs: int = 0
+    on_phase: Optional[Callable[[str], None]] = dataclasses.field(
+        default=None, repr=False)
     rows: RiccatiRows = dataclasses.field(init=False, repr=False)
     _wc_by_dtype: dict = dataclasses.field(default_factory=dict, init=False,
                                            repr=False)
@@ -91,12 +100,20 @@ class MSDDP:
             raise NotImplementedError(
                 "column-sparse B (dynamics_u_cols) is not ported yet"
             )
-        if not {"m_scaled", "inertia_scaled"} <= set(ocp.constants):
+        if "srbd_terms" not in ocp.constants:
             raise NotImplementedError(
-                "the rollout kernel is SRBD-specific: the OCP's constants "
-                "need 'm_scaled' and 'inertia_scaled'"
+                "the linearization and trial kernels are SRBD-specific: the "
+                "OCP's constants need 'srbd_terms' (problems/srbd.py)"
             )
         self.rows = RiccatiRows.from_ocp(ocp)
+
+    @property
+    def terms(self):
+        return self.ocp.constants["srbd_terms"]
+
+    def _phase(self, name: str) -> None:
+        if self.on_phase is not None:
+            self.on_phase(name)
 
     def _host(self, t: torch.Tensor):
         """Read a small device value on the host (one counted sync)."""
@@ -115,18 +132,11 @@ class MSDDP:
 
     def _stage_rho(self, x, u, p):
         """Stacked stage residual [residual; √w_c · eq]."""
-        r = self.ocp.stage_residual(x, u, p)
-        h = self.ocp.stage_eq(x, u, p)
-        return torch.cat([r, self._wc(x.dtype) * h], dim=-1)
+        return self.terms.stage_rho(x, u, p, self._wc(x.dtype))
 
     def total_cost(self, X, U, params):
         """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx)."""
-        ns = self.ocp.ns
-        p_stage = {k: v[..., :ns, :] for k, v in params.items()}
-        rho = self._stage_rho(X[..., :ns, :], U, p_stage)
-        rt = self.ocp.terminal_residual(X[..., ns, :],
-                                        self.ocp.params_at(params, ns))
-        return torch.sum(rho * rho, dim=(-1, -2)) + torch.sum(rt * rt, dim=-1)
+        return self.terms.total_cost(X, U, params, self._wc(X.dtype))
 
     def _true_defects(self, X, U, params):
         ns = self.ocp.ns
@@ -137,56 +147,16 @@ class MSDDP:
     # ---------- linearization ----------
 
     def _linearize_sliced(self, X, U, params):
-        """Jacobian rows the blocksparse sweep reads, per member and node:
-        Sx = (A − I)[rx] (B,ns,|rx|,nx), Bs = B[ru] (B,ns,|ru|,nu),
-        Jxp = ∂ρ[gx]/∂x, Jup = ∂ρ[gu]/∂u, plus ρ (B,ns,nr), rt (B,nt),
-        Jt (B,nt,nx) and the defects d (B,ns,nx). One jacfwd per stack
-        over the (B·ns) flattened member-nodes."""
-        ocp = self.ocp
-        ns, nx, nu, dt = ocp.ns, ocp.nx, ocp.nu, ocp.dt
-        Bsz = X.shape[0]
-        idx = self.rows.index(X.device)
-        rx, ru, gx, gu = idx["rx"], idx["ru"], idx["gx"], idx["gu"]
+        """Jacobian rows the blocksparse sweep reads, per member and node
+        (K4, in closed form): Sx = (A − I)[rx] (B,ns,|rx|,nx),
+        Bs = B[ru] (B,ns,|ru|,nu), Jxp = ∂ρ[gx]/∂x, Jup = ∂ρ[gu]/∂u, plus
+        ρ (B,ns,nr), rt (B,nt), Jt (B,nt,nx) and the defects d (B,ns,nx)."""
+        params = {k: v.contiguous() for k, v in params.items()}
+        return srbd_linearize(X.contiguous(), U.contiguous(), params,
+                              self.terms, self.rows, self.ocp.dt,
+                              self._wc(X.dtype))
 
-        Xs = X[:, :ns].reshape(Bsz * ns, nx)
-        Us = U.reshape(Bsz * ns, nu)
-        P = {k: v[:, :ns].reshape(Bsz * ns, v.shape[-1])
-             for k, v in params.items()}
-
-        def f_x(x, u, p):
-            return ocp.step(x, u, p, dt).index_select(-1, rx)
-
-        def f_u(x, u, p):
-            return ocp.step(x, u, p, dt).index_select(-1, ru)
-
-        def rho_x(x, u, p):
-            return self._stage_rho(x, u, p).index_select(-1, gx)
-
-        def rho_u(x, u, p):
-            return self._stage_rho(x, u, p).index_select(-1, gu)
-
-        vmap, jacfwd = torch.func.vmap, torch.func.jacfwd
-        F = ocp.step(Xs, Us, P, dt)
-        rho = self._stage_rho(Xs, Us, P)
-        eye_rx = torch.eye(nx, dtype=X.dtype, device=X.device).index_select(0, rx)
-        Sx = vmap(jacfwd(f_x, argnums=0))(Xs, Us, P) - eye_rx
-        Bs = vmap(jacfwd(f_u, argnums=1))(Xs, Us, P)
-        Jxp = vmap(jacfwd(rho_x, argnums=0))(Xs, Us, P)
-        Jup = vmap(jacfwd(rho_u, argnums=1))(Xs, Us, P)
-
-        p_term = ocp.params_at(params, ns)
-        rt = ocp.terminal_residual(X[:, ns], p_term)
-        Jt = vmap(jacfwd(ocp.terminal_residual))(X[:, ns], p_term)
-        d = F - X[:, 1:].reshape(Bsz * ns, nx)
-
-        def per_node(a):
-            return a.reshape((Bsz, ns) + a.shape[1:]).contiguous()
-
-        return dict(Sx=per_node(Sx), Bs=per_node(Bs), Jxp=per_node(Jxp),
-                    Jup=per_node(Jup), rho=per_node(rho), rt=rt,
-                    Jt=Jt.contiguous(), d=per_node(d))
-
-    # ---------- backward sweep and rollout (the kernels) ----------
+    # ---------- backward sweep and trial (the kernels) ----------
 
     def _backward_lanemajor(self, lin, mu):
         """Blocksparse Riccati sweep (K1): batch-first lin in, ks (B,ns,nu),
@@ -196,31 +166,18 @@ class MSDDP:
             lin["d"], lin["Jt"], lin["rt"], mu, self.rows,
         )
 
-    def _rollout(self, x0, X, U, ks, Ks, d, alphas):
-        """Nonlinear rollout with defect contraction for every α (K3):
-        Xn (nα,B,ns+1,nx), Un (nα,B,ns,nu)."""
-        c = self.ocp.constants
-        return srbd_rollout(x0, X, U, ks, Ks, d, alphas, self.ocp.dt,
-                            c["m_scaled"], c["inertia_scaled"])
+    def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
+        """Rollout + cost + Armijo test for the α vector `al` (K,), one K3
+        launch: each result has a leading (K,) axis."""
+        opts = self.opts
+        return srbd_trial(
+            x0.contiguous(), X.contiguous(), U.contiguous(), ks, Ks, d, al,
+            {k: v.contiguous() for k, v in params.items()},
+            merit0, D, dV1, dV2, self.terms, self.ocp.dt, self._wc(X.dtype),
+            opts.defect_weight, opts.beta, opts.alpha_converge_threshold,
+        )
 
     # ---------- one batched iteration ----------
-
-    def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
-        """Rollout + cost + Armijo test for the α vector `al` (K,): each
-        result has a leading (K,) axis."""
-        opts = self.opts
-        nu_w = opts.defect_weight
-        Xn, Un = self._rollout(x0, X, U, ks, Ks, d, al)
-        new_cost = self.total_cost(Xn, Un, params)             # (K, b)
-        a = al[:, None]
-        new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
-        expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
-        ok = (
-            ((merit0 - new_merit) >= opts.beta * torch.clamp(expected, min=1e-16))
-            & torch.isfinite(new_merit)
-            & (a >= opts.alpha_converge_threshold)
-        )
-        return Xn, Un, new_cost, new_merit, ok
 
     def _run_fan(self, alphas, data):
         """Chunked deepening: width-K fans of ever-smaller α until every
@@ -279,7 +236,9 @@ class MSDDP:
         Bsz = state.cost.shape[0]
         lanes = Bsz if lanes is None else lanes
 
+        self._phase("linearize")
         lin = self._linearize_sliced(state.X, state.U, params)
+        self._phase("sweep")
         ks, Ks, dV1, dV2 = self._backward_lanemajor(lin, opts.mu0)
         d = lin["d"]
 
@@ -293,10 +252,12 @@ class MSDDP:
         )
 
         # α₀ alone first: at warm steady state every active member takes it
+        self._phase("trial")
         X1, U1, cost1, merit1, ok1 = (
             v[0] for v in self._trial(alphas[:1], x0, state.X, state.U, ks,
                                       Ks, d, params, merit0, D, dV1, dV2)
         )
+        self._phase("fan")
         active = ~state.converged
         a0 = opts.alpha_0
         expected0 = -(a0 * dV1 + a0 ** 2 * dV2) + (2.0 * a0 - a0 ** 2) * nu_w * D
@@ -334,18 +295,21 @@ class MSDDP:
         else:
             Xn, Un, new_cost, new_merit, accepted = self._run_fan(alphas, full_data)
 
+        self._phase("update")
         upd = accepted & active
         merit_red = merit0 - new_merit
         conv_now = (~accepted) | (
             merit_red <= opts.cost_reduction_ths * torch.clamp(merit0, min=1.0)
         )
-        return _IterState(
+        out = _IterState(
             X=torch.where(_bcast(upd, Xn), Xn, state.X),
             U=torch.where(_bcast(upd, Un), Un, state.U),
             cost=torch.where(upd, new_cost, state.cost),
             converged=torch.where(active, conv_now, state.converged),
             it=torch.where(active, state.it + 1, state.it),
         )
+        self._phase("glue")
+        return out
 
     def compaction_levels(self, Bsz: int):
         """Compacted sub-batch sizes [B/2, B/4, …] (at most

@@ -1,6 +1,7 @@
 """PyTorch port, isolation: no file of `srbd_horizon_tpu_torch/` nor
-`chip_smoke.py` imports JAX or the JAX package, and the entry points run
-on CUDA unless the caller asks for the CPU."""
+`chip_smoke.py` imports JAX or the JAX package, no module of the package
+uses `torch.func` (the linearization is the closed-form K4), and the
+entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -18,9 +19,8 @@ from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "srbd_horizon_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
-]
+PACKAGE_FILES = sorted((ROOT / "srbd_horizon_tpu_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "srbd_horizon_tpu")
 
 
@@ -41,17 +41,35 @@ def test_port_imports_no_jax(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def _uses_torch_func(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr == "func"
+                and isinstance(node.value, ast.Name) and node.value.id == "torch"):
+            return True
+    return any(m.split(".")[:2] == ["torch", "func"] or m.startswith("functorch")
+               for m in _imported_modules(path))
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_uses_no_torch_func(path):
+    assert not _uses_torch_func(path), f"{path.name} uses torch.func"
+
+
 def test_port_package_is_complete():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for required in (
         "srbd_horizon_tpu_torch/kernels/riccati.py",
         "srbd_horizon_tpu_torch/kernels/rollout.py",
+        "srbd_horizon_tpu_torch/kernels/linearize.py",
         "srbd_horizon_tpu_torch/kernels/build.py",
         "srbd_horizon_tpu_torch/solvers/msddp.py",
         "srbd_horizon_tpu_torch/runtime/loop.py",
     ):
         assert required in names
-    for src in ("riccati_backward.cu", "srbd_rollout.cu"):
+    for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
+                "srbd_common.cuh"):
         assert (ROOT / "srbd_horizon_tpu_torch" / "csrc" / src).exists()
 
 

@@ -5,7 +5,10 @@ package, on the CPU in float64:
     path for CPU tensors) against JAX `MSDDP._backward_lanemajor` on the
     same sliced linearization: ks, Ks, dV1, dV2 to 1e-9 relative;
   - K3 `srbd_rollout_plain` for 4 step sizes against
-    `jax.vmap(MSDDP._rollout)`, to 1e-12.
+    `jax.vmap(MSDDP._rollout)`, to 1e-12, and the whole fused trial
+    `srbd_trial_plain` (rollout, cost, Armijo test) against the JAX
+    package's trial (msddp.py:843-853) for 1 and 4 step sizes, to 1e-12,
+    with a member whose merit is not finite.
 """
 
 import jax
@@ -30,7 +33,11 @@ from srbd_horizon_tpu_torch.kernels.riccati import (
     riccati_backward,
     riccati_backward_plain,
 )
-from srbd_horizon_tpu_torch.kernels.rollout import srbd_rollout, srbd_rollout_plain
+from srbd_horizon_tpu_torch.kernels.rollout import (
+    srbd_rollout_plain,
+    srbd_trial,
+    srbd_trial_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -117,12 +124,15 @@ def test_rollout_plain_matches_jax(rollouts, out):
                                rtol=1e-12, atol=1e-12)
 
 
-def test_rollout_wrapper_takes_plain_path_on_cpu(rollouts):
-    args, _ = rollouts
-    before = srbd_rollout.launches
-    for g, w in zip(srbd_rollout(*args), srbd_rollout_plain(*args)):
-        assert torch.equal(g, w)
-    assert srbd_rollout.launches == before
+def test_rollout_wrapper_takes_plain_path_on_cpu(trials):
+    """The K3 wrapper, `srbd_trial`, takes its plain twin for CPU tensors
+    and launches nothing."""
+    args, _ = trials[4]
+    before = srbd_trial.launches
+    for g, w in zip(srbd_trial(*args), srbd_trial_plain(*args)):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(), w.nan_to_num())
+    assert srbd_trial.launches == before
 
 
 def test_rollout_alpha_zero_recovers_iterate(rollouts):
@@ -148,3 +158,74 @@ def test_riccati_f32_inputs_cost_little_in_f64_arithmetic(case):
     got = riccati_backward_plain(*rounded, float(np.float32(MU)), case["ts"].rows)
     for g, r in zip(got, ref):
         assert max_rel_err(g, r) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def trials(case):
+    """The trial for 1 and 4 step sizes, in both packages, on the case's
+    plan, gains and defects. Member 1 starts from a NaN state (NaN cost
+    and merit); member 2 has D = −inf, so its merit is −inf for α < 1 and
+    only the finiteness test rejects it."""
+    js, ts = case["js"], case["ts"]
+    opts = js.opts
+    ks, Ks, dV1, dV2 = case["jback"]
+    d = case["jlin"]["d"]
+    X, U, params = (to_jax(case[k]) for k in ("X", "U", "params"))
+    x0 = np.array(case["x0"])
+    x0[1] = np.nan
+    x0 = to_jax(x0)
+    nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
+    D = jnp.sum(d * d, axis=(1, 2)).at[2].set(-jnp.inf)
+    cost0 = jax.vmap(js.total_cost)(X, U, params)
+    merit0 = (cost0 + nu_w * D).at[2].set(cost0[2])
+
+    def one(a):     # msddp.py:843-853
+        Xn, Un = jax.vmap(
+            lambda x0_, X_, U_, k_, K_, d_, p_: js._rollout(
+                x0_, X_, U_, k_, K_, d_, p_, a)
+        )(x0, X, U, ks, Ks, d, params)
+        new_cost = jax.vmap(js.total_cost)(Xn, Un, params)
+        new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu_w * D
+        ok = (
+            ((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
+            & jnp.isfinite(new_merit)
+            & (a >= opts.alpha_converge_threshold)
+        )
+        return Xn, Un, new_cost, new_merit, ok
+
+    t = lambda a: to_torch(np_of(a))
+    out = {}
+    for nA in (1, 4):
+        want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+        args = (t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks),
+                case["tlin"]["d"], to_torch(ALPHAS[:nA]), to_torch(case["params"]),
+                t(merit0), t(D), t(dV1), t(dV2), ts.terms, ts.ocp.dt,
+                ts._wc(torch.float64), opts.defect_weight, opts.beta,
+                opts.alpha_converge_threshold)
+        out[nA] = (args, want)
+    return out
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("out", range(5), ids=["Xn", "Un", "cost", "merit", "ok"])
+def test_trial_plain_matches_jax(trials, nA, out):
+    args, want = trials[nA]
+    got = srbd_trial_plain(*args)[out]
+    assert tuple(got.shape) == tuple(want[out].shape)
+    if out == 4:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want[out]))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[out]),
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+def test_trial_rejects_non_finite_merit(trials, nA):
+    args, _ = trials[nA]
+    _, _, cost, merit, ok = srbd_trial_plain(*args)
+    assert bool(torch.isnan(cost[:, 1]).all()) and not bool(ok[:, 1].any())
+    assert not bool(ok[:, 2].any())
+    assert bool(torch.isfinite(merit[:, [0, 3]]).all())
+    if nA == 4:     # α < 1: merit −inf passes the decrease test alone
+        assert bool(torch.isneginf(merit[1:, 2]).all())

@@ -1,7 +1,10 @@
-"""PyTorch port, linearization: `MSDDP._linearize_sliced` (torch.func
-jacfwd under vmap, over the declared row slices) against the JAX
-package's sliced linearization on the same numpy trajectories, in
-float64 to 1e-10; the solver's cost, defects and cold start to 1e-12."""
+"""PyTorch port, linearization: `MSDDP._linearize_sliced` (the closed-form
+K4, `kernels/linearize.py`, whose plain twin runs on the CPU) against the
+JAX package's sliced linearization (`jax.jacfwd` over the declared row
+slices) on the same numpy trajectories, in float64 to 1e-10; the plain
+K4 against JAX's jacfwd at random points with non-unit quaternions and
+switched contacts, to rtol 1e-9 / atol 1e-11; the solver's cost, defects
+and cold start to 1e-12."""
 
 import jax
 import numpy as np
@@ -13,10 +16,15 @@ from _torch_parity import (
     max_rel_err,
     np_of,
     problems,
+    random_xup,
     solvers,
     to_jax,
     to_torch,
     trajectories,
+)
+from srbd_horizon_tpu_torch.kernels.linearize import (
+    srbd_linearize,
+    srbd_linearize_plain,
 )
 
 torch.set_num_threads(1)
@@ -58,6 +66,47 @@ def test_linearize_sliced_shapes(linearized):
     assert got["rho"].shape[-1] == 73
     assert tuple(got["Jt"].shape[1:]) == (15, 37)
     assert all(got[k].is_contiguous() for k in KEYS)
+
+
+@pytest.fixture(scope="module")
+def random_points():
+    """B=3 members at random points around the walking regime: non-unit
+    quaternions, random contacts, forces and velocities, random parameter
+    rows with rounded (0/1) cdot_switch rows."""
+    jp, tp = problems()
+    js, ts = solvers(jp, tp)
+    B, ns = 3, jp.ocp.ns
+    x, u, p = random_xup(jp.ocp.params, jp.ocp.nx, jp.ocp.nu, seed=21,
+                         lead=(B, ns + 1))
+    U = np.ascontiguousarray(u[:, :ns])
+    x[..., 3:7] *= 1.1      # ‖o‖ ≈ 1.1: quat_to_rot is not normalized
+    rng = np.random.RandomState(22)
+    p["cdot_switch"] = np.round(rng.uniform(0, 1, p["cdot_switch"].shape))
+    assert np.all(np.abs(np.linalg.norm(x[..., 3:7], axis=-1) - 1.0) > 0.05)
+    assert set(np.unique(p["cdot_switch"])) == {0.0, 1.0}
+    want = jax.jit(jax.vmap(
+        lambda x_, u_, p_: js._linearize(x_, u_, p_, sliced=True)
+    ))(*to_jax((x, U, p)))
+    args = (to_torch(x), to_torch(U), to_torch(p), ts.terms, ts.rows,
+            tp.ocp.dt, ts._wc(torch.float64))
+    return args, want
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_closed_form_matches_jacfwd(random_points, key):
+    args, want = random_points
+    got = srbd_linearize_plain(*args)
+    np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                               rtol=1e-9, atol=1e-11)
+
+
+def test_linearize_wrapper_takes_plain_path_on_cpu(random_points):
+    args, _ = random_points
+    before = srbd_linearize.launches
+    got, want = srbd_linearize(*args), srbd_linearize_plain(*args)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k])
+    assert srbd_linearize.launches == before   # no kernel launch on CPU
 
 
 @pytest.fixture(scope="module")
