@@ -30,7 +30,29 @@ parallel, into build/kernels/), then:
      from the same carry, and one cold-start tick at pushes of 0.2 in
      which the backtracking fan runs; iterations and convergence equal,
      plans to 1e-9. The float32 card path against the float64 CPU path
-     is printed without a limit.
+     is printed without a limit;
+  5. the constrained path's kernels at B=256 (ns=20, nx=37, nu=30, the
+     240-row AL inner stack) on a linearization point with active cones
+     and boxes: K5 (the isrbd linearization), K1 at the isrbd sizes (18 of
+     30 live B columns; its shared memory is printed) and K6 (the isrbd
+     trial, at 1 and 4 step sizes), by the same rules as K4, K1 and K3;
+     K1's time at fleet sizes around whole waves of blocks is printed
+     for both problems (no limit);
+  6. the constrained path: the fleet is seeded by the batched offline AL
+     solve, then `ALDDP.serving_tick_batch` runs through
+     `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
+     inner iteration, full gait-phase prior, cz stiffness 3200, shifted
+     warm start): one tick, 60 warm-up ticks, 20 timed ticks with a sync
+     each. K5 launches = K1 launches = α₀ trials = solver iterations over
+     the timed ticks, no `torch.func` transform runs, and the largest
+     constraint violation over the timed ticks stays below 1e-2; then the
+     phases inside 5 more ticks, 2 profiled ticks, K5, K1 and K6 against
+     their twins by the rules of 5 (K1 in float64 to 1e-8) on the inputs
+     the solver hands them in one further tick of that fleet, and B=4096
+     both in chunks of 256 and whole (printed, no limit);
+  7. the constrained card path against the CPU path at B=8 in float64: 3
+     serving ticks from one CPU-made seed, iterations equal, X, U and λ
+     to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON; the
@@ -49,6 +71,10 @@ HERE = Path(__file__).resolve().parent
 SEED = 0
 B_MAIN = 512
 B_LARGE = 4096
+B_CONSTRAINED = 256                 # the constrained path's serving batch
+CONSTRAINED_CHUNK = 256
+CZ_RHO_WEIGHT = 3200.0              # cz stiffness of the serving configuration
+VIOL_LIMIT = 1e-2                   # healthy runs read ~2e-3, diverging ones 1e-1
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 # K1 carries float32 tensors in float64 on chip, so against the float64
@@ -57,6 +83,7 @@ H100_F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 # units. The float32 plain twin errs ~1e-2 (Quu is ill-conditioned under
 # the 1e6 constraint weight), so a rule scaled by it would test nothing.
 K1_F32_TOL = 1e-6
+K1_LIVE_F64_TOL = 1e-8              # K1 on the serving path's own inputs
 # K4 computes in float32; besides the 2× rule, each output stays below
 # this share of its largest value
 K4_F32_CAP = 1e-5
@@ -135,16 +162,17 @@ def inv_flops(n):
             + 2 * (k * k * m + m * k * k + m * k * m + k * m * m + k * m * k))
 
 
-def riccati_flops(Bsz, ns, nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b):
-    """FLOPs one K1 sweep needs (products as 2 FLOPs per multiply-add)."""
+def riccati_flops(Bsz, ns, nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc):
+    """FLOPs one K1 sweep needs (products as 2 FLOPs per multiply-add); the
+    B-chain products run over the n_uc live columns of B only."""
     node = 2 * (
         nx * nx                                  # Vxx d
         + nx * nx * n_rx                         # VA
-        + n_ru * n_ru * nu                       # V[ru,ru] Bs
+        + n_ru * n_ru * n_uc                     # V[ru,ru] Bs
         + n_gx * nx + n_rx * nx                  # Qx
-        + n_gu * nu + n_ru * nu                  # Qu
-        + n_gu * nu * nu + n_ru * nu * nu        # Quu
-        + n_b * nu * nx + n_ru * nu * nx         # Qux
+        + n_gu * nu + n_ru * n_uc                # Qu
+        + n_gu * nu * nu + n_ru * n_uc * n_uc    # Quu
+        + n_b * nu * nx + n_ru * n_uc * nx       # Qux
         + n_gx * nx * nx + n_rx * nx * nx        # Qxx
         + nu * nu + nu * nu * nx                 # k, K
         + nu * nx + nu * nx * nx                 # Vx, Vxx update
@@ -179,6 +207,161 @@ def linearize_flops(Bsz, ns, nx, nu, nc, n_rho, n_rx, n_ru):
     return Bsz * (ns * node + 15 * 3)
 
 
+def isrbd_linearize_flops(Bsz, ns, nx, nu, nc, n_rho, n_term, n_rx, n_ru,
+                          n_uc):
+    """FLOPs one K5 call needs, counted from the kernel's arithmetic: two
+    evaluations of ẋ (~40 each, the quaternion rate), R I Rᵀ and Iw ω
+    (~180), the four ∂Iw_j columns (~200 each), the two quaternion blocks
+    of A − I (28 entries of a 4-term product), the residual rows (~6 each,
+    the six Newton–Euler rows ~10·nc more), one multiply per structurally
+    nonzero Jacobian entry (~400), the dt scaling of Sx and Bs, the
+    defects; the terminal rows per member."""
+    node = (2 * 40 + 180 + 4 * 200 + 28 * 10 + 6 * n_rho + 60 * nc + 400
+            + n_rx * nx + n_ru * n_uc + 3 * nx)
+    return Bsz * (ns * node + 6 * n_term + 100)
+
+
+def isrbd_trial_flops(Bsz, ns, nx, nu, nc, n_rho, n_term, nA):
+    """FLOPs one K6 call needs: gain application, two evaluations of ẋ,
+    the RK2 update, R I Rᵀ for the Euler rows, then ~8 per stage row
+    (value, square, sum) and the terminal rows, merit and Armijo test."""
+    node = (nx + 2 * nu * nx + 3 * nu + 2 * 40 + 6 * nx + 180 + 8 * n_rho
+            + 60 * nc)
+    return nA * Bsz * (ns * node + 8 * n_term + 20)
+
+
+ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
+TRIAL_OUT = ("Xn", "Un", "cost", "merit")
+SWEEP_OUT = ("ks", "Ks", "dV1", "dV2")
+
+
+def linearize_check(tag, plain, kernel, args, **extra):
+    """A linearization kernel (K4, K5) against its plain twin: float64 to
+    1e-9; float32 against the float64 plain result within 2× the float32
+    twin's own error + 1e-6 and below K4_F32_CAP. `args(dtype)` gives the
+    call's arguments. Returns the float64 plain and float32 kernel
+    outputs and the error figures; fails the run on disagreement."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    ref, got, p32, g32 = (plain(*args(f64)), kernel(*args(f64)),
+                          plain(*args(f32)), kernel(*args(f32)))
+    torch.cuda.synchronize()
+    e64 = {k: rel_err(got[k], ref[k]) for k in ORDER}
+    e32 = {k: rel_err(g32[k], ref[k]) for k in ORDER}
+    ep32 = {k: rel_err(p32[k], ref[k]) for k in ORDER}
+    abs32 = max(abs_err(g32[k], ref[k]) for k in ORDER)
+    emit(tag, f64_rel_err=e64, f64_tol=1e-9, f32_rel_err=e32,
+         f32_plain_rel_err=ep32,
+         f32_rule=f"kernel <= 2*plain + 1e-6 and <= {K4_F32_CAP}",
+         f32_max_abs_err=abs32, **extra)
+    ok32 = all(e32[k] <= 2 * ep32[k] + 1e-6 and e32[k] <= K4_F32_CAP
+               for k in ORDER)
+    if not (max(e64.values()) <= 1e-9 and ok32):
+        fail(f"{tag}: the linearization kernel disagrees with its plain "
+             "version")
+    return ref, g32, dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def riccati_check(tag, k1, lin64, mu, rows, f64_tol=1e-9, **extra):
+    """K1 against its plain twin on the float64 linearization `lin64`:
+    float64 to `f64_tol`, float32 to K1_F32_TOL against the float64 plain
+    result. Returns the float64 plain and float32 kernel outputs and the
+    error figures; fails the run on disagreement."""
+    import torch
+
+    lin32 = {k: v.float().contiguous() for k, v in lin64.items()}
+    a64 = tuple(lin64[k] for k in ORDER) + (mu, rows)
+    a32 = tuple(lin32[k] for k in ORDER) + (mu, rows)
+    ref, got = k1.riccati_backward_plain(*a64), k1.riccati_backward(*a64)
+    p32, g32 = k1.riccati_backward_plain(*a32), k1.riccati_backward(*a32)
+    torch.cuda.synchronize()
+    e64 = max(rel_err(g, r) for g, r in zip(got, ref))
+    e32 = {n: rel_err(g, r) for n, g, r in zip(SWEEP_OUT, g32, ref)}
+    ep32 = {n: rel_err(g, r) for n, g, r in zip(SWEEP_OUT, p32, ref)}
+    abs32 = max(abs_err(g, r) for g, r in zip(g32, ref))
+    emit(tag, f64_rel_err=e64, f64_tol=f64_tol, f32_rel_err=e32,
+         f32_tol=K1_F32_TOL, f32_plain_rel_err=ep32, f32_max_abs_err=abs32,
+         **extra)
+    if not (e64 <= f64_tol and all(e32[n] <= K1_F32_TOL for n in SWEEP_OUT)):
+        fail(f"{tag}: K1 (riccati_backward) disagrees with its plain version")
+    return ref, g32, lin32, dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def trial_check(tag, plain, kernel, args, alphas4, merit0, D, dV1, dV2, opts,
+                nan_member, **extra):
+    """A trial kernel (K3, K6) against its plain twin at 1 and 4 step
+    sizes: float64 to 1e-9 with equal flags; float32 against the float64
+    plain result within 2× the float32 twin's own error + 1e-6, flags
+    equal except where the float64 Armijo margin is within rounding of
+    zero; member `nan_member` starts from a NaN state and must be
+    rejected. `args(dtype, alphas)` gives the call's arguments."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    e64s, e32s, p32s, abs32, flags, fine = {}, {}, {}, 0.0, {}, True
+    for nA in (1, 4):
+        al = alphas4[:nA]
+        ref, got = plain(*args(f64, al)), kernel(*args(f64, al))
+        p32, g32 = plain(*args(f32, al)), kernel(*args(f32, al))
+        torch.cuda.synchronize()
+        e64 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, got, ref)}
+        e32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, g32, ref)}
+        ep32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, p32, ref)}
+        abs32 = max(abs32, max(abs_err(g, r) for g, r in zip(g32, ref)))
+        a = al[:, None]
+        margin = (merit0 - ref[3]) - opts.beta * torch.clamp(
+            -(a * dV1 + a * a * dV2)
+            + (2 * a - a * a) * opts.defect_weight * D, min=1e-16)
+        near = margin.abs() <= 1e-4 * merit0.abs().clamp_min(1.0)
+        flips32 = int(((g32[4] != ref[4]) & ~near).sum())
+        flags[nA] = dict(
+            f64_flags_equal=bool(torch.equal(got[4], ref[4])),
+            f32_flips_off_margin=flips32, near_margin=int(near.sum()),
+            accepted=int(ref[4].sum()),
+            nan_member_rejected=not bool(got[4][:, nan_member].any()))
+        e64s[nA], e32s[nA], p32s[nA] = e64, e32, ep32
+        fine &= (max(e64.values()) <= 1e-9
+                 and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in TRIAL_OUT)
+                 and flags[nA]["f64_flags_equal"] and flips32 == 0
+                 and flags[nA]["nan_member_rejected"])
+    emit(tag, f64_rel_err=e64s, f64_tol=1e-9, f32_rel_err=e32s,
+         f32_plain_rel_err=p32s, f32_rule="kernel <= 2*plain + 1e-6",
+         flags=flags, f32_max_abs_err=abs32, **extra)
+    if not fine:
+        fail(f"{tag}: the trial kernel disagrees with its plain version")
+    worst = lambda d: max(max(e.values()) for e in d.values())
+    return dict(e64=worst(e64s), e32=worst(e32s), p32=worst(p32s), abs32=abs32)
+
+
+def kernel_row(name, mod, launches, ms, plain_ms, bound_ms, bound_by, err,
+               tol_f32, **extra):
+    """One entry of the `kernels` line from a check's error figures."""
+    worst = lambda v: max(v.values()) if isinstance(v, dict) else v
+    return dict(name=name, route="cuda", source=mod.SOURCE,
+                replaces=mod.REPLACES, launches=launches,
+                max_abs_err=err["abs32"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                max_rel_err_f64=worst(err["e64"]), tol_f64=1e-9,
+                max_rel_err_f32=worst(err["e32"]), tol_f32=tol_f32,
+                plain_rel_err_f32=worst(err["p32"]), **extra)
+
+
+def k1_wave_probe(k1, lin32, order, mu, rows, sizes):
+    """K1's time at fleet sizes on either side of whole waves of blocks
+    (one block per member): {B: ms}, float32, members repeated to size."""
+    import torch
+
+    n = next(iter(lin32.values())).shape[0]
+    reps = -(-max(sizes) // n)
+    big = {k: torch.cat([lin32[k]] * reps) for k in order}
+    out = {}
+    for Bw in sizes:
+        args = tuple(big[k][:Bw].contiguous() for k in order) + (mu, rows)
+        out[Bw] = cuda_ms(lambda: k1.riccati_backward(*args), reps=10)
+    return out
+
+
 class PhaseClock:
     """`MSDDP.on_phase` callback: a CUDA event and a host time at every
     phase boundary of a tick; each interval is charged to the phase that
@@ -202,13 +385,15 @@ class PhaseClock:
         self.marks = []
 
 
-def tick_spans(loop, carry, inp, ticks):
+def tick_spans(solver, step, carry, ticks):
     """Per-phase device-timeline and host times inside `ticks` real ticks
-    (means per tick), and the tick wall time they add up to."""
+    (means per tick), and the tick wall time they add up to. `solver` is
+    the `MSDDP` whose `on_phase` hook marks the phases, `step(carry)` runs
+    one tick and returns the next carry."""
     import torch
 
     clock = PhaseClock()
-    loop.solver.on_phase = clock
+    solver.on_phase = clock
     dev_ms, host_ms, entries = defaultdict(float), defaultdict(float), defaultdict(int)
     walls = []
     try:
@@ -216,13 +401,13 @@ def tick_spans(loop, carry, inp, ticks):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             clock("glue")
-            carry, _ = loop.tick_batch(carry, inp)
+            carry = step(carry)
             clock("end")
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
             clock.charge(dev_ms, host_ms, entries)
     finally:
-        loop.solver.on_phase = None
+        solver.on_phase = None
     per = lambda d: {k: v / ticks for k, v in sorted(d.items())}
     return carry, dict(
         ticks=ticks, tick_wall_ms=statistics.fmean(walls),
@@ -233,22 +418,23 @@ def tick_spans(loop, carry, inp, ticks):
     )
 
 
-def profile_ticks(loop, carry, inp, tick_ms, ticks=2):
+def profile_ticks(solver, step, carry, tick_ms, ticks=2):
     """Device busy time, kernel launches and the heaviest kernels per tick
-    under torch.profiler. The profiler slows the host, so the idle share
-    is taken against `tick_ms`, the unprofiled tick time."""
+    under torch.profiler (`solver` and `step` as in `tick_spans`). The
+    profiler slows the host, so the idle share is taken against `tick_ms`,
+    the unprofiled tick time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    s = loop.solver
+    s = solver
     syncs0 = s.host_syncs
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         c = carry
         for _ in range(ticks):
-            c, _ = loop.tick_batch(c, inp)
+            c = step(c)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / ticks
     kernels = [e for e in prof.key_averages()
@@ -312,11 +498,20 @@ def main():
 
     from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
     from srbd_horizon_tpu_torch.kernels import build
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
     from srbd_horizon_tpu_torch.kernels import linearize as k4
     from srbd_horizon_tpu_torch.kernels import riccati as k1
     from srbd_horizon_tpu_torch.kernels import rollout as k3
     from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
+    from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.runtime.chunked import chunk_map
     from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop, walk_command
+    from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+    from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
 
     # ---------------- phase 1: device ----------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,7 +564,7 @@ def main():
               for k, v in ocp.params.items()}
     rows = solver64.rows
     mu = opts.mu0
-    order = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
+    order = ORDER
 
     def cast(t, dtype):
         return t.to(dtype).contiguous()
@@ -381,45 +576,14 @@ def main():
                 s.rows, dt, s._wc(dtype))
 
     # K4: the linearization
-    lin64 = k4.srbd_linearize_plain(*k4_args(torch.float64))
-    lin_got64 = k4.srbd_linearize(*k4_args(torch.float64))
-    lin_p32 = k4.srbd_linearize_plain(*k4_args(torch.float32))
-    lin_g32 = k4.srbd_linearize(*k4_args(torch.float32))
-    torch.cuda.synchronize()
-    k4_e64 = {k: rel_err(lin_got64[k], lin64[k]) for k in order}
-    k4_e32 = {k: rel_err(lin_g32[k], lin64[k]) for k in order}
-    k4_p32 = {k: rel_err(lin_p32[k], lin64[k]) for k in order}
-    k4_abs32 = max(abs_err(lin_g32[k], lin64[k]) for k in order)
-    k4_ok32 = all(k4_e32[k] <= 2 * k4_p32[k] + 1e-6 and k4_e32[k] <= K4_F32_CAP
-                  for k in order)
-    emit("k4_check", f64_rel_err=k4_e64, f64_tol=1e-9, f32_rel_err=k4_e32,
-         f32_plain_rel_err=k4_p32,
-         f32_rule=f"kernel <= 2*plain + 1e-6 and <= {K4_F32_CAP}",
-         f32_max_abs_err=k4_abs32)
-    if not (max(k4_e64.values()) <= 1e-9 and k4_ok32):
-        fail("K4 (srbd_linearize) disagrees with its plain version")
-    lin32 = {k: v.float().contiguous() for k, v in lin64.items()}
+    lin64, lin_g32, k4_err = linearize_check(
+        "k4_check", k4.srbd_linearize_plain, k4.srbd_linearize, k4_args)
 
     # K1: the Riccati sweep, on the float64 plain linearization
     def k1_args(lin):
         return tuple(lin[k] for k in order) + (mu, rows)
 
-    ref64 = k1.riccati_backward_plain(*k1_args(lin64))
-    got64 = k1.riccati_backward(*k1_args(lin64))
-    plain32 = k1.riccati_backward_plain(*k1_args(lin32))
-    got32 = k1.riccati_backward(*k1_args(lin32))
-    torch.cuda.synchronize()
-    names = ("ks", "Ks", "dV1", "dV2")
-    k1_e64 = max(rel_err(g, r) for g, r in zip(got64, ref64))
-    k1_e32 = {n: rel_err(g, r) for n, g, r in zip(names, got32, ref64)}
-    k1_p32 = {n: rel_err(g, r) for n, g, r in zip(names, plain32, ref64)}
-    k1_abs32 = max(abs_err(g, r) for g, r in zip(got32, ref64))
-    k1_ok32 = all(k1_e32[n] <= K1_F32_TOL for n in names)
-    emit("k1_check", f64_rel_err=k1_e64, f64_tol=1e-9,
-         f32_rel_err=k1_e32, f32_tol=K1_F32_TOL, f32_plain_rel_err=k1_p32,
-         f32_max_abs_err=k1_abs32)
-    if not (k1_e64 <= 1e-9 and k1_ok32):
-        fail("K1 (riccati_backward) disagrees with its plain version")
+    ref64, got32, lin32, k1_err = riccati_check("k1_check", k1, lin64, mu, rows)
 
     # K3: the fused trial; member 7 starts from a NaN state, so its cost
     # and merit are NaN and its flags must be False
@@ -440,42 +604,9 @@ def main():
                 s._wc(dtype), opts.defect_weight, opts.beta,
                 opts.alpha_converge_threshold)
 
-    out_names = ("Xn", "Un", "cost", "merit")
-    k3_e64, k3_e32, k3_p32, k3_abs32, k3_flags = {}, {}, {}, 0.0, {}
-    k3_fine = True
-    for nA in (1, 4):
-        al = alphas4[:nA]
-        ref = k3.srbd_trial_plain(*k3_args(torch.float64, al))
-        got = k3.srbd_trial(*k3_args(torch.float64, al))
-        p32 = k3.srbd_trial_plain(*k3_args(torch.float32, al))
-        g32 = k3.srbd_trial(*k3_args(torch.float32, al))
-        torch.cuda.synchronize()
-        e64 = {n: rel_err(g, r) for n, g, r in zip(out_names, got, ref)}
-        e32 = {n: rel_err(g, r) for n, g, r in zip(out_names, g32, ref)}
-        ep32 = {n: rel_err(g, r) for n, g, r in zip(out_names, p32, ref)}
-        k3_abs32 = max(k3_abs32, max(abs_err(g, r) for g, r in zip(g32, ref)))
-        # float32 flags against the float64 ones, except where the
-        # float64 Armijo margin is within rounding of zero
-        a = al[:, None]
-        margin = (merit0_64 - ref[3]) - opts.beta * torch.clamp(
-            -(a * dV1_64 + a * a * dV2_64)
-            + (2 * a - a * a) * opts.defect_weight * D64, min=1e-16)
-        near = margin.abs() <= 1e-4 * merit0_64.abs().clamp_min(1.0)
-        flips32 = int(((g32[4] != ref[4]) & ~near).sum())
-        k3_flags[nA] = dict(
-            f64_flags_equal=bool(torch.equal(got[4], ref[4])),
-            f32_flips_off_margin=flips32, near_margin=int(near.sum()),
-            accepted=int(ref[4].sum()), nan_member_rejected=not bool(got[4][:, 7].any()))
-        k3_e64[nA], k3_e32[nA], k3_p32[nA] = e64, e32, ep32
-        k3_fine &= (max(e64.values()) <= 1e-9
-                    and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in out_names)
-                    and k3_flags[nA]["f64_flags_equal"] and flips32 == 0
-                    and k3_flags[nA]["nan_member_rejected"])
-    emit("k3_check", f64_rel_err=k3_e64, f64_tol=1e-9, f32_rel_err=k3_e32,
-         f32_plain_rel_err=k3_p32, f32_rule="kernel <= 2*plain + 1e-6",
-         flags=k3_flags, f32_max_abs_err=k3_abs32)
-    if not k3_fine:
-        fail("K3 (srbd_trial) disagrees with its plain version")
+    k3_err = trial_check("k3_check", k3.srbd_trial_plain, k3.srbd_trial,
+                         k3_args, alphas4, merit0_64, D64, dV1_64, dV2_64,
+                         opts, nan_member=7)
 
     # timing at the main path's shapes and type (float32, B=512)
     l32 = k4_args(torch.float32)
@@ -497,7 +628,7 @@ def main():
     k1_bytes = nbytes(*(lin32[k] for k in order), rows.packed(dev), *got32)
     k1_flop = riccati_flops(B, ns, nx, nu, lin32["Jt"].shape[1],
                             len(rows.rx), len(rows.ru), len(rows.gx),
-                            len(rows.gu), len(rows.bx))
+                            len(rows.gu), len(rows.bx), len(rows.uc))
     k1_bound, k1_by = bound(k1_bytes, k1_flop)
 
     x0[7] = x0[6]
@@ -537,7 +668,12 @@ def main():
          srbd_trial_ms=k3_ms, srbd_trial_plain_ms=k3_plain_ms,
          srbd_trial_bound_ms=k3_bound, srbd_trial_bytes=k3_bytes,
          srbd_trial_flop=k3_flop, srbd_trial_4alpha_ms=k3_fan_ms)
-    del lin64, lin32, lin_got64, lin_p32, lin_g32, ref64, got64, plain32, got32
+    emit("k1_wave_probe", sizes="srbd", card=card,
+         shared_memory_bytes=k1.shared_memory_bytes(nx, nu, 15, rows),
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         ms_by_B=k1_wave_probe(k1, lin32, order, mu, rows,
+                               (132, 264, 265, 512, 528, 529)))
+    del lin64, lin32, lin_g32, ref64, got32
 
     # ---------------- phase 3: the main path ----------------
     def run_main(Bsz, warm, timed):
@@ -618,10 +754,11 @@ def main():
         fail(f"the main path ran {func_calls['n']} torch.func transforms")
 
     loop, carry, inp = runs[0]
-    carry, spans = tick_spans(loop, carry, inp, ticks=5)
+    srbd_step = lambda c: loop.tick_batch(c, inp)[0]
+    carry, spans = tick_spans(loop.solver, srbd_step, carry, ticks=5)
     emit("tick_spans", B=B_MAIN, card=card, **spans)
     emit("tick_profile", B=B_MAIN, card=card,
-         **profile_ticks(loop, carry, inp, main["tick_p50_ms"]))
+         **profile_ticks(loop.solver, srbd_step, carry, main["tick_p50_ms"]))
 
     large = run_main(B_LARGE, warm=1, timed=2)
     emit("main_path_large", **large)
@@ -683,31 +820,412 @@ def main():
     if fan["fan_runs_card"] == 0:
         fail("the backtracking fan did not run in the fan tick")
 
+    # ---------------- phase 5: the constrained path's kernels ----------------
+    feet = kangaroo_line_feet()
+
+    def constrained_solvers(dtype, device, max_iters):
+        prob = build_isrbd_problem(SRBDConfig(dtype=dtype), feet,
+                                   cz_rho_weight=CZ_RHO_WEIGHT, device=device)
+        return prob, ALDDP(prob.ocp, *al_serving_options(max_iters))
+
+    iprob64, al64 = constrained_solvers(torch.float64, dev, 1)
+    _, al32 = constrained_solvers(torch.float32, dev, 1)
+    iocp = iprob64.ocp
+    inx, inu = iocp.nx, iocp.nu
+    irows = al64.inner.rows
+    Bc = B_CONSTRAINED
+    n_eq, n_eq_T, n_in = al64._sizes
+    g = np.random.RandomState(SEED + 2)
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    # a linearization point around the walk with a non-unit quaternion,
+    # forces with large horizontal parts (active cones), boxes drawn inside
+    # the data (active on either side), random multipliers and penalties
+    Xi = np.zeros((Bc, ns + 1, inx))
+    Xi[..., 0:3] = [0.0, 0.0, 0.88] + 0.05 * g.randn(Bc, ns + 1, 3)
+    Xi[..., 3:7] = [0.1, -0.2, 0.05, 0.97] + 0.02 * g.randn(Bc, ns + 1, 4)
+    Xi[..., 7:] = g.uniform(-0.3, 0.3, (Bc, ns + 1, inx - 7))
+    Ui = 0.5 * g.randn(Bc, ns, inu)
+    for q in range(nc):
+        Ui[..., 9 + 6 * q:12 + 6 * q] = ([0.0, 0.0, 98.0]
+                                         + [60.0, 60.0, 5.0] * g.randn(Bc, ns, 3))
+    pos = lambda *shape: t64(np.abs(g.randn(*shape)))
+    ist = al64.init(t64(Xi[:, 0]))._replace(
+        lam_eq=t64(g.randn(Bc, ns, n_eq)), lam_eq_T=t64(g.randn(Bc, n_eq_T)),
+        mu_ub=5.0 * pos(Bc, ns, n_in), mu_lb=pos(Bc, ns, n_in),
+        mu_x_ub=pos(Bc, ns + 1, inx), mu_x_lb=pos(Bc, ns + 1, inx),
+        mu_u_ub=pos(Bc, ns, inu), mu_u_lb=pos(Bc, ns, inu),
+        rho=t64(10.0 ** g.uniform(3, 5, Bc)))
+    iparams = {k: v.expand((Bc,) + tuple(v.shape)).contiguous()
+               for k, v in iocp.params.items()}
+    for k in ("mask_track", "mask_srbd", "mask_lip", "mask_lipzone"):
+        iparams[k] = t64(g.randint(0, 2, tuple(iparams[k].shape)))
+    iparams["Wo"] = pos(Bc, ns + 1, 1)
+    iparams["rdot_ref"] = t64(0.1 * g.randn(Bc, ns + 1, 3))
+    iparams["c_ref"] = 0.05 * pos(Bc, ns + 1, nc)
+    for name, lo, hi in (("x", -0.1, 0.1), ("u", 60.0, 130.0)):
+        lb = getattr(iocp, f"{name}_lb").expand(Bc, -1, -1).clone()
+        ub = getattr(iocp, f"{name}_ub").expand(Bc, -1, -1).clone()
+        fin = torch.isfinite(ub)
+        lb[fin], ub[fin] = lo, hi
+        iparams[f"{name}_lb"], iparams[f"{name}_ub"] = lb, ub
+    pin64 = {k: v.contiguous()
+             for k, v in al64._params_with_multipliers(iparams, ist).items()}
+    Xi, Ui = t64(Xi), t64(Ui)
+
+    def k5_args(dtype):
+        a = al64 if dtype == torch.float64 else al32
+        return (cast(Xi, dtype), cast(Ui, dtype),
+                {k: cast(v, dtype) for k, v in pin64.items()}, a.terms,
+                a.inner.rows, iocp.dt)
+
+    ilin64, ilin_g32, k5_err = linearize_check(
+        "k5_check", k5.isrbd_linearize_plain, k5.isrbd_linearize, k5_args,
+        B=Bc)
+    active = {name: float((ilin64["rho"][..., a:b] > 0).double().mean())
+              for name, a, b in (("cones", 66, 86), ("x_box", 106, 180),
+                                 ("u_box", 180, 240))}
+    emit("k5_active_row_share", **active)
+    if not all(0.02 < v < 0.98 for v in active.values()):
+        fail(f"the K5 check point has no mix of active and idle rows: {active}")
+
+    # K1 at the isrbd sizes (18 of 30 live B columns)
+    def k1i_args(lin):
+        return tuple(lin[k] for k in order) + (mu, irows)
+
+    nt_i = ilin64["Jt"].shape[1]
+    k1i_smem = k1.shared_memory_bytes(inx, inu, nt_i, irows)
+    iref64, igot32, ilin32, k1i_err = riccati_check(
+        "k1_isrbd_check", k1, ilin64, mu, irows, B=Bc,
+        live_b_columns=len(irows.uc), nu=inu, shared_memory_bytes=k1i_smem,
+        shared_memory_bytes_srbd=k1.shared_memory_bytes(nx, nu, 15, rows))
+
+    # K6: the isrbd trial; member 7 starts from a NaN state
+    iopts = al64.inner.opts
+    ix0 = Xi[:, 0] + t64(0.005 * g.randn(Bc, inx))
+    ix0[7] = float("nan")
+    iks, iKs, idV1, idV2 = iref64
+    iD = torch.sum(ilin64["d"] ** 2, dim=(1, 2))
+    imerit0 = al64.inner.total_cost(Xi, Ui, pin64) + iopts.defect_weight * iD
+
+    def k6_args(dtype, alphas):
+        a = al64 if dtype == torch.float64 else al32
+        c = lambda t: cast(t, dtype)
+        return (c(ix0), c(Xi), c(Ui), c(iks), c(iKs), c(ilin64["d"]),
+                c(alphas), {k: c(v) for k, v in pin64.items()}, c(imerit0),
+                c(iD), c(idV1), c(idV2), a.terms, iocp.dt,
+                iopts.defect_weight, iopts.beta, iopts.alpha_converge_threshold)
+
+    k6_err = trial_check("k6_check", k6.isrbd_trial_plain, k6.isrbd_trial,
+                         k6_args, alphas4, imerit0, iD, idV1, idV2, iopts,
+                         nan_member=7, B=Bc)
+
+    # timing at the constrained path's shapes and type (float32, B=256)
+    i32 = k5_args(torch.float32)
+    k5_ms = cuda_ms(lambda: k5.isrbd_linearize(*i32), reps=20)
+    k5_plain_ms = cuda_ms(lambda: k5.isrbd_linearize_plain(*i32), reps=3,
+                          warmup=1)
+    k5_bytes = nbytes(i32[0], i32[1], *k5.kernel_params(
+        i32[2], Bc, ns, al32.terms, torch.float32, dev), irows.packed(dev),
+        *ilin_g32.values())
+    k5_flop = isrbd_linearize_flops(
+        Bc, ns, inx, inu, nc, al32.terms.n_rho, al32.terms.n_term,
+        len(irows.rx), len(irows.ru), len(irows.uc))
+    k5_bound, k5_by = bound(k5_bytes, k5_flop)
+
+    ia32 = k1i_args(ilin32)
+    k1i_ms = cuda_ms(lambda: k1.riccati_backward(*ia32), reps=20)
+    k1i_plain_ms = cuda_ms(lambda: k1.riccati_backward_plain(*ia32), reps=3,
+                           warmup=1)
+    k1i_bytes = nbytes(*(ilin32[k] for k in order), irows.packed(dev), *igot32)
+    k1i_flop = riccati_flops(Bc, ns, inx, inu, nt_i, len(irows.rx),
+                             len(irows.ru), len(irows.gx), len(irows.gu),
+                             len(irows.bx), len(irows.uc))
+    k1i_bound, k1i_by = bound(k1i_bytes, k1i_flop)
+
+    ix0[7] = ix0[6]
+    t32 = k6_args(torch.float32, alphas4[:1])
+    k6_ms = cuda_ms(lambda: k6.isrbd_trial(*t32), reps=50)
+    k6_plain_ms = cuda_ms(lambda: k6.isrbd_trial_plain(*t32), reps=3, warmup=1)
+    k6_out = k6.isrbd_trial(*t32)
+    k6_in = [t for t in t32[:12] if isinstance(t, torch.Tensor)]
+    k6_bytes = nbytes(*k6_in, *k5.kernel_params(
+        t32[7], Bc, ns, al32.terms, torch.float32, dev), *k6_out)
+    k6_flop = isrbd_trial_flops(Bc, ns, inx, inu, nc, al32.terms.n_rho,
+                                al32.terms.n_term, 1)
+    k6_bound, k6_by = bound(k6_bytes, k6_flop)
+    t32_fan = k6_args(torch.float32, alphas4)
+    k6_fan_ms = cuda_ms(lambda: k6.isrbd_trial(*t32_fan), reps=50)
+    emit("kernel_times_constrained", card=card, B=Bc,
+         isrbd_linearize_ms=k5_ms, isrbd_linearize_plain_ms=k5_plain_ms,
+         isrbd_linearize_bound_ms=k5_bound, isrbd_linearize_bytes=k5_bytes,
+         isrbd_linearize_flop=k5_flop,
+         riccati_backward_ms=k1i_ms, riccati_backward_plain_ms=k1i_plain_ms,
+         riccati_bound_ms=k1i_bound, riccati_bytes=k1i_bytes,
+         riccati_flop=k1i_flop,
+         isrbd_trial_ms=k6_ms, isrbd_trial_plain_ms=k6_plain_ms,
+         isrbd_trial_bound_ms=k6_bound, isrbd_trial_bytes=k6_bytes,
+         isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms)
+    emit("k1_wave_probe", sizes="isrbd", card=card,
+         shared_memory_bytes=k1i_smem,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         ms_by_B=k1_wave_probe(k1, ilin32, order, mu, irows,
+                               (66, 132, 133, 256, 264, 265)))
+    del ilin64, ilin32, ilin_g32, iref64, igot32, pin64, iparams, ist
+
+    # ---------------- phase 6: the constrained path ----------------
+    def make_fleet(Bsz, dtype, device):
+        """The seeded fleet as the serving programs start it: offline and
+        online solvers, WPG, and the inputs of the first tick."""
+        prob, offline = constrained_solvers(dtype, device, 15)
+        _, online = constrained_solvers(dtype, device, 1)
+        wpg = WalkingPatternGenerator.build(0.0, ns, dtype=dtype, device=device)
+        gg = np.random.RandomState(11)
+        x0 = prob.initial_state[None] + torch.as_tensor(
+            0.01 * gg.randn(Bsz, inx), dtype=dtype, device=device)
+        U0 = prob.static_input[None].expand(ns, -1)
+        params = {k: v.expand((Bsz,) + tuple(v.shape)).contiguous()
+                  for k, v in prob.ocp.params.items()}
+        period = 2 * wpg.step_nodes
+        state = (None, params, wpg.init_state((Bsz,)),
+                 torch.ones(Bsz, dtype=torch.int32, device=device),
+                 torch.tensor([[0.1, 0.0, 0.0]], dtype=dtype,
+                              device=device).expand(Bsz, -1).contiguous(),
+                 online.init_full_phase_prior(period, Bsz))
+        seed = lambda: offline.solve_batch(offline.init(x0, U0), x0, params)
+        return offline, online, wpg, period, state, seed
+
+    def run_constrained(Bsz, warm, timed, chunk=0):
+        offline, online, wpg, period, state, seed = make_fleet(
+            Bsz, torch.float32, dev)
+        counts = {"iterations": 0, "alpha0_trials": 0, "trials": 0}
+        inner = online.inner
+        iterate, trial = inner._iteration_batch, inner._trial
+
+        def counted_iteration(*a, **kw):
+            counts["iterations"] += 1
+            return iterate(*a, **kw)
+
+        def counted_trial(al, *a):
+            counts["trials"] += 1
+            counts["alpha0_trials"] += int(al.numel() == 1)
+            return trial(al, *a)
+
+        inner._iteration_batch, inner._trial = counted_iteration, counted_trial
+        t0 = time.perf_counter()
+        st = seed()
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+        seed_viol = float(st.viol.max())
+
+        def tick(st, params, ws, action, rdot, pr):
+            return constrained_tick(online, wpg, st, params, ws, action, rdot,
+                                    prior=pr, outers=1, prior_ema=1.0)
+
+        one = chunk_map(tick, chunk) if chunk else tick
+
+        def step(state):
+            st, params, ws, pr = one(*state)
+            return (st, params, ws, state[3], state[4], pr)
+
+        state = (st,) + state[1:]
+        for _ in range(1 + warm):
+            state = step(state)
+        torch.cuda.synchronize()
+        before = dict(counts, k5=k5.isrbd_linearize.launches,
+                      k1=k1.riccati_backward.launches,
+                      k6=k6.isrbd_trial.launches, syncs=inner.host_syncs)
+        times, viols = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            state = step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            viols.append(float(state[0].viol.max()))
+        after = dict(counts, k5=k5.isrbd_linearize.launches,
+                     k1=k1.riccati_backward.launches,
+                     k6=k6.isrbd_trial.launches, syncs=inner.host_syncs)
+        inner._iteration_batch, inner._trial = iterate, trial
+        st = state[0]
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     (st.sol.X, st.sol.U, st.lam_eq, st.lam_eq_T, st.viol,
+                      st.sol.cost))
+        window = {k: after[k] - before[k] for k in after}
+        cruns.append((online, step, state))
+        return dict(
+            B=Bsz, dtype="float32", chunk=chunk, warmup_ticks=1 + warm,
+            ticks=timed, online_iters=1, outers=1, phase_prior="full",
+            cz_rho_weight=CZ_RHO_WEIGHT, shift_warmstart=True,
+            seed_seconds=seed_s, seed_viol_max=seed_viol,
+            window_viol_max=max(viols), final_viol_max=viols[-1],
+            tick_p50_ms=statistics.median(times), tick_max_ms=max(times),
+            tick_mean_ms=statistics.fmean(times),
+            solves_per_s=Bsz / statistics.median(times) * 1e3,
+            iterations_mean=float(st.sol.iterations.float().mean()),
+            syncs_per_tick=window["syncs"] / timed, timed_window=window,
+            finite=finite, card=card)
+
+    cruns = []
+    func_calls, restore_func = count_torch_func()
+    k1.riccati_backward.launches = 0
+    k5.isrbd_linearize.launches = 0
+    k6.isrbd_trial.launches = 0
+    cmain = run_constrained(B_CONSTRAINED, warm=60, timed=20)
+    claunches = {"riccati_backward": k1.riccati_backward.launches,
+                 "isrbd_linearize": k5.isrbd_linearize.launches,
+                 "isrbd_trial": k6.isrbd_trial.launches}
+    restore_func()
+    cmain["launches"] = claunches
+    cmain["torch_func_calls"] = func_calls["n"]
+    emit("constrained_path", **cmain)
+    w = cmain["timed_window"]
+    if not cmain["finite"]:
+        fail("the constrained path produced non-finite values")
+    if min(claunches.values()) == 0:
+        fail(f"a kernel was not launched on the constrained path: {claunches}")
+    if not (w["k5"] == w["k1"] == w["alpha0_trials"] == w["iterations"] > 0):
+        fail(f"K5, K1, α₀ trials and solver iterations differ over the timed "
+             f"ticks: {w}")
+    if w["k6"] != w["trials"]:
+        fail(f"K6 launches {w['k6']} do not cover the {w['trials']} trials")
+    if func_calls["n"]:
+        fail(f"the constrained path ran {func_calls['n']} torch.func transforms")
+    if not cmain["window_viol_max"] < VIOL_LIMIT:
+        fail(f"constraint violation {cmain['window_viol_max']} over the timed "
+             f"ticks is not below {VIOL_LIMIT}")
+
+    online, cstep, cstate = cruns[0]
+    cstate, cspans = tick_spans(online.inner, cstep, cstate, ticks=5)
+    emit("tick_spans_constrained", B=B_CONSTRAINED, card=card, **cspans)
+    emit("tick_profile_constrained", B=B_CONSTRAINED, card=card,
+         **profile_ticks(online.inner, cstep, cstate, cmain["tick_p50_ms"]))
+
+    # the kernels against their twins once more, on the inputs the serving
+    # path itself hands them: one further tick of the warm fleet with the
+    # solver's linearization and trial calls recorded (multipliers from 90
+    # ticks, and ½-slope ties wherever a force has underflowed to exactly
+    # 0: their count is printed)
+    inner = online.inner
+    live = {}
+    lin_call, trial_call = inner._linearize_sliced, inner._trial
+
+    def recorded_linearize(X, U, params):
+        live["lin"] = (X.clone(), U.clone(),
+                       {k: v.clone() for k, v in params.items()})
+        return lin_call(X, U, params)
+
+    def recorded_trial(al, x0, X, U, ks, Ks, d, params, *scalars):
+        live["trial"] = tuple(t.clone() for t in (x0, X, U, ks, Ks, d)) + (
+            {k: v.clone() for k, v in params.items()},) + tuple(
+            t.clone() for t in scalars)
+        return trial_call(al, x0, X, U, ks, Ks, d, params, *scalars)
+
+    inner._linearize_sliced, inner._trial = recorded_linearize, recorded_trial
+    cstate = cstep(cstate)
+    inner._linearize_sliced, inner._trial = lin_call, trial_call
+    torch.cuda.synchronize()
+    up = lambda t, dtype: (cast(t, dtype) if t.is_floating_point() else t)
+    lX, lU, lp = live["lin"]
+
+    def k5_live_args(dtype):
+        a = al64 if dtype == torch.float64 else al32
+        return (up(lX, dtype), up(lU, dtype),
+                {k: up(v, dtype) for k, v in lp.items()}, a.terms,
+                a.inner.rows, iocp.dt)
+
+    llin64, _, _ = linearize_check(
+        "k5_live_check", k5.isrbd_linearize_plain, k5.isrbd_linearize,
+        k5_live_args, B=Bc,
+        contact_forces_exactly_zero=int(
+            (lU[..., 6:].reshape(Bc, ns, nc, 6)[..., 3:] == 0).all(-1).sum()))
+    # at the warm fleet's multipliers and penalties Quu is worse
+    # conditioned than at the drawn point: two float64 sweeps that sum in
+    # different orders part at 1.3e-9 to 1.7e-9 there (4.9e-10 at the
+    # drawn point)
+    riccati_check("k1_live_check", k1, llin64, mu, irows,
+                  f64_tol=K1_LIVE_F64_TOL, B=Bc)
+    tx0, tX, tU, tks, tKs, td, tp, tm0, tD, tdV1, tdV2 = live["trial"]
+    tx0 = tx0.clone()
+    tx0[7] = float("nan")
+
+    def k6_live_args(dtype, alphas):
+        a = al64 if dtype == torch.float64 else al32
+        c = lambda t: up(t, dtype)
+        return (c(tx0), c(tX), c(tU), c(tks), c(tKs), c(td), c(alphas),
+                {k: c(v) for k, v in tp.items()}, c(tm0), c(tD), c(tdV1),
+                c(tdV2), a.terms, iocp.dt, iopts.defect_weight, iopts.beta,
+                iopts.alpha_converge_threshold)
+
+    trial_check("k6_live_check", k6.isrbd_trial_plain, k6.isrbd_trial,
+                k6_live_args, alphas4, tm0.double(), tD.double(),
+                tdV1.double(), tdV2.double(), iopts, nan_member=7, B=Bc)
+    del live, llin64
+    del cruns[:]
+    for chunk in (CONSTRAINED_CHUNK, 0):
+        probe = run_constrained(B_LARGE, warm=20, timed=3, chunk=chunk)
+        emit("constrained_path_large", **probe)
+        del cruns[:]
+
+    # ---------------- phase 7: constrained card path against CPU path --------
+    def ticks_c8(device, seed_state):
+        _, online, wpg, _, state, _ = make_fleet(8, torch.float64, device)
+        move = lambda t: t.to(device)
+        st = type(seed_state)(
+            sol=type(seed_state.sol)(*(move(t) for t in seed_state.sol)),
+            **{k: move(getattr(seed_state, k))
+               for k in seed_state._fields if k != "sol"})
+        state = (st,) + state[1:]
+        its = []
+        for _ in range(3):
+            st, params, ws, pr = constrained_tick(
+                online, wpg, *state, outers=1, prior_ema=1.0)
+            state = (st, params, ws, state[3], state[4], pr)
+            its.append(st.sol.iterations.cpu())
+        return state[0], its
+
+    _, _, _, _, _, seed_cpu = make_fleet(8, torch.float64, "cpu")
+    _, _, _, _, _, seed_card = make_fleet(8, torch.float64, dev)
+    st_seed = seed_cpu()
+    st_seed_card = seed_card()
+    emit("constrained_seed_card_vs_cpu", B=8,
+         X_rel_err=rel_err(st_seed_card.sol.X.cpu(), st_seed.sol.X),
+         lam_rel_err=rel_err(st_seed_card.lam_eq.cpu(), st_seed.lam_eq),
+         iterations_equal=bool(torch.equal(st_seed_card.sol.iterations.cpu(),
+                                           st_seed.sol.iterations)),
+         viol_cpu=float(st_seed.viol.max()))
+    c_cpu, it_cpu = ticks_c8("cpu", st_seed)
+    c_card, it_card = ticks_c8(dev, st_seed)
+    cvc = dict(
+        B=8, ticks=3, tol=1e-9,
+        iterations_equal=all(torch.equal(a, b) for a, b in zip(it_card, it_cpu)),
+        converged_equal=bool(torch.equal(c_card.sol.converged.cpu(),
+                                         c_cpu.sol.converged)),
+        X_rel_err=rel_err(c_card.sol.X.cpu(), c_cpu.sol.X),
+        U_rel_err=rel_err(c_card.sol.U.cpu(), c_cpu.sol.U),
+        lam_rel_err=rel_err(c_card.lam_eq.cpu(), c_cpu.lam_eq),
+        lam_T_rel_err=rel_err(c_card.lam_eq_T.cpu(), c_cpu.lam_eq_T),
+        viol_rel_err=rel_err(c_card.viol.cpu(), c_cpu.viol))
+    emit("constrained_card_vs_cpu", **cvc)
+    if not (cvc["iterations_equal"] and cvc["converged_equal"]
+            and max(cvc["X_rel_err"], cvc["U_rel_err"], cvc["lam_rel_err"],
+                    cvc["lam_T_rel_err"]) <= 1e-9):
+        fail("constrained card path and CPU path disagree")
+
+    lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
-        dict(name="srbd_linearize", route="cuda", source=k4.SOURCE,
-             replaces=k4.REPLACES, launches=launches["srbd_linearize"],
-             max_abs_err=k4_abs32, ms=k4_ms, plain_ms=k4_plain_ms,
-             bound_ms=k4_bound, bound_by=k4_by, library_ms=None,
-             max_rel_err_f64=max(k4_e64.values()), tol_f64=1e-9,
-             max_rel_err_f32=max(k4_e32.values()),
-             tol_f32=f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}",
-             plain_rel_err_f32=max(k4_p32.values())),
-        dict(name="riccati_backward", route="cuda", source=k1.SOURCE,
-             replaces=k1.REPLACES, launches=launches["riccati_backward"],
-             max_abs_err=k1_abs32, ms=k1_ms, plain_ms=k1_plain_ms,
-             bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
-             max_rel_err_f64=k1_e64, tol_f64=1e-9,
-             max_rel_err_f32=max(k1_e32.values()), tol_f32=K1_F32_TOL,
-             plain_rel_err_f32=max(k1_p32.values())),
-        dict(name="srbd_trial", route="cuda", source=k3.SOURCE,
-             replaces=k3.REPLACES, launches=launches["srbd_trial"],
-             max_abs_err=k3_abs32, ms=k3_ms, plain_ms=k3_plain_ms,
-             bound_ms=k3_bound, bound_by=k3_by, library_ms=None,
-             max_rel_err_f64=max(max(e.values()) for e in k3_e64.values()),
-             tol_f64=1e-9,
-             max_rel_err_f32=max(max(e.values()) for e in k3_e32.values()),
-             tol_f32="2*plain_rel_err_f32 + 1e-6",
-             plain_rel_err_f32=max(max(e.values()) for e in k3_p32.values())),
+        kernel_row("srbd_linearize", k4, launches["srbd_linearize"], k4_ms,
+                   k4_plain_ms, k4_bound, k4_by, k4_err, lin_tol),
+        kernel_row("riccati_backward", k1, launches["riccati_backward"], k1_ms,
+                   k1_plain_ms, k1_bound, k1_by, k1_err, K1_F32_TOL),
+        kernel_row("srbd_trial", k3, launches["srbd_trial"], k3_ms,
+                   k3_plain_ms, k3_bound, k3_by, k3_err, trial_tol),
+        kernel_row("isrbd_linearize", k5, claunches["isrbd_linearize"], k5_ms,
+                   k5_plain_ms, k5_bound, k5_by, k5_err, lin_tol),
+        kernel_row("riccati_backward_isrbd", k1, claunches["riccati_backward"],
+                   k1i_ms, k1i_plain_ms, k1i_bound, k1i_by, k1i_err,
+                   K1_F32_TOL, shared_memory_bytes=k1i_smem),
+        kernel_row("isrbd_trial", k6, claunches["isrbd_trial"], k6_ms,
+                   k6_plain_ms, k6_bound, k6_by, k6_err, trial_tol),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 `DDPOptions` (srbd_horizon_tpu/config.py), with `dtype` a torch dtype.
 
 Only fields the port reads are carried: a field of the JAX dataclasses
-that nothing here reads (the LIP and isrbd gains and bounds, the scan
-unroll factors, the Quu solver choice) is absent, so setting it raises
-`TypeError`; it comes back with the code that reads it. Of the options
+that nothing here reads (the LIP problem's ZMP gain, the example rate
+`hz`, the scan unroll factors, the Quu solver choice) is absent, so
+setting it raises `TypeError`; it comes back with the code that reads it. Of the options
 kept, `MSDDP` rejects at construction those whose path is not ported
 (see `check_options`).
 """
@@ -18,8 +18,8 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class SRBDConfig:
-    """Static configuration of the SRBD MPC problem (defaults = the
-    reference's launch parameters, as in the JAX package)."""
+    """Static configuration of the SRBD and isrbd MPC problems (defaults =
+    the reference's launch parameters, as in the JAX package)."""
 
     # horizon
     ns: int = 20
@@ -37,9 +37,17 @@ class SRBDConfig:
     force_switch_weight: float = 1e2
     min_qddot_gain: float = 1e0
     min_f_gain: float = 1e-2
+    rz_tracking_gain_isrbd: float = 2e3
 
     # physics
+    friction_cone_coefficient: float = 0.8
     force_scaling: float = 1000.0
+    gravity: float = 9.81
+    lip_height: float = 0.88
+
+    # variable boxes of the constrained (isrbd) problem
+    max_contact_force: float = 1000.0
+    max_contact_velocity: float = 10.0
 
     # numerics
     dtype: torch.dtype = torch.float32
@@ -51,6 +59,11 @@ class SRBDConfig:
     @property
     def dt(self) -> float:
         return self.T / self.ns
+
+    @property
+    def eta2(self) -> float:
+        """LIP natural frequency squared."""
+        return self.gravity / self.lip_height
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,11 @@ import torch
 
 from srbd_horizon_tpu_torch.config import resolve_device
 from srbd_horizon_tpu_torch.runtime.loop import LoopCarry, TickInput
+from srbd_horizon_tpu_torch.solvers.alddp import (
+    ALState,
+    FullPhasePrior,
+    PhasePrior,
+)
 from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution
 from srbd_horizon_tpu_torch.wpg import WPGState
 
@@ -46,6 +51,38 @@ def tick_input_from_numpy(action, rdot_ref, w_ref, *, device="cuda",
     )
 
 
+def solution_from_numpy(sol: Mapping[str, np.ndarray], *, device="cuda",
+                        dtype=torch.float32) -> DDPSolution:
+    """A DDPSolution from its fields by name (X, U, cost, converged,
+    iterations, defect_norm), batch-first."""
+    dev = resolve_device(device)
+    return DDPSolution(**{f: to_tensor(sol[f], device=dev, dtype=dtype)
+                          for f in DDPSolution._fields})
+
+
+def al_state_from_numpy(state: Mapping[str, np.ndarray], *, device="cuda",
+                        dtype=torch.float32) -> ALState:
+    """A fleet ALState from its fields by name; `sol` is itself the
+    mapping `solution_from_numpy` takes. Every leaf leads with the fleet
+    axis (rho and viol are (B,))."""
+    dev = resolve_device(device)
+    rest = {f: to_tensor(state[f], device=dev, dtype=dtype)
+            for f in ALState._fields if f != "sol"}
+    return ALState(sol=solution_from_numpy(state["sol"], device=dev,
+                                           dtype=dtype), **rest)
+
+
+def phase_prior_from_numpy(prior: Mapping[str, np.ndarray], *, device="cuda",
+                           dtype=torch.float32):
+    """A `FullPhasePrior` (fields lam_eq, lam_eq_T, seen) or a tail
+    `PhasePrior` (lam_tail, lam_T, seen_tail, seen_T) from its fields by
+    name, with the fleet axis leading."""
+    dev = resolve_device(device)
+    cls = FullPhasePrior if "lam_eq" in prior else PhasePrior
+    return cls(**{f: to_tensor(prior[f], device=dev, dtype=dtype)
+                  for f in cls._fields})
+
+
 def carry_from_numpy(x, sol: Mapping[str, np.ndarray], params,
                      step_counter, *, device="cuda",
                      dtype=torch.float32) -> LoopCarry:
@@ -55,8 +92,7 @@ def carry_from_numpy(x, sol: Mapping[str, np.ndarray], params,
     dev = resolve_device(device)
     return LoopCarry(
         x=to_tensor(x, device=dev, dtype=dtype),
-        sol=DDPSolution(**{f: to_tensor(sol[f], device=dev, dtype=dtype)
-                           for f in DDPSolution._fields}),
+        sol=solution_from_numpy(sol, device=dev, dtype=dtype),
         params=params_from_numpy(params, device=dev, dtype=dtype),
         wpg_state=WPGState(step_counter=to_tensor(step_counter, device=dev,
                                                   dtype=dtype)),

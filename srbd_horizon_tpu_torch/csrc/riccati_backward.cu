@@ -10,6 +10,13 @@
 // that branch computes, per member; its plain twin is
 // `kernels/riccati.py::riccati_backward_plain`.
 //
+// Where the dynamics consume only some inputs (`OCP.dynamics_u_cols`: the
+// isrbd forces are dead B columns), Bs carries the n_uc live columns only
+// and the three B-chain terms BsᵀVx_d[ru], BsᵀV[ru,ru]Bs, BsᵀVA[ru] are
+// added at the live positions of the dense Qu, Quu, Qux, exactly as
+// msddp.py:584-597 scatters them; the residual Grams cover every input.
+// With every column live (SRBD) the arithmetic is what it was.
+//
 // What bounds it on an H100: for the SRBD fleet (nx=37, nu=24, 22 live
 // rows of A−I, 18 of B, 34/42 residual rows touching x/u) one member-node
 // reads ~3.6k values (14.5 KB in f32) and writes 912 (3.6 KB), and does
@@ -17,6 +24,10 @@
 // 0.055 ms at 3.35 TB/s against 0.073 ms at 67 TFLOP/s (f32, no tensor
 // cores), so the floor is the arithmetic, ~0.07 ms; with the float64
 // arithmetic below (34 TFLOP/s) this kernel's own floor is ~0.15 ms.
+// For the isrbd AL inner problem (nx=37, nu=30, 19/37 live rows, 18 live
+// columns, 60/103 residual rows, a 101-row terminal stack) a member-node
+// reads ~6.7k values and does ~1.0 MFLOP; the block then holds ~137 KB of
+// float64 shared memory, so one block runs per SM.
 //
 // Design: one thread block per member, the node loop inside the block.
 // The value function (Vxx nx×nx, Vx) stays in shared memory across all
@@ -51,6 +62,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSmemExceeded = -1;   // kernels/riccati.py::SMEM_EXCEEDED
 
 // ---- closed-form inverses (one thread) ----
 
@@ -210,7 +222,7 @@ __device__ void spd_inverse(int n, const T* A, int lda, T* out, int ldo,
 }
 
 struct Dims {
-  int B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b;
+  int B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc;
 };
 
 // Shared-memory layout, in elements of T: the buffers, the int row table
@@ -229,7 +241,7 @@ struct Layout {
     Qx = o; o += g.nx;
     d = o; o += g.nx;
     Sx = o; o += g.n_rx * g.nx;
-    Bs = o; o += g.n_ru * g.nu;
+    Bs = o; o += g.n_ru * g.n_uc;
     Jxp = o; o += n_jx * g.nx;
     Jup = o; o += g.n_gu * g.nu;
     rxp = o; o += n_jx;
@@ -240,10 +252,12 @@ struct Layout {
     K = o; o += g.nu * g.nx;
     Qu = o; o += g.nu;
     k = o; o += g.nu;
-    W = o; o += g.n_ru * g.nu;
+    W = o; o += g.n_ru * g.n_uc;
     acc = o; o += 2;
     rows = o;
-    const int n_rows = g.n_rx + g.n_ru + g.n_gx + g.n_gu + 2 * g.n_b;
+    // the row table (… | uc) and, after it, each input's position in uc
+    const int n_rows =
+        g.n_rx + g.n_ru + g.n_gx + g.n_gu + 2 * g.n_b + g.n_uc + g.nu;
     o += (n_rows * static_cast<int>(sizeof(int)) + elem - 1) / elem;
     work = o;
   }
@@ -269,7 +283,7 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   const Layout L(g, static_cast<int>(sizeof(C)));
   const int nx = g.nx, nu = g.nu, ns = g.ns;
   const int n_rx = g.n_rx, n_ru = g.n_ru, n_gx = g.n_gx, n_gu = g.n_gu,
-            n_b = g.n_b;
+            n_b = g.n_b, n_uc = g.n_uc;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const size_t b = blockIdx.x;
 
@@ -300,9 +314,14 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   int* gu = gx + n_gx;
   int* bx = gu + n_gu;
   int* bu = bx + n_b;
+  int* uc = bu + n_b;
+  int* upos = uc + n_uc;            // position of input i in uc, or −1
 
-  const int n_rows = n_rx + n_ru + n_gx + n_gu + 2 * n_b;
+  const int n_rows = n_rx + n_ru + n_gx + n_gu + 2 * n_b + n_uc;
   for (int e = tid; e < n_rows; e += nthr) rx[e] = rows[e];
+  for (int i = tid; i < nu; i += nthr) upos[i] = -1;
+  __syncthreads();
+  for (int e = tid; e < n_uc; e += nthr) upos[uc[e]] = e;
 
   // terminal value function: Vxx = 2 JtᵀJt, Vx = 2 Jtᵀrt
   const int nt = g.nt;
@@ -327,13 +346,13 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
     const size_t bn = b * ns + n;
     // ---- stream this node's blocks in ----
     const T* Sx_g = Sx + bn * n_rx * nx;
-    const T* Bs_g = Bs + bn * n_ru * nu;
+    const T* Bs_g = Bs + bn * n_ru * n_uc;
     const T* Jx_g = Jxp + bn * n_gx * nx;
     const T* Ju_g = Jup + bn * n_gu * nu;
     const T* rho_g = rho + bn * g.nr;
     const T* d_g = d + bn * nx;
     for (int e = tid; e < n_rx * nx; e += nthr) Sxs[e] = Sx_g[e];
-    for (int e = tid; e < n_ru * nu; e += nthr) Bss[e] = Bs_g[e];
+    for (int e = tid; e < n_ru * n_uc; e += nthr) Bss[e] = Bs_g[e];
     for (int e = tid; e < n_gx * nx; e += nthr) Jxs[e] = Jx_g[e];
     for (int e = tid; e < n_gu * nu; e += nthr) Jus[e] = Ju_g[e];
     for (int e = tid; e < n_gx; e += nthr) rxp[e] = rho_g[gx[e]];
@@ -353,10 +372,10 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
       for (int r = 0; r < n_rx; ++r) s += Vxx[i * nx + rx[r]] * Sxs[r * nx + j];
       VA[e] = Vxx[e] + s;
     }
-    for (int e = tid; e < n_ru * nu; e += nthr) {
-      const int a = e / nu, j = e % nu;
+    for (int e = tid; e < n_ru * n_uc; e += nthr) {
+      const int a = e / n_uc, j = e % n_uc;
       C s = C(0);
-      for (int c = 0; c < n_ru; ++c) s += Vxx[ru[a] * nx + ru[c]] * Bss[c * nu + j];
+      for (int c = 0; c < n_ru; ++c) s += Vxx[ru[a] * nx + ru[c]] * Bss[c * n_uc + j];
       W[e] = s;
     }
     __syncthreads();
@@ -373,7 +392,9 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
       C lu = C(0);
       for (int q = 0; q < n_gu; ++q) lu += Jus[q * nu + j] * rup[q];
       C s = C(0);
-      for (int a = 0; a < n_ru; ++a) s += Bss[a * nu + j] * Vxd[ru[a]];
+      const int pj = upos[j];
+      if (pj >= 0)
+        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pj] * Vxd[ru[a]];
       Qu[j] = C(2) * lu + s;
     }
     for (int e = tid; e < nu * nu; e += nthr) {
@@ -381,7 +402,9 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
       C luu = C(0);
       for (int q = 0; q < n_gu; ++q) luu += Jus[q * nu + i] * Jus[q * nu + j];
       C s = C(0);
-      for (int a = 0; a < n_ru; ++a) s += Bss[a * nu + i] * W[a * nu + j];
+      const int pi = upos[i], pj = upos[j];
+      if (pi >= 0 && pj >= 0)
+        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pi] * W[a * n_uc + pj];
       Quu[e] = C(2) * luu + s + (i == j ? mu : C(0));
     }
     for (int e = tid; e < nu * nx; e += nthr) {
@@ -389,7 +412,9 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
       C lux = C(0);
       for (int q = 0; q < n_b; ++q) lux += Jus[bu[q] * nu + i] * Jxs[bx[q] * nx + j];
       C s = C(0);
-      for (int a = 0; a < n_ru; ++a) s += Bss[a * nu + i] * VA[ru[a] * nx + j];
+      const int pi = upos[i];
+      if (pi >= 0)
+        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pi] * VA[ru[a] * nx + j];
       Qux[e] = C(2) * lux + s;
     }
     for (int e = tid; e < nx * nx; e += nthr) {
@@ -463,7 +488,16 @@ int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
            void* dV1, void* dV2, void* stream) {
   if (g.B == 0) return 0;
   const size_t bytes = smem_bytes(g, static_cast<int>(sizeof(double)));
-  cudaError_t err = cudaFuncSetAttribute(
+  // refuse, rather than let the launch fail, when a block's shared memory
+  // exceeds what the card lets a block opt in to
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(limit)) return kSmemExceeded;
+  err = cudaFuncSetAttribute(
       riccati_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -488,12 +522,21 @@ int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
                       const void* Jt, const void* rt, const void* rows,       \
                       int B, int ns, int nx, int nu, int nr, int nt,          \
                       int n_rx, int n_ru, int n_gx, int n_gu, int n_b,        \
-                      double mu, void* ks, void* Ks, void* dV1, void* dV2,    \
-                      void* stream) {                                         \
-    const Dims g{B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b};        \
+                      int n_uc, double mu, void* ks, void* Ks, void* dV1,     \
+                      void* dV2, void* stream) {                              \
+    const Dims g{B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};  \
     return launch<T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows, g, mu, ks, Ks,  \
                      dV1, dV2, stream);                                       \
   }
 
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
+
+// Dynamic shared memory one block takes at these sizes, in bytes (float64
+// on chip for either tensor type).
+extern "C" long long riccati_backward_smem_bytes(int nx, int nu, int nt,
+                                                 int n_rx, int n_ru, int n_gx,
+                                                 int n_gu, int n_b, int n_uc) {
+  const Dims g{1, 1, nx, nu, 0, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};
+  return static_cast<long long>(smem_bytes(g, static_cast<int>(sizeof(double))));
+}

@@ -3,6 +3,8 @@
 // rates of its Euler step and the rows of its stacked stage residual
 // ρ = [stage_residual; √w_c·stage_eq] and of its terminal residual. Both
 // kernels evaluate the dynamics and the residuals through this one copy.
+// The rotation, inertia and 3×3 helpers and the warp reduction come from
+// csrc/rigid_common.cuh, which the isrbd kernels share.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/srbd.py, nc contacts):
 //   x = [r(3), o(4, xyzw), c(3nc), ṙ(3), ω(3), ċ(3nc)]        nx = 13 + 6nc
@@ -13,10 +15,11 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "rigid_common.cuh"
 
 namespace srbd {
+
+using namespace rigid;
 
 // host scalars, in this order: dt, m_scaled, inertia_scaled (9, row-major),
 // w_r, w_rdot, w_w, w_rel, w_qddot, w_minf, w_fswitch, √w_c, com_z,
@@ -106,61 +109,6 @@ __device__ void load_params(const Params<T>& P, size_t row, int nc, int lane,
     else v = P.p[6][row * nc + (e - kP_cref - nc)];
     out[e] = v;
   }
-}
-
-// R = quat_to_rot(o), the homogeneous (not normalized) form.
-template <typename T>
-__device__ void quat_to_rot(const T* o, T* R) {
-  const T qx = o[0], qy = o[1], qz = o[2], qw = o[3];
-  const T xx = qx * qx, yy = qy * qy, zz = qz * qz;
-  const T xy = qx * qy, xz = qx * qz, yz = qy * qz;
-  const T wx = qw * qx, wy = qw * qy, wz = qw * qz;
-  const T ww = qw * qw;
-  R[0] = ww + xx - yy - zz;
-  R[1] = T(2) * (xy - wz);
-  R[2] = T(2) * (xz + wy);
-  R[3] = T(2) * (xy + wz);
-  R[4] = ww - xx + yy - zz;
-  R[5] = T(2) * (yz - wx);
-  R[6] = T(2) * (xz - wy);
-  R[7] = T(2) * (yz + wx);
-  R[8] = ww - xx - yy + zz;
-}
-
-// RI = R I and Iw = (R I) Rᵀ, the world inertia.
-template <typename T>
-__device__ void world_inertia(const T* R, const T* I, T* RI, T* Iw) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-      for (int k = 0; k < 3; ++k) s += R[i * 3 + k] * I[k * 3 + j];
-      RI[i * 3 + j] = s;
-    }
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-      for (int k = 0; k < 3; ++k) s += RI[i * 3 + k] * R[j * 3 + k];
-      Iw[i * 3 + j] = s;
-    }
-}
-
-// Cofactors c (row-major: A⁻¹ = c / det) and det of a 3×3 A, as
-// math/quat.py::solve3x3 forms them.
-template <typename T>
-__device__ T adjugate3(const T* A, T* c) {
-  const T a00 = A[0], a01 = A[1], a02 = A[2];
-  const T a10 = A[3], a11 = A[4], a12 = A[5];
-  const T a20 = A[6], a21 = A[7], a22 = A[8];
-  c[0] = a11 * a22 - a12 * a21;
-  c[1] = a02 * a21 - a01 * a22;
-  c[2] = a01 * a12 - a02 * a11;
-  c[3] = a12 * a20 - a10 * a22;
-  c[4] = a00 * a22 - a02 * a20;
-  c[5] = a02 * a10 - a00 * a12;
-  c[6] = a10 * a21 - a11 * a20;
-  c[7] = a01 * a20 - a00 * a21;
-  c[8] = a00 * a11 - a01 * a10;
-  return a00 * c[0] + a01 * c[3] + a02 * c[6];
 }
 
 // Rigid-body part of ẋ on one thread: writes ȯ (xd[3:7]), r̈ (xd[i_rdot:+3])
@@ -307,13 +255,6 @@ __device__ T stage_rho_row(int g, const T* x, const T* u, const T* xd,
     h = p[kP_cref + nc + q / 2] * cdot[3 * (q / 2) + q % 2];
   }
   return k.wc * h;
-}
-
-// Warp-wide sum (every lane gets it).
-template <typename T>
-__device__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace srbd

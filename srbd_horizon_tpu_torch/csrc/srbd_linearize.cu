@@ -55,32 +55,6 @@ constexpr int kWarps = 4;
 constexpr int kTrack = 15;     // terminal rows = the tracking rows
 constexpr int kGeo = 40;       // R, RI, Iw, adj (9 each), det, Iw ω (3)
 
-// ∂R/∂oⱼ of quat_to_rot (row-major).
-template <typename T>
-__device__ void set9(T* D, T a, T b, T c, T d, T e, T f, T g, T h, T i) {
-  D[0] = a; D[1] = b; D[2] = c; D[3] = d; D[4] = e; D[5] = f; D[6] = g;
-  D[7] = h; D[8] = i;
-}
-
-template <typename T>
-__device__ void drot(int j, const T* o, T* D) {
-  const T x = T(2) * o[0], y = T(2) * o[1], z = T(2) * o[2], w = T(2) * o[3];
-  switch (j) {
-    case 0: set9(D, x, y, z, y, -x, -w, z, w, -x); break;
-    case 1: set9(D, -y, x, w, x, y, z, -w, z, -y); break;
-    case 2: set9(D, -z, -w, x, w, -z, y, x, y, z); break;
-    default: set9(D, w, -z, y, z, w, -x, -y, x, w); break;
-  }
-}
-
-// Column j of [v]ₓ.
-template <typename T>
-__device__ void skew_col(const T* v, int j, T* m) {
-  m[0] = j == 0 ? T(0) : j == 1 ? -v[2] : v[1];
-  m[1] = j == 0 ? v[2] : j == 1 ? T(0) : -v[0];
-  m[2] = j == 0 ? -v[1] : j == 1 ? v[0] : T(0);
-}
-
 // ∂b/∂(x, u)[col] — the right-hand side of Iw ω̇ = b differentiated along
 // column col of (x, u), Iw's own o-dependence included.
 template <typename T>
@@ -97,10 +71,10 @@ __device__ void rhs_column(int col, const T* x, const T* u, const T* xd,
     T f[3] = {T(0), T(0), T(0)};
     for (int q = 0; q < k.nc; ++q)
       for (int i = 0; i < 3; ++i) f[i] += u[6 * q + 3 + i];
-    skew_col(f, col, m);
+    rigid::skew_col(f, col, m);
   } else if (col < 7) {                            // o
     T D[9], P[9], dI[9];
-    drot(col - 3, x + 3, D);
+    rigid::drot(col - 3, x + 3, D);
     for (int a = 0; a < 3; ++a)
       for (int l = 0; l < 3; ++l) {
         T s = T(0);
@@ -127,13 +101,13 @@ __device__ void rhs_column(int col, const T* x, const T* u, const T* xd,
     m[2] = -v1[2] - (w[0] * v2[1] - w[1] * v2[0]);
   } else if (col < k.i_rdot) {                     // cₖ
     const int q = (col - 7) / 3, j = (col - 7) % 3;
-    skew_col(u + 6 * q + 3, j, m);
+    rigid::skew_col(u + 6 * q + 3, j, m);
     m[0] = -m[0];
     m[1] = -m[1];
     m[2] = -m[2];
   } else if (col >= k.i_w && col < k.i_cdot) {     // ω
     const int j = col - k.i_w;
-    skew_col(h, j, m);
+    rigid::skew_col(h, j, m);
     const T v0 = Iw[j], v1 = Iw[3 + j], v2 = Iw[6 + j];
     m[0] -= w[1] * v2 - w[2] * v1;
     m[1] -= w[2] * v0 - w[0] * v2;
@@ -142,7 +116,7 @@ __device__ void rhs_column(int col, const T* x, const T* u, const T* xd,
     const int q = (col - k.nx) / 6, j = (col - k.nx) % 6 - 3;
     const T* c = x + 7 + 3 * q;
     const T cr[3] = {c[0] - r[0], c[1] - r[1], c[2] - r[2]};
-    skew_col(cr, j, m);
+    rigid::skew_col(cr, j, m);
   }
 }
 

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library under `build/kernels/`
 (listed in `.gitignore`), then loaded with `ctypes`. K3 and K4 include
-`csrc/srbd_common.cuh`; a change to any file under `csrc/` rebuilds
+`csrc/srbd_common.cuh`, K5 and K6 `csrc/isrbd_common.cuh`, and both of
+those `csrc/rigid_common.cuh`; a change to any file under `csrc/` rebuilds
 every library. The build runs at
 first use; `build_all` starts one `nvcc` per stale source, all at once.
 Nothing here runs when the module is imported.
@@ -20,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize")
+KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize",
+                  "isrbd_rollout", "isrbd_linearize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

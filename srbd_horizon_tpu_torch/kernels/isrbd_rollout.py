@@ -1,0 +1,153 @@
+"""K6: the line-search trial of the isrbd AL inner problem — rollout, cost
+and Armijo test — over a vector of step sizes.
+
+`isrbd_trial` is the wrapper the solver calls. A CPU tensor goes to
+`isrbd_trial_plain`: `isrbd_rollout_plain`, the PyTorch transcription of
+the JAX package's `MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:
+1391-1410) for the RK2 double integrator evaluated for every α at once,
+then the trial's `total_cost` on the inner stacks and the Armijo test
+(:843-853); a CUDA tensor launches the hand-written kernel in
+`csrc/isrbd_rollout.cu`, which does all three in one launch, or raises.
+
+Per member and α, from x̂₀ = x0, for n = 0 … ns−1:
+
+    uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
+    x̂ₙ₊₁ = rk2(x̂ₙ, uₙ) − (1 − α) dₙ
+
+then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖² over the inner stage and
+terminal stacks (problems/isrbd_al.py), merit = cost + ν(1−α)²D and
+ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
+expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD. Outputs are Xn (nα, B, ns+1, nx),
+Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
+    check_terms,
+    kernel_params,
+    kernel_scalars,
+)
+from srbd_horizon_tpu_torch.math.linalg import lm_matvec
+
+# the functions K6 replaces (an XLA-fused scan and the trial's cost and
+# Armijo test on the AL inner OCP; the JAX package wrote no Pallas kernel
+# for them)
+REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1391"
+SOURCE = "srbd_horizon_tpu_torch/csrc/isrbd_rollout.cu"
+
+
+def isrbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
+    """Plain PyTorch rollout. x0 (B,nx), X (B,ns+1,nx), U (B,ns,nu),
+    ks (B,ns,nu), Ks (B,ns,nu,nx), d (B,ns,nx), alphas (nα,); `xdot(x, u)`
+    is the double integrator."""
+    nA = alphas.shape[0]
+    Bsz, ns, nx = d.shape
+    a = alphas[:, None, None]                          # (nα, 1, 1)
+    xhat = x0.expand(nA, Bsz, nx)
+    Xs, Us = [], []
+    for n in range(ns):
+        u = U[:, n] + a * ks[:, n] + lm_matvec(Ks[:, n], xhat - X[:, n])
+        k1 = xdot(xhat, u)
+        xnext = (xhat + dt * xdot(xhat + 0.5 * dt * k1, u)) - (1.0 - a) * d[:, n]
+        Xs.append(xhat)
+        Us.append(u)
+        xhat = xnext
+    Xs.append(xhat)
+    return torch.stack(Xs, dim=2), torch.stack(Us, dim=2)
+
+
+def isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
+                      dV2, terms, dt: float, nu_w: float, beta: float,
+                      alpha_min: float):
+    """Plain PyTorch K6: `isrbd_rollout_plain`, the cost Σ‖ρ‖² of each
+    rolled plan on the inner stacks (`terms` is the inner problem's
+    `ALTerms`) and the Armijo test. params leaves
+    (B,ns+1,dim); merit0, D, dV1, dV2 (B,)."""
+    Xn, Un = isrbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
+                                 terms.outer.xdot)
+    new_cost = terms.total_cost(Xn, Un, params)               # (nα, B)
+    a = alphas[:, None]
+    new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
+    ok = (
+        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
+        & torch.isfinite(new_merit)
+        & (a >= alpha_min)
+    )
+    return Xn, Un, new_cost, new_merit, ok
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+
+def _kernel_fn(dtype):
+    lib = library("isrbd_rollout")
+    fn = lib.isrbd_trial_f32 if dtype == torch.float32 else lib.isrbd_trial_f64
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 12 + [_I] * 6 + [_P] + [_D] * 3 + [_P] * 6)
+        fn.restype = _I
+    return fn
+
+
+def isrbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
+                terms, dt: float, nu_w: float, beta: float, alpha_min: float):
+    """K6. Same contract as `isrbd_trial_plain`; launches the CUDA kernel
+    for CUDA tensors (and counts the launch in `isrbd_trial.launches`)."""
+    if d.device.type == "cpu":
+        return isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
+                                 D, dV1, dV2, terms, dt, nu_w, beta, alpha_min)
+    if d.device.type != "cuda":
+        raise ValueError(f"isrbd_trial runs on cpu or cuda, got {d.device}")
+    dtype, dev = d.dtype, d.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"isrbd_trial takes float32 or float64, got {dtype}")
+    Bsz, ns, nx = d.shape
+    nu = U.shape[-1]
+    check_terms(terms, nx, nu)
+    o_ = terms.outer
+    nA = alphas.shape[0]
+    check_tensor("x0", x0, (Bsz, nx), dtype, dev)
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    check_tensor("ks", ks, (Bsz, ns, nu), dtype, dev)
+    check_tensor("Ks", Ks, (Bsz, ns, nu, nx), dtype, dev)
+    check_tensor("d", d, (Bsz, ns, nx), dtype, dev)
+    check_tensor("alphas", alphas, (nA,), dtype, dev)
+    for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
+        check_tensor(name, t, (Bsz,), dtype, dev)
+    pt = kernel_params(params, Bsz, ns, terms, dtype, dev)
+    Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
+    Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
+    cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    sc = kernel_scalars(terms, dt)
+    scalars = (_D * len(sc))(*sc)
+    fn = _kernel_fn(dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
+            Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(), ptrs,
+            merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+            Bsz, ns, o_.nc, o_.contact_model, o_.number_of_legs, nA,
+            scalars, float(nu_w), float(beta), float(alpha_min),
+            Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
+            ok.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"isrbd_trial kernel failed: CUDA error {err}")
+    isrbd_trial.launches += 1
+    return Xn, Un, cost, merit, ok
+
+
+isrbd_trial.launches = 0

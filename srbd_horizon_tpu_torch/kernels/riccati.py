@@ -22,6 +22,18 @@ Per member, the sweep runs over the nodes in reverse:
 from the terminal Vxx = 2JtᵀJt, Vx = 2Jtᵀrt. Sx = (A − I) on the live
 dynamics rows rx, Bs = B on the live rows ru; Jxp/Jup are the residual
 Jacobian rows that touch x (gx) and u (gu). Batch leads every tensor.
+
+Where the dynamics consume only some inputs (`OCP.dynamics_u_cols`; the
+isrbd forces are dead B columns), Bs carries just the live columns uc,
+(B,ns,|ru|,|uc|), and the three B-chain terms BsᵀVx_d[ru], BsᵀV[ru,ru]Bs
+and BsᵀVA[ru] are accumulated at uc into the dense Qu, Quu, Qux, as
+srbd_horizon_tpu/solvers/msddp.py:584-597 scatters them; the residual
+Grams stay dense over all nu inputs.
+
+The JAX package's AL solver asks its inner solver for a Cholesky gain
+solve, but its batched lane-major sweep ignores that option and always
+takes `lm_spd_inverse` (msddp.py:501-503), so every batched entry point
+there runs the block-Schur inverse. So does this sweep, for every caller.
 """
 
 from __future__ import annotations
@@ -53,7 +65,8 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward.cu"
 class RiccatiRows:
     """The row sets K1 contracts over, as sorted index tuples:
     rx/ru — live rows of (A − I)/B; gx/gu — residual rows touching x/u;
-    bx/bu — positions, within gx/gu, of the rows touching both."""
+    bx/bu — positions, within gx/gu, of the rows touching both; uc — live
+    columns of B (all of range(nu) when every input drives the dynamics)."""
 
     rx: Tuple[int, ...]
     ru: Tuple[int, ...]
@@ -61,6 +74,7 @@ class RiccatiRows:
     gu: Tuple[int, ...]
     bx: Tuple[int, ...]
     bu: Tuple[int, ...]
+    uc: Tuple[int, ...]
     _cache: Dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -71,29 +85,33 @@ class RiccatiRows:
         gx = tuple(sorted(int(r) for r in ocp.residual_x_rows))
         gu = tuple(sorted(int(r) for r in ocp.residual_u_rows))
         both = sorted(set(gx) & set(gu))
+        uc = (range(ocp.nu) if ocp.dynamics_u_cols is None
+              else sorted(set(int(c) for c in ocp.dynamics_u_cols)))
         return RiccatiRows(
             rx=rx, ru=ru, gx=gx, gu=gu,
             bx=tuple(gx.index(r) for r in both),
             bu=tuple(gu.index(r) for r in both),
+            uc=tuple(uc),
         )
 
     def index(self, device) -> Dict[str, torch.Tensor]:
-        """The six sets as int64 index tensors on `device` (built once)."""
+        """The seven sets as int64 index tensors on `device` (built once)."""
         key = ("index", str(device))
         if key not in self._cache:
             self._cache[key] = {
                 name: torch.tensor(getattr(self, name), dtype=torch.int64,
                                    device=device)
-                for name in ("rx", "ru", "gx", "gu", "bx", "bu")
+                for name in ("rx", "ru", "gx", "gu", "bx", "bu", "uc")
             }
         return self._cache[key]
 
     def packed(self, device) -> torch.Tensor:
-        """rx | ru | gx | gu | bx | bu as one int32 tensor (the kernel's
-        row table), built once per device."""
+        """rx | ru | gx | gu | bx | bu | uc as one int32 tensor (the
+        kernels' row table), built once per device."""
         key = ("packed", str(device))
         if key not in self._cache:
-            flat = self.rx + self.ru + self.gx + self.gu + self.bx + self.bu
+            flat = (self.rx + self.ru + self.gx + self.gu + self.bx + self.bu
+                    + self.uc)
             self._cache[key] = torch.tensor(flat, dtype=torch.int32,
                                             device=device)
         return self._cache[key]
@@ -101,7 +119,7 @@ class RiccatiRows:
 
 def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
                            rows: RiccatiRows):
-    """Plain PyTorch sweep. Shapes: Sx (B,ns,|rx|,nx), Bs (B,ns,|ru|,nu),
+    """Plain PyTorch sweep. Shapes: Sx (B,ns,|rx|,nx), Bs (B,ns,|ru|,|uc|),
     Jxp (B,ns,|gx|,nx), Jup (B,ns,|gu|,nu), rho (B,ns,nr), d (B,ns,nx),
     Jt (B,nt,nx), rt (B,nt). Returns ks (B,ns,nu), Ks (B,ns,nu,nx),
     dV1 (B,), dV2 (B,)."""
@@ -111,6 +129,8 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     idx = rows.index(dev)
     rx, ru, gx, gu = idx["rx"], idx["ru"], idx["gx"], idx["gu"]
     both = len(rows.bx) > 0
+    # Bs carries only the live B columns: scatter its chain terms back
+    uc = idx["uc"] if len(rows.uc) < nu else None
 
     Vxx = 2.0 * lm_matmul_tn(Jt, Jt)
     Vx = 2.0 * lm_matvec_tn(Jt, rt)
@@ -145,6 +165,12 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
         V_uu = Vxx.index_select(-2, ru).index_select(-1, ru)
         Quu_c = lm_matmul_tn(Bs_, lm_matmul(V_uu, Bs_))
         Qux_c = lm_matmul_tn(Bs_, VA.index_select(-2, ru))
+        if uc is not None:
+            Qu_c = Qu_c.new_zeros((Bsz, nu)).index_copy(-1, uc, Qu_c)
+            Quu_c = Quu_c.new_zeros((Bsz, nu, len(rows.uc))).index_copy(
+                -2, uc, Quu_c)
+            Quu_c = Quu_c.new_zeros((Bsz, nu, nu)).index_copy(-1, uc, Quu_c)
+            Qux_c = Qux_c.new_zeros((Bsz, nu, nx)).index_copy(-2, uc, Qux_c)
         Qu = lu + Qu_c
         Quu = luu + Quu_c + eye_mu
         Qux = lux + Qux_c
@@ -171,9 +197,25 @@ def _kernel_fn(dtype):
     lib = library("riccati_backward")
     fn = lib.riccati_backward_f32 if dtype == torch.float32 else lib.riccati_backward_f64
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 11 + [ctypes.c_double] + [_P] * 5
+        fn.argtypes = [_P] * 9 + [_I] * 12 + [ctypes.c_double] + [_P] * 5
         fn.restype = _I
     return fn
+
+
+# the launcher's own error: the block's shared memory exceeds the card's
+# opt-in limit (no CUDA error has this value)
+SMEM_EXCEEDED = -1
+
+
+def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows) -> int:
+    """Dynamic shared memory one K1 block takes at these sizes (float64
+    on chip for either tensor type), as the launcher reckons it."""
+    fn = library("riccati_backward").riccati_backward_smem_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [_I] * 9
+        fn.restype = ctypes.c_longlong
+    return int(fn(nx, nu, nt, len(rows.rx), len(rows.ru), len(rows.gx),
+                  len(rows.gu), len(rows.bx), len(rows.uc)))
 
 
 def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
@@ -194,10 +236,13 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     nu = Jup.shape[-1]
     nr = rho.shape[-1]
     nt = Jt.shape[-2]
-    n_rx, n_ru, n_gx, n_gu, n_b = (len(rows.rx), len(rows.ru), len(rows.gx),
-                                   len(rows.gu), len(rows.bx))
+    n_rx, n_ru, n_gx, n_gu, n_b, n_uc = (
+        len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu), len(rows.bx),
+        len(rows.uc))
+    if n_uc > nu or (n_uc and max(rows.uc) >= nu):
+        raise ValueError(f"live B columns {rows.uc} out of range for nu={nu}")
     check_tensor("Sx", Sx, (Bsz, ns, n_rx, nx), dtype, dev)
-    check_tensor("Bs", Bs, (Bsz, ns, n_ru, nu), dtype, dev)
+    check_tensor("Bs", Bs, (Bsz, ns, n_ru, n_uc), dtype, dev)
     check_tensor("Jxp", Jxp, (Bsz, ns, n_gx, nx), dtype, dev)
     check_tensor("Jup", Jup, (Bsz, ns, n_gu, nu), dtype, dev)
     check_tensor("rho", rho, (Bsz, ns, nr), dtype, dev)
@@ -216,11 +261,16 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
             Sx.data_ptr(), Bs.data_ptr(), Jxp.data_ptr(), Jup.data_ptr(),
             rho.data_ptr(), d.data_ptr(), Jt.data_ptr(), rt.data_ptr(),
             table.data_ptr(),
-            Bsz, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b,
+            Bsz, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc,
             float(mu),
             ks.data_ptr(), Ks.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
             stream,
         )
+    if err == SMEM_EXCEEDED:
+        raise RuntimeError(
+            "riccati_backward needs "
+            f"{shared_memory_bytes(nx, nu, nt, rows)} bytes of shared memory "
+            "a block, more than this card allows")
     if err != 0:
         raise RuntimeError(f"riccati_backward kernel failed: CUDA error {err}")
     riccati_backward.launches += 1

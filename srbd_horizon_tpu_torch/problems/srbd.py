@@ -48,6 +48,8 @@ class SRBDTerms:
     OCP's residual callables are these methods; the CUDA kernels K3 and K4
     evaluate the same rows from `kernel_scalars`."""
 
+    family = "srbd"      # the kernels solvers/msddp.py takes for this problem
+
     nc: int
     contact_model: int
     number_of_legs: int
@@ -146,6 +148,12 @@ class SRBDTerms:
     def terminal_eq(self, x, p):
         return self.stage_eq(x, None, p)
 
+    def family_args(self, wc: float) -> Tuple[float, ...]:
+        """What this family's cost functions and kernels take besides the
+        common arguments: √w_c, the root of the penalty on the equality
+        stack."""
+        return (wc,)
+
     def stage_rho(self, x, u, p, wc: float):
         """Stacked stage residual [residual; √w_c · eq] (wc = √w_c)."""
         return torch.cat([self.stage_residual(x, u, p),
@@ -174,6 +182,21 @@ class SRBDTerms:
                 self.d1[0], self.d1[1], self.d2[0], self.d2[1],
             )
         return self._cache[key]
+
+
+def linearized_friction_cone_rows(mu: float) -> np.ndarray:
+    """Row matrix A with A f ≤ 0 inside the linearized cone (5 faces: the
+    ±x, ±y pyramid and unilaterality)."""
+    mu_lin = mu / np.sqrt(2.0)
+    return np.array(
+        [
+            [1.0, 0.0, -mu_lin],
+            [-1.0, 0.0, -mu_lin],
+            [0.0, 1.0, -mu_lin],
+            [0.0, -1.0, -mu_lin],
+            [0.0, 0.0, -1.0],
+        ]
+    )
 
 
 def _layouts(nc: int):
@@ -237,7 +260,7 @@ def build_srbd_problem(
         m=m,
         inertia=inertia,
         force_scaling=fs,
-        srbd_terms=terms,
+        terms=terms,
     )
 
     xdot = lambda x, u, p: srbd_model.srbd_xdot(x, u, constants)

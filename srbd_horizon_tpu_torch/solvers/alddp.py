@@ -1,0 +1,535 @@
+"""AL-DDP — augmented-Lagrangian constrained trajectory optimization, the
+batched entry points of srbd_horizon_tpu/solvers/alddp.py ported to
+PyTorch.
+
+  outer loop (fixed count):
+    1. inner MS-DDP solve of min J(X,U) + Σ [ λᵀh + ρ/2‖h‖² ]
+                                   + Σ ρ/2‖max(0, μ/ρ + g−ub)‖² (+ lb side)
+    2. multiplier update  λ ← λ + ρ h,  μ ← max(0, μ + ρ (g−ub))
+    3. penalty growth     ρ ← γρ if the violation did not drop by
+                          `viol_decrease`
+
+The AL terms are residual rows of the inner problem
+(problems/isrbd_al.py), so the inner solver's Gauss-Newton machinery
+and its kernels apply: the inner solves run `MSDDP.solve_batch` with the
+isrbd kernels K5 (linearization), K1 (Riccati sweep) and K6 (trial).
+Multipliers, penalty and bounds reach the inner problem through the
+parameter dict (`al_*` keys).
+
+Everything here is batch-first: states, multipliers and priors carry the
+fleet on their leading axis, where the JAX package vmaps member functions.
+Ported: `init`, `solve_batch` (the offline seed), `solve_online_batch`,
+`shift_warmstart`, both gait-phase priors and `serving_tick_batch`. The
+unbatched `solve`/`solve_online` wait for `MSDDP.solve`.
+
+The JAX package's `ALDDP` asks its inner solver for a Cholesky gain
+solve, but the batched lane-major sweep that every batched entry point
+runs ignores the option and takes the block-Schur inverse; K1 has that
+inverse, so the port matches what is computed (see kernels/riccati.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from srbd_horizon_tpu_torch.config import DDPOptions
+from srbd_horizon_tpu_torch.ocp.spec import OCP
+from srbd_horizon_tpu_torch.problems.isrbd_al import ALTerms, bound_violation
+from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution, MSDDP, _bcast
+
+
+@dataclasses.dataclass(frozen=True)
+class ALOptions:
+    outer_iters: int = 8
+    rho0: float = 1e2
+    rho_growth: float = 10.0
+    rho_max: float = 1e8
+    viol_decrease: float = 0.25    # required violation contraction per outer
+    tol: float = 1e-6              # target max constraint violation
+
+
+class PhasePrior(NamedTuple):
+    """Gait-phase-indexed priors for the multipliers the receding horizon
+    injects at the tail. Per member (leading fleet axis B):
+      lam_tail (B, P, n_eq)    prior for stage row ns−1, by the phase of
+                               the schedule at that row
+      lam_T    (B, P, n_eq_T)  prior for the terminal multipliers
+      seen_*   (B, P) bool     entry valid (first visit copies, later
+                               visits EMA-blend)"""
+
+    lam_tail: torch.Tensor
+    lam_T: torch.Tensor
+    seen_tail: torch.Tensor
+    seen_T: torch.Tensor
+
+
+class FullPhasePrior(NamedTuple):
+    """Per-phase tables of the whole stage-equality multiplier field: each
+    (node, phase) entry receives one λ-update per gait cycle and converges
+    across cycles. Inequality multipliers stay rolled.
+      lam_eq (B, P, ns, n_eq), lam_eq_T (B, P, n_eq_T), seen (B, P) bool"""
+
+    lam_eq: torch.Tensor
+    lam_eq_T: torch.Tensor
+    seen: torch.Tensor
+
+
+class ALState(NamedTuple):
+    """Batch-first AL solver state (B leads every leaf)."""
+
+    sol: DDPSolution
+    lam_eq: torch.Tensor      # (B, ns, n_eq) stage equality multipliers
+    lam_eq_T: torch.Tensor    # (B, n_eq_T) terminal equality multipliers
+    mu_ub: torch.Tensor       # (B, ns, n_ineq) upper-bound multipliers (≥0)
+    mu_lb: torch.Tensor       # (B, ns, n_ineq) lower-bound multipliers (≥0)
+    mu_x_ub: torch.Tensor     # (B, ns+1, nx) state upper-box multipliers
+    mu_x_lb: torch.Tensor     # (B, ns+1, nx) state lower-box multipliers
+    mu_u_ub: torch.Tensor     # (B, ns, nu) input upper-box multipliers
+    mu_u_lb: torch.Tensor     # (B, ns, nu) input lower-box multipliers
+    rho: torch.Tensor         # (B,) penalty
+    viol: torch.Tensor        # (B,) last max constraint violation
+
+
+def _roll(a):
+    """Node j+1 moves to j along axis 1; the last row is repeated."""
+    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+
+
+def _pad_node(a, value: float = 0.0):
+    """(B, ns, dim) -> (B, ns+1, dim) with a constant last row."""
+    pad = a.new_full((a.shape[0], 1) + tuple(a.shape[2:]), value)
+    return torch.cat([a, pad], dim=1)
+
+
+def _amax0(a):
+    """Per-member max over all trailing axes, at least 0."""
+    return torch.clamp(a.reshape(a.shape[0], -1).amax(dim=1), min=0.0)
+
+
+def _rows_at(table, phase):
+    """table (B, P, …) at each member's phase (B,) -> (B, …)."""
+    return table[torch.arange(table.shape[0], device=table.device), phase]
+
+
+def _with_rows(table, phase, rows):
+    """`table` with each member's row `phase` replaced (out of place)."""
+    out = table.clone()
+    out[torch.arange(table.shape[0], device=table.device), phase] = rows
+    return out
+
+
+@dataclasses.dataclass
+class ALDDP:
+    """Augmented-Lagrangian solver over a constrained OCP with equality
+    stacks, bounded inequality rows and variable boxes (the isrbd
+    problem). `ocp.constants["isrbd_terms"]` names the problem to the
+    kernels of the inner solver."""
+
+    ocp: OCP
+    ddp_opts: DDPOptions = DDPOptions()
+    al_opts: ALOptions = ALOptions()
+
+    def __post_init__(self):
+        outer = self.ocp
+        if "isrbd_terms" not in outer.constants:
+            raise NotImplementedError(
+                "the inner solver's kernels are written for the isrbd "
+                "problem: the OCP's constants need 'isrbd_terms' "
+                "(problems/isrbd.py)")
+        if (outer.ineq_ub is None or outer.x_lb is None or outer.x_ub is None
+                or outer.u_lb is None or outer.u_ub is None):
+            raise NotImplementedError(
+                "the ported AL solver takes OCPs with inequality rows and "
+                "both variable boxes (the isrbd problem)")
+        dev, dtype = outer.x_lb.device, outer.x_lb.dtype
+        zx = torch.zeros(outer.nx, dtype=dtype, device=dev)
+        zu = torch.zeros(outer.nu, dtype=dtype, device=dev)
+        p0 = {k: v[0] for k, v in outer.params.items()}
+        n_r = outer.stage_residual(zx, zu, p0).shape[0]
+        n_eq = outer.stage_eq(zx, zu, p0).shape[0]
+        n_eq_T = outer.terminal_eq(zx, p0).shape[0]
+        n_in = outer.stage_ineq(zx, zu, p0).shape[0]
+        self._sizes = (n_eq, n_eq_T, n_in)
+        self._w_eq = outer.eq_rho_weight
+        self._w_eq_T = outer.eq_rho_weight_T
+        self._bounds = (outer.x_lb, outer.x_ub, outer.u_lb, outer.u_ub)
+        self._padded_bounds: Dict = {}
+
+        terms = ALTerms(
+            ocp=outer, outer=outer.constants["isrbd_terms"],
+            eq_scale=outer.eq_scale, eq_scale_T=outer.eq_scale_T,
+            sqw_eq=None if self._w_eq is None else torch.sqrt(self._w_eq),
+            sqw_eq_T=(None if self._w_eq_T is None
+                      else torch.sqrt(self._w_eq_T)),
+            n_eq=n_eq, n_eq_T=n_eq_T, n_ineq=n_in,
+        )
+        self.terms = terms
+
+        # Inner-stack sparsity: the inner stage stack is
+        #   [outer residual; AL-eq; cone ub; cone lb;
+        #    x-box ub; x-box lb; u-box ub; u-box lb]
+        # and its x/u row sets are composed from the outer declarations,
+        # so the inner solves take the blocksparse sweep and the sliced
+        # linearization. Outer residual_x/u_rows index the leading
+        # [stage_residual; stage_eq] rows; cone segments use
+        # ineq_x/u_rows (None = all rows, both); a box row is live iff its
+        # dim is ever finitely bounded in the static bounds (bounds
+        # delivered through the params must keep that pattern).
+        if outer.residual_x_rows is None or outer.residual_u_rows is None:
+            raise NotImplementedError(
+                "the inner solver needs the outer OCP's declared row sparsity")
+        xr = [int(r) for r in outer.residual_x_rows]
+        ur = [int(r) for r in outer.residual_u_rows]
+        off = n_r + n_eq
+        cone_x = outer.ineq_x_rows if outer.ineq_x_rows is not None else range(n_in)
+        cone_u = outer.ineq_u_rows if outer.ineq_u_rows is not None else range(n_in)
+        for seg in (0, 1):                               # t_ub, then t_lb
+            xr.extend(off + seg * n_in + int(r) for r in cone_x)
+            ur.extend(off + seg * n_in + int(r) for r in cone_u)
+        off += 2 * n_in
+        for b in (outer.x_ub, outer.x_lb):               # ub rows, lb rows
+            live = np.where(np.isfinite(b.cpu().numpy()).any(0))[0]
+            xr.extend(off + int(j) for j in live)
+            off += outer.nx
+        for b in (outer.u_ub, outer.u_lb):
+            live = np.where(np.isfinite(b.cpu().numpy()).any(0))[0]
+            ur.extend(off + int(j) for j in live)
+            off += outer.nu
+
+        def no_eq(x, *_):
+            return x.new_zeros(x.shape[:-1] + (0,))
+
+        inner_ocp = dataclasses.replace(
+            outer,
+            stage_residual=terms.stage_residual,
+            terminal_residual=terms.terminal_residual,
+            stage_eq=no_eq,
+            terminal_eq=no_eq,
+            residual_x_rows=tuple(sorted(xr)),
+            residual_u_rows=tuple(sorted(ur)),
+            constants=dict(outer.constants, terms=terms),
+        )
+        self._inner = MSDDP(inner_ocp, self.ddp_opts)
+
+    @property
+    def inner(self) -> MSDDP:
+        """The inner batched MS-DDP solver (kernels K5, K1, K6). Its
+        `on_phase` hook also receives this layer's phases ("al_shift",
+        "al_params", "al_constraints", "al_multipliers", "al_prior")."""
+        return self._inner
+
+    def _phase(self, name: str) -> None:
+        self._inner._phase(name)
+
+    # ---------- sizes ----------
+
+    def init(self, x0, U0: Optional[torch.Tensor] = None) -> ALState:
+        """Cold state for x0 (B, nx); U0 (ns, nu) or (B, ns, nu)."""
+        n_eq, n_eq_T, n_in = self._sizes
+        ns, nx, nu = self.ocp.ns, self.ocp.nx, self.ocp.nu
+        Bsz = x0.shape[0]
+        if U0 is not None and U0.dim() == 2:
+            U0 = U0.expand(Bsz, ns, nu).contiguous()
+        z = lambda *shape: torch.zeros((Bsz,) + shape, dtype=x0.dtype,
+                                       device=x0.device)
+        return ALState(
+            sol=self._inner.init(x0, U0),
+            lam_eq=z(ns, n_eq), lam_eq_T=z(n_eq_T),
+            mu_ub=z(ns, n_in), mu_lb=z(ns, n_in),
+            mu_x_ub=z(ns + 1, nx), mu_x_lb=z(ns + 1, nx),
+            mu_u_ub=z(ns, nu), mu_u_lb=z(ns, nu),
+            rho=torch.full((Bsz,), self.al_opts.rho0, dtype=x0.dtype,
+                           device=x0.device),
+            viol=torch.full((Bsz,), float("inf"), dtype=x0.dtype,
+                            device=x0.device),
+        )
+
+    # ---------- constraint evaluation at a trajectory ----------
+
+    def _bounds_from(self, params):
+        """Bound tensors for this solve: the params can override the static
+        OCP bounds (online re-pinning)."""
+        x_lb, x_ub, u_lb, u_ub = self._bounds
+        return (params.get("x_lb", x_lb), params.get("x_ub", x_ub),
+                params.get("u_lb", u_lb), params.get("u_ub", u_ub))
+
+    def _constraints(self, X, U, params):
+        """h (B,ns,n_eq), hT (B,n_eq_T) in scaled units, g (B,ns,n_ineq)
+        and the per-member max violation (B,)."""
+        ocp, t = self.ocp, self.terms
+        ns = ocp.ns
+        p_stage = {k: v[:, :ns] for k, v in params.items()}
+        # (u-box overrides have ns nodes and no terminal row)
+        p_term = {k: v[:, ns] for k, v in params.items() if v.shape[1] > ns}
+        h = t.stage_eq(X[:, :ns], U, p_stage)
+        hT = t.terminal_eq(X[:, ns], p_term)
+        g = ocp.stage_ineq(X[:, :ns], U, p_stage)
+        x_lb, x_ub, u_lb, u_ub = self._bounds_from(params)
+        viol = torch.stack([
+            _amax0(h.abs()), _amax0(hT.abs()),
+            _amax0(bound_violation(g, ocp.ineq_lb, ocp.ineq_ub)),
+            _amax0(bound_violation(X, x_lb, x_ub)),
+            _amax0(bound_violation(U, u_lb, u_ub)),
+        ]).amax(dim=0)
+        return h, hT, g, viol
+
+    # ---------- solve ----------
+
+    def _static_padded_bounds(self, Bsz, dtype, device):
+        """The static boxes as (B, ns+1, dim) parameter tensors (u boxes
+        padded with an unbounded terminal row), built once per fleet size."""
+        key = (Bsz, dtype, str(device))
+        if key not in self._padded_bounds:
+            x_lb, x_ub, u_lb, u_ub = (b.to(device=device, dtype=dtype)
+                                      for b in self._bounds)
+            inf = float("inf")
+            ex = lambda b: b.expand((Bsz,) + tuple(b.shape)).contiguous()
+            self._padded_bounds[key] = (
+                ex(x_lb), ex(x_ub),
+                ex(torch.cat([u_lb, u_lb.new_full((1, u_lb.shape[1]), -inf)])),
+                ex(torch.cat([u_ub, u_ub.new_full((1, u_ub.shape[1]), inf)])),
+            )
+        return self._padded_bounds[key]
+
+    def _params_with_multipliers(self, params, st: ALState) -> Dict[str, torch.Tensor]:
+        """The inner solver's parameter dict: the outer params plus the
+        multipliers, penalty and bounds under `al_*` keys, each padded to
+        (B, ns+1, dim) (stage rows 0..ns−1 hold stage multipliers; row ns
+        is unused there)."""
+        ns = self.ocp.ns
+        lam_eq = st.lam_eq
+        Bsz, dtype, dev = lam_eq.shape[0], lam_eq.dtype, lam_eq.device
+        p = dict(params)
+        p["al_lam_eq"] = _pad_node(lam_eq)
+        p["al_lam_eq_T"] = st.lam_eq_T[:, None, :].expand(
+            Bsz, ns + 1, st.lam_eq_T.shape[-1]).contiguous()
+        p["al_mu_ub"] = _pad_node(st.mu_ub)
+        p["al_mu_lb"] = _pad_node(st.mu_lb)
+        p["al_rho"] = st.rho.to(dtype)[:, None, None].expand(
+            Bsz, ns + 1, 1).contiguous()
+        x_lb, x_ub, u_lb, u_ub = self._static_padded_bounds(Bsz, dtype, dev)
+        inf = float("inf")
+        p["al_x_lb"] = params["x_lb"].to(dtype) if "x_lb" in params else x_lb
+        p["al_x_ub"] = params["x_ub"].to(dtype) if "x_ub" in params else x_ub
+        p["al_u_lb"] = (_pad_node(params["u_lb"].to(dtype), -inf)
+                        if "u_lb" in params else u_lb)
+        p["al_u_ub"] = (_pad_node(params["u_ub"].to(dtype), inf)
+                        if "u_ub" in params else u_ub)
+        p["al_mu_x_ub"] = st.mu_x_ub
+        p["al_mu_x_lb"] = st.mu_x_lb
+        p["al_mu_u_ub"] = _pad_node(st.mu_u_ub)
+        p["al_mu_u_lb"] = _pad_node(st.mu_u_lb)
+        # bound values travel under the al_* keys; drop raw overrides so
+        # the inner solver's parameter dict has a fixed structure
+        for k in ("x_lb", "x_ub", "u_lb", "u_ub"):
+            p.pop(k, None)
+        return p
+
+    def _updated_multipliers(self, st: ALState, X, U, h, hT, g, params, rho):
+        """AL multiplier updates; rho is (B,)."""
+        r2 = rho[:, None]
+        r3 = r2[:, :, None]
+        w = self._w_eq if self._w_eq is not None else 1.0
+        w_T = self._w_eq_T if self._w_eq_T is not None else 1.0
+        lam_eq = st.lam_eq + r3 * w * h
+        lam_eq_T = st.lam_eq_T + r2 * w_T * hT
+
+        def side(mu, gap, bound):
+            """max(0, μ + ρ·gap) where the bound is finite, else 0."""
+            fin = torch.isfinite(bound)
+            return torch.where(fin, torch.clamp(mu + r3 * gap, min=0.0),
+                               torch.zeros_like(mu))
+
+        def finite(b):
+            return torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+
+        ocp = self.ocp
+        mu_ub = side(st.mu_ub, g - finite(ocp.ineq_ub), ocp.ineq_ub)
+        mu_lb = side(st.mu_lb, finite(ocp.ineq_lb) - g, ocp.ineq_lb)
+        x_lb, x_ub, u_lb, u_ub = self._bounds_from(params)
+        mu_x_ub = side(st.mu_x_ub, X - finite(x_ub), x_ub)
+        mu_x_lb = side(st.mu_x_lb, finite(x_lb) - X, x_lb)
+        mu_u_ub = side(st.mu_u_ub, U - finite(u_ub), u_ub)
+        mu_u_lb = side(st.mu_u_lb, finite(u_lb) - U, u_lb)
+        return lam_eq, lam_eq_T, mu_ub, mu_lb, mu_x_ub, mu_x_lb, mu_u_ub, mu_u_lb
+
+    def solve_batch(self, st: ALState, x0, params) -> ALState:
+        """Batched AL solve over the leading fleet axis: `outer_iters`
+        outer iterations, each a batched inner MS-DDP solve, the multiplier
+        updates and the per-member penalty schedule."""
+        opts = self.al_opts
+        for _ in range(opts.outer_iters):
+            p_in = self._params_with_multipliers(params, st)
+            sol = self._inner.solve_batch(st.sol, x0, p_in)
+            h, hT, g, viol = self._constraints(sol.X, sol.U, params)
+            (lam_eq, lam_eq_T, mu_ub, mu_lb,
+             mu_x_ub, mu_x_lb, mu_u_ub, mu_u_lb) = self._updated_multipliers(
+                st, sol.X, sol.U, h, hT, g, params, st.rho)
+            grow = viol > opts.viol_decrease * st.viol
+            rho_new = torch.where(
+                grow & (viol > opts.tol),
+                torch.clamp(st.rho * opts.rho_growth, max=opts.rho_max),
+                st.rho)
+            st = ALState(
+                sol=sol, lam_eq=lam_eq, lam_eq_T=lam_eq_T,
+                mu_ub=mu_ub, mu_lb=mu_lb, mu_x_ub=mu_x_ub, mu_x_lb=mu_x_lb,
+                mu_u_ub=mu_u_ub, mu_u_lb=mu_u_lb, rho=rho_new, viol=viol)
+        return st
+
+    def solve_online_batch(self, st: ALState, x0, params) -> ALState:
+        """One frozen-penalty outer iteration over the fleet: the batched
+        inner solve and the equality-multiplier update."""
+        self._phase("al_params")
+        p_in = self._params_with_multipliers(params, st)
+        sol = self._inner.solve_batch(st.sol, x0, p_in)
+        self._phase("al_constraints")
+        h, hT, _, viol = self._constraints(sol.X, sol.U, params)
+        self._phase("al_multipliers")
+        r2 = st.rho[:, None]
+        w = self._w_eq if self._w_eq is not None else 1.0
+        w_T = self._w_eq_T if self._w_eq_T is not None else 1.0
+        return st._replace(
+            sol=sol,
+            lam_eq=st.lam_eq + r2[:, :, None] * w * h,
+            lam_eq_T=st.lam_eq_T + r2 * w_T * hT,
+            viol=viol,
+        )
+
+    def shift_warmstart(self, st: ALState) -> ALState:
+        """Roll the warm start one node forward (last row repeated) — the
+        trajectory and the node-indexed multipliers — so the initial
+        iterate and the multiplier estimates line up with the receding
+        horizon. The hybrid node masks stay put, so multipliers shifted
+        across the model boundary start one update behind."""
+        sol = st.sol._replace(X=_roll(st.sol.X), U=_roll(st.sol.U))
+        return st._replace(
+            sol=sol, lam_eq=_roll(st.lam_eq),
+            mu_ub=_roll(st.mu_ub), mu_lb=_roll(st.mu_lb),
+            mu_x_ub=_roll(st.mu_x_ub), mu_x_lb=_roll(st.mu_x_lb),
+            mu_u_ub=_roll(st.mu_u_ub), mu_u_lb=_roll(st.mu_u_lb),
+        )
+
+    # ---------- gait-phase multiplier priors ----------
+
+    def _prior_zeros(self, batch: int, period: int):
+        """Makers of the empty prior tables, on the problem's device and in
+        its dtype (where the `ALState` they seed lives)."""
+        dev, dtype = self.ocp.x_lb.device, self.ocp.x_lb.dtype
+        z = lambda *s: torch.zeros((batch, period) + s, dtype=dtype, device=dev)
+        seen = lambda: torch.zeros((batch, period), dtype=torch.bool, device=dev)
+        return z, seen
+
+    def init_phase_prior(self, period: int, batch: int) -> PhasePrior:
+        """Empty per-member, per-phase tail-multiplier tables."""
+        n_eq, n_eq_T, _ = self._sizes
+        z, seen = self._prior_zeros(batch, period)
+        return PhasePrior(lam_tail=z(n_eq), lam_T=z(n_eq_T),
+                          seen_tail=seen(), seen_T=seen())
+
+    def _seed_from_prior(self, st: ALState, prior: PhasePrior, phase) -> ALState:
+        """Replace the injected tail multipliers with the phase tables'
+        entries (where visited). `phase` (B,) is the cycle index of this
+        tick's terminal write; the stage tail row holds the previous
+        tick's, phase − 1."""
+        phase = phase.long()
+        P = prior.lam_tail.shape[1]
+        tail_ph = (phase - 1) % P
+        lam_tail = torch.where(_rows_at(prior.seen_tail, tail_ph)[:, None],
+                               _rows_at(prior.lam_tail, tail_ph),
+                               st.lam_eq[:, -1])
+        lam_T = torch.where(_rows_at(prior.seen_T, phase)[:, None],
+                            _rows_at(prior.lam_T, phase), st.lam_eq_T)
+        lam_eq = torch.cat([st.lam_eq[:, :-1], lam_tail[:, None]], dim=1)
+        return st._replace(lam_eq=lam_eq, lam_eq_T=lam_T)
+
+    def _update_prior(self, prior: PhasePrior, st: ALState, phase,
+                      ema: float) -> PhasePrior:
+        """EMA the post-solve tail multipliers into the phase tables
+        (first visit copies)."""
+        phase = phase.long()
+        P = prior.lam_tail.shape[1]
+        tail_ph = (phase - 1) % P
+        tail = st.lam_eq[:, -1]
+        new_tail = torch.where(
+            _rows_at(prior.seen_tail, tail_ph)[:, None],
+            (1.0 - ema) * _rows_at(prior.lam_tail, tail_ph) + ema * tail, tail)
+        new_T = torch.where(
+            _rows_at(prior.seen_T, phase)[:, None],
+            (1.0 - ema) * _rows_at(prior.lam_T, phase) + ema * st.lam_eq_T,
+            st.lam_eq_T)
+        true = torch.ones_like(phase, dtype=torch.bool)
+        return PhasePrior(
+            lam_tail=_with_rows(prior.lam_tail, tail_ph, new_tail),
+            lam_T=_with_rows(prior.lam_T, phase, new_T),
+            seen_tail=_with_rows(prior.seen_tail, tail_ph, true),
+            seen_T=_with_rows(prior.seen_T, phase, true),
+        )
+
+    def init_full_phase_prior(self, period: int, batch: int) -> FullPhasePrior:
+        """Empty per-member full-field phase tables."""
+        n_eq, n_eq_T, _ = self._sizes
+        z, seen = self._prior_zeros(batch, period)
+        return FullPhasePrior(
+            lam_eq=z(self.ocp.ns, n_eq), lam_eq_T=z(n_eq_T), seen=seen())
+
+    def _seed_full_prior(self, st: ALState, prior: FullPhasePrior, phase) -> ALState:
+        """Replace the whole stage and terminal equality-multiplier field
+        with the phase's table entry (once visited; the rolled field until
+        then)."""
+        phase = phase.long()
+        ok = _rows_at(prior.seen, phase)
+        lam_eq = _rows_at(prior.lam_eq, phase)
+        lam_eq_T = _rows_at(prior.lam_eq_T, phase)
+        return st._replace(
+            lam_eq=torch.where(_bcast(ok, lam_eq), lam_eq, st.lam_eq),
+            lam_eq_T=torch.where(_bcast(ok, lam_eq_T), lam_eq_T, st.lam_eq_T))
+
+    def _update_full_prior(self, prior: FullPhasePrior, st: ALState, phase,
+                           ema: float) -> FullPhasePrior:
+        phase = phase.long()
+        seen = _rows_at(prior.seen, phase)
+        new_eq = torch.where(
+            _bcast(seen, st.lam_eq),
+            (1.0 - ema) * _rows_at(prior.lam_eq, phase) + ema * st.lam_eq,
+            st.lam_eq)
+        new_T = torch.where(
+            _bcast(seen, st.lam_eq_T),
+            (1.0 - ema) * _rows_at(prior.lam_eq_T, phase) + ema * st.lam_eq_T,
+            st.lam_eq_T)
+        return FullPhasePrior(
+            lam_eq=_with_rows(prior.lam_eq, phase, new_eq),
+            lam_eq_T=_with_rows(prior.lam_eq_T, phase, new_T),
+            seen=_with_rows(prior.seen, phase,
+                            torch.ones_like(phase, dtype=torch.bool)))
+
+    def serving_tick_batch(self, st: ALState, x0, params, outers: int = 2,
+                           prior=None, phase=None, prior_ema: float = 0.5):
+        """The constrained fleet-serving tick: shifted warm start, then
+        `outers` frozen-penalty outer iterations. Callers advance the
+        WPG/params first, then pass the new x0 here.
+
+        With `prior` (and the per-member `phase`, the cycle index of this
+        tick's WPG terminal write): seed multipliers from the gait-phase
+        tables before solving and EMA the post-solve values back —
+        returns (ALState, prior). A `PhasePrior` seeds only the injected
+        tail rows; a `FullPhasePrior` replaces the whole
+        equality-multiplier field. Without a prior, returns the ALState
+        alone."""
+        self._phase("al_shift")
+        st = self.shift_warmstart(st)
+        full = isinstance(prior, FullPhasePrior)
+        if prior is not None:
+            seed = self._seed_full_prior if full else self._seed_from_prior
+            st = seed(st, prior, phase)
+        for _ in range(outers):
+            st = self.solve_online_batch(st, x0, params)
+        if prior is not None:
+            self._phase("al_prior")
+            upd = self._update_full_prior if full else self._update_prior
+            prior = upd(prior, st, phase, prior_ema)
+        self._phase("glue")
+        return st if prior is None else (st, prior)

@@ -4,16 +4,21 @@ PyTorch.
 
 One iteration for a fleet of B members:
   1. the sliced linearization in closed form, over the declared row
-     slices only — kernel K4 (`kernels/linearize.py`);
+     slices only — kernel K4 (`kernels/linearize.py`) for the SRBD
+     problem, K5 (`kernels/isrbd_linearize.py`) for the isrbd AL inner
+     problem;
   2. the blocksparse backward Riccati sweep — kernel K1
-     (`kernels/riccati.py`);
+     (`kernels/riccati.py`), for either;
   3. the α₀ trial and, for members that reject it, the gated, compacted
-     backtracking fan — kernel K3 (`kernels/rollout.py`) rolls out, costs
-     and Armijo-tests every α of a trial in one launch;
+     backtracking fan — kernel K3 (`kernels/rollout.py`) or K6
+     (`kernels/isrbd_rollout.py`) rolls out, costs and Armijo-tests every
+     α of a trial in one launch;
   4. the masked update; active-set compaction across iterations.
 
-The kernels are SRBD-specific: they read the problem's `SRBDTerms`
-(`ocp.constants["srbd_terms"]`).
+The linearization and trial kernels are written per problem family: the
+solver reads the problem's terms object (`ocp.constants["terms"]`:
+`SRBDTerms`, or the AL solver's `ALTerms`) and takes the kernels its
+`family` names; costs go through the same object.
 
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
@@ -33,10 +38,18 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions, check_options
+from srbd_horizon_tpu_torch.kernels.isrbd_linearize import isrbd_linearize
+from srbd_horizon_tpu_torch.kernels.isrbd_rollout import isrbd_trial
 from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
 from srbd_horizon_tpu_torch.kernels.rollout import srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
+
+# terms.family -> (linearization wrapper, trial wrapper)
+_KERNELS = {
+    "srbd": (srbd_linearize, srbd_trial),
+    "isrbd_al": (isrbd_linearize, isrbd_trial),
+}
 
 
 class DDPSolution(NamedTuple):
@@ -74,8 +87,9 @@ class MSDDP:
     """Multiple-shooting GN-DDP over a fixed OCP; `solve_batch` is the
     fleet path. `host_syncs` counts the device→host reads it has made.
     `on_phase`, when set, is called with the name of each phase as it
-    starts ("linearize", "sweep", "trial", "fan", "update", and "glue" for
-    the rest), so a caller can time the phases inside a real solve."""
+    starts ("cost0", "linearize", "sweep", "trial", "fan", "update",
+    "defects", and "glue" for the rest), so a caller can time the phases
+    inside a real solve."""
 
     ocp: OCP
     opts: DDPOptions = DDPOptions()
@@ -95,21 +109,18 @@ class MSDDP:
                 "the port's solver needs the OCP's declared row sparsity "
                 "(blocksparse path only)"
             )
-        if (ocp.dynamics_u_cols is not None
-                and len(set(ocp.dynamics_u_cols)) < ocp.nu):
+        terms = ocp.constants.get("terms")
+        if getattr(terms, "family", None) not in _KERNELS:
             raise NotImplementedError(
-                "column-sparse B (dynamics_u_cols) is not ported yet"
-            )
-        if "srbd_terms" not in ocp.constants:
-            raise NotImplementedError(
-                "the linearization and trial kernels are SRBD-specific: the "
-                "OCP's constants need 'srbd_terms' (problems/srbd.py)"
+                "the linearization and trial kernels are written per problem "
+                "family: the OCP's constants need a 'terms' object of one of "
+                f"{sorted(_KERNELS)} (problems/srbd.py, solvers/alddp.py)"
             )
         self.rows = RiccatiRows.from_ocp(ocp)
 
     @property
     def terms(self):
-        return self.ocp.constants["srbd_terms"]
+        return self.ocp.constants["terms"]
 
     def _phase(self, name: str) -> None:
         if self.on_phase is not None:
@@ -130,13 +141,20 @@ class MSDDP:
                 self.opts.constraint_weight, dtype=dtype)))
         return self._wc_by_dtype[dtype]
 
+    def _family_args(self, dtype):
+        """The terms object's family-specific arguments (√w_c for a
+        problem that penalises an equality stack, nothing otherwise)."""
+        return self.terms.family_args(self._wc(dtype))
+
     def _stage_rho(self, x, u, p):
-        """Stacked stage residual [residual; √w_c · eq]."""
-        return self.terms.stage_rho(x, u, p, self._wc(x.dtype))
+        """Stacked stage residual [residual; √w_c · eq] (the AL inner
+        problem has no eq stack of its own)."""
+        return self.terms.stage_rho(x, u, p, *self._family_args(x.dtype))
 
     def total_cost(self, X, U, params):
         """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx)."""
-        return self.terms.total_cost(X, U, params, self._wc(X.dtype))
+        return self.terms.total_cost(X, U, params,
+                                     *self._family_args(X.dtype))
 
     def _true_defects(self, X, U, params):
         ns = self.ocp.ns
@@ -148,13 +166,15 @@ class MSDDP:
 
     def _linearize_sliced(self, X, U, params):
         """Jacobian rows the blocksparse sweep reads, per member and node
-        (K4, in closed form): Sx = (A − I)[rx] (B,ns,|rx|,nx),
-        Bs = B[ru] (B,ns,|ru|,nu), Jxp = ∂ρ[gx]/∂x, Jup = ∂ρ[gu]/∂u, plus
-        ρ (B,ns,nr), rt (B,nt), Jt (B,nt,nx) and the defects d (B,ns,nx)."""
+        (K4 or K5, in closed form): Sx = (A − I)[rx] (B,ns,|rx|,nx),
+        Bs = B[ru][:, uc] (B,ns,|ru|,|uc|), Jxp = ∂ρ[gx]/∂x,
+        Jup = ∂ρ[gu]/∂u, plus ρ (B,ns,nr), rt (B,nt), Jt (B,nt,nx) and the
+        defects d (B,ns,nx)."""
         params = {k: v.contiguous() for k, v in params.items()}
-        return srbd_linearize(X.contiguous(), U.contiguous(), params,
-                              self.terms, self.rows, self.ocp.dt,
-                              self._wc(X.dtype))
+        linearize = _KERNELS[self.terms.family][0]
+        return linearize(X.contiguous(), U.contiguous(), params,
+                         self.terms, self.rows, self.ocp.dt,
+                         *self._family_args(X.dtype))
 
     # ---------- backward sweep and trial (the kernels) ----------
 
@@ -168,13 +188,14 @@ class MSDDP:
 
     def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
         """Rollout + cost + Armijo test for the α vector `al` (K,), one K3
-        launch: each result has a leading (K,) axis."""
+        or K6 launch: each result has a leading (K,) axis."""
         opts = self.opts
-        return srbd_trial(
+        trial = _KERNELS[self.terms.family][1]
+        return trial(
             x0.contiguous(), X.contiguous(), U.contiguous(), ks, Ks, d, al,
             {k: v.contiguous() for k, v in params.items()},
-            merit0, D, dV1, dV2, self.terms, self.ocp.dt, self._wc(X.dtype),
-            opts.defect_weight, opts.beta, opts.alpha_converge_threshold,
+            merit0, D, dV1, dV2, self.terms, self.ocp.dt,
+            *self._family_args(X.dtype), opts.defect_weight, opts.beta, opts.alpha_converge_threshold,
         )
 
     # ---------- one batched iteration ----------
@@ -361,6 +382,7 @@ class MSDDP:
         selection and masked convergence, the same semantics as the JAX
         package's `solve_batch`."""
         opts = self.opts
+        self._phase("cost0")
         # node 0 is pinned to the measured state: a stale warm start's x0
         # gap becomes the node-0 defect
         X = sols.X.clone()
@@ -372,6 +394,7 @@ class MSDDP:
             converged=torch.zeros(Bsz, dtype=torch.bool, device=X.device),
             it=torch.zeros(Bsz, dtype=torch.int32, device=X.device),
         )
+        self._phase("glue")
         while True:
             active = ~state.converged
             n_cont, n_active = self._host(torch.stack([
@@ -385,7 +408,9 @@ class MSDDP:
             else:
                 state = self._iteration_batch(state, x0, params)
 
+        self._phase("defects")
         defects = self._true_defects(state.X, state.U, params)
+        self._phase("glue")
         return DDPSolution(
             X=state.X, U=state.U, cost=state.cost,
             converged=state.converged, iterations=state.it,

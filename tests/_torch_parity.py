@@ -112,3 +112,117 @@ def max_rel_err(got, want):
     got, want = np_of(got), np_of(want)
     scale = max(float(np.max(np.abs(want))), 1e-300)
     return float(np.max(np.abs(got - want))) / scale
+
+
+# ---------------- the constrained (isrbd / AL-DDP) path ----------------
+
+from srbd_horizon_tpu.problems.isrbd import build_isrbd_problem as j_build_isrbd
+from srbd_horizon_tpu.solvers.alddp import ALDDP as JALDDP
+from srbd_horizon_tpu.solvers.alddp import ALOptions as JALOptions
+from srbd_horizon_tpu.solvers.alddp import ALState as JALState
+from srbd_horizon_tpu.solvers.msddp import DDPSolution as JDDPSolution
+
+from srbd_horizon_tpu_torch.convert import al_state_from_numpy
+from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem as t_build_isrbd
+from srbd_horizon_tpu_torch.solvers.alddp import ALDDP as TALDDP
+from srbd_horizon_tpu_torch.solvers.alddp import ALOptions as TALOptions
+
+AL_DDP_OPTS = dict(alpha_converge_threshold=1e-12, beta=1e-3)
+
+
+def isrbd_problems(ns=20, **kw):
+    """(jax ISRBDProblem, torch ISRBDProblem), float64 on the CPU, on a
+    horizon of ns nodes of 0.05 s (the hybrid schedule is cut with it)."""
+    if ns != 20:
+        kw.setdefault("srbd_nodes", ns // 2)
+        kw.setdefault("lipzone_start", ns // 4)
+    shape = dict(ns=ns, T=0.05 * ns)
+    jp = j_build_isrbd(JSRBDConfig(dtype=jnp.float64, **shape), j_feet(), **kw)
+    tp = t_build_isrbd(TSRBDConfig(dtype=F64, **shape), t_feet(), device=CPU,
+                       **kw)
+    return jp, tp
+
+
+def al_solvers(jp, tp, max_iters=3, **al):
+    """(jax ALDDP, torch ALDDP) with the serving schedule's options."""
+    al = dict(dict(outer_iters=2, rho0=1e3, rho_max=1e5, tol=1e-5), **al)
+    return (JALDDP(jp.ocp, JDDPOptions(max_iters=max_iters, **AL_DDP_OPTS),
+                   JALOptions(**al)),
+            TALDDP(tp.ocp, TDDPOptions(max_iters=max_iters, **AL_DDP_OPTS),
+                   TALOptions(**al)))
+
+
+def random_al_state(ocp, B, seed, n_eq, n_eq_T, n_in):
+    """A numpy ALState (nested dict, fleet axis leading) around the walking
+    regime: forces with large horizontal parts (active cones), random
+    multipliers, per-member penalties."""
+    rng = np.random.RandomState(seed)
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    X = np.zeros((B, ns + 1, nx))
+    X[..., 0:3] = [0.0, 0.0, 0.88] + 0.05 * rng.randn(B, ns + 1, 3)
+    X[..., 3:7] = [0.1, -0.2, 0.05, 0.97] + 0.02 * rng.randn(B, ns + 1, 4)
+    X[..., 7:] = rng.uniform(-0.3, 0.3, (B, ns + 1, nx - 7))
+    U = 0.5 * rng.randn(B, ns, nu)
+    for k in range((nu - 6) // 6):
+        U[..., 9 + 6 * k:12 + 6 * k] = ([0.0, 0.0, 98.0]
+                                        + [60.0, 60.0, 5.0] * rng.randn(B, ns, 3))
+    pos = lambda *s: np.abs(rng.randn(*s))
+    mu_ub = 5.0 * pos(B, ns, n_in)
+    # member 0's first contact carries exactly no force and no cone
+    # multiplier on the late nodes: its cone rows sit exactly on the kink
+    U[0, ns // 2:, 9:12] = 0.0
+    mu_ub[0, ns // 2:, 0:5] = 0.0
+    return dict(
+        sol=dict(X=X, U=U, cost=np.zeros(B), converged=np.zeros(B, bool),
+                 iterations=np.zeros(B, np.int32), defect_norm=np.zeros(B)),
+        lam_eq=rng.randn(B, ns, n_eq), lam_eq_T=rng.randn(B, n_eq_T),
+        mu_ub=mu_ub, mu_lb=pos(B, ns, n_in),
+        mu_x_ub=pos(B, ns + 1, nx), mu_x_lb=pos(B, ns + 1, nx),
+        mu_u_ub=pos(B, ns, nu), mu_u_lb=pos(B, ns, nu),
+        rho=10.0 ** rng.uniform(3, 5, B), viol=np.full(B, 0.1),
+    )
+
+
+def tight_box_params(jp, B, seed):
+    """Numpy fleet params with box overrides that keep the static finite
+    pattern (contact velocities, forces) but sit inside the random data,
+    so some box rows are active on either side, and random 0/1 masks."""
+    rng = np.random.RandomState(seed)
+    ocp = jp.ocp
+    p = fleet_params(ocp.params, B)
+    ns = ocp.ns
+    for k in ("mask_track", "mask_srbd", "mask_lip", "mask_lipzone"):
+        p[k] = rng.randint(0, 2, p[k].shape).astype(np.float64)
+    p["Wo"] = np.abs(rng.randn(*p["Wo"].shape))
+    p["rdot_ref"] = 0.1 * rng.randn(*p["rdot_ref"].shape)
+    p["c_ref"] = 0.05 * np.abs(rng.randn(*p["c_ref"].shape))
+    for name, width, lo, hi in (("x", 0.1, None, None), ("u", None, 60.0, 130.0)):
+        lb = np.broadcast_to(np_of(getattr(ocp, f"{name}_lb")),
+                             (B,) + getattr(ocp, f"{name}_lb").shape).copy()
+        ub = np.broadcast_to(np_of(getattr(ocp, f"{name}_ub")),
+                             (B,) + getattr(ocp, f"{name}_ub").shape).copy()
+        fin = np.isfinite(ub)
+        if name == "x":
+            lb[fin], ub[fin] = -width, width
+        else:
+            lb[fin], ub[fin] = lo, hi
+        p[f"{name}_lb"], p[f"{name}_ub"] = lb, ub
+    return p
+
+
+def jax_al_state(st):
+    """Numpy ALState dict -> the JAX package's ALState (float64)."""
+    f = lambda a: jnp.asarray(a)
+    return JALState(sol=JDDPSolution(**{k: f(v) for k, v in st["sol"].items()}),
+                    **{k: f(v) for k, v in st.items() if k != "sol"})
+
+
+def torch_al_state(st):
+    return al_state_from_numpy(st, device=CPU, dtype=F64)
+
+
+def al_state_numpy(st):
+    """A JAX or torch ALState -> the numpy nested dict."""
+    out = {k: np_of(getattr(st, k)) for k in st._fields if k != "sol"}
+    out["sol"] = {k: np_of(getattr(st.sol, k)) for k in st.sol._fields}
+    return out

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from srbd_horizon_tpu_torch.config import SRBDConfig, resolve_device
-from srbd_horizon_tpu_torch.convert import params_from_numpy
+from srbd_horizon_tpu_torch.convert import al_state_from_numpy, params_from_numpy
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop, walk_command
 from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
@@ -64,12 +65,18 @@ def test_port_package_is_complete():
         "srbd_horizon_tpu_torch/kernels/rollout.py",
         "srbd_horizon_tpu_torch/kernels/linearize.py",
         "srbd_horizon_tpu_torch/kernels/build.py",
+        "srbd_horizon_tpu_torch/kernels/isrbd_linearize.py",
+        "srbd_horizon_tpu_torch/kernels/isrbd_rollout.py",
         "srbd_horizon_tpu_torch/solvers/msddp.py",
+        "srbd_horizon_tpu_torch/solvers/alddp.py",
+        "srbd_horizon_tpu_torch/problems/isrbd.py",
         "srbd_horizon_tpu_torch/runtime/loop.py",
+        "srbd_horizon_tpu_torch/runtime/serving.py",
     ):
         assert required in names
     for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
-                "srbd_common.cuh"):
+                "srbd_common.cuh", "isrbd_rollout.cu", "isrbd_linearize.cu",
+                "isrbd_common.cuh", "rigid_common.cuh"):
         assert (ROOT / "srbd_horizon_tpu_torch" / "csrc" / src).exists()
 
 
@@ -81,7 +88,7 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "build_srbd_loop", "build_srbd_problem", "wpg_build", "walk_command",
-    "params_from_numpy",
+    "params_from_numpy", "build_isrbd_problem", "al_state_from_numpy",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
     call = {
@@ -91,6 +98,9 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
         "wpg_build": lambda: WalkingPatternGenerator.build(0.0, 20),
         "walk_command": lambda: walk_command(4),
         "params_from_numpy": lambda: params_from_numpy({}),
+        "build_isrbd_problem": lambda: build_isrbd_problem(
+            SRBDConfig(), kangaroo_line_feet()),
+        "al_state_from_numpy": lambda: al_state_from_numpy({}),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
@@ -101,3 +111,22 @@ def test_cpu_is_used_only_when_asked(no_cuda):
     loop, prob = build_srbd_loop(device="cpu")
     assert prob.initial_state.device.type == "cpu"
     assert prob.initial_state.dtype == torch.float32
+
+
+@pytest.mark.parametrize("make", ["init_phase_prior", "init_full_phase_prior"])
+def test_prior_tables_live_where_the_solver_does(no_cuda, make):
+    """The gait-phase priors take no device or dtype of their own: they
+    are made where the problem's tensors are, so a fleet on the card gets
+    its tables on the card."""
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+
+    prob = build_isrbd_problem(SRBDConfig(dtype=torch.float64),
+                               kangaroo_line_feet(), device="cpu")
+    solver = ALDDP(prob.ocp, *al_serving_options(1))
+    prior = getattr(solver, make)(4, 3)
+    state = solver.init(prob.initial_state.expand(3, -1))
+    for table in prior:
+        assert table.device == state.lam_eq.device
+        assert table.shape[:2] == (3, 4)
+        assert table.dtype in (state.lam_eq.dtype, torch.bool)

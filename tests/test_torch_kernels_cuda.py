@@ -3,19 +3,25 @@ with the tolerances of chip_smoke.py: float64 to 1e-9 relative; in
 float32 against the float64 plain result, K1 to 1e-6 relative (it
 computes in float64 on chip, so only float32 storage rounding remains),
 and K3 (the fused trial) and K4 (the linearization) within 2× the float32
-plain version's own error plus 1e-6, K4 also below 1e-5. Skipped where no
-CUDA device is present (run on the card with
-`python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
+plain version's own error plus 1e-6, K4 also below 1e-5; the isrbd kernels
+K5 (linearization), K6 (trial) and K1 with 18 of 30 live B columns by the
+rules of K4, K3 and K1. Skipped where no CUDA device is present (run on
+the card with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
 import numpy as np
 import pytest
 import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
 from srbd_horizon_tpu_torch.kernels import linearize as k4
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import rollout as k3
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +149,139 @@ def test_wrappers_count_launches_and_check_inputs(card_case):
     with pytest.raises(ValueError):
         k4.srbd_linearize(X, U, dict(params, oref=params["oref"].double()), *rest)
     assert k4.srbd_linearize.launches == before4 + 1
+
+
+# ---------------- the isrbd kernels ----------------
+
+@pytest.fixture(scope="module")
+def isrbd_case():
+    """A linearization point of the AL inner problem with active cones and
+    boxes, a non-unit quaternion and random 0/1 node masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    build = lambda dtype: ALDDP(build_isrbd_problem(
+        SRBDConfig(dtype=dtype), kangaroo_line_feet(), cz_rho_weight=3200.0,
+        device=dev).ocp, DDPOptions(max_iters=1))
+    al, al32 = build(torch.float64), build(torch.float32)
+    ocp = al.ocp
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    n_eq, n_eq_T, n_in = al._sizes
+    g = np.random.RandomState(1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = np.zeros((B, ns + 1, nx))
+    X[..., 0:3] = [0.0, 0.0, 0.88] + 0.05 * g.randn(B, ns + 1, 3)
+    X[..., 3:7] = [0.1, -0.2, 0.05, 0.97] + 0.02 * g.randn(B, ns + 1, 4)
+    X[..., 7:] = g.uniform(-0.3, 0.3, (B, ns + 1, nx - 7))
+    U = 0.5 * g.randn(B, ns, nu)
+    for q in range(4):
+        U[..., 9 + 6 * q:12 + 6 * q] = ([0.0, 0.0, 98.0]
+                                        + [60.0, 60.0, 5.0] * g.randn(B, ns, 3))
+    U[0, ns // 2:, 9:12] = 0.0      # exact ties on member 0's first contact
+    pos = lambda *shape: t(np.abs(g.randn(*shape)))
+    mu_ub = 5.0 * pos(B, ns, n_in)
+    mu_ub[0, ns // 2:, 0:5] = 0.0
+    st = al.init(t(X[:, 0]))._replace(
+        lam_eq=t(g.randn(B, ns, n_eq)), lam_eq_T=t(g.randn(B, n_eq_T)),
+        mu_ub=mu_ub, mu_lb=pos(B, ns, n_in),
+        mu_x_ub=pos(B, ns + 1, nx), mu_x_lb=pos(B, ns + 1, nx),
+        mu_u_ub=pos(B, ns, nu), mu_u_lb=pos(B, ns, nu),
+        rho=t(10.0 ** g.uniform(3, 5, B)))
+    params = {k: v.expand((B,) + tuple(v.shape)).contiguous()
+              for k, v in ocp.params.items()}
+    for k in ("mask_track", "mask_srbd", "mask_lip", "mask_lipzone"):
+        params[k] = t(g.randint(0, 2, tuple(params[k].shape)))
+    params["Wo"] = pos(B, ns + 1, 1)
+    for name, lo, hi in (("x", -0.1, 0.1), ("u", 60.0, 130.0)):
+        lb = getattr(ocp, f"{name}_lb").expand(B, -1, -1).clone()
+        ub = getattr(ocp, f"{name}_ub").expand(B, -1, -1).clone()
+        fin = torch.isfinite(ub)
+        lb[fin], ub[fin] = lo, hi
+        params[f"{name}_lb"], params[f"{name}_ub"] = lb, ub
+    pin = {k: v.contiguous()
+           for k, v in al._params_with_multipliers(params, st).items()}
+    X, U = t(X), t(U)
+    lin = k5.isrbd_linearize_plain(X, U, pin, al.terms, al.inner.rows, ocp.dt)
+    x0 = X[:, 0] + 0.005 * t(g.randn(B, nx))
+    return dict(al=al, al32=al32, X=X, U=U, pin=pin, lin=lin, x0=x0, ocp=ocp)
+
+
+def _k5_args(case, dtype):
+    a = case["al"] if dtype == torch.float64 else case["al32"]
+    t = lambda v: v.to(dtype).contiguous()
+    return (t(case["X"]), t(case["U"]), {k: t(v) for k, v in case["pin"].items()},
+            a.terms, a.inner.rows, case["ocp"].dt)
+
+
+def test_isrbd_linearize_kernel_matches_plain(isrbd_case):
+    ref = isrbd_case["lin"]
+    got = k5.isrbd_linearize(*_k5_args(isrbd_case, torch.float64))
+    torch.cuda.synchronize()
+    for k in ORDER:
+        assert _rel(got[k], ref[k]) <= 1e-9, k
+    got32 = k5.isrbd_linearize(*_k5_args(isrbd_case, torch.float32))
+    plain32 = k5.isrbd_linearize_plain(*_k5_args(isrbd_case, torch.float32))
+    for k in ORDER:
+        e = _rel(got32[k], ref[k])
+        assert e <= 2 * _rel(plain32[k], ref[k]) + 1e-6 and e <= K4_F32_CAP, k
+
+
+def test_riccati_kernel_with_live_columns_matches_plain(isrbd_case):
+    rows = isrbd_case["al"].inner.rows
+    assert len(rows.uc) == 18 and isrbd_case["lin"]["Bs"].shape[-1] == 18
+    args = lambda dtype: tuple(isrbd_case["lin"][k].to(dtype).contiguous()
+                               for k in ORDER) + (1e-6, rows)
+    ref = k1.riccati_backward_plain(*args(torch.float64))
+    got = k1.riccati_backward(*args(torch.float64))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-9
+    for g, r in zip(k1.riccati_backward(*args(torch.float32)), ref):
+        assert _rel(g, r) <= K1_F32_TOL
+    assert 100_000 < k1.shared_memory_bytes(37, 30, 101, rows) <= 232_448
+
+
+def test_isrbd_trial_kernel_matches_plain(isrbd_case):
+    """K6, the fused isrbd trial, for 4 step sizes."""
+    al = isrbd_case["al"]
+    lin, rows = isrbd_case["lin"], al.inner.rows
+    ref_k = k1.riccati_backward_plain(*(lin[k] for k in ORDER), 1e-6, rows)
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=torch.float64,
+                          device=D.device)
+    opts = al.inner.opts
+    cost0 = al.inner.total_cost(isrbd_case["X"], isrbd_case["U"],
+                                isrbd_case["pin"])
+
+    def args(dtype):
+        a = al if dtype == torch.float64 else isrbd_case["al32"]
+        t = lambda v: v.to(dtype).contiguous()
+        return (t(isrbd_case["x0"]), t(isrbd_case["X"]), t(isrbd_case["U"]),
+                t(ref_k[0]), t(ref_k[1]), t(lin["d"]), t(alphas),
+                {k: t(v) for k, v in isrbd_case["pin"].items()},
+                t(cost0 + opts.defect_weight * D), t(D), t(ref_k[2]),
+                t(ref_k[3]), a.terms, isrbd_case["ocp"].dt,
+                opts.defect_weight, opts.beta, opts.alpha_converge_threshold)
+
+    ref = k6.isrbd_trial_plain(*args(torch.float64))
+    got = k6.isrbd_trial(*args(torch.float64))
+    torch.cuda.synchronize()
+    for g, r in zip(got[:4], ref[:4]):
+        assert _rel(g, r) <= 1e-9
+    assert torch.equal(got[4], ref[4])
+    got32 = k6.isrbd_trial(*args(torch.float32))
+    plain32 = k6.isrbd_trial_plain(*args(torch.float32))
+    for g, p, r in zip(got32[:4], plain32[:4], ref[:4]):
+        assert _rel(g, r) <= 2 * _rel(p, r) + 1e-6
+
+
+def test_isrbd_wrappers_count_launches_and_check_inputs(isrbd_case):
+    before = k5.isrbd_linearize.launches
+    X, U, pin, *rest = _k5_args(isrbd_case, torch.float32)
+    k5.isrbd_linearize(X, U, pin, *rest)
+    assert k5.isrbd_linearize.launches == before + 1
+    with pytest.raises(ValueError):
+        k5.isrbd_linearize(X, U, dict(pin, al_rho=pin["al_rho"].double()), *rest)
+    with pytest.raises(ValueError):
+        k5.isrbd_linearize(X[:, :, :-1].contiguous(), U, pin, *rest)
+    assert k5.isrbd_linearize.launches == before + 1

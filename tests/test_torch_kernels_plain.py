@@ -90,7 +90,8 @@ def test_riccati_rows_from_ocp(case):
     assert [rows.gx[i] for i in rows.bx] == [18, 19, 20]
     assert [rows.gu[i] for i in rows.bu] == [18, 19, 20]
     assert rows.packed("cpu").dtype == torch.int32
-    assert rows.packed("cpu").numel() == 22 + 18 + 34 + 42 + 6
+    assert rows.uc == tuple(range(24))       # every SRBD input drives B
+    assert rows.packed("cpu").numel() == 22 + 18 + 34 + 42 + 6 + 24
 
 
 @pytest.fixture(scope="module")

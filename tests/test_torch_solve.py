@@ -170,10 +170,8 @@ def test_unported_options_raise(field, value, exc):
     (DDPOptions, "quu_solver", "cholesky"),
     (DDPOptions, "backward_unroll", 2),
     (DDPOptions, "rollout_unroll", 2),
-    (SRBDConfig, "gravity", 9.0),
+    (SRBDConfig, "hz", 50.0),
     (SRBDConfig, "zmp_tracking_gain", 1.0),
-    (SRBDConfig, "friction_cone_coefficient", 0.5),
-    (SRBDConfig, "max_contact_force", 500.0),
 ])
 def test_unread_options_are_refused(cls, field, value):
     """A JAX field that nothing in the port reads is not carried, so
