@@ -16,8 +16,13 @@ parallel, into build/kernels/), then:
      in float64 on chip, so only float32 storage rounding remains), K3
      (the fused trial, at 1 and 4 step sizes) within 2× the float32
      plain version's own error plus 1e-6, K4 (the linearization) within
-     that and below 1e-5; plus each kernel's time from CUDA events, the
-     plain version's, and the bound;
+     that and below 1e-5; K2 (the SPD inverse K1 runs on Quu) alone,
+     through its own entry, on the stack 2JupᵀJup + μI (B·ns = 10240,
+     nu=24): float64 to 1e-9, float32 to 1e-6 of the float64 inverse of
+     the same float32 stack; plus each kernel's time from CUDA events, the
+     plain version's, the bound (K1 and K2 at the FP64 tensor-core rate),
+     K2's beside `torch.linalg.inv` in float32 and float64, and K1's
+     shared memory and blocks per SM;
   3. the main path: the warm-started closed-loop SRBD fleet tick
      `MPCLoop.tick_batch` at B=512 in float32 (3 warm-up ticks, 20 timed
      ticks of the walk command), with the kernels' launch counts read
@@ -34,10 +39,11 @@ parallel, into build/kernels/), then:
   5. the constrained path's kernels at B=256 (ns=20, nx=37, nu=30, the
      240-row AL inner stack) on a linearization point with active cones
      and boxes: K5 (the isrbd linearization), K1 at the isrbd sizes (18 of
-     30 live B columns; its shared memory is printed) and K6 (the isrbd
-     trial, at 1 and 4 step sizes), by the same rules as K4, K1 and K3;
-     K1's time at fleet sizes around whole waves of blocks is printed
-     for both problems (no limit);
+     30 live B columns; its shared memory and blocks per SM are printed),
+     K2 alone at nu=30 (5120 matrices) and K6 (the isrbd trial, at 1 and
+     4 step sizes), by the same rules as K4, K1, K2 and K3; K1's time at
+     fleet sizes around whole waves of blocks is printed for both
+     problems (no limit);
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
@@ -55,8 +61,9 @@ parallel, into build/kernels/), then:
      to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
-without a result. The next-to-last line is the kernel table as JSON; the
-last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+without a result. The next-to-last line is the kernel table as JSON, seven
+rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, K2); the last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import json
@@ -77,6 +84,7 @@ CZ_RHO_WEIGHT = 3200.0              # cz stiffness of the serving configuration
 VIOL_LIMIT = 1e-2                   # healthy runs read ~2e-3, diverging ones 1e-1
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+H100_FP64_TC_FLOP_PER_S = 67e12     # float64 on the tensor cores (DMMA): K1, K2
 # K1 carries float32 tensors in float64 on chip, so against the float64
 # plain result only the float32 rounding of its inputs and outputs is
 # left (unit roundoff 6e-8); 1e-6 of each output's largest value is ~16
@@ -84,6 +92,14 @@ H100_F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 # the 1e6 constraint weight), so a rule scaled by it would test nothing.
 K1_F32_TOL = 1e-6
 K1_LIVE_F64_TOL = 1e-8              # K1 on the serving path's own inputs
+# K2 alone (the SPD inverse K1 runs on Quu): float64 against the plain
+# twin to 1e-9; float32 inputs, carried in float64 on chip, to 1e-6 of the
+# float64 plain inverse of the same float32 stack. Against the inverse of
+# the unrounded float64 stack the float32 rounding of the input alone
+# costs up to ~0.4 at nu=30 (Quu's conditioning), for any method: that
+# figure is printed with no limit.
+K2_F64_TOL = 1e-9
+K2_F32_TOL = 1e-6
 # K4 computes in float32; besides the 2× rule, each output stays below
 # this share of its largest value
 K4_F32_CAP = 1e-5
@@ -145,9 +161,11 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes, n_flop):
-    """(least ms, what bounds it) on the H100's HBM rate and f32 rate."""
-    tb, tf = n_bytes / H100_BYTES_PER_S, n_flop / H100_F32_FLOP_PER_S
+def bound(n_bytes, n_flop, flop_per_s=H100_F32_FLOP_PER_S):
+    """(least ms, what bounds it) on the H100's HBM rate and the rate of
+    the kernel's arithmetic: float32 outside the tensor cores by default,
+    H100_FP64_TC_FLOP_PER_S for K1 and K2, which compute in float64."""
+    tb, tf = n_bytes / H100_BYTES_PER_S, n_flop / flop_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -286,6 +304,48 @@ def riccati_check(tag, k1, lin64, mu, rows, f64_tol=1e-9, **extra):
     if not (e64 <= f64_tol and all(e32[n] <= K1_F32_TOL for n in SWEEP_OUT)):
         fail(f"{tag}: K1 (riccati_backward) disagrees with its plain version")
     return ref, g32, lin32, dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def k2_check(tag, k1, Jup64, mu, **extra):
+    """K2 alone, through `riccati.spd_inverse`, on the Quu-like stack
+    2JupᵀJup + μI made from the float64 Jacobian rows `Jup64`: float64
+    against `lm_spd_inverse` to K2_F64_TOL, float32 to K2_F32_TOL (see
+    there); its time beside one `torch.linalg.inv` call on the same
+    stack, float32 and float64, and the plain twin's. Returns the
+    figures; fails the run on disagreement."""
+    import torch
+    from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
+
+    nu = Jup64.shape[-1]
+    J = Jup64.reshape(-1, Jup64.shape[-2], nu)
+    Q64 = (2.0 * J.transpose(-1, -2) @ J + mu * torch.eye(
+        nu, dtype=torch.float64, device=J.device)).contiguous()
+    Q32 = Q64.float()
+    ref = lm_spd_inverse(Q64)
+    ref32 = lm_spd_inverse(Q32.double())
+    got64, got32 = k1.spd_inverse(Q64), k1.spd_inverse(Q32)
+    torch.cuda.synchronize()
+    res = dict(
+        stack=list(Q64.shape), f64_rel_err=rel_err(got64, ref),
+        f64_tol=K2_F64_TOL, f32_rel_err=rel_err(got32, ref32),
+        f32_tol=K2_F32_TOL, f32_max_abs_err=abs_err(got32, ref32),
+        f32_plain_rel_err=rel_err(lm_spd_inverse(Q32), ref32),
+        f32_rel_err_vs_f64_stack=rel_err(got32, ref),
+        ms_f32=cuda_ms(lambda: k1.spd_inverse(Q32), reps=20),
+        ms_f64=cuda_ms(lambda: k1.spd_inverse(Q64), reps=20),
+        # one matrix on one warp of an idle card: the routine's latency,
+        # launch included, as K1's chain pays it once a node
+        ms_one_matrix_f64=cuda_ms(lambda: k1.spd_inverse(Q64[:1]), reps=20),
+        torch_linalg_inv_ms_f32=cuda_ms(lambda: torch.linalg.inv(Q32), reps=20),
+        torch_linalg_inv_ms_f64=cuda_ms(lambda: torch.linalg.inv(Q64), reps=20),
+        plain_ms_f32=cuda_ms(lambda: lm_spd_inverse(Q32), reps=5, warmup=1),
+        bytes_f32=2 * nbytes(Q32), flop=2 * inv_flops(nu) * Q64.shape[0])
+    res["bound_ms"], res["bound_by"] = bound(res["bytes_f32"], res["flop"],
+                                             H100_FP64_TC_FLOP_PER_S)
+    emit(tag, **res, **extra)
+    if not (res["f64_rel_err"] <= K2_F64_TOL and res["f32_rel_err"] <= K2_F32_TOL):
+        fail(f"{tag}: K2 (spd_inverse) disagrees with lm_spd_inverse")
+    return res
 
 
 def trial_check(tag, plain, kernel, args, alphas4, merit0, D, dV1, dV2, opts,
@@ -503,7 +563,6 @@ def main():
     from srbd_horizon_tpu_torch.kernels import linearize as k4
     from srbd_horizon_tpu_torch.kernels import riccati as k1
     from srbd_horizon_tpu_torch.kernels import rollout as k3
-    from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
     from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
     from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
     from srbd_horizon_tpu_torch.runtime.chunked import chunk_map
@@ -629,7 +688,7 @@ def main():
     k1_flop = riccati_flops(B, ns, nx, nu, lin32["Jt"].shape[1],
                             len(rows.rx), len(rows.ru), len(rows.gx),
                             len(rows.gu), len(rows.bx), len(rows.uc))
-    k1_bound, k1_by = bound(k1_bytes, k1_flop)
+    k1_bound, k1_by = bound(k1_bytes, k1_flop, H100_FP64_TC_FLOP_PER_S)
 
     x0[7] = x0[6]
     r32 = k3_args(torch.float32, alphas4[:1])
@@ -645,34 +704,29 @@ def main():
     r32_fan = k3_args(torch.float32, alphas4)
     k3_fan_ms = cuda_ms(lambda: k3.srbd_trial(*r32_fan), reps=50)
 
-    # K2 yardstick: the (B·ns, nu, nu) Quu-like SPD stack 2JupᵀJup + μI,
-    # inverted by one library call and by the plain block-Schur twin; the
-    # bound is that of the stack alone (read once, written once)
-    Jup = lin32["Jup"].reshape(B * ns, -1, nu)
-    Q = 2.0 * Jup.transpose(-1, -2) @ Jup + mu * torch.eye(
-        nu, device=dev, dtype=torch.float32)
-    inv_lib_ms = cuda_ms(lambda: torch.linalg.inv(Q), reps=20)
-    inv_plain_ms = cuda_ms(lambda: lm_spd_inverse(Q), reps=20)
-    k2_bound, k2_by = bound(2 * nbytes(Q), 2 * inv_flops(nu) * B * ns)
-    emit("k2_yardstick", stack=list(Q.shape), dtype="float32",
-         torch_linalg_inv_ms=inv_lib_ms, lm_spd_inverse_plain_ms=inv_plain_ms,
-         bound_ms=k2_bound, bound_by=k2_by, bytes=2 * nbytes(Q),
-         flop=2 * inv_flops(nu) * B * ns)
+    # K2 alone, through its own entry, on the (B·ns, nu, nu) Quu-like
+    # stack 2JupᵀJup + μI in float64 and float32, beside torch.linalg.inv
+    k2 = k2_check("k2_check", k1, lin64["Jup"], mu, sizes="srbd", card=card)
+    nt_s = lin32["Jt"].shape[1]
+    k1_smem = k1.shared_memory_bytes(nx, nu, nt_s, rows)
+    k1_blocks = k1.blocks_per_sm(nx, nu, nt_s, rows)
     emit("kernel_times", card=card,
          srbd_linearize_ms=k4_ms, srbd_linearize_plain_ms=k4_plain_ms,
          srbd_linearize_bound_ms=k4_bound, srbd_linearize_bytes=k4_bytes,
          srbd_linearize_flop=k4_flop,
          riccati_backward_ms=k1_ms, riccati_backward_plain_ms=k1_plain_ms,
          riccati_bound_ms=k1_bound, riccati_bytes=k1_bytes,
-         riccati_flop=k1_flop,
+         riccati_flop=k1_flop, riccati_rate="FP64 tensor cores, 67 TFLOP/s",
+         riccati_shared_memory_bytes=k1_smem, riccati_blocks_per_sm=k1_blocks,
          srbd_trial_ms=k3_ms, srbd_trial_plain_ms=k3_plain_ms,
          srbd_trial_bound_ms=k3_bound, srbd_trial_bytes=k3_bytes,
          srbd_trial_flop=k3_flop, srbd_trial_4alpha_ms=k3_fan_ms)
+    # SRBD sizes: four blocks an SM, 528 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="srbd", card=card,
-         shared_memory_bytes=k1.shared_memory_bytes(nx, nu, 15, rows),
+         shared_memory_bytes=k1_smem, blocks_per_sm=k1_blocks,
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          ms_by_B=k1_wave_probe(k1, lin32, order, mu, rows,
-                               (132, 264, 265, 512, 528, 529)))
+                               (1, 132, 264, 396, 512, 528, 529, 1056, 1057)))
     del lin64, lin32, lin_g32, ref64, got32
 
     # ---------------- phase 3: the main path ----------------
@@ -894,10 +948,16 @@ def main():
 
     nt_i = ilin64["Jt"].shape[1]
     k1i_smem = k1.shared_memory_bytes(inx, inu, nt_i, irows)
+    k1i_blocks = k1.blocks_per_sm(inx, inu, nt_i, irows)
     iref64, igot32, ilin32, k1i_err = riccati_check(
         "k1_isrbd_check", k1, ilin64, mu, irows, B=Bc,
         live_b_columns=len(irows.uc), nu=inu, shared_memory_bytes=k1i_smem,
-        shared_memory_bytes_srbd=k1.shared_memory_bytes(nx, nu, 15, rows))
+        blocks_per_sm=k1i_blocks,
+        shared_memory_bytes_f64=k1.shared_memory_bytes(
+            inx, inu, nt_i, irows, torch.float64),
+        shared_memory_bytes_srbd=k1_smem)
+    k2i = k2_check("k2_check_isrbd", k1, ilin64["Jup"], mu, sizes="isrbd",
+                   card=card)
 
     # K6: the isrbd trial; member 7 starts from a NaN state
     iopts = al64.inner.opts
@@ -940,7 +1000,7 @@ def main():
     k1i_flop = riccati_flops(Bc, ns, inx, inu, nt_i, len(irows.rx),
                              len(irows.ru), len(irows.gx), len(irows.gu),
                              len(irows.bx), len(irows.uc))
-    k1i_bound, k1i_by = bound(k1i_bytes, k1i_flop)
+    k1i_bound, k1i_by = bound(k1i_bytes, k1i_flop, H100_FP64_TC_FLOP_PER_S)
 
     ix0[7] = ix0[6]
     t32 = k6_args(torch.float32, alphas4[:1])
@@ -961,15 +1021,17 @@ def main():
          isrbd_linearize_flop=k5_flop,
          riccati_backward_ms=k1i_ms, riccati_backward_plain_ms=k1i_plain_ms,
          riccati_bound_ms=k1i_bound, riccati_bytes=k1i_bytes,
-         riccati_flop=k1i_flop,
+         riccati_flop=k1i_flop, riccati_rate="FP64 tensor cores, 67 TFLOP/s",
+         riccati_shared_memory_bytes=k1i_smem, riccati_blocks_per_sm=k1i_blocks,
          isrbd_trial_ms=k6_ms, isrbd_trial_plain_ms=k6_plain_ms,
          isrbd_trial_bound_ms=k6_bound, isrbd_trial_bytes=k6_bytes,
          isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms)
+    # isrbd sizes: three blocks an SM, 396 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="isrbd", card=card,
-         shared_memory_bytes=k1i_smem,
+         shared_memory_bytes=k1i_smem, blocks_per_sm=k1i_blocks,
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          ms_by_B=k1_wave_probe(k1, ilin32, order, mu, irows,
-                               (66, 132, 133, 256, 264, 265)))
+                               (1, 132, 256, 396, 397, 792, 793)))
     del ilin64, ilin32, ilin_g32, iref64, igot32, pin64, iparams, ist
 
     # ---------------- phase 6: the constrained path ----------------
@@ -1216,16 +1278,34 @@ def main():
         kernel_row("srbd_linearize", k4, launches["srbd_linearize"], k4_ms,
                    k4_plain_ms, k4_bound, k4_by, k4_err, lin_tol),
         kernel_row("riccati_backward", k1, launches["riccati_backward"], k1_ms,
-                   k1_plain_ms, k1_bound, k1_by, k1_err, K1_F32_TOL),
+                   k1_plain_ms, k1_bound, k1_by, k1_err, K1_F32_TOL,
+                   shared_memory_bytes=k1_smem, blocks_per_sm=k1_blocks),
         kernel_row("srbd_trial", k3, launches["srbd_trial"], k3_ms,
                    k3_plain_ms, k3_bound, k3_by, k3_err, trial_tol),
         kernel_row("isrbd_linearize", k5, claunches["isrbd_linearize"], k5_ms,
                    k5_plain_ms, k5_bound, k5_by, k5_err, lin_tol),
         kernel_row("riccati_backward_isrbd", k1, claunches["riccati_backward"],
                    k1i_ms, k1i_plain_ms, k1i_bound, k1i_by, k1i_err,
-                   K1_F32_TOL, shared_memory_bytes=k1i_smem),
+                   K1_F32_TOL, shared_memory_bytes=k1i_smem,
+                   blocks_per_sm=k1i_blocks),
         kernel_row("isrbd_trial", k6, claunches["isrbd_trial"], k6_ms,
                    k6_plain_ms, k6_bound, k6_by, k6_err, trial_tol),
+        # K2 runs inside K1: its launches are K1's on the main path; its
+        # times are the standalone entry's on the SRBD stack (float32)
+        dict(kernel_row(
+            "spd_inverse", k1, launches["riccati_backward"], k2["ms_f32"],
+            k2["plain_ms_f32"], k2["bound_ms"], k2["bound_by"],
+            dict(e64=k2["f64_rel_err"], e32=k2["f32_rel_err"],
+                 p32=k2["f32_plain_rel_err"], abs32=k2["f32_max_abs_err"]),
+            K2_F32_TOL, launches_of="riccati_backward (K2 runs inside K1)",
+            stack=k2["stack"], ms_f64=k2["ms_f64"],
+            library_ms_f32=k2["torch_linalg_inv_ms_f32"],
+            isrbd_stack=k2i["stack"], isrbd_ms_f32=k2i["ms_f32"],
+            isrbd_ms_f64=k2i["ms_f64"],
+            isrbd_library_ms_f64=k2i["torch_linalg_inv_ms_f64"],
+            isrbd_library_ms_f32=k2i["torch_linalg_inv_ms_f32"]),
+             replaces=k1.K2_REPLACES,
+             library_ms=k2["torch_linalg_inv_ms_f64"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

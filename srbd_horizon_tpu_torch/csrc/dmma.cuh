@@ -1,0 +1,42 @@
+// The PTX instructions K1 and K2 issue directly, kept apart so that the
+// rest of riccati_backward.cu is plain CUDA C++.
+//
+// FP64 tensor-core product, mma.sync.aligned.m16n8k4.row.col.f64 (sm_90
+// and later): D (16×8) = A (16×4) · B (4×8) + C, one warp, every lane
+// taking part. With g = lane >> 2 and t = lane & 3, each lane holds
+//   A: two doubles, A[g][t] and A[g + 8][t];
+//   B: one double, B[t][g];
+//   C and D: four doubles, C[g][2t], C[g][2t + 1], C[g + 8][2t] and
+//   C[g + 8][2t + 1].
+// Each output is rounded as c + a₀b₀ + … + a₃b₃ in four fused
+// multiply-adds, in order of k (tools/torch_dmma_probe.py).
+#pragma once
+
+__device__ __forceinline__ void dmma_m16n8k4(double (&c)[4], double a0,
+                                             double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// Ask for the 128-byte line holding `p` to be brought into L2; no
+// register waits on it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Copy Bytes (4 or 8) from global to shared memory without passing through
+// registers (cp.async, sm_80 and later); cp_async_wait_all() waits for
+// every copy this thread has issued.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* global) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst),
+               "l"(global), "n"(Bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}

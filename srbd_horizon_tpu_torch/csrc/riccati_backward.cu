@@ -2,56 +2,77 @@
 // with the block-Schur SPD inverse of Quu (K2) as a device routine inside.
 //
 // Replaces: the JAX package's Riccati sweep. Its one Pallas kernel,
-// `backward_sweep_pallas` (srbd_horizon_tpu/solvers/pallas_backward.py,
-// retired in b514cfb), kept the value function in VMEM across the node
-// loop; its live successor is the XLA-fused blocksparse branch of
-// `MSDDP._backward_lanemajor` (srbd_horizon_tpu/solvers/msddp.py:431-777,
-// `node_ops` :563-598, `chain` :501-518). This kernel computes exactly what
-// that branch computes, per member; its plain twin is
-// `kernels/riccati.py::riccati_backward_plain`.
+// `backward_sweep_pallas` (srbd_horizon_tpu/solvers/pallas_backward.py:264,
+// its pl.pallas_call at :284, retired in b514cfb), kept the value function
+// in VMEM across the node loop; its live successor is the XLA-fused
+// blocksparse branch of `MSDDP._backward_lanemajor`
+// (srbd_horizon_tpu/solvers/msddp.py:431-777, `node_ops` :563-598, `chain`
+// :501-518). This kernel computes exactly what that branch computes, per
+// member; its plain twin is `kernels/riccati.py::riccati_backward_plain`.
 //
 // Where the dynamics consume only some inputs (`OCP.dynamics_u_cols`: the
 // isrbd forces are dead B columns), Bs carries the n_uc live columns only
-// and the three B-chain terms BsᵀVx_d[ru], BsᵀV[ru,ru]Bs, BsᵀVA[ru] are
-// added at the live positions of the dense Qu, Quu, Qux, exactly as
-// msddp.py:584-597 scatters them; the residual Grams cover every input.
-// With every column live (SRBD) the arithmetic is what it was.
+// and the three B-chain terms BsᵀVx_d[ru], BsᵀV[ru,ru]Bs, BsᵀVA[ru] land
+// at the live positions of the dense Qu, Quu, Qux, as msddp.py:584-597
+// scatters them; the residual Grams cover every input.
 //
-// What bounds it on an H100: for the SRBD fleet (nx=37, nu=24, 22 live
-// rows of A−I, 18 of B, 34/42 residual rows touching x/u) one member-node
-// reads ~3.6k values (14.5 KB in f32) and writes 912 (3.6 KB), and does
-// ~0.48 MFLOP. At B=512, ns=20 that is ~185 MB and ~4.9 GFLOP per sweep:
-// 0.055 ms at 3.35 TB/s against 0.073 ms at 67 TFLOP/s (f32, no tensor
-// cores), so the floor is the arithmetic, ~0.07 ms; with the float64
-// arithmetic below (34 TFLOP/s) this kernel's own floor is ~0.15 ms.
-// For the isrbd AL inner problem (nx=37, nu=30, 19/37 live rows, 18 live
-// columns, 60/103 residual rows, a 101-row terminal stack) a member-node
-// reads ~6.7k values and does ~1.0 MFLOP; the block then holds ~137 KB of
-// float64 shared memory, so one block runs per SM.
+// What bounds it on an H100 SXM: the float64 arithmetic. An SRBD
+// member-node (nx=37, nu=24, 22 live rows of A−I, 18 of B, 34/42 residual
+// rows) needs ~0.48 MFLOP and reads ~14.5 KB of float32; at B=512, ns=20
+// that is ~4.9 GFLOP against ~185 MB, so 0.0771 ms at the FP64 tensor-core
+// rate (67 TFLOP/s) against 0.055 ms at 3.35 TB/s. The isrbd-AL inner
+// problem (nu=30, 19 live rows of A−I, 18 of 30 live B columns, 60/103
+// residual rows, a 101-row terminal stack) needs 4.45 GFLOP at B=256:
+// 0.0664 ms (chip_smoke.py computes both bounds from its own inputs).
 //
-// Design: one thread block per member, the node loop inside the block.
-// The value function (Vxx nx×nx, Vx) stays in shared memory across all
-// nodes, as the retired kernel kept it in VMEM; only the node's sliced
-// Jacobians stream in, and only the gains stream out. Every contraction
-// is a block-cooperative loop over output elements with the sum in a
-// register, over the declared row sets only (passed as an int32 table,
-// not hard-coded, so another problem's row runs work unchanged). The
-// Quu⁻¹ recursion mirrors `lm_spd_inverse` (split at n/2, closed forms at
-// n ≤ 3, symmetrize each level) so that f64 results agree with the plain
-// version to rounding. Simple first: no tensor cores, no TMA, no
-// overlap of the next node's loads with this node's arithmetic.
+// Design, one thread block of 4 warps per member, the node loop inside:
+//  * Compile-time sizes. The kernel is a template on a shape struct (one
+//    per OCP: SrbdShape, IsrbdAlShape); every loop bound, tile count and
+//    shared-memory offset is a constant. The row sets stay a run-time
+//    int32 table, copied into shared memory once. The wrapper picks the
+//    instantiation from the sizes and refuses any other.
+//  * FP64 tensor cores. Every dense product of a node runs on warps over
+//    16×8 output tiles with mma.sync m16n8k4 f64 (dmma.cuh), which runs
+//    at twice the rate of m8n8k4 on an H100 (tools/torch_dmma_probe.py);
+//    a lane resolves the gathered rows and columns (rx, ru, bx/bu, the
+//    live columns) when it loads its fragment and clamps, then zeroes,
+//    what lies past an edge. Each product sums in order of depth in its
+//    own accumulator (every f64 mma shape rounds as fused multiply-adds
+//    in order of depth), and
+//    the two of a Q term are added as the twin adds them:
+//    Qxx = (2JxpᵀJxp + VA) + SxᵀVA[rx], Quu = (2JupᵀJup + BsᵀW) + μI,
+//    Qux = 2Jup[bu]ᵀJxp[bx] + BsᵀVA[ru] (at Quu's conditioning the gains
+//    feel the order of every sum). The matrix-vector terms run a thread
+//    per output, in order of depth too.
+//  * K2 on one warp: the block-Schur recursion of `lm_spd_inverse` (split
+//    at n/2, closed forms at n ≤ 3 with a lane per entry, symmetrized at
+//    each level), its products on the same DMMA tiles, `__syncwarp`
+//    between steps and no block barrier inside. The recursion is over
+//    template sizes, so it unrolls at compile time and needs no stack.
+//  * Occupancy. The value function, Quu, Qux and the small vectors are
+//    float64 and live through the node; everything else shares one
+//    region: VA, W and the node's blocks (kept in their storage type,
+//    float32 for float32 tensors, widened where they are read — exact)
+//    until the Q terms are formed, then Quu⁻¹, K and the inverse's
+//    workspace. The terminal Jt streams through the blocks' place. For
+//    float32 tensors a block takes 53,544 B (SRBD, four blocks an SM,
+//    B=512 in one wave) or 73,356 B (isrbd, three an SM, B=256 in one
+//    wave); float64 tensors take 68,040 B and 100,868 B.
+//  * Overlap. There is no room for a second copy of the node's blocks at
+//    these occupancies, so the other resident blocks are the overlap;
+//    while one warp inverts Quu, the other three ask L2 for the next
+//    node's blocks.
 //
 // Precision: the arithmetic on chip is float64 for float32 and float64
 // tensors alike; a float32 call reads and writes float32 in device memory
 // only. The 1e6 constraint weight makes Quu ill-conditioned: carried in
 // float32, the recursion loses ~1e-2 relative in the gains (the plain
 // float32 twin does), while float32 inputs carried in float64 lose ~1e-7.
-// Shared memory is then ~84 KB per block for either type. So for float32
-// tensors this kernel and the float32 plain twin (the CPU path, and the
-// JAX float32 sweep) differ by ~1e-2 in the gains: the kernel is the
-// closer of them to the float64 sweep. A faster version has to keep the
-// float64 arithmetic: on this card its tensor-core route is FP64 DMMA
-// (mma.sync m8n8k4 f64), not the float32/TF32 tensor cores.
+// Summed in the order the twin's batched products take on the card and
+// with the closed-form leaves rounded as the twin rounds them, the float64
+// gains part from the twin's by ~2e-11 relative at chip_smoke.py's isrbd
+// point, where sums in another order read ~5e-10 (Quu's conditioning
+// amplifies every rounding difference).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -59,420 +80,627 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "dmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kSmemExceeded = -1;   // kernels/riccati.py::SMEM_EXCEEDED
+constexpr int kUnknownShape = -2;   // kernels/riccati.py::UNKNOWN_SHAPE
 
-// ---- closed-form inverses (one thread) ----
+// ---- the instantiations (kernels/riccati.py::KERNEL_SHAPES, same order) ----
 
-template <typename T>
-__device__ void inv_closed(int n, const T* A, int lda, T* out, int ldo) {
-  if (n == 1) {
-    out[0] = T(1) / A[0];
-  } else if (n == 2) {
-    const T a = A[0], b = A[1], c = A[lda], d = A[lda + 1];
-    const T det = a * d - b * c;
-    out[0] = d / det;
-    out[1] = -b / det;
-    out[ldo] = -c / det;
-    out[ldo + 1] = a / det;
-  } else {  // n == 3
-    const T a00 = A[0], a01 = A[1], a02 = A[2];
-    const T a10 = A[lda], a11 = A[lda + 1], a12 = A[lda + 2];
-    const T a20 = A[2 * lda], a21 = A[2 * lda + 1], a22 = A[2 * lda + 2];
-    const T c00 = a11 * a22 - a12 * a21;
-    const T c01 = a02 * a21 - a01 * a22;
-    const T c02 = a01 * a12 - a02 * a11;
-    const T c10 = a12 * a20 - a10 * a22;
-    const T c11 = a00 * a22 - a02 * a20;
-    const T c12 = a02 * a10 - a00 * a12;
-    const T c20 = a10 * a21 - a11 * a20;
-    const T c21 = a01 * a20 - a00 * a21;
-    const T c22 = a00 * a11 - a01 * a10;
-    const T det = a00 * c00 + a01 * c10 + a02 * c20;
-    out[0] = c00 / det;
-    out[1] = c01 / det;
-    out[2] = c02 / det;
-    out[ldo] = c10 / det;
-    out[ldo + 1] = c11 / det;
-    out[ldo + 2] = c12 / det;
-    out[2 * ldo] = c20 / det;
-    out[2 * ldo + 1] = c21 / det;
-    out[2 * ldo + 2] = c22 / det;
-  }
-}
-
-// Shared-memory workspace the block-Schur inverse below needs for n×n
-// (computed on the host only).
-inline int inv_work(int n) {
-  if (n <= 3) return 0;
-  const int k = n / 2, m = n - k;
-  const int a = inv_work(k), b = inv_work(m);
-  return k * m + m * m + m * k + (a > b ? a : b);
-}
-
-// One pending level of the block-Schur recursion below.
-template <typename T>
-struct InvFrame {
-  const T* A;
-  T* out;
-  T* work;
-  int n, lda, ldo, stage;
+struct SrbdShape {          // build_srbd_problem
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
+                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
 };
 
-constexpr int kMaxInvDepth = 8;   // n ≤ 3·2⁷ — far beyond any nu here
-
-// out = A⁻¹ for SPD A (n×n, leading dims lda/ldo), all block threads
-// together: the recursive block-Schur elimination of lm_spd_inverse,
-//   iA11 = A11⁻¹,  S = A22 − A21 iA11 A12,  iS = S⁻¹,
-//   B12 = −iA11 A12 iS,  B11 = iA11 − B12 A21 iA11,  B21 = B12ᵀ,
-//   out = ½(B + Bᵀ),
-// walked with an explicit stack (a device-side recursion would need a
-// run-time stack that ptxas cannot size). Every thread keeps the same
-// stack and takes the same path, so the barriers are uniform.
-template <typename T>
-__device__ void spd_inverse(int n, const T* A, int lda, T* out, int ldo,
-                            T* work) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  InvFrame<T> st[kMaxInvDepth];
-  int top = 0;
-  st[0] = InvFrame<T>{A, out, work, n, lda, ldo, 0};
-  while (top >= 0) {
-    InvFrame<T>& f = st[top];
-    if (f.n <= 3) {
-      if (tid == 0) inv_closed(f.n, f.A, f.lda, f.out, f.ldo);
-      __syncthreads();
-      --top;
-      continue;
-    }
-    const int k = f.n / 2, m = f.n - k;
-    const int lda_ = f.lda, ldo_ = f.ldo;
-    const T* A12 = f.A + k;
-    const T* A21 = f.A + k * lda_;
-    const T* A22 = f.A + k * lda_ + k;
-    T* T1 = f.work;         // iA11 A12       k×m
-    T* S = T1 + k * m;      // Schur complement m×m
-    T* T2 = S + m * m;      // A21 iA11       m×k
-    T* next = T2 + m * k;
-    T* O11 = f.out;
-    T* O12 = f.out + k;
-    T* O21 = f.out + k * ldo_;
-    T* O22 = f.out + k * ldo_ + k;
-    if (f.stage == 0) {                 // iA11 -> O11
-      f.stage = 1;
-      st[++top] = InvFrame<T>{f.A, O11, next, k, lda_, ldo_, 0};
-      continue;
-    }
-    if (f.stage == 1) {                 // T1, T2, S; then iS -> O22
-      for (int e = tid; e < k * m; e += nthr) {
-        const int i = e / m, j = e % m;
-        T s = T(0);
-        for (int l = 0; l < k; ++l) s += O11[i * ldo_ + l] * A12[l * lda_ + j];
-        T1[e] = s;
-      }
-      for (int e = tid; e < m * k; e += nthr) {
-        const int i = e / k, j = e % k;
-        T s = T(0);
-        for (int l = 0; l < k; ++l) s += A21[i * lda_ + l] * O11[l * ldo_ + j];
-        T2[e] = s;
-      }
-      __syncthreads();
-      for (int e = tid; e < m * m; e += nthr) {
-        const int i = e / m, j = e % m;
-        T s = T(0);
-        for (int l = 0; l < k; ++l) s += A21[i * lda_ + l] * T1[l * m + j];
-        S[e] = A22[i * lda_ + j] - s;
-      }
-      __syncthreads();
-      f.stage = 2;
-      st[++top] = InvFrame<T>{S, O22, next, m, m, ldo_, 0};
-      continue;
-    }
-    for (int e = tid; e < k * m; e += nthr) {   // B12 = −T1 iS
-      const int i = e / m, j = e % m;
-      T s = T(0);
-      for (int l = 0; l < m; ++l) s += T1[i * m + l] * O22[l * ldo_ + j];
-      O12[i * ldo_ + j] = -s;
-    }
-    __syncthreads();
-    for (int e = tid; e < k * k; e += nthr) {   // B11 = iA11 − B12 T2
-      const int i = e / k, j = e % k;
-      T s = T(0);
-      for (int l = 0; l < m; ++l) s += O12[i * ldo_ + l] * T2[l * k + j];
-      O11[i * ldo_ + j] = O11[i * ldo_ + j] - s;
-    }
-    for (int e = tid; e < m * k; e += nthr) {   // B21 = B12ᵀ
-      const int i = e / k, j = e % k;
-      O21[i * ldo_ + j] = O12[j * ldo_ + i];
-    }
-    __syncthreads();
-    const int nn = f.n;
-    for (int e = tid; e < nn * nn; e += nthr) {  // out = ½(out + outᵀ)
-      const int i = e / nn, j = e % nn;
-      if (i < j) {
-        const T v = T(0.5) * (f.out[i * ldo_ + j] + f.out[j * ldo_ + i]);
-        f.out[i * ldo_ + j] = v;
-        f.out[j * ldo_ + i] = v;
-      }
-    }
-    __syncthreads();
-    --top;
-  }
-}
-
-struct Dims {
-  int B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc;
+struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
+  static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
+                       n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
+  static constexpr int min_blocks = 3;
 };
 
-// Shared-memory layout, in elements of T: the buffers, the int row table
-// (rows slots of T), then the inverse's workspace, which runs to the end.
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+// Float64 workspace of the block-Schur inverse of an n×n matrix.
+__host__ __device__ constexpr int inv_work(int n) {
+  return n <= 3 ? 0
+                : (n / 2) * (n - n / 2) * 2 + (n - n / 2) * (n - n / 2) +
+                      cmax(inv_work(n / 2), inv_work(n - n / 2));
+}
+
+// Shared-memory layout. Offsets of float64 buffers count doubles from the
+// start; the node's blocks count elements of T from `blocks`.
+template <class S, typename T>
 struct Layout {
-  int Vxx, VA, Vx, Vxd, Qx, d, Sx, Bs, Jxp, Jup, rxp, rup, Quu, iQ, Qux, K,
-      Qu, k, W, acc, rows, work;
-  __host__ __device__ Layout(const Dims& g, int elem) {
-    const int nxx = g.nx * g.nx;
-    const int n_jx = g.n_gx > g.nt ? g.n_gx : g.nt;   // Jxp buffer holds Jt too
-    int o = 0;
-    Vxx = o; o += nxx;
-    VA = o; o += nxx;
-    Vx = o; o += g.nx;
-    Vxd = o; o += g.nx;
-    Qx = o; o += g.nx;
-    d = o; o += g.nx;
-    Sx = o; o += g.n_rx * g.nx;
-    Bs = o; o += g.n_ru * g.n_uc;
-    Jxp = o; o += n_jx * g.nx;
-    Jup = o; o += g.n_gu * g.nu;
-    rxp = o; o += n_jx;
-    rup = o; o += g.n_gu;
-    Quu = o; o += g.nu * g.nu;
-    iQ = o; o += g.nu * g.nu;
-    Qux = o; o += g.nu * g.nx;
-    K = o; o += g.nu * g.nx;
-    Qu = o; o += g.nu;
-    k = o; o += g.nu;
-    W = o; o += g.n_ru * g.n_uc;
-    acc = o; o += 2;
-    rows = o;
-    // the row table (… | uc) and, after it, each input's position in uc
-    const int n_rows =
-        g.n_rx + g.n_ru + g.n_gx + g.n_gu + 2 * g.n_b + g.n_uc + g.nu;
-    o += (n_rows * static_cast<int>(sizeof(int)) + elem - 1) / elem;
-    work = o;
-  }
+  static constexpr int nx = S::nx, nu = S::nu;
+  // float64, live through the node or across nodes
+  static constexpr int Vxx = 0, Vx = Vxx + nx * nx, Vxd = Vx + nx,
+                       Qx = Vxd + nx, Qu = Qx + nx, k = Qu + nu,
+                       Quu = k + nu, Qux = Quu + nu * nu, acc = Qux + nu * nx,
+                       region = acc + 2;
+  // the region until the Q terms are formed: VA, W, then the node's blocks
+  static constexpr int VA = region, W = VA + nx * nx,
+                       blocks = W + S::n_ru * S::n_uc;
+  static constexpr int Sx = 0, Bs = Sx + S::n_rx * nx,
+                       Jxp = Bs + S::n_ru * S::n_uc, Jup = Jxp + S::n_gx * nx,
+                       rxp = Jup + S::n_gu * nu, rup = rxp + S::n_gx,
+                       d = rup + S::n_gu, n_blocks = d + nx;
+  static constexpr int Jt = 0, rt = S::nt * nx, n_terminal = rt + S::nt;
+  // the same region from the inverse on: Quu⁻¹, K, the inverse's workspace
+  static constexpr int iQ = region, K = iQ + nu * nu, work = K + nu * nx;
+  static constexpr int elem = static_cast<int>(sizeof(T));
+  static constexpr int region_bytes = cmax(
+      (blocks - region) * 8 + (cmax(n_blocks, n_terminal) * elem + 7) / 8 * 8,
+      (nu * nu + nu * nx + inv_work(nu)) * 8);
+  // the row table (rx | ru | gx | gu | bx | bu | uc), then each input's
+  // position in uc (or −1)
+  static constexpr int rows_byte = region * 8 + region_bytes;
+  static constexpr int n_rows = S::n_rx + S::n_ru + S::n_gx + S::n_gu +
+                                2 * S::n_b + S::n_uc;
+  static constexpr int bytes = rows_byte + (n_rows + nu) * 4;
 };
 
-inline size_t smem_bytes(const Dims& g, int elem) {
-  const Layout L(g, elem);
-  return static_cast<size_t>(L.work + inv_work(g.nu)) * elem;
+template <typename T>
+__device__ __forceinline__ double wide(T v) {
+  return static_cast<double>(v);
 }
 
+// Σ_k f(k) over a compile-time depth, in order of k (the twin's order).
+template <int K, class F>
+__device__ __forceinline__ double dot(F f) {
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) s += f(k);
+  return s;
+}
+
+// A tile's accumulators: c[p] is the tile of product p. A node's Q terms
+// each add two products, which stay apart until the twin adds them, in
+// the twin's order: with Quu's conditioning the gains feel the order of
+// every sum.
+struct Acc {
+  double c[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
+};
+
+// acc.c[P] += A·B over a compile-time depth K on one warp, four at a time
+// on the FP64 tensor cores, in order of depth: a(i, k) is A's row i at
+// depth k, fed for this lane's rows i0 and i1, b(k) its B column. Past
+// the depth both operands are zero (read at K−1, then replaced), so a
+// non-finite value there cannot leak in.
+template <int K, int P = 0, class FA, class FB>
+__device__ __forceinline__ void mma_seg(Acc& acc, FA a, int i0, int i1, FB b) {
+  const int t = threadIdx.x & 3;
+  constexpr int full = K / 4 * 4;
+#pragma unroll
+  for (int k0 = 0; k0 < full; k0 += 4)
+    dmma_m16n8k4(acc.c[P], a(i0, k0 + t), a(i1, k0 + t), b(k0 + t));
+  if constexpr (full < K) {
+    const bool in = full + t < K;
+    const int k = in ? full + t : K - 1;
+    const double a0 = a(i0, k), a1 = a(i1, k), bv = b(k);
+    dmma_m16n8k4(acc.c[P], in ? a0 : 0.0, in ? a1 : 0.0, in ? bv : 0.0);
+  }
+}
+
+template <int M, int N>
+struct Tiles {
+  static constexpr int cols = (N + 7) / 8, count = (M + 15) / 16 * cols;
+};
+
+// One 16×8 tile (`item`, row-major over the tiles) of an M×N product on
+// one warp. tile_acc: body(acc, ia0, ia1, jb) accumulates it, where ia0
+// and ia1 are the A rows g and g + 8 of the tile and jb the B column this
+// lane feeds (each clamped into the matrix: the rows and columns past the
+// edge are computed and dropped). tile_store: epi(i, j, v, w) takes each
+// element inside the matrix, v of product 0 and w of product 1.
+template <int M, int N, class Body>
+__device__ __forceinline__ void tile_acc(int item, Acc& acc, Body body) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int r = item / Tiles<M, N>::cols * 16 + g;
+  body(acc, imin(r, M - 1), imin(r + 8, M - 1),
+       imin(item % Tiles<M, N>::cols * 8 + g, N - 1));
+}
+
+template <int M, int N, class Epi>
+__device__ __forceinline__ void tile_store(int item, const Acc& acc, Epi epi) {
+  const int lane = threadIdx.x & 31;
+  const int i = item / Tiles<M, N>::cols * 16 + (lane >> 2);
+  const int j = item % Tiles<M, N>::cols * 8 + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (i + 8 * h < M) {
+      if (j < N) epi(i + 8 * h, j, acc.c[0][2 * h], acc.c[1][2 * h]);
+      if (j + 1 < N)
+        epi(i + 8 * h, j + 1, acc.c[0][2 * h + 1], acc.c[1][2 * h + 1]);
+    }
+}
+
+// Every tile of an M×N product, and of a second P×Q one, on the calling
+// warp alone: all accumulated before any is stored, so that no tile's
+// loads wait behind another's stores.
+template <int M, int N, int P, int Q, class Body1, class Epi1, class Body2,
+          class Epi2>
+__device__ __forceinline__ void warp_tiles(Body1 body1, Epi1 epi1, Body2 body2,
+                                           Epi2 epi2) {
+  constexpr int c1 = Tiles<M, N>::count, c2 = Tiles<P, Q>::count;
+  Acc acc[c1 + c2 > 0 ? c1 + c2 : 1];
+#pragma unroll
+  for (int item = 0; item < c1; ++item) tile_acc<M, N>(item, acc[item], body1);
+#pragma unroll
+  for (int item = 0; item < c2; ++item)
+    tile_acc<P, Q>(item, acc[c1 + item], body2);
+#pragma unroll
+  for (int item = 0; item < c1; ++item) tile_store<M, N>(item, acc[item], epi1);
+#pragma unroll
+  for (int item = 0; item < c2; ++item)
+    tile_store<P, Q>(item, acc[c1 + item], epi2);
+}
+
+template <int M, int N, class Body, class Epi>
+__device__ __forceinline__ void warp_tiles(Body body, Epi epi) {
+  warp_tiles<M, N, 0, 0>(body, epi, body, epi);
+}
+
+// The tiles `warp`, `warp` + kWarps, ... of a phase's Count tiles on the
+// calling warp: acc(item, a) accumulates tile `item` into a, store(item,
+// a) writes it.
+template <int Count, class AccFn, class StoreFn>
+__device__ __forceinline__ void warp_items(int warp, AccFn acc, StoreFn store) {
+  for (int item = warp; item < Count; item += kWarps) {
+    Acc a;
+    acc(item, a);
+    store(item, a);
+  }
+}
+
+// B = ½(B + Bᵀ) for the N×N block at B (leading dim LD), by `ranks`
+// threads of which this is `rank`: every value read before any is written.
+template <int N, int LD, int Ranks>
+__device__ __forceinline__ void symmetrize(double* B, int rank) {
+  constexpr int iters = (N * N + Ranks - 1) / Ranks;
+  double v[iters];
+#pragma unroll
+  for (int it = 0; it < iters; ++it) {
+    const int e = rank + it * Ranks, i = e / N, j = e % N;
+    v[it] = e < N * N && i < j ? 0.5 * (B[i * LD + j] + B[j * LD + i]) : 0.0;
+  }
+#pragma unroll
+  for (int it = 0; it < iters; ++it) {
+    const int e = rank + it * Ranks, i = e / N, j = e % N;
+    if (e < N * N && i < j) {
+      B[i * LD + j] = v[it];
+      B[j * LD + i] = v[it];
+    }
+  }
+}
+
+// ---- K2: the block-Schur SPD inverse on one warp ----
+
+// Entry (r, c) of the closed-form inverse of an n×n block, n ≤ 3, as
+// `_lm_inv2`/`_lm_inv3` form it (adjugate over the determinant). Every
+// product is rounded before it is added, as the twin's elementwise
+// operations round it: contracted into a fused multiply-add, the leaves
+// move the gains by ~5e-10 relative at Quu's conditioning.
+template <int N, int LDA>
+__device__ __forceinline__ double inv_closed_entry(const double* A, int r,
+                                                   int c) {
+  if constexpr (N == 1) {
+    return 1.0 / A[0];
+  } else if constexpr (N == 2) {
+    const double a = A[0], b = A[1], cc = A[LDA], d = A[LDA + 1];
+    const double det = __dsub_rn(__dmul_rn(a, d), __dmul_rn(b, cc));
+    const double num = r == 0 ? (c == 0 ? d : -b) : (c == 0 ? -cc : a);
+    return num / det;
+  } else {
+    // adj[r][c] = A[c+1][r+1]·A[c+2][r+2] − A[c+1][r+2]·A[c+2][r+1]
+    // (indices mod 3), the cofactor products `_lm_inv3` writes out
+    auto a = [&](int i, int j) { return A[(i % 3) * LDA + (j % 3)]; };
+    auto cof = [](double w, double x, double y, double z) {   // w·x − y·z
+      return __dsub_rn(__dmul_rn(w, x), __dmul_rn(y, z));
+    };
+    const double c00 = cof(a(1, 1), a(2, 2), a(1, 2), a(2, 1));
+    const double c10 = cof(a(1, 2), a(2, 0), a(1, 0), a(2, 2));
+    const double c20 = cof(a(1, 0), a(2, 1), a(1, 1), a(2, 0));
+    const double det = __dadd_rn(
+        __dadd_rn(__dmul_rn(A[0], c00), __dmul_rn(A[1], c10)),
+        __dmul_rn(A[2], c20));
+    const double adj =
+        cof(a(c + 1, r + 1), a(c + 2, r + 2), a(c + 1, r + 2), a(c + 2, r + 1));
+    return adj / det;
+  }
+}
+
+// out = A⁻¹ for SPD A (N×N, leading dims LDA/LDO) on the calling warp:
+//   iA11 = A11⁻¹,  T1 = iA11 A12,  T2 = A21 iA11,  S = A22 − A21 T1,
+//   iS = S⁻¹,  B12 = −T1 iS,  B11 = iA11 − B12 T2,  B21 = B12ᵀ,
+//   out = ½(B + Bᵀ),
+// with k = N/2 and closed forms at N ≤ 3, as `lm_spd_inverse` does it.
+// `work` holds inv_work(N) doubles.
+template <int N, int LDA, int LDO>
+__device__ __forceinline__ void spd_inverse_warp(const double* A, double* out,
+                                                 double* work) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (N <= 3) {
+    if (lane < N * N)
+      out[lane / N * LDO + lane % N] =
+          inv_closed_entry<N, LDA>(A, lane / N, lane % N);
+    __syncwarp();
+  } else {
+    constexpr int k = N / 2, m = N - k;
+    const double* A12 = A + k;
+    const double* A21 = A + k * LDA;
+    const double* A22 = A21 + k;
+    double* T1 = work;         // k×m
+    double* S = T1 + k * m;    // m×m
+    double* T2 = S + m * m;    // m×k
+    double* next = T2 + m * k;
+    double* O11 = out;
+    double* O12 = out + k;
+    double* O21 = out + k * LDO;
+    double* O22 = O21 + k;
+    spd_inverse_warp<k, LDA, LDO>(A, O11, next);
+    warp_tiles<k, m, m, k>(
+        [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<k>(c, [&](int ia, int l) { return O11[ia * LDO + l]; },
+                     ia0, ia1, [&](int l) { return A12[l * LDA + jb]; });
+        },
+        [&](int i, int j, double v, double) { T1[i * m + j] = v; },
+        [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<k>(c, [&](int ia, int l) { return A21[ia * LDA + l]; },
+                     ia0, ia1, [&](int l) { return O11[l * LDO + jb]; });
+        },
+        [&](int i, int j, double v, double) { T2[i * k + j] = v; });
+    __syncwarp();
+    warp_tiles<m, m>(
+        [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<k>(c, [&](int ia, int l) { return A21[ia * LDA + l]; },
+                     ia0, ia1, [&](int l) { return T1[l * m + jb]; });
+        },
+        [&](int i, int j, double v, double) {
+          S[i * m + j] = A22[i * LDA + j] - v;
+        });
+    __syncwarp();
+    spd_inverse_warp<m, m, LDO>(S, O22, next);
+    // B12 = −T1 iS, and B21 = B12ᵀ beside it
+    warp_tiles<k, m>(
+        [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<m>(c, [&](int ia, int l) { return T1[ia * m + l]; },
+                     ia0, ia1, [&](int l) { return O22[l * LDO + jb]; });
+        },
+        [&](int i, int j, double v, double) {
+          O12[i * LDO + j] = -v;
+          O21[j * LDO + i] = -v;
+        });
+    __syncwarp();
+    warp_tiles<k, k>(
+        [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<m>(c, [&](int ia, int l) { return O12[ia * LDO + l]; },
+                     ia0, ia1, [&](int l) { return T2[l * k + jb]; });
+        },
+        [&](int i, int j, double v, double) {
+          O11[i * LDO + j] = O11[i * LDO + j] - v;
+        });
+    __syncwarp();
+    // out = ½(out + outᵀ): the B12/B21 blocks are each other's transpose,
+    // and an iS of more than 3 rows was symmetrized at its own level, so
+    // only B11 (and a closed-form iS) change; the rest would come out
+    // bit for bit as they are
+    symmetrize<k, LDO, 32>(O11, lane);
+    if constexpr (m <= 3) symmetrize<m, LDO, 32>(O22, lane);
+    __syncwarp();
+  }
+}
+
+// Copy Count elements from global to shared memory, thread `tid` of the
+// block taking every kThreads-th; the copies are in flight until
+// cp_async_wait_all().
+template <int Count, typename T>
+__device__ __forceinline__ void copy_in(T* smem, const T* global, int tid) {
+#pragma unroll
+  for (int e = tid; e < Count; e += kThreads)
+    cp_async<sizeof(T)>(smem + e, global + e);
+}
+
+// Ask L2 for `count` elements at p, `rank` of `ranks` threads taking part.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void prefetch(const T* p, int count, int rank,
+                                         int ranks) {
+  const char* c = reinterpret_cast<const char*>(p);
+  const int bytes = count * static_cast<int>(sizeof(T));
+  for (int off = rank * 128; off < bytes + 127; off += ranks * 128)
+    prefetch_l2(c + (off < bytes ? off : bytes - 1));
+}
+
+template <class S, typename T>
+__global__ void __launch_bounds__(kThreads, S::min_blocks)
 riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
                         const T* __restrict__ Jxp, const T* __restrict__ Jup,
                         const T* __restrict__ rho, const T* __restrict__ d,
                         const T* __restrict__ Jt, const T* __restrict__ rt,
-                        const int* __restrict__ rows, Dims g, double mu,
-                        T* __restrict__ ks, T* __restrict__ Ks,
+                        const int* __restrict__ rows, int ns, int nr,
+                        double mu, T* __restrict__ ks, T* __restrict__ Ks,
                         T* __restrict__ dV1, T* __restrict__ dV2) {
-  using C = double;                 // on-chip arithmetic (see the note above)
+  using L = Layout<S, T>;
+  constexpr int nx = S::nx, nu = S::nu, nt = S::nt, n_rx = S::n_rx,
+                n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu, n_b = S::n_b,
+                n_uc = S::n_uc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* sm = reinterpret_cast<C*>(smem_raw);
-  const Layout L(g, static_cast<int>(sizeof(C)));
-  const int nx = g.nx, nu = g.nu, ns = g.ns;
-  const int n_rx = g.n_rx, n_ru = g.n_ru, n_gx = g.n_gx, n_gu = g.n_gu,
-            n_b = g.n_b, n_uc = g.n_uc;
-  const int tid = threadIdx.x, nthr = blockDim.x;
+  double* const sm = reinterpret_cast<double*>(smem_raw);
+  double* const Vxx = sm + L::Vxx;
+  double* const Vx = sm + L::Vx;
+  double* const Vxd = sm + L::Vxd;
+  double* const Qx = sm + L::Qx;
+  double* const Qu = sm + L::Qu;
+  double* const kn = sm + L::k;
+  double* const Quu = sm + L::Quu;
+  double* const Qux = sm + L::Qux;
+  double* const acc = sm + L::acc;
+  double* const VA = sm + L::VA;
+  double* const W = sm + L::W;
+  double* const iQ = sm + L::iQ;
+  double* const Kn = sm + L::K;
+  double* const work = sm + L::work;
+  T* const blk = reinterpret_cast<T*>(sm + L::blocks);
+  T* const Sxs = blk + L::Sx;
+  T* const Bss = blk + L::Bs;
+  T* const Jxs = blk + L::Jxp;
+  T* const Jus = blk + L::Jup;
+  T* const rxp = blk + L::rxp;
+  T* const rup = blk + L::rup;
+  T* const ds = blk + L::d;
+  int* const rx = reinterpret_cast<int*>(smem_raw + L::rows_byte);
+  int* const ru = rx + n_rx;
+  int* const gx = ru + n_ru;
+  int* const gu = gx + n_gx;
+  int* const bx = gu + n_gu;
+  int* const bu = bx + n_b;
+  int* const uc = bu + n_b;
+  int* const upos = uc + n_uc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t b = blockIdx.x;
 
-  C* Vxx = sm + L.Vxx;
-  C* VA = sm + L.VA;
-  C* Vx = sm + L.Vx;
-  C* Vxd = sm + L.Vxd;
-  C* Qx = sm + L.Qx;
-  C* dn = sm + L.d;
-  C* Sxs = sm + L.Sx;
-  C* Bss = sm + L.Bs;
-  C* Jxs = sm + L.Jxp;
-  C* Jus = sm + L.Jup;
-  C* rxp = sm + L.rxp;
-  C* rup = sm + L.rup;
-  C* Quu = sm + L.Quu;
-  C* iQ = sm + L.iQ;
-  C* Qux = sm + L.Qux;
-  C* Kn = sm + L.K;
-  C* Qu = sm + L.Qu;
-  C* kn = sm + L.k;
-  C* W = sm + L.W;
-  C* work = sm + L.work;
-  C* acc = sm + L.acc;
-  int* rx = reinterpret_cast<int*>(sm + L.rows);
-  int* ru = rx + n_rx;
-  int* gx = ru + n_ru;
-  int* gu = gx + n_gx;
-  int* bx = gu + n_gu;
-  int* bu = bx + n_b;
-  int* uc = bu + n_b;
-  int* upos = uc + n_uc;            // position of input i in uc, or −1
-
-  const int n_rows = n_rx + n_ru + n_gx + n_gu + 2 * n_b + n_uc;
-  for (int e = tid; e < n_rows; e += nthr) rx[e] = rows[e];
-  for (int i = tid; i < nu; i += nthr) upos[i] = -1;
+  for (int e = tid; e < L::n_rows; e += kThreads) rx[e] = rows[e];
+  for (int i = tid; i < nu; i += kThreads) upos[i] = -1;
+  copy_in<nt * nx>(blk + L::Jt, Jt + b * nt * nx, tid);
+  copy_in<nt>(blk + L::rt, rt + b * nt, tid);
+  cp_async_wait_all();
+  if (tid == 0) {
+    acc[0] = 0.0;
+    acc[1] = 0.0;
+  }
   __syncthreads();
-  for (int e = tid; e < n_uc; e += nthr) upos[uc[e]] = e;
+  for (int e = tid; e < n_uc; e += kThreads) upos[uc[e]] = e;
 
   // terminal value function: Vxx = 2 JtᵀJt, Vx = 2 Jtᵀrt
-  const int nt = g.nt;
-  for (int e = tid; e < nt * nx; e += nthr) Jxs[e] = Jt[b * nt * nx + e];
-  for (int e = tid; e < nt; e += nthr) rxp[e] = rt[b * nt + e];
-  if (tid == 0) { acc[0] = C(0); acc[1] = C(0); }
+  if (tid < nx)
+    Vx[tid] = 2.0 * dot<nt>([&](int r) {
+                return wide(blk[L::Jt + r * nx + tid]) * wide(blk[L::rt + r]);
+              });
+  __syncwarp();
+  warp_items<Tiles<nx, nx>::count>(
+      warp,
+      [&](int item, Acc& a) {
+        tile_acc<nx, nx>(item, a, [&](Acc& c, int ia0, int ia1, int jb) {
+          mma_seg<nt>(
+              c, [&](int ia, int k) { return wide(blk[L::Jt + k * nx + ia]); },
+              ia0, ia1, [&](int k) { return wide(blk[L::Jt + k * nx + jb]); });
+        });
+      },
+      [&](int item, const Acc& a) {
+        tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
+          Vxx[i * nx + j] = 2.0 * v;
+        });
+      });
   __syncthreads();
-  for (int e = tid; e < nx * nx; e += nthr) {
-    const int i = e / nx, j = e % nx;
-    C s = C(0);
-    for (int r = 0; r < nt; ++r) s += Jxs[r * nx + i] * Jxs[r * nx + j];
-    Vxx[e] = C(2) * s;
-  }
-  for (int i = tid; i < nx; i += nthr) {
-    C s = C(0);
-    for (int r = 0; r < nt; ++r) s += Jxs[r * nx + i] * rxp[r];
-    Vx[i] = C(2) * s;
-  }
-  __syncthreads();
+
+  // the node's products: a(ia, k) reads A's row ia, fed for the rows ia0
+  // and ia1 of this lane, b(k) the B column jb
+  auto va_body = [&](Acc& c, int ia0, int ia1, int jb) {  // Vxx[:,rx] Sx
+    mma_seg<n_rx>(c, [&](int ia, int k) { return Vxx[ia * nx + rx[k]]; },
+                  ia0, ia1, [&](int k) { return wide(Sxs[k * nx + jb]); });
+  };
+  auto w_body = [&](Acc& c, int ia0, int ia1, int jb) {  // V[ru,ru] Bs
+    mma_seg<n_ru>(c, [&](int ia, int k) { return Vxx[ru[ia] * nx + ru[k]]; },
+                  ia0, ia1, [&](int k) { return wide(Bss[k * n_uc + jb]); });
+  };
+  // Bs read at input ia's live position, 0 where ia is a dead column
+  auto bs_at = [&](int ia, int k) {
+    const int pa = upos[ia];
+    const double v = wide(Bss[k * n_uc + (pa < 0 ? 0 : pa)]);
+    return pa < 0 ? 0.0 : v;
+  };
+  auto quu_body = [&](Acc& c, int ia0, int ia1, int jb) {  // 2JupᵀJup, BsᵀW
+    mma_seg<n_gu>(
+        c, [&](int ia, int k) { return 2.0 * wide(Jus[k * nu + ia]); }, ia0,
+        ia1, [&](int k) { return wide(Jus[k * nu + jb]); });
+    const int pb = upos[jb], qb = pb < 0 ? 0 : pb;
+    mma_seg<n_ru, 1>(c, bs_at, ia0, ia1, [&](int k) {
+      const double v = W[k * n_uc + qb];
+      return pb < 0 ? 0.0 : v;
+    });
+  };
+  auto qxx_body = [&](Acc& c, int ia0, int ia1, int jb) {  // SxᵀVA[rx], 2JxpᵀJxp
+    mma_seg<n_rx>(c, [&](int ia, int k) { return wide(Sxs[k * nx + ia]); },
+                  ia0, ia1, [&](int k) { return VA[rx[k] * nx + jb]; });
+    mma_seg<n_gx, 1>(
+        c, [&](int ia, int k) { return 2.0 * wide(Jxs[k * nx + ia]); }, ia0,
+        ia1, [&](int k) { return wide(Jxs[k * nx + jb]); });
+  };
+  // 2Jup[bu]ᵀJxp[bx], BsᵀVA[ru]
+  auto qux_body = [&](Acc& c, int ia0, int ia1, int jb) {
+    mma_seg<n_b>(
+        c, [&](int ia, int k) { return 2.0 * wide(Jus[bu[k] * nu + ia]); },
+        ia0, ia1, [&](int k) { return wide(Jxs[bx[k] * nx + jb]); });
+    mma_seg<n_ru, 1>(c, bs_at, ia0, ia1,
+                     [&](int k) { return VA[ru[k] * nx + jb]; });
+  };
+  auto k_body = [&](Acc& c, int ia0, int ia1, int jb) {  // Quu⁻¹ Qux
+    mma_seg<nu>(c, [&](int ia, int k) { return iQ[ia * nu + k]; }, ia0, ia1,
+                [&](int k) { return Qux[k * nx + jb]; });
+  };
+  auto v_body = [&](Acc& c, int ia0, int ia1, int jb) {  // QuxᵀK
+    mma_seg<nu>(c, [&](int ia, int k) { return Qux[k * nx + ia]; }, ia0, ia1,
+                [&](int k) { return Kn[k * nx + jb]; });
+  };
+  constexpr int nVA = Tiles<nx, nx>::count, nW = Tiles<n_ru, n_uc>::count;
+  constexpr int nQuu = Tiles<nu, nu>::count, nQxx = Tiles<nx, nx>::count,
+                nQux = Tiles<nu, nx>::count;
 
   for (int n = ns - 1; n >= 0; --n) {
     const size_t bn = b * ns + n;
-    // ---- stream this node's blocks in ----
-    const T* Sx_g = Sx + bn * n_rx * nx;
-    const T* Bs_g = Bs + bn * n_ru * n_uc;
-    const T* Jx_g = Jxp + bn * n_gx * nx;
-    const T* Ju_g = Jup + bn * n_gu * nu;
-    const T* rho_g = rho + bn * g.nr;
-    const T* d_g = d + bn * nx;
-    for (int e = tid; e < n_rx * nx; e += nthr) Sxs[e] = Sx_g[e];
-    for (int e = tid; e < n_ru * n_uc; e += nthr) Bss[e] = Bs_g[e];
-    for (int e = tid; e < n_gx * nx; e += nthr) Jxs[e] = Jx_g[e];
-    for (int e = tid; e < n_gu * nu; e += nthr) Jus[e] = Ju_g[e];
-    for (int e = tid; e < n_gx; e += nthr) rxp[e] = rho_g[gx[e]];
-    for (int e = tid; e < n_gu; e += nthr) rup[e] = rho_g[gu[e]];
-    for (int e = tid; e < nx; e += nthr) dn[e] = d_g[e];
+    // ---- stream this node's blocks in; meanwhile symmetrize the previous
+    // node's Vxx⁺
+    {
+      const T* rho_g = rho + bn * nr;
+      copy_in<n_rx * nx>(Sxs, Sx + bn * n_rx * nx, tid);
+      copy_in<n_ru * n_uc>(Bss, Bs + bn * n_ru * n_uc, tid);
+      copy_in<n_gx * nx>(Jxs, Jxp + bn * n_gx * nx, tid);
+      copy_in<n_gu * nu>(Jus, Jup + bn * n_gu * nu, tid);
+      copy_in<nx>(ds, d + bn * nx, tid);
+      for (int e = tid; e < n_gx; e += kThreads)
+        cp_async<sizeof(T)>(rxp + e, rho_g + gx[e]);
+      for (int e = tid; e < n_gu; e += kThreads)
+        cp_async<sizeof(T)>(rup + e, rho_g + gu[e]);
+    }
+    if (n < ns - 1) symmetrize<nx, nx, kThreads>(Vxx, tid);
+    cp_async_wait_all();
     __syncthreads();
 
     // ---- Vx_d = Vx + Vxx d;  VA = Vxx + Vxx[:,rx] Sx;  W = V[ru,ru] Bs ----
-    for (int i = tid; i < nx; i += nthr) {
-      C s = C(0);
-      for (int j = 0; j < nx; ++j) s += Vxx[i * nx + j] * dn[j];
-      Vxd[i] = Vx[i] + s;
-    }
-    for (int e = tid; e < nx * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      C s = C(0);
-      for (int r = 0; r < n_rx; ++r) s += Vxx[i * nx + rx[r]] * Sxs[r * nx + j];
-      VA[e] = Vxx[e] + s;
-    }
-    for (int e = tid; e < n_ru * n_uc; e += nthr) {
-      const int a = e / n_uc, j = e % n_uc;
-      C s = C(0);
-      for (int c = 0; c < n_ru; ++c) s += Vxx[ru[a] * nx + ru[c]] * Bss[c * n_uc + j];
-      W[e] = s;
-    }
+    if (tid < nx)
+      Vxd[tid] = Vx[tid] + dot<nx>([&](int j) {
+                   return Vxx[tid * nx + j] * wide(ds[j]);
+                 });
+    __syncwarp();
+    warp_items<nVA + nW>(
+        warp,
+        [&](int item, Acc& a) {
+          if (item < nVA)
+            tile_acc<nx, nx>(item, a, va_body);
+          else
+            tile_acc<n_ru, n_uc>(item - nVA, a, w_body);
+        },
+        [&](int item, const Acc& a) {
+          if (item < nVA)
+            tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
+              VA[i * nx + j] = Vxx[i * nx + j] + v;
+            });
+          else
+            tile_store<n_ru, n_uc>(item - nVA, a,
+                                   [&](int i, int j, double v, double) {
+              W[i * n_uc + j] = v;
+            });
+        });
     __syncthreads();
 
     // ---- Q terms (Qxx overwrites Vxx, which is no longer read) ----
-    for (int i = tid; i < nx; i += nthr) {
-      C lx = C(0);
-      for (int q = 0; q < n_gx; ++q) lx += Jxs[q * nx + i] * rxp[q];
-      C s = C(0);
-      for (int r = 0; r < n_rx; ++r) s += Sxs[r * nx + i] * Vxd[rx[r]];
-      Qx[i] = C(2) * lx + Vxd[i] + s;
-    }
-    for (int j = tid; j < nu; j += nthr) {
-      C lu = C(0);
-      for (int q = 0; q < n_gu; ++q) lu += Jus[q * nu + j] * rup[q];
-      C s = C(0);
-      const int pj = upos[j];
+    if (tid < nx) {
+      const int i = tid;
+      const double lx = dot<n_gx>(
+          [&](int q) { return wide(Jxs[q * nx + i]) * wide(rxp[q]); });
+      const double s = dot<n_rx>(
+          [&](int r) { return wide(Sxs[r * nx + i]) * Vxd[rx[r]]; });
+      Qx[i] = 2.0 * lx + Vxd[i] + s;
+    } else if (tid < nx + nu) {
+      const int j = tid - nx, pj = upos[j];
+      const double lu = dot<n_gu>(
+          [&](int q) { return wide(Jus[q * nu + j]) * wide(rup[q]); });
+      double s = 0.0;
       if (pj >= 0)
-        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pj] * Vxd[ru[a]];
-      Qu[j] = C(2) * lu + s;
+        s = dot<n_ru>(
+            [&](int a) { return wide(Bss[a * n_uc + pj]) * Vxd[ru[a]]; });
+      Qu[j] = 2.0 * lu + s;
     }
-    for (int e = tid; e < nu * nu; e += nthr) {
-      const int i = e / nu, j = e % nu;
-      C luu = C(0);
-      for (int q = 0; q < n_gu; ++q) luu += Jus[q * nu + i] * Jus[q * nu + j];
-      C s = C(0);
-      const int pi = upos[i], pj = upos[j];
-      if (pi >= 0 && pj >= 0)
-        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pi] * W[a * n_uc + pj];
-      Quu[e] = C(2) * luu + s + (i == j ? mu : C(0));
-    }
-    for (int e = tid; e < nu * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      C lux = C(0);
-      for (int q = 0; q < n_b; ++q) lux += Jus[bu[q] * nu + i] * Jxs[bx[q] * nx + j];
-      C s = C(0);
-      const int pi = upos[i];
-      if (pi >= 0)
-        for (int a = 0; a < n_ru; ++a) s += Bss[a * n_uc + pi] * VA[ru[a] * nx + j];
-      Qux[e] = C(2) * lux + s;
-    }
-    for (int e = tid; e < nx * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      C lxx = C(0);
-      for (int q = 0; q < n_gx; ++q) lxx += Jxs[q * nx + i] * Jxs[q * nx + j];
-      C s = C(0);
-      for (int r = 0; r < n_rx; ++r) s += Sxs[r * nx + i] * VA[rx[r] * nx + j];
-      Vxx[e] = C(2) * lxx + VA[e] + s;
+    __syncwarp();
+    warp_items<nQuu + nQxx + nQux>(
+        warp,
+        [&](int item, Acc& a) {
+          if (item < nQuu)
+            tile_acc<nu, nu>(item, a, quu_body);
+          else if (item < nQuu + nQxx)
+            tile_acc<nx, nx>(item - nQuu, a, qxx_body);
+          else
+            tile_acc<nu, nx>(item - nQuu - nQxx, a, qux_body);
+        },
+        [&](int item, const Acc& a) {
+          if (item < nQuu)
+            tile_store<nu, nu>(item, a, [&](int i, int j, double luu,
+                                            double chain) {
+              Quu[i * nu + j] = (luu + chain) + (i == j ? mu : 0.0);
+            });
+          else if (item < nQuu + nQxx)
+            tile_store<nx, nx>(item - nQuu, a, [&](int i, int j,
+                                                   double chain, double lxx) {
+              Vxx[i * nx + j] = (lxx + VA[i * nx + j]) + chain;
+            });
+          else
+            tile_store<nu, nx>(item - nQuu - nQxx, a,
+                               [&](int i, int j, double lux, double chain) {
+                                 Qux[i * nx + j] = lux + chain;
+                               });
+        });
+    __syncthreads();
+
+    // ---- Quu⁻¹ on warp 0; the others ask L2 for the next node's blocks ----
+    if (warp == 0) {
+      spd_inverse_warp<nu, nu, nu>(Quu, iQ, work);
+    } else if (n > 0) {
+      const size_t pn = bn - 1;
+      const int r = tid - 32, rs = kThreads - 32;
+      prefetch(Sx + pn * n_rx * nx, n_rx * nx, r, rs);
+      prefetch(Bs + pn * n_ru * n_uc, n_ru * n_uc, r, rs);
+      prefetch(Jxp + pn * n_gx * nx, n_gx * nx, r, rs);
+      prefetch(Jup + pn * n_gu * nu, n_gu * nu, r, rs);
+      prefetch(rho + pn * nr, nr, r, rs);
+      prefetch(d + pn * nx, nx, r, rs);
     }
     __syncthreads();
 
     // ---- gains: k = −Quu⁻¹Qu, K = −Quu⁻¹Qux ----
-    spd_inverse(nu, Quu, nu, iQ, nu, work);
-    T* ks_g = ks + bn * nu;
-    T* Ks_g = Ks + bn * nu * nx;
-    for (int i = tid; i < nu; i += nthr) {
-      C s = C(0);
-      for (int j = 0; j < nu; ++j) s += iQ[i * nu + j] * Qu[j];
-      kn[i] = -s;
-      ks_g[i] = static_cast<T>(-s);
+    T* const ks_g = ks + bn * nu;
+    T* const Ks_g = Ks + bn * nu * nx;
+    if (tid < nu) {
+      const double s = dot<nu>([&](int j) { return iQ[tid * nu + j] * Qu[j]; });
+      kn[tid] = -s;
+      ks_g[tid] = static_cast<T>(-s);
     }
-    for (int e = tid; e < nu * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      C s = C(0);
-      for (int l = 0; l < nu; ++l) s += iQ[i * nu + l] * Qux[l * nx + j];
-      Kn[e] = -s;
-      Ks_g[e] = static_cast<T>(-s);
-    }
+    __syncwarp();
+    warp_items<Tiles<nu, nx>::count>(
+        warp, [&](int item, Acc& a) { tile_acc<nu, nx>(item, a, k_body); },
+        [&](int item, const Acc& a) {
+          tile_store<nu, nx>(item, a, [&](int i, int j, double v, double) {
+            Kn[i * nx + j] = -v;
+            Ks_g[i * nx + j] = static_cast<T>(-v);
+          });
+        });
     __syncthreads();
 
-    // ---- Schur-form value update ----
-    for (int i = tid; i < nx; i += nthr) {
-      C s = C(0);
-      for (int u = 0; u < nu; ++u) s += Qux[u * nx + i] * kn[u];
-      Vx[i] = Qx[i] + s;
-    }
-    for (int e = tid; e < nx * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      C s = C(0);
-      for (int u = 0; u < nu; ++u) s += Qux[u * nx + i] * Kn[u * nx + j];
-      Vxx[e] = Vxx[e] + s;
-    }
-    if (tid == 0) {
-      C kQu = C(0);
-      for (int u = 0; u < nu; ++u) kQu += kn[u] * Qu[u];
-      acc[0] = acc[0] + kQu;
-      acc[1] = acc[1] - C(0.5) * kQu;
-    }
-    __syncthreads();
-    for (int e = tid; e < nx * nx; e += nthr) {
-      const int i = e / nx, j = e % nx;
-      if (i < j) {
-        const C v = C(0.5) * (Vxx[i * nx + j] + Vxx[j * nx + i]);
-        Vxx[i * nx + j] = v;
-        Vxx[j * nx + i] = v;
+    // ---- Schur-form value update (symmetrized at the next node's start) ----
+    if (tid < nx)
+      Vx[tid] = Qx[tid] +
+                dot<nu>([&](int u) { return Qux[u * nx + tid] * kn[u]; });
+    if (warp == kWarps - 1) {
+      double p = 0.0;
+      for (int u = lane; u < nu; u += 32) p += kn[u] * Qu[u];
+      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+      if (lane == 0) {
+        acc[0] = acc[0] + p;
+        acc[1] = acc[1] - 0.5 * p;
       }
     }
+    __syncwarp();
+    warp_items<Tiles<nx, nx>::count>(
+        warp, [&](int item, Acc& a) { tile_acc<nx, nx>(item, a, v_body); },
+        [&](int item, const Acc& a) {
+          tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
+            Vxx[i * nx + j] += v;
+          });
+        });
     __syncthreads();
   }
   if (tid == 0) {
@@ -481,62 +709,165 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   }
 }
 
-template <typename T>
-int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
-           const void* rho, const void* d, const void* Jt, const void* rt,
-           const void* rows, const Dims& g, double mu, void* ks, void* Ks,
-           void* dV1, void* dV2, void* stream) {
-  if (g.B == 0) return 0;
-  const size_t bytes = smem_bytes(g, static_cast<int>(sizeof(double)));
-  // refuse, rather than let the launch fail, when a block's shared memory
-  // exceeds what the card lets a block opt in to
+// refuse, rather than let the launch fail, a block whose shared memory
+// exceeds what the card lets a block opt in to
+template <class Kernel>
+int opt_in(Kernel kernel, int bytes) {
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bytes > static_cast<size_t>(limit)) return kSmemExceeded;
-  err = cudaFuncSetAttribute(
-      riccati_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  riccati_backward_kernel<T><<<g.B, kThreads, bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
+  if (bytes > limit) return kSmemExceeded;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <class S, typename T>
+int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
+           const void* rho, const void* d, const void* Jt, const void* rt,
+           const void* rows, int B, int ns, int nr, double mu, void* ks,
+           void* Ks, void* dV1, void* dV2, void* stream) {
+  if (B == 0) return 0;
+  constexpr int bytes = Layout<S, T>::bytes;
+  const int err = opt_in(riccati_backward_kernel<S, T>, bytes);
+  if (err != 0) return err;
+  riccati_backward_kernel<S, T><<<B, kThreads, bytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Sx), static_cast<const T*>(Bs),
       static_cast<const T*>(Jxp), static_cast<const T*>(Jup),
       static_cast<const T*>(rho), static_cast<const T*>(d),
       static_cast<const T*>(Jt), static_cast<const T*>(rt),
-      static_cast<const int*>(rows), g,
+      static_cast<const int*>(rows), ns, nr,
       static_cast<double>(static_cast<T>(mu)),   // μ as the plain twin rounds it
       static_cast<T*>(ks), static_cast<T*>(Ks), static_cast<T*>(dV1),
       static_cast<T*>(dV2));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class S>
+bool matches(const int* dims) {
+  const int want[9] = {S::nx,   S::nu,   S::nt,   S::n_rx, S::n_ru,
+                       S::n_gx, S::n_gu, S::n_b,  S::n_uc};
+  for (int i = 0; i < 9; ++i)
+    if (dims[i] != want[i]) return false;
+  return true;
+}
+
+// ---- K2 alone: one warp per matrix of an (M, N, N) stack ----
+
+constexpr int kInvWarps = 4;
+
+template <int N>
+__host__ __device__ constexpr int inv_slot() {   // doubles a warp takes: A, A⁻¹, workspace
+  return 2 * N * N + inv_work(N);
+}
+
+template <int N, typename T>
+__global__ void __launch_bounds__(kInvWarps * 32)
+spd_inverse_kernel(const T* __restrict__ A, T* __restrict__ out, int M) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t mat = static_cast<size_t>(blockIdx.x) * kInvWarps + warp;
+  if (mat >= static_cast<size_t>(M)) return;
+  double* a = reinterpret_cast<double*>(smem_raw) + warp * inv_slot<N>();
+  double* o = a + N * N;
+  const T* A_g = A + mat * N * N;
+  for (int e = lane; e < N * N; e += 32) a[e] = wide(A_g[e]);
+  __syncwarp();
+  spd_inverse_warp<N, N, N>(a, o, o + N * N);
+  T* out_g = out + mat * N * N;
+  for (int e = lane; e < N * N; e += 32) out_g[e] = static_cast<T>(o[e]);
+}
+
+template <int N, typename T>
+int launch_inverse(const void* A, void* out, int M, void* stream) {
+  if (M == 0) return 0;
+  constexpr int bytes = kInvWarps * inv_slot<N>() * 8;
+  const int err = opt_in(spd_inverse_kernel<N, T>, bytes);
+  if (err != 0) return err;
+  spd_inverse_kernel<N, T><<<(M + kInvWarps - 1) / kInvWarps, kInvWarps * 32,
+                             bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<T*>(out), M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int inverse(const void* A, void* out, int M, int n, void* stream) {
+  if (n == SrbdShape::nu)
+    return launch_inverse<SrbdShape::nu, T>(A, out, M, stream);
+  if (n == IsrbdAlShape::nu)
+    return launch_inverse<IsrbdAlShape::nu, T>(A, out, M, stream);
+  return kUnknownShape;
+}
+
+template <class S, typename T>
+int occupancy(int* blocks) {
+  constexpr int bytes = Layout<S, T>::bytes;
+  const int err = opt_in(riccati_backward_kernel<S, T>, bytes);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, riccati_backward_kernel<S, T>, kThreads, bytes));
+}
+
 }  // namespace
 
+// `shape` indexes kernels/riccati.py::KERNEL_SHAPES; the sizes must be that
+// instantiation's, or the call returns UNKNOWN_SHAPE and launches nothing.
 #define RICCATI_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* Sx, const void* Bs, const void* Jxp,        \
-                      const void* Jup, const void* rho, const void* d,        \
-                      const void* Jt, const void* rt, const void* rows,       \
-                      int B, int ns, int nx, int nu, int nr, int nt,          \
-                      int n_rx, int n_ru, int n_gx, int n_gu, int n_b,        \
-                      int n_uc, double mu, void* ks, void* Ks, void* dV1,     \
-                      void* dV2, void* stream) {                              \
-    const Dims g{B, ns, nx, nu, nr, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};  \
-    return launch<T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows, g, mu, ks, Ks,  \
-                     dV1, dV2, stream);                                       \
+  extern "C" int NAME(int shape, const void* Sx, const void* Bs,              \
+                      const void* Jxp, const void* Jup, const void* rho,      \
+                      const void* d, const void* Jt, const void* rt,          \
+                      const void* rows, int B, int ns, int nx, int nu,        \
+                      int nr, int nt, int n_rx, int n_ru, int n_gx, int n_gu, \
+                      int n_b, int n_uc, double mu, void* ks, void* Ks,       \
+                      void* dV1, void* dV2, void* stream) {                   \
+    const int dims[9] = {nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};      \
+    if (shape == 0 && matches<SrbdShape>(dims))                               \
+      return launch<SrbdShape, T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows, B,  \
+                                  ns, nr, mu, ks, Ks, dV1, dV2, stream);      \
+    if (shape == 1 && matches<IsrbdAlShape>(dims))                            \
+      return launch<IsrbdAlShape, T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows,  \
+                                     B, ns, nr, mu, ks, Ks, dV1, dV2,         \
+                                     stream);                                 \
+    return kUnknownShape;                                                     \
   }
 
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
-// Dynamic shared memory one block takes at these sizes, in bytes (float64
-// on chip for either tensor type).
-extern "C" long long riccati_backward_smem_bytes(int nx, int nu, int nt,
-                                                 int n_rx, int n_ru, int n_gx,
-                                                 int n_gu, int n_b, int n_uc) {
-  const Dims g{1, 1, nx, nu, 0, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};
-  return static_cast<long long>(smem_bytes(g, static_cast<int>(sizeof(double))));
+// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 24 or 30: the
+// device routine K1 runs, for timing and checking it by itself.
+extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
+                               void* stream) {
+  return inverse<float>(A, out, M, n, stream);
+}
+extern "C" int spd_inverse_f64(const void* A, void* out, int M, int n,
+                               void* stream) {
+  return inverse<double>(A, out, M, n, stream);
+}
+
+// Dynamic shared memory one K1 block takes, in bytes, for tensors of
+// float32 (f64 = 0) or float64 (f64 = 1).
+extern "C" long long riccati_backward_smem_bytes(int shape, int f64) {
+  if (shape == 0)
+    return f64 ? Layout<SrbdShape, double>::bytes
+               : Layout<SrbdShape, float>::bytes;
+  if (shape == 1)
+    return f64 ? Layout<IsrbdAlShape, double>::bytes
+               : Layout<IsrbdAlShape, float>::bytes;
+  return kUnknownShape;
+}
+
+// K1 blocks resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// into *blocks; returns 0 or an error.
+extern "C" int riccati_backward_blocks_per_sm(int shape, int f64, int* blocks) {
+  if (shape == 0)
+    return f64 ? occupancy<SrbdShape, double>(blocks)
+               : occupancy<SrbdShape, float>(blocks);
+  if (shape == 1)
+    return f64 ? occupancy<IsrbdAlShape, double>(blocks)
+               : occupancy<IsrbdAlShape, float>(blocks);
+  return kUnknownShape;
 }

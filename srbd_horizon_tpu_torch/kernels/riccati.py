@@ -58,6 +58,8 @@ from srbd_horizon_tpu_torch.math.linalg import (
 # backward_sweep_pallas (read it with `git show b514cfb^:<path>`); its live
 # successor is the blocksparse branch at srbd_horizon_tpu/solvers/msddp.py:431
 REPLACES = "srbd_horizon_tpu/solvers/pallas_backward.py:284"
+# K2, the SPD inverse inside K1, replaces that kernel's `_spd_inv`
+K2_REPLACES = "srbd_horizon_tpu/solvers/pallas_backward.py:135"
 SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward.cu"
 
 
@@ -192,39 +194,94 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# The kernel's instantiations, in the order of csrc/riccati_backward.cu's
+# shape index (SrbdShape, IsrbdAlShape): nx, nu, the terminal rows nt and
+# the sizes of the row sets. Another problem needs an instantiation of its
+# own there and here.
+KERNEL_SHAPES = {
+    "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
+                 n_b=3, n_uc=24),
+    "isrbd_al": dict(nx=37, nu=30, nt=101, n_rx=19, n_ru=37, n_gx=60,
+                     n_gu=103, n_b=9, n_uc=18),
+}
+
+# the launchers' own errors (no CUDA error has these values): the block's
+# shared memory exceeds the card's opt-in limit; the sizes match no
+# instantiation
+SMEM_EXCEEDED = -1
+UNKNOWN_SHAPE = -2
+
+
+def kernel_sizes(nx: int, nu: int, nt: int, rows: RiccatiRows) -> Dict[str, int]:
+    return dict(nx=nx, nu=nu, nt=nt, n_rx=len(rows.rx), n_ru=len(rows.ru),
+                n_gx=len(rows.gx), n_gu=len(rows.gu), n_b=len(rows.bx),
+                n_uc=len(rows.uc))
+
+
+def kernel_shape(nx: int, nu: int, nt: int, rows: RiccatiRows) -> str:
+    """The name of K1's instantiation for these sizes; ValueError, naming
+    the sizes, if none was compiled for them."""
+    sizes = kernel_sizes(nx, nu, nt, rows)
+    for name, want in KERNEL_SHAPES.items():
+        if sizes == want:
+            return name
+    known = "; ".join(f"{name} {want}" for name, want in KERNEL_SHAPES.items())
+    raise ValueError(
+        f"riccati_backward has no kernel for the sizes {sizes}; it is "
+        f"compiled for {known} (csrc/riccati_backward.cu)")
+
+
+def _shape_index(name: str) -> int:
+    return list(KERNEL_SHAPES).index(name)
+
 
 def _kernel_fn(dtype):
     lib = library("riccati_backward")
     fn = lib.riccati_backward_f32 if dtype == torch.float32 else lib.riccati_backward_f64
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 12 + [ctypes.c_double] + [_P] * 5
+        fn.argtypes = [_I] + [_P] * 9 + [_I] * 12 + [ctypes.c_double] + [_P] * 5
         fn.restype = _I
     return fn
 
 
-# the launcher's own error: the block's shared memory exceeds the card's
-# opt-in limit (no CUDA error has this value)
-SMEM_EXCEEDED = -1
-
-
-def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows) -> int:
-    """Dynamic shared memory one K1 block takes at these sizes (float64
-    on chip for either tensor type), as the launcher reckons it."""
+def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows,
+                        dtype=torch.float32) -> int:
+    """Dynamic shared memory one K1 block takes at these sizes, for tensors
+    of `dtype` (the node's blocks stay in it on chip), as the launcher
+    reckons it."""
     fn = library("riccati_backward").riccati_backward_smem_bytes
     if fn.argtypes is None:
-        fn.argtypes = [_I] * 9
+        fn.argtypes = [_I, _I]
         fn.restype = ctypes.c_longlong
-    return int(fn(nx, nu, nt, len(rows.rx), len(rows.ru), len(rows.gx),
-                  len(rows.gu), len(rows.bx), len(rows.uc)))
+    return int(fn(_shape_index(kernel_shape(nx, nu, nt, rows)),
+                  int(dtype == torch.float64)))
+
+
+def blocks_per_sm(nx: int, nu: int, nt: int, rows: RiccatiRows,
+                  dtype=torch.float32) -> int:
+    """K1 blocks one SM of the current card holds at once at these sizes
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    fn = library("riccati_backward").riccati_backward_blocks_per_sm
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _I
+    blocks = ctypes.c_int(0)
+    err = fn(_shape_index(kernel_shape(nx, nu, nt, rows)),
+             int(dtype == torch.float64), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"riccati_backward occupancy query failed: error {err}")
+    return blocks.value
 
 
 def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
                      rows: RiccatiRows):
     """K1. Same contract as `riccati_backward_plain`; launches the CUDA
     kernel for CUDA tensors (and counts the launch in
-    `riccati_backward.launches`). The kernel computes in float64 for
-    float32 tensors too, so on float32 it is ~1e-2 closer in the gains to
-    the float64 sweep than the plain twin is (see the note in the .cu)."""
+    `riccati_backward.launches`) at the sizes of an instantiation in
+    `KERNEL_SHAPES`, and raises ValueError at any other. The kernel
+    computes in float64 for float32 tensors too, so on float32 it is ~1e-2
+    closer in the gains to the float64 sweep than the plain twin is (see
+    the note in the .cu)."""
     if d.device.type == "cpu":
         return riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu, rows)
     if d.device.type != "cuda":
@@ -241,6 +298,7 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
         len(rows.uc))
     if n_uc > nu or (n_uc and max(rows.uc) >= nu):
         raise ValueError(f"live B columns {rows.uc} out of range for nu={nu}")
+    shape = kernel_shape(nx, nu, nt, rows)
     check_tensor("Sx", Sx, (Bsz, ns, n_rx, nx), dtype, dev)
     check_tensor("Bs", Bs, (Bsz, ns, n_ru, n_uc), dtype, dev)
     check_tensor("Jxp", Jxp, (Bsz, ns, n_gx, nx), dtype, dev)
@@ -258,6 +316,7 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
+            _shape_index(shape),
             Sx.data_ptr(), Bs.data_ptr(), Jxp.data_ptr(), Jup.data_ptr(),
             rho.data_ptr(), d.data_ptr(), Jt.data_ptr(), rt.data_ptr(),
             table.data_ptr(),
@@ -269,12 +328,49 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     if err == SMEM_EXCEEDED:
         raise RuntimeError(
             "riccati_backward needs "
-            f"{shared_memory_bytes(nx, nu, nt, rows)} bytes of shared memory "
-            "a block, more than this card allows")
+            f"{shared_memory_bytes(nx, nu, nt, rows, dtype)} bytes of shared "
+            "memory a block, more than this card allows")
     if err != 0:
-        raise RuntimeError(f"riccati_backward kernel failed: CUDA error {err}")
+        raise RuntimeError(f"riccati_backward kernel failed: error {err}")
     riccati_backward.launches += 1
     return ks, Ks, dV1, dV2
 
 
 riccati_backward.launches = 0
+
+
+def spd_inverse(A):
+    """K2 alone: the block-Schur inverse K1 runs on Quu, over an (M, n, n)
+    stack of SPD matrices, n one of K1's nu (24, 30). Computes in float64
+    for float32 tensors too. A CPU tensor goes to `lm_spd_inverse`; a CUDA
+    tensor launches the kernel (counted in `spd_inverse.launches`) or
+    raises. Nothing on the solver's path calls it: it is here to time and
+    check the routine by itself."""
+    if A.device.type == "cpu":
+        return lm_spd_inverse(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"spd_inverse runs on cpu or cuda, got {A.device}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"spd_inverse takes float32 or float64, got {A.dtype}")
+    sizes = sorted({s["nu"] for s in KERNEL_SHAPES.values()})
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or A.shape[1] not in sizes:
+        raise ValueError(f"spd_inverse takes an (M, n, n) stack with n in "
+                         f"{sizes}, got {tuple(A.shape)}")
+    check_tensor("A", A, tuple(A.shape), A.dtype, A.device)
+    M, n = A.shape[0], A.shape[1]
+    out = torch.empty_like(A)
+    lib = library("riccati_backward")
+    fn = lib.spd_inverse_f32 if A.dtype == torch.float32 else lib.spd_inverse_f64
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _I, _I, _P]
+        fn.restype = _I
+    with torch.cuda.device(A.device):
+        err = fn(A.data_ptr(), out.data_ptr(), M, n,
+                 torch.cuda.current_stream(A.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spd_inverse kernel failed: error {err}")
+    spd_inverse.launches += 1
+    return out
+
+
+spd_inverse.launches = 0

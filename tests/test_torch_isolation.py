@@ -76,7 +76,7 @@ def test_port_package_is_complete():
         assert required in names
     for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
                 "srbd_common.cuh", "isrbd_rollout.cu", "isrbd_linearize.cu",
-                "isrbd_common.cuh", "rigid_common.cuh"):
+                "isrbd_common.cuh", "rigid_common.cuh", "dmma.cuh"):
         assert (ROOT / "srbd_horizon_tpu_torch" / "csrc" / src).exists()
 
 

@@ -5,8 +5,12 @@ computes in float64 on chip, so only float32 storage rounding remains),
 and K3 (the fused trial) and K4 (the linearization) within 2× the float32
 plain version's own error plus 1e-6, K4 also below 1e-5; the isrbd kernels
 K5 (linearization), K6 (trial) and K1 with 18 of 30 live B columns by the
-rules of K4, K3 and K1. Skipped where no CUDA device is present (run on
-the card with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
+rules of K4, K3 and K1; K1 at ragged fleet sizes on both of its compiled
+shapes, and refusing any other; K2 (the SPD inverse inside K1) through
+its own entry, float64 to 1e-9 against `lm_spd_inverse` and float32 to
+1e-6 of the float64 inverse of the same float32 stack. Skipped where no
+CUDA device is present (run on the card with
+`python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
 from srbd_horizon_tpu_torch.kernels import linearize as k4
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import rollout as k3
+from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
@@ -238,7 +243,10 @@ def test_riccati_kernel_with_live_columns_matches_plain(isrbd_case):
         assert _rel(g, r) <= 1e-9
     for g, r in zip(k1.riccati_backward(*args(torch.float32)), ref):
         assert _rel(g, r) <= K1_F32_TOL
-    assert 100_000 < k1.shared_memory_bytes(37, 30, 101, rows) <= 232_448
+    # float32 tensors stay float32 in shared memory: two blocks an SM or
+    # more at these sizes (three, at 73,356 B)
+    assert k1.shared_memory_bytes(37, 30, 101, rows) <= 113 * 1024
+    assert k1.blocks_per_sm(37, 30, 101, rows) >= 2
 
 
 def test_isrbd_trial_kernel_matches_plain(isrbd_case):
@@ -285,3 +293,70 @@ def test_isrbd_wrappers_count_launches_and_check_inputs(isrbd_case):
     with pytest.raises(ValueError):
         k5.isrbd_linearize(X[:, :, :-1].contiguous(), U, pin, *rest)
     assert k5.isrbd_linearize.launches == before + 1
+
+
+# ---------------- K1 at ragged fleet sizes, K2 alone ----------------
+
+def _repeat_lin(lin, Bw):
+    """The linearization's members repeated up to Bw members."""
+    n = lin["d"].shape[0]
+    reps = -(-Bw // n)
+    return {k: torch.cat([v] * reps)[:Bw].contiguous() for k, v in lin.items()}
+
+
+@pytest.mark.parametrize("Bw", [1, 133, 265])
+@pytest.mark.parametrize("shape", ["srbd", "isrbd_al"])
+def test_riccati_kernel_at_ragged_fleet_sizes(card_case, isrbd_case, shape, Bw):
+    """Fleets that leave the last wave of blocks part-full, on both
+    instantiations, float64 to 1e-9 and float32 to K1_F32_TOL."""
+    if shape == "srbd":
+        lin, mu, rows = card_case["lin"], card_case["mu"], card_case["rows"]
+    else:
+        lin, mu, rows = isrbd_case["lin"], 1e-6, isrbd_case["al"].inner.rows
+    lin = _repeat_lin(lin, Bw)
+    assert k1.kernel_shape(lin["d"].shape[-1], lin["Jup"].shape[-1],
+                           lin["Jt"].shape[1], rows) == shape
+    args = lambda dtype: tuple(lin[k].to(dtype).contiguous()
+                               for k in ORDER) + (mu, rows)
+    ref = k1.riccati_backward_plain(*args(torch.float64))
+    got = k1.riccati_backward(*args(torch.float64))
+    got32 = k1.riccati_backward(*args(torch.float32))
+    torch.cuda.synchronize()
+    for g, g32, r in zip(got, got32, ref):
+        assert _rel(g, r) <= 1e-9
+        assert _rel(g32, r) <= K1_F32_TOL
+
+
+def test_riccati_kernel_refuses_unknown_shape(card_case):
+    """Sizes of no compiled instantiation raise ValueError before any
+    launch: here the SRBD sweep with one terminal row fewer."""
+    lin = {k: v.float() for k, v in card_case["lin"].items()}
+    lin["Jt"], lin["rt"] = lin["Jt"][:, 1:].contiguous(), lin["rt"][:, 1:].contiguous()
+    before = k1.riccati_backward.launches
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k1.riccati_backward(*(lin[k] for k in ORDER), card_case["mu"],
+                            card_case["rows"])
+    assert k1.riccati_backward.launches == before
+    A = torch.eye(23, dtype=torch.float64, device=lin["d"].device)[None]
+    with pytest.raises(ValueError):
+        k1.spd_inverse(A.contiguous())
+
+
+@pytest.mark.parametrize("shape", ["srbd", "isrbd_al"])
+def test_spd_inverse_matches_plain(card_case, isrbd_case, shape):
+    """K2 alone on the Quu-like stack 2JupᵀJup + μI of each shape."""
+    lin = card_case["lin"] if shape == "srbd" else isrbd_case["lin"]
+    nu = lin["Jup"].shape[-1]
+    J = lin["Jup"].reshape(-1, lin["Jup"].shape[-2], nu)
+    Q = (2.0 * J.transpose(-1, -2) @ J + 1e-6 * torch.eye(
+        nu, dtype=torch.float64, device=J.device)).contiguous()
+    before = k1.spd_inverse.launches
+    got = k1.spd_inverse(Q)
+    Q32 = Q.float()
+    got32 = k1.spd_inverse(Q32)
+    torch.cuda.synchronize()
+    assert k1.spd_inverse.launches == before + 2
+    assert _rel(got, lm_spd_inverse(Q)) <= 1e-9
+    # the kernel carries the float32 stack in float64: only the rounding of
+    # its output is left against the float64 inverse of that same stack
+    assert _rel(got32, lm_spd_inverse(Q32.double())) <= 1e-6

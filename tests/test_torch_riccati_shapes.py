@@ -1,0 +1,146 @@
+"""PyTorch port, K1's compile-time instantiations, on the CPU.
+
+K1 (`csrc/riccati_backward.cu`) is compiled for two sets of sizes, the
+SRBD OCP and the AL inner OCP of the isrbd problem; its wrapper picks one
+with `kernel_shape` for CUDA tensors and refuses any other sizes with a
+ValueError that names them. These tests hold that choice against
+`RiccatiRows.from_ocp` of both problems, hold `KERNEL_SHAPES` against the
+shape structs of the CUDA source, and check that a CPU tensor of any
+sizes still takes the plain twin, as does K2's standalone wrapper.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+from srbd_horizon_tpu_torch.kernels import linearize as k4
+from srbd_horizon_tpu_torch.kernels import riccati as k1
+from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
+from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+
+torch.set_num_threads(1)
+
+SOURCE = Path(k1.__file__).resolve().parents[1] / "csrc" / "riccati_backward.cu"
+
+
+def _srbd_sizes():
+    """(nx, nu, nt, rows) of the SRBD OCP (`build_srbd_problem`, as the
+    fleet loop builds it), nt read off its linearization."""
+    loop, prob = build_srbd_loop(SRBDConfig(dtype=torch.float64),
+                                 DDPOptions(max_iters=1), device="cpu")
+    ocp, s = prob.ocp, loop.solver
+    X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
+    U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
+    params = {k: v[None] for k, v in ocp.params.items()}
+    lin = k4.srbd_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt,
+                                  s._wc(torch.float64))
+    rows = RiccatiRows.from_ocp(ocp)
+    assert rows == s.rows
+    return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
+
+
+def _isrbd_sizes():
+    """(nx, nu, nt, rows) of the isrbd problem's AL inner OCP."""
+    prob = build_isrbd_problem(SRBDConfig(dtype=torch.float64),
+                               kangaroo_line_feet(), cz_rho_weight=3200.0,
+                               device="cpu")
+    al = ALDDP(prob.ocp, DDPOptions(max_iters=1))
+    ocp = al.ocp
+    X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
+    U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
+    params = {k: v[None] for k, v in ocp.params.items()}
+    st = al.init(X[:, 0])
+    pin = al._params_with_multipliers(params, st)
+    lin = k5.isrbd_linearize_plain(X, U, pin, al.terms, al.inner.rows, ocp.dt)
+    rows = RiccatiRows.from_ocp(al.inner.ocp)
+    assert rows == al.inner.rows
+    return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
+
+
+@pytest.fixture(scope="module")
+def sizes():
+    return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes()}
+
+
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al"])
+def test_kernel_shape_of_each_problem(sizes, name):
+    nx, nu, nt, rows = sizes[name]
+    assert k1.kernel_shape(nx, nu, nt, rows) == name
+    assert k1.kernel_sizes(nx, nu, nt, rows) == k1.KERNEL_SHAPES[name]
+
+
+def _drop_last(rows, field):
+    return RiccatiRows(**{f: getattr(rows, f) for f in
+                          ("rx", "ru", "gx", "gu", "bx", "bu", "uc")
+                          if f != field},
+                       **{field: getattr(rows, field)[:-1]})
+
+
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al"])
+@pytest.mark.parametrize("change", ["nx", "nu", "nt", "rx", "ru", "gx", "gu",
+                                    "both", "uc"])
+def test_kernel_shape_refuses_other_sizes(sizes, name, change):
+    nx, nu, nt, rows = sizes[name]
+    if change in ("nx", "nu", "nt"):
+        nx, nu, nt = (v - (change == c) for v, c in
+                      ((nx, "nx"), (nu, "nu"), (nt, "nt")))
+    elif change == "both":
+        rows = _drop_last(_drop_last(rows, "bx"), "bu")
+    else:
+        rows = _drop_last(rows, change)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k1.kernel_shape(nx, nu, nt, rows)
+
+
+def test_kernel_shapes_match_the_cuda_source():
+    """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape."""
+    src = SOURCE.read_text()
+    structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
+                         r"([^;]*);", src)
+    assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape"]
+    parsed = []
+    for _, body in structs:
+        parsed.append({k.strip(): int(v) for k, v in
+                       (kv.split("=") for kv in body.split(","))})
+    assert parsed == list(k1.KERNEL_SHAPES.values())
+
+
+def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
+    """No instantiation is needed for CPU tensors: sizes of no compiled
+    shape go to the plain twin."""
+    g = np.random.RandomState(3)
+    Bsz, ns, nx, nu, nt = 2, 3, 6, 4, 5
+    rows = RiccatiRows(rx=(0, 2, 3), ru=(1, 4), gx=(0, 1, 2, 5), gu=(2, 3, 4),
+                       bx=(2,), bu=(0,), uc=(0, 1, 3))
+    t = lambda *shape: torch.as_tensor(g.randn(*shape))
+    args = (0.1 * t(Bsz, ns, 3, nx), 0.1 * t(Bsz, ns, 2, 3), t(Bsz, ns, 4, nx),
+            t(Bsz, ns, 3, nu), t(Bsz, ns, 6), 0.01 * t(Bsz, ns, nx),
+            t(Bsz, nt, nx), t(Bsz, nt), 1e-3, rows)
+    with pytest.raises(ValueError):
+        k1.kernel_shape(nx, nu, nt, rows)
+    got = k1.riccati_backward(*args)
+    want = k1.riccati_backward_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [24, 30, 7])
+def test_spd_inverse_takes_plain_path_on_cpu(n):
+    g = np.random.RandomState(n)
+    J = torch.as_tensor(g.randn(5, n + 3, n))
+    A = 2.0 * J.transpose(-1, -2) @ J + 1e-6 * torch.eye(n, dtype=torch.float64)
+    launches = k1.spd_inverse.launches
+    got = k1.spd_inverse(A)
+    assert torch.equal(got, lm_spd_inverse(A))
+    assert k1.spd_inverse.launches == launches
+    eye = torch.eye(n, dtype=torch.float64).expand(5, n, n)
+    assert float((got @ A - eye).abs().max()) < 1e-8
