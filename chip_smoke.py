@@ -16,21 +16,27 @@ parallel, into build/kernels/), then:
      in float64 on chip, so only float32 storage rounding remains), K3
      (the fused trial, at 1 and 4 step sizes) within 2× the float32
      plain version's own error plus 1e-6, K4 (the linearization) within
-     that and below 1e-5; K2 (the SPD inverse K1 runs on Quu) alone,
+     that and below 1e-5, srbd_evaluate (the cost and largest defect of
+     the drawn plans, one of them holding a NaN that must come out NaN)
+     by K3's rule; K2 (the SPD inverse K1 runs on Quu) alone,
      through its own entry, on the stack 2JupᵀJup + μI (B·ns = 10240,
      nu=24): float64 to 1e-9, float32 to 1e-6 of the float64 inverse of
      the same float32 stack; plus each kernel's time from CUDA events, the
      plain version's, the bound (K1 and K2 at the FP64 tensor-core rate),
-     K2's beside `torch.linalg.inv` in float32 and float64, and K1's
-     shared memory and blocks per SM;
+     K2's beside `torch.linalg.inv` in float32 and float64, K1's shared
+     memory and blocks per SM, K4's achieved bytes per second, and K3's
+     time at B = 1, 132, 512, 528 and 4096 (`k3_size_probe`);
   3. the main path: the warm-started closed-loop SRBD fleet tick
      `MPCLoop.tick_batch` at B=512 in float32 (3 warm-up ticks, 20 timed
      ticks of the walk command), with the kernels' launch counts read
      over exactly that run — K4 launches equal K1 launches, K3 launches
-     equal the solver's trials, and no `torch.func` transform runs; then
-     per-phase times inside 5 more ticks (CUDA events and host clock at
-     each phase boundary), 2 profiled ticks (device busy, kernel launches
-     per tick), and 3 ticks at B=4096;
+     equal the solver's trials, srbd_evaluate launches are two per solve,
+     no `torch.func` transform runs and no plain `total_cost` or
+     `_true_defects` is called; then per-phase times inside 5 more ticks
+     (CUDA events and host clock at each phase boundary), 2 profiled ticks
+     (device busy, kernel launches per tick), srbd_evaluate against its
+     twin on the plans the solver hands it in one more tick, and 3 ticks
+     at B=4096;
   4. the card path against the CPU path at B=8 in float64: 3 warm ticks
      from the same carry, and one cold-start tick at pushes of 0.2 in
      which the backtracking fan runs; iterations and convergence equal,
@@ -41,29 +47,32 @@ parallel, into build/kernels/), then:
      and boxes: K5 (the isrbd linearization), K1 at the isrbd sizes (18 of
      30 live B columns; its shared memory and blocks per SM are printed),
      K2 alone at nu=30 (5120 matrices) and K6 (the isrbd trial, at 1 and
-     4 step sizes), by the same rules as K4, K1, K2 and K3; K1's time at
-     fleet sizes around whole waves of blocks is printed for both
-     problems (no limit);
+     4 step sizes) and isrbd_evaluate, by the same rules as K4, K1, K2, K3
+     and srbd_evaluate; K1's time at fleet sizes around whole waves of
+     blocks is printed for both problems (no limit);
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
      inner iteration, full gait-phase prior, cz stiffness 3200, shifted
      warm start): one tick, 60 warm-up ticks, 20 timed ticks with a sync
      each. K5 launches = K1 launches = α₀ trials = solver iterations over
-     the timed ticks, no `torch.func` transform runs, and the largest
-     constraint violation over the timed ticks stays below 1e-2; then the
-     phases inside 5 more ticks, 2 profiled ticks, K5, K1 and K6 against
-     their twins by the rules of 5 (K1 in float64 to 1e-8) on the inputs
-     the solver hands them in one further tick of that fleet, and B=4096
-     both in chunks of 256 and whole (printed, no limit);
+     the timed ticks, isrbd_evaluate launches are two per solve, no
+     `torch.func` transform runs, no plain `total_cost` or
+     `_true_defects` is called, and the largest constraint violation over
+     the timed ticks stays below 1e-2; then the phases inside 5 more
+     ticks, 2 profiled ticks, K5, K1, K6 and isrbd_evaluate against their
+     twins by the rules of 5 (K1 in float64 to 1e-8) on the inputs the
+     solver hands them in one further tick of that fleet, and B=4096 both
+     in chunks of 256 and whole (printed, no limit);
   7. the constrained card path against the CPU path at B=8 in float64: 3
      serving ticks from one CPU-made seed, iterations equal, X, U and λ
      to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
-without a result. The next-to-last line is the kernel table as JSON, seven
-rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, K2); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+without a result. The next-to-last line is the kernel table as JSON, nine
+rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
+isrbd_evaluate, K2); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import json
@@ -118,14 +127,27 @@ def emit(tag, **fields):
 
 
 def cuda_ms(fn, reps, warmup=2):
-    """Mean device time of fn() in ms, by CUDA events around `reps` runs."""
+    """Mean device time of fn() in ms, by CUDA events around `reps` runs.
+
+    The runs are queued behind a spin kernel (`torch.cuda._sleep`) that
+    lasts longer than the host takes to enqueue them all, so the events
+    time the device's work alone: a kernel that runs shorter than its
+    wrapper's host work (checks, allocations, the ctypes call: ~0.1 ms)
+    would otherwise be timed at the host's enqueue rate."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per_call_s = time.perf_counter() - t0     # host and device, one call
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    # 2 GHz is above the card's clock, so the spin lasts at least twice the
+    # time the host needed for one call, reps times over
+    torch.cuda._sleep(int(2 * reps * per_call_s * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -223,6 +245,22 @@ def linearize_flops(Bsz, ns, nx, nu, nc, n_rho, n_rx, n_ru):
     node = (body_flops(nc) + 183 + cols + 4 * n_rho
             + n_rx * nx + n_ru * nu + 2 * nx)
     return Bsz * (ns * node + 15 * 3)
+
+
+def evaluate_flops(Bsz, ns, nx, nc, n_rho):
+    """FLOPs one srbd_evaluate call needs: the SRBD rates, ~5 per residual
+    row (value, square, sum), the Euler step and |defect| per node, the
+    terminal rows and the node sums."""
+    node = body_flops(nc) + 5 * n_rho + 4 * nx
+    return Bsz * (ns * node + 5 * 15 + 2 * ns)
+
+
+def isrbd_evaluate_flops(Bsz, ns, nx, nc, n_rho, n_term):
+    """FLOPs one isrbd_evaluate call needs: two evaluations of ẋ and the
+    RK2 step, R I Rᵀ for the Euler rows, ~8 per stage row and terminal row,
+    |defect| per node and the node sums."""
+    node = 2 * 40 + 6 * nx + 180 + 8 * n_rho + 60 * nc
+    return Bsz * (ns * node + 8 * n_term + 2 * ns)
 
 
 def isrbd_linearize_flops(Bsz, ns, nx, nu, nc, n_rho, n_term, n_rx, n_ru,
@@ -394,6 +432,71 @@ def trial_check(tag, plain, kernel, args, alphas4, merit0, D, dV1, dV2, opts,
     return dict(e64=worst(e64s), e32=worst(e32s), p32=worst(p32s), abs32=abs32)
 
 
+def evaluate_check(tag, plain, kernel, args, nan_member, **extra):
+    """An evaluation entry (srbd_evaluate, isrbd_evaluate) against its
+    plain twin, on its two outputs (the cost and the largest defect of each
+    plan): float64 to 1e-9; float32 against the float64 plain result within
+    2× the float32 twin's own error + 1e-6; member `nan_member` holds a NaN
+    in its plan and must come out NaN in both outputs of both types (rel_err
+    also fails on any other difference of the non-finite entries).
+    `args(dtype)` gives the call's arguments. Returns the error figures;
+    fails the run on disagreement."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    ref, got = plain(*args(f64)), kernel(*args(f64))
+    p32, g32 = plain(*args(f32)), kernel(*args(f32))
+    torch.cuda.synchronize()
+    names = ("cost", "defect_max")
+    e64 = {n: rel_err(g, r) for n, g, r in zip(names, got, ref)}
+    e32 = {n: rel_err(g, r) for n, g, r in zip(names, g32, ref)}
+    ep32 = {n: rel_err(g, r) for n, g, r in zip(names, p32, ref)}
+    abs32 = max(abs_err(g, r) for g, r in zip(g32, ref))
+    nan_kept = all(bool(torch.isnan(o[nan_member])) for out in (got, g32)
+                   for o in out)
+    emit(tag, f64_rel_err=e64, f64_tol=1e-9, f32_rel_err=e32,
+         f32_plain_rel_err=ep32, f32_rule="kernel <= 2*plain + 1e-6",
+         f32_max_abs_err=abs32, nan_member_nan=nan_kept,
+         B=int(ref[0].shape[0]), **extra)
+    if not (max(e64.values()) <= 1e-9 and nan_kept
+            and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in names)):
+        fail(f"{tag}: the evaluation kernel disagrees with its plain version")
+    return dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def repeat_members(args, Bsz, skip=()):
+    """`args` with every tensor (and every tensor of a dict) of a leading
+    member axis repeated to Bsz members; positions in `skip` stay."""
+    import torch
+
+    def rep(t):
+        n = t.shape[0]
+        return torch.cat([t] * -(-Bsz // n))[:Bsz].contiguous()
+
+    out = []
+    for i, a in enumerate(args):
+        if i in skip:
+            out.append(a)
+        elif isinstance(a, dict):
+            out.append({k: rep(v) for k, v in a.items()})
+        elif isinstance(a, torch.Tensor):
+            out.append(rep(a))
+        else:
+            out.append(a)
+    return tuple(out)
+
+
+def k3_size_probe(k3, args1, sizes):
+    """K3's time with one α at fleet sizes on either side of whole waves
+    (members repeated): {B: ms}, float32. At B ≤ 528 every warp has a
+    scheduler to itself, so B=1 reads the chain's own latency."""
+    out = {}
+    for Bw in sizes:
+        a = repeat_members(args1, Bw, skip=(6,))
+        out[Bw] = cuda_ms(lambda: k3.srbd_trial(*a), reps=20)
+    return out
+
+
 def kernel_row(name, mod, launches, ms, plain_ms, bound_ms, bound_by, err,
                tol_f32, **extra):
     """One entry of the `kernels` line from a check's error figures."""
@@ -516,15 +619,13 @@ def profile_ticks(solver, step, carry, tick_ms, ticks=2):
     )
 
 
-def count_torch_func():
-    """Wrap every torch.func transform with a call counter; returns the
-    counter and a function that restores the originals."""
-    import torch
-    import torch.func
-
+def count_calls(targets):
+    """Wrap each attribute `name` of `owner` in `targets` ((owner, names)
+    pairs) with one call counter; returns the counter and a function that
+    restores the originals."""
     calls = {"n": 0}
     saved = []
-    for owner, names in ((torch.func, TORCH_FUNC_TRANSFORMS), (torch, ("vmap",))):
+    for owner, names in targets:
         for name in names:
             if not hasattr(owner, name):
                 continue
@@ -542,6 +643,48 @@ def count_torch_func():
             setattr(owner, name, orig)
 
     return calls, restore
+
+
+def count_torch_func():
+    """Count every torch.func transform call (count_calls)."""
+    import torch
+    import torch.func
+
+    return count_calls(((torch.func, TORCH_FUNC_TRANSFORMS), (torch, ("vmap",))))
+
+
+def count_plain_cost():
+    """Count every call of the plain cost and defect functions a solve could
+    reach instead of its evaluation kernel: both problem families'
+    `total_cost` and `MSDDP.total_cost` / `MSDDP._true_defects`
+    (count_calls)."""
+    from srbd_horizon_tpu_torch.problems.isrbd_al import ALTerms
+    from srbd_horizon_tpu_torch.problems.srbd import SRBDTerms
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+    return count_calls(((SRBDTerms, ("total_cost",)), (ALTerms, ("total_cost",)),
+                        (MSDDP, ("total_cost", "_true_defects"))))
+
+
+def recorded(obj, name, store):
+    """Replace the method `name` of `obj` by one that appends a clone of its
+    tensor arguments (dicts of tensors included) to `store`; returns a
+    function that restores it."""
+    import torch
+
+    orig = getattr(obj, name)
+
+    def clone(a):
+        if isinstance(a, dict):
+            return {k: v.clone() for k, v in a.items()}
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def wrapped(*a):
+        store.append(tuple(clone(v) for v in a))
+        return orig(*a)
+
+    setattr(obj, name, wrapped)
+    return lambda: setattr(obj, name, orig)
 
 
 def main():
@@ -667,6 +810,22 @@ def main():
                          k3_args, alphas4, merit0_64, D64, dV1_64, dV2_64,
                          opts, nan_member=7)
 
+    # srbd_evaluate: the cost and the largest defect of the drawn plans;
+    # member 7's plan holds a NaN, so both of its outputs are NaN
+    X_nan = X.clone()
+    X_nan[7, 5, 4] = float("nan")
+
+    def ev_args(Xe):
+        def args(dtype):
+            s = solver64 if dtype == torch.float64 else solver32
+            return (cast(Xe, dtype), cast(U, dtype),
+                    {k: cast(v, dtype) for k, v in params.items()}, s.terms,
+                    dt, s._wc(dtype))
+        return args
+
+    ev_err = evaluate_check("srbd_evaluate_check", k3.srbd_evaluate_plain,
+                            k3.srbd_evaluate, ev_args(X_nan), nan_member=7)
+
     # timing at the main path's shapes and type (float32, B=512)
     l32 = k4_args(torch.float32)
     k4_ms = cuda_ms(lambda: k4.srbd_linearize(*l32), reps=20)
@@ -703,6 +862,20 @@ def main():
     k3_bound, k3_by = bound(k3_bytes, k3_flop)
     r32_fan = k3_args(torch.float32, alphas4)
     k3_fan_ms = cuda_ms(lambda: k3.srbd_trial(*r32_fan), reps=50)
+    # K3 alone at fleet sizes around the card's waves: B=1 is the chain's
+    # own latency, K3's floor
+    emit("k3_size_probe", card=card, alphas=1,
+         ms_by_B=k3_size_probe(k3, r32, (1, 132, 512, 528, 4096)),
+         ms_B512_4alpha=k3_fan_ms)
+
+    e32 = ev_args(X)(torch.float32)
+    ev_ms = cuda_ms(lambda: k3.srbd_evaluate(*e32), reps=50)
+    ev_plain_ms = cuda_ms(lambda: k3.srbd_evaluate_plain(*e32), reps=5,
+                          warmup=1)
+    ev_bytes = nbytes(e32[0], e32[1], *k4.kernel_params(
+        e32[2], B, ns, nc, torch.float32, dev), *k3.srbd_evaluate(*e32))
+    ev_flop = evaluate_flops(B, ns, nx, nc, n_rho)
+    ev_bound, ev_by = bound(ev_bytes, ev_flop)
 
     # K2 alone, through its own entry, on the (B·ns, nu, nu) Quu-like
     # stack 2JupᵀJup + μI in float64 and float32, beside torch.linalg.inv
@@ -720,7 +893,12 @@ def main():
          riccati_shared_memory_bytes=k1_smem, riccati_blocks_per_sm=k1_blocks,
          srbd_trial_ms=k3_ms, srbd_trial_plain_ms=k3_plain_ms,
          srbd_trial_bound_ms=k3_bound, srbd_trial_bytes=k3_bytes,
-         srbd_trial_flop=k3_flop, srbd_trial_4alpha_ms=k3_fan_ms)
+         srbd_trial_flop=k3_flop, srbd_trial_4alpha_ms=k3_fan_ms,
+         srbd_linearize_gb_per_s=k4_bytes / k4_ms * 1e-6,
+         srbd_linearize_bound_share=k4_bound / k4_ms,
+         srbd_evaluate_ms=ev_ms, srbd_evaluate_plain_ms=ev_plain_ms,
+         srbd_evaluate_bound_ms=ev_bound, srbd_evaluate_bytes=ev_bytes,
+         srbd_evaluate_flop=ev_flop)
     # SRBD sizes: four blocks an SM, 528 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="srbd", card=card,
          shared_memory_bytes=k1_smem, blocks_per_sm=k1_blocks,
@@ -733,14 +911,18 @@ def main():
     def run_main(Bsz, warm, timed):
         loop, prob = build_srbd_loop(SRBDConfig(), DDPOptions(max_iters=5),
                                      shift_warmstart=True, device=dev)
-        trials = {"n": 0}
-        trial = loop.solver._trial
+        trials = {"n": 0, "solves": 0}
+        trial, solve = loop.solver._trial, loop.solver.solve_batch
 
         def counted_trial(*a):
             trials["n"] += 1
             return trial(*a)
 
-        loop.solver._trial = counted_trial
+        def counted_solve(*a):
+            trials["solves"] += 1
+            return solve(*a)
+
+        loop.solver._trial, loop.solver.solve_batch = counted_trial, counted_solve
         g = np.random.RandomState(SEED)
         xn = prob.initial_state.cpu().numpy()
         x0 = torch.as_tensor(xn[None] + 0.005 * g.randn(Bsz, nx),
@@ -763,7 +945,7 @@ def main():
             bool(torch.isfinite(t).all())
             for o in outs for t in (o.x, o.u0, o.cost, o.srbd_residual)
         ) and bool(torch.isfinite(carry.sol.X).all())
-        loop.solver._trial = trial
+        loop.solver._trial, loop.solver.solve_batch = trial, solve
         runs.append((loop, carry, inp))
         return dict(
             B=Bsz, dtype="float32", warmup_ticks=warm, ticks=timed,
@@ -772,7 +954,7 @@ def main():
             members_per_s=Bsz / statistics.median(times) * 1e3,
             iters_mean=statistics.fmean(iters),
             syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
-            trials=trials["n"], finite=finite,
+            trials=trials["n"], solves=trials["solves"], finite=finite,
             defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
             srbd_residual_max=max(float(o.srbd_residual.abs().max())
                                   for o in outs),
@@ -781,16 +963,21 @@ def main():
 
     runs = []
     func_calls, restore_func = count_torch_func()
+    plain_calls, restore_plain = count_plain_cost()
     k1.riccati_backward.launches = 0
     k3.srbd_trial.launches = 0
+    k3.srbd_evaluate.launches = 0
     k4.srbd_linearize.launches = 0
     main = run_main(B_MAIN, warm=3, timed=20)
     launches = {"riccati_backward": k1.riccati_backward.launches,
                 "srbd_trial": k3.srbd_trial.launches,
-                "srbd_linearize": k4.srbd_linearize.launches}
+                "srbd_linearize": k4.srbd_linearize.launches,
+                "srbd_evaluate": k3.srbd_evaluate.launches}
     restore_func()
+    restore_plain()
     main["launches"] = launches
     main["torch_func_calls"] = func_calls["n"]
+    main["plain_cost_or_defect_calls"] = plain_calls["n"]
     emit("main_path", **main)
     if not main["finite"]:
         fail("main path produced non-finite values")
@@ -806,6 +993,12 @@ def main():
              f"{main['trials']} trials")
     if func_calls["n"]:
         fail(f"the main path ran {func_calls['n']} torch.func transforms")
+    if launches["srbd_evaluate"] != 2 * main["solves"]:
+        fail(f"srbd_evaluate launches {launches['srbd_evaluate']} are not two "
+             f"for each of the {main['solves']} solves")
+    if plain_calls["n"]:
+        fail(f"the main path called the plain total_cost or _true_defects "
+             f"{plain_calls['n']} times")
 
     loop, carry, inp = runs[0]
     srbd_step = lambda c: loop.tick_batch(c, inp)[0]
@@ -813,6 +1006,28 @@ def main():
     emit("tick_spans", B=B_MAIN, card=card, **spans)
     emit("tick_profile", B=B_MAIN, card=card,
          **profile_ticks(loop.solver, srbd_step, carry, main["tick_p50_ms"]))
+    # srbd_evaluate against its twin on the plans the solver hands it in one
+    # more tick (its first call, the starting cost); member 7's plan gets a
+    # NaN
+    live_ev = []
+    restore_ev = recorded(loop.solver, "_evaluate", live_ev)
+    carry = srbd_step(carry)
+    restore_ev()
+    torch.cuda.synchronize()
+    lvX, lvU, lvp = live_ev[0]
+    lvX = lvX.clone()
+    lvX[7, 3, 4] = float("nan")
+
+    def ev_live_args(dtype):
+        s = solver64 if dtype == torch.float64 else solver32
+        return (cast(lvX, dtype), cast(lvU, dtype),
+                {k: cast(v, dtype) for k, v in lvp.items()}, s.terms, dt,
+                s._wc(dtype))
+
+    evaluate_check("srbd_evaluate_live_check", k3.srbd_evaluate_plain,
+                   k3.srbd_evaluate, ev_live_args, nan_member=7,
+                   calls_in_tick=len(live_ev))
+    del live_ev, lvX, lvU, lvp
 
     large = run_main(B_LARGE, warm=1, timed=2)
     emit("main_path_large", **large)
@@ -979,6 +1194,22 @@ def main():
                          k6_args, alphas4, imerit0, iD, idV1, idV2, iopts,
                          nan_member=7, B=Bc)
 
+    # isrbd_evaluate on the drawn plans; member 7's r̈ₓ at node 3 is NaN
+    # (the RK2 step reads it), so its cost and largest defect are NaN
+    Ui_nan = Ui.clone()
+    Ui_nan[7, 3, 0] = float("nan")
+
+    def iev_args(Ue):
+        def args(dtype):
+            a = al64 if dtype == torch.float64 else al32
+            return (cast(Xi, dtype), cast(Ue, dtype),
+                    {k: cast(v, dtype) for k, v in pin64.items()}, a.terms,
+                    iocp.dt)
+        return args
+
+    iev_err = evaluate_check("isrbd_evaluate_check", k6.isrbd_evaluate_plain,
+                             k6.isrbd_evaluate, iev_args(Ui_nan), nan_member=7)
+
     # timing at the constrained path's shapes and type (float32, B=256)
     i32 = k5_args(torch.float32)
     k5_ms = cuda_ms(lambda: k5.isrbd_linearize(*i32), reps=20)
@@ -1015,6 +1246,16 @@ def main():
     k6_bound, k6_by = bound(k6_bytes, k6_flop)
     t32_fan = k6_args(torch.float32, alphas4)
     k6_fan_ms = cuda_ms(lambda: k6.isrbd_trial(*t32_fan), reps=50)
+    ie32 = iev_args(Ui)(torch.float32)
+    iev_ms = cuda_ms(lambda: k6.isrbd_evaluate(*ie32), reps=50)
+    iev_plain_ms = cuda_ms(lambda: k6.isrbd_evaluate_plain(*ie32), reps=5,
+                           warmup=1)
+    iev_bytes = nbytes(ie32[0], ie32[1], *k5.kernel_params(
+        ie32[2], Bc, ns, al32.terms, torch.float32, dev),
+        *k6.isrbd_evaluate(*ie32))
+    iev_flop = isrbd_evaluate_flops(Bc, ns, inx, nc, al32.terms.n_rho,
+                                    al32.terms.n_term)
+    iev_bound, iev_by = bound(iev_bytes, iev_flop)
     emit("kernel_times_constrained", card=card, B=Bc,
          isrbd_linearize_ms=k5_ms, isrbd_linearize_plain_ms=k5_plain_ms,
          isrbd_linearize_bound_ms=k5_bound, isrbd_linearize_bytes=k5_bytes,
@@ -1025,7 +1266,10 @@ def main():
          riccati_shared_memory_bytes=k1i_smem, riccati_blocks_per_sm=k1i_blocks,
          isrbd_trial_ms=k6_ms, isrbd_trial_plain_ms=k6_plain_ms,
          isrbd_trial_bound_ms=k6_bound, isrbd_trial_bytes=k6_bytes,
-         isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms)
+         isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms,
+         isrbd_evaluate_ms=iev_ms, isrbd_evaluate_plain_ms=iev_plain_ms,
+         isrbd_evaluate_bound_ms=iev_bound, isrbd_evaluate_bytes=iev_bytes,
+         isrbd_evaluate_flop=iev_flop)
     # isrbd sizes: three blocks an SM, 396 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="isrbd", card=card,
          shared_memory_bytes=k1i_smem, blocks_per_sm=k1i_blocks,
@@ -1059,9 +1303,15 @@ def main():
     def run_constrained(Bsz, warm, timed, chunk=0):
         offline, online, wpg, period, state, seed = make_fleet(
             Bsz, torch.float32, dev)
-        counts = {"iterations": 0, "alpha0_trials": 0, "trials": 0}
+        counts = {"iterations": 0, "alpha0_trials": 0, "trials": 0,
+                  "solves": 0}
         inner = online.inner
-        iterate, trial = inner._iteration_batch, inner._trial
+        iterate, trial, solve = (inner._iteration_batch, inner._trial,
+                                 inner.solve_batch)
+
+        def counted_solve(*a):
+            counts["solves"] += 1
+            return solve(*a)
 
         def counted_iteration(*a, **kw):
             counts["iterations"] += 1
@@ -1073,6 +1323,7 @@ def main():
             return trial(al, *a)
 
         inner._iteration_batch, inner._trial = counted_iteration, counted_trial
+        inner.solve_batch = counted_solve
         t0 = time.perf_counter()
         st = seed()
         torch.cuda.synchronize()
@@ -1095,7 +1346,9 @@ def main():
         torch.cuda.synchronize()
         before = dict(counts, k5=k5.isrbd_linearize.launches,
                       k1=k1.riccati_backward.launches,
-                      k6=k6.isrbd_trial.launches, syncs=inner.host_syncs)
+                      k6=k6.isrbd_trial.launches,
+                      evaluate=k6.isrbd_evaluate.launches,
+                      plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs)
         times, viols = [], []
         for _ in range(timed):
             t0 = time.perf_counter()
@@ -1105,8 +1358,11 @@ def main():
             viols.append(float(state[0].viol.max()))
         after = dict(counts, k5=k5.isrbd_linearize.launches,
                      k1=k1.riccati_backward.launches,
-                     k6=k6.isrbd_trial.launches, syncs=inner.host_syncs)
+                     k6=k6.isrbd_trial.launches,
+                     evaluate=k6.isrbd_evaluate.launches,
+                     plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs)
         inner._iteration_batch, inner._trial = iterate, trial
+        inner.solve_batch = solve
         st = state[0]
         finite = all(bool(torch.isfinite(t).all()) for t in
                      (st.sol.X, st.sol.U, st.lam_eq, st.lam_eq_T, st.viol,
@@ -1128,16 +1384,21 @@ def main():
 
     cruns = []
     func_calls, restore_func = count_torch_func()
+    plain_cost_calls, restore_plain = count_plain_cost()
     k1.riccati_backward.launches = 0
     k5.isrbd_linearize.launches = 0
     k6.isrbd_trial.launches = 0
+    k6.isrbd_evaluate.launches = 0
     cmain = run_constrained(B_CONSTRAINED, warm=60, timed=20)
     claunches = {"riccati_backward": k1.riccati_backward.launches,
                  "isrbd_linearize": k5.isrbd_linearize.launches,
-                 "isrbd_trial": k6.isrbd_trial.launches}
+                 "isrbd_trial": k6.isrbd_trial.launches,
+                 "isrbd_evaluate": k6.isrbd_evaluate.launches}
     restore_func()
+    restore_plain()
     cmain["launches"] = claunches
     cmain["torch_func_calls"] = func_calls["n"]
+    cmain["plain_cost_or_defect_calls"] = plain_cost_calls["n"]
     emit("constrained_path", **cmain)
     w = cmain["timed_window"]
     if not cmain["finite"]:
@@ -1149,6 +1410,12 @@ def main():
              f"ticks: {w}")
     if w["k6"] != w["trials"]:
         fail(f"K6 launches {w['k6']} do not cover the {w['trials']} trials")
+    if not (w["evaluate"] == 2 * w["solves"] > 0):
+        fail(f"isrbd_evaluate launches {w['evaluate']} are not two for each "
+             f"of the {w['solves']} solves over the timed ticks")
+    if w["plain_cost"] or plain_cost_calls["n"]:
+        fail(f"the constrained path called the plain total_cost or "
+             f"_true_defects {plain_cost_calls['n']} times")
     if func_calls["n"]:
         fail(f"the constrained path ran {func_calls['n']} torch.func transforms")
     if not cmain["window_viol_max"] < VIOL_LIMIT:
@@ -1182,7 +1449,10 @@ def main():
         return trial_call(al, x0, X, U, ks, Ks, d, params, *scalars)
 
     inner._linearize_sliced, inner._trial = recorded_linearize, recorded_trial
+    live_ev = []
+    restore_ev = recorded(inner, "_evaluate", live_ev)
     cstate = cstep(cstate)
+    restore_ev()
     inner._linearize_sliced, inner._trial = lin_call, trial_call
     torch.cuda.synchronize()
     up = lambda t, dtype: (cast(t, dtype) if t.is_floating_point() else t)
@@ -1220,7 +1490,21 @@ def main():
     trial_check("k6_live_check", k6.isrbd_trial_plain, k6.isrbd_trial,
                 k6_live_args, alphas4, tm0.double(), tD.double(),
                 tdV1.double(), tdV2.double(), iopts, nan_member=7, B=Bc)
-    del live, llin64
+    # isrbd_evaluate on the plans of the tick's first call (the starting
+    # cost); member 7's r̈ₓ at node 3 is NaN
+    eX, eU, ep = live_ev[0]
+    eU = eU.clone()
+    eU[7, 3, 0] = float("nan")
+
+    def iev_live_args(dtype):
+        a = al64 if dtype == torch.float64 else al32
+        return (up(eX, dtype), up(eU, dtype),
+                {k: up(v, dtype) for k, v in ep.items()}, a.terms, iocp.dt)
+
+    evaluate_check("isrbd_evaluate_live_check", k6.isrbd_evaluate_plain,
+                   k6.isrbd_evaluate, iev_live_args, nan_member=7,
+                   calls_in_tick=len(live_ev))
+    del live, llin64, live_ev
     del cruns[:]
     for chunk in (CONSTRAINED_CHUNK, 0):
         probe = run_constrained(B_LARGE, warm=20, timed=3, chunk=chunk)
@@ -1290,6 +1574,13 @@ def main():
                    blocks_per_sm=k1i_blocks),
         kernel_row("isrbd_trial", k6, claunches["isrbd_trial"], k6_ms,
                    k6_plain_ms, k6_bound, k6_by, k6_err, trial_tol),
+        dict(kernel_row("srbd_evaluate", k3, launches["srbd_evaluate"], ev_ms,
+                        ev_plain_ms, ev_bound, ev_by, ev_err, trial_tol),
+             replaces=k3.EVALUATE_REPLACES),
+        dict(kernel_row("isrbd_evaluate", k6, claunches["isrbd_evaluate"],
+                        iev_ms, iev_plain_ms, iev_bound, iev_by, iev_err,
+                        trial_tol),
+             replaces=k6.EVALUATE_REPLACES),
         # K2 runs inside K1: its launches are K1's on the main path; its
         # times are the standalone entry's on the SRBD stack (float32)
         dict(kernel_row(

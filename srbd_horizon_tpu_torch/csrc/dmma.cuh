@@ -1,5 +1,6 @@
 // The PTX instructions K1 and K2 issue directly, kept apart so that the
-// rest of riccati_backward.cu is plain CUDA C++.
+// rest of riccati_backward.cu is plain CUDA C++; K3 (srbd_rollout.cu)
+// takes the cp.async helpers for its per-warp double buffer.
 //
 // FP64 tensor-core product, mma.sync.aligned.m16n8k4.row.col.f64 (sm_90
 // and later): D (16×8) = A (16×4) · B (4×8) + C, one warp, every lane
@@ -26,9 +27,12 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// Copy Bytes (4 or 8) from global to shared memory without passing through
-// registers (cp.async, sm_80 and later); cp_async_wait_all() waits for
-// every copy this thread has issued.
+// Copy Bytes (4, 8 or 16; both addresses aligned to it) from global to
+// shared memory without passing through registers (cp.async, sm_80 and
+// later); cp_async_wait_all() waits for every copy this thread has issued.
+// A thread may also close its copies into a group (cp_async_commit) and
+// wait until at most N of its groups are still in flight
+// (cp_async_wait_group<N>).
 template <int Bytes>
 __device__ __forceinline__ void cp_async(void* smem, const void* global) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -39,4 +43,13 @@ __device__ __forceinline__ void cp_async(void* smem, const void* global) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }

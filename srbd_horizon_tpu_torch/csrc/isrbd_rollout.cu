@@ -29,7 +29,8 @@
 // 3.35 TB/s) against ~20 MFLOP, so bytes bound it; in practice the
 // 20-step dependent chain per member and the launch dominate at this size.
 //
-// Design: K3's. One warp per (member, α); consecutive warps of a block are
+// Design (K3's before K3 was redesigned with a prefetch buffer, which K6
+// has not had yet): one warp per (member, α); consecutive warps of a block are
 // the α's of one member, so the member's gains are read once from device
 // memory and reused from L1/L2 by its other α's. The 30 rows of K(x̂−X)
 // spread over the lanes; the double integrator needs no coupled solve, so
@@ -40,7 +41,24 @@
 // 101 terminal rows follow the loop, and one warp reduction (shuffles)
 // gives the cost. The sum is taken in another order than the plain
 // twin's, so the two agree to rounding, not bit for bit. Simple first: no
-// cross-node prefetch.
+// cross-node prefetch. The stage and terminal rows (isrbd_common.cuh) also
+// serve isrbd_evaluate, below.
+//
+// isrbd_evaluate, the second entry of this file, evaluates a given plan
+// with the same stage and terminal rows (csrc/isrbd_common.cuh) and the
+// same RK2 step: it replaces `jax.vmap(MSDDP.total_cost)` and
+// `jax.vmap(MSDDP._true_defects)` (msddp.py:1222, :1240, :1484-1490) on the
+// AL inner OCP, the solve's starting cost and its final defect norm. Per
+// member
+//     cost       = Σₙ ‖ρ(Xₙ, Uₙ, pₙ)‖² + ‖ρ_N(X_N, p_N)‖²
+//     defect_max = maxₙ,ᵢ |rk2(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
+// Plain twin: `kernels/isrbd_rollout.py::isrbd_evaluate_plain`. One block
+// per member and one warp per node (ns+1 warps): the nodes do not depend
+// on one another, so all of them load and compute at once. Each warp sums
+// its node's squared rows (the 240 stage rows, or the 101 terminal rows)
+// and takes the largest |defect| of its node (NaN kept); the node sums
+// are added in node order, the terminal node last, as the twin adds the
+// stage sum and the terminal sum.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -179,6 +197,93 @@ int launch(const void* x0, const void* X, const void* U, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// isrbd_evaluate: one block per member, one warp per node.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
+                      isrbd::Params<T> P, int ns, isrbd::Consts<T> k,
+                      T* __restrict__ cost_out, T* __restrict__ dmax_out) {
+  using namespace isrbd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nx = k.nx, nu = k.nu;
+  const int n_par = k.po[kParams];
+  const int per_warp = 2 * nx + nu + n_par + kGeo;   // x, x_mid, u, p, geo
+  const int n = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t b = blockIdx.x;
+  T* x = reinterpret_cast<T*>(smem_raw) + n * per_warp;
+  T* xm = x + nx;
+  T* u = xm + nx;
+  T* p = u + nu;
+  T* geo = p + n_par;
+  T* node_cost = reinterpret_cast<T*>(smem_raw) + (ns + 1) * per_warp;
+  T* node_dmax = node_cost + (ns + 1);
+  const size_t row = b * (ns + 1) + n;
+  for (int j = lane; j < nx; j += 32) x[j] = X[row * nx + j];
+  load_params(P, row, k, lane, p);
+  T acc = T(0), dm = T(0);
+  if (n < ns) {                                    // warp-uniform
+    for (int j = lane; j < nu; j += 32) u[j] = U[(b * ns + n) * nu + j];
+    __syncwarp();
+    if (lane == 0) node_geometry(x, p, k, geo, static_cast<T*>(nullptr));
+    const T hdt = T(0.5) * k.dt;
+    for (int j = lane; j < nx; j += 32) xm[j] = x[j] + hdt * xdot_row(j, x, u, k);
+    __syncwarp();
+    for (int r = lane; r < k.n_rho; r += 32) {
+      const T v = stage_rho_row(r, x, u, geo, p, k);
+      acc += v * v;
+    }
+    const T* Xnext = X + (row + 1) * nx;
+    for (int j = lane; j < nx; j += 32)
+      dm = nan_max(dm, abs_nan((x[j] + k.dt * xdot_row(j, xm, u, k)) - Xnext[j]));
+  } else {
+    __syncwarp();
+    for (int r = lane; r < k.n_term; r += 32) {
+      const T v = terminal_rho_row(r, x, p, k);
+      acc += v * v;
+    }
+  }
+  acc = warp_sum(acc);
+  dm = warp_nan_max(dm);
+  if (lane == 0) {
+    node_cost[n] = acc;
+    node_dmax[n] = dm;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T c = T(0), m = T(0);
+    for (int i = 0; i < ns; ++i) {
+      c += node_cost[i];
+      m = nan_max(m, node_dmax[i]);
+    }
+    cost_out[b] = c + node_cost[ns];
+    dmax_out[b] = m;
+  }
+}
+
+template <typename T>
+int launch_evaluate(const void* X, const void* U, const void* const* params,
+                    int B, int ns, int nc, int cm, int n_legs,
+                    const double* scalars, void* cost, void* dmax,
+                    void* stream) {
+  if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const isrbd::Consts<T> k = isrbd::make_consts<T>(scalars, nc, cm, n_legs);
+  const int per_warp = 2 * k.nx + k.nu + k.po[isrbd::kParams] + isrbd::kGeo;
+  const size_t bytes = sizeof(T) * ((ns + 1) * per_warp + 2 * (ns + 1));
+  auto kernel = isrbd_evaluate_kernel<T>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<B, 32 * (ns + 1), bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const T*>(U),
+      isrbd::make_params<T>(params), ns, k, static_cast<T*>(cost),
+      static_cast<T*>(dmax));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define TRIAL_ENTRY(NAME, T)                                                  \
@@ -197,3 +302,15 @@ int launch(const void* x0, const void* X, const void* U, const void* ks,
 
 TRIAL_ENTRY(isrbd_trial_f32, float)
 TRIAL_ENTRY(isrbd_trial_f64, double)
+
+#define EVALUATE_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const void* X, const void* U,                           \
+                      const void* const* params, int B, int ns, int nc,       \
+                      int cm, int n_legs, const double* scalars, void* cost,  \
+                      void* dmax, void* stream) {                             \
+    return launch_evaluate<T>(X, U, params, B, ns, nc, cm, n_legs, scalars,   \
+                              cost, dmax, stream);                            \
+  }
+
+EVALUATE_ENTRY(isrbd_evaluate_f32, float)
+EVALUATE_ENTRY(isrbd_evaluate_f64, double)

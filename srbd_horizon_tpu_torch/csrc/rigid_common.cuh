@@ -2,7 +2,7 @@
 // csrc/srbd_common.cuh) and the isrbd kernels (K5, K6, through
 // csrc/isrbd_common.cuh): the homogeneous quaternion rotation and its
 // derivatives, the world inertia, the 3×3 adjugate, the quaternion rate
-// ȯ = ½(ω,0)⊗o, cross-product matrix columns and the warp reduction. One
+// ȯ = ½(ω,0)⊗o, cross-product matrix columns and the warp reductions. One
 // copy, so the two problem families cannot drift apart.
 
 #pragma once
@@ -155,6 +155,27 @@ __device__ void world_inertia_dq(int j, const T* o, const T* R, const T* RI,
       }
       dI[a * 3 + c] = s1 + s2;
     }
+}
+
+// max(m, v) that keeps a NaN from either side, as torch.amax does (fmax
+// would drop it).
+template <typename T>
+__device__ __forceinline__ T nan_max(T m, T v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// |v|, NaN kept.
+template <typename T>
+__device__ __forceinline__ T abs_nan(T v) {
+  return v < T(0) ? -v : v;
+}
+
+// Warp-wide maximum by nan_max (every lane gets it).
+template <typename T>
+__device__ T warp_nan_max(T v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
 // Warp-wide sum (every lane gets it).

@@ -1,10 +1,12 @@
-// Device code shared by K3 (csrc/srbd_rollout.cu) and K4
-// (csrc/srbd_linearize.cu): the SRBD problem's constants, the rigid-body
-// rates of its Euler step and the rows of its stacked stage residual
-// ρ = [stage_residual; √w_c·stage_eq] and of its terminal residual. Both
-// kernels evaluate the dynamics and the residuals through this one copy.
-// The rotation, inertia and 3×3 helpers and the warp reduction come from
-// csrc/rigid_common.cuh, which the isrbd kernels share.
+// Device code shared by the SRBD kernels — K3 and srbd_evaluate
+// (csrc/srbd_rollout.cu) and K4 (csrc/srbd_linearize.cu): the sizes they
+// are compiled for, the problem's constants, the rigid-body rates of its
+// Euler step (every lane of a warp holds them in registers), and the rows
+// of its stacked stage residual ρ = [stage_residual; √w_c·stage_eq] and of
+// its terminal residual. All three evaluate the dynamics and the residuals through this
+// one copy. The rotation, inertia and quaternion-rate helpers and the warp
+// reductions come from csrc/rigid_common.cuh, which the isrbd kernels
+// share.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/srbd.py, nc contacts):
 //   x = [r(3), o(4, xyzw), c(3nc), ṙ(3), ω(3), ċ(3nc)]        nx = 13 + 6nc
@@ -21,9 +23,36 @@ namespace srbd {
 
 using namespace rigid;
 
+// The sizes the SRBD kernels are compiled for: build_srbd_problem with the
+// Kangaroo feet. kernels/linearize.py::KERNEL_SHAPE holds the same numbers
+// (a test reads them from here); on CUDA tensors of any other sizes the
+// wrappers raise. The row counts are those of RiccatiRows.from_ocp (the
+// rows K4 emits and K1 reads).
+struct Shape {
+  static constexpr int nc = 4, cm = 2, n_legs = 2, nx = 37, nu = 24,
+                       n_rho = 73, nt = 15, n_rx = 22, n_ru = 18, n_gx = 34,
+                       n_gu = 42;
+};
+
+// Offsets and counts that follow from a shape.
+template <class S>
+struct Layout {
+  static constexpr int nc = S::nc, nx = S::nx, nu = S::nu;
+  static constexpr int i_c = 7, i_rdot = 7 + 3 * nc, i_w = 10 + 3 * nc,
+                       i_cdot = 13 + 3 * nc;
+  static constexpr int n_res = 21 + 9 * nc;            // residual rows
+  static constexpr int n_rv = 2 * S::n_legs * (S::cm - 1);
+  static constexpr int pw = 12 + 2 * nc;               // packed parameter row
+  static_assert(nx == 13 + 6 * nc && nu == 6 * nc, "not an SRBD layout");
+  static_assert(S::n_rho == n_res + n_rv + 3 * nc, "ρ rows");
+  static_assert(S::nt == 15 && pw <= 32, "terminal rows, parameter row");
+  static_assert((nc & (nc - 1)) == 0 && nc <= 32,
+                "the contact sums reduce over nc lanes with xor shuffles");
+};
+
 // host scalars, in this order: dt, m_scaled, inertia_scaled (9, row-major),
 // w_r, w_rdot, w_w, w_rel, w_qddot, w_minf, w_fswitch, √w_c, com_z,
-// d1x, d1y, d2x, d2y (kernels/linearize.py::kernel_scalars)
+// d1x, d1y, d2x, d2y (problems/srbd.py::SRBDTerms.kernel_scalars)
 constexpr int kScalars = 24;
 // parameter tensors, each (B, ns+1, dim), in this order: mask_track (1),
 // orientation_tracking_gain (1), oref (4), rdot_ref (3), w_ref (3),
@@ -32,9 +61,6 @@ constexpr int kParams = 7;
 
 template <typename T>
 struct Consts {
-  int nc, cm, n_legs;
-  int nx, nu, i_c, i_rdot, i_w, i_cdot;
-  int n_res, n_eq, n_rho;   // residual rows, equality rows, stacked rows
   T dt, m_scaled;
   T I[9];
   T w_r, w_rdot, w_w, w_rel, w_qddot, w_minf, w_fswitch, wc;
@@ -42,20 +68,8 @@ struct Consts {
 };
 
 template <typename T>
-inline Consts<T> make_consts(const double* s, int nc, int cm, int n_legs) {
+inline Consts<T> make_consts(const double* s) {
   Consts<T> k;
-  k.nc = nc;
-  k.cm = cm;
-  k.n_legs = n_legs;
-  k.nx = 13 + 6 * nc;
-  k.nu = 6 * nc;
-  k.i_c = 7;
-  k.i_rdot = 7 + 3 * nc;
-  k.i_w = 10 + 3 * nc;
-  k.i_cdot = 13 + 3 * nc;
-  k.n_res = 21 + 9 * nc;
-  k.n_eq = 2 * n_legs * (cm - 1) + 3 * nc;
-  k.n_rho = k.n_res + k.n_eq;
   k.dt = static_cast<T>(s[0]);
   k.m_scaled = static_cast<T>(s[1]);
   for (int i = 0; i < 9; ++i) k.I[i] = static_cast<T>(s[2 + i]);
@@ -79,7 +93,6 @@ inline Consts<T> make_consts(const double* s, int nc, int cm, int n_legs) {
 // [mt, otg, oref(4), rdot_ref(3), w_ref(3), c_ref(nc), cdot_switch(nc)].
 constexpr int kP_mt = 0, kP_otg = 1, kP_oref = 2, kP_rdot = 6, kP_w = 9,
               kP_cref = 12;
-__host__ __device__ inline int param_width(int nc) { return 12 + 2 * nc; }
 
 template <typename T>
 struct Params {
@@ -93,101 +106,150 @@ inline Params<T> make_params(const void* const* ptrs) {
   return P;
 }
 
-// Lanes of one warp copy the parameters of member-node `row` (= b·(ns+1)+n)
-// into `out` (param_width(nc) values).
-template <typename T>
-__device__ void load_params(const Params<T>& P, size_t row, int nc, int lane,
-                            T* out) {
-  for (int e = lane; e < param_width(nc); e += 32) {
-    T v;
-    if (e == kP_mt) v = P.p[0][row];
-    else if (e == kP_otg) v = P.p[1][row];
-    else if (e < kP_rdot) v = P.p[2][row * 4 + (e - kP_oref)];
-    else if (e < kP_w) v = P.p[3][row * 3 + (e - kP_rdot)];
-    else if (e < kP_cref) v = P.p[4][row * 3 + (e - kP_w)];
-    else if (e < kP_cref + nc) v = P.p[5][row * nc + (e - kP_cref)];
-    else v = P.p[6][row * nc + (e - kP_cref - nc)];
-    out[e] = v;
-  }
+// Where entry e of the packed parameter row of member-node `row`
+// (= b·(ns+1)+n) lives in device memory.
+template <class S, typename T>
+__device__ __forceinline__ const T* param_src(const Params<T>& P, size_t row,
+                                              int e) {
+  constexpr int nc = S::nc;
+  if (e == kP_mt) return P.p[0] + row;
+  if (e == kP_otg) return P.p[1] + row;
+  if (e < kP_rdot) return P.p[2] + row * 4 + (e - kP_oref);
+  if (e < kP_w) return P.p[3] + row * 3 + (e - kP_rdot);
+  if (e < kP_cref) return P.p[4] + row * 3 + (e - kP_w);
+  if (e < kP_cref + nc) return P.p[5] + row * nc + (e - kP_cref);
+  return P.p[6] + row * nc + (e - kP_cref - nc);
 }
 
-// Rigid-body part of ẋ on one thread: writes ȯ (xd[3:7]), r̈ (xd[i_rdot:+3])
-// and ω̇ (xd[i_w:+3]) — models/srbd.py::srbd_xdot's fSRBD accelerations
-// (R I Rᵀ, the Cramer 3×3 solve) and ½ (ω,0)⊗o.
+// Lanes of one warp copy the packed parameter row of member-node `row`.
+template <class S, typename T>
+__device__ void load_params(const Params<T>& P, size_t row, int lane, T* out) {
+  if (lane < Layout<S>::pw) out[lane] = *param_src<S>(P, row, lane);
+}
+
+// ---- the rigid-body rates of ẋ ----
+//
+// Every lane of a warp computes the node's geometry in its own registers —
+// R = quat_to_rot(o), R I, Iw = R I Rᵀ, the cofactors C of Iw
+// (Iw⁻¹ = C / det, as math/quat.py::solve3x3 forms them), det and Iw ω —
+// from an x every lane reads: a few dozen independent multiply-adds that
+// need no exchange between lanes, so a node's chain waits on no shared
+// memory round trip or warp barrier for them. The contact forces and
+// torques are summed over nc lanes with xor shuffles (contact q on lane
+// q mod nc), and every lane then holds r̈, ω̇ and ȯ (`Rigid`).
 template <typename T>
-__device__ void body_rates(const T* x, const T* u, const Consts<T>& k, T* xd) {
-  const int nc = k.nc;
-  const T* r = x;
-  const T* o = x + 3;
-  const T* w = x + k.i_w;
-  T R[9], RI[9], A[9], c[9];
-  quat_to_rot(o, R);
-  world_inertia(R, k.I, RI, A);
-  T f_tot[3] = {T(0), T(0), T(0)};
-  T tau[3] = {T(0), T(0), T(0)};
-  for (int q = 0; q < nc; ++q) {
-    const T* f = u + 6 * q + 3;
-    const T* cq = x + 7 + 3 * q;
-    const T p0 = cq[0] - r[0], p1 = cq[1] - r[1], p2 = cq[2] - r[2];
-    f_tot[0] += f[0];
-    f_tot[1] += f[1];
-    f_tot[2] += f[2];
-    tau[0] += p1 * f[2] - p2 * f[1];
-    tau[1] += p2 * f[0] - p0 * f[2];
-    tau[2] += p0 * f[1] - p1 * f[0];
-  }
-  T* rdd = xd + k.i_rdot;
-  rdd[0] = f_tot[0] / k.m_scaled;
-  rdd[1] = f_tot[1] / k.m_scaled;
-  rdd[2] = f_tot[2] / k.m_scaled - T(9.81);
-  // ω̇ = Iw⁻¹ (τ − ω × Iw ω), Cramer
-  T Iw[3];
+struct Geometry {
+  T R[9], RI[9], Iw[9], C[9], det, h[3];
+};
+
+template <class S, typename T>
+__device__ __forceinline__ Geometry<T> geometry(const T* x,
+                                                const Consts<T>& k) {
+  Geometry<T> g;
+  quat_to_rot(x + 3, g.R);
+  world_inertia(g.R, k.I, g.RI, g.Iw);
+  g.det = adjugate3(g.Iw, g.C);
+  const T* w = x + Layout<S>::i_w;
+#pragma unroll
   for (int i = 0; i < 3; ++i)
-    Iw[i] = A[i * 3 + 0] * w[0] + A[i * 3 + 1] * w[1] + A[i * 3 + 2] * w[2];
-  const T b0 = tau[0] - (w[1] * Iw[2] - w[2] * Iw[1]);
-  const T b1 = tau[1] - (w[2] * Iw[0] - w[0] * Iw[2]);
-  const T b2 = tau[2] - (w[0] * Iw[1] - w[1] * Iw[0]);
-  const T det = adjugate3(A, c);
-  T* wd = xd + k.i_w;
-  wd[0] = (c[0] * b0 + c[1] * b1 + c[2] * b2) / det;
-  wd[1] = (c[3] * b0 + c[4] * b1 + c[5] * b2) / det;
-  wd[2] = (c[6] * b0 + c[7] * b1 + c[8] * b2) / det;
-  // ȯ = ½ (ω,0) ⊗ o
-  const T qx = o[0], qy = o[1], qz = o[2], qw = o[3];
-  const T v0 = T(0) * qx + qw * w[0] + (w[1] * qz - w[2] * qy);
-  const T v1 = T(0) * qy + qw * w[1] + (w[2] * qx - w[0] * qz);
-  const T v2 = T(0) * qz + qw * w[2] + (w[0] * qy - w[1] * qx);
-  const T s = T(0) * qw - (w[0] * qx + w[1] * qy + w[2] * qz);
-  xd[3] = T(0.5) * v0;
-  xd[4] = T(0.5) * v1;
-  xd[5] = T(0.5) * v2;
-  xd[6] = T(0.5) * s;
+    g.h[i] = g.Iw[i * 3] * w[0] + g.Iw[i * 3 + 1] * w[1] + g.Iw[i * 3 + 2] * w[2];
+  return g;
+}
+
+template <typename T>
+struct Rigid {
+  T rdd[3], wd[3], od[4];
+};
+
+// r̈ = Σf / m − g e_z, ω̇ = Iw⁻¹ (τ − ω × Iw ω), ȯ = ½ (ω,0)⊗o —
+// models/srbd.py::srbd_xdot's rigid rows. Every lane must call it (the
+// shuffles); every lane gets the result.
+template <class S, typename T>
+__device__ __forceinline__ Rigid<T> rigid_rates(const T* x, const T* u,
+                                                const Consts<T>& k,
+                                                const Geometry<T>& g,
+                                                int lane) {
+  using L = Layout<S>;
+  const int q = lane % S::nc;
+  const T* f = u + 6 * q + 3;
+  const T* cq = x + L::i_c + 3 * q;
+  const T p0 = cq[0] - x[0], p1 = cq[1] - x[1], p2 = cq[2] - x[2];
+  T v0 = f[0], v1 = f[1], v2 = f[2];
+  T t0 = p1 * f[2] - p2 * f[1];
+  T t1 = p2 * f[0] - p0 * f[2];
+  T t2 = p0 * f[1] - p1 * f[0];
+#pragma unroll
+  for (int off = 1; off < S::nc; off <<= 1) {
+    v0 += __shfl_xor_sync(0xffffffffu, v0, off);
+    v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+    v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+    t0 += __shfl_xor_sync(0xffffffffu, t0, off);
+    t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+    t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+  }
+  const T* w = x + L::i_w;
+  Rigid<T> r;
+  r.rdd[0] = v0 / k.m_scaled;
+  r.rdd[1] = v1 / k.m_scaled;
+  r.rdd[2] = v2 / k.m_scaled - T(9.81);
+  const T b0 = t0 - (w[1] * g.h[2] - w[2] * g.h[1]);
+  const T b1 = t1 - (w[2] * g.h[0] - w[0] * g.h[2]);
+  const T b2 = t2 - (w[0] * g.h[1] - w[1] * g.h[0]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    r.wd[i] = (g.C[i * 3] * b0 + g.C[i * 3 + 1] * b1 + g.C[i * 3 + 2] * b2) / g.det;
+  quat_rate(x + 3, w, r.od);
+  return r;
 }
 
 // The integrator rows of ẋ (ṙ, ċ, c̈) for index j, or false if j is a
-// rigid-body row (filled by body_rates).
-template <typename T>
-__device__ bool integrator_row(int j, const T* x, const T* u,
-                               const Consts<T>& k, T* out) {
+// rigid-body row.
+template <class S, typename T>
+__device__ __forceinline__ bool integrator_row(int j, const T* x, const T* u,
+                                               T* out) {
+  using L = Layout<S>;
   if (j < 3) {
-    *out = x[k.i_rdot + j];                      // ṙ
+    *out = x[L::i_rdot + j];                     // ṙ
     return true;
   }
-  if (j >= 7 && j < k.i_rdot) {
-    *out = x[k.i_cdot + (j - 7)];                // ċ
+  if (j >= 7 && j < L::i_rdot) {
+    *out = x[L::i_cdot + (j - 7)];               // ċ
     return true;
   }
-  if (j >= k.i_cdot) {
-    const int e = j - k.i_cdot;                  // c̈ from u
+  if (j >= L::i_cdot) {
+    const int e = j - L::i_cdot;                 // c̈ from u
     *out = u[6 * (e / 3) + e % 3];
     return true;
   }
   return false;
 }
 
+// Entry e of (r̈, ω̇) — residual rows 15..20 — from the registers.
+template <typename T>
+__device__ __forceinline__ T accel_entry(const Rigid<T>& r, int e) {
+  return e == 0 ? r.rdd[0] : e == 1 ? r.rdd[1] : e == 2 ? r.rdd[2]
+       : e == 3 ? r.wd[0] : e == 4 ? r.wd[1] : r.wd[2];
+}
+
+// Row j of ẋ(x, u): an integrator row, or a rigid row from the registers.
+template <class S, typename T>
+__device__ __forceinline__ T xdot_row(int j, const T* x, const T* u,
+                                      const Rigid<T>& r) {
+  using L = Layout<S>;
+  T v;
+  if (integrator_row<S>(j, x, u, &v)) return v;
+  if (j < 7) {
+    const int e = j - 3;
+    return e == 0 ? r.od[0] : e == 1 ? r.od[1] : e == 2 ? r.od[2] : r.od[3];
+  }
+  return accel_entry(r, j - L::i_rdot);           // r̈ then ω̇ (contiguous)
+}
+
+// ---- residual rows ----
+
 // Row j of o ⊗ oref (x, y, z, w), problems/srbd.py's orientation error.
 template <typename T>
-__device__ T quat_err(int j, const T* o, const T* q) {
+__device__ __forceinline__ T quat_err(int j, const T* o, const T* q) {
   switch (j) {
     case 0: return (o[3] * q[0] + q[3] * o[0]) + (o[1] * q[2] - o[2] * q[1]);
     case 1: return (o[3] * q[1] + q[3] * o[1]) + (o[2] * q[0] - o[0] * q[2]);
@@ -196,34 +258,106 @@ __device__ T quat_err(int j, const T* o, const T* q) {
   }
 }
 
-// Row g < 15 of the tracking residual (the terminal residual when
-// p[kP_mt] = 1).
-template <typename T>
-__device__ T tracking_row(int g, const T* x, const T* p, const Consts<T>& k) {
-  const T mt = p[kP_mt];
-  const T* c = x + k.i_c;
+// Foot-pair columns of tracking row g ∈ [11, 15): the row is
+// w_rel·((−c[a] + c[b]) − d), a and b offsets into c.
+template <class S>
+__device__ __forceinline__ void rel_cols(int g, int* a, int* b) {
+  const int ax = (g % 2 == 1) ? 1 : 0;              // rows 11, 13: y
+  *a = (g < 13 ? 0 : 3 * (S::cm - 1)) + ax;
+  *b = (g < 13 ? 3 * S::cm : 3 * (S::nc - 1)) + ax;
+}
+
+// Row g < 15 of the tracking residual, with tracking mask mt (the terminal
+// residual when mt = 1).
+template <class S, typename T>
+__device__ T tracking_row(int g, const T* x, const T* p, T mt,
+                          const Consts<T>& k) {
+  using L = Layout<S>;
   if (g == 0) return (mt * k.w_r) * (x[2] - k.com_z);
   if (g < 4) return (mt * p[kP_otg]) * quat_err(g - 1, x + 3, p + kP_oref);
   if (g == 4) return (mt * p[kP_otg]) * (quat_err(3, x + 3, p + kP_oref) - T(1));
-  if (g < 8) return (mt * k.w_rdot) * (x[k.i_rdot + g - 5] - p[kP_rdot + g - 5]);
-  if (g < 11) return (mt * k.w_w) * (x[k.i_w + g - 8] - p[kP_w + g - 8]);
-  const T wrel = mt * k.w_rel;
-  const int a = g < 13 ? 0 : 3 * (k.cm - 1);       // −c[a] + c[b]
-  const int b = g < 13 ? 3 * k.cm : 3 * (k.nc - 1);
-  const int ax = (g % 2 == 1) ? 1 : 0;              // rows 11, 13: y
+  if (g < 8) return (mt * k.w_rdot) * (x[L::i_rdot + g - 5] - p[kP_rdot + g - 5]);
+  if (g < 11) return (mt * k.w_w) * (x[L::i_w + g - 8] - p[kP_w + g - 8]);
+  int a, b;
+  rel_cols<S>(g, &a, &b);
+  const T* c = x + L::i_c;
   const T dd = g == 11 ? k.d1y : g == 12 ? k.d1x : g == 13 ? k.d2y : k.d2x;
-  return wrel * ((-c[a + ax] + c[b + ax]) - dd);
+  return (mt * k.w_rel) * ((-c[a] + c[b]) - dd);
+}
+
+// Row q of √w_c · stage_eq at (x, p) (stage row n_res + q).
+template <class S, typename T>
+__device__ T eq_row(int q, const T* x, const T* p, const Consts<T>& k) {
+  using L = Layout<S>;
+  constexpr int nc = S::nc;
+  constexpr int per = 2 * (S::cm - 1);
+  const T* cdot = x + L::i_cdot;
+  T h;
+  if (q < L::n_rv) {
+    const int base = (q / per) * S::cm, rem = q % per;
+    const int i = rem / 2 + 1, ax = rem % 2;
+    h = cdot[3 * base + ax] - cdot[3 * (base + i) + ax];
+  } else if (q < L::n_rv + nc) {
+    q -= L::n_rv;
+    h = x[L::i_c + 3 * q + 2] - p[kP_cref + q];
+  } else {
+    q -= L::n_rv + nc;
+    h = p[kP_cref + nc + q / 2] * cdot[3 * (q / 2) + q % 2];
+  }
+  return k.wc * h;
+}
+
+// This lane's share of ‖ρ(x, u, p)‖² over the stage rows, in two passes
+// that keep the lanes of a warp on few paths. Pass one: lane l < nu takes
+// the input rows of column l (c̈ᵢ, or fᵢ and its switch row), lanes nu..31
+// the first 32 − nu equality rows. Pass two: lanes 0..14 the tracking rows,
+// lanes 15..20 the r̈ and ω̇ rows (from `r`), the next lanes the remaining
+// equality rows. Every lane must call it; the sum over the warp is the
+// node's cost.
+template <class S, typename T>
+__device__ __forceinline__ T stage_sq_lane(int lane, const T* x, const T* u,
+                                           const Rigid<T>& r, const T* p,
+                                           const Consts<T>& k) {
+  using L = Layout<S>;
+  constexpr int n_eq = S::n_rho - L::n_res;
+  constexpr int eq1 = 32 - S::nu;                  // equality rows, pass one
+  static_assert(eq1 >= 0 && eq1 <= n_eq && n_eq - eq1 <= 32 - 21,
+                "the two row passes cover the stage rows");
+  T acc;
+  if (lane < S::nu) {
+    const bool accel = lane % 6 < 3;
+    const T ul = u[lane];
+    const T v1 = (accel ? k.w_qddot : k.w_minf) * ul;
+    const T v2 = accel ? T(0)
+                       : (k.w_fswitch * (T(1) - p[kP_cref + S::nc + lane / 6])) * ul;
+    acc = v1 * v1 + v2 * v2;
+  } else {
+    const T v = eq_row<S>(lane - S::nu, x, p, k);
+    acc = v * v;
+  }
+  if (lane < 15) {
+    const T v = tracking_row<S>(lane, x, p, p[kP_mt], k);
+    acc += v * v;
+  } else if (lane < 21) {
+    const T v = k.w_qddot * accel_entry(r, lane - 15);
+    acc += v * v;
+  } else if (lane < 21 + n_eq - eq1) {
+    const T v = eq_row<S>(eq1 + lane - 21, x, p, k);
+    acc += v * v;
+  }
+  return acc;
 }
 
 // Row g of the stacked stage residual ρ at (x, u, p); xd holds ẋ(x, u)
 // (r̈ and ω̇ are read from it).
-template <typename T>
+template <class S, typename T>
 __device__ T stage_rho_row(int g, const T* x, const T* u, const T* xd,
                            const T* p, const Consts<T>& k) {
-  const int nc = k.nc;
-  if (g < 15) return tracking_row(g, x, p, k);
-  if (g < 18) return k.w_qddot * xd[k.i_rdot + g - 15];
-  if (g < 21) return k.w_qddot * xd[k.i_w + g - 18];
+  using L = Layout<S>;
+  constexpr int nc = S::nc;
+  if (g < 15) return tracking_row<S>(g, x, p, p[kP_mt], k);
+  if (g < 18) return k.w_qddot * xd[L::i_rdot + g - 15];
+  if (g < 21) return k.w_qddot * xd[L::i_w + g - 18];
   if (g < 21 + 3 * nc) {
     const int q = g - 21;
     return k.w_qddot * u[6 * (q / 3) + q % 3];
@@ -232,29 +366,12 @@ __device__ T stage_rho_row(int g, const T* x, const T* u, const T* xd,
     const int q = g - 21 - 3 * nc;
     return k.w_minf * u[6 * (q / 3) + 3 + q % 3];
   }
-  if (g < k.n_res) {
+  if (g < L::n_res) {
     const int q = g - 21 - 6 * nc;
     return (k.w_fswitch * (T(1) - p[kP_cref + nc + q / 3])) *
            u[6 * (q / 3) + 3 + q % 3];
   }
-  // √w_c · stage_eq
-  int q = g - k.n_res;
-  const int per = 2 * (k.cm - 1);
-  const int n_rv = k.n_legs * per;
-  const T* cdot = x + k.i_cdot;
-  T h;
-  if (q < n_rv) {
-    const int base = (q / per) * k.cm, rem = q % per;
-    const int i = rem / 2 + 1, ax = rem % 2;
-    h = cdot[3 * base + ax] - cdot[3 * (base + i) + ax];
-  } else if (q < n_rv + nc) {
-    q -= n_rv;
-    h = x[k.i_c + 3 * q + 2] - p[kP_cref + q];
-  } else {
-    q -= n_rv + nc;
-    h = p[kP_cref + nc + q / 2] * cdot[3 * (q / 2) + q % 2];
-  }
-  return k.wc * h;
+  return eq_row<S>(g - L::n_res, x, p, k);
 }
 
 }  // namespace srbd

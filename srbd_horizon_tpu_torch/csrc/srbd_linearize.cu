@@ -26,23 +26,47 @@
 // where Rⱼ = ∂R/∂oⱼ of the homogeneous (not normalized) quat_to_rot, which
 // is linear in o — so the derivative holds for non-unit quaternions too.
 //
+// Compiled for the sizes of `srbd::Shape` only (csrc/srbd_common.cuh): the
+// per-node output sizes, the smem layout and every loop bound are
+// constants; the wrapper refuses other sizes. The row table stays a
+// run-time input.
+//
 // What bounds it on an H100: bytes. A member-node writes 3,622 values
-// (Sx 814, Bs 432, Jxp 1,258, Jup 1,008, ρ 73, d 37) and reads ~100; most
+// (Sx 814, Bs 432, Jxp 1,258, Jup 1,008, ρ 73, d 37) and reads ~120; most
 // outputs are structural zeros or constants that K1 reads dense. At B=512,
 // ns=20 that is ~148 MB of f32 out and ~5 MB in, ~0.046 ms at 3.35 TB/s,
 // against a few thousand FLOP per member-node (~0.001 ms at 67 TFLOP/s).
+// The first design spent more instructions than bytes: every lane evaluated
+// ~113 entries one by one, each with a run-time division, a walk through
+// the region branches of a per-entry function and a 4-byte store, after a
+// prologue in which lanes 0 and 1 worked while 30 waited; it ran at 3.3×
+// the byte bound. This one runs at ~1.6× (~0.074 ms at B=512, ~2.1 TB/s, on
+// an H100 at 700 W, `kernel_times` in chip_smoke.py): the stores of one
+// block still wait on its nodes' scalars, and the next block's on its own.
 //
-// Design: one warp per member-node, and one per member for the terminal
-// pair, so a linearization is one launch. The warp first computes the
-// node's scalars into shared memory: lane 0 the rigid-body rates ẋ (the
-// same device code as K3), lane 1 R, R I, Iw, its adjugate and det, the
-// other lanes the integrator rows; then one lane per column of (x, u)
-// forms ∂b and the three entries of ∂ω̇ (the ∂Iwⱼ products on the four o
-// columns), and the lanes evaluate the 73 residual rows. Last, all 32
-// lanes walk each output block in storage order, so neighbouring lanes
-// store neighbouring addresses, and evaluate each entry from the shared
-// scalars by its row's region. Simple first: no vector stores, no
-// skipping of the zeros.
+// Design: a block takes 4 consecutive stage member-nodes, one warp each.
+// In float32 a run of 4 member-nodes that begins at a flat index b·ns+n
+// divisible by 4 starts 16-byte aligned in every stage output (the per-node
+// sizes 814, 432, 1,258, 1,008, 73 and 37 times 4 are multiples of 4), and
+// the 4 nodes' blocks of one output are contiguous; the block composes
+// them in shared memory and streams them out with 16-byte stores (double2
+// in float64), the whole block on each output. It stages one Jacobian
+// block at a time (Sx, Bs, Jxp, Jup in turn through one 20 KB buffer), so
+// a block holds ~28 KB of shared memory in float32 and seven blocks share
+// an SM: while some compute their nodes' scalars, others stream. A staged
+// block is filled with zeros (16-byte stores), then each warp writes its
+// node's nonzeros by the row kinds the block resolved once from the row
+// table (one entry, two entries, quaternion row, quaternion-error row,
+// dense ∂ω̇ row, r̈ row, zero): the sparse rows one lane a row, the dense
+// ∂ω̇ rows one row at a time with the lanes over the columns. No entry is
+// found by division. The node's scalars come first: every lane holds the
+// rigid-body rates and R I Rᵀ, its cofactors and Iw ω in registers
+// (csrc/srbd_common.cuh, shared with K3); ∂ω̇ goes one column a lane,
+// except the four o columns, whose ∂Iwⱼ rows go to twelve lanes (a column
+// on three lanes, a row of ∂Iwⱼ each) that trade their rows by shuffles;
+// then the 73 residual rows and the defects, staged with the Jacobians.
+// The terminal pairs rt, Jt run in blocks of their own after the stage
+// blocks, one warp a member.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -51,125 +75,143 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kTrack = 15;     // terminal rows = the tracking rows
-constexpr int kGeo = 40;       // R, RI, Iw, adj (9 each), det, Iw ω (3)
+using S = srbd::Shape;
+using L = srbd::Layout<S>;
+constexpr int kWarps = 4;                // member-nodes (warps) a stage block
+constexpr int kUnknownShape = -2;        // the sizes are not srbd::Shape's
+constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho;
 
-// ∂b/∂(x, u)[col] — the right-hand side of Iw ω̇ = b differentiated along
-// column col of (x, u), Iw's own o-dependence included.
+// per-node sizes of the four Jacobian blocks; the block stages one of them
+// at a time for its kWarps nodes (back to back, 16-byte aligned)
+constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu, kJxp = S::n_gx * nx,
+              kJup = S::n_gu * nu;
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int kStage = kWarps * cmax(cmax(kSx, kBs), cmax(kJxp, kJup));
+// then ρ and d of the kWarps nodes, composed during the prologue
+constexpr int oRho = kStage, oD = oRho + kWarps * nr, oEnd = oD + kWarps * nx;
+static_assert(kStage % 4 == 0 && oD % 4 == 0 && oEnd % 4 == 0 &&
+                  (kWarps * kSx) % 4 == 0 && (kWarps * kBs) % 4 == 0 &&
+                  (kWarps * kJxp) % 4 == 0 && (kWarps * kJup) % 4 == 0,
+              "16-byte alignment of the staged outputs");
+
+// a warp's scratch: x, X[n+1], u, ẋ, params, ∂ω̇ columns (3 a column)
+constexpr int wX = 0, wXn = wX + nx, wU = wXn + nx, wXd = wU + nu,
+              wP = wXd + nx, wW = wP + L::pw, wSize = wW + 3 * (nx + nu) + 1;
+constexpr int kRows = S::n_rx + S::n_ru + S::n_gx + S::n_gu;
+
+// shared memory: staged outputs, warp scratch (both in T), then the row
+// kinds (2 ints a row) and the dense-row slots (3 per Jacobian block)
 template <typename T>
-__device__ void rhs_column(int col, const T* x, const T* u, const T* xd,
-                           const T* geo, const srbd::Consts<T>& k, T* m) {
-  const T* R = geo;
-  const T* RI = geo + 9;
-  const T* Iw = geo + 18;
-  const T* h = geo + 37;
-  const T* r = x;
-  const T* w = x + k.i_w;
-  m[0] = m[1] = m[2] = T(0);
-  if (col < 3) {                                   // r
-    T f[3] = {T(0), T(0), T(0)};
-    for (int q = 0; q < k.nc; ++q)
-      for (int i = 0; i < 3; ++i) f[i] += u[6 * q + 3 + i];
-    rigid::skew_col(f, col, m);
-  } else if (col < 7) {                            // o
-    T D[9], P[9], dI[9];
-    rigid::drot(col - 3, x + 3, D);
-    for (int a = 0; a < 3; ++a)
-      for (int l = 0; l < 3; ++l) {
-        T s = T(0);
-        for (int q = 0; q < 3; ++q) s += D[a * 3 + q] * k.I[q * 3 + l];
-        P[a * 3 + l] = s;
-      }
-    for (int a = 0; a < 3; ++a)
-      for (int c = 0; c < 3; ++c) {
-        T s1 = T(0), s2 = T(0);
-        for (int l = 0; l < 3; ++l) {
-          s1 += P[a * 3 + l] * R[c * 3 + l];
-          s2 += RI[a * 3 + l] * D[c * 3 + l];
-        }
-        dI[a * 3 + c] = s1 + s2;
-      }
-    const T* wd = xd + k.i_w;
-    T v1[3], v2[3];
-    for (int a = 0; a < 3; ++a) {
-      v1[a] = dI[a * 3] * wd[0] + dI[a * 3 + 1] * wd[1] + dI[a * 3 + 2] * wd[2];
-      v2[a] = dI[a * 3] * w[0] + dI[a * 3 + 1] * w[1] + dI[a * 3 + 2] * w[2];
-    }
-    m[0] = -v1[0] - (w[1] * v2[2] - w[2] * v2[1]);
-    m[1] = -v1[1] - (w[2] * v2[0] - w[0] * v2[2]);
-    m[2] = -v1[2] - (w[0] * v2[1] - w[1] * v2[0]);
-  } else if (col < k.i_rdot) {                     // cₖ
-    const int q = (col - 7) / 3, j = (col - 7) % 3;
-    rigid::skew_col(u + 6 * q + 3, j, m);
-    m[0] = -m[0];
-    m[1] = -m[1];
-    m[2] = -m[2];
-  } else if (col >= k.i_w && col < k.i_cdot) {     // ω
-    const int j = col - k.i_w;
-    rigid::skew_col(h, j, m);
-    const T v0 = Iw[j], v1 = Iw[3 + j], v2 = Iw[6 + j];
-    m[0] -= w[1] * v2 - w[2] * v1;
-    m[1] -= w[2] * v0 - w[0] * v2;
-    m[2] -= w[0] * v1 - w[1] * v0;
-  } else if (col >= k.nx && (col - k.nx) % 6 >= 3) {   // fₖ
-    const int q = (col - k.nx) / 6, j = (col - k.nx) % 6 - 3;
-    const T* c = x + 7 + 3 * q;
-    const T cr[3] = {c[0] - r[0], c[1] - r[1], c[2] - r[2]};
-    rigid::skew_col(cr, j, m);
-  }
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (oEnd + kWarps * wSize) + sizeof(int) * (2 * kRows + 12);
 }
 
-// (∂ẋ/∂x)[row][col]; W holds ∂ω̇/∂(x, u) column-major (3 per column).
-template <typename T>
-__device__ T jac_xdot_x(int row, int col, const T* x, const T* W,
-                        const srbd::Consts<T>& k) {
-  if (row < 3) return col == k.i_rdot + row ? T(1) : T(0);
-  if (row < 7) {                                   // ȯ = ½ (ω,0)⊗o
-    const int q = row - 3;
-    const T* o = x + 3;
-    const T* w = x + k.i_w;
-    if (col >= 3 && col < 7) {                     // ½ [[ωₓ, ω], [−ωᵀ, 0]]
-      const int j = col - 3;
-      T v;
-      if (q == 3) v = j == 3 ? T(0) : -w[j];
-      else if (j == 3) v = w[q];
-      else if (q == j) v = T(0);
-      else v = (q == 0 ? (j == 1 ? -w[2] : w[1])
-                : q == 1 ? (j == 0 ? w[2] : -w[0])
-                         : (j == 0 ? -w[1] : w[0]));
-      return T(0.5) * v;
-    }
-    if (col >= k.i_w && col < k.i_w + 3) {         // ½ [[o_w I − [o_v]ₓ], [−o_vᵀ]]
-      const int j = col - k.i_w;
-      T v;
-      if (q == 3) v = -o[j];
-      else if (q == j) v = o[3];
-      else v = (q == 0 ? (j == 1 ? o[2] : -o[1])
-                : q == 1 ? (j == 0 ? -o[2] : o[0])
-                         : (j == 0 ? o[1] : -o[0]));
-      return T(0.5) * v;
-    }
-    return T(0);
-  }
-  if (row < k.i_rdot) return col == k.i_cdot + (row - 7) ? T(1) : T(0);
-  if (row >= k.i_w && row < k.i_cdot) return W[col * 3 + (row - k.i_w)];
-  return T(0);
+// Row kinds of the four Jacobian blocks (resolved once a block from the row
+// table): info0 = kind | value << 8, info1 = a | b << 16.
+enum Kind : int {
+  kZero = 0,   // no entry
+  kOne,        // `value` at column a
+  kTwo,        // −value at column a, +value at column b
+  kQuat,       // Sx: row a of ȯ = ½ (ω,0)⊗o (4 o and 3 ω columns)
+  kQerr,       // Jxp: row a of o ⊗ oref (4 o columns)
+  kDense,      // row a of ∂ω̇ (dense, written by the lanes over columns)
+  kRdd         // row a of r̈: 1/m at each force column of axis a
+};
+// values of kOne/kTwo entries
+enum : int {
+  vOne = 0, vMtWr, vMtWrdot, vMtWw, vWc, vWqddot, vWminf, vMtWrel,
+  vCs,                 // + q: √w_c · cdot_switch[q]
+  vFsw = vCs + S::nc   // + q: w_fswitch · (1 − cdot_switch[q])
+};
+
+__device__ __forceinline__ int2 kind(int k, int value = 0, int a = 0,
+                                     int b = 0) {
+  return make_int2(k | (value << 8), a | (b << 16));
 }
 
-// (∂ẋ/∂u)[row][col].
+// Row r of block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup).
+__device__ int2 resolve(int blk, int r) {
+  constexpr int nc = S::nc;
+  if (blk == 0) {                                  // (∂ẋ/∂x)[r]
+    if (r < 3) return kind(kOne, vOne, L::i_rdot + r);
+    if (r < 7) return kind(kQuat, 0, r - 3);
+    if (r < L::i_rdot) return kind(kOne, vOne, L::i_cdot + r - 7);
+    if (r >= L::i_w && r < L::i_cdot) return kind(kDense, 0, r - L::i_w);
+    return kind(kZero);
+  }
+  if (blk == 1) {                                  // (∂ẋ/∂u)[r]
+    if (r < L::i_rdot) return kind(kZero);
+    if (r < L::i_w) return kind(kRdd, 0, r - L::i_rdot);
+    if (r < L::i_cdot) return kind(kDense, 0, r - L::i_w);
+    const int e = r - L::i_cdot;
+    return kind(kOne, vOne, 6 * (e / 3) + e % 3);
+  }
+  if (blk == 2) {                                  // (∂ρ/∂x)[r]
+    if (r == 0) return kind(kOne, vMtWr, 2);
+    if (r < 5) return kind(kQerr, 0, r - 1);
+    if (r < 8) return kind(kOne, vMtWrdot, L::i_rdot + r - 5);
+    if (r < 11) return kind(kOne, vMtWw, L::i_w + r - 8);
+    if (r < 15) {
+      int a, b;
+      srbd::rel_cols<S>(r, &a, &b);
+      return kind(kTwo, vMtWrel, L::i_c + a, L::i_c + b);
+    }
+    if (r >= 18 && r < 21) return kind(kDense, 0, r - 18);
+    if (r < L::n_res) return kind(kZero);
+    int q = r - L::n_res;                          // √w_c · ∂stage_eq/∂x
+    constexpr int per = 2 * (S::cm - 1);
+    if (q < L::n_rv) {
+      const int base = (q / per) * S::cm, rem = q % per;
+      const int i = rem / 2 + 1, ax = rem % 2;
+      return kind(kTwo, vWc, L::i_cdot + 3 * (base + i) + ax,
+                  L::i_cdot + 3 * base + ax);
+    }
+    q -= L::n_rv;
+    if (q < nc) return kind(kOne, vWc, L::i_c + 3 * q + 2);
+    q -= nc;
+    return kind(kOne, vCs + q / 2, L::i_cdot + 3 * (q / 2) + q % 2);
+  }
+  // (∂ρ/∂u)[r]
+  if (r < 15) return kind(kZero);
+  if (r < 18) return kind(kRdd, 0, r - 15);
+  if (r < 21) return kind(kDense, 0, r - 18);
+  if (r < 21 + 3 * nc) {
+    const int q = r - 21;
+    return kind(kOne, vWqddot, 6 * (q / 3) + q % 3);
+  }
+  if (r < 21 + 6 * nc) {
+    const int q = r - 21 - 3 * nc;
+    return kind(kOne, vWminf, 6 * (q / 3) + 3 + q % 3);
+  }
+  if (r < L::n_res) {
+    const int q = r - 21 - 6 * nc;
+    return kind(kOne, vFsw + q / 3, 6 * (q / 3) + 3 + q % 3);
+  }
+  return kind(kZero);
+}
+
 template <typename T>
-__device__ T jac_xdot_u(int row, int col, const T* W, const srbd::Consts<T>& k) {
-  if (row < k.i_rdot) return T(0);
-  if (row < k.i_w) return col % 6 == 3 + (row - k.i_rdot) ? T(1) / k.m_scaled : T(0);
-  if (row < k.i_cdot) return W[(k.nx + col) * 3 + (row - k.i_w)];
-  const int e = row - k.i_cdot;
-  return col == 6 * (e / 3) + e % 3 ? T(1) : T(0);
+__device__ __forceinline__ T entry_value(int v, const T* p,
+                                         const srbd::Consts<T>& k) {
+  const T mt = p[srbd::kP_mt];
+  switch (v) {
+    case vOne: return T(1);
+    case vMtWr: return mt * k.w_r;
+    case vMtWrdot: return mt * k.w_rdot;
+    case vMtWw: return mt * k.w_w;
+    case vWc: return k.wc;
+    case vWqddot: return k.w_qddot;
+    case vWminf: return k.w_minf;
+    case vMtWrel: return mt * k.w_rel;
+    default: break;
+  }
+  if (v < vFsw) return k.wc * p[srbd::kP_cref + S::nc + (v - vCs)];
+  return k.w_fswitch * (T(1) - p[srbd::kP_cref + S::nc + (v - vFsw)]);
 }
 
 // Row i, column j of ∂(o ⊗ q)/∂o = [[q_w I − [q_v]ₓ, q_v], [−q_vᵀ, q_w]].
 template <typename T>
-__device__ T quat_err_jac(int i, int j, const T* q) {
+__device__ __forceinline__ T quat_err_jac(int i, int j, const T* q) {
   if (i == 3) return j == 3 ? q[3] : -q[j];
   if (j == 3) return q[i];
   if (i == j) return q[3];
@@ -177,188 +219,335 @@ __device__ T quat_err_jac(int i, int j, const T* q) {
   return j == (i + 1) % 3 ? q[third] : -q[third];
 }
 
-// (∂ρ/∂x)[g][col] of the stacked stage residual (the terminal residual's
-// for g < 15 with the tracking mask 1).
+// Lane `lane` writes the nonzeros of the sparse rows lane, lane+32, … of
+// one node's block `dst` (rows of `width` entries, zero-filled before);
+// `scale` multiplies every entry (dt for Sx and Bs, 1 for Jxp and Jup).
 template <typename T>
-__device__ T jac_rho_x(int g, int col, const T* p, const T* W,
-                       const srbd::Consts<T>& k) {
-  const T mt = p[srbd::kP_mt];
-  if (g == 0) return col == 2 ? mt * k.w_r : T(0);
+__device__ void emit_sparse(const int* info, int n_rows, int width, T scale,
+                            T rdd, const T* x, const T* p,
+                            const srbd::Consts<T>& k, int lane, T* dst) {
+  for (int i = lane; i < n_rows; i += 32) {
+    const int i0 = info[2 * i], i1 = info[2 * i + 1];
+    const int kd = i0 & 0xff, v = i0 >> 8, a = i1 & 0xffff, b = i1 >> 16;
+    T* row = dst + i * width;
+    switch (kd) {
+      case kOne:
+        row[a] = scale * entry_value(v, p, k);
+        break;
+      case kTwo: {
+        const T e = entry_value(v, p, k);
+        row[a] = -e;
+        row[b] = e;
+        break;
+      }
+      case kQuat: {                                // dt·∂ȯ/∂o, dt·∂ȯ/∂ω
+        const T* w = x + L::i_w;
+        for (int j = 0; j < 4; ++j)
+          row[3 + j] = scale * srbd::quat_rate_jac_o(a, j, w);
+        for (int j = 0; j < 3; ++j)
+          row[L::i_w + j] = scale * srbd::quat_rate_jac_w(a, j, x + 3);
+        break;
+      }
+      case kQerr: {
+        const T g = p[srbd::kP_mt] * p[srbd::kP_otg];
+        for (int j = 0; j < 4; ++j)
+          row[3 + j] = g * quat_err_jac(a, j, p + srbd::kP_oref);
+        break;
+      }
+      case kRdd:
+        for (int q = 0; q < S::nc; ++q) row[6 * q + 3 + a] = rdd;
+        break;
+      default:
+        break;
+    }
+  }
+}
+
+// ∂b/∂(x, u)[col] for every column but the four o columns (col 3..6 are
+// formed apart): the right-hand side of Iw ω̇ = b differentiated along
+// column col of (x, u); zero where b does not depend on it.
+template <typename T>
+__device__ void rhs_column(int col, const T* x, const T* u,
+                           const srbd::Geometry<T>& g, T* m) {
+  const T* w = x + L::i_w;
+  m[0] = m[1] = m[2] = T(0);
+  if (col < 3) {                                   // r
+    T f[3] = {T(0), T(0), T(0)};
+    for (int q = 0; q < S::nc; ++q)
+      for (int i = 0; i < 3; ++i) f[i] += u[6 * q + 3 + i];
+    rigid::skew_col(f, col, m);
+  } else if (col >= 7 && col < L::i_rdot) {        // cₖ
+    const int q = (col - 7) / 3, j = (col - 7) % 3;
+    rigid::skew_col(u + 6 * q + 3, j, m);
+    m[0] = -m[0];
+    m[1] = -m[1];
+    m[2] = -m[2];
+  } else if (col >= L::i_w && col < L::i_cdot) {   // ω
+    const int j = col - L::i_w;
+    rigid::skew_col(g.h, j, m);
+    const T v0 = j == 0 ? g.Iw[0] : j == 1 ? g.Iw[1] : g.Iw[2];
+    const T v1 = j == 0 ? g.Iw[3] : j == 1 ? g.Iw[4] : g.Iw[5];
+    const T v2 = j == 0 ? g.Iw[6] : j == 1 ? g.Iw[7] : g.Iw[8];
+    m[0] -= w[1] * v2 - w[2] * v1;
+    m[1] -= w[2] * v0 - w[0] * v2;
+    m[2] -= w[0] * v1 - w[1] * v0;
+  } else if (col >= nx && (col - nx) % 6 >= 3) {   // fₖ
+    const int q = (col - nx) / 6, j = (col - nx) % 6 - 3;
+    const T* c = x + L::i_c + 3 * q;
+    const T cr[3] = {c[0] - x[0], c[1] - x[1], c[2] - x[2]};
+    rigid::skew_col(cr, j, m);
+  }
+}
+
+// The scalars of one stage member-node, by its warp: ẋ (into xd), ∂ω̇ (into
+// W), and its ρ and d into the block's staged outputs (slot w).
+template <typename T>
+__device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
+                              int lane) {
+  const T* x = sw + wX;
+  const T* u = sw + wU;
+  T* xd = sw + wXd;
+  const T* p = sw + wP;
+  T* W = sw + wW;
+  const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
+  const srbd::Rigid<T> rig = srbd::rigid_rates<S>(x, u, k, g, lane);
+  for (int j = lane; j < nx; j += 32) xd[j] = srbd::xdot_row<S>(j, x, u, rig);
+  {   // the o columns: column 3 + j on lanes 3j .. 3j+2, row a of ∂Iwⱼ each
+    const int j = lane / 3 < 4 ? lane / 3 : 3, a = lane % 3;
+    const int base = 3 * (lane / 3);
+    T D[9];
+    rigid::drot(j, x + 3, D);
+    const T Da0 = a == 0 ? D[0] : a == 1 ? D[3] : D[6];
+    const T Da1 = a == 0 ? D[1] : a == 1 ? D[4] : D[7];
+    const T Da2 = a == 0 ? D[2] : a == 1 ? D[5] : D[8];
+    const T RIa0 = a == 0 ? g.RI[0] : a == 1 ? g.RI[3] : g.RI[6];
+    const T RIa1 = a == 0 ? g.RI[1] : a == 1 ? g.RI[4] : g.RI[7];
+    const T RIa2 = a == 0 ? g.RI[2] : a == 1 ? g.RI[5] : g.RI[8];
+    T P[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      T s = T(0);
+      s += Da0 * k.I[l];
+      s += Da1 * k.I[3 + l];
+      s += Da2 * k.I[6 + l];
+      P[l] = s;
+    }
+    T dI[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      T s1 = T(0), s2 = T(0);
+      s1 += P[0] * g.R[c * 3];
+      s2 += RIa0 * D[c * 3];
+      s1 += P[1] * g.R[c * 3 + 1];
+      s2 += RIa1 * D[c * 3 + 1];
+      s1 += P[2] * g.R[c * 3 + 2];
+      s2 += RIa2 * D[c * 3 + 2];
+      dI[c] = s1 + s2;
+    }
+    const T* wv = x + L::i_w;
+    const T v1 = dI[0] * rig.wd[0] + dI[1] * rig.wd[1] + dI[2] * rig.wd[2];
+    const T v2 = dI[0] * wv[0] + dI[1] * wv[1] + dI[2] * wv[2];
+    const T q0 = __shfl_sync(0xffffffffu, v2, base);
+    const T q1 = __shfl_sync(0xffffffffu, v2, base + 1);
+    const T q2 = __shfl_sync(0xffffffffu, v2, base + 2);
+    const T cr = a == 0 ? wv[1] * q2 - wv[2] * q1
+                 : a == 1 ? wv[2] * q0 - wv[0] * q2
+                          : wv[0] * q1 - wv[1] * q0;
+    const T m = -v1 - cr;
+    const T m0 = __shfl_sync(0xffffffffu, m, base);
+    const T m1 = __shfl_sync(0xffffffffu, m, base + 1);
+    const T m2 = __shfl_sync(0xffffffffu, m, base + 2);
+    const T c0 = a == 0 ? g.C[0] : a == 1 ? g.C[3] : g.C[6];
+    const T c1 = a == 0 ? g.C[1] : a == 1 ? g.C[4] : g.C[7];
+    const T c2 = a == 0 ? g.C[2] : a == 1 ? g.C[5] : g.C[8];
+    if (lane < 12) W[(3 + j) * 3 + a] = (c0 * m0 + c1 * m1 + c2 * m2) / g.det;
+  }
+  for (int col = lane; col < nx + nu; col += 32) {
+    if (col >= 3 && col < 7) continue;
+    T m[3];
+    rhs_column(col, x, u, g, m);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      W[col * 3 + i] =
+          (g.C[i * 3] * m[0] + g.C[i * 3 + 1] * m[1] + g.C[i * 3 + 2] * m[2]) / g.det;
+  }
+  __syncwarp();                                     // xd for the rows
+  T* rho = out + oRho + w * nr;
+#pragma unroll
+  for (int r = lane; r < nr; r += 32)
+    rho[r] = srbd::stage_rho_row<S>(r, x, u, xd, p, k);
+  const T* xnext = sw + wXn;
+  T* dd = out + oD + w * nx;
+  for (int j = lane; j < nx; j += 32) dd[j] = (x[j] + k.dt * xd[j]) - xnext[j];
+}
+
+// Jacobian block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup) of one member-node into
+// `dst` (zero-filled): its sparse rows one lane a row, its dense ∂ω̇ rows
+// one row at a time with the lanes over the columns.
+template <typename T>
+__device__ void emit_block(int blk, const T* sw, const int* info,
+                           const int* dslot, const srbd::Consts<T>& k,
+                           int lane, T* dst) {
+  const T* x = sw + wX;
+  const T* p = sw + wP;
+  const T* W = sw + wW;
+  const T inv_m = T(1) / k.m_scaled;
+  const int first = blk == 0 ? 0
+                    : blk == 1 ? S::n_rx
+                    : blk == 2 ? S::n_rx + S::n_ru : S::n_rx + S::n_ru + S::n_gx;
+  const int rows = blk == 0 ? S::n_rx : blk == 1 ? S::n_ru
+                   : blk == 2 ? S::n_gx : S::n_gu;
+  const bool xcols = blk == 0 || blk == 2;        // Sx, Jxp: nx columns
+  const int width = xcols ? nx : nu;
+  const T scale = blk < 2 ? k.dt : T(1);
+  const T rdd = blk == 1 ? k.dt * inv_m : k.w_qddot * inv_m;
+  emit_sparse(info + 2 * first, rows, width, scale, rdd, x, p, k, lane, dst);
+  const T wscale = blk < 2 ? k.dt : k.w_qddot;    // dt·∂ω̇ or w_qddot·∂ω̇
+  for (int s = 0; s < 3; ++s) {
+    const int i = dslot[3 * blk + s];
+    if (i < 0) continue;
+    for (int c = lane; c < width; c += 32)
+      dst[i * width + c] = wscale * W[(xcols ? c : nx + c) * 3 + s];
+  }
+}
+
+// Row g < 15, column col of ∂rt/∂x (the tracking rows with mask 1).
+template <typename T>
+__device__ T terminal_jac(int g, int col, const T* p, const srbd::Consts<T>& k) {
+  if (g == 0) return col == 2 ? k.w_r : T(0);
   if (g < 5)
     return (col >= 3 && col < 7)
-               ? (mt * p[srbd::kP_otg]) * quat_err_jac(g - 1, col - 3, p + srbd::kP_oref)
+               ? (T(1) * p[srbd::kP_otg]) * quat_err_jac(g - 1, col - 3, p + srbd::kP_oref)
                : T(0);
-  if (g < 8) return col == k.i_rdot + g - 5 ? mt * k.w_rdot : T(0);
-  if (g < 11) return col == k.i_w + g - 8 ? mt * k.w_w : T(0);
-  if (g < 15) {
-    const T wrel = mt * k.w_rel;
-    const int a = g < 13 ? 0 : 3 * (k.cm - 1);
-    const int b = g < 13 ? 3 * k.cm : 3 * (k.nc - 1);
-    const int ax = (g % 2 == 1) ? 1 : 0;
-    T v = T(0);
-    if (col == k.i_c + a + ax) v -= wrel;
-    if (col == k.i_c + b + ax) v += wrel;
-    return v;
-  }
-  if (g < 18) return T(0);
-  if (g < 21) return k.w_qddot * W[col * 3 + (g - 18)];
-  if (g < k.n_res) return T(0);
-  int q = g - k.n_res;                             // √w_c · ∂stage_eq/∂x
-  const int per = 2 * (k.cm - 1);
-  const int n_rv = k.n_legs * per;
-  T h;
-  if (q < n_rv) {
-    const int base = (q / per) * k.cm, rem = q % per;
-    const int i = rem / 2 + 1, ax = rem % 2;
-    h = (col == k.i_cdot + 3 * base + ax ? T(1) : T(0)) -
-        (col == k.i_cdot + 3 * (base + i) + ax ? T(1) : T(0));
-  } else if (q < n_rv + k.nc) {
-    q -= n_rv;
-    h = col == k.i_c + 3 * q + 2 ? T(1) : T(0);
-  } else {
-    q -= n_rv + k.nc;
-    h = col == k.i_cdot + 3 * (q / 2) + q % 2 ? p[srbd::kP_cref + k.nc + q / 2] : T(0);
-  }
-  return k.wc * h;
+  if (g < 8) return col == L::i_rdot + g - 5 ? k.w_rdot : T(0);
+  if (g < 11) return col == L::i_w + g - 8 ? k.w_w : T(0);
+  int a, b;
+  srbd::rel_cols<S>(g, &a, &b);
+  T v = T(0);
+  if (col == L::i_c + a) v -= k.w_rel;
+  if (col == L::i_c + b) v += k.w_rel;
+  return v;
 }
 
-// (∂ρ/∂u)[g][col].
 template <typename T>
-__device__ T jac_rho_u(int g, int col, const T* p, const T* W,
-                       const srbd::Consts<T>& k) {
-  const int nc = k.nc;
-  if (g < 15) return T(0);
-  if (g < 18) return col % 6 == 3 + (g - 15) ? k.w_qddot * (T(1) / k.m_scaled) : T(0);
-  if (g < 21) return k.w_qddot * W[(k.nx + col) * 3 + (g - 18)];
-  if (g < 21 + 3 * nc) {
-    const int q = g - 21;
-    return col == 6 * (q / 3) + q % 3 ? k.w_qddot : T(0);
-  }
-  if (g < 21 + 6 * nc) {
-    const int q = g - 21 - 3 * nc;
-    return col == 6 * (q / 3) + 3 + q % 3 ? k.w_minf : T(0);
-  }
-  if (g < k.n_res) {
-    const int q = g - 21 - 6 * nc;
-    return col == 6 * (q / 3) + 3 + q % 3
-               ? k.w_fswitch * (T(1) - p[srbd::kP_cref + nc + q / 3])
-               : T(0);
-  }
-  return T(0);
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+};
+
+// The block fills `count` staged values with zeros, 16 bytes a thread at
+// a time (count a multiple of 16 bytes).
+template <typename T>
+__device__ void zero_fill(T* dst, int count) {
+  using V = typename Vec<T>::type;
+  constexpr int per = sizeof(V) / sizeof(T);
+  const V z{};
+  V* o = reinterpret_cast<V*>(dst);
+  for (int i = threadIdx.x; i < count / per; i += blockDim.x) o[i] = z;
 }
 
-__host__ __device__ inline int warp_floats(int nx, int nu, int nc, int n_rho) {
-  // x, u, ẋ, params, geometry, ∂ω̇ columns, ρ
-  return 2 * nx + nu + srbd::param_width(nc) + kGeo + 3 * (nx + nu) + n_rho;
+// The block streams `count` staged values from shared memory to `dst`
+// (16-byte aligned), 16 bytes a thread at a time.
+template <typename T>
+__device__ void stream_out(const T* src, T* __restrict__ dst, int count) {
+  using V = typename Vec<T>::type;
+  constexpr int per = sizeof(V) / sizeof(T);
+  const int nvec = count / per;
+  const V* s = reinterpret_cast<const V*>(src);
+  V* o = reinterpret_cast<V*>(dst);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) o[i] = s[i];
+  for (int i = nvec * per + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = src[i];
 }
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
 srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       srbd::Params<T> P, const int* __restrict__ table,
-                      int B, int ns, int n_rx, int n_ru, int n_gx, int n_gu,
-                      srbd::Consts<T> k, T* __restrict__ Sx,
-                      T* __restrict__ Bs, T* __restrict__ Jxp,
-                      T* __restrict__ Jup, T* __restrict__ rho,
-                      T* __restrict__ dfx, T* __restrict__ rt,
-                      T* __restrict__ Jt) {
+                      int B, int ns, int n_stage, srbd::Consts<T> k,
+                      T* __restrict__ Sx, T* __restrict__ Bs,
+                      T* __restrict__ Jxp, T* __restrict__ Jup,
+                      T* __restrict__ rho, T* __restrict__ dfx,
+                      T* __restrict__ rt, T* __restrict__ Jt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nx = k.nx, nu = k.nu, nc = k.nc, nr = k.n_rho;
-  const int per_warp = warp_floats(nx, nu, nc, nr);
-  const int n_tab = n_rx + n_ru + n_gx + n_gu;
-  int* tab = reinterpret_cast<int*>(
-      reinterpret_cast<T*>(smem_raw) + kWarps * per_warp);
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  const int* rx = tab;
-  const int* ru = rx + n_rx;
-  const int* gx = ru + n_ru;
-  const int* gu = gx + n_gx;
-
+  T* out = reinterpret_cast<T*>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long gw = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (gw >= static_cast<long long>(B) * (ns + 1)) return;   // whole warp leaves
-  const size_t b = gw / (ns + 1);
-  const int n = static_cast<int>(gw % (ns + 1));
+  T* sw = out + oEnd + warp * wSize;
+  T* x = sw + wX;
+  T* p = sw + wP;
 
-  T* x = reinterpret_cast<T*>(smem_raw) + warp * per_warp;
-  T* u = x + nx;
-  T* xd = u + nu;
-  T* p = xd + nx;
-  T* geo = p + srbd::param_width(nc);
-  T* W = geo + kGeo;
-  T* rh = W + 3 * (nx + nu);
-
-  const T* Xb = X + (b * (ns + 1) + n) * nx;
-  for (int j = lane; j < nx; j += 32) x[j] = Xb[j];
-  srbd::load_params(P, b * (ns + 1) + n, nc, lane, p);
-
-  if (n == ns) {                     // the terminal pair rt, Jt
+  if (static_cast<int>(blockIdx.x) >= n_stage) {   // the terminal pairs
+    const long long bm =
+        static_cast<long long>(blockIdx.x - n_stage) * kWarps + warp;
+    if (bm >= B) return;                           // whole warp leaves
+    const size_t b = bm;
+    const size_t row = b * (ns + 1) + ns;
+    for (int j = lane; j < nx; j += 32) x[j] = X[row * nx + j];
+    srbd::load_params<S>(P, row, lane, p);
     __syncwarp();
-    if (lane == 0) p[srbd::kP_mt] = T(1);
-    __syncwarp();
-    if (lane < kTrack) rt[b * kTrack + lane] = srbd::tracking_row(lane, x, p, k);
-    T* Jo = Jt + b * kTrack * nx;
-    for (int e = lane; e < kTrack * nx; e += 32) {
-      const int g = e / nx;
-      Jo[e] = jac_rho_x(g, e - g * nx, p, W, k);   // rows < 15 never read W
-    }
+    if (lane < S::nt) rt[b * S::nt + lane] = srbd::tracking_row<S>(lane, x, p, T(1), k);
+    T* Jo = Jt + b * S::nt * nx;
+    for (int g = 0; g < S::nt; ++g)
+      for (int c = lane; c < nx; c += 32) Jo[g * nx + c] = terminal_jac(g, c, p, k);
     return;
   }
 
-  const size_t bn = b * ns + n;
-  for (int j = lane; j < nu; j += 32) u[j] = U[bn * nu + j];
-  __syncwarp();
-  if (lane == 0) {
-    srbd::body_rates(x, u, k, xd);
-  } else if (lane == 1) {
-    srbd::quat_to_rot(x + 3, geo);
-    srbd::world_inertia(geo, k.I, geo + 9, geo + 18);
-    geo[36] = srbd::adjugate3(geo + 18, geo + 27);
-    const T* Iw = geo + 18;
-    const T* w = x + k.i_w;
-    for (int i = 0; i < 3; ++i)
-      geo[37 + i] = Iw[i * 3] * w[0] + Iw[i * 3 + 1] * w[1] + Iw[i * 3 + 2] * w[2];
+  int* info = reinterpret_cast<int*>(out + oEnd + kWarps * wSize);
+  int* dslot = info + 2 * kRows;
+  const long long q0 = static_cast<long long>(blockIdx.x) * kWarps;
+  const long long total = static_cast<long long>(B) * ns;
+  const int n_valid = total - q0 < kWarps ? static_cast<int>(total - q0) : kWarps;
+  const bool live = warp < n_valid;                 // warp-uniform
+  if (threadIdx.x < 12) dslot[threadIdx.x] = -1;
+  zero_fill(out, kWarps * kSx);
+  if (live) {
+    const long long q = q0 + warp;
+    const size_t b = q / ns;
+    const int n = static_cast<int>(q - static_cast<long long>(b) * ns);
+    const size_t row = b * (ns + 1) + n;
+    for (int j = lane; j < nx; j += 32) {
+      x[j] = X[row * nx + j];
+      sw[wXn + j] = X[(row + 1) * nx + j];
+    }
+    if (lane < nu) sw[wU + lane] = U[(b * ns + n) * nu + lane];
+    srbd::load_params<S>(P, row, lane, p);
   }
-  for (int j = lane; j < nx; j += 32) {
-    T v;
-    if (srbd::integrator_row(j, x, u, k, &v)) xd[j] = v;
+  __syncthreads();                                  // dslot cleared, loads
+  for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
+    const int blk = i < S::n_rx ? 0
+                    : i < S::n_rx + S::n_ru ? 1
+                    : i < S::n_rx + S::n_ru + S::n_gx ? 2 : 3;
+    const int first = blk == 0 ? 0
+                      : blk == 1 ? S::n_rx
+                      : blk == 2 ? S::n_rx + S::n_ru
+                                 : S::n_rx + S::n_ru + S::n_gx;
+    const int2 kd = resolve(blk, table[i]);
+    info[2 * i] = kd.x;
+    info[2 * i + 1] = kd.y;
+    if ((kd.x & 0xff) == kDense) dslot[3 * blk + (kd.y & 0xffff)] = i - first;
   }
-  __syncwarp();
-  for (int col = lane; col < nx + nu; col += 32) {
-    T m[3];
-    rhs_column(col, x, u, xd, geo, k, m);
-    const T* c = geo + 27;
-    const T det = geo[36];
-    for (int i = 0; i < 3; ++i)
-      W[col * 3 + i] = (c[i * 3] * m[0] + c[i * 3 + 1] * m[1] + c[i * 3 + 2] * m[2]) / det;
+  if (live) stage_scalars(sw, out, warp, k, lane);
+  __syncthreads();                                  // kinds, the scalars
+  T* const dsts[4] = {Sx, Bs, Jxp, Jup};
+  const int per[4] = {kSx, kBs, kJxp, kJup};
+#pragma unroll
+  for (int blk = 0; blk < 4; ++blk) {
+    if (blk > 0) {
+      zero_fill(out, kWarps * per[blk]);
+      __syncthreads();
+    }
+    if (live) emit_block(blk, sw, info, dslot, k, lane, out + warp * per[blk]);
+    __syncthreads();
+    stream_out(out, dsts[blk] + q0 * per[blk], n_valid * per[blk]);
+    __syncthreads();                                // before the next fill
   }
-  for (int g = lane; g < nr; g += 32) rh[g] = srbd::stage_rho_row(g, x, u, xd, p, k);
-  __syncwarp();
-
-  T* So = Sx + bn * n_rx * nx;
-  for (int e = lane; e < n_rx * nx; e += 32) {
-    const int i = e / nx;
-    So[e] = k.dt * jac_xdot_x(rx[i], e - i * nx, x, W, k);
-  }
-  T* Bo = Bs + bn * n_ru * nu;
-  for (int e = lane; e < n_ru * nu; e += 32) {
-    const int i = e / nu;
-    Bo[e] = k.dt * jac_xdot_u(ru[i], e - i * nu, W, k);
-  }
-  T* Jxo = Jxp + bn * n_gx * nx;
-  for (int e = lane; e < n_gx * nx; e += 32) {
-    const int i = e / nx;
-    Jxo[e] = jac_rho_x(gx[i], e - i * nx, p, W, k);
-  }
-  T* Juo = Jup + bn * n_gu * nu;
-  for (int e = lane; e < n_gu * nu; e += 32) {
-    const int i = e / nu;
-    Juo[e] = jac_rho_u(gu[i], e - i * nu, p, W, k);
-  }
-  for (int g = lane; g < nr; g += 32) rho[bn * nr + g] = rh[g];
-  const T* Xnext = Xb + nx;
-  for (int j = lane; j < nx; j += 32) dfx[bn * nx + j] = (x[j] + k.dt * xd[j]) - Xnext[j];
+  stream_out(out + oRho, rho + q0 * nr, n_valid * nr);
+  stream_out(out + oD, dfx + q0 * nx, n_valid * nx);
 }
 
 template <typename T>
@@ -367,20 +556,29 @@ int launch(const void* X, const void* U, const void* const* params,
            int n_rx, int n_ru, int n_gx, int n_gu, const double* scalars,
            void* Sx, void* Bs, void* Jxp, void* Jup, void* rho, void* d,
            void* rt, void* Jt, void* stream) {
-  const long long warps = static_cast<long long>(B) * (ns + 1);
+  if (nc != S::nc || cm != S::cm || n_legs != S::n_legs || n_rx != S::n_rx ||
+      n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
+    return kUnknownShape;
   if (B == 0) return 0;
-  const srbd::Consts<T> k = srbd::make_consts<T>(scalars, nc, cm, n_legs);
-  const size_t bytes =
-      sizeof(T) * kWarps * warp_floats(k.nx, k.nu, nc, k.n_rho) +
-      sizeof(int) * (n_rx + n_ru + n_gx + n_gu);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  srbd_linearize_kernel<T><<<blocks, 32 * kWarps, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
+  const long long stage_nodes = static_cast<long long>(B) * ns;
+  const long long n_stage = (stage_nodes + kWarps - 1) / kWarps;
+  const long long n_term = (B + kWarps - 1) / kWarps;
+  const size_t bytes = smem_bytes<T>();
+  auto kernel = srbd_linearize_kernel<T>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<static_cast<unsigned>(n_stage + n_term), 32 * kWarps, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
       srbd::make_params<T>(params), static_cast<const int*>(table), B, ns,
-      n_rx, n_ru, n_gx, n_gu, k, static_cast<T*>(Sx), static_cast<T*>(Bs),
-      static_cast<T*>(Jxp), static_cast<T*>(Jup), static_cast<T*>(rho),
-      static_cast<T*>(d), static_cast<T*>(rt), static_cast<T*>(Jt));
+      static_cast<int>(n_stage), srbd::make_consts<T>(scalars),
+      static_cast<T*>(Sx), static_cast<T*>(Bs), static_cast<T*>(Jxp),
+      static_cast<T*>(Jup), static_cast<T*>(rho), static_cast<T*>(d),
+      static_cast<T*>(rt), static_cast<T*>(Jt));
   return static_cast<int>(cudaGetLastError());
 }
 

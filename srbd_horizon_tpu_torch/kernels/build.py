@@ -2,12 +2,23 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library under `build/kernels/`
-(listed in `.gitignore`), then loaded with `ctypes`. K3 and K4 include
-`csrc/srbd_common.cuh`, K5 and K6 `csrc/isrbd_common.cuh`, and both of
-those `csrc/rigid_common.cuh`; a change to any file under `csrc/` rebuilds
-every library. The build runs at
-first use; `build_all` starts one `nvcc` per stale source, all at once.
-Nothing here runs when the module is imported.
+(listed in `.gitignore`), then loaded with `ctypes`. The entries, each in
+float32 and float64 (`<entry>_f32`, `<entry>_f64`):
+
+  riccati_backward  K1 `riccati_backward`, K2 `spd_inverse`; and, with
+                    no type suffix, `riccati_backward_smem_bytes` and
+                    `riccati_backward_blocks_per_sm`
+  srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`
+  srbd_linearize    K4 `srbd_linearize`
+  isrbd_rollout     K6 `isrbd_trial`, `isrbd_evaluate`
+  isrbd_linearize   K5 `isrbd_linearize`
+
+K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6 and
+`isrbd_evaluate` `csrc/isrbd_common.cuh`, and both of those
+`csrc/rigid_common.cuh`; K1 and K3 include `csrc/dmma.cuh`. A change to
+any file under `csrc/` rebuilds every library. The build runs at first
+use; `build_all` starts one `nvcc` per stale source, all at once. Nothing
+here runs when the module is imported.
 """
 
 from __future__ import annotations

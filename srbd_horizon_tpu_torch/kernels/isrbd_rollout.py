@@ -19,6 +19,14 @@ terminal stacks (problems/isrbd_al.py), merit = cost + ν(1−α)²D and
 ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
 expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD. Outputs are Xn (nα, B, ns+1, nx),
 Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
+
+`isrbd_evaluate`, the second entry of the same source, evaluates a given
+plan with no rollout, on the same stacks and step: per member the cost
+Σₙ‖ρ(Xₙ, Uₙ)‖² + ‖ρ_N(X_N)‖² and the largest |rk2(Xₙ, Uₙ) − Xₙ₊₁| (NaN if
+any entry is NaN), what the JAX package's solve computes with
+`jax.vmap(total_cost)` and `jax.vmap(_true_defects)` (msddp.py:1222, :1240,
+:1484-1490) on the AL inner OCP. Its plain twin `isrbd_evaluate_plain` is
+`ALTerms.total_cost` and the RK2 step.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 # for them)
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1391"
 SOURCE = "srbd_horizon_tpu_torch/csrc/isrbd_rollout.cu"
+# the functions isrbd_evaluate replaces (the solve's vmapped total_cost and
+# _true_defects on the AL inner OCP, XLA-fused)
+EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1222"
 
 
 def isrbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
@@ -83,9 +94,68 @@ def isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     return Xn, Un, new_cost, new_merit, ok
 
 
+def isrbd_evaluate_plain(X, U, params, terms, dt: float):
+    """Plain PyTorch isrbd_evaluate: the cost (B,) of each plan on the inner
+    stacks, `terms.total_cost`, and its largest |defect| (B,) under the RK2
+    step of the double integrator, `torch.amax` of |rk2(Xₙ, Uₙ) − Xₙ₊₁| (NaN
+    kept). X (B,ns+1,nx), U (B,ns,nu), params leaves (B,ns+1,dim)."""
+    ns = U.shape[-2]
+    xdot = terms.outer.xdot
+    x = X[..., :ns, :]
+    k1 = xdot(x, U)
+    step = x + dt * xdot(x + 0.5 * dt * k1, U)
+    defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
+    return terms.total_cost(X, U, params), defect_max
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+
+
+def isrbd_evaluate(X, U, params, terms, dt: float):
+    """isrbd_evaluate. Same contract as `isrbd_evaluate_plain`; launches the
+    CUDA kernel for CUDA tensors (and counts the launch in
+    `isrbd_evaluate.launches`)."""
+    if X.device.type == "cpu":
+        return isrbd_evaluate_plain(X, U, params, terms, dt)
+    if X.device.type != "cuda":
+        raise ValueError(f"isrbd_evaluate runs on cpu or cuda, got {X.device}")
+    dtype, dev = X.dtype, X.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"isrbd_evaluate takes float32 or float64, got {dtype}")
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    if ns + 1 > 32:
+        raise ValueError(f"isrbd_evaluate takes at most 31 stage nodes, got {ns}")
+    check_terms(terms, nx, nu)
+    o_ = terms.outer
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    pt = kernel_params(params, Bsz, ns, terms, dtype, dev)
+    cost = torch.empty((Bsz,), dtype=dtype, device=dev)
+    dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    sc = kernel_scalars(terms, dt)
+    scalars = (_D * len(sc))(*sc)
+    lib = library("isrbd_rollout")
+    fn = (lib.isrbd_evaluate_f32 if dtype == torch.float32
+          else lib.isrbd_evaluate_f64)
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 3 + [_I] * 5 + [_P] * 4
+        fn.restype = _I
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(X.data_ptr(), U.data_ptr(), ptrs, Bsz, ns, o_.nc,
+                 o_.contact_model, o_.number_of_legs, scalars,
+                 cost.data_ptr(), dmax.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"isrbd_evaluate kernel failed: CUDA error {err}")
+    isrbd_evaluate.launches += 1
+    return cost, dmax
+
+
+isrbd_evaluate.launches = 0
 
 
 def _kernel_fn(dtype):

@@ -23,8 +23,13 @@ Iw⁻¹ ∂b with Iw ω̇ = b = τ − ω×Iw ω, and for the quaternion columns
 of the homogeneous (not normalized) `quat_to_rot`.
 
 What bounds the kernel on an H100: bytes — a member-node writes 3,622
-values and reads ~100, against a few thousand FLOP (the note in the .cu
+values and reads ~120, against a few thousand FLOP (the note in the .cu
 gives the design).
+
+K3, K4 and srbd_evaluate are compiled for one set of SRBD sizes
+(`srbd::Shape` in csrc/srbd_common.cuh, `KERNEL_SHAPE` here); their
+wrappers raise ValueError, naming the sizes, for CUDA tensors of any
+other, and take the plain twin for CPU tensors of any sizes.
 """
 
 from __future__ import annotations
@@ -46,10 +51,38 @@ from srbd_horizon_tpu_torch.models.srbd import (
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:273"
 SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_linearize.cu"
 
+# The sizes K3, K4 and srbd_evaluate are compiled for (`srbd::Shape` in
+# csrc/srbd_common.cuh): build_srbd_problem with the Kangaroo feet. The row
+# counts are K4's (`RiccatiRows.from_ocp` of that OCP).
+KERNEL_SHAPE = dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
+                    n_rx=22, n_ru=18, n_gx=34, n_gu=42)
+
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "orientation_tracking_gain", "oref", "rdot_ref",
               "w_ref", "c_ref", "cdot_switch")
 N_TRACK = 15      # tracking rows = terminal rows
+
+
+def kernel_sizes(terms, nx: int, nu: int, rows=None):
+    """The sizes an SRBD kernel would be compiled for: the problem's, and
+    with `rows` (a `RiccatiRows`) the row counts K4 emits."""
+    sizes = dict(nc=terms.nc, cm=terms.contact_model,
+                 n_legs=terms.number_of_legs, nx=nx, nu=nu,
+                 n_rho=terms.n_rho, nt=N_TRACK)
+    if rows is not None:
+        sizes.update(n_rx=len(rows.rx), n_ru=len(rows.ru),
+                     n_gx=len(rows.gx), n_gu=len(rows.gu))
+    return sizes
+
+
+def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None):
+    """Raise ValueError, naming the sizes, unless they are those the SRBD
+    kernels are compiled for (`KERNEL_SHAPE`)."""
+    sizes = kernel_sizes(terms, nx, nu, rows)
+    if sizes != {k: KERNEL_SHAPE[k] for k in sizes}:
+        raise ValueError(
+            f"{name} has no kernel for the sizes {sizes}; it is compiled for "
+            f"{KERNEL_SHAPE} (csrc/srbd_common.cuh)")
 
 
 def kernel_params(params, Bsz, ns, nc, dtype, device):
@@ -248,19 +281,19 @@ def _kernel_fn(dtype):
 
 def srbd_linearize(X, U, params, terms, rows, dt: float, wc: float):
     """K4. Same contract as `srbd_linearize_plain`; launches the CUDA kernel
-    for CUDA tensors (and counts the launch in `srbd_linearize.launches`)."""
+    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
+    `srbd_linearize.launches`), raises ValueError for other sizes."""
     if X.device.type == "cpu":
         return srbd_linearize_plain(X, U, params, terms, rows, dt, wc)
+    Bsz, ns1, nx = X.shape
+    ns, nc = ns1 - 1, terms.nc
+    nu = U.shape[-1]
+    check_kernel_shape("srbd_linearize", terms, nx, nu, rows)
     if X.device.type != "cuda":
         raise ValueError(f"srbd_linearize runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"srbd_linearize takes float32 or float64, got {dtype}")
-    Bsz, ns1, nx = X.shape
-    ns, nc = ns1 - 1, terms.nc
-    nu = 6 * nc
-    if nx != 13 + 6 * nc:
-        raise ValueError(f"not an SRBD layout: nx={nx}, nc={nc}")
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
     check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
     pt = kernel_params(params, Bsz, ns, nc, dtype, dev)

@@ -18,6 +18,16 @@ then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖², merit = cost + 
 ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
 expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD. Outputs are Xn (nα, B, ns+1, nx),
 Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
+
+`srbd_evaluate`, the second entry of the same source, evaluates a given
+plan with no rollout: per member the cost Σₙ‖ρ(Xₙ, Uₙ)‖² + ‖ρ_N(X_N)‖² and
+the largest |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the
+JAX package's solve computes with `jax.vmap(total_cost)` and
+`jax.vmap(_true_defects)` (msddp.py:1222, :1240, :1484-1490). Its plain twin
+`srbd_evaluate_plain` is `SRBDTerms.total_cost` and the Euler step.
+
+Both run on the sizes `linearize.KERNEL_SHAPE` on CUDA tensors and raise
+ValueError for others; CPU tensors take the twins at any size.
 """
 
 from __future__ import annotations
@@ -27,7 +37,10 @@ import ctypes
 import torch
 
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
-from srbd_horizon_tpu_torch.kernels.linearize import kernel_params
+from srbd_horizon_tpu_torch.kernels.linearize import (
+    check_kernel_shape,
+    kernel_params,
+)
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
 
@@ -35,6 +48,9 @@ from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
 # Armijo test; the JAX package wrote no Pallas kernel for them)
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1391"
 SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_rollout.cu"
+# the functions srbd_evaluate replaces (the solve's vmapped total_cost and
+# _true_defects, XLA-fused)
+EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1222"
 
 
 def srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float,
@@ -77,9 +93,71 @@ def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     return Xn, Un, new_cost, new_merit, ok
 
 
+def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float):
+    """Plain PyTorch srbd_evaluate: the cost (B,) of each plan,
+    `terms.total_cost`, and its largest |defect| (B,) under the Euler step,
+    `torch.amax` of |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN kept). X (B,ns+1,nx),
+    U (B,ns,nu), params leaves (B,ns+1,dim)."""
+    ns = U.shape[-2]
+    consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
+    x = X[..., :ns, :]
+    step = x + dt * srbd_xdot(x, U, consts)
+    defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
+    return terms.total_cost(X, U, params, wc), defect_max
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+
+
+def srbd_evaluate(X, U, params, terms, dt: float, wc: float):
+    """srbd_evaluate. Same contract as `srbd_evaluate_plain`; launches the
+    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
+    the launch in `srbd_evaluate.launches`), raises ValueError for other
+    sizes."""
+    if X.device.type == "cpu":
+        return srbd_evaluate_plain(X, U, params, terms, dt, wc)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    check_kernel_shape("srbd_evaluate", terms, nx, nu)
+    if X.device.type != "cuda":
+        raise ValueError(f"srbd_evaluate runs on cpu or cuda, got {X.device}")
+    dtype, dev = X.dtype, X.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"srbd_evaluate takes float32 or float64, got {dtype}")
+    if ns + 1 > 32:
+        raise ValueError(f"srbd_evaluate takes at most 31 stage nodes, got {ns}")
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
+    cost = torch.empty((Bsz,), dtype=dtype, device=dev)
+    dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    scalars = (_D * 24)(*terms.kernel_scalars(dt, wc))
+    fn = _evaluate_fn(dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(X.data_ptr(), U.data_ptr(), ptrs, Bsz, ns, terms.nc,
+                 terms.contact_model, terms.number_of_legs, scalars,
+                 cost.data_ptr(), dmax.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"srbd_evaluate kernel failed: CUDA error {err}")
+    srbd_evaluate.launches += 1
+    return cost, dmax
+
+
+srbd_evaluate.launches = 0
+
+
+def _evaluate_fn(dtype):
+    lib = library("srbd_rollout")
+    fn = (lib.srbd_evaluate_f32 if dtype == torch.float32
+          else lib.srbd_evaluate_f64)
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 3 + [_I] * 5 + [_P] * 4
+        fn.restype = _I
+    return fn
 
 
 def _kernel_fn(dtype):
@@ -95,21 +173,20 @@ def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
                terms, dt: float, wc: float, nu_w: float, beta: float,
                alpha_min: float):
     """K3. Same contract as `srbd_trial_plain`; launches the CUDA kernel
-    for CUDA tensors (and counts the launch in `srbd_trial.launches`)."""
+    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
+    `srbd_trial.launches`), raises ValueError for other sizes."""
     if d.device.type == "cpu":
         return srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                 D, dV1, dV2, terms, dt, wc, nu_w, beta,
                                 alpha_min)
+    Bsz, ns, nx = d.shape
+    nc, nu = terms.nc, U.shape[-1]
+    check_kernel_shape("srbd_trial", terms, nx, nu)
     if d.device.type != "cuda":
         raise ValueError(f"srbd_trial runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"srbd_trial takes float32 or float64, got {dtype}")
-    Bsz, ns, nx = d.shape
-    nc = terms.nc
-    nu = 6 * nc
-    if nx != 13 + 6 * nc:
-        raise ValueError(f"not an SRBD layout: nx={nx}, nc={nc}")
     nA = alphas.shape[0]
     check_tensor("x0", x0, (Bsz, nx), dtype, dev)
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)

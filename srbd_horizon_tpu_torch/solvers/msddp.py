@@ -15,10 +15,15 @@ One iteration for a fleet of B members:
      α of a trial in one launch;
   4. the masked update; active-set compaction across iterations.
 
-The linearization and trial kernels are written per problem family: the
-solver reads the problem's terms object (`ocp.constants["terms"]`:
-`SRBDTerms`, or the AL solver's `ALTerms`) and takes the kernels its
-`family` names; costs go through the same object.
+A solve's starting cost and its final defect norm come from one
+evaluation launch each (`srbd_evaluate` in `kernels/rollout.py`,
+`isrbd_evaluate` in `kernels/isrbd_rollout.py`), which evaluates the plan
+with the trial kernel's rows and step and no rollout.
+
+The linearization, trial and evaluation kernels are written per problem
+family: the solver reads the problem's terms object
+(`ocp.constants["terms"]`: `SRBDTerms`, or the AL solver's `ALTerms`) and
+takes the kernels its `family` names; costs go through the same object.
 
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
@@ -39,16 +44,19 @@ import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions, check_options
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import isrbd_linearize
-from srbd_horizon_tpu_torch.kernels.isrbd_rollout import isrbd_trial
+from srbd_horizon_tpu_torch.kernels.isrbd_rollout import (
+    isrbd_evaluate,
+    isrbd_trial,
+)
 from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
-from srbd_horizon_tpu_torch.kernels.rollout import srbd_trial
+from srbd_horizon_tpu_torch.kernels.rollout import srbd_evaluate, srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
 
-# terms.family -> (linearization wrapper, trial wrapper)
+# terms.family -> (linearization wrapper, trial wrapper, evaluation wrapper)
 _KERNELS = {
-    "srbd": (srbd_linearize, srbd_trial),
-    "isrbd_al": (isrbd_linearize, isrbd_trial),
+    "srbd": (srbd_linearize, srbd_trial, srbd_evaluate),
+    "isrbd_al": (isrbd_linearize, isrbd_trial, isrbd_evaluate),
 }
 
 
@@ -152,15 +160,28 @@ class MSDDP:
         return self.terms.stage_rho(x, u, p, *self._family_args(x.dtype))
 
     def total_cost(self, X, U, params):
-        """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx)."""
+        """Σ_n ‖ρ_n‖² + ‖ρ_N‖² over leading batch axes of X (…, ns+1, nx)
+        (plain PyTorch; `solve_batch` takes `_evaluate`)."""
         return self.terms.total_cost(X, U, params,
                                      *self._family_args(X.dtype))
 
     def _true_defects(self, X, U, params):
+        """step(Xₙ, Uₙ) − Xₙ₊₁ (plain PyTorch; `solve_batch` takes
+        `_evaluate`)."""
         ns = self.ocp.ns
         p_stage = {k: v[..., :ns, :] for k, v in params.items()}
         F = self.ocp.step(X[..., :ns, :], U, p_stage, self.ocp.dt)
         return F - X[..., 1:, :]
+
+    def _evaluate(self, X, U, params):
+        """The cost Σₙ‖ρₙ‖² + ‖ρ_N‖² (B,) of each plan and its largest
+        |step(Xₙ, Uₙ) − Xₙ₊₁| (B,), NaN kept, in one launch of the family's
+        evaluation kernel (the plain twin for CPU tensors)."""
+        evaluate = _KERNELS[self.terms.family][2]
+        return evaluate(X.contiguous(), U.contiguous(),
+                        {k: v.contiguous() for k, v in params.items()},
+                        self.terms, self.ocp.dt,
+                        *self._family_args(X.dtype))
 
     # ---------- linearization ----------
 
@@ -387,7 +408,7 @@ class MSDDP:
         # gap becomes the node-0 defect
         X = sols.X.clone()
         X[:, 0] = x0
-        cost0 = self.total_cost(X, sols.U, params)
+        cost0, _ = self._evaluate(X, sols.U, params)
         Bsz = cost0.shape[0]
         state = _IterState(
             X=X, U=sols.U, cost=cost0,
@@ -409,10 +430,10 @@ class MSDDP:
                 state = self._iteration_batch(state, x0, params)
 
         self._phase("defects")
-        defects = self._true_defects(state.X, state.U, params)
+        _, defect_norm = self._evaluate(state.X, state.U, params)
         self._phase("glue")
         return DDPSolution(
             X=state.X, U=state.U, cost=state.cost,
             converged=state.converged, iterations=state.it,
-            defect_norm=torch.amax(torch.abs(defects), dim=(1, 2)),
+            defect_norm=defect_norm,
         )

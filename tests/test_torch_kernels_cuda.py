@@ -8,9 +8,13 @@ K5 (linearization), K6 (trial) and K1 with 18 of 30 live B columns by the
 rules of K4, K3 and K1; K1 at ragged fleet sizes on both of its compiled
 shapes, and refusing any other; K2 (the SPD inverse inside K1) through
 its own entry, float64 to 1e-9 against `lm_spd_inverse` and float32 to
-1e-6 of the float64 inverse of the same float32 stack. Skipped where no
-CUDA device is present (run on the card with
-`python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
+1e-6 of the float64 inverse of the same float32 stack; K3 and K4 at
+ragged fleet sizes (B = 1, 133, 513; K3 with one and four step sizes);
+the evaluation entries `srbd_evaluate` and `isrbd_evaluate` (cost and
+largest defect of a plan) by K3's rules, a member with a NaN plan giving
+NaN in both; and K3, K4 and srbd_evaluate refusing sizes they were not
+compiled for. Skipped where no CUDA device is present (run on the card
+with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
 import numpy as np
 import pytest
@@ -360,3 +364,176 @@ def test_spd_inverse_matches_plain(card_case, isrbd_case, shape):
     # the kernel carries the float32 stack in float64: only the rounding of
     # its output is left against the float64 inverse of that same stack
     assert _rel(got32, lm_spd_inverse(Q32.double())) <= 1e-6
+
+
+# ---------------- K3 and K4 at ragged fleet sizes ----------------
+
+def _repeat(t, Bw):
+    reps = -(-Bw // t.shape[0])
+    return torch.cat([t] * reps)[:Bw].contiguous()
+
+
+def _rel_fin(got, want):
+    """_rel over the entries where `want` is finite; inf if the non-finite
+    entries differ."""
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return _rel(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("Bw", [1, 133, 513])
+def test_linearize_kernel_at_ragged_fleet_sizes(card_case, Bw):
+    """K4 where the last block of 4 member-nodes and the last terminal
+    block are part-full, and the fleet leaves the last wave part-full."""
+    def args(dtype):
+        X, U, params, *rest = _lin_args(card_case, dtype)
+        return (_repeat(X, Bw), _repeat(U, Bw),
+                {k: _repeat(v, Bw) for k, v in params.items()}, *rest)
+
+    ref = k4.srbd_linearize_plain(*args(torch.float64))
+    got = k4.srbd_linearize(*args(torch.float64))
+    got32 = k4.srbd_linearize(*args(torch.float32))
+    plain32 = k4.srbd_linearize_plain(*args(torch.float32))
+    torch.cuda.synchronize()
+    for k in ORDER:
+        assert got[k].shape == ref[k].shape, k
+        assert _rel(got[k], ref[k]) <= 1e-9, k
+        e = _rel(got32[k], ref[k])
+        assert e <= 2 * _rel(plain32[k], ref[k]) + 1e-6 and e <= K4_F32_CAP, k
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("Bw", [1, 133, 513])
+def test_rollout_kernel_at_ragged_fleet_sizes(card_case, Bw, nA):
+    """K3 for one and four step sizes on fleets of 1, 133 and 513 members;
+    past one member, member 1 starts from a NaN state and is rejected."""
+    ref_k = _k1(card_case, torch.float64, k1.riccati_backward_plain)
+    lin = card_case["lin"]
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=D.device)
+    opts = card_case["solver"].opts
+    x0 = _repeat(card_case["x0"], Bw)
+    if Bw > 1:
+        x0[1] = float("nan")
+    cost0 = card_case["solver"].total_cost(card_case["X"], card_case["U"],
+                                           card_case["params"])
+    rep = lambda t: _repeat(t, Bw)
+
+    def args(dtype):
+        s = card_case["solver"] if dtype == torch.float64 else card_case["solver32"]
+        t = lambda a: rep(a).to(dtype).contiguous()
+        return (t(x0), t(card_case["X"]), t(card_case["U"]), t(ref_k[0]),
+                t(ref_k[1]), t(lin["d"]), alphas.to(dtype),
+                {k: t(v) for k, v in card_case["params"].items()},
+                t(cost0 + opts.defect_weight * D), t(D), t(ref_k[2]),
+                t(ref_k[3]), s.terms, card_case["ocp"].dt, s._wc(dtype),
+                opts.defect_weight, opts.beta, opts.alpha_converge_threshold)
+
+    ref = k3.srbd_trial_plain(*args(torch.float64))
+    got = k3.srbd_trial(*args(torch.float64))
+    got32 = k3.srbd_trial(*args(torch.float32))
+    plain32 = k3.srbd_trial_plain(*args(torch.float32))
+    torch.cuda.synchronize()
+    for g, g32, p, r in zip(got[:4], got32[:4], plain32[:4], ref[:4]):
+        assert g.shape == r.shape
+        assert _rel_fin(g, r) <= 1e-9
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    assert torch.equal(got[4], ref[4])
+    if Bw > 1:
+        assert not bool(got[4][:, 1].any()) and not bool(got32[4][:, 1].any())
+        assert bool(torch.isnan(got[2][:, 1]).all())
+
+
+# ---------------- the evaluation entries ----------------
+
+def _evaluate_check(plain, kernel, args):
+    """Kernel against twin: float64 to 1e-9, float32 within 2× the float32
+    twin's error + 1e-6 (against the float64 twin), NaN where the twin has
+    NaN."""
+    ref = plain(*args(torch.float64))
+    got = kernel(*args(torch.float64))
+    got32 = kernel(*args(torch.float32))
+    plain32 = plain(*args(torch.float32))
+    torch.cuda.synchronize()
+    for g, g32, p, r in zip(got, got32, plain32, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert _rel_fin(g, r) <= 1e-9
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    return ref, got, got32
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+def test_srbd_evaluate_matches_plain(card_case, Bw):
+    X = _repeat(card_case["X"], Bw)
+    if Bw > 1:
+        X[1, 5, 4] = float("nan")
+
+    def args(dtype):
+        s = card_case["solver"] if dtype == torch.float64 else card_case["solver32"]
+        t = lambda a: a.to(dtype).contiguous()
+        return (t(X), t(_repeat(card_case["U"], Bw)),
+                {k: t(_repeat(v, Bw)) for k, v in card_case["params"].items()},
+                s.terms, card_case["ocp"].dt, s._wc(dtype))
+
+    before = k3.srbd_evaluate.launches
+    ref, got, got32 = _evaluate_check(k3.srbd_evaluate_plain,
+                                      k3.srbd_evaluate, args)
+    assert k3.srbd_evaluate.launches == before + 2
+    if Bw > 1:
+        for out in (got, got32):
+            assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+        assert bool(torch.isfinite(got[0][2:]).all())
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 257])
+def test_isrbd_evaluate_matches_plain(isrbd_case, Bw):
+    U = _repeat(isrbd_case["U"], Bw)
+    if Bw > 1:
+        U[1, 3, 0] = float("nan")          # r̈ₓ: the RK2 step reads it
+
+    def args(dtype):
+        a = isrbd_case["al"] if dtype == torch.float64 else isrbd_case["al32"]
+        t = lambda v: v.to(dtype).contiguous()
+        return (t(_repeat(isrbd_case["X"], Bw)), t(U),
+                {k: t(_repeat(v, Bw)) for k, v in isrbd_case["pin"].items()},
+                a.terms, isrbd_case["ocp"].dt)
+
+    before = k6.isrbd_evaluate.launches
+    ref, got, got32 = _evaluate_check(k6.isrbd_evaluate_plain,
+                                      k6.isrbd_evaluate, args)
+    assert k6.isrbd_evaluate.launches == before + 2
+    if Bw > 1:
+        for out in (got, got32):
+            assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+
+
+def test_srbd_kernels_refuse_unknown_shape(card_case):
+    """K3, K4 and srbd_evaluate on CUDA tensors of a problem with one
+    contact fewer: ValueError before any launch."""
+    import dataclasses
+
+    s = card_case["solver"]
+    terms = dataclasses.replace(s.terms, nc=3)
+    dev = card_case["X"].device
+    Bw, ns, nx, nu = 2, card_case["ocp"].ns, 31, 18
+    e = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    params = {k: e(Bw, ns + 1, v.shape[-1]) for k, v in card_case["params"].items()}
+    X, U = e(Bw, ns + 1, nx), e(Bw, ns, nu)
+    dt, wc = card_case["ocp"].dt, s._wc(torch.float64)
+    counts = (k3.srbd_trial.launches, k3.srbd_evaluate.launches,
+              k4.srbd_linearize.launches)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k4.srbd_linearize(X, U, params, terms, s.rows, dt, wc)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k3.srbd_evaluate(X, U, params, terms, dt, wc)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k3.srbd_trial(e(Bw, nx), X, U, e(Bw, ns, nu), e(Bw, ns, nu, nx),
+                      e(Bw, ns, nx), e(1), params, e(Bw), e(Bw), e(Bw), e(Bw),
+                      terms, dt, wc, 1e-3, 0.1, 1e-12)
+    assert counts == (k3.srbd_trial.launches, k3.srbd_evaluate.launches,
+                      k4.srbd_linearize.launches)

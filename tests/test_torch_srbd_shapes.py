@@ -1,0 +1,127 @@
+"""PyTorch port, the compile-time sizes of the SRBD kernels, on the CPU.
+
+K3 (the trial), srbd_evaluate (csrc/srbd_rollout.cu) and K4 (the
+linearization, csrc/srbd_linearize.cu) are compiled for one set of sizes,
+`srbd::Shape` in csrc/srbd_common.cuh. These tests hold that struct
+against `kernels/linearize.py::KERNEL_SHAPE` and against what
+`build_srbd_problem` gives, and check that the wrappers refuse other sizes
+with a ValueError that names them before any device work (meta tensors
+stand in for CUDA ones), while CPU tensors take the plain twins.
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import linearize as k4
+from srbd_horizon_tpu_torch.kernels import rollout as k3
+from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
+from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+
+torch.set_num_threads(1)
+
+HEADER = Path(k4.__file__).resolve().parents[1] / "csrc" / "srbd_common.cuh"
+
+
+@pytest.fixture(scope="module")
+def srbd():
+    loop, prob = build_srbd_loop(SRBDConfig(dtype=torch.float64),
+                                 DDPOptions(max_iters=1), device="cpu")
+    s = loop.solver
+    return dict(ocp=prob.ocp, terms=s.terms, rows=s.rows, wc=s._wc(torch.float64),
+                prob=prob)
+
+
+def test_shape_struct_matches_the_wrappers_table():
+    src = HEADER.read_text()
+    found = re.findall(r"struct Shape \{\s*static constexpr int ([^;]*);", src)
+    assert len(found) == 1
+    parsed = {k.strip(): int(v) for k, v in
+              (kv.split("=") for kv in found[0].split(","))}
+    assert parsed == k4.KERNEL_SHAPE
+
+
+def test_srbd_problem_has_the_compiled_sizes(srbd):
+    ocp = srbd["ocp"]
+    assert RiccatiRows.from_ocp(ocp) == srbd["rows"]
+    sizes = k4.kernel_sizes(srbd["terms"], ocp.nx, ocp.nu, srbd["rows"])
+    assert sizes == k4.KERNEL_SHAPE
+    k4.check_kernel_shape("srbd_linearize", srbd["terms"], ocp.nx, ocp.nu,
+                          srbd["rows"])
+
+
+def _drop_last(rows, field):
+    kw = {f: getattr(rows, f) for f in ("rx", "ru", "gx", "gu", "bx", "bu", "uc")}
+    kw[field] = kw[field][:-1]
+    return RiccatiRows(**kw)
+
+
+@pytest.mark.parametrize("change", ["nx", "nu", "nc", "contact_model",
+                                    "number_of_legs", "rx", "ru", "gx", "gu"])
+def test_check_kernel_shape_refuses_other_sizes(srbd, change):
+    terms, rows = srbd["terms"], srbd["rows"]
+    nx, nu = srbd["ocp"].nx, srbd["ocp"].nu
+    if change == "nx":
+        nx -= 1
+    elif change == "nu":
+        nu -= 1
+    elif change in ("nc", "contact_model", "number_of_legs"):
+        terms = dataclasses.replace(terms, **{change: getattr(terms, change) - 1})
+    else:
+        rows = _drop_last(rows, change)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k4.check_kernel_shape("srbd_linearize", terms, nx, nu, rows)
+
+
+def _meta_args(srbd, nc, B=2):
+    """Arguments of K4, K3 and srbd_evaluate on meta tensors of an SRBD
+    layout with nc contacts (the problem's own terms, with nc replaced)."""
+    ns = srbd["ocp"].ns
+    nx, nu = 13 + 6 * nc, 6 * nc
+    terms = dataclasses.replace(srbd["terms"], nc=nc)
+    e = lambda *shape: torch.empty(shape, dtype=torch.float64, device="meta")
+    params = {k: e(B, ns + 1, v.shape[-1])
+              for k, v in srbd["ocp"].params.items()}
+    X, U = e(B, ns + 1, nx), e(B, ns, nu)
+    dt, wc = srbd["ocp"].dt, srbd["wc"]
+    lin = (X, U, params, terms, srbd["rows"], dt, wc)
+    al = e(1)
+    trial = (e(B, nx), X, U, e(B, ns, nu), e(B, ns, nu, nx), e(B, ns, nx), al,
+             params, e(B), e(B), e(B), e(B), terms, dt, wc, 1e-3, 0.1, 1e-12)
+    ev = (X, U, params, terms, dt, wc)
+    return {"srbd_linearize": (k4.srbd_linearize, lin),
+            "srbd_trial": (k3.srbd_trial, trial),
+            "srbd_evaluate": (k3.srbd_evaluate, ev)}
+
+
+@pytest.mark.parametrize("name", ["srbd_linearize", "srbd_trial",
+                                  "srbd_evaluate"])
+def test_wrappers_refuse_other_sizes_off_the_cpu(srbd, name):
+    fn, args = _meta_args(srbd, nc=3)[name]
+    launches = fn.launches
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        fn(*args)
+    # the compiled sizes pass the shape check and stop at the device check
+    fn, args = _meta_args(srbd, nc=4)[name]
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        fn(*args)
+    assert fn.launches == launches
+
+
+def test_wrappers_take_plain_twins_at_any_size_on_cpu(srbd):
+    """CPU tensors of sizes no kernel is compiled for go to the twins."""
+    prob = srbd["prob"]
+    ocp, terms = srbd["ocp"], srbd["terms"]
+    ns = 3
+    X = prob.initial_state[None, None].expand(2, ns + 1, -1).contiguous()
+    U = prob.static_input[None, None].expand(2, ns, -1).contiguous()
+    params = {k: v[None, : ns + 1].expand(2, -1, -1).contiguous()
+              for k, v in ocp.params.items()}
+    got = k3.srbd_evaluate(X, U, params, terms, ocp.dt, srbd["wc"])
+    want = k3.srbd_evaluate_plain(X, U, params, terms, ocp.dt, srbd["wc"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
