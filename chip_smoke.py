@@ -49,7 +49,9 @@ parallel, into build/kernels/), then:
      K2 alone at nu=30 (5120 matrices) and K6 (the isrbd trial, at 1 and
      4 step sizes) and isrbd_evaluate, by the same rules as K4, K1, K2, K3
      and srbd_evaluate; K1's time at fleet sizes around whole waves of
-     blocks is printed for both problems (no limit);
+     blocks is printed for both problems, and K6's at B = 1, 132, 256,
+     528 and 4096 (`k6_size_probe`), with K5's achieved bytes per second
+     and both kernels' blocks per SM (K6's ring depth too) (no limit);
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
@@ -486,14 +488,16 @@ def repeat_members(args, Bsz, skip=()):
     return tuple(out)
 
 
-def k3_size_probe(k3, args1, sizes):
-    """K3's time with one α at fleet sizes on either side of whole waves
-    (members repeated): {B: ms}, float32. At B ≤ 528 every warp has a
-    scheduler to itself, so B=1 reads the chain's own latency."""
+def trial_size_probe(trial, args1, sizes):
+    """A trial kernel's (K3's, K6's) time with one α at fleet sizes on
+    either side of whole waves (members repeated): {B: ms}, float32. At
+    B up to a wave every warp has a scheduler to itself, so B=1 reads the
+    chain's own latency; where the time stays flat up to there the chain,
+    not the bytes, sets it."""
     out = {}
     for Bw in sizes:
         a = repeat_members(args1, Bw, skip=(6,))
-        out[Bw] = cuda_ms(lambda: k3.srbd_trial(*a), reps=20)
+        out[Bw] = cuda_ms(lambda: trial(*a), reps=20)
     return out
 
 
@@ -865,7 +869,7 @@ def main():
     # K3 alone at fleet sizes around the card's waves: B=1 is the chain's
     # own latency, K3's floor
     emit("k3_size_probe", card=card, alphas=1,
-         ms_by_B=k3_size_probe(k3, r32, (1, 132, 512, 528, 4096)),
+         ms_by_B=trial_size_probe(k3.srbd_trial, r32, (1, 132, 512, 528, 4096)),
          ms_B512_4alpha=k3_fan_ms)
 
     e32 = ev_args(X)(torch.float32)
@@ -1256,10 +1260,17 @@ def main():
     iev_flop = isrbd_evaluate_flops(Bc, ns, inx, nc, al32.terms.n_rho,
                                     al32.terms.n_term)
     iev_bound, iev_by = bound(iev_bytes, iev_flop)
+    k5_occ, k6_occ = k5.occupancy(), k6.trial_occupancy()
     emit("kernel_times_constrained", card=card, B=Bc,
          isrbd_linearize_ms=k5_ms, isrbd_linearize_plain_ms=k5_plain_ms,
          isrbd_linearize_bound_ms=k5_bound, isrbd_linearize_bytes=k5_bytes,
          isrbd_linearize_flop=k5_flop,
+         isrbd_linearize_gb_per_s=k5_bytes / k5_ms * 1e-6,
+         isrbd_linearize_bound_share=k5_bound / k5_ms,
+         isrbd_linearize_occupancy=k5_occ,
+         isrbd_linearize_occupancy_f64=k5.occupancy(torch.float64),
+         isrbd_trial_occupancy=k6_occ,
+         isrbd_trial_occupancy_f64=k6.trial_occupancy(torch.float64),
          riccati_backward_ms=k1i_ms, riccati_backward_plain_ms=k1i_plain_ms,
          riccati_bound_ms=k1i_bound, riccati_bytes=k1i_bytes,
          riccati_flop=k1i_flop, riccati_rate="FP64 tensor cores, 67 TFLOP/s",
@@ -1270,6 +1281,12 @@ def main():
          isrbd_evaluate_ms=iev_ms, isrbd_evaluate_plain_ms=iev_plain_ms,
          isrbd_evaluate_bound_ms=iev_bound, isrbd_evaluate_bytes=iev_bytes,
          isrbd_evaluate_flop=iev_flop)
+    # K6 alone from one member to past a wave: B=1 is the chain's own
+    # latency, K6's floor
+    emit("k6_size_probe", card=card, alphas=1,
+         ms_by_B=trial_size_probe(k6.isrbd_trial, t32, (1, 132, 256, 528, 4096)),
+         ms_B256_4alpha=k6_fan_ms, ring_depth=k6_occ["ring_depth"],
+         blocks_per_sm=k6_occ["blocks_per_sm"])
     # isrbd sizes: three blocks an SM, 396 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="isrbd", card=card,
          shared_memory_bytes=k1i_smem, blocks_per_sm=k1i_blocks,
@@ -1567,13 +1584,19 @@ def main():
         kernel_row("srbd_trial", k3, launches["srbd_trial"], k3_ms,
                    k3_plain_ms, k3_bound, k3_by, k3_err, trial_tol),
         kernel_row("isrbd_linearize", k5, claunches["isrbd_linearize"], k5_ms,
-                   k5_plain_ms, k5_bound, k5_by, k5_err, lin_tol),
+                   k5_plain_ms, k5_bound, k5_by, k5_err, lin_tol,
+                   gb_per_s=k5_bytes / k5_ms * 1e-6,
+                   shared_memory_bytes=k5_occ["shared_memory_bytes"],
+                   blocks_per_sm=k5_occ["blocks_per_sm"]),
         kernel_row("riccati_backward_isrbd", k1, claunches["riccati_backward"],
                    k1i_ms, k1i_plain_ms, k1i_bound, k1i_by, k1i_err,
                    K1_F32_TOL, shared_memory_bytes=k1i_smem,
                    blocks_per_sm=k1i_blocks),
         kernel_row("isrbd_trial", k6, claunches["isrbd_trial"], k6_ms,
-                   k6_plain_ms, k6_bound, k6_by, k6_err, trial_tol),
+                   k6_plain_ms, k6_bound, k6_by, k6_err, trial_tol,
+                   ms_4alpha=k6_fan_ms, ring_depth=k6_occ["ring_depth"],
+                   shared_memory_bytes=k6_occ["shared_memory_bytes"],
+                   blocks_per_sm=k6_occ["blocks_per_sm"]),
         dict(kernel_row("srbd_evaluate", k3, launches["srbd_evaluate"], ev_ms,
                         ev_plain_ms, ev_bound, ev_by, ev_err, trial_tol),
              replaces=k3.EVALUATE_REPLACES),

@@ -1,6 +1,7 @@
 // The PTX instructions K1 and K2 issue directly, kept apart so that the
 // rest of riccati_backward.cu is plain CUDA C++; K3 (srbd_rollout.cu)
-// takes the cp.async helpers for its per-warp double buffer.
+// takes the cp.async helpers for its per-warp double buffer, K6
+// (isrbd_rollout.cu) those and the mbarriers between its two warps.
 //
 // FP64 tensor-core product, mma.sync.aligned.m16n8k4.row.col.f64 (sm_90
 // and later): D (16×8) = A (16×4) · B (4×8) + C, one warp, every lane
@@ -52,4 +53,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A barrier object in shared memory (mbarrier), for one warp to hand
+// shared memory to another: init sets the arrivals a phase takes;
+// mbarrier_arrive counts one arrival (release: the arriving thread's
+// earlier writes, and those ordered before them, are visible to a thread
+// that sees the phase complete); mbarrier_wait returns once the phase
+// with the given parity has completed (acquire). Phases alternate in
+// parity, so the k-th use of a barrier waits on parity k & 1.
+__device__ __forceinline__ void mbarrier_init(unsigned long long* bar, int count) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(a), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive(unsigned long long* bar) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(a) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar, int parity) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
 }

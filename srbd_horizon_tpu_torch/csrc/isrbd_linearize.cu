@@ -22,26 +22,56 @@
 // with R_j of the homogeneous quat_to_rot (csrc/rigid_common.cuh); a
 // one-sided row's is ±√ρ·(its cone face or unit vector) where the row is
 // active, and half that where its pre-activation is exactly 0 (the value
-// jax.jacfwd gives jnp.maximum at a tie). The row sets rx, ru, gx, gu, uc arrive as the int32 table K1
-// reads (kernels/riccati.py::RiccatiRows).
+// jax.jacfwd gives jnp.maximum at a tie). The row sets rx, ru, gx, gu, uc
+// arrive as the int32 table K1 reads (kernels/riccati.py::RiccatiRows).
+//
+// Compiled for the sizes of `isrbd::Shape` only (csrc/isrbd_common.cuh):
+// the per-node output sizes, the shared-memory layout and every loop bound
+// are constants; the wrapper refuses other sizes. The row table stays a
+// run-time input.
 //
 // What bounds it on an H100: bytes. A member-node writes 6,956 values (Sx
 // 703, Bs 666, Jxp 2,220, Jup 3,090, ρ 240, d 37) and reads ~430 (x, u and
-// the 358 parameter values, most of them multipliers and bounds); most
+// the 357 parameter values, most of them multipliers and bounds); most
 // outputs are structural zeros that K1 reads dense. At B=256, ns=20 that
-// is ~143 MB of f32 out and ~9 MB in, ~0.045 ms at 3.35 TB/s, against a few
-// thousand FLOP per member-node.
+// is ~143 MB of f32 out and ~9 MB in, ~0.046 ms at 3.35 TB/s, against a few
+// thousand FLOP per member-node. The first design spent instructions, not
+// bytes: lane 0 alone prepared the geometry, lanes 0-3 the ∂Iw_j and lanes
+// 0-27 the quaternion blocks while the rest waited, then every lane
+// evaluated ~217 entries one by one, each with a run-time division, a walk
+// down the segment branches of a per-entry function and a 4-byte store;
+// it ran at 4.3× the byte bound.
 //
-// Design: K4's. One warp per member-node, and one per member for the
-// terminal pair, so a linearization is one launch. The warp copies x, u
-// and the node's parameters to shared memory, forms the midpoint state,
-// then a few lanes prepare the node's scalars (lane 0 R, R I, Iw, Iw ω and
-// √ρ; lanes 0-3 the four ∂Iw_j columns of the Euler rows; lanes 0-27 the
-// two quaternion blocks of A − I), the lanes evaluate the 240 residual
-// rows through csrc/isrbd_common.cuh (the same device code as K6), and
-// last all 32 lanes walk each output block in storage order, evaluating
-// each entry from the shared scalars by its row's segment. Simple first:
-// no vector stores, no skipping of the zeros.
+// Design, K4's (csrc/srbd_linearize.cu): a block takes 4 consecutive
+// stage member-nodes, one warp each. Every per-node output size times 4 is
+// a multiple of 4, so in float32 a run of 4 member-nodes that begins at a
+// flat index b·ns+n divisible by 4 starts 16-byte aligned in every stage
+// output (double2-aligned in float64), and the nodes' blocks of one output
+// are contiguous; the block composes them in one shared staging buffer and
+// streams them out with 16-byte stores, the whole block on each output.
+// Sx and Bs are staged for the 4 nodes at once, Jxp and Jup for 2 at a time
+// (2 × 3,090 = 6,180 values is still a multiple of 4), so the buffer holds
+// 6,180 values and a block 41,600 B in float32: five blocks share an SM
+// (`isrbd_linearize_occupancy`). A staged block is filled with zeros
+// (16-byte stores), then each warp writes its node's nonzeros by the row
+// kinds the block resolved once from the row table (one entry, two
+// entries, quaternion row of A − I or of B, LIP row, Newton row, cone row,
+// the dense Euler rows, zero), the sparse rows one lane a row from a
+// per-node table of values, the Euler rows one row at a time with the
+// lanes over the columns. No entry is found by division. The node's
+// prologue runs over all lanes: every lane holds the geometry and the
+// quaternion rates in registers (csrc/isrbd_common.cuh, shared with K6);
+// the 240 rows go by K6's passes, with the one-sided rows' slopes; lanes
+// 0-11 form ∂Iw_j one row each and trade rows by shuffles; lanes 0-27 the
+// quaternion blocks; the lanes over the columns the Euler rows. ρ and d
+// are staged with the prologue and streamed before the Jacobians. The
+// terminal pairs rt, Jt run in blocks of their own, one warp a member,
+// ahead of the stage blocks so that they do not trail the last wave: the
+// block fills its members' Jt with zeros straight in device memory
+// (16-byte stores), then each lane writes the one or two nonzeros of its
+// rows. What holds it at ~1.8× the byte bound is the store stream itself,
+// not the prologue, the emission, the barriers or the zero fills (variant
+// builds timed on an H100; PERF.md §7).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -51,415 +81,651 @@
 namespace {
 
 using isrbd::Consts;
+using isrbd::L;
+using isrbd::Shape;
+constexpr int kWarps = 4;                // member-nodes (warps) a stage block
+constexpr int kUnknownShape = -2;        // the sizes are not isrbd::Shape's
+constexpr int nx = Shape::nx, nu = Shape::nu, nr = Shape::n_rho,
+              nt = Shape::n_term, n_uc = Shape::n_uc;
 
-constexpr int kWarps = 4;
-constexpr int kTrack = 15;     // rows of the outer terminal residual
+// per-node sizes of the four Jacobian blocks, and the member-nodes one
+// staging of each holds (a multiple of 4 values: 16-byte aligned)
+constexpr int kSx = Shape::n_rx * nx, kBs = Shape::n_ru * n_uc,
+              kJxp = Shape::n_gx * nx, kJup = Shape::n_gu * nu;
+__host__ __device__ constexpr int per_node(int blk) {
+  return blk == 0 ? kSx : blk == 1 ? kBs : blk == 2 ? kJxp : kJup;
+}
+__host__ __device__ constexpr int group(int blk) { return blk < 2 ? 4 : 2; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int kStage = cmax(cmax(group(0) * kSx, group(1) * kBs),
+                            cmax(group(2) * kJxp, group(3) * kJup));
+// ρ and d of the kWarps nodes, staged with the prologue
+constexpr int oD = kWarps * nr;
+static_assert((group(0) * kSx) % 4 == 0 && (group(1) * kBs) % 4 == 0 &&
+                  (group(2) * kJxp) % 4 == 0 && (group(3) * kJup) % 4 == 0 &&
+                  kStage % 4 == 0 && oD % 4 == 0 && oD + kWarps * nx <= kStage &&
+                  kWarps % group(2) == 0 && kWarps % group(3) == 0,
+              "16-byte alignment of the staged outputs");
 
-// Per-node scalars in shared memory, after x, u, x_mid and the parameters.
-struct Scratch {
-  int geo, rot, angO, soo, sow, fowm, rho, total;
-  __host__ __device__ Scratch(int n_rho) {
-    int o = 0;
-    geo = o; o += isrbd::kGeo;
-    rot = o; o += 18;          // R, R I
-    angO = o; o += 12;         // ∂(Euler rows)/∂o, 3×4
-    soo = o; o += 16;          // Foo(ω_mid) + dt/2·Foo(ω_mid) Foo(ω)
-    sow = o; o += 12;          // Fow(o_mid) + dt/2·Foo(ω_mid) Fow(o)
-    fowm = o; o += 12;         // Fow(o_mid)
-    rho = o; o += n_rho;
-    total = o;
-  }
+// The per-node values the sparse rows read (a warp's value table).
+enum Value : int {
+  V_DT = 0, V_H2, V_MTWRZ, V_MTWO, V_MTWRDOT, V_MTWW, V_WQDDOT, V_WMINF,
+  V_WREL,
+  V_EQ,                             // + q: S_q √(ρ w_q), the equality rows
+  V_ZONE = V_EQ + Shape::n_eq,      // + i: that × mask_lipzone (LIP zone)
+  V_NEWT = V_ZONE + 4,              // + i: Newton row i: × mask_srbd × m
+  V_NEWTF = V_NEWT + 3,             //      and × mask_srbd × (−1)
+  V_LIPU = V_NEWTF + 3,             // + i: LIP row i: × mask_lip × m,
+  V_LIPX = V_LIPU + 3,              //      × mask_lip × (−m η²)
+  V_LIPC = V_LIPX + 3,              //      × mask_lip × m η²/nc (i < 2)
+  V_SLOPE = V_LIPC + 2,             // + g − o_cone: slope of one-sided row g
+  V_N = V_SLOPE + 2 * Shape::n_in + L::n_box
 };
 
-// Entry (a, c) of [v]ₓ.
+// a warp's scratch: x and u side by side, X[n+1], params, values, the
+// quaternion blocks (Foo·, Fow·, Fow(o_mid)), Iw, Iw ω, o_mid and ω_mid, and
+// the dense Euler rows of Jxp (3 × nx) and Jup (3 × nu)
+constexpr int wXU = 0, wXN = wXU + L::n_xu, wP = wXN + nx, wV = wP + L::n_par,
+              wQ = wV + V_N, wG = wQ + 40, wEX = wG + 20, wEU = wEX + 3 * nx,
+              wSize = (wEU + 3 * nu + 3) / 4 * 4;
+constexpr int qSoo = 0, qSow = 16, qFowm = 28;           // offsets in wQ
+constexpr int gIw = 0, gH = 9, gOm = 12, gWm = 16;       // offsets in wG
+constexpr int kRows = Shape::n_rx + Shape::n_ru + Shape::n_gx + Shape::n_gu;
+constexpr int oUc = kRows + 2 * Shape::n_b;              // uc in the row table
+
+// shared memory: the staging buffer, the warps' scratch (both in T), then
+// the row kinds (2 ints a row) and the dense-row slots (3 a Jacobian block
+// of ρ: Jxp, Jup)
 template <typename T>
-__device__ T skew_at(const T* v, int a, int c) {
-  T m[3];
-  rigid::skew_col(v, c, m);
-  return m[a];
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (kStage + kWarps * wSize) + sizeof(int) * (2 * kRows + 6);
 }
 
-// (A − I)[row][col].
+// Row kinds of the four Jacobian blocks (resolved once a block from the
+// row table): info.x = kind | slot << 8 | aux << 20, info.y = a | b << 16
+// (kQuatB: three uc positions, 8 bits each, 0xff where not live).
+enum Kind : int {
+  kZero = 0,   // no entry
+  kOne,        // val[slot] at column a
+  kTwo,        // −val[slot] at column a, +val[slot] at column b
+  kQuatS,      // Sx: row aux of dt·(Foo(ω_mid) + dt/2·Foo(ω_mid)Foo(ω)), Fow…
+  kQuatB,      // Bs: row aux of dt²/2·Fow(o_mid) on the ω̇ columns
+  kLipX,       // Jxp: LIP row aux (r and, for aux < 2, the contacts' c)
+  kNewtonU,    // Jup: Newton row aux (r̈ and the nc forces on axis aux)
+  kCone,       // Jup: cone ub row aux (three force columns of one contact)
+  kDense       // Euler row aux (written by the lanes over the columns)
+};
+
+__host__ __device__ inline int2 kind(int k, int slot = 0, int aux = 0,
+                                     int a = 0, int b = 0) {
+  return make_int2(k | (slot << 8) | (aux << 20), a | (b << 16));
+}
+
+// Position of input column `col` among the live B columns uc, or −1.
+__device__ int uc_pos(const int* __restrict__ table, int col) {
+  int pos = -1;
+#pragma unroll
+  for (int c = 0; c < n_uc; ++c)
+    if (table[oUc + c] == col) pos = c;
+  return pos;
+}
+
+// Row r of block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup).
 template <typename T>
-__device__ T jac_step_x(int row, int col, const T* sc, const Scratch& L,
+__device__ int2 resolve(int blk, int r, const int* __restrict__ table,
                         const Consts<T>& k) {
-  if (row < 3) return col == k.i_rdot + row ? k.dt : T(0);
-  if (row < 7) {
-    const int q = row - 3;
-    if (col >= 3 && col < 7) return k.dt * sc[L.soo + q * 4 + (col - 3)];
-    if (col >= k.i_w && col < k.i_w + 3) return k.dt * sc[L.sow + q * 3 + (col - k.i_w)];
-    return T(0);
+  using isrbd::col_cddot;
+  using isrbd::col_f;
+  if (blk == 0) {                                  // (A − I)[r]
+    if (r < 3) return kind(kOne, V_DT, 0, L::i_rdot + r);
+    if (r < 7) return kind(kQuatS, 0, r - 3);
+    if (r < L::i_rdot) return kind(kOne, V_DT, 0, L::i_cdot + r - 7);
+    return kind(kZero);
   }
-  if (row < k.i_rdot) return col == k.i_cdot + (row - 7) ? k.dt : T(0);
-  return T(0);
-}
-
-// B[row][col].
-template <typename T>
-__device__ T jac_step_u(int row, int col, const T* sc, const Scratch& L,
-                        const Consts<T>& k) {
-  const T h2 = k.dt * (T(0.5) * k.dt);
-  if (row < 3) return col == row ? h2 : T(0);
-  if (row < 7)
-    return (col >= 3 && col < 6) ? h2 * sc[L.fowm + (row - 3) * 3 + (col - 3)] : T(0);
-  if (row < k.i_rdot) {
-    const int e = row - 7;
-    return col == isrbd::col_cddot(e / 3, e % 3) ? h2 : T(0);
-  }
-  if (row < k.i_cdot) return col == row - k.i_rdot ? k.dt : T(0);
-  const int e = row - k.i_cdot;
-  return col == isrbd::col_cddot(e / 3, e % 3) ? k.dt : T(0);
-}
-
-// ∂(rel-vel pair q)/∂x[col], ∂(cz q)/∂x[col], ∂(lipzone q)/∂x[col]: the
-// state-only equality segments shared by the stage and terminal stacks.
-template <typename T>
-__device__ T relvel_dx(int q, int col, const Consts<T>& k) {
-  const int per = 2 * (k.cm - 1);
-  const int base = (q / per) * k.cm, rem = q % per;
-  const int i = rem / 2 + 1, ax = rem % 2;
-  if (col == k.i_cdot + 3 * base + ax) return T(1);
-  if (col == k.i_cdot + 3 * (base + i) + ax) return T(-1);
-  return T(0);
-}
-
-template <typename T>
-__device__ T lipzone_dx(int q, int col, const Consts<T>& k) {
-  return col == (q == 0 ? 2 : k.i_w + q - 1) ? T(1) : T(0);
-}
-
-// ∂/∂x[col] of the tracking rows g < 11 and the foot-pair rows (r = 0..3),
-// with the tracking mask mt.
-template <typename T>
-__device__ T track_dx(int g, int col, T mt, const T* p, const Consts<T>& k) {
-  if (g == 0) return col == 2 ? mt * k.w_rz : T(0);
-  if (g < 5) return col == 2 + g ? mt * p[k.po[isrbd::P_WO]] : T(0);
-  if (g < 8) return col == k.i_rdot + g - 5 ? mt * k.w_rdot : T(0);
-  return col == k.i_w + g - 8 ? mt * k.w_w : T(0);
-}
-
-template <typename T>
-__device__ T rel_dx(int r, int col, const Consts<T>& k) {
-  const int a = k.fpi[r < 2 ? 0 : 1], b = k.fpi[r < 2 ? 2 : 3];
-  const int ax = (r % 2 == 0) ? 1 : 0;
-  T v = T(0);
-  if (col == k.i_c + 3 * a + ax) v -= k.w_rel;
-  if (col == k.i_c + 3 * b + ax) v += k.w_rel;
-  return v;
-}
-
-// Slope of x-box row g (ub rows, then lb rows) along its own dim.
-template <typename T>
-__device__ T xbox_dx(int g, int col, const T* x, const T* p, T rho, T sr,
-                     const Consts<T>& k) {
-  using namespace isrbd;
-  if (g < k.nx)
-    return col == g ? upper_slope(x[g], p[k.po[P_XUB] + g], p[k.po[P_MUXUB] + g], rho, sr)
-                    : T(0);
-  g -= k.nx;
-  return col == g ? lower_slope(x[g], p[k.po[P_XLB] + g], p[k.po[P_MUXLB] + g], rho, sr)
-                  : T(0);
-}
-
-// (∂ρ/∂x)[g][col] of the inner stage stack.
-template <typename T>
-__device__ T jac_rho_x(int g, int col, const T* x, const T* u, const T* p,
-                       const T* sc, const Scratch& L, const Consts<T>& k) {
-  using namespace isrbd;
-  if (g < 11) return track_dx(g, col, p[k.po[P_MT]], p, k);
-  if (g < 11 + k.n_qddot) return T(0);
-  if (g < 15 + k.n_qddot) return rel_dx(g - 11 - k.n_qddot, col, k);
-  if (g < k.n_res) return T(0);
-  const T* geo = sc + L.geo;
-  const T rho = geo[kG_rho], sr = geo[kG_sr];
-  if (g < k.o_cone) {
-    int q = g - k.n_res;
-    const T s = (sr * k.sqw[q]) * k.S[q];
-    if (q < k.n_relvel) return s * relvel_dx(q, col, k);
-    q -= k.n_relvel;
-    if (q < k.nc) return col == k.i_c + 3 * q + 2 ? s : T(0);
-    q -= k.nc;
-    if (q < 3) return T(0);                      // Newton rows: u only
-    if (q < 6) {                                 // Euler rows
-      const int a = q - 3;
-      const T sm = s * p[k.po[P_MSRBD]];
-      if (col < 3) {
-        T f[3] = {T(0), T(0), T(0)};
-        for (int c = 0; c < k.nc; ++c)
-          for (int i = 0; i < 3; ++i) f[i] += u[col_f(c, i)];
-        return sm * (-skew_at(f, a, col));
-      }
-      if (col < 7) return sm * sc[L.angO + a * 4 + (col - 3)];
-      if (col < k.i_rdot) {
-        const int c = (col - 7) / 3, j = (col - 7) % 3;
-        return sm * skew_at(u + col_f(c, 0), a, j);
-      }
-      if (col >= k.i_w && col < k.i_cdot) {      // [ω]ₓ Iw − [Iw ω]ₓ
-        const int j = col - k.i_w;
-        const T* w = x + k.i_w;
-        T wI = T(0);
-        for (int l = 0; l < 3; ++l) wI += skew_at(w, a, l) * geo[l * 3 + j];
-        return sm * (wI - skew_at(geo + kG_h, a, j));
-      }
-      return T(0);
+  if (blk == 1) {                                  // B[r][uc]
+    if (r >= 3 && r < 7) {
+      const int p3 = uc_pos(table, 3), p4 = uc_pos(table, 4), p5 = uc_pos(table, 5);
+      return kind(kQuatB, 0, r - 3, (p3 & 0xff) | (p4 & 0xff) << 8 | (p5 & 0xff) << 16);
     }
-    q -= 6;
-    if (q < 3) {                                 // LIP rows
-      const T sm = s * p[k.po[P_MLIP]];
-      if (col < 3) return col == q ? sm * (-(k.m * k.eta2)) : T(0);
-      if (q < 2 && col >= k.i_c && col < k.i_rdot && (col - k.i_c) % 3 == q)
-        return sm * (k.m * k.eta2 / T(k.nc));
-      return T(0);
-    }
-    q -= 3;
-    return (s * p[k.po[P_MZONE]]) * lipzone_dx(q, col, k);
+    const int e = r < L::i_rdot ? r - 7 : r - L::i_cdot;
+    const int col = r < 3 ? r : r < L::i_rdot ? col_cddot(e / 3, e % 3)
+                  : r < L::i_cdot ? r - L::i_rdot : col_cddot(e / 3, e % 3);
+    const int pos = uc_pos(table, col);
+    if (pos < 0) return kind(kZero);
+    return kind(kOne, r < L::i_rdot ? V_H2 : V_DT, 0, pos);
   }
-  if (g < k.o_xbox) return T(0);                 // cones: u only
-  if (g < k.o_ubox) return xbox_dx(g - k.o_xbox, col, x, p, rho, sr, k);
-  return T(0);
+  if (blk == 2) {                                  // (∂ρ/∂x)[r]
+    if (r == 0) return kind(kOne, V_MTWRZ, 0, 2);
+    if (r < 5) return kind(kOne, V_MTWO, 0, 2 + r);
+    if (r < 8) return kind(kOne, V_MTWRDOT, 0, L::i_rdot + r - 5);
+    if (r < 11) return kind(kOne, V_MTWW, 0, L::i_w + r - 8);
+    if (r < L::o_rel) return kind(kZero);
+    if (r < L::o_minf) {                           // foot pairs
+      const int g = r - L::o_rel;
+      const int a = k.fpi[g < 2 ? 0 : 1], b = k.fpi[g < 2 ? 2 : 3];
+      const int ax = (g % 2 == 0) ? 1 : 0;
+      return kind(kTwo, V_WREL, 0, L::i_c + 3 * a + ax, L::i_c + 3 * b + ax);
+    }
+    if (r < L::n_res) return kind(kZero);
+    if (r < L::o_cone) {                           // S_q√(ρw_q)·∂h_q/∂x
+      const int q = r - L::n_res;
+      if (q < L::q_cz)
+        return kind(kTwo, V_EQ + q, 0, isrbd::relvel_col(q, false),
+                    isrbd::relvel_col(q, true));
+      if (q < L::q_newton) return kind(kOne, V_EQ + q, 0, L::i_c + 3 * (q - L::q_cz) + 2);
+      if (q < L::q_euler) return kind(kZero);
+      if (q < L::q_lip) return kind(kDense, 0, q - L::q_euler);
+      if (q < L::q_zone) return kind(kLipX, 0, q - L::q_lip);
+      const int a = q - L::q_zone;
+      return kind(kOne, V_ZONE + a, 0, a == 0 ? 2 : L::i_w + a - 1);
+    }
+    if (r < L::o_xbox || r >= L::o_ubox) return kind(kZero);
+    return kind(kOne, V_SLOPE + r - L::o_cone, 0, (r - L::o_xbox) % nx);
+  }
+  // (∂ρ/∂u)[r]
+  if (r < 11) return kind(kZero);
+  if (r < L::o_rel) return kind(kOne, V_WQDDOT, 0, isrbd::usel_col(r - 11));
+  if (r < L::o_minf) return kind(kZero);
+  if (r < L::n_res)
+    return kind(kOne, V_WMINF, 0, isrbd::usel_col(L::n_qddot + r - L::o_minf));
+  if (r < L::o_cone) {
+    const int q = r - L::n_res;
+    if (q < L::q_newton) return kind(kZero);
+    if (q < L::q_euler) return kind(kNewtonU, 0, q - L::q_newton);
+    if (q < L::q_lip) return kind(kDense, 0, q - L::q_euler);
+    if (q < L::q_zone) return kind(kOne, V_LIPU + q - L::q_lip, 0, q - L::q_lip);
+    return kind(kZero);
+  }
+  if (r < L::o_cone + Shape::n_in) return kind(kCone, 0, r - L::o_cone);
+  if (r < L::o_ubox) return kind(kZero);
+  return kind(kOne, V_SLOPE + r - L::o_cone, 0, (r - L::o_ubox) % nu);
 }
 
-// (∂ρ/∂u)[g][col].
+// The prologue of one stage member-node, by its warp (x, u, X[n+1] and the
+// parameters are in its scratch `sw`): ρ and d into the block's staging
+// buffer (at `slot`), and the values, quaternion blocks and Euler rows the
+// Jacobian rows read into `sw`.
 template <typename T>
-__device__ T jac_rho_u(int g, int col, const T* x, const T* u, const T* p,
-                       const T* sc, const Scratch& L, const Consts<T>& k) {
-  using namespace isrbd;
-  if (g < 11) return T(0);
-  if (g < 11 + k.n_qddot) {
-    const int j = g - 11;
-    const int t = j < 6 ? j : col_cddot((j - 6) / 3, (j - 6) % 3);
-    return col == t ? k.w_qddot : T(0);
+__device__ void prologue(T* sw, T* stg, int slot, const Consts<T>& k, int lane) {
+  using isrbd::col_f;
+  const T* x = sw + wXU;
+  const T* u = x + nx;
+  const T* p = sw + wP;
+  T* val = sw + wV;
+  T* Q = sw + wQ;
+  T* G = sw + wG;
+  const T hdt = T(0.5) * k.dt;
+  const isrbd::Geometry<T> geo = isrbd::geometry(x, k);
+  const isrbd::Rates<T> rt = isrbd::rates(x, hdt);
+  if (lane == 0) {                         // for the lanes that index them
+#pragma unroll
+    for (int i = 0; i < 9; ++i) G[gIw + i] = geo.Iw[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) G[gH + i] = geo.h[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) G[gOm + i] = rt.om[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) G[gWm + i] = rt.wm[i];
   }
-  if (g < 15 + k.n_qddot) return T(0);
-  if (g < k.n_res) {
-    const int q = g - 15 - k.n_qddot;
-    return col == col_f(q / 3, q % 3) ? k.w_minf : T(0);
+  T* orho = stg + slot * nr;
+  isrbd::stage_rows<true>(lane, x, p, geo, k, [&](int r, T v) { orho[r] = v; },
+                          [&](int i, T s) { val[V_SLOPE + i] = s; });
+  T* od = stg + oD + slot * nx;
+  const T* xn = sw + wXN;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    if (j < nx) od[j] = isrbd::step_row(j, x, rt, hdt, k.dt) - xn[j];
   }
-  const T* geo = sc + L.geo;
-  const T rho = geo[kG_rho], sr = geo[kG_sr];
-  const bool is_f = col >= 6 && (col - 6) % 6 >= 3;   // a force column
-  const int fc = (col - 6) / 6, fj = (col - 6) % 6 - 3;
-  if (g < k.o_cone) {
-    int q = g - k.n_res;
-    const T s = (sr * k.sqw[q]) * k.S[q];
-    q -= k.n_relvel + k.nc;
-    if (q < 0) return T(0);
-    if (q < 3) {                                 // Newton: m r̈ − Σf
-      const T sm = s * p[k.po[P_MSRBD]];
-      if (col == q) return sm * k.m;
-      return (is_f && fj == q) ? sm * T(-1) : T(0);
+  const T sr = sqrt(p[L::p_rho]);
+  const T mt = p[L::p_mt];
+  // the values: the scalars, the equality rows' scales, then the masked
+  // scales of the LIP-zone, Newton and LIP rows
+  auto eq_scale = [&](int q) { return (sr * k.sqw[q]) * k.S[q]; };
+  if (lane < V_EQ) {
+    const T v = lane == V_DT ? k.dt : lane == V_H2 ? k.dt * hdt
+              : lane == V_MTWRZ ? mt * k.w_rz : lane == V_MTWO ? mt * p[L::p_wo]
+              : lane == V_MTWRDOT ? mt * k.w_rdot : lane == V_MTWW ? mt * k.w_w
+              : lane == V_WQDDOT ? k.w_qddot : lane == V_WMINF ? k.w_minf : k.w_rel;
+    val[lane] = v;
+  } else if (lane < V_EQ + Shape::n_eq) {
+    val[lane] = eq_scale(lane - V_EQ);
+  }
+  if (lane < 4) {
+    val[V_ZONE + lane] = eq_scale(L::q_zone + lane) * p[L::p_mzone];
+  } else if (lane < 7) {
+    const int i = lane - 4;
+    const T s = eq_scale(L::q_newton + i) * p[L::p_msrbd];
+    val[V_NEWT + i] = s * k.m;
+    val[V_NEWTF + i] = s * T(-1);
+  } else if (lane < 12) {
+    const int i = lane < 10 ? lane - 7 : lane - 10;
+    const T s = eq_scale(L::q_lip + i) * p[L::p_mlip];
+    if (lane < 10) {
+      val[V_LIPU + i] = s * k.m;
+      val[V_LIPX + i] = s * (-(k.m * k.eta2));
+    } else {
+      val[V_LIPC + i] = s * (k.m * k.eta2 / T(L::nc));
     }
-    if (q < 6) {                                 // Euler: Iw ω̇ − Σ(c−r)×f
-      const int a = q - 3;
-      const T sm = s * p[k.po[P_MSRBD]];
-      if (col >= 3 && col < 6) return sm * geo[a * 3 + (col - 3)];
-      if (is_f) {
-        const T* c = x + k.i_c + 3 * fc;
-        const T cr[3] = {c[0] - x[0], c[1] - x[1], c[2] - x[2]};
-        return sm * (-skew_at(cr, a, fj));
+  }
+  __syncwarp();                                    // G for every lane
+  {   // the quaternion blocks of A − I and B
+    const T* w = x + L::i_w;
+    const T* o = x + 3;
+    const T* wmid = G + gWm;
+    const T* omid = G + gOm;
+    if (lane < 16) {
+      const int i = lane / 4, j = lane % 4;
+      T s = T(0);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        s += isrbd::quat_rate_jac_o(i, l, wmid) * isrbd::quat_rate_jac_o(l, j, w);
+      Q[qSoo + lane] = isrbd::quat_rate_jac_o(i, j, wmid) + hdt * s;
+    } else if (lane < 28) {
+      const int e = lane - 16, i = e / 3, j = e % 3;
+      T s = T(0);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        s += isrbd::quat_rate_jac_o(i, l, wmid) * isrbd::quat_rate_jac_w(l, j, o);
+      const T fm = isrbd::quat_rate_jac_w(i, j, omid);
+      Q[qFowm + e] = fm;
+      Q[qSow + e] = fm + hdt * s;
+    }
+  }
+  // the Euler rows, row a scaled by sm_a = S_q√(ρw_q)·mask_srbd
+  T sm[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) sm[a] = eq_scale(L::q_euler + a) * p[L::p_msrbd];
+  T* EX = sw + wEX;
+  T* EU = sw + wEU;
+  const T* w = x + L::i_w;
+  {   // the o columns: column 3 + j on lanes 3j .. 3j+2, row a of ∂Iw_j each
+    const int j = lane / 3 < 4 ? lane / 3 : 3, a = lane % 3;
+    const int base = 3 * j;
+    T D[9];
+    isrbd::drot(j, x + 3, D);
+    const T Da0 = a == 0 ? D[0] : a == 1 ? D[3] : D[6];
+    const T Da1 = a == 0 ? D[1] : a == 1 ? D[4] : D[7];
+    const T Da2 = a == 0 ? D[2] : a == 1 ? D[5] : D[8];
+    const T RIa0 = a == 0 ? geo.RI[0] : a == 1 ? geo.RI[3] : geo.RI[6];
+    const T RIa1 = a == 0 ? geo.RI[1] : a == 1 ? geo.RI[4] : geo.RI[7];
+    const T RIa2 = a == 0 ? geo.RI[2] : a == 1 ? geo.RI[5] : geo.RI[8];
+    T P[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) P[l] = (Da0 * k.I[l] + Da1 * k.I[3 + l]) + Da2 * k.I[6 + l];
+    T dI[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      dI[c] = ((P[0] * geo.R[c * 3] + P[1] * geo.R[c * 3 + 1]) + P[2] * geo.R[c * 3 + 2]) +
+              ((RIa0 * D[c * 3] + RIa1 * D[c * 3 + 1]) + RIa2 * D[c * 3 + 2]);
+    const T* wd = u + 3;
+    const T v1 = dI[0] * wd[0] + dI[1] * wd[1] + dI[2] * wd[2];
+    const T v2 = dI[0] * w[0] + dI[1] * w[1] + dI[2] * w[2];
+    const T q0 = __shfl_sync(0xffffffffu, v2, base);
+    const T q1 = __shfl_sync(0xffffffffu, v2, base + 1);
+    const T q2 = __shfl_sync(0xffffffffu, v2, base + 2);
+    const T cr = a == 0 ? w[1] * q2 - w[2] * q1
+                 : a == 1 ? w[2] * q0 - w[0] * q2
+                          : w[0] * q1 - w[1] * q0;
+    const T sa = a == 0 ? sm[0] : a == 1 ? sm[1] : sm[2];
+    if (lane < 12) EX[a * nx + 3 + j] = sa * (v1 + cr);
+  }
+  // the other columns of the Euler rows, one column a lane
+  T fsum[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int c = 0; c < L::nc; ++c)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fsum[i] += u[col_f(c, i)];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int col = lane + 32 * c;
+    if (col >= nx || (col >= 3 && col < 7)) continue;
+    T m[3] = {T(0), T(0), T(0)};
+    bool live = true;                              // structurally nonzero
+    if (col < 3) {                                 // r: −[Σf]ₓ
+      isrbd::skew_col(fsum, col, m);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) m[a] = -m[a];
+    } else if (col < L::i_rdot) {                  // c_q: [f_q]ₓ
+      const int q = (col - 7) / 3, jj = (col - 7) % 3;
+      isrbd::skew_col(u + col_f(q, 0), jj, m);
+    } else if (col >= L::i_w && col < L::i_cdot) { // ω: [ω]ₓ Iw − [Iw ω]ₓ
+      const int jj = col - L::i_w;
+      T s0[3], s1[3], s2[3], hh[3];
+      isrbd::skew_col(w, 0, s0);
+      isrbd::skew_col(w, 1, s1);
+      isrbd::skew_col(w, 2, s2);
+      isrbd::skew_col(G + gH, jj, hh);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        m[a] = ((s0[a] * G[gIw + jj] + s1[a] * G[gIw + 3 + jj]) + s2[a] * G[gIw + 6 + jj]) - hh[a];
+    } else {
+      live = false;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) EX[a * nx + col] = live ? sm[a] * m[a] : T(0);
+  }
+  if (lane < nu) {
+    const int col = lane;
+    T m[3] = {T(0), T(0), T(0)};
+    bool live = true;
+    if (col >= 3 && col < 6) {                     // ω̇: Iw
+#pragma unroll
+      for (int a = 0; a < 3; ++a) m[a] = G[gIw + a * 3 + col - 3];
+    } else if (col >= 6 && (col - 6) % 6 >= 3) {   // f_q: −[c_q − r]ₓ
+      const int q = (col - 6) / 6, fj = (col - 6) % 6 - 3;
+      const T* cq = x + L::i_c + 3 * q;
+      const T cr[3] = {cq[0] - x[0], cq[1] - x[1], cq[2] - x[2]};
+      isrbd::skew_col(cr, fj, m);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) m[a] = -m[a];
+    } else {
+      live = false;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) EU[a * nu + col] = live ? sm[a] * m[a] : T(0);
+  }
+}
+
+// Lane `lane` writes the nonzeros of the sparse rows lane, lane+32, … of
+// one node's block `dst` (rows of `width` entries, zero-filled before);
+// the dense Euler rows follow, one row at a time over the lanes.
+template <typename T>
+__device__ void emit_block(int blk, const T* sw, const int* info,
+                           const int* dslot, const Consts<T>& k, int lane,
+                           T* dst) {
+  using isrbd::col_f;
+  const T* val = sw + wV;
+  const T* Q = sw + wQ;
+  const int first = blk == 0 ? 0
+                    : blk == 1 ? Shape::n_rx
+                    : blk == 2 ? Shape::n_rx + Shape::n_ru
+                               : Shape::n_rx + Shape::n_ru + Shape::n_gx;
+  const int rows = blk == 0 ? Shape::n_rx : blk == 1 ? Shape::n_ru
+                   : blk == 2 ? Shape::n_gx : Shape::n_gu;
+  const int width = blk == 1 ? n_uc : blk == 3 ? nu : nx;
+  for (int i = lane; i < rows; i += 32) {
+    const int i0 = info[2 * (first + i)], i1 = info[2 * (first + i) + 1];
+    const int kd = i0 & 0xff, v = (i0 >> 8) & 0xfff, aux = i0 >> 20;
+    const int a = i1 & 0xffff, b = i1 >> 16;
+    T* row = dst + i * width;
+    switch (kd) {
+      case kOne:
+        row[a] = val[v];
+        break;
+      case kTwo:
+        row[a] = -val[v];
+        row[b] = val[v];
+        break;
+      case kQuatS:
+#pragma unroll
+        for (int j = 0; j < 4; ++j) row[3 + j] = k.dt * Q[qSoo + aux * 4 + j];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) row[L::i_w + j] = k.dt * Q[qSow + aux * 3 + j];
+        break;
+      case kQuatB:
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int pos = (i1 >> (8 * j)) & 0xff;
+          if (pos != 0xff) row[pos] = val[V_H2] * Q[qFowm + aux * 3 + j];
+        }
+        break;
+      case kLipX:
+        row[aux] = val[V_LIPX + aux];
+        if (aux < 2)
+#pragma unroll
+          for (int c = 0; c < L::nc; ++c) row[L::i_c + 3 * c + aux] = val[V_LIPC + aux];
+        break;
+      case kNewtonU:
+        row[aux] = val[V_NEWT + aux];
+#pragma unroll
+        for (int c = 0; c < L::nc; ++c) row[col_f(c, aux)] = val[V_NEWTF + aux];
+        break;
+      case kCone: {
+        const T s = val[V_SLOPE + aux];
+        const T* A = k.A_fc + 3 * (aux % 5);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) row[col_f(aux / 5, j)] = s * A[j];
+        break;
       }
-      return T(0);
+      default:
+        break;
     }
-    q -= 6;
-    if (q < 3) return col == q ? (s * p[k.po[P_MLIP]]) * k.m : T(0);
-    return T(0);
   }
-  if (g < k.o_xbox) {                            // cones (no lower bound)
-    const int q = g - k.o_cone;
-    if (q >= k.n_in || !is_f || fc != q / 5) return T(0);
-    const T slope = upper_slope(cone_value(q, u, k), T(0),
-                                p[k.po[P_MUUB] + q], rho, sr);
-    return slope * k.A_fc[3 * (q % 5) + fj];
+  if (blk < 2) return;
+  const T* E = sw + (blk == 2 ? wEX : wEU);
+  for (int s = 0; s < 3; ++s) {
+    const int i = dslot[3 * (blk - 2) + s];
+    if (i < 0) continue;
+    for (int c = lane; c < width; c += 32) dst[i * width + c] = E[s * width + c];
   }
-  if (g < k.o_ubox) return T(0);
-  int q = g - k.o_ubox;
-  if (q < k.nu)
-    return col == q ? upper_slope(u[q], p[k.po[P_UUB] + q], p[k.po[P_MUUUB] + q], rho, sr)
-                    : T(0);
-  q -= k.nu;
-  return col == q ? lower_slope(u[q], p[k.po[P_ULB] + q], p[k.po[P_MUULB] + q], rho, sr)
-                  : T(0);
 }
 
-// (∂rt/∂x)[g][col] of the inner terminal stack.
 template <typename T>
-__device__ T jac_term_x(int g, int col, const T* x, const T* p,
-                        const Consts<T>& k) {
-  using namespace isrbd;
-  if (g < 11) return track_dx(g, col, T(1), p, k);
-  if (g < kTrack) return rel_dx(g - 11, col, k);
-  const T rho = p[k.po[P_RHO]];
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+};
+
+// The block fills `count` values at `dst` (16-byte aligned) with zeros, 16
+// bytes a thread at a time, then the tail one value at a time.
+template <typename T>
+__device__ void zero_fill(T* dst, int count) {
+  using V = typename Vec<T>::type;
+  constexpr int per = sizeof(V) / sizeof(T);
+  const V z{};
+  V* o = reinterpret_cast<V*>(dst);
+  const int nvec = count / per;
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) o[i] = z;
+  for (int i = nvec * per + threadIdx.x; i < count; i += blockDim.x) dst[i] = T(0);
+}
+
+// The block streams `count` staged values from shared memory to `dst`
+// (16-byte aligned), 16 bytes a thread at a time.
+template <typename T>
+__device__ void stream_out(const T* src, T* __restrict__ dst, int count) {
+  using V = typename Vec<T>::type;
+  constexpr int per = sizeof(V) / sizeof(T);
+  const int nvec = count / per;
+  const V* s = reinterpret_cast<const V*>(src);
+  V* o = reinterpret_cast<V*>(dst);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) o[i] = s[i];
+  for (int i = nvec * per + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// The terminal pairs of members b0 … b0+3, one warp a member.
+template <typename T>
+__device__ void terminal_block(T* sw, const T* __restrict__ X,
+                               const isrbd::Params<T>& P, int B, int ns,
+                               long long b0, const Consts<T>& k,
+                               T* __restrict__ rt, T* __restrict__ Jt) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_valid = B - b0 < kWarps ? static_cast<int>(B - b0) : kWarps;
+  const size_t b = b0 + warp;
+  const bool live = warp < n_valid;                // warp-uniform
+  zero_fill(Jt + b0 * (nt * nx), n_valid * (nt * nx));
+  T* x = sw + wXU;
+  T* p = sw + wP;
+  if (live) {
+    const size_t row = b * (ns + 1) + ns;
+    for (int j = lane; j < nx; j += 32) x[j] = X[row * nx + j];
+    isrbd::load_params(P, row, lane, p);
+    __syncwarp();
+    isrbd::terminal_rows(lane, x, p, k, [&](int g, T v) { rt[b * nt + g] = v; });
+  }
+  __syncthreads();                                 // the zeros are written
+  if (!live) return;
+  T* J = Jt + b * (nt * nx);
+  const T rho = p[L::p_rho];
   const T sr = sqrt(rho);
-  if (g < kTrack + k.n_eq_T) {
-    int q = g - kTrack;
-    const T s = (sr * k.sqw_T[q]) * k.S_T[q];
-    if (q < k.n_relvel) return s * relvel_dx(q, col, k);
-    q -= k.n_relvel;
-    if (q < k.nc) return col == k.i_c + 3 * q + 2 ? s : T(0);
-    q -= k.nc;
-    return (s * p[k.po[P_MZONE]]) * lipzone_dx(q, col, k);
+#pragma unroll
+  for (int c = 0; c < (nt + 31) / 32; ++c) {
+    const int g = lane + 32 * c;
+    if (g >= nt) continue;
+    T* row = J + g * nx;
+    if (g < 11) {                                  // tracking, mask 1
+      const T w = g == 0 ? k.w_rz : g < 5 ? p[L::p_wo] : g < 8 ? k.w_rdot : k.w_w;
+      row[g == 0 ? 2 : g < 5 ? 2 + g : g < 8 ? L::i_rdot + g - 5 : L::i_w + g - 8] = w;
+    } else if (g < L::n_track) {                   // foot pairs
+      const int r = g - 11;
+      const int a = k.fpi[r < 2 ? 0 : 1], b2 = k.fpi[r < 2 ? 2 : 3];
+      const int ax = (r % 2 == 0) ? 1 : 0;
+      row[L::i_c + 3 * a + ax] = -k.w_rel;
+      row[L::i_c + 3 * b2 + ax] = k.w_rel;
+    } else if (g < L::o_tbox) {                    // S_T√(ρw)·∂h_T
+      const int q = g - L::n_track;
+      const T s = (sr * k.sqw_T[q]) * k.S_T[q];
+      if (q < L::q_cz) {
+        row[isrbd::relvel_col(q, true)] = s;
+        row[isrbd::relvel_col(q, false)] = -s;
+      } else if (q < L::q_cz + L::nc) {
+        row[L::i_c + 3 * (q - L::q_cz) + 2] = s;
+      } else {
+        const int a = q - L::q_cz - L::nc;
+        row[a == 0 ? 2 : L::i_w + a - 1] = s * p[L::p_mzone];
+      }
+    } else {                                       // x-box rows
+      const int desc = isrbd::box_desc(g - L::o_tbox);
+      T sl;
+      isrbd::box_row(desc, x, p, rho, sr, &sl);
+      row[desc & 0xff] = sl;
+    }
   }
-  return xbox_dx(g - kTrack - k.n_eq_T, col, x, p, rho, sr, k);
-}
-
-__host__ __device__ inline int warp_floats(int nx, int nu, int n_par, int n_rho) {
-  return 2 * nx + nu + n_par + Scratch(n_rho).total;   // x, x_mid, u, p, scalars
 }
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
 isrbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                        isrbd::Params<T> P, const int* __restrict__ table,
-                       int B, int ns, int n_rx, int n_ru, int n_gx, int n_gu,
-                       int n_b, int n_uc, Consts<T> k, T* __restrict__ Sx,
-                       T* __restrict__ Bs, T* __restrict__ Jxp,
-                       T* __restrict__ Jup, T* __restrict__ rho_out,
-                       T* __restrict__ dfx, T* __restrict__ rt,
-                       T* __restrict__ Jt) {
-  using namespace isrbd;
+                       int B, int ns, int n_term,
+                       const __grid_constant__ Consts<T> k,
+                       T* __restrict__ Sx, T* __restrict__ Bs,
+                       T* __restrict__ Jxp, T* __restrict__ Jup,
+                       T* __restrict__ rho, T* __restrict__ dfx,
+                       T* __restrict__ rt, T* __restrict__ Jt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nx = k.nx, nu = k.nu, nr = k.n_rho, nt = k.n_term;
-  const int n_par = k.po[kParams];
-  const Scratch L(nr);
-  const int per_warp = warp_floats(nx, nu, n_par, nr);
-  const int n_tab = n_rx + n_ru + n_gx + n_gu + 2 * n_b + n_uc;
-  int* tab = reinterpret_cast<int*>(
-      reinterpret_cast<T*>(smem_raw) + kWarps * per_warp);
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  const int* rx = tab;
-  const int* ru = rx + n_rx;
-  const int* gx = ru + n_ru;
-  const int* gu = gx + n_gx;
-  const int* uc = gu + n_gu + 2 * n_b;
-
+  T* stg = reinterpret_cast<T*>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long gw = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (gw >= static_cast<long long>(B) * (ns + 1)) return;   // whole warp leaves
-  const size_t b = gw / (ns + 1);
-  const int n = static_cast<int>(gw % (ns + 1));
+  T* sw = stg + kStage + warp * wSize;
 
-  T* x = reinterpret_cast<T*>(smem_raw) + warp * per_warp;
-  T* xm = x + nx;
-  T* u = xm + nx;
-  T* p = u + nu;
-  T* sc = p + n_par;
-
-  const T* Xb = X + (b * (ns + 1) + n) * nx;
-  for (int j = lane; j < nx; j += 32) x[j] = Xb[j];
-  load_params(P, b * (ns + 1) + n, k, lane, p);
-  __syncwarp();
-
-  if (n == ns) {                     // the terminal pair rt, Jt
-    for (int g = lane; g < nt; g += 32) rt[b * nt + g] = terminal_rho_row(g, x, p, k);
-    T* Jo = Jt + b * nt * nx;
-    for (int e = lane; e < nt * nx; e += 32) {
-      const int g = e / nx;
-      Jo[e] = jac_term_x(g, e - g * nx, x, p, k);
-    }
+  if (static_cast<int>(blockIdx.x) < n_term) {    // the terminal pairs first
+    terminal_block(sw, X, P, B, ns,
+                   static_cast<long long>(blockIdx.x) * kWarps, k,
+                   rt, Jt);
     return;
   }
 
-  const size_t bn = b * ns + n;
-  for (int j = lane; j < nu; j += 32) u[j] = U[bn * nu + j];
-  __syncwarp();
-  // x_mid = x + dt/2·ẋ(x, u)
-  for (int j = lane; j < nx; j += 32)
-    xm[j] = x[j] + (T(0.5) * k.dt) * xdot_row(j, x, u, k);
-  if (lane == 0) node_geometry(x, p, k, sc + L.geo, sc + L.rot);
-  __syncwarp();
-  if (lane < 4) {                    // ∂(Iw ω̇ + ω×Iw ω)/∂o_lane
-    T dI[9], v1[3], v2[3];
-    world_inertia_dq(lane, x + 3, sc + L.rot, sc + L.rot + 9, k.I, dI);
-    const T* w = x + k.i_w;
-    const T* wd = u + 3;
-    for (int a = 0; a < 3; ++a) {
-      v1[a] = dI[a * 3] * wd[0] + dI[a * 3 + 1] * wd[1] + dI[a * 3 + 2] * wd[2];
-      v2[a] = dI[a * 3] * w[0] + dI[a * 3 + 1] * w[1] + dI[a * 3 + 2] * w[2];
+  int* info = reinterpret_cast<int*>(stg + kStage + kWarps * wSize);
+  int* dslot = info + 2 * kRows;
+  const long long q0 = static_cast<long long>(blockIdx.x - n_term) * kWarps;
+  const long long total = static_cast<long long>(B) * ns;
+  const int n_valid = total - q0 < kWarps ? static_cast<int>(total - q0) : kWarps;
+  const bool live = warp < n_valid;                 // warp-uniform
+  if (threadIdx.x < 6) dslot[threadIdx.x] = -1;
+  if (live) {
+    const long long q = q0 + warp;
+    const size_t b = q / ns;
+    const int n = static_cast<int>(q - static_cast<long long>(b) * ns);
+    const size_t row = b * (ns + 1) + n;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      if (j < nx) {
+        sw[wXU + j] = X[row * nx + j];
+        sw[wXN + j] = X[(row + 1) * nx + j];
+      }
     }
-    sc[L.angO + 0 * 4 + lane] = v1[0] + (w[1] * v2[2] - w[2] * v2[1]);
-    sc[L.angO + 1 * 4 + lane] = v1[1] + (w[2] * v2[0] - w[0] * v2[2]);
-    sc[L.angO + 2 * 4 + lane] = v1[2] + (w[0] * v2[1] - w[1] * v2[0]);
+    if (lane < nu) sw[wXU + nx + lane] = U[(b * ns + n) * nu + lane];
+    isrbd::load_params(P, row, lane, sw + wP);
   }
-  {                                  // the quaternion blocks of A − I and B
-    const T* w = x + k.i_w;
-    const T* o = x + 3;
-    const T* wmid = xm + k.i_w;
-    const T* omid = xm + 3;
-    const T hdt = T(0.5) * k.dt;
-    if (lane < 16) {
-      const int i = lane / 4, j = lane % 4;
-      T s = T(0);
-      for (int l = 0; l < 4; ++l)
-        s += quat_rate_jac_o(i, l, wmid) * quat_rate_jac_o(l, j, w);
-      sc[L.soo + lane] = quat_rate_jac_o(i, j, wmid) + hdt * s;
-    } else if (lane < 28) {
-      const int e = lane - 16, i = e / 3, j = e % 3;
-      T s = T(0);
-      for (int l = 0; l < 4; ++l)
-        s += quat_rate_jac_o(i, l, wmid) * quat_rate_jac_w(l, j, o);
-      const T fm = quat_rate_jac_w(i, j, omid);
-      sc[L.fowm + e] = fm;
-      sc[L.sow + e] = fm + hdt * s;
+  __syncthreads();                                  // dslot cleared, loads
+  for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
+    const int blk = i < Shape::n_rx ? 0
+                    : i < Shape::n_rx + Shape::n_ru ? 1
+                    : i < Shape::n_rx + Shape::n_ru + Shape::n_gx ? 2 : 3;
+    const int first = blk == 0 ? 0
+                      : blk == 1 ? Shape::n_rx
+                      : blk == 2 ? Shape::n_rx + Shape::n_ru
+                                 : Shape::n_rx + Shape::n_ru + Shape::n_gx;
+    const int2 kd = resolve(blk, table[i], table, k);
+    info[2 * i] = kd.x;
+    info[2 * i + 1] = kd.y;
+    if ((kd.x & 0xff) == kDense) dslot[3 * (blk - 2) + (kd.x >> 20)] = i - first;
+  }
+  if (live) prologue(sw, stg, warp, k, lane);
+  __syncthreads();                                  // ρ, d; kinds; scratch
+  stream_out(stg, rho + q0 * nr, n_valid * nr);
+  stream_out(stg + oD, dfx + q0 * nx, n_valid * nx);
+  __syncthreads();                                  // before the first fill
+  T* const dsts[4] = {Sx, Bs, Jxp, Jup};
+#pragma unroll
+  for (int blk = 0; blk < 4; ++blk) {
+    const int per = per_node(blk), grp = group(blk);
+#pragma unroll
+    for (int c0 = 0; c0 < kWarps; c0 += grp) {
+      const int cnt = n_valid - c0 < grp ? n_valid - c0 : grp;
+      if (cnt <= 0) break;                          // block-uniform
+      zero_fill(stg, cnt * per);
+      __syncthreads();
+      if (live && warp >= c0 && warp < c0 + grp)
+        emit_block(blk, sw, info, dslot, k, lane, stg + (warp - c0) * per);
+      __syncthreads();
+      stream_out(stg, dsts[blk] + (q0 + c0) * per, cnt * per);
+      __syncthreads();                              // before the next fill
     }
   }
-  for (int g = lane; g < nr; g += 32)
-    sc[L.rho + g] = stage_rho_row(g, x, u, sc + L.geo, p, k);
-  __syncwarp();
-
-  T* So = Sx + bn * n_rx * nx;
-  for (int e = lane; e < n_rx * nx; e += 32) {
-    const int i = e / nx;
-    So[e] = jac_step_x(rx[i], e - i * nx, sc, L, k);
-  }
-  T* Bo = Bs + bn * n_ru * n_uc;
-  for (int e = lane; e < n_ru * n_uc; e += 32) {
-    const int i = e / n_uc;
-    Bo[e] = jac_step_u(ru[i], uc[e - i * n_uc], sc, L, k);
-  }
-  T* Jxo = Jxp + bn * n_gx * nx;
-  for (int e = lane; e < n_gx * nx; e += 32) {
-    const int i = e / nx;
-    Jxo[e] = jac_rho_x(gx[i], e - i * nx, x, u, p, sc, L, k);
-  }
-  T* Juo = Jup + bn * n_gu * nu;
-  for (int e = lane; e < n_gu * nu; e += 32) {
-    const int i = e / nu;
-    Juo[e] = jac_rho_u(gu[i], e - i * nu, x, u, p, sc, L, k);
-  }
-  for (int g = lane; g < nr; g += 32) rho_out[bn * nr + g] = sc[L.rho + g];
-  // d = rk2(x, u) − X[n+1] = (x + dt·ẋ(x_mid, u)) − X[n+1]
-  const T* Xnext = Xb + nx;
-  for (int j = lane; j < nx; j += 32)
-    dfx[bn * nx + j] = (x[j] + k.dt * xdot_row(j, xm, u, k)) - Xnext[j];
 }
 
 template <typename T>
 int launch(const void* X, const void* U, const void* const* params,
            const void* table, int B, int ns, int nc, int cm, int n_legs,
-           int n_rx, int n_ru, int n_gx, int n_gu, int n_b, int n_uc,
+           int n_rx, int n_ru, int n_gx, int n_gu, int n_b, int n_uc_,
            const double* scalars, void* Sx, void* Bs, void* Jxp, void* Jup,
            void* rho, void* d, void* rt, void* Jt, void* stream) {
-  const long long warps = static_cast<long long>(B) * (ns + 1);
+  if (nc != Shape::nc || cm != Shape::cm || n_legs != Shape::n_legs ||
+      n_rx != Shape::n_rx || n_ru != Shape::n_ru || n_gx != Shape::n_gx ||
+      n_gu != Shape::n_gu || n_b != Shape::n_b || n_uc_ != Shape::n_uc)
+    return kUnknownShape;
   if (B == 0) return 0;
-  const Consts<T> k = isrbd::make_consts<T>(scalars, nc, cm, n_legs);
-  const size_t bytes =
-      sizeof(T) * kWarps * warp_floats(k.nx, k.nu, k.po[isrbd::kParams], k.n_rho) +
-      sizeof(int) * (n_rx + n_ru + n_gx + n_gu + 2 * n_b + n_uc);
-  cudaError_t err = cudaFuncSetAttribute(
-      isrbd_linearize_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  isrbd_linearize_kernel<T><<<blocks, 32 * kWarps, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const long long stage_nodes = static_cast<long long>(B) * ns;
+  const long long n_stage = (stage_nodes + kWarps - 1) / kWarps;
+  const long long n_term = (B + kWarps - 1) / kWarps;
+  const size_t bytes = smem_bytes<T>();
+  auto kernel = isrbd_linearize_kernel<T>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(n_term + n_stage), 32 * kWarps, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
       isrbd::make_params<T>(params), static_cast<const int*>(table), B, ns,
-      n_rx, n_ru, n_gx, n_gu, n_b, n_uc, k, static_cast<T*>(Sx),
-      static_cast<T*>(Bs), static_cast<T*>(Jxp), static_cast<T*>(Jup),
-      static_cast<T*>(rho), static_cast<T*>(d), static_cast<T*>(rt),
-      static_cast<T*>(Jt));
+      static_cast<int>(n_term), isrbd::make_consts<T>(scalars),
+      static_cast<T*>(Sx), static_cast<T*>(Bs), static_cast<T*>(Jxp),
+      static_cast<T*>(Jup), static_cast<T*>(rho), static_cast<T*>(d),
+      static_cast<T*>(rt), static_cast<T*>(Jt));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5's blocks resident on one SM, warps and shared memory a block, into
+// out[0..2].
+template <typename T>
+int occupancy(int* out) {
+  const size_t bytes = smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(isrbd_linearize_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, isrbd_linearize_kernel<T>, 32 * kWarps, bytes);
+  out[1] = kWarps;
+  out[2] = static_cast<int>(bytes);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -479,3 +745,10 @@ int launch(const void* X, const void* U, const void* const* params,
 
 LINEARIZE_ENTRY(isrbd_linearize_f32, float)
 LINEARIZE_ENTRY(isrbd_linearize_f64, double)
+
+// K5's occupancy for float32 (f64 = 0) or float64 tensors: out[0] blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] warps a block,
+// out[2] shared memory bytes a block.
+extern "C" int isrbd_linearize_occupancy(int f64, int* out) {
+  return f64 ? occupancy<double>(out) : occupancy<float>(out);
+}

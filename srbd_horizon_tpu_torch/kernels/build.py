@@ -10,12 +10,13 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
                     `riccati_backward_blocks_per_sm`
   srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`
   srbd_linearize    K4 `srbd_linearize`
-  isrbd_rollout     K6 `isrbd_trial`, `isrbd_evaluate`
-  isrbd_linearize   K5 `isrbd_linearize`
+  isrbd_rollout     K6 `isrbd_trial`, `isrbd_evaluate`; and, with no
+                    type suffix, `isrbd_trial_occupancy`
+  isrbd_linearize   K5 `isrbd_linearize`; `isrbd_linearize_occupancy`
 
 K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6 and
 `isrbd_evaluate` `csrc/isrbd_common.cuh`, and both of those
-`csrc/rigid_common.cuh`; K1 and K3 include `csrc/dmma.cuh`. A change to
+`csrc/rigid_common.cuh`; K1, K3 and K6 include `csrc/dmma.cuh`. A change to
 any file under `csrc/` rebuilds every library. The build runs at first
 use; `build_all` starts one `nvcc` per stale source, all at once. Nothing
 here runs when the module is imported.

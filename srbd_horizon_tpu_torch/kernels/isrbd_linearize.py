@@ -37,6 +37,12 @@ the kernel never sees the `ALState`.
 What bounds the kernel on an H100: bytes — a member-node writes ~6.9k
 values and reads ~0.43k, against a few thousand FLOP (the note in the
 .cu gives the design).
+
+K5, K6 and isrbd_evaluate are compiled for one set of sizes, those of the
+serving configuration (`isrbd::Shape` in csrc/isrbd_common.cuh,
+`KERNEL_SHAPE` here); their wrappers raise ValueError, naming the sizes,
+for CUDA tensors of any other, and take the plain twin for CPU tensors of
+any sizes.
 """
 
 from __future__ import annotations
@@ -58,7 +64,15 @@ from srbd_horizon_tpu_torch.problems.isrbd_al import (
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:273"
 SOURCE = "srbd_horizon_tpu_torch/csrc/isrbd_linearize.cu"
 N_TRACK = 15       # rows of the outer terminal residual
-MAX_EQ = 32        # equality rows the kernels' constant block holds
+
+# The sizes K5, K6 and isrbd_evaluate are compiled for (`isrbd::Shape` in
+# csrc/isrbd_common.cuh): the AL inner problem of build_isrbd_problem with
+# the Kangaroo line feet. n_par is the packed parameter row (the widths of
+# PARAM_KEYS); the row counts are K5's (`RiccatiRows.from_ocp` of the
+# inner OCP, K1's isrbd_al instantiation).
+KERNEL_SHAPE = dict(nc=4, cm=2, n_legs=2, nx=37, nu=30, n_rho=240,
+                    n_term=101, n_eq=21, n_eq_T=12, n_in=20, n_par=357,
+                    n_rx=19, n_ru=37, n_gx=60, n_gu=103, n_b=9, n_uc=18)
 
 
 def kernel_params(params, Bsz, ns, terms, dtype, device):
@@ -71,17 +85,29 @@ def kernel_params(params, Bsz, ns, terms, dtype, device):
     return out
 
 
-def check_terms(terms, nx, nu):
-    """Raise unless the problem is one the isrbd kernels are written for:
-    the isrbd layout, cone rows `A f ≤ 0` bounded above only."""
+def kernel_sizes(terms, nx: int, nu: int, rows=None):
+    """The sizes an isrbd kernel would be compiled for: the problem's, and
+    with `rows` (a `RiccatiRows`) the row counts K5 emits."""
     o = terms.outer
-    nc = o.nc
-    if nx != 13 + 6 * nc or nu != 6 + 6 * nc:
-        raise ValueError(f"not an isrbd layout: nx={nx}, nu={nu}, nc={nc}")
-    if max(terms.n_eq, terms.n_eq_T) > MAX_EQ:
-        raise ValueError(f"more than {MAX_EQ} equality rows: {terms.n_eq}")
-    if terms.n_ineq != 5 * nc:
-        raise ValueError(f"expected {5 * nc} cone rows, got {terms.n_ineq}")
+    sizes = dict(nc=o.nc, cm=o.contact_model, n_legs=o.number_of_legs,
+                 nx=nx, nu=nu, n_rho=terms.n_rho, n_term=terms.n_term,
+                 n_eq=terms.n_eq, n_eq_T=terms.n_eq_T, n_in=terms.n_ineq,
+                 n_par=sum(terms.param_dims()))
+    if rows is not None:
+        sizes.update(n_rx=len(rows.rx), n_ru=len(rows.ru), n_gx=len(rows.gx),
+                     n_gu=len(rows.gu), n_b=len(rows.bx), n_uc=len(rows.uc))
+    return sizes
+
+
+def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None):
+    """Raise ValueError, naming the sizes, unless they are those the isrbd
+    kernels are compiled for (`KERNEL_SHAPE`) and the cone rows are
+    `A f ≤ 0`, bounded above only, as the kernels assume."""
+    sizes = kernel_sizes(terms, nx, nu, rows)
+    if sizes != {k: KERNEL_SHAPE[k] for k in sizes}:
+        raise ValueError(
+            f"{name} has no kernel for the sizes {sizes}; it is compiled for "
+            f"{KERNEL_SHAPE} (csrc/isrbd_common.cuh)")
     terms.check_cone_bounds()
 
 
@@ -328,20 +354,37 @@ def _kernel_fn(dtype):
     return fn
 
 
+def occupancy(dtype=torch.float32):
+    """K5's blocks resident on one SM of the current card
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
+    memory bytes a block, for tensors of `dtype`."""
+    fn = library("isrbd_linearize").isrbd_linearize_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.restype = _I
+    out = (_I * 3)()
+    err = fn(int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"isrbd_linearize occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], warps_per_block=out[1],
+                shared_memory_bytes=out[2])
+
+
 def isrbd_linearize(X, U, params, terms, rows, dt: float):
     """K5. Same contract as `isrbd_linearize_plain`; launches the CUDA
-    kernel for CUDA tensors (and counts the launch in
-    `isrbd_linearize.launches`)."""
+    kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
+    launch in `isrbd_linearize.launches`), raises ValueError for other
+    sizes."""
     if X.device.type == "cpu":
         return isrbd_linearize_plain(X, U, params, terms, rows, dt)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    check_kernel_shape("isrbd_linearize", terms, nx, nu, rows)
     if X.device.type != "cuda":
         raise ValueError(f"isrbd_linearize runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"isrbd_linearize takes float32 or float64, got {dtype}")
-    Bsz, ns1, nx = X.shape
-    ns, nu = ns1 - 1, U.shape[-1]
-    check_terms(terms, nx, nu)
     o_ = terms.outer
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
     check_tensor("U", U, (Bsz, ns, nu), dtype, dev)

@@ -27,6 +27,10 @@ any entry is NaN), what the JAX package's solve computes with
 `jax.vmap(total_cost)` and `jax.vmap(_true_defects)` (msddp.py:1222, :1240,
 :1484-1490) on the AL inner OCP. Its plain twin `isrbd_evaluate_plain` is
 `ALTerms.total_cost` and the RK2 step.
+
+Both run on the sizes `isrbd_linearize.KERNEL_SHAPE` on CUDA tensors and
+raise ValueError, naming the sizes, on any other; CPU tensors take the
+twins at any sizes.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
-    check_terms,
+    check_kernel_shape,
     kernel_params,
     kernel_scalars,
 )
@@ -115,20 +119,21 @@ _D = ctypes.c_double
 
 def isrbd_evaluate(X, U, params, terms, dt: float):
     """isrbd_evaluate. Same contract as `isrbd_evaluate_plain`; launches the
-    CUDA kernel for CUDA tensors (and counts the launch in
-    `isrbd_evaluate.launches`)."""
+    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
+    the launch in `isrbd_evaluate.launches`), raises ValueError for other
+    sizes."""
     if X.device.type == "cpu":
         return isrbd_evaluate_plain(X, U, params, terms, dt)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    check_kernel_shape("isrbd_evaluate", terms, nx, nu)
     if X.device.type != "cuda":
         raise ValueError(f"isrbd_evaluate runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"isrbd_evaluate takes float32 or float64, got {dtype}")
-    Bsz, ns1, nx = X.shape
-    ns, nu = ns1 - 1, U.shape[-1]
     if ns + 1 > 32:
         raise ValueError(f"isrbd_evaluate takes at most 31 stage nodes, got {ns}")
-    check_terms(terms, nx, nu)
     o_ = terms.outer
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
     check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
@@ -167,21 +172,39 @@ def _kernel_fn(dtype):
     return fn
 
 
+def trial_occupancy(dtype=torch.float32):
+    """K6's blocks resident on one SM of the current card
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), the depth of its
+    per-warp ring of node buffers, warps and shared memory bytes a block,
+    for tensors of `dtype`."""
+    fn = library("isrbd_rollout").isrbd_trial_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.restype = _I
+    out = (_I * 4)()
+    err = fn(int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"isrbd_trial occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], ring_depth=out[1],
+                warps_per_block=out[2], shared_memory_bytes=out[3])
+
+
 def isrbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
                 terms, dt: float, nu_w: float, beta: float, alpha_min: float):
     """K6. Same contract as `isrbd_trial_plain`; launches the CUDA kernel
-    for CUDA tensors (and counts the launch in `isrbd_trial.launches`)."""
+    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
+    `isrbd_trial.launches`), raises ValueError for other sizes."""
     if d.device.type == "cpu":
         return isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                  D, dV1, dV2, terms, dt, nu_w, beta, alpha_min)
+    Bsz, ns, nx = d.shape
+    nu = U.shape[-1]
+    check_kernel_shape("isrbd_trial", terms, nx, nu)
     if d.device.type != "cuda":
         raise ValueError(f"isrbd_trial runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"isrbd_trial takes float32 or float64, got {dtype}")
-    Bsz, ns, nx = d.shape
-    nu = U.shape[-1]
-    check_terms(terms, nx, nu)
     o_ = terms.outer
     nA = alphas.shape[0]
     check_tensor("x0", x0, (Bsz, nx), dtype, dev)
@@ -193,6 +216,9 @@ def isrbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
     check_tensor("alphas", alphas, (nA,), dtype, dev)
     for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
         check_tensor(name, t, (Bsz,), dtype, dev)
+    for name, t in (("U", U), ("ks", ks), ("Ks", Ks)):   # two-element copies
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must start {2 * t.element_size()}-byte aligned")
     pt = kernel_params(params, Bsz, ns, terms, dtype, dev)
     Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
     Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
