@@ -18,14 +18,20 @@ parallel, into build/kernels/), then:
      plain version's own error plus 1e-6, K4 (the linearization) within
      that and below 1e-5, srbd_evaluate (the cost and largest defect of
      the drawn plans, one of them holding a NaN that must come out NaN)
-     by K3's rule; K2 (the SPD inverse K1 runs on Quu) alone,
+     by K3's rule, without and with node 0 pinned to x0 (the pinned plan
+     it writes equal to the twin's bit for bit); K2 (the SPD inverse K1 runs on Quu) alone,
      through its own entry, on the stack 2JupᵀJup + μI (B·ns = 10240,
      nu=24): float64 to 1e-9, float32 to 1e-6 of the float64 inverse of
      the same float32 stack; plus each kernel's time from CUDA events, the
      plain version's, the bound (K1 and K2 at the FP64 tensor-core rate),
      K2's beside `torch.linalg.inv` in float32 and float64, K1's shared
-     memory and blocks per SM, K4's achieved bytes per second, and K3's
-     time at B = 1, 132, 512, 528 and 4096 (`k3_size_probe`);
+     memory and blocks per SM, K4's achieved bytes per second, K3's
+     time at B = 1, 132, 512, 528 and 4096 (`k3_size_probe`), and for
+     srbd_evaluate its blocks per SM, registers, shared memory and waves
+     at B=512 in both types (`evaluate_occupancy`), its time pinned at
+     B = 1, 132, 512 and 4096 (`evaluate_size_probe`) and the host µs a
+     call of its wrapper with and without its cached host setup
+     (`evaluate_host_us`);
   3. the main path: the warm-started closed-loop SRBD fleet tick
      `MPCLoop.tick_batch` at B=512 in float32 (3 warm-up ticks, 20 timed
      ticks of the walk command), with the kernels' launch counts read
@@ -35,8 +41,8 @@ parallel, into build/kernels/), then:
      `_true_defects` is called; then per-phase times inside 5 more ticks
      (CUDA events and host clock at each phase boundary), 2 profiled ticks
      (device busy, kernel launches per tick), srbd_evaluate against its
-     twin on the plans the solver hands it in one more tick, and 3 ticks
-     at B=4096;
+     twin on the plans and x0 the solver hands it in one more tick (its
+     first call pins node 0, its last does not), and 3 ticks at B=4096;
   4. the card path against the CPU path at B=8 in float64: 3 warm ticks
      from the same carry, and one cold-start tick at pushes of 0.2 in
      which the backtracking fan runs; iterations and convergence equal,
@@ -51,7 +57,9 @@ parallel, into build/kernels/), then:
      and srbd_evaluate; K1's time at fleet sizes around whole waves of
      blocks is printed for both problems, and K6's at B = 1, 132, 256,
      528 and 4096 (`k6_size_probe`), with K5's achieved bytes per second
-     and both kernels' blocks per SM (K6's ring depth too) (no limit);
+     and both kernels' blocks per SM (K6's ring depth too), and
+     isrbd_evaluate's `evaluate_occupancy`, `evaluate_size_probe` (B = 1,
+     132, 256, 4096) and `evaluate_host_us` (no limit);
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
@@ -64,7 +72,8 @@ parallel, into build/kernels/), then:
      the timed ticks stays below 1e-2; then the phases inside 5 more
      ticks, 2 profiled ticks, K5, K1, K6 and isrbd_evaluate against their
      twins by the rules of 5 (K1 in float64 to 1e-8) on the inputs the
-     solver hands them in one further tick of that fleet, and B=4096 both
+     solver hands them in one further tick of that fleet, the kernel
+     launches a tick on both paths (`launches_per_tick`), and B=4096 both
      in chunks of 256 and whole (printed, no limit);
   7. the constrained card path against the CPU path at B=8 in float64: 3
      serving ticks from one CPU-made seed, iterations equal, X, U and λ
@@ -434,36 +443,112 @@ def trial_check(tag, plain, kernel, args, alphas4, merit0, D, dV1, dV2, opts,
     return dict(e64=worst(e64s), e32=worst(e32s), p32=worst(p32s), abs32=abs32)
 
 
-def evaluate_check(tag, plain, kernel, args, nan_member, **extra):
+def bits(t):
+    """The bit patterns of a float tensor, for equality that sees NaNs."""
+    import torch
+
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def evaluate_check(tag, plain, kernel, args, nan_member, x0, **extra):
     """An evaluation entry (srbd_evaluate, isrbd_evaluate) against its
     plain twin, on its two outputs (the cost and the largest defect of each
-    plan): float64 to 1e-9; float32 against the float64 plain result within
+    plan), without and with node 0 pinned to `x0` (float64, cast to each
+    type): float64 to 1e-9; float32 against the float64 plain result within
     2× the float32 twin's own error + 1e-6; member `nan_member` holds a NaN
     in its plan and must come out NaN in both outputs of both types (rel_err
-    also fails on any other difference of the non-finite entries).
-    `args(dtype)` gives the call's arguments. Returns the error figures;
-    fails the run on disagreement."""
+    also fails on any other difference of the non-finite entries); with x0
+    the pinned plan must equal the twin's bit for bit in both types.
+    `args(dtype)` gives the call's arguments. Returns the error figures of
+    the call without x0; fails the run on disagreement."""
     import torch
 
     f64, f32 = torch.float64, torch.float32
-    ref, got = plain(*args(f64)), kernel(*args(f64))
-    p32, g32 = plain(*args(f32)), kernel(*args(f32))
-    torch.cuda.synchronize()
     names = ("cost", "defect_max")
-    e64 = {n: rel_err(g, r) for n, g, r in zip(names, got, ref)}
-    e32 = {n: rel_err(g, r) for n, g, r in zip(names, g32, ref)}
-    ep32 = {n: rel_err(g, r) for n, g, r in zip(names, p32, ref)}
-    abs32 = max(abs_err(g, r) for g, r in zip(g32, ref))
-    nan_kept = all(bool(torch.isnan(o[nan_member])) for out in (got, g32)
-                   for o in out)
-    emit(tag, f64_rel_err=e64, f64_tol=1e-9, f32_rel_err=e32,
-         f32_plain_rel_err=ep32, f32_rule="kernel <= 2*plain + 1e-6",
-         f32_max_abs_err=abs32, nan_member_nan=nan_kept,
-         B=int(ref[0].shape[0]), **extra)
-    if not (max(e64.values()) <= 1e-9 and nan_kept
-            and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in names)):
+    res, fine, errs = {}, True, None
+    for pinned in (False, True):
+        kw = lambda dtype: dict(x0=x0.to(dtype).contiguous()) if pinned else {}
+        ref, got = plain(*args(f64), **kw(f64)), kernel(*args(f64), **kw(f64))
+        p32, g32 = plain(*args(f32), **kw(f32)), kernel(*args(f32), **kw(f32))
+        torch.cuda.synchronize()
+        e64 = {n: rel_err(g, r) for n, g, r in zip(names, got, ref)}
+        e32 = {n: rel_err(g, r) for n, g, r in zip(names, g32, ref)}
+        ep32 = {n: rel_err(g, r) for n, g, r in zip(names, p32, ref)}
+        abs32 = max(abs_err(g, r) for g, r in zip(g32[:2], ref[:2]))
+        nan_kept = all(bool(torch.isnan(o[nan_member])) for out in (got, g32)
+                       for o in out[:2])
+        r = dict(f64_rel_err=e64, f32_rel_err=e32, f32_plain_rel_err=ep32,
+                 f32_max_abs_err=abs32, nan_member_nan=nan_kept)
+        fine &= (max(e64.values()) <= 1e-9 and nan_kept
+                 and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in names))
+        if pinned:
+            r["pinned_X_bit_equal"] = (
+                len(got) == len(g32) == 3
+                and bool(torch.equal(bits(got[2]), bits(ref[2])))
+                and bool(torch.equal(bits(g32[2]), bits(p32[2]))))
+            fine &= r["pinned_X_bit_equal"]
+        else:
+            errs = dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+        res["pinned" if pinned else "plain_plan"] = r
+    emit(tag, f64_tol=1e-9, f32_rule="kernel <= 2*plain + 1e-6",
+         pinned_rule="pinned X equal to the twin's bit for bit",
+         B=int(x0.shape[0]), **res, **extra)
+    if not fine:
         fail(f"{tag}: the evaluation kernel disagrees with its plain version")
-    return dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+    return errs
+
+
+def evaluate_size_probe(kernel, args32, x0, sizes):
+    """An evaluation entry's time at fleet sizes around whole waves
+    (members repeated), float32, with node 0 pinned as the solve's cost0
+    call does: {B: ms}. B=1 reads one member's latency."""
+    out = {}
+    for Bw in sizes:
+        a = repeat_members(args32 + (x0,), Bw)
+        out[Bw] = cuda_ms(lambda: kernel(*a[:-1], x0=a[-1]), reps=20)
+    return out
+
+
+def host_us(fn, calls=200, reset=None):
+    """Host µs a call of `fn` over `calls` calls on the host clock (the
+    device keeps up: the kernels take a fraction of a call's host time),
+    with `reset()` before each call when given."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        if reset is not None:
+            reset()
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def evaluate_host_us(kernel, args32, x0, clear):
+    """Host µs a call of an evaluation wrapper, with its cached host setup
+    (`build.host_setup`) and with it cleared before every call (the work
+    each call did before the cache), without x0 and with it."""
+    out = {}
+    for name, kw in (("no_x0", {}), ("x0", dict(x0=x0))):
+        call = lambda: kernel(*args32, **kw)
+        out[name] = dict(cached=host_us(call), uncached=host_us(call, reset=clear))
+    return out
+
+
+def evaluate_occupancy(mod, ns, serving_B, sms):
+    """An evaluation entry's occupancy in both types, and the waves of
+    blocks at the serving fleet size."""
+    import torch
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        occ = mod.evaluate_occupancy(ns, dtype)
+        occ["waves_at_serving_B"] = -(-serving_B // max(1, occ["blocks_per_sm"] * sms))
+        out[name] = occ
+    return out
 
 
 def repeat_members(args, Bsz, skip=()):
@@ -672,8 +757,9 @@ def count_plain_cost():
 
 def recorded(obj, name, store):
     """Replace the method `name` of `obj` by one that appends a clone of its
-    tensor arguments (dicts of tensors included) to `store`; returns a
-    function that restores it."""
+    tensor arguments (dicts of tensors included), and of its keyword
+    arguments as a dict last, to `store`; returns a function that restores
+    it."""
     import torch
 
     orig = getattr(obj, name)
@@ -683,9 +769,9 @@ def recorded(obj, name, store):
             return {k: v.clone() for k, v in a.items()}
         return a.clone() if isinstance(a, torch.Tensor) else a
 
-    def wrapped(*a):
-        store.append(tuple(clone(v) for v in a))
-        return orig(*a)
+    def wrapped(*a, **kw):
+        store.append(tuple(clone(v) for v in a) + (clone(kw),))
+        return orig(*a, **kw)
 
     setattr(obj, name, wrapped)
     return lambda: setattr(obj, name, orig)
@@ -828,7 +914,8 @@ def main():
         return args
 
     ev_err = evaluate_check("srbd_evaluate_check", k3.srbd_evaluate_plain,
-                            k3.srbd_evaluate, ev_args(X_nan), nan_member=7)
+                            k3.srbd_evaluate, ev_args(X_nan), nan_member=7,
+                            x0=x0)
 
     # timing at the main path's shapes and type (float32, B=512)
     l32 = k4_args(torch.float32)
@@ -880,6 +967,20 @@ def main():
         e32[2], B, ns, nc, torch.float32, dev), *k3.srbd_evaluate(*e32))
     ev_flop = evaluate_flops(B, ns, nx, nc, n_rho)
     ev_bound, ev_by = bound(ev_bytes, ev_flop)
+    # pinned as the solve's cost0 call runs it: x0 read, the plan written
+    ex0 = cast(x0, torch.float32)
+    ev_pin_ms = cuda_ms(lambda: k3.srbd_evaluate(*e32, x0=ex0), reps=50)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ev_occ = evaluate_occupancy(k3, ns, B, sms)
+    emit("evaluate_occupancy", entry="srbd_evaluate", card=card, ns=ns,
+         serving_B=B, sms=sms, **ev_occ)
+    emit("evaluate_size_probe", entry="srbd_evaluate", card=card,
+         dtype="float32", pinned=True,
+         ms_by_B=evaluate_size_probe(k3.srbd_evaluate, e32, ex0,
+                                     (1, 132, B, B_LARGE)))
+    emit("evaluate_host_us", entry="srbd_evaluate", card=card, B=B,
+         **evaluate_host_us(k3.srbd_evaluate, e32, ex0,
+                            build.clear_host_setups))
 
     # K2 alone, through its own entry, on the (B·ns, nu, nu) Quu-like
     # stack 2JupᵀJup + μI in float64 and float32, beside torch.linalg.inv
@@ -902,7 +1003,7 @@ def main():
          srbd_linearize_bound_share=k4_bound / k4_ms,
          srbd_evaluate_ms=ev_ms, srbd_evaluate_plain_ms=ev_plain_ms,
          srbd_evaluate_bound_ms=ev_bound, srbd_evaluate_bytes=ev_bytes,
-         srbd_evaluate_flop=ev_flop)
+         srbd_evaluate_flop=ev_flop, srbd_evaluate_pinned_ms=ev_pin_ms)
     # SRBD sizes: four blocks an SM, 528 members a wave on 132 SMs
     emit("k1_wave_probe", sizes="srbd", card=card,
          shared_memory_bytes=k1_smem, blocks_per_sm=k1_blocks,
@@ -1008,8 +1109,9 @@ def main():
     srbd_step = lambda c: loop.tick_batch(c, inp)[0]
     carry, spans = tick_spans(loop.solver, srbd_step, carry, ticks=5)
     emit("tick_spans", B=B_MAIN, card=card, **spans)
-    emit("tick_profile", B=B_MAIN, card=card,
-         **profile_ticks(loop.solver, srbd_step, carry, main["tick_p50_ms"]))
+    srbd_profile = profile_ticks(loop.solver, srbd_step, carry,
+                                 main["tick_p50_ms"])
+    emit("tick_profile", B=B_MAIN, card=card, **srbd_profile)
     # srbd_evaluate against its twin on the plans the solver hands it in one
     # more tick (its first call, the starting cost); member 7's plan gets a
     # NaN
@@ -1018,7 +1120,10 @@ def main():
     carry = srbd_step(carry)
     restore_ev()
     torch.cuda.synchronize()
-    lvX, lvU, lvp = live_ev[0]
+    lvX, lvU, lvp, lvkw = live_ev[0]
+    if "x0" not in lvkw or "x0" in live_ev[-1][3]:
+        fail("the solve's first evaluation does not pin node 0, or its "
+             "last one does")
     lvX = lvX.clone()
     lvX[7, 3, 4] = float("nan")
 
@@ -1030,7 +1135,7 @@ def main():
 
     evaluate_check("srbd_evaluate_live_check", k3.srbd_evaluate_plain,
                    k3.srbd_evaluate, ev_live_args, nan_member=7,
-                   calls_in_tick=len(live_ev))
+                   x0=lvkw["x0"], calls_in_tick=len(live_ev))
     del live_ev, lvX, lvU, lvp
 
     large = run_main(B_LARGE, warm=1, timed=2)
@@ -1212,7 +1317,8 @@ def main():
         return args
 
     iev_err = evaluate_check("isrbd_evaluate_check", k6.isrbd_evaluate_plain,
-                             k6.isrbd_evaluate, iev_args(Ui_nan), nan_member=7)
+                             k6.isrbd_evaluate, iev_args(Ui_nan), nan_member=7,
+                             x0=ix0)
 
     # timing at the constrained path's shapes and type (float32, B=256)
     i32 = k5_args(torch.float32)
@@ -1260,6 +1366,18 @@ def main():
     iev_flop = isrbd_evaluate_flops(Bc, ns, inx, nc, al32.terms.n_rho,
                                     al32.terms.n_term)
     iev_bound, iev_by = bound(iev_bytes, iev_flop)
+    iex0 = cast(ix0, torch.float32)
+    iev_pin_ms = cuda_ms(lambda: k6.isrbd_evaluate(*ie32, x0=iex0), reps=50)
+    iev_occ = evaluate_occupancy(k6, ns, Bc, sms)
+    emit("evaluate_occupancy", entry="isrbd_evaluate", card=card, ns=ns,
+         serving_B=Bc, sms=sms, **iev_occ)
+    emit("evaluate_size_probe", entry="isrbd_evaluate", card=card,
+         dtype="float32", pinned=True,
+         ms_by_B=evaluate_size_probe(k6.isrbd_evaluate, ie32, iex0,
+                                     (1, 132, Bc, B_LARGE)))
+    emit("evaluate_host_us", entry="isrbd_evaluate", card=card, B=Bc,
+         **evaluate_host_us(k6.isrbd_evaluate, ie32, iex0,
+                            build.clear_host_setups))
     k5_occ, k6_occ = k5.occupancy(), k6.trial_occupancy()
     emit("kernel_times_constrained", card=card, B=Bc,
          isrbd_linearize_ms=k5_ms, isrbd_linearize_plain_ms=k5_plain_ms,
@@ -1280,7 +1398,7 @@ def main():
          isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms,
          isrbd_evaluate_ms=iev_ms, isrbd_evaluate_plain_ms=iev_plain_ms,
          isrbd_evaluate_bound_ms=iev_bound, isrbd_evaluate_bytes=iev_bytes,
-         isrbd_evaluate_flop=iev_flop)
+         isrbd_evaluate_flop=iev_flop, isrbd_evaluate_pinned_ms=iev_pin_ms)
     # K6 alone from one member to past a wave: B=1 is the chain's own
     # latency, K6's floor
     emit("k6_size_probe", card=card, alphas=1,
@@ -1442,8 +1560,20 @@ def main():
     online, cstep, cstate = cruns[0]
     cstate, cspans = tick_spans(online.inner, cstep, cstate, ticks=5)
     emit("tick_spans_constrained", B=B_CONSTRAINED, card=card, **cspans)
-    emit("tick_profile_constrained", B=B_CONSTRAINED, card=card,
-         **profile_ticks(online.inner, cstep, cstate, cmain["tick_p50_ms"]))
+    c_profile = profile_ticks(online.inner, cstep, cstate, cmain["tick_p50_ms"])
+    emit("tick_profile_constrained", B=B_CONSTRAINED, card=card, **c_profile)
+    # kernel launches a tick on both paths (torch.profiler), and the
+    # evaluation launches among them (two a solve: cost0 with the node-0
+    # pin, the final defects)
+    emit("launches_per_tick", card=card,
+         srbd=srbd_profile["kernel_launches_per_tick"],
+         constrained=c_profile["kernel_launches_per_tick"],
+         srbd_evaluate_per_tick=launches["srbd_evaluate"] / (
+             main["warmup_ticks"] + main["ticks"]),
+         isrbd_evaluate_per_tick=w["evaluate"] / cmain["ticks"],
+         memcpy_memset_per_tick=dict(
+             srbd=srbd_profile["memcpy_memset_per_tick"],
+             constrained=c_profile["memcpy_memset_per_tick"]))
 
     # the kernels against their twins once more, on the inputs the serving
     # path itself hands them: one further tick of the warm fleet with the
@@ -1509,7 +1639,10 @@ def main():
                 tdV1.double(), tdV2.double(), iopts, nan_member=7, B=Bc)
     # isrbd_evaluate on the plans of the tick's first call (the starting
     # cost); member 7's r̈ₓ at node 3 is NaN
-    eX, eU, ep = live_ev[0]
+    eX, eU, ep, ekw = live_ev[0]
+    if "x0" not in ekw or "x0" in live_ev[-1][3]:
+        fail("the solve's first evaluation does not pin node 0, or its "
+             "last one does")
     eU = eU.clone()
     eU[7, 3, 0] = float("nan")
 
@@ -1520,7 +1653,7 @@ def main():
 
     evaluate_check("isrbd_evaluate_live_check", k6.isrbd_evaluate_plain,
                    k6.isrbd_evaluate, iev_live_args, nan_member=7,
-                   calls_in_tick=len(live_ev))
+                   x0=ekw["x0"], calls_in_tick=len(live_ev))
     del live, llin64, live_ev
     del cruns[:]
     for chunk in (CONSTRAINED_CHUNK, 0):
@@ -1598,11 +1731,16 @@ def main():
                    shared_memory_bytes=k6_occ["shared_memory_bytes"],
                    blocks_per_sm=k6_occ["blocks_per_sm"]),
         dict(kernel_row("srbd_evaluate", k3, launches["srbd_evaluate"], ev_ms,
-                        ev_plain_ms, ev_bound, ev_by, ev_err, trial_tol),
+                        ev_plain_ms, ev_bound, ev_by, ev_err, trial_tol,
+                        ms_pinned=ev_pin_ms,
+                        blocks_per_sm=ev_occ["f32"]["blocks_per_sm"],
+                        waves_at_serving_B=ev_occ["f32"]["waves_at_serving_B"]),
              replaces=k3.EVALUATE_REPLACES),
         dict(kernel_row("isrbd_evaluate", k6, claunches["isrbd_evaluate"],
                         iev_ms, iev_plain_ms, iev_bound, iev_by, iev_err,
-                        trial_tol),
+                        trial_tol, ms_pinned=iev_pin_ms,
+                        blocks_per_sm=iev_occ["f32"]["blocks_per_sm"],
+                        waves_at_serving_B=iev_occ["f32"]["waves_at_serving_B"]),
              replaces=k6.EVALUATE_REPLACES),
         # K2 runs inside K1: its launches are K1's on the main path; its
         # times are the standalone entry's on the SRBD stack (float32)

@@ -1,7 +1,9 @@
 // The PTX instructions K1 and K2 issue directly, kept apart so that the
 // rest of riccati_backward.cu is plain CUDA C++; K3 (srbd_rollout.cu)
 // takes the cp.async helpers for its per-warp double buffer, K6
-// (isrbd_rollout.cu) those and the mbarriers between its two warps.
+// (isrbd_rollout.cu) those and the mbarriers between its two warps, and
+// the evaluation entries of both files the block-wide row staging
+// (cp_async_rows).
 //
 // FP64 tensor-core product, mma.sync.aligned.m16n8k4.row.col.f64 (sm_90
 // and later): D (16×8) = A (16×4) · B (4×8) + C, one warp, every lane
@@ -53,6 +55,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The kThreads threads of a block (this one is `tid`) copy rows n0 … n1−1
+// of a contiguous run of kDim-wide rows (row n at src + n·kDim) into
+// shared memory, row n at dst + n·stride, one element a copy: neighbouring
+// threads take neighbouring elements, so the reads coalesce whatever the
+// width, and the rows land wherever the kernel wants them.
+template <typename T, int kDim, int kThreads>
+__device__ __forceinline__ void cp_async_rows(T* dst, int stride,
+                                              const T* src, int n0, int n1,
+                                              int tid) {
+  for (int i = n0 * kDim + tid; i < n1 * kDim; i += kThreads) {
+    const int n = i / kDim;
+    cp_async<sizeof(T)>(dst + n * stride + (i - n * kDim), src + i);
+  }
 }
 
 // A barrier object in shared memory (mbarrier), for one warp to hand

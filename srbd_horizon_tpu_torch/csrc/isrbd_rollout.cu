@@ -79,12 +79,33 @@
 // 16 named barriers of a block for ids known only at run time, which
 // left four blocks an SM.
 //
-// isrbd_evaluate: one block per member and one warp per node (ns+1 warps).
-// The nodes do not depend on one another, so all of them load and compute
-// at once; each warp sums its node's squared rows (stage_rows or
-// terminal_rows) and takes the largest |defect| of its node (NaN kept),
-// and the node sums are added in node order, the terminal node last, as
-// the twin adds the stage sum and the terminal sum.
+// isrbd_evaluate, when given x0, reads it in place of X[:, 0] (the solve's
+// node-0 pin, msddp.py:1221; x0's rows may lie apart, as a node of a plan
+// does) and writes the pinned plan to Xpin.
+//
+// What bounds isrbd_evaluate: one member reads its plan and the 357
+// parameter values of every node, ~35 KB in f32, and does ~2.6k FLOP a
+// node; at B=256 that is ~9 MB, 0.0027 ms at 3.35 TB/s. Its nodes do not
+// depend on one another, and at B=256 the card holds every member at once,
+// so one member's latency sets most of the time. The first design (one
+// block of ns+1 warps a member, each warp loading its node's slices of the
+// 21 parameter tensors on its own with plain loads and forming the node's
+// geometry on every lane, the node sums added by one thread) took 8× the
+// bound. This one: one block of eleven warps a member, two blocks an SM
+// (B=256 is one wave on 132 SMs). The block stages the member's x, u and
+// parameter rows into one record a node in shared memory with cp.async,
+// neighbouring threads on neighbouring elements of each contiguous
+// per-member run (coalesced, one element a copy); a record is K6's node
+// (xu and the packed parameter row), x and u first. A prepass forms every
+// stage node's geometry and RK2 rates (R I Rᵀ, Iw ω, ȯ at the midpoint)
+// on one warp, a node a lane, while the parameter rows arrive; warp w
+// then runs nodes w and w+11, the rows in K6's passes (`stage_rows`,
+// `terminal_rows`) and the step. One warp sums the stage
+// nodes over its lanes, and the terminal node last, as the twin adds the
+// stage sum and the terminal sum. Of the layouts timed on the card, seven
+// warps (three nodes each) waited longer on one member's rows, and 21 (one
+// a node) spilled registers at two blocks an SM; eleven was the quickest
+// at B=256 and at B=4096.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -395,62 +416,185 @@ isrbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
               alpha_min, cost_out, merit_out, ok_out, lane);
 }
 
-// isrbd_evaluate: a warp's shared memory (x and u side by side, params)
-template <typename T>
-struct EvalWarp {
-  static constexpr int xu = 0, p = round_up(L::n_xu, 2);
-  static constexpr int size = round_up(p + L::n_par, 2);
+// ---- isrbd_evaluate ----
+
+constexpr int kEvalWarps = 11;                // ns = 20: nodes w, w+11
+constexpr int kEvalThreads = 32 * kEvalWarps;
+// Blocks an SM the registers are held to: two put the constrained serving
+// fleet (B=256, 1.9 members an SM) in one wave.
+constexpr int kEvalMinBlocks = 2;
+
+// One node's record in shared memory: x and u side by side (xu), then the
+// packed parameter row.
+struct EvalNode {
+  static constexpr int xu = 0, p = L::n_xu, size = p + L::n_par;
 };
 
+// A stage node's geometry and rates, from the prepass: Iw (9), Iw ω (3)
+// and ȯ at the RK2 midpoint (4), what the rows and the step read of them.
+constexpr int kGeo = 16;
+
+// The records, the stage nodes' geometry, then the node sums and maxima.
 template <typename T>
-__global__ void __launch_bounds__(1024)
-isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
-                      isrbd::Params<T> P, int ns,
-                      const __grid_constant__ isrbd::Consts<T> k,
-                      T* __restrict__ cost_out, T* __restrict__ dmax_out) {
-  using W = EvalWarp<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t b = blockIdx.x;
-  T* xu = reinterpret_cast<T*>(smem_raw) + n * W::size + W::xu;
-  T* p = reinterpret_cast<T*>(smem_raw) + n * W::size + W::p;
-  T* node_cost = reinterpret_cast<T*>(smem_raw) + (ns + 1) * W::size;
-  T* node_dmax = node_cost + (ns + 1);
-  const size_t row = b * (ns + 1) + n;
-  for (int j = lane; j < nx; j += 32) xu[j] = X[row * nx + j];
-  isrbd::load_params(P, row, lane, p);
+size_t evaluate_smem_bytes(int ns) {
+  return sizeof(T) * ((ns + 1) * (EvalNode::size + 2) + ns * kGeo);
+}
+
+// The block stages parameter tensors t … of the member's ns1 nodes (`row0`
+// is its first row, b·ns1).
+template <int t, typename T>
+__device__ __forceinline__ void stage_params(T* s, const isrbd::Params<T>& P,
+                                             size_t row0, int ns1, int tid) {
+  if constexpr (t < isrbd::kParams) {
+    constexpr int dim = isrbd::param_dim(t);
+    cp_async_rows<T, dim, kEvalThreads>(
+        s + EvalNode::p + isrbd::param_off(t), EvalNode::size,
+        P.p[t] + row0 * dim, 0, ns1, tid);
+    stage_params<t + 1>(s, P, row0, ns1, tid);
+  }
+}
+
+// The block starts the copies of member b's nodes into their records in
+// two cp.async groups: x (node 0's from x0, rows x0_stride apart, when it
+// is given) and u, then the parameter rows.
+template <typename T>
+__device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
+                                             const T* __restrict__ x0,
+                                             int x0_stride,
+                                             const T* __restrict__ U,
+                                             const isrbd::Params<T>& P,
+                                             size_t b, int ns, int tid) {
+  using EN = EvalNode;
+  const size_t row0 = b * (ns + 1);
+  int from = 0;
+  if (x0 != nullptr) {
+    cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size,
+                                       x0 + b * x0_stride, 0, 1, tid);
+    from = 1;
+  }
+  cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size, X + row0 * nx,
+                                     from, ns + 1, tid);
+  cp_async_rows<T, nu, kEvalThreads>(s + EN::xu + nx, EN::size,
+                                     U + b * ns * nu, 0, ns, tid);
+  cp_async_commit();
+  stage_params<0>(s, P, row0, ns + 1, tid);
+  cp_async_commit();
+}
+
+// The prepass: one lane forms one stage node's geometry and RK2 rates
+// (isrbd::geometry, isrbd::rates) into `out`, the parts the rows and the
+// step read. One warp thus runs the geometry of 32 nodes in the
+// instructions of one, where every node's warp ran it whole.
+template <typename T>
+__device__ __forceinline__ void node_geometry(const T* xu,
+                                              const isrbd::Consts<T>& k,
+                                              T* out) {
+  const isrbd::Geometry<T> g = isrbd::geometry(xu, k);
+  const isrbd::Rates<T> r = isrbd::rates(xu, T(0.5) * k.dt);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) out[i] = g.Iw[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[9 + i] = g.h[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[12 + i] = r.odm[i];
+}
+
+// One warp evaluates node n from its record and its geometry: this node's
+// Σ‖ρ‖² and largest |rk2(x, u) − X[n+1]| (stage nodes), or the terminal
+// rows' Σ, onto lane 0. X[n+1] comes from device memory, issued first.
+template <typename T>
+__device__ __forceinline__ void evaluate_node(const T* rec, const T* gs,
+                                              const T* __restrict__ Xnext,
+                                              int n, int ns,
+                                              const isrbd::Consts<T>& k,
+                                              int lane, T* cost, T* dmax) {
+  const T* xu = rec + EvalNode::xu;
+  const T* p = rec + EvalNode::p;
   T acc = T(0), dm = T(0);
   auto square = [&acc](int, T v) { acc += v * v; };
   if (n < ns) {                                    // warp-uniform
-    if (lane < nu) xu[nx + lane] = U[(b * ns + n) * nu + lane];
-    __syncwarp();
+    T xn[2];                                       // nx ≤ 64: two rows a lane
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      xn[c] = j < nx ? Xnext[j] : T(0);
+    }
     const T hdt = T(0.5) * k.dt;
-    const isrbd::Geometry<T> geo = isrbd::geometry(xu, k);
-    const isrbd::Rates<T> rt = isrbd::rates(xu, hdt);
+    isrbd::Geometry<T> geo{};                      // stage_rows reads Iw, h
+    isrbd::Rates<T> rt{};                          // step_row reads ȯ_mid
+#pragma unroll
+    for (int i = 0; i < 9; ++i) geo.Iw[i] = gs[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) geo.h[i] = gs[9 + i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rt.odm[i] = gs[12 + i];
     isrbd::stage_rows<false>(lane, xu, p, geo, k, square, [](int, T) {});
-    const T* Xnext = X + (row + 1) * nx;
-    for (int j = lane; j < nx; j += 32)
-      dm = isrbd::nan_max(
-          dm, isrbd::abs_nan(isrbd::step_row(j, xu, rt, hdt, k.dt) - Xnext[j]));
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      if (j < nx)
+        dm = isrbd::nan_max(
+            dm, isrbd::abs_nan(isrbd::step_row(j, xu, rt, hdt, k.dt) - xn[c]));
+    }
   } else {
-    __syncwarp();
     isrbd::terminal_rows(lane, xu, p, k, square);
   }
   acc = isrbd::warp_sum(acc);
   dm = isrbd::warp_nan_max(dm);
   if (lane == 0) {
-    node_cost[n] = acc;
-    node_dmax[n] = dm;
+    *cost = acc;
+    *dmax = dm;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kEvalThreads, kEvalMinBlocks)
+isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
+                      const T* __restrict__ x0, int x0_stride,
+                      isrbd::Params<T> P, int ns,
+                      const __grid_constant__ isrbd::Consts<T> k,
+                      T* __restrict__ cost_out, T* __restrict__ dmax_out,
+                      T* __restrict__ Xpin) {
+  using EN = EvalNode;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int ns1 = ns + 1;
+  T* geo = s + ns1 * EN::size;
+  T* node_cost = geo + ns * kGeo;
+  T* node_dmax = node_cost + ns1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t b = blockIdx.x;
+  stage_member(s, X, x0, x0_stride, U, P, b, ns, tid);
+  cp_async_wait_group<1>();                        // x and u are in
   __syncthreads();
-  if (threadIdx.x == 0) {
-    T c = T(0), m = T(0);
-    for (int i = 0; i < ns; ++i) {
-      c += node_cost[i];
-      m = isrbd::nan_max(m, node_dmax[i]);
+  if (Xpin != nullptr) {                           // the pinned plan, as staged
+    T* out = Xpin + b * ns1 * nx;
+    for (int i = tid; i < ns1 * nx; i += kEvalThreads) {
+      const int n = i / nx;
+      out[i] = s[n * EN::size + EN::xu + (i - n * nx)];
     }
-    cost_out[b] = c + node_cost[ns];
-    dmax_out[b] = m;
+  }
+  // the prepass: warp 0 forms every stage node's geometry, a node a lane
+  // (while the parameter rows stream in)
+  if (warp == 0)
+    for (int n = lane; n < ns; n += 32)
+      node_geometry(s + n * EN::size + EN::xu, k, geo + n * kGeo);
+  cp_async_wait_group<0>();                        // the parameter rows too
+  __syncthreads();
+  for (int n = warp; n < ns1; n += kEvalWarps)
+    evaluate_node(s + n * EN::size, geo + n * kGeo,
+                  X + (b * ns1 + n + 1) * nx, n, ns, k, lane, node_cost + n,
+                  node_dmax + n);
+  __syncthreads();
+  if (warp == 0) {   // the stage nodes over the lanes, then the terminal node
+    T c = lane < ns ? node_cost[lane] : T(0);
+    T m = lane < ns ? node_dmax[lane] : T(0);
+    c = isrbd::warp_sum(c);
+    m = isrbd::warp_nan_max(m);
+    if (lane == 0) {
+      cost_out[b] = c + node_cost[ns];
+      dmax_out[b] = m;
+    }
   }
 }
 
@@ -514,22 +658,45 @@ int trial_occupancy(int* out) {
 }
 
 template <typename T>
-int launch_evaluate(const void* X, const void* U, const void* const* params,
-                    int B, int ns, int nc, int cm, int n_legs,
-                    const double* scalars, void* cost, void* dmax,
-                    void* stream) {
+int launch_evaluate(const void* X, const void* U, const void* x0,
+                    int x0_stride, const void* const* params, int B, int ns,
+                    int nc, int cm,
+                    int n_legs, const double* scalars, void* cost, void* dmax,
+                    void* Xpin, void* stream) {
   if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t bytes = sizeof(T) * ((ns + 1) * EvalWarp<T>::size + 2 * (ns + 1));
+  const size_t bytes = evaluate_smem_bytes<T>(ns);
   auto kernel = isrbd_evaluate_kernel<T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<B, 32 * (ns + 1), bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kEvalThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
-      isrbd::make_params<T>(params), ns, isrbd::make_consts<T>(scalars),
-      static_cast<T*>(cost), static_cast<T*>(dmax));
+      static_cast<const T*>(x0), x0_stride, isrbd::make_params<T>(params), ns,
+      isrbd::make_consts<T>(scalars), static_cast<T*>(cost),
+      static_cast<T*>(dmax), static_cast<T*>(Xpin));
   return static_cast<int>(cudaGetLastError());
+}
+
+// isrbd_evaluate's occupancy at ns stage nodes, into out[0..4]: blocks
+// resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// warps a block, shared memory bytes a block, registers a thread and
+// local (spilled) bytes a thread (cudaFuncGetAttributes).
+template <typename T>
+int evaluate_occupancy(int ns, int* out) {
+  const size_t bytes = evaluate_smem_bytes<T>(ns);
+  auto kernel = isrbd_evaluate_kernel<T>;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                      kEvalThreads, bytes);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = kEvalWarps;
+  out[2] = static_cast<int>(bytes);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -559,14 +726,26 @@ extern "C" int isrbd_trial_occupancy(int f64, int* out) {
   return f64 ? trial_occupancy<double>(out) : trial_occupancy<float>(out);
 }
 
+// x0 and Xpin are null, or x0 (B, nx, rows x0_stride elements apart)
+// takes node 0's place and Xpin (B, ns+1, nx) receives the pinned plan.
 #define EVALUATE_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* X, const void* U,                           \
-                      const void* const* params, int B, int ns, int nc,       \
-                      int cm, int n_legs, const double* scalars, void* cost,  \
-                      void* dmax, void* stream) {                             \
-    return launch_evaluate<T>(X, U, params, B, ns, nc, cm, n_legs, scalars,   \
-                              cost, dmax, stream);                            \
+  extern "C" int NAME(const void* X, const void* U, const void* x0,           \
+                      int x0_stride, const void* const* params, int B,        \
+                      int ns, int nc, int cm, int n_legs,                     \
+                      const double* scalars, void* cost, void* dmax,          \
+                      void* Xpin, void* stream) {                             \
+    return launch_evaluate<T>(X, U, x0, x0_stride, params, B, ns, nc, cm,     \
+                              n_legs, scalars, cost, dmax, Xpin, stream);     \
   }
 
 EVALUATE_ENTRY(isrbd_evaluate_f32, float)
 EVALUATE_ENTRY(isrbd_evaluate_f64, double)
+
+// isrbd_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at
+// ns stage nodes: out[0] blocks an SM, out[1] warps a block, out[2] shared
+// memory bytes a block, out[3] registers a thread, out[4] local bytes a
+// thread.
+extern "C" int isrbd_evaluate_occupancy(int f64, int ns, int* out) {
+  return f64 ? evaluate_occupancy<double>(ns, out)
+             : evaluate_occupancy<float>(ns, out);
+}

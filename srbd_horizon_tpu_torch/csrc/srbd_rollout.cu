@@ -69,12 +69,32 @@
 // taken in another order than the plain twin's, so the two agree to
 // rounding, not bit for bit.
 //
-// srbd_evaluate: one block per member and one warp per node (ns+1 warps).
-// The nodes do not depend on one another, so all of them load and compute
-// at once; each warp sums its node's squared rows and takes the largest
-// |defect| of its node (NaN kept), and the node sums are added in node
-// order, the terminal node last, as the twin adds the stage sum and the
-// terminal sum.
+// srbd_evaluate, when given x0, reads it in place of X[:, 0] (the solve's
+// node-0 pin, msddp.py:1221; x0's rows may lie apart, as a node of a plan
+// does) and writes the pinned plan to Xpin.
+//
+// What bounds srbd_evaluate: one member reads its plan and 20 parameter
+// values a node, ~6.7 KB in f32, and does ~0.8k FLOP a node; at B=512 that
+// is ~3.4 MB, 0.001 ms at 3.35 TB/s. Its nodes do not depend on one
+// another, so the card's fill and each node's latency set its time. The
+// first design (one block of ns+1 warps a member, each warp loading its
+// node's slices of the seven parameter tensors on its own and forming the
+// node's geometry and rates on every lane, the node sums added by one
+// thread) took 19× that: at B=512 more members than one wave of
+// 672-thread blocks holds. This one: one block of seven warps a member,
+// compiled to hold four blocks an SM in float32 (B=512 is one wave on 132
+// SMs). The block stages the member's x, u and parameter rows into one
+// record a node in shared memory with cp.async, neighbouring threads on
+// neighbouring elements of each contiguous per-member run (coalesced, one
+// element a copy), x and u first. A prepass then forms every stage node's
+// rigid-body rates (R I Rᵀ, its cofactors, the contact sums, six divisions, ȯ) on one
+// warp, a node a lane, where the first design ran them whole on every lane
+// of every node's warp, while the parameter rows arrive; warp w then
+// evaluates nodes w, w+7, w+14, the rows
+// in K3's passes (`stage_sq_lane`). One warp sums the stage nodes over its
+// lanes, and the terminal node last, as the twin adds the stage sum and
+// the terminal sum. Blocks of 11 or 21 warps were quicker for one member
+// on the card but no quicker at B=512 and slower at B=4096.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -278,68 +298,219 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
   }
 }
 
-// srbd_evaluate: a warp's shared memory (x, u, params)
+// ---- srbd_evaluate ----
+
+constexpr int kEvalWarps = 7;                 // ns = 20: nodes w, w+7, w+14
+constexpr int kEvalThreads = 32 * kEvalWarps;
+// Blocks an SM the registers are held to: four in float32 puts the SRBD
+// serving fleet (B=512, 3.9 members an SM) in one wave.
 template <typename T>
-struct EvalWarp {
-  static constexpr int x = 0, u = S::nx, p = u + S::nu;
-  static constexpr int size = round_up(p + L::pw, 2);
+struct EvalMinBlocks {
+  static constexpr int value = sizeof(T) == 4 ? 4 : 2;
 };
 
+// One node's record in shared memory: x, u and the packed parameter row.
+struct EvalNode {
+  static constexpr int x = 0, u = S::nx, p = u + S::nu, size = p + L::pw;
+};
+// A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).
+constexpr int kRates = 10;
+
+// Width of parameter tensor t (srbd::kParams of them, in the order of
+// srbd::make_params) and its offset in the packed parameter row.
+__host__ __device__ constexpr int param_dim(int t) {
+  return t < 2 ? 1 : t == 2 ? 4 : t < 5 ? 3 : S::nc;
+}
+
+__host__ __device__ constexpr int param_off(int t) {
+  int o = 0;
+  for (int i = 0; i < t; ++i) o += param_dim(i);
+  return o;
+}
+static_assert(param_off(srbd::kParams) == L::pw &&
+                  param_off(3) == srbd::kP_rdot && param_off(5) == srbd::kP_cref,
+              "packed parameter row");
+
+// The records, the stage nodes' rates, then the node sums and maxima.
 template <typename T>
-__global__ void __launch_bounds__(1024)
-srbd_evaluate_kernel(const T* __restrict__ X,
-                                     const T* __restrict__ U,
-                                     srbd::Params<T> P, int ns,
-                                     srbd::Consts<T> k,
-                                     T* __restrict__ cost_out,
-                                     T* __restrict__ dmax_out) {
-  using W = EvalWarp<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t b = blockIdx.x;
-  T* sw = reinterpret_cast<T*>(smem_raw) + n * W::size;
-  T* node_cost = reinterpret_cast<T*>(smem_raw) + (ns + 1) * W::size;
-  T* node_dmax = node_cost + (ns + 1);
-  T* x = sw + W::x;
-  T* u = sw + W::u;
-  T* p = sw + W::p;
-  const size_t row = b * (ns + 1) + n;
-  for (int j = lane; j < S::nx; j += 32) x[j] = X[row * S::nx + j];
-  srbd::load_params<S>(P, row, lane, p);
+size_t evaluate_smem_bytes(int ns) {
+  return sizeof(T) * ((ns + 1) * (EvalNode::size + 2) + ns * kRates);
+}
+
+// The block stages parameter tensors t … of the member's ns1 nodes (`row0`
+// is its first row, b·ns1).
+template <int t, typename T>
+__device__ __forceinline__ void stage_params(T* s, const srbd::Params<T>& P,
+                                             size_t row0, int ns1, int tid) {
+  if constexpr (t < srbd::kParams) {
+    constexpr int dim = param_dim(t);
+    cp_async_rows<T, dim, kEvalThreads>(s + EvalNode::p + param_off(t),
+                                        EvalNode::size, P.p[t] + row0 * dim,
+                                        0, ns1, tid);
+    stage_params<t + 1>(s, P, row0, ns1, tid);
+  }
+}
+
+// The block starts the copies of member b's nodes into their records in
+// two cp.async groups: x (node 0's from x0, rows x0_stride apart, when it
+// is given) and u, then the parameter rows.
+template <typename T>
+__device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
+                                             const T* __restrict__ x0,
+                                             int x0_stride,
+                                             const T* __restrict__ U,
+                                             const srbd::Params<T>& P,
+                                             size_t b, int ns, int tid) {
+  using EN = EvalNode;
+  const size_t row0 = b * (ns + 1);
+  int from = 0;
+  if (x0 != nullptr) {
+    cp_async_rows<T, S::nx, kEvalThreads>(s + EN::x, EN::size,
+                                          x0 + b * x0_stride, 0, 1, tid);
+    from = 1;
+  }
+  cp_async_rows<T, S::nx, kEvalThreads>(s + EN::x, EN::size, X + row0 * S::nx,
+                                        from, ns + 1, tid);
+  cp_async_rows<T, S::nu, kEvalThreads>(s + EN::u, EN::size,
+                                        U + b * ns * S::nu, 0, ns, tid);
+  cp_async_commit();
+  stage_params<0>(s, P, row0, ns + 1, tid);
+  cp_async_commit();
+}
+
+// The prepass: one lane computes one stage node's rigid-body rates
+// (srbd::geometry and the rows of srbd::rigid_rates, the contact sums in a
+// loop) into `out` — r̈, ω̇, ȯ. One warp thus runs the geometry of 32 nodes
+// in the instructions of one, where every node's warp ran it whole.
+template <typename T>
+__device__ __forceinline__ void node_rates(const T* x, const T* u,
+                                           const srbd::Consts<T>& k, T* out) {
+  const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
+  T v0 = T(0), v1 = T(0), v2 = T(0), t0 = T(0), t1 = T(0), t2 = T(0);
+#pragma unroll
+  for (int q = 0; q < S::nc; ++q) {
+    const T* f = u + 6 * q + 3;
+    const T* cq = x + L::i_c + 3 * q;
+    const T p0 = cq[0] - x[0], p1 = cq[1] - x[1], p2 = cq[2] - x[2];
+    v0 += f[0];
+    v1 += f[1];
+    v2 += f[2];
+    t0 += p1 * f[2] - p2 * f[1];
+    t1 += p2 * f[0] - p0 * f[2];
+    t2 += p0 * f[1] - p1 * f[0];
+  }
+  const T* w = x + L::i_w;
+  const T b0 = t0 - (w[1] * g.h[2] - w[2] * g.h[1]);
+  const T b1 = t1 - (w[2] * g.h[0] - w[0] * g.h[2]);
+  const T b2 = t2 - (w[0] * g.h[1] - w[1] * g.h[0]);
+  out[0] = v0 / k.m_scaled;
+  out[1] = v1 / k.m_scaled;
+  out[2] = v2 / k.m_scaled - T(9.81);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[3 + i] = (g.C[i * 3] * b0 + g.C[i * 3 + 1] * b1 + g.C[i * 3 + 2] * b2) / g.det;
+  srbd::quat_rate(x + 3, w, out + 6);
+}
+
+// One warp evaluates node n from its record and its rates: this node's
+// Σ‖ρ‖² and largest |x + dt·ẋ(x, u) − X[n+1]| (stage nodes), or the
+// terminal rows' Σ, onto lane 0. X[n+1] comes from device memory, issued
+// first.
+template <typename T>
+__device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
+                                              const T* __restrict__ Xnext,
+                                              int n, int ns,
+                                              const srbd::Consts<T>& k,
+                                              int lane, T* cost, T* dmax) {
+  using EN = EvalNode;
+  const T* x = rec + EN::x;
+  const T* u = rec + EN::u;
+  const T* p = rec + EN::p;
   T acc = T(0), dm = T(0);
   if (n < ns) {                                    // warp-uniform
-    if (lane < S::nu) u[lane] = U[(b * ns + n) * S::nu + lane];
-    __syncwarp();
-    const srbd::Geometry<T> geo = srbd::geometry<S>(x, k);
-    const srbd::Rigid<T> rig = srbd::rigid_rates<S>(x, u, k, geo, lane);
+    T xn[2];                                       // nx ≤ 64: two rows a lane
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      xn[c] = j < S::nx ? Xnext[j] : T(0);
+    }
+    srbd::Rigid<T> rig;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      rig.rdd[i] = rates[i];
+      rig.wd[i] = rates[3 + i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rig.od[i] = rates[6 + i];
     acc = srbd::stage_sq_lane<S>(lane, x, u, rig, p, k);
-    const T* Xnext = X + (row + 1) * S::nx;
-    for (int j = lane; j < S::nx; j += 32) {
-      const T step = x[j] + k.dt * srbd::xdot_row<S>(j, x, u, rig);
-      dm = srbd::nan_max(dm, srbd::abs_nan(step - Xnext[j]));
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      if (j < S::nx) {
+        const T step = x[j] + k.dt * srbd::xdot_row<S>(j, x, u, rig);
+        dm = srbd::nan_max(dm, srbd::abs_nan(step - xn[c]));
+      }
     }
-  } else {
-    __syncwarp();
-    if (lane < S::nt) {
-      const T v = srbd::tracking_row<S>(lane, x, p, T(1), k);
-      acc = v * v;
-    }
+  } else if (lane < S::nt) {
+    const T v = srbd::tracking_row<S>(lane, x, p, T(1), k);
+    acc = v * v;
   }
   acc = srbd::warp_sum(acc);
   dm = srbd::warp_nan_max(dm);
   if (lane == 0) {
-    node_cost[n] = acc;
-    node_dmax[n] = dm;
+    *cost = acc;
+    *dmax = dm;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kEvalThreads, EvalMinBlocks<T>::value)
+srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
+                     const T* __restrict__ x0, int x0_stride,
+                     srbd::Params<T> P, int ns, srbd::Consts<T> k,
+                     T* __restrict__ cost_out, T* __restrict__ dmax_out,
+                     T* __restrict__ Xpin) {
+  using EN = EvalNode;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int ns1 = ns + 1;
+  T* rates = s + ns1 * EN::size;
+  T* node_cost = rates + ns * kRates;
+  T* node_dmax = node_cost + ns1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t b = blockIdx.x;
+  stage_member(s, X, x0, x0_stride, U, P, b, ns, tid);
+  cp_async_wait_group<1>();                        // x and u are in
   __syncthreads();
-  if (threadIdx.x == 0) {
-    T c = T(0), m = T(0);
-    for (int i = 0; i < ns; ++i) {
-      c += node_cost[i];
-      m = srbd::nan_max(m, node_dmax[i]);
+  if (Xpin != nullptr) {                           // the pinned plan, as staged
+    T* out = Xpin + b * ns1 * S::nx;
+    for (int i = tid; i < ns1 * S::nx; i += kEvalThreads) {
+      const int n = i / S::nx;
+      out[i] = s[n * EN::size + EN::x + (i - n * S::nx)];
     }
-    cost_out[b] = c + node_cost[ns];
-    dmax_out[b] = m;
+  }
+  // the prepass: warp 0 forms every stage node's rates, a node a lane
+  // (while the parameter rows stream in)
+  if (warp == 0)
+    for (int n = lane; n < ns; n += 32)
+      node_rates(s + n * EN::size + EN::x, s + n * EN::size + EN::u, k,
+                 rates + n * kRates);
+  cp_async_wait_group<0>();                        // the parameter rows too
+  __syncthreads();
+  for (int n = warp; n < ns1; n += kEvalWarps)
+    evaluate_node(s + n * EN::size, rates + n * kRates,
+                  X + (b * ns1 + n + 1) * S::nx, n, ns, k, lane,
+                  node_cost + n, node_dmax + n);
+  __syncthreads();
+  if (warp == 0) {   // the stage nodes over the lanes, then the terminal node
+    T c = lane < ns ? node_cost[lane] : T(0);
+    T m = lane < ns ? node_dmax[lane] : T(0);
+    c = srbd::warp_sum(c);
+    m = srbd::warp_nan_max(m);
+    if (lane == 0) {
+      cost_out[b] = c + node_cost[ns];
+      dmax_out[b] = m;
+    }
   }
 }
 
@@ -382,21 +553,55 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Let a kernel take `bytes` of dynamic shared memory (above 48 KB only
+// after the attribute is raised).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <typename T>
-int launch_evaluate(const void* X, const void* U, const void* const* params,
-                    int B, int ns, int nc, int cm, int n_legs,
-                    const double* scalars, void* cost, void* dmax,
-                    void* stream) {
+int launch_evaluate(const void* X, const void* U, const void* x0,
+                    int x0_stride, const void* const* params, int B, int ns,
+                    int nc, int cm,
+                    int n_legs, const double* scalars, void* cost, void* dmax,
+                    void* Xpin, void* stream) {
   if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t bytes = sizeof(T) * (ns + 1) * (EvalWarp<T>::size + 2);
-  srbd_evaluate_kernel<T><<<B, 32 * (ns + 1), bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
+  const size_t bytes = evaluate_smem_bytes<T>(ns);
+  auto kernel = srbd_evaluate_kernel<T>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<B, kEvalThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
-      srbd::make_params<T>(params), ns, srbd::make_consts<T>(scalars),
-      static_cast<T*>(cost), static_cast<T*>(dmax));
+      static_cast<const T*>(x0), x0_stride, srbd::make_params<T>(params), ns,
+      srbd::make_consts<T>(scalars), static_cast<T*>(cost),
+      static_cast<T*>(dmax), static_cast<T*>(Xpin));
   return static_cast<int>(cudaGetLastError());
+}
+
+// srbd_evaluate's occupancy at ns stage nodes, into out[0..4]: blocks
+// resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// warps a block, shared memory bytes a block, registers a thread and
+// local (spilled) bytes a thread (cudaFuncGetAttributes).
+template <typename T>
+int evaluate_occupancy(int ns, int* out) {
+  const size_t bytes = evaluate_smem_bytes<T>(ns);
+  auto kernel = srbd_evaluate_kernel<T>;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                      kEvalThreads, bytes);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = kEvalWarps;
+  out[2] = static_cast<int>(bytes);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -419,14 +624,26 @@ int launch_evaluate(const void* X, const void* U, const void* const* params,
 TRIAL_ENTRY(srbd_trial_f32, float)
 TRIAL_ENTRY(srbd_trial_f64, double)
 
+// x0 and Xpin are null, or x0 (B, nx, rows x0_stride elements apart)
+// takes node 0's place and Xpin (B, ns+1, nx) receives the pinned plan.
 #define EVALUATE_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* X, const void* U,                           \
-                      const void* const* params, int B, int ns, int nc,       \
-                      int cm, int n_legs, const double* scalars, void* cost,  \
-                      void* dmax, void* stream) {                             \
-    return launch_evaluate<T>(X, U, params, B, ns, nc, cm, n_legs, scalars,   \
-                              cost, dmax, stream);                            \
+  extern "C" int NAME(const void* X, const void* U, const void* x0,           \
+                      int x0_stride, const void* const* params, int B,        \
+                      int ns, int nc, int cm, int n_legs,                     \
+                      const double* scalars, void* cost, void* dmax,          \
+                      void* Xpin, void* stream) {                             \
+    return launch_evaluate<T>(X, U, x0, x0_stride, params, B, ns, nc, cm,     \
+                              n_legs, scalars, cost, dmax, Xpin, stream);     \
   }
 
 EVALUATE_ENTRY(srbd_evaluate_f32, float)
 EVALUATE_ENTRY(srbd_evaluate_f64, double)
+
+// srbd_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at ns
+// stage nodes: out[0] blocks an SM, out[1] warps a block, out[2] shared
+// memory bytes a block, out[3] registers a thread, out[4] local bytes a
+// thread.
+extern "C" int srbd_evaluate_occupancy(int f64, int ns, int* out) {
+  return f64 ? evaluate_occupancy<double>(ns, out)
+             : evaluate_occupancy<float>(ns, out);
+}

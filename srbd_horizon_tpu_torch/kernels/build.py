@@ -8,10 +8,12 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   riccati_backward  K1 `riccati_backward`, K2 `spd_inverse`; and, with
                     no type suffix, `riccati_backward_smem_bytes` and
                     `riccati_backward_blocks_per_sm`
-  srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`
+  srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`; and, with no type
+                    suffix, `srbd_evaluate_occupancy`
   srbd_linearize    K4 `srbd_linearize`
   isrbd_rollout     K6 `isrbd_trial`, `isrbd_evaluate`; and, with no
-                    type suffix, `isrbd_trial_occupancy`
+                    type suffix, `isrbd_trial_occupancy`,
+                    `isrbd_evaluate_occupancy`
   isrbd_linearize   K5 `isrbd_linearize`; `isrbd_linearize_occupancy`
 
 K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6 and
@@ -29,7 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_host_setups: Dict[tuple, tuple] = {}
 
 
 def nvcc_path() -> str:
@@ -98,17 +101,60 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> Dic
     return {name: library_path(name) for name in names}
 
 
-def check_tensor(name, t, shape, dtype, device):
+def check_tensor(name, t, shape, dtype, device, rows=False):
     """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
-    `shape`, contiguous (the kernels index raw pointers)."""
+    `shape`, contiguous (the kernels index raw pointers) — or, with
+    `rows`, its rows contiguous each, for a kernel that takes the row
+    stride of a 2-D `t`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if rows:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have contiguous rows")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def host_setup(terms, key: tuple, make: Callable[[], Any]):
+    """`make()`, computed once for each (terms, *key): the host work of a
+    wrapper that does not change between its calls, such as its shape
+    check and its scalars' ctypes array. A `make` that raises caches
+    nothing. The entry holds `terms`, so its id is not reused while the
+    entry stands."""
+    k = (id(terms),) + key
+    hit = _host_setups.get(k)
+    if hit is None:
+        hit = _host_setups[k] = (terms, make())
+    return hit[1]
+
+
+def clear_host_setups() -> None:
+    """Forget every `host_setup` result (the next call of each wrapper
+    redoes its host work)."""
+    _host_setups.clear()
+
+
+def evaluate_occupancy(name: str, ns: int, f64: bool) -> dict:
+    """An evaluation entry's occupancy on the current card, from
+    `<name>_evaluate_occupancy` in `lib<name>_rollout.so` at ns stage
+    nodes: blocks resident on one SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
+    memory bytes a block, registers and local (spilled) bytes a thread."""
+    fn = getattr(library(f"{name}_rollout"), f"{name}_evaluate_occupancy")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(int(f64), ns, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_evaluate occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], warps_per_block=out[1],
+                shared_memory_bytes=out[2], registers_per_thread=out[3],
+                local_bytes_per_thread=out[4])
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -25,7 +25,10 @@ plan with no rollout, on the same stacks and step: per member the cost
 Σₙ‖ρ(Xₙ, Uₙ)‖² + ‖ρ_N(X_N)‖² and the largest |rk2(Xₙ, Uₙ) − Xₙ₊₁| (NaN if
 any entry is NaN), what the JAX package's solve computes with
 `jax.vmap(total_cost)` and `jax.vmap(_true_defects)` (msddp.py:1222, :1240,
-:1484-1490) on the AL inner OCP. Its plain twin `isrbd_evaluate_plain` is
+:1484-1490) on the AL inner OCP. Given x0 (B, nx), it evaluates the plan
+with node 0 pinned to x0 and returns that plan as a third output,
+`X.clone()` with `X[:, 0] = x0` (the solve's pin, msddp.py:1221), written by
+the same launch. Its plain twin `isrbd_evaluate_plain` is
 `ALTerms.total_cost` and the RK2 step.
 
 Both run on the sizes `isrbd_linearize.KERNEL_SHAPE` on CUDA tensors and
@@ -39,7 +42,12 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    evaluate_occupancy as build_occupancy,
+    host_setup,
+    library,
+)
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     check_kernel_shape,
     kernel_params,
@@ -98,18 +106,24 @@ def isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     return Xn, Un, new_cost, new_merit, ok
 
 
-def isrbd_evaluate_plain(X, U, params, terms, dt: float):
+def isrbd_evaluate_plain(X, U, params, terms, dt: float, x0=None):
     """Plain PyTorch isrbd_evaluate: the cost (B,) of each plan on the inner
     stacks, `terms.total_cost`, and its largest |defect| (B,) under the RK2
     step of the double integrator, `torch.amax` of |rk2(Xₙ, Uₙ) − Xₙ₊₁| (NaN
-    kept). X (B,ns+1,nx), U (B,ns,nu), params leaves (B,ns+1,dim)."""
+    kept). X (B,ns+1,nx), U (B,ns,nu), params leaves (B,ns+1,dim). Given x0
+    (B,nx), node 0 of the plan is x0, and the pinned plan is returned
+    third."""
+    if x0 is not None:
+        X = X.clone()
+        X[..., 0, :] = x0
     ns = U.shape[-2]
     xdot = terms.outer.xdot
     x = X[..., :ns, :]
     k1 = xdot(x, U)
     step = x + dt * xdot(x + 0.5 * dt * k1, U)
     defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
-    return terms.total_cost(X, U, params), defect_max
+    cost = terms.total_cost(X, U, params)
+    return (cost, defect_max) if x0 is None else (cost, defect_max, X)
 
 
 _P = ctypes.c_void_p
@@ -117,19 +131,28 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 
 
-def isrbd_evaluate(X, U, params, terms, dt: float):
+def _evaluate_setup(terms, nx: int, nu: int, dt: float):
+    """What isrbd_evaluate checks and builds once for (terms, dtype): the
+    sizes and cone bounds, and the scalars as a ctypes array."""
+    check_kernel_shape("isrbd_evaluate", terms, nx, nu)
+    sc = kernel_scalars(terms, dt)
+    return (_D * len(sc))(*sc)
+
+
+def isrbd_evaluate(X, U, params, terms, dt: float, x0=None):
     """isrbd_evaluate. Same contract as `isrbd_evaluate_plain`; launches the
     CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
     the launch in `isrbd_evaluate.launches`), raises ValueError for other
     sizes."""
     if X.device.type == "cpu":
-        return isrbd_evaluate_plain(X, U, params, terms, dt)
+        return isrbd_evaluate_plain(X, U, params, terms, dt, x0)
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, U.shape[-1]
-    check_kernel_shape("isrbd_evaluate", terms, nx, nu)
-    if X.device.type != "cuda":
-        raise ValueError(f"isrbd_evaluate runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
+    scalars = host_setup(terms, ("isrbd_evaluate", dtype, nx, nu, dt),
+                         lambda: _evaluate_setup(terms, nx, nu, dt))
+    if dev.type != "cuda":
+        raise ValueError(f"isrbd_evaluate runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"isrbd_evaluate takes float32 or float64, got {dtype}")
     if ns + 1 > 32:
@@ -137,30 +160,48 @@ def isrbd_evaluate(X, U, params, terms, dt: float):
     o_ = terms.outer
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
     check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    if x0 is not None:                       # its rows may lie apart
+        check_tensor("x0", x0, (Bsz, nx), dtype, dev, rows=True)
     pt = kernel_params(params, Bsz, ns, terms, dtype, dev)
     cost = torch.empty((Bsz,), dtype=dtype, device=dev)
     dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
+    Xp = None if x0 is None else torch.empty_like(X)
     ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    sc = kernel_scalars(terms, dt)
-    scalars = (_D * len(sc))(*sc)
-    lib = library("isrbd_rollout")
-    fn = (lib.isrbd_evaluate_f32 if dtype == torch.float32
-          else lib.isrbd_evaluate_f64)
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 3 + [_I] * 5 + [_P] * 4
-        fn.restype = _I
+    fn = _evaluate_fn(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(X.data_ptr(), U.data_ptr(), ptrs, Bsz, ns, o_.nc,
+        err = fn(X.data_ptr(), U.data_ptr(),
+                 None if x0 is None else x0.data_ptr(),
+                 0 if x0 is None else x0.stride(0), ptrs, Bsz, ns, o_.nc,
                  o_.contact_model, o_.number_of_legs, scalars,
-                 cost.data_ptr(), dmax.data_ptr(), stream)
+                 cost.data_ptr(), dmax.data_ptr(),
+                 None if Xp is None else Xp.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"isrbd_evaluate kernel failed: CUDA error {err}")
     isrbd_evaluate.launches += 1
-    return cost, dmax
+    return (cost, dmax) if Xp is None else (cost, dmax, Xp)
 
 
 isrbd_evaluate.launches = 0
+_evaluate_fns = {}
+
+
+def _evaluate_fn(dtype):
+    fn = _evaluate_fns.get(dtype)
+    if fn is None:
+        lib = library("isrbd_rollout")
+        fn = (lib.isrbd_evaluate_f32 if dtype == torch.float32
+              else lib.isrbd_evaluate_f64)
+        fn.argtypes = [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5
+        fn.restype = _I
+        _evaluate_fns[dtype] = fn
+    return fn
+
+
+def evaluate_occupancy(ns: int, dtype=torch.float32):
+    """isrbd_evaluate's occupancy at ns stage nodes for tensors of `dtype`
+    (`build.evaluate_occupancy`)."""
+    return build_occupancy("isrbd", ns, dtype == torch.float64)
 
 
 def _kernel_fn(dtype):

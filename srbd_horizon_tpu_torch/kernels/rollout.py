@@ -23,7 +23,10 @@ Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
 plan with no rollout: per member the cost Σₙ‖ρ(Xₙ, Uₙ)‖² + ‖ρ_N(X_N)‖² and
 the largest |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the
 JAX package's solve computes with `jax.vmap(total_cost)` and
-`jax.vmap(_true_defects)` (msddp.py:1222, :1240, :1484-1490). Its plain twin
+`jax.vmap(_true_defects)` (msddp.py:1222, :1240, :1484-1490). Given x0
+(B, nx), it evaluates the plan with node 0 pinned to x0 and returns that
+plan as a third output, `X.clone()` with `X[:, 0] = x0` (the solve's pin,
+msddp.py:1221), written by the same launch. Its plain twin
 `srbd_evaluate_plain` is `SRBDTerms.total_cost` and the Euler step.
 
 Both run on the sizes `linearize.KERNEL_SHAPE` on CUDA tensors and raise
@@ -36,7 +39,12 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    evaluate_occupancy as build_occupancy,
+    host_setup,
+    library,
+)
 from srbd_horizon_tpu_torch.kernels.linearize import (
     check_kernel_shape,
     kernel_params,
@@ -93,17 +101,22 @@ def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     return Xn, Un, new_cost, new_merit, ok
 
 
-def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float):
+def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
     """Plain PyTorch srbd_evaluate: the cost (B,) of each plan,
     `terms.total_cost`, and its largest |defect| (B,) under the Euler step,
     `torch.amax` of |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN kept). X (B,ns+1,nx),
-    U (B,ns,nu), params leaves (B,ns+1,dim)."""
+    U (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of
+    the plan is x0, and the pinned plan is returned third."""
+    if x0 is not None:
+        X = X.clone()
+        X[..., 0, :] = x0
     ns = U.shape[-2]
     consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
     x = X[..., :ns, :]
     step = x + dt * srbd_xdot(x, U, consts)
     defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
-    return terms.total_cost(X, U, params, wc), defect_max
+    cost = terms.total_cost(X, U, params, wc)
+    return (cost, defect_max) if x0 is None else (cost, defect_max, X)
 
 
 _P = ctypes.c_void_p
@@ -111,53 +124,75 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 
 
-def srbd_evaluate(X, U, params, terms, dt: float, wc: float):
+def _evaluate_setup(terms, nx: int, nu: int, dt: float, wc: float):
+    """What srbd_evaluate checks and builds once for (terms, dtype): the
+    sizes, and the scalars as a ctypes array."""
+    check_kernel_shape("srbd_evaluate", terms, nx, nu)
+    return (_D * 24)(*terms.kernel_scalars(dt, wc))
+
+
+def srbd_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
     """srbd_evaluate. Same contract as `srbd_evaluate_plain`; launches the
     CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
     the launch in `srbd_evaluate.launches`), raises ValueError for other
     sizes."""
     if X.device.type == "cpu":
-        return srbd_evaluate_plain(X, U, params, terms, dt, wc)
+        return srbd_evaluate_plain(X, U, params, terms, dt, wc, x0)
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, U.shape[-1]
-    check_kernel_shape("srbd_evaluate", terms, nx, nu)
-    if X.device.type != "cuda":
-        raise ValueError(f"srbd_evaluate runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
+    scalars = host_setup(terms, ("srbd_evaluate", dtype, nx, nu, dt, wc),
+                         lambda: _evaluate_setup(terms, nx, nu, dt, wc))
+    if dev.type != "cuda":
+        raise ValueError(f"srbd_evaluate runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"srbd_evaluate takes float32 or float64, got {dtype}")
     if ns + 1 > 32:
         raise ValueError(f"srbd_evaluate takes at most 31 stage nodes, got {ns}")
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
     check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    if x0 is not None:                       # its rows may lie apart
+        check_tensor("x0", x0, (Bsz, nx), dtype, dev, rows=True)
     pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
     cost = torch.empty((Bsz,), dtype=dtype, device=dev)
     dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
+    Xp = None if x0 is None else torch.empty_like(X)
     ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    scalars = (_D * 24)(*terms.kernel_scalars(dt, wc))
     fn = _evaluate_fn(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(X.data_ptr(), U.data_ptr(), ptrs, Bsz, ns, terms.nc,
-                 terms.contact_model, terms.number_of_legs, scalars,
-                 cost.data_ptr(), dmax.data_ptr(), stream)
+        err = fn(X.data_ptr(), U.data_ptr(),
+                 None if x0 is None else x0.data_ptr(),
+                 0 if x0 is None else x0.stride(0), ptrs, Bsz, ns,
+                 terms.nc, terms.contact_model, terms.number_of_legs, scalars,
+                 cost.data_ptr(), dmax.data_ptr(),
+                 None if Xp is None else Xp.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"srbd_evaluate kernel failed: CUDA error {err}")
     srbd_evaluate.launches += 1
-    return cost, dmax
+    return (cost, dmax) if Xp is None else (cost, dmax, Xp)
 
 
 srbd_evaluate.launches = 0
+_evaluate_fns = {}
 
 
 def _evaluate_fn(dtype):
-    lib = library("srbd_rollout")
-    fn = (lib.srbd_evaluate_f32 if dtype == torch.float32
-          else lib.srbd_evaluate_f64)
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 3 + [_I] * 5 + [_P] * 4
+    fn = _evaluate_fns.get(dtype)
+    if fn is None:
+        lib = library("srbd_rollout")
+        fn = (lib.srbd_evaluate_f32 if dtype == torch.float32
+              else lib.srbd_evaluate_f64)
+        fn.argtypes = [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5
         fn.restype = _I
+        _evaluate_fns[dtype] = fn
     return fn
+
+
+def evaluate_occupancy(ns: int, dtype=torch.float32):
+    """srbd_evaluate's occupancy at ns stage nodes for tensors of `dtype`
+    (`build.evaluate_occupancy`)."""
+    return build_occupancy("srbd", ns, dtype == torch.float64)
 
 
 def _kernel_fn(dtype):

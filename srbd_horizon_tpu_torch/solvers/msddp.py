@@ -18,7 +18,8 @@ One iteration for a fleet of B members:
 A solve's starting cost and its final defect norm come from one
 evaluation launch each (`srbd_evaluate` in `kernels/rollout.py`,
 `isrbd_evaluate` in `kernels/isrbd_rollout.py`), which evaluates the plan
-with the trial kernel's rows and step and no rollout.
+with the trial kernel's rows and step and no rollout; the first also pins
+node 0 to x0 and writes the pinned plan the solve starts from.
 
 The linearization, trial and evaluation kernels are written per problem
 family: the solver reads the problem's terms object
@@ -173,15 +174,18 @@ class MSDDP:
         F = self.ocp.step(X[..., :ns, :], U, p_stage, self.ocp.dt)
         return F - X[..., 1:, :]
 
-    def _evaluate(self, X, U, params):
+    def _evaluate(self, X, U, params, x0=None):
         """The cost Σₙ‖ρₙ‖² + ‖ρ_N‖² (B,) of each plan and its largest
         |step(Xₙ, Uₙ) − Xₙ₊₁| (B,), NaN kept, in one launch of the family's
-        evaluation kernel (the plain twin for CPU tensors)."""
+        evaluation kernel (the plain twin for CPU tensors). Given x0 (B, nx;
+        its rows may lie apart, as a node of a plan does), node 0 of each
+        plan is pinned to it, and the pinned plans come third, from the same
+        launch."""
         evaluate = _KERNELS[self.terms.family][2]
         return evaluate(X.contiguous(), U.contiguous(),
                         {k: v.contiguous() for k, v in params.items()},
                         self.terms, self.ocp.dt,
-                        *self._family_args(X.dtype))
+                        *self._family_args(X.dtype), x0=x0)
 
     # ---------- linearization ----------
 
@@ -405,10 +409,9 @@ class MSDDP:
         opts = self.opts
         self._phase("cost0")
         # node 0 is pinned to the measured state: a stale warm start's x0
-        # gap becomes the node-0 defect
-        X = sols.X.clone()
-        X[:, 0] = x0
-        cost0, _ = self._evaluate(X, sols.U, params)
+        # gap becomes the node-0 defect (the evaluation writes the pinned
+        # plan, a new tensor)
+        cost0, _, X = self._evaluate(sols.X, sols.U, params, x0=x0)
         Bsz = cost0.shape[0]
         state = _IterState(
             X=X, U=sols.U, cost=cost0,

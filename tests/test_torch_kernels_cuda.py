@@ -12,8 +12,10 @@ its own entry, float64 to 1e-9 against `lm_spd_inverse` and float32 to
 ragged fleet sizes (B = 1, 133, 513; K3 with one and four step sizes);
 the evaluation entries `srbd_evaluate` and `isrbd_evaluate` (cost and
 largest defect of a plan) by K3's rules, a member with a NaN plan giving
-NaN in both; and K3, K4 and srbd_evaluate refusing sizes they were not
-compiled for. Skipped where no CUDA device is present (run on the card
+NaN in both, and given x0 the pinned plan equal to the twin's bit for bit
+(a NaN in one member's x0 kept), with their occupancy entries reporting at
+least one block an SM; and K3, K4 and srbd_evaluate refusing sizes they
+were not compiled for. Skipped where no CUDA device is present (run on the card
 with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
 import numpy as np
@@ -510,6 +512,97 @@ def test_isrbd_evaluate_matches_plain(isrbd_case, Bw):
     if Bw > 1:
         for out in (got, got32):
             assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _pinned_check(plain, kernel, args):
+    """With x0: the cost and largest defect by `_evaluate_check`'s rules,
+    and the pinned plan equal to the twin's bit for bit, in both types."""
+    ref, got, got32 = _evaluate_check(plain, kernel, args)
+    assert len(ref) == len(got) == len(got32) == 3
+    for dtype, out in ((torch.float64, got), (torch.float32, got32)):
+        want = plain(*args(dtype))[2]
+        assert torch.equal(_bits(out[2]), _bits(want))
+    return ref, got, got32
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+def test_srbd_evaluate_pins_node0(card_case, Bw):
+    x0 = _repeat(card_case["x0"], Bw)
+    if Bw > 1:
+        x0[1, 4] = float("nan")
+
+    def args(dtype):
+        s = card_case["solver"] if dtype == torch.float64 else card_case["solver32"]
+        t = lambda a: a.to(dtype).contiguous()
+        return (t(_repeat(card_case["X"], Bw)), t(_repeat(card_case["U"], Bw)),
+                {k: t(_repeat(v, Bw)) for k, v in card_case["params"].items()},
+                s.terms, card_case["ocp"].dt, s._wc(dtype), t(x0))
+
+    before = k3.srbd_evaluate.launches
+    ref, got, got32 = _pinned_check(k3.srbd_evaluate_plain, k3.srbd_evaluate,
+                                    args)
+    assert k3.srbd_evaluate.launches == before + 2
+    if Bw > 1:
+        for out in (got, got32):
+            assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+        assert bool(torch.isfinite(got[0][2:]).all())
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 257])
+def test_isrbd_evaluate_pins_node0(isrbd_case, Bw):
+    x0 = _repeat(isrbd_case["x0"], Bw)
+    if Bw > 1:
+        x0[1, 4] = float("nan")
+
+    def args(dtype):
+        a = isrbd_case["al"] if dtype == torch.float64 else isrbd_case["al32"]
+        t = lambda v: v.to(dtype).contiguous()
+        return (t(_repeat(isrbd_case["X"], Bw)), t(_repeat(isrbd_case["U"], Bw)),
+                {k: t(_repeat(v, Bw)) for k, v in isrbd_case["pin"].items()},
+                a.terms, isrbd_case["ocp"].dt, t(x0))
+
+    before = k6.isrbd_evaluate.launches
+    ref, got, got32 = _pinned_check(k6.isrbd_evaluate_plain,
+                                    k6.isrbd_evaluate, args)
+    assert k6.isrbd_evaluate.launches == before + 2
+    if Bw > 1:
+        for out in (got, got32):
+            assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+
+
+def test_evaluate_takes_strided_x0(card_case, isrbd_case):
+    """x0 as a node of a plan (rows ns+1 nodes apart, as the serving tick
+    passes X[:, 1]): the same outputs as its contiguous copy, bit for bit."""
+    s = card_case["solver"]
+    a = isrbd_case["al"]
+    cases = ((k3.srbd_evaluate, card_case["X"], card_case["U"],
+              card_case["params"], (s.terms, card_case["ocp"].dt,
+                                    s._wc(torch.float64))),
+             (k6.isrbd_evaluate, isrbd_case["X"], isrbd_case["U"],
+              isrbd_case["pin"], (a.terms, isrbd_case["ocp"].dt)))
+    for kernel, X, U, params, rest in cases:
+        x0 = X[:, 1]
+        assert not x0.is_contiguous()
+        got = kernel(X, U, params, *rest, x0=x0)
+        want = kernel(X, U, params, *rest, x0=x0.contiguous())
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+        assert torch.equal(got[2][:, 0], X[:, 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_evaluate_occupancy(card_case, dtype):
+    ns = card_case["ocp"].ns
+    for mod in (k3, k6):
+        occ = mod.evaluate_occupancy(ns, dtype)
+        assert occ["blocks_per_sm"] >= 1 and occ["warps_per_block"] >= 1
+        assert occ["shared_memory_bytes"] > 0 and occ["registers_per_thread"] > 0
 
 
 def test_srbd_kernels_refuse_unknown_shape(card_case):
