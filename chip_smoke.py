@@ -59,7 +59,17 @@ parallel, into build/kernels/), then:
      528 and 4096 (`k6_size_probe`), with K5's achieved bytes per second
      and both kernels' blocks per SM (K6's ring depth too), and
      isrbd_evaluate's `evaluate_occupancy`, `evaluate_size_probe` (B = 1,
-     132, 256, 4096) and `evaluate_host_us` (no limit);
+     132, 256, 4096) and `evaluate_host_us` (no limit); then the AL
+     layer's entries (`al_check`, csrc/isrbd_al.cu): K7 (the constraint
+     pass, in its eval, online and offline modes, static bounds and box
+     overrides, a first and a later outer), K8a (the shift with no, the
+     tail and the full prior), K8b (the padded `al_*` tensors, with and
+     without overrides) and K8c (both priors' update at EMA 0.5 and 1),
+     each in float64 and float32 with member 7 holding a NaN: K7 in
+     float64 to 1e-12 of max(1, |twin|) entry by entry and in float32 by
+     K3's rule, K8 bit-equal in both types, NaN where the twin has NaN;
+     their times at B = 1, 256 and 4096 and their wrappers' host µs a call
+     (`al_kernel_times`);
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
@@ -68,21 +78,27 @@ parallel, into build/kernels/), then:
      each. K5 launches = K1 launches = α₀ trials = solver iterations over
      the timed ticks, isrbd_evaluate launches are two per solve, no
      `torch.func` transform runs, no plain `total_cost` or
-     `_true_defects` is called, and the largest constraint violation over
-     the timed ticks stays below 1e-2; then the phases inside 5 more
-     ticks, 2 profiled ticks, K5, K1, K6 and isrbd_evaluate against their
-     twins by the rules of 5 (K1 in float64 to 1e-8) on the inputs the
-     solver hands them in one further tick of that fleet, the kernel
-     launches a tick on both paths (`launches_per_tick`), and B=4096 both
-     in chunks of 256 and whole (printed, no limit);
+     `_true_defects` is called, K7, K8a, K8b and K8c launch once a timed
+     tick each, no plain twin of the AL layer runs on the card over the
+     seed, the warm-up and the timed ticks (`count_al_twins`), and the
+     largest constraint violation over the timed ticks stays below 1e-2;
+     then the phases inside 5 more ticks, 2 profiled ticks (with the
+     launches and memcpy/memset a tick by phase, `launches_by_span`), K5,
+     K1, K6, isrbd_evaluate, K7 and K8 against their twins by the rules of
+     5 (K1 in float64 to 1e-8) on the inputs the solver hands them in one
+     further tick of that fleet, K7 (offline) and K8b also on those of the
+     offline seed's first and last outer, the kernel launches a tick on
+     both paths (`launches_per_tick`), and B=4096 both in chunks of 256 and
+     whole (printed, no limit);
   7. the constrained card path against the CPU path at B=8 in float64: 3
      serving ticks from one CPU-made seed, iterations equal, X, U and λ
      to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
-without a result. The next-to-last line is the kernel table as JSON, nine
-rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
-isrbd_evaluate, K2); the last line is {"ok": true, "device": {...}}.
+without a result. The next-to-last line is the kernel table as JSON,
+thirteen rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
+isrbd_evaluate, K7, K8a, K8b, K8c, K2); the last line is {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -123,6 +139,13 @@ K2_F32_TOL = 1e-6
 # K4 computes in float32; besides the 2× rule, each output stays below
 # this share of its largest value
 K4_F32_CAP = 1e-5
+# K7 and K8 (the AL layer) in float64: |kernel − twin| ≤ 1e-12·max(1, |twin|)
+# entry by entry; K7 rounds as its twin's torch ops do (built without FMA
+# contraction), so only the order of the twin's own sums on the card is
+# left. K8 moves values: bit-equal in both types.
+AL_F64_TOL = 1e-12
+AL_ENTRIES = ("isrbd_al_constraints", "isrbd_al_shift", "isrbd_al_params",
+              "isrbd_al_prior_update")
 TORCH_FUNC_TRANSFORMS = ("vmap", "jacfwd", "jacrev", "jvp", "vjp", "grad",
                          "grad_and_value", "hessian", "functional_call",
                          "linearize")
@@ -670,9 +693,58 @@ def tick_spans(solver, step, carry, ticks):
     )
 
 
+class SpanRanges:
+    """`MSDDP.on_phase` callback under the profiler: a `record_function`
+    range named "span:<phase>" from each phase boundary to the next, so
+    that the launches the host makes can be charged to the phase that
+    made them (`span_launches`)."""
+
+    def __init__(self):
+        self.open = None
+
+    def __call__(self, name):
+        from torch.autograd.profiler import record_function
+
+        self.close()
+        self.open = record_function(f"span:{name}")
+        self.open.__enter__()
+
+    def close(self):
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
+
+
+# the host-side runtime calls the profiler records for a launch and for a
+# copy or fill (name prefixes)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+COPY_CALLS = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def span_launches(prof, ticks):
+    """Kernel launches and memcpy/memset calls a tick, by the span
+    (`SpanRanges`) whose range holds the host call that made them."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[5:])
+                   for e in evs if e.name.startswith("span:"))
+    out = defaultdict(lambda: {"kernels": 0.0, "memcpy_memset": 0.0})
+    for e in evs:
+        kind = ("kernels" if e.name.startswith(LAUNCH_CALLS) else
+                "memcpy_memset" if e.name.startswith(COPY_CALLS) else None)
+        if kind is None:
+            continue
+        t = e.time_range.start
+        name = next((n for a, b, n in spans if a <= t <= b), "outside")
+        out[name][kind] += 1.0 / ticks
+    return {k: dict(v) for k, v in sorted(out.items())}
+
+
 def profile_ticks(solver, step, carry, tick_ms, ticks=2):
     """Device busy time, kernel launches and the heaviest kernels per tick
-    under torch.profiler (`solver` and `step` as in `tick_spans`). The
+    under torch.profiler (`solver` and `step` as in `tick_spans`), and the
+    launches and memcpy/memset calls a tick by phase (`span_launches`). The
     profiler slows the host, so the idle share is taken against `tick_ms`,
     the unprofiled tick time."""
     import torch
@@ -681,13 +753,21 @@ def profile_ticks(solver, step, carry, tick_ms, ticks=2):
 
     s = solver
     syncs0 = s.host_syncs
+    ranges = SpanRanges()
+    s.on_phase = ranges
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        c = carry
-        for _ in range(ticks):
-            c = step(c)
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            c = carry
+            for _ in range(ticks):
+                ranges("glue")
+                c = step(c)
+                ranges.close()
+            torch.cuda.synchronize()
+    finally:
+        ranges.close()
+        s.on_phase = None
     wall = (time.perf_counter() - t0) * 1e3 / ticks
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
@@ -703,6 +783,7 @@ def profile_ticks(solver, step, carry, tick_ms, ticks=2):
         kernel_launches_per_tick=sum(e.count for e in launched) / ticks,
         memcpy_memset_per_tick=sum(e.count for e in copies) / ticks,
         elementwise_launches_per_tick=elementwise / ticks,
+        launches_by_span=span_launches(prof, ticks),
         top_kernels=[(e.key[:60], e.self_device_time_total / 1e3 / ticks,
                       e.count / ticks) for e in top],
     )
@@ -757,24 +838,194 @@ def count_plain_cost():
 
 def recorded(obj, name, store):
     """Replace the method `name` of `obj` by one that appends a clone of its
-    tensor arguments (dicts of tensors included), and of its keyword
-    arguments as a dict last, to `store`; returns a function that restores
-    it."""
+    tensor arguments (dicts and NamedTuples of tensors included), and of
+    its keyword arguments as a dict last, to `store`; returns a function
+    that restores it."""
     import torch
 
     orig = getattr(obj, name)
 
     def clone(a):
         if isinstance(a, dict):
-            return {k: v.clone() for k, v in a.items()}
+            return {k: clone(v) for k, v in a.items()}
+        if isinstance(a, tuple) and hasattr(a, "_fields"):   # ALState, priors
+            return type(a)(*(clone(v) for v in a))
         return a.clone() if isinstance(a, torch.Tensor) else a
 
     def wrapped(*a, **kw):
         store.append(tuple(clone(v) for v in a) + (clone(kw),))
         return orig(*a, **kw)
 
+    # a kernel wrapper counts its launches on the name it is called by
+    counted = hasattr(orig, "launches")
+    if counted:
+        wrapped.launches = orig.launches
     setattr(obj, name, wrapped)
-    return lambda: setattr(obj, name, orig)
+
+    def restore():
+        if counted:
+            orig.launches = wrapped.launches
+        setattr(obj, name, orig)
+
+    return restore
+
+
+def count_al_twins():
+    """Count every call of the AL layer's plain twins and their pieces
+    (`kernels/isrbd_al.py::PLAIN_TWINS`; count_calls)."""
+    from srbd_horizon_tpu_torch.kernels import isrbd_al
+
+    return count_calls(((isrbd_al, isrbd_al.PLAIN_TWINS),))
+
+
+def outputs(res, prefix=""):
+    """The tensors of an entry's result as (name, tensor) pairs: tuples by
+    position, NamedTuples (ALState, its DDPSolution, the priors) and dicts
+    by name."""
+    import torch
+
+    if isinstance(res, dict):
+        items = sorted(res.items())
+    elif hasattr(res, "_fields"):
+        items = zip(res._fields, res)
+    else:
+        items = ((str(i), v) for i, v in enumerate(res))
+    out = []
+    for k, v in items:
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, torch.Tensor):
+            out.append((name, v))
+        else:
+            out.extend(outputs(v, name))
+    return out
+
+
+def al_rel_err(got, want):
+    """max |got − want| / max(1, |want|) over the entries where `want` is
+    finite, in float64; inf if the NaN or the non-finite entries differ."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isfinite(got), torch.isfinite(want))):
+        return float("inf")
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0
+    g, w = got[fin], want[fin]
+    return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+def same_bits(a, b):
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return bool(torch.equal(bits(a), bits(b)) if a.is_floating_point()
+                else torch.equal(a, b))
+
+
+def al_check(tag, kernel, plain, args, exact, nan_member, **extra):
+    """An AL entry (K7, K8a-c) against its plain twin on the card.
+    `args(dtype)` gives (arguments, keyword arguments) in that type. With
+    `exact` (K8: copies and the prior's blend) every output equals the
+    twin's bit for bit in both types; else (K7) float64 within AL_F64_TOL
+    of max(1, |twin|) entry by entry and float32 against the float64 twin
+    within 2× the float32 twin's own error + 1e-6 (K3's rule). In both, NaN
+    where the twin has NaN, and the twin's outputs for member `nan_member`
+    hold a NaN. Returns the error figures; fails the run on disagreement."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    (a64, k64), (a32, k32) = args(f64), args(f32)
+    ref, got = outputs(plain(*a64, **k64)), outputs(kernel(*a64, **k64))
+    p32, g32 = outputs(plain(*a32, **k32)), outputs(kernel(*a32, **k32))
+    torch.cuda.synchronize()
+    names = [n for n, _ in ref]
+    fine = (names == [n for n, _ in got] == [n for n, _ in p32]
+            == [n for n, _ in g32])
+    flt = [i for i, (_, t) in enumerate(ref) if t.is_floating_point()]
+    bsz = ref[flt[0]][1].shape[0]
+    nan_twin = any(bool(torch.isnan(ref[i][1][nan_member]).any())
+                   for i in flt if ref[i][1].dim() and ref[i][1].shape[0] == bsz)
+    ep32 = {names[i]: rel_err(p32[i][1], ref[i][1]) for i in flt}
+    e32 = {names[i]: rel_err(g32[i][1], ref[i][1]) for i in flt}
+    aerr = lambda a, b: (abs_err(a, b) if bool(torch.isfinite(b).any())
+                         else 0.0)
+    abs32 = max(aerr(g32[i][1], ref[i][1]) for i in flt)
+    res = dict(outputs=len(names), nan_member_nan_in_twin=nan_twin)
+    if exact:
+        eq64 = all(same_bits(g, r) for (_, g), (_, r) in zip(got, ref))
+        eq32 = all(same_bits(g, p) for (_, g), (_, p) in zip(g32, p32))
+        res.update(bit_equal_f64=eq64, bit_equal_f32=eq32)
+        fine &= eq64 and eq32
+        e64 = {n: 0.0 if eq64 else float("inf") for n in e32}
+        abs32 = max(aerr(g32[i][1], p32[i][1]) for i in flt)
+    else:
+        e64 = {names[i]: al_rel_err(got[i][1], ref[i][1]) for i in flt}
+        nan32 = all(torch.equal(torch.isnan(g32[i][1]), torch.isnan(p32[i][1]))
+                    for i in flt)
+        res.update(f64_err=e64, f64_tol=AL_F64_TOL, f32_rel_err=e32,
+                   f32_plain_rel_err=ep32, f32_rule="kernel <= 2*plain + 1e-6",
+                   f32_nan_where_twin_nan=nan32, f32_max_abs_err=abs32)
+        fine &= (max(e64.values()) <= AL_F64_TOL and nan32
+                 and all(e32[n] <= 2 * ep32[n] + 1e-6 for n in e32))
+    fine &= nan_twin
+    emit(tag, **extra, **res)
+    if not fine:
+        fail(f"{tag} ({extra}): the AL kernel disagrees with its plain version")
+    return dict(e64=max(e64.values()), e32=max(e32.values()),
+                p32=max(ep32.values()), abs32=abs32)
+
+
+def cast_tree(tree, dtype):
+    """A tensor, an ALState, a prior or a dict of tensors with every
+    floating tensor in `dtype` (contiguous); anything else as it is."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype).contiguous() if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cast_tree(v, dtype) for v in tree))
+    return tree
+
+
+def resize_members(tree, Bsz, Bw):
+    """`tree` (a tensor, a NamedTuple, a dict or a tuple of them) with every
+    tensor of Bsz leading members repeated or cut to Bw; the rest as it
+    is."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        if tree.dim() == 0 or tree.shape[0] != Bsz:
+            return tree
+        return torch.cat([tree] * -(-Bw // Bsz))[:Bw].contiguous()
+    if isinstance(tree, dict):
+        return {k: resize_members(v, Bsz, Bw) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = [resize_members(v, Bsz, Bw) for v in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return tree
+
+
+def al_bytes(inputs, result):
+    """Bytes an AL entry must move: each input tensor read once, each
+    output written once (its `outputs`, less the inputs it passes through
+    unchanged)."""
+    ins = [t for t in inputs if t is not None]
+    seen = {t.data_ptr() for t in ins}
+    outs = [t for _, t in outputs(result) if t.data_ptr() not in seen]
+    return nbytes(*ins, *outs)
+
+
+def al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in):
+    """FLOPs one K7 call needs: the world inertia and Iw ω a node (~120),
+    ~30 per equality row (the Newton–Euler rows more, the selections less)
+    and its update (3), ~6 a cone row, ~4 a box row and its update (3)."""
+    node = 120 + n_eq * 33 + n_in * 9 + (nx + nu) * 2 * 7
+    return Bsz * (ns * node + n_eq_T * 33 + nx * 2 * 7)
 
 
 def main():
@@ -791,6 +1042,7 @@ def main():
 
     from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
     from srbd_horizon_tpu_torch.kernels import build
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
     from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
     from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
     from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -1320,6 +1572,146 @@ def main():
                              k6.isrbd_evaluate, iev_args(Ui_nan), nan_member=7,
                              x0=ix0)
 
+    # K7 and K8, the AL layer, on the drawn point: the plan with member 7's
+    # r̈ₓ at node 3 NaN (its Newton and LIP x rows, their multipliers and
+    # its violation come out NaN) and one of its stage multipliers NaN;
+    # static bounds and the drawn box overrides; a first outer (viol_prev
+    # inf) and a later one (viol_prev drawn on either side of the
+    # contraction test); phase tables of P=20 with a NaN in member 7's
+    # rows and phases that wrap the tail's phase − 1
+    AL = lambda dtype: al64 if dtype == torch.float64 else al32
+    ast = ist._replace(sol=ist.sol._replace(X=Xi, U=Ui_nan),
+                       lam_eq=ist.lam_eq.clone())
+    ast.lam_eq[7, 2, 4] = float("nan")
+    al_static = {k: v for k, v in iparams.items()
+                 if k not in ("x_lb", "x_ub", "u_lb", "u_ub")}
+    al_partial = {k: v for k, v in iparams.items() if k not in ("x_ub", "u_lb")}
+    al_viol_later = t64(10.0 ** g.uniform(-3, 3, Bc))
+    P_al = 20
+    al_phase = torch.as_tensor(g.randint(0, P_al, Bc), dtype=torch.int32,
+                               device=dev)
+    al_phase[:3] = torch.tensor([0, 1, P_al - 1], dtype=torch.int32)
+    full_prior = al64.init_full_phase_prior(P_al, Bc)._replace(
+        lam_eq=t64(g.randn(Bc, P_al, ns, n_eq)),
+        lam_eq_T=t64(g.randn(Bc, P_al, n_eq_T)),
+        seen=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev))
+    tail_prior = al64.init_phase_prior(P_al, Bc)._replace(
+        lam_tail=t64(g.randn(Bc, P_al, n_eq)), lam_T=t64(g.randn(Bc, P_al, n_eq_T)),
+        seen_tail=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev),
+        seen_T=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev))
+    full_prior.lam_eq[7, :, 1, 1] = float("nan")
+    tail_prior.lam_tail[7, :, 3] = float("nan")
+    priors = {"none": None, "tail": tail_prior, "full": full_prior}
+    al_err = {}
+    for bname, pp in (("static", al_static), ("boxes", iparams)):
+        al_err[f"k7_eval_{bname}"] = al_check(
+            "al_check", k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
+            lambda d: ((AL(d), cast(Xi, d), cast(Ui_nan, d),
+                        {k: cast(v, d) for k, v in pp.items()}), {}),
+            exact=False, nan_member=7, entry="isrbd_al_constraints",
+            mode="eval", bounds=bname, B=Bc)
+        for mode in ("online", "offline"):
+            for outer, vp in (("first", ast.viol), ("later", al_viol_later)):
+                st_m = ast._replace(viol=vp)
+                al_err[f"k7_{mode}_{bname}_{outer}"] = al_check(
+                    "al_check", k78.isrbd_al_constraints,
+                    k78.isrbd_al_constraints_plain,
+                    lambda d: ((AL(d), cast(Xi, d), cast(Ui_nan, d),
+                                {k: cast(v, d) for k, v in pp.items()}),
+                               dict(st=cast_tree(st_m, d),
+                                    offline=mode == "offline")),
+                    exact=False, nan_member=7, entry="isrbd_al_constraints",
+                    mode=mode, bounds=bname, outer=outer, B=Bc)
+    for pkind, pr in priors.items():
+        al_err[f"k8a_{pkind}"] = al_check(
+            "al_check", k78.isrbd_al_shift, k78.isrbd_al_shift_plain,
+            lambda d: ((AL(d), cast_tree(ast, d),
+                        None if pr is None else cast_tree(pr, d),
+                        None if pr is None else al_phase), {}),
+            exact=True, nan_member=7, entry="isrbd_al_shift", prior=pkind, B=Bc)
+    for bname, pp in (("static", al_static), ("boxes", iparams),
+                      ("x_lb_u_ub", al_partial)):
+        al_err[f"k8b_{bname}"] = al_check(
+            "al_check", k78.isrbd_al_params, k78.isrbd_al_params_plain,
+            lambda d: ((AL(d), {k: cast(v, d) for k, v in pp.items()},
+                        cast_tree(ast, d)), {}),
+            exact=True, nan_member=7, entry="isrbd_al_params", bounds=bname,
+            B=Bc)
+    for pkind in ("tail", "full"):
+        for ema in (0.5, 1.0):
+            al_err[f"k8c_{pkind}_{ema}"] = al_check(
+                "al_check", k78.isrbd_al_prior_update,
+                k78.isrbd_al_prior_update_plain,
+                lambda d: ((AL(d), cast_tree(priors[pkind], d),
+                            cast_tree(ast, d), al_phase, ema), {}),
+                exact=True, nan_member=7, entry="isrbd_al_prior_update",
+                prior=pkind, ema=ema, B=Bc)
+    worst = lambda prefix, key: max(v[key] for k, v in al_err.items()
+                                    if k.startswith(prefix))
+    al_errs = {e: {key: worst(e, key) for key in ("e64", "e32", "p32", "abs32")}
+               for e in ("k7", "k8a", "k8b", "k8c")}
+
+    # their times at the serving path's shapes, modes and type (float32,
+    # B=256, static bounds, the full prior; no NaN)
+    ast32 = cast_tree(ast._replace(sol=ast.sol._replace(U=Ui)), torch.float32)
+    ast32.lam_eq[7, 2, 4] = 0.0
+    ap32 = {k: cast(v, torch.float32) for k, v in al_static.items()}
+    full32 = cast_tree(full_prior, torch.float32)
+    full32.lam_eq[7] = 0.0
+    Xi32, Ui32 = cast(Xi, torch.float32), cast(Ui, torch.float32)
+    al_calls = {
+        "isrbd_al_constraints": ((al32, Xi32, Ui32, ap32), dict(st=ast32)),
+        "isrbd_al_constraints_offline": ((al32, Xi32, Ui32, ap32),
+                                         dict(st=ast32, offline=True)),
+        "isrbd_al_shift": ((al32, ast32, full32, al_phase), {}),
+        "isrbd_al_params": ((al32, ap32, ast32), {}),
+        "isrbd_al_prior_update": ((al32, full32, ast32, al_phase, 1.0), {}),
+    }
+    al_times = {}
+    for name, (a, kw) in al_calls.items():
+        entry = name.replace("_offline", "")
+        kern, twin = getattr(k78, entry), getattr(k78, entry + "_plain")
+        res = kern(*a, **kw)
+        if entry == "isrbd_al_constraints":
+            ins = [Xi32, Ui32, *(ap32[k] for k in ("c_ref", "mask_srbd",
+                                                   "mask_lip", "mask_lipzone")),
+                   *al32._bounds, ast32.lam_eq, ast32.lam_eq_T, ast32.rho]
+            if kw.get("offline"):
+                ins += [ast32.viol] + [getattr(ast32, f) for f in k78.MULTIPLIERS[2:]]
+            n_bytes = al_bytes(ins, res)
+            flop = al_constraints_flops(Bc, ns, inx, inu, n_eq, n_eq_T, n_in)
+        elif entry == "isrbd_al_shift":
+            # the rolled state and λ_T, one table row and its flag a member
+            n_bytes = al_bytes([ast32.sol.X, ast32.sol.U, ast32.lam_eq_T,
+                                *(getattr(ast32, f) for f in k78.ROLLED)], res)
+            n_bytes += Bc * (ns * n_eq + n_eq_T) * 4 + Bc + nbytes(al_phase)
+            flop = 0
+        elif entry == "isrbd_al_params":
+            written = {k: v for k, v in res.items()
+                       if k in ("al_lam_eq", "al_lam_eq_T", "al_mu_ub",
+                                "al_mu_lb", "al_rho", "al_mu_u_ub", "al_mu_u_lb")}
+            n_bytes = al_bytes([ast32.lam_eq, ast32.lam_eq_T, ast32.mu_ub,
+                                ast32.mu_lb, ast32.rho, ast32.mu_u_ub,
+                                ast32.mu_u_lb], written)
+            flop = 0
+        else:
+            # the whole tables read and written anew (out of place)
+            n_bytes = al_bytes([ast32.lam_eq, ast32.lam_eq_T, al_phase,
+                                *full32], res)
+            flop = 3 * Bc * (ns * n_eq + n_eq_T)
+        b_ms, b_by = bound(n_bytes, flop)
+        # one member (its latency) and a large fleet, members repeated
+        by_B = {}
+        for Bw in (1, B_LARGE):
+            aw, kww = resize_members((a, kw), Bc, Bw)
+            by_B[Bw] = cuda_ms(lambda: kern(*aw, **kww), reps=20)
+        al_times[name] = dict(
+            ms=cuda_ms(lambda: kern(*a, **kw), reps=50),
+            plain_ms=cuda_ms(lambda: twin(*a, **kw), reps=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flop=flop,
+            ms_by_B=by_B, host_us=host_us(lambda: kern(*a, **kw)))
+    emit("al_kernel_times", card=card, B=Bc, dtype="float32", **al_times)
+
     # timing at the constrained path's shapes and type (float32, B=256)
     i32 = k5_args(torch.float32)
     k5_ms = cuda_ms(lambda: k5.isrbd_linearize(*i32), reps=20)
@@ -1398,7 +1790,9 @@ def main():
          isrbd_trial_flop=k6_flop, isrbd_trial_4alpha_ms=k6_fan_ms,
          isrbd_evaluate_ms=iev_ms, isrbd_evaluate_plain_ms=iev_plain_ms,
          isrbd_evaluate_bound_ms=iev_bound, isrbd_evaluate_bytes=iev_bytes,
-         isrbd_evaluate_flop=iev_flop, isrbd_evaluate_pinned_ms=iev_pin_ms)
+         isrbd_evaluate_flop=iev_flop, isrbd_evaluate_pinned_ms=iev_pin_ms,
+         **{f"{k}_{f}": v[f] for k, v in al_times.items()
+            for f in ("ms", "plain_ms", "bound_ms", "bytes", "ms_by_B")})
     # K6 alone from one member to past a wave: B=1 is the chain's own
     # latency, K6's floor
     emit("k6_size_probe", card=card, alphas=1,
@@ -1411,7 +1805,8 @@ def main():
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          ms_by_B=k1_wave_probe(k1, ilin32, order, mu, irows,
                                (1, 132, 256, 396, 397, 792, 793)))
-    del ilin64, ilin32, ilin_g32, iref64, igot32, pin64, iparams, ist
+    del ilin64, ilin32, ilin_g32, iref64, igot32, pin64, iparams, ist, ast
+    del full_prior, tail_prior, priors, al_calls, ast32, full32
 
     # ---------------- phase 6: the constrained path ----------------
     def make_fleet(Bsz, dtype, device):
@@ -1483,7 +1878,9 @@ def main():
                       k1=k1.riccati_backward.launches,
                       k6=k6.isrbd_trial.launches,
                       evaluate=k6.isrbd_evaluate.launches,
-                      plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs)
+                      plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs,
+                      al_twins=al_twin_calls["n"],
+                      **{e: getattr(k78, e).launches for e in AL_ENTRIES})
         times, viols = [], []
         for _ in range(timed):
             t0 = time.perf_counter()
@@ -1495,7 +1892,9 @@ def main():
                      k1=k1.riccati_backward.launches,
                      k6=k6.isrbd_trial.launches,
                      evaluate=k6.isrbd_evaluate.launches,
-                     plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs)
+                     plain_cost=plain_cost_calls["n"], syncs=inner.host_syncs,
+                     al_twins=al_twin_calls["n"],
+                     **{e: getattr(k78, e).launches for e in AL_ENTRIES})
         inner._iteration_batch, inner._trial = iterate, trial
         inner.solve_batch = solve
         st = state[0]
@@ -1520,20 +1919,26 @@ def main():
     cruns = []
     func_calls, restore_func = count_torch_func()
     plain_cost_calls, restore_plain = count_plain_cost()
+    al_twin_calls, restore_al = count_al_twins()
     k1.riccati_backward.launches = 0
     k5.isrbd_linearize.launches = 0
     k6.isrbd_trial.launches = 0
     k6.isrbd_evaluate.launches = 0
+    for e in AL_ENTRIES:
+        getattr(k78, e).launches = 0
     cmain = run_constrained(B_CONSTRAINED, warm=60, timed=20)
     claunches = {"riccati_backward": k1.riccati_backward.launches,
                  "isrbd_linearize": k5.isrbd_linearize.launches,
                  "isrbd_trial": k6.isrbd_trial.launches,
-                 "isrbd_evaluate": k6.isrbd_evaluate.launches}
+                 "isrbd_evaluate": k6.isrbd_evaluate.launches,
+                 **{e: getattr(k78, e).launches for e in AL_ENTRIES}}
     restore_func()
     restore_plain()
+    restore_al()
     cmain["launches"] = claunches
     cmain["torch_func_calls"] = func_calls["n"]
     cmain["plain_cost_or_defect_calls"] = plain_cost_calls["n"]
+    cmain["al_twin_calls"] = al_twin_calls["n"]
     emit("constrained_path", **cmain)
     w = cmain["timed_window"]
     if not cmain["finite"]:
@@ -1553,6 +1958,14 @@ def main():
              f"_true_defects {plain_cost_calls['n']} times")
     if func_calls["n"]:
         fail(f"the constrained path ran {func_calls['n']} torch.func transforms")
+    # the AL layer: K7 (online) and K8a-c once a tick, no twin on the card
+    # over the seed, the warm-up and the timed ticks
+    if al_twin_calls["n"]:
+        fail(f"the constrained path ran the AL layer's plain twins "
+             f"{al_twin_calls['n']} times on the card")
+    if not all(w[e] == cmain["ticks"] for e in AL_ENTRIES):
+        fail(f"K7/K8 launches over the {cmain['ticks']} timed ticks are not one "
+             f"a tick each: {[w[e] for e in AL_ENTRIES]}")
     if not cmain["window_viol_max"] < VIOL_LIMIT:
         fail(f"constraint violation {cmain['window_viol_max']} over the timed "
              f"ticks is not below {VIOL_LIMIT}")
@@ -1571,6 +1984,7 @@ def main():
          srbd_evaluate_per_tick=launches["srbd_evaluate"] / (
              main["warmup_ticks"] + main["ticks"]),
          isrbd_evaluate_per_tick=w["evaluate"] / cmain["ticks"],
+         isrbd_al_per_tick={e: w[e] / cmain["ticks"] for e in AL_ENTRIES},
          memcpy_memset_per_tick=dict(
              srbd=srbd_profile["memcpy_memset_per_tick"],
              constrained=c_profile["memcpy_memset_per_tick"]))
@@ -1598,7 +2012,11 @@ def main():
     inner._linearize_sliced, inner._trial = recorded_linearize, recorded_trial
     live_ev = []
     restore_ev = recorded(inner, "_evaluate", live_ev)
+    live_al = {e: [] for e in AL_ENTRIES}
+    restore_al_rec = [recorded(k78, e, live_al[e]) for e in AL_ENTRIES]
     cstate = cstep(cstate)
+    for r in restore_al_rec:
+        r()
     restore_ev()
     inner._linearize_sliced, inner._trial = lin_call, trial_call
     torch.cuda.synchronize()
@@ -1654,7 +2072,45 @@ def main():
     evaluate_check("isrbd_evaluate_live_check", k6.isrbd_evaluate_plain,
                    k6.isrbd_evaluate, iev_live_args, nan_member=7,
                    x0=ekw["x0"], calls_in_tick=len(live_ev))
-    del live, llin64, live_ev
+
+    # K7 and K8 on the inputs the serving tick handed them in that tick,
+    # and K7 (offline) and K8b on those of the offline seed's first and
+    # last outer (a fresh seed of the B=256 fleet), each with a NaN put
+    # into member 7's plan (K7, K8a) or multipliers (K8b, K8c)
+    def al_live_args(rec):
+        return lambda d: ([AL(d)] + [cast_tree(v, d) for v in rec[1:-1]],
+                          cast_tree(rec[-1], d))
+
+    def al_live_check(entry, rec, **extra):
+        st_i = next((i for i, v in enumerate(rec)
+                     if type(v).__name__ == "ALState"), None)
+        if entry in ("isrbd_al_constraints",):
+            rec[2][7, 3, 0] = float("nan")                     # U
+        elif entry == "isrbd_al_shift":
+            rec[st_i].sol.U[7, 3, 0] = float("nan")
+        else:
+            st_rec = rec[st_i] if st_i is not None else rec[-1]["st"]
+            st_rec.lam_eq[7, 2, 4] = float("nan")
+        al_check("al_live_check", getattr(k78, entry),
+                 getattr(k78, entry + "_plain"), al_live_args(rec),
+                 exact=entry != "isrbd_al_constraints", nan_member=7,
+                 entry=entry, B=Bc, **extra)
+
+    for e in AL_ENTRIES:
+        if len(live_al[e]) != 1:
+            fail(f"{e} ran {len(live_al[e])} times in one serving tick")
+        al_live_check(e, list(live_al[e][0]), call="serving tick")
+    seed_rec = {e: [] for e in ("isrbd_al_constraints", "isrbd_al_params")}
+    restores = [recorded(k78, e, seed_rec[e]) for e in seed_rec]
+    make_fleet(Bc, torch.float32, dev)[-1]()
+    for r in restores:
+        r()
+    torch.cuda.synchronize()
+    for which, i in (("first", 0), ("last", -1)):
+        for e, recs in seed_rec.items():
+            al_live_check(e, list(recs[i]), call=f"offline seed, {which} outer",
+                          outers=len(recs))
+    del live, llin64, live_ev, live_al, seed_rec
     del cruns[:]
     for chunk in (CONSTRAINED_CHUNK, 0):
         probe = run_constrained(B_LARGE, warm=20, timed=3, chunk=chunk)
@@ -1742,6 +2198,27 @@ def main():
                         blocks_per_sm=iev_occ["f32"]["blocks_per_sm"],
                         waves_at_serving_B=iev_occ["f32"]["waves_at_serving_B"]),
              replaces=k6.EVALUATE_REPLACES),
+    ]
+    for e, key, replaces, tol32 in (
+            ("isrbd_al_constraints", "k7", k78.REPLACES, trial_tol),
+            ("isrbd_al_shift", "k8a", k78.SHIFT_REPLACES, "bit-equal"),
+            ("isrbd_al_params", "k8b", k78.PARAMS_REPLACES, "bit-equal"),
+            ("isrbd_al_prior_update", "k8c", k78.PRIOR_REPLACES, "bit-equal")):
+        t = al_times[e]
+        extra = {}
+        if e == "isrbd_al_constraints":
+            off = al_times["isrbd_al_constraints_offline"]
+            extra = dict(mode="online (the serving tick)", ms_offline=off["ms"],
+                         plain_ms_offline=off["plain_ms"],
+                         bound_ms_offline=off["bound_ms"])
+        kernels.append(dict(
+            kernel_row(e, k78, claunches[e], t["ms"], t["plain_ms"],
+                       t["bound_ms"], t["bound_by"], al_errs[key], tol32,
+                       ms_B1=t["ms_by_B"][1], launches_per_tick=1,
+                       host_us=t["host_us"], **extra),
+            replaces=replaces,
+            tol_f64=AL_F64_TOL if key == "k7" else "bit-equal"))
+    kernels += [
         # K2 runs inside K1: its launches are K1's on the main path; its
         # times are the standalone entry's on the SRBD stack (float32)
         dict(kernel_row(

@@ -15,10 +15,14 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
                     type suffix, `isrbd_trial_occupancy`,
                     `isrbd_evaluate_occupancy`
   isrbd_linearize   K5 `isrbd_linearize`; `isrbd_linearize_occupancy`
+  isrbd_al          K7 `isrbd_al_constraints`, K8 `isrbd_al_shift`,
+                    `isrbd_al_params`, `isrbd_al_prior_update`
 
-K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6 and
-`isrbd_evaluate` `csrc/isrbd_common.cuh`, and both of those
-`csrc/rigid_common.cuh`; K1, K3 and K6 include `csrc/dmma.cuh`. A change to
+K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6,
+`isrbd_evaluate`, K7 and K8 `csrc/isrbd_common.cuh`, and both of those
+`csrc/rigid_common.cuh`; K1, K3, K6 and K7 include `csrc/dmma.cuh`.
+`isrbd_al` is compiled with `-fmad=false`: K7 and K8 round each product
+and sum on their own, as the plain twins' torch ops do. A change to
 any file under `csrc/` rebuilds every library. The build runs at first
 use; `build_all` starts one `nvcc` per stale source, all at once. Nothing
 here runs when the module is imported.
@@ -36,12 +40,14 @@ from typing import Any, Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize",
-                  "isrbd_rollout", "isrbd_linearize")
+                  "isrbd_rollout", "isrbd_linearize", "isrbd_al")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# flags of one source only
+SOURCE_FLAGS = {"isrbd_al": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _host_setups: Dict[tuple, tuple] = {}
@@ -85,7 +91,8 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> Dic
         if not force and not _stale(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -1,0 +1,666 @@
+"""K7 and K8: the augmented-Lagrangian layer of the constrained serving
+tick, four entries of `csrc/isrbd_al.cu`.
+
+    isrbd_al_constraints   K7   the constraint pass at a solved plan, and
+                                the multiplier update (online or offline)
+    isrbd_al_shift         K8a  the warm start rolled one node, and the
+                                multipliers seeded from the phase tables
+    isrbd_al_params        K8b  the padded `al_*` tensors of the inner
+                                solve's parameter dict
+    isrbd_al_prior_update  K8c  the post-solve multipliers blended into
+                                the phase tables (out of place)
+
+`ALDDP` (solvers/alddp.py) calls the entries. Each takes its plain twin,
+`<entry>_plain`, for CPU tensors, launches its kernel for CUDA tensors of
+the sizes `isrbd_linearize.KERNEL_SHAPE`, and raises ValueError for any
+other device or size: nothing falls back to a twin on the card. The twins
+are the JAX package's functions (srbd_horizon_tpu/solvers/alddp.py) in
+batch-first PyTorch, built from the pieces below (the bodies the `ALDDP`
+methods of the same names held before the kernels):
+
+    constraints_plain    `_constraints` (:376-410, under vmap): scaled h,
+                         hT, the cones g and the per-member violation
+    multipliers_plain    `_updated_multipliers` (:452-503)
+    shift_plain          `shift_warmstart` (:585-605)
+    seed_tail_plain, seed_full_plain       the priors' seeds (:621, :673)
+    update_tail_plain, update_full_plain   the priors' updates (:639, :685)
+    isrbd_al_params_plain                  `_params_with_multipliers` (:414)
+
+The offline twin adds the penalty schedule of `solve_batch` (:547-552), the
+online twin the equality update of `solve_online_batch` (:751-759).
+
+Every twin counts toward `PLAIN_TWINS`, the names `chip_smoke.py`'s spy
+wraps to show that no twin runs on the card on the constrained path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srbd_horizon_tpu_torch.kernels.build import check_tensor, host_setup, library
+from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
+    check_kernel_shape,
+    kernel_scalars,
+)
+from srbd_horizon_tpu_torch.problems.isrbd_al import bound_violation
+
+SOURCE = "srbd_horizon_tpu_torch/csrc/isrbd_al.cu"
+# the JAX functions each entry replaces (XLA-fused in the jitted tick; the
+# JAX package wrote no Pallas kernel for them)
+REPLACES = "srbd_horizon_tpu/solvers/alddp.py:376"          # K7
+SHIFT_REPLACES = "srbd_horizon_tpu/solvers/alddp.py:585"    # K8a
+PARAMS_REPLACES = "srbd_horizon_tpu/solvers/alddp.py:414"   # K8b
+PRIOR_REPLACES = "srbd_horizon_tpu/solvers/alddp.py:685"    # K8c
+
+PLAIN_TWINS = (
+    "constraints_plain", "multipliers_plain", "shift_plain",
+    "seed_tail_plain", "seed_full_plain", "update_tail_plain",
+    "update_full_plain", "isrbd_al_constraints_plain", "isrbd_al_shift_plain",
+    "isrbd_al_params_plain", "isrbd_al_prior_update_plain",
+)
+
+# multiplier fields of ALState in K7's offline output order
+MULTIPLIERS = ("lam_eq", "lam_eq_T", "mu_ub", "mu_lb", "mu_x_ub", "mu_x_lb",
+               "mu_u_ub", "mu_u_lb")
+# the node-indexed fields K8a rolls, after X and U
+ROLLED = ("lam_eq", "mu_ub", "mu_lb", "mu_x_ub", "mu_x_lb", "mu_u_ub",
+          "mu_u_lb")
+
+
+def _roll(a):
+    """Node j+1 moves to j along axis 1; the last row is repeated."""
+    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+
+
+def _pad_node(a, value: float = 0.0):
+    """(B, ns, dim) -> (B, ns+1, dim) with a constant last row."""
+    pad = a.new_full((a.shape[0], 1) + tuple(a.shape[2:]), value)
+    return torch.cat([a, pad], dim=1)
+
+
+def _amax0(a):
+    """Per-member max over all trailing axes, at least 0."""
+    return torch.clamp(a.reshape(a.shape[0], -1).amax(dim=1), min=0.0)
+
+
+def _rows_at(table, phase):
+    """table (B, P, …) at each member's phase (B,) -> (B, …)."""
+    return table[torch.arange(table.shape[0], device=table.device), phase]
+
+
+def _with_rows(table, phase, rows):
+    """`table` with each member's row `phase` replaced (out of place)."""
+    out = table.clone()
+    out[torch.arange(table.shape[0], device=table.device), phase] = rows
+    return out
+
+
+def _bcast(mask, like):
+    """(B,) mask -> broadcastable against `like`."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def is_full(prior) -> bool:
+    """A `FullPhasePrior` (whole-field tables), not a `PhasePrior`."""
+    return "seen" in prior._fields
+
+
+# ---------------- the twins' pieces ----------------
+
+def constraints_plain(al, X, U, params):
+    """h (B,ns,n_eq), hT (B,n_eq_T) in scaled units, g (B,ns,n_ineq)
+    and the per-member max violation (B,)."""
+    ocp, t = al.ocp, al.terms
+    ns = ocp.ns
+    p_stage = {k: v[:, :ns] for k, v in params.items()}
+    # (u-box overrides have ns nodes and no terminal row)
+    p_term = {k: v[:, ns] for k, v in params.items() if v.shape[1] > ns}
+    h = t.stage_eq(X[:, :ns], U, p_stage)
+    hT = t.terminal_eq(X[:, ns], p_term)
+    g = ocp.stage_ineq(X[:, :ns], U, p_stage)
+    x_lb, x_ub, u_lb, u_ub = al._bounds_from(params)
+    viol = torch.stack([
+        _amax0(h.abs()), _amax0(hT.abs()),
+        _amax0(bound_violation(g, ocp.ineq_lb, ocp.ineq_ub)),
+        _amax0(bound_violation(X, x_lb, x_ub)),
+        _amax0(bound_violation(U, u_lb, u_ub)),
+    ]).amax(dim=0)
+    return h, hT, g, viol
+
+
+def multipliers_plain(al, st, X, U, h, hT, g, params, rho):
+    """AL multiplier updates; rho is (B,)."""
+    r2 = rho[:, None]
+    r3 = r2[:, :, None]
+    w = al._w_eq if al._w_eq is not None else 1.0
+    w_T = al._w_eq_T if al._w_eq_T is not None else 1.0
+    lam_eq = st.lam_eq + r3 * w * h
+    lam_eq_T = st.lam_eq_T + r2 * w_T * hT
+
+    def side(mu, gap, bound):
+        """max(0, μ + ρ·gap) where the bound is finite, else 0."""
+        fin = torch.isfinite(bound)
+        return torch.where(fin, torch.clamp(mu + r3 * gap, min=0.0),
+                           torch.zeros_like(mu))
+
+    def finite(b):
+        return torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+
+    ocp = al.ocp
+    mu_ub = side(st.mu_ub, g - finite(ocp.ineq_ub), ocp.ineq_ub)
+    mu_lb = side(st.mu_lb, finite(ocp.ineq_lb) - g, ocp.ineq_lb)
+    x_lb, x_ub, u_lb, u_ub = al._bounds_from(params)
+    mu_x_ub = side(st.mu_x_ub, X - finite(x_ub), x_ub)
+    mu_x_lb = side(st.mu_x_lb, finite(x_lb) - X, x_lb)
+    mu_u_ub = side(st.mu_u_ub, U - finite(u_ub), u_ub)
+    mu_u_lb = side(st.mu_u_lb, finite(u_lb) - U, u_lb)
+    return lam_eq, lam_eq_T, mu_ub, mu_lb, mu_x_ub, mu_x_lb, mu_u_ub, mu_u_lb
+
+
+def shift_plain(st):
+    """Roll the warm start one node forward (last row repeated) — the
+    trajectory and the node-indexed multipliers."""
+    sol = st.sol._replace(X=_roll(st.sol.X), U=_roll(st.sol.U))
+    return st._replace(
+        sol=sol, lam_eq=_roll(st.lam_eq),
+        mu_ub=_roll(st.mu_ub), mu_lb=_roll(st.mu_lb),
+        mu_x_ub=_roll(st.mu_x_ub), mu_x_lb=_roll(st.mu_x_lb),
+        mu_u_ub=_roll(st.mu_u_ub), mu_u_lb=_roll(st.mu_u_lb),
+    )
+
+
+def seed_tail_plain(st, prior, phase):
+    """Replace the injected tail multipliers with the phase tables'
+    entries (where visited). `phase` (B,) is the cycle index of this
+    tick's terminal write; the stage tail row holds the previous
+    tick's, phase − 1."""
+    phase = phase.long()
+    P = prior.lam_tail.shape[1]
+    tail_ph = (phase - 1) % P
+    lam_tail = torch.where(_rows_at(prior.seen_tail, tail_ph)[:, None],
+                           _rows_at(prior.lam_tail, tail_ph),
+                           st.lam_eq[:, -1])
+    lam_T = torch.where(_rows_at(prior.seen_T, phase)[:, None],
+                        _rows_at(prior.lam_T, phase), st.lam_eq_T)
+    lam_eq = torch.cat([st.lam_eq[:, :-1], lam_tail[:, None]], dim=1)
+    return st._replace(lam_eq=lam_eq, lam_eq_T=lam_T)
+
+
+def update_tail_plain(prior, st, phase, ema: float):
+    """EMA the post-solve tail multipliers into the phase tables
+    (first visit copies)."""
+    phase = phase.long()
+    P = prior.lam_tail.shape[1]
+    tail_ph = (phase - 1) % P
+    tail = st.lam_eq[:, -1]
+    new_tail = torch.where(
+        _rows_at(prior.seen_tail, tail_ph)[:, None],
+        (1.0 - ema) * _rows_at(prior.lam_tail, tail_ph) + ema * tail, tail)
+    new_T = torch.where(
+        _rows_at(prior.seen_T, phase)[:, None],
+        (1.0 - ema) * _rows_at(prior.lam_T, phase) + ema * st.lam_eq_T,
+        st.lam_eq_T)
+    true = torch.ones_like(phase, dtype=torch.bool)
+    return type(prior)(
+        lam_tail=_with_rows(prior.lam_tail, tail_ph, new_tail),
+        lam_T=_with_rows(prior.lam_T, phase, new_T),
+        seen_tail=_with_rows(prior.seen_tail, tail_ph, true),
+        seen_T=_with_rows(prior.seen_T, phase, true),
+    )
+
+
+def seed_full_plain(st, prior, phase):
+    """Replace the whole stage and terminal equality-multiplier field
+    with the phase's table entry (once visited; the rolled field until
+    then)."""
+    phase = phase.long()
+    ok = _rows_at(prior.seen, phase)
+    lam_eq = _rows_at(prior.lam_eq, phase)
+    lam_eq_T = _rows_at(prior.lam_eq_T, phase)
+    return st._replace(
+        lam_eq=torch.where(_bcast(ok, lam_eq), lam_eq, st.lam_eq),
+        lam_eq_T=torch.where(_bcast(ok, lam_eq_T), lam_eq_T, st.lam_eq_T))
+
+
+def update_full_plain(prior, st, phase, ema: float):
+    phase = phase.long()
+    seen = _rows_at(prior.seen, phase)
+    new_eq = torch.where(
+        _bcast(seen, st.lam_eq),
+        (1.0 - ema) * _rows_at(prior.lam_eq, phase) + ema * st.lam_eq,
+        st.lam_eq)
+    new_T = torch.where(
+        _bcast(seen, st.lam_eq_T),
+        (1.0 - ema) * _rows_at(prior.lam_eq_T, phase) + ema * st.lam_eq_T,
+        st.lam_eq_T)
+    return type(prior)(
+        lam_eq=_with_rows(prior.lam_eq, phase, new_eq),
+        lam_eq_T=_with_rows(prior.lam_eq_T, phase, new_T),
+        seen=_with_rows(prior.seen, phase,
+                        torch.ones_like(phase, dtype=torch.bool)))
+
+
+# ---------------- the twins ----------------
+
+def isrbd_al_constraints_plain(al, X, U, params, st=None, offline=False):
+    """Plain K7 at the plan X (B,ns+1,nx), U (B,ns,nu) under the outer
+    params (leaves (B,ns+1,dim); u-box overrides (B,ns,nu)). Without `st`:
+    h, hT, g, viol (`constraints_plain`). With the pre-update `ALState`:
+    online, the equality update λ + ρw·h, λ_T + ρw_T·hT and viol; offline,
+    the eight multipliers of `multipliers_plain` (the fields `MULTIPLIERS`),
+    the scheduled penalty and viol."""
+    h, hT, g, viol = constraints_plain(al, X, U, params)
+    if st is None:
+        return h, hT, g, viol
+    if not offline:
+        r2 = st.rho[:, None]
+        w = al._w_eq if al._w_eq is not None else 1.0
+        w_T = al._w_eq_T if al._w_eq_T is not None else 1.0
+        return (st.lam_eq + r2[:, :, None] * w * h,
+                st.lam_eq_T + r2 * w_T * hT, viol)
+    opts = al.al_opts
+    mults = multipliers_plain(al, st, X, U, h, hT, g, params, st.rho)
+    grow = viol > opts.viol_decrease * st.viol
+    rho_new = torch.where(
+        grow & (viol > opts.tol),
+        torch.clamp(st.rho * opts.rho_growth, max=opts.rho_max),
+        st.rho)
+    return mults + (rho_new, viol)
+
+
+def isrbd_al_shift_plain(al, st, prior=None, phase=None):
+    """Plain K8a: `shift_plain`, then with a prior its seed at `phase`."""
+    st = shift_plain(st)
+    if prior is None:
+        return st
+    seed = seed_full_plain if is_full(prior) else seed_tail_plain
+    return seed(st, prior, phase)
+
+
+def isrbd_al_params_plain(al, params, st):
+    """The inner solver's parameter dict: the outer params plus the
+    multipliers, penalty and bounds under `al_*` keys, each padded to
+    (B, ns+1, dim) (stage rows 0..ns−1 hold stage multipliers; row ns
+    is unused there)."""
+    ns = al.ocp.ns
+    lam_eq = st.lam_eq
+    Bsz, dtype, dev = lam_eq.shape[0], lam_eq.dtype, lam_eq.device
+    p = dict(params)
+    p["al_lam_eq"] = _pad_node(lam_eq)
+    p["al_lam_eq_T"] = st.lam_eq_T[:, None, :].expand(
+        Bsz, ns + 1, st.lam_eq_T.shape[-1]).contiguous()
+    p["al_mu_ub"] = _pad_node(st.mu_ub)
+    p["al_mu_lb"] = _pad_node(st.mu_lb)
+    p["al_rho"] = st.rho.to(dtype)[:, None, None].expand(
+        Bsz, ns + 1, 1).contiguous()
+    x_lb, x_ub, u_lb, u_ub = al._static_padded_bounds(Bsz, dtype, dev)
+    inf = float("inf")
+    p["al_x_lb"] = params["x_lb"].to(dtype) if "x_lb" in params else x_lb
+    p["al_x_ub"] = params["x_ub"].to(dtype) if "x_ub" in params else x_ub
+    p["al_u_lb"] = (_pad_node(params["u_lb"].to(dtype), -inf)
+                    if "u_lb" in params else u_lb)
+    p["al_u_ub"] = (_pad_node(params["u_ub"].to(dtype), inf)
+                    if "u_ub" in params else u_ub)
+    p["al_mu_x_ub"] = st.mu_x_ub
+    p["al_mu_x_lb"] = st.mu_x_lb
+    p["al_mu_u_ub"] = _pad_node(st.mu_u_ub)
+    p["al_mu_u_lb"] = _pad_node(st.mu_u_lb)
+    # bound values travel under the al_* keys; drop raw overrides so
+    # the inner solver's parameter dict has a fixed structure
+    for k in ("x_lb", "x_ub", "u_lb", "u_ub"):
+        p.pop(k, None)
+    return p
+
+
+def isrbd_al_prior_update_plain(al, prior, st, phase, ema: float):
+    """Plain K8c: `update_full_plain` or `update_tail_plain`."""
+    upd = update_full_plain if is_full(prior) else update_tail_plain
+    return upd(prior, st, phase, ema)
+
+
+# ---------------- the entries ----------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_fns = {}
+
+
+def _fn(entry: str, dtype, argtypes):
+    """The C entry `<entry>_f32/_f64` with its argtypes set (cached)."""
+    key = (entry, dtype)
+    fn = _fns.get(key)
+    if fn is None:
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        fn = getattr(library("isrbd_al"), f"{entry}_{suffix}")
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _fns[key] = fn
+    return fn
+
+
+def _doubles(values):
+    return (_D * len(values))(*values)
+
+
+def _ptrs(tensors):
+    return (_P * len(tensors))(*(None if t is None else t.data_ptr()
+                                 for t in tensors))
+
+
+def _device(name: str, t):
+    """The device and dtype of `t`, which must be CUDA float32/float64."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {t.device}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name} takes float32 or float64, got {t.dtype}")
+    return t.device, t.dtype
+
+
+def _shape_setup(name, al, nx, nu):
+    """The shape check of an entry, once for (terms, entry, sizes)."""
+    host_setup(al.terms, (name, nx, nu),
+               lambda: check_kernel_shape(name, al.terms, nx, nu))
+
+
+def _check_phase(phase, Bsz, dev):
+    if phase.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"phase must be int32 or int64, got {phase.dtype}")
+    check_tensor("phase", phase, (Bsz,), phase.dtype, dev)
+
+
+def al_scalars(al, dt: float):
+    """Host doubles of `AlConsts` (csrc/isrbd_al.cu): the isrbd kernels'
+    scalars (`kernel_scalars`), the stiffness w (n_eq) and w_T (n_eq_T),
+    then viol_decrease, tol, rho_growth, rho_max."""
+    t = al.terms
+
+    def floats(v, n):
+        return [1.0] * n if v is None else [float(a) for a in v.tolist()]
+
+    o = al.al_opts
+    return (tuple(kernel_scalars(t, dt)) + tuple(floats(al._w_eq, t.n_eq))
+            + tuple(floats(al._w_eq_T, t.n_eq_T))
+            + (float(o.viol_decrease), float(o.tol), float(o.rho_growth),
+               float(o.rho_max)))
+
+
+def _bound(name, b, Bsz, n, dim, dtype, dev):
+    """A bound the kernel reads: one static (n, dim) table (member stride
+    0) or a per-member (B, n, dim) override."""
+    if b.dim() == 2:
+        check_tensor(name, b, (n, dim), dtype, dev)
+        return 0
+    check_tensor(name, b, (Bsz, n, dim), dtype, dev)
+    return n * dim
+
+
+def isrbd_al_constraints(al, X, U, params, st=None, offline=False):
+    """K7. Same contract as `isrbd_al_constraints_plain`; launches the CUDA
+    kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
+    launch in `isrbd_al_constraints.launches`), raises ValueError for any
+    other."""
+    if X.device.type == "cpu":
+        return isrbd_al_constraints_plain(al, X, U, params, st, offline)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    name = "isrbd_al_constraints"
+    terms = al.terms
+    _shape_setup(name, al, nx, nu)
+    dev, dtype = _device(name, X)
+    scalars = host_setup(terms, (name, dtype, al.ocp.dt, al.al_opts),
+                         lambda: _doubles(al_scalars(al, al.ocp.dt)))
+    n_eq, n_eq_T, n_in, nc = terms.n_eq, terms.n_eq_T, terms.n_ineq, terms.outer.nc
+    check_tensor("X", X, (Bsz, ns1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    outer = [params[k] for k in ("c_ref", "mask_srbd", "mask_lip", "mask_lipzone")]
+    for key, t, dim in zip(("c_ref", "mask_srbd", "mask_lip", "mask_lipzone"),
+                           outer, (nc, 1, 1, 1)):
+        check_tensor(key, t, (Bsz, ns1, dim), dtype, dev)
+    x_lb, x_ub, u_lb, u_ub = al._bounds_from(params)
+    strides = (ctypes.c_longlong * 4)(
+        _bound("x_lb", x_lb, Bsz, ns1, nx, dtype, dev),
+        _bound("x_ub", x_ub, Bsz, ns1, nx, dtype, dev),
+        _bound("u_lb", u_lb, Bsz, ns, nu, dtype, dev),
+        _bound("u_ub", u_ub, Bsz, ns, nu, dtype, dev))
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
+    ins = [X, U, *outer, x_lb, x_ub, u_lb, u_ub] + [None] * 10
+    outs = [None] * 13
+    viol = new(Bsz)
+    outs[12] = viol
+    if st is None:
+        mode = 0
+        h, hT, g = new(Bsz, ns, n_eq), new(Bsz, n_eq_T), new(Bsz, ns, n_in)
+        outs[0:3] = [h, hT, g]
+        result = (h, hT, g, viol)
+    else:
+        mode = 2 if offline else 1
+        shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
+                      mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in),
+                      mu_x_ub=(Bsz, ns1, nx), mu_x_lb=(Bsz, ns1, nx),
+                      mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu),
+                      rho=(Bsz,), viol=(Bsz,))
+        fields = MULTIPLIERS + ("rho", "viol") if offline else (
+            "lam_eq", "lam_eq_T", "rho")
+        for f in fields:
+            check_tensor(f, getattr(st, f), shapes[f], dtype, dev)
+        ins[10:14] = [st.lam_eq, st.lam_eq_T, st.rho, st.viol if offline else None]
+        if offline:
+            ins[14:20] = [getattr(st, f) for f in MULTIPLIERS[2:]]
+            mults = [new(*shapes[f]) for f in MULTIPLIERS]
+            rho = new(Bsz)
+            outs[3:11] = mults
+            outs[11] = rho
+            result = tuple(mults) + (rho, viol)
+        else:
+            lam, lamT = new(Bsz, ns, n_eq), new(Bsz, n_eq_T)
+            outs[3:5] = [lam, lamT]
+            result = (lam, lamT, viol)
+    o_ = terms.outer
+    fn = _fn(name, dtype, [_I, _P, _P, _P] + [_I] * 5 + [_P, _P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(mode, _ptrs(ins), _ptrs(outs), strides, Bsz, ns, o_.nc,
+                 o_.contact_model, o_.number_of_legs, scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    isrbd_al_constraints.launches += 1
+    return result
+
+
+isrbd_al_constraints.launches = 0
+
+
+def _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev):
+    """X, U and the node-indexed multipliers of `st`, checked, in the order
+    of `ROLLED` after X and U."""
+    ns1 = ns + 1
+    shapes = dict(lam_eq=(Bsz, ns, terms.n_eq), mu_ub=(Bsz, ns, terms.n_ineq),
+                  mu_lb=(Bsz, ns, terms.n_ineq), mu_x_ub=(Bsz, ns1, nx),
+                  mu_x_lb=(Bsz, ns1, nx), mu_u_ub=(Bsz, ns, nu),
+                  mu_u_lb=(Bsz, ns, nu))
+    check_tensor("X", st.sol.X, (Bsz, ns1, nx), dtype, dev)
+    check_tensor("U", st.sol.U, (Bsz, ns, nu), dtype, dev)
+    out = [st.sol.X, st.sol.U]
+    for f in ROLLED:
+        check_tensor(f, getattr(st, f), shapes[f], dtype, dev)
+        out.append(getattr(st, f))
+    return out
+
+
+def isrbd_al_shift(al, st, prior=None, phase=None):
+    """K8a. Same contract as `isrbd_al_shift_plain` (bit for bit); launches
+    the CUDA kernel for CUDA tensors (counted in `isrbd_al_shift.launches`),
+    raises ValueError for any other device or size."""
+    X = st.sol.X
+    if X.device.type == "cpu":
+        return isrbd_al_shift_plain(al, st, prior, phase)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, st.sol.U.shape[-1]
+    name = "isrbd_al_shift"
+    terms = al.terms
+    _shape_setup(name, al, nx, nu)
+    dev, dtype = _device(name, X)
+    ins = _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev)
+    n_eq, n_eq_T = terms.n_eq, terms.n_eq_T
+    check_tensor("lam_eq_T", st.lam_eq_T, (Bsz, n_eq_T), dtype, dev)
+    outs = [torch.empty_like(t) for t in ins]
+    # the kernel's ShiftIn order: X, U, the ROLLED fields, λ_T, the tables
+    ins_k = ins + [st.lam_eq_T, None, None]
+    outs_k = outs + [None]
+    seen = seen_T = None
+    period, kind = 0, 0
+    if prior is not None:
+        full = is_full(prior)
+        kind = 2 if full else 1
+        _check_phase(phase, Bsz, dev)
+        if full:
+            period = prior.lam_eq.shape[1]
+            check_tensor("lam_eq table", prior.lam_eq, (Bsz, period, ns, n_eq), dtype, dev)
+            check_tensor("lam_eq_T table", prior.lam_eq_T, (Bsz, period, n_eq_T), dtype, dev)
+            check_tensor("seen", prior.seen, (Bsz, period), torch.bool, dev)
+            ins_k[10:12] = [prior.lam_eq, prior.lam_eq_T]
+            seen = seen_T = prior.seen
+        else:
+            period = prior.lam_tail.shape[1]
+            check_tensor("lam_tail table", prior.lam_tail, (Bsz, period, n_eq), dtype, dev)
+            check_tensor("lam_T table", prior.lam_T, (Bsz, period, n_eq_T), dtype, dev)
+            check_tensor("seen_tail", prior.seen_tail, (Bsz, period), torch.bool, dev)
+            check_tensor("seen_T", prior.seen_T, (Bsz, period), torch.bool, dev)
+            ins_k[10:12] = [prior.lam_tail, prior.lam_T]
+            seen, seen_T = prior.seen_tail, prior.seen_T
+        outs_k[9] = torch.empty_like(st.lam_eq_T)
+    fn = _fn(name, dtype, [_I, _P, _P, _P, _P] + [_I] * 3 + [_P, _I, _P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(kind, _ptrs(ins_k), None if seen is None else seen.data_ptr(),
+                 None if seen_T is None else seen_T.data_ptr(), _ptrs(outs_k),
+                 Bsz, ns, period, None if phase is None else phase.data_ptr(),
+                 0 if phase is None else phase.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    isrbd_al_shift.launches += 1
+    sol = st.sol._replace(X=outs[0], U=outs[1])
+    fields = dict(zip(ROLLED, outs[2:]))
+    if prior is not None:
+        fields["lam_eq_T"] = outs_k[9]
+    return st._replace(sol=sol, **fields)
+
+
+isrbd_al_shift.launches = 0
+
+
+def isrbd_al_params(al, params, st):
+    """K8b. Same contract as `isrbd_al_params_plain` (bit for bit);
+    launches the CUDA kernel for CUDA tensors (counted in
+    `isrbd_al_params.launches`), raises ValueError for any other device or
+    size."""
+    lam_eq = st.lam_eq
+    if lam_eq.device.type == "cpu":
+        return isrbd_al_params_plain(al, params, st)
+    name = "isrbd_al_params"
+    terms = al.terms
+    nx, nu, ns = al.ocp.nx, al.ocp.nu, al.ocp.ns
+    _shape_setup(name, al, nx, nu)
+    dev, dtype = _device(name, lam_eq)
+    Bsz, ns1 = lam_eq.shape[0], ns + 1
+    n_eq, n_eq_T, n_in = terms.n_eq, terms.n_eq_T, terms.n_ineq
+    shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
+                  mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in), rho=(Bsz,),
+                  mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu))
+    for f, shape in shapes.items():
+        check_tensor(f, getattr(st, f), shape, dtype, dev)
+    x_lb, x_ub, u_lb, u_ub = al._static_padded_bounds(Bsz, dtype, dev)
+    over = {k: params[k].to(dtype) for k in ("u_lb", "u_ub") if k in params}
+    for k, t in over.items():
+        check_tensor(k, t, (Bsz, ns, nu), dtype, dev)
+    new = lambda dim: torch.empty((Bsz, ns1, dim), dtype=dtype, device=dev)
+    out = dict(al_lam_eq=new(n_eq), al_lam_eq_T=new(n_eq_T),
+               al_mu_ub=new(n_in), al_mu_lb=new(n_in), al_rho=new(1),
+               al_mu_u_ub=new(nu), al_mu_u_lb=new(nu),
+               al_u_lb=new(nu) if "u_lb" in over else None,
+               al_u_ub=new(nu) if "u_ub" in over else None)
+    ins = [st.lam_eq, st.lam_eq_T, st.mu_ub, st.mu_lb, st.rho, st.mu_u_ub,
+           st.mu_u_lb, over.get("u_lb"), over.get("u_ub")]
+    fn = _fn(name, dtype, [_P, _P, _I, _I, _P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_ptrs(ins), _ptrs(list(out.values())), Bsz, ns, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    isrbd_al_params.launches += 1
+    p = dict(params)
+    p.update(al_lam_eq=out["al_lam_eq"], al_lam_eq_T=out["al_lam_eq_T"],
+             al_mu_ub=out["al_mu_ub"], al_mu_lb=out["al_mu_lb"],
+             al_rho=out["al_rho"])
+    p["al_x_lb"] = params["x_lb"].to(dtype) if "x_lb" in params else x_lb
+    p["al_x_ub"] = params["x_ub"].to(dtype) if "x_ub" in params else x_ub
+    p["al_u_lb"] = out["al_u_lb"] if "u_lb" in over else u_lb
+    p["al_u_ub"] = out["al_u_ub"] if "u_ub" in over else u_ub
+    p["al_mu_x_ub"] = st.mu_x_ub
+    p["al_mu_x_lb"] = st.mu_x_lb
+    p["al_mu_u_ub"] = out["al_mu_u_ub"]
+    p["al_mu_u_lb"] = out["al_mu_u_lb"]
+    for k in ("x_lb", "x_ub", "u_lb", "u_ub"):
+        p.pop(k, None)
+    return p
+
+
+isrbd_al_params.launches = 0
+
+
+def isrbd_al_prior_update(al, prior, st, phase, ema: float):
+    """K8c. Same contract as `isrbd_al_prior_update_plain` (bit for bit,
+    out of place); launches the CUDA kernel for CUDA tensors (counted in
+    `isrbd_al_prior_update.launches`), raises ValueError for any other
+    device or size."""
+    lam_eq = st.lam_eq
+    if lam_eq.device.type == "cpu":
+        return isrbd_al_prior_update_plain(al, prior, st, phase, ema)
+    name = "isrbd_al_prior_update"
+    terms = al.terms
+    nx, nu = al.ocp.nx, al.ocp.nu
+    _shape_setup(name, al, nx, nu)
+    dev, dtype = _device(name, lam_eq)
+    Bsz, ns, n_eq = lam_eq.shape
+    n_eq_T = terms.n_eq_T
+    check_tensor("lam_eq", lam_eq, (Bsz, ns, terms.n_eq), dtype, dev)
+    check_tensor("lam_eq_T", st.lam_eq_T, (Bsz, n_eq_T), dtype, dev)
+    _check_phase(phase, Bsz, dev)
+    full = is_full(prior)
+    if full:
+        tab, tabT, seen, seen_T = prior.lam_eq, prior.lam_eq_T, prior.seen, None
+        period = tab.shape[1]
+        check_tensor("lam_eq table", tab, (Bsz, period, ns, n_eq), dtype, dev)
+    else:
+        tab, tabT, seen, seen_T = (prior.lam_tail, prior.lam_T,
+                                   prior.seen_tail, prior.seen_T)
+        period = tab.shape[1]
+        check_tensor("lam_tail table", tab, (Bsz, period, n_eq), dtype, dev)
+        check_tensor("seen_T", seen_T, (Bsz, period), torch.bool, dev)
+    check_tensor("terminal table", tabT, (Bsz, period, n_eq_T), dtype, dev)
+    check_tensor("seen", seen, (Bsz, period), torch.bool, dev)
+    new_tab, new_tabT = torch.empty_like(tab), torch.empty_like(tabT)
+    new_seen = torch.empty_like(seen)
+    new_seen_T = None if full else torch.empty_like(seen_T)
+    fn = _fn(name, dtype, [_I, _P, _P, _P, _P, _P, _P] + [_I] * 3
+             + [_P, _I, _D, _P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(2 if full else 1, _ptrs([lam_eq, st.lam_eq_T, tab, tabT]),
+                 seen.data_ptr(), None if full else seen_T.data_ptr(),
+                 _ptrs([new_tab, new_tabT]), new_seen.data_ptr(),
+                 None if full else new_seen_T.data_ptr(), Bsz, ns, period,
+                 phase.data_ptr(), phase.element_size(), float(ema), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    isrbd_al_prior_update.launches += 1
+    if full:
+        return type(prior)(lam_eq=new_tab, lam_eq_T=new_tabT, seen=new_seen)
+    return type(prior)(lam_tail=new_tab, lam_T=new_tabT, seen_tail=new_seen,
+                       seen_T=new_seen_T)
+
+
+isrbd_al_prior_update.launches = 0

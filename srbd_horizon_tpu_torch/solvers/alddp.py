@@ -14,7 +14,11 @@ The AL terms are residual rows of the inner problem
 and its kernels apply: the inner solves run `MSDDP.solve_batch` with the
 isrbd kernels K5 (linearization), K1 (Riccati sweep) and K6 (trial).
 Multipliers, penalty and bounds reach the inner problem through the
-parameter dict (`al_*` keys).
+parameter dict (`al_*` keys). The layer around the inner solves runs on
+the entries of kernels/isrbd_al.py: K7 (the constraint pass and the
+multiplier update), K8a (the shift and the prior's seed), K8b (the padded
+`al_*` tensors) and K8c (the prior's update), each its plain twin on the
+CPU and its CUDA kernel on the card.
 
 Everything here is batch-first: states, multipliers and priors carry the
 fleet on their leading axis, where the JAX package vmaps member functions.
@@ -37,9 +41,10 @@ import numpy as np
 import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions
+from srbd_horizon_tpu_torch.kernels import isrbd_al
 from srbd_horizon_tpu_torch.ocp.spec import OCP
-from srbd_horizon_tpu_torch.problems.isrbd_al import ALTerms, bound_violation
-from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution, MSDDP, _bcast
+from srbd_horizon_tpu_torch.problems.isrbd_al import ALTerms
+from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution, MSDDP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,34 +97,6 @@ class ALState(NamedTuple):
     mu_u_lb: torch.Tensor     # (B, ns, nu) input lower-box multipliers
     rho: torch.Tensor         # (B,) penalty
     viol: torch.Tensor        # (B,) last max constraint violation
-
-
-def _roll(a):
-    """Node j+1 moves to j along axis 1; the last row is repeated."""
-    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
-
-
-def _pad_node(a, value: float = 0.0):
-    """(B, ns, dim) -> (B, ns+1, dim) with a constant last row."""
-    pad = a.new_full((a.shape[0], 1) + tuple(a.shape[2:]), value)
-    return torch.cat([a, pad], dim=1)
-
-
-def _amax0(a):
-    """Per-member max over all trailing axes, at least 0."""
-    return torch.clamp(a.reshape(a.shape[0], -1).amax(dim=1), min=0.0)
-
-
-def _rows_at(table, phase):
-    """table (B, P, …) at each member's phase (B,) -> (B, …)."""
-    return table[torch.arange(table.shape[0], device=table.device), phase]
-
-
-def _with_rows(table, phase, rows):
-    """`table` with each member's row `phase` replaced (out of place)."""
-    out = table.clone()
-    out[torch.arange(table.shape[0], device=table.device), phase] = rows
-    return out
 
 
 @dataclasses.dataclass
@@ -219,7 +196,7 @@ class ALDDP:
     def inner(self) -> MSDDP:
         """The inner batched MS-DDP solver (kernels K5, K1, K6). Its
         `on_phase` hook also receives this layer's phases ("al_shift",
-        "al_params", "al_constraints", "al_multipliers", "al_prior")."""
+        "al_params", "al_constraints", "al_prior")."""
         return self._inner
 
     def _phase(self, name: str) -> None:
@@ -259,23 +236,9 @@ class ALDDP:
 
     def _constraints(self, X, U, params):
         """h (B,ns,n_eq), hT (B,n_eq_T) in scaled units, g (B,ns,n_ineq)
-        and the per-member max violation (B,)."""
-        ocp, t = self.ocp, self.terms
-        ns = ocp.ns
-        p_stage = {k: v[:, :ns] for k, v in params.items()}
-        # (u-box overrides have ns nodes and no terminal row)
-        p_term = {k: v[:, ns] for k, v in params.items() if v.shape[1] > ns}
-        h = t.stage_eq(X[:, :ns], U, p_stage)
-        hT = t.terminal_eq(X[:, ns], p_term)
-        g = ocp.stage_ineq(X[:, :ns], U, p_stage)
-        x_lb, x_ub, u_lb, u_ub = self._bounds_from(params)
-        viol = torch.stack([
-            _amax0(h.abs()), _amax0(hT.abs()),
-            _amax0(bound_violation(g, ocp.ineq_lb, ocp.ineq_ub)),
-            _amax0(bound_violation(X, x_lb, x_ub)),
-            _amax0(bound_violation(U, u_lb, u_ub)),
-        ]).amax(dim=0)
-        return h, hT, g, viol
+        and the per-member max violation (B,): K7 in its evaluation
+        mode."""
+        return isrbd_al.isrbd_al_constraints(self, X, U, params)
 
     # ---------- solve ----------
 
@@ -298,82 +261,25 @@ class ALDDP:
     def _params_with_multipliers(self, params, st: ALState) -> Dict[str, torch.Tensor]:
         """The inner solver's parameter dict: the outer params plus the
         multipliers, penalty and bounds under `al_*` keys, each padded to
-        (B, ns+1, dim) (stage rows 0..ns−1 hold stage multipliers; row ns
-        is unused there)."""
-        ns = self.ocp.ns
-        lam_eq = st.lam_eq
-        Bsz, dtype, dev = lam_eq.shape[0], lam_eq.dtype, lam_eq.device
-        p = dict(params)
-        p["al_lam_eq"] = _pad_node(lam_eq)
-        p["al_lam_eq_T"] = st.lam_eq_T[:, None, :].expand(
-            Bsz, ns + 1, st.lam_eq_T.shape[-1]).contiguous()
-        p["al_mu_ub"] = _pad_node(st.mu_ub)
-        p["al_mu_lb"] = _pad_node(st.mu_lb)
-        p["al_rho"] = st.rho.to(dtype)[:, None, None].expand(
-            Bsz, ns + 1, 1).contiguous()
-        x_lb, x_ub, u_lb, u_ub = self._static_padded_bounds(Bsz, dtype, dev)
-        inf = float("inf")
-        p["al_x_lb"] = params["x_lb"].to(dtype) if "x_lb" in params else x_lb
-        p["al_x_ub"] = params["x_ub"].to(dtype) if "x_ub" in params else x_ub
-        p["al_u_lb"] = (_pad_node(params["u_lb"].to(dtype), -inf)
-                        if "u_lb" in params else u_lb)
-        p["al_u_ub"] = (_pad_node(params["u_ub"].to(dtype), inf)
-                        if "u_ub" in params else u_ub)
-        p["al_mu_x_ub"] = st.mu_x_ub
-        p["al_mu_x_lb"] = st.mu_x_lb
-        p["al_mu_u_ub"] = _pad_node(st.mu_u_ub)
-        p["al_mu_u_lb"] = _pad_node(st.mu_u_lb)
-        # bound values travel under the al_* keys; drop raw overrides so
-        # the inner solver's parameter dict has a fixed structure
-        for k in ("x_lb", "x_ub", "u_lb", "u_ub"):
-            p.pop(k, None)
-        return p
+        (B, ns+1, dim) (K8b)."""
+        return isrbd_al.isrbd_al_params(self, params, st)
 
     def _updated_multipliers(self, st: ALState, X, U, h, hT, g, params, rho):
-        """AL multiplier updates; rho is (B,)."""
-        r2 = rho[:, None]
-        r3 = r2[:, :, None]
-        w = self._w_eq if self._w_eq is not None else 1.0
-        w_T = self._w_eq_T if self._w_eq_T is not None else 1.0
-        lam_eq = st.lam_eq + r3 * w * h
-        lam_eq_T = st.lam_eq_T + r2 * w_T * hT
-
-        def side(mu, gap, bound):
-            """max(0, μ + ρ·gap) where the bound is finite, else 0."""
-            fin = torch.isfinite(bound)
-            return torch.where(fin, torch.clamp(mu + r3 * gap, min=0.0),
-                               torch.zeros_like(mu))
-
-        def finite(b):
-            return torch.where(torch.isfinite(b), b, torch.zeros_like(b))
-
-        ocp = self.ocp
-        mu_ub = side(st.mu_ub, g - finite(ocp.ineq_ub), ocp.ineq_ub)
-        mu_lb = side(st.mu_lb, finite(ocp.ineq_lb) - g, ocp.ineq_lb)
-        x_lb, x_ub, u_lb, u_ub = self._bounds_from(params)
-        mu_x_ub = side(st.mu_x_ub, X - finite(x_ub), x_ub)
-        mu_x_lb = side(st.mu_x_lb, finite(x_lb) - X, x_lb)
-        mu_u_ub = side(st.mu_u_ub, U - finite(u_ub), u_ub)
-        mu_u_lb = side(st.mu_u_lb, finite(u_lb) - U, u_lb)
-        return lam_eq, lam_eq_T, mu_ub, mu_lb, mu_x_ub, mu_x_lb, mu_u_ub, mu_u_lb
+        """AL multiplier updates from given h, hT and g; rho is (B,). The
+        plain reference: the solves run K7's offline mode, which forms h,
+        hT and g itself."""
+        return isrbd_al.multipliers_plain(self, st, X, U, h, hT, g, params, rho)
 
     def solve_batch(self, st: ALState, x0, params) -> ALState:
         """Batched AL solve over the leading fleet axis: `outer_iters`
         outer iterations, each a batched inner MS-DDP solve, the multiplier
         updates and the per-member penalty schedule."""
-        opts = self.al_opts
-        for _ in range(opts.outer_iters):
+        for _ in range(self.al_opts.outer_iters):
             p_in = self._params_with_multipliers(params, st)
             sol = self._inner.solve_batch(st.sol, x0, p_in)
-            h, hT, g, viol = self._constraints(sol.X, sol.U, params)
-            (lam_eq, lam_eq_T, mu_ub, mu_lb,
-             mu_x_ub, mu_x_lb, mu_u_ub, mu_u_lb) = self._updated_multipliers(
-                st, sol.X, sol.U, h, hT, g, params, st.rho)
-            grow = viol > opts.viol_decrease * st.viol
-            rho_new = torch.where(
-                grow & (viol > opts.tol),
-                torch.clamp(st.rho * opts.rho_growth, max=opts.rho_max),
-                st.rho)
+            (lam_eq, lam_eq_T, mu_ub, mu_lb, mu_x_ub, mu_x_lb, mu_u_ub,
+             mu_u_lb, rho_new, viol) = isrbd_al.isrbd_al_constraints(
+                self, sol.X, sol.U, params, st=st, offline=True)
             st = ALState(
                 sol=sol, lam_eq=lam_eq, lam_eq_T=lam_eq_T,
                 mu_ub=mu_ub, mu_lb=mu_lb, mu_x_ub=mu_x_ub, mu_x_lb=mu_x_lb,
@@ -387,31 +293,18 @@ class ALDDP:
         p_in = self._params_with_multipliers(params, st)
         sol = self._inner.solve_batch(st.sol, x0, p_in)
         self._phase("al_constraints")
-        h, hT, _, viol = self._constraints(sol.X, sol.U, params)
-        self._phase("al_multipliers")
-        r2 = st.rho[:, None]
-        w = self._w_eq if self._w_eq is not None else 1.0
-        w_T = self._w_eq_T if self._w_eq_T is not None else 1.0
-        return st._replace(
-            sol=sol,
-            lam_eq=st.lam_eq + r2[:, :, None] * w * h,
-            lam_eq_T=st.lam_eq_T + r2 * w_T * hT,
-            viol=viol,
-        )
+        lam_eq, lam_eq_T, viol = isrbd_al.isrbd_al_constraints(
+            self, sol.X, sol.U, params, st=st)
+        return st._replace(sol=sol, lam_eq=lam_eq, lam_eq_T=lam_eq_T,
+                           viol=viol)
 
     def shift_warmstart(self, st: ALState) -> ALState:
         """Roll the warm start one node forward (last row repeated) — the
         trajectory and the node-indexed multipliers — so the initial
         iterate and the multiplier estimates line up with the receding
         horizon. The hybrid node masks stay put, so multipliers shifted
-        across the model boundary start one update behind."""
-        sol = st.sol._replace(X=_roll(st.sol.X), U=_roll(st.sol.U))
-        return st._replace(
-            sol=sol, lam_eq=_roll(st.lam_eq),
-            mu_ub=_roll(st.mu_ub), mu_lb=_roll(st.mu_lb),
-            mu_x_ub=_roll(st.mu_x_ub), mu_x_lb=_roll(st.mu_x_lb),
-            mu_u_ub=_roll(st.mu_u_ub), mu_u_lb=_roll(st.mu_u_lb),
-        )
+        across the model boundary start one update behind (K8a)."""
+        return isrbd_al.isrbd_al_shift(self, st)
 
     # ---------- gait-phase multiplier priors ----------
 
@@ -434,40 +327,15 @@ class ALDDP:
         """Replace the injected tail multipliers with the phase tables'
         entries (where visited). `phase` (B,) is the cycle index of this
         tick's terminal write; the stage tail row holds the previous
-        tick's, phase − 1."""
-        phase = phase.long()
-        P = prior.lam_tail.shape[1]
-        tail_ph = (phase - 1) % P
-        lam_tail = torch.where(_rows_at(prior.seen_tail, tail_ph)[:, None],
-                               _rows_at(prior.lam_tail, tail_ph),
-                               st.lam_eq[:, -1])
-        lam_T = torch.where(_rows_at(prior.seen_T, phase)[:, None],
-                            _rows_at(prior.lam_T, phase), st.lam_eq_T)
-        lam_eq = torch.cat([st.lam_eq[:, :-1], lam_tail[:, None]], dim=1)
-        return st._replace(lam_eq=lam_eq, lam_eq_T=lam_T)
+        tick's, phase − 1. The plain reference: the serving tick seeds
+        inside K8a's shift."""
+        return isrbd_al.seed_tail_plain(st, prior, phase)
 
     def _update_prior(self, prior: PhasePrior, st: ALState, phase,
                       ema: float) -> PhasePrior:
         """EMA the post-solve tail multipliers into the phase tables
-        (first visit copies)."""
-        phase = phase.long()
-        P = prior.lam_tail.shape[1]
-        tail_ph = (phase - 1) % P
-        tail = st.lam_eq[:, -1]
-        new_tail = torch.where(
-            _rows_at(prior.seen_tail, tail_ph)[:, None],
-            (1.0 - ema) * _rows_at(prior.lam_tail, tail_ph) + ema * tail, tail)
-        new_T = torch.where(
-            _rows_at(prior.seen_T, phase)[:, None],
-            (1.0 - ema) * _rows_at(prior.lam_T, phase) + ema * st.lam_eq_T,
-            st.lam_eq_T)
-        true = torch.ones_like(phase, dtype=torch.bool)
-        return PhasePrior(
-            lam_tail=_with_rows(prior.lam_tail, tail_ph, new_tail),
-            lam_T=_with_rows(prior.lam_T, phase, new_T),
-            seen_tail=_with_rows(prior.seen_tail, tail_ph, true),
-            seen_T=_with_rows(prior.seen_T, phase, true),
-        )
+        (first visit copies; K8c)."""
+        return isrbd_al.isrbd_al_prior_update(self, prior, st, phase, ema)
 
     def init_full_phase_prior(self, period: int, batch: int) -> FullPhasePrior:
         """Empty per-member full-field phase tables."""
@@ -479,32 +347,14 @@ class ALDDP:
     def _seed_full_prior(self, st: ALState, prior: FullPhasePrior, phase) -> ALState:
         """Replace the whole stage and terminal equality-multiplier field
         with the phase's table entry (once visited; the rolled field until
-        then)."""
-        phase = phase.long()
-        ok = _rows_at(prior.seen, phase)
-        lam_eq = _rows_at(prior.lam_eq, phase)
-        lam_eq_T = _rows_at(prior.lam_eq_T, phase)
-        return st._replace(
-            lam_eq=torch.where(_bcast(ok, lam_eq), lam_eq, st.lam_eq),
-            lam_eq_T=torch.where(_bcast(ok, lam_eq_T), lam_eq_T, st.lam_eq_T))
+        then). The plain reference: the serving tick seeds inside K8a's
+        shift."""
+        return isrbd_al.seed_full_plain(st, prior, phase)
 
     def _update_full_prior(self, prior: FullPhasePrior, st: ALState, phase,
                            ema: float) -> FullPhasePrior:
-        phase = phase.long()
-        seen = _rows_at(prior.seen, phase)
-        new_eq = torch.where(
-            _bcast(seen, st.lam_eq),
-            (1.0 - ema) * _rows_at(prior.lam_eq, phase) + ema * st.lam_eq,
-            st.lam_eq)
-        new_T = torch.where(
-            _bcast(seen, st.lam_eq_T),
-            (1.0 - ema) * _rows_at(prior.lam_eq_T, phase) + ema * st.lam_eq_T,
-            st.lam_eq_T)
-        return FullPhasePrior(
-            lam_eq=_with_rows(prior.lam_eq, phase, new_eq),
-            lam_eq_T=_with_rows(prior.lam_eq_T, phase, new_T),
-            seen=_with_rows(prior.seen, phase,
-                            torch.ones_like(phase, dtype=torch.bool)))
+        """EMA the post-solve multiplier field into the phase tables (K8c)."""
+        return isrbd_al.isrbd_al_prior_update(self, prior, st, phase, ema)
 
     def serving_tick_batch(self, st: ALState, x0, params, outers: int = 2,
                            prior=None, phase=None, prior_ema: float = 0.5):
@@ -520,16 +370,12 @@ class ALDDP:
         equality-multiplier field. Without a prior, returns the ALState
         alone."""
         self._phase("al_shift")
-        st = self.shift_warmstart(st)
-        full = isinstance(prior, FullPhasePrior)
-        if prior is not None:
-            seed = self._seed_full_prior if full else self._seed_from_prior
-            st = seed(st, prior, phase)
+        st = isrbd_al.isrbd_al_shift(self, st, prior, phase)
         for _ in range(outers):
             st = self.solve_online_batch(st, x0, params)
         if prior is not None:
             self._phase("al_prior")
-            upd = self._update_full_prior if full else self._update_prior
-            prior = upd(prior, st, phase, prior_ema)
+            prior = isrbd_al.isrbd_al_prior_update(self, prior, st, phase,
+                                                   prior_ema)
         self._phase("glue")
         return st if prior is None else (st, prior)

@@ -14,15 +14,22 @@ the evaluation entries `srbd_evaluate` and `isrbd_evaluate` (cost and
 largest defect of a plan) by K3's rules, a member with a NaN plan giving
 NaN in both, and given x0 the pinned plan equal to the twin's bit for bit
 (a NaN in one member's x0 kept), with their occupancy entries reporting at
-least one block an SM; and K3, K4 and srbd_evaluate refusing sizes they
-were not compiled for. Skipped where no CUDA device is present (run on the card
-with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
+least one block an SM; K3, K4 and srbd_evaluate refusing sizes they
+were not compiled for; and the AL layer's entries (csrc/isrbd_al.cu) against
+their twins with a NaN member: K7 in every mode, float64 to 1e-12 of
+max(1, |twin|) entry by entry and float32 by K3's rule, K8a with no, the
+tail and the full prior, K8b with and without bound overrides and K8c for
+both priors, bit for bit in both types, at B = 1 and 257 as well, counting
+their launches and refusing other sizes and non-contiguous views. Skipped
+where no CUDA device is present (run on the card with
+`python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
 import numpy as np
 import pytest
 import torch
 
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
 from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
 from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
 from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -214,7 +221,8 @@ def isrbd_case():
     X, U = t(X), t(U)
     lin = k5.isrbd_linearize_plain(X, U, pin, al.terms, al.inner.rows, ocp.dt)
     x0 = X[:, 0] + 0.005 * t(g.randn(B, nx))
-    return dict(al=al, al32=al32, X=X, U=U, pin=pin, lin=lin, x0=x0, ocp=ocp)
+    return dict(al=al, al32=al32, X=X, U=U, pin=pin, lin=lin, x0=x0, ocp=ocp,
+                st=st, params=params)
 
 
 def _k5_args(case, dtype):
@@ -630,3 +638,217 @@ def test_srbd_kernels_refuse_unknown_shape(card_case):
                       terms, dt, wc, 1e-3, 0.1, 1e-12)
     assert counts == (k3.srbd_trial.launches, k3.srbd_evaluate.launches,
                       k4.srbd_linearize.launches)
+
+
+# ---------------- the AL layer: K7 and K8 ----------------
+
+AL_F64_TOL = 1e-12
+NAN_MEMBER = 5
+
+
+def _flat(res, prefix=""):
+    """The tensors of an entry's result, (name, tensor), in a fixed order."""
+    if isinstance(res, dict):
+        items = sorted(res.items())
+    elif hasattr(res, "_fields"):
+        items = zip(res._fields, res)
+    else:
+        items = ((str(i), v) for i, v in enumerate(res))
+    out = []
+    for k, v in items:
+        out += ([(prefix + k, v)] if isinstance(v, torch.Tensor)
+                else _flat(v, prefix + k + "."))
+    return out
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype).contiguous() if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cast(v, dtype) for v in tree))
+    return tree
+
+
+def _same(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(_bits(a), _bits(b)) if a.is_floating_point() else torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def al_case(isrbd_case):
+    """The isrbd point with member NAN_MEMBER's r̈ₓ at node 3 and one of its
+    stage multipliers NaN, phase tables of P=20 (a NaN in that member's
+    rows), phases that wrap the tail's phase − 1."""
+    c = isrbd_case
+    dev, al = c["X"].device, c["al"]
+    g = np.random.RandomState(7)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    ns = c["ocp"].ns
+    n_eq, n_eq_T, _ = al._sizes
+    U = c["U"].clone()
+    U[NAN_MEMBER, 3, 0] = float("nan")
+    st = c["st"]._replace(sol=c["st"].sol._replace(X=c["X"], U=U),
+                          lam_eq=c["st"].lam_eq.clone())
+    st.lam_eq[NAN_MEMBER, 2, 4] = float("nan")
+    P = 20
+    phase = torch.as_tensor(g.randint(0, P, B), dtype=torch.int32, device=dev)
+    phase[:3] = torch.tensor([0, 1, P - 1], dtype=torch.int32)
+    full = al.init_full_phase_prior(P, B)._replace(
+        lam_eq=t(g.randn(B, P, ns, n_eq)), lam_eq_T=t(g.randn(B, P, n_eq_T)),
+        seen=torch.as_tensor(g.rand(B, P) < 0.5, device=dev))
+    tail = al.init_phase_prior(P, B)._replace(
+        lam_tail=t(g.randn(B, P, n_eq)), lam_T=t(g.randn(B, P, n_eq_T)),
+        seen_tail=torch.as_tensor(g.rand(B, P) < 0.5, device=dev),
+        seen_T=torch.as_tensor(g.rand(B, P) < 0.5, device=dev))
+    full.lam_eq[NAN_MEMBER, :, 1, 1] = float("nan")
+    tail.lam_tail[NAN_MEMBER, :, 3] = float("nan")
+    static = {k: v for k, v in c["params"].items()
+              if k not in ("x_lb", "x_ub", "u_lb", "u_ub")}
+    return dict(al=al, al32=c["al32"], st=st, phase=phase,
+                priors={"none": None, "tail": tail, "full": full},
+                bounds={"static": static, "boxes": c["params"]},
+                viol_later=t(10.0 ** g.uniform(-3, 3, B)))
+
+
+def _al_run(case, kernel, plain, args, exact):
+    """`args(al, dtype)` gives (args, kwargs). Returns the outputs: float64
+    twin and kernel, float32 twin and kernel."""
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        al = case["al"] if dtype == torch.float64 else case["al32"]
+        a, kw = args(al, dtype)
+        out += [_flat(plain(*a, **kw)), _flat(kernel(*a, **kw))]
+    torch.cuda.synchronize()
+    ref, got, p32, g32 = out
+    assert [n for n, _ in ref] == [n for n, _ in got] == [n for n, _ in g32]
+    flt = [i for i, (_, v) in enumerate(ref) if v.is_floating_point()]
+    assert any(bool(torch.isnan(ref[i][1][NAN_MEMBER]).any()) for i in flt
+               if ref[i][1].dim() and ref[i][1].shape[0] == ref[flt[0]][1].shape[0])
+    if exact:
+        for (n, g), (_, r) in zip(got, ref):
+            assert _same(g, r), n
+        for (n, g), (_, p) in zip(g32, p32):
+            assert _same(g, p), n
+        return
+    for i in flt:
+        (n, g), r, p, g3 = got[i], ref[i][1], p32[i][1], g32[i][1]
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), n
+        assert torch.equal(torch.isnan(g3), torch.isnan(p)), n
+        fin = torch.isfinite(r)
+        assert torch.equal(fin, torch.isfinite(g)), n
+        if bool(fin.any()):
+            e64 = float(((g - r).abs()[fin] / r.abs()[fin].clamp_min(1.0)).max())
+            assert e64 <= AL_F64_TOL, (n, e64)
+            assert _rel_fin(g3, r) <= 2 * _rel_fin(p, r) + 1e-6, n
+
+
+@pytest.mark.parametrize("bounds", ["static", "boxes"])
+@pytest.mark.parametrize("mode", ["eval", "online", "offline_first", "offline_later"])
+def test_al_constraints_matches_plain(al_case, mode, bounds):
+    c = al_case
+    st = c["st"]
+    if mode == "offline_later":
+        st = st._replace(viol=c["viol_later"])
+    kw = {} if mode == "eval" else dict(st=st, offline=mode != "online")
+    launches = k78.isrbd_al_constraints.launches
+    _al_run(c, k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
+            lambda al, d: ((al, _cast(st.sol.X, d), _cast(st.sol.U, d),
+                            _cast(c["bounds"][bounds], d)), _cast(kw, d)),
+            exact=False)
+    assert k78.isrbd_al_constraints.launches == launches + 2
+
+
+@pytest.mark.parametrize("prior", ["none", "tail", "full"])
+def test_al_shift_matches_plain_bit_for_bit(al_case, prior):
+    c = al_case
+    pr = c["priors"][prior]
+    _al_run(c, k78.isrbd_al_shift, k78.isrbd_al_shift_plain,
+            lambda al, d: ((al, _cast(c["st"], d), _cast(pr, d),
+                            None if pr is None else c["phase"]), {}),
+            exact=True)
+
+
+@pytest.mark.parametrize("bounds", ["static", "boxes"])
+def test_al_params_matches_plain_bit_for_bit(al_case, bounds):
+    c = al_case
+    _al_run(c, k78.isrbd_al_params, k78.isrbd_al_params_plain,
+            lambda al, d: ((al, _cast(c["bounds"][bounds], d),
+                            _cast(c["st"], d)), {}),
+            exact=True)
+
+
+@pytest.mark.parametrize("phase_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("ema", [0.5, 1.0])
+@pytest.mark.parametrize("prior", ["tail", "full"])
+def test_al_prior_update_matches_plain_bit_for_bit(al_case, prior, ema,
+                                                   phase_dtype):
+    c = al_case
+    pr, phase = c["priors"][prior], c["phase"].to(phase_dtype)
+    _al_run(c, k78.isrbd_al_prior_update, k78.isrbd_al_prior_update_plain,
+            lambda al, d: ((al, _cast(pr, d), _cast(c["st"], d), phase, ema), {}),
+            exact=True)
+    # out of place: the tables handed in are as they were
+    assert bool(torch.isnan(pr[0][NAN_MEMBER]).any())
+
+
+@pytest.mark.parametrize("Bw", [1, 257])
+def test_al_entries_at_ragged_fleet_sizes(al_case, Bw):
+    c = al_case
+    rep = lambda t: _repeat(t, Bw) if isinstance(t, torch.Tensor) else t
+    st = type(c["st"])(sol=type(c["st"].sol)(*(rep(v) for v in c["st"].sol)),
+                       **{k: rep(getattr(c["st"], k)) for k in c["st"]._fields
+                          if k != "sol"})
+    full = type(c["priors"]["full"])(*(rep(v) for v in c["priors"]["full"]))
+    phase, params = rep(c["phase"]), {k: rep(v) for k, v in c["bounds"]["static"].items()}
+    al = c["al"]
+    for kernel, plain, a, kw in (
+            (k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
+             (al, st.sol.X, st.sol.U, params), dict(st=st)),
+            (k78.isrbd_al_shift, k78.isrbd_al_shift_plain, (al, st, full, phase), {}),
+            (k78.isrbd_al_params, k78.isrbd_al_params_plain, (al, params, st), {}),
+            (k78.isrbd_al_prior_update, k78.isrbd_al_prior_update_plain,
+             (al, full, st, phase, 1.0), {})):
+        got, ref = _flat(kernel(*a, **kw)), _flat(plain(*a, **kw))
+        torch.cuda.synchronize()
+        for (n, g), (_, r) in zip(got, ref):
+            if kernel is k78.isrbd_al_constraints:
+                fin = torch.isfinite(r)
+                assert torch.equal(torch.isnan(g), torch.isnan(r)), n
+                assert float(((g - r).abs()[fin] / r.abs()[fin].clamp_min(1.0)).max()) <= AL_F64_TOL
+            else:
+                assert _same(g, r), n
+
+
+def test_al_entries_refuse_other_sizes_and_views(al_case):
+    """CUDA tensors of a problem with one contact fewer, or a plan that is a
+    strided view (the kernels index contiguous runs): ValueError before any
+    launch."""
+    import copy
+    import dataclasses
+
+    c = al_case
+    al = copy.copy(c["al"])
+    al.terms = dataclasses.replace(al.terms, n_eq=al.terms.n_eq - 1)
+    st, params = c["st"], c["bounds"]["static"]
+    counts = [getattr(k78, e).launches for e in (
+        "isrbd_al_constraints", "isrbd_al_shift", "isrbd_al_params",
+        "isrbd_al_prior_update")]
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k78.isrbd_al_constraints(al, st.sol.X, st.sol.U, params, st=st)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k78.isrbd_al_shift(al, st)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k78.isrbd_al_params(al, params, st)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k78.isrbd_al_prior_update(al, c["priors"]["full"], st, c["phase"], 1.0)
+    wide = torch.cat([st.sol.X, st.sol.X], dim=-1)[..., :st.sol.X.shape[-1]]
+    with pytest.raises(ValueError, match="contiguous"):
+        k78.isrbd_al_constraints(c["al"], wide, st.sol.U, params, st=st)
+    with pytest.raises(ValueError, match="contiguous"):
+        k78.isrbd_al_shift(c["al"], st._replace(sol=st.sol._replace(X=wide)))
+    assert counts == [getattr(k78, e).launches for e in (
+        "isrbd_al_constraints", "isrbd_al_shift", "isrbd_al_params",
+        "isrbd_al_prior_update")]
