@@ -31,7 +31,14 @@ parallel, into build/kernels/), then:
      at B=512 in both types (`evaluate_occupancy`), its time pinned at
      B = 1, 132, 512 and 4096 (`evaluate_size_probe`) and the host µs a
      call of its wrapper with and without its cached host setup
-     (`evaluate_host_us`);
+     (`evaluate_host_us`); K1's Tassa form (`MSDDP.solve`'s sweep,
+     `k1_tassa_check`) with the block-Schur and with the Cholesky gain
+     solve against its Tassa twin on the same point, member 7's last
+     defect NaN: float64 to 1e-9, float32 to 1e-6 of the float64 twin,
+     NaN exactly where the twin has NaN, and with Cholesky μ = −1e12 (Quu
+     indefinite) giving NaN gains in both; its times at B=1 (the single
+     robot's launch) and B=512 beside the collapsed K1's
+     (`k1_tassa_times`);
   3. the main path: the warm-started closed-loop SRBD fleet tick
      `MPCLoop.tick_batch` at B=512 in float32 (3 warm-up ticks, 20 timed
      ticks of the walk command), with the kernels' launch counts read
@@ -69,7 +76,8 @@ parallel, into build/kernels/), then:
      float64 to 1e-12 of max(1, |twin|) entry by entry and in float32 by
      K3's rule, K8 bit-equal in both types, NaN where the twin has NaN;
      their times at B = 1, 256 and 4096 and their wrappers' host µs a call
-     (`al_kernel_times`);
+     (`al_kernel_times`); K1's Tassa form with Cholesky at the isrbd sizes
+     by the rules of 2, its times at B=1 and B=256;
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
      `runtime.serving.constrained_tick` at B=256 in float32 (1 outer × 1
@@ -92,16 +100,39 @@ parallel, into build/kernels/), then:
      whole (printed, no limit);
   7. the constrained card path against the CPU path at B=8 in float64: 3
      serving ticks from one CPU-made seed, iterations equal, X, U and λ
-     to 1e-9.
+     to 1e-9;
+  8. the single-robot SRBD path (`single_path`): the dsrbd example's
+     loop, `MPCLoop.tick` on `MSDDP.solve` with `ddp_example_options()`
+     (max_iters=100), float32, 40 ticks of `walking_schedule` (vx 0.3
+     from tick 10), then 10 ticks (walking from tick 3) with the
+     Cholesky gain solve: tick p50 and max, iterations, host reads and kernel launches
+     a tick and an iteration, largest `defect_norm` and Newton–Euler
+     residual (each ≤ 1e-4), K4 = K1 launches = iterations, K3 = trials,
+     two `srbd_evaluate` a solve, and no plain twin (Riccati, trial,
+     evaluation, linearization), plain cost or `torch.func` call on the
+     card; the phases of 5 ticks and a profile of 2; then the card against
+     the CPU in float64 over 10 ticks (walking from tick 3: iterations and
+     convergence equal, X, U and x to 1e-9), and `run` over 10 ticks
+     against 10 `tick`s on the card;
+  9. the single-robot constrained path (`single_constrained_path`): the
+     isrbd example's sequence in float32, `ALDDP.solve` (6 outers from ρ
+     1e3, ρ ≤ 1e5, max_iters=15) and 20 `solve_online` ticks (WPG advance,
+     rdot_ref on nodes 1..ns, x0 the plan's node 1, walking from tick 10):
+     the violation, the ms a solve, K5 = K1 (Tassa, Cholesky) launches,
+     two `isrbd_evaluate` a solve, K7 and K8b once an outer, no plain twin
+     on the card; then the card against the CPU in float64 (the offline
+     solve and 3 online ticks, iterations equal, X, U and λ to 1e-9).
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-thirteen rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
-isrbd_evaluate, K7, K8a, K8b, K8c, K2); the last line is {"ok": true,
-"device": {...}}.
+sixteen rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
+isrbd_evaluate, K7, K8a, K8b, K8c, K2, and K1's three Tassa
+instantiations, whose launches come from phases 8 and 9); the last line
+is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -353,6 +384,21 @@ def linearize_check(tag, plain, kernel, args, **extra):
     return ref, g32, dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
 
 
+def tassa_flops(Bsz, ns, nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc,
+                quu_solver):
+    """FLOPs one Tassa-form K1 sweep needs: the collapsed sweep's
+    (`riccati_flops`) plus KᵀQuu, (KᵀQuu)K, KᵀQux beside QuxᵀK, the two more
+    matrix-vector terms of Vx and ½kᵀQuu; with Cholesky, the factor (n³/3
+    multiply-adds) and the two substitutions over 1 + nx columns in place
+    of the inverse and the gains' products."""
+    node = nx * nu * nu + nx * nu * nx + nu * nx * nx + 2 * nu * nx + nu * nu
+    if quu_solver == "cholesky":
+        node += (nu ** 3 // 3 + nu * nu * (1 + nx)
+                 - inv_flops(nu) - nu * nu - nu * nu * nx)
+    return (riccati_flops(Bsz, ns, nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b,
+                          n_uc) + 2 * Bsz * ns * node)
+
+
 def riccati_check(tag, k1, lin64, mu, rows, f64_tol=1e-9, **extra):
     """K1 against its plain twin on the float64 linearization `lin64`:
     float64 to `f64_tol`, float32 to K1_F32_TOL against the float64 plain
@@ -376,6 +422,91 @@ def riccati_check(tag, k1, lin64, mu, rows, f64_tol=1e-9, **extra):
     if not (e64 <= f64_tol and all(e32[n] <= K1_F32_TOL for n in SWEEP_OUT)):
         fail(f"{tag}: K1 (riccati_backward) disagrees with its plain version")
     return ref, g32, lin32, dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def tassa_check(tag, k1, lin64, mu, rows, solver, nan_member, **extra):
+    """K1's Tassa instantiation with the gain solve `solver` against its
+    twin on the float64 linearization `lin64`, member `nan_member`'s last
+    defect NaN: float64 to 1e-9, float32 to K1_F32_TOL of the float64 twin,
+    NaN exactly where the twin has NaN (that member's k and ΔV; its K stays
+    finite). With Cholesky, μ = −1e12 (every Quu indefinite) on eight
+    members must give NaN gains and ΔV in the kernel, as in the twin.
+    Returns the error figures; fails the run on disagreement."""
+    import torch
+
+    kw = dict(form="tassa", quu_solver=solver)
+    lin = dict(lin64, d=lin64["d"].clone())
+    lin["d"][nan_member, -1, 0] = float("nan")
+    a64 = tuple(lin[k] for k in ORDER)
+    a32 = tuple(v.float().contiguous() for v in a64)
+    ref = k1.riccati_backward_plain(*a64, mu, rows, **kw)
+    got = k1.riccati_backward(*a64, mu, rows, **kw)
+    p32 = k1.riccati_backward_plain(*a32, mu, rows, **kw)
+    g32 = k1.riccati_backward(*a32, mu, rows, **kw)
+    torch.cuda.synchronize()
+    nan_twin = (bool(torch.isnan(ref[0][nan_member]).all())
+                and bool(torch.isnan(ref[2][nan_member]))
+                and bool(torch.isfinite(ref[1]).all()))
+    e64 = max(rel_err(g, r) for g, r in zip(got, ref))
+    e32 = {n: rel_err(g, r) for n, g, r in zip(SWEEP_OUT, g32, ref)}
+    ep32 = {n: rel_err(g, r) for n, g, r in zip(SWEEP_OUT, p32, ref)}
+    abs32 = max(abs_err(g, r) for g, r in zip(g32, ref))
+    res = dict(quu_solver=solver, f64_rel_err=e64, f64_tol=1e-9,
+               f32_rel_err=e32, f32_tol=K1_F32_TOL, f32_plain_rel_err=ep32,
+               f32_max_abs_err=abs32, nan_member_nan_in_twin=nan_twin)
+    fine = (nan_twin and e64 <= 1e-9
+            and all(e32[n] <= K1_F32_TOL for n in SWEEP_OUT))
+    if solver == "cholesky":
+        sub = lambda t: t[:8].contiguous()
+        ind = {}
+        for name, args in (("f64", a64), ("f32", a32)):
+            r_i = k1.riccati_backward_plain(*map(sub, args), -1e12, rows, **kw)
+            g_i = k1.riccati_backward(*map(sub, args), -1e12, rows, **kw)
+            torch.cuda.synchronize()
+            ind[name] = all(bool(torch.isnan(t).all()) for t in (*r_i, *g_i))
+        res["indefinite_quu_all_nan"] = ind
+        fine &= all(ind.values())
+    emit(tag, **res, **extra)
+    if not fine:
+        fail(f"{tag}: K1's Tassa form ({solver}) disagrees with its plain "
+             "version")
+    return dict(e64=e64, e32=e32, p32=ep32, abs32=abs32)
+
+
+def tassa_times(k1, lin32, mu, rows, solvers):
+    """K1's Tassa instantiations of one shape beside the collapsed one, in
+    float32: ms at B=1 (member 0 alone: one block's latency, the single
+    robot's launch) and at the fleet's B, the twin's ms at B=1, and the
+    bytes, FLOPs and bound of the B=1 call."""
+    import torch
+
+    one = {k: v[:1].contiguous() for k, v in lin32.items()}
+    a1 = tuple(one[k] for k in ORDER) + (mu, rows)
+    aB = tuple(lin32[k] for k in ORDER) + (mu, rows)
+    ns, nx = one["d"].shape[1:]
+    nu, nt = one["Jup"].shape[-1], one["Jt"].shape[1]
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    out = {"B": lin32["d"].shape[0], "collapsed": dict(
+        ms_B1=cuda_ms(lambda: k1.riccati_backward(*a1), reps=20),
+        ms_B=cuda_ms(lambda: k1.riccati_backward(*aB), reps=20))}
+    for solver in solvers:
+        kw = dict(form="tassa", quu_solver=solver)
+        res = k1.riccati_backward(*a1, **kw)
+        n_bytes = nbytes(*a1[:8], rows.packed(one["d"].device), *res)
+        flop = tassa_flops(1, ns, nx, nu, nt, *sizes, solver)
+        b_ms, b_by = bound(n_bytes, flop, H100_FP64_TC_FLOP_PER_S)
+        out[solver] = dict(
+            ms_B1=cuda_ms(lambda: k1.riccati_backward(*a1, **kw), reps=20),
+            ms_B=cuda_ms(lambda: k1.riccati_backward(*aB, **kw), reps=20),
+            plain_ms_B1=cuda_ms(lambda: k1.riccati_backward_plain(*a1, **kw),
+                                reps=3, warmup=1),
+            bytes_B1=n_bytes, flop_B1=flop, bound_ms_B1=b_ms, bound_by=b_by,
+            shared_memory_bytes=k1.shared_memory_bytes(nx, nu, nt, rows,
+                                                       torch.float32, **kw),
+            blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, torch.float32,
+                                           **kw))
+    return out
 
 
 def k2_check(tag, k1, Jup64, mu, **extra):
@@ -1050,11 +1181,22 @@ def main():
     from srbd_horizon_tpu_torch.kernels import rollout as k3
     from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
     from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
     from srbd_horizon_tpu_torch.runtime.chunked import chunk_map
-    from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop, walk_command
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        MPCLoop,
+        TickInput,
+        build_srbd_loop,
+        walk_command,
+        walking_schedule,
+    )
     from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
-    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
-    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP, ALOptions
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+    from srbd_horizon_tpu_torch.solvers.options import (
+        al_serving_options,
+        ddp_example_options,
+    )
     from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
 
     # ---------------- phase 1: device ----------------
@@ -1262,6 +1404,14 @@ def main():
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          ms_by_B=k1_wave_probe(k1, lin32, order, mu, rows,
                                (1, 132, 264, 396, 512, 528, 529, 1056, 1057)))
+    # K1's Tassa form (MSDDP.solve's sweep) at the SRBD sizes: both gain
+    # solves against the twin on the same point, member 7 NaN; its times
+    # at B=1 (the single robot's launch) and B=512 beside the collapsed K1
+    tassa_err = {("srbd", sv): tassa_check(
+        "k1_tassa_check", k1, lin64, mu, rows, sv, nan_member=7,
+        sizes="srbd", B=B) for sv in ("schur", "cholesky")}
+    tassa_t = {"srbd": tassa_times(k1, lin32, mu, rows, ("schur", "cholesky"))}
+    emit("k1_tassa_times", sizes="srbd", card=card, **tassa_t["srbd"])
     del lin64, lin32, lin_g32, ref64, got32
 
     # ---------------- phase 3: the main path ----------------
@@ -1534,6 +1684,13 @@ def main():
         shared_memory_bytes_srbd=k1_smem)
     k2i = k2_check("k2_check_isrbd", k1, ilin64["Jup"], mu, sizes="isrbd",
                    card=card)
+    # K1's Tassa form with the Cholesky gain solve at the isrbd-AL sizes
+    # (ALDDP.solve's inner sweep), member 7 NaN; times at B=1 and B=256
+    tassa_err["isrbd_al", "cholesky"] = tassa_check(
+        "k1_tassa_check", k1, ilin64, mu, irows, "cholesky", nan_member=7,
+        sizes="isrbd", B=Bc)
+    tassa_t["isrbd_al"] = tassa_times(k1, ilin32, mu, irows, ("cholesky",))
+    emit("k1_tassa_times", sizes="isrbd", card=card, **tassa_t["isrbd_al"])
 
     # K6: the isrbd trial; member 7 starts from a NaN state
     iopts = al64.inner.opts
@@ -2162,6 +2319,307 @@ def main():
                     cvc["lam_T_rel_err"]) <= 1e-9):
         fail("constrained card path and CPU path disagree")
 
+    # ---------------- phase 8: the single-robot SRBD loop ----------------
+    def single_loop(dtype, device, quu_solver="schur"):
+        """The dsrbd example's loop: MPCLoop.tick on MSDDP.solve with its
+        options, the WPG at the feet's height, no warm-start shift."""
+        prob = build_srbd_problem(SRBDConfig(dtype=dtype), feet, dtype=dtype,
+                                  device=device)
+        opts = dataclasses.replace(ddp_example_options(), quu_solver=quu_solver)
+        wpg = WalkingPatternGenerator.build(
+            c_init_z=float(prob.initial_foot_position[0, 2]), nodes=ns,
+            dtype=dtype, device=device)
+        return MPCLoop(solver=MSDDP(prob.ocp, opts), wpg=wpg,
+                       srbd_constants=prob.ocp.constants), prob
+
+    def drive_single(loop, prob, sched):
+        """Ticks over `sched` from the cold carry at the nominal state:
+        the carry, the outputs, the tick times (ms, a device sync each),
+        the host reads and the trials."""
+        trials = {"n": 0}
+        trial = loop.solver._trial
+
+        def counted_trial(*a):
+            trials["n"] += 1
+            return trial(*a)
+
+        loop.solver._trial = counted_trial
+        carry = loop.init(prob.initial_state)
+        syncs0 = loop.solver.host_syncs
+        outs, times = [], []
+        for t in range(sched.action.shape[0]):
+            inp = TickInput(*(a[t] for a in sched))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = loop.tick(carry, inp)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        loop.solver._trial = trial
+        return (carry, outs, times, loop.solver.host_syncs - syncs0,
+                trials["n"])
+
+    SRBD_TWINS = ((k1, ("riccati_backward_plain",)),
+                  (k3, ("srbd_trial_plain", "srbd_evaluate_plain")),
+                  (k4, ("srbd_linearize_plain",)))
+    inst = {key: k1.KERNEL_INSTANCES.index(key) for key in k1.KERNEL_INSTANCES}
+    i_schur, i_chol = inst["srbd", "tassa", "schur"], inst["srbd", "tassa", "cholesky"]
+    func_calls, restore_func = count_torch_func()
+    plain_calls, restore_plain = count_plain_cost()
+    twin_calls, restore_twins = count_calls(SRBD_TWINS)
+    k1.riccati_backward.launches = 0
+    k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+    k3.srbd_trial.launches = 0
+    k3.srbd_evaluate.launches = 0
+    k4.srbd_linearize.launches = 0
+    # the example's walk: 40 ticks, standing for 10, then vx 0.3 (the
+    # default gain solve); then 10 ticks, walking from tick 3, with Cholesky
+    sloop, sprob = single_loop(torch.float32, dev)
+    sched = walking_schedule(40, vx=0.3, start=10, device=dev)
+    scarry, souts, stimes, ssyncs, strials = drive_single(sloop, sprob, sched)
+    chol_loop, chol_prob = single_loop(torch.float32, dev, "cholesky")
+    _, couts, ctimes, csyncs, ctrials = drive_single(
+        chol_loop, chol_prob, walking_schedule(10, vx=0.3, start=3, device=dev))
+    single_launches = {
+        "riccati_backward_tassa": k1.riccati_backward.instance_launches[i_schur],
+        "riccati_backward_tassa_cholesky":
+            k1.riccati_backward.instance_launches[i_chol],
+        "riccati_backward": k1.riccati_backward.launches,
+        "srbd_linearize": k4.srbd_linearize.launches,
+        "srbd_trial": k3.srbd_trial.launches,
+        "srbd_evaluate": k3.srbd_evaluate.launches}
+    for restore in (restore_func, restore_plain, restore_twins):
+        restore()
+    n_ticks = len(souts) + len(couts)
+    iters = [int(o.iterations) for o in souts + couts]
+    single = dict(
+        B=1, dtype="float32", ticks=len(souts), cholesky_ticks=len(couts),
+        options="ddp_example_options (max_iters=100, alpha_converge_threshold="
+                "1e-12, beta=1e-3)", walk="vx 0.3 from tick 10",
+        tick_p50_ms=statistics.median(stimes), tick_max_ms=max(stimes),
+        tick_mean_ms=statistics.fmean(stimes),
+        cholesky_tick_p50_ms=statistics.median(ctimes),
+        cholesky_tick_max_ms=max(ctimes),
+        iterations_per_tick=iters[:len(souts)],
+        cholesky_iterations_per_tick=iters[len(souts):],
+        iterations_mean=statistics.fmean(iters[:len(souts)]),
+        syncs_per_tick=ssyncs / len(souts),
+        syncs_per_iteration=ssyncs / sum(iters[:len(souts)]),
+        cholesky_syncs_per_tick=csyncs / len(couts),
+        launches=single_launches,
+        kernel_launches_per_tick=sum(
+            single_launches[k] for k in ("riccati_backward", "srbd_linearize",
+                                         "srbd_trial", "srbd_evaluate"))
+        / n_ticks,
+        kernel_launches_per_iteration=(single_launches["riccati_backward"]
+                                       + single_launches["srbd_linearize"]
+                                       + single_launches["srbd_trial"])
+        / sum(iters),
+        trials=strials + ctrials,
+        defect_norm_max=max(float(o.defect_norm) for o in souts + couts),
+        srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                              for o in souts + couts),
+        finite=all(bool(torch.isfinite(t).all()) for o in souts + couts
+                   for t in (o.x, o.u0, o.cost, o.srbd_residual)),
+        converged_ticks=sum(bool(o.converged) for o in souts + couts),
+        plain_twin_calls=twin_calls["n"], torch_func_calls=func_calls["n"],
+        plain_cost_or_defect_calls=plain_calls["n"],
+        final_com=scarry.x[:3].tolist(), card=card)
+    sstep = lambda c: sloop.tick(c, TickInput(*(a[-1] for a in sched)))[0]
+    scarry, sspans = tick_spans(sloop.solver, sstep, scarry, ticks=5)
+    single["spans"] = sspans
+    single["profile"] = profile_ticks(sloop.solver, sstep, scarry,
+                                      single["tick_p50_ms"])
+    emit("single_path", **single)
+    if not single["finite"]:
+        fail("the single-robot path produced non-finite values")
+    if max(single["defect_norm_max"], single["srbd_residual_max"]) > 1e-4:
+        fail("single-robot plans are not dynamically consistent (defect or "
+             "Newton-Euler residual above 1e-4)")
+    if min(single_launches.values()) == 0:
+        fail(f"a kernel was not launched on the single path: {single_launches}")
+    if not (single_launches["srbd_linearize"]
+            == single_launches["riccati_backward"] == sum(iters)):
+        fail(f"K4 and K1 launches differ from the iterations: {single_launches}, "
+             f"{sum(iters)} iterations")
+    if single_launches["srbd_trial"] != single["trials"]:
+        fail(f"K3 launches do not cover the trials: {single_launches}")
+    if single_launches["srbd_evaluate"] != 2 * n_ticks:
+        fail(f"srbd_evaluate launches are not two a solve: {single_launches}")
+    if twin_calls["n"] or func_calls["n"] or plain_calls["n"]:
+        fail(f"the single path ran plain twins on the card: "
+             f"{twin_calls['n']} kernel twins, {plain_calls['n']} plain cost "
+             f"or defect calls, {func_calls['n']} torch.func transforms")
+
+    # card against CPU in float64 over 10 ticks (walking from tick 3), and
+    # `run` against `tick` on the card in float32
+    def single_ticks(dtype, device, n):
+        loop, prob = single_loop(dtype, device)
+        sch = walking_schedule(n, vx=0.3, start=3, dtype=dtype, device=device)
+        carry = loop.init(prob.initial_state)
+        outs = []
+        for t in range(n):
+            carry, out = loop.tick(carry, TickInput(*(a[t] for a in sch)))
+            outs.append(out)
+        return loop, prob, sch, carry, outs
+
+    _, _, _, c_card, o_card = single_ticks(f64, dev, 10)
+    _, _, _, c_cpu, o_cpu = single_ticks(f64, "cpu", 10)
+    svc = dict(
+        B=1, ticks=10, tol=1e-9,
+        iterations_card=[int(o.iterations) for o in o_card],
+        iterations_equal=all(int(a.iterations) == int(b.iterations)
+                             for a, b in zip(o_card, o_cpu)),
+        converged_equal=all(bool(a.converged) == bool(b.converged)
+                            for a, b in zip(o_card, o_cpu)),
+        X_rel_err=rel_err(c_card.sol.X.cpu(), c_cpu.sol.X),
+        U_rel_err=rel_err(c_card.sol.U.cpu(), c_cpu.sol.U),
+        x_rel_err=max(rel_err(a.x.cpu(), b.x) for a, b in zip(o_card, o_cpu)))
+    loop32, prob32, sch32, c_ticks, o_ticks = single_ticks(torch.float32, dev, 10)
+    c_run, o_run = loop32.run(loop32.init(prob32.initial_state), sch32)
+    svc["run_vs_ticks"] = dict(
+        iterations_equal=[int(o.iterations) for o in o_ticks]
+        == o_run.iterations.tolist(),
+        bit_equal=bool(torch.equal(c_run.sol.X, c_ticks.sol.X)
+                       and torch.equal(c_run.sol.U, c_ticks.sol.U)
+                       and torch.equal(o_run.x, torch.stack([o.x for o in o_ticks]))),
+        X_rel_err=rel_err(c_run.sol.X, c_ticks.sol.X))
+    emit("single_card_vs_cpu", **svc)
+    if not (svc["iterations_equal"] and svc["converged_equal"]
+            and max(svc["X_rel_err"], svc["U_rel_err"], svc["x_rel_err"]) <= 1e-9):
+        fail("single-robot card path and CPU path disagree")
+    if not (svc["run_vs_ticks"]["iterations_equal"]
+            and svc["run_vs_ticks"]["X_rel_err"] <= 1e-9):
+        fail("MPCLoop.run over 10 ticks differs from 10 ticks")
+
+    # ---------------- phase 9: the single-robot constrained path ----------
+    def single_al(dtype, device):
+        """The isrbd example's solver: ALDDP with max_iters=15, six outers
+        from ρ 1e3, ρ capped at 1e5."""
+        prob = build_isrbd_problem(SRBDConfig(dtype=dtype), feet, device=device)
+        return prob, ALDDP(prob.ocp, DDPOptions(
+            max_iters=15, alpha_converge_threshold=1e-12, beta=1e-3),
+            ALOptions(outer_iters=6, rho0=1e3, rho_max=1e5))
+
+    def drive_al(dtype, device, n_online, timed=False):
+        """The example's sequence: the offline `ALDDP.solve` from the static
+        input, then `n_online` ticks of the WPG advance, rdot_ref on nodes
+        1..ns, x0 = the plan's node 1 and `solve_online` (walking from tick
+        10). Returns the states, the solve times and the violations."""
+        prob, al = single_al(dtype, device)
+        x0 = prob.initial_state
+        U0 = prob.static_input[None].expand(ns, -1).contiguous()
+        sync = torch.cuda.synchronize if timed else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        st = al.solve(al.init(x0, U0), x0, prob.ocp.params)
+        sync()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        states, online_ms, viols = [st], [], []
+        wpg = WalkingPatternGenerator.build(c_init_z=0.0, nodes=ns,
+                                            dtype=dtype, device=device)
+        params, ws = dict(prob.ocp.params), wpg.init_state()
+        ref = torch.tensor([0.3, 0.0, 0.0], dtype=dtype, device=device)
+        for t in range(n_online):
+            action = torch.tensor(int(t >= 10), dtype=torch.int32, device=device)
+            params, ws = wpg.advance(params, ws, action)
+            params["rdot_ref"] = torch.cat(
+                [params["rdot_ref"][:1], ref.expand(ns, 3)], dim=0)
+            sync()
+            t0 = time.perf_counter()
+            st = al.solve_online(st, st.sol.X[1], params)
+            sync()
+            online_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(st)
+            viols.append(float(st.viol))
+        return al, states, solve_ms, online_ms, viols
+
+    ISRBD_TWINS = ((k1, ("riccati_backward_plain",)),
+                   (k6, ("isrbd_trial_plain", "isrbd_evaluate_plain")),
+                   (k5, ("isrbd_linearize_plain",)))
+    i_ichol = inst["isrbd_al", "tassa", "cholesky"]
+    func_calls, restore_func = count_torch_func()
+    plain_calls, restore_plain = count_plain_cost()
+    twin_calls, restore_twins = count_calls(ISRBD_TWINS)
+    al_twin_calls, restore_al = count_al_twins()
+    k1.riccati_backward.launches = 0
+    k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+    for mod, entry in ((k5, "isrbd_linearize"), (k6, "isrbd_trial"),
+                       (k6, "isrbd_evaluate"), (k78, "isrbd_al_constraints"),
+                       (k78, "isrbd_al_params")):
+        getattr(mod, entry).launches = 0
+    al_s, al_states, al_solve_ms, al_online_ms, al_viols = drive_al(
+        torch.float32, dev, 20, timed=True)
+    c_launches = {
+        "riccati_backward_isrbd_tassa_cholesky":
+            k1.riccati_backward.instance_launches[i_ichol],
+        "riccati_backward": k1.riccati_backward.launches,
+        "isrbd_linearize": k5.isrbd_linearize.launches,
+        "isrbd_trial": k6.isrbd_trial.launches,
+        "isrbd_evaluate": k6.isrbd_evaluate.launches,
+        "isrbd_al_constraints": k78.isrbd_al_constraints.launches,
+        "isrbd_al_params": k78.isrbd_al_params.launches}
+    for restore in (restore_func, restore_plain, restore_twins, restore_al):
+        restore()
+    solves = 6 + len(al_online_ms)
+    al_iters = [int(s.sol.iterations) for s in al_states]
+    csingle = dict(
+        B=1, dtype="float32", outer_iters=6, max_iters=15, rho0=1e3,
+        rho_max=1e5, online_ticks=len(al_online_ms), walk="vx 0.3 from tick 10",
+        solve_ms=al_solve_ms, online_p50_ms=statistics.median(al_online_ms),
+        online_max_ms=max(al_online_ms),
+        ms_per_inner_solve=(al_solve_ms + sum(al_online_ms)) / solves,
+        offline_viol=float(al_states[0].viol), online_viol_max=max(al_viols),
+        online_viol_final=al_viols[-1], rho=float(al_states[-1].rho),
+        iterations_last_inner=al_iters, launches=c_launches,
+        finite=all(bool(torch.isfinite(t).all()) for s in al_states
+                   for t in (s.sol.X, s.sol.U, s.lam_eq, s.lam_eq_T, s.viol)),
+        plain_twin_calls=twin_calls["n"], al_twin_calls=al_twin_calls["n"],
+        torch_func_calls=func_calls["n"],
+        plain_cost_or_defect_calls=plain_calls["n"], card=card)
+    emit("single_constrained_path", **csingle)
+    if not csingle["finite"]:
+        fail("the single-robot constrained path produced non-finite values")
+    if min(c_launches.values()) == 0:
+        fail(f"a kernel was not launched on the single constrained path: "
+             f"{c_launches}")
+    if not (c_launches["isrbd_linearize"] == c_launches["riccati_backward"]
+            == c_launches["riccati_backward_isrbd_tassa_cholesky"]):
+        fail(f"K5 and K1 (Tassa, Cholesky) launches differ: {c_launches}")
+    if c_launches["isrbd_evaluate"] != 2 * solves:
+        fail(f"isrbd_evaluate launches are not two a solve: {c_launches}")
+    if not (c_launches["isrbd_al_constraints"] == c_launches["isrbd_al_params"]
+            == solves):
+        fail(f"K7 and K8b launches are not one an outer: {c_launches}")
+    if (twin_calls["n"] or al_twin_calls["n"] or func_calls["n"]
+            or plain_calls["n"]):
+        fail("the single constrained path ran plain twins on the card: "
+             f"{twin_calls['n']} kernel twins, {al_twin_calls['n']} AL twins, "
+             f"{plain_calls['n']} plain cost or defect calls, "
+             f"{func_calls['n']} torch.func transforms")
+
+    # card against CPU in float64: the offline solve and 3 online ticks
+    _, st_card, _, _, _ = drive_al(f64, dev, 3)
+    _, st_cpu, _, _, _ = drive_al(f64, "cpu", 3)
+    cvs = dict(
+        B=1, steps=len(st_cpu), tol=1e-9,
+        iterations_equal=all(int(a.sol.iterations) == int(b.sol.iterations)
+                             for a, b in zip(st_card, st_cpu)),
+        converged_equal=all(bool(a.sol.converged) == bool(b.sol.converged)
+                            for a, b in zip(st_card, st_cpu)),
+        X_rel_err=max(rel_err(a.sol.X.cpu(), b.sol.X)
+                      for a, b in zip(st_card, st_cpu)),
+        U_rel_err=max(rel_err(a.sol.U.cpu(), b.sol.U)
+                      for a, b in zip(st_card, st_cpu)),
+        lam_rel_err=max(rel_err(a.lam_eq.cpu(), b.lam_eq)
+                        for a, b in zip(st_card, st_cpu)),
+        viol_cpu=[float(b.viol) for b in st_cpu])
+    emit("single_constrained_card_vs_cpu", **cvs)
+    if not (cvs["iterations_equal"] and cvs["converged_equal"]
+            and max(cvs["X_rel_err"], cvs["U_rel_err"], cvs["lam_rel_err"])
+            <= 1e-9):
+        fail("single-robot constrained card path and CPU path disagree")
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -2236,6 +2694,27 @@ def main():
              replaces=k1.K2_REPLACES,
              library_ms=k2["torch_linalg_inv_ms_f64"]),
     ]
+    # K1's Tassa instantiations: launches from the single-robot paths, times
+    # at B=1 (their shape there) with the serving B beside them
+    for key, name, n_launched in (
+            (("srbd", "schur"), "riccati_backward_tassa",
+             single_launches["riccati_backward_tassa"]),
+            (("srbd", "cholesky"), "riccati_backward_tassa_cholesky",
+             single_launches["riccati_backward_tassa_cholesky"]),
+            (("isrbd_al", "cholesky"), "riccati_backward_isrbd_tassa_cholesky",
+             c_launches["riccati_backward_isrbd_tassa_cholesky"])):
+        tt = tassa_t[key[0]]
+        t = tt[key[1]]
+        kernels.append(dict(
+            kernel_row(name, k1, n_launched, t["ms_B1"], t["plain_ms_B1"],
+                       t["bound_ms_B1"], t["bound_by"], tassa_err[key],
+                       K1_F32_TOL, B=1, quu_solver=key[1],
+                       ms_serving_B=t["ms_B"], serving_B=tt["B"],
+                       collapsed_ms_B1=tt["collapsed"]["ms_B1"],
+                       collapsed_ms_serving_B=tt["collapsed"]["ms_B"],
+                       shared_memory_bytes=t["shared_memory_bytes"],
+                       blocks_per_sm=t["blocks_per_sm"]),
+            replaces=k1.TASSA_REPLACES))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

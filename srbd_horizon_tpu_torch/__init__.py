@@ -1,14 +1,18 @@
 """srbd_horizon_tpu_torch — the PyTorch/CUDA port of `srbd_horizon_tpu`.
 
-The port runs two paths on an NVIDIA H100: the warm-started closed-loop
-SRBD fleet MPC tick, and the constrained serving tick (augmented-
-Lagrangian DDP on the hybrid SRBD/LIP isrbd problem). Plain tensor code
-is PyTorch; each solver iteration runs three hand-written CUDA kernels —
-a closed-form linearization (`csrc/srbd_linearize.cu`,
-`csrc/isrbd_linearize.cu`), the Riccati sweep
-(`csrc/riccati_backward.cu`) and the line-search trial with its cost
-(`csrc/srbd_rollout.cu`, `csrc/isrbd_rollout.cu`) — with plain PyTorch
-twins that the CPU tests hold against the JAX package.
+The port runs on an NVIDIA H100: the warm-started closed-loop SRBD fleet
+MPC tick (`MPCLoop.tick_batch`), the constrained serving tick
+(augmented-Lagrangian DDP on the hybrid SRBD/LIP isrbd problem), and the
+single-robot API the JAX package's examples call (`MPCLoop.tick` / `run`
+over a `walking_schedule`, `MSDDP.solve`, `ALDDP.solve` /
+`solve_online`). Plain tensor code is PyTorch; each solver iteration runs
+three hand-written CUDA kernels — a closed-form linearization
+(`csrc/srbd_linearize.cu`, `csrc/isrbd_linearize.cu`), the Riccati sweep
+(`csrc/riccati_backward.cu`: the collapsed form for fleets, the Tassa form
+with a block-Schur or Cholesky gain solve for one robot) and the
+line-search trial with its cost (`csrc/srbd_rollout.cu`,
+`csrc/isrbd_rollout.cu`) — with plain PyTorch twins that the CPU tests
+hold against the JAX package.
 
 Layout (mirrors the JAX package):
     config        SRBDConfig / DDPOptions (torch dtypes)
@@ -18,10 +22,12 @@ Layout (mirrors the JAX package):
     problems/     build_srbd_problem, build_isrbd_problem, the AL inner
                   problem
     wpg           walking-pattern generator
-    solvers/      MSDDP (the batched production path), ALDDP (batched),
-                  the option presets
+    solvers/      MSDDP (`solve_batch`, `solve`), ALDDP (`solve_batch`,
+                  `solve`, `solve_online`, the serving tick), the option
+                  presets
     kernels/      CUDA kernel wrappers, their plain twins, the nvcc build
-    runtime/      MPCLoop.tick_batch, constrained_tick, chunk_map
+    runtime/      MPCLoop (`tick_batch`, `run_batch`, `tick`, `run`), the
+                  schedules, constrained_tick, chunk_map
     convert       numpy state from the JAX side -> tensors on a device
 
 Entry points take `device=` and default to "cuda"; they raise when CUDA
@@ -29,3 +35,22 @@ is absent and no device was given. Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"
+
+from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.runtime.loop import (
+    LoopCarry,
+    MPCLoop,
+    TickInput,
+    TickOutput,
+    build_srbd_loop,
+    standing_schedule,
+    walking_schedule,
+)
+from srbd_horizon_tpu_torch.solvers.alddp import ALDDP, ALOptions, ALState
+from srbd_horizon_tpu_torch.solvers.msddp import MSDDP, DDPSolution
+
+__all__ = [
+    "ALDDP", "ALOptions", "ALState", "DDPOptions", "DDPSolution",
+    "LoopCarry", "MPCLoop", "MSDDP", "SRBDConfig", "TickInput", "TickOutput",
+    "build_srbd_loop", "standing_schedule", "walking_schedule",
+]

@@ -3,8 +3,8 @@
 
 Only fields the port reads are carried: a field of the JAX dataclasses
 that nothing here reads (the LIP problem's ZMP gain, the example rate
-`hz`, the scan unroll factors, the Quu solver choice) is absent, so
-setting it raises `TypeError`; it comes back with the code that reads it. Of the options
+`hz`, the `lax.scan` unroll factors) is absent, so setting it raises
+`TypeError`; it comes back with the code that reads it. Of the options
 kept, `MSDDP` rejects at construction those whose path is not ported
 (see `check_options`).
 """
@@ -81,9 +81,16 @@ class DDPOptions:
     mu0: float = 1e-6
     constraint_weight: float = 1e6
     max_line_search_steps: int = 40
+    # "parallel" (width-K fans of α) or "sequential" (one α a step);
+    # read by `MSDDP.solve` only: `solve_batch` always fans, as the JAX
+    # package's `_iteration_batch` does
     line_search_mode: str = "parallel"
     parallel_line_search_width: int = 4
     line_search_compact: int = 64
+    # gain solve of `MSDDP.solve`'s Tassa-form sweep: "schur" (the
+    # block-Schur inverse) or "cholesky"; `solve_batch`'s collapsed sweep
+    # always takes the block-Schur inverse, as the JAX package's does
+    quu_solver: str = "schur"
     riccati_mode: str = "sequential"
     backward_contract: str = "blocksparse"
     backward_pair_nodes: bool = False
@@ -144,10 +151,14 @@ def check_options(opts: DDPOptions) -> None:
         raise NotImplementedError(
             "linearize_sliced=False: only the sliced linearization is ported"
         )
-    if opts.line_search_mode != "parallel":
-        raise NotImplementedError(
-            f"line_search_mode={opts.line_search_mode!r}: only 'parallel' "
-            "is ported"
+    if opts.line_search_mode not in ("parallel", "sequential"):
+        raise ValueError(
+            f"line_search_mode={opts.line_search_mode!r}: 'parallel' or "
+            "'sequential'"
+        )
+    if opts.quu_solver not in ("schur", "cholesky"):
+        raise ValueError(
+            f"quu_solver={opts.quu_solver!r}: 'schur' or 'cholesky'"
         )
 
 

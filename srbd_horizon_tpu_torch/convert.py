@@ -3,7 +3,11 @@ tensors out, on a given device and dtype.
 
 The caller turns JAX arrays into numpy (`np.asarray`) on its own side,
 so nothing here knows of JAX. Floating leaves take `dtype`; integer and
-boolean leaves keep their kind (int32 counters, bool flags).
+boolean leaves keep their kind (int32 counters, bool flags). Every
+function takes a fleet's state (a leading B axis, for `tick_batch` and
+the batched solves) or one robot's as the JAX package's unbatched entry
+points hold it (for `tick`, `MSDDP.solve`, `ALDDP.solve` and
+`solve_online`): shapes pass through as they are.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def tick_input_from_numpy(action, rdot_ref, w_ref, *, device="cuda",
 def solution_from_numpy(sol: Mapping[str, np.ndarray], *, device="cuda",
                         dtype=torch.float32) -> DDPSolution:
     """A DDPSolution from its fields by name (X, U, cost, converged,
-    iterations, defect_norm), batch-first."""
+    iterations, defect_norm), batch-first or one robot's (0-d cost,
+    flag and count)."""
     dev = resolve_device(device)
     return DDPSolution(**{f: to_tensor(sol[f], device=dev, dtype=dtype)
                           for f in DDPSolution._fields})
@@ -62,9 +67,9 @@ def solution_from_numpy(sol: Mapping[str, np.ndarray], *, device="cuda",
 
 def al_state_from_numpy(state: Mapping[str, np.ndarray], *, device="cuda",
                         dtype=torch.float32) -> ALState:
-    """A fleet ALState from its fields by name; `sol` is itself the
-    mapping `solution_from_numpy` takes. Every leaf leads with the fleet
-    axis (rho and viol are (B,))."""
+    """An ALState from its fields by name; `sol` is itself the mapping
+    `solution_from_numpy` takes. A fleet's leaves lead with the fleet axis
+    (rho and viol (B,)); one robot's have none (rho and viol 0-d)."""
     dev = resolve_device(device)
     rest = {f: to_tensor(state[f], device=dev, dtype=dtype)
             for f in ALState._fields if f != "sol"}
@@ -86,9 +91,10 @@ def phase_prior_from_numpy(prior: Mapping[str, np.ndarray], *, device="cuda",
 def carry_from_numpy(x, sol: Mapping[str, np.ndarray], params,
                      step_counter, *, device="cuda",
                      dtype=torch.float32) -> LoopCarry:
-    """A fleet LoopCarry from the state x (B, nx), the DDPSolution fields
-    by name (X, U, cost, converged, iterations, defect_norm), the params
-    and the WPG step counter (B,)."""
+    """A LoopCarry from the state x, the DDPSolution fields by name (X, U,
+    cost, converged, iterations, defect_norm), the params and the WPG step
+    counter: a fleet's (x (B, nx), counter (B,)) or one robot's (x (nx,),
+    counter 0-d, params (ns+1, dim))."""
     dev = resolve_device(device)
     return LoopCarry(
         x=to_tensor(x, device=dev, dtype=dtype),

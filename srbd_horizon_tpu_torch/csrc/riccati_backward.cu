@@ -74,6 +74,39 @@
 // point, where sums in another order read ~5e-10 (Quu's conditioning
 // amplifies every rounding difference).
 //
+// The Tassa form. `MSDDP.solve` (one robot, B=1) runs the JAX package's
+// unbatched sweep, `_backward` (msddp.py:365-417): the same Q terms, then
+// [k K] = −Quu⁻¹[Qu Qux] by the block-Schur inverse or by a Cholesky solve,
+// and the full value update with Quu kept,
+//   Vx⁺ = Qx + (KᵀQuu)k + KᵀQu + Quxᵀk,
+//   Vxx⁺ = sym(Qxx + (KᵀQuu)K + KᵀQux + QuxᵀK),
+//   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
+// summed left to right as `riccati_backward_plain` (form="tassa") sums it.
+// Two more compile-time parameters pick the value form (Form) and the gain
+// solve (Solve); five instantiations are built (kInstances below): the
+// collapsed form with the inverse at both shapes, and the Tassa form with
+// the inverse at SrbdShape (DDPOptions' default), with Cholesky at
+// IsrbdAlShape (the AL solver's inner solve) and with Cholesky at
+// SrbdShape. The collapsed ones compile to the code they had.
+//  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
+//    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
+//    pivot, √ of it is L[j][j], and the lanes below divide by it. A pivot
+//    that is not positive (or NaN) writes NaN over the whole factor, as
+//    the twin's `cho_factor` does (the JAX package's `cho_factor` reads
+//    NaN there too), so that node's gains, and every earlier node's, are
+//    NaN and the line search rejects the step.
+//  * The substitutions L y = b, Lᵀ x = y run over the 1 + nx right-hand
+//    sides [Qu Qux], one thread a column holding it in registers, in order
+//    of row.
+//  * Tassa keeps Quu through the update and needs KᵀQuu (nx×nu) and ½kᵀQuu
+//    (nu) in float64. They take the inverse's workspace once the gains are
+//    formed, inside the region the node's blocks fill earlier in the node,
+//    so every instantiation takes the bytes of its shape's collapsed one:
+//    53,544 / 68,040 B (SRBD, float32 / float64 tensors) and 73,356 /
+//    100,868 B (isrbd): 0 new bytes.
+//  * At B=1 one block runs the whole sweep: its time is one member's
+//    latency, not a throughput.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
 
@@ -103,6 +136,11 @@ struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
   static constexpr int min_blocks = 3;
 };
 
+// the value update (kernels/riccati.py::FORMS) and the gain solve
+// (QUU_SOLVERS)
+enum class Form { kCollapsed, kTassa };
+enum class Solve { kSchur, kCholesky };
+
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
@@ -131,12 +169,15 @@ struct Layout {
                        rxp = Jup + S::n_gu * nu, rup = rxp + S::n_gx,
                        d = rup + S::n_gu, n_blocks = d + nx;
   static constexpr int Jt = 0, rt = S::nt * nx, n_terminal = rt + S::nt;
-  // the same region from the inverse on: Quu⁻¹, K, the inverse's workspace
+  // the same region from the inverse on: Quu⁻¹ (or the Cholesky factor),
+  // K, the inverse's workspace; once the gains are formed the Tassa form's
+  // KᵀQuu and ½kᵀQuu take the workspace's place
   static constexpr int iQ = region, K = iQ + nu * nu, work = K + nu * nx;
+  static constexpr int P = work, w = P + nx * nu;
   static constexpr int elem = static_cast<int>(sizeof(T));
   static constexpr int region_bytes = cmax(
       (blocks - region) * 8 + (cmax(n_blocks, n_terminal) * elem + 7) / 8 * 8,
-      (nu * nu + nu * nx + inv_work(nu)) * 8);
+      (nu * nu + nu * nx + cmax(inv_work(nu), nx * nu + nu)) * 8);
   // the row table (rx | ru | gx | gu | bx | bu | uc), then each input's
   // position in uc (or −1)
   static constexpr int rows_byte = region * 8 + region_bytes;
@@ -396,6 +437,53 @@ __device__ __forceinline__ void spd_inverse_warp(const double* A, double* out,
   }
 }
 
+// L (lower, row-major, N×N) with A = L Lᵀ for SPD A (leading dim N) on the
+// calling warp, N ≤ 32: column j at a time, lane i ≥ j forms
+// s = A[i][j] − Σ_{k<j} L[i][k] L[j][k] in order of k; lane j's s is the
+// pivot, L[j][j] = √s, and L[i][j] = s / L[j][j] below it. A pivot that is
+// not positive, or NaN, makes the whole lower triangle NaN.
+template <int N>
+__device__ __forceinline__ void cholesky_warp(const double* A, double* L) {
+  static_assert(N <= 32, "one lane a row");
+  const int lane = threadIdx.x & 31;
+  bool bad = false;
+  for (int j = 0; j < N; ++j) {
+    double s = 0.0;
+    if (lane >= j && lane < N) {
+      s = A[lane * N + j];
+      for (int k = 0; k < j; ++k) s -= L[lane * N + k] * L[j * N + k];
+    }
+    const double pivot = __shfl_sync(0xffffffffu, s, j);
+    bad |= !(pivot > 0.0);
+    const double dj = sqrt(pivot);
+    if (lane < N) L[lane * N + j] = lane < j ? 0.0 : lane == j ? dj : s / dj;
+    __syncwarp();
+  }
+  if (bad) {
+    for (int e = lane; e < N * N; e += 32)
+      if (e % N <= e / N) L[e] = __longlong_as_double(0x7ff8000000000000LL);
+    __syncwarp();
+  }
+}
+
+// x ← A⁻¹ x from A's factor L (cholesky_warp) for one right-hand side of
+// the calling thread, in place in shared memory (entry i at x[i·ld]):
+// L y = x, then Lᵀ x = y, each in order of row.
+template <int N>
+__device__ __forceinline__ void cholesky_solve(const double* L, double* x,
+                                               int ld) {
+  for (int i = 0; i < N; ++i) {
+    double s = x[i * ld];
+    for (int k = 0; k < i; ++k) s -= L[i * N + k] * x[k * ld];
+    x[i * ld] = s / L[i * N + i];
+  }
+  for (int i = N - 1; i >= 0; --i) {
+    double s = x[i * ld];
+    for (int k = i + 1; k < N; ++k) s -= L[k * N + i] * x[k * ld];
+    x[i * ld] = s / L[i * N + i];
+  }
+}
+
 // Copy Count elements from global to shared memory, thread `tid` of the
 // block taking every kThreads-th; the copies are in flight until
 // cp_async_wait_all().
@@ -416,7 +504,7 @@ __device__ __forceinline__ void prefetch(const T* p, int count, int rank,
     prefetch_l2(c + (off < bytes ? off : bytes - 1));
 }
 
-template <class S, typename T>
+template <class S, typename T, Form F, Solve G>
 __global__ void __launch_bounds__(kThreads, S::min_blocks)
 riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
                         const T* __restrict__ Jxp, const T* __restrict__ Jup,
@@ -445,6 +533,8 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   double* const iQ = sm + L::iQ;
   double* const Kn = sm + L::K;
   double* const work = sm + L::work;
+  double* const Pm = sm + L::P;     // KᵀQuu (Tassa)
+  double* const wv = sm + L::w;     // ½kᵀQuu (Tassa)
   T* const blk = reinterpret_cast<T*>(sm + L::blocks);
   T* const Sxs = blk + L::Sx;
   T* const Bss = blk + L::Bs;
@@ -547,6 +637,20 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
     mma_seg<nu>(c, [&](int ia, int k) { return Qux[k * nx + ia]; }, ia0, ia1,
                 [&](int k) { return Kn[k * nx + jb]; });
   };
+  auto p_body = [&](Acc& c, int ia0, int ia1, int jb) {  // KᵀQuu
+    mma_seg<nu>(c, [&](int ia, int k) { return Kn[k * nx + ia]; }, ia0, ia1,
+                [&](int k) { return Quu[k * nu + jb]; });
+  };
+  auto pk_body = [&](Acc& c, int ia0, int ia1, int jb) {  // (KᵀQuu)K
+    mma_seg<nu>(c, [&](int ia, int k) { return Pm[ia * nu + k]; }, ia0, ia1,
+                [&](int k) { return Kn[k * nx + jb]; });
+  };
+  auto kq_body = [&](Acc& c, int ia0, int ia1, int jb) {  // KᵀQux, QuxᵀK
+    mma_seg<nu>(c, [&](int ia, int k) { return Kn[k * nx + ia]; }, ia0, ia1,
+                [&](int k) { return Qux[k * nx + jb]; });
+    mma_seg<nu, 1>(c, [&](int ia, int k) { return Qux[k * nx + ia]; }, ia0,
+                   ia1, [&](int k) { return Kn[k * nx + jb]; });
+  };
   constexpr int nVA = Tiles<nx, nx>::count, nW = Tiles<n_ru, n_uc>::count;
   constexpr int nQuu = Tiles<nu, nu>::count, nQxx = Tiles<nx, nx>::count,
                 nQux = Tiles<nu, nx>::count;
@@ -646,9 +750,13 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
         });
     __syncthreads();
 
-    // ---- Quu⁻¹ on warp 0; the others ask L2 for the next node's blocks ----
+    // ---- Quu⁻¹ (or its Cholesky factor, into iQ's place) on warp 0; the
+    // others ask L2 for the next node's blocks ----
     if (warp == 0) {
-      spd_inverse_warp<nu, nu, nu>(Quu, iQ, work);
+      if constexpr (G == Solve::kSchur)
+        spd_inverse_warp<nu, nu, nu>(Quu, iQ, work);
+      else
+        cholesky_warp<nu>(Quu, iQ);
     } else if (n > 0) {
       const size_t pn = bn - 1;
       const int r = tid - 32, rs = kThreads - 32;
@@ -664,43 +772,114 @@ riccati_backward_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
     // ---- gains: k = −Quu⁻¹Qu, K = −Quu⁻¹Qux ----
     T* const ks_g = ks + bn * nu;
     T* const Ks_g = Ks + bn * nu * nx;
-    if (tid < nu) {
-      const double s = dot<nu>([&](int j) { return iQ[tid * nu + j] * Qu[j]; });
-      kn[tid] = -s;
-      ks_g[tid] = static_cast<T>(-s);
-    }
-    __syncwarp();
-    warp_items<Tiles<nu, nx>::count>(
-        warp, [&](int item, Acc& a) { tile_acc<nu, nx>(item, a, k_body); },
-        [&](int item, const Acc& a) {
-          tile_store<nu, nx>(item, a, [&](int i, int j, double v, double) {
-            Kn[i * nx + j] = -v;
-            Ks_g[i * nx + j] = static_cast<T>(-v);
+    if constexpr (G == Solve::kSchur) {
+      if (tid < nu) {
+        const double s =
+            dot<nu>([&](int j) { return iQ[tid * nu + j] * Qu[j]; });
+        kn[tid] = -s;
+        ks_g[tid] = static_cast<T>(-s);
+      }
+      __syncwarp();
+      warp_items<Tiles<nu, nx>::count>(
+          warp, [&](int item, Acc& a) { tile_acc<nu, nx>(item, a, k_body); },
+          [&](int item, const Acc& a) {
+            tile_store<nu, nx>(item, a, [&](int i, int j, double v, double) {
+              Kn[i * nx + j] = -v;
+              Ks_g[i * nx + j] = static_cast<T>(-v);
+            });
           });
-        });
-    __syncthreads();
-
-    // ---- Schur-form value update (symmetrized at the next node's start) ----
-    if (tid < nx)
-      Vx[tid] = Qx[tid] +
-                dot<nu>([&](int u) { return Qux[u * nx + tid] * kn[u]; });
-    if (warp == kWarps - 1) {
-      double p = 0.0;
-      for (int u = lane; u < nu; u += 32) p += kn[u] * Qu[u];
-      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (lane == 0) {
-        acc[0] = acc[0] + p;
-        acc[1] = acc[1] - 0.5 * p;
+    } else if (tid < 1 + nx) {
+      // column tid of [Qu Qux] through the factor, a thread a column, in
+      // place in k (column 0) or K
+      const int ld = tid == 0 ? 1 : nx;
+      double* const x = tid == 0 ? kn : Kn + (tid - 1);
+      T* const x_g = tid == 0 ? ks_g : Ks_g + (tid - 1);
+      for (int i = 0; i < nu; ++i)
+        x[i * ld] = tid == 0 ? Qu[i] : Qux[i * nx + tid - 1];
+      cholesky_solve<nu>(iQ, x, ld);
+      for (int i = 0; i < nu; ++i) {
+        const double v = -x[i * ld];
+        x[i * ld] = v;
+        x_g[i * ld] = static_cast<T>(v);
       }
     }
-    __syncwarp();
-    warp_items<Tiles<nx, nx>::count>(
-        warp, [&](int item, Acc& a) { tile_acc<nx, nx>(item, a, v_body); },
-        [&](int item, const Acc& a) {
-          tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
-            Vxx[i * nx + j] += v;
+    __syncthreads();
+
+    if constexpr (F == Form::kCollapsed) {
+      // ---- Schur-form value update (symmetrized at the next node's start) ----
+      if (tid < nx)
+        Vx[tid] = Qx[tid] +
+                  dot<nu>([&](int u) { return Qux[u * nx + tid] * kn[u]; });
+      if (warp == kWarps - 1) {
+        double p = 0.0;
+        for (int u = lane; u < nu; u += 32) p += kn[u] * Qu[u];
+        for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+        if (lane == 0) {
+          acc[0] = acc[0] + p;
+          acc[1] = acc[1] - 0.5 * p;
+        }
+      }
+      __syncwarp();
+      warp_items<Tiles<nx, nx>::count>(
+          warp, [&](int item, Acc& a) { tile_acc<nx, nx>(item, a, v_body); },
+          [&](int item, const Acc& a) {
+            tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
+              Vxx[i * nx + j] += v;
+            });
           });
-        });
+    } else {
+      // ---- Tassa value update: KᵀQuu and ½kᵀQuu first ----
+      if (tid < nu)
+        wv[tid] = dot<nu>([&](int l) { return (0.5 * kn[l]) * Quu[l * nu + tid]; });
+      __syncwarp();
+      warp_items<Tiles<nx, nu>::count>(
+          warp, [&](int item, Acc& a) { tile_acc<nx, nu>(item, a, p_body); },
+          [&](int item, const Acc& a) {
+            tile_store<nx, nu>(item, a, [&](int i, int j, double v, double) {
+              Pm[i * nu + j] = v;
+            });
+          });
+      __syncthreads();
+      // Vx⁺ = ((Qx + (KᵀQuu)k) + KᵀQu) + Quxᵀk; Vxx ← Qxx + (KᵀQuu)K
+      if (tid < nx) {
+        const double a = dot<nu>([&](int j) { return Pm[tid * nu + j] * kn[j]; });
+        const double bq = dot<nu>([&](int j) { return Kn[j * nx + tid] * Qu[j]; });
+        const double c = dot<nu>([&](int j) { return Qux[j * nx + tid] * kn[j]; });
+        Vx[tid] = ((Qx[tid] + a) + bq) + c;
+      }
+      if (warp == kWarps - 1) {
+        double p = 0.0, q = 0.0;
+        for (int u = lane; u < nu; u += 32) {
+          p += kn[u] * Qu[u];
+          q += wv[u] * kn[u];
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          p += __shfl_xor_sync(0xffffffffu, p, o);
+          q += __shfl_xor_sync(0xffffffffu, q, o);
+        }
+        if (lane == 0) {
+          acc[0] = acc[0] + p;
+          acc[1] = acc[1] + q;
+        }
+      }
+      __syncwarp();
+      warp_items<Tiles<nx, nx>::count>(
+          warp, [&](int item, Acc& a) { tile_acc<nx, nx>(item, a, pk_body); },
+          [&](int item, const Acc& a) {
+            tile_store<nx, nx>(item, a, [&](int i, int j, double v, double) {
+              Vxx[i * nx + j] += v;
+            });
+          });
+      __syncthreads();
+      // Vxx ← (Vxx + KᵀQux) + QuxᵀK (symmetrized at the next node's start)
+      warp_items<Tiles<nx, nx>::count>(
+          warp, [&](int item, Acc& a) { tile_acc<nx, nx>(item, a, kq_body); },
+          [&](int item, const Acc& a) {
+            tile_store<nx, nx>(item, a, [&](int i, int j, double v, double u) {
+              Vxx[i * nx + j] = (Vxx[i * nx + j] + v) + u;
+            });
+          });
+    }
     __syncthreads();
   }
   if (tid == 0) {
@@ -724,16 +903,16 @@ int opt_in(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <class S, typename T>
+template <class S, typename T, Form F, Solve G>
 int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
            const void* rho, const void* d, const void* Jt, const void* rt,
            const void* rows, int B, int ns, int nr, double mu, void* ks,
            void* Ks, void* dV1, void* dV2, void* stream) {
   if (B == 0) return 0;
   constexpr int bytes = Layout<S, T>::bytes;
-  const int err = opt_in(riccati_backward_kernel<S, T>, bytes);
+  const int err = opt_in(riccati_backward_kernel<S, T, F, G>, bytes);
   if (err != 0) return err;
-  riccati_backward_kernel<S, T><<<B, kThreads, bytes,
+  riccati_backward_kernel<S, T, F, G><<<B, kThreads, bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Sx), static_cast<const T*>(Bs),
       static_cast<const T*>(Jxp), static_cast<const T*>(Jup),
@@ -802,21 +981,43 @@ int inverse(const void* A, void* out, int M, int n, void* stream) {
   return kUnknownShape;
 }
 
-template <class S, typename T>
+template <class S, typename T, Form F, Solve G>
 int occupancy(int* blocks) {
   constexpr int bytes = Layout<S, T>::bytes;
-  const int err = opt_in(riccati_backward_kernel<S, T>, bytes);
+  const int err = opt_in(riccati_backward_kernel<S, T, F, G>, bytes);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, riccati_backward_kernel<S, T>, kThreads, bytes));
+      blocks, riccati_backward_kernel<S, T, F, G>, kThreads, bytes));
+}
+
+template <class Shape, Form FF, Solve GG>
+struct Inst {
+  using S = Shape;
+  static constexpr Form F = FF;
+  static constexpr Solve G = GG;
+};
+
+// fn(Inst<...>{}) for instantiation `inst`, in the order of
+// kernels/riccati.py::KERNEL_INSTANCES; UNKNOWN_SHAPE for another index
+template <class Fn>
+int with_instance(int inst, Fn fn) {
+  switch (inst) {
+    case 0: return fn(Inst<SrbdShape, Form::kCollapsed, Solve::kSchur>{});
+    case 1: return fn(Inst<IsrbdAlShape, Form::kCollapsed, Solve::kSchur>{});
+    case 2: return fn(Inst<SrbdShape, Form::kTassa, Solve::kSchur>{});
+    case 3: return fn(Inst<IsrbdAlShape, Form::kTassa, Solve::kCholesky>{});
+    case 4: return fn(Inst<SrbdShape, Form::kTassa, Solve::kCholesky>{});
+    default: return kUnknownShape;
+  }
 }
 
 }  // namespace
 
-// `shape` indexes kernels/riccati.py::KERNEL_SHAPES; the sizes must be that
-// instantiation's, or the call returns UNKNOWN_SHAPE and launches nothing.
+// `inst` indexes kernels/riccati.py::KERNEL_INSTANCES; the sizes must be
+// that instantiation's shape's, or the call returns UNKNOWN_SHAPE and
+// launches nothing.
 #define RICCATI_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(int shape, const void* Sx, const void* Bs,              \
+  extern "C" int NAME(int inst, const void* Sx, const void* Bs,               \
                       const void* Jxp, const void* Jup, const void* rho,      \
                       const void* d, const void* Jt, const void* rt,          \
                       const void* rows, int B, int ns, int nx, int nu,        \
@@ -824,14 +1025,13 @@ int occupancy(int* blocks) {
                       int n_b, int n_uc, double mu, void* ks, void* Ks,       \
                       void* dV1, void* dV2, void* stream) {                   \
     const int dims[9] = {nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc};      \
-    if (shape == 0 && matches<SrbdShape>(dims))                               \
-      return launch<SrbdShape, T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows, B,  \
-                                  ns, nr, mu, ks, Ks, dV1, dV2, stream);      \
-    if (shape == 1 && matches<IsrbdAlShape>(dims))                            \
-      return launch<IsrbdAlShape, T>(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows,  \
-                                     B, ns, nr, mu, ks, Ks, dV1, dV2,         \
-                                     stream);                                 \
-    return kUnknownShape;                                                     \
+    return with_instance(inst, [&](auto in) {                                 \
+      using I = decltype(in);                                                 \
+      if (!matches<typename I::S>(dims)) return kUnknownShape;                \
+      return launch<typename I::S, T, I::F, I::G>(                            \
+          Sx, Bs, Jxp, Jup, rho, d, Jt, rt, rows, B, ns, nr, mu, ks, Ks, dV1, \
+          dV2, stream);                                                       \
+    });                                                                       \
   }
 
 RICCATI_ENTRY(riccati_backward_f32, float)
@@ -848,26 +1048,23 @@ extern "C" int spd_inverse_f64(const void* A, void* out, int M, int n,
   return inverse<double>(A, out, M, n, stream);
 }
 
-// Dynamic shared memory one K1 block takes, in bytes, for tensors of
-// float32 (f64 = 0) or float64 (f64 = 1).
-extern "C" long long riccati_backward_smem_bytes(int shape, int f64) {
-  if (shape == 0)
-    return f64 ? Layout<SrbdShape, double>::bytes
-               : Layout<SrbdShape, float>::bytes;
-  if (shape == 1)
-    return f64 ? Layout<IsrbdAlShape, double>::bytes
-               : Layout<IsrbdAlShape, float>::bytes;
-  return kUnknownShape;
+// Dynamic shared memory one K1 block of instantiation `inst` takes, in
+// bytes, for tensors of float32 (f64 = 0) or float64 (f64 = 1).
+extern "C" long long riccati_backward_smem_bytes(int inst, int f64) {
+  return with_instance(inst, [&](auto in) {
+    using I = decltype(in);
+    return f64 ? Layout<typename I::S, double>::bytes
+               : Layout<typename I::S, float>::bytes;
+  });
 }
 
-// K1 blocks resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// into *blocks; returns 0 or an error.
-extern "C" int riccati_backward_blocks_per_sm(int shape, int f64, int* blocks) {
-  if (shape == 0)
-    return f64 ? occupancy<SrbdShape, double>(blocks)
-               : occupancy<SrbdShape, float>(blocks);
-  if (shape == 1)
-    return f64 ? occupancy<IsrbdAlShape, double>(blocks)
-               : occupancy<IsrbdAlShape, float>(blocks);
-  return kUnknownShape;
+// K1 blocks of instantiation `inst` resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks; returns 0
+// or an error.
+extern "C" int riccati_backward_blocks_per_sm(int inst, int f64, int* blocks) {
+  return with_instance(inst, [&](auto in) {
+    using I = decltype(in);
+    return f64 ? occupancy<typename I::S, double, I::F, I::G>(blocks)
+               : occupancy<typename I::S, float, I::F, I::G>(blocks);
+  });
 }

@@ -30,10 +30,23 @@ and BsᵀVA[ru] are accumulated at uc into the dense Qu, Quu, Qux, as
 srbd_horizon_tpu/solvers/msddp.py:584-597 scatters them; the residual
 Grams stay dense over all nu inputs.
 
-The JAX package's AL solver asks its inner solver for a Cholesky gain
-solve, but its batched lane-major sweep ignores that option and always
-takes `lm_spd_inverse` (msddp.py:501-503), so every batched entry point
-there runs the block-Schur inverse. So does this sweep, for every caller.
+That is the collapsed form (`form="collapsed"`), which the batched
+solves run. `form="tassa"` is the JAX package's unbatched `_backward`
+(srbd_horizon_tpu/solvers/msddp.py:365-417), which `MSDDP.solve` runs: the
+same Q terms, then the gains [k K] = −Quu⁻¹[Qu Qux] from the block-Schur
+`spd_solve` (`quu_solver="schur"`) or a Cholesky solve ("cholesky"; a
+Quu that is not positive definite gives NaN gains), and the full Tassa
+value update, with Quu kept:
+
+    Vx⁺  = Qx + KᵀQuu k + KᵀQu + Quxᵀk
+    Vxx⁺ = sym(Qxx + KᵀQuu K + KᵀQux + QuxᵀK)
+    ΔV₁ += kᵀQu         ΔV₂ += ½kᵀQuu k
+
+summed left to right, KᵀQuu formed once. `quu_solver` is read only with
+the Tassa form: the JAX package's AL solver asks its inner solver for a
+Cholesky gain solve, but its batched lane-major sweep ignores that option
+and always takes `lm_spd_inverse` (msddp.py:501-503), and so does the
+collapsed form here, for every caller.
 """
 
 from __future__ import annotations
@@ -46,12 +59,15 @@ import torch
 
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
 from srbd_horizon_tpu_torch.math.linalg import (
+    cho_factor,
+    cho_solve,
     lm_matmul,
     lm_matmul_tn,
     lm_matvec,
     lm_matvec_tn,
     lm_spd_inverse,
     lm_transpose,
+    spd_solve,
 )
 
 # the TPU kernel K1 replaces: the pl.pallas_call of the retired
@@ -60,6 +76,9 @@ from srbd_horizon_tpu_torch.math.linalg import (
 REPLACES = "srbd_horizon_tpu/solvers/pallas_backward.py:284"
 # K2, the SPD inverse inside K1, replaces that kernel's `_spd_inv`
 K2_REPLACES = "srbd_horizon_tpu/solvers/pallas_backward.py:135"
+# the Tassa form's instantiations replace the unbatched sweep (a
+# `lax.scan`, XLA-fused; the JAX package wrote no Pallas kernel for it)
+TASSA_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:365"
 SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward.cu"
 
 
@@ -119,12 +138,30 @@ class RiccatiRows:
         return self._cache[key]
 
 
+FORMS = ("collapsed", "tassa")
+QUU_SOLVERS = ("schur", "cholesky")
+
+
+def gain_solve(form: str, quu_solver: str) -> str:
+    """The gain solve a sweep of `form` runs: `quu_solver` for the Tassa
+    form, the block-Schur inverse for the collapsed one (which ignores the
+    option); ValueError for an unknown form or solver."""
+    if form not in FORMS:
+        raise ValueError(f"form={form!r}: one of {FORMS}")
+    if quu_solver not in QUU_SOLVERS:
+        raise ValueError(f"quu_solver={quu_solver!r}: one of {QUU_SOLVERS}")
+    return quu_solver if form == "tassa" else "schur"
+
+
 def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
-                           rows: RiccatiRows):
+                           rows: RiccatiRows, form: str = "collapsed",
+                           quu_solver: str = "schur"):
     """Plain PyTorch sweep. Shapes: Sx (B,ns,|rx|,nx), Bs (B,ns,|ru|,|uc|),
     Jxp (B,ns,|gx|,nx), Jup (B,ns,|gu|,nu), rho (B,ns,nr), d (B,ns,nx),
     Jt (B,nt,nx), rt (B,nt). Returns ks (B,ns,nu), Ks (B,ns,nu,nx),
-    dV1 (B,), dV2 (B,)."""
+    dV1 (B,), dV2 (B,). `form` and `quu_solver` as in the module
+    docstring."""
+    solve = gain_solve(form, quu_solver)
     Bsz, ns, nx = d.shape
     nu = Jup.shape[-1]
     dtype, dev = d.dtype, d.device
@@ -176,16 +213,30 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
         Qu = lu + Qu_c
         Quu = luu + Quu_c + eye_mu
         Qux = lux + Qux_c
-        # chain: gains and the Schur-form value update
-        iQ = lm_spd_inverse(Quu)
-        k = -lm_matvec(iQ, Qu)
-        K = -lm_matmul(iQ, Qux)
-        kQu = torch.sum(k * Qu, dim=-1)
-        Vx = Qx + lm_matvec_tn(Qux, k)
-        Vxx = Qxx + lm_matmul_tn(Qux, K)
+        if form == "collapsed":
+            # chain: gains and the Schur-form value update
+            iQ = lm_spd_inverse(Quu)
+            k = -lm_matvec(iQ, Qu)
+            K = -lm_matmul(iQ, Qux)
+            kQu = torch.sum(k * Qu, dim=-1)
+            Vx = Qx + lm_matvec_tn(Qux, k)
+            Vxx = Qxx + lm_matmul_tn(Qux, K)
+            dV1 = dV1 + kQu
+            dV2 = dV2 - 0.5 * kQu
+        else:
+            # `_backward`'s node: the gains, then the Tassa value update
+            rhs = torch.cat([Qu[..., None], Qux], dim=-1)
+            kK = -(spd_solve(Quu, rhs) if solve == "schur"
+                   else cho_solve(cho_factor(Quu), rhs))
+            k, K = kK[..., 0], kK[..., 1:]
+            KtQuu = lm_matmul_tn(K, Quu)
+            Vx = (Qx + lm_matvec(KtQuu, k) + lm_matvec_tn(K, Qu)
+                  + lm_matvec_tn(Qux, k))
+            Vxx = (Qxx + lm_matmul(KtQuu, K) + lm_matmul_tn(K, Qux)
+                   + lm_matmul_tn(Qux, K))
+            dV1 = dV1 + torch.sum(k * Qu, dim=-1)
+            dV2 = dV2 + torch.sum(lm_matvec_tn(Quu, 0.5 * k) * k, dim=-1)
         Vxx = 0.5 * (Vxx + lm_transpose(Vxx))
-        dV1 = dV1 + kQu
-        dV2 = dV2 - 0.5 * kQu
         ks[:, n] = k
         Ks[:, n] = K
     return ks, Ks, dV1, dV2
@@ -194,16 +245,31 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# The kernel's instantiations, in the order of csrc/riccati_backward.cu's
-# shape index (SrbdShape, IsrbdAlShape): nx, nu, the terminal rows nt and
-# the sizes of the row sets. Another problem needs an instantiation of its
-# own there and here.
+# The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
+# shape structs (SrbdShape, IsrbdAlShape): nx, nu, the terminal rows nt and
+# the sizes of the row sets. Another problem needs a shape of its own there
+# and here.
 KERNEL_SHAPES = {
     "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
                  n_b=3, n_uc=24),
     "isrbd_al": dict(nx=37, nu=30, nt=101, n_rx=19, n_ru=37, n_gx=60,
                      n_gu=103, n_b=9, n_uc=18),
 }
+
+# K1's instantiations, in the order of csrc/riccati_backward.cu's
+# `with_instance`: (shape, value form, gain solve). The collapsed form with
+# the block-Schur inverse serves the batched solves at both shapes; the
+# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD shape
+# (DDPOptions' default), with Cholesky at the isrbd-AL shape (the AL
+# solver's inner solve) and at the SRBD shape. CUDA tensors at another
+# (shape, form, solver) raise ValueError.
+KERNEL_INSTANCES = (
+    ("srbd", "collapsed", "schur"),
+    ("isrbd_al", "collapsed", "schur"),
+    ("srbd", "tassa", "schur"),
+    ("isrbd_al", "tassa", "cholesky"),
+    ("srbd", "tassa", "cholesky"),
+)
 
 # the launchers' own errors (no CUDA error has these values): the block's
 # shared memory exceeds the card's opt-in limit; the sizes match no
@@ -231,8 +297,18 @@ def kernel_shape(nx: int, nu: int, nt: int, rows: RiccatiRows) -> str:
         f"compiled for {known} (csrc/riccati_backward.cu)")
 
 
-def _shape_index(name: str) -> int:
-    return list(KERNEL_SHAPES).index(name)
+def kernel_instance(shape: str, form: str = "collapsed",
+                    quu_solver: str = "schur") -> int:
+    """The index in `KERNEL_INSTANCES` of K1's instantiation for the shape
+    `shape` (a `kernel_shape` name), the value form and the gain solve
+    (`gain_solve`); ValueError, naming what was compiled, if there is
+    none."""
+    key = (shape, form, gain_solve(form, quu_solver))
+    if key not in KERNEL_INSTANCES:
+        raise ValueError(
+            f"riccati_backward has no kernel for {key}; it is compiled for "
+            f"{KERNEL_INSTANCES} (csrc/riccati_backward.cu)")
+    return KERNEL_INSTANCES.index(key)
 
 
 def _kernel_fn(dtype):
@@ -245,7 +321,8 @@ def _kernel_fn(dtype):
 
 
 def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows,
-                        dtype=torch.float32) -> int:
+                        dtype=torch.float32, form: str = "collapsed",
+                        quu_solver: str = "schur") -> int:
     """Dynamic shared memory one K1 block takes at these sizes, for tensors
     of `dtype` (the node's blocks stay in it on chip), as the launcher
     reckons it."""
@@ -253,12 +330,13 @@ def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows,
     if fn.argtypes is None:
         fn.argtypes = [_I, _I]
         fn.restype = ctypes.c_longlong
-    return int(fn(_shape_index(kernel_shape(nx, nu, nt, rows)),
-                  int(dtype == torch.float64)))
+    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
+    return int(fn(inst, int(dtype == torch.float64)))
 
 
 def blocks_per_sm(nx: int, nu: int, nt: int, rows: RiccatiRows,
-                  dtype=torch.float32) -> int:
+                  dtype=torch.float32, form: str = "collapsed",
+                  quu_solver: str = "schur") -> int:
     """K1 blocks one SM of the current card holds at once at these sizes
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
     fn = library("riccati_backward").riccati_backward_blocks_per_sm
@@ -266,24 +344,26 @@ def blocks_per_sm(nx: int, nu: int, nt: int, rows: RiccatiRows,
         fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
     blocks = ctypes.c_int(0)
-    err = fn(_shape_index(kernel_shape(nx, nu, nt, rows)),
-             int(dtype == torch.float64), ctypes.byref(blocks))
+    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
+    err = fn(inst, int(dtype == torch.float64), ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"riccati_backward occupancy query failed: error {err}")
     return blocks.value
 
 
 def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
-                     rows: RiccatiRows):
+                     rows: RiccatiRows, form: str = "collapsed",
+                     quu_solver: str = "schur"):
     """K1. Same contract as `riccati_backward_plain`; launches the CUDA
     kernel for CUDA tensors (and counts the launch in
-    `riccati_backward.launches`) at the sizes of an instantiation in
-    `KERNEL_SHAPES`, and raises ValueError at any other. The kernel
-    computes in float64 for float32 tensors too, so on float32 it is ~1e-2
-    closer in the gains to the float64 sweep than the plain twin is (see
-    the note in the .cu)."""
+    `riccati_backward.launches`) at the sizes, form and gain solve of an
+    instantiation in `KERNEL_INSTANCES`, and raises ValueError at any
+    other. The kernel computes in float64 for float32 tensors too, so on
+    float32 it is ~1e-2 closer in the gains to the float64 sweep than the
+    plain twin is (see the note in the .cu)."""
     if d.device.type == "cpu":
-        return riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu, rows)
+        return riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu,
+                                      rows, form, quu_solver)
     if d.device.type != "cuda":
         raise ValueError(f"riccati_backward runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
@@ -298,7 +378,7 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
         len(rows.uc))
     if n_uc > nu or (n_uc and max(rows.uc) >= nu):
         raise ValueError(f"live B columns {rows.uc} out of range for nu={nu}")
-    shape = kernel_shape(nx, nu, nt, rows)
+    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
     check_tensor("Sx", Sx, (Bsz, ns, n_rx, nx), dtype, dev)
     check_tensor("Bs", Bs, (Bsz, ns, n_ru, n_uc), dtype, dev)
     check_tensor("Jxp", Jxp, (Bsz, ns, n_gx, nx), dtype, dev)
@@ -316,7 +396,7 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            _shape_index(shape),
+            inst,
             Sx.data_ptr(), Bs.data_ptr(), Jxp.data_ptr(), Jup.data_ptr(),
             rho.data_ptr(), d.data_ptr(), Jt.data_ptr(), rt.data_ptr(),
             table.data_ptr(),
@@ -333,10 +413,13 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     if err != 0:
         raise RuntimeError(f"riccati_backward kernel failed: error {err}")
     riccati_backward.launches += 1
+    riccati_backward.instance_launches[inst] += 1
     return ks, Ks, dV1, dV2
 
 
 riccati_backward.launches = 0
+# the launches of each instantiation, indexed as KERNEL_INSTANCES
+riccati_backward.instance_launches = [0] * len(KERNEL_INSTANCES)
 
 
 def spd_inverse(A):

@@ -1,11 +1,16 @@
-"""Batch-first small-matrix algebra — the port of the `lm_*` contractions
-and `lm_spd_inverse` of srbd_horizon_tpu/math/linalg.py.
+"""Batch-first small-matrix algebra — the port of
+srbd_horizon_tpu/math/linalg.py: the `lm_*` contractions, the block-Schur
+SPD inverse (`spd_inverse`, `lm_spd_inverse`) and `spd_solve`, and a
+Cholesky factor-and-solve (`cho_factor`, `cho_solve`) in place of
+`jax.scipy.linalg`'s.
 
-The JAX package keeps these lane-major ((n, m, B), batch last) for the
-TPU's vector lanes. Here the batch leads ((..., n, m)), the layout the
-CUDA kernels read and PyTorch's batched matmul takes. These functions are
-the plain twins of the pieces of the Riccati kernel (K1) and of its
-in-kernel SPD inverse (K2).
+The JAX package keeps the `lm_*` functions lane-major ((n, m, B), batch
+last) for the TPU's vector lanes, beside batch-first `spd_inverse` and
+`spd_solve`. Here the batch always leads ((..., n, m)), the layout the
+CUDA kernels read and PyTorch's batched matmul takes, so `lm_spd_inverse`
+and `spd_inverse` are one function. These functions are the plain twins
+of the pieces of the Riccati kernel (K1) and of its in-kernel SPD inverse
+(K2) and Cholesky solve.
 """
 
 from __future__ import annotations
@@ -96,3 +101,31 @@ def lm_spd_inverse(A: torch.Tensor) -> torch.Tensor:
     bot = torch.cat([B21, iS], dim=-1)
     out = torch.cat([top, bot], dim=-2)
     return 0.5 * (out + lm_transpose(out))
+
+
+# batch-first both ways here (see the module docstring)
+spd_inverse = lm_spd_inverse
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = A⁻¹ b for SPD A (..., n, n), b (..., n, m), through
+    `spd_inverse`, as the JAX package's `spd_solve` forms it."""
+    return spd_inverse(A) @ b
+
+
+def cho_factor(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor L of (..., n, n) SPD A (A = L Lᵀ). Where A is
+    not positive definite (or holds a NaN) the factor's lower triangle is
+    NaN, as `jax.scipy.linalg.cho_factor` reads there (its upper factor
+    NaN on and above the diagonal): nothing raises, and a solve with it
+    gives NaN, which the line search rejects."""
+    L, info = torch.linalg.cholesky_ex(A)
+    n = A.shape[-1]
+    tril = torch.ones((n, n), dtype=torch.bool, device=A.device).tril()
+    return L.masked_fill((info != 0)[..., None, None] & tril, float("nan"))
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = A⁻¹ b from A's lower Cholesky factor L (`cho_factor`),
+    b (..., n, m)."""
+    return torch.cholesky_solve(b, L)

@@ -1,7 +1,10 @@
-"""Closed-loop MPC harness — the port of srbd_horizon_tpu/runtime/loop.py,
-fleet path (`tick_batch`).
+"""Closed-loop MPC harness — the port of srbd_horizon_tpu/runtime/loop.py:
+the fleet tick (`tick_batch`, `run_batch`) and the single-robot tick
+(`tick`, `run`) with its schedules (`standing_schedule`,
+`walking_schedule`).
 
-One tick, for every member of a fleet at once:
+One tick, for every member of a fleet at once (`tick_batch`,
+`MSDDP.solve_batch`) or for one robot (`tick`, `MSDDP.solve`):
   1. receding-horizon shift of the teleop reference parameters and the
      terminal rdot_ref write;
   2. WPG contact-plan advance;
@@ -11,7 +14,11 @@ One tick, for every member of a fleet at once:
      renormalization;
   5. telemetry: the SRBD Newton–Euler residual of the applied step.
 
-All tensors are batch-first: x (B, nx), params leaves (B, ns+1, dim).
+A fleet's tensors are batch-first: x (B, nx), params leaves
+(B, ns+1, dim); one robot's have no leading axis: x (nx,), params leaves
+(ns+1, dim). `run` and `run_batch` loop over a schedule with a leading
+T axis on the host and stack the outputs on a leading T axis, as the JAX
+package's `lax.scan` does.
 """
 
 from __future__ import annotations
@@ -37,9 +44,9 @@ from srbd_horizon_tpu_torch.wpg import (
 class TickInput(NamedTuple):
     """Per-tick command for every member."""
 
-    action: torch.Tensor      # (B,) int: 0 stance / 1 step / 2 jump
-    rdot_ref: torch.Tensor    # (B, 3) terminal CoM velocity reference
-    w_ref: torch.Tensor       # (B, 3) terminal angular velocity reference
+    action: torch.Tensor      # (B,) or () int: 0 stance / 1 step / 2 jump
+    rdot_ref: torch.Tensor    # (B, 3) or (3,) terminal CoM velocity reference
+    w_ref: torch.Tensor       # (B, 3) or (3,) terminal angular velocity reference
 
 
 class TickOutput(NamedTuple):
@@ -77,7 +84,14 @@ class MPCLoop:
 
     def init(self, x0: torch.Tensor, params=None) -> LoopCarry:
         """Cold-start carry for a fleet x0 (B, nx); `params` leaves may be
-        (ns+1, dim) (shared, copied per member) or (B, ns+1, dim)."""
+        (ns+1, dim) (shared, copied per member) or (B, ns+1, dim). For one
+        robot, x0 (nx,): the single-robot carry, params (ns+1, dim)."""
+        if x0.dim() == 1:
+            return LoopCarry(
+                x=x0, sol=self.solver.init(x0),
+                params=dict(params if params is not None else self.ocp.params),
+                wpg_state=self.wpg.init_state(),
+            )
         Bsz = x0.shape[0]
         base = params if params is not None else self.ocp.params
         fleet = {
@@ -102,7 +116,7 @@ class MPCLoop:
         s_next = srbd_model.split_srbd_state(x_next, nc)
         i0 = srbd_model.split_srbd_input(u0, nc)
         I_world = srbd_model.world_inertia(c["inertia_scaled"], s_next["o"])
-        s0 = srbd_model.split_srbd_state(sol.X[:, 0], nc)
+        s0 = srbd_model.split_srbd_state(sol.X[..., 0, :], nc)
         rddot0, wdot0 = srbd_model.f_srbd(
             c["m_scaled"], I_world, i0["f"], s0["r"], s0["c"], s_next["w"],
         )
@@ -118,18 +132,19 @@ class MPCLoop:
         )
         rd = params["rdot_ref"]
         params["rdot_ref"] = torch.cat(
-            [rd[:, :-1], inp.rdot_ref.to(rd.dtype)[:, None]], dim=1)
+            [rd[..., :-1, :], inp.rdot_ref.to(rd.dtype)[..., None, :]], dim=-2)
         return self.wpg.advance(params, wpg_state, inp.action)
 
     def _post_solve(self, x, sol: DDPSolution, params):
         """Self-simulation + telemetry."""
         ocp = self.ocp
-        u0 = sol.U[:, 0]
+        u0 = sol.U[..., 0, :]
         x_next = ocp.step(x, u0, ocp.params_at(params, 0), ocp.dt)
         if self.srbd_constants is not None:
             x_next = torch.cat(
-                [x_next[:, :3], quat_normalize(x_next[:, 3:7]), x_next[:, 7:]],
-                dim=1,
+                [x_next[..., :3], quat_normalize(x_next[..., 3:7]),
+                 x_next[..., 7:]],
+                dim=-1,
             )
         out = TickOutput(
             x=x_next,
@@ -144,17 +159,70 @@ class MPCLoop:
 
     def _shift_sol(self, sol: DDPSolution) -> DDPSolution:
         """Roll the previous plan one node forward (terminal repeated)."""
-        X = torch.cat([sol.X[:, 1:], sol.X[:, -1:]], dim=1)
-        U = torch.cat([sol.U[:, 1:], sol.U[:, -1:]], dim=1)
+        X = torch.cat([sol.X[..., 1:, :], sol.X[..., -1:, :]], dim=-2)
+        U = torch.cat([sol.U[..., 1:, :], sol.U[..., -1:, :]], dim=-2)
         return sol._replace(X=X, U=U)
+
+    def _tick(self, solve, carry: LoopCarry, inp: TickInput):
+        params, wpg_state = self._pre_solve(carry.params, carry.wpg_state, inp)
+        sol0 = self._shift_sol(carry.sol) if self.shift_warmstart else carry.sol
+        sol = solve(sol0, carry.x, params)
+        x_next, out = self._post_solve(carry.x, sol, params)
+        return LoopCarry(x=x_next, sol=sol, params=params, wpg_state=wpg_state), out
+
+    def tick(self, carry: LoopCarry, inp: TickInput) -> Tuple[LoopCarry, TickOutput]:
+        """One closed-loop tick for one robot (`MSDDP.solve`), on the
+        single-robot carry and an unbatched `TickInput`."""
+        return self._tick(self.solver.solve, carry, inp)
 
     def tick_batch(self, carry: LoopCarry, inp: TickInput) -> Tuple[LoopCarry, TickOutput]:
         """One closed-loop tick for the whole fleet — the production path."""
-        params, wpg_state = self._pre_solve(carry.params, carry.wpg_state, inp)
-        sol0 = self._shift_sol(carry.sol) if self.shift_warmstart else carry.sol
-        sol = self.solver.solve_batch(sol0, carry.x, params)
-        x_next, out = self._post_solve(carry.x, sol, params)
-        return LoopCarry(x=x_next, sol=sol, params=params, wpg_state=wpg_state), out
+        return self._tick(self.solver.solve_batch, carry, inp)
+
+    def run(self, carry: LoopCarry, schedule: TickInput) -> Tuple[LoopCarry, TickOutput]:
+        """`tick` over a schedule with a leading T axis: the final carry and
+        the T outputs stacked on a leading axis."""
+        return _scan(self.tick, carry, schedule)
+
+    def run_batch(self, carry: LoopCarry, schedule: TickInput) -> Tuple[LoopCarry, TickOutput]:
+        """`tick_batch` over a (T, B, …) schedule, stacked like `run`."""
+        return _scan(self.tick_batch, carry, schedule)
+
+
+def _scan(tick, carry, schedule: TickInput):
+    """`lax.scan` of `tick` on the host: one call a schedule entry."""
+    outs = []
+    for t in range(schedule.action.shape[0]):
+        carry, out = tick(carry, TickInput(*(a[t] for a in schedule)))
+        outs.append(out)
+    return carry, TickOutput(*(torch.stack(v) for v in zip(*outs)))
+
+
+def standing_schedule(T: int, dtype=torch.float32, device="cuda") -> TickInput:
+    """T ticks of stance with zero references (`standing_schedule`)."""
+    dev = resolve_device(device)
+    return TickInput(
+        action=torch.zeros(T, dtype=torch.int32, device=dev),
+        rdot_ref=torch.zeros((T, 3), dtype=dtype, device=dev),
+        w_ref=torch.zeros((T, 3), dtype=dtype, device=dev),
+    )
+
+
+def walking_schedule(T: int, vx: float = 0.3, vy: float = 0.0,
+                     start: int = 10, dtype=torch.float32,
+                     device="cuda") -> TickInput:
+    """Stand for `start` ticks, then walk with terminal CoM velocity
+    (vx, vy, 0) — the JAX package's `walking_schedule`, the keyboard
+    teleop pattern of its examples."""
+    dev = resolve_device(device)
+    walking = torch.arange(T, device=dev) >= start
+    ref = torch.tensor([vx, vy, 0.0], dtype=dtype, device=dev)
+    return TickInput(
+        action=walking.to(torch.int32),
+        rdot_ref=torch.where(walking[:, None], ref[None],
+                             torch.zeros_like(ref)[None]),
+        w_ref=torch.zeros((T, 3), dtype=dtype, device=dev),
+    )
 
 
 def build_srbd_loop(cfg: Optional[SRBDConfig] = None,

@@ -20,16 +20,21 @@ multiplier update), K8a (the shift and the prior's seed), K8b (the padded
 `al_*` tensors) and K8c (the prior's update), each its plain twin on the
 CPU and its CUDA kernel on the card.
 
-Everything here is batch-first: states, multipliers and priors carry the
-fleet on their leading axis, where the JAX package vmaps member functions.
-Ported: `init`, `solve_batch` (the offline seed), `solve_online_batch`,
-`shift_warmstart`, both gait-phase priors and `serving_tick_batch`. The
-unbatched `solve`/`solve_online` wait for `MSDDP.solve`.
+The batched entry points are batch-first: states, multipliers and priors
+carry the fleet on their leading axis, where the JAX package vmaps member
+functions: `solve_batch` (the offline seed), `solve_online_batch`, both
+gait-phase priors and `serving_tick_batch`. The single-robot entry points
+take the JAX package's unbatched state (no leading axis; ρ and the
+violation 0-d): `solve` and `solve_online`, which run the inner
+`MSDDP.solve` and the AL layer's entries as B=1 views; `init` and
+`shift_warmstart` take either.
 
-The JAX package's `ALDDP` asks its inner solver for a Cholesky gain
-solve, but the batched lane-major sweep that every batched entry point
-runs ignores the option and takes the block-Schur inverse; K1 has that
-inverse, so the port matches what is computed (see kernels/riccati.py).
+The inner solver is built with `quu_solver="cholesky"`, as the JAX
+package builds it (alddp.py:324-331: at ρ → 1e8 the block-Schur solve
+emits NaNs): `solve` and `solve_online` run K1's Tassa form with the
+Cholesky gain solve. The batched lane-major sweep that every batched entry
+point runs ignores the option and takes the block-Schur inverse, in JAX as
+here (see kernels/riccati.py).
 """
 
 from __future__ import annotations
@@ -190,7 +195,10 @@ class ALDDP:
             residual_u_rows=tuple(sorted(ur)),
             constants=dict(outer.constants, terms=terms),
         )
-        self._inner = MSDDP(inner_ocp, self.ddp_opts)
+        # the unbatched inner solves take the Cholesky gain solve; the
+        # batched ones ignore the option, as in the JAX package
+        self._inner = MSDDP(inner_ocp, dataclasses.replace(
+            self.ddp_opts, quu_solver="cholesky"))
 
     @property
     def inner(self) -> MSDDP:
@@ -205,7 +213,10 @@ class ALDDP:
     # ---------- sizes ----------
 
     def init(self, x0, U0: Optional[torch.Tensor] = None) -> ALState:
-        """Cold state for x0 (B, nx); U0 (ns, nu) or (B, ns, nu)."""
+        """Cold state for x0 (B, nx), U0 (ns, nu) or (B, ns, nu); or for one
+        robot, x0 (nx,) and U0 (ns, nu), the unbatched state."""
+        if x0.dim() == 1:
+            return _unbatch(self.init(x0[None], U0))
         n_eq, n_eq_T, n_in = self._sizes
         ns, nx, nu = self.ocp.ns, self.ocp.nx, self.ocp.nu
         Bsz = x0.shape[0]
@@ -286,6 +297,45 @@ class ALDDP:
                 mu_u_ub=mu_u_ub, mu_u_lb=mu_u_lb, rho=rho_new, viol=viol)
         return st
 
+    def solve(self, st: ALState, x0, params) -> ALState:
+        """The full AL solve for one robot (`solve`, alddp.py:505-534):
+        `outer_iters` outer iterations of an inner `MSDDP.solve`, K7's
+        offline multiplier update with the ρ schedule, and K8b for the
+        inner parameters, each at B=1. `st` unbatched, x0 (nx,), params
+        leaves (ns+1, dim) (u-box overrides (ns, nu))."""
+        p1 = {k: v[None] for k, v in params.items()}
+        stb = _batch(st)
+        for _ in range(self.al_opts.outer_iters):
+            p_in = self._params_with_multipliers(p1, stb)
+            sol = self._inner.solve(_unbatch(stb.sol), x0,
+                                    {k: v[0] for k, v in p_in.items()})
+            solb = _batch(sol)
+            (lam_eq, lam_eq_T, mu_ub, mu_lb, mu_x_ub, mu_x_lb, mu_u_ub,
+             mu_u_lb, rho_new, viol) = isrbd_al.isrbd_al_constraints(
+                self, solb.X, solb.U, p1, st=stb, offline=True)
+            stb = ALState(
+                sol=solb, lam_eq=lam_eq, lam_eq_T=lam_eq_T,
+                mu_ub=mu_ub, mu_lb=mu_lb, mu_x_ub=mu_x_ub, mu_x_lb=mu_x_lb,
+                mu_u_ub=mu_u_ub, mu_u_lb=mu_u_lb, rho=rho_new, viol=viol)
+        return _unbatch(stb)
+
+    def solve_online(self, st: ALState, x0, params) -> ALState:
+        """One frozen-penalty outer iteration for one robot (`solve_online`,
+        alddp.py:570-583): the inner `MSDDP.solve` and K7's online equality
+        update, at B=1."""
+        p1 = {k: v[None] for k, v in params.items()}
+        stb = _batch(st)
+        p_in = self._params_with_multipliers(p1, stb)
+        sol = self._inner.solve(st.sol, x0, {k: v[0] for k, v in p_in.items()})
+        lam_eq, lam_eq_T, viol = isrbd_al.isrbd_al_constraints(
+            self, sol.X[None], sol.U[None], p1, st=stb)
+        return st._replace(sol=sol, lam_eq=lam_eq[0], lam_eq_T=lam_eq_T[0],
+                           viol=viol[0])
+
+    def solution_dict(self, st: ALState):
+        """The inner solver's `solution_dict` of the state's plan."""
+        return self._inner.solution_dict(st.sol)
+
     def solve_online_batch(self, st: ALState, x0, params) -> ALState:
         """One frozen-penalty outer iteration over the fleet: the batched
         inner solve and the equality-multiplier update."""
@@ -303,7 +353,10 @@ class ALDDP:
         trajectory and the node-indexed multipliers — so the initial
         iterate and the multiplier estimates line up with the receding
         horizon. The hybrid node masks stay put, so multipliers shifted
-        across the model boundary start one update behind (K8a)."""
+        across the model boundary start one update behind (K8a). Takes a
+        fleet's state or one robot's (unbatched, 0-d ρ)."""
+        if st.rho.dim() == 0:
+            return _unbatch(isrbd_al.isrbd_al_shift(self, _batch(st)))
         return isrbd_al.isrbd_al_shift(self, st)
 
     # ---------- gait-phase multiplier priors ----------
@@ -379,3 +432,18 @@ class ALDDP:
                                                    prior_ema)
         self._phase("glue")
         return st if prior is None else (st, prior)
+
+
+def _batch(tree):
+    """A one-robot `ALState` or `DDPSolution` (or a tensor) as a B=1 fleet:
+    every tensor with a leading axis of 1."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None]
+    return type(tree)(*(_batch(v) for v in tree))
+
+
+def _unbatch(tree):
+    """The inverse of `_batch`: member 0 of a B=1 fleet."""
+    if isinstance(tree, torch.Tensor):
+        return tree[0]
+    return type(tree)(*(_unbatch(v) for v in tree))

@@ -1,6 +1,6 @@
-"""Multiple-shooting Gauss-Newton DDP — the production batched path of
-srbd_horizon_tpu/solvers/msddp.py (`MSDDP.solve_batch`), ported to
-PyTorch.
+"""Multiple-shooting Gauss-Newton DDP — srbd_horizon_tpu/solvers/msddp.py
+ported to PyTorch: the production batched path (`MSDDP.solve_batch`) and
+the single-robot solve (`MSDDP.solve`).
 
 One iteration for a fleet of B members:
   1. the sliced linearization in closed form, over the declared row
@@ -26,6 +26,15 @@ family: the solver reads the problem's terms object
 (`ocp.constants["terms"]`: `SRBDTerms`, or the AL solver's `ALTerms`) and
 takes the kernels its `family` names; costs go through the same object.
 
+`solve` runs one robot (unbatched X (ns+1, nx), U (ns, nu), x0 (nx,),
+params leaves (ns+1, dim)) on the same kernels at B=1, as the JAX
+package's unbatched `solve` (msddp.py:1689-1739) computes it: the
+Tassa-form sweep of `_backward` (K1's Tassa instantiations, with the gain
+solve `DDPOptions.quu_solver`), and the line search of `_iteration`
+(:1580-1673) in `line_search_mode`: "parallel", `_parallel_line_search`'s
+chunks α₀·f^(cK+i), i < K (:1494-1578), one K3 or K6 launch of K α's a
+chunk; or "sequential", one launch of one α a step.
+
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
 here: each reads one small device value back. `MSDDP.host_syncs` counts
@@ -39,7 +48,7 @@ threshold inside a compacted iteration) use the size JAX would see.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -62,9 +71,10 @@ _KERNELS = {
 
 
 class DDPSolution(NamedTuple):
-    """Solver state/result, batch-first: X (B, ns+1, nx), U (B, ns, nu),
-    cost (B,), converged (B,) bool, iterations (B,) int32,
-    defect_norm (B,)."""
+    """Solver state/result: X (B, ns+1, nx), U (B, ns, nu), cost (B,),
+    converged (B,) bool, iterations (B,) int32, defect_norm (B,) for a
+    fleet (`solve_batch`); the same without the leading B for one robot
+    (`solve`)."""
 
     X: torch.Tensor
     U: torch.Tensor
@@ -211,6 +221,17 @@ class MSDDP:
             lin["d"], lin["Jt"], lin["rt"], mu, self.rows,
         )
 
+    def _backward(self, lin, mu):
+        """`_backward` of the JAX package (msddp.py:365): the Tassa-form
+        sweep with the gain solve `opts.quu_solver` (K1's Tassa
+        instantiations), on the batch-first lin; same outputs as
+        `_backward_lanemajor`."""
+        return riccati_backward(
+            lin["Sx"], lin["Bs"], lin["Jxp"], lin["Jup"], lin["rho"],
+            lin["d"], lin["Jt"], lin["rt"], mu, self.rows, form="tassa",
+            quu_solver=self.opts.quu_solver,
+        )
+
     def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
         """Rollout + cost + Armijo test for the α vector `al` (K,), one K3
         or K6 launch: each result has a leading (K,) axis."""
@@ -224,6 +245,18 @@ class MSDDP:
         )
 
     # ---------- one batched iteration ----------
+
+    def _resolvable(self, dV1, dV2, D, merit0):
+        """The merit reduction the model predicts at α₀ and the merit's
+        rounding floor: backtracking is worth it only while the reduction
+        at the chunk's α stays above the floor."""
+        opts = self.opts
+        a0, nu_w = opts.alpha_0, opts.defect_weight
+        expected0 = -(a0 * dV1 + a0 ** 2 * dV2) + (2.0 * a0 - a0 ** 2) * nu_w * D
+        m1 = torch.clamp(merit0, min=1.0)
+        noise = torch.maximum(32.0 * torch.finfo(merit0.dtype).eps * m1,
+                              opts.cost_reduction_ths * m1)
+        return expected0, noise
 
     def _run_fan(self, alphas, data):
         """Chunked deepening: width-K fans of ever-smaller α until every
@@ -305,11 +338,7 @@ class MSDDP:
         )
         self._phase("fan")
         active = ~state.converged
-        a0 = opts.alpha_0
-        expected0 = -(a0 * dV1 + a0 ** 2 * dV2) + (2.0 * a0 - a0 ** 2) * nu_w * D
-        m1 = torch.clamp(merit0, min=1.0)
-        noise = torch.maximum(32.0 * torch.finfo(dtype).eps * m1,
-                              opts.cost_reduction_ths * m1)
+        expected0, noise = self._resolvable(dV1, dV2, D, merit0)
         # only members whose predicted reduction is resolvable above the
         # merit's rounding floor are worth backtracking
         worth0 = expected0 > noise
@@ -385,10 +414,107 @@ class MSDDP:
         return _IterState(*(base.index_copy(0, idx, new)
                             for base, new in zip(state, out)))
 
+    # ---------- one robot: the JAX package's unbatched iteration ----------
+
+    def _parallel_line_search(self, X, U, cost, x0, params, d, ks, Ks, dV1,
+                              dV2, D, merit0):
+        """`_parallel_line_search` (msddp.py:1494-1578) at B=1: chunk c is
+        one trial launch of α₀·f^(cK+i), i < K; the first accepted (largest)
+        α of a chunk is taken, and the next chunk runs while none was and
+        the model's reduction at α₀·f^(cK) is resolvable above the merit's
+        rounding floor (one counted read a chunk, after each but the
+        last). Returns the plan, cost and merit taken and `found` (1,)."""
+        opts = self.opts
+        K = opts.parallel_line_search_width
+        f = opts.line_search_decrease_factor
+        alphas = opts.alpha_0 * (
+            f ** torch.arange(K, dtype=X.dtype, device=X.device))
+        n_chunks = -(-opts.max_line_search_steps // K)
+        expected0, noise = self._resolvable(dV1, dV2, D, merit0)
+        Xb, Ub, costb, meritb = X, U, cost, merit0
+        c = 0
+        while True:
+            Xs, Us, costs, merits, oks = self._trial(
+                alphas * (f ** float(c * K)), x0, X, U, ks, Ks, d, params,
+                merit0, D, dV1, dV2)
+            idx = torch.argmax(oks[:, 0].to(torch.int8)).reshape(1)
+            found = torch.any(oks, dim=0)
+            pick = lambda a: a.index_select(0, idx)[0]
+            Xb = torch.where(_bcast(found, Xb), pick(Xs), Xb)
+            Ub = torch.where(_bcast(found, Ub), pick(Us), Ub)
+            costb = torch.where(found, pick(costs), costb)
+            meritb = torch.where(found, pick(merits), meritb)
+            c += 1
+            if c >= n_chunks:
+                break
+            worth = expected0 * (f ** float(c * K)) > noise
+            if not self._host(torch.any(~found & worth)):
+                break
+        return Xb, Ub, costb, meritb, found
+
+    def _sequential_line_search(self, X, U, cost, x0, params, d, ks, Ks, dV1,
+                                dV2, D, merit0):
+        """The sequential backtracking of `_iteration` (msddp.py:1617-1661):
+        one trial launch of one α a step, α ← f·α (rounded in the plan's
+        dtype, as the JAX package computes it) until a step is accepted,
+        `max_line_search_steps` ran or α fell below
+        `alpha_converge_threshold`; one counted read a step."""
+        opts = self.opts
+        dtype = X.dtype
+        in_dtype = lambda v: torch.tensor(v, dtype=dtype)
+        alpha = in_dtype(opts.alpha_0)
+        found = torch.zeros(1, dtype=torch.bool, device=X.device)
+        Xb, Ub, costb, meritb = X, U, cost, merit0
+        for _ in range(opts.max_line_search_steps):
+            if not bool(alpha >= opts.alpha_converge_threshold):
+                break
+            Xs, Us, costs, merits, oks = self._trial(
+                alpha.reshape(1).to(X.device), x0, X, U, ks, Ks, d, params,
+                merit0, D, dV1, dV2)
+            found = oks[0]
+            Xb = torch.where(_bcast(found, Xb), Xs[0], Xb)
+            Ub = torch.where(_bcast(found, Ub), Us[0], Ub)
+            costb = torch.where(found, costs[0], costb)
+            meritb = torch.where(found, merits[0], meritb)
+            if self._host(found[0]):
+                break
+            alpha = alpha * opts.line_search_decrease_factor
+        return Xb, Ub, costb, meritb, found
+
+    def _iteration(self, X, U, cost, x0, params):
+        """One iteration of the JAX package's unbatched `_iteration`
+        (msddp.py:1580-1673) on B=1 tensors: the sliced linearization (K4
+        or K5), the Tassa-form sweep (K1), the line search of
+        `line_search_mode`, the update. Returns X, U, cost, converged."""
+        opts = self.opts
+        self._phase("linearize")
+        lin = self._linearize_sliced(X, U, params)
+        self._phase("sweep")
+        ks, Ks, dV1, dV2 = self._backward(lin, opts.mu0)
+        d = lin["d"]
+        D = torch.sum(d * d, dim=(1, 2))
+        merit0 = cost + opts.defect_weight * D
+        self._phase("trial")
+        search = (self._parallel_line_search
+                  if opts.line_search_mode == "parallel"
+                  else self._sequential_line_search)
+        Xn, Un, new_cost, new_merit, accepted = search(
+            X, U, cost, x0, params, d, ks, Ks, dV1, dV2, D, merit0)
+        self._phase("update")
+        converged = (~accepted) | (
+            merit0 - new_merit
+            <= opts.cost_reduction_ths * torch.clamp(merit0, min=1.0))
+        out = (torch.where(_bcast(accepted, Xn), Xn, X),
+               torch.where(_bcast(accepted, Un), Un, U),
+               torch.where(accepted, new_cost, cost), converged)
+        self._phase("glue")
+        return out
+
     # ---------- public API ----------
 
     def init(self, x0, U0: Optional[torch.Tensor] = None) -> DDPSolution:
-        """Cold start for x0 (B, nx): X = x0 on every node, U = 0 (or U0)."""
+        """Cold start for x0 (B, nx), or (nx,) for one robot: X = x0 on
+        every node, U = 0 (or U0)."""
         ns, nu = self.ocp.ns, self.ocp.nu
         lead = x0.shape[:-1]
         U = (torch.zeros(lead + (ns, nu), dtype=x0.dtype, device=x0.device)
@@ -440,3 +566,43 @@ class MSDDP:
             converged=state.converged, iterations=state.it,
             defect_norm=defect_norm,
         )
+
+    def solve(self, sol: DDPSolution, x0, params) -> DDPSolution:
+        """One full MS-DDP solve for one robot — the JAX package's `solve`
+        (msddp.py:1689-1739): X (ns+1, nx), U (ns, nu), x0 (nx,), params
+        leaves (ns+1, dim), run as B=1 views on the kernels. Node 0 is
+        pinned to x0 and the starting cost evaluated in one launch; then
+        iterations while unconverged and under `max_iters` (one counted
+        read of the convergence flag after each but the last allowed); the
+        final largest |defect| from one more launch."""
+        opts = self.opts
+        p1 = {k: v[None] for k, v in params.items()}
+        x0b = x0[None]
+        self._phase("cost0")
+        cost, _, X = self._evaluate(sol.X[None], sol.U[None], p1, x0=x0b)
+        U = sol.U[None]
+        converged = torch.zeros(1, dtype=torch.bool, device=X.device)
+        self._phase("glue")
+        it = 0
+        while it < opts.max_iters:
+            X, U, cost, converged = self._iteration(X, U, cost, x0b, p1)
+            it += 1
+            if it >= opts.max_iters or self._host(converged[0]):
+                break
+        self._phase("defects")
+        _, defect_norm = self._evaluate(X, U, p1)
+        self._phase("glue")
+        return DDPSolution(
+            X=X[0], U=U[0], cost=cost[0], converged=converged[0],
+            iterations=torch.tensor(it, dtype=torch.int32, device=X.device),
+            defect_norm=defect_norm[0],
+        )
+
+    def solution_dict(self, sol: DDPSolution) -> Dict[str, Any]:
+        """Named solution blocks (`solution_dict`, msddp.py:1741-1748):
+        x_opt and u_opt, and each state and input block by its layout name,
+        time-major ((…, ns+1, dim) and (…, ns, dim))."""
+        out: Dict[str, Any] = dict(x_opt=sol.X, u_opt=sol.U)
+        out.update(self.ocp.state_layout.unpack(sol.X))
+        out.update(self.ocp.input_layout.unpack(sol.U))
+        return out

@@ -14,7 +14,12 @@ from srbd_horizon_tpu_torch.convert import al_state_from_numpy, params_from_nump
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
-from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop, walk_command
+from srbd_horizon_tpu_torch.runtime.loop import (
+    build_srbd_loop,
+    standing_schedule,
+    walk_command,
+    walking_schedule,
+)
 from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
 
 torch.set_num_threads(1)
@@ -72,6 +77,8 @@ def test_port_package_is_complete():
         "srbd_horizon_tpu_torch/problems/isrbd.py",
         "srbd_horizon_tpu_torch/runtime/loop.py",
         "srbd_horizon_tpu_torch/runtime/serving.py",
+        "srbd_horizon_tpu_torch/math/linalg.py",
+        "srbd_horizon_tpu_torch/convert.py",
     ):
         assert required in names
     for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
@@ -89,6 +96,7 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "build_srbd_loop", "build_srbd_problem", "wpg_build", "walk_command",
     "params_from_numpy", "build_isrbd_problem", "al_state_from_numpy",
+    "walking_schedule", "standing_schedule",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
     call = {
@@ -101,6 +109,8 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
         "build_isrbd_problem": lambda: build_isrbd_problem(
             SRBDConfig(), kangaroo_line_feet()),
         "al_state_from_numpy": lambda: al_state_from_numpy({}),
+        "walking_schedule": lambda: walking_schedule(40),
+        "standing_schedule": lambda: standing_schedule(40),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -20,7 +20,13 @@ their twins with a NaN member: K7 in every mode, float64 to 1e-12 of
 max(1, |twin|) entry by entry and float32 by K3's rule, K8a with no, the
 tail and the full prior, K8b with and without bound overrides and K8c for
 both priors, bit for bit in both types, at B = 1 and 257 as well, counting
-their launches and refusing other sizes and non-contiguous views. Skipped
+their launches and refusing other sizes and non-contiguous views; and
+K1's Tassa instantiations (`MSDDP.solve`'s sweep: SRBD with the
+block-Schur and with the Cholesky gain solve, isrbd with Cholesky)
+against the Tassa twin at B = 1 and 64 by K1's rules, a NaN member kept
+NaN where the twin is, an indefinite Quu giving NaN gains, the
+uncompiled combinations refused before any launch, and their shared
+memory equal to the collapsed form's. Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
@@ -852,3 +858,106 @@ def test_al_entries_refuse_other_sizes_and_views(al_case):
     assert counts == [getattr(k78, e).launches for e in (
         "isrbd_al_constraints", "isrbd_al_shift", "isrbd_al_params",
         "isrbd_al_prior_update")]
+
+
+# ---------------- K1's Tassa form (MSDDP.solve's sweep) ----------------
+
+TASSA = [("srbd", "schur"), ("srbd", "cholesky"), ("isrbd_al", "cholesky")]
+
+
+def _tassa_case(card_case, isrbd_case, shape):
+    """(linearization, μ, rows) of the shape's drawn point."""
+    if shape == "srbd":
+        return card_case["lin"], card_case["mu"], card_case["rows"]
+    return isrbd_case["lin"], 1e-6, isrbd_case["al"].inner.rows
+
+
+def _tassa(fn, lin, mu, rows, dtype, solver):
+    args = tuple(lin[k].to(dtype).contiguous() for k in ORDER)
+    return fn(*args, mu, rows, form="tassa", quu_solver=solver)
+
+
+@pytest.mark.parametrize("Bw", [1, 64])
+@pytest.mark.parametrize("shape,solver", TASSA)
+def test_riccati_tassa_kernel_matches_plain(card_case, isrbd_case, shape,
+                                            solver, Bw):
+    """Each Tassa instantiation against the Tassa twin: float64 to 1e-9,
+    float32 to K1_F32_TOL of the float64 twin; one member (the single
+    robot's launch) and a fleet."""
+    lin, mu, rows = _tassa_case(card_case, isrbd_case, shape)
+    lin = _repeat_lin(lin, Bw)
+    ref = _tassa(k1.riccati_backward_plain, lin, mu, rows, torch.float64, solver)
+    before = k1.riccati_backward.launches
+    got = _tassa(k1.riccati_backward, lin, mu, rows, torch.float64, solver)
+    got32 = _tassa(k1.riccati_backward, lin, mu, rows, torch.float32, solver)
+    torch.cuda.synchronize()
+    assert k1.riccati_backward.launches == before + 2
+    for g, g32, r in zip(got, got32, ref):
+        assert bool(torch.isfinite(r).all())
+        assert _rel(g, r) <= 1e-9
+        assert _rel(g32, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("shape,solver", TASSA)
+def test_riccati_tassa_nan_member_stays_nan(card_case, isrbd_case, shape,
+                                            solver):
+    """A NaN in member 3's last defect makes its k and ΔV NaN (K stays
+    finite: Quu and Qux do not see d), in the kernel as in the twin; the
+    other members are untouched."""
+    lin, mu, rows = _tassa_case(card_case, isrbd_case, shape)
+    lin = dict(lin, d=lin["d"].clone())
+    lin["d"][3, -1, 0] = float("nan")
+    ref = _tassa(k1.riccati_backward_plain, lin, mu, rows, torch.float64, solver)
+    got = _tassa(k1.riccati_backward, lin, mu, rows, torch.float64, solver)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0][3]).all()) and bool(torch.isnan(ref[2][3]))
+    for g, r in zip(got, ref):
+        assert _rel_fin(g, r) <= 1e-9
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+
+
+@pytest.mark.parametrize("shape", ["srbd", "isrbd_al"])
+def test_riccati_tassa_cholesky_indefinite_gives_nan(card_case, isrbd_case,
+                                                     shape):
+    """μ = −1e12 makes every Quu indefinite: the Cholesky instantiations
+    give NaN gains and NaN ΔV, as the twin does, and nothing raises."""
+    lin, _, rows = _tassa_case(card_case, isrbd_case, shape)
+    for dtype in (torch.float64, torch.float32):
+        ref = _tassa(k1.riccati_backward_plain, lin, -1e12, rows, dtype,
+                     "cholesky")
+        got = _tassa(k1.riccati_backward, lin, -1e12, rows, dtype, "cholesky")
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert bool(torch.isnan(r).all()) and bool(torch.isnan(g).all())
+
+
+def test_riccati_tassa_refuses_uncompiled_combinations(card_case, isrbd_case):
+    """CUDA tensors at a (shape, form, solver) with no instantiation raise
+    ValueError before any launch; the collapsed form ignores the solver."""
+    ilin, _, irows = _tassa_case(card_case, isrbd_case, "isrbd_al")
+    args = tuple(ilin[k].float().contiguous() for k in ORDER) + (1e-6, irows)
+    before = k1.riccati_backward.launches
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.riccati_backward(*args, form="tassa", quu_solver="schur")
+    with pytest.raises(ValueError):
+        k1.riccati_backward(*args, form="riccati")
+    with pytest.raises(ValueError):
+        k1.riccati_backward(*args, form="tassa", quu_solver="lu")
+    assert k1.riccati_backward.launches == before
+    got = k1.riccati_backward(*args, quu_solver="cholesky")
+    want = k1.riccati_backward(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,solver", TASSA)
+def test_riccati_tassa_occupancy(card_case, isrbd_case, shape, solver):
+    """The Tassa scratch lives in the region the node's blocks fill, so
+    each Tassa instantiation takes its shape's collapsed bytes."""
+    lin, _, rows = _tassa_case(card_case, isrbd_case, shape)
+    sizes = (lin["d"].shape[-1], lin["Jup"].shape[-1], lin["Jt"].shape[1], rows)
+    for dtype in (torch.float32, torch.float64):
+        assert (k1.shared_memory_bytes(*sizes, dtype, "tassa", solver)
+                == k1.shared_memory_bytes(*sizes, dtype))
+        assert k1.blocks_per_sm(*sizes, dtype, "tassa", solver) >= 1

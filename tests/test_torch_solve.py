@@ -21,6 +21,7 @@ from _torch_parity import (
     to_torch,
 )
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.solvers import msddp as port_msddp
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
 torch.set_num_threads(1)
@@ -167,7 +168,6 @@ def test_unported_options_raise(field, value, exc):
 
 
 @pytest.mark.parametrize("cls,field,value", [
-    (DDPOptions, "quu_solver", "cholesky"),
     (DDPOptions, "backward_unroll", 2),
     (DDPOptions, "rollout_unroll", 2),
     (SRBDConfig, "hz", 50.0),
@@ -178,3 +178,36 @@ def test_unread_options_are_refused(cls, field, value):
     setting it fails instead of being ignored."""
     with pytest.raises(TypeError):
         cls(**{field: value})
+
+
+@pytest.mark.parametrize("solver", ["schur", "cholesky"])
+def test_quu_solver_is_carried_and_honoured(solver, monkeypatch):
+    """`quu_solver` is read: `solve` hands it to K1's Tassa sweep (the
+    results against JAX are in tests/test_torch_single_solve.py), and
+    `solve_batch` keeps the collapsed sweep, which ignores it, as the JAX
+    package's `solve_batch` does."""
+    jp, tp = problems()
+    opts = dataclasses.replace(DDPOptions(max_iters=1), quu_solver=solver)
+    assert DDPOptions().quu_solver == "schur" and opts.quu_solver == solver
+    ts = MSDDP(tp.ocp, opts)
+    seen = []
+    sweep = port_msddp.riccati_backward
+
+    def spy(*a, **kw):
+        seen.append((kw.get("form", "collapsed"), kw.get("quu_solver", "schur")))
+        return sweep(*a, **kw)
+
+    monkeypatch.setattr(port_msddp, "riccati_backward", spy)
+    x0 = to_torch(perturbed_states(jp.initial_state, 1, seed=4)[0])
+    params = to_torch(fleet_params(jp.ocp.params, 1))
+    ts.solve(ts.init(x0), x0, {k: v[0] for k, v in params.items()})
+    ts.solve_batch(ts.init(x0[None]), x0[None], params)
+    assert seen == [("tassa", solver), ("collapsed", "schur")]
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quu_solver", "lu"), ("line_search_mode", "armijo")])
+def test_unknown_solver_or_line_search_mode_raises(field, value):
+    _, tp = problems()
+    with pytest.raises(ValueError):
+        MSDDP(tp.ocp, dataclasses.replace(DDPOptions(), **{field: value}))
