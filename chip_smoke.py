@@ -123,12 +123,43 @@ parallel, into build/kernels/), then:
      on the card; then the card against the CPU in float64 (the offline
      solve and 3 online ticks, iterations equal, X, U and λ to 1e-9).
 
+ 10. the LIP paths (`lip_section`), on `build_lip_problem(SRBDConfig(),
+     kangaroo_line_feet())` (nx=30, nu=15, ns=20, nc=4): `lip_check`, K10
+     (`lip_linearize`), K11 (`lip_trial`, 1 and 4 α), `lip_evaluate`
+     (without and with x0) and K1's three LIP instantiations (collapsed,
+     Tassa with block-Schur and with Cholesky gains) against their twins
+     at B=512 on random plans, references, 0/1 switches and tracking
+     masks, by the rules of 2, member 7 NaN; and K10, K11 and lip_evaluate
+     in float64 at B=8 to 1e-12 of max(1, |twin|) entry by entry, K10's
+     Jacobians and the pinned plan bit for bit (`lip_check_f64_B8`);
+     `lip_kernel_times`: every LIP kernel at B = 1, 512, 4096 in float32
+     (ms, plain ms, bytes, FLOPs, bound), blocks per SM, wrapper host µs;
+     `lip_path`: the dlip example (`build_lip_loop`'s defaults: max_iters
+     100, alpha_converge_threshold 1e-12, beta 1e-3, the WPG at the feet's
+     height, no SRBD telemetry, no shift), 40 ticks of
+     `walking_schedule(vx 0.3, start 10)` in float32, then 10 ticks with
+     the Cholesky gain solve: tick p50 and max, iterations, host reads an
+     iteration, hand-written launches an iteration and a tick, K10 = K1 =
+     iterations, K11 = trials, two lip_evaluate a solve, no plain twin or
+     plain cost on the card, finite, defect ≤ 1e-4, CoM height within
+     0.08 of 0.88, the phases of 5 ticks and a profile of 2; card = CPU in
+     float64 over 10 ticks (`lip_card_vs_cpu`: with max_iters=1 all to
+     1e-9; with the dlip options iterations and convergence equal, the
+     cost to 1e-9, x, u0 and the plans to LIP_FLOOR_TOL, the floor step);
+     `lip_fleet_path`: `tick_batch` at B=512 float32 with the SRBD fleet
+     point's settings (max_iters=5, shifted warm start, walk command,
+     0.005·N(0,1) pushes, seed 0), 3 warm-up and 20 timed ticks, the same
+     gates (K10 = K1 collapsed launches), phases and profile, B=4096 as a
+     probe, card = CPU at B=8 in float64 (`lip_fleet_card_vs_cpu`, the
+     same two rules).
+
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-sixteen rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
-isrbd_evaluate, K7, K8a, K8b, K8c, K2, and K1's three Tassa
-instantiations, whose launches come from phases 8 and 9); the last line
-is {"ok": true, "device": {...}}.
+twenty-two rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
+isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa instantiations,
+whose launches come from phases 8 and 9, and the LIP rows of phase 10:
+K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP Tassa
+instantiations); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -956,14 +987,16 @@ def count_torch_func():
 
 def count_plain_cost():
     """Count every call of the plain cost and defect functions a solve could
-    reach instead of its evaluation kernel: both problem families'
-    `total_cost` and `MSDDP.total_cost` / `MSDDP._true_defects`
-    (count_calls)."""
+    reach instead of its evaluation kernel: each problem family's
+    `total_cost` (SRBD, AL inner, LIP) and `MSDDP.total_cost` /
+    `MSDDP._true_defects` (count_calls)."""
     from srbd_horizon_tpu_torch.problems.isrbd_al import ALTerms
+    from srbd_horizon_tpu_torch.problems.lip import LIPTerms
     from srbd_horizon_tpu_torch.problems.srbd import SRBDTerms
     from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
     return count_calls(((SRBDTerms, ("total_cost",)), (ALTerms, ("total_cost",)),
+                        (LIPTerms, ("total_cost",)),
                         (MSDDP, ("total_cost", "_true_defects"))))
 
 
@@ -1157,6 +1190,620 @@ def al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in):
     and its update (3), ~6 a cone row, ~4 a box row and its update (3)."""
     node = 120 + n_eq * 33 + n_in * 9 + (nx + nu) * 2 * 7
     return Bsz * (ns * node + n_eq_T * 33 + nx * 2 * 7)
+
+
+# ---------------- the LIP paths (phase 10) ----------------
+
+# K10, K11 and lip_evaluate in float64 at B=8: |kernel − twin| ≤
+# 1e-12·max(1, |twin|) entry by entry (K10's Jacobians bit for bit)
+LIP_F64_TOL = 1e-12
+# card = CPU on the LIP paths with the solver's own options: each solve's
+# last iteration runs on the merit's rounding floor (the LIP is
+# linear-quadratic: its first Gauss-Newton step is exact), where whether a
+# rounding-noise step through the ill-conditioned Quu passes the Armijo
+# test flips with the order of the sums; that step moves u0 and the plans
+# by up to ~1e-7 of their largest entry (4.7e-8 on the float64 CPU walk of
+# tests/test_torch_lip_loop.py), the cost by ~1e-15. Those are held to
+# LIP_FLOOR_TOL, the cost to 1e-9; the same ticks with max_iters=1 (the
+# exact step alone, no floor) hold everything to 1e-9.
+LIP_FLOOR_TOL = 1e-6
+LIP_HEIGHT = 0.88                   # the dlip walk's CoM height gate (±0.08)
+
+
+def err1(got, want):
+    """max |got − want| / max(1, |want|) over the entries where `want` is
+    finite; inf if the non-finite entries differ."""
+    import torch
+
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return float(((got - want).abs() / want.abs().clamp_min(1.0))[fin].max())
+
+
+def lip_linearize_flops(Bsz, ns, nx, n_rho, n_gx):
+    """FLOPs one K10 call needs: ~5 per residual row, the Euler defects,
+    one multiply per scaled Jacobian entry, the terminal rows."""
+    return Bsz * (ns * (5 * n_rho + 3 * nx + n_gx * nx) + 5 * 10)
+
+
+def lip_trial_flops(Bsz, ns, nx, nu, n_rho, nA):
+    """FLOPs one K11 call needs: gain application and the Euler update per
+    node, ~5 per residual row, the terminal rows, merit and Armijo test."""
+    node = nx + 2 * nu * nx + 3 * nu + 4 * nx + 5 * n_rho
+    return nA * Bsz * (ns * node + 5 * 10 + 20)
+
+
+def lip_evaluate_flops(Bsz, ns, nx, n_rho):
+    """FLOPs one lip_evaluate call needs: ~5 per residual row, the Euler
+    step and |defect| per node, the terminal rows and the node sums."""
+    return Bsz * (ns * (5 * n_rho + 4 * nx) + 5 * 10 + 2 * ns)
+
+
+def lip_section(card, dev, sms):
+    """Phase 10: the LIP kernels against their twins (`lip_check`), their
+    times (`lip_kernel_times`), the dlip closed loop on `MPCLoop.tick`
+    (`lip_path`) and the LIP fleet tick (`lip_fleet_path`), each with card =
+    CPU in float64. Returns the kernel rows of the `kernels` line."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        TickInput,
+        build_lip_loop,
+        walk_command,
+        walking_schedule,
+    )
+
+    f64, f32 = torch.float64, torch.float32
+    rng = np.random.RandomState(SEED + 10)
+    loop64, prob = build_lip_loop(SRBDConfig(dtype=f64), device=dev)
+    loop32, _ = build_lip_loop(SRBDConfig(), device=dev)
+    s64, s32 = loop64.solver, loop32.solver
+    ocp = prob.ocp
+    ns, nx, nu, nc, dt = ocp.ns, ocp.nx, ocp.nu, prob.nc, ocp.dt
+    opts, rows, mu = s64.opts, s64.rows, s64.opts.mu0
+    B = B_MAIN
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.03 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.1 * rng.randn(B, ns, nu))
+    params = dict(rdot_ref=t(0.3 * rng.randn(B, ns + 1, 3)),
+                  c_ref=t(0.05 * np.abs(rng.randn(B, ns + 1, nc))),
+                  cdot_switch=t(rng.randint(0, 2, (B, ns + 1, nc))),
+                  mask_track=t(rng.randint(0, 2, (B, ns + 1, 1))))
+    x0 = X[:, 0] + t(0.005 * rng.randn(B, nx))
+    X_nan = X.clone()
+    X_nan[7, 5, 4] = float("nan")
+    cast = lambda a, dtype: a.to(dtype).contiguous()
+    solver_of = lambda dtype: s64 if dtype == f64 else s32
+
+    def k10_args(Xs):
+        def args(dtype):
+            s = solver_of(dtype)
+            return (cast(Xs, dtype), cast(U, dtype),
+                    {k: cast(v, dtype) for k, v in params.items()}, s.terms,
+                    s.rows, dt, s._wc(dtype))
+        return args
+
+    # ---- lip_check: every kernel against its twin ----
+    _, k10_g32, k10_err = linearize_check(
+        "lip_linearize_check", k10.lip_linearize_plain, k10.lip_linearize,
+        k10_args(X_nan), B=B, nan_member=7)
+    lin64 = k10.lip_linearize_plain(*k10_args(X)(f64))
+    ref64, k1_g32, lin32, k1_err = riccati_check(
+        "k1_lip_check", k1, lin64, mu, rows, sizes="lip", B=B)
+    tassa_err = {sv: tassa_check("k1_lip_tassa_check", k1, lin64, mu, rows,
+                                 sv, nan_member=7, sizes="lip", B=B)
+                 for sv in ("schur", "cholesky")}
+    ks64, Ks64, dV1_64, dV2_64 = ref64
+    D64 = torch.sum(lin64["d"] ** 2, dim=(1, 2))
+    merit0_64 = s64.total_cost(X, U, params) + opts.defect_weight * D64
+    alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f64, device=dev)
+    x0_nan = x0.clone()
+    x0_nan[7] = float("nan")
+
+    def k11_args(x0s):
+        def args(dtype, alphas):
+            s = solver_of(dtype)
+            c = lambda a: cast(a, dtype)
+            return (c(x0s), c(X), c(U), c(ks64), c(Ks64), c(lin64["d"]),
+                    c(alphas), {k: c(v) for k, v in params.items()},
+                    c(merit0_64), c(D64), c(dV1_64), c(dV2_64), s.terms, dt,
+                    s._wc(dtype), opts.defect_weight, opts.beta,
+                    opts.alpha_converge_threshold)
+        return args
+
+    k11_err = trial_check("lip_trial_check", k11.lip_trial_plain,
+                          k11.lip_trial, k11_args(x0_nan), alphas4, merit0_64,
+                          D64, dV1_64, dV2_64, opts, nan_member=7)
+
+    def ev_args(Xs):
+        def args(dtype):
+            s = solver_of(dtype)
+            return (cast(Xs, dtype), cast(U, dtype),
+                    {k: cast(v, dtype) for k, v in params.items()}, s.terms,
+                    dt, s._wc(dtype))
+        return args
+
+    ev_err = evaluate_check("lip_evaluate_check", k11.lip_evaluate_plain,
+                            k11.lip_evaluate, ev_args(X_nan), nan_member=7,
+                            x0=x0_nan)
+    # float64 at B=8 to LIP_F64_TOL of max(1, |twin|), entry by entry
+    b8 = lambda a: a[:8].contiguous()
+    e8, fine = {}, True
+    la = tuple(repeat_members(k10_args(X_nan)(f64), 8))
+    ref, got = k10.lip_linearize_plain(*la), k10.lip_linearize(*la)
+    torch.cuda.synchronize()
+    e8["lip_linearize"] = {k: err1(got[k], ref[k]) for k in ORDER}
+    e8["lip_linearize_jacobians_bit_equal"] = all(
+        torch.equal(got[k], ref[k]) for k in ("Sx", "Bs", "Jxp", "Jup", "Jt"))
+    fine &= e8["lip_linearize_jacobians_bit_equal"]
+    for nA in (1, 4):
+        ta = repeat_members(k11_args(x0_nan)(f64, alphas4[:nA]), 8, skip=(6,))
+        ref, got = k11.lip_trial_plain(*ta), k11.lip_trial(*ta)
+        torch.cuda.synchronize()
+        e8[f"lip_trial_{nA}alpha"] = {n: err1(g, r) for n, g, r
+                                      in zip(TRIAL_OUT, got, ref)}
+        e8[f"lip_trial_{nA}alpha_flags_equal"] = bool(torch.equal(got[4], ref[4]))
+        fine &= e8[f"lip_trial_{nA}alpha_flags_equal"]
+    for pin in (False, True):
+        ea = repeat_members(ev_args(X_nan)(f64), 8)
+        kw = dict(x0=b8(x0_nan)) if pin else {}
+        ref, got = k11.lip_evaluate_plain(*ea, **kw), k11.lip_evaluate(*ea, **kw)
+        torch.cuda.synchronize()
+        name = "lip_evaluate_pinned" if pin else "lip_evaluate"
+        e8[name] = {n: err1(g, r) for n, g, r
+                    in zip(("cost", "defect_max"), got, ref)}
+        if pin:
+            e8["lip_evaluate_pinned_X_bit_equal"] = bool(
+                torch.equal(bits(got[2]), bits(ref[2])))
+            fine &= e8["lip_evaluate_pinned_X_bit_equal"]
+    worst8 = max(v for d in e8.values() if isinstance(d, dict)
+                 for v in d.values())
+    emit("lip_check_f64_B8", card=card, tol=LIP_F64_TOL,
+         tol_rule="|kernel - twin| <= tol * max(1, |twin|) entry by entry",
+         worst=worst8, **e8)
+    if not (fine and worst8 <= LIP_F64_TOL):
+        fail("lip_check: a LIP kernel disagrees with its twin in float64 at B=8")
+
+    # ---- lip_kernel_times: B = 1, 512, 4096, float32 ----
+    n_rho = s32.terms.n_rho
+    a10 = k10_args(X)(f32)
+    a11 = k11_args(x0)(f32, alphas4[:1])
+    aev = ev_args(X)(f32)
+    x032 = cast(x0, f32)
+    k1_args32 = tuple(lin32[k] for k in ORDER)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    nt = lin32["Jt"].shape[1]
+    times = defaultdict(dict)
+    for Bw in (1, B, B_LARGE):
+        la = repeat_members(a10, Bw)
+        out = k10.lip_linearize(*la)
+        nb = nbytes(la[0], la[1], *la[2].values(), rows.packed(dev),
+                    *out.values())
+        times["lip_linearize"][Bw] = dict(
+            ms=cuda_ms(lambda: k10.lip_linearize(*la), reps=20),
+            plain_ms=cuda_ms(lambda: k10.lip_linearize_plain(*la), reps=3,
+                             warmup=1),
+            bytes=nb, flop=lip_linearize_flops(Bw, ns, nx, n_rho, len(rows.gx)))
+        ta = repeat_members(a11, Bw, skip=(6,))
+        out = k11.lip_trial(*ta)
+        nb = nbytes(*[v for v in ta[:12] if isinstance(v, torch.Tensor)],
+                    *ta[7].values(), *out)
+        times["lip_trial"][Bw] = dict(
+            ms=cuda_ms(lambda: k11.lip_trial(*ta), reps=20),
+            plain_ms=cuda_ms(lambda: k11.lip_trial_plain(*ta), reps=3,
+                             warmup=1),
+            bytes=nb, flop=lip_trial_flops(Bw, ns, nx, nu, n_rho, 1))
+        ta4 = repeat_members(k11_args(x0)(f32, alphas4), Bw, skip=(6,))
+        times["lip_trial"][Bw]["ms_4alpha"] = cuda_ms(
+            lambda: k11.lip_trial(*ta4), reps=20)
+        ea = repeat_members(aev + (x032,), Bw)
+        out = k11.lip_evaluate(*ea[:-1], x0=ea[-1])
+        nb = nbytes(ea[0], ea[1], *ea[2].values(), ea[-1], *out)
+        times["lip_evaluate"][Bw] = dict(
+            ms=cuda_ms(lambda: k11.lip_evaluate(*ea[:-1], x0=ea[-1]), reps=20),
+            plain_ms=cuda_ms(lambda: k11.lip_evaluate_plain(*ea[:-1], x0=ea[-1]),
+                             reps=3, warmup=1),
+            bytes=nb, flop=lip_evaluate_flops(Bw, ns, nx, n_rho))
+        ka = repeat_members(k1_args32, Bw)
+        for form, sv, name in (("collapsed", "schur", "riccati_backward_lip"),
+                               ("tassa", "schur", "riccati_backward_lip_tassa"),
+                               ("tassa", "cholesky",
+                                "riccati_backward_lip_tassa_cholesky")):
+            kw = dict(form=form, quu_solver=sv)
+            out = k1.riccati_backward(*ka, mu, rows, **kw)
+            flop = (riccati_flops(Bw, ns, nx, nu, nt, *sizes) if form == "collapsed"
+                    else tassa_flops(Bw, ns, nx, nu, nt, *sizes, sv))
+            times[name][Bw] = dict(
+                ms=cuda_ms(lambda: k1.riccati_backward(*ka, mu, rows, **kw),
+                           reps=10),
+                plain_ms=cuda_ms(
+                    lambda: k1.riccati_backward_plain(*ka, mu, rows, **kw),
+                    reps=2, warmup=1),
+                bytes=nbytes(*ka, rows.packed(dev), *out), flop=flop,
+                fp64_tensor_cores=True)
+    for name, by_B in times.items():
+        for v in by_B.values():
+            rate = (H100_FP64_TC_FLOP_PER_S if v.pop("fp64_tensor_cores", False)
+                    else H100_F32_FLOP_PER_S)
+            v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
+    occ = dict(
+        lip_linearize=k10.occupancy(f32),
+        lip_trial=k11.trial_occupancy(f32),
+        lip_evaluate=k11.evaluate_occupancy(ns, f32),
+        **{name: dict(blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32,
+                                                     form, sv),
+                      shared_memory_bytes=k1.shared_memory_bytes(
+                          nx, nu, nt, rows, f32, form, sv))
+           for form, sv, name in (("collapsed", "schur", "riccati_backward_lip"),
+                                  ("tassa", "schur", "riccati_backward_lip_tassa"),
+                                  ("tassa", "cholesky",
+                                   "riccati_backward_lip_tassa_cholesky"))})
+    la = a10
+    host = dict(
+        lip_linearize=host_us(lambda: k10.lip_linearize(*la)),
+        lip_trial=host_us(lambda: k11.lip_trial(*a11)),
+        lip_evaluate=host_us(lambda: k11.lip_evaluate(*aev, x0=x032)),
+        riccati_backward_lip=host_us(
+            lambda: k1.riccati_backward(*k1_args32, mu, rows)))
+    emit("lip_kernel_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         occupancy=occ, wrapper_host_us=host)
+    del lin64, lin32, k10_g32, k1_g32, ref64
+
+    # ---- lip_path: the dlip example on MPCLoop.tick ----
+    LIP_TWINS = ((k1, ("riccati_backward_plain",)),
+                 (k11, ("lip_trial_plain", "lip_evaluate_plain")),
+                 (k10, ("lip_linearize_plain",)))
+    inst = {key: k1.KERNEL_INSTANCES.index(key) for key in k1.KERNEL_INSTANCES}
+    i_coll = inst["lip", "collapsed", "schur"]
+    i_schur, i_chol = inst["lip", "tassa", "schur"], inst["lip", "tassa", "cholesky"]
+
+    def reset_counts():
+        k1.riccati_backward.launches = 0
+        k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+        k10.lip_linearize.launches = 0
+        k11.lip_trial.launches = 0
+        k11.lip_evaluate.launches = 0
+
+    def read_counts():
+        il = k1.riccati_backward.instance_launches
+        return {"lip_linearize": k10.lip_linearize.launches,
+                "riccati_backward": k1.riccati_backward.launches,
+                "riccati_backward_lip": il[i_coll],
+                "riccati_backward_lip_tassa": il[i_schur],
+                "riccati_backward_lip_tassa_cholesky": il[i_chol],
+                "lip_trial": k11.lip_trial.launches,
+                "lip_evaluate": k11.lip_evaluate.launches}
+
+    def lip_loop(dtype, device, **kw):
+        """The dlip example's loop (`build_lip_loop`'s defaults), with
+        option overrides."""
+        o = DDPOptions(**dict(dict(max_iters=100, alpha_converge_threshold=1e-12,
+                                   beta=1e-3), **kw))
+        return build_lip_loop(SRBDConfig(dtype=dtype), o, device=device)
+
+    def drive(loop, prob_, sched):
+        """Ticks over `sched` from the cold carry at the nominal state: the
+        carry, outputs, tick ms (a device sync each), host reads, trials."""
+        trials = {"n": 0}
+        trial = loop.solver._trial
+
+        def counted_trial(*a):
+            trials["n"] += 1
+            return trial(*a)
+
+        loop.solver._trial = counted_trial
+        carry = loop.init(prob_.initial_state)
+        syncs0 = loop.solver.host_syncs
+        outs, tms = [], []
+        for i in range(sched.action.shape[0]):
+            inp = TickInput(*(a[i] for a in sched))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = loop.tick(carry, inp)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        loop.solver._trial = trial
+        return carry, outs, tms, loop.solver.host_syncs - syncs0, trials["n"]
+
+    func_calls, restore_func = count_torch_func()
+    plain_calls, restore_plain = count_plain_cost()
+    twin_calls, restore_twins = count_calls(LIP_TWINS)
+    reset_counts()
+    ploop, pprob = lip_loop(f32, dev)
+    sched = walking_schedule(40, vx=0.3, start=10, device=dev)
+    pcarry, pouts, ptimes, psyncs, ptrials = drive(ploop, pprob, sched)
+    cloop, cprob = lip_loop(f32, dev, quu_solver="cholesky")
+    _, couts, ctimes, csyncs, ctrials = drive(
+        cloop, cprob, walking_schedule(10, vx=0.3, start=3, device=dev))
+    path_launches = read_counts()
+    for restore in (restore_func, restore_plain, restore_twins):
+        restore()
+    allo = pouts + couts
+    iters = [int(o.iterations) for o in allo]
+    n_iter_p = sum(iters[:len(pouts)])
+    hand = lambda L: (L["lip_linearize"] + L["riccati_backward"]
+                      + L["lip_trial"] + L["lip_evaluate"])
+    com_z = [float(o.x[2]) for o in allo]
+    lp = dict(
+        B=1, dtype="float32", ticks=len(pouts), cholesky_ticks=len(couts),
+        options="dlip: max_iters=100, alpha_converge_threshold=1e-12, "
+                "beta=1e-3, no warm-start shift", walk="vx 0.3 from tick 10",
+        tick_p50_ms=statistics.median(ptimes), tick_max_ms=max(ptimes),
+        tick_mean_ms=statistics.fmean(ptimes),
+        cholesky_tick_p50_ms=statistics.median(ctimes),
+        cholesky_tick_max_ms=max(ctimes),
+        iterations_per_tick=iters[:len(pouts)],
+        iterations_mean=statistics.fmean(iters[:len(pouts)]),
+        syncs_per_tick=psyncs / len(pouts),
+        syncs_per_iteration=psyncs / n_iter_p,
+        cholesky_syncs_per_tick=csyncs / len(couts),
+        launches=path_launches,
+        hand_written_launches_per_tick=hand(path_launches) / len(allo),
+        hand_written_launches_per_iteration=(
+            path_launches["lip_linearize"] + path_launches["riccati_backward"]
+            + path_launches["lip_trial"]) / sum(iters),
+        trials=ptrials + ctrials,
+        defect_norm_max=max(float(o.defect_norm) for o in allo),
+        com_z_min=min(com_z), com_z_max=max(com_z),
+        finite=all(bool(torch.isfinite(v).all()) for o in allo
+                   for v in (o.x, o.u0, o.cost)),
+        converged_ticks=sum(bool(o.converged) for o in allo),
+        plain_twin_calls=twin_calls["n"], torch_func_calls=func_calls["n"],
+        plain_cost_or_defect_calls=plain_calls["n"],
+        final_com=pcarry.x[:3].tolist(), card=card)
+    pstep = lambda c: ploop.tick(c, TickInput(*(a[-1] for a in sched)))[0]
+    pcarry, lp["spans"] = tick_spans(ploop.solver, pstep, pcarry, ticks=5)
+    lp["profile"] = profile_ticks(ploop.solver, pstep, pcarry,
+                                  lp["tick_p50_ms"])
+    emit("lip_path", **lp)
+    if not lp["finite"]:
+        fail("the LIP path produced non-finite values")
+    if lp["defect_norm_max"] > 1e-4:
+        fail("LIP plans are not dynamically consistent (defect above 1e-4)")
+    if max(abs(z - LIP_HEIGHT) for z in com_z) >= 0.08:
+        fail(f"the LIP walk's CoM height left 0.88 ± 0.08: {min(com_z)}, "
+             f"{max(com_z)}")
+    want = {k: v for k, v in path_launches.items() if k != "riccati_backward_lip"}
+    if min(want.values()) == 0:
+        fail(f"a kernel was not launched on the LIP path: {path_launches}")
+    if not (path_launches["lip_linearize"] == path_launches["riccati_backward"]
+            == sum(iters)):
+        fail(f"K10 and K1 launches differ from the iterations: {path_launches}")
+    if path_launches["lip_trial"] != lp["trials"]:
+        fail(f"K11 launches do not cover the trials: {path_launches}")
+    if path_launches["lip_evaluate"] != 2 * len(allo):
+        fail(f"lip_evaluate launches are not two a solve: {path_launches}")
+    if twin_calls["n"] or func_calls["n"] or plain_calls["n"]:
+        fail(f"the LIP path ran plain twins on the card: {twin_calls['n']} "
+             f"kernel twins, {plain_calls['n']} plain cost or defect calls, "
+             f"{func_calls['n']} torch.func transforms")
+
+    def single_ticks(device, n, **kw):
+        loop, p = lip_loop(f64, device, **kw)
+        sch = walking_schedule(n, vx=0.3, start=3, dtype=f64, device=device)
+        carry = loop.init(p.initial_state)
+        outs = []
+        for i in range(n):
+            carry, out = loop.tick(carry, TickInput(*(a[i] for a in sch)))
+            outs.append(out)
+        return carry, outs
+
+    def versus(card_run, cpu_run, per_tick, floor):
+        (cc, oc), (cp, op) = card_run, cpu_run
+        it = lambda o: o.iterations.reshape(-1).tolist()
+        # each output over all ticks at once: rel_err takes the largest
+        # entry of the run as its scale (a standing tick's cost is ~0)
+        both = lambda f: (torch.stack([getattr(a, f).cpu() for a in oc]),
+                          torch.stack([getattr(b, f) for b in op]))
+        res = dict(
+            iterations_equal=all(it(a) == it(b) for a, b in zip(oc, op)),
+            converged_equal=all(torch.equal(a.converged.cpu(), b.converged)
+                                for a, b in zip(oc, op)),
+            cost_rel_err=rel_err(*both("cost")),
+            x_rel_err=rel_err(*both("x")),
+            u0_rel_err=rel_err(*both("u0")),
+            X_rel_err=rel_err(cc.sol.X.cpu(), cp.sol.X),
+            U_rel_err=rel_err(cc.sol.U.cpu(), cp.sol.U),
+            iterations_card=[it(a) for a in oc][:per_tick])
+        plan = max(res["x_rel_err"], res["u0_rel_err"], res["X_rel_err"],
+                   res["U_rel_err"])
+        res["ok"] = (res["iterations_equal"] and res["converged_equal"]
+                     and res["cost_rel_err"] <= 1e-9
+                     and plan <= (LIP_FLOOR_TOL if floor else 1e-9))
+        return res
+
+    lvc = dict(B=1, ticks=10, walk="vx 0.3 from tick 3",
+               exact_step=versus(single_ticks(dev, 10, max_iters=1),
+                                 single_ticks("cpu", 10, max_iters=1), 10,
+                                 floor=False),
+               dlip_options=versus(single_ticks(dev, 10),
+                                   single_ticks("cpu", 10), 10, floor=True),
+               tol="exact_step (max_iters=1): all to 1e-9; dlip_options: "
+                   "cost to 1e-9, x, u0, X, U to LIP_FLOOR_TOL",
+               floor_tol=LIP_FLOOR_TOL)
+    emit("lip_card_vs_cpu", **lvc)
+    if not (lvc["exact_step"]["ok"] and lvc["dlip_options"]["ok"]):
+        fail("the LIP card path and CPU path disagree")
+
+    # ---- lip_fleet_path: MPCLoop.tick_batch, the SRBD fleet point's
+    # settings on the LIP ----
+    def fleet(Bsz, dtype, device, max_iters=5):
+        loop, p = build_lip_loop(SRBDConfig(dtype=dtype),
+                                 DDPOptions(max_iters=max_iters),
+                                 shift_warmstart=True, device=device)
+        g = np.random.RandomState(SEED)
+        xn = p.initial_state.cpu().numpy()
+        x0 = torch.as_tensor(xn[None] + 0.005 * g.randn(Bsz, nx), dtype=dtype,
+                             device=device)
+        return loop, loop.init(x0), walk_command(Bsz, vx=0.2, dtype=dtype,
+                                                 device=device)
+
+    def run_fleet(Bsz, warm, timed):
+        loop, carry, inp = fleet(Bsz, f32, dev)
+        counts = {"trials": 0, "solves": 0}
+        trial, solve = loop.solver._trial, loop.solver.solve_batch
+
+        def counted_trial(*a):
+            counts["trials"] += 1
+            return trial(*a)
+
+        def counted_solve(*a):
+            counts["solves"] += 1
+            return solve(*a)
+
+        loop.solver._trial, loop.solver.solve_batch = counted_trial, counted_solve
+        for _ in range(warm):
+            carry, _ = loop.tick_batch(carry, inp)
+        torch.cuda.synchronize()
+        counts.update(trials=0, solves=0)
+        reset_counts()
+        syncs0 = loop.solver.host_syncs
+        tms, iters, outs = [], [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            carry, out = loop.tick_batch(carry, inp)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(float(out.iterations.float().mean()))
+            outs.append(out)
+        launches = read_counts()
+        loop.solver._trial, loop.solver.solve_batch = trial, solve
+        res = dict(
+            B=Bsz, dtype="float32", options="max_iters=5, shifted warm start, "
+            "walk command vx 0.2", warmup_ticks=warm, ticks=timed,
+            tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+            tick_mean_ms=statistics.fmean(tms),
+            members_per_s=Bsz / statistics.median(tms) * 1e3,
+            iters_mean=statistics.fmean(iters),
+            syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
+            trials=counts["trials"], solves=counts["solves"],
+            launches=launches,
+            hand_written_launches_per_tick=hand(launches) / timed,
+            finite=all(bool(torch.isfinite(v).all()) for o in outs
+                       for v in (o.x, o.u0, o.cost))
+            and bool(torch.isfinite(carry.sol.X).all()),
+            defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+            card=card)
+        return res, loop, carry, inp
+
+    func_calls, restore_func = count_torch_func()
+    plain_calls, restore_plain = count_plain_cost()
+    twin_calls, restore_twins = count_calls(LIP_TWINS)
+    fp, floop, fcarry, finp = run_fleet(B, warm=3, timed=20)
+    for restore in (restore_func, restore_plain, restore_twins):
+        restore()
+    fp.update(plain_twin_calls=twin_calls["n"], torch_func_calls=func_calls["n"],
+              plain_cost_or_defect_calls=plain_calls["n"])
+    fstep = lambda c: floop.tick_batch(c, finp)[0]
+    fcarry, fp["spans"] = tick_spans(floop.solver, fstep, fcarry, ticks=5)
+    fp["profile"] = profile_ticks(floop.solver, fstep, fcarry, fp["tick_p50_ms"])
+    emit("lip_fleet_path", **fp)
+    fl = fp["launches"]
+    if not fp["finite"]:
+        fail("the LIP fleet path produced non-finite values")
+    if fp["defect_norm_max"] > 1e-4:
+        fail("LIP fleet plans are not dynamically consistent (defect above 1e-4)")
+    if min(fl[k] for k in ("lip_linearize", "riccati_backward_lip",
+                           "lip_trial", "lip_evaluate")) == 0:
+        fail(f"a kernel was not launched on the LIP fleet path: {fl}")
+    if fl["lip_linearize"] != fl["riccati_backward_lip"]:
+        fail(f"K10 launches differ from K1 launches: {fl}")
+    if fl["lip_trial"] != fp["trials"]:
+        fail(f"K11 launches do not cover the trials: {fl}")
+    if fl["lip_evaluate"] != 2 * fp["solves"]:
+        fail(f"lip_evaluate launches are not two a solve: {fl}")
+    if twin_calls["n"] or func_calls["n"] or plain_calls["n"]:
+        fail(f"the LIP fleet path ran plain twins on the card: "
+             f"{twin_calls['n']} kernel twins, {plain_calls['n']} plain cost "
+             f"or defect calls, {func_calls['n']} torch.func transforms")
+    large, *_ = run_fleet(B_LARGE, warm=1, timed=2)
+    emit("lip_fleet_path_large", **large)
+    if not large["finite"]:
+        fail("B=4096 LIP ticks produced non-finite values")
+
+    def fleet_ticks(device, max_iters):
+        loop, carry, inp = fleet(8, f64, device, max_iters)
+        outs = []
+        for _ in range(3):
+            carry, out = loop.tick_batch(carry, inp)
+            outs.append(out)
+        return carry, outs
+
+    fvc = dict(B=8, ticks=3,
+               exact_step=versus(fleet_ticks(dev, 1), fleet_ticks("cpu", 1), 3,
+                                 floor=False),
+               fleet_options=versus(fleet_ticks(dev, 5), fleet_ticks("cpu", 5),
+                                    3, floor=True),
+               tol="exact_step (max_iters=1): all to 1e-9; fleet_options "
+                   "(max_iters=5): cost to 1e-9, x, u0, X, U to LIP_FLOOR_TOL",
+               floor_tol=LIP_FLOOR_TOL)
+    emit("lip_fleet_card_vs_cpu", **fvc)
+    if not (fvc["exact_step"]["ok"] and fvc["fleet_options"]["ok"]):
+        fail("the LIP fleet card path and CPU path disagree")
+
+    # ---- the kernel rows ----
+    both = lambda k: path_launches[k] + fl[k]
+    row = lambda name, mod, launches, t, err, tol32, **extra: kernel_row(
+        name, mod, launches, t["ms"], t["plain_ms"], t["bound_ms"],
+        t["bound_by"], err, tol32, **extra)
+    by_B = lambda name: {str(b): v["ms"] for b, v in times[name].items()}
+    lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+    b8 = dict(tol_f64_B8=LIP_F64_TOL)
+    rows_out = [
+        row("lip_linearize", k10, both("lip_linearize"), times["lip_linearize"][B],
+            k10_err, lin_tol, B=B, ms_by_B=by_B("lip_linearize"),
+            launches_lip_path=path_launches["lip_linearize"],
+            launches_lip_fleet_path=fl["lip_linearize"],
+            max_err_f64_B8=max(e8["lip_linearize"].values()),
+            blocks_per_sm=occ["lip_linearize"]["blocks_per_sm"],
+            shared_memory_bytes=occ["lip_linearize"]["shared_memory_bytes"], **b8),
+        row("riccati_backward_lip", k1, fl["riccati_backward_lip"],
+            times["riccati_backward_lip"][B], k1_err, K1_F32_TOL, B=B,
+            ms_by_B=by_B("riccati_backward_lip"),
+            launches_of="lip_fleet_path (the collapsed sweep of solve_batch)",
+            **occ["riccati_backward_lip"]),
+        row("lip_trial", k11, both("lip_trial"), times["lip_trial"][B], k11_err,
+            trial_tol, B=B, ms_by_B=by_B("lip_trial"),
+            ms_4alpha=times["lip_trial"][B]["ms_4alpha"],
+            launches_lip_path=path_launches["lip_trial"],
+            launches_lip_fleet_path=fl["lip_trial"],
+            max_err_f64_B8=max(max(e8["lip_trial_1alpha"].values()),
+                               max(e8["lip_trial_4alpha"].values())),
+            blocks_per_sm=occ["lip_trial"]["blocks_per_sm"], **b8),
+        dict(row("lip_evaluate", k11, both("lip_evaluate"),
+                 times["lip_evaluate"][B], ev_err, trial_tol, B=B,
+                 pinned=True, ms_by_B=by_B("lip_evaluate"),
+                 launches_lip_path=path_launches["lip_evaluate"],
+                 launches_lip_fleet_path=fl["lip_evaluate"],
+                 max_err_f64_B8=max(max(e8["lip_evaluate"].values()),
+                                    max(e8["lip_evaluate_pinned"].values())),
+                 blocks_per_sm=occ["lip_evaluate"]["blocks_per_sm"], **b8),
+             replaces=k11.EVALUATE_REPLACES),
+    ]
+    for sv, name in (("schur", "riccati_backward_lip_tassa"),
+                     ("cholesky", "riccati_backward_lip_tassa_cholesky")):
+        rows_out.append(dict(
+            row(name, k1, path_launches[name], times[name][1], tassa_err[sv],
+                K1_F32_TOL, B=1, quu_solver=sv, ms_by_B=by_B(name),
+                launches_of="lip_path (MSDDP.solve's Tassa sweep)",
+                **occ[name]),
+            replaces=k1.TASSA_REPLACES))
+    return rows_out
 
 
 def main():
@@ -2620,6 +3267,9 @@ def main():
             <= 1e-9):
         fail("single-robot constrained card path and CPU path disagree")
 
+    # ---------------- phase 10: the LIP paths ----------------
+    lip_rows = lip_section(card, dev, sms)
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -2715,6 +3365,7 @@ def main():
                        shared_memory_bytes=t["shared_memory_bytes"],
                        blocks_per_sm=t["blocks_per_sm"]),
             replaces=k1.TASSA_REPLACES))
+    kernels += lip_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

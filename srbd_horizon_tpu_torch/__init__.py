@@ -5,14 +5,16 @@ MPC tick (`MPCLoop.tick_batch`), the constrained serving tick
 (augmented-Lagrangian DDP on the hybrid SRBD/LIP isrbd problem), and the
 single-robot API the JAX package's examples call (`MPCLoop.tick` / `run`
 over a `walking_schedule`, `MSDDP.solve`, `ALDDP.solve` /
-`solve_online`). Plain tensor code is PyTorch; each solver iteration runs
-three hand-written CUDA kernels — a closed-form linearization
-(`csrc/srbd_linearize.cu`, `csrc/isrbd_linearize.cu`), the Riccati sweep
+`solve_online`), on the SRBD problem and on the LIP (`build_lip_loop`, the
+JAX package's dlip example). Plain tensor code is PyTorch; each solver
+iteration runs three hand-written CUDA kernels — a closed-form
+linearization (`csrc/srbd_linearize.cu`, `csrc/isrbd_linearize.cu`,
+`csrc/lip_linearize.cu`), the Riccati sweep
 (`csrc/riccati_backward.cu`: the collapsed form for fleets, the Tassa form
 with a block-Schur or Cholesky gain solve for one robot) and the
 line-search trial with its cost (`csrc/srbd_rollout.cu`,
-`csrc/isrbd_rollout.cu`) — with plain PyTorch twins that the CPU tests
-hold against the JAX package.
+`csrc/isrbd_rollout.cu`, `csrc/lip_rollout.cu`) — with plain PyTorch
+twins that the CPU tests hold against the JAX package.
 
 Layout (mirrors the JAX package):
     config        SRBDConfig / DDPOptions (torch dtypes)
@@ -20,7 +22,7 @@ Layout (mirrors the JAX package):
     models/       Kangaroo constants, SRBD dynamics, the LIP model
     ocp/          variable layouts, Euler and RK2 steps, the OCP container
     problems/     build_srbd_problem, build_isrbd_problem, the AL inner
-                  problem
+                  problem, build_lip_problem
     wpg           walking-pattern generator
     solvers/      MSDDP (`solve_batch`, `solve`), ALDDP (`solve_batch`,
                   `solve`, `solve_online`, the serving tick), the option
@@ -42,6 +44,7 @@ from srbd_horizon_tpu_torch.runtime.loop import (
     MPCLoop,
     TickInput,
     TickOutput,
+    build_lip_loop,
     build_srbd_loop,
     standing_schedule,
     walking_schedule,
@@ -52,5 +55,6 @@ from srbd_horizon_tpu_torch.solvers.msddp import MSDDP, DDPSolution
 __all__ = [
     "ALDDP", "ALOptions", "ALState", "DDPOptions", "DDPSolution",
     "LoopCarry", "MPCLoop", "MSDDP", "SRBDConfig", "TickInput", "TickOutput",
-    "build_srbd_loop", "standing_schedule", "walking_schedule",
+    "build_lip_loop", "build_srbd_loop", "standing_schedule",
+    "walking_schedule",
 ]

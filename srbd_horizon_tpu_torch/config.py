@@ -2,9 +2,10 @@
 `DDPOptions` (srbd_horizon_tpu/config.py), with `dtype` a torch dtype.
 
 Only fields the port reads are carried: a field of the JAX dataclasses
-that nothing here reads (the LIP problem's ZMP gain, the example rate
-`hz`, the `lax.scan` unroll factors) is absent, so setting it raises
-`TypeError`; it comes back with the code that reads it. Of the options
+that nothing here reads (the example rate `hz`, the `lax.scan` unroll
+factors) is absent, so setting it raises `TypeError`; it comes back with
+the code that reads it (`zmp_tracking_gain` came back with the LIP
+problem, problems/lip.py). Of the options
 kept, `MSDDP` rejects at construction those whose path is not ported
 (see `check_options`).
 """
@@ -18,7 +19,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class SRBDConfig:
-    """Static configuration of the SRBD and isrbd MPC problems (defaults =
+    """Static configuration of the SRBD, isrbd and LIP MPC problems (defaults =
     the reference's launch parameters, as in the JAX package)."""
 
     # horizon
@@ -37,6 +38,7 @@ class SRBDConfig:
     force_switch_weight: float = 1e2
     min_qddot_gain: float = 1e0
     min_f_gain: float = 1e-2
+    zmp_tracking_gain: float = 1e3
     rz_tracking_gain_isrbd: float = 2e3
 
     # physics

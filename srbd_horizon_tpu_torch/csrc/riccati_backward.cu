@@ -24,10 +24,15 @@
 // problem (nu=30, 19 live rows of A−I, 18 of 30 live B columns, 60/103
 // residual rows, a 101-row terminal stack) needs 4.45 GFLOP at B=256:
 // 0.0664 ms (chip_smoke.py computes both bounds from its own inputs).
+// The LIP (nx=30, nu=15, 18 live rows of A−I, 15 of B, 32/18 residual
+// rows, 10 terminal rows) is a smaller instance of the same sweep: a block
+// takes 31,380 B of shared memory for float32 tensors (39,676 B for
+// float64).
 //
 // Design, one thread block of 4 warps per member, the node loop inside:
 //  * Compile-time sizes. The kernel is a template on a shape struct (one
-//    per OCP: SrbdShape, IsrbdAlShape); every loop bound, tile count and
+//    per OCP: SrbdShape, IsrbdAlShape, LipShape); every loop bound, tile
+//    count and
 //    shared-memory offset is a constant. The row sets stay a run-time
 //    int32 table, copied into shared memory once. The wrapper picks the
 //    instantiation from the sizes and refuses any other.
@@ -83,11 +88,11 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); five instantiations are built (kInstances below): the
-// collapsed form with the inverse at both shapes, and the Tassa form with
-// the inverse at SrbdShape (DDPOptions' default), with Cholesky at
-// IsrbdAlShape (the AL solver's inner solve) and with Cholesky at
-// SrbdShape. The collapsed ones compile to the code they had.
+// solve (Solve); eight instantiations are built (`with_instance` below):
+// the collapsed form with the inverse at every shape, and the Tassa form
+// with the inverse at SrbdShape and LipShape (DDPOptions' default), with
+// Cholesky at IsrbdAlShape (the AL solver's inner solve), at SrbdShape and
+// at LipShape. The collapsed ones compile to the code they had.
 //  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
 //    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
 //    pivot, √ of it is L[j][j], and the lanes below divide by it. A pivot
@@ -134,6 +139,12 @@ struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
   static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
                        n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
   static constexpr int min_blocks = 3;
+};
+
+struct LipShape {           // build_lip_problem
+  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
+                       n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
 };
 
 // the value update (kernels/riccati.py::FORMS) and the gain solve
@@ -978,6 +989,8 @@ int inverse(const void* A, void* out, int M, int n, void* stream) {
     return launch_inverse<SrbdShape::nu, T>(A, out, M, stream);
   if (n == IsrbdAlShape::nu)
     return launch_inverse<IsrbdAlShape::nu, T>(A, out, M, stream);
+  if (n == LipShape::nu)
+    return launch_inverse<LipShape::nu, T>(A, out, M, stream);
   return kUnknownShape;
 }
 
@@ -1007,6 +1020,9 @@ int with_instance(int inst, Fn fn) {
     case 2: return fn(Inst<SrbdShape, Form::kTassa, Solve::kSchur>{});
     case 3: return fn(Inst<IsrbdAlShape, Form::kTassa, Solve::kCholesky>{});
     case 4: return fn(Inst<SrbdShape, Form::kTassa, Solve::kCholesky>{});
+    case 5: return fn(Inst<LipShape, Form::kCollapsed, Solve::kSchur>{});
+    case 6: return fn(Inst<LipShape, Form::kTassa, Solve::kSchur>{});
+    case 7: return fn(Inst<LipShape, Form::kTassa, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }
@@ -1037,7 +1053,7 @@ int with_instance(int inst, Fn fn) {
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
-// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 24 or 30: the
+// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 15, 24 or 30: the
 // device routine K1 runs, for timing and checking it by itself.
 extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
                                void* stream) {

@@ -17,10 +17,14 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   isrbd_linearize   K5 `isrbd_linearize`; `isrbd_linearize_occupancy`
   isrbd_al          K7 `isrbd_al_constraints`, K8 `isrbd_al_shift`,
                     `isrbd_al_params`, `isrbd_al_prior_update`
+  lip_linearize     K10 `lip_linearize`; `lip_linearize_occupancy`
+  lip_rollout       K11 `lip_trial`, `lip_evaluate`; and, with no type
+                    suffix, `lip_trial_occupancy`, `lip_evaluate_occupancy`
 
 K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6,
 `isrbd_evaluate`, K7 and K8 `csrc/isrbd_common.cuh`, and both of those
-`csrc/rigid_common.cuh`; K1, K3, K6 and K7 include `csrc/dmma.cuh`.
+`csrc/rigid_common.cuh`; K10, K11 and `lip_evaluate` include
+`csrc/lip_common.cuh`; K1, K3, K6, K7 and K11 include `csrc/dmma.cuh`.
 `isrbd_al` is compiled with `-fmad=false`: K7 and K8 round each product
 and sum on their own, as the plain twins' torch ops do. A change to
 any file under `csrc/` rebuilds every library. The build runs at first
@@ -40,7 +44,8 @@ from typing import Any, Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize",
-                  "isrbd_rollout", "isrbd_linearize", "isrbd_al")
+                  "isrbd_rollout", "isrbd_linearize", "isrbd_al",
+                  "lip_linearize", "lip_rollout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

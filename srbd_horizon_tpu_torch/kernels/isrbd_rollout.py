@@ -53,6 +53,7 @@ from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     kernel_params,
     kernel_scalars,
 )
+from srbd_horizon_tpu_torch.kernels.rollout import armijo_plain
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 
 # the functions K6 replaces (an XLA-fused scan and the trial's cost and
@@ -95,14 +96,8 @@ def isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     Xn, Un = isrbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
                                  terms.outer.xdot)
     new_cost = terms.total_cost(Xn, Un, params)               # (nα, B)
-    a = alphas[:, None]
-    new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
-    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
-    ok = (
-        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
-        & torch.isfinite(new_merit)
-        & (a >= alpha_min)
-    )
+    new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
+                                 beta, alpha_min)
     return Xn, Un, new_cost, new_merit, ok
 
 

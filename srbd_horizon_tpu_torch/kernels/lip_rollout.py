@@ -1,0 +1,250 @@
+"""K11: the LIP line-search trial — rollout, cost and Armijo test — over a
+vector of step sizes; and `lip_evaluate`, the cost and largest defect of a
+given plan.
+
+`lip_trial` is the wrapper the solver calls. A CPU tensor goes to
+`lip_trial_plain`: the PyTorch transcription of the JAX package's
+`MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:1391-1410) for the
+LIP Euler step evaluated for every α at once, then the trial's
+`total_cost` (:158) and Armijo test (:1494-1578); a CUDA tensor
+launches the hand-written kernel in `csrc/lip_rollout.cu`, which does all
+three in one launch, or raises.
+
+Per member and α, from x̂₀ = x0, for n = 0 … ns−1:
+
+    uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
+    x̂ₙ₊₁ = x̂ₙ + dt·lip_xdot(x̂ₙ, uₙ) − (1 − α) dₙ
+
+then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖², merit = cost + ν(1−α)²D and
+ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
+expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD. Outputs are Xn (nα, B, ns+1, nx),
+Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
+
+`lip_evaluate`, the second entry of the same source, evaluates a given
+plan with no rollout: per member the cost and the largest
+|Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the JAX
+package's solve computes with `jax.vmap(total_cost)` and
+`jax.vmap(_true_defects)` (msddp.py:1221-1240, :1484). Given x0 (B, nx),
+it evaluates the plan with node 0 pinned to x0 and returns that plan as a
+third output, written by the same launch. Its plain twin
+`lip_evaluate_plain` is `LIPTerms.total_cost` and the Euler step.
+
+Both run on the sizes `lip_linearize.KERNEL_SHAPE` on CUDA tensors and
+raise ValueError for others; CPU tensors take the twins at any size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    evaluate_occupancy as build_occupancy,
+    host_setup,
+    library,
+)
+from srbd_horizon_tpu_torch.kernels.lip_linearize import (
+    N_SCALARS,
+    check_kernel_shape,
+    kernel_params,
+)
+from srbd_horizon_tpu_torch.kernels.rollout import (
+    armijo_plain,
+    euler_evaluate_plain,
+    euler_rollout_plain,
+)
+
+# the functions K11 replaces (an XLA-fused scan and the trial's cost and
+# Armijo test; the JAX package wrote no Pallas kernel for them)
+REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1391"
+SOURCE = "srbd_horizon_tpu_torch/csrc/lip_rollout.cu"
+# the functions lip_evaluate replaces (the solve's vmapped total_cost and
+# _true_defects, XLA-fused)
+EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1221"
+
+
+def lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
+                    dV2, terms, dt: float, wc: float, nu_w: float,
+                    beta: float, alpha_min: float):
+    """Plain PyTorch K11: the Euler rollout of the LIP double integrator
+    (`rollout.euler_rollout_plain`), the cost Σ‖ρ‖² of each rolled plan
+    (`terms` is the problem's `LIPTerms`, wc = √w_c) and the Armijo test
+    (`rollout.armijo_plain`). params leaves (B,ns+1,dim); merit0, D, dV1,
+    dV2 (B,)."""
+    Xn, Un = euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, terms.xdot)
+    new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
+    new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
+                                 beta, alpha_min)
+    return Xn, Un, new_cost, new_merit, ok
+
+
+def lip_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
+    """Plain PyTorch lip_evaluate: the cost (B,) of each plan,
+    `terms.total_cost`, and its largest |defect| (B,) under the Euler step
+    (`rollout.euler_evaluate_plain`, NaN kept). X (B,ns+1,nx), U
+    (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of the
+    plan is x0, and the pinned plan is returned third."""
+    return euler_evaluate_plain(
+        X, U, dt, terms.xdot,
+        lambda Xp: terms.total_cost(Xp, U, params, wc), x0)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+
+def _setup(name, terms, nx: int, nu: int, dt: float, wc: float):
+    """What a wrapper checks and builds once for (terms, dtype): the sizes,
+    and the scalars as a ctypes array."""
+    check_kernel_shape(name, terms, nx, nu)
+    return (_D * N_SCALARS)(*terms.kernel_scalars(dt, wc))
+
+
+def _checked_common(name, X, U, terms, dt, wc):
+    """The shared prologue of both wrappers on a non-CPU tensor: the cached
+    host setup, then the device and type."""
+    nx, nu = X.shape[-1], U.shape[-1]
+    dtype, dev = X.dtype, X.device
+    scalars = host_setup(terms, (name, dtype, nx, nu, dt, wc),
+                         lambda: _setup(name, terms, nx, nu, dt, wc))
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name} takes float32 or float64, got {dtype}")
+    return scalars
+
+
+_fns = {}
+
+
+def _fn(entry, dtype, argtypes):
+    key = (entry, dtype)
+    fn = _fns.get(key)
+    if fn is None:
+        lib = library("lip_rollout")
+        fn = getattr(lib, f"{entry}_{'f32' if dtype == torch.float32 else 'f64'}")
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _fns[key] = fn
+    return fn
+
+
+def lip_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
+    """lip_evaluate. Same contract as `lip_evaluate_plain`; launches the
+    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
+    the launch in `lip_evaluate.launches`), raises ValueError for other
+    sizes."""
+    if X.device.type == "cpu":
+        return lip_evaluate_plain(X, U, params, terms, dt, wc, x0)
+    scalars = _checked_common("lip_evaluate", X, U, terms, dt, wc)
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    dtype, dev = X.dtype, X.device
+    if ns + 1 > 32:
+        raise ValueError(f"lip_evaluate takes at most 31 stage nodes, got {ns}")
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    if x0 is not None:                       # its rows may lie apart
+        check_tensor("x0", x0, (Bsz, nx), dtype, dev, rows=True)
+    pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
+    cost = torch.empty((Bsz,), dtype=dtype, device=dev)
+    dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
+    Xp = None if x0 is None else torch.empty_like(X)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    fn = _fn("lip_evaluate", dtype, [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(X.data_ptr(), U.data_ptr(),
+                 None if x0 is None else x0.data_ptr(),
+                 0 if x0 is None else x0.stride(0), ptrs, Bsz, ns,
+                 terms.nc, terms.contact_model, terms.number_of_legs, scalars,
+                 cost.data_ptr(), dmax.data_ptr(),
+                 None if Xp is None else Xp.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"lip_evaluate kernel failed: CUDA error {err}")
+    lip_evaluate.launches += 1
+    return (cost, dmax) if Xp is None else (cost, dmax, Xp)
+
+
+lip_evaluate.launches = 0
+
+
+def evaluate_occupancy(ns: int, dtype=torch.float32):
+    """lip_evaluate's occupancy at ns stage nodes for tensors of `dtype`
+    (`build.evaluate_occupancy`)."""
+    return build_occupancy("lip", ns, dtype == torch.float64)
+
+
+def trial_occupancy(dtype=torch.float32):
+    """K11's blocks resident on one SM of the current card
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), the depth of its
+    per-warp ring of node buffers, warps and shared memory bytes a block,
+    for tensors of `dtype`."""
+    fn = library("lip_rollout").lip_trial_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.restype = _I
+    out = (_I * 4)()
+    err = fn(int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"lip_trial occupancy query failed: error {err}")
+    return dict(blocks_per_sm=out[0], ring_depth=out[1],
+                warps_per_block=out[2], shared_memory_bytes=out[3])
+
+
+def lip_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
+              terms, dt: float, wc: float, nu_w: float, beta: float,
+              alpha_min: float):
+    """K11. Same contract as `lip_trial_plain`; launches the CUDA kernel
+    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
+    `lip_trial.launches`), raises ValueError for other sizes."""
+    if d.device.type == "cpu":
+        return lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
+                               D, dV1, dV2, terms, dt, wc, nu_w, beta,
+                               alpha_min)
+    scalars = _checked_common("lip_trial", X, U, terms, dt, wc)
+    Bsz, ns, nx = d.shape
+    nu = U.shape[-1]
+    dtype, dev = d.dtype, d.device
+    nA = alphas.shape[0]
+    check_tensor("x0", x0, (Bsz, nx), dtype, dev)
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    check_tensor("ks", ks, (Bsz, ns, nu), dtype, dev)
+    check_tensor("Ks", Ks, (Bsz, ns, nu, nx), dtype, dev)
+    check_tensor("d", d, (Bsz, ns, nx), dtype, dev)
+    check_tensor("alphas", alphas, (nA,), dtype, dev)
+    for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
+        check_tensor(name, t, (Bsz,), dtype, dev)
+    if Ks.data_ptr() % (2 * Ks.element_size()):          # two-element copies
+        raise ValueError(f"Ks must start {2 * Ks.element_size()}-byte aligned")
+    pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
+    Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
+    Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
+    cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    fn = _fn("lip_trial", dtype, [_P] * 12 + [_I] * 6 + [_P] + [_D] * 3
+             + [_P] * 6)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
+            Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(), ptrs,
+            merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+            Bsz, ns, terms.nc, terms.contact_model, terms.number_of_legs, nA,
+            scalars, float(nu_w), float(beta), float(alpha_min),
+            Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
+            ok.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lip_trial kernel failed: CUDA error {err}")
+    lip_trial.launches += 1
+    return Xn, Un, cost, merit, ok
+
+
+lip_trial.launches = 0

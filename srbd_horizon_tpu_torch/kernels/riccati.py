@@ -246,29 +246,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
-# shape structs (SrbdShape, IsrbdAlShape): nx, nu, the terminal rows nt and
-# the sizes of the row sets. Another problem needs a shape of its own there
-# and here.
+# shape structs (SrbdShape, IsrbdAlShape, LipShape): nx, nu, the terminal
+# rows nt and the sizes of the row sets. Another problem needs a shape of
+# its own there and here.
 KERNEL_SHAPES = {
     "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
                  n_b=3, n_uc=24),
     "isrbd_al": dict(nx=37, nu=30, nt=101, n_rx=19, n_ru=37, n_gx=60,
                      n_gu=103, n_b=9, n_uc=18),
+    "lip": dict(nx=30, nu=15, nt=10, n_rx=18, n_ru=15, n_gx=32, n_gu=18,
+                n_b=6, n_uc=15),
 }
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
-# the block-Schur inverse serves the batched solves at both shapes; the
-# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD shape
-# (DDPOptions' default), with Cholesky at the isrbd-AL shape (the AL
-# solver's inner solve) and at the SRBD shape. CUDA tensors at another
-# (shape, form, solver) raise ValueError.
+# the block-Schur inverse serves the batched solves at every shape; the
+# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD and LIP
+# shapes (DDPOptions' default), with Cholesky at the isrbd-AL shape (the AL
+# solver's inner solve) and at the SRBD and LIP shapes. CUDA tensors at
+# another (shape, form, solver) raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "collapsed", "schur"),
     ("isrbd_al", "collapsed", "schur"),
     ("srbd", "tassa", "schur"),
     ("isrbd_al", "tassa", "cholesky"),
     ("srbd", "tassa", "cholesky"),
+    ("lip", "collapsed", "schur"),
+    ("lip", "tassa", "schur"),
+    ("lip", "tassa", "cholesky"),
 )
 
 # the launchers' own errors (no CUDA error has these values): the block's
@@ -424,7 +429,7 @@ riccati_backward.instance_launches = [0] * len(KERNEL_INSTANCES)
 
 def spd_inverse(A):
     """K2 alone: the block-Schur inverse K1 runs on Quu, over an (M, n, n)
-    stack of SPD matrices, n one of K1's nu (24, 30). Computes in float64
+    stack of SPD matrices, n one of K1's nu (15, 24, 30). Computes in float64
     for float32 tensors too. A CPU tensor goes to `lm_spd_inverse`; a CUDA
     tensor launches the kernel (counted in `spd_inverse.launches`) or
     raises. Nothing on the solver's path calls it: it is here to time and

@@ -61,24 +61,46 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_rollout.cu"
 EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1222"
 
 
-def srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float,
-                       m_scaled: float, inertia_scaled):
-    """Plain PyTorch rollout. x0 (B,nx), X (B,ns+1,nx), U (B,ns,nu),
-    ks (B,ns,nu), Ks (B,ns,nu,nx), d (B,ns,nx), alphas (nα,)."""
+def euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
+    """Plain PyTorch rollout under the Euler step of `xdot(x, u)`. x0
+    (B,nx), X (B,ns+1,nx), U (B,ns,nu), ks (B,ns,nu), Ks (B,ns,nu,nx),
+    d (B,ns,nx), alphas (nα,)."""
     nA = alphas.shape[0]
     Bsz, ns, nx = d.shape
-    consts = dict(m_scaled=m_scaled, inertia_scaled=inertia_scaled)
     a = alphas[:, None, None]                          # (nα, 1, 1)
     xhat = x0.expand(nA, Bsz, nx)
     Xs, Us = [], []
     for n in range(ns):
         u = U[:, n] + a * ks[:, n] + lm_matvec(Ks[:, n], xhat - X[:, n])
-        xnext = xhat + dt * srbd_xdot(xhat, u, consts) - (1.0 - a) * d[:, n]
+        xnext = xhat + dt * xdot(xhat, u) - (1.0 - a) * d[:, n]
         Xs.append(xhat)
         Us.append(u)
         xhat = xnext
     Xs.append(xhat)
     return torch.stack(Xs, dim=2), torch.stack(Us, dim=2)
+
+
+def srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float,
+                       m_scaled: float, inertia_scaled):
+    """Plain PyTorch rollout of the SRBD problem (`euler_rollout_plain`)."""
+    consts = dict(m_scaled=m_scaled, inertia_scaled=inertia_scaled)
+    return euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
+                               lambda x, u: srbd_xdot(x, u, consts))
+
+
+def armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w: float,
+                 beta: float, alpha_min: float):
+    """The trial's merit (nα, B) of the costs `new_cost` (nα, B) and its
+    Armijo flag against the model's predicted reduction."""
+    a = alphas[:, None]
+    new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
+    ok = (
+        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
+        & torch.isfinite(new_merit)
+        & (a >= alpha_min)
+    )
+    return new_merit, ok
 
 
 def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
@@ -90,15 +112,23 @@ def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     Xn, Un = srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
                                 terms.m_scaled, terms.inertia_scaled)
     new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
-    a = alphas[:, None]
-    new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
-    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
-    ok = (
-        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
-        & torch.isfinite(new_merit)
-        & (a >= alpha_min)
-    )
+    new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
+                                 beta, alpha_min)
     return Xn, Un, new_cost, new_merit, ok
+
+
+def euler_evaluate_plain(X, U, dt: float, xdot, cost, x0=None):
+    """The cost `cost(X)` (B,) of each plan and its largest |defect| (B,)
+    under the Euler step of `xdot(x, u)` (NaN kept); given x0, of the plan
+    with node 0 pinned to x0, returned third."""
+    if x0 is not None:
+        X = X.clone()
+        X[..., 0, :] = x0
+    ns = U.shape[-2]
+    x = X[..., :ns, :]
+    step = x + dt * xdot(x, U)
+    defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
+    return (cost(X), defect_max) if x0 is None else (cost(X), defect_max, X)
 
 
 def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
@@ -107,16 +137,10 @@ def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
     `torch.amax` of |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN kept). X (B,ns+1,nx),
     U (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of
     the plan is x0, and the pinned plan is returned third."""
-    if x0 is not None:
-        X = X.clone()
-        X[..., 0, :] = x0
-    ns = U.shape[-2]
     consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
-    x = X[..., :ns, :]
-    step = x + dt * srbd_xdot(x, U, consts)
-    defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
-    cost = terms.total_cost(X, U, params, wc)
-    return (cost, defect_max) if x0 is None else (cost, defect_max, X)
+    return euler_evaluate_plain(
+        X, U, dt, lambda x, u: srbd_xdot(x, u, consts),
+        lambda Xp: terms.total_cost(Xp, U, params, wc), x0)
 
 
 _P = ctypes.c_void_p

@@ -1,7 +1,8 @@
 """Closed-loop MPC harness — the port of srbd_horizon_tpu/runtime/loop.py:
 the fleet tick (`tick_batch`, `run_batch`) and the single-robot tick
 (`tick`, `run`) with its schedules (`standing_schedule`,
-`walking_schedule`).
+`walking_schedule`), on the SRBD problem (`build_srbd_loop`) or the LIP
+(`build_lip_loop`).
 
 One tick, for every member of a fleet at once (`tick_batch`,
 `MSDDP.solve_batch`) or for one robot (`tick`, `MSDDP.solve`):
@@ -10,9 +11,10 @@ One tick, for every member of a fleet at once (`tick_batch`,
   2. WPG contact-plan advance;
   3. the batched MS-DDP solve (optionally warm-started from the previous
      plan shifted one node forward);
-  4. one Euler self-simulation step with u*₀ and quaternion
-     renormalization;
-  5. telemetry: the SRBD Newton–Euler residual of the applied step.
+  4. one Euler self-simulation step with u*₀ (and, on the SRBD,
+     quaternion renormalization);
+  5. telemetry: the SRBD Newton–Euler residual of the applied step
+     (zeros on the LIP).
 
 A fleet's tensors are batch-first: x (B, nx), params leaves
 (B, ns+1, dim); one robot's have no leading axis: x (nx,), params leaves
@@ -32,6 +34,7 @@ from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig, resolve_device
 from srbd_horizon_tpu_torch.math.quat import quat_normalize
 from srbd_horizon_tpu_torch.models import srbd as srbd_model
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
 from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution, MSDDP
 from srbd_horizon_tpu_torch.wpg import (
@@ -70,7 +73,10 @@ class LoopCarry(NamedTuple):
 
 @dataclasses.dataclass
 class MPCLoop:
-    """Closed-loop MPC over one SRBD problem."""
+    """Closed-loop MPC over one problem (LIP or SRBD). `srbd_constants`
+    (the SRBD OCP's constants) turns on the quaternion renormalization of
+    the self-simulated state and the Newton–Euler telemetry; without it
+    (the LIP) the telemetry is zeros."""
 
     solver: MSDDP
     wpg: WalkingPatternGenerator
@@ -244,6 +250,32 @@ def build_srbd_loop(cfg: Optional[SRBDConfig] = None,
                                         dtype=dtype, device=dev)
     loop = MPCLoop(solver=solver, wpg=wpg, srbd_constants=prob.ocp.constants,
                    shift_warmstart=shift_warmstart)
+    return loop, prob
+
+
+def build_lip_loop(cfg: Optional[SRBDConfig] = None,
+                   opts: Optional[DDPOptions] = None,
+                   robot: Optional[RobotConstants] = None,
+                   shift_warmstart: bool = False,
+                   dtype=None,
+                   device="cuda"):
+    """The MPC loop on the LIP biped (Kangaroo line feet by default), in
+    the configuration of the JAX package's dlip example: `max_iters=100`,
+    `alpha_converge_threshold=1e-12`, `beta=1e-3`, the WPG at the feet's
+    height, no SRBD telemetry and no warm-start shift. Built on `device`
+    (default "cuda"; raises when CUDA is absent unless another device is
+    given). Returns (loop, problem)."""
+    dev = resolve_device(device)
+    cfg = cfg or SRBDConfig()
+    dtype = dtype or cfg.dtype
+    prob = build_lip_problem(cfg, robot or kangaroo_line_feet(), dtype=dtype,
+                             device=dev)
+    solver = MSDDP(prob.ocp, opts or DDPOptions(
+        max_iters=100, alpha_converge_threshold=1e-12, beta=1e-3))
+    wpg = WalkingPatternGenerator.build(
+        c_init_z=float(prob.initial_foot_position[0, 2]), nodes=cfg.ns,
+        dtype=dtype, device=dev)
+    loop = MPCLoop(solver=solver, wpg=wpg, shift_warmstart=shift_warmstart)
     return loop, prob
 
 

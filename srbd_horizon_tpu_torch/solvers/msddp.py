@@ -6,24 +6,26 @@ One iteration for a fleet of B members:
   1. the sliced linearization in closed form, over the declared row
      slices only — kernel K4 (`kernels/linearize.py`) for the SRBD
      problem, K5 (`kernels/isrbd_linearize.py`) for the isrbd AL inner
-     problem;
+     problem, K10 (`kernels/lip_linearize.py`) for the LIP problem;
   2. the blocksparse backward Riccati sweep — kernel K1
-     (`kernels/riccati.py`), for either;
+     (`kernels/riccati.py`), for each;
   3. the α₀ trial and, for members that reject it, the gated, compacted
-     backtracking fan — kernel K3 (`kernels/rollout.py`) or K6
-     (`kernels/isrbd_rollout.py`) rolls out, costs and Armijo-tests every
-     α of a trial in one launch;
+     backtracking fan — kernel K3 (`kernels/rollout.py`), K6
+     (`kernels/isrbd_rollout.py`) or K11 (`kernels/lip_rollout.py`) rolls
+     out, costs and Armijo-tests every α of a trial in one launch;
   4. the masked update; active-set compaction across iterations.
 
 A solve's starting cost and its final defect norm come from one
 evaluation launch each (`srbd_evaluate` in `kernels/rollout.py`,
-`isrbd_evaluate` in `kernels/isrbd_rollout.py`), which evaluates the plan
+`isrbd_evaluate` in `kernels/isrbd_rollout.py`, `lip_evaluate` in
+`kernels/lip_rollout.py`), which evaluates the plan
 with the trial kernel's rows and step and no rollout; the first also pins
 node 0 to x0 and writes the pinned plan the solve starts from.
 
 The linearization, trial and evaluation kernels are written per problem
 family: the solver reads the problem's terms object
-(`ocp.constants["terms"]`: `SRBDTerms`, or the AL solver's `ALTerms`) and
+(`ocp.constants["terms"]`: `SRBDTerms`, `LIPTerms`, or the AL solver's
+`ALTerms`) and
 takes the kernels its `family` names; costs go through the same object.
 
 `solve` runs one robot (unbatched X (ns+1, nx), U (ns, nu), x0 (nx,),
@@ -59,6 +61,8 @@ from srbd_horizon_tpu_torch.kernels.isrbd_rollout import (
     isrbd_trial,
 )
 from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
+from srbd_horizon_tpu_torch.kernels.lip_linearize import lip_linearize
+from srbd_horizon_tpu_torch.kernels.lip_rollout import lip_evaluate, lip_trial
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
 from srbd_horizon_tpu_torch.kernels.rollout import srbd_evaluate, srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
@@ -67,6 +71,7 @@ from srbd_horizon_tpu_torch.ocp.spec import OCP
 _KERNELS = {
     "srbd": (srbd_linearize, srbd_trial, srbd_evaluate),
     "isrbd_al": (isrbd_linearize, isrbd_trial, isrbd_evaluate),
+    "lip": (lip_linearize, lip_trial, lip_evaluate),
 }
 
 
@@ -133,7 +138,8 @@ class MSDDP:
             raise NotImplementedError(
                 "the linearization and trial kernels are written per problem "
                 "family: the OCP's constants need a 'terms' object of one of "
-                f"{sorted(_KERNELS)} (problems/srbd.py, solvers/alddp.py)"
+                f"{sorted(_KERNELS)} (problems/srbd.py, problems/lip.py, "
+                "solvers/alddp.py)"
             )
         self.rows = RiccatiRows.from_ocp(ocp)
 

@@ -26,7 +26,12 @@ block-Schur and with the Cholesky gain solve, isrbd with Cholesky)
 against the Tassa twin at B = 1 and 64 by K1's rules, a NaN member kept
 NaN where the twin is, an indefinite Quu giving NaN gains, the
 uncompiled combinations refused before any launch, and their shared
-memory equal to the collapsed form's. Skipped
+memory equal to the collapsed form's; and the LIP kernels (K10, K11,
+lip_evaluate) against their twins at B = 1, 64, 513, float64 within 1e-12
+of max(1, |twin|) entry by entry (K10's Jacobians bit for bit), float32
+by K3's rule, NaN members kept, the pinned plan bit for bit, K1's three
+LIP instantiations by K1's rules, and refusing the LIP on point feet.
+Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
 
@@ -39,6 +44,8 @@ from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
 from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
 from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
 from srbd_horizon_tpu_torch.kernels import linearize as k4
+from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import rollout as k3
 from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
@@ -961,3 +968,229 @@ def test_riccati_tassa_occupancy(card_case, isrbd_case, shape, solver):
         assert (k1.shared_memory_bytes(*sizes, dtype, "tassa", solver)
                 == k1.shared_memory_bytes(*sizes, dtype))
         assert k1.blocks_per_sm(*sizes, dtype, "tassa", solver) >= 1
+
+
+# ---------------- the LIP kernels: K10, K11, lip_evaluate, K1 ----------------
+
+LIP_F64_TOL = 1e-12     # of max(1, |twin|), entry by entry
+
+
+def _err1(got, want):
+    """max |got − want| / max(1, |want|) over the entries where `want` is
+    finite; inf if the non-finite entries differ."""
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return float(((got - want).abs() / want.abs().clamp_min(1.0))[fin].max())
+
+
+@pytest.fixture(scope="module")
+def lip_case():
+    """A LIP linearization point: plans around the nominal state, random
+    references and 0/1 switches and tracking masks on every node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop
+
+    dev = torch.device("cuda", 0)
+    loop, prob = build_lip_loop(SRBDConfig(dtype=torch.float64), device=dev)
+    loop32, _ = build_lip_loop(SRBDConfig(), device=dev)
+    ocp, solver = prob.ocp, loop.solver
+    rng = np.random.RandomState(2)
+    ns, nx, nu, nc = ocp.ns, ocp.nx, ocp.nu, prob.nc
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.03 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.1 * rng.randn(B, ns, nu))
+    params = dict(
+        rdot_ref=t(0.3 * rng.randn(B, ns + 1, 3)),
+        c_ref=t(0.05 * np.abs(rng.randn(B, ns + 1, nc))),
+        cdot_switch=t(rng.randint(0, 2, (B, ns + 1, nc))),
+        mask_track=t(rng.randint(0, 2, (B, ns + 1, 1))))
+    lin = k10.lip_linearize_plain(X, U, params, solver.terms, solver.rows,
+                                  ocp.dt, solver._wc(torch.float64))
+    x0 = X[:, 0] + 0.005 * t(rng.randn(B, nx))
+    return dict(lin=lin, rows=solver.rows, mu=solver.opts.mu0, X=X, U=U,
+                x0=x0, ocp=ocp, params=params, solver=solver,
+                solver32=loop32.solver)
+
+
+def _lip_lin_args(case, dtype, Bw=B):
+    s = case["solver"] if dtype == torch.float64 else case["solver32"]
+    t = lambda a: _repeat(a, Bw).to(dtype).contiguous()
+    return (t(case["X"]), t(case["U"]),
+            {k: t(v) for k, v in case["params"].items()}, s.terms, s.rows,
+            case["ocp"].dt, s._wc(dtype))
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+def test_lip_linearize_kernel_matches_plain(lip_case, Bw):
+    """K10: float64 within LIP_F64_TOL of max(1, |twin|) entry by entry
+    (the Jacobians bit for bit); float32 against the float64 twin within
+    2× the float32 twin's error + 1e-6."""
+    ref = k10.lip_linearize_plain(*_lip_lin_args(lip_case, torch.float64, Bw))
+    before = k10.lip_linearize.launches
+    got = k10.lip_linearize(*_lip_lin_args(lip_case, torch.float64, Bw))
+    got32 = k10.lip_linearize(*_lip_lin_args(lip_case, torch.float32, Bw))
+    plain32 = k10.lip_linearize_plain(*_lip_lin_args(lip_case, torch.float32, Bw))
+    torch.cuda.synchronize()
+    assert k10.lip_linearize.launches == before + 2
+    for k in ORDER:
+        assert got[k].shape == ref[k].shape, k
+        assert _err1(got[k], ref[k]) <= LIP_F64_TOL, k
+        assert _rel(got32[k], ref[k]) <= 2 * _rel(plain32[k], ref[k]) + 1e-6, k
+    for k in ("Sx", "Bs", "Jxp", "Jup", "Jt"):
+        assert torch.equal(got[k], ref[k]), k
+
+
+def _lip_trial_args(case, dtype, nA, Bw=B, nan_member=None):
+    lin = case["lin"]
+    ks, Ks, dV1, dV2 = k1.riccati_backward_plain(
+        *(lin[k] for k in ORDER), case["mu"], case["rows"])
+    s = case["solver"] if dtype == torch.float64 else case["solver32"]
+    opts = s.opts
+    t = lambda a: _repeat(a, Bw).to(dtype).contiguous()
+    x0 = _repeat(case["x0"], Bw)
+    if nan_member is not None:
+        x0[nan_member, 3] = float("nan")
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    params = {k: t(v) for k, v in case["params"].items()}
+    cost0 = s.total_cost(t(case["X"]), t(case["U"]), params)
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=dtype,
+                          device=x0.device)
+    return (x0.to(dtype).contiguous(), t(case["X"]), t(case["U"]), t(ks),
+            t(Ks), t(lin["d"]), alphas, params,
+            cost0 + opts.defect_weight * t(D), t(D), t(dV1), t(dV2), s.terms,
+            case["ocp"].dt, s._wc(dtype), opts.defect_weight, opts.beta,
+            opts.alpha_converge_threshold)
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+@pytest.mark.parametrize("nA", [1, 4])
+def test_lip_trial_kernel_matches_plain(lip_case, nA, Bw):
+    """K11 for 1 and 4 step sizes: float64 within LIP_F64_TOL of
+    max(1, |twin|), the flags equal; float32 within 2× the float32 twin's
+    error + 1e-6; a member from a NaN state NaN where the twin is."""
+    nan = 1 if Bw > 1 else None
+    ref = k11.lip_trial_plain(*_lip_trial_args(lip_case, torch.float64, nA, Bw, nan))
+    before = k11.lip_trial.launches
+    got = k11.lip_trial(*_lip_trial_args(lip_case, torch.float64, nA, Bw, nan))
+    got32 = k11.lip_trial(*_lip_trial_args(lip_case, torch.float32, nA, Bw, nan))
+    plain32 = k11.lip_trial_plain(*_lip_trial_args(lip_case, torch.float32, nA,
+                                                   Bw, nan))
+    torch.cuda.synchronize()
+    assert k11.lip_trial.launches == before + 2
+    for g, g32, p, r in zip(got[:4], got32[:4], plain32[:4], ref[:4]):
+        assert g.shape == r.shape
+        assert _err1(g, r) <= LIP_F64_TOL
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    assert torch.equal(got[4], ref[4])
+    if nan is not None:
+        assert bool(torch.isnan(got[2][:, nan]).all()) and not bool(got[4][:, nan].any())
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+@pytest.mark.parametrize("pin", [False, True], ids=["plan", "pinned"])
+def test_lip_evaluate_kernel_matches_plain(lip_case, Bw, pin):
+    """lip_evaluate: a member whose plan holds a NaN is NaN in both; given
+    x0 (a NaN in another member's), the pinned plan equal to the twin's
+    bit for bit."""
+    X = _repeat(lip_case["X"], Bw)
+    x0 = _repeat(lip_case["x0"], Bw)
+    if Bw > 1:
+        X[1, 5, 4] = float("nan")
+        x0[2, 4] = float("nan")
+
+    def args(dtype):
+        s = lip_case["solver"] if dtype == torch.float64 else lip_case["solver32"]
+        t = lambda a: a.to(dtype).contiguous()
+        return (t(X), t(_repeat(lip_case["U"], Bw)),
+                {k: t(_repeat(v, Bw)) for k, v in lip_case["params"].items()},
+                s.terms, lip_case["ocp"].dt, s._wc(dtype),
+                t(x0) if pin else None)
+
+    before = k11.lip_evaluate.launches
+    ref = k11.lip_evaluate_plain(*args(torch.float64))
+    got = k11.lip_evaluate(*args(torch.float64))
+    got32 = k11.lip_evaluate(*args(torch.float32))
+    plain32 = k11.lip_evaluate_plain(*args(torch.float32))
+    torch.cuda.synchronize()
+    assert k11.lip_evaluate.launches == before + 2
+    for g, g32, p, r in zip(got[:2], got32[:2], plain32[:2], ref[:2]):
+        assert _err1(g, r) <= LIP_F64_TOL
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    if pin:
+        assert torch.equal(_bits(got[2]), _bits(ref[2]))
+        assert torch.equal(_bits(got32[2]), _bits(plain32[2]))
+    if Bw > 1:
+        assert bool(torch.isnan(got[0][1])) and bool(torch.isnan(got[1][1]))
+
+
+LIP_K1 = [("collapsed", "schur"), ("tassa", "schur"), ("tassa", "cholesky")]
+
+
+@pytest.mark.parametrize("Bw", [1, 133])
+@pytest.mark.parametrize("form,solver", LIP_K1)
+def test_lip_riccati_kernel_matches_plain(lip_case, form, solver, Bw):
+    """K1's three LIP instantiations against the twin: float64 to 1e-9,
+    float32 to K1_F32_TOL of the float64 twin."""
+    lin = _repeat_lin(lip_case["lin"], Bw)
+    rows, mu = lip_case["rows"], lip_case["mu"]
+
+    def run(fn, dtype):
+        return fn(*(lin[k].to(dtype).contiguous() for k in ORDER), mu, rows,
+                  form=form, quu_solver=solver)
+
+    ref = run(k1.riccati_backward_plain, torch.float64)
+    inst = k1.kernel_instance("lip", form, solver)
+    before = k1.riccati_backward.instance_launches[inst]
+    got = run(k1.riccati_backward, torch.float64)
+    got32 = run(k1.riccati_backward, torch.float32)
+    torch.cuda.synchronize()
+    assert k1.riccati_backward.instance_launches[inst] == before + 2
+    for g, g32, r in zip(got, got32, ref):
+        assert bool(torch.isfinite(r).all())
+        assert _rel(g, r) <= 1e-9
+        assert _rel(g32, r) <= K1_F32_TOL
+    sizes = (lin["d"].shape[-1], lin["Jup"].shape[-1], lin["Jt"].shape[1], rows)
+    assert k1.blocks_per_sm(*sizes, torch.float32, form, solver) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_lip_occupancy(lip_case, dtype):
+    occ = k11.evaluate_occupancy(lip_case["ocp"].ns, dtype)
+    assert occ["blocks_per_sm"] >= 1 and occ["registers_per_thread"] > 0
+    assert k11.trial_occupancy(dtype)["blocks_per_sm"] >= 1
+
+
+def test_lip_kernels_refuse_unknown_shape(lip_case):
+    """K10, K11, lip_evaluate and K1 on CUDA tensors of the LIP on point
+    feet (nc 2): ValueError before any launch; nothing falls back."""
+    import dataclasses
+
+    s = lip_case["solver"]
+    terms = dataclasses.replace(s.terms, nc=2, contact_model=1)
+    dev = lip_case["X"].device
+    Bw, ns, nx, nu = 2, lip_case["ocp"].ns, 18, 9
+    e = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    params = dict(rdot_ref=e(Bw, ns + 1, 3), c_ref=e(Bw, ns + 1, 2),
+                  cdot_switch=e(Bw, ns + 1, 2), mask_track=e(Bw, ns + 1, 1))
+    X, U = e(Bw, ns + 1, nx), e(Bw, ns, nu)
+    dt, wc = lip_case["ocp"].dt, s._wc(torch.float64)
+    counts = (k10.lip_linearize.launches, k11.lip_trial.launches,
+              k11.lip_evaluate.launches)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k10.lip_linearize(X, U, params, terms, s.rows, dt, wc)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k11.lip_evaluate(X, U, params, terms, dt, wc)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k11.lip_trial(e(Bw, nx), X, U, e(Bw, ns, nu), e(Bw, ns, nu, nx),
+                      e(Bw, ns, nx), e(1), params, e(Bw), e(Bw), e(Bw), e(Bw),
+                      terms, dt, wc, 1e-3, 0.1, 1e-12)
+    assert counts == (k10.lip_linearize.launches, k11.lip_trial.launches,
+                      k11.lip_evaluate.launches)

@@ -1,12 +1,13 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for two sets of sizes, the
-SRBD OCP and the AL inner OCP of the isrbd problem; its wrapper picks one
-with `kernel_shape` for CUDA tensors and refuses any other sizes with a
-ValueError that names them. These tests hold that choice against
-`RiccatiRows.from_ocp` of both problems, hold `KERNEL_SHAPES` against the
-shape structs of the CUDA source, and check that a CPU tensor of any
-sizes still takes the plain twin, as does K2's standalone wrapper.
+K1 (`csrc/riccati_backward.cu`) is compiled for three sets of sizes, the
+SRBD OCP, the AL inner OCP of the isrbd problem and the LIP OCP; its
+wrapper picks one with `kernel_shape` for CUDA tensors and refuses any
+other sizes (the LIP on point feet among them) with a ValueError that
+names them. These tests hold that choice against `RiccatiRows.from_ocp`
+of the three problems, hold `KERNEL_SHAPES` against the shape structs of
+the CUDA source, and check that a CPU tensor of any sizes still takes the
+plain twin, as does K2's standalone wrapper.
 """
 
 import re
@@ -19,12 +20,13 @@ import torch
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
 from srbd_horizon_tpu_torch.kernels import linearize as k4
+from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
-from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
-from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop, build_srbd_loop
 from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
 
 torch.set_num_threads(1)
@@ -66,12 +68,30 @@ def _isrbd_sizes():
     return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
 
 
+def _lip_sizes(cfg=None, robot=None):
+    """(nx, nu, nt, rows) of the LIP OCP (`build_lip_problem`, as
+    `build_lip_loop` builds it), nt read off its linearization."""
+    loop, prob = build_lip_loop(cfg or SRBDConfig(dtype=torch.float64),
+                                DDPOptions(max_iters=1), robot=robot,
+                                device="cpu")
+    ocp, s = prob.ocp, loop.solver
+    X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
+    U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
+    params = {k: v[None] for k, v in ocp.params.items()}
+    lin = k10.lip_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt,
+                                  s._wc(torch.float64))
+    rows = RiccatiRows.from_ocp(ocp)
+    assert rows == s.rows
+    return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
+
+
 @pytest.fixture(scope="module")
 def sizes():
-    return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes()}
+    return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
+            "lip": _lip_sizes()}
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al"])
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip"])
 def test_kernel_shape_of_each_problem(sizes, name):
     nx, nu, nt, rows = sizes[name]
     assert k1.kernel_shape(nx, nu, nt, rows) == name
@@ -85,7 +105,7 @@ def _drop_last(rows, field):
                        **{field: getattr(rows, field)[:-1]})
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al"])
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip"])
 @pytest.mark.parametrize("change", ["nx", "nu", "nt", "rx", "ru", "gx", "gu",
                                     "both", "uc"])
 def test_kernel_shape_refuses_other_sizes(sizes, name, change):
@@ -102,16 +122,47 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 
 
 def test_kernel_shapes_match_the_cuda_source():
-    """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape."""
+    """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape,
+    LipShape."""
     src = SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
-    assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape"]
+    assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
                        (kv.split("=") for kv in body.split(","))})
     assert parsed == list(k1.KERNEL_SHAPES.values())
+
+
+def test_lip_on_point_feet_is_refused():
+    """The LIP on point feet (nc 2: nx 18, nu 9) has no instantiation; its
+    sizes are named in the refusal."""
+    cfg = SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64)
+    robot = RobotConstants(
+        mass=40.0, inertia=np.diag([2.11556, 1.82968, 0.62288]),
+        com=np.array([0.0, -0.09, 0.88]),
+        foot_positions=np.array([[0.0, 0.0, 0.0], [0.0, -0.18, 0.0]]),
+        foot_frames=("sole_0", "sole_1"))
+    nx, nu, nt, rows = _lip_sizes(cfg, robot)
+    assert (nx, nu, nt) == (18, 9, 10)
+    with pytest.raises(ValueError, match=r"no kernel for the sizes .*'nx': 18"):
+        k1.kernel_shape(nx, nu, nt, rows)
+
+
+def test_lip_instantiations():
+    """The LIP is compiled for the collapsed sweep (`solve_batch`) and the
+    Tassa sweep with either gain solve (`MSDDP.solve`); the collapsed form
+    ignores the gain solve, as at every shape, so (lip, collapsed,
+    cholesky) runs the collapsed block-Schur instantiation."""
+    collapsed = k1.kernel_instance("lip", "collapsed", "schur")
+    assert k1.KERNEL_INSTANCES[collapsed] == ("lip", "collapsed", "schur")
+    assert k1.kernel_instance("lip", "collapsed", "cholesky") == collapsed
+    for solver in ("schur", "cholesky"):
+        i = k1.kernel_instance("lip", "tassa", solver)
+        assert k1.KERNEL_INSTANCES[i] == ("lip", "tassa", solver)
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.kernel_instance("isrbd_al", "tassa", "schur")
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
@@ -133,7 +184,7 @@ def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [24, 30, 7])
+@pytest.mark.parametrize("n", [24, 30, 7, 15])
 def test_spd_inverse_takes_plain_path_on_cpu(n):
     g = np.random.RandomState(n)
     J = torch.as_tensor(g.randn(5, n + 3, n))

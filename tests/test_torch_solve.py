@@ -171,7 +171,6 @@ def test_unported_options_raise(field, value, exc):
     (DDPOptions, "backward_unroll", 2),
     (DDPOptions, "rollout_unroll", 2),
     (SRBDConfig, "hz", 50.0),
-    (SRBDConfig, "zmp_tracking_gain", 1.0),
 ])
 def test_unread_options_are_refused(cls, field, value):
     """A JAX field that nothing in the port reads is not carried, so
