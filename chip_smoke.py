@@ -152,14 +152,43 @@ parallel, into build/kernels/), then:
      gates (K10 = K1 collapsed launches), phases and profile, B=4096 as a
      probe, card = CPU at B=8 in float64 (`lip_fleet_card_vs_cpu`, the
      same two rules).
+ 11. the quadruped trot (`quadruped_section`), on
+     `build_quadruped_loop` (the point-feet quadruped, contact_model=1,
+     number_of_legs=4: nx=37, nu=24, ns=20, 69 stage rows; K3, K4 and
+     srbd_evaluate at `srbd::QuadShape`, K1 at `QuadShape`): `quad_check`,
+     K4, K1 collapsed and Tassa (block-Schur gains), K3 (1 and 4 α) and
+     srbd_evaluate (without and with x0) against their twins at B=512 on
+     plans around the nominal state with the trot's contact plan, member 7
+     NaN, by the rules of 2; `quad_kernel_times`: each at B = 1, 512,
+     4096 in float32 (ms, plain ms at B ≤ 512, bytes, FLOPs, bound), blocks
+     per SM and shared memory; `quad_path`: the quadruped example
+     (`build_quadruped_loop`'s defaults: max_iters 5,
+     alpha_converge_threshold 1e-12, beta 1e-3, the trot WPG at the feet's
+     height, the Newton–Euler telemetry, no shift), 40 ticks of
+     `walking_schedule(vx 0.25, start 10)` in float32: tick p50 and max,
+     iterations, host reads and hand-written launches an iteration, the
+     phases of 5 ticks and a profile of 2; gates: finite, defect and
+     Newton–Euler residual ≤ 1e-4, the CoM height within 0.05 of its
+     start, forward progress, K4 = K1 (Tassa) = iterations, K3 = trials,
+     two srbd_evaluate a solve, no plain twin, plain cost or `torch.func`
+     on the card; `quad_card_vs_cpu`: card = CPU in float64 at B=1 (10
+     ticks, walking from tick 3) and B=8 (3 fleet ticks), iterations and
+     convergence equal, x, u0, the cost and the plans to 1e-9;
+     `quad_fleet_path`: `tick_batch` at B=512 float32 with the SRBD fleet
+     point's settings (max_iters=5, shifted warm start, walk command vx
+     0.2, 0.005·N(0,1) pushes, seed 0), 3 warm-up and 20 timed ticks, the
+     same gates (K4 = K1 collapsed), phases, profile (launches by span),
+     B=4096 as a probe; the section's seconds.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-twenty-two rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6, srbd_evaluate,
-isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa instantiations,
-whose launches come from phases 8 and 9, and the LIP rows of phase 10:
-K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP Tassa
-instantiations); the last line is {"ok": true, "device": {...}}.
+twenty-seven rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
+instantiations, whose launches come from phases 8 and 9, the LIP rows of
+phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
+Tassa instantiations, and the quadruped rows of phase 11: K4, K3,
+srbd_evaluate and K1's collapsed and Tassa instantiations at the
+quadruped's shape); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -1806,6 +1835,493 @@ def lip_section(card, dev, sms):
     return rows_out
 
 
+# ---------------- the quadruped trot (phase 11) ----------------
+
+QUAD_TOPOLOGY = dict(contact_model=1, number_of_legs=4)
+QUAD_HEIGHT_BAND = 0.05        # the trot's CoM band, tests/test_quadruped.py:133
+
+
+def quadruped_section(card, dev, sms):
+    """Phase 11: the SRBD kernels at the point-feet quadruped's shape
+    (`srbd::QuadShape`, K1's `QuadShape`) against their twins
+    (`quad_check`), their times (`quad_kernel_times`), the quadruped
+    example's trot on `MPCLoop.tick` (`quad_path`), card = CPU in float64
+    (`quad_card_vs_cpu`) and the quadruped fleet tick (`quad_fleet_path`).
+    Returns the kernel rows of the `kernels` line."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        TickInput,
+        build_quadruped_loop,
+        walk_command,
+        walking_schedule,
+    )
+
+    t_section = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    cfg = lambda dtype: SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY)
+    loop64, prob = build_quadruped_loop(cfg(f64), device=dev)
+    loop32, _ = build_quadruped_loop(cfg(f32), device=dev)
+    s64, s32 = loop64.solver, loop32.solver
+    ocp = prob.ocp
+    ns, nx, nu, nc, dt = ocp.ns, ocp.nx, ocp.nu, prob.nc, ocp.dt
+    opts, rows, mu = s64.opts, s64.rows, s64.opts.mu0
+    n_rho = s64.terms.n_rho
+    B = B_MAIN
+    # a linearization point of the trot: plans around the nominal state
+    # (0.02 / 0.05·N(0,1)), the contact plan of 7 ticks of the trot WPG
+    rng = np.random.RandomState(SEED + 11)
+    params1, wst = dict(ocp.params), loop64.wpg.init_state()
+    for _ in range(7):
+        params1, wst = loop64.wpg.advance(
+            params1, wst, torch.tensor(1, dtype=torch.int32, device=dev))
+    params = {k: v.expand((B,) + tuple(v.shape)).contiguous()
+              for k, v in params1.items()}
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.02 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.05 * rng.randn(B, ns, nu))
+    x0 = X[:, 0] + t(0.005 * rng.randn(B, nx))
+    X_nan = X.clone()
+    X_nan[7, 5, 4] = float("nan")
+    x0_nan = x0.clone()
+    x0_nan[7] = float("nan")
+    cast = lambda a, dtype: a.to(dtype).contiguous()
+    solver_of = lambda dtype: s64 if dtype == f64 else s32
+    cparams = lambda dtype: {k: cast(v, dtype) for k, v in params.items()}
+
+    def k4_args(dtype):
+        s = solver_of(dtype)
+        return (cast(X, dtype), cast(U, dtype), cparams(dtype), s.terms,
+                s.rows, dt, s._wc(dtype))
+
+    # ---- quad_check: K4, K1 (collapsed and Tassa), K3, srbd_evaluate ----
+    lin64, lin_g32, k4_err = linearize_check(
+        "quad_k4_check", k4.srbd_linearize_plain, k4.srbd_linearize, k4_args,
+        sizes="quadruped", B=B)
+    ref64, k1_g32, lin32, k1_err = riccati_check(
+        "quad_k1_check", k1, lin64, mu, rows, sizes="quadruped", B=B)
+    tassa_err = tassa_check("quad_k1_tassa_check", k1, lin64, mu, rows,
+                            "schur", nan_member=7, sizes="quadruped", B=B)
+    ks64, Ks64, dV1_64, dV2_64 = ref64
+    D64 = torch.sum(lin64["d"] ** 2, dim=(1, 2))
+    merit0_64 = s64.total_cost(X, U, params) + opts.defect_weight * D64
+    alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f64, device=dev)
+
+    def k3_args(x0s):
+        def args(dtype, alphas):
+            s = solver_of(dtype)
+            c = lambda a: cast(a, dtype)
+            return (c(x0s), c(X), c(U), c(ks64), c(Ks64), c(lin64["d"]),
+                    c(alphas), cparams(dtype), c(merit0_64), c(D64),
+                    c(dV1_64), c(dV2_64), s.terms, dt, s._wc(dtype),
+                    opts.defect_weight, opts.beta,
+                    opts.alpha_converge_threshold)
+        return args
+
+    k3_err = trial_check("quad_k3_check", k3.srbd_trial_plain, k3.srbd_trial,
+                         k3_args(x0_nan), alphas4, merit0_64, D64, dV1_64,
+                         dV2_64, opts, nan_member=7, sizes="quadruped")
+
+    def ev_args(Xs):
+        def args(dtype):
+            s = solver_of(dtype)
+            return (cast(Xs, dtype), cast(U, dtype), cparams(dtype), s.terms,
+                    dt, s._wc(dtype))
+        return args
+
+    ev_err = evaluate_check("quad_srbd_evaluate_check", k3.srbd_evaluate_plain,
+                            k3.srbd_evaluate, ev_args(X_nan), nan_member=7,
+                            x0=x0_nan, sizes="quadruped")
+
+    # ---- quad_kernel_times: B = 1, 512, 4096, float32 ----
+    a4 = k4_args(f32)
+    a3 = k3_args(x0)(f32, alphas4[:1])
+    aev = ev_args(X)(f32)
+    x032 = cast(x0, f32)
+    k1_args32 = tuple(lin32[k] for k in ORDER)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    nt = lin32["Jt"].shape[1]
+    K1_FORMS = (("collapsed", "riccati_backward_quadruped"),
+                ("tassa", "riccati_backward_quadruped_tassa"))
+    times = defaultdict(dict)
+    for Bw in (1, B, B_LARGE):
+        plain_too = Bw <= B        # the twins at the path's sizes only
+        pl = lambda fn, reps: (cuda_ms(fn, reps=reps, warmup=1) if plain_too
+                               else None)
+        la = repeat_members(a4, Bw)
+        out = k4.srbd_linearize(*la)
+        times["srbd_linearize_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k4.srbd_linearize(*la), reps=20),
+            plain_ms=pl(lambda: k4.srbd_linearize_plain(*la), 3),
+            bytes=nbytes(la[0], la[1], *k4.kernel_params(
+                la[2], Bw, ns, nc, f32, dev), rows.packed(dev), *out.values()),
+            flop=linearize_flops(Bw, ns, nx, nu, nc, n_rho, len(rows.rx),
+                                 len(rows.ru)))
+        ta = repeat_members(a3, Bw, skip=(6,))
+        out = k3.srbd_trial(*ta)
+        times["srbd_trial_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k3.srbd_trial(*ta), reps=20),
+            plain_ms=pl(lambda: k3.srbd_trial_plain(*ta), 3),
+            bytes=nbytes(*[v for v in ta[:12] if isinstance(v, torch.Tensor)],
+                         *ta[7].values(), *out),
+            flop=trial_flops(Bw, ns, nx, nu, nc, n_rho, 1))
+        ta4 = repeat_members(k3_args(x0)(f32, alphas4), Bw, skip=(6,))
+        times["srbd_trial_quadruped"][Bw]["ms_4alpha"] = cuda_ms(
+            lambda: k3.srbd_trial(*ta4), reps=20)
+        ea = repeat_members(aev + (x032,), Bw)
+        out = k3.srbd_evaluate(*ea[:-1], x0=ea[-1])
+        times["srbd_evaluate_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k3.srbd_evaluate(*ea[:-1], x0=ea[-1]), reps=20),
+            plain_ms=pl(lambda: k3.srbd_evaluate_plain(*ea[:-1], x0=ea[-1]), 3),
+            bytes=nbytes(ea[0], ea[1], *ea[2].values(), ea[-1], *out),
+            flop=evaluate_flops(Bw, ns, nx, nc, n_rho))
+        ka = repeat_members(k1_args32, Bw)
+        for form, name in K1_FORMS:
+            kw = dict(form=form)
+            out = k1.riccati_backward(*ka, mu, rows, **kw)
+            flop = (riccati_flops(Bw, ns, nx, nu, nt, *sizes) if form == "collapsed"
+                    else tassa_flops(Bw, ns, nx, nu, nt, *sizes, "schur"))
+            times[name][Bw] = dict(
+                ms=cuda_ms(lambda: k1.riccati_backward(*ka, mu, rows, **kw),
+                           reps=10),
+                plain_ms=pl(lambda: k1.riccati_backward_plain(*ka, mu, rows,
+                                                              **kw), 2),
+                bytes=nbytes(*ka, rows.packed(dev), *out), flop=flop,
+                fp64_tensor_cores=True)
+    for by_B in times.values():
+        for v in by_B.values():
+            rate = (H100_FP64_TC_FLOP_PER_S if v.pop("fp64_tensor_cores", False)
+                    else H100_F32_FLOP_PER_S)
+            v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
+    pick = lambda occ: {k: occ[k] for k in ("blocks_per_sm",
+                                            "shared_memory_bytes",
+                                            "registers_per_thread",
+                                            "local_bytes_per_thread")}
+    occ = dict(
+        srbd_linearize_quadruped=pick(k4.occupancy(f32, "quadruped")),
+        srbd_trial_quadruped=pick(k3.trial_occupancy(f32, "quadruped")),
+        srbd_evaluate_quadruped=pick(k3.evaluate_occupancy(ns, f32, "quadruped")),
+        **{name: dict(blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, form),
+                      shared_memory_bytes=k1.shared_memory_bytes(
+                          nx, nu, nt, rows, f32, form))
+           for form, name in K1_FORMS})
+    emit("quad_kernel_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         occupancy=occ)
+    del lin64, lin32, lin_g32, k1_g32, ref64
+
+    # ---- quad_path: the quadruped example's trot on MPCLoop.tick ----
+    QUAD_TWINS = ((k1, ("riccati_backward_plain",)),
+                  (k3, ("srbd_trial_plain", "srbd_evaluate_plain")),
+                  (k4, ("srbd_linearize_plain",)))
+    i_coll = k1.KERNEL_INSTANCES.index(("quadruped", "collapsed", "schur"))
+    i_tassa = k1.KERNEL_INSTANCES.index(("quadruped", "tassa", "schur"))
+
+    def reset_counts():
+        k1.riccati_backward.launches = 0
+        k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+        k4.srbd_linearize.launches = 0
+        k3.srbd_trial.launches = 0
+        k3.srbd_evaluate.launches = 0
+
+    def read_counts():
+        il = k1.riccati_backward.instance_launches
+        return {"srbd_linearize": k4.srbd_linearize.launches,
+                "riccati_backward": k1.riccati_backward.launches,
+                "riccati_backward_quadruped": il[i_coll],
+                "riccati_backward_quadruped_tassa": il[i_tassa],
+                "srbd_trial": k3.srbd_trial.launches,
+                "srbd_evaluate": k3.srbd_evaluate.launches}
+
+    def counting(loop):
+        """Count the solver's trials and solves (either entry) in `n`;
+        returns the counter and a function that restores the solver."""
+        n = {"trials": 0, "solves": 0}
+        s = loop.solver
+        saved = (s._trial, s.solve, s.solve_batch)
+
+        def wrap(fn, key):
+            def counted(*a):
+                n[key] += 1
+                return fn(*a)
+            return counted
+
+        s._trial = wrap(saved[0], "trials")
+        s.solve, s.solve_batch = wrap(saved[1], "solves"), wrap(saved[2], "solves")
+
+        def restore():
+            s._trial, s.solve, s.solve_batch = saved
+
+        return n, restore
+
+    def guard_plain():
+        """Count plain twins, plain cost or defect calls and torch.func
+        transforms; returns the counters and a function that restores."""
+        f, rf = count_torch_func()
+        p, rp = count_plain_cost()
+        tw, rt = count_calls(QUAD_TWINS)
+
+        def restore():
+            for r in (rf, rp, rt):
+                r()
+
+        return dict(torch_func_calls=f, plain_cost_or_defect_calls=p,
+                    plain_twin_calls=tw), restore
+
+    hand = lambda L: (L["srbd_linearize"] + L["riccati_backward"]
+                      + L["srbd_trial"] + L["srbd_evaluate"])
+    ploop, pprob = build_quadruped_loop(cfg(f32), device=dev)
+    sched = walking_schedule(40, vx=0.25, start=10, device=dev)
+    z0 = float(pprob.initial_state[2])
+    guards, restore_guards = guard_plain()
+    n, restore_count = counting(ploop)
+    carry = ploop.init(pprob.initial_state)
+    syncs0 = ploop.solver.host_syncs
+    outs, tms = [], []
+    reset_counts()
+    for i in range(sched.action.shape[0]):
+        inp = TickInput(*(a[i] for a in sched))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, out = ploop.tick(carry, inp)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    path_launches = read_counts()
+    restore_count()
+    restore_guards()
+    syncs = ploop.solver.host_syncs - syncs0
+    iters = [int(o.iterations) for o in outs]
+    com = torch.stack([o.x[:3] for o in outs]).cpu()
+    qp = dict(
+        B=1, dtype="float32", ticks=len(outs),
+        options="the quadruped example: max_iters=5, alpha_converge_threshold="
+                "1e-12, beta=1e-3, trot WPG at the feet's height, no shift",
+        walk="vx 0.25 from tick 10",
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms),
+        iterations_per_tick=iters, iterations_mean=statistics.fmean(iters),
+        syncs_per_tick=syncs / len(outs), syncs_per_iteration=syncs / sum(iters),
+        launches=path_launches, trials=n["trials"], solves=n["solves"],
+        hand_written_launches_per_tick=hand(path_launches) / len(outs),
+        hand_written_launches_per_iteration=(
+            path_launches["srbd_linearize"] + path_launches["riccati_backward"]
+            + path_launches["srbd_trial"]) / sum(iters),
+        defect_norm_max=max(float(o.defect_norm) for o in outs),
+        srbd_residual_max=max(float(o.srbd_residual.abs().max()) for o in outs),
+        com_z_min=float(com[:, 2].min()), com_z_max=float(com[:, 2].max()),
+        z0=z0, forward_progress_m=float(com[-1, 0] - com[0, 0]),
+        finite=all(bool(torch.isfinite(v).all()) for o in outs
+                   for v in (o.x, o.u0, o.cost, o.srbd_residual)),
+        converged_ticks=sum(bool(o.converged) for o in outs),
+        **{k: v["n"] for k, v in guards.items()},
+        final_com=carry.x[:3].tolist(), card=card)
+    pstep = lambda c: ploop.tick(c, TickInput(*(a[-1] for a in sched)))[0]
+    carry, qp["spans"] = tick_spans(ploop.solver, pstep, carry, ticks=5)
+    qp["profile"] = profile_ticks(ploop.solver, pstep, carry, qp["tick_p50_ms"])
+    emit("quad_path", **qp)
+    if not qp["finite"]:
+        fail("the quadruped trot produced non-finite values")
+    if max(qp["defect_norm_max"], qp["srbd_residual_max"]) > 1e-4:
+        fail("quadruped plans are not dynamically consistent (defect or "
+             "Newton-Euler residual above 1e-4)")
+    if max(abs(qp["com_z_min"] - z0), abs(qp["com_z_max"] - z0)) >= QUAD_HEIGHT_BAND:
+        fail(f"the trot's CoM height left z0 ± {QUAD_HEIGHT_BAND}: "
+             f"{qp['com_z_min']}, {qp['com_z_max']} (z0 {z0})")
+    if not qp["forward_progress_m"] > 0:
+        fail(f"the trot made no forward progress: {qp['forward_progress_m']}")
+    if min(path_launches[k] for k in ("srbd_linearize", "srbd_trial",
+                                      "srbd_evaluate",
+                                      "riccati_backward_quadruped_tassa")) == 0:
+        fail(f"a kernel was not launched on the quadruped path: {path_launches}")
+    if not (path_launches["srbd_linearize"] == path_launches["riccati_backward"]
+            == path_launches["riccati_backward_quadruped_tassa"] == sum(iters)):
+        fail(f"K4 and K1 launches differ from the iterations: {path_launches}")
+    if path_launches["srbd_trial"] != qp["trials"]:
+        fail(f"K3 launches do not cover the trials: {path_launches}")
+    if path_launches["srbd_evaluate"] != 2 * qp["solves"]:
+        fail(f"srbd_evaluate launches are not two a solve: {path_launches}")
+    if qp["plain_twin_calls"] or qp["torch_func_calls"] or qp["plain_cost_or_defect_calls"]:
+        fail(f"the quadruped path ran plain twins on the card: {qp}")
+
+    # ---- quad_card_vs_cpu: card = CPU in float64, B=1 and B=8 ----
+    def single_ticks(device, n_ticks):
+        loop, p = build_quadruped_loop(cfg(f64), device=device)
+        sch = walking_schedule(n_ticks, vx=0.25, start=3, dtype=f64,
+                               device=device)
+        c = loop.init(p.initial_state)
+        res = []
+        for i in range(n_ticks):
+            c, o = loop.tick(c, TickInput(*(a[i] for a in sch)))
+            res.append(o)
+        return c, res
+
+    def fleet(Bsz, dtype, device, max_iters=5):
+        """The SRBD fleet point's settings on the quadruped: max_iters=5,
+        shifted warm start, the walk command, pushes of 0.005·N(0,1)."""
+        loop, p = build_quadruped_loop(cfg(dtype), DDPOptions(max_iters=max_iters),
+                                       shift_warmstart=True, device=device)
+        g = np.random.RandomState(SEED)
+        xn = p.initial_state.cpu().numpy()
+        xs = torch.as_tensor(xn[None] + 0.005 * g.randn(Bsz, nx), dtype=dtype,
+                             device=device)
+        return loop, loop.init(xs), walk_command(Bsz, vx=0.2, dtype=dtype,
+                                                 device=device)
+
+    def fleet_ticks(device, n_ticks):
+        loop, c, inp = fleet(8, f64, device)
+        res = []
+        for _ in range(n_ticks):
+            c, o = loop.tick_batch(c, inp)
+            res.append(o)
+        return c, res
+
+    def versus(card_run, cpu_run):
+        (cc, oc), (cp, op) = card_run, cpu_run
+        it = lambda o: o.iterations.reshape(-1).tolist()
+        both = lambda f: (torch.stack([getattr(a, f).cpu() for a in oc]),
+                          torch.stack([getattr(b, f) for b in op]))
+        r = dict(
+            iterations_equal=all(it(a) == it(b) for a, b in zip(oc, op)),
+            converged_equal=all(torch.equal(a.converged.cpu(), b.converged)
+                                for a, b in zip(oc, op)),
+            iterations_card=[it(a) for a in oc],
+            cost_rel_err=rel_err(*both("cost")), x_rel_err=rel_err(*both("x")),
+            u0_rel_err=rel_err(*both("u0")),
+            X_rel_err=rel_err(cc.sol.X.cpu(), cp.sol.X),
+            U_rel_err=rel_err(cc.sol.U.cpu(), cp.sol.U))
+        r["ok"] = (r["iterations_equal"] and r["converged_equal"]
+                   and max(r[k] for k in ("cost_rel_err", "x_rel_err",
+                                          "u0_rel_err", "X_rel_err",
+                                          "U_rel_err")) <= 1e-9)
+        return r
+
+    qvc = dict(tol=1e-9, single_B1=dict(ticks=10, walk="vx 0.25 from tick 3",
+                                        **versus(single_ticks(dev, 10),
+                                                 single_ticks("cpu", 10))),
+               fleet_B8=dict(ticks=3, **versus(fleet_ticks(dev, 3),
+                                               fleet_ticks("cpu", 3))))
+    emit("quad_card_vs_cpu", **qvc)
+    if not (qvc["single_B1"]["ok"] and qvc["fleet_B8"]["ok"]):
+        fail("the quadruped card path and CPU path disagree")
+
+    # ---- quad_fleet_path: MPCLoop.tick_batch at B=512, float32 ----
+    def run_fleet(Bsz, warm, timed):
+        loop, c, inp = fleet(Bsz, f32, dev)
+        cnt, restore = counting(loop)
+        for _ in range(warm):
+            c, _ = loop.tick_batch(c, inp)
+        torch.cuda.synchronize()
+        cnt.update(trials=0, solves=0)
+        reset_counts()
+        syncs0 = loop.solver.host_syncs
+        tms_, iters_, outs_ = [], [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            c, o = loop.tick_batch(c, inp)
+            torch.cuda.synchronize()
+            tms_.append((time.perf_counter() - t0) * 1e3)
+            iters_.append(float(o.iterations.float().mean()))
+            outs_.append(o)
+        launches = read_counts()
+        restore()
+        res = dict(
+            B=Bsz, dtype="float32", options="max_iters=5, shifted warm start, "
+            "walk command vx 0.2, trot WPG", warmup_ticks=warm, ticks=timed,
+            tick_p50_ms=statistics.median(tms_), tick_max_ms=max(tms_),
+            tick_mean_ms=statistics.fmean(tms_),
+            members_per_s=Bsz / statistics.median(tms_) * 1e3,
+            iters_mean=statistics.fmean(iters_),
+            syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
+            trials=cnt["trials"], solves=cnt["solves"], launches=launches,
+            hand_written_launches_per_tick=hand(launches) / timed,
+            finite=all(bool(torch.isfinite(v).all()) for o in outs_
+                       for v in (o.x, o.u0, o.cost))
+            and bool(torch.isfinite(c.sol.X).all()),
+            defect_norm_max=max(float(o.defect_norm.max()) for o in outs_),
+            srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                                  for o in outs_),
+            card=card)
+        return res, loop, c, inp
+
+    guards, restore_guards = guard_plain()
+    fp, floop, fcarry, finp = run_fleet(B, warm=3, timed=20)
+    restore_guards()
+    fp.update({k: v["n"] for k, v in guards.items()})
+    fstep = lambda c: floop.tick_batch(c, finp)[0]
+    fcarry, fp["spans"] = tick_spans(floop.solver, fstep, fcarry, ticks=5)
+    fp["profile"] = profile_ticks(floop.solver, fstep, fcarry, fp["tick_p50_ms"])
+    emit("quad_fleet_path", **fp)
+    fl = fp["launches"]
+    if not fp["finite"]:
+        fail("the quadruped fleet path produced non-finite values")
+    if max(fp["defect_norm_max"], fp["srbd_residual_max"]) > 1e-4:
+        fail("quadruped fleet plans are not dynamically consistent")
+    if min(fl[k] for k in ("srbd_linearize", "riccati_backward_quadruped",
+                           "srbd_trial", "srbd_evaluate")) == 0:
+        fail(f"a kernel was not launched on the quadruped fleet path: {fl}")
+    if not (fl["srbd_linearize"] == fl["riccati_backward_quadruped"]
+            == fl["riccati_backward"]):
+        fail(f"K4 launches differ from K1 launches: {fl}")
+    if fl["srbd_trial"] != fp["trials"]:
+        fail(f"K3 launches do not cover the trials: {fl}")
+    if fl["srbd_evaluate"] != 2 * fp["solves"]:
+        fail(f"srbd_evaluate launches are not two a solve: {fl}")
+    if fp["plain_twin_calls"] or fp["torch_func_calls"] or fp["plain_cost_or_defect_calls"]:
+        fail(f"the quadruped fleet path ran plain twins on the card: {fp}")
+    large, *_ = run_fleet(B_LARGE, warm=1, timed=2)
+    emit("quad_fleet_path_large", **large)
+    if not large["finite"]:
+        fail("B=4096 quadruped ticks produced non-finite values")
+
+    # ---- the kernel rows ----
+    both = lambda k: path_launches[k] + fl[k]
+    by_B = lambda name: {str(b): v["ms"] for b, v in times[name].items()}
+    lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+
+    def row(name, mod, launches, err, tol32, Bt=B, **extra):
+        tt = times[name][Bt]
+        return kernel_row(name, mod, launches, tt["ms"], tt["plain_ms"],
+                          tt["bound_ms"], tt["bound_by"], err, tol32, B=Bt,
+                          shape="quadruped", ms_by_B=by_B(name),
+                          **occ[name], **extra)
+
+    rows_out = [
+        row("srbd_linearize_quadruped", k4, both("srbd_linearize"), k4_err,
+            lin_tol, launches_quad_path=path_launches["srbd_linearize"],
+            launches_quad_fleet_path=fl["srbd_linearize"]),
+        row("srbd_trial_quadruped", k3, both("srbd_trial"), k3_err, trial_tol,
+            ms_4alpha=times["srbd_trial_quadruped"][B]["ms_4alpha"],
+            launches_quad_path=path_launches["srbd_trial"],
+            launches_quad_fleet_path=fl["srbd_trial"]),
+        dict(row("srbd_evaluate_quadruped", k3, both("srbd_evaluate"), ev_err,
+                 trial_tol, pinned=True,
+                 launches_quad_path=path_launches["srbd_evaluate"],
+                 launches_quad_fleet_path=fl["srbd_evaluate"]),
+             replaces=k3.EVALUATE_REPLACES),
+        row("riccati_backward_quadruped", k1, fl["riccati_backward_quadruped"],
+            k1_err, K1_F32_TOL,
+            launches_of="quad_fleet_path (the collapsed sweep of solve_batch)"),
+        dict(row("riccati_backward_quadruped_tassa", k1,
+                 path_launches["riccati_backward_quadruped_tassa"], tassa_err,
+                 K1_F32_TOL, Bt=1, quu_solver="schur",
+                 launches_of="quad_path (MSDDP.solve's Tassa sweep)"),
+             replaces=k1.TASSA_REPLACES),
+    ]
+    emit("quadruped_section", seconds=time.perf_counter() - t_section,
+         card=card)
+    return rows_out
+
+
 def main():
     if not (HERE / "srbd_horizon_tpu_torch" / "__init__.py").exists():
         fail("srbd_horizon_tpu_torch/ not found next to chip_smoke.py; run "
@@ -3270,6 +3786,9 @@ def main():
     # ---------------- phase 10: the LIP paths ----------------
     lip_rows = lip_section(card, dev, sms)
 
+    # ---------------- phase 11: the quadruped trot ----------------
+    quad_rows = quadruped_section(card, dev, sms)
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -3365,7 +3884,7 @@ def main():
                        shared_memory_bytes=t["shared_memory_bytes"],
                        blocks_per_sm=t["blocks_per_sm"]),
             replaces=k1.TASSA_REPLACES))
-    kernels += lip_rows
+    kernels += lip_rows + quad_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ MPC tick (`MPCLoop.tick_batch`), the constrained serving tick
 single-robot API the JAX package's examples call (`MPCLoop.tick` / `run`
 over a `walking_schedule`, `MSDDP.solve`, `ALDDP.solve` /
 `solve_online`), on the SRBD problem and on the LIP (`build_lip_loop`, the
-JAX package's dlip example). Plain tensor code is PyTorch; each solver
+JAX package's dlip example), and on the point-feet quadruped's trot
+(`build_quadruped_loop`, its quadruped example). Plain tensor code is PyTorch; each solver
 iteration runs three hand-written CUDA kernels — a closed-form
 linearization (`csrc/srbd_linearize.cu`, `csrc/isrbd_linearize.cu`,
 `csrc/lip_linearize.cu`), the Riccati sweep
@@ -19,7 +20,8 @@ twins that the CPU tests hold against the JAX package.
 Layout (mirrors the JAX package):
     config        SRBDConfig / DDPOptions (torch dtypes)
     math/         quaternion helpers, batch-first small-matrix algebra
-    models/       Kangaroo constants, SRBD dynamics, the LIP model
+    models/       Kangaroo and quadruped constants, SRBD dynamics, the
+                  LIP model
     ocp/          variable layouts, Euler and RK2 steps, the OCP container
     problems/     build_srbd_problem, build_isrbd_problem, the AL inner
                   problem, build_lip_problem
@@ -45,6 +47,7 @@ from srbd_horizon_tpu_torch.runtime.loop import (
     TickInput,
     TickOutput,
     build_lip_loop,
+    build_quadruped_loop,
     build_srbd_loop,
     standing_schedule,
     walking_schedule,
@@ -55,6 +58,7 @@ from srbd_horizon_tpu_torch.solvers.msddp import MSDDP, DDPSolution
 __all__ = [
     "ALDDP", "ALOptions", "ALState", "DDPOptions", "DDPSolution",
     "LoopCarry", "MPCLoop", "MSDDP", "SRBDConfig", "TickInput", "TickOutput",
-    "build_lip_loop", "build_srbd_loop", "standing_schedule",
+    "build_lip_loop", "build_quadruped_loop", "build_srbd_loop",
+    "standing_schedule",
     "walking_schedule",
 ]

@@ -27,13 +27,14 @@
 // The LIP (nx=30, nu=15, 18 live rows of A−I, 15 of B, 32/18 residual
 // rows, 10 terminal rows) is a smaller instance of the same sweep: a block
 // takes 31,380 B of shared memory for float32 tensors (39,676 B for
-// float64).
+// float64). The point-feet quadruped's SRBD OCP differs from the
+// Kangaroo's only in its 30 residual rows touching x (no relative-velocity
+// rows), ~0.47 MFLOP a member-node.
 //
 // Design, one thread block of 4 warps per member, the node loop inside:
 //  * Compile-time sizes. The kernel is a template on a shape struct (one
-//    per OCP: SrbdShape, IsrbdAlShape, LipShape); every loop bound, tile
-//    count and
-//    shared-memory offset is a constant. The row sets stay a run-time
+//    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape); every loop
+//    bound, tile count and shared-memory offset is a constant. The row sets stay a run-time
 //    int32 table, copied into shared memory once. The wrapper picks the
 //    instantiation from the sizes and refuses any other.
 //  * FP64 tensor cores. Every dense product of a node runs on warps over
@@ -88,11 +89,12 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); eight instantiations are built (`with_instance` below):
+// solve (Solve); ten instantiations are built (`with_instance` below):
 // the collapsed form with the inverse at every shape, and the Tassa form
-// with the inverse at SrbdShape and LipShape (DDPOptions' default), with
-// Cholesky at IsrbdAlShape (the AL solver's inner solve), at SrbdShape and
-// at LipShape. The collapsed ones compile to the code they had.
+// with the inverse at SrbdShape, LipShape and QuadShape (DDPOptions'
+// default), with Cholesky at IsrbdAlShape (the AL solver's inner solve),
+// at SrbdShape and at LipShape. The collapsed ones compile to the code
+// they had.
 //  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
 //    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
 //    pivot, √ of it is L[j][j], and the lanes below divide by it. A pivot
@@ -144,6 +146,12 @@ struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
 struct LipShape {           // build_lip_problem
   static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
                        n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
+};
+
+struct QuadShape {          // build_srbd_problem on the point-feet quadruped
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
+                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
   static constexpr int min_blocks = 4;
 };
 
@@ -1023,6 +1031,8 @@ int with_instance(int inst, Fn fn) {
     case 5: return fn(Inst<LipShape, Form::kCollapsed, Solve::kSchur>{});
     case 6: return fn(Inst<LipShape, Form::kTassa, Solve::kSchur>{});
     case 7: return fn(Inst<LipShape, Form::kTassa, Solve::kCholesky>{});
+    case 8: return fn(Inst<QuadShape, Form::kCollapsed, Solve::kSchur>{});
+    case 9: return fn(Inst<QuadShape, Form::kTassa, Solve::kSchur>{});
     default: return kUnknownShape;
   }
 }

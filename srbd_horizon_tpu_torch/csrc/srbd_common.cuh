@@ -23,16 +23,50 @@ namespace srbd {
 
 using namespace rigid;
 
-// The sizes the SRBD kernels are compiled for: build_srbd_problem with the
-// Kangaroo feet. kernels/linearize.py::KERNEL_SHAPE holds the same numbers
-// (a test reads them from here); on CUDA tensors of any other sizes the
-// wrappers raise. The row counts are those of RiccatiRows.from_ocp (the
-// rows K4 emits and K1 reads).
-struct Shape {
+// The sizes the SRBD kernels are compiled for, one struct a robot:
+// build_srbd_problem with the Kangaroo's line feet and with the quadruped's
+// point feet (models/quadruped.py). kernels/linearize.py::KERNEL_SHAPES
+// holds the same numbers in the same order (a test reads them from here);
+// on CUDA tensors of any other sizes the wrappers raise. The row counts
+// are those of RiccatiRows.from_ocp (the rows K4 emits and K1 reads).
+struct KangarooShape {
   static constexpr int nc = 4, cm = 2, n_legs = 2, nx = 37, nu = 24,
                        n_rho = 73, nt = 15, n_rx = 22, n_ru = 18, n_gx = 34,
                        n_gu = 42;
 };
+
+struct QuadShape {
+  static constexpr int nc = 4, cm = 1, n_legs = 4, nx = 37, nu = 24,
+                       n_rho = 69, nt = 15, n_rx = 22, n_ru = 18, n_gx = 30,
+                       n_gu = 42;
+};
+
+// A launcher's answer for sizes no shape above has.
+constexpr int kUnknownShape = -2;
+
+// fn(S{}) for the shape at `index` in the order above (the order of
+// KERNEL_SHAPES), or kUnknownShape.
+template <class Fn>
+inline int with_shape(int index, Fn fn) {
+  switch (index) {
+    case 0: return fn(KangarooShape{});
+    case 1: return fn(QuadShape{});
+    default: return kUnknownShape;
+  }
+}
+
+// fn(S{}) for the shape of this contact topology (nc contacts of cm
+// points on n_legs legs), or kUnknownShape: the topology fixes nx, nu and
+// n_rho, so it picks the shape.
+template <class Fn>
+inline int with_topology(int nc, int cm, int n_legs, Fn fn) {
+  if (nc == KangarooShape::nc && cm == KangarooShape::cm &&
+      n_legs == KangarooShape::n_legs)
+    return fn(KangarooShape{});
+  if (nc == QuadShape::nc && cm == QuadShape::cm && n_legs == QuadShape::n_legs)
+    return fn(QuadShape{});
+  return kUnknownShape;
+}
 
 // Offsets and counts that follow from a shape.
 template <class S>
@@ -259,7 +293,10 @@ __device__ __forceinline__ T quat_err(int j, const T* o, const T* q) {
 }
 
 // Foot-pair columns of tracking row g ∈ [11, 15): the row is
-// w_rel·((−c[a] + c[b]) − d), a and b offsets into c.
+// w_rel·((−c[a] + c[b]) − d), a and b offsets into c — contacts 0 and cm
+// (rows 11, 12), cm − 1 and nc − 1 (rows 13, 14), as
+// srbd_horizon_tpu/problems/srbd.py:123-124, 163-166 pair them (on point
+// feet: 0 with 1, and 0 with 3).
 template <class S>
 __device__ __forceinline__ void rel_cols(int g, int* a, int* b) {
   const int ax = (g % 2 == 1) ? 1 : 0;              // rows 11, 13: y
@@ -285,23 +322,27 @@ __device__ T tracking_row(int g, const T* x, const T* p, T mt,
   return (mt * k.w_rel) * ((-c[a] + c[b]) - dd);
 }
 
-// Row q of √w_c · stage_eq at (x, p) (stage row n_res + q).
+// Row q of √w_c · stage_eq at (x, p) (stage row n_res + q). Point feet
+// (cm = 1) have no relative-velocity rows (n_rv = 0).
 template <class S, typename T>
 __device__ T eq_row(int q, const T* x, const T* p, const Consts<T>& k) {
   using L = Layout<S>;
   constexpr int nc = S::nc;
-  constexpr int per = 2 * (S::cm - 1);
   const T* cdot = x + L::i_cdot;
+  if constexpr (L::n_rv > 0) {
+    constexpr int per = 2 * (S::cm - 1);
+    if (q < L::n_rv) {
+      const int base = (q / per) * S::cm, rem = q % per;
+      const int i = rem / 2 + 1, ax = rem % 2;
+      return k.wc * (cdot[3 * base + ax] - cdot[3 * (base + i) + ax]);
+    }
+  }
+  q -= L::n_rv;
   T h;
-  if (q < L::n_rv) {
-    const int base = (q / per) * S::cm, rem = q % per;
-    const int i = rem / 2 + 1, ax = rem % 2;
-    h = cdot[3 * base + ax] - cdot[3 * (base + i) + ax];
-  } else if (q < L::n_rv + nc) {
-    q -= L::n_rv;
+  if (q < nc) {
     h = x[L::i_c + 3 * q + 2] - p[kP_cref + q];
   } else {
-    q -= L::n_rv + nc;
+    q -= nc;
     h = p[kP_cref + nc + q / 2] * cdot[3 * (q / 2) + q % 2];
   }
   return k.wc * h;

@@ -26,13 +26,17 @@
 // where Rⱼ = ∂R/∂oⱼ of the homogeneous (not normalized) quat_to_rot, which
 // is linear in o — so the derivative holds for non-unit quaternions too.
 //
-// Compiled for the sizes of `srbd::Shape` only (csrc/srbd_common.cuh): the
-// per-node output sizes, the smem layout and every loop bound are
-// constants; the wrapper refuses other sizes. The row table stays a
-// run-time input.
+// Compiled for the sizes of two shapes (csrc/srbd_common.cuh): the
+// Kangaroo's line feet (`srbd::KangarooShape`) and the quadruped's point
+// feet (`srbd::QuadShape`, no relative-velocity rows: 69 stage rows, 30 of
+// them in Jxp). In each, the per-node output sizes, the smem layout and
+// every loop bound are constants; the contact topology picks the
+// instantiation at launch, and the wrapper refuses other sizes. The row
+// table stays a run-time input.
 //
 // What bounds it on an H100: bytes. A member-node writes 3,622 values
-// (Sx 814, Bs 432, Jxp 1,258, Jup 1,008, ρ 73, d 37) and reads ~120; most
+// (Sx 814, Bs 432, Jxp 1,258, Jup 1,008, ρ 73, d 37; the quadruped 3,470:
+// Jxp 1,110, ρ 69) and reads ~120; most
 // outputs are structural zeros or constants that K1 reads dense. At B=512,
 // ns=20 that is ~148 MB of f32 out and ~5 MB in, ~0.046 ms at 3.35 TB/s,
 // against a few thousand FLOP per member-node (~0.001 ms at 67 TFLOP/s).
@@ -47,12 +51,14 @@
 // Design: a block takes 4 consecutive stage member-nodes, one warp each.
 // In float32 a run of 4 member-nodes that begins at a flat index b·ns+n
 // divisible by 4 starts 16-byte aligned in every stage output (the per-node
-// sizes 814, 432, 1,258, 1,008, 73 and 37 times 4 are multiples of 4), and
+// sizes 814, 432, 1,258, 1,008, 73 and 37, the quadruped's 1,110 and 69,
+// times 4 are multiples of 4), and
 // the 4 nodes' blocks of one output are contiguous; the block composes
 // them in shared memory and streams them out with 16-byte stores (double2
 // in float64), the whole block on each output. It stages one Jacobian
-// block at a time (Sx, Bs, Jxp, Jup in turn through one 20 KB buffer), so
-// a block holds ~28 KB of shared memory in float32 and seven blocks share
+// block at a time (Sx, Bs, Jxp, Jup in turn through one 20 KB buffer; the
+// quadruped's Jxp 17.8 KB), so a block holds ~28 KB of shared memory in
+// float32 (~26 KB, the quadruped) and seven blocks share
 // an SM: while some compute their nodes' scalars, others stream. A staged
 // block is filled with zeros (16-byte stores), then each warp writes its
 // node's nonzeros by the row kinds the block resolved once from the row
@@ -64,7 +70,8 @@
 // (csrc/srbd_common.cuh, shared with K3); ∂ω̇ goes one column a lane,
 // except the four o columns, whose ∂Iwⱼ rows go to twelve lanes (a column
 // on three lanes, a row of ∂Iwⱼ each) that trade their rows by shuffles;
-// then the 73 residual rows and the defects, staged with the Jacobians.
+// then the 73 (69) residual rows and the defects, staged with the
+// Jacobians.
 // The terminal pairs rt, Jt run in blocks of their own after the stage
 // blocks, one warp a member.
 //
@@ -75,36 +82,10 @@
 
 namespace {
 
-using S = srbd::Shape;
-using L = srbd::Layout<S>;
+using srbd::kUnknownShape;
 constexpr int kWarps = 4;                // member-nodes (warps) a stage block
-constexpr int kUnknownShape = -2;        // the sizes are not srbd::Shape's
-constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho;
 
-// per-node sizes of the four Jacobian blocks; the block stages one of them
-// at a time for its kWarps nodes (back to back, 16-byte aligned)
-constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu, kJxp = S::n_gx * nx,
-              kJup = S::n_gu * nu;
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int kStage = kWarps * cmax(cmax(kSx, kBs), cmax(kJxp, kJup));
-// then ρ and d of the kWarps nodes, composed during the prologue
-constexpr int oRho = kStage, oD = oRho + kWarps * nr, oEnd = oD + kWarps * nx;
-static_assert(kStage % 4 == 0 && oD % 4 == 0 && oEnd % 4 == 0 &&
-                  (kWarps * kSx) % 4 == 0 && (kWarps * kBs) % 4 == 0 &&
-                  (kWarps * kJxp) % 4 == 0 && (kWarps * kJup) % 4 == 0,
-              "16-byte alignment of the staged outputs");
-
-// a warp's scratch: x, X[n+1], u, ẋ, params, ∂ω̇ columns (3 a column)
-constexpr int wX = 0, wXn = wX + nx, wU = wXn + nx, wXd = wU + nu,
-              wP = wXd + nx, wW = wP + L::pw, wSize = wW + 3 * (nx + nu) + 1;
-constexpr int kRows = S::n_rx + S::n_ru + S::n_gx + S::n_gu;
-
-// shared memory: staged outputs, warp scratch (both in T), then the row
-// kinds (2 ints a row) and the dense-row slots (3 per Jacobian block)
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (oEnd + kWarps * wSize) + sizeof(int) * (2 * kRows + 12);
-}
 
 // Row kinds of the four Jacobian blocks (resolved once a block from the row
 // table): info0 = kind | value << 8, info1 = a | b << 16.
@@ -117,12 +98,45 @@ enum Kind : int {
   kDense,      // row a of ∂ω̇ (dense, written by the lanes over columns)
   kRdd         // row a of r̈: 1/m at each force column of axis a
 };
-// values of kOne/kTwo entries
+// values of kOne/kTwo entries: vCs + q is √w_c · cdot_switch[q], and
+// K4<S>::vFsw + q (= vCs + nc + q) is w_fswitch · (1 − cdot_switch[q])
 enum : int {
-  vOne = 0, vMtWr, vMtWrdot, vMtWw, vWc, vWqddot, vWminf, vMtWrel,
-  vCs,                 // + q: √w_c · cdot_switch[q]
-  vFsw = vCs + S::nc   // + q: w_fswitch · (1 − cdot_switch[q])
+  vOne = 0, vMtWr, vMtWrdot, vMtWw, vWc, vWqddot, vWminf, vMtWrel, vCs
 };
+
+// K4's constants at shape S: the per-node sizes of the four Jacobian
+// blocks (the block stages one of them at a time for its kWarps nodes,
+// back to back, 16-byte aligned), then ρ and d of the kWarps nodes,
+// composed during the prologue; a warp's scratch (x, X[n+1], u, ẋ,
+// params, ∂ω̇ columns, 3 a column); the rows of the four blocks.
+template <class S>
+struct K4 {
+  using L = srbd::Layout<S>;
+  static constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho;
+  static constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu,
+                       kJxp = S::n_gx * nx, kJup = S::n_gu * nu;
+  static constexpr int kStage = kWarps * cmax(cmax(kSx, kBs), cmax(kJxp, kJup));
+  static constexpr int oRho = kStage, oD = oRho + kWarps * nr,
+                       oEnd = oD + kWarps * nx;
+  static_assert(kStage % 4 == 0 && oD % 4 == 0 && oEnd % 4 == 0 &&
+                    (kWarps * kSx) % 4 == 0 && (kWarps * kBs) % 4 == 0 &&
+                    (kWarps * kJxp) % 4 == 0 && (kWarps * kJup) % 4 == 0,
+                "16-byte alignment of the staged outputs");
+  static constexpr int wX = 0, wXn = wX + nx, wU = wXn + nx, wXd = wU + nu,
+                       wP = wXd + nx, wW = wP + L::pw,
+                       wSize = wW + 3 * (nx + nu) + 1;
+  static constexpr int kRows = S::n_rx + S::n_ru + S::n_gx + S::n_gu;
+  static constexpr int vFsw = vCs + S::nc;   // the first fswitch value
+};
+
+// shared memory: staged outputs, warp scratch (both in T), then the row
+// kinds (2 ints a row) and the dense-row slots (3 per Jacobian block)
+template <class S, typename T>
+constexpr size_t smem_bytes() {
+  using C = K4<S>;
+  return sizeof(T) * (C::oEnd + kWarps * C::wSize) +
+         sizeof(int) * (2 * C::kRows + 12);
+}
 
 __device__ __forceinline__ int2 kind(int k, int value = 0, int a = 0,
                                      int b = 0) {
@@ -130,7 +144,9 @@ __device__ __forceinline__ int2 kind(int k, int value = 0, int a = 0,
 }
 
 // Row r of block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup).
+template <class S>
 __device__ int2 resolve(int blk, int r) {
+  using L = srbd::Layout<S>;
   constexpr int nc = S::nc;
   if (blk == 0) {                                  // (∂ẋ/∂x)[r]
     if (r < 3) return kind(kOne, vOne, L::i_rdot + r);
@@ -159,12 +175,14 @@ __device__ int2 resolve(int blk, int r) {
     if (r >= 18 && r < 21) return kind(kDense, 0, r - 18);
     if (r < L::n_res) return kind(kZero);
     int q = r - L::n_res;                          // √w_c · ∂stage_eq/∂x
-    constexpr int per = 2 * (S::cm - 1);
-    if (q < L::n_rv) {
-      const int base = (q / per) * S::cm, rem = q % per;
-      const int i = rem / 2 + 1, ax = rem % 2;
-      return kind(kTwo, vWc, L::i_cdot + 3 * (base + i) + ax,
-                  L::i_cdot + 3 * base + ax);
+    if constexpr (L::n_rv > 0) {                   // none on point feet
+      constexpr int per = 2 * (S::cm - 1);
+      if (q < L::n_rv) {
+        const int base = (q / per) * S::cm, rem = q % per;
+        const int i = rem / 2 + 1, ax = rem % 2;
+        return kind(kTwo, vWc, L::i_cdot + 3 * (base + i) + ax,
+                    L::i_cdot + 3 * base + ax);
+      }
     }
     q -= L::n_rv;
     if (q < nc) return kind(kOne, vWc, L::i_c + 3 * q + 2);
@@ -185,12 +203,12 @@ __device__ int2 resolve(int blk, int r) {
   }
   if (r < L::n_res) {
     const int q = r - 21 - 6 * nc;
-    return kind(kOne, vFsw + q / 3, 6 * (q / 3) + 3 + q % 3);
+    return kind(kOne, K4<S>::vFsw + q / 3, 6 * (q / 3) + 3 + q % 3);
   }
   return kind(kZero);
 }
 
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T entry_value(int v, const T* p,
                                          const srbd::Consts<T>& k) {
   const T mt = p[srbd::kP_mt];
@@ -205,8 +223,8 @@ __device__ __forceinline__ T entry_value(int v, const T* p,
     case vMtWrel: return mt * k.w_rel;
     default: break;
   }
-  if (v < vFsw) return k.wc * p[srbd::kP_cref + S::nc + (v - vCs)];
-  return k.w_fswitch * (T(1) - p[srbd::kP_cref + S::nc + (v - vFsw)]);
+  if (v < K4<S>::vFsw) return k.wc * p[srbd::kP_cref + S::nc + (v - vCs)];
+  return k.w_fswitch * (T(1) - p[srbd::kP_cref + S::nc + (v - K4<S>::vFsw)]);
 }
 
 // Row i, column j of ∂(o ⊗ q)/∂o = [[q_w I − [q_v]ₓ, q_v], [−q_vᵀ, q_w]].
@@ -222,20 +240,21 @@ __device__ __forceinline__ T quat_err_jac(int i, int j, const T* q) {
 // Lane `lane` writes the nonzeros of the sparse rows lane, lane+32, … of
 // one node's block `dst` (rows of `width` entries, zero-filled before);
 // `scale` multiplies every entry (dt for Sx and Bs, 1 for Jxp and Jup).
-template <typename T>
+template <class S, typename T>
 __device__ void emit_sparse(const int* info, int n_rows, int width, T scale,
                             T rdd, const T* x, const T* p,
                             const srbd::Consts<T>& k, int lane, T* dst) {
+  using L = srbd::Layout<S>;
   for (int i = lane; i < n_rows; i += 32) {
     const int i0 = info[2 * i], i1 = info[2 * i + 1];
     const int kd = i0 & 0xff, v = i0 >> 8, a = i1 & 0xffff, b = i1 >> 16;
     T* row = dst + i * width;
     switch (kd) {
       case kOne:
-        row[a] = scale * entry_value(v, p, k);
+        row[a] = scale * entry_value<S>(v, p, k);
         break;
       case kTwo: {
-        const T e = entry_value(v, p, k);
+        const T e = entry_value<S>(v, p, k);
         row[a] = -e;
         row[b] = e;
         break;
@@ -266,9 +285,10 @@ __device__ void emit_sparse(const int* info, int n_rows, int width, T scale,
 // ∂b/∂(x, u)[col] for every column but the four o columns (col 3..6 are
 // formed apart): the right-hand side of Iw ω̇ = b differentiated along
 // column col of (x, u); zero where b does not depend on it.
-template <typename T>
+template <class S, typename T>
 __device__ void rhs_column(int col, const T* x, const T* u,
                            const srbd::Geometry<T>& g, T* m) {
+  using L = srbd::Layout<S>;
   const T* w = x + L::i_w;
   m[0] = m[1] = m[2] = T(0);
   if (col < 3) {                                   // r
@@ -291,8 +311,8 @@ __device__ void rhs_column(int col, const T* x, const T* u,
     m[0] -= w[1] * v2 - w[2] * v1;
     m[1] -= w[2] * v0 - w[0] * v2;
     m[2] -= w[0] * v1 - w[1] * v0;
-  } else if (col >= nx && (col - nx) % 6 >= 3) {   // fₖ
-    const int q = (col - nx) / 6, j = (col - nx) % 6 - 3;
+  } else if (col >= S::nx && (col - S::nx) % 6 >= 3) {   // fₖ
+    const int q = (col - S::nx) / 6, j = (col - S::nx) % 6 - 3;
     const T* c = x + L::i_c + 3 * q;
     const T cr[3] = {c[0] - x[0], c[1] - x[1], c[2] - x[2]};
     rigid::skew_col(cr, j, m);
@@ -301,14 +321,17 @@ __device__ void rhs_column(int col, const T* x, const T* u,
 
 // The scalars of one stage member-node, by its warp: ẋ (into xd), ∂ω̇ (into
 // W), and its ρ and d into the block's staged outputs (slot w).
-template <typename T>
+template <class S, typename T>
 __device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
                               int lane) {
-  const T* x = sw + wX;
-  const T* u = sw + wU;
-  T* xd = sw + wXd;
-  const T* p = sw + wP;
-  T* W = sw + wW;
+  using C = K4<S>;
+  using L = srbd::Layout<S>;
+  constexpr int nx = C::nx, nu = C::nu, nr = C::nr;
+  const T* x = sw + C::wX;
+  const T* u = sw + C::wU;
+  T* xd = sw + C::wXd;
+  const T* p = sw + C::wP;
+  T* W = sw + C::wW;
   const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
   const srbd::Rigid<T> rig = srbd::rigid_rates<S>(x, u, k, g, lane);
   for (int j = lane; j < nx; j += 32) xd[j] = srbd::xdot_row<S>(j, x, u, rig);
@@ -365,32 +388,33 @@ __device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
   for (int col = lane; col < nx + nu; col += 32) {
     if (col >= 3 && col < 7) continue;
     T m[3];
-    rhs_column(col, x, u, g, m);
+    rhs_column<S>(col, x, u, g, m);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       W[col * 3 + i] =
           (g.C[i * 3] * m[0] + g.C[i * 3 + 1] * m[1] + g.C[i * 3 + 2] * m[2]) / g.det;
   }
   __syncwarp();                                     // xd for the rows
-  T* rho = out + oRho + w * nr;
+  T* rho = out + C::oRho + w * nr;
 #pragma unroll
   for (int r = lane; r < nr; r += 32)
     rho[r] = srbd::stage_rho_row<S>(r, x, u, xd, p, k);
-  const T* xnext = sw + wXn;
-  T* dd = out + oD + w * nx;
+  const T* xnext = sw + C::wXn;
+  T* dd = out + C::oD + w * nx;
   for (int j = lane; j < nx; j += 32) dd[j] = (x[j] + k.dt * xd[j]) - xnext[j];
 }
 
 // Jacobian block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup) of one member-node into
 // `dst` (zero-filled): its sparse rows one lane a row, its dense ∂ω̇ rows
 // one row at a time with the lanes over the columns.
-template <typename T>
+template <class S, typename T>
 __device__ void emit_block(int blk, const T* sw, const int* info,
                            const int* dslot, const srbd::Consts<T>& k,
                            int lane, T* dst) {
-  const T* x = sw + wX;
-  const T* p = sw + wP;
-  const T* W = sw + wW;
+  using C = K4<S>;
+  const T* x = sw + C::wX;
+  const T* p = sw + C::wP;
+  const T* W = sw + C::wW;
   const T inv_m = T(1) / k.m_scaled;
   const int first = blk == 0 ? 0
                     : blk == 1 ? S::n_rx
@@ -398,22 +422,23 @@ __device__ void emit_block(int blk, const T* sw, const int* info,
   const int rows = blk == 0 ? S::n_rx : blk == 1 ? S::n_ru
                    : blk == 2 ? S::n_gx : S::n_gu;
   const bool xcols = blk == 0 || blk == 2;        // Sx, Jxp: nx columns
-  const int width = xcols ? nx : nu;
+  const int width = xcols ? C::nx : C::nu;
   const T scale = blk < 2 ? k.dt : T(1);
   const T rdd = blk == 1 ? k.dt * inv_m : k.w_qddot * inv_m;
-  emit_sparse(info + 2 * first, rows, width, scale, rdd, x, p, k, lane, dst);
+  emit_sparse<S>(info + 2 * first, rows, width, scale, rdd, x, p, k, lane, dst);
   const T wscale = blk < 2 ? k.dt : k.w_qddot;    // dt·∂ω̇ or w_qddot·∂ω̇
   for (int s = 0; s < 3; ++s) {
     const int i = dslot[3 * blk + s];
     if (i < 0) continue;
     for (int c = lane; c < width; c += 32)
-      dst[i * width + c] = wscale * W[(xcols ? c : nx + c) * 3 + s];
+      dst[i * width + c] = wscale * W[(xcols ? c : C::nx + c) * 3 + s];
   }
 }
 
 // Row g < 15, column col of ∂rt/∂x (the tracking rows with mask 1).
-template <typename T>
+template <class S, typename T>
 __device__ T terminal_jac(int g, int col, const T* p, const srbd::Consts<T>& k) {
+  using L = srbd::Layout<S>;
   if (g == 0) return col == 2 ? k.w_r : T(0);
   if (g < 5)
     return (col >= 3 && col < 7)
@@ -465,7 +490,7 @@ __device__ void stream_out(const T* src, T* __restrict__ dst, int count) {
     dst[i] = src[i];
 }
 
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
 srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       srbd::Params<T> P, const int* __restrict__ table,
@@ -474,12 +499,14 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       T* __restrict__ Jxp, T* __restrict__ Jup,
                       T* __restrict__ rho, T* __restrict__ dfx,
                       T* __restrict__ rt, T* __restrict__ Jt) {
+  using C = K4<S>;
+  constexpr int nx = C::nx, nu = C::nu, nr = C::nr;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* out = reinterpret_cast<T*>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* sw = out + oEnd + warp * wSize;
-  T* x = sw + wX;
-  T* p = sw + wP;
+  T* sw = out + C::oEnd + warp * C::wSize;
+  T* x = sw + C::wX;
+  T* p = sw + C::wP;
 
   if (static_cast<int>(blockIdx.x) >= n_stage) {   // the terminal pairs
     const long long bm =
@@ -493,18 +520,18 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
     if (lane < S::nt) rt[b * S::nt + lane] = srbd::tracking_row<S>(lane, x, p, T(1), k);
     T* Jo = Jt + b * S::nt * nx;
     for (int g = 0; g < S::nt; ++g)
-      for (int c = lane; c < nx; c += 32) Jo[g * nx + c] = terminal_jac(g, c, p, k);
+      for (int c = lane; c < nx; c += 32) Jo[g * nx + c] = terminal_jac<S>(g, c, p, k);
     return;
   }
 
-  int* info = reinterpret_cast<int*>(out + oEnd + kWarps * wSize);
-  int* dslot = info + 2 * kRows;
+  int* info = reinterpret_cast<int*>(out + C::oEnd + kWarps * C::wSize);
+  int* dslot = info + 2 * C::kRows;
   const long long q0 = static_cast<long long>(blockIdx.x) * kWarps;
   const long long total = static_cast<long long>(B) * ns;
   const int n_valid = total - q0 < kWarps ? static_cast<int>(total - q0) : kWarps;
   const bool live = warp < n_valid;                 // warp-uniform
   if (threadIdx.x < 12) dslot[threadIdx.x] = -1;
-  zero_fill(out, kWarps * kSx);
+  zero_fill(out, kWarps * C::kSx);
   if (live) {
     const long long q = q0 + warp;
     const size_t b = q / ns;
@@ -512,13 +539,13 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
     const size_t row = b * (ns + 1) + n;
     for (int j = lane; j < nx; j += 32) {
       x[j] = X[row * nx + j];
-      sw[wXn + j] = X[(row + 1) * nx + j];
+      sw[C::wXn + j] = X[(row + 1) * nx + j];
     }
-    if (lane < nu) sw[wU + lane] = U[(b * ns + n) * nu + lane];
+    if (lane < nu) sw[C::wU + lane] = U[(b * ns + n) * nu + lane];
     srbd::load_params<S>(P, row, lane, p);
   }
   __syncthreads();                                  // dslot cleared, loads
-  for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
+  for (int i = threadIdx.x; i < C::kRows; i += blockDim.x) {
     const int blk = i < S::n_rx ? 0
                     : i < S::n_rx + S::n_ru ? 1
                     : i < S::n_rx + S::n_ru + S::n_gx ? 2 : 3;
@@ -526,53 +553,57 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       : blk == 1 ? S::n_rx
                       : blk == 2 ? S::n_rx + S::n_ru
                                  : S::n_rx + S::n_ru + S::n_gx;
-    const int2 kd = resolve(blk, table[i]);
+    const int2 kd = resolve<S>(blk, table[i]);
     info[2 * i] = kd.x;
     info[2 * i + 1] = kd.y;
     if ((kd.x & 0xff) == kDense) dslot[3 * blk + (kd.y & 0xffff)] = i - first;
   }
-  if (live) stage_scalars(sw, out, warp, k, lane);
+  if (live) stage_scalars<S>(sw, out, warp, k, lane);
   __syncthreads();                                  // kinds, the scalars
   T* const dsts[4] = {Sx, Bs, Jxp, Jup};
-  const int per[4] = {kSx, kBs, kJxp, kJup};
+  const int per[4] = {C::kSx, C::kBs, C::kJxp, C::kJup};
 #pragma unroll
   for (int blk = 0; blk < 4; ++blk) {
     if (blk > 0) {
       zero_fill(out, kWarps * per[blk]);
       __syncthreads();
     }
-    if (live) emit_block(blk, sw, info, dslot, k, lane, out + warp * per[blk]);
+    if (live) emit_block<S>(blk, sw, info, dslot, k, lane, out + warp * per[blk]);
     __syncthreads();
     stream_out(out, dsts[blk] + q0 * per[blk], n_valid * per[blk]);
     __syncthreads();                                // before the next fill
   }
-  stream_out(out + oRho, rho + q0 * nr, n_valid * nr);
-  stream_out(out + oD, dfx + q0 * nx, n_valid * nx);
+  stream_out(out + C::oRho, rho + q0 * nr, n_valid * nr);
+  stream_out(out + C::oD, dfx + q0 * nx, n_valid * nx);
 }
 
-template <typename T>
+// Let the kernel at (S, T) take its dynamic shared memory (above 48 KB
+// only after the attribute is raised).
+template <class S, typename T>
+cudaError_t allow_smem() {
+  const size_t bytes = smem_bytes<S, T>();
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(srbd_linearize_kernel<S, T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <class S, typename T>
 int launch(const void* X, const void* U, const void* const* params,
-           const void* table, int B, int ns, int nc, int cm, int n_legs,
-           int n_rx, int n_ru, int n_gx, int n_gu, const double* scalars,
-           void* Sx, void* Bs, void* Jxp, void* Jup, void* rho, void* d,
-           void* rt, void* Jt, void* stream) {
-  if (nc != S::nc || cm != S::cm || n_legs != S::n_legs || n_rx != S::n_rx ||
-      n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
+           const void* table, int B, int ns, int n_rx, int n_ru, int n_gx,
+           int n_gu, const double* scalars, void* Sx, void* Bs, void* Jxp,
+           void* Jup, void* rho, void* d, void* rt, void* Jt, void* stream) {
+  if (n_rx != S::n_rx || n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
     return kUnknownShape;
   if (B == 0) return 0;
   const long long stage_nodes = static_cast<long long>(B) * ns;
   const long long n_stage = (stage_nodes + kWarps - 1) / kWarps;
   const long long n_term = (B + kWarps - 1) / kWarps;
-  const size_t bytes = smem_bytes<T>();
-  auto kernel = srbd_linearize_kernel<T>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<static_cast<unsigned>(n_stage + n_term), 32 * kWarps, bytes,
-           static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t e = allow_smem<S, T>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  srbd_linearize_kernel<S, T><<<static_cast<unsigned>(n_stage + n_term),
+                                32 * kWarps, smem_bytes<S, T>(),
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
       srbd::make_params<T>(params), static_cast<const int*>(table), B, ns,
       static_cast<int>(n_stage), srbd::make_consts<T>(scalars),
@@ -582,8 +613,29 @@ int launch(const void* X, const void* U, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's occupancy at (S, T), into out[0..3]: blocks resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shared memory bytes a
+// block, registers a thread and local (spilled) bytes a thread
+// (cudaFuncGetAttributes).
+template <class S, typename T>
+int occupancy(int* out) {
+  cudaError_t e = allow_smem<S, T>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, srbd_linearize_kernel<S, T>, 32 * kWarps, smem_bytes<S, T>());
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, srbd_linearize_kernel<S, T>);
+  out[1] = static_cast<int>(smem_bytes<S, T>());
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
+// The contact topology (nc, cm, n_legs) picks the compiled shape; the row
+// counts must be that shape's, or the call returns kUnknownShape and
+// launches nothing.
 #define LINEARIZE_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* X, const void* U,                           \
                       const void* const* params, const void* table, int B,    \
@@ -591,10 +643,23 @@ int launch(const void* X, const void* U, const void* const* params,
                       int n_gx, int n_gu, const double* scalars, void* Sx,    \
                       void* Bs, void* Jxp, void* Jup, void* rho, void* d,     \
                       void* rt, void* Jt, void* stream) {                     \
-    return launch<T>(X, U, params, table, B, ns, nc, cm, n_legs, n_rx, n_ru,  \
-                     n_gx, n_gu, scalars, Sx, Bs, Jxp, Jup, rho, d, rt, Jt,   \
-                     stream);                                                 \
+    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+      return launch<decltype(s), T>(X, U, params, table, B, ns, n_rx, n_ru,   \
+                                    n_gx, n_gu, scalars, Sx, Bs, Jxp, Jup,    \
+                                    rho, d, rt, Jt, stream);                  \
+    });                                                                       \
   }
 
 LINEARIZE_ENTRY(srbd_linearize_f32, float)
 LINEARIZE_ENTRY(srbd_linearize_f64, double)
+
+// K4's occupancy for the shape at index `shape` (kernels/linearize.py::
+// KERNEL_SHAPES order) and float32 (f64 = 0) or float64 tensors: out[0]
+// blocks an SM, out[1] shared memory bytes a block, out[2] registers a
+// thread, out[3] local bytes a thread.
+extern "C" int srbd_linearize_occupancy(int shape, int f64, int* out) {
+  return srbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? occupancy<S, double>(out) : occupancy<S, float>(out);
+  });
+}

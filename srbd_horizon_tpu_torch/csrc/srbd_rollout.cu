@@ -30,9 +30,12 @@
 //     defect_max = maxₙ,ᵢ |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // Plain twin: `kernels/rollout.py::srbd_evaluate_plain`.
 //
-// Both are compiled for the sizes of `srbd::Shape` only, so every loop over
-// rows and columns has a constant trip count and every offset is a
-// constant; the wrappers refuse other sizes.
+// Both are compiled for two shapes (csrc/srbd_common.cuh): the Kangaroo's
+// line feet (`srbd::KangarooShape`, 73 stage rows) and the quadruped's
+// point feet (`srbd::QuadShape`, 69: no relative-velocity rows). In each,
+// every loop over rows and columns has a constant trip count and every
+// offset is a constant; the contact topology picks the instantiation at
+// launch, and the wrappers refuse other sizes.
 //
 // What bounds K3 on an H100: one (member, α) reads the gains, the plan, the
 // defects and 20 parameter values per node, ~1.0k values per node (4 KB in
@@ -62,7 +65,7 @@
 // only and run beside K(x̂−X); the contact forces and torques are summed
 // one contact a lane with xor shuffles — so no lane carries them alone and
 // no shared-memory round trip or warp barrier sits in the chain for them.
-// At each node the lanes evaluate the 73 residual rows in two passes laid
+// At each node the lanes evaluate the 73 (69) residual rows in two passes laid
 // out so that the lanes of a pass take few distinct paths
 // (`stage_sq_lane`), and keep their squares in a register; the terminal
 // rows follow the loop, and one warp reduction gives the cost. The sum is
@@ -104,11 +107,9 @@
 
 namespace {
 
-using S = srbd::Shape;
-using L = srbd::Layout<S>;
+using srbd::kUnknownShape;
 constexpr int kWarps = 4;
 constexpr int kStages = 3;           // node buffers a warp: the ring's depth
-constexpr int kUnknownShape = -2;    // the sizes are not srbd::Shape's
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -116,19 +117,19 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 
 // One node's inputs in a warp's buffer. K, U and k start 16-byte aligned
 // (nu·nx and nu are multiples of 4).
-template <typename T>
+template <class S, typename T>
 struct NodeBuf {
   static constexpr int vec = 16 / static_cast<int>(sizeof(T));
   static constexpr int K = 0, U = S::nu * S::nx, k = U + S::nu,
                        X = k + S::nu, d = X + S::nx, p = d + S::nx;
-  static constexpr int size = round_up(p + L::pw, vec);
+  static constexpr int size = round_up(p + srbd::Layout<S>::pw, vec);
   static_assert(U % vec == 0 && S::nu % vec == 0, "16-byte copies");
 };
 
 // A warp's shared memory: kStages node buffers, then x̂, x̂ − X and u.
-template <typename T>
+template <class S, typename T>
 struct TrialWarp {
-  using NB = NodeBuf<T>;
+  using NB = NodeBuf<S, T>;
   static constexpr int xh = kStages * NB::size, dx = xh + S::nx,
                        u = dx + S::nx;
   static constexpr int size = round_up(u + S::nu, NB::vec);
@@ -143,10 +144,10 @@ struct ParamLane {
   int stride;
 };
 
-template <typename T>
+template <class S, typename T>
 __device__ ParamLane<T> param_lane(const srbd::Params<T>& P, size_t b, int ns,
                                    int lane) {
-  const int e = lane < L::pw ? lane : 0;
+  const int e = lane < srbd::Layout<S>::pw ? lane : 0;
   const T* first = srbd::param_src<S>(P, b * (ns + 1), e);
   return {first, static_cast<int>(srbd::param_src<S>(P, b * (ns + 1) + 1, e) - first)};
 }
@@ -154,16 +155,16 @@ __device__ ParamLane<T> param_lane(const srbd::Params<T>& P, size_t b, int ns,
 // The lanes of one warp start the copies of node n (n < ns) into `buf`, or
 // of the terminal parameters (n == ns), and close them into one group; past
 // the terminal node (n > ns) the group is empty.
-template <typename T>
+template <class S, typename T>
 __device__ void issue_node(T* buf, const T* __restrict__ Ks,
                            const T* __restrict__ U, const T* __restrict__ ks,
                            const T* __restrict__ X, const T* __restrict__ d,
                            const ParamLane<T>& pl, size_t b, int n, int ns,
                            int lane) {
-  using NB = NodeBuf<T>;
+  using NB = NodeBuf<S, T>;
   constexpr int vec = NB::vec;
   const size_t row = b * (ns + 1) + n;
-  if (lane < L::pw && n <= ns)
+  if (lane < srbd::Layout<S>::pw && n <= ns)
     cp_async<sizeof(T)>(buf + NB::p + lane,
                         pl.base + static_cast<size_t>(n) * pl.stride);
   if (n < ns) {
@@ -185,7 +186,7 @@ __device__ void issue_node(T* buf, const T* __restrict__ Ks,
   cp_async_commit();
 }
 
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
 srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
                   const T* __restrict__ U, const T* __restrict__ ks,
@@ -197,8 +198,8 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
                   T alpha_min, T* __restrict__ Xn, T* __restrict__ Un,
                   T* __restrict__ cost_out, T* __restrict__ merit_out,
                   bool* __restrict__ ok_out) {
-  using NB = NodeBuf<T>;
-  using W = TrialWarp<T>;
+  using NB = NodeBuf<S, T>;
+  using W = TrialWarp<S, T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -210,9 +211,9 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
   T* xh = sw + W::xh;
   T* dx = sw + W::dx;
   T* u = sw + W::u;
-  const ParamLane<T> pl = param_lane(P, b, ns, lane);
+  const ParamLane<T> pl = param_lane<S>(P, b, ns, lane);
   for (int n = 0; n < kStages - 1; ++n)
-    issue_node(sw + n * NB::size, Ks, U, ks, X, d, pl, b, n, ns, lane);
+    issue_node<S>(sw + n * NB::size, Ks, U, ks, X, d, pl, b, n, ns, lane);
   const T alpha = alphas[a];
   const T om = T(1) - alpha;
   for (int j = lane; j < S::nx; j += 32) xh[j] = x0[b * S::nx + j];
@@ -223,8 +224,8 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     // node n + kStages − 1 (the terminal parameters after the last stage
     // node) streams into the ring while node n computes
     const int ahead = n + kStages - 1;
-    issue_node(sw + (ahead % kStages) * NB::size, Ks, U, ks, X, d, pl, b,
-               ahead, ns, lane);
+    issue_node<S>(sw + (ahead % kStages) * NB::size, Ks, U, ks, X, d, pl, b,
+                  ahead, ns, lane);
     cp_async_wait_group<kStages - 1>();            // node n has arrived
     __syncwarp();
     T* Xo = Xn + ((a * B + b) * (ns + 1) + n) * S::nx;
@@ -310,58 +311,68 @@ struct EvalMinBlocks {
 };
 
 // One node's record in shared memory: x, u and the packed parameter row.
+template <class S>
 struct EvalNode {
-  static constexpr int x = 0, u = S::nx, p = u + S::nu, size = p + L::pw;
+  static constexpr int x = 0, u = S::nx, p = u + S::nu,
+                       size = p + srbd::Layout<S>::pw;
 };
 // A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).
 constexpr int kRates = 10;
 
 // Width of parameter tensor t (srbd::kParams of them, in the order of
 // srbd::make_params) and its offset in the packed parameter row.
+template <class S>
 __host__ __device__ constexpr int param_dim(int t) {
   return t < 2 ? 1 : t == 2 ? 4 : t < 5 ? 3 : S::nc;
 }
 
+template <class S>
 __host__ __device__ constexpr int param_off(int t) {
   int o = 0;
-  for (int i = 0; i < t; ++i) o += param_dim(i);
+  for (int i = 0; i < t; ++i) o += param_dim<S>(i);
   return o;
 }
-static_assert(param_off(srbd::kParams) == L::pw &&
-                  param_off(3) == srbd::kP_rdot && param_off(5) == srbd::kP_cref,
+
+template <class S>
+constexpr bool packed_row_ok() {
+  return param_off<S>(srbd::kParams) == srbd::Layout<S>::pw &&
+         param_off<S>(3) == srbd::kP_rdot && param_off<S>(5) == srbd::kP_cref;
+}
+static_assert(packed_row_ok<srbd::KangarooShape>() &&
+                  packed_row_ok<srbd::QuadShape>(),
               "packed parameter row");
 
 // The records, the stage nodes' rates, then the node sums and maxima.
-template <typename T>
+template <class S, typename T>
 size_t evaluate_smem_bytes(int ns) {
-  return sizeof(T) * ((ns + 1) * (EvalNode::size + 2) + ns * kRates);
+  return sizeof(T) * ((ns + 1) * (EvalNode<S>::size + 2) + ns * kRates);
 }
 
 // The block stages parameter tensors t … of the member's ns1 nodes (`row0`
 // is its first row, b·ns1).
-template <int t, typename T>
+template <class S, int t, typename T>
 __device__ __forceinline__ void stage_params(T* s, const srbd::Params<T>& P,
                                              size_t row0, int ns1, int tid) {
   if constexpr (t < srbd::kParams) {
-    constexpr int dim = param_dim(t);
-    cp_async_rows<T, dim, kEvalThreads>(s + EvalNode::p + param_off(t),
-                                        EvalNode::size, P.p[t] + row0 * dim,
+    constexpr int dim = param_dim<S>(t);
+    cp_async_rows<T, dim, kEvalThreads>(s + EvalNode<S>::p + param_off<S>(t),
+                                        EvalNode<S>::size, P.p[t] + row0 * dim,
                                         0, ns1, tid);
-    stage_params<t + 1>(s, P, row0, ns1, tid);
+    stage_params<S, t + 1>(s, P, row0, ns1, tid);
   }
 }
 
 // The block starts the copies of member b's nodes into their records in
 // two cp.async groups: x (node 0's from x0, rows x0_stride apart, when it
 // is given) and u, then the parameter rows.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
                                              const T* __restrict__ x0,
                                              int x0_stride,
                                              const T* __restrict__ U,
                                              const srbd::Params<T>& P,
                                              size_t b, int ns, int tid) {
-  using EN = EvalNode;
+  using EN = EvalNode<S>;
   const size_t row0 = b * (ns + 1);
   int from = 0;
   if (x0 != nullptr) {
@@ -374,7 +385,7 @@ __device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
   cp_async_rows<T, S::nu, kEvalThreads>(s + EN::u, EN::size,
                                         U + b * ns * S::nu, 0, ns, tid);
   cp_async_commit();
-  stage_params<0>(s, P, row0, ns + 1, tid);
+  stage_params<S, 0>(s, P, row0, ns + 1, tid);
   cp_async_commit();
 }
 
@@ -382,9 +393,10 @@ __device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
 // (srbd::geometry and the rows of srbd::rigid_rates, the contact sums in a
 // loop) into `out` — r̈, ω̇, ȯ. One warp thus runs the geometry of 32 nodes
 // in the instructions of one, where every node's warp ran it whole.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ void node_rates(const T* x, const T* u,
                                            const srbd::Consts<T>& k, T* out) {
+  using L = srbd::Layout<S>;
   const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
   T v0 = T(0), v1 = T(0), v2 = T(0), t0 = T(0), t1 = T(0), t2 = T(0);
 #pragma unroll
@@ -416,13 +428,13 @@ __device__ __forceinline__ void node_rates(const T* x, const T* u,
 // Σ‖ρ‖² and largest |x + dt·ẋ(x, u) − X[n+1]| (stage nodes), or the
 // terminal rows' Σ, onto lane 0. X[n+1] comes from device memory, issued
 // first.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
                                               const T* __restrict__ Xnext,
                                               int n, int ns,
                                               const srbd::Consts<T>& k,
                                               int lane, T* cost, T* dmax) {
-  using EN = EvalNode;
+  using EN = EvalNode<S>;
   const T* x = rec + EN::x;
   const T* u = rec + EN::u;
   const T* p = rec + EN::p;
@@ -463,14 +475,14 @@ __device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
   }
 }
 
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(kEvalThreads, EvalMinBlocks<T>::value)
 srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
                      const T* __restrict__ x0, int x0_stride,
                      srbd::Params<T> P, int ns, srbd::Consts<T> k,
                      T* __restrict__ cost_out, T* __restrict__ dmax_out,
                      T* __restrict__ Xpin) {
-  using EN = EvalNode;
+  using EN = EvalNode<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ns1 = ns + 1;
@@ -479,7 +491,7 @@ srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   T* node_dmax = node_cost + ns1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t b = blockIdx.x;
-  stage_member(s, X, x0, x0_stride, U, P, b, ns, tid);
+  stage_member<S>(s, X, x0, x0_stride, U, P, b, ns, tid);
   cp_async_wait_group<1>();                        // x and u are in
   __syncthreads();
   if (Xpin != nullptr) {                           // the pinned plan, as staged
@@ -493,14 +505,14 @@ srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   // (while the parameter rows stream in)
   if (warp == 0)
     for (int n = lane; n < ns; n += 32)
-      node_rates(s + n * EN::size + EN::x, s + n * EN::size + EN::u, k,
-                 rates + n * kRates);
+      node_rates<S>(s + n * EN::size + EN::x, s + n * EN::size + EN::u, k,
+                    rates + n * kRates);
   cp_async_wait_group<0>();                        // the parameter rows too
   __syncthreads();
   for (int n = warp; n < ns1; n += kEvalWarps)
-    evaluate_node(s + n * EN::size, rates + n * kRates,
-                  X + (b * ns1 + n + 1) * S::nx, n, ns, k, lane,
-                  node_cost + n, node_dmax + n);
+    evaluate_node<S>(s + n * EN::size, rates + n * kRates,
+                     X + (b * ns1 + n + 1) * S::nx, n, ns, k, lane,
+                     node_cost + n, node_dmax + n);
   __syncthreads();
   if (warp == 0) {   // the stage nodes over the lanes, then the terminal node
     T c = lane < ns ? node_cost[lane] : T(0);
@@ -514,30 +526,34 @@ srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   }
 }
 
-bool is_shape(int nc, int cm, int n_legs) {
-  return nc == S::nc && cm == S::cm && n_legs == S::n_legs;
+// Let a kernel take `bytes` of dynamic shared memory (above 48 KB only
+// after the attribute is raised).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
-template <typename T>
+template <class S, typename T>
+constexpr size_t trial_smem_bytes() {
+  return sizeof(T) * kWarps * TrialWarp<S, T>::size;
+}
+
+template <class S, typename T>
 int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
                  const void* Ks, const void* d, const void* alphas,
                  const void* const* params, const void* merit0,
                  const void* D, const void* dV1, const void* dV2, int B,
-                 int ns, int nc, int cm, int n_legs, int nA,
-                 const double* scalars, double nu_w, double beta,
-                 double alpha_min, void* Xn, void* Un, void* cost,
-                 void* merit, void* ok, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
+                 int ns, int nA, const double* scalars, double nu_w,
+                 double beta, double alpha_min, void* Xn, void* Un,
+                 void* cost, void* merit, void* ok, void* stream) {
   const long long pairs = static_cast<long long>(B) * nA;
   if (pairs == 0) return 0;
-  const size_t bytes = sizeof(T) * kWarps * TrialWarp<T>::size;
-  auto kernel = srbd_trial_kernel<T>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t bytes = trial_smem_bytes<S, T>();
+  auto kernel = srbd_trial_kernel<S, T>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>((pairs + kWarps - 1) / kWarps);
   kernel<<<blocks, 32 * kWarps, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x0), static_cast<const T*>(X),
@@ -553,26 +569,15 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Let a kernel take `bytes` of dynamic shared memory (above 48 KB only
-// after the attribute is raised).
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename T>
+template <class S, typename T>
 int launch_evaluate(const void* X, const void* U, const void* x0,
                     int x0_stride, const void* const* params, int B, int ns,
-                    int nc, int cm,
-                    int n_legs, const double* scalars, void* cost, void* dmax,
-                    void* Xpin, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
+                    const double* scalars, void* cost, void* dmax, void* Xpin,
+                    void* stream) {
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
-  auto kernel = srbd_evaluate_kernel<T>;
+  const size_t bytes = evaluate_smem_bytes<S, T>(ns);
+  auto kernel = srbd_evaluate_kernel<S, T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B, kEvalThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
@@ -583,29 +588,29 @@ int launch_evaluate(const void* X, const void* U, const void* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// srbd_evaluate's occupancy at ns stage nodes, into out[0..4]: blocks
-// resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// warps a block, shared memory bytes a block, registers a thread and
-// local (spilled) bytes a thread (cudaFuncGetAttributes).
-template <typename T>
-int evaluate_occupancy(int ns, int* out) {
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
-  auto kernel = srbd_evaluate_kernel<T>;
+// A kernel's occupancy with `threads` threads and `bytes` of dynamic
+// shared memory a block, into out[0..3]: blocks resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shared memory bytes a
+// block, registers a thread and local (spilled) bytes a thread
+// (cudaFuncGetAttributes).
+template <class Kernel>
+int occupancy(Kernel kernel, int threads, size_t bytes, int* out) {
   cudaError_t e = allow_smem(kernel, bytes);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
-                                                      kEvalThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
+                                                      bytes);
   cudaFuncAttributes attr{};
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  out[1] = kEvalWarps;
-  out[2] = static_cast<int>(bytes);
-  out[3] = attr.numRegs;
-  out[4] = static_cast<int>(attr.localSizeBytes);
+  out[1] = static_cast<int>(bytes);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(e);
 }
 
 }  // namespace
 
+// The contact topology (nc, cm, n_legs) picks the compiled shape; another
+// one returns kUnknownShape and launches nothing.
 #define TRIAL_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(                                                        \
       const void* x0, const void* X, const void* U, const void* ks,           \
@@ -615,10 +620,12 @@ int evaluate_occupancy(int ns, int* out) {
       int n_legs, int nA, const double* scalars, double nu_w, double beta,    \
       double alpha_min, void* Xn, void* Un, void* cost, void* merit,          \
       void* ok, void* stream) {                                               \
-    return launch_trial<T>(x0, X, U, ks, Ks, d, alphas, params, merit0, D,    \
-                           dV1, dV2, B, ns, nc, cm, n_legs, nA, scalars,      \
-                           nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,    \
-                           stream);                                           \
+    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+      return launch_trial<decltype(s), T>(                                    \
+          x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2, B, ns,    \
+          nA, scalars, nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,        \
+          stream);                                                            \
+    });                                                                       \
   }
 
 TRIAL_ENTRY(srbd_trial_f32, float)
@@ -632,18 +639,48 @@ TRIAL_ENTRY(srbd_trial_f64, double)
                       int ns, int nc, int cm, int n_legs,                     \
                       const double* scalars, void* cost, void* dmax,          \
                       void* Xpin, void* stream) {                             \
-    return launch_evaluate<T>(X, U, x0, x0_stride, params, B, ns, nc, cm,     \
-                              n_legs, scalars, cost, dmax, Xpin, stream);     \
+    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+      return launch_evaluate<decltype(s), T>(X, U, x0, x0_stride, params, B,  \
+                                             ns, scalars, cost, dmax, Xpin,   \
+                                             stream);                         \
+    });                                                                       \
   }
 
 EVALUATE_ENTRY(srbd_evaluate_f32, float)
 EVALUATE_ENTRY(srbd_evaluate_f64, double)
 
-// srbd_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at ns
-// stage nodes: out[0] blocks an SM, out[1] warps a block, out[2] shared
-// memory bytes a block, out[3] registers a thread, out[4] local bytes a
-// thread.
-extern "C" int srbd_evaluate_occupancy(int f64, int ns, int* out) {
-  return f64 ? evaluate_occupancy<double>(ns, out)
-             : evaluate_occupancy<float>(ns, out);
+// srbd_evaluate's occupancy for the shape at index `shape`
+// (kernels/linearize.py::KERNEL_SHAPES order), float32 (f64 = 0) or
+// float64 tensors and ns stage nodes: out[0] blocks an SM, out[1] warps a
+// block, out[2] shared memory bytes a block, out[3] registers a thread,
+// out[4] local bytes a thread.
+extern "C" int srbd_evaluate_occupancy(int shape, int f64, int ns, int* out) {
+  out[1] = kEvalWarps;
+  return srbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    int o[4] = {0, 0, 0, 0};
+    const int e =
+        f64 ? occupancy(srbd_evaluate_kernel<S, double>, kEvalThreads,
+                        evaluate_smem_bytes<S, double>(ns), o)
+            : occupancy(srbd_evaluate_kernel<S, float>, kEvalThreads,
+                        evaluate_smem_bytes<S, float>(ns), o);
+    out[0] = o[0];
+    out[2] = o[1];
+    out[3] = o[2];
+    out[4] = o[3];
+    return e;
+  });
+}
+
+// K3's occupancy for the shape at index `shape` and float32 (f64 = 0) or
+// float64 tensors: out[0] blocks an SM, out[1] shared memory bytes a
+// block, out[2] registers a thread, out[3] local bytes a thread.
+extern "C" int srbd_trial_occupancy(int shape, int f64, int* out) {
+  return srbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? occupancy(srbd_trial_kernel<S, double>, 32 * kWarps,
+                           trial_smem_bytes<S, double>(), out)
+               : occupancy(srbd_trial_kernel<S, float>, 32 * kWarps,
+                           trial_smem_bytes<S, float>(), out);
+  });
 }

@@ -9,8 +9,8 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
                     no type suffix, `riccati_backward_smem_bytes` and
                     `riccati_backward_blocks_per_sm`
   srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`; and, with no type
-                    suffix, `srbd_evaluate_occupancy`
-  srbd_linearize    K4 `srbd_linearize`
+                    suffix, `srbd_trial_occupancy`, `srbd_evaluate_occupancy`
+  srbd_linearize    K4 `srbd_linearize`; `srbd_linearize_occupancy`
   isrbd_rollout     K6 `isrbd_trial`, `isrbd_evaluate`; and, with no
                     type suffix, `isrbd_trial_occupancy`,
                     `isrbd_evaluate_occupancy`
@@ -150,23 +150,36 @@ def clear_host_setups() -> None:
     _host_setups.clear()
 
 
+# the fields an evaluation entry's occupancy query writes, in order
+EVALUATE_OCCUPANCY_FIELDS = ("blocks_per_sm", "warps_per_block",
+                             "shared_memory_bytes", "registers_per_thread",
+                             "local_bytes_per_thread")
+
+
+def occupancy_query(lib_name: str, entry: str, fields, *args) -> dict:
+    """A kernel's occupancy on the current card from the query `entry` of
+    `lib<lib_name>.so`, called with the int `args` and an int array it
+    fills with len(`fields`) values, named so in the result."""
+    fn = getattr(library(lib_name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(fields))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: error {err}")
+    return dict(zip(fields, out))
+
+
 def evaluate_occupancy(name: str, ns: int, f64: bool) -> dict:
-    """An evaluation entry's occupancy on the current card, from
+    """An evaluation entry's occupancy on the current card (the isrbd and
+    LIP ones; the SRBD one takes its shape, `kernels/rollout.py`), from
     `<name>_evaluate_occupancy` in `lib<name>_rollout.so` at ns stage
     nodes: blocks resident on one SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
     memory bytes a block, registers and local (spilled) bytes a thread."""
-    fn = getattr(library(f"{name}_rollout"), f"{name}_evaluate_occupancy")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    err = fn(int(f64), ns, out)
-    if err != 0:
-        raise RuntimeError(f"{name}_evaluate occupancy query failed: error {err}")
-    return dict(blocks_per_sm=out[0], warps_per_block=out[1],
-                shared_memory_bytes=out[2], registers_per_thread=out[3],
-                local_bytes_per_thread=out[4])
+    return occupancy_query(f"{name}_rollout", f"{name}_evaluate_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, int(f64), ns)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -23,11 +23,12 @@ Iw⁻¹ ∂b with Iw ω̇ = b = τ − ω×Iw ω, and for the quaternion columns
 of the homogeneous (not normalized) `quat_to_rot`.
 
 What bounds the kernel on an H100: bytes — a member-node writes 3,622
-values and reads ~120, against a few thousand FLOP (the note in the .cu
+values (the quadruped 3,470) and reads ~120, against a few thousand FLOP (the note in the .cu
 gives the design).
 
-K3, K4 and srbd_evaluate are compiled for one set of SRBD sizes
-(`srbd::Shape` in csrc/srbd_common.cuh, `KERNEL_SHAPE` here); their
+K3, K4 and srbd_evaluate are compiled for two sets of SRBD sizes, the
+Kangaroo's line feet and the point-feet quadruped's (`srbd::KangarooShape`
+and `srbd::QuadShape` in csrc/srbd_common.cuh, `KERNEL_SHAPES` here); their
 wrappers raise ValueError, naming the sizes, for CUDA tensors of any
 other, and take the plain twin for CPU tensors of any sizes.
 """
@@ -38,7 +39,11 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    library,
+    occupancy_query,
+)
 from srbd_horizon_tpu_torch.math.quat import cross, quat_to_rot, skew, solve3x3
 from srbd_horizon_tpu_torch.models.srbd import (
     split_srbd_input,
@@ -51,11 +56,16 @@ from srbd_horizon_tpu_torch.models.srbd import (
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:273"
 SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_linearize.cu"
 
-# The sizes K3, K4 and srbd_evaluate are compiled for (`srbd::Shape` in
-# csrc/srbd_common.cuh): build_srbd_problem with the Kangaroo feet. The row
-# counts are K4's (`RiccatiRows.from_ocp` of that OCP).
-KERNEL_SHAPE = dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
-                    n_rx=22, n_ru=18, n_gx=34, n_gu=42)
+# The sizes K3, K4 and srbd_evaluate are compiled for, in the order of the
+# shape structs of csrc/srbd_common.cuh (KangarooShape, QuadShape):
+# build_srbd_problem with the Kangaroo's line feet and with the quadruped's
+# point feet. The row counts are K4's (`RiccatiRows.from_ocp` of each OCP).
+KERNEL_SHAPES = {
+    "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
+                     n_rx=22, n_ru=18, n_gx=34, n_gu=42),
+    "quadruped": dict(nc=4, cm=1, n_legs=4, nx=37, nu=24, n_rho=69, nt=15,
+                      n_rx=22, n_ru=18, n_gx=30, n_gu=42),
+}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "orientation_tracking_gain", "oref", "rdot_ref",
@@ -75,14 +85,42 @@ def kernel_sizes(terms, nx: int, nu: int, rows=None):
     return sizes
 
 
-def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None):
-    """Raise ValueError, naming the sizes, unless they are those the SRBD
-    kernels are compiled for (`KERNEL_SHAPE`)."""
+def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None) -> str:
+    """The name of the shape in `KERNEL_SHAPES` that has these sizes;
+    ValueError, naming the sizes, if the SRBD kernels are compiled for
+    none."""
     sizes = kernel_sizes(terms, nx, nu, rows)
-    if sizes != {k: KERNEL_SHAPE[k] for k in sizes}:
-        raise ValueError(
-            f"{name} has no kernel for the sizes {sizes}; it is compiled for "
-            f"{KERNEL_SHAPE} (csrc/srbd_common.cuh)")
+    for shape, want in KERNEL_SHAPES.items():
+        if sizes == {k: want[k] for k in sizes}:
+            return shape
+    known = "; ".join(f"{shape} {want}" for shape, want in KERNEL_SHAPES.items())
+    raise ValueError(
+        f"{name} has no kernel for the sizes {sizes}; it is compiled for "
+        f"{known} (csrc/srbd_common.cuh)")
+
+
+def shape_index(shape: str) -> int:
+    """The position of `shape` in `KERNEL_SHAPES`, which the sources'
+    occupancy entries take (`srbd::with_shape`)."""
+    if shape not in KERNEL_SHAPES:
+        raise ValueError(f"no SRBD kernel shape {shape!r}; the shapes are "
+                         f"{tuple(KERNEL_SHAPES)}")
+    return list(KERNEL_SHAPES).index(shape)
+
+
+# the fields K4's and K3's occupancy queries write, in order
+OCCUPANCY_FIELDS = ("blocks_per_sm", "shared_memory_bytes",
+                    "registers_per_thread", "local_bytes_per_thread")
+
+
+def occupancy(dtype=torch.float32, shape: str = "kangaroo") -> dict:
+    """K4's occupancy at the shape `shape` for tensors of `dtype`: blocks
+    resident on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`),
+    shared memory bytes a block, registers and local (spilled) bytes a
+    thread."""
+    return occupancy_query("srbd_linearize", "srbd_linearize_occupancy",
+                           OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64))
 
 
 def kernel_params(params, Bsz, ns, nc, dtype, device):
@@ -281,8 +319,9 @@ def _kernel_fn(dtype):
 
 def srbd_linearize(X, U, params, terms, rows, dt: float, wc: float):
     """K4. Same contract as `srbd_linearize_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
-    `srbd_linearize.launches`), raises ValueError for other sizes."""
+    for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and counts
+    the launch in `srbd_linearize.launches`), raises ValueError for other
+    sizes."""
     if X.device.type == "cpu":
         return srbd_linearize_plain(X, U, params, terms, rows, dt, wc)
     Bsz, ns1, nx = X.shape

@@ -246,9 +246,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
-# shape structs (SrbdShape, IsrbdAlShape, LipShape): nx, nu, the terminal
-# rows nt and the sizes of the row sets. Another problem needs a shape of
-# its own there and here.
+# shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape): nx, nu, the
+# terminal rows nt and the sizes of the row sets. Another problem needs a
+# shape of its own there and here.
 KERNEL_SHAPES = {
     "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
                  n_b=3, n_uc=24),
@@ -256,15 +256,17 @@ KERNEL_SHAPES = {
                      n_gu=103, n_b=9, n_uc=18),
     "lip": dict(nx=30, nu=15, nt=10, n_rx=18, n_ru=15, n_gx=32, n_gu=18,
                 n_b=6, n_uc=15),
+    "quadruped": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=30,
+                      n_gu=42, n_b=3, n_uc=24),
 }
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
 # the block-Schur inverse serves the batched solves at every shape; the
-# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD and LIP
-# shapes (DDPOptions' default), with Cholesky at the isrbd-AL shape (the AL
-# solver's inner solve) and at the SRBD and LIP shapes. CUDA tensors at
-# another (shape, form, solver) raise ValueError.
+# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD, LIP and
+# quadruped shapes (DDPOptions' default), with Cholesky at the isrbd-AL
+# shape (the AL solver's inner solve) and at the SRBD and LIP shapes. CUDA
+# tensors at another (shape, form, solver) raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "collapsed", "schur"),
     ("isrbd_al", "collapsed", "schur"),
@@ -274,6 +276,8 @@ KERNEL_INSTANCES = (
     ("lip", "collapsed", "schur"),
     ("lip", "tassa", "schur"),
     ("lip", "tassa", "cholesky"),
+    ("quadruped", "collapsed", "schur"),
+    ("quadruped", "tassa", "schur"),
 )
 
 # the launchers' own errors (no CUDA error has these values): the block's

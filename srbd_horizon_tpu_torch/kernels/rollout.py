@@ -29,8 +29,9 @@ plan as a third output, `X.clone()` with `X[:, 0] = x0` (the solve's pin,
 msddp.py:1221), written by the same launch. Its plain twin
 `srbd_evaluate_plain` is `SRBDTerms.total_cost` and the Euler step.
 
-Both run on the sizes `linearize.KERNEL_SHAPE` on CUDA tensors and raise
-ValueError for others; CPU tensors take the twins at any size.
+Both run on the sizes of a shape in `linearize.KERNEL_SHAPES` (the
+Kangaroo's, the quadruped's) on CUDA tensors and raise ValueError for
+others; CPU tensors take the twins at any size.
 """
 
 from __future__ import annotations
@@ -40,14 +41,17 @@ import ctypes
 import torch
 
 from srbd_horizon_tpu_torch.kernels.build import (
+    EVALUATE_OCCUPANCY_FIELDS,
     check_tensor,
-    evaluate_occupancy as build_occupancy,
     host_setup,
     library,
+    occupancy_query,
 )
 from srbd_horizon_tpu_torch.kernels.linearize import (
+    OCCUPANCY_FIELDS,
     check_kernel_shape,
     kernel_params,
+    shape_index,
 )
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
@@ -157,9 +161,9 @@ def _evaluate_setup(terms, nx: int, nu: int, dt: float, wc: float):
 
 def srbd_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
     """srbd_evaluate. Same contract as `srbd_evaluate_plain`; launches the
-    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
-    the launch in `srbd_evaluate.launches`), raises ValueError for other
-    sizes."""
+    CUDA kernel for CUDA tensors of the sizes of a shape in
+    `KERNEL_SHAPES` (and counts the launch in `srbd_evaluate.launches`),
+    raises ValueError for other sizes."""
     if X.device.type == "cpu":
         return srbd_evaluate_plain(X, U, params, terms, dt, wc, x0)
     Bsz, ns1, nx = X.shape
@@ -213,10 +217,22 @@ def _evaluate_fn(dtype):
     return fn
 
 
-def evaluate_occupancy(ns: int, dtype=torch.float32):
-    """srbd_evaluate's occupancy at ns stage nodes for tensors of `dtype`
-    (`build.evaluate_occupancy`)."""
-    return build_occupancy("srbd", ns, dtype == torch.float64)
+def evaluate_occupancy(ns: int, dtype=torch.float32, shape: str = "kangaroo"):
+    """srbd_evaluate's occupancy at the shape `shape` (a
+    `linearize.KERNEL_SHAPES` name) and ns stage nodes for tensors of
+    `dtype`: blocks resident on one SM, warps and shared memory bytes a
+    block, registers and local (spilled) bytes a thread."""
+    return occupancy_query("srbd_rollout", "srbd_evaluate_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64), ns)
+
+
+def trial_occupancy(dtype=torch.float32, shape: str = "kangaroo"):
+    """K3's occupancy at the shape `shape` for tensors of `dtype`
+    (`linearize.OCCUPANCY_FIELDS`)."""
+    return occupancy_query("srbd_rollout", "srbd_trial_occupancy",
+                           OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64))
 
 
 def _kernel_fn(dtype):
@@ -232,8 +248,9 @@ def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
                terms, dt: float, wc: float, nu_w: float, beta: float,
                alpha_min: float):
     """K3. Same contract as `srbd_trial_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
-    `srbd_trial.launches`), raises ValueError for other sizes."""
+    for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and counts
+    the launch in `srbd_trial.launches`), raises ValueError for other
+    sizes."""
     if d.device.type == "cpu":
         return srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                 D, dV1, dV2, terms, dt, wc, nu_w, beta,

@@ -1,8 +1,8 @@
 """Closed-loop MPC harness — the port of srbd_horizon_tpu/runtime/loop.py:
 the fleet tick (`tick_batch`, `run_batch`) and the single-robot tick
 (`tick`, `run`) with its schedules (`standing_schedule`,
-`walking_schedule`), on the SRBD problem (`build_srbd_loop`) or the LIP
-(`build_lip_loop`).
+`walking_schedule`), on the SRBD problem (`build_srbd_loop`; the point-feet
+quadruped's trot, `build_quadruped_loop`) or the LIP (`build_lip_loop`).
 
 One tick, for every member of a fleet at once (`tick_batch`,
 `MSDDP.solve_batch`) or for one robot (`tick`, `MSDDP.solve`):
@@ -34,6 +34,10 @@ from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig, resolve_device
 from srbd_horizon_tpu_torch.math.quat import quat_normalize
 from srbd_horizon_tpu_torch.models import srbd as srbd_model
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.quadruped import (
+    quadruped_point_feet,
+    trot_group_mask,
+)
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
 from srbd_horizon_tpu_torch.solvers.msddp import DDPSolution, MSDDP
@@ -236,18 +240,53 @@ def build_srbd_loop(cfg: Optional[SRBDConfig] = None,
                     robot: Optional[RobotConstants] = None,
                     shift_warmstart: bool = True,
                     dtype=None,
-                    device="cuda"):
-    """The fleet MPC loop on the SRBD biped (Kangaroo line feet by
-    default), built on `device` (default "cuda"; raises when CUDA is
-    absent unless another device is given). Returns (loop, problem)."""
+                    device="cuda",
+                    group_mask=None):
+    """The fleet MPC loop on the SRBD problem (the Kangaroo biped on line
+    feet by default), built on `device` (default "cuda"; raises when CUDA
+    is absent unless another device is given). The WPG takes the contact
+    topology of `cfg` and, when given, `group_mask` (the contacts that
+    follow the first half-cycle). Returns (loop, problem)."""
     dev = resolve_device(device)
     cfg = cfg or SRBDConfig()
     dtype = dtype or cfg.dtype
     prob = build_srbd_problem(cfg, robot or kangaroo_line_feet(), dtype=dtype,
                               device=dev)
     solver = MSDDP(prob.ocp, opts or DDPOptions(max_iters=5))
-    wpg = WalkingPatternGenerator.build(c_init_z=0.0, nodes=cfg.ns,
-                                        dtype=dtype, device=dev)
+    wpg = WalkingPatternGenerator.build(
+        c_init_z=0.0, nodes=cfg.ns, contact_model=cfg.contact_model,
+        number_of_legs=cfg.number_of_legs, dtype=dtype, group_mask=group_mask,
+        device=dev)
+    loop = MPCLoop(solver=solver, wpg=wpg, srbd_constants=prob.ocp.constants,
+                   shift_warmstart=shift_warmstart)
+    return loop, prob
+
+
+def build_quadruped_loop(cfg: Optional[SRBDConfig] = None,
+                         opts: Optional[DDPOptions] = None,
+                         shift_warmstart: bool = False,
+                         dtype=None,
+                         device="cuda"):
+    """The MPC loop on the point-feet quadruped, in the configuration of
+    the JAX package's quadruped example: `SRBDConfig(contact_model=1,
+    number_of_legs=4)`, `max_iters=5`, `alpha_converge_threshold=1e-12`,
+    `beta=1e-3`, the diagonal-pair trot WPG at the feet's height, the
+    Newton–Euler telemetry on. One robot: `tick` / `run` on x0 (nx,); a
+    fleet: `tick_batch` on x0 (B, nx), usually with
+    `shift_warmstart=True`. Built on `device` (default "cuda"; raises when
+    CUDA is absent unless another device is given). Returns (loop,
+    problem)."""
+    dev = resolve_device(device)
+    cfg = cfg or SRBDConfig(contact_model=1, number_of_legs=4)
+    dtype = dtype or cfg.dtype
+    prob = build_srbd_problem(cfg, quadruped_point_feet(), dtype=dtype,
+                              device=dev)
+    solver = MSDDP(prob.ocp, opts or DDPOptions(
+        max_iters=5, alpha_converge_threshold=1e-12, beta=1e-3))
+    wpg = WalkingPatternGenerator.build(
+        c_init_z=float(prob.initial_foot_position[0, 2]), nodes=cfg.ns,
+        contact_model=cfg.contact_model, number_of_legs=cfg.number_of_legs,
+        dtype=dtype, group_mask=trot_group_mask(), device=dev)
     loop = MPCLoop(solver=solver, wpg=wpg, srbd_constants=prob.ocp.constants,
                    shift_warmstart=shift_warmstart)
     return loop, prob

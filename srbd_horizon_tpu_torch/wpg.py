@@ -12,7 +12,7 @@ JUMP 2).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,12 @@ class WalkingPatternGenerator:
     r_switch: torch.Tensor
     step_nodes: int
     stance_otg: float = 1e2
+    # which contacts follow the A-cycle (l_cycle, which swings first); the
+    # rest follow the B-cycle. None: the biped split, the first
+    # `contact_model` contacts (the left foot). A (nc,) tuple of bools
+    # gives another morphology the same two-phase alternation, e.g. the
+    # quadruped's diagonal-pair trot (models/quadruped.py::trot_group_mask).
+    group_mask: Optional[Tuple[bool, ...]] = None
 
     @staticmethod
     def build(
@@ -96,6 +102,7 @@ class WalkingPatternGenerator:
         ss_share: float = 0.8,
         ds_share: float = 0.2,
         dtype=torch.float32,
+        group_mask=None,
         swing_profile: str = "reference",
         device="cuda",
     ) -> "WalkingPatternGenerator":
@@ -118,6 +125,8 @@ class WalkingPatternGenerator:
             r_cycle=t(r_c),
             r_switch=t(r_s),
             step_nodes=step_nodes,
+            group_mask=(tuple(bool(g) for g in group_mask)
+                        if group_mask is not None else None),
         )
 
     def init_state(self, batch=()) -> WPGState:
@@ -143,8 +152,10 @@ class WalkingPatternGenerator:
         p["cdot_switch"] = _shift_nodes(p["cdot_switch"])
         dtype = p["c_ref"].dtype
         dev = p["c_ref"].device
-        # the first contact_model contacts are the left foot (A-cycle)
-        is_left = torch.arange(nc, device=dev) < cm
+        if self.group_mask is not None:
+            is_left = torch.tensor(self.group_mask, device=dev)
+        else:   # the first contact_model contacts are the left foot
+            is_left = torch.arange(nc, device=dev) < cm
         act = action.to(torch.int64)[..., None]              # (..., 1)
 
         step_c = torch.where(

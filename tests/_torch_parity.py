@@ -226,3 +226,45 @@ def al_state_numpy(st):
     out = {k: np_of(getattr(st, k)) for k in st._fields if k != "sol"}
     out["sol"] = {k: np_of(getattr(st.sol, k)) for k in st.sol._fields}
     return out
+
+
+# ---------------- the point-feet quadruped (trot) ----------------
+
+from srbd_horizon_tpu.models.quadruped import quadruped_point_feet as j_quad
+from srbd_horizon_tpu.models.quadruped import trot_group_mask as j_trot
+from srbd_horizon_tpu.runtime.loop import MPCLoop as JMPCLoop
+from srbd_horizon_tpu.wpg import WalkingPatternGenerator as JWPG
+
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet as t_quad
+from srbd_horizon_tpu_torch.runtime.loop import build_quadruped_loop
+
+QUAD_TOPOLOGY = dict(contact_model=1, number_of_legs=4)
+# the JAX package's quadruped example's options
+QUAD_OPTS = dict(max_iters=5, alpha_converge_threshold=1e-12, beta=1e-3)
+
+
+def quadruped_problems():
+    """(jax SRBDProblem, torch SRBDProblem) of the point-feet quadruped,
+    float64 on the CPU."""
+    jp = j_build(JSRBDConfig(dtype=jnp.float64, **QUAD_TOPOLOGY), j_quad())
+    tp = t_build(TSRBDConfig(dtype=F64, **QUAD_TOPOLOGY), t_quad(), device=CPU)
+    return jp, tp
+
+
+def quadruped_loops(shift=False, **overrides):
+    """(jax problem, jax MPCLoop, torch MPCLoop, torch problem) in the
+    quadruped example's configuration (the trot WPG at the feet's height,
+    the Newton–Euler telemetry on), float64 on the CPU; `overrides` change
+    the options in both."""
+    opts = dict(QUAD_OPTS, **overrides)
+    jp = j_build(JSRBDConfig(dtype=jnp.float64, **QUAD_TOPOLOGY), j_quad())
+    js = JMSDDP(jp.ocp, JDDPOptions(**opts))
+    wpg = JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
+                     nodes=jp.ocp.ns, dtype=jnp.float64, group_mask=j_trot(),
+                     **QUAD_TOPOLOGY)
+    jloop = JMPCLoop(solver=js, wpg=wpg, srbd_constants=jp.ocp.constants,
+                     shift_warmstart=shift)
+    tloop, tp = build_quadruped_loop(
+        TSRBDConfig(dtype=F64, **QUAD_TOPOLOGY), TDDPOptions(**opts),
+        shift_warmstart=shift, device=CPU)
+    return jp, jloop, tloop, tp

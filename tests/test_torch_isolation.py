@@ -15,6 +15,7 @@ from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import (
+    build_quadruped_loop,
     build_srbd_loop,
     standing_schedule,
     walk_command,
@@ -79,6 +80,7 @@ def test_port_package_is_complete():
         "srbd_horizon_tpu_torch/runtime/serving.py",
         "srbd_horizon_tpu_torch/math/linalg.py",
         "srbd_horizon_tpu_torch/convert.py",
+        "srbd_horizon_tpu_torch/models/quadruped.py",
     ):
         assert required in names
     for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
@@ -96,7 +98,7 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "build_srbd_loop", "build_srbd_problem", "wpg_build", "walk_command",
     "params_from_numpy", "build_isrbd_problem", "al_state_from_numpy",
-    "walking_schedule", "standing_schedule",
+    "walking_schedule", "standing_schedule", "build_quadruped_loop",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
     call = {
@@ -111,6 +113,7 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
         "al_state_from_numpy": lambda: al_state_from_numpy({}),
         "walking_schedule": lambda: walking_schedule(40),
         "standing_schedule": lambda: standing_schedule(40),
+        "build_quadruped_loop": lambda: build_quadruped_loop(),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -30,7 +30,11 @@ memory equal to the collapsed form's; and the LIP kernels (K10, K11,
 lip_evaluate) against their twins at B = 1, 64, 513, float64 within 1e-12
 of max(1, |twin|) entry by entry (K10's Jacobians bit for bit), float32
 by K3's rule, NaN members kept, the pinned plan bit for bit, K1's three
-LIP instantiations by K1's rules, and refusing the LIP on point feet.
+LIP instantiations by K1's rules, and refusing the LIP on point feet; and
+the point-feet quadruped's instantiations (K4, K3, srbd_evaluate at
+`srbd::QuadShape`, K1's collapsed and Tassa forms at `QuadShape`) by the
+rules of K4, K3, srbd_evaluate and K1 at B = 1 and a fleet, with their
+occupancy, K1's uncompiled Cholesky Tassa form refused.
 Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
@@ -1019,7 +1023,7 @@ def lip_case():
                 solver32=loop32.solver)
 
 
-def _lip_lin_args(case, dtype, Bw=B):
+def _drawn_lin_args(case, dtype, Bw=B):
     s = case["solver"] if dtype == torch.float64 else case["solver32"]
     t = lambda a: _repeat(a, Bw).to(dtype).contiguous()
     return (t(case["X"]), t(case["U"]),
@@ -1032,11 +1036,11 @@ def test_lip_linearize_kernel_matches_plain(lip_case, Bw):
     """K10: float64 within LIP_F64_TOL of max(1, |twin|) entry by entry
     (the Jacobians bit for bit); float32 against the float64 twin within
     2× the float32 twin's error + 1e-6."""
-    ref = k10.lip_linearize_plain(*_lip_lin_args(lip_case, torch.float64, Bw))
+    ref = k10.lip_linearize_plain(*_drawn_lin_args(lip_case, torch.float64, Bw))
     before = k10.lip_linearize.launches
-    got = k10.lip_linearize(*_lip_lin_args(lip_case, torch.float64, Bw))
-    got32 = k10.lip_linearize(*_lip_lin_args(lip_case, torch.float32, Bw))
-    plain32 = k10.lip_linearize_plain(*_lip_lin_args(lip_case, torch.float32, Bw))
+    got = k10.lip_linearize(*_drawn_lin_args(lip_case, torch.float64, Bw))
+    got32 = k10.lip_linearize(*_drawn_lin_args(lip_case, torch.float32, Bw))
+    plain32 = k10.lip_linearize_plain(*_drawn_lin_args(lip_case, torch.float32, Bw))
     torch.cuda.synchronize()
     assert k10.lip_linearize.launches == before + 2
     for k in ORDER:
@@ -1047,7 +1051,7 @@ def test_lip_linearize_kernel_matches_plain(lip_case, Bw):
         assert torch.equal(got[k], ref[k]), k
 
 
-def _lip_trial_args(case, dtype, nA, Bw=B, nan_member=None):
+def _drawn_trial_args(case, dtype, nA, Bw=B, nan_member=None):
     lin = case["lin"]
     ks, Ks, dV1, dV2 = k1.riccati_backward_plain(
         *(lin[k] for k in ORDER), case["mu"], case["rows"])
@@ -1076,11 +1080,11 @@ def test_lip_trial_kernel_matches_plain(lip_case, nA, Bw):
     max(1, |twin|), the flags equal; float32 within 2× the float32 twin's
     error + 1e-6; a member from a NaN state NaN where the twin is."""
     nan = 1 if Bw > 1 else None
-    ref = k11.lip_trial_plain(*_lip_trial_args(lip_case, torch.float64, nA, Bw, nan))
+    ref = k11.lip_trial_plain(*_drawn_trial_args(lip_case, torch.float64, nA, Bw, nan))
     before = k11.lip_trial.launches
-    got = k11.lip_trial(*_lip_trial_args(lip_case, torch.float64, nA, Bw, nan))
-    got32 = k11.lip_trial(*_lip_trial_args(lip_case, torch.float32, nA, Bw, nan))
-    plain32 = k11.lip_trial_plain(*_lip_trial_args(lip_case, torch.float32, nA,
+    got = k11.lip_trial(*_drawn_trial_args(lip_case, torch.float64, nA, Bw, nan))
+    got32 = k11.lip_trial(*_drawn_trial_args(lip_case, torch.float32, nA, Bw, nan))
+    plain32 = k11.lip_trial_plain(*_drawn_trial_args(lip_case, torch.float32, nA,
                                                    Bw, nan))
     torch.cuda.synchronize()
     assert k11.lip_trial.launches == before + 2
@@ -1194,3 +1198,181 @@ def test_lip_kernels_refuse_unknown_shape(lip_case):
                       terms, dt, wc, 1e-3, 0.1, 1e-12)
     assert counts == (k10.lip_linearize.launches, k11.lip_trial.launches,
                       k11.lip_evaluate.launches)
+
+
+# ---------------- the quadruped: K4, K3, srbd_evaluate, K1 at QuadShape ----------------
+
+@pytest.fixture(scope="module")
+def quad_case():
+    """A linearization point of the point-feet quadruped (`QuadShape`):
+    plans around the nominal state, random velocity references, contact
+    heights, 0/1 switches and tracking masks on every node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from srbd_horizon_tpu_torch.runtime.loop import build_quadruped_loop
+
+    dev = torch.device("cuda", 0)
+    cfg = dict(contact_model=1, number_of_legs=4)
+    loop, prob = build_quadruped_loop(SRBDConfig(dtype=torch.float64, **cfg),
+                                      device=dev)
+    loop32, _ = build_quadruped_loop(SRBDConfig(**cfg), device=dev)
+    ocp, solver = prob.ocp, loop.solver
+    rng = np.random.RandomState(4)
+    ns, nx, nu, nc = ocp.ns, ocp.nx, ocp.nu, prob.nc
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.02 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.05 * rng.randn(B, ns, nu))
+    params = {k: v.expand((B,) + tuple(v.shape)).contiguous()
+              for k, v in ocp.params.items()}
+    params.update(
+        rdot_ref=t(0.3 * rng.randn(B, ns + 1, 3)),
+        w_ref=t(0.1 * rng.randn(B, ns + 1, 3)),
+        c_ref=t(0.05 * np.abs(rng.randn(B, ns + 1, nc))),
+        cdot_switch=t(rng.randint(0, 2, (B, ns + 1, nc))),
+        mask_track=t(rng.randint(0, 2, (B, ns + 1, 1))))
+    lin = k4.srbd_linearize_plain(X, U, params, solver.terms, solver.rows,
+                                  ocp.dt, solver._wc(torch.float64))
+    x0 = X[:, 0] + 0.005 * t(rng.randn(B, nx))
+    return dict(lin=lin, rows=solver.rows, mu=solver.opts.mu0, X=X, U=U,
+                x0=x0, ocp=ocp, params=params, solver=solver,
+                solver32=loop32.solver)
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+def test_quadruped_linearize_kernel_matches_plain(quad_case, Bw):
+    """K4 at QuadShape by K4's rules: float64 to 1e-9; float32 within 2×
+    the float32 twin's error + 1e-6, and below K4_F32_CAP."""
+    ref = k4.srbd_linearize_plain(*_drawn_lin_args(quad_case, torch.float64, Bw))
+    before = k4.srbd_linearize.launches
+    got = k4.srbd_linearize(*_drawn_lin_args(quad_case, torch.float64, Bw))
+    got32 = k4.srbd_linearize(*_drawn_lin_args(quad_case, torch.float32, Bw))
+    plain32 = k4.srbd_linearize_plain(*_drawn_lin_args(quad_case, torch.float32,
+                                                     Bw))
+    torch.cuda.synchronize()
+    assert k4.srbd_linearize.launches == before + 2
+    assert tuple(got["Jxp"].shape[2:]) == (30, 37) and got["rho"].shape[-1] == 69
+    for k in ORDER:
+        assert got[k].shape == ref[k].shape, k
+        assert _rel(got[k], ref[k]) <= 1e-9, k
+        e = _rel(got32[k], ref[k])
+        assert e <= 2 * _rel(plain32[k], ref[k]) + 1e-6 and e <= K4_F32_CAP, k
+
+
+@pytest.mark.parametrize("Bw", [1, 133])
+@pytest.mark.parametrize("nA", [1, 4])
+def test_quadruped_trial_kernel_matches_plain(quad_case, nA, Bw):
+    """K3 at QuadShape for 1 and 4 step sizes: float64 to 1e-9, the flags
+    equal; float32 within 2× the float32 twin's error + 1e-6; a member from
+    a NaN state NaN and rejected."""
+    nan = 1 if Bw > 1 else None
+    ref = k3.srbd_trial_plain(*_drawn_trial_args(quad_case, torch.float64, nA,
+                                               Bw, nan))
+    before = k3.srbd_trial.launches
+    got = k3.srbd_trial(*_drawn_trial_args(quad_case, torch.float64, nA, Bw, nan))
+    got32 = k3.srbd_trial(*_drawn_trial_args(quad_case, torch.float32, nA, Bw, nan))
+    plain32 = k3.srbd_trial_plain(*_drawn_trial_args(quad_case, torch.float32, nA,
+                                                   Bw, nan))
+    torch.cuda.synchronize()
+    assert k3.srbd_trial.launches == before + 2
+    for g, g32, p, r in zip(got[:4], got32[:4], plain32[:4], ref[:4]):
+        assert g.shape == r.shape
+        assert _rel_fin(g, r) <= 1e-9
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    assert torch.equal(got[4], ref[4])
+    if nan is not None:
+        assert bool(torch.isnan(got[2][:, nan]).all()) and not bool(got[4][:, nan].any())
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 513])
+@pytest.mark.parametrize("pin", [False, True], ids=["plan", "pinned"])
+def test_quadruped_evaluate_kernel_matches_plain(quad_case, Bw, pin):
+    """srbd_evaluate at QuadShape by K3's rules: a member whose plan holds a
+    NaN is NaN in both outputs; given x0, the pinned plan equal to the
+    twin's bit for bit."""
+    X = _repeat(quad_case["X"], Bw)
+    x0 = _repeat(quad_case["x0"], Bw)
+    if Bw > 1:
+        X[1, 5, 4] = float("nan")
+        x0[2, 4] = float("nan")
+
+    def args(dtype):
+        s = quad_case["solver"] if dtype == torch.float64 else quad_case["solver32"]
+        t = lambda a: a.to(dtype).contiguous()
+        return (t(X), t(_repeat(quad_case["U"], Bw)),
+                {k: t(_repeat(v, Bw)) for k, v in quad_case["params"].items()},
+                s.terms, quad_case["ocp"].dt, s._wc(dtype),
+                t(x0) if pin else None)
+
+    before = k3.srbd_evaluate.launches
+    ref = k3.srbd_evaluate_plain(*args(torch.float64))
+    got = k3.srbd_evaluate(*args(torch.float64))
+    got32 = k3.srbd_evaluate(*args(torch.float32))
+    plain32 = k3.srbd_evaluate_plain(*args(torch.float32))
+    torch.cuda.synchronize()
+    assert k3.srbd_evaluate.launches == before + 2
+    for g, g32, p, r in zip(got[:2], got32[:2], plain32[:2], ref[:2]):
+        assert _rel_fin(g, r) <= 1e-9
+        assert _rel_fin(g32, r) <= 2 * _rel_fin(p, r) + 1e-6
+    if pin:
+        assert torch.equal(_bits(got[2]), _bits(ref[2]))
+        assert torch.equal(_bits(got32[2]), _bits(plain32[2]))
+    if Bw > 1:
+        assert bool(torch.isnan(got[0][1])) and bool(torch.isnan(got[1][1]))
+
+
+@pytest.mark.parametrize("Bw", [1, 133])
+@pytest.mark.parametrize("form", ["collapsed", "tassa"])
+def test_quadruped_riccati_kernel_matches_plain(quad_case, form, Bw):
+    """K1's two quadruped instantiations (the collapsed sweep of
+    `solve_batch`, the Tassa sweep of `MSDDP.solve` with the block-Schur
+    gains) against the twin: float64 to 1e-9, float32 to K1_F32_TOL."""
+    lin = _repeat_lin(quad_case["lin"], Bw)
+    rows, mu = quad_case["rows"], quad_case["mu"]
+
+    def run(fn, dtype):
+        return fn(*(lin[k].to(dtype).contiguous() for k in ORDER), mu, rows,
+                  form=form)
+
+    ref = run(k1.riccati_backward_plain, torch.float64)
+    inst = k1.kernel_instance("quadruped", form)
+    before = k1.riccati_backward.instance_launches[inst]
+    got = run(k1.riccati_backward, torch.float64)
+    got32 = run(k1.riccati_backward, torch.float32)
+    torch.cuda.synchronize()
+    assert k1.riccati_backward.instance_launches[inst] == before + 2
+    for g, g32, r in zip(got, got32, ref):
+        assert bool(torch.isfinite(r).all())
+        assert _rel(g, r) <= 1e-9
+        assert _rel(g32, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_quadruped_occupancy(quad_case, dtype):
+    """Every quadruped instantiation reports at least one block an SM."""
+    ns = quad_case["ocp"].ns
+    for occ in (k4.occupancy(dtype, "quadruped"),
+                k3.trial_occupancy(dtype, "quadruped"),
+                k3.evaluate_occupancy(ns, dtype, "quadruped")):
+        assert occ["blocks_per_sm"] >= 1 and occ["registers_per_thread"] > 0
+        assert occ["shared_memory_bytes"] > 0
+    lin, rows = quad_case["lin"], quad_case["rows"]
+    sizes = (lin["d"].shape[-1], lin["Jup"].shape[-1], lin["Jt"].shape[1], rows)
+    for form in ("collapsed", "tassa"):
+        assert k1.blocks_per_sm(*sizes, dtype, form) >= 1
+        assert (k1.shared_memory_bytes(*sizes, dtype, form)
+                == k1.shared_memory_bytes(*sizes, dtype))
+
+
+def test_quadruped_refuses_uncompiled_combinations(quad_case):
+    """K1 at the quadruped's sizes has no Cholesky Tassa instantiation:
+    ValueError before any launch."""
+    lin, rows = quad_case["lin"], quad_case["rows"]
+    args = tuple(lin[k].float().contiguous() for k in ORDER)
+    before = k1.riccati_backward.launches
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.riccati_backward(*args, quad_case["mu"], rows, form="tassa",
+                            quu_solver="cholesky")
+    assert k1.riccati_backward.launches == before

@@ -1,11 +1,12 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for three sets of sizes, the
-SRBD OCP, the AL inner OCP of the isrbd problem and the LIP OCP; its
+K1 (`csrc/riccati_backward.cu`) is compiled for four sets of sizes, the
+SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP and the SRBD
+OCP of the point-feet quadruped; its
 wrapper picks one with `kernel_shape` for CUDA tensors and refuses any
 other sizes (the LIP on point feet among them) with a ValueError that
 names them. These tests hold that choice against `RiccatiRows.from_ocp`
-of the three problems, hold `KERNEL_SHAPES` against the shape structs of
+of the four problems, hold `KERNEL_SHAPES` against the shape structs of
 the CUDA source, and check that a CPU tensor of any sizes still takes the
 plain twin, as does K2's standalone wrapper.
 """
@@ -25,6 +26,7 @@ from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop, build_srbd_loop
 from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
@@ -34,11 +36,13 @@ torch.set_num_threads(1)
 SOURCE = Path(k1.__file__).resolve().parents[1] / "csrc" / "riccati_backward.cu"
 
 
-def _srbd_sizes():
+def _srbd_sizes(cfg=None, robot=None):
     """(nx, nu, nt, rows) of the SRBD OCP (`build_srbd_problem`, as the
-    fleet loop builds it), nt read off its linearization."""
-    loop, prob = build_srbd_loop(SRBDConfig(dtype=torch.float64),
-                                 DDPOptions(max_iters=1), device="cpu")
+    fleet loop builds it; the Kangaroo's by default), nt read off its
+    linearization."""
+    loop, prob = build_srbd_loop(cfg or SRBDConfig(dtype=torch.float64),
+                                 DDPOptions(max_iters=1), robot=robot,
+                                 device="cpu")
     ocp, s = prob.ocp, loop.solver
     X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
     U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
@@ -87,11 +91,13 @@ def _lip_sizes(cfg=None, robot=None):
 
 @pytest.fixture(scope="module")
 def sizes():
+    quad = SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64)
     return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
-            "lip": _lip_sizes()}
+            "lip": _lip_sizes(),
+            "quadruped": _srbd_sizes(quad, quadruped_point_feet())}
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip"])
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip", "quadruped"])
 def test_kernel_shape_of_each_problem(sizes, name):
     nx, nu, nt, rows = sizes[name]
     assert k1.kernel_shape(nx, nu, nt, rows) == name
@@ -105,7 +111,7 @@ def _drop_last(rows, field):
                        **{field: getattr(rows, field)[:-1]})
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip"])
+@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip", "quadruped"])
 @pytest.mark.parametrize("change", ["nx", "nu", "nt", "rx", "ru", "gx", "gu",
                                     "both", "uc"])
 def test_kernel_shape_refuses_other_sizes(sizes, name, change):
@@ -123,11 +129,12 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 
 def test_kernel_shapes_match_the_cuda_source():
     """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape,
-    LipShape."""
+    LipShape, QuadShape."""
     src = SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
-    assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape"]
+    assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape",
+                                       "QuadShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -163,6 +170,19 @@ def test_lip_instantiations():
         assert k1.KERNEL_INSTANCES[i] == ("lip", "tassa", solver)
     with pytest.raises(ValueError, match="no kernel for"):
         k1.kernel_instance("isrbd_al", "tassa", "schur")
+
+
+def test_quadruped_instantiations():
+    """The quadruped is compiled for the collapsed sweep (`solve_batch`) and
+    the Tassa sweep with the block-Schur gains (`MSDDP.solve` with
+    DDPOptions' default solver), not for the Cholesky Tassa form."""
+    for form in ("collapsed", "tassa"):
+        i = k1.kernel_instance("quadruped", form, "schur")
+        assert k1.KERNEL_INSTANCES[i] == ("quadruped", form, "schur")
+    assert (k1.kernel_instance("quadruped", "collapsed", "cholesky")
+            == k1.kernel_instance("quadruped", "collapsed", "schur"))
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.kernel_instance("quadruped", "tassa", "cholesky")
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():

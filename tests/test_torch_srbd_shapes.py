@@ -1,12 +1,14 @@
 """PyTorch port, the compile-time sizes of the SRBD kernels, on the CPU.
 
 K3 (the trial), srbd_evaluate (csrc/srbd_rollout.cu) and K4 (the
-linearization, csrc/srbd_linearize.cu) are compiled for one set of sizes,
-`srbd::Shape` in csrc/srbd_common.cuh. These tests hold that struct
-against `kernels/linearize.py::KERNEL_SHAPE` and against what
-`build_srbd_problem` gives, and check that the wrappers refuse other sizes
-with a ValueError that names them before any device work (meta tensors
-stand in for CUDA ones), while CPU tensors take the plain twins.
+linearization, csrc/srbd_linearize.cu) are compiled for two sets of sizes,
+`srbd::KangarooShape` and `srbd::QuadShape` in csrc/srbd_common.cuh. These
+tests hold those structs against `kernels/linearize.py::KERNEL_SHAPES` and
+against what `build_srbd_problem` gives for the Kangaroo and the
+point-feet quadruped, and check that the wrappers refuse other sizes (a
+problem with three contacts, the biped on point feet) with a ValueError
+that names them before any device work (meta tensors stand in for CUDA
+ones), while CPU tensors take the plain twins.
 """
 
 import dataclasses
@@ -20,7 +22,7 @@ from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import linearize as k4
 from srbd_horizon_tpu_torch.kernels import rollout as k3
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
-from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+from srbd_horizon_tpu_torch.runtime.loop import build_quadruped_loop, build_srbd_loop
 
 torch.set_num_threads(1)
 
@@ -37,21 +39,37 @@ def srbd():
 
 
 def test_shape_struct_matches_the_wrappers_table():
+    """KERNEL_SHAPES, in order, is the header's KangarooShape, QuadShape."""
     src = HEADER.read_text()
-    found = re.findall(r"struct Shape \{\s*static constexpr int ([^;]*);", src)
-    assert len(found) == 1
-    parsed = {k.strip(): int(v) for k, v in
-              (kv.split("=") for kv in found[0].split(","))}
-    assert parsed == k4.KERNEL_SHAPE
+    found = re.findall(r"struct (\w+Shape) \{\s*static constexpr int ([^;]*);",
+                       src)
+    assert [name for name, _ in found] == ["KangarooShape", "QuadShape"]
+    parsed = [{k.strip(): int(v) for k, v in
+               (kv.split("=") for kv in body.split(","))} for _, body in found]
+    assert parsed == list(k4.KERNEL_SHAPES.values())
+    assert list(k4.KERNEL_SHAPES) == ["kangaroo", "quadruped"]
 
 
-def test_srbd_problem_has_the_compiled_sizes(srbd):
-    ocp = srbd["ocp"]
-    assert RiccatiRows.from_ocp(ocp) == srbd["rows"]
-    sizes = k4.kernel_sizes(srbd["terms"], ocp.nx, ocp.nu, srbd["rows"])
-    assert sizes == k4.KERNEL_SHAPE
-    k4.check_kernel_shape("srbd_linearize", srbd["terms"], ocp.nx, ocp.nu,
-                          srbd["rows"])
+@pytest.fixture(scope="module")
+def quad():
+    loop, prob = build_quadruped_loop(
+        SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64),
+        DDPOptions(max_iters=1), device="cpu")
+    s = loop.solver
+    return dict(ocp=prob.ocp, terms=s.terms, rows=s.rows,
+                wc=s._wc(torch.float64), prob=prob)
+
+
+@pytest.mark.parametrize("shape", ["kangaroo", "quadruped"])
+def test_srbd_problem_has_the_compiled_sizes(srbd, quad, shape):
+    case = srbd if shape == "kangaroo" else quad
+    ocp = case["ocp"]
+    assert RiccatiRows.from_ocp(ocp) == case["rows"]
+    sizes = k4.kernel_sizes(case["terms"], ocp.nx, ocp.nu, case["rows"])
+    assert sizes == k4.KERNEL_SHAPES[shape]
+    assert k4.check_kernel_shape("srbd_linearize", case["terms"], ocp.nx,
+                                 ocp.nu, case["rows"]) == shape
+    assert k4.shape_index(shape) == list(k4.KERNEL_SHAPES).index(shape)
 
 
 def _drop_last(rows, field):
@@ -77,12 +95,13 @@ def test_check_kernel_shape_refuses_other_sizes(srbd, change):
         k4.check_kernel_shape("srbd_linearize", terms, nx, nu, rows)
 
 
-def _meta_args(srbd, nc, B=2):
+def _meta_args(srbd, nc, B=2, **topology):
     """Arguments of K4, K3 and srbd_evaluate on meta tensors of an SRBD
-    layout with nc contacts (the problem's own terms, with nc replaced)."""
+    layout with nc contacts (the problem's own terms, with nc and the
+    `topology` fields replaced)."""
     ns = srbd["ocp"].ns
     nx, nu = 13 + 6 * nc, 6 * nc
-    terms = dataclasses.replace(srbd["terms"], nc=nc)
+    terms = dataclasses.replace(srbd["terms"], nc=nc, **topology)
     e = lambda *shape: torch.empty(shape, dtype=torch.float64, device="meta")
     params = {k: e(B, ns + 1, v.shape[-1])
               for k, v in srbd["ocp"].params.items()}
@@ -100,15 +119,20 @@ def _meta_args(srbd, nc, B=2):
 
 @pytest.mark.parametrize("name", ["srbd_linearize", "srbd_trial",
                                   "srbd_evaluate"])
-def test_wrappers_refuse_other_sizes_off_the_cpu(srbd, name):
+def test_wrappers_refuse_other_sizes_off_the_cpu(srbd, quad, name):
     fn, args = _meta_args(srbd, nc=3)[name]
     launches = fn.launches
     with pytest.raises(ValueError, match="no kernel for the sizes"):
         fn(*args)
-    # the compiled sizes pass the shape check and stop at the device check
-    fn, args = _meta_args(srbd, nc=4)[name]
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+    # the biped on point feet (nc 2: nx 25, nu 12) has no kernel either
+    fn, args = _meta_args(srbd, nc=2, contact_model=1)[name]
+    with pytest.raises(ValueError, match=r"no kernel for the sizes .*'nx': 25"):
         fn(*args)
+    # both compiled sizes pass the shape check and stop at the device check
+    for case in (srbd, quad):
+        fn, args = _meta_args(case, nc=4)[name]
+        with pytest.raises(ValueError, match="runs on cpu or cuda"):
+            fn(*args)
     assert fn.launches == launches
 
 
