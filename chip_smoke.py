@@ -179,16 +179,49 @@ parallel, into build/kernels/), then:
      0.2, 0.005·N(0,1) pushes, seed 0), 3 warm-up and 20 timed ticks, the
      same gates (K4 = K1 collapsed), phases, profile (launches by span),
      B=4096 as a probe; the section's seconds.
+12. the constrained quadruped trot (`quadruped_constrained_section`), on
+    `build_isrbd_problem(SRBDConfig(contact_model=1, number_of_legs=4,
+    lip_height=com_z), quadruped_point_feet())` (nx=37, nu=30, ns=20, the
+    AL inner stacks of 236 and 97 rows; K5, K6, isrbd_evaluate, K7 and K8
+    at `isrbd::QuadAlShape`, K1 at `isrbd_al_quadruped`): `qc_check`, K5,
+    K1 collapsed and Tassa with Cholesky gains, K6 (1 and 4 α),
+    isrbd_evaluate (without and with x0), K7 (eval, online, offline on a
+    first and a later outer, static bounds and overrides), K8a (no, tail,
+    full prior), K8b and K8c against their twins at B=256 on a drawn
+    point, member 7 NaN, by the rules of 5; `qc_kernel_times`: each at
+    B = 1, 256, 4096 in float32 (ms, plain ms at B ≤ 256, bytes, FLOPs,
+    bound), blocks per SM and the wrappers' host µs; `qc_path`: the
+    constrained example's single robot in float32 (the offline
+    `ALDDP.solve` with `al_serving_options(15)`, then 40 ticks of the trot
+    WPG, rdot_ref (0.15, 0, 0) and solve_online(solve_online(
+    shift_warmstart)) at max_iters=1): offline ms and violation, tick p50
+    and max, iterations, host reads and launches a tick, a profile of 2
+    ticks; gates: finite, the offline violation < 1e-3, the largest over
+    ticks 20-39 < 1e-2, the CoM advanced > 0.15 m, the cone rows < 2 N and
+    F_z > −2 N on every foot, K5 = K1 (Tassa, Cholesky) = iterations, K6 =
+    trials, two isrbd_evaluate a solve, K7 and K8b once an outer, K8a
+    once a tick, no plain twin, AL twin, plain cost or `torch.func` on the
+    card; `qc_card_vs_cpu`: the offline solve and 3 ticks in float64,
+    iterations equal, X, U and λ to 1e-9; `qc_fleet_path`: the
+    constrained tick at B=256 float32 (outers=2, inner max_iters=1,
+    FullPhasePrior at EMA 1, the trot WPG, standing then vx 0.15 from tick
+    10), seeded by the batched offline solve (0.01·N(0,1), seed 11), 1 +
+    60 warm-up and 20 timed ticks: p50, max, solves/s, busy ms, idle
+    share, launches by span, the same gates (K7 and K8b once an outer, K8a
+    and K8c once a tick, `window_viol_max` < 1e-2), B=4096 whole (printed,
+    no limit); the section's seconds.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-twenty-seven rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+thirty-six rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
-Tassa instantiations, and the quadruped rows of phase 11: K4, K3,
+Tassa instantiations, the quadruped rows of phase 11: K4, K3,
 srbd_evaluate and K1's collapsed and Tassa instantiations at the
-quadruped's shape); the last line is {"ok": true, "device": {...}}.
+quadruped's shape, and the constrained quadruped rows of phase 12: K5,
+K1 collapsed and Tassa-Cholesky, K6, isrbd_evaluate, K7, K8a, K8b and K8c
+at its AL shape); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -1071,6 +1104,26 @@ def count_al_twins():
     return count_calls(((isrbd_al, isrbd_al.PLAIN_TWINS),))
 
 
+def guard_plain(twins, al=False):
+    """Count the kernels' plain twins (`twins`, as `count_calls` takes
+    them), the plain cost and defect functions, torch.func transforms and,
+    with `al`, the AL layer's twins; returns the counters by name and a
+    function that restores every original."""
+    counters, restores = {}, []
+    for name, (c, r) in (("torch_func_calls", count_torch_func()),
+                         ("plain_cost_or_defect_calls", count_plain_cost()),
+                         ("plain_twin_calls", count_calls(twins))) + (
+            (("al_twin_calls", count_al_twins()),) if al else ()):
+        counters[name] = c
+        restores.append(r)
+
+    def restore():
+        for r in restores:
+            r()
+
+    return counters, restore
+
+
 def outputs(res, prefix=""):
     """The tensors of an entry's result as (name, tensor) pairs: tuples by
     position, NamedTuples (ALState, its DDPSolution, the priors) and dicts
@@ -1219,6 +1272,163 @@ def al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in):
     and its update (3), ~6 a cone row, ~4 a box row and its update (3)."""
     node = 120 + n_eq * 33 + n_in * 9 + (nx + nu) * 2 * 7
     return Bsz * (ns * node + n_eq_T * 33 + nx * 2 * 7)
+
+
+def draw_isrbd_point(al, Bsz, g, dev, com_z, fz, fxy, u_box):
+    """A linearization point of the isrbd AL inner problem of `al` (an
+    ALDDP in float64 on `dev`) at Bsz members, drawn from the numpy
+    RandomState `g`: plans around a stance at CoM height com_z with a
+    non-unit quaternion, forces of fz ± fxy·N(0,1) horizontally (active
+    cones), random multipliers, penalties and 0/1 node masks, and box
+    overrides drawn inside the data (x within ±0.1, the finite u boxes
+    u_box; active on either side). Returns X, U, the ALState, the params
+    with the overrides and the inner params (`_params_with_multipliers`)."""
+    import numpy as np
+    import torch
+
+    ocp = al.ocp
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    nc = (nu - 6) // 6
+    n_eq, n_eq_T, n_in = al._sizes
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = np.zeros((Bsz, ns + 1, nx))
+    X[..., 0:3] = [0.0, 0.0, com_z] + 0.05 * g.randn(Bsz, ns + 1, 3)
+    X[..., 3:7] = [0.1, -0.2, 0.05, 0.97] + 0.02 * g.randn(Bsz, ns + 1, 4)
+    X[..., 7:] = g.uniform(-0.3, 0.3, (Bsz, ns + 1, nx - 7))
+    U = 0.5 * g.randn(Bsz, ns, nu)
+    for q in range(nc):
+        U[..., 9 + 6 * q:12 + 6 * q] = ([0.0, 0.0, fz]
+                                        + [fxy, fxy, 5.0] * g.randn(Bsz, ns, 3))
+    pos = lambda *shape: t64(np.abs(g.randn(*shape)))
+    st = al.init(t64(X[:, 0]))._replace(
+        lam_eq=t64(g.randn(Bsz, ns, n_eq)), lam_eq_T=t64(g.randn(Bsz, n_eq_T)),
+        mu_ub=5.0 * pos(Bsz, ns, n_in), mu_lb=pos(Bsz, ns, n_in),
+        mu_x_ub=pos(Bsz, ns + 1, nx), mu_x_lb=pos(Bsz, ns + 1, nx),
+        mu_u_ub=pos(Bsz, ns, nu), mu_u_lb=pos(Bsz, ns, nu),
+        rho=t64(10.0 ** g.uniform(3, 5, Bsz)))
+    params = {k: v.expand((Bsz,) + tuple(v.shape)).contiguous()
+              for k, v in ocp.params.items()}
+    for k in ("mask_track", "mask_srbd", "mask_lip", "mask_lipzone"):
+        params[k] = t64(g.randint(0, 2, tuple(params[k].shape)))
+    params["Wo"] = pos(Bsz, ns + 1, 1)
+    params["rdot_ref"] = t64(0.1 * g.randn(Bsz, ns + 1, 3))
+    params["c_ref"] = 0.05 * pos(Bsz, ns + 1, nc)
+    for name, lo, hi in (("x", -0.1, 0.1), ("u",) + tuple(u_box)):
+        lb = getattr(ocp, f"{name}_lb").expand(Bsz, -1, -1).clone()
+        ub = getattr(ocp, f"{name}_ub").expand(Bsz, -1, -1).clone()
+        fin = torch.isfinite(ub)
+        lb[fin], ub[fin] = lo, hi
+        params[f"{name}_lb"], params[f"{name}_ub"] = lb, ub
+    pin = {k: v.contiguous()
+           for k, v in al._params_with_multipliers(params, st).items()}
+    return t64(X), t64(U), st, params, pin
+
+
+def static_bounds(params):
+    """`params` without the box overrides: the static bounds."""
+    return {k: v for k, v in params.items()
+            if k not in ("x_lb", "x_ub", "u_lb", "u_ub")}
+
+
+def al_entry_checks(tag, AL, X, U_nan, st, params, viol_later, priors, phase,
+                    nan_member):
+    """K7 and K8 against their twins (`al_check`) on one drawn point:
+    K7 in eval mode and in the online and offline modes on a first outer
+    (st's viol) and a later one (`viol_later`), with the static bounds and
+    with `params`' overrides; K8a with each of `priors` (None: no prior);
+    K8b with the static bounds, the overrides and x_lb / u_ub alone; K8c
+    with the tail and the full prior at EMA 0.5 and 1. `AL(dtype)` is the
+    solver of that type, `U_nan` the plan's inputs with a NaN in member
+    `nan_member`. Returns the worst error figures of k7, k8a, k8b, k8c."""
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+
+    cast = lambda a, d: a.to(d).contiguous()
+    pcast = lambda pp, d: {k: cast(v, d) for k, v in pp.items()}
+    Bsz = X.shape[0]
+    partial = {k: v for k, v in params.items() if k not in ("x_ub", "u_lb")}
+    bounds = (("static", static_bounds(params)), ("boxes", params))
+    err = {}
+    for bname, pp in bounds:
+        err[f"k7_eval_{bname}"] = al_check(
+            tag, k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
+            lambda d: ((AL(d), cast(X, d), cast(U_nan, d), pcast(pp, d)), {}),
+            exact=False, nan_member=nan_member, entry="isrbd_al_constraints",
+            mode="eval", bounds=bname, B=Bsz)
+        for mode in ("online", "offline"):
+            for outer, vp in (("first", st.viol), ("later", viol_later)):
+                st_m = st._replace(viol=vp)
+                err[f"k7_{mode}_{bname}_{outer}"] = al_check(
+                    tag, k78.isrbd_al_constraints,
+                    k78.isrbd_al_constraints_plain,
+                    lambda d: ((AL(d), cast(X, d), cast(U_nan, d), pcast(pp, d)),
+                               dict(st=cast_tree(st_m, d),
+                                    offline=mode == "offline")),
+                    exact=False, nan_member=nan_member,
+                    entry="isrbd_al_constraints", mode=mode, bounds=bname,
+                    outer=outer, B=Bsz)
+    for pkind, pr in priors.items():
+        err[f"k8a_{pkind}"] = al_check(
+            tag, k78.isrbd_al_shift, k78.isrbd_al_shift_plain,
+            lambda d: ((AL(d), cast_tree(st, d),
+                        None if pr is None else cast_tree(pr, d),
+                        None if pr is None else phase), {}),
+            exact=True, nan_member=nan_member, entry="isrbd_al_shift",
+            prior=pkind, B=Bsz)
+    for bname, pp in bounds + (("x_lb_u_ub", partial),):
+        err[f"k8b_{bname}"] = al_check(
+            tag, k78.isrbd_al_params, k78.isrbd_al_params_plain,
+            lambda d: ((AL(d), pcast(pp, d), cast_tree(st, d)), {}),
+            exact=True, nan_member=nan_member, entry="isrbd_al_params",
+            bounds=bname, B=Bsz)
+    for pkind in ("tail", "full"):
+        for ema in (0.5, 1.0):
+            err[f"k8c_{pkind}_{ema}"] = al_check(
+                tag, k78.isrbd_al_prior_update,
+                k78.isrbd_al_prior_update_plain,
+                lambda d: ((AL(d), cast_tree(priors[pkind], d),
+                            cast_tree(st, d), phase, ema), {}),
+                exact=True, nan_member=nan_member,
+                entry="isrbd_al_prior_update", prior=pkind, ema=ema, B=Bsz)
+    worst = lambda prefix, key: max(v[key] for k, v in err.items()
+                                    if k.startswith(prefix))
+    return {e: {key: worst(e, key) for key in ("e64", "e32", "p32", "abs32")}
+            for e in ("k7", "k8a", "k8b", "k8c")}
+
+
+def al_call_work(al32, name, args, kw, res):
+    """Bytes and FLOPs of one float32 call of the AL entry `name` (K7's
+    offline mode as `isrbd_al_constraints_offline`) with these arguments
+    and result: each input read once and each output written once (K8a
+    also one table row and flag a member, K8c the whole tables anew)."""
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+
+    ocp = al32.ocp
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    n_eq, n_eq_T, n_in = al32._sizes
+    st = next((v for v in args if type(v).__name__ == "ALState"), kw.get("st"))
+    Bsz = st.rho.shape[0]
+    if name.startswith("isrbd_al_constraints"):
+        ins = [args[1], args[2], *(args[3][k] for k in (
+            "c_ref", "mask_srbd", "mask_lip", "mask_lipzone")),
+               *al32._bounds, st.lam_eq, st.lam_eq_T, st.rho]
+        if kw.get("offline"):
+            ins += [st.viol] + [getattr(st, f) for f in k78.MULTIPLIERS[2:]]
+        return (al_bytes(ins, res),
+                al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in))
+    if name == "isrbd_al_shift":
+        phase = args[3]
+        n = al_bytes([st.sol.X, st.sol.U, st.lam_eq_T,
+                      *(getattr(st, f) for f in k78.ROLLED)], res)
+        return n + Bsz * (ns * n_eq + n_eq_T) * 4 + Bsz + nbytes(phase), 0
+    if name == "isrbd_al_params":
+        written = {k: v for k, v in res.items()
+                   if k in ("al_lam_eq", "al_lam_eq_T", "al_mu_ub", "al_mu_lb",
+                            "al_rho", "al_mu_u_ub", "al_mu_u_lb")}
+        return al_bytes([st.lam_eq, st.lam_eq_T, st.mu_ub, st.mu_lb, st.rho,
+                         st.mu_u_ub, st.mu_u_lb], written), 0
+    prior, phase = args[1], args[3]
+    return (al_bytes([st.lam_eq, st.lam_eq_T, phase, *prior], res),
+            3 * Bsz * (ns * n_eq + n_eq_T))
 
 
 # ---------------- the LIP paths (phase 10) ----------------
@@ -2062,26 +2272,12 @@ def quadruped_section(card, dev, sms):
 
         return n, restore
 
-    def guard_plain():
-        """Count plain twins, plain cost or defect calls and torch.func
-        transforms; returns the counters and a function that restores."""
-        f, rf = count_torch_func()
-        p, rp = count_plain_cost()
-        tw, rt = count_calls(QUAD_TWINS)
-
-        def restore():
-            for r in (rf, rp, rt):
-                r()
-
-        return dict(torch_func_calls=f, plain_cost_or_defect_calls=p,
-                    plain_twin_calls=tw), restore
-
     hand = lambda L: (L["srbd_linearize"] + L["riccati_backward"]
                       + L["srbd_trial"] + L["srbd_evaluate"])
     ploop, pprob = build_quadruped_loop(cfg(f32), device=dev)
     sched = walking_schedule(40, vx=0.25, start=10, device=dev)
     z0 = float(pprob.initial_state[2])
-    guards, restore_guards = guard_plain()
+    guards, restore_guards = guard_plain(QUAD_TWINS)
     n, restore_count = counting(ploop)
     carry = ploop.init(pprob.initial_state)
     syncs0 = ploop.solver.host_syncs
@@ -2252,7 +2448,7 @@ def quadruped_section(card, dev, sms):
             card=card)
         return res, loop, c, inp
 
-    guards, restore_guards = guard_plain()
+    guards, restore_guards = guard_plain(QUAD_TWINS)
     fp, floop, fcarry, finp = run_fleet(B, warm=3, timed=20)
     restore_guards()
     fp.update({k: v["n"] for k, v in guards.items()})
@@ -2319,6 +2515,652 @@ def quadruped_section(card, dev, sms):
     ]
     emit("quadruped_section", seconds=time.perf_counter() - t_section,
          card=card)
+    return rows_out
+
+
+# ---------------- the constrained quadruped trot (phase 12) ----------------
+
+QC_VX = 0.15                   # the trot's command, tests/test_quadruped.py:238
+QC_TICKS = 40                  # single-robot ticks; ticks 20-39 are gated
+QC_CONE_N = 2.0                # cone rows and F_z floor, tests/test_quadruped.py:261-263
+
+
+def quadruped_constrained_section(card, dev, sms):
+    """Phase 12: the isrbd kernels (K5, K6, isrbd_evaluate, K7, K8a-c) at
+    the constrained quadruped's AL shape (`isrbd::QuadAlShape`) and K1 at
+    its `isrbd_al_quadruped` shape (collapsed; Tassa with Cholesky gains)
+    against their twins (`qc_check`), their times (`qc_kernel_times`), the
+    constrained example's single robot on `ALDDP.solve` / `solve_online`
+    (`qc_path`), card = CPU in float64 (`qc_card_vs_cpu`) and the fleet's
+    constrained tick (`qc_fleet_path`). Returns the kernel rows of the
+    `kernels` line."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.models.quadruped import (
+        quadruped_point_feet,
+        trot_group_mask,
+    )
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.srbd import linearized_friction_cone_rows
+    from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+    from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
+
+    t_section = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    robot = quadruped_point_feet()
+    cfg = lambda dtype: SRBDConfig(dtype=dtype, lip_height=float(robot.com[2]),
+                                   **QUAD_TOPOLOGY)
+
+    def solvers(dtype, device, max_iters):
+        prob = build_isrbd_problem(cfg(dtype), robot, device=device)
+        return prob, ALDDP(prob.ocp, *al_serving_options(max_iters))
+
+    prob64, al64 = solvers(f64, dev, 1)
+    _, al32 = solvers(f32, dev, 1)
+    AL = lambda dtype: al64 if dtype == f64 else al32
+    ocp = prob64.ocp
+    ns, nx, nu, nc, dt = ocp.ns, ocp.nx, ocp.nu, prob64.nc, ocp.dt
+    rows = al64.inner.rows
+    shape = k5.check_kernel_shape("isrbd_linearize", al64.terms, nx, nu, rows)
+    if shape != "quadruped":
+        fail(f"the constrained quadruped has the isrbd shape {shape}")
+    n_eq, n_eq_T, n_in = al64._sizes
+    n_rho, n_term = al64.terms.n_rho, al64.terms.n_term
+    Bc = B_CONSTRAINED
+    mu = 1e-6
+    cast = lambda a, dtype: a.to(dtype).contiguous()
+    # ---- qc_check: a drawn point of the AL inner problem ----
+    # (draw_isrbd_point) around the quadruped's stance, its forces scaled
+    # to its weight
+    g = np.random.RandomState(SEED + 12)
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    Xi, Ui, ist, iparams, pin64 = draw_isrbd_point(
+        al64, Bc, g, dev, com_z=float(prob64.initial_state[2]), fz=78.0,
+        fxy=50.0, u_box=(50.0, 110.0))
+
+    def k5_args(dtype):
+        return (cast(Xi, dtype), cast(Ui, dtype),
+                {k: cast(v, dtype) for k, v in pin64.items()}, AL(dtype).terms,
+                rows, dt)
+
+    lin64, lin_g32, k5_err = linearize_check(
+        "qc_k5_check", k5.isrbd_linearize_plain, k5.isrbd_linearize, k5_args,
+        B=Bc, shape=shape)
+    o_cone, o_xbox, o_ubox = 62, 102, 176
+    active = {name: float((lin64["rho"][..., a:b] > 0).double().mean())
+              for name, a, b in (("cones", o_cone, o_cone + n_in),
+                                 ("x_box", o_xbox, o_ubox),
+                                 ("u_box", o_ubox, n_rho))}
+    emit("qc_k5_active_row_share", **active)
+    if not all(0.02 < v < 0.98 for v in active.values()):
+        fail(f"the quadruped K5 check point has no mix of active and idle rows: "
+             f"{active}")
+    ref64, k1_g32, lin32, k1_err = riccati_check(
+        "qc_k1_check", k1, lin64, mu, rows, B=Bc, shape="isrbd_al_quadruped",
+        live_b_columns=len(rows.uc))
+    tassa_err = tassa_check("qc_k1_tassa_check", k1, lin64, mu, rows,
+                            "cholesky", nan_member=7, shape="isrbd_al_quadruped",
+                            B=Bc)
+    iopts = al64.inner.opts
+    ix0 = Xi[:, 0] + t64(0.005 * g.randn(Bc, nx))
+    ix0_nan = ix0.clone()
+    ix0_nan[7] = float("nan")
+    iks, iKs, idV1, idV2 = ref64
+    iD = torch.sum(lin64["d"] ** 2, dim=(1, 2))
+    imerit0 = al64.inner.total_cost(Xi, Ui, pin64) + iopts.defect_weight * iD
+    alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f64, device=dev)
+
+    def k6_args(x0s):
+        def args(dtype, alphas):
+            c = lambda v: cast(v, dtype)
+            return (c(x0s), c(Xi), c(Ui), c(iks), c(iKs), c(lin64["d"]),
+                    c(alphas), {k: c(v) for k, v in pin64.items()},
+                    c(imerit0), c(iD), c(idV1), c(idV2), AL(dtype).terms, dt,
+                    iopts.defect_weight, iopts.beta,
+                    iopts.alpha_converge_threshold)
+        return args
+
+    k6_err = trial_check("qc_k6_check", k6.isrbd_trial_plain, k6.isrbd_trial,
+                         k6_args(ix0_nan), alphas4, imerit0, iD, idV1, idV2,
+                         iopts, nan_member=7, B=Bc)
+    Ui_nan = Ui.clone()
+    Ui_nan[7, 3, 0] = float("nan")
+
+    def ev_args(Ue):
+        def args(dtype):
+            return (cast(Xi, dtype), cast(Ue, dtype),
+                    {k: cast(v, dtype) for k, v in pin64.items()},
+                    AL(dtype).terms, dt)
+        return args
+
+    ev_err = evaluate_check("qc_isrbd_evaluate_check", k6.isrbd_evaluate_plain,
+                            k6.isrbd_evaluate, ev_args(Ui_nan), nan_member=7,
+                            x0=ix0_nan)
+    # K7 and K8: member 7's r̈ₓ at node 3 and one of its multipliers NaN;
+    # static bounds and the drawn overrides; a first and a later outer;
+    # phase tables of P=20 with a NaN in member 7's rows, phases that wrap
+    ast = ist._replace(sol=ist.sol._replace(X=Xi, U=Ui_nan),
+                       lam_eq=ist.lam_eq.clone())
+    ast.lam_eq[7, 2, 4] = float("nan")
+    viol_later = t64(10.0 ** g.uniform(-3, 3, Bc))
+    P_al = 20
+    phase = torch.as_tensor(g.randint(0, P_al, Bc), dtype=torch.int32, device=dev)
+    phase[:3] = torch.tensor([0, 1, P_al - 1], dtype=torch.int32)
+    full_prior = al64.init_full_phase_prior(P_al, Bc)._replace(
+        lam_eq=t64(g.randn(Bc, P_al, ns, n_eq)),
+        lam_eq_T=t64(g.randn(Bc, P_al, n_eq_T)),
+        seen=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev))
+    tail_prior = al64.init_phase_prior(P_al, Bc)._replace(
+        lam_tail=t64(g.randn(Bc, P_al, n_eq)), lam_T=t64(g.randn(Bc, P_al, n_eq_T)),
+        seen_tail=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev),
+        seen_T=torch.as_tensor(g.rand(Bc, P_al) < 0.5, device=dev))
+    full_prior.lam_eq[7, :, 1, 1] = float("nan")
+    tail_prior.lam_tail[7, :, 3] = float("nan")
+    priors = {"none": None, "tail": tail_prior, "full": full_prior}
+    al_errs = al_entry_checks("qc_al_check", AL, Xi, Ui_nan, ast, iparams,
+                              viol_later, priors, phase, nan_member=7)
+
+    # ---- qc_kernel_times: B = 1, 256, 4096, float32 ----
+    a5 = k5_args(f32)
+    a6 = k6_args(ix0)(f32, alphas4[:1])
+    a6_4 = k6_args(ix0)(f32, alphas4)
+    aev = ev_args(Ui)(f32) + (cast(ix0, f32),)
+    k1_args32 = tuple(lin32[k] for k in ORDER)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    K1_FORMS = (("riccati_backward_isrbd_al_quadruped", "collapsed", "schur"),
+                ("riccati_backward_isrbd_al_quadruped_tassa_cholesky", "tassa",
+                 "cholesky"))
+    ast32 = cast_tree(ast._replace(sol=ast.sol._replace(U=Ui)), f32)
+    ast32.lam_eq[7, 2, 4] = 0.0
+    ap32 = {k: cast(v, f32) for k, v in static_bounds(iparams).items()}
+    full32 = cast_tree(full_prior, f32)
+    full32.lam_eq[7] = 0.0
+    Xi32, Ui32 = cast(Xi, f32), cast(Ui, f32)
+    al_calls = {
+        "isrbd_al_constraints": ((al32, Xi32, Ui32, ap32), dict(st=ast32)),
+        "isrbd_al_constraints_offline": ((al32, Xi32, Ui32, ap32),
+                                         dict(st=ast32, offline=True)),
+        "isrbd_al_shift": ((al32, ast32, full32, phase), {}),
+        "isrbd_al_params": ((al32, ap32, ast32), {}),
+        "isrbd_al_prior_update": ((al32, full32, ast32, phase, 1.0), {}),
+    }
+
+    times = defaultdict(dict)
+    for Bw in (1, Bc, B_LARGE):
+        plain_too = Bw <= Bc         # the twins at the path's sizes only
+        pl = lambda fn, reps: (cuda_ms(fn, reps=reps, warmup=1) if plain_too
+                               else None)
+        la = repeat_members(a5, Bw)
+        out = k5.isrbd_linearize(*la)
+        times["isrbd_linearize_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k5.isrbd_linearize(*la), reps=20),
+            plain_ms=pl(lambda: k5.isrbd_linearize_plain(*la), 3),
+            bytes=nbytes(la[0], la[1], *k5.kernel_params(
+                la[2], Bw, ns, al32.terms, f32, dev), rows.packed(dev),
+                *out.values()),
+            flop=isrbd_linearize_flops(Bw, ns, nx, nu, nc, n_rho, n_term,
+                                       len(rows.rx), len(rows.ru), len(rows.uc)))
+        ka = repeat_members(k1_args32, Bw)
+        for name, form, solver in K1_FORMS:
+            kw = dict(form=form, quu_solver=solver)
+            out = k1.riccati_backward(*ka, mu, rows, **kw)
+            flop = (riccati_flops(Bw, ns, nx, nu, n_term, *sizes)
+                    if form == "collapsed"
+                    else tassa_flops(Bw, ns, nx, nu, n_term, *sizes, solver))
+            times[name][Bw] = dict(
+                ms=cuda_ms(lambda: k1.riccati_backward(*ka, mu, rows, **kw),
+                           reps=10),
+                plain_ms=pl(lambda: k1.riccati_backward_plain(*ka, mu, rows,
+                                                              **kw), 2),
+                bytes=nbytes(*ka, rows.packed(dev), *out), flop=flop,
+                fp64_tensor_cores=True)
+        ta = repeat_members(a6, Bw, skip=(6,))
+        out = k6.isrbd_trial(*ta)
+        times["isrbd_trial_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k6.isrbd_trial(*ta), reps=20),
+            plain_ms=pl(lambda: k6.isrbd_trial_plain(*ta), 3),
+            bytes=nbytes(*[v for v in ta[:12] if isinstance(v, torch.Tensor)],
+                         *k5.kernel_params(ta[7], Bw, ns, al32.terms, f32, dev),
+                         *out),
+            flop=isrbd_trial_flops(Bw, ns, nx, nu, nc, n_rho, n_term, 1))
+        ta4 = repeat_members(a6_4, Bw, skip=(6,))
+        times["isrbd_trial_quadruped"][Bw]["ms_4alpha"] = cuda_ms(
+            lambda: k6.isrbd_trial(*ta4), reps=20)
+        ea = repeat_members(aev, Bw)
+        out = k6.isrbd_evaluate(*ea[:-1], x0=ea[-1])
+        times["isrbd_evaluate_quadruped"][Bw] = dict(
+            ms=cuda_ms(lambda: k6.isrbd_evaluate(*ea[:-1], x0=ea[-1]), reps=20),
+            plain_ms=pl(lambda: k6.isrbd_evaluate_plain(*ea[:-1], x0=ea[-1]), 3),
+            bytes=nbytes(ea[0], ea[1], *k5.kernel_params(
+                ea[2], Bw, ns, al32.terms, f32, dev), ea[-1], *out),
+            flop=isrbd_evaluate_flops(Bw, ns, nx, nc, n_rho, n_term))
+        for name, (a, kw) in al_calls.items():
+            entry = name.replace("_offline", "")
+            kern, twin = getattr(k78, entry), getattr(k78, entry + "_plain")
+            aw, kww = resize_members((a, kw), Bc, Bw)
+            res = kern(*aw, **kww)
+            n_bytes, flop = al_call_work(al32, name, aw, kww, res)
+            times[name + "_quadruped"][Bw] = dict(
+                ms=cuda_ms(lambda: kern(*aw, **kww), reps=20),
+                plain_ms=pl(lambda: twin(*aw, **kww), 3),
+                bytes=n_bytes, flop=flop)
+    for by_B in times.values():
+        for v in by_B.values():
+            rate = (H100_FP64_TC_FLOP_PER_S if v.pop("fp64_tensor_cores", False)
+                    else H100_F32_FLOP_PER_S)
+            v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
+    # the wrappers' host µs a call at the serving B (the path's calls)
+    la, ka = repeat_members(a5, Bc), repeat_members(k1_args32, Bc)
+    ta, ea = repeat_members(a6, Bc, skip=(6,)), repeat_members(aev, Bc)
+    host = {
+        "isrbd_linearize_quadruped": host_us(lambda: k5.isrbd_linearize(*la)),
+        "isrbd_trial_quadruped": host_us(lambda: k6.isrbd_trial(*ta)),
+        "isrbd_evaluate_quadruped": host_us(
+            lambda: k6.isrbd_evaluate(*ea[:-1], x0=ea[-1])),
+        **{name: host_us(lambda: k1.riccati_backward(
+            *ka, mu, rows, form=form, quu_solver=solver))
+           for name, form, solver in K1_FORMS},
+        **{name + "_quadruped": host_us(
+            lambda: getattr(k78, name.replace("_offline", ""))(*a, **kw))
+           for name, (a, kw) in al_calls.items()},
+    }
+    nt = n_term
+    occ = dict(
+        isrbd_linearize_quadruped=k5.occupancy(f32, "quadruped"),
+        isrbd_trial_quadruped=k6.trial_occupancy(f32, "quadruped"),
+        isrbd_evaluate_quadruped=k6.evaluate_occupancy(ns, f32, "quadruped"),
+        **{name: dict(blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32,
+                                                     form, solver),
+                      shared_memory_bytes=k1.shared_memory_bytes(
+                          nx, nu, nt, rows, f32, form, solver))
+           for name, form, solver in K1_FORMS})
+    emit("qc_kernel_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         host_us=host, occupancy=occ)
+    del lin64, lin32, lin_g32, k1_g32, ref64, pin64, iparams, ist, ast
+    del full_prior, tail_prior, priors, al_calls, ast32, full32
+
+    # ---- qc_path: the constrained example's single robot, float32 ----
+    ISRBD_TWINS = ((k1, ("riccati_backward_plain",)),
+                   (k6, ("isrbd_trial_plain", "isrbd_evaluate_plain")),
+                   (k5, ("isrbd_linearize_plain",)))
+    i_coll = k1.KERNEL_INSTANCES.index(("isrbd_al_quadruped", "collapsed", "schur"))
+    i_chol = k1.KERNEL_INSTANCES.index(("isrbd_al_quadruped", "tassa", "cholesky"))
+    COUNTED = ((k5, "isrbd_linearize"), (k6, "isrbd_trial"),
+               (k6, "isrbd_evaluate"), (k78, "isrbd_al_constraints"),
+               (k78, "isrbd_al_shift"), (k78, "isrbd_al_params"),
+               (k78, "isrbd_al_prior_update"), (k1, "riccati_backward"))
+
+    def reset_counts():
+        for mod, entry in COUNTED:
+            getattr(mod, entry).launches = 0
+        k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+
+    def read_counts():
+        out = {entry: getattr(mod, entry).launches for mod, entry in COUNTED}
+        il = k1.riccati_backward.instance_launches
+        out["riccati_backward_isrbd_al_quadruped"] = il[i_coll]
+        out["riccati_backward_isrbd_al_quadruped_tassa_cholesky"] = il[i_chol]
+        return out
+
+    def counting(*inners):
+        """Count the inner solvers' iterations, trials and solves (either
+        entry) in `n`; returns the counter and a function that restores."""
+        n = {"iterations": 0, "trials": 0, "solves": 0}
+        saved = []
+        for s in inners:
+            saved.append((s, s._iteration, s._iteration_batch, s._trial,
+                          s.solve, s.solve_batch))
+
+            def wrap(fn, key):
+                def counted(*a, **kw):
+                    n[key] += 1
+                    return fn(*a, **kw)
+                return counted
+
+            s._iteration = wrap(s._iteration, "iterations")
+            s._iteration_batch = wrap(s._iteration_batch, "iterations")
+            s._trial = wrap(s._trial, "trials")
+            s.solve, s.solve_batch = (wrap(s.solve, "solves"),
+                                      wrap(s.solve_batch, "solves"))
+
+        def restore():
+            for s, it, itb, tr, so, sb in saved:
+                s._iteration, s._iteration_batch, s._trial = it, itb, tr
+                s.solve, s.solve_batch = so, sb
+
+        return n, restore
+
+    def trot_wpg(dtype, device):
+        return WalkingPatternGenerator.build(
+            0.0, ns, dtype=dtype, device=device, group_mask=trot_group_mask(),
+            **QUAD_TOPOLOGY)
+
+    def single_robot(dtype, device, ticks, timed=False, counted=None):
+        """The constrained example's sequence: the offline `ALDDP.solve`
+        from the static input tiled, then `ticks` ticks of the trot WPG's
+        advance, rdot_ref[1:] = (QC_VX, 0, 0), x0 = the plan's node 1 and
+        solve_online(solve_online(shift_warmstart(st))) at max_iters=1.
+        Returns the solvers, the states (offline, then each tick's), the
+        offline ms, the tick ms and the host reads and counts a tick."""
+        prob, off = solvers(dtype, device, 15)
+        _, on = solvers(dtype, device, 1)
+        wpg = trot_wpg(dtype, device)
+        sync = torch.cuda.synchronize if timed else (lambda: None)
+        n, restore = counting(off.inner, on.inner)
+        x0 = prob.initial_state
+        U0 = prob.static_input[None].expand(ns, -1).contiguous()
+        sync()
+        t0 = time.perf_counter()
+        st = off.solve(off.init(x0, U0), x0, prob.ocp.params)
+        sync()
+        off_ms = (time.perf_counter() - t0) * 1e3
+        states, tick_ms, per_tick = [st], [], []
+        params, ws = dict(prob.ocp.params), wpg.init_state()
+        ref = torch.tensor([QC_VX, 0.0, 0.0], dtype=dtype, device=device)
+        walk = torch.tensor(1, dtype=torch.int32, device=device)
+
+        def tick(st, params, ws):
+            params, ws = wpg.advance(params, ws, walk)
+            params["rdot_ref"] = torch.cat(
+                [params["rdot_ref"][:1], ref.expand(ns, 3)], dim=0)
+            x0 = st.sol.X[1]
+            st = on.solve_online(on.solve_online(on.shift_warmstart(st), x0,
+                                                 params), x0, params)
+            return st, params, ws
+
+        for _ in range(ticks):
+            before = (dict(n), on.inner.host_syncs,
+                      read_counts() if counted else None)
+            sync()
+            t0 = time.perf_counter()
+            st, params, ws = tick(st, params, ws)
+            sync()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(st)
+            per_tick.append(dict(
+                iterations=n["iterations"] - before[0]["iterations"],
+                host_reads=on.inner.host_syncs - before[1],
+                **({k: v - before[2][k] for k, v in read_counts().items()}
+                   if counted else {})))
+        restore()
+        step = lambda c: tick(*c)
+        return (dict(off=off, on=on, prob=prob, n=n, step=step,
+                     carry=(st, params, ws)), states, off_ms, tick_ms, per_tick)
+
+    guards, restore_guards = guard_plain(ISRBD_TWINS, al=True)
+    reset_counts()
+    run, states, off_ms, tick_ms, per_tick = single_robot(
+        f32, dev, QC_TICKS, timed=True, counted=True)
+    path_launches = read_counts()
+    restore_guards()
+    n = run["n"]
+    viols = [float(s.viol) for s in states[1:]]
+    last = states[-1]
+    A_fc = torch.as_tensor(linearized_friction_cone_rows(
+        cfg(f32).friction_cone_coefficient), dtype=f32, device=dev)
+    d = run["on"].solution_dict(last)
+    cone_max = max(float((d[f"f{i}"] @ A_fc.T).max()) for i in range(nc))
+    fz_min = min(float(d[f"f{i}"][:, 2].min()) for i in range(nc))
+    hand = lambda L: sum(L[e] for e in ("isrbd_linearize", "riccati_backward",
+                                        "isrbd_trial", "isrbd_evaluate",
+                                        "isrbd_al_constraints", "isrbd_al_shift",
+                                        "isrbd_al_params"))
+    outers = 6 + 2 * QC_TICKS                    # offline outers, two a tick
+    qp = dict(
+        B=1, dtype="float32", ticks=QC_TICKS,
+        options="al_serving_options: offline max_iters=15 (6 outers), online "
+                "max_iters=1, two solve_online a tick after shift_warmstart",
+        walk=f"trot WPG, vx {QC_VX} from tick 0",
+        offline_ms=off_ms, offline_viol=float(states[0].viol),
+        offline_iterations_last_inner=int(states[0].sol.iterations),
+        tick_p50_ms=statistics.median(tick_ms), tick_max_ms=max(tick_ms),
+        tick_mean_ms=statistics.fmean(tick_ms),
+        viol_max_ticks_20_39=max(viols[20:]), viol_final=viols[-1],
+        iterations=n["iterations"], solves=n["solves"], trials=n["trials"],
+        iterations_per_tick=statistics.fmean(t["iterations"] for t in per_tick),
+        host_reads_per_tick=statistics.fmean(t["host_reads"] for t in per_tick),
+        hand_written_launches_per_tick=statistics.fmean(hand(t) for t in per_tick),
+        launches=path_launches,
+        forward_progress_m=float(last.sol.X[0, 0] - run["prob"].initial_state[0]),
+        cone_row_max_N=cone_max, fz_min_N=fz_min,
+        finite=all(bool(torch.isfinite(t).all()) for s in states
+                   for t in (s.sol.X, s.sol.U, s.lam_eq, s.lam_eq_T, s.viol)),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    qp["profile"] = profile_ticks(run["on"].inner, run["step"], run["carry"],
+                                  qp["tick_p50_ms"])
+    emit("qc_path", **qp)
+    L = path_launches
+    if not qp["finite"]:
+        fail("the constrained quadruped trot produced non-finite values")
+    if min(L[k] for k in ("isrbd_linearize", "isrbd_trial", "isrbd_evaluate",
+                          "isrbd_al_constraints", "isrbd_al_shift",
+                          "isrbd_al_params",
+                          "riccati_backward_isrbd_al_quadruped_tassa_cholesky")) == 0:
+        fail(f"a kernel was not launched on the constrained quadruped path: {L}")
+    if not (L["isrbd_linearize"] == L["riccati_backward"]
+            == L["riccati_backward_isrbd_al_quadruped_tassa_cholesky"]
+            == n["iterations"]):
+        fail(f"K5 and K1 (Tassa, Cholesky) launches differ from the "
+             f"{n['iterations']} iterations: {L}")
+    if L["isrbd_trial"] != n["trials"]:
+        fail(f"K6 launches do not cover the {n['trials']} trials: {L}")
+    if not (L["isrbd_evaluate"] == 2 * n["solves"] and n["solves"] == outers):
+        fail(f"isrbd_evaluate launches are not two for each of the "
+             f"{outers} solves: {L}, {n}")
+    if not (L["isrbd_al_constraints"] == L["isrbd_al_params"] == outers):
+        fail(f"K7 and K8b launches are not one an outer ({outers}): {L}")
+    if L["isrbd_al_shift"] != QC_TICKS:
+        fail(f"K8a (the shift) did not launch once a tick: {L}")
+    if (qp["plain_twin_calls"] or qp["al_twin_calls"] or qp["torch_func_calls"]
+            or qp["plain_cost_or_defect_calls"]):
+        fail(f"the constrained quadruped path ran plain twins on the card: {qp}")
+    if not qp["offline_viol"] < 1e-3:
+        fail(f"the offline solve's violation {qp['offline_viol']} is not below 1e-3")
+    if not qp["viol_max_ticks_20_39"] < VIOL_LIMIT:
+        fail(f"the trot's violation over ticks 20-39 "
+             f"{qp['viol_max_ticks_20_39']} is not below {VIOL_LIMIT}")
+    if not qp["forward_progress_m"] > QC_VX:
+        fail(f"the constrained trot advanced {qp['forward_progress_m']} m, not "
+             f"more than {QC_VX}")
+    if not (cone_max < QC_CONE_N and fz_min > -QC_CONE_N):
+        fail(f"the plan leaves the friction cones: F·A_fcᵀ max {cone_max}, "
+             f"F_z min {fz_min}")
+
+    # ---- qc_card_vs_cpu: the offline solve and 3 ticks in float64 ----
+    _, st_card, _, _, _ = single_robot(f64, dev, 3)
+    _, st_cpu, _, _, _ = single_robot(f64, "cpu", 3)
+    both = lambda f: max(rel_err(f(a).cpu(), f(b)) for a, b in zip(st_card, st_cpu))
+    qvc = dict(
+        B=1, steps=len(st_cpu), tol=1e-9,
+        iterations_equal=all(int(a.sol.iterations) == int(b.sol.iterations)
+                             for a, b in zip(st_card, st_cpu)),
+        converged_equal=all(bool(a.sol.converged) == bool(b.sol.converged)
+                            for a, b in zip(st_card, st_cpu)),
+        X_rel_err=both(lambda s: s.sol.X), U_rel_err=both(lambda s: s.sol.U),
+        lam_rel_err=both(lambda s: s.lam_eq), lam_T_rel_err=both(lambda s: s.lam_eq_T),
+        viol_cpu=[float(b.viol) for b in st_cpu])
+    emit("qc_card_vs_cpu", **qvc)
+    if not (qvc["iterations_equal"] and qvc["converged_equal"]
+            and max(qvc["X_rel_err"], qvc["U_rel_err"], qvc["lam_rel_err"],
+                    qvc["lam_T_rel_err"]) <= 1e-9):
+        fail("the constrained quadruped card path and CPU path disagree")
+
+    # ---- qc_fleet_path: the constrained tick at B=256, float32 ----
+    def fleet(Bsz, warm, timed):
+        """The fleet's serving tick (`constrained_tick`, outers=2, inner
+        max_iters=1, FullPhasePrior at EMA 1, the trot WPG), seeded by the
+        batched offline solve from x0 = nominal + 0.01·N(0,1) (seed 11);
+        standing, then walking at QC_VX from tick 10. 1 + `warm` ticks,
+        then `timed` ticks."""
+        prob, off = solvers(f32, dev, 15)
+        _, on = solvers(f32, dev, 1)
+        wpg = trot_wpg(f32, dev)
+        gg = np.random.RandomState(11)
+        x0 = prob.initial_state[None] + torch.as_tensor(
+            0.01 * gg.randn(Bsz, nx), dtype=f32, device=dev)
+        U0 = prob.static_input[None].expand(ns, -1)
+        params = {k: v.expand((Bsz,) + tuple(v.shape)).contiguous()
+                  for k, v in prob.ocp.params.items()}
+        period = 2 * wpg.step_nodes
+        stand = torch.zeros(Bsz, dtype=torch.int32, device=dev)
+        walk = torch.ones(Bsz, dtype=torch.int32, device=dev)
+        still = torch.zeros(Bsz, 3, dtype=f32, device=dev)
+        go = torch.tensor([[QC_VX, 0.0, 0.0]], dtype=f32, device=dev).expand(
+            Bsz, -1).contiguous()
+        n, restore = counting(on.inner, off.inner)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = off.solve_batch(off.init(x0, U0), x0, params)
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+        seed_viol = float(st.viol.max())
+        state = [st, params, wpg.init_state((Bsz,)),
+                 on.init_full_phase_prior(period, Bsz), 0]
+
+        def step(s):
+            st, params, ws, pr, k = s
+            st, params, ws, pr = constrained_tick(
+                on, wpg, st, params, ws, walk if k >= 10 else stand,
+                go if k >= 10 else still, prior=pr, outers=2, prior_ema=1.0)
+            return [st, params, ws, pr, k + 1]
+
+        for _ in range(1 + warm):
+            state = step(state)
+        torch.cuda.synchronize()
+        before = dict(n, syncs=on.inner.host_syncs, **read_counts())
+        tms, viols = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            state = step(state)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            viols.append(float(state[0].viol.max()))
+        after = dict(n, syncs=on.inner.host_syncs, **read_counts())
+        restore()
+        st = state[0]
+        window = {k: after[k] - before[k] for k in after}
+        res = dict(
+            B=Bsz, dtype="float32", warmup_ticks=1 + warm, ticks=timed,
+            online_iters=1, outers=2, phase_prior="full", prior_ema=1.0,
+            walk=f"standing, then vx {QC_VX} from tick 10",
+            seed_seconds=seed_s, seed_viol_max=seed_viol,
+            window_viol_max=max(viols), final_viol_max=viols[-1],
+            tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+            tick_mean_ms=statistics.fmean(tms),
+            solves_per_s=Bsz / statistics.median(tms) * 1e3,
+            syncs_per_tick=window["syncs"] / timed, timed_window=window,
+            finite=all(bool(torch.isfinite(t).all()) for t in
+                       (st.sol.X, st.sol.U, st.lam_eq, st.lam_eq_T, st.viol,
+                        st.sol.cost)),
+            card=card)
+        return res, on, step, state
+
+    guards, restore_guards = guard_plain(ISRBD_TWINS, al=True)
+    reset_counts()
+    fp, fon, fstep, fstate = fleet(Bc, warm=60, timed=20)
+    fleet_launches = read_counts()
+    restore_guards()
+    fp.update({k: v["n"] for k, v in guards.items()})
+    fp["launches"] = fleet_launches
+    fstate, fp["spans"] = tick_spans(fon.inner, fstep, fstate, ticks=5)
+    fp["profile"] = profile_ticks(fon.inner, fstep, fstate, fp["tick_p50_ms"])
+    fp["device_busy_ms_per_tick"] = fp["profile"]["device_busy_ms_per_tick"]
+    fp["device_idle_share"] = fp["profile"]["device_idle_share"]
+    fp["launches_by_span"] = fp["profile"]["launches_by_span"]
+    emit("qc_fleet_path", **fp)
+    w, ticks = fp["timed_window"], fp["ticks"]
+    if not fp["finite"]:
+        fail("the constrained quadruped fleet produced non-finite values")
+    if min(fleet_launches[k] for k in (
+            "isrbd_linearize", "riccati_backward_isrbd_al_quadruped",
+            "isrbd_trial", "isrbd_evaluate", "isrbd_al_constraints",
+            "isrbd_al_shift", "isrbd_al_params", "isrbd_al_prior_update")) == 0:
+        fail(f"a kernel was not launched on the constrained quadruped fleet: "
+             f"{fleet_launches}")
+    if not (w["isrbd_linearize"] == w["riccati_backward"]
+            == w["riccati_backward_isrbd_al_quadruped"] == w["iterations"] > 0):
+        fail(f"K5, K1 and the iterations differ over the timed ticks: {w}")
+    if w["isrbd_trial"] != w["trials"]:
+        fail(f"K6 launches do not cover the trials over the timed ticks: {w}")
+    if not (w["isrbd_evaluate"] == 2 * w["solves"] == 2 * 2 * ticks):
+        fail(f"isrbd_evaluate launches are not two a solve (two solves a "
+             f"tick): {w}")
+    if not (w["isrbd_al_constraints"] == w["isrbd_al_params"] == 2 * ticks
+            and w["isrbd_al_shift"] == w["isrbd_al_prior_update"] == ticks):
+        fail(f"K7/K8b are not once an outer, or K8a/K8c once a tick, over the "
+             f"{ticks} timed ticks: {w}")
+    if (fp["plain_twin_calls"] or fp["al_twin_calls"] or fp["torch_func_calls"]
+            or fp["plain_cost_or_defect_calls"]):
+        fail(f"the constrained quadruped fleet ran plain twins on the card: {fp}")
+    if not fp["window_viol_max"] < VIOL_LIMIT:
+        fail(f"the quadruped fleet's violation {fp['window_viol_max']} over the "
+             f"timed ticks is not below {VIOL_LIMIT}")
+    del fstate, fstep, fon
+    large, *_ = fleet(B_LARGE, warm=2, timed=2)
+    emit("qc_fleet_path_large", **large)
+
+    # ---- the kernel rows ----
+    both = lambda k: path_launches[k] + fleet_launches[k]
+    lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+
+    def row(name, mod, launches, err, tol32, Bt=Bc, **extra):
+        tt = times[name][Bt]
+        return kernel_row(name, mod, launches, tt["ms"], tt["plain_ms"],
+                          tt["bound_ms"], tt["bound_by"], err, tol32, B=Bt,
+                          shape="isrbd quadruped (QuadAlShape)",
+                          ms_by_B={str(b): v["ms"] for b, v in times[name].items()},
+                          host_us=host[name], **occ.get(name, {}), **extra)
+
+    per_path = lambda k: dict(launches_qc_path=path_launches[k],
+                              launches_qc_fleet_path=fleet_launches[k])
+    rows_out = [
+        row("isrbd_linearize_quadruped", k5, both("isrbd_linearize"), k5_err,
+            lin_tol, **per_path("isrbd_linearize")),
+        row("riccati_backward_isrbd_al_quadruped", k1,
+            fleet_launches["riccati_backward_isrbd_al_quadruped"], k1_err,
+            K1_F32_TOL, live_b_columns=len(rows.uc),
+            launches_of="qc_fleet_path (the collapsed sweep of solve_batch)"),
+        dict(row("riccati_backward_isrbd_al_quadruped_tassa_cholesky", k1,
+                 path_launches["riccati_backward_isrbd_al_quadruped_tassa_cholesky"],
+                 tassa_err, K1_F32_TOL, Bt=1, quu_solver="cholesky",
+                 launches_of="qc_path (ALDDP.solve / solve_online's Tassa sweep)"),
+             replaces=k1.TASSA_REPLACES),
+        row("isrbd_trial_quadruped", k6, both("isrbd_trial"), k6_err, trial_tol,
+            ms_4alpha=times["isrbd_trial_quadruped"][Bc]["ms_4alpha"],
+            **per_path("isrbd_trial")),
+        dict(row("isrbd_evaluate_quadruped", k6, both("isrbd_evaluate"), ev_err,
+                 trial_tol, pinned=True, **per_path("isrbd_evaluate")),
+             replaces=k6.EVALUATE_REPLACES),
+    ]
+    for e, key, replaces, tol32 in (
+            ("isrbd_al_constraints", "k7", k78.REPLACES, trial_tol),
+            ("isrbd_al_shift", "k8a", k78.SHIFT_REPLACES, "bit-equal"),
+            ("isrbd_al_params", "k8b", k78.PARAMS_REPLACES, "bit-equal"),
+            ("isrbd_al_prior_update", "k8c", k78.PRIOR_REPLACES, "bit-equal")):
+        extra = {}
+        if e == "isrbd_al_constraints":
+            off = times["isrbd_al_constraints_offline_quadruped"][Bc]
+            extra = dict(mode="online (the serving tick)", ms_offline=off["ms"],
+                         plain_ms_offline=off["plain_ms"],
+                         bound_ms_offline=off["bound_ms"])
+        rows_out.append(dict(
+            row(e + "_quadruped", k78, both(e), al_errs[key], tol32,
+                **per_path(e), **extra),
+            replaces=replaces,
+            tol_f64=AL_F64_TOL if key == "k7" else "bit-equal"))
+    emit("quadruped_constrained_section",
+         seconds=time.perf_counter() - t_section, card=card)
     return rows_out
 
 
@@ -2780,40 +3622,9 @@ def main():
     n_eq, n_eq_T, n_in = al64._sizes
     g = np.random.RandomState(SEED + 2)
     t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
-    # a linearization point around the walk with a non-unit quaternion,
-    # forces with large horizontal parts (active cones), boxes drawn inside
-    # the data (active on either side), random multipliers and penalties
-    Xi = np.zeros((Bc, ns + 1, inx))
-    Xi[..., 0:3] = [0.0, 0.0, 0.88] + 0.05 * g.randn(Bc, ns + 1, 3)
-    Xi[..., 3:7] = [0.1, -0.2, 0.05, 0.97] + 0.02 * g.randn(Bc, ns + 1, 4)
-    Xi[..., 7:] = g.uniform(-0.3, 0.3, (Bc, ns + 1, inx - 7))
-    Ui = 0.5 * g.randn(Bc, ns, inu)
-    for q in range(nc):
-        Ui[..., 9 + 6 * q:12 + 6 * q] = ([0.0, 0.0, 98.0]
-                                         + [60.0, 60.0, 5.0] * g.randn(Bc, ns, 3))
-    pos = lambda *shape: t64(np.abs(g.randn(*shape)))
-    ist = al64.init(t64(Xi[:, 0]))._replace(
-        lam_eq=t64(g.randn(Bc, ns, n_eq)), lam_eq_T=t64(g.randn(Bc, n_eq_T)),
-        mu_ub=5.0 * pos(Bc, ns, n_in), mu_lb=pos(Bc, ns, n_in),
-        mu_x_ub=pos(Bc, ns + 1, inx), mu_x_lb=pos(Bc, ns + 1, inx),
-        mu_u_ub=pos(Bc, ns, inu), mu_u_lb=pos(Bc, ns, inu),
-        rho=t64(10.0 ** g.uniform(3, 5, Bc)))
-    iparams = {k: v.expand((Bc,) + tuple(v.shape)).contiguous()
-               for k, v in iocp.params.items()}
-    for k in ("mask_track", "mask_srbd", "mask_lip", "mask_lipzone"):
-        iparams[k] = t64(g.randint(0, 2, tuple(iparams[k].shape)))
-    iparams["Wo"] = pos(Bc, ns + 1, 1)
-    iparams["rdot_ref"] = t64(0.1 * g.randn(Bc, ns + 1, 3))
-    iparams["c_ref"] = 0.05 * pos(Bc, ns + 1, nc)
-    for name, lo, hi in (("x", -0.1, 0.1), ("u", 60.0, 130.0)):
-        lb = getattr(iocp, f"{name}_lb").expand(Bc, -1, -1).clone()
-        ub = getattr(iocp, f"{name}_ub").expand(Bc, -1, -1).clone()
-        fin = torch.isfinite(ub)
-        lb[fin], ub[fin] = lo, hi
-        iparams[f"{name}_lb"], iparams[f"{name}_ub"] = lb, ub
-    pin64 = {k: v.contiguous()
-             for k, v in al64._params_with_multipliers(iparams, ist).items()}
-    Xi, Ui = t64(Xi), t64(Ui)
+    # a linearization point around the walk (draw_isrbd_point)
+    Xi, Ui, ist, iparams, pin64 = draw_isrbd_point(
+        al64, Bc, g, dev, com_z=0.88, fz=98.0, fxy=60.0, u_box=(60.0, 130.0))
 
     def k5_args(dtype):
         a = al64 if dtype == torch.float64 else al32
@@ -2903,9 +3714,6 @@ def main():
     ast = ist._replace(sol=ist.sol._replace(X=Xi, U=Ui_nan),
                        lam_eq=ist.lam_eq.clone())
     ast.lam_eq[7, 2, 4] = float("nan")
-    al_static = {k: v for k, v in iparams.items()
-                 if k not in ("x_lb", "x_ub", "u_lb", "u_ub")}
-    al_partial = {k: v for k, v in iparams.items() if k not in ("x_ub", "u_lb")}
     al_viol_later = t64(10.0 ** g.uniform(-3, 3, Bc))
     P_al = 20
     al_phase = torch.as_tensor(g.randint(0, P_al, Bc), dtype=torch.int32,
@@ -2922,60 +3730,14 @@ def main():
     full_prior.lam_eq[7, :, 1, 1] = float("nan")
     tail_prior.lam_tail[7, :, 3] = float("nan")
     priors = {"none": None, "tail": tail_prior, "full": full_prior}
-    al_err = {}
-    for bname, pp in (("static", al_static), ("boxes", iparams)):
-        al_err[f"k7_eval_{bname}"] = al_check(
-            "al_check", k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
-            lambda d: ((AL(d), cast(Xi, d), cast(Ui_nan, d),
-                        {k: cast(v, d) for k, v in pp.items()}), {}),
-            exact=False, nan_member=7, entry="isrbd_al_constraints",
-            mode="eval", bounds=bname, B=Bc)
-        for mode in ("online", "offline"):
-            for outer, vp in (("first", ast.viol), ("later", al_viol_later)):
-                st_m = ast._replace(viol=vp)
-                al_err[f"k7_{mode}_{bname}_{outer}"] = al_check(
-                    "al_check", k78.isrbd_al_constraints,
-                    k78.isrbd_al_constraints_plain,
-                    lambda d: ((AL(d), cast(Xi, d), cast(Ui_nan, d),
-                                {k: cast(v, d) for k, v in pp.items()}),
-                               dict(st=cast_tree(st_m, d),
-                                    offline=mode == "offline")),
-                    exact=False, nan_member=7, entry="isrbd_al_constraints",
-                    mode=mode, bounds=bname, outer=outer, B=Bc)
-    for pkind, pr in priors.items():
-        al_err[f"k8a_{pkind}"] = al_check(
-            "al_check", k78.isrbd_al_shift, k78.isrbd_al_shift_plain,
-            lambda d: ((AL(d), cast_tree(ast, d),
-                        None if pr is None else cast_tree(pr, d),
-                        None if pr is None else al_phase), {}),
-            exact=True, nan_member=7, entry="isrbd_al_shift", prior=pkind, B=Bc)
-    for bname, pp in (("static", al_static), ("boxes", iparams),
-                      ("x_lb_u_ub", al_partial)):
-        al_err[f"k8b_{bname}"] = al_check(
-            "al_check", k78.isrbd_al_params, k78.isrbd_al_params_plain,
-            lambda d: ((AL(d), {k: cast(v, d) for k, v in pp.items()},
-                        cast_tree(ast, d)), {}),
-            exact=True, nan_member=7, entry="isrbd_al_params", bounds=bname,
-            B=Bc)
-    for pkind in ("tail", "full"):
-        for ema in (0.5, 1.0):
-            al_err[f"k8c_{pkind}_{ema}"] = al_check(
-                "al_check", k78.isrbd_al_prior_update,
-                k78.isrbd_al_prior_update_plain,
-                lambda d: ((AL(d), cast_tree(priors[pkind], d),
-                            cast_tree(ast, d), al_phase, ema), {}),
-                exact=True, nan_member=7, entry="isrbd_al_prior_update",
-                prior=pkind, ema=ema, B=Bc)
-    worst = lambda prefix, key: max(v[key] for k, v in al_err.items()
-                                    if k.startswith(prefix))
-    al_errs = {e: {key: worst(e, key) for key in ("e64", "e32", "p32", "abs32")}
-               for e in ("k7", "k8a", "k8b", "k8c")}
+    al_errs = al_entry_checks("al_check", AL, Xi, Ui_nan, ast, iparams,
+                              al_viol_later, priors, al_phase, nan_member=7)
 
     # their times at the serving path's shapes, modes and type (float32,
     # B=256, static bounds, the full prior; no NaN)
     ast32 = cast_tree(ast._replace(sol=ast.sol._replace(U=Ui)), torch.float32)
     ast32.lam_eq[7, 2, 4] = 0.0
-    ap32 = {k: cast(v, torch.float32) for k, v in al_static.items()}
+    ap32 = {k: cast(v, torch.float32) for k, v in static_bounds(iparams).items()}
     full32 = cast_tree(full_prior, torch.float32)
     full32.lam_eq[7] = 0.0
     Xi32, Ui32 = cast(Xi, torch.float32), cast(Ui, torch.float32)
@@ -2992,33 +3754,7 @@ def main():
         entry = name.replace("_offline", "")
         kern, twin = getattr(k78, entry), getattr(k78, entry + "_plain")
         res = kern(*a, **kw)
-        if entry == "isrbd_al_constraints":
-            ins = [Xi32, Ui32, *(ap32[k] for k in ("c_ref", "mask_srbd",
-                                                   "mask_lip", "mask_lipzone")),
-                   *al32._bounds, ast32.lam_eq, ast32.lam_eq_T, ast32.rho]
-            if kw.get("offline"):
-                ins += [ast32.viol] + [getattr(ast32, f) for f in k78.MULTIPLIERS[2:]]
-            n_bytes = al_bytes(ins, res)
-            flop = al_constraints_flops(Bc, ns, inx, inu, n_eq, n_eq_T, n_in)
-        elif entry == "isrbd_al_shift":
-            # the rolled state and λ_T, one table row and its flag a member
-            n_bytes = al_bytes([ast32.sol.X, ast32.sol.U, ast32.lam_eq_T,
-                                *(getattr(ast32, f) for f in k78.ROLLED)], res)
-            n_bytes += Bc * (ns * n_eq + n_eq_T) * 4 + Bc + nbytes(al_phase)
-            flop = 0
-        elif entry == "isrbd_al_params":
-            written = {k: v for k, v in res.items()
-                       if k in ("al_lam_eq", "al_lam_eq_T", "al_mu_ub",
-                                "al_mu_lb", "al_rho", "al_mu_u_ub", "al_mu_u_lb")}
-            n_bytes = al_bytes([ast32.lam_eq, ast32.lam_eq_T, ast32.mu_ub,
-                                ast32.mu_lb, ast32.rho, ast32.mu_u_ub,
-                                ast32.mu_u_lb], written)
-            flop = 0
-        else:
-            # the whole tables read and written anew (out of place)
-            n_bytes = al_bytes([ast32.lam_eq, ast32.lam_eq_T, al_phase,
-                                *full32], res)
-            flop = 3 * Bc * (ns * n_eq + n_eq_T)
+        n_bytes, flop = al_call_work(al32, name, a, kw, res)
         b_ms, b_by = bound(n_bytes, flop)
         # one member (its latency) and a large fleet, members repeated
         by_B = {}
@@ -3789,6 +4525,9 @@ def main():
     # ---------------- phase 11: the quadruped trot ----------------
     quad_rows = quadruped_section(card, dev, sms)
 
+    # ---------------- phase 12: the constrained quadruped trot ----------
+    qc_rows = quadruped_constrained_section(card, dev, sms)
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -3884,7 +4623,7 @@ def main():
                        shared_memory_bytes=t["shared_memory_bytes"],
                        blocks_per_sm=t["blocks_per_sm"]),
             replaces=k1.TASSA_REPLACES))
-    kernels += lip_rows + quad_rows
+    kernels += lip_rows + quad_rows + qc_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

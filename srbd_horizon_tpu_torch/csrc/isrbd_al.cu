@@ -57,7 +57,8 @@
 // csrc/dmma.cuh), forms every stage node's R I Rᵀ and Iw ω on one warp (a
 // node a lane) while the other warps take the cone and box rows, then the
 // equality rows, and reduces the violation over the block. Compiled for
-// `isrbd::Shape` only; the prior tables' period P and ns are run-time.
+// the shapes of csrc/isrbd_common.cuh only (`AL<S>` holds K7's constants
+// at each); the prior tables' period P and ns are run-time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -67,16 +68,12 @@
 
 namespace {
 
-using isrbd::L;
-using isrbd::Shape;
 using rigid::nan_max;
 using isrbd::relu_nan;
+using isrbd::kUnknownShape;
 
-constexpr int kUnknownShape = -2;    // the sizes are not isrbd::Shape's
 constexpr int kThreads = 256;        // a member a block
 constexpr int kWarps = kThreads / 32;
-constexpr int nx = Shape::nx, nu = Shape::nu, nc = Shape::nc;
-constexpr int n_eq = Shape::n_eq, n_eq_T = Shape::n_eq_T, n_in = Shape::n_in;
 
 // Each product and sum rounded on its own, as separate torch ops round
 // them (nvcc would otherwise contract a·b + c into one fused multiply-add).
@@ -138,91 +135,101 @@ struct Ptrs {
   long long stride[4];               // x_lb, x_ub, u_lb, u_ub: member strides
 };
 
-// The host scalars (kernels/isrbd_al.py::al_scalars): isrbd::Consts' (dt, m,
-// …, S, √w, S_T, √w_T), then w (n_eq), w_T (n_eq_T), viol_decrease, tol,
-// rho_growth, rho_max.
-template <typename T>
-struct AlConsts {
-  isrbd::Consts<T> k;
-  T w[n_eq], w_T[n_eq_T];
-  T viol_decrease, tol, rho_growth, rho_max;
-};
+// K7's sizes, constants and device code at the shape S (the kernels
+// below take AL<S>'s pieces; K8 reads its sizes).
+template <class S>
+struct AL {
+  using L = isrbd::Layout<S>;
+  static constexpr int nx = S::nx, nu = S::nu, nc = S::nc, n_eq = S::n_eq,
+                       n_eq_T = S::n_eq_T, n_in = S::n_in;
 
-constexpr int kConstScalars = isrbd::kFixedScalars + 2 * n_eq + 2 * n_eq_T;
+  // The host scalars (kernels/isrbd_al.py::al_scalars): isrbd::Consts' (dt, m,
+  // …, S, √w, S_T, √w_T), then w (n_eq), w_T (n_eq_T), viol_decrease, tol,
+  // rho_growth, rho_max.
+  template <typename T>
+  struct AlConsts {
+    isrbd::Consts<S, T> k;
+    T w[n_eq], w_T[n_eq_T];
+    T viol_decrease, tol, rho_growth, rho_max;
+  };
 
-template <typename T>
-AlConsts<T> make_al_consts(const double* s) {
-  AlConsts<T> c;
-  c.k = isrbd::make_consts<T>(s);
-  const double* r = s + kConstScalars;
-  for (int i = 0; i < n_eq; ++i) c.w[i] = static_cast<T>(r[i]);
-  for (int i = 0; i < n_eq_T; ++i) c.w_T[i] = static_cast<T>(r[n_eq + i]);
-  r += n_eq + n_eq_T;
-  c.viol_decrease = static_cast<T>(r[0]);
-  c.tol = static_cast<T>(r[1]);
-  c.rho_growth = static_cast<T>(r[2]);
-  c.rho_max = static_cast<T>(r[3]);
-  return c;
-}
+  static constexpr int kConstScalars = isrbd::kFixedScalars + 2 * n_eq + 2 * n_eq_T;
 
-// One node's record in shared memory: x and u side by side, then the
-// slots of the packed parameter row (isrbd::Layout) up to the LIP-zone
-// mask, of which K7 fills c_ref and the three model masks, the only
-// parameters the equality rows read.
-struct Rec {
-  static constexpr int xu = 0, p = L::n_xu, size = p + L::p_mzone + 1;
-};
-constexpr int kGeo = 12;             // a stage node's Iw (9) and Iw ω (3)
-
-template <typename T>
-size_t constraints_smem_bytes(int ns) {
-  return sizeof(T) * ((ns + 1) * Rec::size + ns * kGeo + kWarps);
-}
-
-// The node's world inertia Iw = (R I) Rᵀ and Iw ω as the twin forms them
-// (models/srbd.py::world_inertia and srbd_residual: matrix products).
-template <typename T>
-__device__ __forceinline__ void node_inertia(const T* x, const isrbd::Consts<T>& k,
-                                             T* out) {
-  T R[9], RI[9];
-  rigid::quat_to_rot(x + 3, R);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) RI[i * 3 + j] = dot3(R + i * 3, 1, k.I + j, 3);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[i * 3 + j] = dot3(RI + i * 3, 1, R + j * 3, 1);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) out[9 + i] = dot3(out + i * 3, 1, x + L::i_w, 1);
-}
-
-// Unscaled equality h_q of the stage stack: isrbd::stage_eq_h, but the
-// Euler rows Iw ω̇ + ω×Iw ω − Σ(c−r)×f with their products formed as the
-// twin forms them (dot3), from the node's Iw and Iw ω in `gs`.
-template <typename T>
-__device__ __forceinline__ T eq_row(int q, const T* xu, const T* p, const T* gs,
-                                    const isrbd::Consts<T>& k) {
-  if (q < L::q_euler || q >= L::q_lip) {
-    const isrbd::Geometry<T> none{};                 // read by the Euler rows only
-    return isrbd::stage_eq_h(q, xu, p, none, k);
+  template <typename T>
+  static AlConsts<T> make_al_consts(const double* s) {
+    AlConsts<T> c;
+    c.k = isrbd::make_consts<S, T>(s);
+    const double* r = s + kConstScalars;
+    for (int i = 0; i < n_eq; ++i) c.w[i] = static_cast<T>(r[i]);
+    for (int i = 0; i < n_eq_T; ++i) c.w_T[i] = static_cast<T>(r[n_eq + i]);
+    r += n_eq + n_eq_T;
+    c.viol_decrease = static_cast<T>(r[0]);
+    c.tol = static_cast<T>(r[1]);
+    c.rho_growth = static_cast<T>(r[2]);
+    c.rho_max = static_cast<T>(r[3]);
+    return c;
   }
-  const int a = q - L::q_euler, a1 = (a + 1) % 3, a2 = (a + 2) % 3;
-  const T* r = xu;
-  const T* w = xu + L::i_w;
-  const T* u = xu + nx;
-  const T Iwd = dot3(gs + 3 * a, 1, u + 3, 1);
-  const T wxh = w[a1] * gs[9 + a2] - w[a2] * gs[9 + a1];
-  T tau = T(0);
-#pragma unroll
-  for (int c = 0; c < nc; ++c) {
-    const T* cc = xu + L::i_c + 3 * c;
-    const T* f = u + isrbd::col_f(c, 0);
-    tau += (cc[a1] - r[a1]) * f[a2] - (cc[a2] - r[a2]) * f[a1];
+
+  // One node's record in shared memory: x and u side by side, then the
+  // slots of the packed parameter row (isrbd::Layout) up to the LIP-zone
+  // mask, of which K7 fills c_ref and the three model masks, the only
+  // parameters the equality rows read.
+  struct Rec {
+    static constexpr int xu = 0, p = L::n_xu, size = p + L::p_mzone + 1;
+  };
+  static constexpr int kGeo = 12;             // a stage node's Iw (9) and Iw ω (3)
+
+  template <typename T>
+  static size_t constraints_smem_bytes(int ns) {
+    return sizeof(T) * ((ns + 1) * Rec::size + ns * kGeo + kWarps);
   }
-  return p[L::p_msrbd] * ((Iwd + wxh) - tau);
-}
+
+  // The node's world inertia Iw = (R I) Rᵀ and Iw ω as the twin forms them
+  // (models/srbd.py::world_inertia and srbd_residual: matrix products).
+  template <typename T>
+  __device__ static __forceinline__ void node_inertia(const T* x, const isrbd::Consts<S, T>& k,
+                                               T* out) {
+    T R[9], RI[9];
+    rigid::quat_to_rot(x + 3, R);
+  #pragma unroll
+    for (int i = 0; i < 3; ++i)
+  #pragma unroll
+      for (int j = 0; j < 3; ++j) RI[i * 3 + j] = dot3(R + i * 3, 1, k.I + j, 3);
+  #pragma unroll
+    for (int i = 0; i < 3; ++i)
+  #pragma unroll
+      for (int j = 0; j < 3; ++j) out[i * 3 + j] = dot3(RI + i * 3, 1, R + j * 3, 1);
+  #pragma unroll
+    for (int i = 0; i < 3; ++i) out[9 + i] = dot3(out + i * 3, 1, x + L::i_w, 1);
+  }
+
+  // Unscaled equality h_q of the stage stack: isrbd::stage_eq_h, but the
+  // Euler rows Iw ω̇ + ω×Iw ω − Σ(c−r)×f with their products formed as the
+  // twin forms them (dot3), from the node's Iw and Iw ω in `gs`.
+  template <typename T>
+  __device__ static __forceinline__ T eq_row(int q, const T* xu, const T* p,
+                                             const T* gs,
+                                             const isrbd::Consts<S, T>& k) {
+    if (q < L::q_euler || q >= L::q_lip) {
+      const isrbd::Geometry<T> none{};                 // read by the Euler rows only
+      return isrbd::stage_eq_h(q, xu, p, none, k);
+    }
+    const int a = q - L::q_euler, a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+    const T* r = xu;
+    const T* w = xu + L::i_w;
+    const T* u = xu + nx;
+    const T Iwd = dot3(gs + 3 * a, 1, u + 3, 1);
+    const T wxh = w[a1] * gs[9 + a2] - w[a2] * gs[9 + a1];
+    T tau = T(0);
+  #pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const T* cc = xu + L::i_c + 3 * c;
+      const T* f = u + isrbd::col_f(c, 0);
+      tau += (cc[a1] - r[a1]) * f[a2] - (cc[a2] - r[a2]) * f[a1];
+    }
+    return p[L::p_msrbd] * ((Iwd + wxh) - tau);
+  }
+};
 
 // max(0, v − ub) where ub is finite, max(0, lb − v) where lb is, the larger
 // (a NaN v gives NaN on a finite side, 0 on an infinite one).
@@ -239,10 +246,15 @@ __device__ __forceinline__ T side(T mu, T rho, T gap, T bound) {
   return isfinite(bound) ? relu_nan(add_rn(mu, mul_rn(rho, gap))) : T(0);
 }
 
-template <typename T, int kMode>
+template <class S, typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
-                            const __grid_constant__ AlConsts<T> c) {
+                            const __grid_constant__ typename AL<S>::template AlConsts<T> c) {
+  using C = AL<S>;
+  using L = typename C::L;
+  using Rec = typename C::Rec;
+  constexpr int nx = C::nx, nu = C::nu, nc = C::nc, n_eq = C::n_eq,
+                n_eq_T = C::n_eq_T, n_in = C::n_in, kGeo = C::kGeo;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ns1 = ns + 1;
@@ -250,7 +262,7 @@ isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
   T* red = geo + ns * kGeo;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t b = blockIdx.x;
-  const isrbd::Consts<T>& k = c.k;
+  const isrbd::Consts<S, T>& k = c.k;
   constexpr bool kOff = kMode == kOffline;
 
   // stage the member's nodes: x, u, c_ref and the masks
@@ -276,7 +288,7 @@ isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
   // warp 0: every stage node's world inertia and Iw ω, a node a lane
   if (warp == 0)
     for (int n = lane; n < ns; n += 32)
-      node_inertia(s + n * Rec::size + Rec::xu, k, geo + n * kGeo);
+      C::node_inertia(s + n * Rec::size + Rec::xu, k, geo + n * kGeo);
 
   // the cones: g = A_fc f ≤ 0 (bounded above by 0 only)
   for (int i = tid; i < ns * n_in; i += kThreads) {
@@ -329,7 +341,7 @@ isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
   for (int i = tid; i < ns * n_eq; i += kThreads) {
     const int n = i / n_eq, q = i - n * n_eq;
     const T* rec = s + n * Rec::size;
-    const T h = k.S[q] * eq_row(q, rec + Rec::xu, rec + Rec::p, geo + n * kGeo, k);
+    const T h = k.S[q] * C::eq_row(q, rec + Rec::xu, rec + Rec::p, geo + n * kGeo, k);
     vmax = nan_max(vmax, isrbd::abs_nan(h));
     const size_t o = b * ns * n_eq + i;
     if (kMode == kEval)
@@ -403,10 +415,12 @@ __device__ __forceinline__ void roll(T* __restrict__ out,
   }
 }
 
-template <typename T, int kPrior>
+template <class S, typename T, int kPrior>
 __global__ void __launch_bounds__(kThreads)
 isrbd_al_shift_kernel(const ShiftPtrs<T> P, int ns, int period,
                       const void* phase, int phase_bytes) {
+  constexpr int nx = S::nx, nu = S::nu, n_eq = S::n_eq, n_eq_T = S::n_eq_T,
+                n_in = S::n_in;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int ns1 = ns + 1;
@@ -472,9 +486,10 @@ __device__ __forceinline__ void pad_node(T* __restrict__ out,
     out[i] = i < ns * kDim ? in[i] : pad;
 }
 
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(kThreads)
 isrbd_al_params_kernel(const ParamsPtrs<T> P, int ns) {
+  constexpr int nu = S::nu, n_eq = S::n_eq, n_eq_T = S::n_eq_T, n_in = S::n_in;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int ns1 = ns + 1;
@@ -513,10 +528,11 @@ struct PriorPtrs {
   bool* seen_T_out;
 };
 
-template <typename T, int kPrior>
+template <class S, typename T, int kPrior>
 __global__ void __launch_bounds__(kThreads)
 isrbd_al_prior_update_kernel(const PriorPtrs<T> P, int ns, int period,
                              const void* phase, int phase_bytes, T ome, T e) {
+  constexpr int n_eq = S::n_eq, n_eq_T = S::n_eq_T;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int ph = phase_at(phase, phase_bytes, b, 0, period);
@@ -552,10 +568,6 @@ isrbd_al_prior_update_kernel(const PriorPtrs<T> P, int ns, int period,
 
 // ---- launches ----
 
-bool is_shape(int nc_, int cm, int n_legs) {
-  return nc_ == Shape::nc && cm == Shape::cm && n_legs == Shape::n_legs;
-}
-
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -563,39 +575,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int kMode>
+template <class S, typename T, int kMode>
 int launch_constraints_mode(const Ptrs<T>& P, int B, int ns,
-                            const AlConsts<T>& c, cudaStream_t stream) {
-  const size_t bytes = constraints_smem_bytes<T>(ns);
-  auto kernel = isrbd_al_constraints_kernel<T, kMode>;
+                            const typename AL<S>::template AlConsts<T>& c,
+                            cudaStream_t stream) {
+  const size_t bytes = AL<S>::template constraints_smem_bytes<T>(ns);
+  auto kernel = isrbd_al_constraints_kernel<S, T, kMode>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B, kThreads, bytes, stream>>>(P, ns, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_constraints(int mode, const void* const* in, void* const* out,
                        const long long* strides, int B, int ns,
-                       int nc_, int cm, int n_legs, const double* scalars,
-                       void* stream) {
-  if (!is_shape(nc_, cm, n_legs)) return kUnknownShape;
+                       const double* scalars, void* stream) {
   if (mode < kEval || mode > kOffline) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   Ptrs<T> P;
   for (int i = 0; i < kIns; ++i) P.in[i] = static_cast<const T*>(in[i]);
   for (int i = 0; i < kOuts; ++i) P.out[i] = static_cast<T*>(out[i]);
   for (int i = 0; i < 4; ++i) P.stride[i] = strides[i];
-  const AlConsts<T> c = make_al_consts<T>(scalars);
+  const auto c = AL<S>::template make_al_consts<T>(scalars);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kEval)
-    return launch_constraints_mode<T, kEval>(P, B, ns, c, st);
+    return launch_constraints_mode<S, T, kEval>(P, B, ns, c, st);
   if (mode == kOnline)
-    return launch_constraints_mode<T, kOnline>(P, B, ns, c, st);
-  return launch_constraints_mode<T, kOffline>(P, B, ns, c, st);
+    return launch_constraints_mode<S, T, kOnline>(P, B, ns, c, st);
+  return launch_constraints_mode<S, T, kOffline>(P, B, ns, c, st);
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_shift(int prior, const void* const* in, const void* seen,
                  const void* seen_T, void* const* out, int B, int ns,
                  int period, const void* phase, int phase_bytes, void* stream) {
@@ -609,15 +620,15 @@ int launch_shift(int prior, const void* const* in, const void* seen,
   P.seen_T = static_cast<const bool*>(seen_T);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prior == kNone)
-    isrbd_al_shift_kernel<T, kNone><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kNone><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   else if (prior == kTail)
-    isrbd_al_shift_kernel<T, kTail><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kTail><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   else
-    isrbd_al_shift_kernel<T, kFull><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kFull><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_params(const void* const* in, void* const* out, int B, int ns,
                   void* stream) {
   if (B == 0) return 0;
@@ -626,11 +637,11 @@ int launch_params(const void* const* in, void* const* out, int B, int ns,
     P.in[i] = static_cast<const T*>(in[i]);
     P.out[i] = static_cast<T*>(out[i]);
   }
-  isrbd_al_params_kernel<T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P, ns);
+  isrbd_al_params_kernel<S, T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P, ns);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_prior_update(int prior, const void* const* in, const void* seen,
                         const void* seen_T, void* const* out, void* seen_out,
                         void* seen_T_out, int B, int ns, int period,
@@ -653,9 +664,9 @@ int launch_prior_update(int prior, const void* const* in, const void* seen,
   const T ome = static_cast<T>(1.0 - ema), e = static_cast<T>(ema);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prior == kTail)
-    isrbd_al_prior_update_kernel<T, kTail><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes, ome, e);
+    isrbd_al_prior_update_kernel<S, T, kTail><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes, ome, e);
   else
-    isrbd_al_prior_update_kernel<T, kFull><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes, ome, e);
+    isrbd_al_prior_update_kernel<S, T, kFull><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes, ome, e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -665,28 +676,38 @@ int launch_prior_update(int prior, const void* const* in, const void* seen,
 // (offline: the eight multipliers, ρ and viol); `in` and `out` in the
 // order of In and Out above (unused slots null); strides: the member
 // strides in elements of x_lb, x_ub, u_lb and u_ub (0: one static table).
+// The contact topology (nc, cm, n_legs) picks the compiled shape, or the
+// call returns kUnknownShape and launches nothing.
 #define CONSTRAINTS_ENTRY(NAME, T)                                            \
   extern "C" int NAME(int mode, const void* const* in, void* const* out,      \
                       const long long* strides, int B, int ns, int nc,        \
                       int cm, int n_legs, const double* scalars,              \
                       void* stream) {                                         \
-    return launch_constraints<T>(mode, in, out, strides, B, ns, nc, cm,       \
-                                 n_legs, scalars, stream);                    \
+    return isrbd::with_topology(nc, cm, n_legs, [&](auto s) {                 \
+      return launch_constraints<decltype(s), T>(mode, in, out, strides, B,    \
+                                                ns, scalars, stream);         \
+    });                                                                       \
   }
 
 CONSTRAINTS_ENTRY(isrbd_al_constraints_f32, float)
 CONSTRAINTS_ENTRY(isrbd_al_constraints_f64, double)
 
+// K8a-c take the index of their shape in kernels/isrbd_linearize.py::
+// KERNEL_SHAPES first (kUnknownShape for another index).
+//
 // K8a. prior 0 (none), 1 (tail) or 2 (full); `in` in the order of ShiftIn,
 // `out` its first ten (λ_T null without a prior); phase (B,) int32 or
 // int64 (phase_bytes 4 or 8).
 #define SHIFT_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(int prior, const void* const* in, const void* seen,     \
-                      const void* seen_T, void* const* out, int B, int ns,    \
-                      int period, const void* phase, int phase_bytes,         \
-                      void* stream) {                                         \
-    return launch_shift<T>(prior, in, seen, seen_T, out, B, ns, period,       \
-                           phase, phase_bytes, stream);                       \
+  extern "C" int NAME(int shape, int prior, const void* const* in,            \
+                      const void* seen, const void* seen_T, void* const* out, \
+                      int B, int ns, int period, const void* phase,           \
+                      int phase_bytes, void* stream) {                        \
+    return isrbd::with_shape(shape, [&](auto s) {                             \
+      return launch_shift<decltype(s), T>(prior, in, seen, seen_T, out, B,    \
+                                          ns, period, phase, phase_bytes,     \
+                                          stream);                            \
+    });                                                                       \
   }
 
 SHIFT_ENTRY(isrbd_al_shift_f32, float)
@@ -695,9 +716,11 @@ SHIFT_ENTRY(isrbd_al_shift_f64, double)
 // K8b. `in` and `out` in the order of ParamsIn (u_lb, u_ub null where the
 // params do not override them).
 #define PARAMS_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* const* in, void* const* out, int B, int ns, \
-                      void* stream) {                                         \
-    return launch_params<T>(in, out, B, ns, stream);                          \
+  extern "C" int NAME(int shape, const void* const* in, void* const* out,     \
+                      int B, int ns, void* stream) {                          \
+    return isrbd::with_shape(shape, [&](auto s) {                             \
+      return launch_params<decltype(s), T>(in, out, B, ns, stream);           \
+    });                                                                       \
   }
 
 PARAMS_ENTRY(isrbd_al_params_f32, float)
@@ -707,14 +730,16 @@ PARAMS_ENTRY(isrbd_al_params_f64, double)
 // tables; out: the new tables; seen flags (seen_T and seen_T_out null for
 // the full prior).
 #define PRIOR_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(int prior, const void* const* in, const void* seen,     \
-                      const void* seen_T, void* const* out, void* seen_out,   \
-                      void* seen_T_out, int B, int ns, int period,            \
-                      const void* phase, int phase_bytes, double ema,         \
-                      void* stream) {                                         \
-    return launch_prior_update<T>(prior, in, seen, seen_T, out, seen_out,     \
-                                  seen_T_out, B, ns, period, phase,           \
-                                  phase_bytes, ema, stream);                  \
+  extern "C" int NAME(int shape, int prior, const void* const* in,            \
+                      const void* seen, const void* seen_T, void* const* out, \
+                      void* seen_out, void* seen_T_out, int B, int ns,        \
+                      int period, const void* phase, int phase_bytes,         \
+                      double ema, void* stream) {                             \
+    return isrbd::with_shape(shape, [&](auto s) {                             \
+      return launch_prior_update<decltype(s), T>(                             \
+          prior, in, seen, seen_T, out, seen_out, seen_T_out, B, ns, period,  \
+          phase, phase_bytes, ema, stream);                                   \
+    });                                                                       \
   }
 
 PRIOR_ENTRY(isrbd_al_prior_update_f32, float)

@@ -33,19 +33,53 @@ namespace isrbd {
 
 using namespace rigid;
 
-// The sizes K5, K6 and isrbd_evaluate are compiled for: the AL inner
-// problem of build_isrbd_problem with the Kangaroo line feet (nc=4).
-// kernels/isrbd_linearize.py::KERNEL_SHAPE holds the same numbers (a test
-// reads them from here); on CUDA tensors of any other sizes the wrappers
-// raise. The row counts are those of RiccatiRows.from_ocp of the inner
-// OCP (the rows K5 emits and K1 reads; K1's IsrbdAlShape).
-struct Shape {
+// The sizes K5, K6, isrbd_evaluate, K7 and K8 are compiled for, one struct
+// a robot: the AL inner problem of build_isrbd_problem with the Kangaroo's
+// line feet (nc=4 contacts, two a leg) and with the quadruped's point feet
+// (nc=4, one a leg). kernels/isrbd_linearize.py::KERNEL_SHAPES holds the
+// same numbers in the same order (a test reads them from here); on CUDA
+// tensors of any other sizes the wrappers raise. The row counts are those
+// of RiccatiRows.from_ocp of the inner OCP (the rows K5 emits and K1
+// reads; K1's IsrbdAlShape and QuadAlShape).
+struct KangarooAlShape {
   static constexpr int nc = 4, cm = 2, n_legs = 2, nx = 37, nu = 30, n_rho = 240, n_term = 101, n_eq = 21, n_eq_T = 12, n_in = 20, n_par = 357, n_rx = 19, n_ru = 37, n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
 };
 
-// Offsets and counts that follow from the shape.
+struct QuadAlShape {
+  static constexpr int nc = 4, cm = 1, n_legs = 4, nx = 37, nu = 30, n_rho = 236, n_term = 97, n_eq = 17, n_eq_T = 8, n_in = 20, n_par = 349, n_rx = 19, n_ru = 37, n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
+};
+
+// A launcher's answer for sizes no shape above has.
+constexpr int kUnknownShape = -2;
+
+// fn(S{}) for the shape at `index` in the order above (the order of
+// KERNEL_SHAPES), or kUnknownShape.
+template <class Fn>
+inline int with_shape(int index, Fn fn) {
+  switch (index) {
+    case 0: return fn(KangarooAlShape{});
+    case 1: return fn(QuadAlShape{});
+    default: return kUnknownShape;
+  }
+}
+
+// fn(S{}) for the shape of this contact topology (nc contacts of cm
+// points on n_legs legs), or kUnknownShape: the topology fixes nx, nu and
+// every row count, so it picks the shape.
+template <class Fn>
+inline int with_topology(int nc, int cm, int n_legs, Fn fn) {
+  if (nc == KangarooAlShape::nc && cm == KangarooAlShape::cm &&
+      n_legs == KangarooAlShape::n_legs)
+    return fn(KangarooAlShape{});
+  if (nc == QuadAlShape::nc && cm == QuadAlShape::cm &&
+      n_legs == QuadAlShape::n_legs)
+    return fn(QuadAlShape{});
+  return kUnknownShape;
+}
+
+// Offsets and counts that follow from a shape.
+template <class S>
 struct Layout {
-  using S = Shape;
   static constexpr int nc = S::nc, nx = S::nx, nu = S::nu;
   static constexpr int n_xu = nx + nu;
   static constexpr int i_c = 7, i_rdot = 7 + 3 * nc, i_w = 10 + 3 * nc,
@@ -85,8 +119,6 @@ struct Layout {
                 "one equality row a lane; x and u in three passes");
 };
 
-using L = Layout;
-
 // host scalars, in this order: dt, m, inertia (9, row-major), η², w_rz,
 // w_rdot, w_w, w_rel, w_qddot, w_minf, com_z, d1x, d1y, d2x, d2y, the cone
 // faces A_fc (15, row-major), the foot-pair indices (4); then the row
@@ -102,29 +134,39 @@ enum ParamIndex {
   P_UUB, P_MUUUB, P_MUULB
 };
 
-// Width of parameter tensor t; its entries start at param_off(t) of the
-// packed row.
+// Width of parameter tensor t at shape S; its entries start at
+// param_off<S>(t) of the packed row.
+template <class S>
 __host__ __device__ constexpr int param_dim(int t) {
   return t == P_RDOT || t == P_WREF ? 3
-         : t == P_CREF              ? Shape::nc
-         : t == P_LAM               ? Shape::n_eq
-         : t == P_LAMT              ? Shape::n_eq_T
-         : t == P_MUUB || t == P_MULB ? Shape::n_in
-         : t >= P_XLB && t <= P_MUXLB ? Shape::nx
-         : t >= P_ULB               ? Shape::nu
+         : t == P_CREF              ? S::nc
+         : t == P_LAM               ? S::n_eq
+         : t == P_LAMT              ? S::n_eq_T
+         : t == P_MUUB || t == P_MULB ? S::n_in
+         : t >= P_XLB && t <= P_MUXLB ? S::nx
+         : t >= P_ULB               ? S::nu
                                     : 1;
 }
 
+template <class S>
 __host__ __device__ constexpr int param_off(int t) {
   int o = 0;
-  for (int i = 0; i < t; ++i) o += param_dim(i);
+  for (int i = 0; i < t; ++i) o += param_dim<S>(i);
   return o;
 }
-static_assert(param_off(kParams) == L::n_par && param_off(P_RHO) == L::p_rho &&
-                  param_off(P_XUB) == L::p_xub && param_off(P_MUULB) == L::p_muulb,
+
+template <class S>
+constexpr bool packed_row_matches() {
+  using L = Layout<S>;
+  return param_off<S>(kParams) == L::n_par && param_off<S>(P_RHO) == L::p_rho &&
+         param_off<S>(P_XUB) == L::p_xub && param_off<S>(P_MUULB) == L::p_muulb;
+}
+static_assert(packed_row_matches<KangarooAlShape>() &&
+                  packed_row_matches<QuadAlShape>(),
               "packed parameter row");
 
-template <typename T>
+// (the template parameter is Sh: S names the row scales)
+template <class Sh, typename T>
 struct Consts {
   int fpi[4];
   T dt, m;
@@ -132,12 +174,12 @@ struct Consts {
   T eta2, w_rz, w_rdot, w_w, w_rel, w_qddot, w_minf, com_z;
   T d1x, d1y, d2x, d2y;
   T A_fc[15];
-  T S[Shape::n_eq], sqw[Shape::n_eq], S_T[Shape::n_eq_T], sqw_T[Shape::n_eq_T];
+  T S[Sh::n_eq], sqw[Sh::n_eq], S_T[Sh::n_eq_T], sqw_T[Sh::n_eq_T];
 };
 
-template <typename T>
-inline Consts<T> make_consts(const double* s) {
-  Consts<T> k;
+template <class S, typename T>
+inline Consts<S, T> make_consts(const double* s) {
+  Consts<S, T> k;
   k.dt = static_cast<T>(s[0]);
   k.m = static_cast<T>(s[1]);
   for (int i = 0; i < 9; ++i) k.I[i] = static_cast<T>(s[2 + i]);
@@ -155,7 +197,7 @@ inline Consts<T> make_consts(const double* s) {
   k.d2y = static_cast<T>(s[22]);
   for (int i = 0; i < 15; ++i) k.A_fc[i] = static_cast<T>(s[23 + i]);
   for (int i = 0; i < 4; ++i) k.fpi[i] = static_cast<int>(s[38 + i]);
-  constexpr int ne = Shape::n_eq, nt = Shape::n_eq_T;
+  constexpr int ne = S::n_eq, nt = S::n_eq_T;
   const double* r = s + kFixedScalars;
   for (int i = 0; i < ne; ++i) {
     k.S[i] = static_cast<T>(r[i]);
@@ -183,16 +225,16 @@ inline Params<T> make_params(const void* const* ptrs) {
 // Lanes of one warp load the packed parameter row of member-node `row`
 // (= b·(ns+1)+n) into `out`, tensor after tensor; every width and offset
 // is a constant, so the loops unroll into predicated loads.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ void load_params(const Params<T>& P, size_t row,
                                             int lane, T* out) {
 #pragma unroll
   for (int t = 0; t < kParams; ++t) {
-    const int dim = param_dim(t);
+    const int dim = param_dim<S>(t);
     const T* src = P.p[t] + row * dim;
 #pragma unroll
     for (int e = 0; e < dim; e += 32)
-      if (e + lane < dim) out[param_off(t) + e + lane] = src[e + lane];
+      if (e + lane < dim) out[param_off<S>(t) + e + lane] = src[e + lane];
   }
 }
 
@@ -227,8 +269,10 @@ struct Geometry {
   T R[9], RI[9], Iw[9], h[3];
 };
 
-template <typename T>
-__device__ __forceinline__ Geometry<T> geometry(const T* x, const Consts<T>& k) {
+template <class S, typename T>
+__device__ __forceinline__ Geometry<T> geometry(const T* x,
+                                                const Consts<S, T>& k) {
+  using L = Layout<S>;
   Geometry<T> g;
   quat_to_rot(x + 3, g.R);
   world_inertia(g.R, k.I, g.RI, g.Iw);
@@ -246,8 +290,9 @@ struct Rates {
   T od[4], om[4], wm[3], odm[4];
 };
 
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ Rates<T> rates(const T* xu, T hdt) {
+  using L = Layout<S>;
   Rates<T> r;
   const T* u = xu + L::nx;
   quat_rate(xu + 3, xu + L::i_w, r.od);
@@ -262,9 +307,10 @@ __device__ __forceinline__ Rates<T> rates(const T* xu, T hdt) {
 // Row j of rk2(x, u) = x + dt·ẋ(x_mid, u) of the double integrator with
 // floating base, ẋ = [ṙ, ȯ, ċ, r̈, ω̇, c̈] (accelerations are inputs); the
 // velocity rows of x_mid are x + dt/2·(their inputs).
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T step_row(int j, const T* xu, const Rates<T>& r,
                                       T hdt, T dt) {
+  using L = Layout<S>;
   const T* u = xu + L::nx;
   T v;
   if (j < 3) {
@@ -300,7 +346,9 @@ __device__ __forceinline__ T one_sided(T v, T bound, T mu, T rho, T sr, bool up,
 // Box row s (0 ≤ s < 2nx + 2nu; stage row o_xbox + s, and for s < 2nx
 // terminal row o_tbox + s): the index of v in xu and the parameter offsets
 // of its bound and multiplier, packed v | bound << 8 | mu << 17 | up << 26.
+template <class S>
 __host__ __device__ constexpr int box_desc(int s) {
+  using L = Layout<S>;
   const bool xs = s < 2 * L::nx;
   const int i = xs ? s : s - 2 * L::nx;
   const int n = xs ? L::nx : L::nu;
@@ -327,9 +375,9 @@ __device__ __forceinline__ T box_row(int desc, const T* xu, const T* p, T rho,
 }
 
 // The four foot-pair rows (y, x of pair 1; y, x of pair 2), unweighted.
-template <typename T>
-__device__ __forceinline__ T rel_row(int g, const T* x, const Consts<T>& k) {
-  const T* c = x + L::i_c;
+template <class S, typename T>
+__device__ __forceinline__ T rel_row(int g, const T* x, const Consts<S, T>& k) {
+  const T* c = x + Layout<S>::i_c;
   const int a = k.fpi[g < 2 ? 0 : 1], b = k.fpi[g < 2 ? 2 : 3];
   const int ax = (g % 2 == 0) ? 1 : 0;
   const T dd = g == 0 ? k.d1y : g == 1 ? k.d1x : g == 2 ? k.d2y : k.d2x;
@@ -338,9 +386,10 @@ __device__ __forceinline__ T rel_row(int g, const T* x, const Consts<T>& k) {
 
 // Tracking row g < 15 with mask mt (1 on the terminal stack): rz, o, ṙ, ω
 // as (mt·w)·(x_i − ref), then the foot-pair rows.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T track_row(int g, const T* x, const T* p, T mt,
-                                       const Consts<T>& k) {
+                                       const Consts<S, T>& k) {
+  using L = Layout<S>;
   if (g >= 11) return k.w_rel * rel_row(g - 11, x, k);
   const T w = g == 0 ? k.w_rz : g < 5 ? p[L::p_wo] : g < 8 ? k.w_rdot : k.w_w;
   const int xi = g == 0 ? 2 : g < 5 ? 2 + g : g < 8 ? L::i_rdot + g - 5 : L::i_w + g - 8;
@@ -350,22 +399,29 @@ __device__ __forceinline__ T track_row(int g, const T* x, const T* p, T mt,
 }
 
 // The rel-vel pair q of ċ: (the leg's first contact, its q-th other) on
-// axis ax.
+// axis ax. Only shapes with rel-vel rows (cm > 1) call it: point feet
+// have none, and their callers drop the branch with `if constexpr`.
+template <class S>
 __host__ __device__ constexpr int relvel_col(int q, bool first) {
-  constexpr int per = 2 * (Shape::cm - 1);
-  return L::i_cdot + 3 * ((q / per) * Shape::cm + (first ? 0 : (q % per) / 2 + 1)) +
+  static_assert(S::cm > 1, "point feet have no rel-vel rows");
+  constexpr int per = 2 * (S::cm - 1);
+  return Layout<S>::i_cdot +
+         3 * ((q / per) * S::cm + (first ? 0 : (q % per) / 2 + 1)) +
          (q % per) % 2;
 }
 
 // Unscaled equality h_q of the stage stack (before S and the AL fold).
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T stage_eq_h(int q, const T* xu, const T* p,
                                         const Geometry<T>& g,
-                                        const Consts<T>& k) {
+                                        const Consts<S, T>& k) {
+  using L = Layout<S>;
   constexpr int nc = L::nc;
   const T* x = xu;
   const T* u = xu + L::nx;
-  if (q < L::q_cz) return x[relvel_col(q, true)] - x[relvel_col(q, false)];
+  if constexpr (L::n_relvel > 0) {
+    if (q < L::q_cz) return x[relvel_col<S>(q, true)] - x[relvel_col<S>(q, false)];
+  }
   if (q < L::q_newton) return x[L::i_c + 3 * (q - L::q_cz) + 2] - p[L::p_cref + q - L::q_cz];
   if (q < L::q_euler) {                          // Newton: m(r̈ + g) − Σf
     const int a = q - L::q_newton;
@@ -412,10 +468,13 @@ __device__ __forceinline__ T stage_eq_h(int q, const T* xu, const T* p,
 }
 
 // Unscaled terminal equality h_q: rel-vel, cz, LIP zone.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T terminal_eq_h(int q, const T* x, const T* p,
-                                           const Consts<T>& k) {
-  if (q < L::q_cz) return x[relvel_col(q, true)] - x[relvel_col(q, false)];
+                                           const Consts<S, T>& k) {
+  using L = Layout<S>;
+  if constexpr (L::n_relvel > 0) {
+    if (q < L::q_cz) return x[relvel_col<S>(q, true)] - x[relvel_col<S>(q, false)];
+  }
   if (q < L::q_cz + L::nc)
     return x[L::i_c + 3 * (q - L::q_cz) + 2] - p[L::p_cref + q - L::q_cz];
   const int a = q - L::q_cz - L::nc;
@@ -424,11 +483,15 @@ __device__ __forceinline__ T terminal_eq_h(int q, const T* x, const T* p,
 
 // Input index and weight of outer residual row 11 + l (l < 18, q̈) or
 // o_minf + l − 18 (l < 30, forces): both are w·u_i.
+template <class S>
 __host__ __device__ constexpr int usel_col(int l) {
+  using L = Layout<S>;
   return l < 6 ? l : l < L::n_qddot ? col_cddot((l - 6) / 3, (l - 6) % 3)
                                      : col_f((l - L::n_qddot) / 3, (l - L::n_qddot) % 3);
 }
+template <class S>
 __host__ __device__ constexpr int usel_row(int l) {
+  using L = Layout<S>;
   return l < L::n_qddot ? 11 + l : L::o_minf + l - L::n_qddot;
 }
 
@@ -436,17 +499,18 @@ __host__ __device__ constexpr int usel_row(int l) {
 // keep the lanes of a pass on one path: the box rows (five passes, one
 // path: `box_row`), the cones (lanes 0..19, each the ub and lb row of one
 // cone value), the q̈ and force rows (lanes 0..29, w·u_i), the tracking
-// and foot-pair rows (lanes 0..14), the equality rows (lanes 0..20, one
-// fold over a per-segment h). `row(r, v)` receives row r's value;
+// and foot-pair rows (lanes 0..14), the equality rows (lanes 0..n_eq−1,
+// one fold over a per-segment h). `row(r, v)` receives row r's value;
 // with kSlopes, `slope(i, s)` receives the slope of one-sided row
 // o_cone + i along its v (cone lb rows excluded: their bound is −inf, so
 // the slope is 0). Every lane must call it.
-template <bool kSlopes, typename T, class Row, class Slope>
+template <bool kSlopes, class S, typename T, class Row, class Slope>
 __device__ __forceinline__ void stage_rows(int lane, const T* xu, const T* p,
                                            const Geometry<T>& g,
-                                           const Consts<T>& k, Row&& row,
+                                           const Consts<S, T>& k, Row&& row,
                                            Slope&& slope) {
-  constexpr int n_in = Shape::n_in;
+  using L = Layout<S>;
+  constexpr int n_in = S::n_in;
   const T* u = xu + L::nx;
   const T rho = p[L::p_rho];
   const T sr = sqrt(rho);
@@ -455,7 +519,7 @@ __device__ __forceinline__ void stage_rows(int lane, const T* xu, const T* p,
     const int s = lane + 32 * c;
     if (s < L::n_box) {
       T sl;
-      row(L::o_xbox + s, box_row(box_desc(s), xu, p, rho, sr, &sl));
+      row(L::o_xbox + s, box_row(box_desc<S>(s), xu, p, rho, sr, &sl));
       if (kSlopes) slope(2 * n_in + s, sl);
     }
   }
@@ -472,10 +536,11 @@ __device__ __forceinline__ void stage_rows(int lane, const T* xu, const T* p,
         (sr * T(0)) * relu_nan((T(0) - v) + p[L::p_mulb + q] / rho));
   }
   if (lane < L::n_qddot + 3 * L::nc)
-    row(usel_row(lane), (lane < L::n_qddot ? k.w_qddot : k.w_minf) * u[usel_col(lane)]);
+    row(usel_row<S>(lane),
+        (lane < L::n_qddot ? k.w_qddot : k.w_minf) * u[usel_col<S>(lane)]);
   if (lane < L::n_track)
     row(lane < 11 ? lane : L::o_rel + lane - 11, track_row(lane, xu, p, p[L::p_mt], k));
-  if (lane < Shape::n_eq) {
+  if (lane < S::n_eq) {
     const int q = lane;
     const T srw = sr * k.sqw[q];
     row(L::n_res + q, srw * (k.S[q] * stage_eq_h(q, xu, p, g, k)) + p[L::p_lam + q] / srw);
@@ -485,9 +550,10 @@ __device__ __forceinline__ void stage_rows(int lane, const T* xu, const T* p,
 // Every row of the inner terminal stack at (x, p), the parameters of node
 // ns: the x-box rows (three passes), the tracking rows with mask 1 and the
 // terminal equality rows (one pass). Every lane must call it.
-template <typename T, class Row>
+template <class S, typename T, class Row>
 __device__ __forceinline__ void terminal_rows(int lane, const T* x, const T* p,
-                                              const Consts<T>& k, Row&& row) {
+                                              const Consts<S, T>& k, Row&& row) {
+  using L = Layout<S>;
   const T rho = p[L::p_rho];
   const T sr = sqrt(rho);
 #pragma unroll
@@ -495,7 +561,7 @@ __device__ __forceinline__ void terminal_rows(int lane, const T* x, const T* p,
     const int s = lane + 32 * c;
     if (s < 2 * L::nx) {
       T sl;
-      row(L::o_tbox + s, box_row(box_desc(s), x, p, rho, sr, &sl));
+      row(L::o_tbox + s, box_row(box_desc<S>(s), x, p, rho, sr, &sl));
     }
   }
   if (lane < L::n_track) {

@@ -31,9 +31,11 @@
 //     defect_max = maxₙ,ᵢ |rk2(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // Plain twin: `kernels/isrbd_rollout.py::isrbd_evaluate_plain`.
 //
-// Both are compiled for the sizes of `isrbd::Shape` only, so every loop
-// over rows, columns and parameters has a constant trip count and every
-// offset is a constant; the wrappers refuse other sizes.
+// Both are compiled for the shapes of csrc/isrbd_common.cuh only
+// (`KangarooAlShape`, `QuadAlShape`; `K6<S>` holds each one's layouts), so
+// every loop over rows, columns and parameters has a constant trip count
+// and every offset is a constant; the contact topology picks the
+// instantiation at launch and the wrappers refuse other sizes.
 //
 // What bounds K6 on an H100: one (member, α) reads per node the gains
 // (30×37), the plan, the defects and the 357 parameter values, 1,601
@@ -115,127 +117,14 @@
 
 namespace {
 
-using isrbd::L;
-using isrbd::Shape;
+using isrbd::kUnknownShape;
 constexpr int kPairs = 1;            // (member, α) pairs a block
 constexpr int kThreads = 64 * kPairs;   // a chain warp and a rows warp a pair
 constexpr int kStages = 3;           // the chain's ring of K, U, k, X, d
 constexpr int kSlots = 4;            // node slots the chain hands the rows warp
 
-constexpr int kUnknownShape = -2;    // the sizes are not isrbd::Shape's
-constexpr int nx = Shape::nx, nu = Shape::nu;
-
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
-}
-
-// One node's inputs of the chain warp in its ring; every buffer starts
-// 16-byte aligned and K, U, k at even offsets (two-element copies).
-struct ChainBuf {
-  static constexpr int K = 0, U = nu * nx, k = U + nu, X = k + nu, d = X + nx;
-  static constexpr int size = round_up(d + nx, 4);
-  static_assert(U % 2 == 0 && k % 2 == 0 && nu % 2 == 0, "two-element copies");
-};
-
-// A pair's shared memory: the chain warp's ring (from offset 0), the node
-// slots it hands to the rows warp (the parameter rows, and x̂ₙ then uₙ: an
-// xu each), x̂ − X.
-struct PairMem {
-  static constexpr int par_size = round_up(L::n_par, 4),
-                       pub_size = round_up(L::n_xu, 4);
-  static constexpr int par = kStages * ChainBuf::size,
-                       pub = par + kSlots * par_size,
-                       dx = pub + kSlots * pub_size;
-  static constexpr int size = round_up(dx + nx, 4);
-};
-
-// the pairs' memory, then a pair's FULL and EMPTY mbarriers (kSlots each)
-template <typename T>
-constexpr size_t trial_smem_bytes() {
-  return sizeof(T) * kPairs * PairMem::size +
-         sizeof(unsigned long long) * kPairs * 2 * kSlots;
-}
-
-// The entries of the packed parameter row one lane copies at every node:
-// entry lane + 32c of node n lives at src[c] + n·dim[c].
-constexpr int kParamSlots = (L::n_par + 31) / 32;
-
-template <typename T>
-struct ParamLanes {
-  const T* src[kParamSlots];
-  int dim[kParamSlots];
-};
-
-template <typename T>
-__device__ __forceinline__ ParamLanes<T> param_lanes(const isrbd::Params<T>& P,
-                                                     size_t b, int ns, int lane) {
-  ParamLanes<T> pl;
-#pragma unroll
-  for (int c = 0; c < kParamSlots; ++c) {
-    const int e = lane + 32 * c;
-    pl.src[c] = P.p[0];
-    pl.dim[c] = 0;
-#pragma unroll
-    for (int t = 0; t < isrbd::kParams; ++t) {
-      const int off = isrbd::param_off(t), dim = isrbd::param_dim(t);
-      if (e >= off && e < off + dim) {
-        pl.src[c] = P.p[t] + b * (ns + 1) * dim + (e - off);
-        pl.dim[c] = dim;
-      }
-    }
-  }
-  return pl;
-}
-
-// The chain warp's lanes start the copies of node n's K, U, k, X and d
-// (n < ns) into `buf` and close them into one group (empty past ns − 1).
-template <typename T>
-__device__ __forceinline__ void issue_chain(
-    T* buf, const T* __restrict__ Ks, const T* __restrict__ U,
-    const T* __restrict__ ks, const T* __restrict__ X, const T* __restrict__ d,
-    size_t b, int n, int ns, int lane) {
-  using CB = ChainBuf;
-  constexpr int two = 2 * sizeof(T);
-  if (n < ns) {
-    const size_t bn = b * ns + n;
-    const T* Kb = Ks + bn * (nu * nx);
-    constexpr int pairs = nu * nx / 2;
-#pragma unroll
-    for (int i = 0; i < (pairs + 31) / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < pairs) cp_async<two>(buf + CB::K + 2 * c, Kb + 2 * c);
-    }
-    if (lane < nu) {                               // U on lanes 0..14, k on 15..29
-      const bool isU = lane < nu / 2;
-      const int c = isU ? lane : lane - nu / 2;
-      cp_async<two>(buf + (isU ? CB::U : CB::k) + 2 * c,
-                    (isU ? U : ks) + bn * nu + 2 * c);
-    }
-    const size_t row = b * (ns + 1) + n;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int j = lane + 32 * i;
-      if (j < nx) {
-        cp_async<sizeof(T)>(buf + CB::X + j, X + row * nx + j);
-        cp_async<sizeof(T)>(buf + CB::d + j, d + bn * nx + j);
-      }
-    }
-  }
-  cp_async_commit();
-}
-
-// The lanes start the copies of node n's parameter row (n ≤ ns; the
-// terminal node's at ns) into `buf`.
-template <typename T>
-__device__ __forceinline__ void issue_params(T* buf, const ParamLanes<T>& pl,
-                                             int n, int ns, int lane) {
-  if (n <= ns) {
-#pragma unroll
-    for (int c = 0; c < kParamSlots; ++c)
-      if (lane + 32 * c < L::n_par)
-        cp_async<sizeof(T)>(buf + lane + 32 * c,
-                            pl.src[c] + static_cast<size_t>(n) * pl.dim[c]);
-  }
 }
 
 // The handshake of a pair over node slot n mod kSlots: FULL — the chain
@@ -257,165 +146,6 @@ struct Handshake {
   }
 };
 
-// The chain warp: uₙ and x̂ₙ₊₁ node after node. Node n lives in slot
-// n mod kSlots: x̂ₙ (written at node n − 1), uₙ and pₙ (copied two nodes
-// ahead with K, U, k, X, d). FULL(n) hands the node to the rows warp once
-// uₙ is in; before pₙ₊₂ and x̂ₙ₊₂ take a slot, EMPTY says the rows warp is
-// done with the node that held it.
-template <typename T>
-__device__ __forceinline__ void chain_warp(
-    T* pm, Handshake hs, const isrbd::Params<T>& P,
-    const T* __restrict__ x0, const T* __restrict__ X, const T* __restrict__ U,
-    const T* __restrict__ ks, const T* __restrict__ Ks, const T* __restrict__ d,
-    int B, int ns, size_t b, size_t a, T alpha, const isrbd::Consts<T>& k,
-    T* __restrict__ Xn, T* __restrict__ Un, int lane) {
-  using CB = ChainBuf;
-  T* dx = pm + PairMem::dx;
-  T* par = pm + PairMem::par;
-  auto slot = [pm](int n) { return pm + PairMem::pub + (n % kSlots) * PairMem::pub_size; };
-  const ParamLanes<T> pl = param_lanes(P, b, ns, lane);
-  for (int n = 0; n < kStages - 1; ++n) {
-    issue_params(par + (n % kSlots) * PairMem::par_size, pl, n, ns, lane);
-    issue_chain(pm + n * CB::size, Ks, U, ks, X, d, b, n, ns, lane);
-  }
-  const T om = T(1) - alpha;
-  const T hdt = T(0.5) * k.dt;
-  for (int j = lane; j < nx; j += 32) slot(0)[j] = x0[b * nx + j];
-  __syncwarp();
-  for (int n = 0; n < ns; ++n) {
-    const T* buf = pm + (n % kStages) * CB::size;
-    // node n + 2 streams in while node n computes; its slot's last node
-    // must be done first
-    const int ahead = n + kStages - 1;
-    if (ahead <= ns && ahead >= kSlots) hs.empty_wait(ahead - kSlots);
-    issue_params(par + (ahead % kSlots) * PairMem::par_size, pl, ahead, ns, lane);
-    issue_chain(pm + (ahead % kStages) * CB::size, Ks, U, ks, X, d, b, ahead,
-                ns, lane);
-    cp_async_wait_group<kStages - 1>();            // node n has arrived
-    __syncwarp();
-    T* xu = slot(n);
-    T* Xo = Xn + ((a * B + b) * (ns + 1) + n) * nx;
-    for (int j = lane; j < nx; j += 32) {
-      dx[j] = xu[j] - buf[CB::X + j];
-      Xo[j] = xu[j];
-    }
-    __syncwarp();
-    {   // uₙ: row i of K(x̂ − X) on lane i (lanes past nu repeat the last),
-        // four partial sums to shorten the chain
-      const int i = lane < nu ? lane : nu - 1;
-      const T* Kr = buf + CB::K + i * nx;
-      T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-#pragma unroll
-      for (int j = 0; j + 3 < nx; j += 4) {
-        s0 += Kr[j] * dx[j];
-        s1 += Kr[j + 1] * dx[j + 1];
-        s2 += Kr[j + 2] * dx[j + 2];
-        s3 += Kr[j + 3] * dx[j + 3];
-      }
-#pragma unroll
-      for (int j = nx / 4 * 4; j < nx; ++j) s0 += Kr[j] * dx[j];
-      const T ui = (buf[CB::U + i] + alpha * buf[CB::k + i]) + ((s0 + s1) + (s2 + s3));
-      if (lane < nu) {
-        xu[nx + i] = ui;
-        Un[((a * B + b) * ns + n) * nu + i] = ui;
-      }
-    }
-    __syncwarp();
-    if (lane == 0) hs.full_arrive(n);              // x̂ₙ, uₙ, pₙ to the rows warp
-    const isrbd::Rates<T> rt = isrbd::rates(xu, hdt);
-    T* next = slot(n + 1);                         // freed before pₙ₊₁ came in
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {                  // nx ≤ 64: two rows a lane
-      const int j = lane + 32 * c;
-      if (j < nx) next[j] = isrbd::step_row(j, xu, rt, hdt, k.dt) - om * buf[CB::d + j];
-    }
-    __syncwarp();
-  }
-  cp_async_wait_group<0>();
-  __syncwarp();
-  T* Xo = Xn + ((a * B + b) * (ns + 1) + ns) * nx;
-  for (int j = lane; j < nx; j += 32) Xo[j] = slot(ns)[j];
-  if (lane == 0) hs.full_arrive(ns);               // x̂_N, p_N
-}
-
-// The rows warp: Σ‖ρ‖² of every node the chain hands over, then the
-// terminal rows, the merit and the Armijo flag.
-template <typename T>
-__device__ __forceinline__ void rows_warp(
-    const T* pm, Handshake hs, const T* __restrict__ merit0,
-    const T* __restrict__ Dsq, const T* __restrict__ dV1,
-    const T* __restrict__ dV2, int B, int ns, size_t b, size_t a, T alpha,
-    const isrbd::Consts<T>& k, T nu_w, T beta, T alpha_min,
-    T* __restrict__ cost_out, T* __restrict__ merit_out,
-    bool* __restrict__ ok_out, int lane) {
-  const T* par = pm + PairMem::par;
-  auto slot = [pm](int n) { return pm + PairMem::pub + (n % kSlots) * PairMem::pub_size; };
-  T acc = T(0);   // this lane's share of Σ‖ρ‖²
-  auto square = [&acc](int, T v) { acc += v * v; };
-  for (int n = 0; n < ns; ++n) {
-    hs.full_wait(n);                               // x̂ₙ, uₙ, pₙ are in
-    const T* xu = slot(n);
-    const isrbd::Geometry<T> geo = isrbd::geometry(xu, k);
-    isrbd::stage_rows<false>(lane, xu, par + (n % kSlots) * PairMem::par_size,
-                             geo, k, square, [](int, T) {});
-    // the chain waits on this before the slot's next node, n + kSlots
-    __syncwarp();
-    if (lane == 0) hs.empty_arrive(n);
-  }
-  hs.full_wait(ns);
-  isrbd::terminal_rows(lane, slot(ns), par + (ns % kSlots) * PairMem::par_size,
-                       k, square);
-  const T cost = isrbd::warp_sum(acc);
-  if (lane == 0) {
-    const T om = T(1) - alpha;
-    const T D = Dsq[b];
-    const T merit = cost + (nu_w * (om * om)) * D;
-    const T expected = -(alpha * dV1[b] + (alpha * alpha) * dV2[b]) +
-                       ((T(2) * alpha - alpha * alpha) * nu_w) * D;
-    const T exp_min = expected < T(1e-16) ? T(1e-16) : expected;  // NaN stays
-    const size_t o = a * B + b;
-    cost_out[o] = cost;
-    merit_out[o] = merit;
-    ok_out[o] = (merit0[b] - merit >= beta * exp_min) && isfinite(merit) &&
-                (alpha >= alpha_min);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-isrbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
-                   const T* __restrict__ U, const T* __restrict__ ks,
-                   const T* __restrict__ Ks, const T* __restrict__ d,
-                   const T* __restrict__ alphas, isrbd::Params<T> P,
-                   const T* __restrict__ merit0, const T* __restrict__ Dsq,
-                   const T* __restrict__ dV1, const T* __restrict__ dV2,
-                   int B, int ns, int nA,
-                   const __grid_constant__ isrbd::Consts<T> k, T nu_w, T beta,
-                   T alpha_min, T* __restrict__ Xn, T* __restrict__ Un,
-                   T* __restrict__ cost_out, T* __restrict__ merit_out,
-                   bool* __restrict__ ok_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
-      reinterpret_cast<T*>(smem_raw) + kPairs * PairMem::size);
-  if (threadIdx.x < kPairs * 2 * kSlots) mbarrier_init(bars + threadIdx.x, 1);
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int pair = warp / 2;
-  const long long g = static_cast<long long>(blockIdx.x) * kPairs + pair;
-  if (g >= static_cast<long long>(B) * nA) return;   // the whole pair leaves
-  const size_t b = g / nA;
-  const size_t a = g % nA;
-  T* pm = reinterpret_cast<T*>(smem_raw) + pair * PairMem::size;
-  const Handshake hs{bars + pair * 2 * kSlots};
-  const T alpha = alphas[a];
-  if (warp % 2 == 0)
-    chain_warp(pm, hs, P, x0, X, U, ks, Ks, d, B, ns, b, a, alpha, k, Xn, Un,
-               lane);
-  else
-    rows_warp(pm, hs, merit0, Dsq, dV1, dV2, B, ns, b, a, alpha, k, nu_w, beta,
-              alpha_min, cost_out, merit_out, ok_out, lane);
-}
-
 // ---- isrbd_evaluate ----
 
 constexpr int kEvalWarps = 11;                // ns = 20: nodes w, w+11
@@ -424,138 +154,419 @@ constexpr int kEvalThreads = 32 * kEvalWarps;
 // fleet (B=256, 1.9 members an SM) in one wave.
 constexpr int kEvalMinBlocks = 2;
 
-// One node's record in shared memory: x and u side by side (xu), then the
-// packed parameter row.
-struct EvalNode {
-  static constexpr int xu = 0, p = L::n_xu, size = p + L::n_par;
+// K6 and isrbd_evaluate at the shape S: their shared-memory layouts and
+// the device code of their warps (the kernels below run K6<S>'s pieces).
+template <class S>
+struct K6 {
+  using L = isrbd::Layout<S>;
+  template <typename T>
+  using Consts = isrbd::Consts<S, T>;
+  static constexpr int nx = S::nx, nu = S::nu;
+
+  // One node's inputs of the chain warp in its ring; every buffer starts
+  // 16-byte aligned and K, U, k at even offsets (two-element copies).
+  struct ChainBuf {
+    static constexpr int K = 0, U = nu * nx, k = U + nu, X = k + nu, d = X + nx;
+    static constexpr int size = round_up(d + nx, 4);
+    static_assert(U % 2 == 0 && k % 2 == 0 && nu % 2 == 0, "two-element copies");
+  };
+
+  // A pair's shared memory: the chain warp's ring (from offset 0), the node
+  // slots it hands to the rows warp (the parameter rows, and x̂ₙ then uₙ: an
+  // xu each), x̂ − X.
+  struct PairMem {
+    static constexpr int par_size = round_up(L::n_par, 4),
+                         pub_size = round_up(L::n_xu, 4);
+    static constexpr int par = kStages * ChainBuf::size,
+                         pub = par + kSlots * par_size,
+                         dx = pub + kSlots * pub_size;
+    static constexpr int size = round_up(dx + nx, 4);
+  };
+
+  // the pairs' memory, then a pair's FULL and EMPTY mbarriers (kSlots each)
+  template <typename T>
+  static constexpr size_t trial_smem_bytes() {
+    return sizeof(T) * kPairs * PairMem::size +
+           sizeof(unsigned long long) * kPairs * 2 * kSlots;
+  }
+
+  // The entries of the packed parameter row one lane copies at every node:
+  // entry lane + 32c of node n lives at src[c] + n·dim[c].
+  static constexpr int kParamSlots = (L::n_par + 31) / 32;
+
+  template <typename T>
+  struct ParamLanes {
+    const T* src[kParamSlots];
+    int dim[kParamSlots];
+  };
+
+  template <typename T>
+  __device__ static __forceinline__ ParamLanes<T> param_lanes(const isrbd::Params<T>& P,
+                                                       size_t b, int ns, int lane) {
+    ParamLanes<T> pl;
+  #pragma unroll
+    for (int c = 0; c < kParamSlots; ++c) {
+      const int e = lane + 32 * c;
+      pl.src[c] = P.p[0];
+      pl.dim[c] = 0;
+  #pragma unroll
+      for (int t = 0; t < isrbd::kParams; ++t) {
+        const int off = isrbd::param_off<S>(t), dim = isrbd::param_dim<S>(t);
+        if (e >= off && e < off + dim) {
+          pl.src[c] = P.p[t] + b * (ns + 1) * dim + (e - off);
+          pl.dim[c] = dim;
+        }
+      }
+    }
+    return pl;
+  }
+
+  // The chain warp's lanes start the copies of node n's K, U, k, X and d
+  // (n < ns) into `buf` and close them into one group (empty past ns − 1).
+  template <typename T>
+  __device__ static __forceinline__ void issue_chain(
+      T* buf, const T* __restrict__ Ks, const T* __restrict__ U,
+      const T* __restrict__ ks, const T* __restrict__ X, const T* __restrict__ d,
+      size_t b, int n, int ns, int lane) {
+    using CB = ChainBuf;
+    constexpr int two = 2 * sizeof(T);
+    if (n < ns) {
+      const size_t bn = b * ns + n;
+      const T* Kb = Ks + bn * (nu * nx);
+      constexpr int pairs = nu * nx / 2;
+  #pragma unroll
+      for (int i = 0; i < (pairs + 31) / 32; ++i) {
+        const int c = lane + 32 * i;
+        if (c < pairs) cp_async<two>(buf + CB::K + 2 * c, Kb + 2 * c);
+      }
+      if (lane < nu) {                               // U on lanes 0..14, k on 15..29
+        const bool isU = lane < nu / 2;
+        const int c = isU ? lane : lane - nu / 2;
+        cp_async<two>(buf + (isU ? CB::U : CB::k) + 2 * c,
+                      (isU ? U : ks) + bn * nu + 2 * c);
+      }
+      const size_t row = b * (ns + 1) + n;
+  #pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int j = lane + 32 * i;
+        if (j < nx) {
+          cp_async<sizeof(T)>(buf + CB::X + j, X + row * nx + j);
+          cp_async<sizeof(T)>(buf + CB::d + j, d + bn * nx + j);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  // The lanes start the copies of node n's parameter row (n ≤ ns; the
+  // terminal node's at ns) into `buf`.
+  template <typename T>
+  __device__ static __forceinline__ void issue_params(T* buf, const ParamLanes<T>& pl,
+                                               int n, int ns, int lane) {
+    if (n <= ns) {
+  #pragma unroll
+      for (int c = 0; c < kParamSlots; ++c)
+        if (lane + 32 * c < L::n_par)
+          cp_async<sizeof(T)>(buf + lane + 32 * c,
+                              pl.src[c] + static_cast<size_t>(n) * pl.dim[c]);
+    }
+  }
+
+  // The chain warp: uₙ and x̂ₙ₊₁ node after node. Node n lives in slot
+  // n mod kSlots: x̂ₙ (written at node n − 1), uₙ and pₙ (copied two nodes
+  // ahead with K, U, k, X, d). FULL(n) hands the node to the rows warp once
+  // uₙ is in; before pₙ₊₂ and x̂ₙ₊₂ take a slot, EMPTY says the rows warp is
+  // done with the node that held it.
+  template <typename T>
+  __device__ static __forceinline__ void chain_warp(
+      T* pm, Handshake hs, const isrbd::Params<T>& P,
+      const T* __restrict__ x0, const T* __restrict__ X, const T* __restrict__ U,
+      const T* __restrict__ ks, const T* __restrict__ Ks, const T* __restrict__ d,
+      int B, int ns, size_t b, size_t a, T alpha, const Consts<T>& k,
+      T* __restrict__ Xn, T* __restrict__ Un, int lane) {
+    using CB = ChainBuf;
+    T* dx = pm + PairMem::dx;
+    T* par = pm + PairMem::par;
+    auto slot = [pm](int n) { return pm + PairMem::pub + (n % kSlots) * PairMem::pub_size; };
+    const ParamLanes<T> pl = param_lanes(P, b, ns, lane);
+    for (int n = 0; n < kStages - 1; ++n) {
+      issue_params(par + (n % kSlots) * PairMem::par_size, pl, n, ns, lane);
+      issue_chain(pm + n * CB::size, Ks, U, ks, X, d, b, n, ns, lane);
+    }
+    const T om = T(1) - alpha;
+    const T hdt = T(0.5) * k.dt;
+    for (int j = lane; j < nx; j += 32) slot(0)[j] = x0[b * nx + j];
+    __syncwarp();
+    for (int n = 0; n < ns; ++n) {
+      const T* buf = pm + (n % kStages) * CB::size;
+      // node n + 2 streams in while node n computes; its slot's last node
+      // must be done first
+      const int ahead = n + kStages - 1;
+      if (ahead <= ns && ahead >= kSlots) hs.empty_wait(ahead - kSlots);
+      issue_params(par + (ahead % kSlots) * PairMem::par_size, pl, ahead, ns, lane);
+      issue_chain(pm + (ahead % kStages) * CB::size, Ks, U, ks, X, d, b, ahead,
+                  ns, lane);
+      cp_async_wait_group<kStages - 1>();            // node n has arrived
+      __syncwarp();
+      T* xu = slot(n);
+      T* Xo = Xn + ((a * B + b) * (ns + 1) + n) * nx;
+      for (int j = lane; j < nx; j += 32) {
+        dx[j] = xu[j] - buf[CB::X + j];
+        Xo[j] = xu[j];
+      }
+      __syncwarp();
+      {   // uₙ: row i of K(x̂ − X) on lane i (lanes past nu repeat the last),
+          // four partial sums to shorten the chain
+        const int i = lane < nu ? lane : nu - 1;
+        const T* Kr = buf + CB::K + i * nx;
+        T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+  #pragma unroll
+        for (int j = 0; j + 3 < nx; j += 4) {
+          s0 += Kr[j] * dx[j];
+          s1 += Kr[j + 1] * dx[j + 1];
+          s2 += Kr[j + 2] * dx[j + 2];
+          s3 += Kr[j + 3] * dx[j + 3];
+        }
+  #pragma unroll
+        for (int j = nx / 4 * 4; j < nx; ++j) s0 += Kr[j] * dx[j];
+        const T ui = (buf[CB::U + i] + alpha * buf[CB::k + i]) + ((s0 + s1) + (s2 + s3));
+        if (lane < nu) {
+          xu[nx + i] = ui;
+          Un[((a * B + b) * ns + n) * nu + i] = ui;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hs.full_arrive(n);              // x̂ₙ, uₙ, pₙ to the rows warp
+      const isrbd::Rates<T> rt = isrbd::rates<S>(xu, hdt);
+      T* next = slot(n + 1);                         // freed before pₙ₊₁ came in
+  #pragma unroll
+      for (int c = 0; c < 2; ++c) {                  // nx ≤ 64: two rows a lane
+        const int j = lane + 32 * c;
+        if (j < nx) next[j] = isrbd::step_row<S>(j, xu, rt, hdt, k.dt) - om * buf[CB::d + j];
+      }
+      __syncwarp();
+    }
+    cp_async_wait_group<0>();
+    __syncwarp();
+    T* Xo = Xn + ((a * B + b) * (ns + 1) + ns) * nx;
+    for (int j = lane; j < nx; j += 32) Xo[j] = slot(ns)[j];
+    if (lane == 0) hs.full_arrive(ns);               // x̂_N, p_N
+  }
+
+  // The rows warp: Σ‖ρ‖² of every node the chain hands over, then the
+  // terminal rows, the merit and the Armijo flag.
+  template <typename T>
+  __device__ static __forceinline__ void rows_warp(
+      const T* pm, Handshake hs, const T* __restrict__ merit0,
+      const T* __restrict__ Dsq, const T* __restrict__ dV1,
+      const T* __restrict__ dV2, int B, int ns, size_t b, size_t a, T alpha,
+      const Consts<T>& k, T nu_w, T beta, T alpha_min,
+      T* __restrict__ cost_out, T* __restrict__ merit_out,
+      bool* __restrict__ ok_out, int lane) {
+    const T* par = pm + PairMem::par;
+    auto slot = [pm](int n) { return pm + PairMem::pub + (n % kSlots) * PairMem::pub_size; };
+    T acc = T(0);   // this lane's share of Σ‖ρ‖²
+    auto square = [&acc](int, T v) { acc += v * v; };
+    for (int n = 0; n < ns; ++n) {
+      hs.full_wait(n);                               // x̂ₙ, uₙ, pₙ are in
+      const T* xu = slot(n);
+      const isrbd::Geometry<T> geo = isrbd::geometry(xu, k);
+      isrbd::stage_rows<false>(lane, xu, par + (n % kSlots) * PairMem::par_size,
+                               geo, k, square, [](int, T) {});
+      // the chain waits on this before the slot's next node, n + kSlots
+      __syncwarp();
+      if (lane == 0) hs.empty_arrive(n);
+    }
+    hs.full_wait(ns);
+    isrbd::terminal_rows(lane, slot(ns), par + (ns % kSlots) * PairMem::par_size,
+                         k, square);
+    const T cost = isrbd::warp_sum(acc);
+    if (lane == 0) {
+      const T om = T(1) - alpha;
+      const T D = Dsq[b];
+      const T merit = cost + (nu_w * (om * om)) * D;
+      const T expected = -(alpha * dV1[b] + (alpha * alpha) * dV2[b]) +
+                         ((T(2) * alpha - alpha * alpha) * nu_w) * D;
+      const T exp_min = expected < T(1e-16) ? T(1e-16) : expected;  // NaN stays
+      const size_t o = a * B + b;
+      cost_out[o] = cost;
+      merit_out[o] = merit;
+      ok_out[o] = (merit0[b] - merit >= beta * exp_min) && isfinite(merit) &&
+                  (alpha >= alpha_min);
+    }
+  }
+
+  // One node's record in shared memory: x and u side by side (xu), then the
+  // packed parameter row.
+  struct EvalNode {
+    static constexpr int xu = 0, p = L::n_xu, size = p + L::n_par;
+  };
+
+  // A stage node's geometry and rates, from the prepass: Iw (9), Iw ω (3)
+  // and ȯ at the RK2 midpoint (4), what the rows and the step read of them.
+  static constexpr int kGeo = 16;
+
+  // The records, the stage nodes' geometry, then the node sums and maxima.
+  template <typename T>
+  static size_t evaluate_smem_bytes(int ns) {
+    return sizeof(T) * ((ns + 1) * (EvalNode::size + 2) + ns * kGeo);
+  }
+
+  // The block stages parameter tensors t … of the member's ns1 nodes (`row0`
+  // is its first row, b·ns1).
+  template <int t, typename T>
+  __device__ static __forceinline__ void stage_params(T* s, const isrbd::Params<T>& P,
+                                               size_t row0, int ns1, int tid) {
+    if constexpr (t < isrbd::kParams) {
+      constexpr int dim = isrbd::param_dim<S>(t);
+      cp_async_rows<T, dim, kEvalThreads>(
+          s + EvalNode::p + isrbd::param_off<S>(t), EvalNode::size,
+          P.p[t] + row0 * dim, 0, ns1, tid);
+      stage_params<t + 1>(s, P, row0, ns1, tid);
+    }
+  }
+
+  // The block starts the copies of member b's nodes into their records in
+  // two cp.async groups: x (node 0's from x0, rows x0_stride apart, when it
+  // is given) and u, then the parameter rows.
+  template <typename T>
+  __device__ static __forceinline__ void stage_member(T* s, const T* __restrict__ X,
+                                               const T* __restrict__ x0,
+                                               int x0_stride,
+                                               const T* __restrict__ U,
+                                               const isrbd::Params<T>& P,
+                                               size_t b, int ns, int tid) {
+    using EN = EvalNode;
+    const size_t row0 = b * (ns + 1);
+    int from = 0;
+    if (x0 != nullptr) {
+      cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size,
+                                         x0 + b * x0_stride, 0, 1, tid);
+      from = 1;
+    }
+    cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size, X + row0 * nx,
+                                       from, ns + 1, tid);
+    cp_async_rows<T, nu, kEvalThreads>(s + EN::xu + nx, EN::size,
+                                       U + b * ns * nu, 0, ns, tid);
+    cp_async_commit();
+    stage_params<0>(s, P, row0, ns + 1, tid);
+    cp_async_commit();
+  }
+
+  // The prepass: one lane forms one stage node's geometry and RK2 rates
+  // (isrbd::geometry, isrbd::rates) into `out`, the parts the rows and the
+  // step read. One warp thus runs the geometry of 32 nodes in the
+  // instructions of one, where every node's warp ran it whole.
+  template <typename T>
+  __device__ static __forceinline__ void node_geometry(const T* xu,
+                                                const Consts<T>& k,
+                                                T* out) {
+    const isrbd::Geometry<T> g = isrbd::geometry(xu, k);
+    const isrbd::Rates<T> r = isrbd::rates<S>(xu, T(0.5) * k.dt);
+  #pragma unroll
+    for (int i = 0; i < 9; ++i) out[i] = g.Iw[i];
+  #pragma unroll
+    for (int i = 0; i < 3; ++i) out[9 + i] = g.h[i];
+  #pragma unroll
+    for (int i = 0; i < 4; ++i) out[12 + i] = r.odm[i];
+  }
+
+  // One warp evaluates node n from its record and its geometry: this node's
+  // Σ‖ρ‖² and largest |rk2(x, u) − X[n+1]| (stage nodes), or the terminal
+  // rows' Σ, onto lane 0. X[n+1] comes from device memory, issued first.
+  template <typename T>
+  __device__ static __forceinline__ void evaluate_node(const T* rec, const T* gs,
+                                                const T* __restrict__ Xnext,
+                                                int n, int ns,
+                                                const Consts<T>& k,
+                                                int lane, T* cost, T* dmax) {
+    const T* xu = rec + EvalNode::xu;
+    const T* p = rec + EvalNode::p;
+    T acc = T(0), dm = T(0);
+    auto square = [&acc](int, T v) { acc += v * v; };
+    if (n < ns) {                                    // warp-uniform
+      T xn[2];                                       // nx ≤ 64: two rows a lane
+  #pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = lane + 32 * c;
+        xn[c] = j < nx ? Xnext[j] : T(0);
+      }
+      const T hdt = T(0.5) * k.dt;
+      isrbd::Geometry<T> geo{};                      // stage_rows reads Iw, h
+      isrbd::Rates<T> rt{};                          // step_row reads ȯ_mid
+  #pragma unroll
+      for (int i = 0; i < 9; ++i) geo.Iw[i] = gs[i];
+  #pragma unroll
+      for (int i = 0; i < 3; ++i) geo.h[i] = gs[9 + i];
+  #pragma unroll
+      for (int i = 0; i < 4; ++i) rt.odm[i] = gs[12 + i];
+      isrbd::stage_rows<false>(lane, xu, p, geo, k, square, [](int, T) {});
+  #pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = lane + 32 * c;
+        if (j < nx)
+          dm = isrbd::nan_max(
+              dm, isrbd::abs_nan(isrbd::step_row<S>(j, xu, rt, hdt, k.dt) - xn[c]));
+      }
+    } else {
+      isrbd::terminal_rows(lane, xu, p, k, square);
+    }
+    acc = isrbd::warp_sum(acc);
+    dm = isrbd::warp_nan_max(dm);
+    if (lane == 0) {
+      *cost = acc;
+      *dmax = dm;
+    }
+  }
 };
 
-// A stage node's geometry and rates, from the prepass: Iw (9), Iw ω (3)
-// and ȯ at the RK2 midpoint (4), what the rows and the step read of them.
-constexpr int kGeo = 16;
-
-// The records, the stage nodes' geometry, then the node sums and maxima.
-template <typename T>
-size_t evaluate_smem_bytes(int ns) {
-  return sizeof(T) * ((ns + 1) * (EvalNode::size + 2) + ns * kGeo);
+template <class S, typename T>
+__global__ void __launch_bounds__(kThreads)
+isrbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
+                   const T* __restrict__ U, const T* __restrict__ ks,
+                   const T* __restrict__ Ks, const T* __restrict__ d,
+                   const T* __restrict__ alphas, isrbd::Params<T> P,
+                   const T* __restrict__ merit0, const T* __restrict__ Dsq,
+                   const T* __restrict__ dV1, const T* __restrict__ dV2,
+                   int B, int ns, int nA,
+                   const __grid_constant__ isrbd::Consts<S, T> k, T nu_w, T beta,
+                   T alpha_min, T* __restrict__ Xn, T* __restrict__ Un,
+                   T* __restrict__ cost_out, T* __restrict__ merit_out,
+                   bool* __restrict__ ok_out) {
+  using C = K6<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<T*>(smem_raw) + kPairs * C::PairMem::size);
+  if (threadIdx.x < kPairs * 2 * kSlots) mbarrier_init(bars + threadIdx.x, 1);
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = warp / 2;
+  const long long g = static_cast<long long>(blockIdx.x) * kPairs + pair;
+  if (g >= static_cast<long long>(B) * nA) return;   // the whole pair leaves
+  const size_t b = g / nA;
+  const size_t a = g % nA;
+  T* pm = reinterpret_cast<T*>(smem_raw) + pair * C::PairMem::size;
+  const Handshake hs{bars + pair * 2 * kSlots};
+  const T alpha = alphas[a];
+  if (warp % 2 == 0)
+    C::chain_warp(pm, hs, P, x0, X, U, ks, Ks, d, B, ns, b, a, alpha, k, Xn, Un,
+               lane);
+  else
+    C::rows_warp(pm, hs, merit0, Dsq, dV1, dV2, B, ns, b, a, alpha, k, nu_w, beta,
+              alpha_min, cost_out, merit_out, ok_out, lane);
 }
 
-// The block stages parameter tensors t … of the member's ns1 nodes (`row0`
-// is its first row, b·ns1).
-template <int t, typename T>
-__device__ __forceinline__ void stage_params(T* s, const isrbd::Params<T>& P,
-                                             size_t row0, int ns1, int tid) {
-  if constexpr (t < isrbd::kParams) {
-    constexpr int dim = isrbd::param_dim(t);
-    cp_async_rows<T, dim, kEvalThreads>(
-        s + EvalNode::p + isrbd::param_off(t), EvalNode::size,
-        P.p[t] + row0 * dim, 0, ns1, tid);
-    stage_params<t + 1>(s, P, row0, ns1, tid);
-  }
-}
-
-// The block starts the copies of member b's nodes into their records in
-// two cp.async groups: x (node 0's from x0, rows x0_stride apart, when it
-// is given) and u, then the parameter rows.
-template <typename T>
-__device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
-                                             const T* __restrict__ x0,
-                                             int x0_stride,
-                                             const T* __restrict__ U,
-                                             const isrbd::Params<T>& P,
-                                             size_t b, int ns, int tid) {
-  using EN = EvalNode;
-  const size_t row0 = b * (ns + 1);
-  int from = 0;
-  if (x0 != nullptr) {
-    cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size,
-                                       x0 + b * x0_stride, 0, 1, tid);
-    from = 1;
-  }
-  cp_async_rows<T, nx, kEvalThreads>(s + EN::xu, EN::size, X + row0 * nx,
-                                     from, ns + 1, tid);
-  cp_async_rows<T, nu, kEvalThreads>(s + EN::xu + nx, EN::size,
-                                     U + b * ns * nu, 0, ns, tid);
-  cp_async_commit();
-  stage_params<0>(s, P, row0, ns + 1, tid);
-  cp_async_commit();
-}
-
-// The prepass: one lane forms one stage node's geometry and RK2 rates
-// (isrbd::geometry, isrbd::rates) into `out`, the parts the rows and the
-// step read. One warp thus runs the geometry of 32 nodes in the
-// instructions of one, where every node's warp ran it whole.
-template <typename T>
-__device__ __forceinline__ void node_geometry(const T* xu,
-                                              const isrbd::Consts<T>& k,
-                                              T* out) {
-  const isrbd::Geometry<T> g = isrbd::geometry(xu, k);
-  const isrbd::Rates<T> r = isrbd::rates(xu, T(0.5) * k.dt);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) out[i] = g.Iw[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) out[9 + i] = g.h[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[12 + i] = r.odm[i];
-}
-
-// One warp evaluates node n from its record and its geometry: this node's
-// Σ‖ρ‖² and largest |rk2(x, u) − X[n+1]| (stage nodes), or the terminal
-// rows' Σ, onto lane 0. X[n+1] comes from device memory, issued first.
-template <typename T>
-__device__ __forceinline__ void evaluate_node(const T* rec, const T* gs,
-                                              const T* __restrict__ Xnext,
-                                              int n, int ns,
-                                              const isrbd::Consts<T>& k,
-                                              int lane, T* cost, T* dmax) {
-  const T* xu = rec + EvalNode::xu;
-  const T* p = rec + EvalNode::p;
-  T acc = T(0), dm = T(0);
-  auto square = [&acc](int, T v) { acc += v * v; };
-  if (n < ns) {                                    // warp-uniform
-    T xn[2];                                       // nx ≤ 64: two rows a lane
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      xn[c] = j < nx ? Xnext[j] : T(0);
-    }
-    const T hdt = T(0.5) * k.dt;
-    isrbd::Geometry<T> geo{};                      // stage_rows reads Iw, h
-    isrbd::Rates<T> rt{};                          // step_row reads ȯ_mid
-#pragma unroll
-    for (int i = 0; i < 9; ++i) geo.Iw[i] = gs[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) geo.h[i] = gs[9 + i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rt.odm[i] = gs[12 + i];
-    isrbd::stage_rows<false>(lane, xu, p, geo, k, square, [](int, T) {});
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      if (j < nx)
-        dm = isrbd::nan_max(
-            dm, isrbd::abs_nan(isrbd::step_row(j, xu, rt, hdt, k.dt) - xn[c]));
-    }
-  } else {
-    isrbd::terminal_rows(lane, xu, p, k, square);
-  }
-  acc = isrbd::warp_sum(acc);
-  dm = isrbd::warp_nan_max(dm);
-  if (lane == 0) {
-    *cost = acc;
-    *dmax = dm;
-  }
-}
-
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(kEvalThreads, kEvalMinBlocks)
 isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       const T* __restrict__ x0, int x0_stride,
                       isrbd::Params<T> P, int ns,
-                      const __grid_constant__ isrbd::Consts<T> k,
+                      const __grid_constant__ isrbd::Consts<S, T> k,
                       T* __restrict__ cost_out, T* __restrict__ dmax_out,
                       T* __restrict__ Xpin) {
-  using EN = EvalNode;
+  using C = K6<S>;
+  using EN = typename C::EvalNode;
+  constexpr int kGeo = C::kGeo, nx = C::nx;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ns1 = ns + 1;
@@ -564,7 +575,7 @@ isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   T* node_dmax = node_cost + ns1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t b = blockIdx.x;
-  stage_member(s, X, x0, x0_stride, U, P, b, ns, tid);
+  C::stage_member(s, X, x0, x0_stride, U, P, b, ns, tid);
   cp_async_wait_group<1>();                        // x and u are in
   __syncthreads();
   if (Xpin != nullptr) {                           // the pinned plan, as staged
@@ -578,11 +589,11 @@ isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   // (while the parameter rows stream in)
   if (warp == 0)
     for (int n = lane; n < ns; n += 32)
-      node_geometry(s + n * EN::size + EN::xu, k, geo + n * kGeo);
+      C::node_geometry(s + n * EN::size + EN::xu, k, geo + n * kGeo);
   cp_async_wait_group<0>();                        // the parameter rows too
   __syncthreads();
   for (int n = warp; n < ns1; n += kEvalWarps)
-    evaluate_node(s + n * EN::size, geo + n * kGeo,
+    C::evaluate_node(s + n * EN::size, geo + n * kGeo,
                   X + (b * ns1 + n + 1) * nx, n, ns, k, lane, node_cost + n,
                   node_dmax + n);
   __syncthreads();
@@ -598,10 +609,6 @@ isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   }
 }
 
-bool is_shape(int nc, int cm, int n_legs) {
-  return nc == Shape::nc && cm == Shape::cm && n_legs == Shape::n_legs;
-}
-
 // Let a kernel take `bytes` of dynamic shared memory (above 48 KB only
 // after the attribute is raised).
 template <class Kernel>
@@ -611,20 +618,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
                  const void* Ks, const void* d, const void* alphas,
                  const void* const* params, const void* merit0,
                  const void* D, const void* dV1, const void* dV2, int B,
-                 int ns, int nc, int cm, int n_legs, int nA,
-                 const double* scalars, double nu_w, double beta,
-                 double alpha_min, void* Xn, void* Un, void* cost,
+                 int ns, int nA, const double* scalars, double nu_w,
+                 double beta, double alpha_min, void* Xn, void* Un, void* cost,
                  void* merit, void* ok, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
   const long long pairs = static_cast<long long>(B) * nA;
   if (pairs == 0) return 0;
-  const size_t bytes = trial_smem_bytes<T>();
-  auto kernel = isrbd_trial_kernel<T>;
+  const size_t bytes = K6<S>::template trial_smem_bytes<T>();
+  auto kernel = isrbd_trial_kernel<S, T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>((pairs + kPairs - 1) / kPairs);
@@ -635,7 +640,7 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
       static_cast<const T*>(alphas), isrbd::make_params<T>(params),
       static_cast<const T*>(merit0), static_cast<const T*>(D),
       static_cast<const T*>(dV1), static_cast<const T*>(dV2), B, ns, nA,
-      isrbd::make_consts<T>(scalars), static_cast<T>(nu_w),
+      isrbd::make_consts<S, T>(scalars), static_cast<T>(nu_w),
       static_cast<T>(beta), static_cast<T>(alpha_min), static_cast<T*>(Xn),
       static_cast<T*>(Un), static_cast<T*>(cost), static_cast<T*>(merit),
       static_cast<bool*>(ok));
@@ -644,36 +649,34 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
 
 // K6's blocks resident on one SM, ring depth, warps and shared memory a
 // block, into out[0..3].
-template <typename T>
+template <class S, typename T>
 int trial_occupancy(int* out) {
-  const size_t bytes = trial_smem_bytes<T>();
-  cudaError_t e = allow_smem(isrbd_trial_kernel<T>, bytes);
+  const size_t bytes = K6<S>::template trial_smem_bytes<T>();
+  cudaError_t e = allow_smem(isrbd_trial_kernel<S, T>, bytes);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, isrbd_trial_kernel<T>, kThreads, bytes);
+        out, isrbd_trial_kernel<S, T>, kThreads, bytes);
   out[1] = kStages;
   out[2] = kThreads / 32;
   out[3] = static_cast<int>(bytes);
   return static_cast<int>(e);
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_evaluate(const void* X, const void* U, const void* x0,
                     int x0_stride, const void* const* params, int B, int ns,
-                    int nc, int cm,
-                    int n_legs, const double* scalars, void* cost, void* dmax,
-                    void* Xpin, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
+                    const double* scalars, void* cost, void* dmax, void* Xpin,
+                    void* stream) {
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
-  auto kernel = isrbd_evaluate_kernel<T>;
+  const size_t bytes = K6<S>::template evaluate_smem_bytes<T>(ns);
+  auto kernel = isrbd_evaluate_kernel<S, T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B, kEvalThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
       static_cast<const T*>(x0), x0_stride, isrbd::make_params<T>(params), ns,
-      isrbd::make_consts<T>(scalars), static_cast<T*>(cost),
+      isrbd::make_consts<S, T>(scalars), static_cast<T*>(cost),
       static_cast<T*>(dmax), static_cast<T*>(Xpin));
   return static_cast<int>(cudaGetLastError());
 }
@@ -682,10 +685,10 @@ int launch_evaluate(const void* X, const void* U, const void* x0,
 // resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // warps a block, shared memory bytes a block, registers a thread and
 // local (spilled) bytes a thread (cudaFuncGetAttributes).
-template <typename T>
+template <class S, typename T>
 int evaluate_occupancy(int ns, int* out) {
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
-  auto kernel = isrbd_evaluate_kernel<T>;
+  const size_t bytes = K6<S>::template evaluate_smem_bytes<T>(ns);
+  auto kernel = isrbd_evaluate_kernel<S, T>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
@@ -710,20 +713,26 @@ int evaluate_occupancy(int ns, int* out) {
       int n_legs, int nA, const double* scalars, double nu_w, double beta,    \
       double alpha_min, void* Xn, void* Un, void* cost, void* merit,          \
       void* ok, void* stream) {                                               \
-    return launch_trial<T>(x0, X, U, ks, Ks, d, alphas, params, merit0, D,    \
-                           dV1, dV2, B, ns, nc, cm, n_legs, nA, scalars,      \
-                           nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,    \
-                           stream);                                           \
+    return isrbd::with_topology(nc, cm, n_legs, [&](auto s) {                 \
+      return launch_trial<decltype(s), T>(                                    \
+          x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2, B, ns,    \
+          nA, scalars, nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,        \
+          stream);                                                            \
+    });                                                                       \
   }
 
 TRIAL_ENTRY(isrbd_trial_f32, float)
 TRIAL_ENTRY(isrbd_trial_f64, double)
 
-// K6's occupancy for float32 (f64 = 0) or float64 tensors: out[0] blocks an
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] the ring's
-// depth, out[2] warps a block, out[3] shared memory bytes a block.
-extern "C" int isrbd_trial_occupancy(int f64, int* out) {
-  return f64 ? trial_occupancy<double>(out) : trial_occupancy<float>(out);
+// K6's occupancy for the shape at index `shape` (kernels/isrbd_linearize.py::
+// KERNEL_SHAPES order) and float32 (f64 = 0) or float64 tensors: out[0]
+// blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] the
+// ring's depth, out[2] warps a block, out[3] shared memory bytes a block.
+extern "C" int isrbd_trial_occupancy(int shape, int f64, int* out) {
+  return isrbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? trial_occupancy<S, double>(out) : trial_occupancy<S, float>(out);
+  });
 }
 
 // x0 and Xpin are null, or x0 (B, nx, rows x0_stride elements apart)
@@ -734,18 +743,24 @@ extern "C" int isrbd_trial_occupancy(int f64, int* out) {
                       int ns, int nc, int cm, int n_legs,                     \
                       const double* scalars, void* cost, void* dmax,          \
                       void* Xpin, void* stream) {                             \
-    return launch_evaluate<T>(X, U, x0, x0_stride, params, B, ns, nc, cm,     \
-                              n_legs, scalars, cost, dmax, Xpin, stream);     \
+    return isrbd::with_topology(nc, cm, n_legs, [&](auto s) {                 \
+      return launch_evaluate<decltype(s), T>(X, U, x0, x0_stride, params, B,  \
+                                             ns, scalars, cost, dmax, Xpin,   \
+                                             stream);                         \
+    });                                                                       \
   }
 
 EVALUATE_ENTRY(isrbd_evaluate_f32, float)
 EVALUATE_ENTRY(isrbd_evaluate_f64, double)
 
-// isrbd_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at
-// ns stage nodes: out[0] blocks an SM, out[1] warps a block, out[2] shared
-// memory bytes a block, out[3] registers a thread, out[4] local bytes a
-// thread.
-extern "C" int isrbd_evaluate_occupancy(int f64, int ns, int* out) {
-  return f64 ? evaluate_occupancy<double>(ns, out)
-             : evaluate_occupancy<float>(ns, out);
+// isrbd_evaluate's occupancy for the shape at index `shape` and float32
+// (f64 = 0) or float64 tensors at ns stage nodes: out[0] blocks an SM,
+// out[1] warps a block, out[2] shared memory bytes a block, out[3]
+// registers a thread, out[4] local bytes a thread.
+extern "C" int isrbd_evaluate_occupancy(int shape, int f64, int ns, int* out) {
+  return isrbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? evaluate_occupancy<S, double>(ns, out)
+               : evaluate_occupancy<S, float>(ns, out);
+  });
 }

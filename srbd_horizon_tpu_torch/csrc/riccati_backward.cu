@@ -29,11 +29,13 @@
 // takes 31,380 B of shared memory for float32 tensors (39,676 B for
 // float64). The point-feet quadruped's SRBD OCP differs from the
 // Kangaroo's only in its 30 residual rows touching x (no relative-velocity
-// rows), ~0.47 MFLOP a member-node.
+// rows), ~0.47 MFLOP a member-node; its AL inner OCP (QuadAlShape) from
+// the Kangaroo's (IsrbdAlShape) in its 56 rows touching x, not 60, and its
+// 97-row terminal stack, not 101.
 //
 // Design, one thread block of 4 warps per member, the node loop inside:
 //  * Compile-time sizes. The kernel is a template on a shape struct (one
-//    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape); every loop
+//    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape); every loop
 //    bound, tile count and shared-memory offset is a constant. The row sets stay a run-time
 //    int32 table, copied into shared memory once. The wrapper picks the
 //    instantiation from the sizes and refuses any other.
@@ -89,11 +91,11 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); ten instantiations are built (`with_instance` below):
+// solve (Solve); twelve instantiations are built (`with_instance` below):
 // the collapsed form with the inverse at every shape, and the Tassa form
 // with the inverse at SrbdShape, LipShape and QuadShape (DDPOptions'
-// default), with Cholesky at IsrbdAlShape (the AL solver's inner solve),
-// at SrbdShape and at LipShape. The collapsed ones compile to the code
+// default), with Cholesky at IsrbdAlShape and QuadAlShape (the AL solver's
+// inner solve), at SrbdShape and at LipShape. The collapsed ones compile to the code
 // they had.
 //  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
 //    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
@@ -153,6 +155,12 @@ struct QuadShape {          // build_srbd_problem on the point-feet quadruped
   static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
                        n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
   static constexpr int min_blocks = 4;
+};
+
+struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
+  static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
+                       n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
+  static constexpr int min_blocks = 3;
 };
 
 // the value update (kernels/riccati.py::FORMS) and the gain solve
@@ -1033,6 +1041,8 @@ int with_instance(int inst, Fn fn) {
     case 7: return fn(Inst<LipShape, Form::kTassa, Solve::kCholesky>{});
     case 8: return fn(Inst<QuadShape, Form::kCollapsed, Solve::kSchur>{});
     case 9: return fn(Inst<QuadShape, Form::kTassa, Solve::kSchur>{});
+    case 10: return fn(Inst<QuadAlShape, Form::kCollapsed, Solve::kSchur>{});
+    case 11: return fn(Inst<QuadAlShape, Form::kTassa, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }

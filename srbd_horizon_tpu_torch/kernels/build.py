@@ -172,8 +172,9 @@ def occupancy_query(lib_name: str, entry: str, fields, *args) -> dict:
 
 
 def evaluate_occupancy(name: str, ns: int, f64: bool) -> dict:
-    """An evaluation entry's occupancy on the current card (the isrbd and
-    LIP ones; the SRBD one takes its shape, `kernels/rollout.py`), from
+    """An evaluation entry's occupancy on the current card (the LIP one;
+    the SRBD and isrbd ones take their shape, `kernels/rollout.py`,
+    `kernels/isrbd_rollout.py`), from
     `<name>_evaluate_occupancy` in `lib<name>_rollout.so` at ns stage
     nodes: blocks resident on one SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared

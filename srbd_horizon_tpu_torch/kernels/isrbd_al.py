@@ -12,8 +12,9 @@ tick, four entries of `csrc/isrbd_al.cu`.
 
 `ALDDP` (solvers/alddp.py) calls the entries. Each takes its plain twin,
 `<entry>_plain`, for CPU tensors, launches its kernel for CUDA tensors of
-the sizes `isrbd_linearize.KERNEL_SHAPE`, and raises ValueError for any
-other device or size: nothing falls back to a twin on the card. The twins
+the sizes of a shape in `isrbd_linearize.KERNEL_SHAPES` (K7 picks it by the
+contact topology, K8a-c are handed its index), and raises ValueError for
+any other device or size: nothing falls back to a twin on the card. The twins
 are the JAX package's functions (srbd_horizon_tpu/solvers/alddp.py) in
 batch-first PyTorch, built from the pieces below (the bodies the `ALDDP`
 methods of the same names held before the kernels):
@@ -43,6 +44,7 @@ from srbd_horizon_tpu_torch.kernels.build import check_tensor, host_setup, libra
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     check_kernel_shape,
     kernel_scalars,
+    shape_index,
 )
 from srbd_horizon_tpu_torch.problems.isrbd_al import bound_violation
 
@@ -359,10 +361,11 @@ def _device(name: str, t):
     return t.device, t.dtype
 
 
-def _shape_setup(name, al, nx, nu):
-    """The shape check of an entry, once for (terms, entry, sizes)."""
-    host_setup(al.terms, (name, nx, nu),
-               lambda: check_kernel_shape(name, al.terms, nx, nu))
+def _shape_setup(name, al, nx, nu) -> int:
+    """The shape check of an entry, once for (terms, entry, sizes): the
+    index of the shape in `KERNEL_SHAPES`."""
+    return host_setup(al.terms, (name, nx, nu), lambda: shape_index(
+        check_kernel_shape(name, al.terms, nx, nu)))
 
 
 def _check_phase(phase, Bsz, dev):
@@ -399,9 +402,9 @@ def _bound(name, b, Bsz, n, dim, dtype, dev):
 
 def isrbd_al_constraints(al, X, U, params, st=None, offline=False):
     """K7. Same contract as `isrbd_al_constraints_plain`; launches the CUDA
-    kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
-    launch in `isrbd_al_constraints.launches`), raises ValueError for any
-    other."""
+    kernel for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and
+    counts the launch in `isrbd_al_constraints.launches`), raises
+    ValueError for any other."""
     if X.device.type == "cpu":
         return isrbd_al_constraints_plain(al, X, U, params, st, offline)
     Bsz, ns1, nx = X.shape
@@ -501,7 +504,7 @@ def isrbd_al_shift(al, st, prior=None, phase=None):
     ns, nu = ns1 - 1, st.sol.U.shape[-1]
     name = "isrbd_al_shift"
     terms = al.terms
-    _shape_setup(name, al, nx, nu)
+    shape_i = _shape_setup(name, al, nx, nu)
     dev, dtype = _device(name, X)
     ins = _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev)
     n_eq, n_eq_T = terms.n_eq, terms.n_eq_T
@@ -532,10 +535,11 @@ def isrbd_al_shift(al, st, prior=None, phase=None):
             ins_k[10:12] = [prior.lam_tail, prior.lam_T]
             seen, seen_T = prior.seen_tail, prior.seen_T
         outs_k[9] = torch.empty_like(st.lam_eq_T)
-    fn = _fn(name, dtype, [_I, _P, _P, _P, _P] + [_I] * 3 + [_P, _I, _P])
+    fn = _fn(name, dtype, [_I, _I, _P, _P, _P, _P] + [_I] * 3 + [_P, _I, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(kind, _ptrs(ins_k), None if seen is None else seen.data_ptr(),
+        err = fn(shape_i, kind, _ptrs(ins_k),
+                 None if seen is None else seen.data_ptr(),
                  None if seen_T is None else seen_T.data_ptr(), _ptrs(outs_k),
                  Bsz, ns, period, None if phase is None else phase.data_ptr(),
                  0 if phase is None else phase.element_size(), stream)
@@ -563,7 +567,7 @@ def isrbd_al_params(al, params, st):
     name = "isrbd_al_params"
     terms = al.terms
     nx, nu, ns = al.ocp.nx, al.ocp.nu, al.ocp.ns
-    _shape_setup(name, al, nx, nu)
+    shape_i = _shape_setup(name, al, nx, nu)
     dev, dtype = _device(name, lam_eq)
     Bsz, ns1 = lam_eq.shape[0], ns + 1
     n_eq, n_eq_T, n_in = terms.n_eq, terms.n_eq_T, terms.n_ineq
@@ -584,10 +588,11 @@ def isrbd_al_params(al, params, st):
                al_u_ub=new(nu) if "u_ub" in over else None)
     ins = [st.lam_eq, st.lam_eq_T, st.mu_ub, st.mu_lb, st.rho, st.mu_u_ub,
            st.mu_u_lb, over.get("u_lb"), over.get("u_ub")]
-    fn = _fn(name, dtype, [_P, _P, _I, _I, _P])
+    fn = _fn(name, dtype, [_I, _P, _P, _I, _I, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptrs(ins), _ptrs(list(out.values())), Bsz, ns, stream)
+        err = fn(shape_i, _ptrs(ins), _ptrs(list(out.values())), Bsz, ns,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
     isrbd_al_params.launches += 1
@@ -622,7 +627,7 @@ def isrbd_al_prior_update(al, prior, st, phase, ema: float):
     name = "isrbd_al_prior_update"
     terms = al.terms
     nx, nu = al.ocp.nx, al.ocp.nu
-    _shape_setup(name, al, nx, nu)
+    shape_i = _shape_setup(name, al, nx, nu)
     dev, dtype = _device(name, lam_eq)
     Bsz, ns, n_eq = lam_eq.shape
     n_eq_T = terms.n_eq_T
@@ -645,11 +650,12 @@ def isrbd_al_prior_update(al, prior, st, phase, ema: float):
     new_tab, new_tabT = torch.empty_like(tab), torch.empty_like(tabT)
     new_seen = torch.empty_like(seen)
     new_seen_T = None if full else torch.empty_like(seen_T)
-    fn = _fn(name, dtype, [_I, _P, _P, _P, _P, _P, _P] + [_I] * 3
+    fn = _fn(name, dtype, [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 3
              + [_P, _I, _D, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(2 if full else 1, _ptrs([lam_eq, st.lam_eq_T, tab, tabT]),
+        err = fn(shape_i, 2 if full else 1,
+                 _ptrs([lam_eq, st.lam_eq_T, tab, tabT]),
                  seen.data_ptr(), None if full else seen_T.data_ptr(),
                  _ptrs([new_tab, new_tabT]), new_seen.data_ptr(),
                  None if full else new_seen_T.data_ptr(), Bsz, ns, period,

@@ -38,11 +38,12 @@ What bounds the kernel on an H100: bytes — a member-node writes ~6.9k
 values and reads ~0.43k, against a few thousand FLOP (the note in the
 .cu gives the design).
 
-K5, K6 and isrbd_evaluate are compiled for one set of sizes, those of the
-serving configuration (`isrbd::Shape` in csrc/isrbd_common.cuh,
-`KERNEL_SHAPE` here); their wrappers raise ValueError, naming the sizes,
-for CUDA tensors of any other, and take the plain twin for CPU tensors of
-any sizes.
+K5, K6, isrbd_evaluate, K7 and K8 are compiled for two sets of sizes, the
+AL inner problems of the Kangaroo's line feet and of the quadruped's point
+feet (`isrbd::KangarooAlShape` and `isrbd::QuadAlShape` in
+csrc/isrbd_common.cuh, `KERNEL_SHAPES` here); their wrappers raise
+ValueError, naming the sizes, for CUDA tensors of any other, and take the
+plain twin for CPU tensors of any sizes.
 """
 
 from __future__ import annotations
@@ -51,7 +52,11 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    library,
+    occupancy_query,
+)
 from srbd_horizon_tpu_torch.kernels.linearize import _drot
 from srbd_horizon_tpu_torch.math.quat import quat_to_rot, skew
 from srbd_horizon_tpu_torch.problems.isrbd_al import (
@@ -65,14 +70,21 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:273"
 SOURCE = "srbd_horizon_tpu_torch/csrc/isrbd_linearize.cu"
 N_TRACK = 15       # rows of the outer terminal residual
 
-# The sizes K5, K6 and isrbd_evaluate are compiled for (`isrbd::Shape` in
-# csrc/isrbd_common.cuh): the AL inner problem of build_isrbd_problem with
-# the Kangaroo line feet. n_par is the packed parameter row (the widths of
-# PARAM_KEYS); the row counts are K5's (`RiccatiRows.from_ocp` of the
-# inner OCP, K1's isrbd_al instantiation).
-KERNEL_SHAPE = dict(nc=4, cm=2, n_legs=2, nx=37, nu=30, n_rho=240,
-                    n_term=101, n_eq=21, n_eq_T=12, n_in=20, n_par=357,
-                    n_rx=19, n_ru=37, n_gx=60, n_gu=103, n_b=9, n_uc=18)
+# The sizes K5, K6, isrbd_evaluate, K7 and K8 are compiled for, in the order
+# of the shape structs of csrc/isrbd_common.cuh (KangarooAlShape,
+# QuadAlShape): the AL inner problem of build_isrbd_problem with the
+# Kangaroo's line feet and with the quadruped's point feet. n_par is the
+# packed parameter row (the widths of PARAM_KEYS); the row counts are K5's
+# (`RiccatiRows.from_ocp` of the inner OCP, K1's isrbd_al and
+# isrbd_al_quadruped instantiations).
+KERNEL_SHAPES = {
+    "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=37, nu=30, n_rho=240,
+                     n_term=101, n_eq=21, n_eq_T=12, n_in=20, n_par=357,
+                     n_rx=19, n_ru=37, n_gx=60, n_gu=103, n_b=9, n_uc=18),
+    "quadruped": dict(nc=4, cm=1, n_legs=4, nx=37, nu=30, n_rho=236,
+                      n_term=97, n_eq=17, n_eq_T=8, n_in=20, n_par=349,
+                      n_rx=19, n_ru=37, n_gx=56, n_gu=103, n_b=9, n_uc=18),
+}
 
 
 def kernel_params(params, Bsz, ns, terms, dtype, device):
@@ -99,16 +111,29 @@ def kernel_sizes(terms, nx: int, nu: int, rows=None):
     return sizes
 
 
-def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None):
-    """Raise ValueError, naming the sizes, unless they are those the isrbd
-    kernels are compiled for (`KERNEL_SHAPE`) and the cone rows are
-    `A f ≤ 0`, bounded above only, as the kernels assume."""
+def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None) -> str:
+    """The name of the shape in `KERNEL_SHAPES` that has these sizes, once
+    the cone rows are checked to be `A f ≤ 0`, bounded above only, as the
+    kernels assume; ValueError, naming the sizes, if the isrbd kernels are
+    compiled for none."""
     sizes = kernel_sizes(terms, nx, nu, rows)
-    if sizes != {k: KERNEL_SHAPE[k] for k in sizes}:
-        raise ValueError(
-            f"{name} has no kernel for the sizes {sizes}; it is compiled for "
-            f"{KERNEL_SHAPE} (csrc/isrbd_common.cuh)")
-    terms.check_cone_bounds()
+    for shape, want in KERNEL_SHAPES.items():
+        if sizes == {k: want[k] for k in sizes}:
+            terms.check_cone_bounds()
+            return shape
+    known = "; ".join(f"{shape} {want}" for shape, want in KERNEL_SHAPES.items())
+    raise ValueError(
+        f"{name} has no kernel for the sizes {sizes}; it is compiled for "
+        f"{known} (csrc/isrbd_common.cuh)")
+
+
+def shape_index(shape: str) -> int:
+    """The position of `shape` in `KERNEL_SHAPES`, which the occupancy
+    entries and K8's launchers take (`isrbd::with_shape`)."""
+    if shape not in KERNEL_SHAPES:
+        raise ValueError(f"no isrbd kernel shape {shape!r}; the shapes are "
+                         f"{tuple(KERNEL_SHAPES)}")
+    return list(KERNEL_SHAPES).index(shape)
 
 
 def kernel_scalars(terms, dt: float):
@@ -354,27 +379,21 @@ def _kernel_fn(dtype):
     return fn
 
 
-def occupancy(dtype=torch.float32):
+def occupancy(dtype=torch.float32, shape: str = "kangaroo"):
     """K5's blocks resident on one SM of the current card
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
-    memory bytes a block, for tensors of `dtype`."""
-    fn = library("isrbd_linearize").isrbd_linearize_occupancy
-    if fn.argtypes is None:
-        fn.argtypes = [_I, ctypes.POINTER(_I)]
-        fn.restype = _I
-    out = (_I * 3)()
-    err = fn(int(dtype == torch.float64), out)
-    if err != 0:
-        raise RuntimeError(f"isrbd_linearize occupancy query failed: error {err}")
-    return dict(blocks_per_sm=out[0], warps_per_block=out[1],
-                shared_memory_bytes=out[2])
+    memory bytes a block, at the shape `shape` for tensors of `dtype`."""
+    return occupancy_query(
+        "isrbd_linearize", "isrbd_linearize_occupancy",
+        ("blocks_per_sm", "warps_per_block", "shared_memory_bytes"),
+        shape_index(shape), int(dtype == torch.float64))
 
 
 def isrbd_linearize(X, U, params, terms, rows, dt: float):
     """K5. Same contract as `isrbd_linearize_plain`; launches the CUDA
-    kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
-    launch in `isrbd_linearize.launches`), raises ValueError for other
-    sizes."""
+    kernel for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and
+    counts the launch in `isrbd_linearize.launches`), raises ValueError for
+    other sizes."""
     if X.device.type == "cpu":
         return isrbd_linearize_plain(X, U, params, terms, rows, dt)
     Bsz, ns1, nx = X.shape

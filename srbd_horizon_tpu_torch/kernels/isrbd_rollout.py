@@ -31,8 +31,8 @@ with node 0 pinned to x0 and returns that plan as a third output,
 the same launch. Its plain twin `isrbd_evaluate_plain` is
 `ALTerms.total_cost` and the RK2 step.
 
-Both run on the sizes `isrbd_linearize.KERNEL_SHAPE` on CUDA tensors and
-raise ValueError, naming the sizes, on any other; CPU tensors take the
+Both run on the sizes of `isrbd_linearize.KERNEL_SHAPES` on CUDA tensors
+and raise ValueError, naming the sizes, on any other; CPU tensors take the
 twins at any sizes.
 """
 
@@ -43,15 +43,17 @@ import ctypes
 import torch
 
 from srbd_horizon_tpu_torch.kernels.build import (
+    EVALUATE_OCCUPANCY_FIELDS,
     check_tensor,
-    evaluate_occupancy as build_occupancy,
     host_setup,
     library,
+    occupancy_query,
 )
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     check_kernel_shape,
     kernel_params,
     kernel_scalars,
+    shape_index,
 )
 from srbd_horizon_tpu_torch.kernels.rollout import armijo_plain
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
@@ -136,9 +138,9 @@ def _evaluate_setup(terms, nx: int, nu: int, dt: float):
 
 def isrbd_evaluate(X, U, params, terms, dt: float, x0=None):
     """isrbd_evaluate. Same contract as `isrbd_evaluate_plain`; launches the
-    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
-    the launch in `isrbd_evaluate.launches`), raises ValueError for other
-    sizes."""
+    CUDA kernel for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES`
+    (and counts the launch in `isrbd_evaluate.launches`), raises ValueError
+    for other sizes."""
     if X.device.type == "cpu":
         return isrbd_evaluate_plain(X, U, params, terms, dt, x0)
     Bsz, ns1, nx = X.shape
@@ -193,10 +195,14 @@ def _evaluate_fn(dtype):
     return fn
 
 
-def evaluate_occupancy(ns: int, dtype=torch.float32):
-    """isrbd_evaluate's occupancy at ns stage nodes for tensors of `dtype`
-    (`build.evaluate_occupancy`)."""
-    return build_occupancy("isrbd", ns, dtype == torch.float64)
+def evaluate_occupancy(ns: int, dtype=torch.float32, shape: str = "kangaroo"):
+    """isrbd_evaluate's occupancy at the shape `shape` and ns stage nodes
+    for tensors of `dtype`: blocks resident on one SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
+    memory bytes a block, registers and local (spilled) bytes a thread."""
+    return occupancy_query("isrbd_rollout", "isrbd_evaluate_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64), ns)
 
 
 def _kernel_fn(dtype):
@@ -208,28 +214,24 @@ def _kernel_fn(dtype):
     return fn
 
 
-def trial_occupancy(dtype=torch.float32):
+def trial_occupancy(dtype=torch.float32, shape: str = "kangaroo"):
     """K6's blocks resident on one SM of the current card
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), the depth of its
     per-warp ring of node buffers, warps and shared memory bytes a block,
-    for tensors of `dtype`."""
-    fn = library("isrbd_rollout").isrbd_trial_occupancy
-    if fn.argtypes is None:
-        fn.argtypes = [_I, ctypes.POINTER(_I)]
-        fn.restype = _I
-    out = (_I * 4)()
-    err = fn(int(dtype == torch.float64), out)
-    if err != 0:
-        raise RuntimeError(f"isrbd_trial occupancy query failed: error {err}")
-    return dict(blocks_per_sm=out[0], ring_depth=out[1],
-                warps_per_block=out[2], shared_memory_bytes=out[3])
+    at the shape `shape` for tensors of `dtype`."""
+    return occupancy_query(
+        "isrbd_rollout", "isrbd_trial_occupancy",
+        ("blocks_per_sm", "ring_depth", "warps_per_block",
+         "shared_memory_bytes"),
+        shape_index(shape), int(dtype == torch.float64))
 
 
 def isrbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
                 terms, dt: float, nu_w: float, beta: float, alpha_min: float):
     """K6. Same contract as `isrbd_trial_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
-    `isrbd_trial.launches`), raises ValueError for other sizes."""
+    for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and counts
+    the launch in `isrbd_trial.launches`), raises ValueError for other
+    sizes."""
     if d.device.type == "cpu":
         return isrbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                  D, dV1, dV2, terms, dt, nu_w, beta, alpha_min)

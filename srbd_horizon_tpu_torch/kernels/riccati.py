@@ -246,7 +246,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
-# shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape): nx, nu, the
+# shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape): nx, nu, the
 # terminal rows nt and the sizes of the row sets. Another problem needs a
 # shape of its own there and here.
 KERNEL_SHAPES = {
@@ -258,14 +258,16 @@ KERNEL_SHAPES = {
                 n_b=6, n_uc=15),
     "quadruped": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=30,
                       n_gu=42, n_b=3, n_uc=24),
+    "isrbd_al_quadruped": dict(nx=37, nu=30, nt=97, n_rx=19, n_ru=37,
+                               n_gx=56, n_gu=103, n_b=9, n_uc=18),
 }
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
 # the block-Schur inverse serves the batched solves at every shape; the
 # Tassa form serves `MSDDP.solve`: with the inverse at the SRBD, LIP and
-# quadruped shapes (DDPOptions' default), with Cholesky at the isrbd-AL
-# shape (the AL solver's inner solve) and at the SRBD and LIP shapes. CUDA
+# quadruped shapes (DDPOptions' default), with Cholesky at the two isrbd-AL
+# shapes (the AL solver's inner solve) and at the SRBD and LIP shapes. CUDA
 # tensors at another (shape, form, solver) raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "collapsed", "schur"),
@@ -278,6 +280,8 @@ KERNEL_INSTANCES = (
     ("lip", "tassa", "cholesky"),
     ("quadruped", "collapsed", "schur"),
     ("quadruped", "tassa", "schur"),
+    ("isrbd_al_quadruped", "collapsed", "schur"),
+    ("isrbd_al_quadruped", "tassa", "cholesky"),
 )
 
 # the launchers' own errors (no CUDA error has these values): the block's

@@ -268,3 +268,69 @@ def quadruped_loops(shift=False, **overrides):
         TSRBDConfig(dtype=F64, **QUAD_TOPOLOGY), TDDPOptions(**opts),
         shift_warmstart=shift, device=CPU)
     return jp, jloop, tloop, tp
+
+
+# ---------------- the constrained quadruped trot (isrbd on point feet) ------
+
+from srbd_horizon_tpu.solvers.options import al_serving_options as j_al_serving
+from srbd_horizon_tpu_torch.models.quadruped import trot_group_mask as t_trot
+from srbd_horizon_tpu_torch.solvers.options import al_serving_options as t_al_serving
+from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator as TWPG
+
+# the trot's command (tests/test_quadruped.py's TestConstrainedTrot)
+QUAD_VX = 0.15
+
+
+def quadruped_isrbd_problems():
+    """(jax ISRBDProblem, torch ISRBDProblem) of the point-feet quadruped as
+    the JAX package's constrained example builds it (the LIP height at the
+    robot's CoM), float64 on the CPU."""
+    jr, tr = j_quad(), t_quad()
+    jp = j_build_isrbd(JSRBDConfig(dtype=jnp.float64, lip_height=float(jr.com[2]),
+                                   **QUAD_TOPOLOGY), jr)
+    tp = t_build_isrbd(TSRBDConfig(dtype=F64, lip_height=float(tr.com[2]),
+                                   **QUAD_TOPOLOGY), tr, device=CPU)
+    return jp, tp
+
+
+def quadruped_al_solvers(jp, tp, max_iters):
+    """(jax ALDDP, torch ALDDP) with `al_serving_options(max_iters)`, the
+    example's options (15 offline, 1 online)."""
+    jd, ja = j_al_serving(max_iters)
+    td, ta = t_al_serving(max_iters)
+    return JALDDP(jp.ocp, ddp_opts=jd, al_opts=ja), TALDDP(tp.ocp, td, ta)
+
+
+def quadruped_trot_wpgs(ns):
+    """(jax, torch) trot WPGs of the constrained example (c_init_z 0)."""
+    return (JWPG.build(0.0, ns, dtype=jnp.float64, group_mask=j_trot(),
+                       **QUAD_TOPOLOGY),
+            TWPG.build(0.0, ns, dtype=F64, device=CPU, group_mask=t_trot(),
+                       **QUAD_TOPOLOGY))
+
+
+def torch_constrained_trot(prob, offline, online, wpg, ticks, vx=QUAD_VX):
+    """The constrained example's single-robot sequence in the port: the
+    offline `ALDDP.solve` from the static input tiled, then `ticks` ticks of
+    the WPG advance (walking from tick 0), rdot_ref[1:] = (vx, 0, 0),
+    x0 = the plan's node 1 and solve_online(solve_online(shift_warmstart)).
+    Returns the states after the offline solve and after each tick."""
+    ocp = prob.ocp
+    dtype, dev = prob.initial_state.dtype, prob.initial_state.device
+    x0 = prob.initial_state
+    U0 = prob.static_input[None].expand(ocp.ns, -1).contiguous()
+    st = offline.solve(offline.init(x0, U0), x0, ocp.params)
+    states = [st]
+    params, ws = dict(ocp.params), wpg.init_state()
+    ref = torch.tensor([vx, 0.0, 0.0], dtype=dtype, device=dev)
+    walk = torch.tensor(1, dtype=torch.int32, device=dev)
+    for _ in range(ticks):
+        params, ws = wpg.advance(params, ws, walk)
+        params["rdot_ref"] = torch.cat(
+            [params["rdot_ref"][:1], ref.expand(ocp.ns, 3)], dim=0)
+        x0 = st.sol.X[1]
+        st = online.solve_online(
+            online.solve_online(online.shift_warmstart(st), x0, params), x0,
+            params)
+        states.append(st)
+    return states

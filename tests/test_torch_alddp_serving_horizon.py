@@ -51,7 +51,8 @@ def test_serving_horizon_has_the_kernels_sizes(case):
     ts = case["ts"]
     ocp = case["tp"].ocp
     assert ocp.ns == NS
-    assert k5.kernel_sizes(ts.terms, ocp.nx, ocp.nu, ts.inner.rows) == k5.KERNEL_SHAPE
+    assert (k5.kernel_sizes(ts.terms, ocp.nx, ocp.nu, ts.inner.rows)
+            == k5.KERNEL_SHAPES["kangaroo"])
 
 
 def test_serving_ticks_match_jax_at_the_serving_horizon(case):

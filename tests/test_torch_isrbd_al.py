@@ -364,7 +364,7 @@ def test_entries_refuse_devices_other_than_cuda(case, name):
 
     ts = case["ts"]
     sizes = k5.kernel_sizes(ts.terms, ts.ocp.nx, ts.ocp.nu)
-    assert sizes == {k: k5.KERNEL_SHAPE[k] for k in sizes}
+    assert sizes == {k: k5.KERNEL_SHAPES["kangaroo"][k] for k in sizes}
     fn = getattr(k78, name)
     launches = fn.launches
     with pytest.raises(ValueError, match="runs on cpu or cuda"):

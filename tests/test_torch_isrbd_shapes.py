@@ -1,13 +1,16 @@
 """PyTorch port, the compile-time sizes of the isrbd kernels, on the CPU.
 
 K5 (the linearization, csrc/isrbd_linearize.cu), K6 (the trial) and
-isrbd_evaluate (csrc/isrbd_rollout.cu) are compiled for one set of sizes,
-`isrbd::Shape` in csrc/isrbd_common.cuh. These tests hold that struct
-against `kernels/isrbd_linearize.py::KERNEL_SHAPE`, against what
-`build_isrbd_problem` gives at the serving configuration and against K1's
-isrbd instantiation, and check that the wrappers refuse other sizes with a
-ValueError that names them before any device work (meta tensors stand in
-for CUDA ones), while CPU tensors of other sizes take the plain twins.
+isrbd_evaluate (csrc/isrbd_rollout.cu), and K7/K8 (csrc/isrbd_al.cu), are
+compiled for two sets of sizes, `isrbd::KangarooAlShape` and
+`isrbd::QuadAlShape` in csrc/isrbd_common.cuh. These tests hold those
+structs against `kernels/isrbd_linearize.py::KERNEL_SHAPES`, against what
+`build_isrbd_problem` gives at the serving configuration and on the
+point-feet quadruped, and against K1's isrbd instantiations, and check
+that the wrappers refuse other sizes (a change of any one size, the
+eight-contact quadruped) with a ValueError that names them before any
+device work (meta tensors stand in for CUDA ones), while CPU tensors of
+other sizes take the plain twins.
 """
 
 import dataclasses
@@ -24,6 +27,7 @@ from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
 
@@ -33,8 +37,9 @@ HEADER = Path(k5.__file__).resolve().parents[1] / "csrc" / "isrbd_common.cuh"
 NAMES = ("isrbd_linearize", "isrbd_trial", "isrbd_evaluate")
 
 
-def _solver(robot, cfg):
-    prob = build_isrbd_problem(cfg, robot, cz_rho_weight=3200.0, device="cpu")
+def _solver(robot, cfg, cz_rho_weight=3200.0):
+    prob = build_isrbd_problem(cfg, robot, cz_rho_weight=cz_rho_weight,
+                               device="cpu")
     return prob, ALDDP(prob.ocp, DDPOptions(max_iters=1))
 
 
@@ -46,19 +51,23 @@ def serving():
 
 
 def test_shape_struct_matches_the_wrappers_table():
+    """KERNEL_SHAPES, in order, is the header's KangarooAlShape,
+    QuadAlShape."""
     src = HEADER.read_text()
-    found = re.findall(r"struct Shape \{\s*static constexpr int ([^;]*);", src)
-    assert len(found) == 1
-    parsed = {k.strip(): int(v) for k, v in
-              (kv.split("=") for kv in found[0].split(","))}
-    assert parsed == k5.KERNEL_SHAPE
+    found = re.findall(r"struct (\w+Shape) \{\s*static constexpr int ([^;]*);",
+                       src)
+    assert [name for name, _ in found] == ["KangarooAlShape", "QuadAlShape"]
+    parsed = [{k.strip(): int(v) for k, v in
+               (kv.split("=") for kv in body.split(","))} for _, body in found]
+    assert parsed == list(k5.KERNEL_SHAPES.values())
+    assert list(k5.KERNEL_SHAPES) == ["kangaroo", "quadruped"]
 
 
 def test_serving_problem_has_the_compiled_sizes(serving):
     ocp, terms, rows = serving["ocp"], serving["terms"], serving["rows"]
     assert RiccatiRows.from_ocp(serving["al"].inner.ocp) == rows
     sizes = k5.kernel_sizes(terms, ocp.nx, ocp.nu, rows)
-    assert sizes == k5.KERNEL_SHAPE
+    assert sizes == k5.KERNEL_SHAPES["kangaroo"]
     # the packed parameter row is the widths of PARAM_KEYS, and the row
     # counts are those K1's isrbd instantiation is compiled for
     assert len(k5.PARAM_KEYS) == len(terms.param_dims())
@@ -67,8 +76,53 @@ def test_serving_problem_has_the_compiled_sizes(serving):
         k: v for k, v in k1_shape.items() if k in sizes}
     assert k1_shape["nt"] == sizes["n_term"]
     for name in NAMES:
-        k5.check_kernel_shape(name, terms, ocp.nx, ocp.nu,
-                              rows if name == "isrbd_linearize" else None)
+        assert k5.check_kernel_shape(
+            name, terms, ocp.nx, ocp.nu,
+            rows if name == "isrbd_linearize" else None) == "kangaroo"
+
+
+@pytest.fixture(scope="module")
+def quadruped():
+    """The AL inner problem of the constrained quadruped example."""
+    robot = quadruped_point_feet()
+    cfg = SRBDConfig(dtype=torch.float64, contact_model=1, number_of_legs=4,
+                     lip_height=float(robot.com[2]))
+    prob, al = _solver(robot, cfg, cz_rho_weight=None)
+    return dict(prob=prob, al=al, ocp=prob.ocp, terms=al.terms,
+                rows=al.inner.rows)
+
+
+def test_quadruped_problem_has_the_compiled_sizes(quadruped):
+    """The quadruped's AL inner problem has QuadAlShape's sizes (236 stage
+    rows, 97 terminal rows, 17 + 8 equality rows, no rel-vel rows), and K1
+    sweeps it at its `isrbd_al_quadruped` shape."""
+    ocp, terms, rows = quadruped["ocp"], quadruped["terms"], quadruped["rows"]
+    assert RiccatiRows.from_ocp(quadruped["al"].inner.ocp) == rows
+    sizes = k5.kernel_sizes(terms, ocp.nx, ocp.nu, rows)
+    assert sizes == k5.KERNEL_SHAPES["quadruped"]
+    assert terms.outer.n_relvel == 0
+    for name in NAMES:
+        assert k5.check_kernel_shape(
+            name, terms, ocp.nx, ocp.nu,
+            rows if name == "isrbd_linearize" else None) == "quadruped"
+    assert k5.shape_index("quadruped") == 1 and k5.shape_index("kangaroo") == 0
+    k1_shape = k1.KERNEL_SHAPES["isrbd_al_quadruped"]
+    assert {k: sizes[k] for k in k1_shape if k in sizes} == {
+        k: v for k, v in k1_shape.items() if k in sizes}
+    assert k1_shape["nt"] == sizes["n_term"]
+    assert k1.kernel_shape(ocp.nx, ocp.nu, terms.n_term, rows) == "isrbd_al_quadruped"
+
+
+def test_quadruped_wrappers_pass_the_shape_check_off_the_cpu(quadruped):
+    """At the quadruped's sizes K5, K6 and isrbd_evaluate pass the shape
+    check on meta tensors and stop at the device check."""
+    c = quadruped
+    for name, (fn, args) in _meta_args(
+            dict(terms=c["terms"], ocp=c["ocp"], rows=c["rows"])).items():
+        launches = fn.launches
+        with pytest.raises(ValueError, match="runs on cpu or cuda"):
+            fn(*args)
+        assert fn.launches == launches, name
 
 
 def _drop_last(rows, field):
@@ -140,6 +194,34 @@ def test_wrappers_refuse_other_sizes_off_the_cpu(serving, name, change):
     # the compiled sizes pass the shape check and stop at the device check
     fn, args = _meta_args(serving)[name]
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        fn(*args)
+    assert fn.launches == launches
+
+
+@pytest.fixture(scope="module")
+def eight_contacts():
+    """The line-feet quadruped, contact_model=2 on four legs (nc=8, nx=61,
+    nu=54), as tests/test_configs.py builds it in JAX: two contacts 5 cm
+    either side of each point foot."""
+    q = quadruped_point_feet()
+    feet = []
+    for p in np.asarray(q.foot_positions):
+        feet += [p + [0.05, 0.0, 0.0], p - [0.05, 0.0, 0.0]]
+    robot = dataclasses.replace(q, foot_positions=np.asarray(feet),
+                                foot_frames=tuple(f"c{i}" for i in range(8)))
+    cfg = SRBDConfig(dtype=torch.float64, contact_model=2, number_of_legs=4,
+                     lip_height=float(q.com[2]), ns=4)
+    prob, al = _solver(robot, cfg, cz_rho_weight=None)
+    return dict(terms=al.terms, ocp=prob.ocp, rows=al.inner.rows)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_eight_contact_quadruped_is_refused_off_the_cpu(eight_contacts, name):
+    c = eight_contacts
+    assert (c["ocp"].nx, c["ocp"].nu, c["terms"].outer.nc) == (61, 54, 8)
+    fn, args = _meta_args(c)[name]
+    launches = fn.launches
+    with pytest.raises(ValueError, match=r"no kernel for the sizes .*'nc': 8"):
         fn(*args)
     assert fn.launches == launches
 

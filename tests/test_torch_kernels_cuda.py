@@ -34,7 +34,11 @@ LIP instantiations by K1's rules, and refusing the LIP on point feet; and
 the point-feet quadruped's instantiations (K4, K3, srbd_evaluate at
 `srbd::QuadShape`, K1's collapsed and Tassa forms at `QuadShape`) by the
 rules of K4, K3, srbd_evaluate and K1 at B = 1 and a fleet, with their
-occupancy, K1's uncompiled Cholesky Tassa form refused.
+occupancy, K1's uncompiled Cholesky Tassa form refused; and the
+constrained quadruped's (K5, K1 collapsed and Tassa-Cholesky, K6,
+isrbd_evaluate, K7 and K8a-c at `isrbd::QuadAlShape` and K1's
+`isrbd_al_quadruped`) by the rules of the Kangaroo's isrbd kernels, with
+their occupancy, K1's block-Schur Tassa form there refused.
 Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
@@ -188,21 +192,18 @@ def test_wrappers_count_launches_and_check_inputs(card_case):
 
 # ---------------- the isrbd kernels ----------------
 
-@pytest.fixture(scope="module")
-def isrbd_case():
-    """A linearization point of the AL inner problem with active cones and
-    boxes, a non-unit quaternion and random 0/1 node masks."""
+def _isrbd_point(build, seed=1):
+    """A linearization point of the AL inner problem `build(dtype)` (an
+    ALDDP) with active cones and boxes, a non-unit quaternion and random
+    0/1 node masks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    build = lambda dtype: ALDDP(build_isrbd_problem(
-        SRBDConfig(dtype=dtype), kangaroo_line_feet(), cz_rho_weight=3200.0,
-        device=dev).ocp, DDPOptions(max_iters=1))
-    al, al32 = build(torch.float64), build(torch.float32)
+    al, al32 = build(torch.float64, dev), build(torch.float32, dev)
     ocp = al.ocp
     ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
     n_eq, n_eq_T, n_in = al._sizes
-    g = np.random.RandomState(1)
+    g = np.random.RandomState(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
     X = np.zeros((B, ns + 1, nx))
     X[..., 0:3] = [0.0, 0.0, 0.88] + 0.05 * g.randn(B, ns + 1, 3)
@@ -240,6 +241,14 @@ def isrbd_case():
     x0 = X[:, 0] + 0.005 * t(g.randn(B, nx))
     return dict(al=al, al32=al32, X=X, U=U, pin=pin, lin=lin, x0=x0, ocp=ocp,
                 st=st, params=params)
+
+
+@pytest.fixture(scope="module")
+def isrbd_case():
+    """The point on the Kangaroo's serving configuration."""
+    return _isrbd_point(lambda dtype, dev: ALDDP(build_isrbd_problem(
+        SRBDConfig(dtype=dtype), kangaroo_line_feet(), cz_rho_weight=3200.0,
+        device=dev).ocp, DDPOptions(max_iters=1)))
 
 
 def _k5_args(case, dtype):
@@ -694,14 +703,12 @@ def _same(a, b):
     return torch.equal(_bits(a), _bits(b)) if a.is_floating_point() else torch.equal(a, b)
 
 
-@pytest.fixture(scope="module")
-def al_case(isrbd_case):
-    """The isrbd point with member NAN_MEMBER's r̈ₓ at node 3 and one of its
-    stage multipliers NaN, phase tables of P=20 (a NaN in that member's
+def _al_point(c, seed=7):
+    """The isrbd point `c` with member NAN_MEMBER's r̈ₓ at node 3 and one of
+    its stage multipliers NaN, phase tables of P=20 (a NaN in that member's
     rows), phases that wrap the tail's phase − 1."""
-    c = isrbd_case
     dev, al = c["X"].device, c["al"]
-    g = np.random.RandomState(7)
+    g = np.random.RandomState(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
     ns = c["ocp"].ns
     n_eq, n_eq_T, _ = al._sizes
@@ -728,6 +735,11 @@ def al_case(isrbd_case):
                 priors={"none": None, "tail": tail, "full": full},
                 bounds={"static": static, "boxes": c["params"]},
                 viol_later=t(10.0 ** g.uniform(-3, 3, B)))
+
+
+@pytest.fixture(scope="module")
+def al_case(isrbd_case):
+    return _al_point(isrbd_case)
 
 
 def _al_run(case, kernel, plain, args, exact):
@@ -1376,3 +1388,179 @@ def test_quadruped_refuses_uncompiled_combinations(quad_case):
         k1.riccati_backward(*args, quad_case["mu"], rows, form="tassa",
                             quu_solver="cholesky")
     assert k1.riccati_backward.launches == before
+
+
+# ---------------- the constrained quadruped: the isrbd kernels at QuadAlShape ----
+
+@pytest.fixture(scope="module")
+def qc_case():
+    """The point on the constrained quadruped example's AL inner problem
+    (`isrbd::QuadAlShape`: point feet, 236 stage rows, 97 terminal rows)."""
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+
+    robot = quadruped_point_feet()
+    return _isrbd_point(lambda dtype, dev: ALDDP(build_isrbd_problem(
+        SRBDConfig(dtype=dtype, contact_model=1, number_of_legs=4,
+                   lip_height=float(robot.com[2])), robot, device=dev).ocp,
+        DDPOptions(max_iters=1)), seed=12)
+
+
+def test_quadruped_isrbd_linearize_kernel_matches_plain(qc_case):
+    ref = qc_case["lin"]
+    assert ref["rho"].shape[-1] == 236 and ref["Jt"].shape[1] == 97
+    got = k5.isrbd_linearize(*_k5_args(qc_case, torch.float64))
+    torch.cuda.synchronize()
+    for k in ORDER:
+        assert _rel(got[k], ref[k]) <= 1e-9, k
+    got32 = k5.isrbd_linearize(*_k5_args(qc_case, torch.float32))
+    plain32 = k5.isrbd_linearize_plain(*_k5_args(qc_case, torch.float32))
+    for k in ORDER:
+        e = _rel(got32[k], ref[k])
+        assert e <= 2 * _rel(plain32[k], ref[k]) + 1e-6 and e <= K4_F32_CAP, k
+
+
+@pytest.mark.parametrize("form,solver", [("collapsed", "schur"),
+                                         ("tassa", "cholesky")])
+def test_quadruped_al_riccati_kernel_matches_plain(qc_case, form, solver):
+    """K1 at `isrbd_al_quadruped`: the collapsed sweep of `solve_batch` and
+    the Tassa sweep with Cholesky gains of `ALDDP.solve`, float64 to 1e-9,
+    float32 to K1_F32_TOL; the block-Schur Tassa form is refused."""
+    rows = qc_case["al"].inner.rows
+    kw = dict(form=form, quu_solver=solver)
+    args = lambda dtype: tuple(qc_case["lin"][k].to(dtype).contiguous()
+                               for k in ORDER) + (1e-6, rows)
+    inst = k1.kernel_instance("isrbd_al_quadruped", form, solver)
+    before = k1.riccati_backward.instance_launches[inst]
+    ref = k1.riccati_backward_plain(*args(torch.float64), **kw)
+    got = k1.riccati_backward(*args(torch.float64), **kw)
+    got32 = k1.riccati_backward(*args(torch.float32), **kw)
+    torch.cuda.synchronize()
+    assert k1.riccati_backward.instance_launches[inst] == before + 2
+    for g, g32, r in zip(got, got32, ref):
+        assert _rel(g, r) <= 1e-9
+        assert _rel(g32, r) <= K1_F32_TOL
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.riccati_backward(*args(torch.float32), form="tassa", quu_solver="schur")
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+def test_quadruped_isrbd_trial_kernel_matches_plain(qc_case, nA):
+    al = qc_case["al"]
+    lin, rows = qc_case["lin"], al.inner.rows
+    ref_k = k1.riccati_backward_plain(*(lin[k] for k in ORDER), 1e-6, rows)
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=D.device)
+    opts = al.inner.opts
+    cost0 = al.inner.total_cost(qc_case["X"], qc_case["U"], qc_case["pin"])
+    x0 = qc_case["x0"].clone()
+    x0[3] = float("nan")
+
+    def args(dtype):
+        a = al if dtype == torch.float64 else qc_case["al32"]
+        t = lambda v: v.to(dtype).contiguous()
+        return (t(x0), t(qc_case["X"]), t(qc_case["U"]), t(ref_k[0]),
+                t(ref_k[1]), t(lin["d"]), t(alphas),
+                {k: t(v) for k, v in qc_case["pin"].items()},
+                t(cost0 + opts.defect_weight * D), t(D), t(ref_k[2]),
+                t(ref_k[3]), a.terms, qc_case["ocp"].dt,
+                opts.defect_weight, opts.beta, opts.alpha_converge_threshold)
+
+    ref = k6.isrbd_trial_plain(*args(torch.float64))
+    got = k6.isrbd_trial(*args(torch.float64))
+    torch.cuda.synchronize()
+    for g, r in zip(got[:4], ref[:4]):
+        assert _rel_fin(g, r) <= 1e-9
+    assert torch.equal(got[4], ref[4]) and not bool(got[4][:, 3].any())
+    got32 = k6.isrbd_trial(*args(torch.float32))
+    plain32 = k6.isrbd_trial_plain(*args(torch.float32))
+    for g, p, r in zip(got32[:4], plain32[:4], ref[:4]):
+        assert _rel_fin(g, r) <= 2 * _rel_fin(p, r) + 1e-6
+
+
+@pytest.mark.parametrize("pin", [False, True], ids=["plan", "pinned"])
+@pytest.mark.parametrize("Bw", [1, 257])
+def test_quadruped_isrbd_evaluate_matches_plain(qc_case, Bw, pin):
+    U = _repeat(qc_case["U"], Bw)
+    if Bw > 1:
+        U[1, 3, 0] = float("nan")
+    x0 = _repeat(qc_case["x0"], Bw)
+
+    def args(dtype):
+        a = qc_case["al"] if dtype == torch.float64 else qc_case["al32"]
+        t = lambda v: v.to(dtype).contiguous()
+        return (t(_repeat(qc_case["X"], Bw)), t(U),
+                {k: t(_repeat(v, Bw)) for k, v in qc_case["pin"].items()},
+                a.terms, qc_case["ocp"].dt) + ((t(x0),) if pin else ())
+
+    def plain(*a):
+        return k6.isrbd_evaluate_plain(*a[:5], x0=a[5] if pin else None)
+
+    def kernel(*a):
+        return k6.isrbd_evaluate(*a[:5], x0=a[5] if pin else None)
+
+    check = _pinned_check if pin else _evaluate_check
+    _, got, got32 = check(plain, kernel, args)
+    if Bw > 1:
+        for out in (got, got32):
+            assert bool(torch.isnan(out[0][1])) and bool(torch.isnan(out[1][1]))
+
+
+@pytest.fixture(scope="module")
+def qc_al_case(qc_case):
+    return _al_point(qc_case, seed=13)
+
+
+@pytest.mark.parametrize("mode", ["eval", "online", "offline_first", "offline_later"])
+def test_quadruped_al_constraints_matches_plain(qc_al_case, mode):
+    c = qc_al_case
+    st = c["st"]
+    if mode == "offline_later":
+        st = st._replace(viol=c["viol_later"])
+    kw = {} if mode == "eval" else dict(st=st, offline=mode != "online")
+    for bounds in ("static", "boxes"):
+        _al_run(c, k78.isrbd_al_constraints, k78.isrbd_al_constraints_plain,
+                lambda al, d: ((al, _cast(st.sol.X, d), _cast(st.sol.U, d),
+                                _cast(c["bounds"][bounds], d)), _cast(kw, d)),
+                exact=False)
+
+
+@pytest.mark.parametrize("prior", ["none", "tail", "full"])
+def test_quadruped_al_shift_and_params_match_plain_bit_for_bit(qc_al_case, prior):
+    c = qc_al_case
+    pr = c["priors"][prior]
+    _al_run(c, k78.isrbd_al_shift, k78.isrbd_al_shift_plain,
+            lambda al, d: ((al, _cast(c["st"], d), _cast(pr, d),
+                            None if pr is None else c["phase"]), {}),
+            exact=True)
+    bounds = "static" if prior == "none" else "boxes"
+    _al_run(c, k78.isrbd_al_params, k78.isrbd_al_params_plain,
+            lambda al, d: ((al, _cast(c["bounds"][bounds], d),
+                            _cast(c["st"], d)), {}),
+            exact=True)
+
+
+@pytest.mark.parametrize("ema", [0.5, 1.0])
+@pytest.mark.parametrize("prior", ["tail", "full"])
+def test_quadruped_al_prior_update_matches_plain_bit_for_bit(qc_al_case, prior, ema):
+    c = qc_al_case
+    pr = c["priors"][prior]
+    _al_run(c, k78.isrbd_al_prior_update, k78.isrbd_al_prior_update_plain,
+            lambda al, d: ((al, _cast(pr, d), _cast(c["st"], d), c["phase"],
+                            ema), {}),
+            exact=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_quadruped_isrbd_occupancy(qc_case, dtype):
+    """K5, K6 and isrbd_evaluate at QuadAlShape report at least one block an
+    SM, and K1 at its AL shape at least one."""
+    ns = qc_case["ocp"].ns
+    for occ in (k5.occupancy(dtype, "quadruped"),
+                k6.trial_occupancy(dtype, "quadruped"),
+                k6.evaluate_occupancy(ns, dtype, "quadruped")):
+        assert occ["blocks_per_sm"] >= 1 and occ["shared_memory_bytes"] > 0
+    rows = qc_case["al"].inner.rows
+    for form, solver in (("collapsed", "schur"), ("tassa", "cholesky")):
+        assert k1.blocks_per_sm(37, 30, 97, rows, dtype, form, solver) >= 1

@@ -1,12 +1,12 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for four sets of sizes, the
-SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP and the SRBD
-OCP of the point-feet quadruped; its
-wrapper picks one with `kernel_shape` for CUDA tensors and refuses any
-other sizes (the LIP on point feet among them) with a ValueError that
-names them. These tests hold that choice against `RiccatiRows.from_ocp`
-of the four problems, hold `KERNEL_SHAPES` against the shape structs of
+K1 (`csrc/riccati_backward.cu`) is compiled for five sets of sizes, the
+SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
+OCP of the point-feet quadruped and the AL inner OCP of its isrbd
+problem; its wrapper picks one with `kernel_shape` for CUDA tensors and
+refuses any other sizes (the LIP on point feet among them) with a
+ValueError that names them. These tests hold that choice against
+`RiccatiRows.from_ocp` of the five problems, hold `KERNEL_SHAPES` against the shape structs of
 the CUDA source, and check that a CPU tensor of any sizes still takes the
 plain twin, as does K2's standalone wrapper.
 """
@@ -54,11 +54,19 @@ def _srbd_sizes(cfg=None, robot=None):
     return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
 
 
-def _isrbd_sizes():
-    """(nx, nu, nt, rows) of the isrbd problem's AL inner OCP."""
-    prob = build_isrbd_problem(SRBDConfig(dtype=torch.float64),
-                               kangaroo_line_feet(), cz_rho_weight=3200.0,
-                               device="cpu")
+def _isrbd_sizes(quadruped=False):
+    """(nx, nu, nt, rows) of the isrbd problem's AL inner OCP (the
+    Kangaroo's serving configuration, or the constrained quadruped
+    example's)."""
+    if quadruped:
+        robot = quadruped_point_feet()
+        prob = build_isrbd_problem(
+            SRBDConfig(dtype=torch.float64, contact_model=1, number_of_legs=4,
+                       lip_height=float(robot.com[2])), robot, device="cpu")
+    else:
+        prob = build_isrbd_problem(SRBDConfig(dtype=torch.float64),
+                                   kangaroo_line_feet(), cz_rho_weight=3200.0,
+                                   device="cpu")
     al = ALDDP(prob.ocp, DDPOptions(max_iters=1))
     ocp = al.ocp
     X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
@@ -94,10 +102,14 @@ def sizes():
     quad = SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64)
     return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
             "lip": _lip_sizes(),
-            "quadruped": _srbd_sizes(quad, quadruped_point_feet())}
+            "quadruped": _srbd_sizes(quad, quadruped_point_feet()),
+            "isrbd_al_quadruped": _isrbd_sizes(quadruped=True)}
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip", "quadruped"])
+SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped"]
+
+
+@pytest.mark.parametrize("name", SHAPES)
 def test_kernel_shape_of_each_problem(sizes, name):
     nx, nu, nt, rows = sizes[name]
     assert k1.kernel_shape(nx, nu, nt, rows) == name
@@ -111,7 +123,7 @@ def _drop_last(rows, field):
                        **{field: getattr(rows, field)[:-1]})
 
 
-@pytest.mark.parametrize("name", ["srbd", "isrbd_al", "lip", "quadruped"])
+@pytest.mark.parametrize("name", SHAPES)
 @pytest.mark.parametrize("change", ["nx", "nu", "nt", "rx", "ru", "gx", "gu",
                                     "both", "uc"])
 def test_kernel_shape_refuses_other_sizes(sizes, name, change):
@@ -129,12 +141,12 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 
 def test_kernel_shapes_match_the_cuda_source():
     """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape,
-    LipShape, QuadShape."""
+    LipShape, QuadShape, QuadAlShape."""
     src = SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
     assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape",
-                                       "QuadShape"]
+                                       "QuadShape", "QuadAlShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -183,6 +195,18 @@ def test_quadruped_instantiations():
             == k1.kernel_instance("quadruped", "collapsed", "schur"))
     with pytest.raises(ValueError, match="no kernel for"):
         k1.kernel_instance("quadruped", "tassa", "cholesky")
+    # its AL inner OCP: the collapsed sweep (`ALDDP.solve_batch`) and the
+    # Tassa sweep with Cholesky gains (`ALDDP.solve` / `solve_online`, whose
+    # inner solver carries quu_solver="cholesky"); no block-Schur Tassa
+    for key in (("isrbd_al_quadruped", "collapsed", "schur"),
+                ("isrbd_al_quadruped", "tassa", "cholesky")):
+        assert k1.KERNEL_INSTANCES[k1.kernel_instance(*key)] == key
+    assert k1.KERNEL_INSTANCES.index(
+        ("isrbd_al_quadruped", "collapsed", "schur")) == 10
+    assert k1.KERNEL_INSTANCES.index(
+        ("isrbd_al_quadruped", "tassa", "cholesky")) == 11
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.kernel_instance("isrbd_al_quadruped", "tassa", "schur")
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
