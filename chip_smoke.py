@@ -210,10 +210,38 @@ parallel, into build/kernels/), then:
     share, launches by span, the same gates (K7 and K8b once an outer, K8a
     and K8c once a tick, `window_viol_max` < 1e-2), B=4096 whole (printed,
     no limit); the section's seconds.
+13. the execution modes (`modes_section`): `modes_check`, K12
+    (`riccati_associative`, the SRBD and LIP shapes × block-Schur and
+    Cholesky gains) and K13 (`linear_trial`, both problems, 1 and 4 α)
+    against their twins at B = 1, 8, 512 on iterates drawn as
+    tests/test_parallel_riccati.py draws them (X ± 0.05·N, U 0.1·N),
+    linearized by K4 / K10: float64 to 1e-9 (`rel_err`, K1's rule; the
+    entry-by-entry figure printed), float32 to 1e-6 of the float64 twin on
+    the same float32 inputs (both compute in float64), K13's flags equal;
+    `modes_times`: both at B = 1, 8, 512, 4096 in float32 (ms, bytes,
+    FLOPs counted from the code, bound at the FP64 tensor-core rate, plain
+    ms at B = 1 and 512, shared memory and blocks per SM of each phase),
+    K1's Tassa form at the same B in the same call (`k12_vs_k1_tassa`),
+    `torch.linalg.solve` on the scan's stack of (I + C₁J₂) systems at
+    B=512; `modes_single_path`: the dsrbd example's 40-tick walk under
+    associative/nonlinear, 40 more under associative/linear, 10 with
+    Cholesky gains; `modes_lip_path`: the dlip example's 40 ticks under
+    associative/linear, 10 with Cholesky; `modes_fleet_path`:
+    tools/bench_modes.py's configuration (max_iters=5, width 4, rdot_ref
+    (0.2, 0, 0), no shift, every member at the nominal state) on
+    `tick_batch` at B=512 under associative/linear, 3 warm-up and 20
+    timed ticks, B=4096 a probe; each path: tick p50 and max, iterations,
+    host reads, hand-written kernel launches a tick (a K12 sweep is 8),
+    phases, a profile (busy, idle share, launches), gates: finite, defect
+    ≤ 1e-4, K4/K10 = K12 = iterations, K1 never, K13 = the linear trials,
+    evaluation two a solve, no plain twin, plain cost or `torch.func` call
+    on the card; `modes_card_vs_cpu`: float64, the single SRBD under
+    associative/linear (5 ticks) and the fleet at B=8 with 0.005·N(0,1)
+    pushes (3 ticks): iterations equal, plans, x, u0 and cost to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-thirty-six rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+forty-two rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -221,7 +249,9 @@ Tassa instantiations, the quadruped rows of phase 11: K4, K3,
 srbd_evaluate and K1's collapsed and Tassa instantiations at the
 quadruped's shape, and the constrained quadruped rows of phase 12: K5,
 K1 collapsed and Tassa-Cholesky, K6, isrbd_evaluate, K7, K8a, K8b and K8c
-at its AL shape); the last line is {"ok": true, "device": {...}}.
+at its AL shape, and the rows of phase 13: K12 at the SRBD and LIP shapes
+with each gain solve, K13 for the SRBD problem and the LIP); the last
+line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -3164,6 +3194,781 @@ def quadruped_constrained_section(card, dev, sms):
     return rows_out
 
 
+# ---------------- the execution modes (phase 13) ----------------
+
+MODES_SIZES = (1, 8, 512)       # K12 and K13 checked and timed here
+# K12 in float64, `rel_err` over each output: the element phase solves
+# R̃ = luu + μI alone (μ = 1e-6; K1 solves the better conditioned Quu), by
+# K2's explicit inverse with the block-Schur gains, and the 34 pivoted
+# (I + C₁J₂) solves follow, so rounding is amplified: 7e-12 at B ≤ 8 and
+# 1.3e-9 (ΔV₂) over the 512 drawn members on an H100 (PERF.md §6). K13
+# and the Cholesky gains read ≤ 5.4e-14.
+K12_F64_TOL = 1e-8
+# float32 tensors, carried in float64 by both: each entry within 1e-6 of
+# max(1, |twin|) against the float64 twin on the same float32 inputs (K1's)
+MODES_F32_TOL = 1e-6
+
+
+def k12_flops(Bsz, ns, nx, nu, nt, n_rx, n_ru, n_gx, n_gu, n_b, n_uc,
+              quu_solver, combines):
+    """FLOPs one K12 sweep needs, counted from csrc/riccati_associative.cu
+    (products 2 FLOPs a multiply-add): per node the Gauss–Newton
+    quadratics, R̃'s solve against the 1 + 2nx right-hand sides (K2's
+    inverse and a product, or the Cholesky factor and its substitutions),
+    the element's products over the live rows of B; the terminal element;
+    per combine C₁J₂ and C₁η₂, the elimination of nx rows across 3nx + 1
+    columns, 2nx + 1 back substitutions and the five products; per node
+    the gains (V A, V B, the Q terms, the gain solve against 1 + nx
+    right-hand sides) and the ΔV terms."""
+    W, Wa = 1 + 2 * nx, 3 * nx + 1
+
+    def solve(rhs):
+        if quu_solver == "schur":
+            return 2 * inv_flops(nu) + 2 * nu * nu * rhs
+        return 2 * nu ** 3 // 3 + 2 * nu * nu * rhs
+
+    element = (2 * (n_gx * nx + n_gu * nu + n_gx * nx * nx + n_gu * nu * nu
+                    + n_b * nu * nx)
+               + solve(W)
+               + 2 * (2 * n_ru * n_uc * nx + nu * nx * nx + n_ru * n_uc
+                      + nu * nx))
+    lu = sum(2 * (nx - 1 - k) * (Wa - 1 - k) for k in range(nx))
+    combine = (2 * nx ** 3 + 2 * nx * nx + lu + (2 * nx + 1) * nx * nx
+               + 5 * 2 * nx ** 3 + 3 * 2 * nx * nx)
+    gain = (2 * (nx * nx + n_rx * nx * nx + n_ru * n_uc * nx
+                 + n_ru * n_uc * (1 + nx + nu))
+            + solve(1 + nx) + 2 * nu * nu + 4 * nu)
+    return Bsz * (ns * (element + gain) + 2 * nt * nx * (nx + 1)
+                  + combines * combine)
+
+
+def k13_flops(fam_flops, Bsz, ns, nx, n_rx, n_ru, n_uc, nA):
+    """FLOPs one K13 call needs: the family's trial (gain application, the
+    Euler step, the residual rows, merit and Armijo test: `trial_flops`
+    or `lip_trial_flops`) plus, per node, the recursion's live rows of Sx
+    and Bs (Bs twice: K δx and k) and the defect's difference, square and
+    sum."""
+    return fam_flops + nA * Bsz * ns * (
+        2 * n_rx * nx + 4 * n_ru * n_uc + 2 * nx + 3 * nx)
+
+
+def k12_phase_ms(call, reps=5):
+    """Device ms a K12 sweep spends in each of its phases (the element,
+    combine and gain kernels) and the sweep's span, from torch.profiler
+    over `reps` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    out = dict(profiled_wall_ms=wall)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for phase in ("element_kernel", "combine_kernel", "gain_kernel"):
+            if phase in e.key:
+                out[phase] = out.get(phase, 0.0) + \
+                    e.self_device_time_total / 1e3 / reps
+                out[phase + "_launches"] = out.get(phase + "_launches", 0) + \
+                    e.count / reps
+    return out
+
+
+def modes_section(card, dev, sms):
+    """Phase 13: the JAX package's other execution modes on the port —
+    `riccati_mode="associative"` (K12, csrc/riccati_associative.cu) and
+    `forward_pass="linear"` (K13, csrc/linear_trial.cu). `modes_check`: K12
+    (SRBD and LIP shapes × block-Schur and Cholesky gain solves) and K13
+    (SRBD and LIP, 1 and 4 α) against their twins at B = 1, 8, 512 in
+    float64 and float32 on iterates drawn as tests/test_parallel_riccati.py
+    draws them (X ± 0.05·N, U 0.1·N) and linearized by K4 / K10;
+    `modes_times`: their times at B = 1, 8, 512 and 4096 (a probe), K1's
+    Tassa form at the same B in the same call (the A/B of ROADMAP item
+    19a), torch.linalg.solve on the scan's stack of (I + C₁J₂) systems,
+    bounds, shared memory, blocks an SM; the paths: `modes_single_path`
+    (the dsrbd example, 40 ticks under associative/nonlinear, 40 under
+    associative/linear, 10 more with Cholesky gains), `modes_lip_path` (the
+    dlip example, 40 ticks under associative/linear, 10 with Cholesky) and
+    `modes_fleet_path` (tools/bench_modes.py's configuration at B=512
+    under associative/linear, B=4096 a probe), each with its launches,
+    host reads, profile and the plain-twin spy (0 on the card); and
+    `modes_card_vs_cpu` (single SRBD 5 ticks, fleet B=8 3 ticks, float64:
+    iterations equal, plans to 1e-9). Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+    from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        MPCLoop,
+        TickInput,
+        build_lip_loop,
+        walk_command,
+        walking_schedule,
+    )
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+    from srbd_horizon_tpu_torch.solvers.options import ddp_example_options
+    from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
+
+    t_section = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    feet = kangaroo_line_feet()
+    fams = ("srbd", "lip")
+    solvers = ("schur", "cholesky")
+    builders = {"srbd": build_srbd_problem, "lip": build_lip_problem}
+    linearizers = {"srbd": (k4.srbd_linearize, k4.srbd_linearize_plain),
+                   "lip": (k10.lip_linearize, k10.lip_linearize_plain)}
+
+    # ---- the drawn points: K4 / K10 on the card, float64 ----
+    pts = {}
+    for i, fam in enumerate(fams):
+        prob = builders[fam](SRBDConfig(dtype=f64), feet, device=dev)
+        s64 = MSDDP(prob.ocp, DDPOptions())
+        s32 = MSDDP(builders[fam](SRBDConfig(), feet, device=dev).ocp,
+                    DDPOptions())
+        ocp = prob.ocp
+        ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+        Bm = max(MODES_SIZES)
+        g = np.random.RandomState(SEED + 13 + i)
+        X = torch.as_tensor(prob.initial_state.cpu().numpy()[None, None]
+                            + 0.05 * g.randn(Bm, ns + 1, nx), device=dev)
+        U = torch.as_tensor(0.1 * g.randn(Bm, ns, nu), device=dev)
+        params = {k: v.expand((Bm,) + tuple(v.shape)).contiguous()
+                  for k, v in ocp.params.items()}
+        lin = linearizers[fam][0](X, U, params, s64.terms, s64.rows, ocp.dt,
+                                  s64._wc(f64))
+        ks, Ks, dV1, dV2 = k12.riccati_associative_plain(
+            *(lin[k] for k in ORDER), s64.opts.mu0, s64.rows)
+        x0 = X[:, 0] + torch.as_tensor(0.005 * g.randn(Bm, nx), device=dev)
+        D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+        merit0 = s64.total_cost(X, U, params) + s64.opts.defect_weight * D
+        pts[fam] = dict(s=s64, s32=s32, ocp=ocp, lin=lin, X=X, U=U, x0=x0,
+                        params=params, gains=(ks, Ks, dV1, dV2), D=D,
+                        merit0=merit0, nt=lin["Jt"].shape[1])
+
+    def sub(t, Bw):
+        """The first Bw members, or the members repeated up to Bw."""
+        if isinstance(t, dict):
+            return {k: sub(v, Bw) for k, v in t.items()}
+        n = t.shape[0]
+        return (t[:Bw] if Bw <= n
+                else torch.cat([t] * -(-Bw // n))[:Bw]).contiguous()
+
+    def k12_args(fam, Bw, dtype):
+        lin = pts[fam]["lin"]
+        return tuple(sub(lin[k], Bw).to(dtype) for k in ORDER)
+
+    def k13_args(fam, Bw, dtype, nA, cast=None):
+        """K13's arguments at Bw members in `dtype` (then cast to `cast`),
+        with √w_c of float64 throughout; the float32 twin takes the float32
+        problem's terms."""
+        p = pts[fam]
+        s = p["s32"] if dtype == f32 and cast is None else p["s"]
+        t = lambda a: sub(a, Bw).to(dtype)
+        al = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=dtype, device=dev)
+        out = (t(p["x0"]), t(p["X"]), t(p["U"]), t(p["gains"][0]),
+               t(p["gains"][1]), t(p["lin"]["Sx"]), t(p["lin"]["Bs"]),
+               t(p["lin"]["d"]), al,
+               {k: t(v) for k, v in p["params"].items()}, t(p["merit0"]),
+               t(p["D"]), t(p["gains"][2]), t(p["gains"][3]))
+        if cast is not None:
+            out = tuple({k: v.to(cast) for k, v in a.items()}
+                        if isinstance(a, dict) else a.to(cast) for a in out)
+        return out + (s.terms, s.rows, p["ocp"].dt, p["s"]._wc(f64),
+                      s.opts.defect_weight, s.opts.beta,
+                      s.opts.alpha_converge_threshold)
+
+    # ---- modes_check: K12 and K13 against their twins ----
+    errs = {}
+    for fam in fams:
+        p = pts[fam]
+        mu, rows = p["s"].opts.mu0, p["s"].rows
+        for sv in solvers:
+            e = dict(e64={}, e64_entrywise={}, e32={}, p32={}, abs32=0.0,
+                     f32_rule="err1: |kernel - twin| / max(1, |twin|)")
+            for Bw in MODES_SIZES:
+                a64 = k12_args(fam, Bw, f64)
+                ref = k12.riccati_associative_plain(*a64, mu, rows, sv)
+                got = k12.riccati_associative(*a64, mu, rows, sv)
+                torch.cuda.synchronize()
+                a32 = k12_args(fam, Bw, f32)
+                got32 = k12.riccati_associative(*a32, mu, rows, sv)
+                ref32 = k12.riccati_associative_plain(
+                    *(a.double() for a in a32), mu, rows, sv)
+                plain32 = k12.riccati_associative_plain(*a32, mu, rows, sv)
+                torch.cuda.synchronize()
+                for name, g64, r64, g32, r32, p32 in zip(
+                        SWEEP_OUT, got, ref, got32, ref32, plain32):
+                    key = f"{name}_B{Bw}"
+                    e["e64"][key] = rel_err(g64, r64)
+                    e["e64_entrywise"][key] = err1(g64, r64)
+                    e["e32"][key] = err1(g32, r32)
+                    e["p32"][key] = err1(p32, r32)
+                    e["abs32"] = max(e["abs32"], abs_err(g32, r32))
+            errs["k12", fam, sv] = e
+            emit("modes_check", kernel="riccati_associative", shape=fam,
+                 quu_solver=sv, sizes=MODES_SIZES, tol_f64=K12_F64_TOL,
+                 tol_f32=MODES_F32_TOL, card=card, **e)
+            if max(e["e64"].values()) > K12_F64_TOL:
+                fail(f"K12 ({fam}, {sv}) disagrees with its twin in float64: "
+                     f"{e['e64']}")
+            if max(e["e32"].values()) > MODES_F32_TOL:
+                fail(f"K12 ({fam}, {sv}) disagrees with its twin in float32: "
+                     f"{e['e32']}")
+        e = dict(e64={}, e32={}, p32={}, abs32=0.0, flags_equal=True,
+                 f32_rule="err1: |kernel - twin| / max(1, |twin|)")
+        for nA in (1, 4):
+            for Bw in MODES_SIZES:
+                ref = k13.linear_trial_plain(*k13_args(fam, Bw, f64, nA))
+                got = k13.linear_trial(*k13_args(fam, Bw, f64, nA))
+                got32 = k13.linear_trial(*k13_args(fam, Bw, f32, nA))
+                ref32 = k13.linear_trial_plain(*k13_args(fam, Bw, f32, nA, f64))
+                plain32 = k13.linear_trial_plain(*k13_args(fam, Bw, f32, nA))
+                torch.cuda.synchronize()
+                e["flags_equal"] &= bool(torch.equal(got[4], ref[4]))
+                for name, g64, r64, g32, r32, p32 in zip(
+                        TRIAL_OUT, got, ref, got32, ref32, plain32):
+                    key = f"{name}_B{Bw}_{nA}alpha"
+                    e["e64"][key] = rel_err(g64, r64)
+                    e["e32"][key] = err1(g32, r32)
+                    e["p32"][key] = err1(p32, r32)
+                    e["abs32"] = max(e["abs32"], abs_err(g32, r32))
+        errs["k13", fam] = e
+        emit("modes_check", kernel="linear_trial", family=fam,
+             sizes=MODES_SIZES, tol_f64=1e-9, tol_f32=MODES_F32_TOL,
+             card=card, **e)
+        if max(e["e64"].values()) > 1e-9 or not e["flags_equal"]:
+            fail(f"K13 ({fam}) disagrees with its twin in float64: {e['e64']}, "
+                 f"flags equal {e['flags_equal']}")
+        if max(e["e32"].values()) > MODES_F32_TOL:
+            fail(f"K13 ({fam}) disagrees with its twin in float32: {e['e32']}")
+
+    # ---- modes_times: K12 beside K1's Tassa form, K13; float32 ----
+    times = {}
+    probe = tuple(MODES_SIZES) + (B_LARGE,)
+    for fam in fams:
+        p = pts[fam]
+        ocp, s, rows, mu, nt = p["ocp"], p["s"], p["s"].rows, p["s"].opts.mu0, p["nt"]
+        ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+        n_comb = sum(len(st) for st in k12.scan_plan(ns)[0])
+        sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+                 len(rows.bx), len(rows.uc))
+        for sv in solvers:
+            t = dict(launches_per_sweep=k12.launches_per_sweep(ns),
+                     combines=n_comb, occupancy_f32=k12.occupancy(
+                         nx, nu, nt, rows, sv, f32),
+                     occupancy_f64=k12.occupancy(nx, nu, nt, rows, sv, f64),
+                     by_B={})
+            for Bw in probe:
+                a32 = k12_args(fam, Bw, f32)
+                ms12 = cuda_ms(lambda: k12.riccati_associative(*a32, mu, rows, sv),
+                               reps=10 if Bw < B_LARGE else 3)
+                ms1 = cuda_ms(lambda: k1.riccati_backward(
+                    *a32, mu, rows, form="tassa", quu_solver=sv),
+                    reps=10 if Bw < B_LARGE else 3)
+                out = k12.riccati_associative(*a32, mu, rows, sv)
+                nb = nbytes(*a32, rows.packed(dev), *out)
+                fl = k12_flops(Bw, ns, nx, nu, nt, *sizes, sv, n_comb)
+                bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
+                t["by_B"][Bw] = dict(ms=ms12, k1_tassa_ms=ms1, bytes=nb,
+                                     flop=fl, bound_ms=bms, bound_by=by)
+            # the plain twin at the single paths' B=1 and at B=512; and
+            # torch.linalg.solve on the scan's (I + C₁J₂) stack of B=512
+            for Bw in (1, max(MODES_SIZES)):
+                a32 = k12_args(fam, Bw, f32)
+                t["by_B"][Bw]["plain_ms"] = cuda_ms(
+                    lambda: k12.riccati_associative_plain(*a32, mu, rows, sv),
+                    reps=2, warmup=1)
+            systems = []
+            solve_fn = torch.linalg.solve
+            torch.linalg.solve = lambda A, b: systems.append((A, b)) or solve_fn(A, b)
+            try:
+                k12.riccati_associative_plain(*k12_args(fam, max(MODES_SIZES), f64), mu,
+                                              rows, sv)
+            finally:
+                torch.linalg.solve = solve_fn
+            A = torch.cat([a for a, _ in systems]).contiguous()
+            b = torch.cat([r for _, r in systems]).contiguous()
+            t["linalg_solve_stack"] = list(A.shape) + [b.shape[-1]]
+            t["linalg_solve_ms_f64"] = cuda_ms(lambda: torch.linalg.solve(A, b),
+                                               reps=5)
+            t["phases"] = {str(Bw): k12_phase_ms(
+                lambda: k12.riccati_associative(*k12_args(fam, Bw, f32), mu,
+                                                rows, sv)) for Bw in (1, 512)}
+            times["k12", fam, sv] = t
+        for nA in (1, 4):
+            t = dict(occupancy_f32=k13.occupancy(fam, f32), by_B={})
+            for Bw in probe:
+                a32 = k13_args(fam, Bw, f32, nA)
+                ms13 = cuda_ms(lambda: k13.linear_trial(*a32), reps=20)
+                out = k13.linear_trial(*a32)
+                ins = [x for x in a32[:14] if isinstance(x, torch.Tensor)]
+                pt = (k4.kernel_params if fam == "srbd"
+                      else k10.kernel_params)(a32[9], Bw, ns, s.terms.nc, f32, dev)
+                nb = nbytes(*ins, *pt, rows.packed(dev), *out)
+                fam_fl = (trial_flops(Bw, ns, nx, nu, s.terms.nc,
+                                      s.terms.n_rho, nA) if fam == "srbd"
+                          else lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA))
+                fl = k13_flops(fam_fl, Bw, ns, nx, len(rows.rx), len(rows.ru),
+                               len(rows.uc), nA)
+                bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
+                t["by_B"][Bw] = dict(ms=ms13, bytes=nb, flop=fl, bound_ms=bms,
+                                     bound_by=by)
+            for Bw in (1, max(MODES_SIZES)):
+                a32 = k13_args(fam, Bw, f32, nA)
+                t["by_B"][Bw]["plain_ms"] = cuda_ms(
+                    lambda: k13.linear_trial_plain(*a32), reps=2, warmup=1)
+            times["k13", fam, nA] = t
+    emit("modes_times", card=card, dtype="float32",
+         rate="FP64 tensor cores, 67 TFLOP/s (both compute in float64)",
+         **{"_".join(map(str, k)): v for k, v in times.items()})
+    emit("k12_vs_k1_tassa", card=card, dtype="float32",
+         **{f"{fam}_{sv}": {str(Bw): dict(
+             riccati_associative_ms=times["k12", fam, sv]["by_B"][Bw]["ms"],
+             riccati_backward_tassa_ms=times["k12", fam, sv]["by_B"][Bw][
+                 "k1_tassa_ms"]) for Bw in probe}
+            for fam in fams for sv in solvers})
+
+    # ---- the paths ----
+    TWINS = ((k12, ("riccati_associative_plain",)),
+             (k13, ("linear_trial_plain",)),
+             (k1, ("riccati_backward_plain",)),
+             (k3, ("srbd_trial_plain", "srbd_evaluate_plain")),
+             (k4, ("srbd_linearize_plain",)),
+             (k11, ("lip_trial_plain", "lip_evaluate_plain")),
+             (k10, ("lip_linearize_plain",)))
+    k12_inst = {key: i for i, key in enumerate(k12.KERNEL_INSTANCES)}
+
+    def reset_counts():
+        k12.riccati_associative.launches = 0
+        k12.riccati_associative.instance_launches[:] = [0] * len(k12.KERNEL_INSTANCES)
+        k13.linear_trial.launches = 0
+        k1.riccati_backward.launches = 0
+        for fn in (k3.srbd_trial, k3.srbd_evaluate, k4.srbd_linearize,
+                   k11.lip_trial, k11.lip_evaluate, k10.lip_linearize):
+            fn.launches = 0
+
+    def read_counts(fam):
+        lin_fn, trial_fn, ev_fn = ((k4.srbd_linearize, k3.srbd_trial,
+                                    k3.srbd_evaluate) if fam == "srbd" else
+                                   (k10.lip_linearize, k11.lip_trial,
+                                    k11.lip_evaluate))
+        il = k12.riccati_associative.instance_launches
+        return {"linearize": lin_fn.launches,
+                "riccati_associative": il[k12_inst[fam, "schur"]],
+                "riccati_associative_cholesky": il[k12_inst[fam, "cholesky"]],
+                "riccati_backward": k1.riccati_backward.launches,
+                "linear_trial": k13.linear_trial.launches,
+                "rollout_trial": trial_fn.launches,
+                "evaluate": ev_fn.launches}
+
+    def hand(L, ns_):
+        """Hand-written kernel launches: K12 sweeps count their kernels."""
+        return (L["linearize"] + L["riccati_backward"] + L["linear_trial"]
+                + L["rollout_trial"] + L["evaluate"]
+                + k12.launches_per_sweep(ns_) * (
+                    L["riccati_associative"] + L["riccati_associative_cholesky"]))
+
+    def modes_opts(base, forward, solver="schur", **kw):
+        return dataclasses.replace(base, riccati_mode="associative",
+                                   forward_pass=forward, quu_solver=solver, **kw)
+
+    def srbd_single_loop(dtype, device, forward, solver="schur"):
+        """The dsrbd example's loop (`MPCLoop.tick` on `MSDDP.solve`,
+        ddp_example_options, the WPG at the feet's height, no shift) under
+        the associative sweep."""
+        prob = build_srbd_problem(SRBDConfig(dtype=dtype), feet, dtype=dtype,
+                                  device=device)
+        wpg = WalkingPatternGenerator.build(
+            c_init_z=float(prob.initial_foot_position[0, 2]),
+            nodes=prob.ocp.ns, dtype=dtype, device=device)
+        return MPCLoop(solver=MSDDP(prob.ocp, modes_opts(
+            ddp_example_options(), forward, solver)), wpg=wpg,
+            srbd_constants=prob.ocp.constants), prob
+
+    def lip_single_loop(dtype, device, forward, solver="schur"):
+        return build_lip_loop(SRBDConfig(dtype=dtype), modes_opts(
+            DDPOptions(max_iters=100, alpha_converge_threshold=1e-12,
+                       beta=1e-3), forward, solver), device=device)
+
+    def drive(loop, prob, sched):
+        """Ticks over `sched` from the cold carry at the nominal state:
+        the carry, the outputs, tick ms (a device sync each), host reads,
+        trials."""
+        trials = {"n": 0}
+        trial = loop.solver._trial
+
+        def counted_trial(*a):
+            trials["n"] += 1
+            return trial(*a)
+
+        loop.solver._trial = counted_trial
+        carry = loop.init(prob.initial_state)
+        syncs0 = loop.solver.host_syncs
+        outs, tms = [], []
+        for i in range(sched.action.shape[0]):
+            inp = TickInput(*(a[i] for a in sched))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = loop.tick(carry, inp)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        loop.solver._trial = trial
+        return carry, outs, tms, loop.solver.host_syncs - syncs0, trials["n"]
+
+    def single_path(fam, runs, tag, gates):
+        """Each run (name, loop builder args, schedule) in turn, with the
+        counts reset before the first and read after the last; a profile
+        of 2 ticks of each run's loop."""
+        func_calls, restore_func = count_torch_func()
+        plain_calls, restore_plain = count_plain_cost()
+        twin_calls, restore_twins = count_calls(TWINS)
+        reset_counts()
+        res, loops = {}, {}
+        all_outs, all_trials, iters_total = [], 0, 0
+        try:
+            for name, build, sched in runs:
+                loop, prob = build()
+                carry, outs, tms, syncs, trials = drive(loop, prob, sched)
+                iters = [int(o.iterations) for o in outs]
+                all_outs += outs
+                all_trials += trials
+                iters_total += sum(iters)
+                loops[name] = (loop, carry, sched)
+                res[name] = dict(
+                    ticks=len(outs), tick_p50_ms=statistics.median(tms),
+                    tick_max_ms=max(tms), tick_mean_ms=statistics.fmean(tms),
+                    iterations_per_tick=iters,
+                    iterations_mean=statistics.fmean(iters),
+                    syncs_per_tick=syncs / len(outs),
+                    syncs_per_iteration=syncs / max(1, sum(iters)),
+                    trials=trials,
+                    defect_norm_max=max(float(o.defect_norm) for o in outs),
+                    converged_ticks=sum(bool(o.converged) for o in outs))
+                if fam == "srbd":
+                    res[name]["srbd_residual_max"] = max(
+                        float(o.srbd_residual.abs().max()) for o in outs)
+            launches = read_counts(fam)
+        finally:
+            for restore in (restore_func, restore_plain, restore_twins):
+                restore()
+        ns_ = next(iter(loops.values()))[0].solver.ocp.ns
+        n_ticks = len(all_outs)
+        com_z = [float(o.x[2]) for o in all_outs]
+        out = dict(
+            B=1, dtype="float32", runs=res, launches=launches,
+            hand_written_kernel_launches_per_tick=hand(launches, ns_) / n_ticks,
+            k12_kernel_launches_per_sweep=k12.launches_per_sweep(ns_),
+            iterations=iters_total, trials=all_trials,
+            defect_norm_max=max(float(o.defect_norm) for o in all_outs),
+            finite=all(bool(torch.isfinite(v).all()) for o in all_outs
+                       for v in (o.x, o.u0, o.cost)),
+            plain_twin_calls=twin_calls["n"], torch_func_calls=func_calls["n"],
+            plain_cost_or_defect_calls=plain_calls["n"],
+            com_z_min=min(com_z), com_z_max=max(com_z), card=card)
+        for name, (loop, carry, sched) in loops.items():
+            step = lambda c, _l=loop, _s=sched: _l.tick(
+                c, TickInput(*(a[-1] for a in _s)))[0]
+            carry, spans = tick_spans(loop.solver, step, carry, ticks=5)
+            res[name]["spans"] = spans
+            res[name]["profile"] = profile_ticks(loop.solver, step, carry,
+                                                 res[name]["tick_p50_ms"])
+        emit(tag, **out)
+        gates(out, all_outs)
+        return out
+
+    def common_gates(tag, out, all_outs, linear_trials):
+        L = out["launches"]
+        if not out["finite"]:
+            fail(f"{tag} produced non-finite values")
+        if out["defect_norm_max"] > 1e-4:
+            fail(f"{tag}: plans are not dynamically consistent (defect above "
+                 "1e-4)")
+        if out["plain_twin_calls"] or out["torch_func_calls"] \
+                or out["plain_cost_or_defect_calls"]:
+            fail(f"{tag} ran plain twins on the card: {out['plain_twin_calls']} "
+                 f"kernel twins, {out['plain_cost_or_defect_calls']} plain cost "
+                 f"or defect calls, {out['torch_func_calls']} torch.func")
+        if not (L["linearize"] == out["iterations"]
+                == L["riccati_associative"] + L["riccati_associative_cholesky"]):
+            fail(f"{tag}: K4/K10 and K12 launches differ from the iterations: "
+                 f"{L}, {out['iterations']} iterations")
+        if L["riccati_backward"]:
+            fail(f"{tag}: K1 ran under riccati_mode='associative': {L}")
+        if L["linear_trial"] != linear_trials or \
+                L["linear_trial"] + L["rollout_trial"] != out["trials"]:
+            fail(f"{tag}: K13/K3 launches do not cover the trials: {L}, "
+                 f"{out['trials']} trials")
+        if min(L["linearize"], L["riccati_associative"],
+               L["riccati_associative_cholesky"], L["linear_trial"],
+               L["evaluate"]) == 0:
+            fail(f"{tag}: a kernel of the path was not launched: {L}")
+
+    # modes_single_path: the dsrbd example's walk under associative/nonlinear
+    # and associative/linear (40 ticks each), then 10 Cholesky ticks
+    walk40 = walking_schedule(40, vx=0.3, start=10, device=dev)
+    walk10 = walking_schedule(10, vx=0.3, start=3, device=dev)
+    srbd_runs = [
+        ("associative_nonlinear",
+         lambda: srbd_single_loop(f32, dev, "nonlinear"), walk40),
+        ("associative_linear", lambda: srbd_single_loop(f32, dev, "linear"),
+         walk40),
+        ("associative_linear_cholesky",
+         lambda: srbd_single_loop(f32, dev, "linear", "cholesky"), walk10)]
+
+    def srbd_gates(out, outs):
+        lin_trials = sum(r["trials"] for n, r in out["runs"].items()
+                         if "linear" in n and "nonlinear" not in n)
+        common_gates("modes_single_path", out, outs, lin_trials)
+        if max(r["srbd_residual_max"] for r in out["runs"].values()) > 1e-4:
+            fail("modes_single_path: Newton-Euler residual above 1e-4")
+        if out["launches"]["evaluate"] != 2 * len(outs):
+            fail(f"modes_single_path: srbd_evaluate launches are not two a "
+                 f"solve: {out['launches']}")
+
+    sp = single_path("srbd", srbd_runs, "modes_single_path", srbd_gates)
+
+    # modes_lip_path: the dlip example under associative/linear, 40 ticks,
+    # then 10 with Cholesky gains
+    lip_runs = [
+        ("associative_linear", lambda: lip_single_loop(f32, dev, "linear"),
+         walk40),
+        ("associative_linear_cholesky",
+         lambda: lip_single_loop(f32, dev, "linear", "cholesky"), walk10)]
+
+    def lip_gates(out, outs):
+        common_gates("modes_lip_path", out, outs, out["trials"])
+        if max(abs(out["com_z_min"] - LIP_HEIGHT),
+               abs(out["com_z_max"] - LIP_HEIGHT)) >= 0.08:
+            fail(f"modes_lip_path: the CoM height left 0.88 ± 0.08: "
+                 f"{out['com_z_min']}, {out['com_z_max']}")
+        if out["launches"]["evaluate"] != 2 * len(outs):
+            fail(f"modes_lip_path: lip_evaluate launches are not two a solve: "
+                 f"{out['launches']}")
+
+    lp = single_path("lip", lip_runs, "modes_lip_path", lip_gates)
+
+    # modes_fleet_path: tools/bench_modes.py's configuration on tick_batch
+    def fleet_loop(Bsz, dtype, device, push=0.0, seed=SEED):
+        prob = build_srbd_problem(SRBDConfig(dtype=dtype), feet, dtype=dtype,
+                                  device=device)
+        opts = DDPOptions(max_iters=5, alpha_converge_threshold=1e-12,
+                          beta=1e-3, riccati_mode="associative",
+                          forward_pass="linear", parallel_line_search_width=4)
+        wpg = WalkingPatternGenerator.build(0.0, prob.ocp.ns, dtype=dtype,
+                                            device=device)
+        loop = MPCLoop(solver=MSDDP(prob.ocp, opts), wpg=wpg,
+                       srbd_constants=prob.ocp.constants)
+        g = np.random.RandomState(seed)
+        xn = prob.initial_state.cpu().numpy()
+        x0 = torch.as_tensor(xn[None] + push * g.randn(Bsz, xn.shape[0]),
+                             dtype=dtype, device=device)
+        return loop, loop.init(x0), walk_command(Bsz, vx=0.2, dtype=dtype,
+                                                 device=device)
+
+    def run_fleet(Bsz, warm, timed):
+        loop, carry, inp = fleet_loop(Bsz, f32, dev)
+        counts = {"trials": 0, "solves": 0}
+        trial, solve = loop.solver._trial, loop.solver.solve_batch
+
+        def counted_trial(*a):
+            counts["trials"] += 1
+            return trial(*a)
+
+        def counted_solve(*a):
+            counts["solves"] += 1
+            return solve(*a)
+
+        loop.solver._trial, loop.solver.solve_batch = counted_trial, counted_solve
+        for _ in range(warm):
+            carry, _ = loop.tick_batch(carry, inp)
+        torch.cuda.synchronize()
+        counts.update(trials=0, solves=0)
+        func_calls, restore_func = count_torch_func()
+        plain_calls, restore_plain = count_plain_cost()
+        twin_calls, restore_twins = count_calls(TWINS)
+        reset_counts()
+        syncs0 = loop.solver.host_syncs
+        tms, iters, outs = [], [], []
+        try:
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                carry, out = loop.tick_batch(carry, inp)
+                torch.cuda.synchronize()
+                tms.append((time.perf_counter() - t0) * 1e3)
+                iters.append(int(out.iterations.sum()))
+                outs.append(out)
+            L = read_counts("srbd")
+        finally:
+            for restore in (restore_func, restore_plain, restore_twins):
+                restore()
+            loop.solver._trial, loop.solver.solve_batch = trial, solve
+        res = dict(
+            B=Bsz, dtype="float32",
+            options="tools/bench_modes.py: max_iters=5, "
+                    "parallel_line_search_width=4, alpha_converge_threshold="
+                    "1e-12, beta=1e-3, associative/linear, rdot_ref (0.2, 0, "
+                    "0), no shift",
+            warmup_ticks=warm, ticks=timed,
+            tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+            tick_mean_ms=statistics.fmean(tms),
+            members_per_s=Bsz / statistics.median(tms) * 1e3,
+            iters_mean=statistics.fmean(i / Bsz for i in iters),
+            syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
+            trials=counts["trials"], solves=counts["solves"], launches=L,
+            hand_written_kernel_launches_per_tick=hand(
+                L, loop.solver.ocp.ns) / timed,
+            finite=all(bool(torch.isfinite(v).all()) for o in outs
+                       for v in (o.x, o.u0, o.cost))
+            and bool(torch.isfinite(carry.sol.X).all()),
+            defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+            srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                                  for o in outs),
+            plain_twin_calls=twin_calls["n"], torch_func_calls=func_calls["n"],
+            plain_cost_or_defect_calls=plain_calls["n"], card=card)
+        return res, loop, carry, inp
+
+    fp, floop, fcarry, finp = run_fleet(B_MAIN, warm=3, timed=20)
+    fstep = lambda c: floop.tick_batch(c, finp)[0]
+    fcarry, fp["spans"] = tick_spans(floop.solver, fstep, fcarry, ticks=5)
+    fp["profile"] = profile_ticks(floop.solver, fstep, fcarry, fp["tick_p50_ms"])
+    emit("modes_fleet_path", **fp)
+    FL = fp["launches"]
+    if not fp["finite"]:
+        fail("modes_fleet_path produced non-finite values")
+    if max(fp["defect_norm_max"], fp["srbd_residual_max"]) > 1e-4:
+        fail("modes_fleet_path: plans are not dynamically consistent")
+    if fp["plain_twin_calls"] or fp["torch_func_calls"] \
+            or fp["plain_cost_or_defect_calls"]:
+        fail(f"modes_fleet_path ran plain twins on the card: "
+             f"{fp['plain_twin_calls']} kernel twins, "
+             f"{fp['plain_cost_or_defect_calls']} plain cost or defect calls, "
+             f"{fp['torch_func_calls']} torch.func transforms")
+    if min(FL["linearize"], FL["riccati_associative"], FL["linear_trial"],
+           FL["evaluate"]) == 0 or FL["riccati_backward"] or FL["rollout_trial"]:
+        fail(f"modes_fleet_path: the kernels launched are not the modes': {FL}")
+    if not (FL["linearize"] == FL["riccati_associative"]) \
+            or FL["linear_trial"] != fp["trials"] \
+            or FL["evaluate"] != 2 * fp["solves"]:
+        fail(f"modes_fleet_path: launches do not match the iterations, trials "
+             f"and solves: {FL}, {fp['trials']} trials, {fp['solves']} solves")
+    large, *_ = run_fleet(B_LARGE, warm=1, timed=2)
+    emit("modes_fleet_path_large", **large)
+    if not large["finite"]:
+        fail("modes_fleet_path at B=4096 produced non-finite values")
+
+    # ---- modes_card_vs_cpu: float64, single SRBD 5 ticks, fleet B=8 3 ticks ----
+    def single_ticks(device, n):
+        loop, prob = srbd_single_loop(f64, device, "linear")
+        sch = walking_schedule(n, vx=0.3, start=3, dtype=f64, device=device)
+        carry = loop.init(prob.initial_state)
+        outs = []
+        for i in range(n):
+            carry, out = loop.tick(carry, TickInput(*(a[i] for a in sch)))
+            outs.append(out)
+        return carry, outs
+
+    def fleet_ticks(device):
+        loop, carry, inp = fleet_loop(8, f64, device, push=0.005)
+        outs = []
+        for _ in range(3):
+            carry, out = loop.tick_batch(carry, inp)
+            outs.append(out)
+        return carry, outs
+
+    def versus(card_run, cpu_run):
+        (cc, oc), (cp, op) = card_run, cpu_run
+        it = lambda o: o.iterations.reshape(-1).tolist()
+        both = lambda f: (torch.stack([getattr(a, f).cpu() for a in oc]),
+                          torch.stack([getattr(b, f) for b in op]))
+        res = dict(
+            iterations_equal=all(it(a) == it(b) for a, b in zip(oc, op)),
+            converged_equal=all(torch.equal(a.converged.cpu(), b.converged)
+                                for a, b in zip(oc, op)),
+            iterations_card=[it(a) for a in oc],
+            cost_rel_err=rel_err(*both("cost")), x_rel_err=rel_err(*both("x")),
+            u0_rel_err=rel_err(*both("u0")),
+            X_rel_err=rel_err(cc.sol.X.cpu(), cp.sol.X),
+            U_rel_err=rel_err(cc.sol.U.cpu(), cp.sol.U))
+        res["ok"] = (res["iterations_equal"] and res["converged_equal"]
+                     and max(res["cost_rel_err"], res["x_rel_err"],
+                             res["u0_rel_err"], res["X_rel_err"],
+                             res["U_rel_err"]) <= 1e-9)
+        return res
+
+    cvc = dict(tol=1e-9, modes="associative/linear",
+               single=dict(B=1, ticks=5, walk="vx 0.3 from tick 3",
+                           **versus(single_ticks(dev, 5), single_ticks("cpu", 5))),
+               fleet=dict(B=8, ticks=3, push="0.005·N(0,1), seed 0",
+                          **versus(fleet_ticks(dev), fleet_ticks("cpu"))))
+    emit("modes_card_vs_cpu", **cvc)
+    if not (cvc["single"]["ok"] and cvc["fleet"]["ok"]):
+        fail("the modes' card path and CPU path disagree")
+
+    # ---- the kernel rows ----
+    L1, L2 = sp["launches"], lp["launches"]
+    rows_out = []
+    for fam, sv, name in (("srbd", "schur", "riccati_associative"),
+                          ("srbd", "cholesky", "riccati_associative_cholesky"),
+                          ("lip", "schur", "riccati_associative_lip"),
+                          ("lip", "cholesky",
+                           "riccati_associative_lip_cholesky")):
+        t = times["k12", fam, sv]
+        key = "riccati_associative" + ("_cholesky" if sv == "cholesky" else "")
+        path_l = (L1 if fam == "srbd" else L2)[key]
+        fleet_l = FL[key] if fam == "srbd" else 0
+        b1 = t["by_B"][1]
+        rows_out.append(dict(kernel_row(
+            name, k12, path_l + fleet_l, b1["ms"], b1["plain_ms"],
+            b1["bound_ms"], b1["bound_by"], errs["k12", fam, sv],
+            MODES_F32_TOL, B=1, quu_solver=sv, shape=fam,
+            launches_single_path=path_l, launches_fleet_path=fleet_l,
+            kernel_launches_per_sweep=t["launches_per_sweep"],
+            ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
+            k1_tassa_ms_by_B={str(b): v["k1_tassa_ms"]
+                              for b, v in t["by_B"].items()},
+            bound_ms_serving_B=t["by_B"][max(MODES_SIZES)]["bound_ms"],
+            plain_ms_serving_B=t["by_B"][max(MODES_SIZES)]["plain_ms"],
+            torch_linalg_solve_ms_f64_serving_B=t["linalg_solve_ms_f64"],
+            torch_linalg_solve_stack=t["linalg_solve_stack"],
+            **t["occupancy_f32"]), tol_f64=K12_F64_TOL))
+    for fam, name in (("srbd", "linear_trial"), ("lip", "linear_trial_lip")):
+        t1, t4 = times["k13", fam, 1], times["k13", fam, 4]
+        path_l = (L1 if fam == "srbd" else L2)["linear_trial"]
+        fleet_l = FL["linear_trial"] if fam == "srbd" else 0
+        b1 = t1["by_B"][1]
+        rows_out.append(kernel_row(
+            name, k13, path_l + fleet_l, b1["ms"], b1["plain_ms"],
+            b1["bound_ms"], b1["bound_by"], errs["k13", fam], MODES_F32_TOL,
+            B=1, alphas=1, family=fam, launches_single_path=path_l,
+            launches_fleet_path=fleet_l,
+            ms_by_B={str(b): v["ms"] for b, v in t1["by_B"].items()},
+            ms_4alpha_by_B={str(b): v["ms"] for b, v in t4["by_B"].items()},
+            bound_ms_serving_B=t1["by_B"][max(MODES_SIZES)]["bound_ms"],
+            plain_ms_serving_B=t1["by_B"][max(MODES_SIZES)]["plain_ms"],
+            **t1["occupancy_f32"]))
+    emit("modes_section", seconds=time.perf_counter() - t_section, card=card)
+    return rows_out
+
+
 def main():
     if not (HERE / "srbd_horizon_tpu_torch" / "__init__.py").exists():
         fail("srbd_horizon_tpu_torch/ not found next to chip_smoke.py; run "
@@ -4528,6 +5333,9 @@ def main():
     # ---------------- phase 12: the constrained quadruped trot ----------
     qc_rows = quadruped_constrained_section(card, dev, sms)
 
+    # ---------------- phase 13: the execution modes (K12, K13) ----------
+    modes_rows = modes_section(card, dev, sms)
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -4623,7 +5431,7 @@ def main():
                        shared_memory_bytes=t["shared_memory_bytes"],
                        blocks_per_sm=t["blocks_per_sm"]),
             replaces=k1.TASSA_REPLACES))
-    kernels += lip_rows + quad_rows + qc_rows
+    kernels += lip_rows + quad_rows + qc_rows + modes_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -84,15 +84,21 @@ class DDPOptions:
     constraint_weight: float = 1e6
     max_line_search_steps: int = 40
     # "parallel" (width-K fans of α) or "sequential" (one α a step);
-    # read by `MSDDP.solve` only: `solve_batch` always fans, as the JAX
-    # package's `_iteration_batch` does
+    # read by `MSDDP.solve` (and by `solve_batch` under a non-default
+    # riccati_mode or forward_pass, which runs `solve` member by member):
+    # the default `solve_batch` always fans, as the JAX package's
+    # `_iteration_batch` does
     line_search_mode: str = "parallel"
     parallel_line_search_width: int = 4
     line_search_compact: int = 64
-    # gain solve of `MSDDP.solve`'s Tassa-form sweep: "schur" (the
-    # block-Schur inverse) or "cholesky"; `solve_batch`'s collapsed sweep
-    # always takes the block-Schur inverse, as the JAX package's does
+    # gain solve of `MSDDP.solve`'s sweep (Tassa form or associative scan):
+    # "schur" (the block-Schur inverse) or "cholesky"; the default
+    # `solve_batch`'s collapsed sweep always takes the block-Schur inverse,
+    # as the JAX package's does
     quu_solver: str = "schur"
+    # "sequential" (K1's Tassa-form sweep) or "associative" (K12's scan);
+    # with forward_pass "nonlinear" (the rollout, K3/K11) or "linear" (the
+    # linearized forward pass of the parallel line search, K13)
     riccati_mode: str = "sequential"
     backward_contract: str = "blocksparse"
     backward_pair_nodes: bool = False
@@ -124,13 +130,14 @@ _REJECTED_KNOBS = {
 
 def check_options(opts: DDPOptions) -> None:
     """Raise on any option the port's production path does not run."""
-    if opts.riccati_mode != "sequential":
-        raise NotImplementedError(
-            f"riccati_mode={opts.riccati_mode!r}: only 'sequential' is ported"
+    if opts.riccati_mode not in ("sequential", "associative"):
+        raise ValueError(
+            f"riccati_mode={opts.riccati_mode!r}: 'sequential' or "
+            "'associative'"
         )
-    if opts.forward_pass != "nonlinear":
-        raise NotImplementedError(
-            f"forward_pass={opts.forward_pass!r}: only 'nonlinear' is ported"
+    if opts.forward_pass not in ("nonlinear", "linear"):
+        raise ValueError(
+            f"forward_pass={opts.forward_pass!r}: 'nonlinear' or 'linear'"
         )
     if opts.analytic_jacobians:
         raise NotImplementedError(

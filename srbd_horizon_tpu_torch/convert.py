@@ -7,7 +7,10 @@ boolean leaves keep their kind (int32 counters, bool flags). Every
 function takes a fleet's state (a leading B axis, for `tick_batch` and
 the batched solves) or one robot's as the JAX package's unbatched entry
 points hold it (for `tick`, `MSDDP.solve`, `ALDDP.solve` and
-`solve_online`): shapes pass through as they are.
+`solve_online`): shapes pass through as they are. The execution modes
+(`riccati_mode="associative"`, `forward_pass="linear"`) carry no state of
+their own: a solve under them reads and writes the same `DDPSolution`
+and `LoopCarry`.
 """
 
 from __future__ import annotations

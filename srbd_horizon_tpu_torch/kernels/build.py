@@ -20,11 +20,17 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   lip_linearize     K10 `lip_linearize`; `lip_linearize_occupancy`
   lip_rollout       K11 `lip_trial`, `lip_evaluate`; and, with no type
                     suffix, `lip_trial_occupancy`, `lip_evaluate_occupancy`
+  riccati_associative  K12 `riccati_associative` (its three phases, launched
+                    from one entry); `riccati_associative_occupancy`
+  linear_trial      K13 `linear_trial`; `linear_trial_occupancy`
 
 K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6,
 `isrbd_evaluate`, K7 and K8 `csrc/isrbd_common.cuh`, and both of those
 `csrc/rigid_common.cuh`; K10, K11 and `lip_evaluate` include
-`csrc/lip_common.cuh`; K1, K3, K6, K7 and K11 include `csrc/dmma.cuh`.
+`csrc/lip_common.cuh`; K1, K3, K6, K7 and K11 include `csrc/dmma.cuh`;
+K1 and K12 include `csrc/riccati_common.cuh` (K2's inverse, the Cholesky
+routine and the tiles they run on); K13 includes both `srbd_common.cuh` and
+`lip_common.cuh`.
 `isrbd_al` is compiled with `-fmad=false`: K7 and K8 round each product
 and sum on their own, as the plain twins' torch ops do. A change to
 any file under `csrc/` rebuilds every library. The build runs at first
@@ -45,7 +51,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize",
                   "isrbd_rollout", "isrbd_linearize", "isrbd_al",
-                  "lip_linearize", "lip_rollout")
+                  "lip_linearize", "lip_rollout", "riccati_associative",
+                  "linear_trial")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

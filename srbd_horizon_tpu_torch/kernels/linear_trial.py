@@ -1,0 +1,233 @@
+"""K13: the line-search trial of the linearized forward pass
+(`DDPOptions.forward_pass="linear"`) over a vector of step sizes.
+
+`linear_trial` is the wrapper the solver calls. A CPU tensor goes to
+`linear_trial_plain`: `forward_linear_plain`, the PyTorch transcription of
+the JAX package's `MSDDP._forward_linear`
+(srbd_horizon_tpu/solvers/msddp.py:1454-1482) for every α at once, then
+the trial's `_true_defects` (:1484) and `total_cost` (:158) of the plan it
+gives and its Armijo test (:1507-1531); a CUDA tensor launches the
+hand-written kernel in `csrc/linear_trial.cu`, which does all of it in one
+launch, or raises.
+
+Per member and α:
+
+    δx₀ = x0 − X₀,   δxₙ₊₁ = (Aₙ + BₙKₙ) δxₙ + α (Bₙkₙ + dₙ)
+    Xn = X + δX,     Un = U + α k + K δX[:-1]
+    D̂ = Σₙ ‖step(Xnₙ, Unₙ) − Xnₙ₊₁‖²,   cost = total_cost(Xn, Un)
+    merit = cost + ν D̂,   expected = −(αΔV₁ + α²ΔV₂) + (2α − α²)νD
+    ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min
+
+The defect part of the merit is measured, not the (1 − α)²D of the
+nonlinear trial; `expected` keeps the iterate's D. The twin composes the
+affine maps by JAX's scan tree (`riccati_associative.odd_even_scan`) and
+applies the prefix products to δx₀, as JAX does; the kernel runs the same
+recursion in node order. A and B come from the sliced linearization
+(A = I + Sx on the rows rx, B = Bs on the rows ru and the inputs uc).
+Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
+(nα, B) — what K3 and K11 return, so the solver's line search takes either.
+
+The kernel is compiled for two problems (`FAMILIES`): the Kangaroo's SRBD
+problem and the LIP; CUDA tensors of other sizes raise ValueError, CPU
+tensors take the twin at any size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srbd_horizon_tpu_torch.kernels import lip_linearize, linearize
+from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.riccati import KERNEL_SHAPES, RiccatiRows
+from srbd_horizon_tpu_torch.kernels.riccati_associative import (
+    dense_dynamics,
+    odd_even_scan,
+)
+from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
+
+# the JAX function K13 replaces, with the trial's `_true_defects` and
+# `total_cost` (XLA-fused; the JAX package wrote no Pallas kernel for them)
+REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1454"
+SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
+
+# the problems the kernel is compiled for, in the order of the .cu's
+# `with_family`: (terms.family, the linearization's shape name, K1's shape)
+FAMILIES = (("srbd", "kangaroo", "srbd"), ("lip", None, "lip"))
+N_SCALARS = {"srbd": 24, "lip": lip_linearize.N_SCALARS}
+
+
+def family_xdot(terms):
+    """ẋ(x, u) of the problem behind `terms` (`SRBDTerms` or `LIPTerms`)."""
+    if terms.family == "lip":
+        return terms.xdot
+    consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
+    return lambda x, u: srbd_xdot(x, u, consts)
+
+
+def forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas):
+    """`_forward_linear` for every α of `alphas` (nα,): the affine maps
+    (Mₙ, vₙ) = (Aₙ + BₙKₙ, α(Bₙkₙ + dₙ)) composed by JAX's prefix scan
+    (`combine(f, g)` = g∘f), then δX and Un. A (B,ns,nx,nx), Bd
+    (B,ns,nx,nu) dense. Returns Xn (nα,B,ns+1,nx), Un (nα,B,ns,nu)."""
+    ns = d.shape[1]
+    M = A + torch.einsum("bnxu,bnuy->bnxy", Bd, Ks)
+    v = alphas[:, None, None, None] * (
+        torch.einsum("bnxu,bnu->bnx", Bd, ks) + d)             # (nα,B,ns,nx)
+
+    def combine(f, g):
+        Mf, vf = f
+        Mg, vg = g
+        return Mg @ Mf, (Mg @ vf[..., None])[..., 0] + vg
+
+    scanned = odd_even_scan(combine, [(M[:, n], v[:, :, n]) for n in range(ns)])
+    dx0 = x0 - X[:, 0]
+    tail = [(Mc @ dx0[..., None])[..., 0] + vc for Mc, vc in scanned]
+    dX = torch.stack([dx0.expand_as(tail[0])] + tail, dim=2)
+    Un = (U + alphas[:, None, None, None] * ks
+          + torch.einsum("bnuy,kbny->kbnu", Ks, dX[:, :, :-1]))
+    return X + dX, Un
+
+
+def linear_trial_plain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0,
+                       D, dV1, dV2, terms, rows: RiccatiRows, dt: float,
+                       wc: float, nu_w: float, beta: float, alpha_min: float):
+    """Plain PyTorch K13: `forward_linear_plain`, the true defects and the
+    cost of each plan (`terms` is the problem's `SRBDTerms` or `LIPTerms`,
+    wc = √w_c) and the Armijo test with the measured defects. Sx
+    (B,ns,|rx|,nx), Bs (B,ns,|ru|,|uc|); params leaves (B,ns+1,dim);
+    merit0, D, dV1, dV2 (B,)."""
+    nu = U.shape[-1]
+    A, Bd = dense_dynamics(Sx, Bs, rows, nu)
+    Xn, Un = forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas)
+    ns = U.shape[-2]
+    x = Xn[..., :ns, :]
+    dn = x + dt * family_xdot(terms)(x, Un) - Xn[..., 1:, :]
+    D_new = torch.sum(dn * dn, dim=(-2, -1))
+    new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
+    a = alphas[:, None]
+    new_merit = new_cost + nu_w * D_new
+    expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
+    ok = (
+        ((merit0 - new_merit) >= beta * torch.clamp(expected, min=1e-16))
+        & torch.isfinite(new_merit)
+        & (a >= alpha_min)
+    )
+    return Xn, Un, new_cost, new_merit, ok
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+
+def family_index(terms, nx: int, nu: int, rows: RiccatiRows) -> int:
+    """The index in `FAMILIES` of the kernel for this problem; ValueError,
+    naming the sizes, for a problem it was not compiled for."""
+    fam = getattr(terms, "family", None)
+    for i, (name, lin_shape, k1_shape) in enumerate(FAMILIES):
+        if fam != name:
+            continue
+        if name == "srbd":
+            got = linearize.check_kernel_shape("linear_trial", terms, nx, nu)
+            if got != lin_shape:
+                break
+        else:
+            lip_linearize.check_kernel_shape("linear_trial", terms, nx, nu)
+        want = KERNEL_SHAPES[k1_shape]
+        have = dict(n_rx=len(rows.rx), n_ru=len(rows.ru), n_gx=len(rows.gx),
+                    n_gu=len(rows.gu), n_b=len(rows.bx), n_uc=len(rows.uc))
+        if have == {k: want[k] for k in have} and nx == want["nx"]:
+            return i
+        break
+    raise ValueError(
+        f"linear_trial has no kernel for the {fam!r} problem of nx={nx}, "
+        f"nu={nu}; it is compiled for {FAMILIES} (csrc/linear_trial.cu)")
+
+
+def _kernel_fn(dtype):
+    lib = library("linear_trial")
+    fn = lib.linear_trial_f32 if dtype == torch.float32 else lib.linear_trial_f64
+    if fn.argtypes is None:
+        fn.argtypes = ([_I] + [_P] * 15 + [_I] * 3 + [_P] + [_D] * 3
+                       + [_P] * 6)
+        fn.restype = _I
+    return fn
+
+
+def occupancy(family: str = "srbd", dtype=torch.float32) -> dict:
+    """K13's blocks resident on one SM, static shared memory bytes a block,
+    registers and local (spilled) bytes a thread on the current card."""
+    fn = library("linear_trial").linear_trial_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _I
+    out = (ctypes.c_int * 4)()
+    idx = [f[0] for f in FAMILIES].index(family)
+    err = fn(idx, int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"linear_trial occupancy failed: error {err}")
+    return dict(zip(("blocks_per_sm", "shared_memory_bytes",
+                     "registers_per_thread", "local_bytes_per_thread"), out))
+
+
+def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
+                 dV1, dV2, terms, rows: RiccatiRows, dt: float, wc: float,
+                 nu_w: float, beta: float, alpha_min: float):
+    """K13. Same contract as `linear_trial_plain`; launches the CUDA kernel
+    for CUDA tensors of a problem in `FAMILIES` (and counts the launch in
+    `linear_trial.launches`), raises ValueError for others. It computes in
+    float64 for float32 tensors too."""
+    if d.device.type == "cpu":
+        return linear_trial_plain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params,
+                                  merit0, D, dV1, dV2, terms, rows, dt, wc,
+                                  nu_w, beta, alpha_min)
+    if d.device.type != "cuda":
+        raise ValueError(f"linear_trial runs on cpu or cuda, got {d.device}")
+    dtype, dev = d.dtype, d.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"linear_trial takes float32 or float64, got {dtype}")
+    Bsz, ns, nx = d.shape
+    nu = U.shape[-1]
+    fam = family_index(terms, nx, nu, rows)
+    nA = alphas.shape[0]
+    check_tensor("x0", x0, (Bsz, nx), dtype, dev)
+    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
+    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
+    check_tensor("ks", ks, (Bsz, ns, nu), dtype, dev)
+    check_tensor("Ks", Ks, (Bsz, ns, nu, nx), dtype, dev)
+    check_tensor("Sx", Sx, (Bsz, ns, len(rows.rx), nx), dtype, dev)
+    check_tensor("Bs", Bs, (Bsz, ns, len(rows.ru), len(rows.uc)), dtype, dev)
+    check_tensor("d", d, (Bsz, ns, nx), dtype, dev)
+    check_tensor("alphas", alphas, (nA,), dtype, dev)
+    for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
+        check_tensor(name, t, (Bsz,), dtype, dev)
+    kp = linearize.kernel_params if fam == 0 else lip_linearize.kernel_params
+    pt = kp(params, Bsz, ns, terms.nc, dtype, dev)
+    Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
+    Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
+    cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
+    ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
+    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
+    scalars = (_D * N_SCALARS[terms.family])(*terms.kernel_scalars(dt, wc))
+    fn = _kernel_fn(dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            fam, x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
+            Ks.data_ptr(), Sx.data_ptr(), Bs.data_ptr(), d.data_ptr(),
+            rows.packed(dev).data_ptr(), alphas.data_ptr(), ptrs,
+            merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+            Bsz, ns, nA, scalars, float(nu_w), float(beta), float(alpha_min),
+            Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
+            ok.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"linear_trial kernel failed: CUDA error {err}")
+    linear_trial.launches += 1
+    return Xn, Un, cost, merit, ok
+
+
+linear_trial.launches = 0

@@ -37,6 +37,17 @@ solve `DDPOptions.quu_solver`), and the line search of `_iteration`
 chunks α₀·f^(cK+i), i < K (:1494-1578), one K3 or K6 launch of K α's a
 chunk; or "sequential", one launch of one α a step.
 
+The JAX package's two other execution modes run on `solve`'s iteration:
+`riccati_mode="associative"` takes the associative-scan sweep
+(`_backward_associative`, msddp.py:1250) in K1's place — kernel K12
+(`kernels/riccati_associative.py`) — and `forward_pass="linear"` makes the
+parallel line search's trial the linearized forward pass with the measured
+defects (`_forward_linear`, :1454, in the trial of :1507-1531) — kernel K13
+(`kernels/linear_trial.py`); the sequential line search always rolls out.
+Under either, `solve_batch` is the JAX package's `vmap(solve)`
+(`_solve_members`). Both kernels are compiled for the Kangaroo SRBD problem
+and the LIP; the solver refuses the modes on any other problem.
+
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
 here: each reads one small device value back. `MSDDP.host_syncs` counts
@@ -62,8 +73,10 @@ from srbd_horizon_tpu_torch.kernels.isrbd_rollout import (
 )
 from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
 from srbd_horizon_tpu_torch.kernels.lip_linearize import lip_linearize
+from srbd_horizon_tpu_torch.kernels.linear_trial import family_index, linear_trial
 from srbd_horizon_tpu_torch.kernels.lip_rollout import lip_evaluate, lip_trial
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
+from srbd_horizon_tpu_torch.kernels.riccati_associative import riccati_associative
 from srbd_horizon_tpu_torch.kernels.rollout import srbd_evaluate, srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
 
@@ -106,6 +119,13 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a.index_select(0, idx)
 
 
+def _pick(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entry idx[b] of the leading (K,) axis of `arr` (K, b, …) for each
+    member b."""
+    ix = idx.reshape((1,) + idx.shape + (1,) * (arr.dim() - 2))
+    return arr.gather(0, ix.expand((1,) + arr.shape[1:]))[0]
+
+
 @dataclasses.dataclass
 class MSDDP:
     """Multiple-shooting GN-DDP over a fixed OCP; `solve_batch` is the
@@ -142,6 +162,17 @@ class MSDDP:
                 "solvers/alddp.py)"
             )
         self.rows = RiccatiRows.from_ocp(ocp)
+        if (self.opts.riccati_mode, self.opts.forward_pass) != (
+                "sequential", "nonlinear"):
+            try:
+                family_index(terms, ocp.nx, ocp.nu, self.rows)
+            except ValueError as err:
+                raise NotImplementedError(
+                    f"riccati_mode={self.opts.riccati_mode!r}, forward_pass="
+                    f"{self.opts.forward_pass!r}: K12 and K13 are compiled for "
+                    "the Kangaroo SRBD problem and the LIP only; the other "
+                    "shapes wait on ROADMAP.md Queue 2 (K12/K13 at QuadShape, "
+                    f"IsrbdAlShape, QuadAlShape): {err}") from None
 
     @property
     def terms(self):
@@ -238,10 +269,33 @@ class MSDDP:
             quu_solver=self.opts.quu_solver,
         )
 
-    def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2):
-        """Rollout + cost + Armijo test for the α vector `al` (K,), one K3
-        or K6 launch: each result has a leading (K,) axis."""
+    def _backward_associative(self, lin, mu):
+        """`_backward_associative` of the JAX package (msddp.py:1250): the
+        value recursion as an associative scan, then the gains, with the
+        gain solve `opts.quu_solver` (K12), on the batch-first lin; same
+        outputs as `_backward`."""
+        return riccati_associative(
+            lin["Sx"], lin["Bs"], lin["Jxp"], lin["Jup"], lin["rho"],
+            lin["d"], lin["Jt"], lin["rt"], mu, self.rows,
+            quu_solver=self.opts.quu_solver,
+        )
+
+    def _trial(self, al, x0, X, U, ks, Ks, d, params, merit0, D, dV1, dV2,
+               lin=None):
+        """Trial + cost + Armijo test for the α vector `al` (K,), one kernel
+        launch: each result has a leading (K,) axis. The rollout (K3, K6 or
+        K11), or, given the sliced linearization `lin` (the parallel line
+        search passes it under forward_pass="linear"), the linearized
+        forward pass with the measured defects (K13)."""
         opts = self.opts
+        if lin is not None:
+            return linear_trial(
+                x0.contiguous(), X.contiguous(), U.contiguous(), ks, Ks,
+                lin["Sx"], lin["Bs"], d, al,
+                {k: v.contiguous() for k, v in params.items()},
+                merit0, D, dV1, dV2, self.terms, self.rows, self.ocp.dt,
+                *self._family_args(X.dtype), opts.defect_weight, opts.beta,
+                opts.alpha_converge_threshold)
         trial = _KERNELS[self.terms.family][1]
         return trial(
             x0.contiguous(), X.contiguous(), U.contiguous(), ks, Ks, d, al,
@@ -290,12 +344,7 @@ class MSDDP:
                 al, x0b, Xb0, Ub0, ksb, Ksb, db, paramsb, merit0b, Db,
                 dV1b, dV2b)
             pick_idx = torch.argmax(oks.to(torch.int8), dim=0)     # first True
-
-            def pick(arr):
-                ix = pick_idx.reshape((1,) + pick_idx.shape
-                                      + (1,) * (arr.dim() - 2))
-                return arr.gather(0, ix.expand((1,) + arr.shape[1:]))[0]
-
+            pick = lambda arr: _pick(arr, pick_idx)
             hit = torch.any(oks, dim=0) & ~found
             Xb = torch.where(_bcast(hit, Xb), pick(Xs), Xb)
             Ub = torch.where(_bcast(hit, Ub), pick(Us), Ub)
@@ -422,14 +471,19 @@ class MSDDP:
 
     # ---------- one robot: the JAX package's unbatched iteration ----------
 
-    def _parallel_line_search(self, X, U, cost, x0, params, d, ks, Ks, dV1,
-                              dV2, D, merit0):
-        """`_parallel_line_search` (msddp.py:1494-1578) at B=1: chunk c is
-        one trial launch of α₀·f^(cK+i), i < K; the first accepted (largest)
-        α of a chunk is taken, and the next chunk runs while none was and
-        the model's reduction at α₀·f^(cK) is resolvable above the merit's
-        rounding floor (one counted read a chunk, after each but the
-        last). Returns the plan, cost and merit taken and `found` (1,)."""
+    def _parallel_line_search(self, X, U, cost, x0, params, lin, ks, Ks, dV1,
+                              dV2, D, merit0, live=None):
+        """`_parallel_line_search` (msddp.py:1494-1578) for each member of
+        (B, …) tensors as the JAX package's unbatched solve runs it (B=1,
+        or `vmap(solve)`): chunk c is one trial launch of α₀·f^(cK+i),
+        i < K, for every member; each member takes the first accepted
+        (largest) α of a chunk, and runs the next chunk while it found none
+        and the model's reduction at α₀·f^(cK) is resolvable above its
+        merit's rounding floor (one counted read a chunk, after each but
+        the last). `live` (B,) bool masks the members that search (None:
+        all). The trial is the rollout, or under forward_pass="linear" the
+        linearized forward pass. Returns the plans, costs and merits taken
+        and `found` (B,)."""
         opts = self.opts
         K = opts.parallel_line_search_width
         f = opts.line_search_decrease_factor
@@ -437,66 +491,87 @@ class MSDDP:
             f ** torch.arange(K, dtype=X.dtype, device=X.device))
         n_chunks = -(-opts.max_line_search_steps // K)
         expected0, noise = self._resolvable(dV1, dV2, D, merit0)
+        linear = lin if opts.forward_pass == "linear" else None
+        d = lin["d"]
         Xb, Ub, costb, meritb = X, U, cost, merit0
+        run, found = live, None
         c = 0
         while True:
             Xs, Us, costs, merits, oks = self._trial(
                 alphas * (f ** float(c * K)), x0, X, U, ks, Ks, d, params,
-                merit0, D, dV1, dV2)
-            idx = torch.argmax(oks[:, 0].to(torch.int8)).reshape(1)
-            found = torch.any(oks, dim=0)
-            pick = lambda a: a.index_select(0, idx)[0]
-            Xb = torch.where(_bcast(found, Xb), pick(Xs), Xb)
-            Ub = torch.where(_bcast(found, Ub), pick(Us), Ub)
-            costb = torch.where(found, pick(costs), costb)
-            meritb = torch.where(found, pick(merits), meritb)
+                merit0, D, dV1, dV2, linear)
+            idx = torch.argmax(oks.to(torch.int8), dim=0)     # first True
+            pick = lambda arr: _pick(arr, idx)
+            hit = torch.any(oks, dim=0)
+            if run is not None:
+                hit = run & hit
+            Xb = torch.where(_bcast(hit, Xb), pick(Xs), Xb)
+            Ub = torch.where(_bcast(hit, Ub), pick(Us), Ub)
+            costb = torch.where(hit, pick(costs), costb)
+            meritb = torch.where(hit, pick(merits), meritb)
+            found = hit if found is None else found | hit
             c += 1
             if c >= n_chunks:
                 break
             worth = expected0 * (f ** float(c * K)) > noise
-            if not self._host(torch.any(~found & worth)):
+            cont = ~found & worth
+            if run is not None:
+                cont = run & cont
+            if not self._host(torch.any(cont)):
                 break
+            run = cont
         return Xb, Ub, costb, meritb, found
 
-    def _sequential_line_search(self, X, U, cost, x0, params, d, ks, Ks, dV1,
-                                dV2, D, merit0):
-        """The sequential backtracking of `_iteration` (msddp.py:1617-1661):
-        one trial launch of one α a step, α ← f·α (rounded in the plan's
-        dtype, as the JAX package computes it) until a step is accepted,
-        `max_line_search_steps` ran or α fell below
-        `alpha_converge_threshold`; one counted read a step."""
+    def _sequential_line_search(self, X, U, cost, x0, params, lin, ks, Ks,
+                                dV1, dV2, D, merit0, live=None):
+        """The sequential backtracking of `_iteration` (msddp.py:1617-1661)
+        for each member: one rollout launch of one α a step, α ← f·α
+        (rounded in the plan's dtype, as the JAX package computes it; every
+        member still searching is at the same step, so one α serves them
+        all) until the member's step is accepted, `max_line_search_steps`
+        ran or α fell below `alpha_converge_threshold`; one counted read a
+        step. Always the nonlinear rollout, whatever `forward_pass` says,
+        as in the JAX package. `live` as in `_parallel_line_search`."""
         opts = self.opts
         dtype = X.dtype
         in_dtype = lambda v: torch.tensor(v, dtype=dtype)
         alpha = in_dtype(opts.alpha_0)
-        found = torch.zeros(1, dtype=torch.bool, device=X.device)
+        found = torch.zeros(X.shape[0], dtype=torch.bool, device=X.device)
+        run = live
         Xb, Ub, costb, meritb = X, U, cost, merit0
         for _ in range(opts.max_line_search_steps):
             if not bool(alpha >= opts.alpha_converge_threshold):
                 break
             Xs, Us, costs, merits, oks = self._trial(
-                alpha.reshape(1).to(X.device), x0, X, U, ks, Ks, d, params,
-                merit0, D, dV1, dV2)
-            found = oks[0]
-            Xb = torch.where(_bcast(found, Xb), Xs[0], Xb)
-            Ub = torch.where(_bcast(found, Ub), Us[0], Ub)
-            costb = torch.where(found, costs[0], costb)
-            meritb = torch.where(found, merits[0], meritb)
-            if self._host(found[0]):
+                alpha.reshape(1).to(X.device), x0, X, U, ks, Ks, lin["d"],
+                params, merit0, D, dV1, dV2)
+            hit = oks[0] if run is None else run & oks[0]
+            found = found | hit
+            Xb = torch.where(_bcast(hit, Xb), Xs[0], Xb)
+            Ub = torch.where(_bcast(hit, Ub), Us[0], Ub)
+            costb = torch.where(hit, costs[0], costb)
+            meritb = torch.where(hit, merits[0], meritb)
+            run = ~found if run is None else run & ~hit
+            if not self._host(torch.any(run)):
                 break
             alpha = alpha * opts.line_search_decrease_factor
         return Xb, Ub, costb, meritb, found
 
-    def _iteration(self, X, U, cost, x0, params):
+    def _iteration(self, X, U, cost, x0, params, live=None):
         """One iteration of the JAX package's unbatched `_iteration`
-        (msddp.py:1580-1673) on B=1 tensors: the sliced linearization (K4
-        or K5), the Tassa-form sweep (K1), the line search of
-        `line_search_mode`, the update. Returns X, U, cost, converged."""
+        (msddp.py:1580-1673) for each member of (B, …) tensors: the sliced
+        linearization (K4, K5 or K10), the sweep of `riccati_mode` (K1's
+        Tassa form or K12), the line search of `line_search_mode`, the
+        update. `live` (B,) bool masks the members whose line search runs
+        (None: all). Returns X, U, cost, converged."""
         opts = self.opts
         self._phase("linearize")
         lin = self._linearize_sliced(X, U, params)
         self._phase("sweep")
-        ks, Ks, dV1, dV2 = self._backward(lin, opts.mu0)
+        if opts.riccati_mode == "associative":
+            ks, Ks, dV1, dV2 = self._backward_associative(lin, opts.mu0)
+        else:
+            ks, Ks, dV1, dV2 = self._backward(lin, opts.mu0)
         d = lin["d"]
         D = torch.sum(d * d, dim=(1, 2))
         merit0 = cost + opts.defect_weight * D
@@ -505,7 +580,7 @@ class MSDDP:
                   if opts.line_search_mode == "parallel"
                   else self._sequential_line_search)
         Xn, Un, new_cost, new_merit, accepted = search(
-            X, U, cost, x0, params, d, ks, Ks, dV1, dV2, D, merit0)
+            X, U, cost, x0, params, lin, ks, Ks, dV1, dV2, D, merit0, live)
         self._phase("update")
         converged = (~accepted) | (
             merit0 - new_merit
@@ -515,6 +590,38 @@ class MSDDP:
                torch.where(accepted, new_cost, cost), converged)
         self._phase("glue")
         return out
+
+    def _solve_members(self, sols: DDPSolution, x0, params) -> DDPSolution:
+        """`solve_batch` under a non-default `riccati_mode` or `forward_pass`:
+        the JAX package's `jax.vmap(self.solve)` (msddp.py:1213-1216). Each
+        member runs `solve`'s iteration — the sweep with `quu_solver`, the
+        line search of `line_search_mode` on the unbatched chunk grid, no
+        active-set or fan compaction — batched over the members, and its
+        state freezes once it converged or ran `max_iters` iterations (one
+        counted read an iteration, of whether any member still runs)."""
+        opts = self.opts
+        self._phase("cost0")
+        cost, _, X = self._evaluate(sols.X, sols.U, params, x0=x0)
+        U = sols.U
+        Bsz = cost.shape[0]
+        converged = torch.zeros(Bsz, dtype=torch.bool, device=X.device)
+        it = torch.zeros(Bsz, dtype=torch.int32, device=X.device)
+        self._phase("glue")
+        while True:
+            run = ~converged & (it < opts.max_iters)
+            if not self._host(torch.any(run)):
+                break
+            Xn, Un, cn, conv = self._iteration(X, U, cost, x0, params, live=run)
+            X = torch.where(_bcast(run, X), Xn, X)
+            U = torch.where(_bcast(run, U), Un, U)
+            cost = torch.where(run, cn, cost)
+            converged = torch.where(run, conv, converged)
+            it = it + run.to(torch.int32)
+        self._phase("defects")
+        _, defect_norm = self._evaluate(X, U, params)
+        self._phase("glue")
+        return DDPSolution(X=X, U=U, cost=cost, converged=converged,
+                           iterations=it, defect_norm=defect_norm)
 
     # ---------- public API ----------
 
@@ -537,8 +644,11 @@ class MSDDP:
     def solve_batch(self, sols: DDPSolution, x0, params) -> DDPSolution:
         """Batched MS-DDP solve over a leading fleet axis: per-member α
         selection and masked convergence, the same semantics as the JAX
-        package's `solve_batch`."""
+        package's `solve_batch` (under a non-default `riccati_mode` or
+        `forward_pass`, its `vmap(solve)`: `_solve_members`)."""
         opts = self.opts
+        if (opts.riccati_mode, opts.forward_pass) != ("sequential", "nonlinear"):
+            return self._solve_members(sols, x0, params)
         self._phase("cost0")
         # node 0 is pinned to the measured state: a stale warm start's x0
         # gap becomes the node-0 defect (the evaluation writes the pinned

@@ -1564,3 +1564,128 @@ def test_quadruped_isrbd_occupancy(qc_case, dtype):
     rows = qc_case["al"].inner.rows
     for form, solver in (("collapsed", "schur"), ("tassa", "cholesky")):
         assert k1.blocks_per_sm(37, 30, 97, rows, dtype, form, solver) >= 1
+
+
+# ---- K12 (riccati_associative) and K13 (linear_trial): the modes ----
+
+# K12 in float64: R̃ = luu + μI is solved alone (K1 solves Quu), then 34
+# pivoted (I + C₁J₂) solves: rounding reads 1.3e-9 over 512 drawn members
+# (chip_smoke.py's K12_F64_TOL)
+K12_F64_TOL = 1e-8
+
+
+def _mode_case(request):
+    return request.getfixturevalue("card_case" if request.param == "srbd"
+                                   else "lip_case")
+
+
+@pytest.fixture(params=["srbd", "lip"])
+def mode_case(request):
+    return _mode_case(request)
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 133])
+@pytest.mark.parametrize("solver", ["schur", "cholesky"])
+def test_riccati_associative_matches_plain(mode_case, solver, Bw):
+    """K12 against its twin on the same sliced lin: float64 to 1e-8 (see
+    K12_F64_TOL), float32 to 1e-6 of the float64 twin (it computes in
+    float64)."""
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = mode_case
+    lin = {k: _repeat(c["lin"][k], Bw) for k in ORDER}
+    args = lambda dtype: tuple(lin[k].to(dtype).contiguous() for k in ORDER)
+    ref = k12.riccati_associative_plain(*args(torch.float64), c["mu"],
+                                        c["rows"], solver)
+    n0 = k12.riccati_associative.launches
+    got = k12.riccati_associative(*args(torch.float64), c["mu"], c["rows"],
+                                  solver)
+    torch.cuda.synchronize()
+    assert k12.riccati_associative.launches == n0 + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float64
+        assert _rel(g, r) <= K12_F64_TOL
+    got32 = k12.riccati_associative(*args(torch.float32), c["mu"], c["rows"],
+                                    solver)
+    ref32 = k12.riccati_associative_plain(
+        *(a.double() for a in args(torch.float32)), c["mu"], c["rows"], solver)
+    for g, r in zip(got32, ref32):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("Bw", [1, 64])
+def test_linear_trial_matches_plain(mode_case, nA, Bw):
+    """K13 against its twin: float64 to 1e-9, float32 to 1e-6 of the float64
+    twin on the same float32 inputs (it computes in float64), the flags
+    equal in float64."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = mode_case
+    s = c["solver"]
+    lin = {k: _repeat(c["lin"][k], Bw) for k in ORDER}
+    ks, Ks, dV1, dV2 = k12.riccati_associative_plain(
+        *(lin[k] for k in ORDER), c["mu"], c["rows"])
+    X, U, x0 = (_repeat(c[k], Bw) for k in ("X", "U", "x0"))
+    params = {k: _repeat(v, Bw) for k, v in c["params"].items()}
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(X, U, params) + s.opts.defect_weight * D
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=X.device)
+
+    def args(dtype, cast=None):
+        t = lambda a: a.to(dtype).contiguous()
+        out = (t(x0), t(X), t(U), t(ks), t(Ks), t(lin["Sx"]), t(lin["Bs"]),
+               t(lin["d"]), t(alphas), {k: t(v) for k, v in params.items()},
+               t(merit0), t(D), t(dV1), t(dV2))
+        if cast is not None:
+            out = tuple({k: v.to(cast) for k, v in a.items()}
+                        if isinstance(a, dict) else a.to(cast) for a in out)
+        return out + (s.terms, s.rows, c["ocp"].dt, s._wc(torch.float64),
+                      s.opts.defect_weight, s.opts.beta,
+                      s.opts.alpha_converge_threshold)
+
+    ref = k13.linear_trial_plain(*args(torch.float64))
+    n0 = k13.linear_trial.launches
+    got = k13.linear_trial(*args(torch.float64))
+    torch.cuda.synchronize()
+    assert k13.linear_trial.launches == n0 + 1
+    for g, r in zip(got[:4], ref[:4]):
+        assert g.shape == r.shape and _rel(g, r) <= 1e-9
+    assert torch.equal(got[4], ref[4])
+    got32 = k13.linear_trial(*args(torch.float32))
+    ref32 = k13.linear_trial_plain(*args(torch.float32, torch.float64))
+    for g, r in zip(got32[:4], ref32[:4]):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+def test_modes_kernels_refuse_other_shapes(quad_case):
+    """K12 and K13 are compiled for K1's SRBD and LIP shapes only: the
+    quadruped's sizes raise ValueError before any launch."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = quad_case
+    args = tuple(c["lin"][k].contiguous() for k in ORDER)
+    n0 = k12.riccati_associative.launches
+    with pytest.raises(ValueError):
+        k12.riccati_associative(*args, c["mu"], c["rows"])
+    assert k12.riccati_associative.launches == n0
+    with pytest.raises(ValueError):
+        k13.family_index(c["solver"].terms, 37, 24, c["rows"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_modes_occupancy(card_case, lip_case, dtype):
+    """Each phase of K12, and K13, report at least one block an SM."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    for c, (nx, nu, nt) in ((card_case, (37, 24, 15)), (lip_case, (30, 15, 10))):
+        for solver in ("schur", "cholesky"):
+            occ = k12.occupancy(nx, nu, nt, c["rows"], solver, dtype)
+            assert min(v for k, v in occ.items() if "blocks" in k) >= 1
+    for fam in ("srbd", "lip"):
+        assert k13.occupancy(fam, dtype)["blocks_per_sm"] >= 1

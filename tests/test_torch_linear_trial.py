@@ -1,0 +1,143 @@
+"""PyTorch port, K13's plain twin (`linear_trial_plain`, the trial of the
+linearized forward pass under `forward_pass="linear"`) in float64 on the
+CPU, against the JAX package's trial closure of `_parallel_line_search`
+(msddp.py:1507-1531) composed of its own methods — `_forward_linear`,
+`_true_defects`, `total_cost` and the Armijo test — at 4 step sizes on the
+same drawn iterate, x0, gains and merit, on the Kangaroo SRBD problem and
+on the LIP: plans, costs and merits to 1e-9 relative (read: ≤ 1e-13), the
+flags equal. The twin's affine scan is JAX's tree; the kernel's node-order
+recursion is held to the twin on the card (chip_smoke.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import max_rel_err, np_of, problems, solvers, to_jax, to_torch
+from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
+from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
+from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
+from srbd_horizon_tpu.problems.lip import build_lip_problem as j_build_lip
+from srbd_horizon_tpu.solvers.msddp import MSDDP as JMSDDP
+from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+torch.set_num_threads(1)
+
+ALPHAS = np.array([1.0, 0.5, 0.25, 0.125])
+FAMILIES = ["srbd", "lip"]
+OPTS = dict(alpha_converge_threshold=1e-12, beta=1e-3)
+
+
+def _pair(family):
+    if family == "srbd":
+        jp, tp = problems()
+        js, ts = solvers(jp, tp)
+        return js, ts, jp
+    jp = j_build_lip(JSRBDConfig(dtype=jnp.float64), j_feet())
+    tp = build_lip_problem(SRBDConfig(dtype=torch.float64), kangaroo_line_feet(),
+                           device="cpu")
+    return (JMSDDP(jp.ocp, JDDPOptions(**OPTS)),
+            MSDDP(tp.ocp, DDPOptions(**OPTS)), jp)
+
+
+def _jax_trials(js, x0, X, U, ks, Ks, lin, params, D, dV1, dV2):
+    """`_parallel_line_search`'s trial under forward_pass="linear", vmapped
+    over the step sizes, from the JAX solver's own methods: a jitted
+    function of merit0."""
+    opts = js.opts
+    nu = jnp.asarray(opts.defect_weight, X.dtype)
+
+    def trial(a, merit0):
+        Xn, Un = js._forward_linear(x0, X, U, ks, Ks, lin, params, a)
+        dn = js._true_defects(Xn, Un, params)
+        D_new = jnp.sum(dn * dn)
+        new_cost = js.total_cost(Xn, Un, params)
+        new_merit = new_cost + nu * D_new
+        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu * D
+        ok = (
+            ((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
+            & jnp.isfinite(new_merit)
+            & (a >= opts.alpha_converge_threshold)
+        )
+        return Xn, Un, new_cost, new_merit, ok
+
+    return jax.jit(jax.vmap(trial, in_axes=(0, None)))
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def trials(request):
+    js, ts, jp = _pair(request.param)
+    rng = np.random.RandomState(5)
+    ns, nx, nu = jp.ocp.ns, jp.ocp.nx, jp.ocp.nu
+    X = np.asarray(jp.initial_state)[None] + 0.05 * rng.randn(ns + 1, nx)
+    U = np.asarray(jp.static_input)[None] + 0.1 * rng.randn(ns, nu)
+    x0 = X[0] + 0.01 * rng.randn(nx)
+    params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
+    jlin = jax.jit(js._linearize)(to_jax(X), to_jax(U), to_jax(params))
+    ks, Ks, dV1, dV2 = jax.jit(js._backward)(jlin, jnp.asarray(1e-6))
+    D = jnp.sum(jlin["d"] * jlin["d"])
+    merit0 = js.total_cost(to_jax(X), to_jax(U), to_jax(params)) + 1e5 * D
+    jtrial = _jax_trials(js, to_jax(x0), to_jax(X), to_jax(U), ks, Ks, jlin,
+                         to_jax(params), D, dV1, dV2)
+    jres = jtrial(jnp.asarray(ALPHAS), merit0)
+    # a second merit0 between the merits of α = 1/2 and 1/4: the larger
+    # steps pass the Armijo test, the smaller fail it
+    merit_mid = 0.5 * (jres[3][1] + jres[3][2])
+    p1 = {k: v[None] for k, v in to_torch(params).items()}
+    lin = ts._linearize_sliced(to_torch(X)[None], to_torch(U)[None], p1)
+    t1 = lambda a: to_torch(np.asarray(a))[None]
+    out = {}
+    for key, m0 in (("iterate", merit0), ("mid", merit_mid)):
+        tres = k13.linear_trial(
+            t1(x0), t1(X), t1(U), t1(ks), t1(Ks), lin["Sx"], lin["Bs"],
+            lin["d"], to_torch(ALPHAS), p1, t1(m0), t1(D), t1(dV1), t1(dV2),
+            ts.terms, ts.rows, ts.ocp.dt, ts._wc(torch.float64),
+            ts.opts.defect_weight, ts.opts.beta,
+            ts.opts.alpha_converge_threshold)
+        out[key] = (jres if key == "iterate"
+                    else jtrial(jnp.asarray(ALPHAS), m0), tres)
+    return out
+
+
+@pytest.mark.parametrize("merit0", ["iterate", "mid"])
+def test_twin_matches_jax_trial(trials, merit0):
+    jres, tres = trials[merit0]
+    for name, got, want in zip(("Xn", "Un", "cost", "merit"), tres, jres):
+        got = np_of(got)[:, 0]
+        want = np.asarray(want)
+        assert got.shape == want.shape, name
+        assert max_rel_err(got, want) < 1e-9, (name, max_rel_err(got, want))
+    np.testing.assert_array_equal(np_of(tres[4])[:, 0], np.asarray(jres[4]))
+
+
+def test_trial_flags_take_both_values(trials):
+    """From the iterate's merit every step passes; from the mid merit the
+    two larger steps pass and the two smaller fail, so the flags'
+    comparison above holds the Armijo rule both ways."""
+    np.testing.assert_array_equal(np.asarray(trials["iterate"][0][4]),
+                                  [True] * 4)
+    np.testing.assert_array_equal(np.asarray(trials["mid"][0][4]),
+                                  [True, True, False, False])
+
+
+def test_linear_trial_refuses_other_problems():
+    """The kernel is compiled for the Kangaroo SRBD and the LIP only: the
+    quadruped's SRBD problem gets ValueError from the family check (the
+    solver turns it into its NotImplementedError)."""
+    from srbd_horizon_tpu_torch.config import SRBDConfig as TCfg
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+
+    qp = build_srbd_problem(TCfg(dtype=torch.float64, contact_model=1,
+                                 number_of_legs=4), quadruped_point_feet(),
+                            device="cpu")
+    qs = MSDDP(qp.ocp, DDPOptions())
+    with pytest.raises(ValueError):
+        k13.family_index(qs.terms, qp.ocp.nx, qp.ocp.nu, qs.rows)
+    _, ts, _ = _pair("srbd")
+    assert k13.family_index(ts.terms, 37, 24, ts.rows) == 0

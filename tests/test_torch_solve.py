@@ -147,8 +147,8 @@ def test_backtracking_fan_matches_jax(compact):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("riccati_mode", "associative", NotImplementedError),
-    ("forward_pass", "linear", NotImplementedError),
+    ("riccati_mode", "parallel", ValueError),
+    ("forward_pass", "affine", ValueError),
     ("analytic_jacobians", True, NotImplementedError),
     ("backward_pair_nodes", True, ValueError),
     ("linearize_fused_backward", True, ValueError),
