@@ -238,10 +238,32 @@ parallel, into build/kernels/), then:
     on the card; `modes_card_vs_cpu`: float64, the single SRBD under
     associative/linear (5 ticks) and the fleet at B=8 with 0.005·N(0,1)
     pushes (3 ticks): iterations equal, plans, x, u0 and cost to 1e-9.
+    Then the same kernels at the other shapes (`modes_shapes_section`):
+    `modes_check` for K12 at the quadruped's SRBD shape (both gain solves)
+    and at the two isrbd-AL shapes (Cholesky) and K13's quadruped and
+    isrbd-AL families (RK2 defects) at B = 1, 8 and 512 / 256, on iterates
+    drawn as above (K4) and on drawn AL points with active cones and boxes
+    (`draw_isrbd_point`, K5), by the same rules; `modes_times` and
+    `k12_vs_k1_tassa` at those B (the AL shapes against K1-Tassa-Cholesky);
+    the paths under associative/linear: the quadruped trot (B=1, 40 ticks,
+    10 with Cholesky gains; phase 11's height and progress gates), its fleet
+    (B=512, 3 + 20 ticks), the isrbd example's single constrained robot
+    (offline solve and 20 `solve_online` ticks, again under
+    associative/nonlinear so that K6 follows a K12 sweep), the constrained
+    fleet at the round-5 serving point (B=256, 1 + 60 + 20 ticks) in
+    float64 with `window_viol_max` < 1e-2 and in float32 reported (the
+    JAX package's own float32 fleet leaves the constraints under these
+    modes, tests/modes_fleet_reference.py), the constrained quadruped trot
+    (B=1, offline solve and 40 ticks, phase 12's gates) and its fleet
+    (B=256, 1 + 60 + 20 ticks, `window_viol_max` < 1e-2), each gated as
+    above with K7/K8 once an outer, K8a once a shift, K8c once a prior
+    update; `modes_card_vs_cpu` for the single constrained robot (offline
+    solve and 3 ticks) and the AL fleet at B=8 (seed and 3 ticks): float64,
+    iterations equal, plans, multipliers, ρ and cost to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-forty-two rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+forty-nine rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -250,7 +272,9 @@ srbd_evaluate and K1's collapsed and Tassa instantiations at the
 quadruped's shape, and the constrained quadruped rows of phase 12: K5,
 K1 collapsed and Tassa-Cholesky, K6, isrbd_evaluate, K7, K8a, K8b and K8c
 at its AL shape, and the rows of phase 13: K12 at the SRBD and LIP shapes
-with each gain solve, K13 for the SRBD problem and the LIP); the last
+with each gain solve, K13 for the SRBD problem and the LIP, K12 at the
+quadruped's shape with each gain solve and at the two AL shapes with
+Cholesky, K13 for the quadruped and both AL inner problems); the last
 line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -1132,6 +1156,47 @@ def count_al_twins():
     from srbd_horizon_tpu_torch.kernels import isrbd_al
 
     return count_calls(((isrbd_al, isrbd_al.PLAIN_TWINS),))
+
+
+def count_solver_calls(*solvers):
+    """Count the MSDDP solvers' iterations (`_iteration`, one a single or
+    `vmap(solve)` iteration, and `_iteration_batch`), trials (`_trial`,
+    also by kind: with the linearization, the linear pass, or without it,
+    the rollout) and solves (either entry) in `n`; returns `n` and a
+    function that restores the solvers."""
+    n = {"iterations": 0, "trials": 0, "linear_trials": 0,
+         "rollout_trials": 0, "solves": 0}
+    saved = []
+
+    def wrap(fn, key):
+        def counted(*a, **kw):
+            n[key] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def trial(fn):
+        def counted(*a):
+            n["trials"] += 1
+            linear = len(a) > 12 and a[12] is not None
+            n["linear_trials" if linear else "rollout_trials"] += 1
+            return fn(*a)
+        return counted
+
+    for s in solvers:
+        saved.append((s, s._iteration, s._iteration_batch, s._trial, s.solve,
+                      s.solve_batch))
+        s._iteration = wrap(s._iteration, "iterations")
+        s._iteration_batch = wrap(s._iteration_batch, "iterations")
+        s._trial = trial(s._trial)
+        s.solve = wrap(s.solve, "solves")
+        s.solve_batch = wrap(s.solve_batch, "solves")
+
+    def restore():
+        for s, it, itb, tr, so, sb in saved:
+            s._iteration, s._iteration_batch, s._trial = it, itb, tr
+            s.solve, s.solve_batch = so, sb
+
+    return n, restore
 
 
 def guard_plain(twins, al=False):
@@ -2281,34 +2346,13 @@ def quadruped_section(card, dev, sms):
                 "srbd_trial": k3.srbd_trial.launches,
                 "srbd_evaluate": k3.srbd_evaluate.launches}
 
-    def counting(loop):
-        """Count the solver's trials and solves (either entry) in `n`;
-        returns the counter and a function that restores the solver."""
-        n = {"trials": 0, "solves": 0}
-        s = loop.solver
-        saved = (s._trial, s.solve, s.solve_batch)
-
-        def wrap(fn, key):
-            def counted(*a):
-                n[key] += 1
-                return fn(*a)
-            return counted
-
-        s._trial = wrap(saved[0], "trials")
-        s.solve, s.solve_batch = wrap(saved[1], "solves"), wrap(saved[2], "solves")
-
-        def restore():
-            s._trial, s.solve, s.solve_batch = saved
-
-        return n, restore
-
     hand = lambda L: (L["srbd_linearize"] + L["riccati_backward"]
                       + L["srbd_trial"] + L["srbd_evaluate"])
     ploop, pprob = build_quadruped_loop(cfg(f32), device=dev)
     sched = walking_schedule(40, vx=0.25, start=10, device=dev)
     z0 = float(pprob.initial_state[2])
     guards, restore_guards = guard_plain(QUAD_TWINS)
-    n, restore_count = counting(ploop)
+    n, restore_count = count_solver_calls(ploop.solver)
     carry = ploop.init(pprob.initial_state)
     syncs0 = ploop.solver.host_syncs
     outs, tms = [], []
@@ -2442,7 +2486,7 @@ def quadruped_section(card, dev, sms):
     # ---- quad_fleet_path: MPCLoop.tick_batch at B=512, float32 ----
     def run_fleet(Bsz, warm, timed):
         loop, c, inp = fleet(Bsz, f32, dev)
-        cnt, restore = counting(loop)
+        cnt, restore = count_solver_calls(loop.solver)
         for _ in range(warm):
             c, _ = loop.tick_batch(c, inp)
         torch.cuda.synchronize()
@@ -2842,34 +2886,6 @@ def quadruped_constrained_section(card, dev, sms):
         out["riccati_backward_isrbd_al_quadruped_tassa_cholesky"] = il[i_chol]
         return out
 
-    def counting(*inners):
-        """Count the inner solvers' iterations, trials and solves (either
-        entry) in `n`; returns the counter and a function that restores."""
-        n = {"iterations": 0, "trials": 0, "solves": 0}
-        saved = []
-        for s in inners:
-            saved.append((s, s._iteration, s._iteration_batch, s._trial,
-                          s.solve, s.solve_batch))
-
-            def wrap(fn, key):
-                def counted(*a, **kw):
-                    n[key] += 1
-                    return fn(*a, **kw)
-                return counted
-
-            s._iteration = wrap(s._iteration, "iterations")
-            s._iteration_batch = wrap(s._iteration_batch, "iterations")
-            s._trial = wrap(s._trial, "trials")
-            s.solve, s.solve_batch = (wrap(s.solve, "solves"),
-                                      wrap(s.solve_batch, "solves"))
-
-        def restore():
-            for s, it, itb, tr, so, sb in saved:
-                s._iteration, s._iteration_batch, s._trial = it, itb, tr
-                s.solve, s.solve_batch = so, sb
-
-        return n, restore
-
     def trot_wpg(dtype, device):
         return WalkingPatternGenerator.build(
             0.0, ns, dtype=dtype, device=device, group_mask=trot_group_mask(),
@@ -2886,7 +2902,7 @@ def quadruped_constrained_section(card, dev, sms):
         _, on = solvers(dtype, device, 1)
         wpg = trot_wpg(dtype, device)
         sync = torch.cuda.synchronize if timed else (lambda: None)
-        n, restore = counting(off.inner, on.inner)
+        n, restore = count_solver_calls(off.inner, on.inner)
         x0 = prob.initial_state
         U0 = prob.static_input[None].expand(ns, -1).contiguous()
         sync()
@@ -3047,7 +3063,7 @@ def quadruped_constrained_section(card, dev, sms):
         still = torch.zeros(Bsz, 3, dtype=f32, device=dev)
         go = torch.tensor([[QC_VX, 0.0, 0.0]], dtype=f32, device=dev).expand(
             Bsz, -1).contiguous()
-        n, restore = counting(on.inner, off.inner)
+        n, restore = count_solver_calls(on.inner, off.inner)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = off.solve_batch(off.init(x0, U0), x0, params)
@@ -3282,6 +3298,267 @@ def k12_phase_ms(call, reps=5):
     return out
 
 
+def modes_sub(t, Bw):
+    """The first Bw members of `t` (of each tensor, for a dict), or its
+    members repeated up to Bw."""
+    import torch
+
+    if isinstance(t, dict):
+        return {k: modes_sub(v, Bw) for k, v in t.items()}
+    n = t.shape[0]
+    return (t[:Bw] if Bw <= n
+            else torch.cat([t] * -(-Bw // n))[:Bw]).contiguous()
+
+
+def modes_k12_args(p, Bw, dtype):
+    """K12's sliced linearization of the drawn point `p` (a `pts` entry of
+    the modes sections) at Bw members in `dtype`."""
+    return tuple(modes_sub(p["lin"][k], Bw).to(dtype) for k in ORDER)
+
+
+def modes_k13_args(p, Bw, dtype, nA, cast=None):
+    """K13's arguments at Bw members in `dtype` (then cast to `cast`), with
+    √w_c of float64 throughout; the float32 twin takes the float32
+    problem's terms."""
+    import torch
+
+    s = p["s32"] if dtype == torch.float32 and cast is None else p["s"]
+    t = lambda a: modes_sub(a, Bw).to(dtype)
+    al = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=dtype,
+                      device=p["X"].device)
+    out = (t(p["x0"]), t(p["X"]), t(p["U"]), t(p["gains"][0]),
+           t(p["gains"][1]), t(p["lin"]["Sx"]), t(p["lin"]["Bs"]),
+           t(p["lin"]["d"]), al, {k: t(v) for k, v in p["params"].items()},
+           t(p["merit0"]), t(p["D"]), t(p["gains"][2]), t(p["gains"][3]))
+    if cast is not None:
+        out = tuple({k: v.to(cast) for k, v in a.items()}
+                    if isinstance(a, dict) else a.to(cast) for a in out)
+    return out + (s.terms, s.rows, p["ocp"].dt, p["s"]._wc(torch.float64),
+                  s.opts.defect_weight, s.opts.beta,
+                  s.opts.alpha_converge_threshold)
+
+
+def modes_k12_check(p, sv, sizes, card):
+    """`modes_check` of K12 at the point `p` with the gain solve `sv`:
+    float64 against the float64 twin (`rel_err` ≤ K12_F64_TOL; the entry by
+    entry figure printed), float32 against the float64 twin on the same
+    float32 inputs (`err1` ≤ MODES_F32_TOL); fails beyond either."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    f64, f32 = torch.float64, torch.float32
+    mu, rows = p["s"].opts.mu0, p["s"].rows
+    e = dict(e64={}, e64_entrywise={}, e32={}, p32={}, abs32=0.0,
+             f32_rule="err1: |kernel - twin| / max(1, |twin|)")
+    for Bw in sizes:
+        a64 = modes_k12_args(p, Bw, f64)
+        ref = k12.riccati_associative_plain(*a64, mu, rows, sv)
+        got = k12.riccati_associative(*a64, mu, rows, sv)
+        a32 = modes_k12_args(p, Bw, f32)
+        got32 = k12.riccati_associative(*a32, mu, rows, sv)
+        ref32 = k12.riccati_associative_plain(*(a.double() for a in a32), mu,
+                                              rows, sv)
+        plain32 = k12.riccati_associative_plain(*a32, mu, rows, sv)
+        torch.cuda.synchronize()
+        for name, g64, r64, g32, r32, q32 in zip(SWEEP_OUT, got, ref, got32,
+                                                 ref32, plain32):
+            key = f"{name}_B{Bw}"
+            e["e64"][key] = rel_err(g64, r64)
+            e["e64_entrywise"][key] = err1(g64, r64)
+            e["e32"][key] = err1(g32, r32)
+            e["p32"][key] = err1(q32, r32)
+            e["abs32"] = max(e["abs32"], abs_err(g32, r32))
+    emit("modes_check", kernel="riccati_associative", shape=p["fam"],
+         quu_solver=sv, sizes=sizes, tol_f64=K12_F64_TOL,
+         tol_f32=MODES_F32_TOL, card=card, **e)
+    if max(e["e64"].values()) > K12_F64_TOL:
+        fail(f"K12 ({p['fam']}, {sv}) disagrees with its twin in float64: "
+             f"{e['e64']}")
+    if max(e["e32"].values()) > MODES_F32_TOL:
+        fail(f"K12 ({p['fam']}, {sv}) disagrees with its twin in float32: "
+             f"{e['e32']}")
+    return e
+
+
+def modes_k13_check(p, sizes, card):
+    """`modes_check` of K13 at the point `p`, 1 and 4 α: float64 to 1e-9
+    with the flags equal, float32 by K12's rule; fails beyond either."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+
+    f64, f32 = torch.float64, torch.float32
+    e = dict(e64={}, e32={}, p32={}, abs32=0.0, flags_equal=True,
+             f32_rule="err1: |kernel - twin| / max(1, |twin|)")
+    for nA in (1, 4):
+        for Bw in sizes:
+            ref = k13.linear_trial_plain(*modes_k13_args(p, Bw, f64, nA))
+            got = k13.linear_trial(*modes_k13_args(p, Bw, f64, nA))
+            got32 = k13.linear_trial(*modes_k13_args(p, Bw, f32, nA))
+            ref32 = k13.linear_trial_plain(*modes_k13_args(p, Bw, f32, nA,
+                                                           f64))
+            plain32 = k13.linear_trial_plain(*modes_k13_args(p, Bw, f32, nA))
+            torch.cuda.synchronize()
+            e["flags_equal"] &= bool(torch.equal(got[4], ref[4]))
+            for name, g64, r64, g32, r32, q32 in zip(TRIAL_OUT, got, ref,
+                                                     got32, ref32, plain32):
+                key = f"{name}_B{Bw}_{nA}alpha"
+                e["e64"][key] = rel_err(g64, r64)
+                e["e32"][key] = err1(g32, r32)
+                e["p32"][key] = err1(q32, r32)
+                e["abs32"] = max(e["abs32"], abs_err(g32, r32))
+    emit("modes_check", kernel="linear_trial", family=p["fam"], sizes=sizes,
+         tol_f64=1e-9, tol_f32=MODES_F32_TOL, card=card, **e)
+    if max(e["e64"].values()) > 1e-9 or not e["flags_equal"]:
+        fail(f"K13 ({p['fam']}) disagrees with its twin in float64: "
+             f"{e['e64']}, flags equal {e['flags_equal']}")
+    if max(e["e32"].values()) > MODES_F32_TOL:
+        fail(f"K13 ({p['fam']}) disagrees with its twin in float32: "
+             f"{e['e32']}")
+    return e
+
+
+def modes_k12_times(p, sv, sizes, serving_B, k1_solver):
+    """K12's float32 times at `sizes` (B_LARGE and beyond: 3 reps) beside
+    K1's Tassa form with the gain solve `k1_solver` in the same call, with
+    bytes, FLOPs and the bound at the FP64 tensor-core rate; the plain
+    twin at B=1 and `serving_B`; `torch.linalg.solve` on the scan's stack
+    of (I + C₁J₂) systems and the phases (profiler) at those two B; the
+    shared memory and blocks an SM of each phase."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    f64, f32 = torch.float64, torch.float32
+    ocp, rows, mu, nt = p["ocp"], p["s"].rows, p["s"].opts.mu0, p["nt"]
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    n_comb = sum(len(st) for st in k12.scan_plan(ns)[0])
+    row_sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+                 len(rows.bx), len(rows.uc))
+    t = dict(launches_per_sweep=k12.launches_per_sweep(ns), combines=n_comb,
+             k1_tassa_quu_solver=k1_solver,
+             occupancy_f32=k12.occupancy(nx, nu, nt, rows, sv, f32),
+             occupancy_f64=k12.occupancy(nx, nu, nt, rows, sv, f64), by_B={})
+    for Bw in sizes:
+        a32 = modes_k12_args(p, Bw, f32)
+        reps = 10 if Bw < B_LARGE else 3
+        ms12 = cuda_ms(lambda: k12.riccati_associative(*a32, mu, rows, sv),
+                       reps=reps)
+        ms1 = cuda_ms(lambda: k1.riccati_backward(
+            *a32, mu, rows, form="tassa", quu_solver=k1_solver), reps=reps)
+        out = k12.riccati_associative(*a32, mu, rows, sv)
+        nb = nbytes(*a32, rows.packed(a32[0].device), *out)
+        fl = k12_flops(Bw, ns, nx, nu, nt, *row_sizes, sv, n_comb)
+        bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
+        t["by_B"][Bw] = dict(ms=ms12, k1_tassa_ms=ms1, bytes=nb, flop=fl,
+                             bound_ms=bms, bound_by=by)
+    for Bw in (1, serving_B):
+        a32 = modes_k12_args(p, Bw, f32)
+        t["by_B"][Bw]["plain_ms"] = cuda_ms(
+            lambda: k12.riccati_associative_plain(*a32, mu, rows, sv),
+            reps=2, warmup=1)
+    systems = []
+    solve_fn = torch.linalg.solve
+    torch.linalg.solve = lambda A, b: systems.append((A, b)) or solve_fn(A, b)
+    try:
+        k12.riccati_associative_plain(*modes_k12_args(p, serving_B, f64), mu,
+                                      rows, sv)
+    finally:
+        torch.linalg.solve = solve_fn
+    A = torch.cat([a for a, _ in systems]).contiguous()
+    b = torch.cat([r for _, r in systems]).contiguous()
+    del systems
+    t["linalg_solve_stack"] = list(A.shape) + [b.shape[-1]]
+    t["linalg_solve_ms_f64"] = cuda_ms(lambda: torch.linalg.solve(A, b),
+                                       reps=5)
+    del A, b
+    t["phases"] = {str(Bw): k12_phase_ms(
+        lambda: k12.riccati_associative(*modes_k12_args(p, Bw, f32), mu,
+                                        rows, sv)) for Bw in (1, serving_B)}
+    return t
+
+
+def modes_k13_times(p, nA, sizes, serving_B):
+    """K13's float32 times at `sizes` with `nA` step sizes, bytes (the
+    family's parameter tensors included), FLOPs (the family's trial plus
+    the recursion) and the bound; the plain twin at B=1 and `serving_B`;
+    the kernel's occupancy."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+
+    f32 = torch.float32
+    ocp, s, rows, fam = p["ocp"], p["s"], p["s"].rows, p["fam"]
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    t = dict(occupancy_f32=k13.occupancy(fam, f32), by_B={})
+    for Bw in sizes:
+        a32 = modes_k13_args(p, Bw, f32, nA)
+        ms13 = cuda_ms(lambda: k13.linear_trial(*a32), reps=20)
+        out = k13.linear_trial(*a32)
+        ins = [x for x in a32[:14] if isinstance(x, torch.Tensor)]
+        dev = a32[0].device
+        if fam in ("srbd", "quadruped"):
+            pt = k4.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
+            fam_fl = trial_flops(Bw, ns, nx, nu, s.terms.nc, s.terms.n_rho, nA)
+        elif fam == "lip":
+            pt = k10.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
+            fam_fl = lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA)
+        else:
+            pt = k5.kernel_params(a32[9], Bw, ns, s.terms, f32, dev)
+            fam_fl = isrbd_trial_flops(Bw, ns, nx, nu, s.terms.outer.nc,
+                                       s.terms.n_rho, s.terms.n_term, nA)
+        nb = nbytes(*ins, *pt, rows.packed(dev), *out)
+        fl = k13_flops(fam_fl, Bw, ns, nx, len(rows.rx), len(rows.ru),
+                       len(rows.uc), nA)
+        bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
+        t["by_B"][Bw] = dict(ms=ms13, bytes=nb, flop=fl, bound_ms=bms,
+                             bound_by=by)
+    for Bw in (1, serving_B):
+        a32 = modes_k13_args(p, Bw, f32, nA)
+        t["by_B"][Bw]["plain_ms"] = cuda_ms(
+            lambda: k13.linear_trial_plain(*a32), reps=2, warmup=1)
+    return t
+
+
+def modes_k12_row(name, t, err, launches, serving_B, **extra):
+    """A K12 row of the `kernels` line: B=1 times, the serving B's bound,
+    plain and `torch.linalg.solve` figures, K1-Tassa's times beside."""
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    b1, bs = t["by_B"][1], t["by_B"][serving_B]
+    return dict(kernel_row(
+        name, k12, launches, b1["ms"], b1["plain_ms"], b1["bound_ms"],
+        b1["bound_by"], err, MODES_F32_TOL, B=1,
+        kernel_launches_per_sweep=t["launches_per_sweep"],
+        ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
+        k1_tassa_ms_by_B={str(b): v["k1_tassa_ms"]
+                          for b, v in t["by_B"].items()},
+        k1_tassa_quu_solver=t["k1_tassa_quu_solver"],
+        bound_ms_serving_B=bs["bound_ms"], plain_ms_serving_B=bs["plain_ms"],
+        torch_linalg_solve_ms_f64_serving_B=t["linalg_solve_ms_f64"],
+        torch_linalg_solve_stack=t["linalg_solve_stack"],
+        **t["occupancy_f32"], **extra), tol_f64=K12_F64_TOL)
+
+
+def modes_k13_row(name, t1, t4, err, launches, serving_B, **extra):
+    """A K13 row of the `kernels` line: one α at B=1, four α beside."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+
+    b1, bs = t1["by_B"][1], t1["by_B"][serving_B]
+    return kernel_row(
+        name, k13, launches, b1["ms"], b1["plain_ms"], b1["bound_ms"],
+        b1["bound_by"], err, MODES_F32_TOL, B=1, alphas=1,
+        ms_by_B={str(b): v["ms"] for b, v in t1["by_B"].items()},
+        ms_4alpha_by_B={str(b): v["ms"] for b, v in t4["by_B"].items()},
+        bound_ms_serving_B=bs["bound_ms"], plain_ms_serving_B=bs["plain_ms"],
+        **t1["occupancy_f32"], **extra)
+
+
 def modes_section(card, dev, sms):
     """Phase 13: the JAX package's other execution modes on the port —
     `riccati_mode="associative"` (K12, csrc/riccati_associative.cu) and
@@ -3361,181 +3638,25 @@ def modes_section(card, dev, sms):
         merit0 = s64.total_cost(X, U, params) + s64.opts.defect_weight * D
         pts[fam] = dict(s=s64, s32=s32, ocp=ocp, lin=lin, X=X, U=U, x0=x0,
                         params=params, gains=(ks, Ks, dV1, dV2), D=D,
-                        merit0=merit0, nt=lin["Jt"].shape[1])
-
-    def sub(t, Bw):
-        """The first Bw members, or the members repeated up to Bw."""
-        if isinstance(t, dict):
-            return {k: sub(v, Bw) for k, v in t.items()}
-        n = t.shape[0]
-        return (t[:Bw] if Bw <= n
-                else torch.cat([t] * -(-Bw // n))[:Bw]).contiguous()
-
-    def k12_args(fam, Bw, dtype):
-        lin = pts[fam]["lin"]
-        return tuple(sub(lin[k], Bw).to(dtype) for k in ORDER)
-
-    def k13_args(fam, Bw, dtype, nA, cast=None):
-        """K13's arguments at Bw members in `dtype` (then cast to `cast`),
-        with √w_c of float64 throughout; the float32 twin takes the float32
-        problem's terms."""
-        p = pts[fam]
-        s = p["s32"] if dtype == f32 and cast is None else p["s"]
-        t = lambda a: sub(a, Bw).to(dtype)
-        al = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=dtype, device=dev)
-        out = (t(p["x0"]), t(p["X"]), t(p["U"]), t(p["gains"][0]),
-               t(p["gains"][1]), t(p["lin"]["Sx"]), t(p["lin"]["Bs"]),
-               t(p["lin"]["d"]), al,
-               {k: t(v) for k, v in p["params"].items()}, t(p["merit0"]),
-               t(p["D"]), t(p["gains"][2]), t(p["gains"][3]))
-        if cast is not None:
-            out = tuple({k: v.to(cast) for k, v in a.items()}
-                        if isinstance(a, dict) else a.to(cast) for a in out)
-        return out + (s.terms, s.rows, p["ocp"].dt, p["s"]._wc(f64),
-                      s.opts.defect_weight, s.opts.beta,
-                      s.opts.alpha_converge_threshold)
+                        merit0=merit0, nt=lin["Jt"].shape[1], fam=fam)
 
     # ---- modes_check: K12 and K13 against their twins ----
     errs = {}
     for fam in fams:
-        p = pts[fam]
-        mu, rows = p["s"].opts.mu0, p["s"].rows
         for sv in solvers:
-            e = dict(e64={}, e64_entrywise={}, e32={}, p32={}, abs32=0.0,
-                     f32_rule="err1: |kernel - twin| / max(1, |twin|)")
-            for Bw in MODES_SIZES:
-                a64 = k12_args(fam, Bw, f64)
-                ref = k12.riccati_associative_plain(*a64, mu, rows, sv)
-                got = k12.riccati_associative(*a64, mu, rows, sv)
-                torch.cuda.synchronize()
-                a32 = k12_args(fam, Bw, f32)
-                got32 = k12.riccati_associative(*a32, mu, rows, sv)
-                ref32 = k12.riccati_associative_plain(
-                    *(a.double() for a in a32), mu, rows, sv)
-                plain32 = k12.riccati_associative_plain(*a32, mu, rows, sv)
-                torch.cuda.synchronize()
-                for name, g64, r64, g32, r32, p32 in zip(
-                        SWEEP_OUT, got, ref, got32, ref32, plain32):
-                    key = f"{name}_B{Bw}"
-                    e["e64"][key] = rel_err(g64, r64)
-                    e["e64_entrywise"][key] = err1(g64, r64)
-                    e["e32"][key] = err1(g32, r32)
-                    e["p32"][key] = err1(p32, r32)
-                    e["abs32"] = max(e["abs32"], abs_err(g32, r32))
-            errs["k12", fam, sv] = e
-            emit("modes_check", kernel="riccati_associative", shape=fam,
-                 quu_solver=sv, sizes=MODES_SIZES, tol_f64=K12_F64_TOL,
-                 tol_f32=MODES_F32_TOL, card=card, **e)
-            if max(e["e64"].values()) > K12_F64_TOL:
-                fail(f"K12 ({fam}, {sv}) disagrees with its twin in float64: "
-                     f"{e['e64']}")
-            if max(e["e32"].values()) > MODES_F32_TOL:
-                fail(f"K12 ({fam}, {sv}) disagrees with its twin in float32: "
-                     f"{e['e32']}")
-        e = dict(e64={}, e32={}, p32={}, abs32=0.0, flags_equal=True,
-                 f32_rule="err1: |kernel - twin| / max(1, |twin|)")
-        for nA in (1, 4):
-            for Bw in MODES_SIZES:
-                ref = k13.linear_trial_plain(*k13_args(fam, Bw, f64, nA))
-                got = k13.linear_trial(*k13_args(fam, Bw, f64, nA))
-                got32 = k13.linear_trial(*k13_args(fam, Bw, f32, nA))
-                ref32 = k13.linear_trial_plain(*k13_args(fam, Bw, f32, nA, f64))
-                plain32 = k13.linear_trial_plain(*k13_args(fam, Bw, f32, nA))
-                torch.cuda.synchronize()
-                e["flags_equal"] &= bool(torch.equal(got[4], ref[4]))
-                for name, g64, r64, g32, r32, p32 in zip(
-                        TRIAL_OUT, got, ref, got32, ref32, plain32):
-                    key = f"{name}_B{Bw}_{nA}alpha"
-                    e["e64"][key] = rel_err(g64, r64)
-                    e["e32"][key] = err1(g32, r32)
-                    e["p32"][key] = err1(p32, r32)
-                    e["abs32"] = max(e["abs32"], abs_err(g32, r32))
-        errs["k13", fam] = e
-        emit("modes_check", kernel="linear_trial", family=fam,
-             sizes=MODES_SIZES, tol_f64=1e-9, tol_f32=MODES_F32_TOL,
-             card=card, **e)
-        if max(e["e64"].values()) > 1e-9 or not e["flags_equal"]:
-            fail(f"K13 ({fam}) disagrees with its twin in float64: {e['e64']}, "
-                 f"flags equal {e['flags_equal']}")
-        if max(e["e32"].values()) > MODES_F32_TOL:
-            fail(f"K13 ({fam}) disagrees with its twin in float32: {e['e32']}")
+            errs["k12", fam, sv] = modes_k12_check(pts[fam], sv, MODES_SIZES,
+                                                   card)
+        errs["k13", fam] = modes_k13_check(pts[fam], MODES_SIZES, card)
 
     # ---- modes_times: K12 beside K1's Tassa form, K13; float32 ----
     times = {}
     probe = tuple(MODES_SIZES) + (B_LARGE,)
+    Bs = max(MODES_SIZES)
     for fam in fams:
-        p = pts[fam]
-        ocp, s, rows, mu, nt = p["ocp"], p["s"], p["s"].rows, p["s"].opts.mu0, p["nt"]
-        ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
-        n_comb = sum(len(st) for st in k12.scan_plan(ns)[0])
-        sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
-                 len(rows.bx), len(rows.uc))
         for sv in solvers:
-            t = dict(launches_per_sweep=k12.launches_per_sweep(ns),
-                     combines=n_comb, occupancy_f32=k12.occupancy(
-                         nx, nu, nt, rows, sv, f32),
-                     occupancy_f64=k12.occupancy(nx, nu, nt, rows, sv, f64),
-                     by_B={})
-            for Bw in probe:
-                a32 = k12_args(fam, Bw, f32)
-                ms12 = cuda_ms(lambda: k12.riccati_associative(*a32, mu, rows, sv),
-                               reps=10 if Bw < B_LARGE else 3)
-                ms1 = cuda_ms(lambda: k1.riccati_backward(
-                    *a32, mu, rows, form="tassa", quu_solver=sv),
-                    reps=10 if Bw < B_LARGE else 3)
-                out = k12.riccati_associative(*a32, mu, rows, sv)
-                nb = nbytes(*a32, rows.packed(dev), *out)
-                fl = k12_flops(Bw, ns, nx, nu, nt, *sizes, sv, n_comb)
-                bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
-                t["by_B"][Bw] = dict(ms=ms12, k1_tassa_ms=ms1, bytes=nb,
-                                     flop=fl, bound_ms=bms, bound_by=by)
-            # the plain twin at the single paths' B=1 and at B=512; and
-            # torch.linalg.solve on the scan's (I + C₁J₂) stack of B=512
-            for Bw in (1, max(MODES_SIZES)):
-                a32 = k12_args(fam, Bw, f32)
-                t["by_B"][Bw]["plain_ms"] = cuda_ms(
-                    lambda: k12.riccati_associative_plain(*a32, mu, rows, sv),
-                    reps=2, warmup=1)
-            systems = []
-            solve_fn = torch.linalg.solve
-            torch.linalg.solve = lambda A, b: systems.append((A, b)) or solve_fn(A, b)
-            try:
-                k12.riccati_associative_plain(*k12_args(fam, max(MODES_SIZES), f64), mu,
-                                              rows, sv)
-            finally:
-                torch.linalg.solve = solve_fn
-            A = torch.cat([a for a, _ in systems]).contiguous()
-            b = torch.cat([r for _, r in systems]).contiguous()
-            t["linalg_solve_stack"] = list(A.shape) + [b.shape[-1]]
-            t["linalg_solve_ms_f64"] = cuda_ms(lambda: torch.linalg.solve(A, b),
-                                               reps=5)
-            t["phases"] = {str(Bw): k12_phase_ms(
-                lambda: k12.riccati_associative(*k12_args(fam, Bw, f32), mu,
-                                                rows, sv)) for Bw in (1, 512)}
-            times["k12", fam, sv] = t
+            times["k12", fam, sv] = modes_k12_times(pts[fam], sv, probe, Bs, sv)
         for nA in (1, 4):
-            t = dict(occupancy_f32=k13.occupancy(fam, f32), by_B={})
-            for Bw in probe:
-                a32 = k13_args(fam, Bw, f32, nA)
-                ms13 = cuda_ms(lambda: k13.linear_trial(*a32), reps=20)
-                out = k13.linear_trial(*a32)
-                ins = [x for x in a32[:14] if isinstance(x, torch.Tensor)]
-                pt = (k4.kernel_params if fam == "srbd"
-                      else k10.kernel_params)(a32[9], Bw, ns, s.terms.nc, f32, dev)
-                nb = nbytes(*ins, *pt, rows.packed(dev), *out)
-                fam_fl = (trial_flops(Bw, ns, nx, nu, s.terms.nc,
-                                      s.terms.n_rho, nA) if fam == "srbd"
-                          else lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA))
-                fl = k13_flops(fam_fl, Bw, ns, nx, len(rows.rx), len(rows.ru),
-                               len(rows.uc), nA)
-                bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
-                t["by_B"][Bw] = dict(ms=ms13, bytes=nb, flop=fl, bound_ms=bms,
-                                     bound_by=by)
-            for Bw in (1, max(MODES_SIZES)):
-                a32 = k13_args(fam, Bw, f32, nA)
-                t["by_B"][Bw]["plain_ms"] = cuda_ms(
-                    lambda: k13.linear_trial_plain(*a32), reps=2, warmup=1)
-            times["k13", fam, nA] = t
+            times["k13", fam, nA] = modes_k13_times(pts[fam], nA, probe, Bs)
     emit("modes_times", card=card, dtype="float32",
          rate="FP64 tensor cores, 67 TFLOP/s (both compute in float64)",
          **{"_".join(map(str, k)): v for k, v in times.items()})
@@ -3931,41 +4052,855 @@ def modes_section(card, dev, sms):
                           ("lip", "schur", "riccati_associative_lip"),
                           ("lip", "cholesky",
                            "riccati_associative_lip_cholesky")):
-        t = times["k12", fam, sv]
         key = "riccati_associative" + ("_cholesky" if sv == "cholesky" else "")
         path_l = (L1 if fam == "srbd" else L2)[key]
         fleet_l = FL[key] if fam == "srbd" else 0
-        b1 = t["by_B"][1]
-        rows_out.append(dict(kernel_row(
-            name, k12, path_l + fleet_l, b1["ms"], b1["plain_ms"],
-            b1["bound_ms"], b1["bound_by"], errs["k12", fam, sv],
-            MODES_F32_TOL, B=1, quu_solver=sv, shape=fam,
-            launches_single_path=path_l, launches_fleet_path=fleet_l,
-            kernel_launches_per_sweep=t["launches_per_sweep"],
-            ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
-            k1_tassa_ms_by_B={str(b): v["k1_tassa_ms"]
-                              for b, v in t["by_B"].items()},
-            bound_ms_serving_B=t["by_B"][max(MODES_SIZES)]["bound_ms"],
-            plain_ms_serving_B=t["by_B"][max(MODES_SIZES)]["plain_ms"],
-            torch_linalg_solve_ms_f64_serving_B=t["linalg_solve_ms_f64"],
-            torch_linalg_solve_stack=t["linalg_solve_stack"],
-            **t["occupancy_f32"]), tol_f64=K12_F64_TOL))
+        rows_out.append(modes_k12_row(
+            name, times["k12", fam, sv], errs["k12", fam, sv],
+            path_l + fleet_l, Bs, quu_solver=sv, shape=fam,
+            launches_single_path=path_l, launches_fleet_path=fleet_l))
     for fam, name in (("srbd", "linear_trial"), ("lip", "linear_trial_lip")):
-        t1, t4 = times["k13", fam, 1], times["k13", fam, 4]
         path_l = (L1 if fam == "srbd" else L2)["linear_trial"]
         fleet_l = FL["linear_trial"] if fam == "srbd" else 0
-        b1 = t1["by_B"][1]
-        rows_out.append(kernel_row(
-            name, k13, path_l + fleet_l, b1["ms"], b1["plain_ms"],
-            b1["bound_ms"], b1["bound_by"], errs["k13", fam], MODES_F32_TOL,
-            B=1, alphas=1, family=fam, launches_single_path=path_l,
-            launches_fleet_path=fleet_l,
-            ms_by_B={str(b): v["ms"] for b, v in t1["by_B"].items()},
-            ms_4alpha_by_B={str(b): v["ms"] for b, v in t4["by_B"].items()},
-            bound_ms_serving_B=t1["by_B"][max(MODES_SIZES)]["bound_ms"],
-            plain_ms_serving_B=t1["by_B"][max(MODES_SIZES)]["plain_ms"],
-            **t1["occupancy_f32"]))
+        rows_out.append(modes_k13_row(
+            name, times["k13", fam, 1], times["k13", fam, 4],
+            errs["k13", fam], path_l + fleet_l, Bs, family=fam,
+            launches_single_path=path_l, launches_fleet_path=fleet_l))
     emit("modes_section", seconds=time.perf_counter() - t_section, card=card)
+    return rows_out
+
+
+
+# ---------------- the execution modes at the other shapes (phase 13) ----------
+
+# K12's instantiations and K13's families past the SRBD and LIP ones, and the
+# sizes they are checked and timed at (B = 1, 8 and the path's serving B)
+MODES_NEW_K12 = (("quadruped", "schur"), ("quadruped", "cholesky"),
+                 ("isrbd_al", "cholesky"), ("isrbd_al_quadruped", "cholesky"))
+MODES_NEW_K13 = ("quadruped", "isrbd_al", "isrbd_al_quadruped")
+MODES_SHAPE_SIZES = {"quadruped": (1, 8, B_MAIN),
+                     "isrbd_al": (1, 8, B_CONSTRAINED),
+                     "isrbd_al_quadruped": (1, 8, B_CONSTRAINED)}
+MODES_QUAD_VX = 0.25            # the quadruped example's trot command
+MODES_AL_TICKS = 20             # the isrbd example's online ticks
+
+
+def modes_shapes_section(card, dev, sms):
+    """Phase 13, continued: K12 and K13 at the point-feet quadruped's SRBD
+    shape and at the two isrbd-AL shapes (the AL solver's inner problem),
+    and the paths that reach them under the modes. `modes_check`: K12
+    (quadruped × both gain solves; the AL shapes × Cholesky) and K13 (the
+    three families, 1 and 4 α) against their twins
+    at B = 1, 8 and the serving B (512; 256 at the AL shapes) on iterates
+    drawn as in phase 13 (quadruped, K4) and on drawn AL points with active
+    cones and boxes and per-member penalties (`draw_isrbd_point`, K5):
+    float64 K12 to K12_F64_TOL, K13 to 1e-9, float32 to 1e-6 of the float64
+    twin, K13's flags equal; `modes_times`: the same B in float32 beside
+    K1-Tassa in the same call (`k12_vs_k1_tassa`), bounds, phases,
+    occupancy, `torch.linalg.solve` on the scan's (I + C₁J₂) systems;
+    the paths, at full width and ns=20: the quadruped trot (B=1, 40 ticks
+    under associative/linear, 10 with Cholesky gains), the quadruped fleet
+    (B=512, 3 + 20 ticks), the isrbd example's single constrained robot
+    (offline `ALDDP.solve` and 20 `solve_online` ticks, under
+    associative/linear and then associative/nonlinear, where K6 follows a
+    K12 sweep), the constrained fleet at the round-5 serving point (B=256,
+    1 + 60 + 20 ticks, `window_viol_max` < 1e-2) in float64, and in
+    float32 with the violation reported (the JAX package's float32 fleet
+    leaves the constraints under these modes), the constrained quadruped
+    trot (B=1, offline solve and 40 ticks) and its fleet (B=256, 1 + 60 +
+    20 ticks, `window_viol_max` < 1e-2); each gated as phase 13's paths
+    (the quadruped trot also by phase 11's height band and progress);
+    `modes_card_vs_cpu`:
+    float64, the constrained single robot (offline
+    solve and 3 ticks) and the AL fleet at B=8 (seed and 3 ticks),
+    iterations equal, plans, multipliers and cost to 1e-9. Returns the
+    seven kernel rows."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+    from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+    from srbd_horizon_tpu_torch.models.quadruped import (
+        quadruped_point_feet,
+        trot_group_mask,
+    )
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        TickInput,
+        build_quadruped_loop,
+        walk_command,
+        walking_schedule,
+    )
+    from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP, ALOptions
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+    from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator
+
+    t_section = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    feet, quad = kangaroo_line_feet(), quadruped_point_feet()
+    LINEAR = dict(riccati_mode="associative", forward_pass="linear")
+    NONLINEAR = dict(riccati_mode="associative", forward_pass="nonlinear")
+    quad_cfg = lambda dtype: SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY)
+    qal_cfg = lambda dtype: SRBDConfig(dtype=dtype,
+                                       lip_height=float(quad.com[2]),
+                                       **QUAD_TOPOLOGY)
+
+    def al_solver(shape, dtype, device, ddp, al_opts, **kw):
+        """The AL solver on the Kangaroo's isrbd problem or on the
+        quadruped's (`kw`: build_isrbd_problem's options)."""
+        if shape == "isrbd_al":
+            prob = build_isrbd_problem(SRBDConfig(dtype=dtype), feet,
+                                       device=device, **kw)
+        else:
+            prob = build_isrbd_problem(qal_cfg(dtype), quad, device=device,
+                                       **kw)
+        return prob, ALDDP(prob.ocp, ddp, al_opts)
+
+    def serving(shape, dtype, device, max_iters, modes):
+        """`al_serving_options(max_iters)` under `modes`, on the serving
+        configurations: the Kangaroo's with cz stiffness 3200 (phase 6),
+        the quadruped's as its example builds it (phase 12)."""
+        d, a = al_serving_options(max_iters)
+        kw = dict(cz_rho_weight=CZ_RHO_WEIGHT) if shape == "isrbd_al" else {}
+        return al_solver(shape, dtype, device,
+                         dataclasses.replace(d, **modes), a, **kw)
+
+    # ---- the drawn points, float64 on the card ----
+    pts = {}
+    for i, shape in enumerate(MODES_NEW_K13):
+        Bm = max(MODES_SHAPE_SIZES[shape])
+        g = np.random.RandomState(SEED + 130 + i)
+        if shape == "quadruped":
+            prob = build_srbd_problem(quad_cfg(f64), quad, device=dev)
+            s = MSDDP(prob.ocp, DDPOptions())
+            s32 = MSDDP(build_srbd_problem(quad_cfg(f32), quad,
+                                           device=dev).ocp, DDPOptions())
+            ocp = prob.ocp
+            ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+            X = torch.as_tensor(prob.initial_state.cpu().numpy()[None, None]
+                                + 0.05 * g.randn(Bm, ns + 1, nx), device=dev)
+            U = torch.as_tensor(0.1 * g.randn(Bm, ns, nu), device=dev)
+            params = {k: v.expand((Bm,) + tuple(v.shape)).contiguous()
+                      for k, v in ocp.params.items()}
+            lin = k4.srbd_linearize(X, U, params, s.terms, s.rows, ocp.dt,
+                                    s._wc(f64))
+        else:
+            prob, al = serving(shape, f64, dev, 1, {})
+            s, s32 = al.inner, serving(shape, f32, dev, 1, {})[1].inner
+            ocp = prob.ocp
+            com_z, fz, fxy, ubox = ((0.88, 98.0, 60.0, (60.0, 130.0))
+                                    if shape == "isrbd_al" else
+                                    (float(prob.initial_state[2]), 78.0, 50.0,
+                                     (50.0, 110.0)))
+            X, U, _, _, params = draw_isrbd_point(al, Bm, g, dev, com_z=com_z,
+                                                  fz=fz, fxy=fxy, u_box=ubox)
+            lin = k5.isrbd_linearize(X, U, params, s.terms, s.rows, ocp.dt)
+        ns, nx = ocp.ns, ocp.nx
+        ks, Ks, dV1, dV2 = k12.riccati_associative_plain(
+            *(lin[k] for k in ORDER), s.opts.mu0, s.rows, "cholesky")
+        x0 = X[:, 0] + torch.as_tensor(0.005 * g.randn(Bm, nx), device=dev)
+        D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+        merit0 = s.total_cost(X, U, params) + s.opts.defect_weight * D
+        pts[shape] = dict(s=s, s32=s32, ocp=ocp, lin=lin, X=X, U=U, x0=x0,
+                          params=params, gains=(ks, Ks, dV1, dV2), D=D,
+                          merit0=merit0, nt=lin["Jt"].shape[1], fam=shape)
+
+    # ---- modes_check: K12 and K13 against their twins ----
+    errs = {}
+    for shape, sv in MODES_NEW_K12:
+        errs["k12", shape, sv] = modes_k12_check(
+            pts[shape], sv, MODES_SHAPE_SIZES[shape], card)
+    for shape in MODES_NEW_K13:
+        errs["k13", shape] = modes_k13_check(pts[shape],
+                                             MODES_SHAPE_SIZES[shape], card)
+
+    # ---- modes_times: K12 beside K1's Tassa form, K13; float32 ----
+    times = {}
+    for shape, sv in MODES_NEW_K12:
+        # K1-Tassa with the same gain solve where it is compiled (the
+        # quadruped's SRBD shape has only the block-Schur one)
+        k1_solver = (sv if (shape, "tassa", sv) in k1.KERNEL_INSTANCES
+                     else "schur")
+        times["k12", shape, sv] = modes_k12_times(
+            pts[shape], sv, MODES_SHAPE_SIZES[shape],
+            max(MODES_SHAPE_SIZES[shape]), k1_solver)
+    for shape in MODES_NEW_K13:
+        for nA in (1, 4):
+            times["k13", shape, nA] = modes_k13_times(
+                pts[shape], nA, MODES_SHAPE_SIZES[shape],
+                max(MODES_SHAPE_SIZES[shape]))
+    emit("modes_times", shapes=list(MODES_SHAPE_SIZES), card=card,
+         dtype="float32",
+         rate="FP64 tensor cores, 67 TFLOP/s (both compute in float64)",
+         **{"_".join(map(str, k)): v for k, v in times.items()})
+    emit("k12_vs_k1_tassa", shapes=list(MODES_SHAPE_SIZES), card=card,
+         dtype="float32",
+         **{f"{shape}_{sv}": {str(Bw): dict(
+             riccati_associative_ms=v["ms"], riccati_backward_tassa_ms=v[
+                 "k1_tassa_ms"], k1_quu_solver=times["k12", shape, sv][
+                 "k1_tassa_quu_solver"])
+             for Bw, v in times["k12", shape, sv]["by_B"].items()}
+            for shape, sv in MODES_NEW_K12})
+    del pts
+
+    # ---- the paths ----
+    TWINS = ((k12, ("riccati_associative_plain",)),
+             (k13, ("linear_trial_plain",)),
+             (k1, ("riccati_backward_plain",)),
+             (k3, ("srbd_trial_plain", "srbd_evaluate_plain")),
+             (k4, ("srbd_linearize_plain",)),
+             (k6, ("isrbd_trial_plain", "isrbd_evaluate_plain")),
+             (k5, ("isrbd_linearize_plain",)))
+    COUNTED = ((k4, "srbd_linearize"), (k3, "srbd_trial"),
+               (k3, "srbd_evaluate"), (k5, "isrbd_linearize"),
+               (k6, "isrbd_trial"), (k6, "isrbd_evaluate"),
+               (k1, "riccati_backward"), (k12, "riccati_associative"),
+               (k13, "linear_trial")) + tuple((k78, e) for e in AL_ENTRIES)
+    k12_inst = {key: i for i, key in enumerate(k12.KERNEL_INSTANCES)}
+    k13_fam = {f[2]: i for i, f in enumerate(k13.FAMILIES)}
+
+    def reset_counts():
+        for mod, entry in COUNTED:
+            getattr(mod, entry).launches = 0
+        k12.riccati_associative.instance_launches[:] = [0] * len(k12_inst)
+        k13.linear_trial.family_launches[:] = [0] * len(k13_fam)
+
+    def read_counts(shape):
+        """The launches of every counted kernel, and of K12 and K13 at
+        `shape` (K1's name) by gain solve and family."""
+        out = {entry: getattr(mod, entry).launches for mod, entry in COUNTED}
+        il = k12.riccati_associative.instance_launches
+        for sv in ("schur", "cholesky"):
+            if (shape, sv) in k12_inst:
+                out[f"k12_{shape}_{sv}"] = il[k12_inst[shape, sv]]
+        out[f"k13_{shape}"] = k13.linear_trial.family_launches[k13_fam[shape]]
+        return out
+
+    def run_path(tag, shape, drive, al):
+        """Run `drive()` with the counts reset just before and read just
+        after, the plain twins guarded; `drive` returns (result dict,
+        solvers to count, n), having counted through `counting`."""
+        guards, restore_guards = guard_plain(TWINS, al=al)
+        reset_counts()
+        try:
+            res, n = drive()
+            launches = read_counts(shape)
+        finally:
+            restore_guards()
+        res.update({k: v["n"] for k, v in guards.items()},
+                   launches=launches, counted=n, card=card)
+        return res
+
+    def gates(tag, res, shape, al, solves_expected=None):
+        """Phase 13's gates: finite; defects ≤ 1e-4; K12 sweeps (the
+        shape's, both gain solves) = linearizations = iterations; K1 never;
+        K13 at the shape = the linear trials and the rollout kernel = the
+        rollout trials; the evaluation two a solve; no plain twin, AL twin,
+        plain cost or torch.func call; every kernel of the path launched."""
+        L, n = res["launches"], res["counted"]
+        lin_l, trial_l, ev_l = (("isrbd_linearize", "isrbd_trial",
+                                 "isrbd_evaluate") if al else
+                                ("srbd_linearize", "srbd_trial",
+                                 "srbd_evaluate"))
+        k12_l = sum(v for k, v in L.items() if k.startswith(f"k12_{shape}_"))
+        if not res["finite"]:
+            fail(f"{tag} produced non-finite values")
+        if res["defect_norm_max"] > 1e-4:
+            fail(f"{tag}: plans are not dynamically consistent (defect "
+                 f"{res['defect_norm_max']} above 1e-4)")
+        if (res["plain_twin_calls"] or res["torch_func_calls"]
+                or res["plain_cost_or_defect_calls"]
+                or res.get("al_twin_calls", 0)):
+            fail(f"{tag} ran plain twins on the card: {res}")
+        if not (L[lin_l] == k12_l == L["riccati_associative"]
+                == n["iterations"] > 0):
+            fail(f"{tag}: linearizations, K12 sweeps and iterations differ: "
+                 f"{L}, {n}")
+        if L["riccati_backward"]:
+            fail(f"{tag}: K1 ran under riccati_mode='associative': {L}")
+        if not (L[f"k13_{shape}"] == L["linear_trial"] == n["linear_trials"]
+                and L[trial_l] == n["rollout_trials"]):
+            fail(f"{tag}: K13 and the rollout kernel do not cover the trials: "
+                 f"{L}, {n}")
+        if L[ev_l] != 2 * n["solves"] or (solves_expected is not None
+                                          and n["solves"] != solves_expected):
+            fail(f"{tag}: the evaluation launches are not two a solve: {L}, "
+                 f"{n}, {solves_expected} solves expected")
+        if min(L[lin_l], k12_l, L[ev_l]) == 0 or \
+                L[f"k13_{shape}"] + L[trial_l] == 0:
+            fail(f"{tag}: a kernel of the path was not launched: {L}")
+
+    def hand(L, ns_, al):
+        """Hand-written kernel launches (a K12 sweep is 8 kernels)."""
+        names = (("isrbd_linearize", "isrbd_trial", "isrbd_evaluate")
+                 + AL_ENTRIES if al else
+                 ("srbd_linearize", "srbd_trial", "srbd_evaluate"))
+        return (sum(L[k] for k in names) + L["linear_trial"]
+                + L["riccati_backward"]
+                + k12.launches_per_sweep(ns_) * L["riccati_associative"])
+
+    def timed_ticks(step, carry, ticks, solver, n):
+        """`ticks` ticks of `step`, a device sync each: the carry, tick ms,
+        iterations a tick, host reads."""
+        tms, its, syncs0 = [], [], solver.host_syncs
+        for _ in range(ticks):
+            it0 = n["iterations"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = step(carry)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            its.append(n["iterations"] - it0)
+        return carry, tms, its, solver.host_syncs - syncs0
+
+    def tick_stats(tms, its, syncs):
+        return dict(ticks=len(tms), tick_p50_ms=statistics.median(tms),
+                    tick_max_ms=max(tms), tick_mean_ms=statistics.fmean(tms),
+                    iterations_per_tick=statistics.fmean(its),
+                    host_reads_per_tick=syncs / len(tms))
+
+    def observe(res, solver, step, carry):
+        """The phases of 5 more ticks and a profile of 2 (busy, idle)."""
+        carry, res["spans"] = tick_spans(solver, step, carry, ticks=5)
+        res["profile"] = profile_ticks(solver, step, carry,
+                                       res["tick_p50_ms"])
+        res["device_busy_ms_per_tick"] = res["profile"][
+            "device_busy_ms_per_tick"]
+        res["device_idle_share"] = res["profile"]["device_idle_share"]
+
+    # -- the quadruped trot, B=1: 40 ticks, then 10 with Cholesky gains --
+    def quad_trot():
+        runs, outs, obs = {}, [], []
+        base = DDPOptions(max_iters=5, alpha_converge_threshold=1e-12,
+                          beta=1e-3, **LINEAR)
+        n, restores = None, []
+        for name, solver_name, sched in (
+                ("associative_linear", "schur",
+                 walking_schedule(40, vx=MODES_QUAD_VX, start=10, device=dev)),
+                ("associative_linear_cholesky", "cholesky",
+                 walking_schedule(10, vx=MODES_QUAD_VX, start=3, device=dev))):
+            loop, prob = build_quadruped_loop(
+                quad_cfg(f32), dataclasses.replace(base, quu_solver=solver_name),
+                device=dev)
+            n2, restore = count_solver_calls(loop.solver)
+            restores.append(restore)
+            carry = loop.init(prob.initial_state)
+            step_outs = []
+
+            def step(c, _loop=loop, _sched=sched, _outs=step_outs):
+                c, o = _loop.tick(c, TickInput(*(a[len(_outs)] for a in _sched)))
+                _outs.append(o)
+                return c
+
+            carry, tms, its, syncs = timed_ticks(step, carry,
+                                                 sched.action.shape[0],
+                                                 loop.solver, n2)
+            com = torch.stack([o.x[:3] for o in step_outs]).cpu()
+            z0 = float(prob.initial_state[2])
+            runs[name] = dict(
+                tick_stats(tms, its, syncs), **{k: n2[k] for k in n2},
+                forward_progress_m=float(com[-1, 0] - com[0, 0]),
+                com_z_min=float(com[:, 2].min()),
+                com_z_max=float(com[:, 2].max()), z0=z0)
+            outs += step_outs
+            last = lambda c, _l=loop, _s=sched: _l.tick(
+                c, TickInput(*(a[-1] for a in _s)))[0]
+            obs.append((name, loop.solver, last, carry, prob))
+            n = n2 if n is None else {k: n[k] + n2[k] for k in n}
+        for restore in restores:
+            restore()
+        res = dict(
+            B=1, dtype="float32", runs=runs,
+            options="the quadruped example: max_iters=5, "
+                    "alpha_converge_threshold=1e-12, beta=1e-3, the trot WPG, "
+                    f"vx {MODES_QUAD_VX} from tick 10 (3 in the Cholesky run)",
+            finite=all(bool(torch.isfinite(v).all()) for o in outs
+                       for v in (o.x, o.u0, o.cost)),
+            defect_norm_max=max(float(o.defect_norm) for o in outs),
+            srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                                  for o in outs))
+        res["_observe"] = obs
+        return res, n
+
+    qt = run_path("modes_quadruped_trot", "quadruped",
+                  quad_trot, al=False)
+    for name, solver, last, carry, prob in qt.pop("_observe"):
+        r = qt["runs"][name]
+        observe(r, solver, last, carry)
+    qt["hand_written_kernel_launches_per_tick"] = hand(
+        qt["launches"], 20, False) / sum(r["ticks"] for r in qt["runs"].values())
+    emit("modes_quadruped_trot", **qt)
+    gates("modes_quadruped_trot", qt, "quadruped", al=False)
+    if qt["srbd_residual_max"] > 1e-4:
+        fail("modes_quadruped_trot: Newton-Euler residual above 1e-4")
+    for name, r in qt["runs"].items():          # phase 11's gates of the walk
+        if max(abs(r["com_z_min"] - r["z0"]),
+               abs(r["com_z_max"] - r["z0"])) >= QUAD_HEIGHT_BAND:
+            fail(f"modes_quadruped_trot ({name}): the CoM height left z0 ± "
+                 f"{QUAD_HEIGHT_BAND}: {r['com_z_min']}, {r['com_z_max']}")
+        if not r["forward_progress_m"] > 0:
+            fail(f"modes_quadruped_trot ({name}): no forward progress: "
+                 f"{r['forward_progress_m']}")
+    if min(qt["launches"]["k12_quadruped_schur"],
+           qt["launches"]["k12_quadruped_cholesky"]) == 0:
+        fail(f"modes_quadruped_trot: a K12 gain solve was not launched: "
+             f"{qt['launches']}")
+
+    # -- the quadruped fleet, B=512, shifted warm start, walk command --
+    def quad_fleet():
+        loop, prob = build_quadruped_loop(
+            quad_cfg(f32), DDPOptions(max_iters=5,
+                                      alpha_converge_threshold=1e-12,
+                                      beta=1e-3, **LINEAR),
+            shift_warmstart=True, device=dev)
+        g = np.random.RandomState(SEED)
+        xn = prob.initial_state.cpu().numpy()
+        x0 = torch.as_tensor(xn[None] + 0.005 * g.randn(B_MAIN, xn.shape[0]),
+                             dtype=f32, device=dev)
+        inp = walk_command(B_MAIN, vx=0.2, dtype=f32, device=dev)
+        carry = loop.init(x0)
+        for _ in range(3):
+            carry, _ = loop.tick_batch(carry, inp)
+        torch.cuda.synchronize()
+        reset_counts()
+        n, restore = count_solver_calls(loop.solver)
+        outs = []
+
+        def step(c):
+            c, o = loop.tick_batch(c, inp)
+            outs.append(o)
+            return c
+
+        try:
+            carry, tms, its, syncs = timed_ticks(step, carry, 20, loop.solver, n)
+        finally:
+            restore()
+        res = dict(
+            B=B_MAIN, dtype="float32", warmup_ticks=3,
+            options="quad_fleet_path's: max_iters=5, shifted warm start, walk "
+                    "command vx 0.2, 0.005·N(0,1) pushes (seed 0), "
+                    "associative/linear",
+            **tick_stats(tms, its, syncs),
+            members_per_s=B_MAIN / statistics.median(tms) * 1e3,
+            finite=all(bool(torch.isfinite(v).all()) for o in outs
+                       for v in (o.x, o.u0, o.cost)),
+            defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+            srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                                  for o in outs))
+        res["_observe"] = (loop.solver, lambda c: loop.tick_batch(c, inp)[0],
+                           carry)
+        return res, n
+
+    qf = run_path("modes_quadruped_fleet", "quadruped", quad_fleet, al=False)
+    observe(qf, *qf.pop("_observe"))
+    qf["hand_written_kernel_launches_per_tick"] = hand(
+        qf["launches"], 20, False) / qf["ticks"]
+    emit("modes_quadruped_fleet", **qf)
+    gates("modes_quadruped_fleet", qf, "quadruped", al=False)
+    if qf["srbd_residual_max"] > 1e-4:
+        fail("modes_quadruped_fleet: Newton-Euler residual above 1e-4")
+
+    # -- the isrbd example's single constrained robot --
+    def kangaroo_single(dtype, device, modes, ticks, timed, counted=True):
+        """The isrbd example's sequence (phase 9's): the offline
+        `ALDDP.solve` (max_iters=15, 6 outers from ρ 1e3, ρ ≤ 1e5) from
+        the static input, then `ticks` ticks of the WPG advance, rdot_ref
+        (0.3, 0, 0) on nodes 1..ns, x0 = the plan's node 1 and
+        `solve_online` (walking from tick 10)."""
+        prob, al = al_solver("isrbd_al", dtype, device, DDPOptions(
+            max_iters=15, alpha_converge_threshold=1e-12, beta=1e-3, **modes),
+            ALOptions(outer_iters=6, rho0=1e3, rho_max=1e5))
+        ns = prob.ocp.ns
+        n, restore = (count_solver_calls(al.inner) if counted
+                      else (None, lambda: None))
+        sync = torch.cuda.synchronize if timed else (lambda: None)
+        x0 = prob.initial_state
+        U0 = prob.static_input[None].expand(ns, -1).contiguous()
+        sync()
+        t0 = time.perf_counter()
+        st = al.solve(al.init(x0, U0), x0, prob.ocp.params)
+        sync()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        wpg = WalkingPatternGenerator.build(c_init_z=0.0, nodes=ns,
+                                            dtype=dtype, device=device)
+        ref = torch.tensor([0.3, 0.0, 0.0], dtype=dtype, device=device)
+        states = [st]
+
+        def step(c):
+            st, params, ws, t = c
+            action = torch.tensor(int(t >= 10), dtype=torch.int32,
+                                  device=device)
+            params, ws = wpg.advance(params, ws, action)
+            params["rdot_ref"] = torch.cat(
+                [params["rdot_ref"][:1], ref.expand(ns, 3)], dim=0)
+            st = al.solve_online(st, st.sol.X[1], params)
+            states.append(st)
+            return st, params, ws, t + 1
+
+        carry = (st, dict(prob.ocp.params), wpg.init_state(), 0)
+        if timed:
+            carry, tms, its, syncs = timed_ticks(step, carry, ticks, al.inner,
+                                                 n)
+        else:
+            for _ in range(ticks):
+                carry = step(carry)
+            tms = None
+        restore()
+        return dict(al=al, states=states, solve_ms=solve_ms, tms=tms,
+                    its=its if timed else None,
+                    syncs=syncs if timed else None, n=n, step=step,
+                    carry=carry)
+
+    def al_result(r, outers, **extra):
+        states = r["states"]
+        viols = [float(s.viol) for s in states]
+        return dict(
+            B=1, dtype="float32", offline_ms=r["solve_ms"],
+            offline_viol=viols[0], online_viol_max=max(viols[1:]),
+            **tick_stats(r["tms"], r["its"], r["syncs"]),
+            finite=all(bool(torch.isfinite(t).all()) for s in states
+                       for t in (s.sol.X, s.sol.U, s.lam_eq, s.lam_eq_T,
+                                 s.viol)),
+            defect_norm_max=max(float(s.sol.defect_norm) for s in states),
+            outers=outers, **extra)
+
+    def al_outer_gates(tag, res, outers, shifts, priors=0):
+        """K7 and K8b once an outer, K8a once a shift, K8c once a prior
+        update (phases 9 and 12)."""
+        L = res["launches"]
+        if not (L["isrbd_al_constraints"] == L["isrbd_al_params"] == outers
+                and L["isrbd_al_shift"] == shifts
+                and L["isrbd_al_prior_update"] == priors):
+            fail(f"{tag}: K7/K8b are not once an outer ({outers}), or K8a "
+                 f"({shifts}) / K8c ({priors}) not as the path calls them: {L}")
+
+    single = {}
+    for label, modes in (("associative_linear", LINEAR),
+                         ("associative_nonlinear", NONLINEAR)):
+        box = {}
+
+        def drive(_modes=modes, _box=box):
+            r = kangaroo_single(f32, dev, _modes, MODES_AL_TICKS, timed=True)
+            _box["r"] = r
+            return al_result(r, 6 + MODES_AL_TICKS,
+                             modes=f"{_modes['riccati_mode']}/"
+                                   f"{_modes['forward_pass']}"), r["n"]
+
+        res = run_path(f"modes_single_constrained_{label}", "isrbd_al",
+                       drive, al=True)
+        r = box["r"]
+        observe(res, r["al"].inner, r["step"], r["carry"])
+        res["hand_written_kernel_launches_per_tick"] = hand(
+            res["launches"], 20, True) / MODES_AL_TICKS
+        tag = f"modes_single_constrained_{label}"
+        emit(tag, **res)
+        gates(tag, res, "isrbd_al", al=True,
+              solves_expected=6 + MODES_AL_TICKS)
+        al_outer_gates(tag, res, 6 + MODES_AL_TICKS, 0)
+        if not res["offline_viol"] < 1e-3:
+            fail(f"{tag}: the offline violation {res['offline_viol']} is not "
+                 f"below 1e-3")
+        single[label] = res
+    if single["associative_nonlinear"]["launches"]["isrbd_trial"] == 0:
+        fail("K6 did not run after a K12 sweep under associative/nonlinear")
+
+    # -- the constrained fleet at the round-5 serving point, B=256 --
+    def al_fleet(shape, dtype, Bsz, warm, outers, vx, walk_from):
+        """`constrained_tick` (inner max_iters=1, `outers` outers,
+        FullPhasePrior at EMA 1) under associative/linear, seeded by the
+        batched offline solve (`al_serving_options(15)`, same modes) from
+        x0 = nominal + 0.01·N(0,1) (seed 11); the Kangaroo's WPG walking
+        throughout, the quadruped's trot WPG standing until `walk_from`."""
+        prob, off = serving(shape, dtype, dev, 15, LINEAR)
+        _, on = serving(shape, dtype, dev, 1, LINEAR)
+        ns, nx = prob.ocp.ns, prob.ocp.nx
+        wpg = (WalkingPatternGenerator.build(0.0, ns, dtype=dtype, device=dev)
+               if shape == "isrbd_al" else
+               WalkingPatternGenerator.build(
+                   0.0, ns, dtype=dtype, device=dev,
+                   group_mask=trot_group_mask(), **QUAD_TOPOLOGY))
+        gg = np.random.RandomState(11)
+        x0 = prob.initial_state[None] + torch.as_tensor(
+            0.01 * gg.randn(Bsz, nx), dtype=dtype, device=dev)
+        U0 = prob.static_input[None].expand(ns, -1)
+        params = {k: v.expand((Bsz,) + tuple(v.shape)).contiguous()
+                  for k, v in prob.ocp.params.items()}
+        period = 2 * wpg.step_nodes
+        stand = torch.zeros(Bsz, dtype=torch.int32, device=dev)
+        walk = torch.ones(Bsz, dtype=torch.int32, device=dev)
+        still = torch.zeros(Bsz, 3, dtype=dtype, device=dev)
+        go = torch.tensor([[vx, 0.0, 0.0]], dtype=dtype, device=dev).expand(
+            Bsz, -1).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = off.solve_batch(off.init(x0, U0), x0, params)
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+        seed_viol = float(st.viol.max())
+        viols = []
+
+        def step(s):
+            st, params, ws, pr, k = s
+            st, params, ws, pr = constrained_tick(
+                on, wpg, st, params, ws, walk if k >= walk_from else stand,
+                go if k >= walk_from else still, prior=pr, outers=outers,
+                prior_ema=1.0)
+            viols.append(float(st.viol.max()))
+            return [st, params, ws, pr, k + 1]
+
+        state = [st, params, wpg.init_state((Bsz,)),
+                 on.init_full_phase_prior(period, Bsz), 0]
+        for _ in range(1 + warm):
+            state = step(state)
+        return on, step, state, viols, dict(seed_seconds=seed_s,
+                                            seed_viol_max=seed_viol)
+
+    def fleet_drive(shape, dtype, Bsz, warm, timed, outers, vx, walk_from,
+                    box):
+        def drive():
+            on, step, state, viols, seed = al_fleet(shape, dtype, Bsz, warm,
+                                                    outers, vx, walk_from)
+            reset_counts()
+            n, restore = count_solver_calls(on.inner)
+            del viols[:]
+            try:
+                state, tms, its, syncs = timed_ticks(step, state, timed,
+                                                     on.inner, n)
+            finally:
+                restore()
+            st = state[0]
+            box.update(on=on, step=step, state=state)
+            return dict(
+                B=Bsz, dtype=str(dtype).replace("torch.", ""),
+                warmup_ticks=1 + warm, outers=outers,
+                online_iters=1, phase_prior="full", prior_ema=1.0, **seed,
+                **tick_stats(tms, its, syncs),
+                solves_per_s=Bsz / statistics.median(tms) * 1e3,
+                window_viol_max=max(viols), final_viol_max=viols[-1],
+                finite=all(bool(torch.isfinite(t).all()) for t in
+                           (st.sol.X, st.sol.U, st.lam_eq, st.lam_eq_T,
+                            st.viol, st.sol.cost)),
+                defect_norm_max=float(st.sol.defect_norm.max())), n
+        return drive
+
+    # The round-5 serving point is gated in float64: under these modes the
+    # JAX package's own float32 fleet leaves the constraints there, a
+    # violation of several units every gait cycle (tests/
+    # modes_fleet_reference.py, PERF.md §6), and so does the port's. The
+    # float32 run is measured and reported beside it.
+    fleets = {}
+    for tag, shape, dtype, timed, outers, vx, walk_from, viol_gate in (
+            ("modes_constrained_fleet", "isrbd_al", f64, 20, 1, 0.1, 0, True),
+            ("modes_constrained_fleet_f32", "isrbd_al", f32, 20, 1, 0.1, 0,
+             False),
+            ("modes_constrained_quadruped_fleet", "isrbd_al_quadruped", f32,
+             20, 2, QC_VX, 10, True)):
+        box = {}
+        res = run_path(tag, shape, fleet_drive(
+            shape, dtype, B_CONSTRAINED, 60, timed, outers, vx, walk_from,
+            box), al=True)
+        res["walk"] = (f"walk command vx {vx}" if walk_from == 0 else
+                       f"standing, then vx {vx} from tick {walk_from}")
+        res["cz_rho_weight"] = CZ_RHO_WEIGHT if shape == "isrbd_al" else None
+        observe(res, box["on"].inner, box["step"], box["state"])
+        res["launches_by_span"] = res["profile"]["launches_by_span"]
+        res["hand_written_kernel_launches_per_tick"] = hand(
+            res["launches"], 20, True) / timed
+        emit(tag, **res)
+        gates(tag, res, shape, al=True, solves_expected=outers * timed)
+        al_outer_gates(tag, res, outers * timed, timed, timed)
+        res["viol_gated"] = viol_gate
+        if viol_gate and not res["window_viol_max"] < VIOL_LIMIT:
+            fail(f"{tag}: window_viol_max {res['window_viol_max']} is not "
+                 f"below {VIOL_LIMIT}")
+        fleets[tag] = res
+
+    # -- the constrained quadruped trot, B=1 (phase 12's sequence) --
+    def qc_single(dtype, device, ticks, timed, counted=True):
+        prob, off = serving("isrbd_al_quadruped", dtype, device, 15, LINEAR)
+        _, on = serving("isrbd_al_quadruped", dtype, device, 1, LINEAR)
+        ns = prob.ocp.ns
+        wpg = WalkingPatternGenerator.build(
+            0.0, ns, dtype=dtype, device=device, group_mask=trot_group_mask(),
+            **QUAD_TOPOLOGY)
+        n, restore = (count_solver_calls(off.inner, on.inner) if counted
+                      else (None, lambda: None))
+        sync = torch.cuda.synchronize if timed else (lambda: None)
+        x0 = prob.initial_state
+        U0 = prob.static_input[None].expand(ns, -1).contiguous()
+        sync()
+        t0 = time.perf_counter()
+        st = off.solve(off.init(x0, U0), x0, prob.ocp.params)
+        sync()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        ref = torch.tensor([QC_VX, 0.0, 0.0], dtype=dtype, device=device)
+        walk = torch.tensor(1, dtype=torch.int32, device=device)
+        states = [st]
+
+        def step(c):
+            st, params, ws = c
+            params, ws = wpg.advance(params, ws, walk)
+            params["rdot_ref"] = torch.cat(
+                [params["rdot_ref"][:1], ref.expand(ns, 3)], dim=0)
+            x1 = st.sol.X[1]
+            st = on.solve_online(on.solve_online(on.shift_warmstart(st), x1,
+                                                 params), x1, params)
+            states.append(st)
+            return st, params, ws
+
+        carry = (st, dict(prob.ocp.params), wpg.init_state())
+        tms = its = syncs = None
+        if timed:
+            carry, tms, its, syncs = timed_ticks(step, carry, ticks, on.inner,
+                                                 n)
+        else:
+            for _ in range(ticks):
+                carry = step(carry)
+        restore()
+        return dict(al=on, prob=prob, states=states, solve_ms=solve_ms, tms=tms,
+                    its=its, syncs=syncs, n=n, step=step, carry=carry)
+
+    box = {}
+
+    def qc_drive():
+        r = qc_single(f32, dev, QC_TICKS, timed=True)
+        box["r"] = r
+        res = al_result(r, 6 + 2 * QC_TICKS,
+                        options="al_serving_options: offline max_iters=15 (6 "
+                                "outers), online max_iters=1, two solve_online "
+                                "a tick after shift_warmstart",
+                        walk=f"trot WPG, vx {QC_VX} from tick 0")
+        viols = [float(s.viol) for s in r["states"][1:]]
+        res["viol_max_ticks_20_39"] = max(viols[20:])
+        res["forward_progress_m"] = float(r["states"][-1].sol.X[0, 0]
+                                          - r["prob"].initial_state[0])
+        return res, r["n"]
+
+    qs = run_path("modes_constrained_quadruped_trot", "isrbd_al_quadruped",
+                  qc_drive, al=True)
+    observe(qs, box["r"]["al"].inner, box["r"]["step"], box["r"]["carry"])
+    qs["hand_written_kernel_launches_per_tick"] = hand(
+        qs["launches"], 20, True) / QC_TICKS
+    emit("modes_constrained_quadruped_trot", **qs)
+    gates("modes_constrained_quadruped_trot", qs, "isrbd_al_quadruped",
+          al=True, solves_expected=6 + 2 * QC_TICKS)
+    al_outer_gates("modes_constrained_quadruped_trot", qs, 6 + 2 * QC_TICKS,
+                   QC_TICKS)
+    if not (qs["offline_viol"] < 1e-3 and qs["viol_max_ticks_20_39"] < VIOL_LIMIT
+            and qs["forward_progress_m"] > QC_VX):
+        fail(f"modes_constrained_quadruped_trot: offline violation "
+             f"{qs['offline_viol']}, violation over ticks 20-39 "
+             f"{qs['viol_max_ticks_20_39']}, progress "
+             f"{qs['forward_progress_m']} m")
+
+    # ---- modes_card_vs_cpu: float64 ----
+    def al_versus(card_states, cpu_states):
+        both = lambda f: max(rel_err(f(a).cpu(), f(b))
+                             for a, b in zip(card_states, cpu_states))
+        res = dict(
+            steps=len(cpu_states),
+            iterations_equal=all(
+                torch.equal(a.sol.iterations.cpu(), b.sol.iterations)
+                for a, b in zip(card_states, cpu_states)),
+            converged_equal=all(
+                torch.equal(a.sol.converged.cpu(), b.sol.converged)
+                for a, b in zip(card_states, cpu_states)),
+            X_rel_err=both(lambda s: s.sol.X), U_rel_err=both(lambda s: s.sol.U),
+            cost_rel_err=both(lambda s: s.sol.cost),
+            lam_rel_err=both(lambda s: s.lam_eq),
+            lam_T_rel_err=both(lambda s: s.lam_eq_T),
+            mu_rel_err=both(lambda s: s.mu_ub), rho_rel_err=both(lambda s: s.rho))
+        res["ok"] = (res["iterations_equal"] and res["converged_equal"]
+                     and max(v for k, v in res.items()
+                             if k.endswith("rel_err")) <= 1e-9)
+        return res
+
+    def fleet_states(device):
+        """The AL fleet at B=8 in float64: the seed, then 3 serving ticks
+        (1 outer × 1 inner iteration, full prior, walking), on the
+        Kangaroo's serving problem under associative/linear."""
+        prob, off = serving("isrbd_al", f64, device, 15, LINEAR)
+        _, on = serving("isrbd_al", f64, device, 1, LINEAR)
+        ns, nx = prob.ocp.ns, prob.ocp.nx
+        wpg = WalkingPatternGenerator.build(0.0, ns, dtype=f64, device=device)
+        gg = np.random.RandomState(11)
+        x0 = prob.initial_state[None] + torch.as_tensor(
+            0.01 * gg.randn(8, nx), dtype=f64, device=device)
+        params = {k: v.expand((8,) + tuple(v.shape)).contiguous()
+                  for k, v in prob.ocp.params.items()}
+        st = off.solve_batch(off.init(x0, prob.static_input[None].expand(
+            ns, -1)), x0, params)
+        states, ws = [st], wpg.init_state((8,))
+        pr = on.init_full_phase_prior(2 * wpg.step_nodes, 8)
+        action = torch.ones(8, dtype=torch.int32, device=device)
+        rdot = torch.tensor([[0.1, 0.0, 0.0]], dtype=f64,
+                            device=device).expand(8, -1).contiguous()
+        for _ in range(3):
+            st, params, ws, pr = constrained_tick(on, wpg, st, params, ws,
+                                                  action, rdot, prior=pr,
+                                                  outers=1, prior_ema=1.0)
+            states.append(st)
+        return states
+
+    cvc = dict(
+        tol=1e-9, modes="associative/linear",
+        single=dict(B=1, what="the isrbd example: offline solve and 3 ticks",
+                    **al_versus(
+                        kangaroo_single(f64, dev, LINEAR, 3, False,
+                                        counted=False)["states"],
+                        kangaroo_single(f64, "cpu", LINEAR, 3, False,
+                                        counted=False)["states"])),
+        fleet=dict(B=8, what="the seed and 3 serving ticks",
+                   **al_versus(fleet_states(dev), fleet_states("cpu"))))
+    emit("modes_card_vs_cpu", shapes="isrbd_al", **cvc)
+    if not (cvc["single"]["ok"] and cvc["fleet"]["ok"]):
+        fail("the modes' constrained card path and CPU path disagree")
+
+    # ---- the kernel rows ----
+    paths = {"quadruped": (("modes_quadruped_trot", qt),
+                           ("modes_quadruped_fleet", qf)),
+             "isrbd_al": tuple((f"modes_single_constrained_{k}", v)
+                               for k, v in single.items())
+             + tuple((k, fleets[k]) for k in ("modes_constrained_fleet",
+                                               "modes_constrained_fleet_f32")),
+             "isrbd_al_quadruped": (
+                 ("modes_constrained_quadruped_trot", qs),
+                 ("modes_constrained_quadruped_fleet",
+                  fleets["modes_constrained_quadruped_fleet"]))}
+    rows_out = []
+    for shape, sv in MODES_NEW_K12:
+        by_path = {tag: r["launches"][f"k12_{shape}_{sv}"]
+                   for tag, r in paths[shape]}
+        rows_out.append(modes_k12_row(
+            f"riccati_associative_{shape}"
+            + ("_cholesky" if sv == "cholesky" else ""),
+            times["k12", shape, sv], errs["k12", shape, sv],
+            sum(by_path.values()), max(MODES_SHAPE_SIZES[shape]),
+            quu_solver=sv, shape=shape, launches_by_path=by_path))
+    for shape in MODES_NEW_K13:
+        by_path = {tag: r["launches"][f"k13_{shape}"]
+                   for tag, r in paths[shape]}
+        rows_out.append(modes_k13_row(
+            f"linear_trial_{shape}", times["k13", shape, 1],
+            times["k13", shape, 4], errs["k13", shape], sum(by_path.values()),
+            max(MODES_SHAPE_SIZES[shape]), family=shape,
+            launches_by_path=by_path))
+    for r in rows_out:
+        if r["launches"] == 0:
+            fail(f"{r['name']} was not launched on its paths")
+    emit("modes_shapes_section", seconds=time.perf_counter() - t_section,
+         card=card)
     return rows_out
 
 
@@ -5335,6 +6270,7 @@ def main():
 
     # ---------------- phase 13: the execution modes (K12, K13) ----------
     modes_rows = modes_section(card, dev, sms)
+    modes_rows += modes_shapes_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

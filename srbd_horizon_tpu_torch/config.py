@@ -97,8 +97,12 @@ class DDPOptions:
     # as the JAX package's does
     quu_solver: str = "schur"
     # "sequential" (K1's Tassa-form sweep) or "associative" (K12's scan);
-    # with forward_pass "nonlinear" (the rollout, K3/K11) or "linear" (the
-    # linearized forward pass of the parallel line search, K13)
+    # with forward_pass "nonlinear" (the rollout, K3/K6/K11) or "linear"
+    # (the linearized forward pass of the parallel line search, K13). Both
+    # modes run at K1's five shapes: the SRBD problem of the Kangaroo and of
+    # the point-feet quadruped, the LIP, and the AL inner problem of both
+    # robots' isrbd problems (there K12 takes the Cholesky gain solve, which
+    # the AL solver always asks for); the solver refuses them elsewhere
     riccati_mode: str = "sequential"
     backward_contract: str = "blocksparse"
     backward_pair_nodes: bool = False

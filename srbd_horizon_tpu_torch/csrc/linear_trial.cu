@@ -12,7 +12,7 @@
 //     ûₙ    = Uₙ + α kₙ + Kₙ δxₙ
 //     δxₙ₊₁ = (Aₙ + BₙKₙ) δxₙ + α (Bₙkₙ + dₙ)
 // with x̂ₙ = Xₙ + δxₙ, then
-//     D̂     = Σₙ ‖x̂ₙ + dt·ẋ(x̂ₙ, ûₙ) − x̂ₙ₊₁‖²          (the true defects)
+//     D̂     = Σₙ ‖step(x̂ₙ, ûₙ) − x̂ₙ₊₁‖²               (the true defects)
 //     cost  = Σₙ ‖ρ(x̂ₙ, ûₙ, pₙ)‖² + ‖ρ_N(x̂_N, p_N)‖²
 //     merit = cost + ν D̂
 //     exp   = −(α ΔV₁ + α² ΔV₂) + (2α − α²) ν D      (D the iterate's defects)
@@ -23,23 +23,31 @@
 // (JAX composes the maps in a scan tree and applies the prefix products to
 // δx₀), so the two agree to rounding, not bit for bit.
 //
-// The family's Euler step and residual rows come from csrc/srbd_common.cuh
-// (the Kangaroo's SRBD problem) or csrc/lip_common.cuh (the LIP), evaluated
-// as K3 / K11 evaluate them, at float64: the kernel carries float32 tensors
-// in float64 too, as K1 and K12 do, so that a float32 call differs from the
-// float64 twin by the rounding of its inputs and outputs only.
+// The problem's step and rows come from the header its other kernels use,
+// evaluated as they evaluate them, at float64 (`FAMILIES`, a policy struct
+// each): the SRBD problem at both SRBD shapes (csrc/srbd_common.cuh, K3's
+// Euler step and rows; the Kangaroo and the point-feet quadruped), the LIP
+// (csrc/lip_common.cuh, K11's), and the isrbd AL inner problem at both AL
+// shapes (csrc/isrbd_common.cuh, K6's RK2 step of the double integrator and
+// its 240 / 236 stage and 101 / 97 terminal rows). The kernel carries
+// float32 tensors in float64 too, as K1 and K12 do, so that a float32 call
+// differs from the float64 twin by the rounding of its inputs and outputs
+// only.
 //
 // What bounds it on an H100: one (member, α) reads the gains, the plan, the
 // sliced A and B, the defects and the parameter rows, ~2.5k values a node
-// (~10 KB in float32), and does ~4k FLOP of recursion, rates and residual
-// rows a node; bytes bound it at fleet sizes (chip_smoke.py computes the
-// bound from its inputs), and each (member, α) is a chain of ns dependent
-// nodes, so at small B the chain's latency sets the time.
+// (~10 KB in float32; ~3.2k on the AL inner problem), and does ~4k FLOP of
+// recursion, rates and residual rows a node; bytes bound it at fleet sizes
+// (chip_smoke.py computes the bound from its inputs), and each (member, α)
+// is a chain of ns dependent nodes, so at small B the chain's latency sets
+// the time.
 //
 // Design: one warp per (member, α), as K3; the recursion's matrix-vector
 // products a lane a row (K, Sx and Bs read from device memory through L1),
 // the step and residual rows of the family's lane helpers, the sums over
-// the lanes by xor shuffles. A simple kernel first: no cp.async ring yet.
+// the lanes by xor shuffles. A simple kernel first: no cp.async ring yet,
+// and the AL rows on the same warp as the chain (K6 gives them a warp of
+// their own).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -47,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "isrbd_common.cuh"
 #include "lip_common.cuh"
 #include "srbd_common.cuh"
 
@@ -55,10 +64,11 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kUnknownShape = -2;     // a family FAMILIES does not have
 
-// The Kangaroo's SRBD problem: sizes, the sliced rows' counts (K1's
-// SrbdShape), constants, parameters and the node's rows.
+// The SRBD problem at the shape S (srbd::KangarooShape, srbd::QuadShape):
+// sizes, the sliced rows' counts (K1's SrbdShape and QuadShape), constants,
+// parameters and the node's rows.
+template <class S>
 struct SrbdFamily {
-  using S = srbd::KangarooShape;
   static constexpr int nx = S::nx, nu = S::nu, nt = S::nt, n_rx = S::n_rx,
                        n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu,
                        n_b = 3, n_uc = 24, pw = srbd::Layout<S>::pw;
@@ -70,9 +80,12 @@ struct SrbdFamily {
   static Params<T> params(const void* const* p) {
     return srbd::make_params<T>(p);
   }
+  // the lanes load member-node `row`'s packed parameter row into p
   template <typename T>
-  __device__ static double param(const Params<T>& P, size_t row, int e) {
-    return static_cast<double>(*srbd::param_src<S>(P, row, e));
+  __device__ static void load(const Params<T>& P, size_t row, int lane,
+                              double* p) {
+    if (lane < pw)
+      p[lane] = static_cast<double>(*srbd::param_src<S>(P, row, lane));
   }
   // this lane's share of the node's Σ‖ρ‖², and the Euler step's rows
   // lane and lane + 32 into step (every lane must call it: the shuffles)
@@ -111,8 +124,10 @@ struct LipFamily {
     return lip::make_params<T>(p);
   }
   template <typename T>
-  __device__ static double param(const Params<T>& P, size_t row, int e) {
-    return static_cast<double>(*lip::param_src<S>(P, row, e));
+  __device__ static void load(const Params<T>& P, size_t row, int lane,
+                              double* p) {
+    if (lane < pw)
+      p[lane] = static_cast<double>(*lip::param_src<S>(P, row, lane));
   }
   __device__ static double stage(int lane, const double* x, const double* u,
                                  const double* p, const Consts& k,
@@ -128,12 +143,72 @@ struct LipFamily {
   }
 };
 
+// The isrbd AL inner problem at the shape S (isrbd::KangarooAlShape,
+// isrbd::QuadAlShape; K1's IsrbdAlShape and QuadAlShape): the RK2 step of
+// the double integrator and the inner stage and terminal stacks, with the
+// node's 21 parameter tensors packed into one row (K6's layout). The
+// stage reads x and u side by side: the warp's buffers keep u right after
+// x̂ (WarpBuf).
+template <class S>
+struct IsrbdAlFamily {
+  static constexpr int nx = S::nx, nu = S::nu, nt = S::n_term,
+                       n_rx = S::n_rx, n_ru = S::n_ru, n_gx = S::n_gx,
+                       n_gu = S::n_gu, n_b = S::n_b, n_uc = S::n_uc,
+                       pw = S::n_par;
+  using Consts = isrbd::Consts<S, double>;
+  template <typename T>
+  using Params = isrbd::Params<T>;
+  static Consts consts(const double* s) {
+    return isrbd::make_consts<S, double>(s);
+  }
+  template <typename T>
+  static Params<T> params(const void* const* p) {
+    return isrbd::make_params<T>(p);
+  }
+  template <typename T>
+  __device__ static void load(const Params<T>& P, size_t row, int lane,
+                              double* p) {
+#pragma unroll
+    for (int t = 0; t < isrbd::kParams; ++t) {
+      const int dim = isrbd::param_dim<S>(t), off = isrbd::param_off<S>(t);
+      const T* src = P.p[t] + row * dim;
+      for (int e = lane; e < dim; e += 32)
+        p[off + e] = static_cast<double>(src[e]);
+    }
+  }
+  __device__ static double stage(int lane, const double* x, const double* u,
+                                 const double* p, const Consts& k,
+                                 double (&step)[2]) {
+    const double* xu = x;                          // u == x + nx
+    const double hdt = 0.5 * k.dt;
+    const isrbd::Rates<double> rt = isrbd::rates<S>(xu, hdt);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = lane + 32 * c;
+      step[c] = j < nx ? isrbd::step_row<S>(j, xu, rt, hdt, k.dt) : 0.0;
+    }
+    const isrbd::Geometry<double> geo = isrbd::geometry(xu, k);
+    double acc = 0.0;
+    isrbd::stage_rows<false>(lane, xu, p, geo, k,
+                             [&acc](int, double v) { acc += v * v; },
+                             [](int, double) {});
+    return acc;
+  }
+  __device__ static double terminal(int lane, const double* x,
+                                    const double* p, const Consts& k) {
+    double acc = 0.0;
+    isrbd::terminal_rows(lane, x, p, k,
+                         [&acc](int, double v) { acc += v * v; });
+    return acc;
+  }
+};
+
 // A warp's float64 buffers: δx, x̂, û, Kδx and the node's parameter row.
 template <class F>
 struct WarpBuf {
   static constexpr int dx = 0, xh = dx + F::nx, u = xh + F::nx, w = u + F::nu,
-                       p = w + F::nu, size = p + 32;
-  static_assert(F::pw <= 32 && F::nx <= 64 && F::nu <= 32, "lane layout");
+                       p = w + F::nu, size = p + (F::pw + 31) / 32 * 32;
+  static_assert(F::nx <= 64 && F::nu <= 32, "lane layout");
 };
 
 // The block's rows: each state row's position in rx and in ru (or −1), then
@@ -202,7 +277,7 @@ linear_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
       xh[j] = v;
       Xo[j] = static_cast<T>(v);
     }
-    if (lane < F::pw) p[lane] = F::param(P, row0 + n, lane);
+    F::load(P, row0 + n, lane, p);
     __syncwarp();
     if (lane < nu) {             // ûₙ = (Uₙ + α kₙ) + Kₙ δxₙ
       const T* Kr = Ks + (bn * nu + lane) * nx;
@@ -265,7 +340,7 @@ linear_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     xh[j] = v;
     Xo[j] = static_cast<T>(v);
   }
-  if (lane < F::pw) p[lane] = F::param(P, row0 + ns, lane);
+  F::load(P, row0 + ns, lane, p);
   __syncwarp();
   acc += F::terminal(lane, xh, p, k);
   const double cost = rigid::warp_sum(acc);
@@ -316,8 +391,11 @@ int launch(const void* x0, const void* X, const void* U, const void* ks,
 template <class Fn>
 int with_family(int index, Fn fn) {
   switch (index) {
-    case 0: return fn(SrbdFamily{});
+    case 0: return fn(SrbdFamily<srbd::KangarooShape>{});
     case 1: return fn(LipFamily{});
+    case 2: return fn(SrbdFamily<srbd::QuadShape>{});
+    case 3: return fn(IsrbdAlFamily<isrbd::KangarooAlShape>{});
+    case 4: return fn(IsrbdAlFamily<isrbd::QuadAlShape>{});
     default: return kUnknownShape;
   }
 }

@@ -31,6 +31,13 @@
 //      order by the member's last block to finish.
 // One launch a phase and one a scan stage: 8 a sweep at ns = 20.
 //
+// Instantiations (`with_instance`): K1's five shapes, with both gain solves
+// at the SRBD, LIP and quadruped shapes and with the Cholesky solve alone
+// at the two isrbd-AL shapes (the AL solver always asks its inner solver
+// for Cholesky). The AL shapes' element and gain blocks are the largest
+// (~117 KB and ~84 KB of shared memory): nu = 30 and the 103
+// Gauss–Newton rows of u, with a terminal stack of 101 / 97 rows.
+//
 // The dense A = I + Sx at rx and B = Bs at (ru, uc) are never formed: every
 // product with them runs over the live rows and columns only, where the
 // twin's dense products add exact zeros.
@@ -73,10 +80,10 @@ constexpr int kSmemExceeded = -1;
 // the gain solve (kernels/riccati_associative.py::QUU_SOLVERS)
 enum class Solve { kSchur, kCholesky };
 
-// K1's SrbdShape and LipShape (csrc/riccati_backward.cu): the sizes of
-// kernels/riccati.py::KERNEL_SHAPES "srbd" and "lip", in the order of
-// KERNEL_INSTANCES here (tests/test_torch_riccati_associative.py holds
-// both to the table)
+// K1's shape structs (csrc/riccati_backward.cu): the sizes of
+// kernels/riccati.py::KERNEL_SHAPES, in the order of KERNEL_INSTANCES here
+// (tests/test_torch_riccati_associative.py holds each to the table). The
+// four nx = 37 shapes share one combine kernel (it is templated on nx).
 struct SrbdShape {          // build_srbd_problem
   static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
                        n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
@@ -85,6 +92,21 @@ struct SrbdShape {          // build_srbd_problem
 struct LipShape {           // build_lip_problem
   static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
                        n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
+};
+
+struct QuadShape {          // build_srbd_problem on the point-feet quadruped
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
+                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
+};
+
+struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
+  static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
+                       n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
+};
+
+struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
+  static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
+                       n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
 };
 
 // One element's float64 record in the workspace: A, C, J (nx×nx), b, η.
@@ -736,6 +758,10 @@ int with_instance(int inst, Fn fn) {
     case 1: return fn(Inst<SrbdShape, Solve::kCholesky>{});
     case 2: return fn(Inst<LipShape, Solve::kSchur>{});
     case 3: return fn(Inst<LipShape, Solve::kCholesky>{});
+    case 4: return fn(Inst<QuadShape, Solve::kSchur>{});
+    case 5: return fn(Inst<QuadShape, Solve::kCholesky>{});
+    case 6: return fn(Inst<IsrbdAlShape, Solve::kCholesky>{});
+    case 7: return fn(Inst<QuadAlShape, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }

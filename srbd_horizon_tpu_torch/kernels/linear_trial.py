@@ -27,9 +27,14 @@ recursion in node order. A and B come from the sliced linearization
 Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
 (nα, B) — what K3 and K11 return, so the solver's line search takes either.
 
-The kernel is compiled for two problems (`FAMILIES`): the Kangaroo's SRBD
-problem and the LIP; CUDA tensors of other sizes raise ValueError, CPU
-tensors take the twin at any size.
+The step in D̂ is the problem's own (`family_step`, as JAX's
+`_true_defects` takes `ocp.step`): Euler on the SRBD problem and the LIP,
+the RK2 step of the double integrator on the isrbd AL inner problem.
+
+The kernel is compiled for five problems (`FAMILIES`): the SRBD problem of
+the Kangaroo and of the point-feet quadruped, the LIP, and the AL inner
+problem of both robots' isrbd problems (K1's five shapes); CUDA tensors of
+other sizes raise ValueError, CPU tensors take the twin at any size.
 """
 
 from __future__ import annotations
@@ -38,7 +43,11 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels import lip_linearize, linearize
+from srbd_horizon_tpu_torch.kernels import (
+    isrbd_linearize,
+    lip_linearize,
+    linearize,
+)
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
 from srbd_horizon_tpu_torch.kernels.riccati import KERNEL_SHAPES, RiccatiRows
 from srbd_horizon_tpu_torch.kernels.riccati_associative import (
@@ -53,17 +62,36 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1454"
 SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
 
 # the problems the kernel is compiled for, in the order of the .cu's
-# `with_family`: (terms.family, the linearization's shape name, K1's shape)
-FAMILIES = (("srbd", "kangaroo", "srbd"), ("lip", None, "lip"))
-N_SCALARS = {"srbd": 24, "lip": lip_linearize.N_SCALARS}
+# `with_family`: (terms.family, the linearization's shape name — K4's or
+# K5's `KERNEL_SHAPES` — and K1's shape)
+FAMILIES = (("srbd", "kangaroo", "srbd"), ("lip", None, "lip"),
+            ("srbd", "quadruped", "quadruped"),
+            ("isrbd_al", "kangaroo", "isrbd_al"),
+            ("isrbd_al", "quadruped", "isrbd_al_quadruped"))
+# each family's module of shape checks and parameter tensors
+_LINEARIZE = {"srbd": linearize, "lip": lip_linearize,
+              "isrbd_al": isrbd_linearize}
 
 
 def family_xdot(terms):
-    """ẋ(x, u) of the problem behind `terms` (`SRBDTerms` or `LIPTerms`)."""
+    """ẋ(x, u) of the problem behind `terms` (`SRBDTerms`, `LIPTerms`, or
+    the AL inner problem's `ALTerms`: its double integrator)."""
     if terms.family == "lip":
         return terms.xdot
+    if terms.family == "isrbd_al":
+        return terms.outer.xdot
     consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
     return lambda x, u: srbd_xdot(x, u, consts)
+
+
+def family_step(terms, dt: float):
+    """step(x, u) of the problem behind `terms`, its OCP's integrator: the
+    Euler step on the SRBD problem and the LIP, the RK2 (midpoint) step on
+    the isrbd AL inner problem (srbd_horizon_tpu/ocp/integrators.py)."""
+    xdot = family_xdot(terms)
+    if terms.family == "isrbd_al":
+        return lambda x, u: x + dt * xdot(x + 0.5 * dt * xdot(x, u), u)
+    return lambda x, u: x + dt * xdot(x, u)
 
 
 def forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas):
@@ -93,19 +121,20 @@ def forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas):
 def linear_trial_plain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0,
                        D, dV1, dV2, terms, rows: RiccatiRows, dt: float,
                        wc: float, nu_w: float, beta: float, alpha_min: float):
-    """Plain PyTorch K13: `forward_linear_plain`, the true defects and the
-    cost of each plan (`terms` is the problem's `SRBDTerms` or `LIPTerms`,
-    wc = √w_c) and the Armijo test with the measured defects. Sx
-    (B,ns,|rx|,nx), Bs (B,ns,|ru|,|uc|); params leaves (B,ns+1,dim);
+    """Plain PyTorch K13: `forward_linear_plain`, the true defects under
+    the problem's step and the cost of each plan (`terms` is the problem's
+    `SRBDTerms`, `LIPTerms` or `ALTerms`; wc = √w_c, which the AL inner
+    problem does not read) and the Armijo test with the measured defects.
+    Sx (B,ns,|rx|,nx), Bs (B,ns,|ru|,|uc|); params leaves (B,ns+1,dim);
     merit0, D, dV1, dV2 (B,)."""
     nu = U.shape[-1]
     A, Bd = dense_dynamics(Sx, Bs, rows, nu)
     Xn, Un = forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas)
     ns = U.shape[-2]
-    x = Xn[..., :ns, :]
-    dn = x + dt * family_xdot(terms)(x, Un) - Xn[..., 1:, :]
+    dn = family_step(terms, dt)(Xn[..., :ns, :], Un) - Xn[..., 1:, :]
     D_new = torch.sum(dn * dn, dim=(-2, -1))
-    new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
+    new_cost = terms.total_cost(Xn, Un, params,
+                                *terms.family_args(wc))     # (nα, B)
     a = alphas[:, None]
     new_merit = new_cost + nu_w * D_new
     expected = -(a * dV1 + a ** 2 * dV2) + (2.0 * a - a ** 2) * nu_w * D
@@ -126,21 +155,17 @@ def family_index(terms, nx: int, nu: int, rows: RiccatiRows) -> int:
     """The index in `FAMILIES` of the kernel for this problem; ValueError,
     naming the sizes, for a problem it was not compiled for."""
     fam = getattr(terms, "family", None)
-    for i, (name, lin_shape, k1_shape) in enumerate(FAMILIES):
-        if fam != name:
-            continue
-        if name == "srbd":
-            got = linearize.check_kernel_shape("linear_trial", terms, nx, nu)
-            if got != lin_shape:
-                break
-        else:
-            lip_linearize.check_kernel_shape("linear_trial", terms, nx, nu)
-        want = KERNEL_SHAPES[k1_shape]
-        have = dict(n_rx=len(rows.rx), n_ru=len(rows.ru), n_gx=len(rows.gx),
-                    n_gu=len(rows.gu), n_b=len(rows.bx), n_uc=len(rows.uc))
-        if have == {k: want[k] for k in have} and nx == want["nx"]:
-            return i
-        break
+    have = dict(nx=nx, n_rx=len(rows.rx), n_ru=len(rows.ru),
+                n_gx=len(rows.gx), n_gu=len(rows.gu), n_b=len(rows.bx),
+                n_uc=len(rows.uc))
+    if fam in _LINEARIZE:
+        shape = _LINEARIZE[fam].check_kernel_shape("linear_trial", terms, nx,
+                                                   nu)
+        for i, (name, lin_shape, k1_shape) in enumerate(FAMILIES):
+            want = KERNEL_SHAPES[k1_shape]
+            if (name, lin_shape) == (fam, shape) and \
+                    have == {k: want[k] for k in have}:
+                return i
     raise ValueError(
         f"linear_trial has no kernel for the {fam!r} problem of nx={nx}, "
         f"nu={nu}; it is compiled for {FAMILIES} (csrc/linear_trial.cu)")
@@ -156,15 +181,16 @@ def _kernel_fn(dtype):
     return fn
 
 
-def occupancy(family: str = "srbd", dtype=torch.float32) -> dict:
+def occupancy(shape: str = "srbd", dtype=torch.float32) -> dict:
     """K13's blocks resident on one SM, static shared memory bytes a block,
-    registers and local (spilled) bytes a thread on the current card."""
+    registers and local (spilled) bytes a thread on the current card, for
+    the family at K1's shape name `shape`."""
     fn = library("linear_trial").linear_trial_occupancy
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
     out = (ctypes.c_int * 4)()
-    idx = [f[0] for f in FAMILIES].index(family)
+    idx = [f[2] for f in FAMILIES].index(shape)
     err = fn(idx, int(dtype == torch.float64), out)
     if err != 0:
         raise RuntimeError(f"linear_trial occupancy failed: error {err}")
@@ -177,8 +203,9 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
                  nu_w: float, beta: float, alpha_min: float):
     """K13. Same contract as `linear_trial_plain`; launches the CUDA kernel
     for CUDA tensors of a problem in `FAMILIES` (and counts the launch in
-    `linear_trial.launches`), raises ValueError for others. It computes in
-    float64 for float32 tensors too."""
+    `linear_trial.launches` and in its family's entry of
+    `linear_trial.family_launches`), raises ValueError for others. It
+    computes in float64 for float32 tensors too."""
     if d.device.type == "cpu":
         return linear_trial_plain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params,
                                   merit0, D, dV1, dV2, terms, rows, dt, wc,
@@ -203,15 +230,20 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
     check_tensor("alphas", alphas, (nA,), dtype, dev)
     for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
         check_tensor(name, t, (Bsz,), dtype, dev)
-    kp = linearize.kernel_params if fam == 0 else lip_linearize.kernel_params
-    pt = kp(params, Bsz, ns, terms.nc, dtype, dev)
+    if terms.family == "isrbd_al":
+        pt = isrbd_linearize.kernel_params(params, Bsz, ns, terms, dtype, dev)
+        sc = isrbd_linearize.kernel_scalars(terms, dt)
+    else:
+        pt = _LINEARIZE[terms.family].kernel_params(params, Bsz, ns, terms.nc,
+                                                    dtype, dev)
+        sc = terms.kernel_scalars(dt, wc)
     Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
     Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
     cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
     merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
     ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
     ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    scalars = (_D * N_SCALARS[terms.family])(*terms.kernel_scalars(dt, wc))
+    scalars = (_D * len(sc))(*sc)
     fn = _kernel_fn(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -227,7 +259,10 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
     if err != 0:
         raise RuntimeError(f"linear_trial kernel failed: CUDA error {err}")
     linear_trial.launches += 1
+    linear_trial.family_launches[fam] += 1
     return Xn, Un, cost, merit, ok
 
 
 linear_trial.launches = 0
+# the launches of each family, indexed as FAMILIES
+linear_trial.family_launches = [0] * len(FAMILIES)

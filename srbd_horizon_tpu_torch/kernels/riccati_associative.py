@@ -50,12 +50,19 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1250"
 SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_associative.cu"
 
 # K12's instantiations, in the order of the .cu's `with_instance`: (K1's
-# shape name, gain solve). CUDA tensors of other sizes raise ValueError.
+# shape name, gain solve). Both gain solves at the SRBD, LIP and quadruped
+# shapes; Cholesky alone at the two isrbd-AL shapes, whose only caller, the
+# AL solver's inner solve, always takes it. CUDA tensors of other sizes or
+# another gain solve raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "schur"),
     ("srbd", "cholesky"),
     ("lip", "schur"),
     ("lip", "cholesky"),
+    ("quadruped", "schur"),
+    ("quadruped", "cholesky"),
+    ("isrbd_al", "cholesky"),
+    ("isrbd_al_quadruped", "cholesky"),
 )
 # the launchers' own errors, as K1's (kernels/riccati.py)
 SMEM_EXCEEDED = -1
@@ -222,7 +229,13 @@ def kernel_instance(nx: int, nu: int, nt: int, rows: RiccatiRows,
                     quu_solver: str) -> int:
     """The index in `KERNEL_INSTANCES` for these sizes (K1's shape names)
     and gain solve; ValueError, naming what was compiled, if none."""
-    key = (kernel_shape(nx, nu, nt, rows), quu_solver)
+    return shape_instance(kernel_shape(nx, nu, nt, rows), quu_solver)
+
+
+def shape_instance(shape: str, quu_solver: str) -> int:
+    """The index in `KERNEL_INSTANCES` for K1's shape name `shape` and the
+    gain solve; ValueError, naming what was compiled, if none."""
+    key = (shape, quu_solver)
     if key not in KERNEL_INSTANCES:
         raise ValueError(
             f"riccati_associative has no kernel for {key}; it is compiled for "

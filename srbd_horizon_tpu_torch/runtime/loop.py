@@ -273,7 +273,9 @@ def build_quadruped_loop(cfg: Optional[SRBDConfig] = None,
     `beta=1e-3`, the diagonal-pair trot WPG at the feet's height, the
     Newton–Euler telemetry on. One robot: `tick` / `run` on x0 (nx,); a
     fleet: `tick_batch` on x0 (B, nx), usually with
-    `shift_warmstart=True`. Built on `device` (default "cuda"; raises when
+    `shift_warmstart=True`. `opts` may set any execution mode
+    (`riccati_mode="associative"`, `forward_pass="linear"`: K12 and K13 at
+    the quadruped's shape). Built on `device` (default "cuda"; raises when
     CUDA is absent unless another device is given). Returns (loop,
     problem)."""
     dev = resolve_device(device)

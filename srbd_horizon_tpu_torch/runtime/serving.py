@@ -19,9 +19,11 @@ def constrained_tick(online: ALDDP, wpg: WalkingPatternGenerator,
                      rdot_ref, prior=None, outers: int = 1,
                      prior_ema: float = 1.0):
     """One serving tick for the fleet. `action` (B,) int, `rdot_ref`
-    (B, 3); every other argument leads with the fleet axis. Returns
-    (ALState, params, WPGState, prior); `prior` is passed through as None
-    when none is given."""
+    (B, 3); every other argument leads with the fleet axis. The inner
+    solves run `online.ddp_opts`' execution modes (under a non-default
+    `riccati_mode` or `forward_pass`, JAX's `vmap(solve)` on K12/K13).
+    Returns (ALState, params, WPGState, prior); `prior` is passed through
+    as None when none is given."""
     period = 2 * wpg.step_nodes
     # cycle phase of this tick's terminal write (read before the advance)
     phase = wpg_state.step_counter % period

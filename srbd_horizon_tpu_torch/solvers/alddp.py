@@ -32,9 +32,15 @@ violation 0-d): `solve` and `solve_online`, which run the inner
 The inner solver is built with `quu_solver="cholesky"`, as the JAX
 package builds it (alddp.py:324-331: at ρ → 1e8 the block-Schur solve
 emits NaNs): `solve` and `solve_online` run K1's Tassa form with the
-Cholesky gain solve. The batched lane-major sweep that every batched entry
-point runs ignores the option and takes the block-Schur inverse, in JAX as
-here (see kernels/riccati.py).
+Cholesky gain solve. Under the default execution modes, the batched
+lane-major sweep that every batched entry point runs ignores the option
+and takes the block-Schur inverse, in JAX as here (see kernels/riccati.py).
+
+The inner solver takes `ddp_opts`' execution modes as JAX passes them:
+under `riccati_mode="associative"` (K12 at the AL shapes, Cholesky gains)
+or `forward_pass="linear"` (K13), every entry point runs them, and the
+batched inner solves are the JAX package's `vmap(solve)`
+(`MSDDP._solve_members`), so they too take the Cholesky gain solve.
 """
 
 from __future__ import annotations
@@ -195,8 +201,10 @@ class ALDDP:
             residual_u_rows=tuple(sorted(ur)),
             constants=dict(outer.constants, terms=terms),
         )
-        # the unbatched inner solves take the Cholesky gain solve; the
-        # batched ones ignore the option, as in the JAX package
+        # the unbatched inner solves take the Cholesky gain solve, and so do
+        # the batched ones under a non-default riccati_mode or forward_pass
+        # (JAX's vmap(solve)); under the defaults the batched ones ignore
+        # the option, as in the JAX package
         self._inner = MSDDP(inner_ocp, dataclasses.replace(
             self.ddp_opts, quu_solver="cholesky"))
 

@@ -45,8 +45,11 @@ parallel line search's trial the linearized forward pass with the measured
 defects (`_forward_linear`, :1454, in the trial of :1507-1531) — kernel K13
 (`kernels/linear_trial.py`); the sequential line search always rolls out.
 Under either, `solve_batch` is the JAX package's `vmap(solve)`
-(`_solve_members`). Both kernels are compiled for the Kangaroo SRBD problem
-and the LIP; the solver refuses the modes on any other problem.
+(`_solve_members`). Both kernels are compiled for K1's five shapes: the
+SRBD problem of the Kangaroo and of the point-feet quadruped, the LIP, and
+the AL inner problem of both robots (K12 with the Cholesky gain solve
+alone there, which the AL solver always takes); the solver refuses the
+modes on any other problem or gain solve.
 
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
@@ -73,10 +76,17 @@ from srbd_horizon_tpu_torch.kernels.isrbd_rollout import (
 )
 from srbd_horizon_tpu_torch.kernels.linearize import srbd_linearize
 from srbd_horizon_tpu_torch.kernels.lip_linearize import lip_linearize
-from srbd_horizon_tpu_torch.kernels.linear_trial import family_index, linear_trial
+from srbd_horizon_tpu_torch.kernels.linear_trial import (
+    FAMILIES,
+    family_index,
+    linear_trial,
+)
 from srbd_horizon_tpu_torch.kernels.lip_rollout import lip_evaluate, lip_trial
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows, riccati_backward
-from srbd_horizon_tpu_torch.kernels.riccati_associative import riccati_associative
+from srbd_horizon_tpu_torch.kernels.riccati_associative import (
+    riccati_associative,
+    shape_instance,
+)
 from srbd_horizon_tpu_torch.kernels.rollout import srbd_evaluate, srbd_trial
 from srbd_horizon_tpu_torch.ocp.spec import OCP
 
@@ -162,17 +172,23 @@ class MSDDP:
                 "solvers/alddp.py)"
             )
         self.rows = RiccatiRows.from_ocp(ocp)
-        if (self.opts.riccati_mode, self.opts.forward_pass) != (
-                "sequential", "nonlinear"):
+        opts = self.opts
+        if (opts.riccati_mode, opts.forward_pass) != ("sequential",
+                                                       "nonlinear"):
+            # K12 and K13 exist at K1's five shapes (K12 with both gain
+            # solves, but Cholesky alone at the AL ones): a problem or gain
+            # solve without a kernel is refused on every device
             try:
-                family_index(terms, ocp.nx, ocp.nu, self.rows)
+                shape = FAMILIES[family_index(terms, ocp.nx, ocp.nu,
+                                              self.rows)][2]
+                if opts.riccati_mode == "associative":
+                    shape_instance(shape, opts.quu_solver)
             except ValueError as err:
                 raise NotImplementedError(
-                    f"riccati_mode={self.opts.riccati_mode!r}, forward_pass="
-                    f"{self.opts.forward_pass!r}: K12 and K13 are compiled for "
-                    "the Kangaroo SRBD problem and the LIP only; the other "
-                    "shapes wait on ROADMAP.md Queue 2 (K12/K13 at QuadShape, "
-                    f"IsrbdAlShape, QuadAlShape): {err}") from None
+                    f"riccati_mode={opts.riccati_mode!r}, forward_pass="
+                    f"{opts.forward_pass!r}, quu_solver={opts.quu_solver!r}: "
+                    "K12 and K13 have no kernel for this problem; another "
+                    f"shape needs one (ROADMAP.md Queue 2): {err}") from None
 
     @property
     def terms(self):
@@ -294,7 +310,7 @@ class MSDDP:
                 lin["Sx"], lin["Bs"], d, al,
                 {k: v.contiguous() for k, v in params.items()},
                 merit0, D, dV1, dV2, self.terms, self.rows, self.ocp.dt,
-                *self._family_args(X.dtype), opts.defect_weight, opts.beta,
+                self._wc(X.dtype), opts.defect_weight, opts.beta,
                 opts.alpha_converge_threshold)
         trial = _KERNELS[self.terms.family][1]
         return trial(

@@ -143,13 +143,13 @@ def isrbd_problems(ns=20, **kw):
     return jp, tp
 
 
-def al_solvers(jp, tp, max_iters=3, **al):
-    """(jax ALDDP, torch ALDDP) with the serving schedule's options."""
+def al_solvers(jp, tp, max_iters=3, ddp=None, **al):
+    """(jax ALDDP, torch ALDDP) with the serving schedule's options; `ddp`
+    adds DDP options (an execution mode) to both."""
     al = dict(dict(outer_iters=2, rho0=1e3, rho_max=1e5, tol=1e-5), **al)
-    return (JALDDP(jp.ocp, JDDPOptions(max_iters=max_iters, **AL_DDP_OPTS),
-                   JALOptions(**al)),
-            TALDDP(tp.ocp, TDDPOptions(max_iters=max_iters, **AL_DDP_OPTS),
-                   TALOptions(**al)))
+    ddp = dict(max_iters=max_iters, **AL_DDP_OPTS, **(ddp or {}))
+    return (JALDDP(jp.ocp, JDDPOptions(**ddp), JALOptions(**al)),
+            TALDDP(tp.ocp, TDDPOptions(**ddp), TALOptions(**al)))
 
 
 def random_al_state(ocp, B, seed, n_eq, n_eq_T, n_in):
@@ -281,15 +281,18 @@ from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator as TWPG
 QUAD_VX = 0.15
 
 
-def quadruped_isrbd_problems():
+def quadruped_isrbd_problems(ns=20):
     """(jax ISRBDProblem, torch ISRBDProblem) of the point-feet quadruped as
     the JAX package's constrained example builds it (the LIP height at the
-    robot's CoM), float64 on the CPU."""
+    robot's CoM), float64 on the CPU; another `ns` cuts the horizon of
+    0.05 s nodes and the hybrid schedule with it, as `isrbd_problems`."""
     jr, tr = j_quad(), t_quad()
+    kw = {} if ns == 20 else dict(srbd_nodes=ns // 2, lipzone_start=ns // 4)
+    shape = dict(ns=ns, T=0.05 * ns, **QUAD_TOPOLOGY)
     jp = j_build_isrbd(JSRBDConfig(dtype=jnp.float64, lip_height=float(jr.com[2]),
-                                   **QUAD_TOPOLOGY), jr)
+                                   **shape), jr, **kw)
     tp = t_build_isrbd(TSRBDConfig(dtype=F64, lip_height=float(tr.com[2]),
-                                   **QUAD_TOPOLOGY), tr, device=CPU)
+                                   **shape), tr, device=CPU, **kw)
     return jp, tp
 
 
@@ -334,3 +337,115 @@ def torch_constrained_trot(prob, offline, online, wpg, ticks, vx=QUAD_VX):
             params)
         states.append(st)
     return states
+
+
+# ---------------- the execution modes on the AL solver ----------------
+
+# the three non-default (riccati_mode, forward_pass) combinations
+MODES = [("associative", "nonlinear"), ("sequential", "linear"),
+         ("associative", "linear")]
+MODE_IDS = ["associative-nonlinear", "sequential-linear", "associative-linear"]
+AL_STATE_FIELDS = ("lam_eq", "lam_eq_T", "mu_ub", "mu_lb", "mu_x_ub",
+                   "mu_x_lb", "mu_u_ub", "mu_u_lb", "rho", "viol")
+
+
+def modes(riccati, forward):
+    return dict(riccati_mode=riccati, forward_pass=forward)
+
+
+def al_agree(got, want, where, tol=1e-9):
+    """Two ALStates: iterations and flags equal; plans, cost, multipliers,
+    ρ and the violation to `tol` (norm-wise relative)."""
+    g, w = al_state_numpy(got), al_state_numpy(want)
+    for k in ("iterations", "converged"):
+        np.testing.assert_array_equal(g["sol"][k], w["sol"][k],
+                                      err_msg=f"{where}: {k}")
+    errs = {k: max_rel_err(g[k], w[k]) for k in AL_STATE_FIELDS}
+    errs.update({k: max_rel_err(g["sol"][k], w["sol"][k])
+                 for k in ("X", "U", "cost")})
+    assert max(errs.values()) < tol, (where, errs)
+    return errs
+
+
+class ModesSpy:
+    """Counts a port MSDDP's K12 sweeps, K1 (Tassa) sweeps and K13 trials,
+    and the iterations its solves report (a batched solve sweeps while any
+    member iterates: its largest count)."""
+
+    def __init__(self, solver):
+        self.k12 = self.k1 = self.k13 = self.iterations = 0
+        assoc, seq, trial = (solver._backward_associative, solver._backward,
+                             solver._trial)
+        solve, solve_batch = solver.solve, solver.solve_batch
+
+        def spy_assoc(*a):
+            self.k12 += 1
+            return assoc(*a)
+
+        def spy_seq(*a):
+            self.k1 += 1
+            return seq(*a)
+
+        def spy_trial(*a):
+            self.k13 += len(a) > 12 and a[12] is not None
+            return trial(*a)
+
+        def spy_solve(*a):
+            sol = solve(*a)
+            self.iterations += int(sol.iterations)
+            return sol
+
+        def spy_solve_batch(*a):
+            sol = solve_batch(*a)
+            self.iterations += int(sol.iterations.max())
+            return sol
+
+        solver._backward_associative = spy_assoc
+        solver._backward = spy_seq
+        solver._trial = spy_trial
+        solver.solve, solver.solve_batch = spy_solve, spy_solve_batch
+
+    def check(self, mode):
+        """One K12 sweep an iteration under the associative sweep (K1
+        none), one K1 sweep an iteration under the sequential one, and
+        linear trials only under the linear pass."""
+        assert self.iterations > 2
+        if mode[0] == "associative":
+            assert (self.k12, self.k1) == (self.iterations, 0)
+        else:
+            assert (self.k12, self.k1) == (0, self.iterations)
+        assert (self.k13 > 0) == (mode[1] == "linear")
+
+
+def al_solve_then_online(al, init, x0, U0, params, online_params):
+    """`solve` from the cold state, then the warm start shifted and two
+    `solve_online`s at the plan's node 1 (either package)."""
+    st = al.solve(init(x0, U0), x0, params)
+    x1 = st.sol.X[1]
+    st1 = al.solve_online(al.shift_warmstart(st), x1, online_params)
+    return st, st1, al.solve_online(st1, x1, online_params)
+
+
+def run_al_modes(jp, tp, mode, jax_side=True, vx=0.2):
+    """Under `mode`, JAX's (unless `jax_side` is false) and the port's
+    `al_solve_then_online` (`al_solvers`: 2 outers × 3 inner iterations
+    from ρ₀ 1e3, the static input tiled; online rdot_ref (vx, 0, 0) on
+    nodes 1..ns), and the port's `ModesSpy` on its inner solver."""
+    js, ts = al_solvers(jp, tp, ddp=modes(*mode))
+    want = None
+    if jax_side:
+        U0 = jnp.tile(jp.static_input[None], (jp.ocp.ns, 1))
+        jon = dict(jp.ocp.params)
+        jon["rdot_ref"] = jon["rdot_ref"].at[1:].set(jnp.array([vx, 0.0, 0.0]))
+        want = jax.jit(lambda x0, p, q: al_solve_then_online(
+            js, lambda x, u: js.init(x, U0=u), x0, U0, p, q))(
+                jp.initial_state, jp.ocp.params, jon)
+    spy = ModesSpy(ts.inner)
+    ton = dict(tp.ocp.params)
+    r = ton["rdot_ref"]
+    ton["rdot_ref"] = torch.cat(
+        [r[:1], torch.tensor([vx, 0.0, 0.0], dtype=F64).expand(r.shape[0] - 1, 3)])
+    tU0 = tp.static_input[None].expand(tp.ocp.ns, -1).contiguous()
+    got = al_solve_then_online(ts, ts.init, tp.initial_state, tU0,
+                               tp.ocp.params, ton)
+    return want, got, spy

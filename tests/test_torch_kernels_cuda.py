@@ -38,7 +38,12 @@ occupancy, K1's uncompiled Cholesky Tassa form refused; and the
 constrained quadruped's (K5, K1 collapsed and Tassa-Cholesky, K6,
 isrbd_evaluate, K7 and K8a-c at `isrbd::QuadAlShape` and K1's
 `isrbd_al_quadruped`) by the rules of the Kangaroo's isrbd kernels, with
-their occupancy, K1's block-Schur Tassa form there refused.
+their occupancy, K1's block-Schur Tassa form there refused; and the
+execution modes' kernels, K12 and K13, at every shape they are compiled
+for (the SRBD and LIP shapes, the quadruped's, the two AL inner shapes
+with K12's Cholesky gains) against their twins, float64 K12 to 1e-8 and
+K13 to 1e-9, float32 to 1e-6 of the float64 twin, with their occupancy,
+and refusing other sizes and K12's block-Schur gains at the AL shapes.
 Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
@@ -1660,32 +1665,151 @@ def test_linear_trial_matches_plain(mode_case, nA, Bw):
         assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
 
 
-def test_modes_kernels_refuse_other_shapes(quad_case):
-    """K12 and K13 are compiled for K1's SRBD and LIP shapes only: the
-    quadruped's sizes raise ValueError before any launch."""
+# K12's and K13's instantiations at the shapes past the SRBD and LIP ones:
+# the quadruped's SRBD problem with both gain solves, the two AL inner
+# problems with Cholesky (the AL solver's only gain solve)
+NEW_MODE_SHAPES = [("quadruped", "schur"), ("quadruped", "cholesky"),
+                   ("isrbd_al", "cholesky"), ("isrbd_al_quadruped", "cholesky")]
+NEW_MODE_IDS = [f"{s}-{g}" for s, g in NEW_MODE_SHAPES]
+
+
+def _new_mode_case(request, shape):
+    """quad_case, or an AL point (isrbd_case, qc_case) with the inner
+    solver's rows, μ, parameters and solver under mode_case's keys."""
+    if shape == "quadruped":
+        return request.getfixturevalue("quad_case")
+    c = request.getfixturevalue("isrbd_case" if shape == "isrbd_al"
+                                else "qc_case")
+    s = c["al"].inner
+    return dict(lin=c["lin"], rows=s.rows, mu=s.opts.mu0, X=c["X"], U=c["U"],
+                x0=c["x0"], params=c["pin"], solver=s, ocp=c["ocp"])
+
+
+@pytest.mark.parametrize("Bw", [1, 64, 133])
+@pytest.mark.parametrize("shape,solver", NEW_MODE_SHAPES, ids=NEW_MODE_IDS)
+def test_riccati_associative_new_shapes_match_plain(request, shape, solver, Bw):
+    """K12 at the quadruped's SRBD shape and the two AL shapes against its
+    twin, by the rules of `test_riccati_associative_matches_plain` (the AL
+    points carry penalties ρ up to 1e5 in the element's R̃)."""
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = _new_mode_case(request, shape)
+    lin = {k: _repeat(c["lin"][k], Bw) for k in ORDER}
+    args = lambda dtype: tuple(lin[k].to(dtype).contiguous() for k in ORDER)
+    nt = lin["Jt"].shape[1]
+    assert k12.KERNEL_INSTANCES[k12.kernel_instance(
+        37, lin["Jup"].shape[-1], nt, c["rows"], solver)] == (shape, solver)
+    ref = k12.riccati_associative_plain(*args(torch.float64), c["mu"],
+                                        c["rows"], solver)
+    n0 = k12.riccati_associative.launches
+    got = k12.riccati_associative(*args(torch.float64), c["mu"], c["rows"],
+                                  solver)
+    torch.cuda.synchronize()
+    assert k12.riccati_associative.launches == n0 + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _rel(g, r) <= K12_F64_TOL
+    got32 = k12.riccati_associative(*args(torch.float32), c["mu"], c["rows"],
+                                    solver)
+    ref32 = k12.riccati_associative_plain(
+        *(a.double() for a in args(torch.float32)), c["mu"], c["rows"], solver)
+    for g, r in zip(got32, ref32):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("Bw", [1, 64])
+@pytest.mark.parametrize("shape", ["quadruped", "isrbd_al", "isrbd_al_quadruped"])
+def test_linear_trial_new_families_match_plain(request, shape, Bw, nA):
+    """K13's quadruped SRBD family and its isrbd-AL family (RK2 defects, the
+    inner stacks) at both AL shapes against the twin, by the rules of
+    `test_linear_trial_matches_plain`."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = _new_mode_case(request, shape)
+    s = c["solver"]
+    assert k13.FAMILIES[k13.family_index(s.terms, 37, s.ocp.nu, c["rows"])][2] \
+        == shape
+    lin = {k: _repeat(c["lin"][k], Bw) for k in ORDER}
+    ks, Ks, dV1, dV2 = k12.riccati_associative_plain(
+        *(lin[k] for k in ORDER), c["mu"], c["rows"], "cholesky")
+    X, U, x0 = (_repeat(c[k], Bw) for k in ("X", "U", "x0"))
+    params = {k: _repeat(v, Bw) for k, v in c["params"].items()}
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(X, U, params) + s.opts.defect_weight * D
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=X.device)
+
+    def args(dtype, cast=None):
+        t = lambda a: a.to(dtype).contiguous()
+        out = (t(x0), t(X), t(U), t(ks), t(Ks), t(lin["Sx"]), t(lin["Bs"]),
+               t(lin["d"]), t(alphas), {k: t(v) for k, v in params.items()},
+               t(merit0), t(D), t(dV1), t(dV2))
+        if cast is not None:
+            out = tuple({k: v.to(cast) for k, v in a.items()}
+                        if isinstance(a, dict) else a.to(cast) for a in out)
+        return out + (s.terms, s.rows, c["ocp"].dt, s._wc(torch.float64),
+                      s.opts.defect_weight, s.opts.beta,
+                      s.opts.alpha_converge_threshold)
+
+    ref = k13.linear_trial_plain(*args(torch.float64))
+    n0 = k13.linear_trial.launches
+    got = k13.linear_trial(*args(torch.float64))
+    torch.cuda.synchronize()
+    assert k13.linear_trial.launches == n0 + 1
+    for g, r in zip(got[:4], ref[:4]):
+        assert g.shape == r.shape and _rel(g, r) <= 1e-9
+    assert torch.equal(got[4], ref[4])
+    got32 = k13.linear_trial(*args(torch.float32))
+    ref32 = k13.linear_trial_plain(*args(torch.float32, torch.float64))
+    for g, r in zip(got32[:4], ref32[:4]):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+def test_modes_kernels_refuse_other_shapes(quad_case, isrbd_case):
+    """K12 and K13 are compiled for K1's five shapes only (K12 with Cholesky
+    alone at the AL ones): a quadruped linearization with one residual row
+    fewer, and the AL shape with the block-Schur gain solve, raise
+    ValueError before any launch."""
+    import dataclasses
+
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
     from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
     c = quad_case
-    args = tuple(c["lin"][k].contiguous() for k in ORDER)
+    rows = dataclasses.replace(c["rows"], gx=c["rows"].gx[:-1])
+    args = tuple((c["lin"][k][:, :, :-1] if k == "Jxp" else c["lin"][k])
+                 .contiguous() for k in ORDER)
     n0 = k12.riccati_associative.launches
     with pytest.raises(ValueError):
-        k12.riccati_associative(*args, c["mu"], c["rows"])
+        k12.riccati_associative(*args, c["mu"], rows)
+    inner = isrbd_case["al"].inner
+    lin = isrbd_case["lin"]
+    with pytest.raises(ValueError, match="riccati_associative has no kernel"):
+        k12.riccati_associative(*(lin[k].contiguous() for k in ORDER),
+                                inner.opts.mu0, inner.rows, "schur")
     assert k12.riccati_associative.launches == n0
     with pytest.raises(ValueError):
-        k13.family_index(c["solver"].terms, 37, 24, c["rows"])
+        k13.family_index(c["solver"].terms, 37, 24, rows)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-def test_modes_occupancy(card_case, lip_case, dtype):
-    """Each phase of K12, and K13, report at least one block an SM."""
+def test_modes_occupancy(card_case, lip_case, quad_case, isrbd_case, qc_case,
+                         dtype):
+    """Each phase of every K12 instantiation, and K13 at every family,
+    report at least one block an SM."""
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
     from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
-    for c, (nx, nu, nt) in ((card_case, (37, 24, 15)), (lip_case, (30, 15, 10))):
-        for solver in ("schur", "cholesky"):
-            occ = k12.occupancy(nx, nu, nt, c["rows"], solver, dtype)
-            assert min(v for k, v in occ.items() if "blocks" in k) >= 1
-    for fam in ("srbd", "lip"):
-        assert k13.occupancy(fam, dtype)["blocks_per_sm"] >= 1
+    rows = {"srbd": card_case["rows"], "lip": lip_case["rows"],
+            "quadruped": quad_case["rows"],
+            "isrbd_al": isrbd_case["al"].inner.rows,
+            "isrbd_al_quadruped": qc_case["al"].inner.rows}
+    for shape, solver in k12.KERNEL_INSTANCES:
+        sz = k1.KERNEL_SHAPES[shape]
+        occ = k12.occupancy(sz["nx"], sz["nu"], sz["nt"], rows[shape], solver,
+                            dtype)
+        assert min(v for k, v in occ.items() if "blocks" in k) >= 1
+    for fam in k13.FAMILIES:
+        assert k13.occupancy(fam[2], dtype)["blocks_per_sm"] >= 1

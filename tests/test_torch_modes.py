@@ -14,7 +14,12 @@ twins), against the JAX package with the same options:
 - the sequential line search ignores `forward_pass`, as in JAX;
 - `MPCLoop.tick`/`run` pass the options through;
 - the modes are refused (NotImplementedError) where K12/K13 have no
-  instantiation: the quadruped's SRBD problem and the AL inner OCP.
+  instantiation: a six-contact isrbd problem through `ALDDP`, the AL inner
+  OCP with the block-Schur gain solve under the associative sweep; and
+  `family_index` / `kernel_instance` raise ValueError at sizes no kernel
+  has. (The quadruped and both AL inner OCPs run the modes:
+  tests/test_torch_modes_quadruped.py, test_torch_modes_alddp.py,
+  test_torch_modes_quadruped_al.py.)
 """
 
 import jax
@@ -43,10 +48,9 @@ from srbd_horizon_tpu_torch.kernels import linear_trial as k13
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 from srbd_horizon_tpu_torch.kernels import rollout as k3
-from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
-from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
-from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import MPCLoop as TLoop
 from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
 from srbd_horizon_tpu_torch.solvers.alddp import ALDDP, ALOptions
@@ -214,40 +218,76 @@ def test_tick_and_run_pass_the_modes_through(srbd):
 
 
 @pytest.fixture(scope="module")
-def refused_problems():
-    quad = build_srbd_problem(SRBDConfig(dtype=torch.float64, contact_model=1,
-                                         number_of_legs=4),
-                              quadruped_point_feet(), device="cpu")
-    _, tip = isrbd_problems(ns=8)
-    return dict(quadruped=quad, isrbd=tip)
+def six_contacts():
+    """An isrbd problem no kernel is compiled for: two legs of three
+    contacts each (nc=6, nx=49, nu=42), ns=4."""
+    line = kangaroo_line_feet()
+    w = line.foot_positions[2, 1]
+    feet = np.array([[0.08, 0.0, 0.0], [0.0, 0.0, 0.0], [-0.08, 0.0, 0.0],
+                     [0.08, w, 0.0], [0.0, w, 0.0], [-0.08, w, 0.0]])
+    robot = RobotConstants(mass=line.mass, inertia=line.inertia, com=line.com,
+                           foot_positions=feet,
+                           foot_frames=tuple(f"f{i}" for i in range(6)))
+    return build_isrbd_problem(SRBDConfig(dtype=torch.float64, ns=4,
+                                          contact_model=3), robot,
+                               device="cpu")
 
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
-@pytest.mark.parametrize("problem", ["quadruped", "isrbd"])
-def test_modes_refused_without_kernels(refused_problems, problem, mode):
-    """The quadruped's SRBD OCP (QuadShape) and the AL inner OCP (ALDDP
-    hands its `ddp_opts` to the inner solver, as JAX's alddp.py:331 does)
-    have no K12/K13 instantiation: the solver refuses the modes on every
-    device, naming the ROADMAP row, and takes the defaults."""
-    prob = refused_problems[problem]
+def test_modes_refused_on_a_shape_without_kernels(six_contacts, mode):
+    """`ALDDP` hands its `ddp_opts` to the inner solver (as JAX's
+    alddp.py:331 does): on a problem no K12/K13 instantiation has, the
+    solver refuses the modes on every device, naming the ROADMAP, and takes
+    the defaults."""
     opts = DDPOptions(**_modes(*mode))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if problem == "quadruped":
-            MSDDP(prob.ocp, opts)
-        else:
-            ALDDP(prob.ocp, opts, ALOptions())
-    if problem == "quadruped":
-        MSDDP(prob.ocp, DDPOptions())
-    else:
-        ALDDP(prob.ocp, DDPOptions(), ALOptions())
+        ALDDP(six_contacts.ocp, opts, ALOptions())
+    ALDDP(six_contacts.ocp, DDPOptions(), ALOptions())
+
+
+def test_associative_sweep_refused_without_its_gain_solve():
+    """At the AL inner shape K12 has the Cholesky gain solve only (the AL
+    solver always takes it): an MSDDP on that OCP under the associative
+    sweep with the block-Schur solve is refused; the linear pass alone,
+    whose sweep is K1's, and the Cholesky sweep are not."""
+    _, tip = isrbd_problems(ns=8)
+    inner = ALDDP(tip.ocp, DDPOptions(), ALOptions()).inner.ocp
+    with pytest.raises(NotImplementedError, match="quu_solver='schur'"):
+        MSDDP(inner, DDPOptions(riccati_mode="associative"))
+    MSDDP(inner, DDPOptions(riccati_mode="associative", quu_solver="cholesky"))
+    MSDDP(inner, DDPOptions(forward_pass="linear"))
+
+
+@pytest.mark.parametrize("change", ["gx", "ru", "uc"])
+def test_kernel_lookups_refuse_sizes_without_a_kernel(srbd, change):
+    """`family_index` (K13) and `kernel_instance` (K12) raise ValueError,
+    naming what was compiled, for row sets of a size no kernel has."""
+    _, tp, _, _ = srbd
+    ts = MSDDP(tp.ocp, DDPOptions())
+    ocp, rows = tp.ocp, ts.rows
+    assert k13.family_index(ts.terms, ocp.nx, ocp.nu, rows) == 0
+    kw = {f: getattr(rows, f) for f in ("rx", "ru", "gx", "gu", "bx", "bu",
+                                         "uc")}
+    kw[change] = kw[change][:-1]
+    other = k1.RiccatiRows(**kw)
+    with pytest.raises(ValueError, match="linear_trial has no kernel"):
+        k13.family_index(ts.terms, ocp.nx, ocp.nu, other)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k12.kernel_instance(ocp.nx, ocp.nu, 15, other, "schur")
+    with pytest.raises(ValueError, match="riccati_associative has no kernel"):
+        k12.shape_instance("isrbd_al", "schur")
 
 
 def test_wrappers_name_their_kernels():
     """K12 and K13 name the JAX functions they replace and their sources;
-    K12 is built for K1's SRBD and LIP shapes with both gain solves."""
+    K12 is built for K1's SRBD, LIP and quadruped shapes with both gain
+    solves and for the two AL shapes with Cholesky; K13 for K1's five
+    shapes."""
     assert k12.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1250"
     assert k13.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1454"
-    assert {s for s, _ in k12.KERNEL_INSTANCES} <= set(k1.KERNEL_SHAPES)
-    assert set(k12.KERNEL_INSTANCES) == {(s, q) for s in ("srbd", "lip")
-                                         for q in k1.QUU_SOLVERS}
+    assert {s for s, _ in k12.KERNEL_INSTANCES} == set(k1.KERNEL_SHAPES)
+    assert set(k12.KERNEL_INSTANCES) == {
+        (s, q) for s in ("srbd", "lip", "quadruped") for q in k1.QUU_SOLVERS
+    } | {("isrbd_al", "cholesky"), ("isrbd_al_quadruped", "cholesky")}
+    assert {f[2] for f in k13.FAMILIES} == set(k1.KERNEL_SHAPES)
     assert k13.SOURCE.endswith("linear_trial.cu") and k3.SOURCE != k13.SOURCE

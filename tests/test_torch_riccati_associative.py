@@ -1,13 +1,21 @@
 """PyTorch port, K12's plain twin (`riccati_associative_plain`, the
 associative-scan Riccati sweep of `riccati_mode="associative"`) in float64
 on the CPU: against the JAX package's `MSDDP._backward_associative` on
-JAX's dense linearization of the same drawn iterate, on the Kangaroo SRBD
-problem and on the LIP with both gain solves, entry by entry to 1e-9 of
-max(1, |JAX|) (read: ≤ 3e-10); against the port's sequential Tassa-form
-twin at the JAX package's own `TestBackwardEquivalence` tolerances; and
-its scan, which must make the 34 combines of JAX's `lax.associative_scan`
-tree for 21 elements on the same operands in the same order, as must the
-kernel's table (`scan_plan`). The kernel itself runs on the card
+JAX's dense linearization of the same drawn iterate, at each of K12's
+instantiations — the Kangaroo SRBD problem, the LIP and the point-feet
+quadruped's SRBD problem with both gain solves, entry by entry to 1e-9 of
+max(1, |JAX|) (read: ≤ 3e-10); the AL inner problem of the Kangaroo's and
+of the quadruped's isrbd problems with the Cholesky gain solve, at two
+members of a drawn AL state (active cones and boxes, penalties ρ up to
+1.7e4), to 1e-9 norm-wise (read: ≤ 7e-11) and to 1e-8 entry by entry
+(read: ≤ 2.3e-9: the ρ-weighted rows make R̃ and the scan's (I + C₁J₂)
+systems worse conditioned, so the rounding of JAX's XLA Cholesky and LU
+against LAPACK's is amplified; the twin is within 2e-12 of the port's
+sequential sweep there); against the port's sequential Tassa-form twin at
+the JAX package's own `TestBackwardEquivalence` tolerances; and its scan,
+which must make the 34 combines of JAX's `lax.associative_scan` tree for
+21 elements on the same operands in the same order, as must the kernel's
+table (`scan_plan`). The kernel itself runs on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import re
@@ -19,7 +27,22 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, problems, solvers, to_jax, to_torch
+from _torch_parity import (
+    al_solvers,
+    isrbd_problems,
+    jax_al_state,
+    max_rel_err,
+    np_of,
+    problems,
+    quadruped_isrbd_problems,
+    quadruped_problems,
+    random_al_state,
+    solvers,
+    tight_box_params,
+    to_jax,
+    to_torch,
+    torch_al_state,
+)
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
 from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
@@ -29,6 +52,7 @@ from srbd_horizon_tpu_torch.config import DDPOptions
 from srbd_horizon_tpu_torch.config import SRBDConfig
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+from srbd_horizon_tpu_torch.kernels.isrbd_linearize import isrbd_linearize_plain
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
@@ -38,14 +62,17 @@ torch.set_num_threads(1)
 MU = 1e-6
 OUT = ("ks", "Ks", "dV1", "dV2")
 SOLVERS = ["schur", "cholesky"]
-FAMILIES = ["srbd", "lip"]
+INSTANCES = list(k12.KERNEL_INSTANCES)
+INSTANCE_IDS = [f"{f}-{s}" for f, s in INSTANCES]
+AL_SHAPES = ("isrbd_al", "isrbd_al_quadruped")
 ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
 
 
 def _pair(family, quu_solver):
-    """(jax solver, torch solver, jax problem) on the family's problem."""
-    if family == "srbd":
-        jp, tp = problems()
+    """(jax solver, torch solver, jax problem) on an SRBD or LIP shape's
+    problem."""
+    if family in ("srbd", "quadruped"):
+        jp, tp = problems() if family == "srbd" else quadruped_problems()
         js, ts = solvers(jp, tp, quu_solver=quu_solver)
         return js, ts, jp
     jp = j_build_lip(JSRBDConfig(dtype=jnp.float64), j_feet())
@@ -55,14 +82,43 @@ def _pair(family, quu_solver):
             MSDDP(tp.ocp, DDPOptions(quu_solver=quu_solver)), jp)
 
 
+def _al_sweeps(shape):
+    """JAX's associative sweep (Cholesky, the AL inner solver's) on its
+    dense linearization of two members of a drawn AL state, the twin and
+    the port's sequential Tassa twin on the sliced one."""
+    jp, tp = (isrbd_problems() if shape == "isrbd_al"
+              else quadruped_isrbd_problems())
+    js, ts = al_solvers(jp, tp)
+    st = random_al_state(jp.ocp, 2, 21, *ts._sizes)
+    params = tight_box_params(jp, 2, 22)
+    jpin = jax.vmap(js._params_with_multipliers)(to_jax(params),
+                                                 jax_al_state(st))
+    tpin = ts._params_with_multipliers(to_torch(params), torch_al_state(st))
+    X, U = st["sol"]["X"], st["sol"]["U"]
+    jin = js._inner
+    jlin = jax.jit(jax.vmap(jin._linearize))(jnp.asarray(X), jnp.asarray(U),
+                                             jpin)
+    jres = jax.jit(jax.vmap(jin._backward_associative, in_axes=(0, None)))(
+        jlin, jnp.asarray(MU))
+    lin = isrbd_linearize_plain(to_torch(X), to_torch(U), tpin, ts.terms,
+                                ts.inner.rows, tp.ocp.dt)
+    twin = k12.riccati_associative_plain(*(lin[k] for k in ORDER), MU,
+                                         ts.inner.rows, "cholesky")
+    return dict(jax=jres, twin=twin, seq=ts.inner._backward(lin, MU))
+
+
 @pytest.fixture(scope="module")
 def sweeps():
-    """Per (family, solver): JAX's associative sweep on its dense lin, the
-    port's twin and sequential Tassa twin on the sliced lin of the same
-    iterate (X ± 0.05·N around the initial state, U 0.1·N, as
-    tests/test_parallel_riccati.py draws it)."""
+    """Per instantiation (K1's shape, gain solve): JAX's associative sweep
+    on its dense lin, the port's twin and sequential Tassa twin on the
+    sliced lin of the same iterate (X ± 0.05·N around the initial state,
+    U 0.1·N, as tests/test_parallel_riccati.py draws it; a drawn AL state
+    at the AL shapes)."""
     out = {}
-    for family in FAMILIES:
+    for family in dict.fromkeys(f for f, _ in INSTANCES):
+        if family in AL_SHAPES:
+            out[family, "cholesky"] = _al_sweeps(family)
+            continue
         jlin = lin = None
         for solver in SOLVERS:
             js, ts, jp = _pair(family, solver)
@@ -82,23 +138,24 @@ def sweeps():
             args = tuple(lin[k] for k in ORDER)
             twin = k12.riccati_associative_plain(*args, MU, ts.rows, solver)
             seq = ts._backward(lin, MU)
-            out[family, solver] = dict(jax=jres, twin=twin, seq=seq)
+            out[family, solver] = dict(jax=tuple(w[None] for w in jres),
+                                       twin=twin, seq=seq)
     return out
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family,solver", INSTANCES, ids=INSTANCE_IDS)
 def test_twin_matches_jax_associative(sweeps, family, solver):
     r = sweeps[family, solver]
+    entry_tol = 1e-8 if family in AL_SHAPES else 1e-9
     for name, got, want in zip(OUT, r["twin"], r["jax"]):
-        got, want = np_of(got)[0], np.asarray(want)
+        got, want = np_of(got), np.asarray(want)
         assert got.shape == want.shape, name
         err = np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want)))
-        assert err <= 1e-9, (name, err)
+        assert err <= entry_tol, (name, err)
+        assert max_rel_err(got, want) <= 1e-9, name
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family,solver", INSTANCES, ids=INSTANCE_IDS)
 def test_twin_matches_sequential_sweep(sweeps, family, solver):
     """The associative sweep reproduces the port's Tassa-form sweep (K1's
     twin) at tests/test_parallel_riccati.py::TestBackwardEquivalence's
@@ -194,14 +251,15 @@ def test_plain_wrapper_takes_the_twin_on_cpu():
 
 
 def test_kernel_shapes_and_instances_match_the_cuda_source():
-    """The .cu's shape structs are K1's SRBD and LIP sizes
+    """The .cu's shape structs are K1's five sizes
     (`riccati.KERNEL_SHAPES`), and its `with_instance` switch is
     `KERNEL_INSTANCES`, in order."""
     src = (Path(k12.__file__).resolve().parents[1] / "csrc"
            / "riccati_associative.cu").read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
-    names = {"SrbdShape": "srbd", "LipShape": "lip"}
+    names = {"SrbdShape": "srbd", "LipShape": "lip", "QuadShape": "quadruped",
+             "IsrbdAlShape": "isrbd_al", "QuadAlShape": "isrbd_al_quadruped"}
     assert [s for s, _ in structs] == list(names)
     for s, body in structs:
         sizes = {k.strip(): int(v) for k, v in
