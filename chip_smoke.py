@@ -260,10 +260,37 @@ parallel, into build/kernels/), then:
     update; `modes_card_vs_cpu` for the single constrained robot (offline
     solve and 3 ticks) and the AL fleet at B=8 (seed and 3 ticks): float64,
     iterations equal, plans, multipliers, ρ and cost to 1e-9.
+ 14. the SRBD problem at every topology and step the JAX package's
+     `build_srbd_problem` takes (`family_section`): the point-feet biped
+     under Euler and the
+     Kangaroo, the quadruped and the point-feet biped under RK2 and RK4.
+     `family_check`: K4, K3 (1 and 4 α, a NaN member), `srbd_evaluate`
+     (plain and pinned, a NaN plan) and K1 in every form compiled at the
+     instance's shape against their twins at B = 1, 64 and 512 — K4, K3
+     and `srbd_evaluate` in float64 within 1e-12 of max(1, |twin|) and in
+     float32 by their rules above, K1 in float64 to 1e-9 and float32 to
+     1e-6 of the float64 twin; `family_times`: each at B = 1, 512 and 4096
+     in float32 beside the Euler counterparts, with the bounds, achieved
+     rates, blocks an SM and registers; K2 at nu=12 beside
+     `torch.linalg.inv`. The paths (float32, ns=20): the point-feet
+     biped's dsrbd walk (40 ticks, vx 0.3 from tick 10, then 10 Cholesky
+     ticks; CoM height within 0.08 of 0.88, forward progress above 0.03 m)
+     and its fleet (B=512, max_iters=5, warm start shifted, 0.005·N(0,1)
+     pushes, 3 + 20 ticks, with phases, profile and idle share); the
+     Kangaroo's fleets under RK2 and RK4 and its RK4 walk (as the
+     biped's); the quadruped's RK4 trot (phase 11's gates); short fleets
+     (10 ticks) of the quadruped under RK2 and the biped under RK2 and
+     RK4, and 10 ticks of the biped's RK4 walk; every path fails on a
+     plain twin on the card, on a launch of any other SRBD instance (no
+     Euler instance on an RK path), on a defect or Newton–Euler residual
+     above 1e-4, or on launch counts that do not cover the trials and
+     solves. `family_card_vs_cpu`: the point-feet walk (3 ticks) and the
+     Kangaroo's RK4 fleet at B=8 (3 ticks) in float64, iterations equal,
+     plans, x, u0 and cost to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-forty-nine rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+eighty-one rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -274,8 +301,10 @@ K1 collapsed and Tassa-Cholesky, K6, isrbd_evaluate, K7, K8a, K8b and K8c
 at its AL shape, and the rows of phase 13: K12 at the SRBD and LIP shapes
 with each gain solve, K13 for the SRBD problem and the LIP, K12 at the
 quadruped's shape with each gain solve and at the two AL shapes with
-Cholesky, K13 for the quadruped and both AL inner problems); the last
-line is {"ok": true, "device": {...}}.
+Cholesky, K13 for the quadruped and both AL inner problems), and the
+thirty-two rows of phase 14 (K4, K3 and `srbd_evaluate` at its seven
+instances, K1's ten new instantiations, K2 at nu=12); the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -4904,6 +4933,826 @@ def modes_shapes_section(card, dev, sms):
     return rows_out
 
 
+# ---------------- the SRBD family at every topology and step (phase 14) -----
+
+# the (topology, step) instances phase 14 adds, in linearize.KERNEL_SHAPES
+# names: the point-feet biped under Euler, each topology under RK2 and RK4
+FAMILY_INSTANCES = ("point_feet", "kangaroo_rk2", "kangaroo_rk4",
+                    "quadruped_rk2", "quadruped_rk4", "point_feet_rk2",
+                    "point_feet_rk4")
+FAMILY_CHECK_B = (1, 64, B_MAIN)
+FAMILY_TIME_B = (1, B_MAIN, B_LARGE)
+FAMILY_NAN = 7                  # the member with a NaN state / plan
+# K4, K3 and srbd_evaluate in float64: |kernel − twin| ≤ 1e-12·max(1, |twin|)
+FAMILY_F64_TOL = 1e-12
+FAMILY_HEIGHT = 0.88            # the bipeds' CoM height gate (± 0.08)
+FAMILY_HEIGHT_BAND = 0.08
+FAMILY_PROGRESS = 0.03          # forward progress at tick 39 (m)
+FAMILY_FLEET_WARM, FAMILY_FLEET_TIMED, FAMILY_SHORT_TICKS = 3, 20, 10
+FAMILY_SINGLE_TICKS, FAMILY_CHOLESKY_TICKS = 40, 10
+
+
+def family_split(inst):
+    """(topology, step) of a KERNEL_SHAPES name."""
+    for step in ("rk2", "rk4"):
+        if inst.endswith("_" + step):
+            return inst[: -len(step) - 1], step.upper()
+    return inst, "EULER"
+
+
+def family_loop(topology, step, dtype, device, opts=None, shift=False):
+    """The MPC loop of one topology under one step: the quadruped example's
+    (`build_quadruped_loop`: max_iters=5, the trot WPG), or the biped's
+    (`build_srbd_loop`; the point-feet biped with `point_feet()`) with the
+    dsrbd example's options unless `opts` says otherwise."""
+    from srbd_horizon_tpu_torch.config import SRBDConfig
+    from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
+                                                        point_feet)
+    from srbd_horizon_tpu_torch.runtime.loop import (build_quadruped_loop,
+                                                     build_srbd_loop)
+    from srbd_horizon_tpu_torch.solvers.options import ddp_example_options
+
+    if topology == "quadruped":
+        return build_quadruped_loop(SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY),
+                                    opts, shift_warmstart=shift,
+                                    device=device, integrator=step)
+    robot = point_feet() if topology == "point_feet" else kangaroo_line_feet()
+    topo = (dict(contact_model=1, number_of_legs=2)
+            if topology == "point_feet" else {})
+    return build_srbd_loop(SRBDConfig(dtype=dtype, **topo),
+                           opts or ddp_example_options(), robot=robot,
+                           shift_warmstart=shift, device=device,
+                           integrator=step)
+
+
+def family_counts_reset():
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    for fn in (k4.srbd_linearize, k3.srbd_trial, k3.srbd_evaluate):
+        fn.launches = 0
+        fn.shape_launches.update(dict.fromkeys(fn.shape_launches, 0))
+    k1.riccati_backward.launches = 0
+    k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+
+
+def family_counts():
+    """The launches of every SRBD instance of K4, K3, srbd_evaluate and K1
+    since the last reset, by kernel and instance (zeros left out)."""
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    out = {}
+    for name, fn in (("srbd_linearize", k4.srbd_linearize),
+                     ("srbd_trial", k3.srbd_trial),
+                     ("srbd_evaluate", k3.srbd_evaluate)):
+        for inst, n in fn.shape_launches.items():
+            if n:
+                out[f"{name}_{inst}"] = n
+    for (shape, form, solver), n in zip(k1.KERNEL_INSTANCES,
+                                        k1.riccati_backward.instance_launches):
+        if n:
+            out[k1_row_name(shape, form, solver)] = n
+    return out
+
+
+def k1_row_name(shape, form, solver):
+    return ("riccati_backward_" + shape
+            + ("" if form == "collapsed" else "_tassa")
+            + ("_cholesky" if solver == "cholesky" else ""))
+
+
+def family_point(loop64, prob, B, dev, seed):
+    """A linearization point of one instance at B members: plans around the
+    nominal state (0.02 / 0.05·N(0,1)), the contact plan of 7 ticks of the
+    loop's WPG, x0 near node 0; member FAMILY_NAN with a NaN in x0 and in
+    a copy of the plan."""
+    import numpy as np
+    import torch
+
+    ocp = prob.ocp
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    rng = np.random.RandomState(seed)
+    params1, wst = dict(ocp.params), loop64.wpg.init_state()
+    for _ in range(7):
+        params1, wst = loop64.wpg.advance(
+            params1, wst, torch.tensor(1, dtype=torch.int32, device=dev))
+    params = {k: v.expand((B,) + tuple(v.shape)).contiguous()
+              for k, v in params1.items()}
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.02 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.05 * rng.randn(B, ns, nu))
+    x0 = X[:, 0] + t(0.005 * rng.randn(B, nx))
+    X_nan, x0_nan = X.clone(), x0.clone()
+    X_nan[FAMILY_NAN, 5, 4] = float("nan")
+    x0_nan[FAMILY_NAN] = float("nan")
+    return dict(X=X, U=U, params=params, x0=x0, X_nan=X_nan, x0_nan=x0_nan)
+
+
+def family_sub(tree, Bw):
+    """The first Bw members of every tensor of a point."""
+    if isinstance(tree, dict):
+        return {k: family_sub(v, Bw) for k, v in tree.items()}
+    return tree[:Bw].contiguous()
+
+
+def family_check(inst, dev):
+    """K4, K1 (collapsed and every Tassa instantiation at this shape), K3
+    (1 and 4 α) and srbd_evaluate (plain and pinned) of one instance
+    against their twins at B = 1, 64 and 512: K4, K3 and srbd_evaluate in
+    float64 to FAMILY_F64_TOL of max(1, |twin|), in float32 within 2× the
+    float32 twin's error + 1e-6 (K4 also below K4_F32_CAP); K1 in float64
+    to 1e-9, in float32 to K1_F32_TOL of the float64 twin; K3's flags
+    equal in float64 and off the Armijo margin in float32; the NaN member
+    (B > 1) rejected by K3 and NaN in srbd_evaluate; the pinned plan bit
+    for bit. Returns the worst figures, the K1 shape, the float64 twins'
+    linearization and collapsed sweep at B=512 and the point; fails the
+    run on disagreement."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    f64, f32 = torch.float64, torch.float32
+    topology, step = family_split(inst)
+    loop64, prob = family_loop(topology, step, f64, dev)
+    loop32, _ = family_loop(topology, step, f32, dev)
+    s64, s32 = loop64.solver, loop32.solver
+    ocp = prob.ocp
+    dt, rows, opts, mu = ocp.dt, s64.rows, s64.opts, s64.opts.mu0
+    assert k4.check_kernel_shape("check", s64.terms, ocp.nx, ocp.nu,
+                                 rows) == inst
+    pt = family_point(loop64, prob, B_MAIN, dev, SEED + 14)
+    solver_of = lambda dtype: s64 if dtype == f64 else s32
+    cast = lambda a, dtype: a.to(dtype).contiguous()
+    worst = defaultdict(float)
+    bad = []
+
+    def note(key, e64, e32, p32, abs32, rule32):
+        worst[key + "_e64"] = max(worst[key + "_e64"], e64)
+        worst[key + "_e32"] = max(worst[key + "_e32"], e32)
+        worst[key + "_p32"] = max(worst[key + "_p32"], p32)
+        worst[key + "_abs32"] = max(worst[key + "_abs32"], abs32)
+        if not rule32:
+            bad.append(f"{key} float32")
+
+    nt = None
+    for Bw in FAMILY_CHECK_B:
+        p = family_sub(pt, Bw)
+        cp = lambda dtype: {k: cast(v, dtype) for k, v in p["params"].items()}
+        # K4
+        lin = {}
+        for dtype in (f64, f32):
+            s = solver_of(dtype)
+            a = (cast(p["X"], dtype), cast(p["U"], dtype), cp(dtype), s.terms,
+                 s.rows, dt, s._wc(dtype))
+            lin[dtype] = (k4.srbd_linearize_plain(*a), k4.srbd_linearize(*a))
+        ref = lin[f64][0]
+        e64 = max(err1(lin[f64][1][k], ref[k]) for k in ORDER)
+        e32 = {k: rel_err(lin[f32][1][k], ref[k]) for k in ORDER}
+        p32 = {k: rel_err(lin[f32][0][k], ref[k]) for k in ORDER}
+        if e64 > FAMILY_F64_TOL:
+            bad.append(f"K4 float64 at B={Bw}: {e64}")
+        note("k4", e64, max(e32.values()), max(p32.values()),
+             max(abs_err(lin[f32][1][k], ref[k]) for k in ORDER),
+             all(e32[k] <= 2 * p32[k] + 1e-6 and e32[k] <= K4_F32_CAP
+                 for k in ORDER))
+        nt = ref["Jt"].shape[1]
+        k1_shape = k1.kernel_shape(ocp.nx, ocp.nu, nt, rows)
+        # K1, every instantiation at this shape
+        a64 = tuple(ref[k] for k in ORDER)
+        a32 = tuple(v.float().contiguous() for v in a64)
+        sweeps = {}
+        for shape, form, solver in k1.KERNEL_INSTANCES:
+            if shape != k1_shape:
+                continue
+            kw = dict(form=form, quu_solver=solver)
+            r = k1.riccati_backward_plain(*a64, mu, rows, **kw)
+            g = k1.riccati_backward(*a64, mu, rows, **kw)
+            g32 = k1.riccati_backward(*a32, mu, rows, **kw)
+            p32_ = k1.riccati_backward_plain(*a32, mu, rows, **kw)
+            name = k1_row_name(shape, form, solver)
+            e64 = max(rel_err(x, y) for x, y in zip(g, r))
+            e32 = max(rel_err(x, y) for x, y in zip(g32, r))
+            if e64 > 1e-9:
+                bad.append(f"{name} float64 at B={Bw}: {e64}")
+            note(name, e64, e32, max(rel_err(x, y) for x, y in zip(p32_, r)),
+                 max(abs_err(x, y) for x, y in zip(g32, r)), e32 <= K1_F32_TOL)
+            sweeps[(form, solver)] = r
+        ks, Ks, dV1, dV2 = sweeps[("collapsed", "schur")]
+        d = ref["d"]
+        D = torch.sum(d * d, dim=(1, 2))
+        merit0 = s64.total_cost(p["X"], p["U"], p["params"]) + \
+            opts.defect_weight * D
+        # K3, 1 and 4 α; the NaN member starts from a NaN state
+        x0s = p["x0_nan"] if Bw > FAMILY_NAN else p["x0"]
+        alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f64, device=dev)
+        for nA in (1, 4):
+            outs = {}
+            for dtype in (f64, f32):
+                s = solver_of(dtype)
+                c = lambda a: cast(a, dtype)
+                a = (c(x0s), c(p["X"]), c(p["U"]), c(ks), c(Ks), c(d),
+                     c(alphas4[:nA]), cp(dtype), c(merit0), c(D), c(dV1),
+                     c(dV2), s.terms, dt, s._wc(dtype), opts.defect_weight,
+                     opts.beta, opts.alpha_converge_threshold)
+                outs[dtype] = (k3.srbd_trial_plain(*a), k3.srbd_trial(*a))
+            ref3 = outs[f64][0]
+            e64 = max(err1(g, r) for g, r in zip(outs[f64][1][:4], ref3[:4]))
+            e32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, outs[f32][1], ref3)}
+            p32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, outs[f32][0], ref3)}
+            al = alphas4[:nA, None]
+            margin = (merit0 - ref3[3]) - opts.beta * torch.clamp(
+                -(al * dV1 + al * al * dV2)
+                + (2 * al - al * al) * opts.defect_weight * D, min=1e-16)
+            near = margin.abs() <= 1e-4 * merit0.abs().clamp_min(1.0)
+            flips = int(((outs[f32][1][4] != ref3[4]) & ~near).sum())
+            if e64 > FAMILY_F64_TOL or not torch.equal(outs[f64][1][4], ref3[4]):
+                bad.append(f"K3 float64 at B={Bw}, {nA} α: {e64}")
+            if flips or (Bw > FAMILY_NAN
+                         and bool(outs[f64][1][4][:, FAMILY_NAN].any())):
+                bad.append(f"K3 flags at B={Bw}, {nA} α")
+            note("k3", e64, max(e32.values()), max(p32.values()),
+                 max(abs_err(g, r) for g, r in zip(outs[f32][1][:4], ref3[:4])),
+                 all(e32[n] <= 2 * p32[n] + 1e-6 for n in TRIAL_OUT))
+        # srbd_evaluate, plain and pinned; the NaN member's plan holds a NaN
+        Xe = p["X_nan"] if Bw > FAMILY_NAN else p["X"]
+        for pinned in (False, True):
+            outs = {}
+            for dtype in (f64, f32):
+                s = solver_of(dtype)
+                kw = dict(x0=cast(p["x0"], dtype)) if pinned else {}
+                a = (cast(Xe, dtype), cast(p["U"], dtype), cp(dtype), s.terms,
+                     dt, s._wc(dtype))
+                outs[dtype] = (k3.srbd_evaluate_plain(*a, **kw),
+                               k3.srbd_evaluate(*a, **kw))
+            refe = outs[f64][0]
+            e64 = max(err1(g, r) for g, r in zip(outs[f64][1][:2], refe[:2]))
+            e32 = [rel_err(g, r) for g, r in zip(outs[f32][1][:2], refe[:2])]
+            p32 = [rel_err(g, r) for g, r in zip(outs[f32][0][:2], refe[:2])]
+            if e64 > FAMILY_F64_TOL:
+                bad.append(f"srbd_evaluate float64 at B={Bw}: {e64}")
+            if Bw > FAMILY_NAN and not all(
+                    bool(torch.isnan(o[FAMILY_NAN])) for out in
+                    (outs[f64][1], outs[f32][1]) for o in out[:2]):
+                bad.append(f"srbd_evaluate NaN member at B={Bw}")
+            if pinned and not (
+                    bool(torch.equal(bits(outs[f64][1][2]), bits(refe[2])))
+                    and bool(torch.equal(bits(outs[f32][1][2]),
+                                         bits(outs[f32][0][2])))):
+                bad.append(f"srbd_evaluate pinned plan at B={Bw}")
+            note("evaluate", e64, max(e32), max(p32),
+                 max(abs_err(g, r) for g, r in zip(outs[f32][1][:2], refe[:2])),
+                 all(a <= 2 * b + 1e-6 for a, b in zip(e32, p32)))
+    torch.cuda.synchronize()
+    res = dict(worst)
+    emit("family_check", instance=inst, k1_shape=k1_shape, B=FAMILY_CHECK_B,
+         f64_tol=FAMILY_F64_TOL, k1_f64_tol=1e-9, k1_f32_tol=K1_F32_TOL,
+         f32_rule="kernel <= 2*plain + 1e-6 (K4 also <= 1e-5)",
+         failures=bad, **res)
+    if bad:
+        fail(f"family_check {inst}: {bad}")
+    return res, k1_shape, ref, (ks, Ks, dV1, dV2), pt
+
+
+def family_times(inst, dev, lin64, sweep64, pt):
+    """One instance's kernels in float32 at B = 1, 512 and 4096 (members
+    repeated), the twins' at B ≤ 512: ms, the bytes and FLOPs the call
+    needs and its bound; K4/K3/srbd_evaluate occupancy and K1's blocks an
+    SM and shared memory. {row name: {B: figures}}, {row name: occupancy}."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    f32 = torch.float32
+    topology, step = family_split(inst)
+    loop32, prob = family_loop(topology, step, f32, dev)
+    s = loop32.solver
+    ocp = prob.ocp
+    ns, nx, nu, nc, dt = ocp.ns, ocp.nx, ocp.nu, prob.nc, ocp.dt
+    rows, opts, mu = s.rows, s.opts, s.opts.mu0
+    n_rho = s.terms.n_rho
+    c = lambda a: a.float().contiguous()
+    params = {k: c(v) for k, v in pt["params"].items()}
+    a4 = (c(pt["X"]), c(pt["U"]), params, s.terms, rows, dt, s._wc(f32))
+    ks, Ks, dV1, dV2 = (c(v) for v in sweep64)
+    d = c(lin64["d"])
+    D = torch.sum(d * d, dim=(1, 2))
+    merit0 = s.total_cost(a4[0], a4[1], params) + opts.defect_weight * D
+    alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f32, device=dev)
+    a3 = lambda nA: (c(pt["x0"]), a4[0], a4[1], ks, Ks, d, alphas4[:nA],
+                     params, merit0, D, dV1, dV2, s.terms, dt, s._wc(f32),
+                     opts.defect_weight, opts.beta,
+                     opts.alpha_converge_threshold)
+    aev = (a4[0], a4[1], params, s.terms, dt, s._wc(f32), c(pt["x0"]))
+    lin32 = {k: c(v) for k, v in lin64.items()}
+    k1a = tuple(lin32[k] for k in ORDER)
+    nt = lin32["Jt"].shape[1]
+    k1_shape = k1.kernel_shape(nx, nu, nt, rows)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    stages = {"EULER": 1, "RK2": 2, "RK4": 4}[step]
+    times = defaultdict(dict)
+    for Bw in FAMILY_TIME_B:
+        plain_too = Bw <= B_MAIN
+        pl = lambda fn, reps: (cuda_ms(fn, reps=reps, warmup=1) if plain_too
+                               else None)
+        la = repeat_members(a4, Bw)
+        out = k4.srbd_linearize(*la)
+        # every stage adds the rates and ∂ω̇ of its point and the chain
+        # over the nx + nu columns
+        times[f"srbd_linearize_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k4.srbd_linearize(*la), reps=20),
+            plain_ms=pl(lambda: k4.srbd_linearize_plain(*la), 3),
+            bytes=nbytes(la[0], la[1], *k4.kernel_params(
+                la[2], Bw, ns, nc, f32, dev), rows.packed(dev), *out.values()),
+            flop=stages * linearize_flops(Bw, ns, nx, nu, nc, n_rho,
+                                          len(rows.rx), len(rows.ru)))
+        ta = repeat_members(a3(1), Bw, skip=(6,))
+        out = k3.srbd_trial(*ta)
+        times[f"srbd_trial_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k3.srbd_trial(*ta), reps=20),
+            plain_ms=pl(lambda: k3.srbd_trial_plain(*ta), 3),
+            bytes=nbytes(*[v for v in ta[:12] if isinstance(v, torch.Tensor)],
+                         *ta[7].values(), *out),
+            flop=stages * trial_flops(Bw, ns, nx, nu, nc, n_rho, 1))
+        ta4 = repeat_members(a3(4), Bw, skip=(6,))
+        times[f"srbd_trial_{inst}"][Bw]["ms_4alpha"] = cuda_ms(
+            lambda: k3.srbd_trial(*ta4), reps=20)
+        ea = repeat_members(aev, Bw)
+        out = k3.srbd_evaluate(*ea[:-1], x0=ea[-1])
+        times[f"srbd_evaluate_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k3.srbd_evaluate(*ea[:-1], x0=ea[-1]), reps=20),
+            plain_ms=pl(lambda: k3.srbd_evaluate_plain(*ea[:-1], x0=ea[-1]), 3),
+            bytes=nbytes(ea[0], ea[1], *ea[2].values(), ea[-1], *out),
+            flop=stages * evaluate_flops(Bw, ns, nx, nc, n_rho))
+        ka = repeat_members(k1a, Bw)
+        for shape, form, solver in k1.KERNEL_INSTANCES:
+            if shape != k1_shape:
+                continue
+            kw = dict(form=form, quu_solver=solver)
+            out = k1.riccati_backward(*ka, mu, rows, **kw)
+            flop = (riccati_flops(Bw, ns, nx, nu, nt, *sizes)
+                    if form == "collapsed"
+                    else tassa_flops(Bw, ns, nx, nu, nt, *sizes, solver))
+            times[k1_row_name(shape, form, solver)][Bw] = dict(
+                ms=cuda_ms(lambda: k1.riccati_backward(*ka, mu, rows, **kw),
+                           reps=10),
+                plain_ms=pl(lambda: k1.riccati_backward_plain(
+                    *ka, mu, rows, **kw), 2),
+                bytes=nbytes(*ka, rows.packed(dev), *out), flop=flop,
+                fp64_tensor_cores=True)
+    for by_B in times.values():
+        for v in by_B.values():
+            rate = (H100_FP64_TC_FLOP_PER_S if v.pop("fp64_tensor_cores", False)
+                    else H100_F32_FLOP_PER_S)
+            v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
+            v["achieved_GB_per_s"] = v["bytes"] / v["ms"] / 1e6
+            v["achieved_GFLOP_per_s"] = v["flop"] / v["ms"] / 1e6
+    pick = lambda occ: {k: occ[k] for k in OCCUPANCY_KEYS}
+    occ = {f"srbd_linearize_{inst}": pick(k4.occupancy(f32, inst)),
+           f"srbd_trial_{inst}": pick(k3.trial_occupancy(f32, inst)),
+           f"srbd_evaluate_{inst}": pick(k3.evaluate_occupancy(ns, f32, inst))}
+    for shape, form, solver in k1.KERNEL_INSTANCES:
+        if shape == k1_shape:
+            kw = dict(form=form, quu_solver=solver)
+            occ[k1_row_name(shape, form, solver)] = dict(
+                blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, **kw),
+                shared_memory_bytes=k1.shared_memory_bytes(nx, nu, nt, rows,
+                                                           f32, **kw))
+    return times, occ
+
+
+OCCUPANCY_KEYS = ("blocks_per_sm", "shared_memory_bytes",
+                  "registers_per_thread", "local_bytes_per_thread")
+
+
+def family_gates(tag, res, launches, inst, k1_names, twins):
+    """The gates every phase-14 path shares: finite outputs, defects and
+    the Newton–Euler residual ≤ 1e-4, every kernel of the path's instance
+    launched (K1 at the names `k1_names`) and no other SRBD instance, no
+    twin, no torch.func transform, no plain cost or defect."""
+    if not res["finite"]:
+        fail(f"{tag}: non-finite values")
+    if max(res["defect_norm_max"], res["srbd_residual_max"]) > 1e-4:
+        fail(f"{tag}: plans are not dynamically consistent (defect or "
+             f"Newton-Euler residual above 1e-4): {res['defect_norm_max']}, "
+             f"{res['srbd_residual_max']}")
+    want = {f"{k}_{inst}" for k in ("srbd_linearize", "srbd_trial",
+                                    "srbd_evaluate")} | set(k1_names)
+    if set(launches) != want:
+        fail(f"{tag}: the path launched {sorted(launches)}, not the kernels "
+             f"of its instance {sorted(want)}")
+    if any(twins[k]["n"] for k in twins):
+        fail(f"{tag}: the path ran plain twins on the card: "
+             f"{ {k: v['n'] for k, v in twins.items()} }")
+
+
+def family_twins():
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    return ((k1, ("riccati_backward_plain",)),
+            (k3, ("srbd_trial_plain", "srbd_evaluate_plain", "rollout_plain",
+                  "evaluate_plain")),
+            (k4, ("srbd_linearize_plain", "step_jacobians")))
+
+
+def family_single_path(inst, dev, card, ticks=40, cholesky_ticks=10,
+                       quadruped_walk=False):
+    """One robot of one instance on `MPCLoop.tick` in float32: the dsrbd
+    example's walk (vx 0.3 from tick 10; the quadruped example's trot at
+    vx 0.25 from tick 10), then `cholesky_ticks` more with the Cholesky
+    gain solve. Returns the figures and the launches."""
+    import torch
+
+    from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
+
+    topology, step = family_split(inst)
+    loop, prob = family_loop(topology, step, torch.float32, dev)
+    vx = 0.25 if quadruped_walk else 0.3
+    sched = walking_schedule(ticks, vx=vx, start=10, device=dev)
+    opts = dataclasses.replace(loop.solver.opts, quu_solver="cholesky")
+    cloop = dataclasses.replace(loop, solver=dataclasses.replace(
+        loop.solver, opts=opts))
+    guards, restore_guards = guard_plain(family_twins())
+    n, restore_count = count_solver_calls(loop.solver, cloop.solver)
+    carry = loop.init(prob.initial_state)
+    z0 = float(prob.initial_state[2])
+    outs, tms = [], []
+    family_counts_reset()
+    syncs0 = loop.solver.host_syncs
+    for i in range(ticks):
+        inp = TickInput(*(a[i] for a in sched))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, out = loop.tick(carry, inp)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    syncs = loop.solver.host_syncs - syncs0
+    chol = []
+    for _ in range(cholesky_ticks):
+        carry, out = cloop.tick(carry, TickInput(*(a[-1] for a in sched)))
+        chol.append(out)
+    torch.cuda.synchronize()
+    launches = family_counts()
+    restore_count()
+    restore_guards()
+    iters = [int(o.iterations) for o in outs]
+    com = torch.stack([o.x[:3] for o in outs]).cpu()
+    every = outs + chol
+    res = dict(
+        instance=inst, B=1, dtype="float32", ticks=ticks,
+        cholesky_ticks=cholesky_ticks,
+        walk=f"vx {vx} from tick 10",
+        options=("the quadruped example: max_iters=5" if topology == "quadruped"
+                 else "the dsrbd example: max_iters=100") +
+        ", alpha_converge_threshold=1e-12, beta=1e-3",
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms), iterations_mean=statistics.fmean(iters),
+        iterations_per_tick=iters, syncs_per_tick=syncs / ticks,
+        launches=launches, trials=n["trials"], solves=n["solves"],
+        defect_norm_max=max(float(o.defect_norm) for o in every),
+        srbd_residual_max=max(float(o.srbd_residual.abs().max()) for o in every),
+        com_z_min=float(com[:, 2].min()), com_z_max=float(com[:, 2].max()),
+        z0=z0, forward_progress_m=float(com[-1, 0] - com[0, 0]),
+        final_com=carry.x[:3].tolist(),
+        finite=all(bool(torch.isfinite(v).all()) for o in every
+                   for v in (o.x, o.u0, o.cost, o.srbd_residual)),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    return res, launches, guards, loop, carry, sched
+
+
+def family_fleet(inst, Bsz, dtype, device, max_iters=5, seed=SEED):
+    """The SRBD fleet point on one instance: max_iters=5, the warm start
+    shifted, the walk command vx 0.2, pushes of 0.005·N(0,1)."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.runtime.loop import walk_command
+
+    topology, step = family_split(inst)
+    loop, p = family_loop(topology, step, dtype, device,
+                          opts=DDPOptions(max_iters=max_iters), shift=True)
+    g = np.random.RandomState(seed)
+    xn = p.initial_state.cpu().numpy()
+    xs = torch.as_tensor(xn[None] + 0.005 * g.randn(Bsz, xn.shape[0]),
+                         dtype=dtype, device=device)
+    return loop, loop.init(xs), walk_command(Bsz, vx=0.2, dtype=dtype,
+                                             device=device)
+
+
+def family_fleet_path(inst, dev, card, warm, timed, profile=True):
+    """`MPCLoop.tick_batch` at B=512 in float32 on one instance: `warm`
+    ticks, then `timed` ticks with the launches counted; then the phases
+    inside 5 ticks and 2 profiled ticks (idle share, launches a tick by
+    span)."""
+    import torch
+
+    loop, c, inp = family_fleet(inst, B_MAIN, torch.float32, dev)
+    guards, restore_guards = guard_plain(family_twins())
+    cnt, restore = count_solver_calls(loop.solver)
+    for _ in range(warm):
+        c, _ = loop.tick_batch(c, inp)
+    torch.cuda.synchronize()
+    cnt.update(trials=0, solves=0, iterations=0)
+    family_counts_reset()
+    syncs0 = loop.solver.host_syncs
+    tms, iters, outs = [], [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        c, o = loop.tick_batch(c, inp)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(float(o.iterations.float().mean()))
+        outs.append(o)
+    launches = family_counts()
+    restore()
+    restore_guards()
+    srt = sorted(tms)
+    res = dict(
+        instance=inst, B=B_MAIN, dtype="float32",
+        options="max_iters=5, shifted warm start, walk command vx 0.2, "
+                "0.005·N(0,1) pushes (seed 0)",
+        warmup_ticks=warm, ticks=timed,
+        tick_p50_ms=statistics.median(tms),
+        tick_p99_ms=srt[min(len(srt) - 1, int(0.99 * len(srt)))],
+        tick_max_ms=max(tms), tick_mean_ms=statistics.fmean(tms),
+        members_per_s=B_MAIN / statistics.median(tms) * 1e3,
+        iters_mean=statistics.fmean(iters),
+        syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
+        trials=cnt["trials"], solves=cnt["solves"], launches=launches,
+        finite=all(bool(torch.isfinite(v).all()) for o in outs
+                   for v in (o.x, o.u0, o.cost)) and bool(
+                       torch.isfinite(c.sol.X).all()),
+        defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+        srbd_residual_max=max(float(o.srbd_residual.abs().max()) for o in outs),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    if profile:
+        step = lambda cc: loop.tick_batch(cc, inp)[0]
+        c, res["spans"] = tick_spans(loop.solver, step, c, ticks=5)
+        res["profile"] = profile_ticks(loop.solver, step, c, res["tick_p50_ms"])
+        res["device_idle_share"] = res["profile"]["device_idle_share"]
+        res["launches_by_span"] = res["profile"]["launches_by_span"]
+    return res, launches, guards
+
+
+def family_versus(card_run, cpu_run):
+    """Card = CPU: iterations and convergence equal, plans, x, u0 and cost
+    to 1e-9."""
+    import torch
+
+    (cc, oc), (cp, op) = card_run, cpu_run
+    it = lambda o: o.iterations.reshape(-1).tolist()
+    both = lambda f: (torch.stack([getattr(a, f).cpu() for a in oc]),
+                      torch.stack([getattr(b, f) for b in op]))
+    r = dict(
+        iterations_equal=all(it(a) == it(b) for a, b in zip(oc, op)),
+        converged_equal=all(torch.equal(a.converged.cpu(), b.converged)
+                            for a, b in zip(oc, op)),
+        iterations_card=[it(a) for a in oc],
+        cost_rel_err=rel_err(*both("cost")), x_rel_err=rel_err(*both("x")),
+        u0_rel_err=rel_err(*both("u0")),
+        X_rel_err=rel_err(cc.sol.X.cpu(), cp.sol.X),
+        U_rel_err=rel_err(cc.sol.U.cpu(), cp.sol.U))
+    r["ok"] = (r["iterations_equal"] and r["converged_equal"]
+               and max(r[k] for k in ("cost_rel_err", "x_rel_err",
+                                      "u0_rel_err", "X_rel_err",
+                                      "U_rel_err")) <= 1e-9)
+    return r
+
+
+def family_section(card, dev, sms):
+    """Phase 14: the SRBD problem at every topology and step the JAX
+    package's `build_srbd_problem` takes — the point-feet biped, and each
+    topology under RK2 and RK4 — on K4, K3, srbd_evaluate and K1 (with K2
+    inside). The kernel
+    checks (`family_check`) and times beside the Euler counterparts
+    (`family_times`), K2 at nu=12 (`family_k2_check`), the paths
+    (`family_pf_single`, `family_pf_fleet`, `family_fleet` for the Kangaroo
+    under RK2 and RK4, `family_kangaroo_rk4_single`,
+    `family_quadruped_rk4_single`, `family_short_fleet` for the rest,
+    `family_pf_rk4_single`) and card = CPU in float64
+    (`family_card_vs_cpu`). Returns the kernel rows of the `kernels`
+    line."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+    from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
+
+    t_section = time.perf_counter()
+    f64 = torch.float64
+    errs, k1_shapes, times, occ = {}, {}, {}, {}
+    pf_Jup = None
+    for inst in FAMILY_INSTANCES:
+        res, k1_shape, lin64, sweep64, pt = family_check(inst, dev)
+        errs[inst], k1_shapes[inst] = res, k1_shape
+        t, o = family_times(inst, dev, lin64, sweep64, pt)
+        times.update(t)
+        occ.update(o)
+        if inst == "point_feet":
+            pf_Jup = lin64["Jup"]
+    # the Euler counterparts, timed in the same call
+    for inst in ("kangaroo", "quadruped"):
+        topology, step = family_split(inst)
+        loop64, prob = family_loop(topology, step, f64, dev)
+        pt = family_point(loop64, prob, B_MAIN, dev, SEED + 14)
+        s = loop64.solver
+        lin64 = k4.srbd_linearize_plain(pt["X"], pt["U"], pt["params"],
+                                        s.terms, s.rows, prob.ocp.dt,
+                                        s._wc(f64))
+        sweep = k1.riccati_backward_plain(*(lin64[k] for k in ORDER),
+                                          s.opts.mu0, s.rows)
+        t, o = family_times(inst, dev, lin64, sweep, pt)
+        times.update(t)
+        occ.update(o)
+    emit("family_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         occupancy=occ)
+    k2 = k2_check("family_k2_check", k1, pf_Jup, 1e-6, nu=12)
+
+    # ---- the paths ----
+    path_launches = defaultdict(int)
+
+    def add(launches):
+        for k, v in launches.items():
+            path_launches[k] += v
+
+    def k1_names(inst, forms):
+        return [k1_row_name(k1_shapes[inst], f, s) for f, s in forms]
+
+    tassa = (("tassa", "schur"),)
+    tassa_both = (("tassa", "schur"), ("tassa", "cholesky"))
+    collapsed = (("collapsed", "schur"),)
+
+    def biped_gates(tag, res):
+        if max(abs(res["com_z_min"] - FAMILY_HEIGHT),
+               abs(res["com_z_max"] - FAMILY_HEIGHT)) > FAMILY_HEIGHT_BAND:
+            fail(f"{tag}: the CoM height left {FAMILY_HEIGHT} ± "
+                 f"{FAMILY_HEIGHT_BAND}: {res['com_z_min']}, {res['com_z_max']}")
+        if not res["forward_progress_m"] > FAMILY_PROGRESS:
+            fail(f"{tag}: forward progress {res['forward_progress_m']} m at "
+                 f"tick 39, not above {FAMILY_PROGRESS}")
+
+    T, C = FAMILY_SINGLE_TICKS, FAMILY_CHOLESKY_TICKS
+    singles = (("family_pf_single", "point_feet", T, C, tassa_both),
+               ("family_kangaroo_rk4_single", "kangaroo_rk4", T, C, tassa_both),
+               ("family_quadruped_rk4_single", "quadruped_rk4", T, 0, tassa),
+               ("family_pf_rk4_single", "point_feet_rk4", FAMILY_SHORT_TICKS,
+                0, tassa))
+    for tag, inst, ticks, chol, forms in singles:
+        quad = inst.startswith("quadruped")
+        res, launches, guards, *_ = family_single_path(
+            inst, dev, card, ticks=ticks, cholesky_ticks=chol,
+            quadruped_walk=quad)
+        emit(tag, **res)
+        family_gates(tag, res, launches, inst, k1_names(inst, forms), guards)
+        if ticks == FAMILY_SINGLE_TICKS and quad:
+            if max(abs(res["com_z_min"] - res["z0"]),
+                   abs(res["com_z_max"] - res["z0"])) >= QUAD_HEIGHT_BAND:
+                fail(f"{tag}: the trot's CoM height left z0 ± "
+                     f"{QUAD_HEIGHT_BAND}: {res['com_z_min']}, "
+                     f"{res['com_z_max']}")
+            if not res["forward_progress_m"] > 0:
+                fail(f"{tag}: the trot made no forward progress")
+        elif ticks == FAMILY_SINGLE_TICKS:
+            biped_gates(tag, res)
+        if launches.get(f"srbd_evaluate_{inst}", 0) != 2 * res["solves"]:
+            fail(f"{tag}: srbd_evaluate launches are not two a solve")
+        if launches.get(f"srbd_trial_{inst}", 0) != res["trials"]:
+            fail(f"{tag}: K3 launches do not cover the trials")
+        add(launches)
+
+    fleets = (("family_pf_fleet", "point_feet", FAMILY_FLEET_TIMED, True),
+              ("family_kangaroo_rk2_fleet", "kangaroo_rk2", FAMILY_FLEET_TIMED, True),
+              ("family_kangaroo_rk4_fleet", "kangaroo_rk4", FAMILY_FLEET_TIMED, True),
+              ("family_short_fleet_quadruped_rk2", "quadruped_rk2",
+               FAMILY_SHORT_TICKS, False),
+              ("family_short_fleet_point_feet_rk2", "point_feet_rk2",
+               FAMILY_SHORT_TICKS, False),
+              ("family_short_fleet_point_feet_rk4", "point_feet_rk4",
+               FAMILY_SHORT_TICKS, False))
+    for tag, inst, timed, prof in fleets:
+        res, launches, guards = family_fleet_path(
+            inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
+        emit(tag, **res)
+        family_gates(tag, res, launches, inst, k1_names(inst, collapsed),
+                     guards)
+        if launches.get(f"srbd_evaluate_{inst}", 0) != 2 * res["solves"]:
+            fail(f"{tag}: srbd_evaluate launches are not two a solve")
+        if launches.get(f"srbd_trial_{inst}", 0) != res["trials"]:
+            fail(f"{tag}: K3 launches do not cover the trials")
+        add(launches)
+
+    # ---- family_card_vs_cpu: float64, the point-feet robot and the
+    # Kangaroo RK4 fleet at B=8, 3 ticks each ----
+    def single_ticks(device, n_ticks):
+        loop, p = family_loop("point_feet", "EULER", f64, device)
+        sch = walking_schedule(n_ticks, vx=0.3, start=1, dtype=f64,
+                               device=device)
+        c = loop.init(p.initial_state)
+        res = []
+        for i in range(n_ticks):
+            c, o = loop.tick(c, TickInput(*(a[i] for a in sch)))
+            res.append(o)
+        return c, res
+
+    def fleet_ticks(device, n_ticks):
+        loop, c, inp = family_fleet("kangaroo_rk4", 8, f64, device)
+        res = []
+        for _ in range(n_ticks):
+            c, o = loop.tick_batch(c, inp)
+            res.append(o)
+        return c, res
+
+    fvc = dict(tol=1e-9,
+               point_feet_single=dict(ticks=3, walk="vx 0.3 from tick 1",
+                                      **family_versus(single_ticks(dev, 3),
+                                                      single_ticks("cpu", 3))),
+               kangaroo_rk4_fleet_B8=dict(ticks=3, **family_versus(
+                   fleet_ticks(dev, 3), fleet_ticks("cpu", 3))))
+    emit("family_card_vs_cpu", **fvc)
+    if not (fvc["point_feet_single"]["ok"] and fvc["kangaroo_rk4_fleet_B8"]["ok"]):
+        fail("the phase-14 card path and CPU path disagree")
+
+    # ---- the kernel rows: launches from this phase's paths ----
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+    specs = []                 # (row name, module, error key, source instance)
+    for inst in FAMILY_INSTANCES:
+        specs += [(f"srbd_linearize_{inst}", k4, "k4", inst),
+                  (f"srbd_trial_{inst}", k3, "k3", inst),
+                  (f"srbd_evaluate_{inst}", k3, "evaluate", inst)]
+    new_shapes = {k1_shapes[i]: i for i in reversed(FAMILY_INSTANCES)}
+    for shape, form, solver in k1.KERNEL_INSTANCES:
+        if shape in new_shapes:
+            name = k1_row_name(shape, form, solver)
+            specs.append((name, k1, name, new_shapes[shape]))
+    rows_out = []
+    for name, mod, key, inst in specs:
+        t, e = times[name], errs[inst]
+        tassa_row = "_tassa" in name
+        Bt = 1 if tassa_row else B_MAIN
+        tt = t[Bt]
+        err = dict(e64=e[key + "_e64"], e32=e[key + "_e32"],
+                   p32=e[key + "_p32"], abs32=e[key + "_abs32"])
+        tol32 = (K1_F32_TOL if mod is k1
+                 else f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+                 if key == "k4" else trial_tol)
+        row = kernel_row(name, mod, path_launches.get(name, 0), tt["ms"],
+                         tt["plain_ms"], tt["bound_ms"], tt["bound_by"], err,
+                         tol32, B=Bt, instance=inst,
+                         ms_by_B={str(b): v["ms"] for b, v in t.items()},
+                         plain_ms_by_B={str(b): v["plain_ms"]
+                                        for b, v in t.items()},
+                         bound_ms_by_B={str(b): v["bound_ms"]
+                                        for b, v in t.items()},
+                         achieved_GB_per_s=tt["achieved_GB_per_s"],
+                         launches_of="phase 14's paths", **occ.get(name, {}))
+        row["tol_f64"] = 1e-9 if mod is k1 else FAMILY_F64_TOL
+        if key == "evaluate":
+            row["replaces"] = k3.EVALUATE_REPLACES
+        elif tassa_row:
+            row["replaces"] = k1.TASSA_REPLACES
+        if key == "k3":
+            row["ms_4alpha"] = tt["ms_4alpha"]
+        rows_out.append(row)
+    pf_shapes = {k1_shapes[i] for i in FAMILY_INSTANCES
+                 if i.startswith("point_feet")}
+    k2_launches = sum(
+        n for (shape, form, solver), n in zip(
+            k1.KERNEL_INSTANCES, [path_launches.get(k1_row_name(*ki), 0)
+                                  for ki in k1.KERNEL_INSTANCES])
+        if shape in pf_shapes and solver == "schur")
+    rows_out.append(dict(kernel_row(
+        "spd_inverse_nu12", k1, k2_launches, k2["ms_f32"], k2["plain_ms_f32"],
+        k2["bound_ms"], k2["bound_by"],
+        dict(e64=k2["f64_rel_err"], e32=k2["f32_rel_err"],
+             p32=k2["f32_plain_rel_err"], abs32=k2["f32_max_abs_err"]),
+        K2_F32_TOL, launches_of="K1 with the block-Schur inverse at the "
+        "point-feet shapes on phase 14's paths (K2 runs inside K1)",
+        stack=k2["stack"], ms_f64=k2["ms_f64"],
+        library_ms_f32=k2["torch_linalg_inv_ms_f32"]),
+        replaces=k1.K2_REPLACES, library_ms=k2["torch_linalg_inv_ms_f64"]))
+    missing = [r["name"] for r in rows_out if r["launches"] == 0]
+    if missing:
+        fail(f"phase 14: kernels not launched on its paths: {missing}")
+    emit("family_section", seconds=time.perf_counter() - t_section, card=card,
+         rows=len(rows_out), path_launches=dict(path_launches))
+    return rows_out
+
+
 def main():
     if not (HERE / "srbd_horizon_tpu_torch" / "__init__.py").exists():
         fail("srbd_horizon_tpu_torch/ not found next to chip_smoke.py; run "
@@ -6272,6 +7121,9 @@ def main():
     modes_rows = modes_section(card, dev, sms)
     modes_rows += modes_shapes_section(card, dev, sms)
 
+    # ---------------- phase 14: the SRBD family at every topology and step --
+    family_rows = family_section(card, dev, sms)
+
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     kernels = [
@@ -6367,7 +7219,7 @@ def main():
                        shared_memory_bytes=t["shared_memory_bytes"],
                        blocks_per_sm=t["blocks_per_sm"]),
             replaces=k1.TASSA_REPLACES))
-    kernels += lip_rows + quad_rows + qc_rows + modes_rows
+    kernels += lip_rows + quad_rows + qc_rows + modes_rows + family_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,9 +20,11 @@ twins that the CPU tests hold against the JAX package.
 Layout (mirrors the JAX package):
     config        SRBDConfig / DDPOptions (torch dtypes)
     math/         quaternion helpers, batch-first small-matrix algebra
-    models/       Kangaroo and quadruped constants, SRBD dynamics, the
-                  LIP model
-    ocp/          variable layouts, Euler and RK2 steps, the OCP container
+    models/       Kangaroo (line and point feet) and quadruped constants,
+                  the URDF loaders, SRBD dynamics, the LIP model
+    assets/       copies of the JAX package's URDF assets
+    ocp/          variable layouts, Euler, RK2 and RK4 steps, the OCP
+                  container
     problems/     build_srbd_problem, build_isrbd_problem, the AL inner
                   problem, build_lip_problem
     wpg           walking-pattern generator

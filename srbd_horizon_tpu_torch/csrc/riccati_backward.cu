@@ -35,7 +35,8 @@
 //
 // Design, one thread block of 4 warps per member, the node loop inside:
 //  * Compile-time sizes. The kernel is a template on a shape struct (one
-//    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape); every loop
+//    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape,
+//    PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape); every loop
 //    bound, tile count and shared-memory offset is a constant. The row sets stay a run-time
 //    int32 table, copied into shared memory once. The wrapper picks the
 //    instantiation from the sizes and refuses any other.
@@ -91,12 +92,16 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); twelve instantiations are built (`with_instance` below):
-// the collapsed form with the inverse at every shape, and the Tassa form
-// with the inverse at SrbdShape, LipShape and QuadShape (DDPOptions'
+// solve (Solve); twenty-two instantiations are built (`with_instance`
+// below): the collapsed form with the inverse at every shape, and the
+// Tassa form with the inverse at SrbdShape, LipShape, QuadShape and the
+// four shapes of the point-feet biped and the RK steps (DDPOptions'
 // default), with Cholesky at IsrbdAlShape and QuadAlShape (the AL solver's
-// inner solve), at SrbdShape and at LipShape. The collapsed ones compile to the code
-// they had.
+// inner solve), at SrbdShape, LipShape, PointFeetShape and SrbdRkShape.
+// The collapsed ones compile to the code they had. The SRBD problem under
+// RK2 and RK4 (SrbdRkShape, QuadRkShape, PointFeetRkShape; the two steps
+// share each) has every row of B live (n_ru = nx, as the isrbd-AL shapes
+// have), so its B-chain products run over nx rows, not 18 (12).
 //  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
 //    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
 //    pivot, √ of it is L[j][j], and the lanes below divide by it. A pivot
@@ -162,6 +167,32 @@ struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
   static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
                        n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
   static constexpr int min_blocks = 3;
+};
+
+struct PointFeetShape {     // build_srbd_problem on the point-feet biped
+  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 12,
+                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
+  static constexpr int min_blocks = 4;
+};
+
+// build_srbd_problem under RK2 or RK4 (the two steps share a shape): every
+// row of B is live
+struct SrbdRkShape {        // the Kangaroo
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
+                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct QuadRkShape {        // the point-feet quadruped
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
+                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct PointFeetRkShape {   // the point-feet biped
+  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 25,
+                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
+  static constexpr int min_blocks = 4;
 };
 
 // the value update (kernels/riccati.py::FORMS) and the gain solve
@@ -712,6 +743,8 @@ int inverse(const void* A, void* out, int M, int n, void* stream) {
     return launch_inverse<IsrbdAlShape::nu, T>(A, out, M, stream);
   if (n == LipShape::nu)
     return launch_inverse<LipShape::nu, T>(A, out, M, stream);
+  if (n == PointFeetShape::nu)
+    return launch_inverse<PointFeetShape::nu, T>(A, out, M, stream);
   return kUnknownShape;
 }
 
@@ -748,6 +781,16 @@ int with_instance(int inst, Fn fn) {
     case 9: return fn(Inst<QuadShape, Form::kTassa, Solve::kSchur>{});
     case 10: return fn(Inst<QuadAlShape, Form::kCollapsed, Solve::kSchur>{});
     case 11: return fn(Inst<QuadAlShape, Form::kTassa, Solve::kCholesky>{});
+    case 12: return fn(Inst<PointFeetShape, Form::kCollapsed, Solve::kSchur>{});
+    case 13: return fn(Inst<PointFeetShape, Form::kTassa, Solve::kSchur>{});
+    case 14: return fn(Inst<PointFeetShape, Form::kTassa, Solve::kCholesky>{});
+    case 15: return fn(Inst<SrbdRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 16: return fn(Inst<SrbdRkShape, Form::kTassa, Solve::kSchur>{});
+    case 17: return fn(Inst<SrbdRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 18: return fn(Inst<QuadRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 19: return fn(Inst<QuadRkShape, Form::kTassa, Solve::kSchur>{});
+    case 20: return fn(Inst<PointFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 21: return fn(Inst<PointFeetRkShape, Form::kTassa, Solve::kSchur>{});
     default: return kUnknownShape;
   }
 }
@@ -778,7 +821,7 @@ int with_instance(int inst, Fn fn) {
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
-// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 15, 24 or 30: the
+// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 12, 15, 24 or 30: the
 // device routine K1 runs, for timing and checking it by itself.
 extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
                                void* stream) {

@@ -1,10 +1,11 @@
 // Device code shared by the SRBD kernels — K3 and srbd_evaluate
-// (csrc/srbd_rollout.cu) and K4 (csrc/srbd_linearize.cu): the sizes they
-// are compiled for, the problem's constants, the rigid-body rates of its
-// Euler step (every lane of a warp holds them in registers), and the rows
-// of its stacked stage residual ρ = [stage_residual; √w_c·stage_eq] and of
-// its terminal residual. All three evaluate the dynamics and the residuals through this
-// one copy. The rotation, inertia and quaternion-rate helpers and the warp
+// (csrc/srbd_rollout.cu) and K4 (csrc/srbd_linearize.cu): the sizes and
+// steps they are compiled for, the problem's constants, the rigid-body
+// rates of ẋ (every lane of a warp holds them in registers), the step
+// x⁺ = step(x, u) of the OCP's integrator (Euler, RK2 or RK4) on one warp,
+// and the rows of its stacked stage residual
+// ρ = [stage_residual; √w_c·stage_eq] and of its terminal residual. All
+// three evaluate the dynamics and the residuals through this one copy. The rotation, inertia and quaternion-rate helpers and the warp
 // reductions come from csrc/rigid_common.cuh, which the isrbd kernels
 // share.
 //
@@ -23,48 +24,113 @@ namespace srbd {
 
 using namespace rigid;
 
-// The sizes the SRBD kernels are compiled for, one struct a robot:
-// build_srbd_problem with the Kangaroo's line feet and with the quadruped's
-// point feet (models/quadruped.py). kernels/linearize.py::KERNEL_SHAPES
-// holds the same numbers in the same order (a test reads them from here);
-// on CUDA tensors of any other sizes the wrappers raise. The row counts
-// are those of RiccatiRows.from_ocp (the rows K4 emits and K1 reads).
+// The steps (ocp/integrators.py; kernels/linearize.py::STEPS, same order):
+// the stage points of each are x + c_s·dt·k_{s−1}, k_s = ẋ(stage point, u),
+// and x⁺ = x + dt·k₁ (Euler), x + dt·k₂ (RK2, the explicit midpoint) or
+// x + dt/6·(k₁ + 2k₂ + 2k₃ + k₄) (RK4).
+struct Euler {
+  static constexpr int id = 0, stages = 1;
+};
+struct Rk2 {
+  static constexpr int id = 1, stages = 2;
+};
+struct Rk4 {
+  static constexpr int id = 2, stages = 4;
+};
+
+// c_s of stage s ≥ 1 (stage 0 is x itself): ½ for RK2's second stage and
+// RK4's second and third, 1 for RK4's fourth.
+template <class St>
+__host__ __device__ constexpr bool full_stage(int s) {
+  return St::stages == 4 && s == 3;
+}
+
+// The contact topologies the SRBD kernels are compiled for, one struct a
+// robot: build_srbd_problem with the Kangaroo's line feet, the quadruped's
+// point feet (models/quadruped.py) and the point-feet biped
+// (models/kangaroo.py::point_feet), each under the Euler step; `Stepped`
+// gives the same topology under RK2 or RK4.
+// kernels/linearize.py::TOPOLOGIES holds the same numbers in the same order
+// (a test reads them from here); on CUDA tensors of any other sizes the
+// wrappers raise. The row counts are those of RiccatiRows.from_ocp (the
+// rows K4 emits and K1 reads).
 struct KangarooShape {
   static constexpr int nc = 4, cm = 2, n_legs = 2, nx = 37, nu = 24,
                        n_rho = 73, nt = 15, n_rx = 22, n_ru = 18, n_gx = 34,
                        n_gu = 42;
+  using Step = Euler;
 };
 
 struct QuadShape {
   static constexpr int nc = 4, cm = 1, n_legs = 4, nx = 37, nu = 24,
                        n_rho = 69, nt = 15, n_rx = 22, n_ru = 18, n_gx = 30,
                        n_gu = 42;
+  using Step = Euler;
+};
+
+struct PointFeetShape {
+  static constexpr int nc = 2, cm = 1, n_legs = 2, nx = 25, nu = 12,
+                       n_rho = 45, nt = 15, n_rx = 16, n_ru = 12, n_gx = 24,
+                       n_gu = 24;
+  using Step = Euler;
+};
+
+// A topology under another step: the RK stages carry u into every state
+// row through ∂ẋ/∂x, so B has nx live rows (A − I keeps Euler's).
+template <class Topo, class St>
+struct Stepped : Topo {
+  static constexpr int n_ru = Topo::nx;
+  using Step = St;
 };
 
 // A launcher's answer for sizes no shape above has.
 constexpr int kUnknownShape = -2;
 
-// fn(S{}) for the shape at `index` in the order above (the order of
-// KERNEL_SHAPES), or kUnknownShape.
+// fn(S{}) for the (topology, step) instance at `index` in the order of
+// kernels/linearize.py::KERNEL_SHAPES — the three topologies under Euler,
+// then each under RK2 and RK4 — or kUnknownShape.
 template <class Fn>
 inline int with_shape(int index, Fn fn) {
   switch (index) {
     case 0: return fn(KangarooShape{});
     case 1: return fn(QuadShape{});
+    case 2: return fn(PointFeetShape{});
+    case 3: return fn(Stepped<KangarooShape, Rk2>{});
+    case 4: return fn(Stepped<KangarooShape, Rk4>{});
+    case 5: return fn(Stepped<QuadShape, Rk2>{});
+    case 6: return fn(Stepped<QuadShape, Rk4>{});
+    case 7: return fn(Stepped<PointFeetShape, Rk2>{});
+    case 8: return fn(Stepped<PointFeetShape, Rk4>{});
     default: return kUnknownShape;
   }
 }
 
-// fn(S{}) for the shape of this contact topology (nc contacts of cm
-// points on n_legs legs), or kUnknownShape: the topology fixes nx, nu and
-// n_rho, so it picks the shape.
+template <class Topo, class Fn>
+inline int with_step(int step, Fn fn) {
+  switch (step) {
+    case Euler::id: return fn(Topo{});
+    case Rk2::id: return fn(Stepped<Topo, Rk2>{});
+    case Rk4::id: return fn(Stepped<Topo, Rk4>{});
+    default: return kUnknownShape;
+  }
+}
+
+template <class Topo>
+inline bool is_topology(int nc, int cm, int n_legs) {
+  return nc == Topo::nc && cm == Topo::cm && n_legs == Topo::n_legs;
+}
+
+// fn(S{}) for the instance of this contact topology (nc contacts of cm
+// points on n_legs legs) and step (Euler::id, Rk2::id, Rk4::id), or
+// kUnknownShape: the topology fixes nx, nu and n_rho, the step the rows of
+// B, so the two pick the instance.
 template <class Fn>
-inline int with_topology(int nc, int cm, int n_legs, Fn fn) {
-  if (nc == KangarooShape::nc && cm == KangarooShape::cm &&
-      n_legs == KangarooShape::n_legs)
-    return fn(KangarooShape{});
-  if (nc == QuadShape::nc && cm == QuadShape::cm && n_legs == QuadShape::n_legs)
-    return fn(QuadShape{});
+inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
+  if (is_topology<KangarooShape>(nc, cm, n_legs))
+    return with_step<KangarooShape>(step, fn);
+  if (is_topology<QuadShape>(nc, cm, n_legs)) return with_step<QuadShape>(step, fn);
+  if (is_topology<PointFeetShape>(nc, cm, n_legs))
+    return with_step<PointFeetShape>(step, fn);
   return kUnknownShape;
 }
 
@@ -76,6 +142,9 @@ struct Layout {
                        i_cdot = 13 + 3 * nc;
   static constexpr int n_res = 21 + 9 * nc;            // residual rows
   static constexpr int n_rv = 2 * S::n_legs * (S::cm - 1);
+  // the state rows ẋ depends on x through: r, o, c (integrated velocities)
+  // and ω — the live rows of A − I under every step, in this order
+  static constexpr int n_live = i_rdot + 3;
   static constexpr int pw = 12 + 2 * nc;               // packed parameter row
   static_assert(nx == 13 + 6 * nc && nu == 6 * nc, "not an SRBD layout");
   static_assert(S::n_rho == n_res + n_rv + 3 * nc, "ρ rows");
@@ -279,6 +348,83 @@ __device__ __forceinline__ T xdot_row(int j, const T* x, const T* u,
   return accel_entry(r, j - L::i_rdot);           // r̈ then ω̇ (contiguous)
 }
 
+// ---- the step ----
+
+// Rows j = lane and lane + 32 (nx ≤ 64) of x⁺ = step(x, u) into out[0..1]
+// (0 past nx), from the rates r1 at x. Under RK2 and RK4 the lanes write
+// each later stage point x + c_s·dt·k_{s−1} into the warp's scratch `xs`
+// (nx values), form its geometry and rates on every lane as at x, and call
+// stage(s, xs, g, rig) there (s = 1 … stages − 1; K4 forms its ∂ω̇ columns
+// at the stage point); the k's are summed as ocp/integrators.py sums them.
+// Every lane must call it (the shuffles, the warp barriers).
+template <class S, typename T, class StageFn>
+__device__ __forceinline__ void step_rows(const T* x, const T* u,
+                                          const Rigid<T>& r1,
+                                          const Consts<T>& k, int lane, T* xs,
+                                          T* out, StageFn stage) {
+  using St = typename S::Step;
+  T kk[2], acc[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    kk[c] = j < S::nx ? xdot_row<S>(j, x, u, r1) : T(0);
+    acc[c] = kk[c];
+  }
+  if constexpr (St::stages > 1) {
+#pragma unroll 1
+    for (int s = 1; s < St::stages; ++s) {
+      const T cdt = full_stage<St>(s) ? k.dt : T(0.5) * k.dt;
+      __syncwarp();                                 // readers of xs are done
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = lane + 32 * c;
+        if (j < S::nx) xs[j] = x[j] + cdt * kk[c];
+      }
+      __syncwarp();
+      const Geometry<T> g = geometry<S>(xs, k);
+      const Rigid<T> rig = rigid_rates<S>(xs, u, k, g, lane);
+      stage(s, xs, g, rig);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = lane + 32 * c;
+        kk[c] = j < S::nx ? xdot_row<S>(j, xs, u, rig) : T(0);
+        if constexpr (St::stages == 4)
+          acc[c] = s == 3 ? acc[c] + kk[c] : acc[c] + T(2) * kk[c];
+      }
+    }
+    __syncwarp();                                   // xs free again
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    if (j < S::nx) {
+      if constexpr (St::stages == 4)
+        out[c] = x[j] + (k.dt / T(6)) * acc[c];
+      else
+        out[c] = x[j] + k.dt * kk[c];
+    } else {
+      out[c] = T(0);
+    }
+  }
+}
+
+// The scratch a warp needs for step_rows' stage points: nx values under
+// RK2 and RK4, none under Euler.
+template <class S>
+__host__ __device__ constexpr int stage_scratch() {
+  return S::Step::stages > 1 ? S::nx : 0;
+}
+
+// step_rows with nothing to do at the stage points.
+template <class S, typename T>
+__device__ __forceinline__ void step_rows(const T* x, const T* u,
+                                          const Rigid<T>& r1,
+                                          const Consts<T>& k, int lane, T* xs,
+                                          T* out) {
+  step_rows<S>(x, u, r1, k, lane, xs, out,
+               [](int, const T*, const Geometry<T>&, const Rigid<T>&) {});
+}
+
 // ---- residual rows ----
 
 // Row j of o ⊗ oref (x, y, z, w), problems/srbd.py's orientation error.
@@ -350,19 +496,20 @@ __device__ T eq_row(int q, const T* x, const T* p, const Consts<T>& k) {
 
 // This lane's share of ‖ρ(x, u, p)‖² over the stage rows, in two passes
 // that keep the lanes of a warp on few paths. Pass one: lane l < nu takes
-// the input rows of column l (c̈ᵢ, or fᵢ and its switch row), lanes nu..31
-// the first 32 − nu equality rows. Pass two: lanes 0..14 the tracking rows,
-// lanes 15..20 the r̈ and ω̇ rows (from `r`), the next lanes the remaining
-// equality rows. Every lane must call it; the sum over the warp is the
-// node's cost.
+// the input rows of column l (c̈ᵢ, or fᵢ and its switch row), the next
+// lanes the first equality rows (up to 32 − nu of them; on the point-feet
+// biped all six, and lanes 18..31 take none). Pass two: lanes 0..14 the
+// tracking rows, lanes 15..20 the r̈ and ω̇ rows (from `r`), the next lanes
+// the remaining equality rows. Every lane must call it; the sum over the
+// warp is the node's cost.
 template <class S, typename T>
 __device__ __forceinline__ T stage_sq_lane(int lane, const T* x, const T* u,
                                            const Rigid<T>& r, const T* p,
                                            const Consts<T>& k) {
   using L = Layout<S>;
   constexpr int n_eq = S::n_rho - L::n_res;
-  constexpr int eq1 = 32 - S::nu;                  // equality rows, pass one
-  static_assert(eq1 >= 0 && eq1 <= n_eq && n_eq - eq1 <= 32 - 21,
+  constexpr int eq1 = 32 - S::nu < n_eq ? 32 - S::nu : n_eq;   // pass one
+  static_assert(eq1 >= 0 && n_eq - eq1 <= 32 - 21,
                 "the two row passes cover the stage rows");
   T acc;
   if (lane < S::nu) {
@@ -372,9 +519,11 @@ __device__ __forceinline__ T stage_sq_lane(int lane, const T* x, const T* u,
     const T v2 = accel ? T(0)
                        : (k.w_fswitch * (T(1) - p[kP_cref + S::nc + lane / 6])) * ul;
     acc = v1 * v1 + v2 * v2;
-  } else {
+  } else if (S::nu + eq1 == 32 || lane < S::nu + eq1) {
     const T v = eq_row<S>(lane - S::nu, x, p, k);
     acc = v * v;
+  } else {
+    acc = T(0);
   }
   if (lane < 15) {
     const T v = tracking_row<S>(lane, x, p, p[kP_mt], k);

@@ -26,13 +26,36 @@
 // where Rⱼ = ∂R/∂oⱼ of the homogeneous (not normalized) quat_to_rot, which
 // is linear in o — so the derivative holds for non-unit quaternions too.
 //
-// Compiled for the sizes of two shapes (csrc/srbd_common.cuh): the
-// Kangaroo's line feet (`srbd::KangarooShape`) and the quadruped's point
-// feet (`srbd::QuadShape`, no relative-velocity rows: 69 stage rows, 30 of
-// them in Jxp). In each, the per-node output sizes, the smem layout and
-// every loop bound are constants; the contact topology picks the
-// instantiation at launch, and the wrapper refuses other sizes. The row
-// table stays a run-time input.
+// Compiled for nine instances (csrc/srbd_common.cuh): the Kangaroo's line
+// feet (`srbd::KangarooShape`), the quadruped's point feet
+// (`srbd::QuadShape`, no relative-velocity rows: 69 stage rows, 30 of them
+// in Jxp) and the point-feet biped (`srbd::PointFeetShape`: nx=25, nu=12,
+// 45 stage rows), each under the Euler step and under RK2 and RK4
+// (`srbd::Stepped`). In each, the per-node output sizes, the smem layout
+// and every loop bound are constants; the contact topology and the step
+// pick the instantiation at launch, and the wrapper refuses other sizes.
+// The row table stays a run-time input.
+//
+// RK2 and RK4. The residual rows and their Jacobians do not change (ρ
+// reads ẋ(x, u), not the step); the dynamics blocks are those of the step,
+//     k_s = ẋ(x_s, u),  x_s = x + c_s·dt·k_{s−1}  (c = ½ / ½, ½, 1),
+//     dk_s = F_x(x_s)·(e + c_s·dt·dk_{s−1}) + F_u(x_s)·e_u
+// for each column e of (x | u), and A − I = dt·dk₂ (RK2) or
+// dt/6·(dk₁ + 2dk₂ + 2dk₃ + dk₄) (RK4), B likewise on the u columns,
+// F_x = ∂ẋ/∂x and F_u = ∂ẋ/∂u at each stage point in the closed form
+// above. F_x has few live rows (r, o, c from ṙ, ȯ and ċ; ω̇), so the
+// warp keeps, at each stage point, only ∂ω̇'s columns and that point's o
+// and ω (`wdot_columns`, `keep_ow`, formed inside `srbd::step_rows` while
+// it evaluates the step), and a lane then carries one column of (x | u)
+// through the stages in registers (`rk_column`): the n_live = 10 + 3nc
+// rows r, o, c, ω of dk_s, the ṙ and ċ rows being F_u's constants. Sx is
+// A − I on those rows (the ṙ and ċ rows are zero under every step), and
+// Bs is B on every row: the live rows from the chain, the ṙ and ċ rows
+// F_u's (dt/m at the force columns, dt at the c̈ columns), as under Euler.
+// d is step(x, u) − X[n+1]. The stages cost what they add to the chain of
+// a node's scalars, not bytes: 0.134 / 0.201 ms at B=512 under RK2 / RK4
+// against 0.0748 under Euler (the Kangaroo, float32, an H100 at 700 W,
+// chip_smoke.py phase 14), 4 blocks an SM.
 //
 // What bounds it on an H100: bytes. A member-node writes 3,622 values
 // (Sx 814, Bs 432, Jxp 1,258, Jup 1,008, ρ 73, d 37; the quadruped 3,470:
@@ -96,7 +119,9 @@ enum Kind : int {
   kQuat,       // Sx: row a of ȯ = ½ (ω,0)⊗o (4 o and 3 ω columns)
   kQerr,       // Jxp: row a of o ⊗ oref (4 o columns)
   kDense,      // row a of ∂ω̇ (dense, written by the lanes over columns)
-  kRdd         // row a of r̈: 1/m at each force column of axis a
+  kRdd,        // row a of r̈: 1/m at each force column of axis a
+  kComposed    // RK2/RK4, Sx and Bs: live row a (Layout::n_live order) of the
+               // composed step Jacobian, written by the lanes over columns
 };
 // values of kOne/kTwo entries: vCs + q is √w_c · cdot_switch[q], and
 // K4<S>::vFsw + q (= vCs + nc + q) is w_fswitch · (1 − cdot_switch[q])
@@ -113,6 +138,8 @@ template <class S>
 struct K4 {
   using L = srbd::Layout<S>;
   static constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho;
+  static constexpr int stages = S::Step::stages;
+  static constexpr int nW = 3 * (nx + nu);       // ∂ω̇ columns of one point
   static constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu,
                        kJxp = S::n_gx * nx, kJup = S::n_gu * nu;
   static constexpr int kStage = kWarps * cmax(cmax(kSx, kBs), cmax(kJxp, kJup));
@@ -122,20 +149,38 @@ struct K4 {
                     (kWarps * kSx) % 4 == 0 && (kWarps * kBs) % 4 == 0 &&
                     (kWarps * kJxp) % 4 == 0 && (kWarps * kJup) % 4 == 0,
                 "16-byte alignment of the staged outputs");
+  // under RK2/RK4 the warp keeps ∂ω̇ at every stage point (wW, one block of
+  // nW a stage), the stage point being formed (wXs) and each stage point's
+  // o and ω (wOw, 7 a stage)
   static constexpr int wX = 0, wXn = wX + nx, wU = wXn + nx, wXd = wU + nu,
                        wP = wXd + nx, wW = wP + L::pw,
-                       wSize = wW + 3 * (nx + nu) + 1;
+                       wXs = wW + stages * nW,
+                       wOw = wXs + srbd::stage_scratch<S>(),
+                       wSize = wOw + (stages > 1 ? 7 * stages : 0) + 1;
   static constexpr int kRows = S::n_rx + S::n_ru + S::n_gx + S::n_gu;
   static constexpr int vFsw = vCs + S::nc;   // the first fswitch value
+  // the composed rows' slots (RK2/RK4): for Sx and Bs, the position of each
+  // live row in the block, or −1
+  static constexpr int kLiveSlots = stages > 1 ? 2 * L::n_live : 0;
 };
 
 // shared memory: staged outputs, warp scratch (both in T), then the row
-// kinds (2 ints a row) and the dense-row slots (3 per Jacobian block)
+// kinds (2 ints a row), the dense-row slots (3 per Jacobian block) and the
+// composed rows' slots
 template <class S, typename T>
 constexpr size_t smem_bytes() {
   using C = K4<S>;
   return sizeof(T) * (C::oEnd + kWarps * C::wSize) +
-         sizeof(int) * (2 * C::kRows + 12);
+         sizeof(int) * (2 * C::kRows + 12 + C::kLiveSlots);
+}
+
+// The position of state row r among the live rows (Layout::n_live: r, o, c,
+// then ω), or −1.
+template <class S>
+__host__ __device__ constexpr int live_index(int r) {
+  using L = srbd::Layout<S>;
+  return r < L::i_rdot ? r
+         : (r >= L::i_w && r < L::i_cdot) ? L::i_rdot + (r - L::i_w) : -1;
 }
 
 __device__ __forceinline__ int2 kind(int k, int value = 0, int a = 0,
@@ -148,6 +193,10 @@ template <class S>
 __device__ int2 resolve(int blk, int r) {
   using L = srbd::Layout<S>;
   constexpr int nc = S::nc;
+  if constexpr (S::Step::stages > 1) {             // the composed RK blocks
+    if (blk < 2 && live_index<S>(r) >= 0) return kind(kComposed, 0, live_index<S>(r));
+    if (blk == 0) return kind(kZero);              // ṙ, ċ rows of A − I
+  }
   if (blk == 0) {                                  // (∂ẋ/∂x)[r]
     if (r < 3) return kind(kOne, vOne, L::i_rdot + r);
     if (r < 7) return kind(kQuat, 0, r - 3);
@@ -319,22 +368,16 @@ __device__ void rhs_column(int col, const T* x, const T* u,
   }
 }
 
-// The scalars of one stage member-node, by its warp: ẋ (into xd), ∂ω̇ (into
-// W), and its ρ and d into the block's staged outputs (slot w).
+// ∂ω̇/∂(x, u) at the point (x, u) into W (column col at W[3·col], 3 rows),
+// from its geometry g and rates rig: the four o columns on lanes 0..11 (a
+// column on three lanes, a row of ∂Iwⱼ each, traded by shuffles), the
+// others a column a lane. Every lane must call it.
 template <class S, typename T>
-__device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
-                              int lane) {
-  using C = K4<S>;
+__device__ void wdot_columns(const T* x, const T* u, const srbd::Geometry<T>& g,
+                             const srbd::Rigid<T>& rig,
+                             const srbd::Consts<T>& k, int lane, T* W) {
   using L = srbd::Layout<S>;
-  constexpr int nx = C::nx, nu = C::nu, nr = C::nr;
-  const T* x = sw + C::wX;
-  const T* u = sw + C::wU;
-  T* xd = sw + C::wXd;
-  const T* p = sw + C::wP;
-  T* W = sw + C::wW;
-  const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
-  const srbd::Rigid<T> rig = srbd::rigid_rates<S>(x, u, k, g, lane);
-  for (int j = lane; j < nx; j += 32) xd[j] = srbd::xdot_row<S>(j, x, u, rig);
+  constexpr int nx = S::nx, nu = S::nu;
   {   // the o columns: column 3 + j on lanes 3j .. 3j+2, row a of ∂Iwⱼ each
     const int j = lane / 3 < 4 ? lane / 3 : 3, a = lane % 3;
     const int base = 3 * (lane / 3);
@@ -394,6 +437,42 @@ __device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
       W[col * 3 + i] =
           (g.C[i * 3] * m[0] + g.C[i * 3 + 1] * m[1] + g.C[i * 3 + 2] * m[2]) / g.det;
   }
+}
+
+// The o and ω of a stage point, for the quaternion-rate rows of ∂ẋ/∂x there.
+template <class S, typename T>
+__device__ __forceinline__ void keep_ow(const T* x, int lane, T* ow) {
+  if (lane < 4) ow[lane] = x[3 + lane];
+  else if (lane < 7) ow[lane] = x[srbd::Layout<S>::i_w + lane - 4];
+}
+
+// The scalars of one stage member-node, by its warp: ẋ (into xd), ∂ω̇ (into
+// W; under RK2/RK4 also at each later stage point, with its o and ω), and
+// its ρ and d = step(x, u) − X[n+1] into the block's staged outputs
+// (slot w).
+template <class S, typename T>
+__device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
+                              int lane) {
+  using C = K4<S>;
+  constexpr int nx = C::nx, nr = C::nr;
+  const T* x = sw + C::wX;
+  const T* u = sw + C::wU;
+  T* xd = sw + C::wXd;
+  const T* p = sw + C::wP;
+  T* W = sw + C::wW;
+  const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
+  const srbd::Rigid<T> rig = srbd::rigid_rates<S>(x, u, k, g, lane);
+  for (int j = lane; j < nx; j += 32) xd[j] = srbd::xdot_row<S>(j, x, u, rig);
+  wdot_columns<S>(x, u, g, rig, k, lane, W);
+  T* ow = sw + C::wOw;
+  if constexpr (C::stages > 1) keep_ow<S>(x, lane, ow);
+  T xp[2];                                          // step(x, u), rows lane, lane+32
+  srbd::step_rows<S>(x, u, rig, k, lane, sw + C::wXs, xp,
+                     [&](int s, const T* xs, const srbd::Geometry<T>& gs,
+                         const srbd::Rigid<T>& rs) {
+                       wdot_columns<S>(xs, u, gs, rs, k, lane, W + s * C::nW);
+                       keep_ow<S>(xs, lane, ow + 7 * s);
+                     });
   __syncwarp();                                     // xd for the rows
   T* rho = out + C::oRho + w * nr;
 #pragma unroll
@@ -401,7 +480,89 @@ __device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
     rho[r] = srbd::stage_rho_row<S>(r, x, u, xd, p, k);
   const T* xnext = sw + C::wXn;
   T* dd = out + C::oD + w * nx;
-  for (int j = lane; j < nx; j += 32) dd[j] = (x[j] + k.dt * xd[j]) - xnext[j];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    if (j < nx) dd[j] = xp[c] - xnext[j];
+  }
+}
+
+// Column `col` of (x | u) of the composed RK step Jacobian [A − I | B] on
+// the live rows (Layout::n_live), into acc, unscaled: the chain rule over
+// the stages, dk_s = F_x(x_s)·(e_col + c_s·dt·dk_{s−1}) + F_u(x_s)·e_col, at
+// each stage point from its ∂ω̇ columns W_s and its o and ω, and
+// acc = dk₂ (RK2) or dk₁ + 2dk₂ + 2dk₃ + dk₄ (RK4), which the caller
+// scales by dt or dt/6. The rows of dk outside the live ones are those of
+// F_u: 1/m at the force columns on the ṙ rows, 1 at the c̈ columns on the
+// ċ rows, whatever the point.
+template <class S, typename T>
+__device__ void rk_column(int col, const T* W, const T* ow,
+                          const srbd::Consts<T>& k, T* acc) {
+  using L = srbd::Layout<S>;
+  using St = typename S::Step;
+  constexpr int nx = S::nx, nl = L::n_live, nW = K4<S>::nW;
+  const bool ucol = col >= nx;
+  const int ju = col - nx;
+  const int lcol = ucol ? -1 : live_index<S>(col);
+  const T inv_m = T(1) / k.m_scaled;
+  T dk[nl];
+#pragma unroll
+  for (int li = 0; li < nl; ++li) dk[li] = T(0);
+#pragma unroll 1
+  for (int s = 0; s < St::stages; ++s) {
+    const T cdt = s == 0 ? T(0) : srbd::full_stage<St>(s) ? k.dt : T(0.5) * k.dt;
+    // v = e_col + c_s·dt·dk_{s−1} on the live rows (in place)
+#pragma unroll
+    for (int li = 0; li < nl; ++li)
+      dk[li] = (li == lcol ? T(1) : T(0)) + cdt * dk[li];
+    const T* Ws = W + s * nW;
+    const T* o = ow + 7 * s;
+    const T* w = o + 4;
+    T no[4], nw[3];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      T v = T(0);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) v += srbd::quat_rate_jac_o(a, b, w) * dk[3 + b];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        v += srbd::quat_rate_jac_w(a, i, o) * dk[L::i_rdot + i];
+      no[a] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      T v = ucol ? Ws[col * 3 + i] : T(0);
+#pragma unroll
+      for (int li = 0; li < nl; ++li) {
+        const int c = li < L::i_rdot ? li : L::i_w + (li - L::i_rdot);
+        v += Ws[c * 3 + i] * dk[li];
+      }
+      nw[i] = v;
+    }
+    // ṙ and ċ rows of v: e_col there, and c_s·dt times F_u's rows
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      dk[i] = (col == L::i_rdot + i ? T(1) : T(0)) +
+              ((ucol && ju % 6 == 3 + i) ? cdt * inv_m : T(0));
+#pragma unroll
+    for (int q = 0; q < 3 * S::nc; ++q)
+      dk[7 + q] = (col == L::i_cdot + q ? T(1) : T(0)) +
+                  ((ucol && ju == 6 * (q / 3) + q % 3) ? cdt : T(0));
+#pragma unroll
+    for (int a = 0; a < 4; ++a) dk[3 + a] = no[a];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dk[L::i_rdot + i] = nw[i];
+    if constexpr (St::stages == 4) {
+#pragma unroll
+      for (int li = 0; li < nl; ++li)
+        acc[li] = s == 0 ? dk[li]
+                  : s == 3 ? acc[li] + dk[li] : acc[li] + T(2) * dk[li];
+    }
+  }
+  if constexpr (St::stages != 4) {
+#pragma unroll
+    for (int li = 0; li < nl; ++li) acc[li] = dk[li];
+  }
 }
 
 // Jacobian block `blk` (0 Sx, 1 Bs, 2 Jxp, 3 Jup) of one member-node into
@@ -409,8 +570,8 @@ __device__ void stage_scalars(T* sw, T* out, int w, const srbd::Consts<T>& k,
 // one row at a time with the lanes over the columns.
 template <class S, typename T>
 __device__ void emit_block(int blk, const T* sw, const int* info,
-                           const int* dslot, const srbd::Consts<T>& k,
-                           int lane, T* dst) {
+                           const int* dslot, const int* lslot,
+                           const srbd::Consts<T>& k, int lane, T* dst) {
   using C = K4<S>;
   const T* x = sw + C::wX;
   const T* p = sw + C::wP;
@@ -432,6 +593,22 @@ __device__ void emit_block(int blk, const T* sw, const int* info,
     if (i < 0) continue;
     for (int c = lane; c < width; c += 32)
       dst[i * width + c] = wscale * W[(xcols ? c : C::nx + c) * 3 + s];
+  }
+  if constexpr (C::stages > 1) {                  // the composed RK rows
+    using L = srbd::Layout<S>;
+    if (blk < 2) {
+      const int* ls = lslot + blk * L::n_live;
+      const T rk = C::stages == 4 ? k.dt / T(6) : k.dt;
+      for (int c = lane; c < width; c += 32) {
+        T acc[L::n_live];
+        rk_column<S>(blk == 1 ? C::nx + c : c, W, sw + C::wOw, k, acc);
+#pragma unroll
+        for (int li = 0; li < L::n_live; ++li) {
+          const int i = ls[li];
+          if (i >= 0) dst[i * width + c] = rk * acc[li];
+        }
+      }
+    }
   }
 }
 
@@ -526,11 +703,13 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
 
   int* info = reinterpret_cast<int*>(out + C::oEnd + kWarps * C::wSize);
   int* dslot = info + 2 * C::kRows;
+  int* lslot = dslot + 12;
   const long long q0 = static_cast<long long>(blockIdx.x) * kWarps;
   const long long total = static_cast<long long>(B) * ns;
   const int n_valid = total - q0 < kWarps ? static_cast<int>(total - q0) : kWarps;
   const bool live = warp < n_valid;                 // warp-uniform
   if (threadIdx.x < 12) dslot[threadIdx.x] = -1;
+  if (static_cast<int>(threadIdx.x) < C::kLiveSlots) lslot[threadIdx.x] = -1;
   zero_fill(out, kWarps * C::kSx);
   if (live) {
     const long long q = q0 + warp;
@@ -557,6 +736,8 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
     info[2 * i] = kd.x;
     info[2 * i + 1] = kd.y;
     if ((kd.x & 0xff) == kDense) dslot[3 * blk + (kd.y & 0xffff)] = i - first;
+    if ((kd.x & 0xff) == kComposed)
+      lslot[blk * srbd::Layout<S>::n_live + (kd.y & 0xffff)] = i - first;
   }
   if (live) stage_scalars<S>(sw, out, warp, k, lane);
   __syncthreads();                                  // kinds, the scalars
@@ -568,7 +749,8 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
       zero_fill(out, kWarps * per[blk]);
       __syncthreads();
     }
-    if (live) emit_block<S>(blk, sw, info, dslot, k, lane, out + warp * per[blk]);
+    if (live)
+      emit_block<S>(blk, sw, info, dslot, lslot, k, lane, out + warp * per[blk]);
     __syncthreads();
     stream_out(out, dsts[blk] + q0 * per[blk], n_valid * per[blk]);
     __syncthreads();                                // before the next fill
@@ -633,17 +815,17 @@ int occupancy(int* out) {
 
 }  // namespace
 
-// The contact topology (nc, cm, n_legs) picks the compiled shape; the row
-// counts must be that shape's, or the call returns kUnknownShape and
-// launches nothing.
+// The contact topology (nc, cm, n_legs) and the step (srbd::Euler::id,
+// Rk2::id, Rk4::id) pick the compiled instance; the row counts must be that
+// instance's, or the call returns kUnknownShape and launches nothing.
 #define LINEARIZE_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* X, const void* U,                           \
                       const void* const* params, const void* table, int B,    \
-                      int ns, int nc, int cm, int n_legs, int n_rx, int n_ru, \
-                      int n_gx, int n_gu, const double* scalars, void* Sx,    \
-                      void* Bs, void* Jxp, void* Jup, void* rho, void* d,     \
-                      void* rt, void* Jt, void* stream) {                     \
-    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+                      int ns, int nc, int cm, int n_legs, int step, int n_rx, \
+                      int n_ru, int n_gx, int n_gu, const double* scalars,    \
+                      void* Sx, void* Bs, void* Jxp, void* Jup, void* rho,    \
+                      void* d, void* rt, void* Jt, void* stream) {            \
+    return srbd::with_topology(nc, cm, n_legs, step, [&](auto s) {            \
       return launch<decltype(s), T>(X, U, params, table, B, ns, n_rx, n_ru,   \
                                     n_gx, n_gu, scalars, Sx, Bs, Jxp, Jup,    \
                                     rho, d, rt, Jt, stream);                  \

@@ -7,11 +7,12 @@
 // a `lax.scan` over the horizon, and the trial's `total_cost`/`_stage_rho`
 // (:150-165) with the Armijo test (:843-853), all of which XLA fused on the
 // TPU (the JAX package wrote no Pallas kernel for them), with the SRBD
-// Euler step (srbd_horizon_tpu/models/srbd.py::srbd_xdot) fused in. Plain
-// twin: `kernels/rollout.py::srbd_trial_plain`. Per member and α, for
+// step (Euler, RK2 or RK4 of srbd_horizon_tpu/models/srbd.py::srbd_xdot;
+// `srbd::step_rows`) fused in. Plain twin:
+// `kernels/rollout.py::srbd_trial_plain`. Per member and α, for
 // n = 0 … ns−1:
 //     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
-//     x̂ₙ₊₁ = x̂ₙ + dt·ẋ(x̂ₙ, uₙ) − (1 − α) dₙ
+//     x̂ₙ₊₁ = step(x̂ₙ, uₙ) − (1 − α) dₙ
 // then
 //     cost  = Σₙ ‖ρ(x̂ₙ, uₙ, pₙ)‖² + ‖ρ_N(x̂_N, p_N)‖²
 //     merit = cost + ν (1 − α)² D
@@ -27,15 +28,23 @@
 // `jax.vmap(MSDDP._true_defects)` (msddp.py:1222, :1240, :1484-1490), the
 // solve's starting cost and its final defect norm: per member
 //     cost       = Σₙ ‖ρ(Xₙ, Uₙ, pₙ)‖² + ‖ρ_N(X_N, p_N)‖²
-//     defect_max = maxₙ,ᵢ |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
+//     defect_max = maxₙ,ᵢ |step(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // Plain twin: `kernels/rollout.py::srbd_evaluate_plain`.
 //
-// Both are compiled for two shapes (csrc/srbd_common.cuh): the Kangaroo's
-// line feet (`srbd::KangarooShape`, 73 stage rows) and the quadruped's
-// point feet (`srbd::QuadShape`, 69: no relative-velocity rows). In each,
-// every loop over rows and columns has a constant trip count and every
-// offset is a constant; the contact topology picks the instantiation at
-// launch, and the wrappers refuse other sizes.
+// Both are compiled for nine instances (csrc/srbd_common.cuh): the
+// Kangaroo's line feet (`srbd::KangarooShape`, 73 stage rows), the
+// quadruped's point feet (`srbd::QuadShape`, 69: no relative-velocity rows)
+// and the point-feet biped (`srbd::PointFeetShape`, 45), each under the
+// Euler, RK2 and RK4 steps. In each, every loop over rows and columns has
+// a constant trip count and every offset is a constant; the contact
+// topology and the step pick the instantiation at launch, and the wrappers
+// refuse other sizes. Under RK2 and RK4 a node's step evaluates the rates
+// 2 or 4 times (`srbd::step_rows`: each later stage point goes through the
+// warp's scratch in shared memory, its geometry and contact sums on every
+// lane as at x̂), so K3's chain, which sets its time, grows to match
+// (0.0615 / 0.0883 ms at B=512 under RK2 / RK4 against 0.0480 under
+// Euler, one α, an H100 at 700 W, chip_smoke.py phase 14); the
+// evaluation's warps take the same step for the defects.
 //
 // What bounds K3 on an H100: one (member, α) reads the gains, the plan, the
 // defects and 20 parameter values per node, ~1.0k values per node (4 KB in
@@ -108,6 +117,7 @@
 namespace {
 
 using srbd::kUnknownShape;
+using srbd::stage_scratch;
 constexpr int kWarps = 4;
 constexpr int kStages = 3;           // node buffers a warp: the ring's depth
 
@@ -126,13 +136,14 @@ struct NodeBuf {
   static_assert(U % vec == 0 && S::nu % vec == 0, "16-byte copies");
 };
 
-// A warp's shared memory: kStages node buffers, then x̂, x̂ − X and u.
+// A warp's shared memory: kStages node buffers, then x̂, x̂ − X, u and the
+// stage point.
 template <class S, typename T>
 struct TrialWarp {
   using NB = NodeBuf<S, T>;
   static constexpr int xh = kStages * NB::size, dx = xh + S::nx,
-                       u = dx + S::nx;
-  static constexpr int size = round_up(u + S::nu, NB::vec);
+                       u = dx + S::nx, xs = u + S::nu;
+  static constexpr int size = round_up(xs + stage_scratch<S>(), NB::vec);
 };
 
 // Lane e's entry of the packed parameter rows of one member: entry e of
@@ -260,12 +271,11 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     const srbd::Rigid<T> rig = srbd::rigid_rates<S>(xh, u, k, geo, lane);
     acc += srbd::stage_sq_lane<S>(lane, xh, u, rig, buf + NB::p, k);
     T xn[2];                                       // nx ≤ 64: two rows a lane
+    srbd::step_rows<S>(xh, u, rig, k, lane, sw + W::xs, xn);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int j = lane + 32 * c;
-      if (j < S::nx)
-        xn[c] = (xh[j] + k.dt * srbd::xdot_row<S>(j, xh, u, rig)) -
-                om * buf[NB::d + j];
+      if (j < S::nx) xn[c] -= om * buf[NB::d + j];
     }
     __syncwarp();
 #pragma unroll
@@ -339,13 +349,16 @@ constexpr bool packed_row_ok() {
          param_off<S>(3) == srbd::kP_rdot && param_off<S>(5) == srbd::kP_cref;
 }
 static_assert(packed_row_ok<srbd::KangarooShape>() &&
-                  packed_row_ok<srbd::QuadShape>(),
+                  packed_row_ok<srbd::QuadShape>() &&
+                  packed_row_ok<srbd::PointFeetShape>(),
               "packed parameter row");
 
-// The records, the stage nodes' rates, then the node sums and maxima.
+// The records, the stage nodes' rates, the node sums and maxima, then each
+// warp's stage point (RK2, RK4).
 template <class S, typename T>
 size_t evaluate_smem_bytes(int ns) {
-  return sizeof(T) * ((ns + 1) * (EvalNode<S>::size + 2) + ns * kRates);
+  return sizeof(T) * ((ns + 1) * (EvalNode<S>::size + 2) + ns * kRates +
+                      kEvalWarps * stage_scratch<S>());
 }
 
 // The block stages parameter tensors t … of the member's ns1 nodes (`row0`
@@ -425,15 +438,16 @@ __device__ __forceinline__ void node_rates(const T* x, const T* u,
 }
 
 // One warp evaluates node n from its record and its rates: this node's
-// Σ‖ρ‖² and largest |x + dt·ẋ(x, u) − X[n+1]| (stage nodes), or the
-// terminal rows' Σ, onto lane 0. X[n+1] comes from device memory, issued
-// first.
+// Σ‖ρ‖² and largest |step(x, u) − X[n+1]| (stage nodes; `xs` the warp's
+// stage point under RK2 and RK4), or the terminal rows' Σ, onto lane 0.
+// X[n+1] comes from device memory, issued first.
 template <class S, typename T>
 __device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
                                               const T* __restrict__ Xnext,
                                               int n, int ns,
                                               const srbd::Consts<T>& k,
-                                              int lane, T* cost, T* dmax) {
+                                              int lane, T* xs, T* cost,
+                                              T* dmax) {
   using EN = EvalNode<S>;
   const T* x = rec + EN::x;
   const T* u = rec + EN::u;
@@ -455,13 +469,12 @@ __device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
 #pragma unroll
     for (int i = 0; i < 4; ++i) rig.od[i] = rates[6 + i];
     acc = srbd::stage_sq_lane<S>(lane, x, u, rig, p, k);
+    T step[2];
+    srbd::step_rows<S>(x, u, rig, k, lane, xs, step);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int j = lane + 32 * c;
-      if (j < S::nx) {
-        const T step = x[j] + k.dt * srbd::xdot_row<S>(j, x, u, rig);
-        dm = srbd::nan_max(dm, srbd::abs_nan(step - xn[c]));
-      }
+      if (j < S::nx) dm = srbd::nan_max(dm, srbd::abs_nan(step[c] - xn[c]));
     }
   } else if (lane < S::nt) {
     const T v = srbd::tracking_row<S>(lane, x, p, T(1), k);
@@ -489,6 +502,7 @@ srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   T* rates = s + ns1 * EN::size;
   T* node_cost = rates + ns * kRates;
   T* node_dmax = node_cost + ns1;
+  T* xs = node_dmax + ns1;                         // the warps' stage points
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t b = blockIdx.x;
   stage_member<S>(s, X, x0, x0_stride, U, P, b, ns, tid);
@@ -512,7 +526,8 @@ srbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   for (int n = warp; n < ns1; n += kEvalWarps)
     evaluate_node<S>(s + n * EN::size, rates + n * kRates,
                      X + (b * ns1 + n + 1) * S::nx, n, ns, k, lane,
-                     node_cost + n, node_dmax + n);
+                     xs + warp * stage_scratch<S>(), node_cost + n,
+                     node_dmax + n);
   __syncthreads();
   if (warp == 0) {   // the stage nodes over the lanes, then the terminal node
     T c = lane < ns ? node_cost[lane] : T(0);
@@ -609,18 +624,19 @@ int occupancy(Kernel kernel, int threads, size_t bytes, int* out) {
 
 }  // namespace
 
-// The contact topology (nc, cm, n_legs) picks the compiled shape; another
-// one returns kUnknownShape and launches nothing.
+// The contact topology (nc, cm, n_legs) and the step (srbd::Euler::id,
+// Rk2::id, Rk4::id) pick the compiled instance; another one returns
+// kUnknownShape and launches nothing.
 #define TRIAL_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(                                                        \
       const void* x0, const void* X, const void* U, const void* ks,           \
       const void* Ks, const void* d, const void* alphas,                      \
       const void* const* params, const void* merit0, const void* D,           \
       const void* dV1, const void* dV2, int B, int ns, int nc, int cm,        \
-      int n_legs, int nA, const double* scalars, double nu_w, double beta,    \
-      double alpha_min, void* Xn, void* Un, void* cost, void* merit,          \
-      void* ok, void* stream) {                                               \
-    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+      int n_legs, int step, int nA, const double* scalars, double nu_w,       \
+      double beta, double alpha_min, void* Xn, void* Un, void* cost,          \
+      void* merit, void* ok, void* stream) {                                  \
+    return srbd::with_topology(nc, cm, n_legs, step, [&](auto s) {            \
       return launch_trial<decltype(s), T>(                                    \
           x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2, B, ns,    \
           nA, scalars, nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,        \
@@ -636,10 +652,10 @@ TRIAL_ENTRY(srbd_trial_f64, double)
 #define EVALUATE_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* X, const void* U, const void* x0,           \
                       int x0_stride, const void* const* params, int B,        \
-                      int ns, int nc, int cm, int n_legs,                     \
+                      int ns, int nc, int cm, int n_legs, int step,           \
                       const double* scalars, void* cost, void* dmax,          \
                       void* Xpin, void* stream) {                             \
-    return srbd::with_topology(nc, cm, n_legs, [&](auto s) {                  \
+    return srbd::with_topology(nc, cm, n_legs, step, [&](auto s) {            \
       return launch_evaluate<decltype(s), T>(X, U, x0, x0_stride, params, B,  \
                                              ns, scalars, cost, dmax, Xpin,   \
                                              stream);                         \

@@ -105,14 +105,18 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> Dic
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        # nvcc writes its report (ptxas' lines for every kernel) straight
+        # to the log: through a pipe, a long report would stall the
+        # compile until the pipe was read
+        with open(log_path(name), "w") as log:
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        log_path(name).write_text(out)
+        proc.wait()
         if proc.returncode != 0:
-            failed.append(f"{name} (rc {proc.returncode}):\n{out}")
+            failed.append(f"{name} (rc {proc.returncode}):\n"
+                          f"{log_path(name).read_text()}")
             continue
         os.replace(tmp, library_path(name))
     if failed:

@@ -28,8 +28,10 @@ Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
 (nα, B) — what K3 and K11 return, so the solver's line search takes either.
 
 The step in D̂ is the problem's own (`family_step`, as JAX's
-`_true_defects` takes `ocp.step`): Euler on the SRBD problem and the LIP,
-the RK2 step of the double integrator on the isrbd AL inner problem.
+`_true_defects` takes `ocp.step`): the SRBD problem's step, Euler on the
+LIP, the RK2 step of the double integrator on the isrbd AL inner problem.
+The kernel holds the SRBD families under Euler only: the point-feet biped
+and the RK steps are refused (`family_index`; ROADMAP.md Queue 2).
 
 The kernel is compiled for five problems (`FAMILIES`): the SRBD problem of
 the Kangaroo and of the point-feet quadruped, the LIP, and the AL inner
@@ -54,6 +56,7 @@ from srbd_horizon_tpu_torch.kernels.riccati_associative import (
     dense_dynamics,
     odd_even_scan,
 )
+from srbd_horizon_tpu_torch.kernels.rollout import step_fn
 from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
 
 # the JAX function K13 replaces, with the trial's `_true_defects` and
@@ -86,12 +89,13 @@ def family_xdot(terms):
 
 def family_step(terms, dt: float):
     """step(x, u) of the problem behind `terms`, its OCP's integrator: the
-    Euler step on the SRBD problem and the LIP, the RK2 (midpoint) step on
-    the isrbd AL inner problem (srbd_horizon_tpu/ocp/integrators.py)."""
+    SRBD problem's own step (`SRBDTerms.step`), Euler on the LIP, the RK2
+    (midpoint) step on the isrbd AL inner problem
+    (srbd_horizon_tpu/ocp/integrators.py)."""
     xdot = family_xdot(terms)
     if terms.family == "isrbd_al":
         return lambda x, u: x + dt * xdot(x + 0.5 * dt * xdot(x, u), u)
-    return lambda x, u: x + dt * xdot(x, u)
+    return step_fn(xdot, dt, getattr(terms, "step", "EULER"))
 
 
 def forward_linear_plain(x0, X, U, ks, Ks, A, Bd, d, alphas):

@@ -9,13 +9,17 @@ Both compute what the JAX package's `MSDDP._linearize_sliced`
 (srbd_horizon_tpu/solvers/msddp.py:273-344) computes with `jax.jacfwd`
 under `vmap`, in the batch-first layout K1 reads, per member b and node n:
 
-    Sx  = dt·(∂ẋ/∂x)[rx]  (B,ns,|rx|,nx)    Bs  = dt·(∂ẋ/∂u)[ru]  (B,ns,|ru|,nu)
+    Sx  = (A − I)[rx]     (B,ns,|rx|,nx)    Bs  = B[ru]           (B,ns,|ru|,nu)
     Jxp = (∂ρ/∂x)[gx]     (B,ns,|gx|,nx)    Jup = (∂ρ/∂u)[gu]     (B,ns,|gu|,nu)
-    ρ   = [residual; √w_c·eq]  (B,ns,nr)     d   = x + dt·ẋ − X[n+1]  (B,ns,nx)
+    ρ   = [residual; √w_c·eq]  (B,ns,nr)     d   = step(x, u) − X[n+1]  (B,ns,nx)
     rt  = terminal residual (B,15)          Jt  = ∂rt/∂x (B,15,nx)
 
-with the Euler composition A = I + dt ∂ẋ/∂x, B = dt ∂ẋ/∂u, and the row
-sets of `kernels/riccati.py::RiccatiRows`. The closed form is
+with A = ∂step/∂x, B = ∂step/∂u of the problem's step (`SRBDTerms.step`)
+and the row sets of `kernels/riccati.py::RiccatiRows`. Under Euler,
+A = I + dt ∂ẋ/∂x and B = dt ∂ẋ/∂u; under RK2 and RK4 `step_jacobians`
+composes them by the chain rule from ∂ẋ/∂x and ∂ẋ/∂u at each stage point
+(x_s = x + c_s·dt·k_{s−1}, dk_s = F_x(x_s)(I + c_s·dt·dk_{s−1}) +
+F_u(x_s)), and every row of B is live. The closed form is
 srbd_horizon_tpu/problems/srbd.py::stage_jacobians (:236-375), except
 ∂ω̇/∂o, which that function takes by AD: here every column of ∂ω̇ is
 Iw⁻¹ ∂b with Iw ω̇ = b = τ − ω×Iw ω, and for the quaternion columns
@@ -23,14 +27,18 @@ Iw⁻¹ ∂b with Iw ω̇ = b = τ − ω×Iw ω, and for the quaternion columns
 of the homogeneous (not normalized) `quat_to_rot`.
 
 What bounds the kernel on an H100: bytes — a member-node writes 3,622
-values (the quadruped 3,470) and reads ~120, against a few thousand FLOP (the note in the .cu
-gives the design).
+values (the quadruped 3,470, the point-feet biped 1,502; under RK the
+Kangaroo 4,078) and reads ~120, against a few thousand FLOP a stage point
+(the note in the .cu gives the design).
 
-K3, K4 and srbd_evaluate are compiled for two sets of SRBD sizes, the
-Kangaroo's line feet and the point-feet quadruped's (`srbd::KangarooShape`
-and `srbd::QuadShape` in csrc/srbd_common.cuh, `KERNEL_SHAPES` here); their
-wrappers raise ValueError, naming the sizes, for CUDA tensors of any
-other, and take the plain twin for CPU tensors of any sizes.
+K3, K4 and srbd_evaluate are compiled for three SRBD topologies, the
+Kangaroo's line feet, the point-feet quadruped's and the point-feet
+biped's (`srbd::KangarooShape`, `srbd::QuadShape`, `srbd::PointFeetShape`
+in csrc/srbd_common.cuh, `TOPOLOGIES` here), each under the Euler, RK2 and
+RK4 steps (`KERNEL_SHAPES`, the nine instances); their wrappers raise
+ValueError, naming the sizes and the step, for CUDA tensors of any other
+(an RK problem never reaches an Euler instance), and take the plain twin
+for CPU tensors of any sizes.
 """
 
 from __future__ import annotations
@@ -56,15 +64,38 @@ from srbd_horizon_tpu_torch.models.srbd import (
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:273"
 SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_linearize.cu"
 
-# The sizes K3, K4 and srbd_evaluate are compiled for, in the order of the
-# shape structs of csrc/srbd_common.cuh (KangarooShape, QuadShape):
-# build_srbd_problem with the Kangaroo's line feet and with the quadruped's
-# point feet. The row counts are K4's (`RiccatiRows.from_ocp` of each OCP).
-KERNEL_SHAPES = {
+# The topologies the SRBD kernels are compiled for, in the order of the
+# shape structs of csrc/srbd_common.cuh (KangarooShape, QuadShape,
+# PointFeetShape): build_srbd_problem with the Kangaroo's line feet, the
+# quadruped's point feet and the point-feet biped, under the Euler step.
+# The row counts are K4's (`RiccatiRows.from_ocp` of each OCP).
+TOPOLOGIES = {
     "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
                      n_rx=22, n_ru=18, n_gx=34, n_gu=42),
     "quadruped": dict(nc=4, cm=1, n_legs=4, nx=37, nu=24, n_rho=69, nt=15,
                       n_rx=22, n_ru=18, n_gx=30, n_gu=42),
+    "point_feet": dict(nc=2, cm=1, n_legs=2, nx=25, nu=12, n_rho=45, nt=15,
+                       n_rx=16, n_ru=12, n_gx=24, n_gu=24),
+}
+# the steps, in the order of csrc/srbd_common.cuh's step tags (Euler, Rk2,
+# Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
+STEPS = ("EULER", "RK2", "RK4")
+
+
+def _instance(topology: str, step: str) -> dict:
+    sizes = dict(TOPOLOGIES[topology], step=step)
+    if step != "EULER":
+        sizes["n_ru"] = sizes["nx"]
+    return sizes
+
+
+# The (topology, step) instances K3, K4 and srbd_evaluate are compiled
+# for, in the order of csrc/srbd_common.cuh's `with_shape`: the three
+# topologies under Euler, then each under RK2 and RK4.
+KERNEL_SHAPES = {
+    **{name: _instance(name, "EULER") for name in TOPOLOGIES},
+    **{f"{name}_{step.lower()}": _instance(name, step)
+       for name in TOPOLOGIES for step in STEPS[1:]},
 }
 
 # the parameter rows the residuals read, in the kernels' order
@@ -74,10 +105,10 @@ N_TRACK = 15      # tracking rows = terminal rows
 
 
 def kernel_sizes(terms, nx: int, nu: int, rows=None):
-    """The sizes an SRBD kernel would be compiled for: the problem's, and
-    with `rows` (a `RiccatiRows`) the row counts K4 emits."""
+    """The sizes an SRBD kernel would be compiled for: the problem's and
+    its step, and with `rows` (a `RiccatiRows`) the row counts K4 emits."""
     sizes = dict(nc=terms.nc, cm=terms.contact_model,
-                 n_legs=terms.number_of_legs, nx=nx, nu=nu,
+                 n_legs=terms.number_of_legs, step=terms.step, nx=nx, nu=nu,
                  n_rho=terms.n_rho, nt=N_TRACK)
     if rows is not None:
         sizes.update(n_rx=len(rows.rx), n_ru=len(rows.ru),
@@ -86,7 +117,8 @@ def kernel_sizes(terms, nx: int, nu: int, rows=None):
 
 
 def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None) -> str:
-    """The name of the shape in `KERNEL_SHAPES` that has these sizes;
+    """The name of the instance in `KERNEL_SHAPES` that has these sizes
+    and this step (an RK problem never matches an Euler instance);
     ValueError, naming the sizes, if the SRBD kernels are compiled for
     none."""
     sizes = kernel_sizes(terms, nx, nu, rows)
@@ -217,11 +249,76 @@ def _tracking_jac(p, terms, nx, mt=None):
     return J
 
 
+def _xdot_jacobians(x, u, terms):
+    """ẋ (..., nx), ∂ẋ/∂x (..., nx, nx) and ∂ẋ/∂u (..., nx, nu) of the
+    SRBD dynamics at (x, u), in closed form."""
+    nc = terms.nc
+    nx, nu = x.shape[-1], u.shape[-1]
+    i_c, i_rdot, i_w, i_cdot = 7, 7 + 3 * nc, 10 + 3 * nc, 13 + 3 * nc
+    consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
+    xd = srbd_xdot(x, u, consts)
+    Wx, Wu = _wdot_jacobians(x, u, xd[..., i_w:i_w + 3], terms)
+    s = split_srbd_state(x, nc)
+    o, w = s["o"], s["w"]
+    lead = x.shape[:-1]
+    eye3 = torch.eye(3, dtype=x.dtype, device=x.device)
+    Jxd = x.new_zeros(lead + (nx, nx))
+    Jxd[..., 0:3, i_rdot:i_rdot + 3] = eye3
+    Jxd[..., 3:7, 3:6] = 0.5 * torch.cat([skew(w), -w[..., None, :]], dim=-2)
+    Jxd[..., 3:6, 6] = 0.5 * w
+    Jxd[..., 3:7, i_w:i_w + 3] = 0.5 * torch.cat(
+        [o[..., 3, None, None] * eye3 - skew(o[..., :3]), -o[..., None, :3]], dim=-2)
+    Jxd[..., i_c:i_rdot, i_cdot:] = torch.eye(3 * nc, dtype=x.dtype, device=x.device)
+    Jxd[..., i_w:i_w + 3, :] = Wx
+    Jud = x.new_zeros(lead + (nx, nc, 6))
+    for j in range(3):
+        Jud[..., i_rdot + j, :, 3 + j] = 1.0 / terms.m_scaled
+    Jud = Jud.reshape(lead + (nx, nu))
+    Jud[..., i_w:i_w + 3, :] = Wu
+    for q in range(3 * nc):
+        Jud[..., i_cdot + q, 6 * (q // 3) + q % 3] = 1.0
+    return xd, Jxd, Jud, Wx, Wu
+
+
+# each step's stage points: stage s is evaluated at x + c_s·dt·k_{s−1}
+# (ocp/integrators.py)
+STAGE_POINTS = {"EULER": (0.0,), "RK2": (0.0, 0.5), "RK4": (0.0, 0.5, 0.5, 1.0)}
+
+
+def step_jacobians(x, u, terms, dt: float):
+    """The problem's step x⁺ = step(x, u) (`terms.step`: EULER, RK2 or
+    RK4) and its Jacobians A − I = ∂x⁺/∂x − I and B = ∂x⁺/∂u, composed by
+    the chain rule from ∂ẋ/∂x and ∂ẋ/∂u at each stage point, the stages'
+    sums in the order of ocp/integrators.py. Returns (x⁺, A − I, B) and
+    the ∂ω̇ blocks at (x, u) (the residual reads ω̇ there)."""
+    xd, Fx, Fu, Wx, Wu = _xdot_jacobians(x, u, terms)
+    if terms.step == "EULER":
+        return x + dt * xd, dt * Fx, dt * Fu, Wx, Wu
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    k, kx, ku = xd, Fx, Fu
+    ks, kxs, kus = [k], [kx], [ku]
+    for c in STAGE_POINTS[terms.step][1:]:
+        k, Fx_s, Fu_s, _, _ = _xdot_jacobians(x + (c * dt) * k, u, terms)
+        kx = Fx_s @ (eye + (c * dt) * kx)
+        ku = Fx_s @ ((c * dt) * ku) + Fu_s
+        ks.append(k)
+        kxs.append(kx)
+        kus.append(ku)
+    if terms.step == "RK2":
+        return x + dt * ks[1], dt * kxs[1], dt * kus[1], Wx, Wu
+    # x + dt/6 (k1 + 2 k2 + 2 k3 + k4), as integrators.rk4 sums it
+    comb = lambda v: v[0] + 2 * v[1] + 2 * v[2] + v[3]
+    return (x + (dt / 6.0) * comb(ks), (dt / 6.0) * comb(kxs),
+            (dt / 6.0) * comb(kus), Wx, Wu)
+
+
 def srbd_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
     """Plain PyTorch K4. X (B,ns+1,nx), U (B,ns,nu), params leaves
     (B,ns+1,dim), `terms` the problem's `SRBDTerms`, `rows` its
     `RiccatiRows`, wc = √w_c in the working dtype. Returns the dict
-    Sx, Bs, Jxp, Jup, rho, rt, Jt, d (contiguous, batch-first)."""
+    Sx, Bs, Jxp, Jup, rho, rt, Jt, d (contiguous, batch-first), the
+    dynamics blocks and the defects under the problem's step
+    (`step_jacobians`)."""
     Bsz, ns1, nx = X.shape
     ns, nu, nc = ns1 - 1, U.shape[-1], terms.nc
     cm, n_legs = terms.contact_model, terms.number_of_legs
@@ -232,30 +329,8 @@ def srbd_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
 
     x = X[:, :ns]
     p = {k: params[k][:, :ns] for k in PARAM_KEYS}
-    consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
-    xd = srbd_xdot(x, U, consts)
-    Wx, Wu = _wdot_jacobians(x, U, xd[..., i_w:i_w + 3], terms)
-    s = split_srbd_state(x, nc)
-    o, w = s["o"], s["w"]
+    xnext, AmI, Bd, Wx, Wu = step_jacobians(x, U, terms, dt)
     lead = (Bsz, ns)
-
-    # ∂ẋ/∂x and ∂ẋ/∂u
-    eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
-    Jxd = X.new_zeros(lead + (nx, nx))
-    Jxd[..., 0:3, i_rdot:i_rdot + 3] = eye3
-    Jxd[..., 3:7, 3:6] = 0.5 * torch.cat([skew(w), -w[..., None, :]], dim=-2)
-    Jxd[..., 3:6, 6] = 0.5 * w
-    Jxd[..., 3:7, i_w:i_w + 3] = 0.5 * torch.cat(
-        [o[..., 3, None, None] * eye3 - skew(o[..., :3]), -o[..., None, :3]], dim=-2)
-    Jxd[..., i_c:i_rdot, i_cdot:] = torch.eye(3 * nc, dtype=X.dtype, device=X.device)
-    Jxd[..., i_w:i_w + 3, :] = Wx
-    Jud = X.new_zeros(lead + (nx, nc, 6))
-    for j in range(3):
-        Jud[..., i_rdot + j, :, 3 + j] = 1.0 / terms.m_scaled
-    Jud = Jud.reshape(lead + (nx, nu))
-    Jud[..., i_w:i_w + 3, :] = Wu
-    for q in range(3 * nc):
-        Jud[..., i_cdot + q, 6 * (q // 3) + q % 3] = 1.0
 
     # ∂ρ/∂x and ∂ρ/∂u of the stacked stage residual
     mt = p["mask_track"][..., 0]
@@ -293,14 +368,14 @@ def srbd_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
     p_term = {k: params[k][:, ns] for k in PARAM_KEYS}
     xT = X[:, ns]
     return dict(
-        Sx=(dt * Jxd).index_select(-2, idx["rx"]).contiguous(),
-        Bs=(dt * Jud).index_select(-2, idx["ru"]).contiguous(),
+        Sx=AmI.index_select(-2, idx["rx"]).contiguous(),
+        Bs=Bd.index_select(-2, idx["ru"]).contiguous(),
         Jxp=Jrx.index_select(-2, idx["gx"]).contiguous(),
         Jup=Jru.index_select(-2, idx["gu"]).contiguous(),
         rho=terms.stage_rho(x, U, p, wc).contiguous(),
         rt=terms.terminal_residual(xT, p_term).contiguous(),
         Jt=_tracking_jac(p_term, terms, nx).contiguous(),
-        d=((x + dt * xd) - X[:, 1:]).contiguous(),
+        d=(xnext - X[:, 1:]).contiguous(),
     )
 
 
@@ -312,22 +387,23 @@ def _kernel_fn(dtype):
     lib = library("srbd_linearize")
     fn = lib.srbd_linearize_f32 if dtype == torch.float32 else lib.srbd_linearize_f64
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 9 + [_P] * 10
+        fn.argtypes = [_P] * 4 + [_I] * 10 + [_P] * 10
         fn.restype = _I
     return fn
 
 
 def srbd_linearize(X, U, params, terms, rows, dt: float, wc: float):
     """K4. Same contract as `srbd_linearize_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and counts
-    the launch in `srbd_linearize.launches`), raises ValueError for other
-    sizes."""
+    for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `srbd_linearize.launches` and
+    in its instance's entry of `srbd_linearize.shape_launches`), raises
+    ValueError for others."""
     if X.device.type == "cpu":
         return srbd_linearize_plain(X, U, params, terms, rows, dt, wc)
     Bsz, ns1, nx = X.shape
     ns, nc = ns1 - 1, terms.nc
     nu = U.shape[-1]
-    check_kernel_shape("srbd_linearize", terms, nx, nu, rows)
+    shape = check_kernel_shape("srbd_linearize", terms, nx, nu, rows)
     if X.device.type != "cuda":
         raise ValueError(f"srbd_linearize runs on cpu or cuda, got {X.device}")
     dtype, dev = X.dtype, X.device
@@ -354,7 +430,7 @@ def srbd_linearize(X, U, params, terms, rows, dt: float, wc: float):
         err = fn(
             X.data_ptr(), U.data_ptr(), ptrs, rows.packed(dev).data_ptr(),
             Bsz, ns, nc, terms.contact_model, terms.number_of_legs,
-            n_rx, n_ru, n_gx, n_gu, scalars,
+            STEPS.index(terms.step), n_rx, n_ru, n_gx, n_gu, scalars,
             *(out[k].data_ptr() for k in ("Sx", "Bs", "Jxp", "Jup", "rho",
                                            "d", "rt", "Jt")),
             stream,
@@ -362,7 +438,10 @@ def srbd_linearize(X, U, params, terms, rows, dt: float, wc: float):
     if err != 0:
         raise RuntimeError(f"srbd_linearize kernel failed: CUDA error {err}")
     srbd_linearize.launches += 1
+    srbd_linearize.shape_launches[shape] += 1
     return out
 
 
 srbd_linearize.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+srbd_linearize.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)

@@ -52,8 +52,8 @@ from srbd_horizon_tpu_torch.kernels.lip_linearize import (
 )
 from srbd_horizon_tpu_torch.kernels.rollout import (
     armijo_plain,
-    euler_evaluate_plain,
-    euler_rollout_plain,
+    evaluate_plain,
+    rollout_plain,
 )
 
 # the functions K11 replaces (an XLA-fused scan and the trial's cost and
@@ -69,11 +69,11 @@ def lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
                     dV2, terms, dt: float, wc: float, nu_w: float,
                     beta: float, alpha_min: float):
     """Plain PyTorch K11: the Euler rollout of the LIP double integrator
-    (`rollout.euler_rollout_plain`), the cost Σ‖ρ‖² of each rolled plan
+    (`rollout.rollout_plain`), the cost Σ‖ρ‖² of each rolled plan
     (`terms` is the problem's `LIPTerms`, wc = √w_c) and the Armijo test
     (`rollout.armijo_plain`). params leaves (B,ns+1,dim); merit0, D, dV1,
     dV2 (B,)."""
-    Xn, Un = euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, terms.xdot)
+    Xn, Un = rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, terms.xdot)
     new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
     new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
                                  beta, alpha_min)
@@ -83,10 +83,10 @@ def lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
 def lip_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
     """Plain PyTorch lip_evaluate: the cost (B,) of each plan,
     `terms.total_cost`, and its largest |defect| (B,) under the Euler step
-    (`rollout.euler_evaluate_plain`, NaN kept). X (B,ns+1,nx), U
+    (`rollout.evaluate_plain`, NaN kept). X (B,ns+1,nx), U
     (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of the
     plan is x0, and the pinned plan is returned third."""
-    return euler_evaluate_plain(
+    return evaluate_plain(
         X, U, dt, terms.xdot,
         lambda Xp: terms.total_cost(Xp, U, params, wc), x0)
 

@@ -246,9 +246,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
-# shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape): nx, nu, the
-# terminal rows nt and the sizes of the row sets. Another problem needs a
-# shape of its own there and here.
+# shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape,
+# PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape): nx, nu, the
+# terminal rows nt and the sizes of the row sets. The SRBD problem under
+# RK2 and under RK4 has every row of B live (n_ru = nx); the two steps
+# share their shape. Another problem needs a shape of its own there and
+# here.
 KERNEL_SHAPES = {
     "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
                  n_b=3, n_uc=24),
@@ -260,6 +263,14 @@ KERNEL_SHAPES = {
                       n_gu=42, n_b=3, n_uc=24),
     "isrbd_al_quadruped": dict(nx=37, nu=30, nt=97, n_rx=19, n_ru=37,
                                n_gx=56, n_gu=103, n_b=9, n_uc=18),
+    "point_feet": dict(nx=25, nu=12, nt=15, n_rx=16, n_ru=12, n_gx=24,
+                       n_gu=24, n_b=3, n_uc=12),
+    "srbd_rk": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=37, n_gx=34, n_gu=42,
+                    n_b=3, n_uc=24),
+    "quadruped_rk": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=37, n_gx=30,
+                         n_gu=42, n_b=3, n_uc=24),
+    "point_feet_rk": dict(nx=25, nu=12, nt=15, n_rx=16, n_ru=25, n_gx=24,
+                          n_gu=24, n_b=3, n_uc=12),
 }
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
@@ -267,8 +278,9 @@ KERNEL_SHAPES = {
 # the block-Schur inverse serves the batched solves at every shape; the
 # Tassa form serves `MSDDP.solve`: with the inverse at the SRBD, LIP and
 # quadruped shapes (DDPOptions' default), with Cholesky at the two isrbd-AL
-# shapes (the AL solver's inner solve) and at the SRBD and LIP shapes. CUDA
-# tensors at another (shape, form, solver) raise ValueError.
+# shapes (the AL solver's inner solve) and at the SRBD and LIP shapes; the
+# point-feet biped and the three RK shapes as their Euler counterparts.
+# CUDA tensors at another (shape, form, solver) raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "collapsed", "schur"),
     ("isrbd_al", "collapsed", "schur"),
@@ -282,6 +294,16 @@ KERNEL_INSTANCES = (
     ("quadruped", "tassa", "schur"),
     ("isrbd_al_quadruped", "collapsed", "schur"),
     ("isrbd_al_quadruped", "tassa", "cholesky"),
+    ("point_feet", "collapsed", "schur"),
+    ("point_feet", "tassa", "schur"),
+    ("point_feet", "tassa", "cholesky"),
+    ("srbd_rk", "collapsed", "schur"),
+    ("srbd_rk", "tassa", "schur"),
+    ("srbd_rk", "tassa", "cholesky"),
+    ("quadruped_rk", "collapsed", "schur"),
+    ("quadruped_rk", "tassa", "schur"),
+    ("point_feet_rk", "collapsed", "schur"),
+    ("point_feet_rk", "tassa", "schur"),
 )
 
 # the launchers' own errors (no CUDA error has these values): the block's
@@ -437,7 +459,7 @@ riccati_backward.instance_launches = [0] * len(KERNEL_INSTANCES)
 
 def spd_inverse(A):
     """K2 alone: the block-Schur inverse K1 runs on Quu, over an (M, n, n)
-    stack of SPD matrices, n one of K1's nu (15, 24, 30). Computes in float64
+    stack of SPD matrices, n one of K1's nu (12, 15, 24, 30). Computes in float64
     for float32 tensors too. A CPU tensor goes to `lm_spd_inverse`; a CUDA
     tensor launches the kernel (counted in `spd_inverse.launches`) or
     raises. Nothing on the solver's path calls it: it is here to time and

@@ -4,7 +4,8 @@ vector of step sizes.
 `srbd_trial` is the wrapper the solver calls. A CPU tensor goes to
 `srbd_trial_plain`: `srbd_rollout_plain`, the PyTorch transcription of
 the JAX package's `MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:
-1391-1410) for the SRBD Euler step evaluated for every α at once, then
+1391-1410) for the problem's step (`SRBDTerms.step`: Euler, RK2 or RK4)
+evaluated for every α at once, then
 the trial's `total_cost` and Armijo test (:843-853); a CUDA tensor
 launches the hand-written kernel in `csrc/srbd_rollout.cu`, which does all
 three in one launch, or raises.
@@ -12,7 +13,7 @@ three in one launch, or raises.
 Per member and α, from x̂₀ = x0, for n = 0 … ns−1:
 
     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
-    x̂ₙ₊₁ = x̂ₙ + dt·srbd_xdot(x̂ₙ, uₙ) − (1 − α) dₙ
+    x̂ₙ₊₁ = step(x̂ₙ, uₙ) − (1 − α) dₙ     (Euler: x̂ₙ + dt·srbd_xdot(x̂ₙ, uₙ))
 
 then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖², merit = cost + ν(1−α)²D and
 ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
@@ -21,17 +22,18 @@ Un (nα, B, ns, nu), and cost, merit, ok (nα, B).
 
 `srbd_evaluate`, the second entry of the same source, evaluates a given
 plan with no rollout: per member the cost Σₙ‖ρ(Xₙ, Uₙ)‖² + ‖ρ_N(X_N)‖² and
-the largest |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the
+the largest |step(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the
 JAX package's solve computes with `jax.vmap(total_cost)` and
 `jax.vmap(_true_defects)` (msddp.py:1222, :1240, :1484-1490). Given x0
 (B, nx), it evaluates the plan with node 0 pinned to x0 and returns that
 plan as a third output, `X.clone()` with `X[:, 0] = x0` (the solve's pin,
 msddp.py:1221), written by the same launch. Its plain twin
-`srbd_evaluate_plain` is `SRBDTerms.total_cost` and the Euler step.
+`srbd_evaluate_plain` is `SRBDTerms.total_cost` and the problem's step.
 
-Both run on the sizes of a shape in `linearize.KERNEL_SHAPES` (the
-Kangaroo's, the quadruped's) on CUDA tensors and raise ValueError for
-others; CPU tensors take the twins at any size.
+Both run at the (topology, step) instances of `linearize.KERNEL_SHAPES`
+(the Kangaroo's, the quadruped's and the point-feet biped's, each under
+Euler, RK2 and RK4) on CUDA tensors and raise ValueError for others;
+CPU tensors take the twins at any size.
 """
 
 from __future__ import annotations
@@ -48,13 +50,16 @@ from srbd_horizon_tpu_torch.kernels.build import (
     occupancy_query,
 )
 from srbd_horizon_tpu_torch.kernels.linearize import (
+    KERNEL_SHAPES,
     OCCUPANCY_FIELDS,
+    STEPS,
     check_kernel_shape,
     kernel_params,
     shape_index,
 )
 from srbd_horizon_tpu_torch.math.linalg import lm_matvec
 from srbd_horizon_tpu_torch.models.srbd import srbd_xdot
+from srbd_horizon_tpu_torch.ocp import integrators
 
 # the functions K3 replaces (an XLA-fused scan and the trial's cost and
 # Armijo test; the JAX package wrote no Pallas kernel for them)
@@ -65,10 +70,19 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_rollout.cu"
 EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1222"
 
 
-def euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
-    """Plain PyTorch rollout under the Euler step of `xdot(x, u)`. x0
+def step_fn(xdot, dt: float, step: str = "EULER"):
+    """x⁺ = step(x, u): the integrator `step` (EULER, RK2, RK4;
+    ocp/integrators.py) of `xdot(x, u)` over dt."""
+    discrete = integrators.BY_NAME[step](lambda x, u, p: xdot(x, u))
+    return lambda x, u: discrete(x, u, None, dt)
+
+
+def rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot,
+                  step: str = "EULER"):
+    """Plain PyTorch rollout under the step `step` of `xdot(x, u)`. x0
     (B,nx), X (B,ns+1,nx), U (B,ns,nu), ks (B,ns,nu), Ks (B,ns,nu,nx),
     d (B,ns,nx), alphas (nα,)."""
+    f = step_fn(xdot, dt, step)
     nA = alphas.shape[0]
     Bsz, ns, nx = d.shape
     a = alphas[:, None, None]                          # (nα, 1, 1)
@@ -76,7 +90,7 @@ def euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
     Xs, Us = [], []
     for n in range(ns):
         u = U[:, n] + a * ks[:, n] + lm_matvec(Ks[:, n], xhat - X[:, n])
-        xnext = xhat + dt * xdot(xhat, u) - (1.0 - a) * d[:, n]
+        xnext = f(xhat, u) - (1.0 - a) * d[:, n]
         Xs.append(xhat)
         Us.append(u)
         xhat = xnext
@@ -85,11 +99,12 @@ def euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float, xdot):
 
 
 def srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt: float,
-                       m_scaled: float, inertia_scaled):
-    """Plain PyTorch rollout of the SRBD problem (`euler_rollout_plain`)."""
+                       m_scaled: float, inertia_scaled, step: str = "EULER"):
+    """Plain PyTorch rollout of the SRBD problem under `step`
+    (`rollout_plain`)."""
     consts = dict(m_scaled=m_scaled, inertia_scaled=inertia_scaled)
-    return euler_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
-                               lambda x, u: srbd_xdot(x, u, consts))
+    return rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
+                         lambda x, u: srbd_xdot(x, u, consts), step)
 
 
 def armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w: float,
@@ -114,37 +129,38 @@ def srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     plan (`terms` is the problem's `SRBDTerms`, wc = √w_c) and the Armijo
     test. params leaves (B,ns+1,dim); merit0, D, dV1, dV2 (B,)."""
     Xn, Un = srbd_rollout_plain(x0, X, U, ks, Ks, d, alphas, dt,
-                                terms.m_scaled, terms.inertia_scaled)
+                                terms.m_scaled, terms.inertia_scaled,
+                                terms.step)
     new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
     new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
                                  beta, alpha_min)
     return Xn, Un, new_cost, new_merit, ok
 
 
-def euler_evaluate_plain(X, U, dt: float, xdot, cost, x0=None):
+def evaluate_plain(X, U, dt: float, xdot, cost, x0=None, step: str = "EULER"):
     """The cost `cost(X)` (B,) of each plan and its largest |defect| (B,)
-    under the Euler step of `xdot(x, u)` (NaN kept); given x0, of the plan
+    under the step `step` of `xdot(x, u)` (NaN kept); given x0, of the plan
     with node 0 pinned to x0, returned third."""
     if x0 is not None:
         X = X.clone()
         X[..., 0, :] = x0
     ns = U.shape[-2]
     x = X[..., :ns, :]
-    step = x + dt * xdot(x, U)
-    defect_max = torch.amax(torch.abs(step - X[..., 1:, :]), dim=(-2, -1))
+    xnext = step_fn(xdot, dt, step)(x, U)
+    defect_max = torch.amax(torch.abs(xnext - X[..., 1:, :]), dim=(-2, -1))
     return (cost(X), defect_max) if x0 is None else (cost(X), defect_max, X)
 
 
 def srbd_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
     """Plain PyTorch srbd_evaluate: the cost (B,) of each plan,
-    `terms.total_cost`, and its largest |defect| (B,) under the Euler step,
-    `torch.amax` of |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN kept). X (B,ns+1,nx),
+    `terms.total_cost`, and its largest |defect| (B,) under the problem's
+    step, `torch.amax` of |step(Xₙ, Uₙ) − Xₙ₊₁| (NaN kept). X (B,ns+1,nx),
     U (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of
     the plan is x0, and the pinned plan is returned third."""
     consts = dict(m_scaled=terms.m_scaled, inertia_scaled=terms.inertia_scaled)
-    return euler_evaluate_plain(
+    return evaluate_plain(
         X, U, dt, lambda x, u: srbd_xdot(x, u, consts),
-        lambda Xp: terms.total_cost(Xp, U, params, wc), x0)
+        lambda Xp: terms.total_cost(Xp, U, params, wc), x0, terms.step)
 
 
 _P = ctypes.c_void_p
@@ -154,23 +170,24 @@ _D = ctypes.c_double
 
 def _evaluate_setup(terms, nx: int, nu: int, dt: float, wc: float):
     """What srbd_evaluate checks and builds once for (terms, dtype): the
-    sizes, and the scalars as a ctypes array."""
-    check_kernel_shape("srbd_evaluate", terms, nx, nu)
-    return (_D * 24)(*terms.kernel_scalars(dt, wc))
+    instance's name, and the scalars as a ctypes array."""
+    shape = check_kernel_shape("srbd_evaluate", terms, nx, nu)
+    return shape, (_D * 24)(*terms.kernel_scalars(dt, wc))
 
 
 def srbd_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
     """srbd_evaluate. Same contract as `srbd_evaluate_plain`; launches the
-    CUDA kernel for CUDA tensors of the sizes of a shape in
-    `KERNEL_SHAPES` (and counts the launch in `srbd_evaluate.launches`),
-    raises ValueError for other sizes."""
+    CUDA kernel for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `srbd_evaluate.launches` and
+    in its instance's entry of `srbd_evaluate.shape_launches`), raises
+    ValueError for others."""
     if X.device.type == "cpu":
         return srbd_evaluate_plain(X, U, params, terms, dt, wc, x0)
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, U.shape[-1]
     dtype, dev = X.dtype, X.device
-    scalars = host_setup(terms, ("srbd_evaluate", dtype, nx, nu, dt, wc),
-                         lambda: _evaluate_setup(terms, nx, nu, dt, wc))
+    shape, scalars = host_setup(terms, ("srbd_evaluate", dtype, nx, nu, dt, wc),
+                                lambda: _evaluate_setup(terms, nx, nu, dt, wc))
     if dev.type != "cuda":
         raise ValueError(f"srbd_evaluate runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
@@ -192,16 +209,20 @@ def srbd_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
         err = fn(X.data_ptr(), U.data_ptr(),
                  None if x0 is None else x0.data_ptr(),
                  0 if x0 is None else x0.stride(0), ptrs, Bsz, ns,
-                 terms.nc, terms.contact_model, terms.number_of_legs, scalars,
+                 terms.nc, terms.contact_model, terms.number_of_legs,
+                 STEPS.index(terms.step), scalars,
                  cost.data_ptr(), dmax.data_ptr(),
                  None if Xp is None else Xp.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"srbd_evaluate kernel failed: CUDA error {err}")
     srbd_evaluate.launches += 1
+    srbd_evaluate.shape_launches[shape] += 1
     return (cost, dmax) if Xp is None else (cost, dmax, Xp)
 
 
 srbd_evaluate.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+srbd_evaluate.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)
 _evaluate_fns = {}
 
 
@@ -211,7 +232,7 @@ def _evaluate_fn(dtype):
         lib = library("srbd_rollout")
         fn = (lib.srbd_evaluate_f32 if dtype == torch.float32
               else lib.srbd_evaluate_f64)
-        fn.argtypes = [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5
+        fn.argtypes = [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 5
         fn.restype = _I
         _evaluate_fns[dtype] = fn
     return fn
@@ -239,7 +260,7 @@ def _kernel_fn(dtype):
     lib = library("srbd_rollout")
     fn = lib.srbd_trial_f32 if dtype == torch.float32 else lib.srbd_trial_f64
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 12 + [_I] * 6 + [_P] + [_D] * 3 + [_P] * 6)
+        fn.argtypes = ([_P] * 12 + [_I] * 7 + [_P] + [_D] * 3 + [_P] * 6)
         fn.restype = _I
     return fn
 
@@ -248,16 +269,17 @@ def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
                terms, dt: float, wc: float, nu_w: float, beta: float,
                alpha_min: float):
     """K3. Same contract as `srbd_trial_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and counts
-    the launch in `srbd_trial.launches`), raises ValueError for other
-    sizes."""
+    for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `srbd_trial.launches` and in
+    its instance's entry of `srbd_trial.shape_launches`), raises ValueError
+    for others."""
     if d.device.type == "cpu":
         return srbd_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                 D, dV1, dV2, terms, dt, wc, nu_w, beta,
                                 alpha_min)
     Bsz, ns, nx = d.shape
     nc, nu = terms.nc, U.shape[-1]
-    check_kernel_shape("srbd_trial", terms, nx, nu)
+    shape = check_kernel_shape("srbd_trial", terms, nx, nu)
     if d.device.type != "cuda":
         raise ValueError(f"srbd_trial runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
@@ -288,7 +310,8 @@ def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
             x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
             Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(), ptrs,
             merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
-            Bsz, ns, nc, terms.contact_model, terms.number_of_legs, nA,
+            Bsz, ns, nc, terms.contact_model, terms.number_of_legs,
+            STEPS.index(terms.step), nA,
             scalars, float(nu_w), float(beta), float(alpha_min),
             Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
             ok.data_ptr(), stream,
@@ -296,7 +319,10 @@ def srbd_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
     if err != 0:
         raise RuntimeError(f"srbd_trial kernel failed: CUDA error {err}")
     srbd_trial.launches += 1
+    srbd_trial.shape_launches[shape] += 1
     return Xn, Un, cost, merit, ok
 
 
 srbd_trial.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+srbd_trial.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)

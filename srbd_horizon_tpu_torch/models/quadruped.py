@@ -7,15 +7,23 @@ group_mask=)`).
 
 The numbers are those the JAX package records from its vendored stand-in
 URDF (32 kg, a 0.60 m × 0.34 m stance rectangle, feet on the world plane,
-the CoM over the support polygon's centre). `quadruped_from_urdf` waits
-for the port's URDF loader.
+the CoM over the support polygon's centre); `quadruped_from_urdf`
+extracts them from the port's copy of that asset
+(`assets/quadruped_like.urdf`).
 """
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants
+
+QUADRUPED_URDF = str(
+    pathlib.Path(__file__).resolve().parents[1]
+    / "assets" / "quadruped_like.urdf"
+)
 
 # nominal configuration: 8 pitch joints (hip/knee × 4 legs) at zero
 QUADRUPED_JOINT_INIT = (0.0,) * 8
@@ -40,6 +48,20 @@ def quadruped_point_feet() -> RobotConstants:
             ]
         ),
         foot_frames=QUADRUPED_FOOT_FRAMES,
+    )
+
+
+def quadruped_from_urdf(urdf_path: str = QUADRUPED_URDF) -> RobotConstants:
+    """RobotConstants extracted from the URDF asset at the nominal
+    configuration, the lf foot the world frame; `quadruped_point_feet()`
+    holds the same numbers, recorded."""
+    from srbd_horizon_tpu_torch.models.urdf import load_robot_constants
+
+    return load_robot_constants(
+        urdf_path,
+        joints=list(QUADRUPED_JOINT_INIT),
+        foot_frames=list(QUADRUPED_FOOT_FRAMES),
+        world_frame=QUADRUPED_WORLD_FRAME,
     )
 
 

@@ -15,8 +15,8 @@ An OCP is a handful of plain tensor functions plus static metadata:
     augmented-Lagrangian rows; `eq_scale(_T)` and `eq_rho_weight(_T)`
     are its per-row unit scaling and penalty stiffness of the equality
     stacks.
-  - `step(x, u, p, dt)` is the discrete dynamics (Euler for SRBD, RK2
-    for isrbd).
+  - `step(x, u, p, dt)` is the discrete dynamics (Euler, RK2 or RK4 for
+    SRBD, `build_srbd_problem(integrator=)`; RK2 for isrbd).
   - The row sets declare the Jacobian sparsity the blocksparse Riccati
     sweep relies on: `residual_x_rows`/`residual_u_rows` over the stacked
     rows [stage_residual; stage_eq], and `dynamics_x_rows`/

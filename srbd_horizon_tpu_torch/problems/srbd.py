@@ -3,9 +3,13 @@
 linearization kernel K4 (`kernels/linearize.py`).
 
 For the Kangaroo line feet (nc=4): nx=37, nu=24, 57 residual rows, 16
-equality rows, 15 terminal rows. Every callable broadcasts over leading
-batch axes. The residual stacks are methods of `SRBDTerms`, which also
-carries the constants the kernels K3 and K4 read.
+equality rows, 15 terminal rows; for the point-feet biped (nc=2,
+`models/kangaroo.py::point_feet`): nx=25, nu=12, 39 and 6. Every callable
+broadcasts over leading batch axes. The residual stacks are methods of
+`SRBDTerms`, which also carries the constants the kernels K3 and K4 read
+and the name of the step (`integrator=`: "EULER", "RK2" or "RK4", as the
+JAX package's `build_srbd_problem` takes them), which picks the kernels'
+step.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ class SRBDTerms:
     com_z: float
     d1: Tuple[float, float]
     d2: Tuple[float, float]
+    step: str = "EULER"              # the OCP's integrator (ocp/integrators.py)
     _cache: Dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -215,12 +220,13 @@ def build_srbd_problem(
     integrator: str = "EULER", device="cuda",
 ) -> SRBDProblem:
     """Build the SRBD OCP on `device` (default "cuda"; raises when CUDA is
-    absent unless another device is given)."""
+    absent unless another device is given), its step `integrator`: "EULER"
+    (the reference's DDP path), "RK2" or "RK4"."""
     dev = resolve_device(device)
-    if integrator.upper() != "EULER":
-        raise NotImplementedError(
-            f"integrator={integrator!r}: the DDP path uses EULER only"
-        )
+    step_name = integrator.upper()
+    if step_name not in integrators.BY_NAME:
+        raise ValueError(f"integrator={integrator!r}: one of "
+                         f"{tuple(integrators.BY_NAME)}")
     dtype = dtype or cfg.dtype
     ns, nc, cm = cfg.ns, cfg.nc, cfg.contact_model
     n_legs = cfg.number_of_legs
@@ -251,6 +257,7 @@ def build_srbd_problem(
         com_z=float(com[2]),
         d1=(float(d1[0]), float(d1[1])),
         d2=(float(d2[0]), float(d2[1])),
+        step=step_name,
     )
     constants = dict(
         m_scaled=m / fs,
@@ -264,7 +271,7 @@ def build_srbd_problem(
     )
 
     xdot = lambda x, u, p: srbd_model.srbd_xdot(x, u, constants)
-    step = integrators.euler(xdot)
+    step = integrators.BY_NAME[step_name](xdot)
 
     i_rdot = 7 + 3 * nc
     i_w = 10 + 3 * nc
@@ -303,10 +310,14 @@ def build_srbd_problem(
                          21 + 9 * nc + 2 * n_legs * (cm - 1) + 3 * nc))
         ),
         residual_u_rows=tuple(range(15, 21 + 9 * nc)),
-        # Euler A−I live rows: r, o, c (integrated velocities) and w;
-        # B live rows: rdot, w, cdot
+        # A−I live rows: r, o, c (integrated velocities) and w, under
+        # every step (ṙ and ċ depend on u alone, so the RK stages feed no
+        # x into those rows); B live rows: rdot, w, cdot under Euler, every
+        # row under RK2 and RK4, whose later stages carry u into r, o and c
+        # through ∂ẋ/∂x
         dynamics_x_rows=tuple(list(range(0, i_rdot)) + list(range(i_w, i_w + 3))),
-        dynamics_u_rows=tuple(range(i_rdot, nx_)),
+        dynamics_u_rows=(tuple(range(i_rdot, nx_)) if step_name == "EULER"
+                         else tuple(range(nx_))),
         params=params,
         constants=constants,
     )

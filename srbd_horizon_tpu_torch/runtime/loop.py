@@ -11,8 +11,8 @@ One tick, for every member of a fleet at once (`tick_batch`,
   2. WPG contact-plan advance;
   3. the batched MS-DDP solve (optionally warm-started from the previous
      plan shifted one node forward);
-  4. one Euler self-simulation step with u*₀ (and, on the SRBD,
-     quaternion renormalization);
+  4. one self-simulation step of the problem's integrator with u*₀ (and,
+     on the SRBD, quaternion renormalization);
   5. telemetry: the SRBD Newton–Euler residual of the applied step
      (zeros on the LIP).
 
@@ -241,17 +241,20 @@ def build_srbd_loop(cfg: Optional[SRBDConfig] = None,
                     shift_warmstart: bool = True,
                     dtype=None,
                     device="cuda",
-                    group_mask=None):
+                    group_mask=None,
+                    integrator: str = "EULER"):
     """The fleet MPC loop on the SRBD problem (the Kangaroo biped on line
-    feet by default), built on `device` (default "cuda"; raises when CUDA
-    is absent unless another device is given). The WPG takes the contact
-    topology of `cfg` and, when given, `group_mask` (the contacts that
-    follow the first half-cycle). Returns (loop, problem)."""
+    feet by default; `SRBDConfig(contact_model=1, number_of_legs=2)` with
+    `robot=point_feet()` is the point-feet biped), its step `integrator`
+    ("EULER", "RK2" or "RK4"), built on `device` (default "cuda"; raises
+    when CUDA is absent unless another device is given). The WPG takes the
+    contact topology of `cfg` and, when given, `group_mask` (the contacts
+    that follow the first half-cycle). Returns (loop, problem)."""
     dev = resolve_device(device)
     cfg = cfg or SRBDConfig()
     dtype = dtype or cfg.dtype
     prob = build_srbd_problem(cfg, robot or kangaroo_line_feet(), dtype=dtype,
-                              device=dev)
+                              integrator=integrator, device=dev)
     solver = MSDDP(prob.ocp, opts or DDPOptions(max_iters=5))
     wpg = WalkingPatternGenerator.build(
         c_init_z=0.0, nodes=cfg.ns, contact_model=cfg.contact_model,
@@ -266,7 +269,8 @@ def build_quadruped_loop(cfg: Optional[SRBDConfig] = None,
                          opts: Optional[DDPOptions] = None,
                          shift_warmstart: bool = False,
                          dtype=None,
-                         device="cuda"):
+                         device="cuda",
+                         integrator: str = "EULER"):
     """The MPC loop on the point-feet quadruped, in the configuration of
     the JAX package's quadruped example: `SRBDConfig(contact_model=1,
     number_of_legs=4)`, `max_iters=5`, `alpha_converge_threshold=1e-12`,
@@ -275,14 +279,15 @@ def build_quadruped_loop(cfg: Optional[SRBDConfig] = None,
     fleet: `tick_batch` on x0 (B, nx), usually with
     `shift_warmstart=True`. `opts` may set any execution mode
     (`riccati_mode="associative"`, `forward_pass="linear"`: K12 and K13 at
-    the quadruped's shape). Built on `device` (default "cuda"; raises when
-    CUDA is absent unless another device is given). Returns (loop,
-    problem)."""
+    the quadruped's shape, under the Euler step). `integrator` is the
+    problem's step ("EULER", "RK2" or "RK4"). Built on `device` (default
+    "cuda"; raises when CUDA is absent unless another device is given).
+    Returns (loop, problem)."""
     dev = resolve_device(device)
     cfg = cfg or SRBDConfig(contact_model=1, number_of_legs=4)
     dtype = dtype or cfg.dtype
     prob = build_srbd_problem(cfg, quadruped_point_feet(), dtype=dtype,
-                              device=dev)
+                              integrator=integrator, device=dev)
     solver = MSDDP(prob.ocp, opts or DDPOptions(
         max_iters=5, alpha_converge_threshold=1e-12, beta=1e-3))
     wpg = WalkingPatternGenerator.build(

@@ -449,3 +449,178 @@ def run_al_modes(jp, tp, mode, jax_side=True, vx=0.2):
     got = al_solve_then_online(ts, ts.init, tp.initial_state, tU0,
                                tp.ocp.params, ton)
     return want, got, spy
+
+
+# ---------------- every SRBD topology and step ----------------
+
+from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
+from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
+from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking
+
+from srbd_horizon_tpu_torch.convert import tick_input_from_numpy
+from srbd_horizon_tpu_torch.models.kangaroo import point_feet as t_point_feet
+from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
+from srbd_horizon_tpu_torch.runtime.loop import walking_schedule as t_walking
+
+# the three contact topologies JAX's build_srbd_problem takes: (SRBDConfig
+# fields, jax robot, torch robot, the WPG's trot grouping or None)
+TOPOLOGIES = {
+    "kangaroo": (dict(), j_feet, t_feet, False),
+    "quadruped": (QUAD_TOPOLOGY, j_quad, t_quad, True),
+    "point_feet": (dict(contact_model=1, number_of_legs=2), j_point_feet,
+                   t_point_feet, False),
+}
+
+
+def srbd_problems(topology="kangaroo", integrator="EULER", ns=20):
+    """(jax SRBDProblem, torch SRBDProblem) of one topology under one step,
+    float64 on the CPU, on a horizon of ns nodes of 0.05 s."""
+    kw, jr, tr, _ = TOPOLOGIES[topology]
+    shape = dict(ns=ns, T=0.05 * ns, **kw)
+    jp = j_build(JSRBDConfig(dtype=jnp.float64, **shape), jr(),
+                 integrator=integrator)
+    tp = t_build(TSRBDConfig(dtype=F64, **shape), tr(), integrator=integrator,
+                 device=CPU)
+    return jp, tp
+
+
+def srbd_loops(topology="kangaroo", integrator="EULER", ns=20, shift=False,
+               **overrides):
+    """(jax problem, jax MPCLoop, torch MPCLoop, torch problem) of one
+    topology under one step as `build_srbd_loop` builds it (the WPG at the
+    feet's height, the trot grouping on the quadruped, the Newton–Euler
+    telemetry on), float64 on the CPU; `overrides` are options of both
+    solvers (SOLVER_OPTS by default)."""
+    kw, jr, tr, trot = TOPOLOGIES[topology]
+    opts = dict(SOLVER_OPTS, **overrides)
+    jp, _ = srbd_problems(topology, integrator, ns)
+    cfg = TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw)
+    js = JMSDDP(jp.ocp, JDDPOptions(**opts))
+    wpg = JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
+                     nodes=ns, dtype=jnp.float64,
+                     group_mask=j_trot() if trot else None,
+                     contact_model=cfg.contact_model,
+                     number_of_legs=cfg.number_of_legs)
+    jloop = JMPCLoop(solver=js, wpg=wpg, srbd_constants=jp.ocp.constants,
+                     shift_warmstart=shift)
+    tloop, tp = build_srbd_loop(cfg, TDDPOptions(**opts), robot=tr(),
+                                shift_warmstart=shift, device=CPU,
+                                group_mask=t_trot() if trot else None,
+                                integrator=integrator)
+    return jp, jloop, tloop, tp
+
+
+def agree(got, want, where, fields, tol=1e-9):
+    """Two solutions or tick outputs: iterations and convergence equal,
+    `fields` to `tol` (norm-wise relative)."""
+    for k in ("iterations", "converged"):
+        np.testing.assert_array_equal(np_of(getattr(got, k)),
+                                      np_of(getattr(want, k)),
+                                      err_msg=f"{where}: {k}")
+    errs = {f: max_rel_err(getattr(got, f), getattr(want, f)) for f in fields}
+    assert max(errs.values()) < tol, (where, errs)
+    return errs
+
+
+def solve_results(topology, integrator, ns=8, B=4, seed=0,
+                  jax_solve_batch=False):
+    """One topology under one step at ns nodes, float64 on the CPU, from
+    pushed starts (0.02·N(0,1)) with a commanded terminal velocity: the
+    port's `solve` (member 0) and `solve_batch` beside JAX's `solve` and
+    `vmap(solve)` (and, asked, JAX's `solve_batch`)."""
+    jp, tp = srbd_problems(topology, integrator, ns)
+    js, ts = solvers(jp, tp, max_iters=20)
+    x0 = perturbed_states(jp.initial_state, B, seed=seed, scale=0.02)
+    params = fleet_params(jp.ocp.params, B)
+    params["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
+    jx0, jpar = to_jax(x0), to_jax(params)
+    j0 = jax.vmap(js.init)(jx0)
+    one = lambda t: {k: v[0] for k, v in t.items()}
+    out = dict(
+        jax_solve=jax.jit(js.solve)(js.init(jx0[0]), jx0[0], one(jpar)),
+        jax_vmap_solve=jax.jit(jax.vmap(js.solve))(j0, jx0, jpar))
+    if jax_solve_batch:
+        out["jax_solve_batch"] = jax.jit(js.solve_batch)(j0, jx0, jpar)
+    tx0, tpar = to_torch(x0), to_torch(params)
+    out["solve"] = ts.solve(ts.init(tx0[0]), tx0[0], one(tpar))
+    out["solve_batch"] = ts.solve_batch(ts.init(tx0), tx0, tpar)
+    return out
+
+
+def tick_results(topology, integrator, ns=8, B=4, ticks=3, seed=7):
+    """`tick_batch` of the port's loop (warm start shifted, mixed actions)
+    beside JAX's `vmap(tick)`, `ticks` ticks, float64 on the CPU: a list of
+    ((torch carry, torch output), (jax carry, jax output)) a tick."""
+    jp, jloop, tloop, tp = srbd_loops(topology, integrator, ns, shift=True)
+    x0 = perturbed_states(jp.initial_state, B, seed=seed)
+    actions = np.array([0, 1, 1, 1], np.int32)[:B]
+    rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
+    jinp = JTickInput(action=jnp.asarray(actions), rdot_ref=jnp.asarray(rdot),
+                      w_ref=jnp.zeros((B, 3)))
+    tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
+                                 dtype=F64)
+    jtick = jax.jit(jax.vmap(jloop.tick))
+    jc = jax.vmap(jloop.init)(jnp.asarray(x0))
+    tc = tloop.init(torch.as_tensor(x0))
+    out = []
+    for _ in range(ticks):
+        jc, jo = jtick(jc, jinp)
+        tc, to = tloop.tick_batch(tc, tinp)
+        out.append(((tc, to), (jc, jo)))
+    return out
+
+
+def run_results(topology, integrator, ns=8, T=8, start=2, vx=0.3):
+    """`MPCLoop.run` of the port's loop beside JAX's over T ticks of
+    `walking_schedule(vx, start)`, one robot from the nominal state,
+    float64 on the CPU, the dsrbd example's options: ((torch carry, torch
+    outputs), (jax carry, jax outputs))."""
+    jp, jloop, tloop, tp = srbd_loops(
+        topology, integrator, ns, max_iters=100,
+        alpha_converge_threshold=1e-12, beta=1e-3)
+    x0 = np.array(jp.initial_state)
+    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                                j_walking(T, vx=vx, start=start,
+                                          dtype=jnp.float64))
+    tc, to = tloop.run(tloop.init(torch.as_tensor(x0)),
+                       t_walking(T, vx=vx, start=start, dtype=F64,
+                                 device=CPU))
+    return (tc, to), (jc, jo)
+
+
+
+def jax_trial(js, x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
+    """JAX's line-search trial for every α of `alphas`, on numpy inputs: the
+    rollout (`_rollout`), `total_cost` and the Armijo test of
+    msddp.py:843-853. Returns (Xn, Un, cost, merit, ok) and the merit0 and
+    D it tested against."""
+    opts = js.opts
+    x0, X, U, params = to_jax((x0, X, U, params))
+    ks, Ks, d, dV1, dV2 = (jnp.asarray(np_of(v)) for v in (ks, Ks, d, dV1, dV2))
+    nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
+    D = jnp.sum(d * d, axis=(1, 2))
+    merit0 = jax.vmap(js.total_cost)(X, U, params) + nu_w * D
+
+    def one(a):
+        Xn, Un = jax.vmap(
+            lambda x0_, X_, U_, k_, K_, d_, p_: js._rollout(
+                x0_, X_, U_, k_, K_, d_, p_, a))(x0, X, U, ks, Ks, d, params)
+        new_cost = jax.vmap(js.total_cost)(Xn, Un, params)
+        new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu_w * D
+        ok = (((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
+              & jnp.isfinite(new_merit) & (a >= opts.alpha_converge_threshold))
+        return Xn, Un, new_cost, new_merit, ok
+
+    return jax.jit(jax.vmap(one))(jnp.asarray(alphas)), merit0, D
+
+
+def jax_evaluate(js, X, U, params):
+    """JAX's `vmap(total_cost)` and the largest |·| of `vmap(_true_defects)`
+    of each plan, on numpy inputs."""
+    def run(X_, U_, p_):
+        cost = jax.vmap(js.total_cost)(X_, U_, p_)
+        defects = jax.vmap(js._true_defects)(X_, U_, p_)
+        return cost, jnp.max(jnp.abs(defects), axis=(1, 2))
+
+    return jax.jit(run)(*to_jax((X, U, params)))

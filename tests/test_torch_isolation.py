@@ -81,8 +81,11 @@ def test_port_package_is_complete():
         "srbd_horizon_tpu_torch/math/linalg.py",
         "srbd_horizon_tpu_torch/convert.py",
         "srbd_horizon_tpu_torch/models/quadruped.py",
+        "srbd_horizon_tpu_torch/models/urdf.py",
     ):
         assert required in names
+    for asset in ("kangaroo_like.urdf", "quadruped_like.urdf"):
+        assert (ROOT / "srbd_horizon_tpu_torch" / "assets" / asset).exists()
     for src in ("riccati_backward.cu", "srbd_rollout.cu", "srbd_linearize.cu",
                 "srbd_common.cuh", "isrbd_rollout.cu", "isrbd_linearize.cu",
                 "isrbd_common.cuh", "rigid_common.cuh", "dmma.cuh"):

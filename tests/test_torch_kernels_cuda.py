@@ -43,7 +43,13 @@ execution modes' kernels, K12 and K13, at every shape they are compiled
 for (the SRBD and LIP shapes, the quadruped's, the two AL inner shapes
 with K12's Cholesky gains) against their twins, float64 K12 to 1e-8 and
 K13 to 1e-9, float32 to 1e-6 of the float64 twin, with their occupancy,
-and refusing other sizes and K12's block-Schur gains at the AL shapes.
+and refusing other sizes and K12's block-Schur gains at the AL shapes;
+and the SRBD family's new instances (the point-feet biped under Euler,
+each topology under RK2 and RK4: K4, K3, srbd_evaluate, and K1 in every
+form compiled at their shapes) at B = 1, 64 and 133, K4, K3 and
+srbd_evaluate in float64 within 1e-12 of max(1, |twin|), by their float32
+rules, NaN members kept, each launch counted at its own instance, the
+problem with another step refused, with their occupancy, and K2 at nu=12.
 Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
@@ -1813,3 +1819,259 @@ def test_modes_occupancy(card_case, lip_case, quad_case, isrbd_case, qc_case,
         assert min(v for k, v in occ.items() if "blocks" in k) >= 1
     for fam in k13.FAMILIES:
         assert k13.occupancy(fam[2], dtype)["blocks_per_sm"] >= 1
+
+
+# ---------------- the SRBD family at every topology and step ----------------
+
+FAMILY = ("point_feet", "kangaroo_rk2", "kangaroo_rk4", "quadruped_rk2",
+          "quadruped_rk4", "point_feet_rk2", "point_feet_rk4")
+FAMILY_B = (1, 64, 133)
+FAMILY_F64_TOL = 1e-12          # of max(1, |twin|), K4, K3, srbd_evaluate
+
+
+def _err1(got, want):
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    return float(((got - want).abs() / want.abs().clamp_min(1.0))[fin].max())
+
+
+def _family_loop(inst, dtype, dev):
+    from srbd_horizon_tpu_torch.models.kangaroo import point_feet
+    from srbd_horizon_tpu_torch.models.quadruped import (quadruped_point_feet,
+                                                         trot_group_mask)
+
+    topology, _, step = inst.partition("_rk")
+    step = "RK" + step if step else "EULER"
+    kw = dict(kangaroo=({}, kangaroo_line_feet(), None),
+              quadruped=(dict(contact_model=1, number_of_legs=4),
+                         quadruped_point_feet(), trot_group_mask()),
+              point_feet=(dict(contact_model=1, number_of_legs=2),
+                          point_feet(), None))[topology]
+    return build_srbd_loop(SRBDConfig(dtype=dtype, **kw[0]),
+                           DDPOptions(max_iters=5), robot=kw[1], device=dev,
+                           group_mask=kw[2], integrator=step)
+
+
+@pytest.fixture(scope="module", params=FAMILY)
+def family_case(request):
+    """One (topology, step) instance on the card: float64 and float32
+    solvers, a point near the walk at B=133 (plans around the nominal
+    state, the contact plan of 5 WPG ticks), its float64 plain
+    linearization and collapsed sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    inst = request.param
+    dev = torch.device("cuda", 0)
+    loop, prob = _family_loop(inst, torch.float64, dev)
+    loop32, _ = _family_loop(inst, torch.float32, dev)
+    ocp, s = prob.ocp, loop.solver
+    Bw = max(FAMILY_B)
+    rng = np.random.RandomState(15)
+    params1, wst = dict(ocp.params), loop.wpg.init_state()
+    for _ in range(5):
+        params1, wst = loop.wpg.advance(
+            params1, wst, torch.tensor(1, dtype=torch.int32, device=dev))
+    params = {k: v.expand((Bw,) + tuple(v.shape)).contiguous()
+              for k, v in params1.items()}
+    ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
+    X = torch.as_tensor(prob.initial_state.cpu().numpy()[None, None]
+                        + 0.02 * rng.randn(Bw, ns + 1, nx), device=dev)
+    U = torch.as_tensor(prob.static_input.cpu().numpy()[None, None]
+                        + 0.05 * rng.randn(Bw, ns, nu), device=dev)
+    x0 = X[:, 0] + 0.005 * torch.as_tensor(rng.randn(Bw, nx), device=dev)
+    lin = k4.srbd_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt,
+                                  s._wc(torch.float64))
+    sweep = k1.riccati_backward_plain(*(lin[k] for k in ORDER), s.opts.mu0,
+                                      s.rows)
+    return dict(inst=inst, ocp=ocp, solver=s, solver32=loop32.solver, X=X,
+                U=U, x0=x0, params=params, lin=lin, sweep=sweep)
+
+
+def _fam_sub(case, Bw, dtype):
+    t = lambda a: a[:Bw].to(dtype).contiguous()
+    s = case["solver"] if dtype == torch.float64 else case["solver32"]
+    return s, t, {k: t(v) for k, v in case["params"].items()}
+
+
+@pytest.mark.parametrize("Bw", FAMILY_B)
+def test_family_linearize_matches_plain(family_case, Bw):
+    """K4 at the instance: float64 to 1e-12 of max(1, |twin|), float32 by
+    K4's rule; the launch counted at its own instance only."""
+    c = family_case
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        s, t, p = _fam_sub(c, Bw, dtype)
+        a = (t(c["X"]), t(c["U"]), p, s.terms, s.rows, c["ocp"].dt,
+             s._wc(dtype))
+        before = dict(k4.srbd_linearize.shape_launches)
+        out[dtype] = (k4.srbd_linearize_plain(*a), k4.srbd_linearize(*a))
+        after = k4.srbd_linearize.shape_launches
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+            == {c["inst"]: 1}
+    torch.cuda.synchronize()
+    ref = out[torch.float64][0]
+    for k in ORDER:
+        assert _err1(out[torch.float64][1][k], ref[k]) <= FAMILY_F64_TOL, k
+        e = _rel(out[torch.float32][1][k], ref[k])
+        assert e <= 2 * _rel(out[torch.float32][0][k], ref[k]) + 1e-6, k
+        assert e <= K4_F32_CAP, k
+
+
+@pytest.mark.parametrize("Bw", FAMILY_B)
+def test_family_riccati_matches_plain(family_case, Bw):
+    """K1 at the instance's shape, every form and gain solve compiled
+    there: float64 to 1e-9, float32 to 1e-6 of the float64 twin."""
+    c = family_case
+    s = c["solver"]
+    lin = {k: v[:Bw].contiguous() for k, v in c["lin"].items()}
+    ocp = c["ocp"]
+    shape = k1.kernel_shape(ocp.nx, ocp.nu, lin["Jt"].shape[1], s.rows)
+    forms = [(f, q) for sh, f, q in k1.KERNEL_INSTANCES if sh == shape]
+    assert ("collapsed", "schur") in forms and ("tassa", "schur") in forms
+    a64 = tuple(lin[k] for k in ORDER)
+    a32 = tuple(v.float().contiguous() for v in a64)
+    for form, solver in forms:
+        kw = dict(form=form, quu_solver=solver)
+        ref = k1.riccati_backward_plain(*a64, s.opts.mu0, s.rows, **kw)
+        got = k1.riccati_backward(*a64, s.opts.mu0, s.rows, **kw)
+        got32 = k1.riccati_backward(*a32, s.opts.mu0, s.rows, **kw)
+        torch.cuda.synchronize()
+        for g, g32, r in zip(got, got32, ref):
+            assert _rel(g, r) <= 1e-9, (form, solver)
+            assert _rel(g32, r) <= K1_F32_TOL, (form, solver)
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("Bw", FAMILY_B)
+def test_family_trial_matches_plain(family_case, Bw, nA):
+    """K3 at the instance: float64 to 1e-12 of max(1, |twin|) with equal
+    flags, float32 within 2× the float32 twin's error + 1e-6; member 1
+    (B > 1) starts from a NaN state and is rejected."""
+    c = family_case
+    ks, Ks, dV1, dV2 = c["sweep"]
+    d = c["lin"]["d"]
+    D = torch.sum(d * d, dim=(1, 2))
+    x0 = c["x0"].clone()
+    if Bw > 1:
+        x0[1] = float("nan")
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=d.device)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        s, t, p = _fam_sub(c, Bw, dtype)
+        opts = s.opts
+        merit0 = s.total_cost(t(c["X"]), t(c["U"]), p) + \
+            opts.defect_weight * t(D)
+        a = (t(x0), t(c["X"]), t(c["U"]), t(ks), t(Ks), t(d), alphas.to(dtype),
+             p, merit0, t(D), t(dV1), t(dV2), s.terms, c["ocp"].dt,
+             s._wc(dtype), opts.defect_weight, opts.beta,
+             opts.alpha_converge_threshold)
+        out[dtype] = (k3.srbd_trial_plain(*a), k3.srbd_trial(*a))
+    torch.cuda.synchronize()
+    ref = out[torch.float64][0]
+    got = out[torch.float64][1]
+    for g, r in zip(got[:4], ref[:4]):
+        assert _err1(g, r) <= FAMILY_F64_TOL
+    assert torch.equal(got[4], ref[4])
+    if Bw > 1:
+        assert not bool(got[4][:, 1].any())
+    p32, g32 = out[torch.float32]
+    for g, p_, r in zip(g32[:4], p32[:4], ref[:4]):
+        fin = torch.isfinite(r)
+        assert _rel(g[fin], r[fin]) <= 2 * _rel(p_[fin], r[fin]) + 1e-6
+
+
+@pytest.mark.parametrize("pin", [False, True], ids=["plan", "pinned"])
+@pytest.mark.parametrize("Bw", FAMILY_B)
+def test_family_evaluate_matches_plain(family_case, Bw, pin):
+    """srbd_evaluate at the instance (the defects under its step):
+    float64 to 1e-12 of max(1, |twin|), float32 by K3's rule; member 1's
+    plan (B > 1) holds a NaN that comes out NaN; the pinned plan bit for
+    bit."""
+    c = family_case
+    X = c["X"].clone()
+    if Bw > 1:
+        X[1, 5, 4] = float("nan")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        s, t, p = _fam_sub(c, Bw, dtype)
+        kw = dict(x0=t(c["x0"])) if pin else {}
+        a = (t(X), t(c["U"]), p, s.terms, c["ocp"].dt, s._wc(dtype))
+        out[dtype] = (k3.srbd_evaluate_plain(*a, **kw),
+                      k3.srbd_evaluate(*a, **kw))
+    torch.cuda.synchronize()
+    ref, got = out[torch.float64]
+    p32, g32 = out[torch.float32]
+    for i in range(2):
+        assert _err1(got[i], ref[i]) <= FAMILY_F64_TOL
+        fin = torch.isfinite(ref[i])
+        assert _rel(g32[i][fin], ref[i][fin]) <= \
+            2 * _rel(p32[i][fin], ref[i][fin]) + 1e-6
+        if Bw > 1:
+            assert bool(torch.isnan(got[i][1])) and bool(torch.isnan(g32[i][1]))
+    if pin:
+        assert torch.equal(_bits(got[2]), _bits(ref[2]))
+        assert torch.equal(_bits(g32[2]), _bits(p32[2]))
+
+
+def test_family_refusals(family_case):
+    """On CUDA tensors the instance's kernels refuse the problem with its
+    step named otherwise (an RK problem never runs an Euler kernel, nor an
+    Euler one an RK kernel) before any launch, and K1 refuses a form not
+    compiled at its shape."""
+    import dataclasses
+
+    c = family_case
+    s = c["solver"]
+    ocp = c["ocp"]
+    other = "RK4" if s.terms.step == "EULER" else "EULER"
+    terms = dataclasses.replace(s.terms, step=other)
+    counts = (k4.srbd_linearize.launches, k3.srbd_evaluate.launches)
+    a = (c["X"][:2].contiguous(), c["U"][:2].contiguous(),
+         {k: v[:2].contiguous() for k, v in c["params"].items()})
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k4.srbd_linearize(*a, terms, s.rows, ocp.dt, s._wc(torch.float64))
+    if s.terms.step != "EULER":
+        # the evaluation has no row table: the Euler instance exists, but
+        # the RK problem's terms never reach it
+        assert k4.check_kernel_shape("e", terms, ocp.nx, ocp.nu) != \
+            k4.check_kernel_shape("e", s.terms, ocp.nx, ocp.nu)
+    assert counts == (k4.srbd_linearize.launches, k3.srbd_evaluate.launches)
+    shape = k1.kernel_shape(ocp.nx, ocp.nu, c["lin"]["Jt"].shape[1], s.rows)
+    if (shape, "tassa", "cholesky") not in k1.KERNEL_INSTANCES:
+        lin = {k: v[:2].contiguous() for k, v in c["lin"].items()}
+        with pytest.raises(ValueError, match="no kernel for"):
+            k1.riccati_backward(*(lin[k] for k in ORDER), s.opts.mu0, s.rows,
+                                form="tassa", quu_solver="cholesky")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_family_occupancy(family_case, dtype):
+    c = family_case
+    inst, ns = c["inst"], c["ocp"].ns
+    for occ in (k4.occupancy(dtype, inst), k3.trial_occupancy(dtype, inst),
+                k3.evaluate_occupancy(ns, dtype, inst)):
+        assert occ["blocks_per_sm"] >= 1 and occ["registers_per_thread"] > 0
+    s, ocp = c["solver"], c["ocp"]
+    nt = c["lin"]["Jt"].shape[1]
+    for sh, form, solver in k1.KERNEL_INSTANCES:
+        if sh == k1.kernel_shape(ocp.nx, ocp.nu, nt, s.rows):
+            assert k1.blocks_per_sm(ocp.nx, ocp.nu, nt, s.rows, dtype, form,
+                                    solver) >= 1
+
+
+def test_spd_inverse_at_nu12():
+    """K2 alone at the point-feet biped's nu=12: float64 to 1e-9 against
+    `lm_spd_inverse`, float32 to 1e-6 of the float64 inverse of the same
+    float32 stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = np.random.RandomState(12)
+    J = torch.as_tensor(g.randn(300, 24, 12), device="cuda")
+    A = (2.0 * J.transpose(-1, -2) @ J
+         + 1e-6 * torch.eye(12, dtype=torch.float64, device="cuda")).contiguous()
+    assert _rel(k1.spd_inverse(A), lm_spd_inverse(A)) <= 1e-9
+    A32 = A.float()
+    assert _rel(k1.spd_inverse(A32), lm_spd_inverse(A32.double())) <= 1e-6

@@ -1,14 +1,17 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for five sets of sizes, the
+K1 (`csrc/riccati_backward.cu`) is compiled for nine sets of sizes, the
 SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
-OCP of the point-feet quadruped and the AL inner OCP of its isrbd
-problem; its wrapper picks one with `kernel_shape` for CUDA tensors and
-refuses any other sizes (the LIP on point feet among them) with a
-ValueError that names them. These tests hold that choice against
-`RiccatiRows.from_ocp` of the five problems, hold `KERNEL_SHAPES` against the shape structs of
-the CUDA source, and check that a CPU tensor of any sizes still takes the
-plain twin, as does K2's standalone wrapper.
+OCP of the point-feet quadruped, the AL inner OCP of its isrbd problem,
+the SRBD OCP of the point-feet biped, and the SRBD OCP of each of the
+three topologies under RK2 / RK4 (every row of B live); its wrapper picks
+one with `kernel_shape` for CUDA tensors and refuses any other sizes (the
+LIP on point feet among them) with a ValueError that names them. These
+tests hold that choice against `RiccatiRows.from_ocp` of the nine
+problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
+structs and the instantiation switch of the CUDA source, and check that a
+CPU tensor of any sizes still takes the plain twin, as does K2's
+standalone wrapper.
 """
 
 import re
@@ -25,7 +28,11 @@ from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.math.linalg import lm_spd_inverse
-from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants, kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.kangaroo import (
+    RobotConstants,
+    kangaroo_line_feet,
+    point_feet,
+)
 from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop, build_srbd_loop
@@ -36,13 +43,13 @@ torch.set_num_threads(1)
 SOURCE = Path(k1.__file__).resolve().parents[1] / "csrc" / "riccati_backward.cu"
 
 
-def _srbd_sizes(cfg=None, robot=None):
+def _srbd_sizes(cfg=None, robot=None, integrator="EULER"):
     """(nx, nu, nt, rows) of the SRBD OCP (`build_srbd_problem`, as the
-    fleet loop builds it; the Kangaroo's by default), nt read off its
-    linearization."""
+    fleet loop builds it; the Kangaroo's under Euler by default), nt read
+    off its linearization."""
     loop, prob = build_srbd_loop(cfg or SRBDConfig(dtype=torch.float64),
                                  DDPOptions(max_iters=1), robot=robot,
-                                 device="cpu")
+                                 device="cpu", integrator=integrator)
     ocp, s = prob.ocp, loop.solver
     X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
     U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
@@ -100,13 +107,19 @@ def _lip_sizes(cfg=None, robot=None):
 @pytest.fixture(scope="module")
 def sizes():
     quad = SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64)
+    pf = SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64)
     return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
             "lip": _lip_sizes(),
             "quadruped": _srbd_sizes(quad, quadruped_point_feet()),
-            "isrbd_al_quadruped": _isrbd_sizes(quadruped=True)}
+            "isrbd_al_quadruped": _isrbd_sizes(quadruped=True),
+            "point_feet": _srbd_sizes(pf, point_feet()),
+            "srbd_rk": _srbd_sizes(integrator="RK2"),
+            "quadruped_rk": _srbd_sizes(quad, quadruped_point_feet(), "RK4"),
+            "point_feet_rk": _srbd_sizes(pf, point_feet(), "RK2")}
 
 
-SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped"]
+SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped",
+          "point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk"]
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -141,12 +154,15 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 
 def test_kernel_shapes_match_the_cuda_source():
     """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape,
-    LipShape, QuadShape, QuadAlShape."""
+    LipShape, QuadShape, QuadAlShape, PointFeetShape, SrbdRkShape,
+    QuadRkShape, PointFeetRkShape."""
     src = SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
     assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape",
-                                       "QuadShape", "QuadAlShape"]
+                                       "QuadShape", "QuadAlShape",
+                                       "PointFeetShape", "SrbdRkShape",
+                                       "QuadRkShape", "PointFeetRkShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -209,6 +225,29 @@ def test_quadruped_instantiations():
         k1.kernel_instance("isrbd_al_quadruped", "tassa", "schur")
 
 
+def test_point_feet_and_rk_instantiations():
+    """The point-feet biped has its Euler counterparts' forms (the collapsed
+    sweep, the Tassa sweep with either gain solve); the three RK shapes —
+    RK2 and RK4 share each — have the collapsed sweep and the block-Schur
+    Tassa sweep, and the Kangaroo's also the Cholesky one (the source's
+    `with_instance` order is held by test_torch_riccati_tassa.py)."""
+    want = {("point_feet", "collapsed", "schur"): 12,
+            ("point_feet", "tassa", "schur"): 13,
+            ("point_feet", "tassa", "cholesky"): 14,
+            ("srbd_rk", "collapsed", "schur"): 15,
+            ("srbd_rk", "tassa", "schur"): 16,
+            ("srbd_rk", "tassa", "cholesky"): 17,
+            ("quadruped_rk", "collapsed", "schur"): 18,
+            ("quadruped_rk", "tassa", "schur"): 19,
+            ("point_feet_rk", "collapsed", "schur"): 20,
+            ("point_feet_rk", "tassa", "schur"): 21}
+    for key, i in want.items():
+        assert k1.kernel_instance(*key) == i
+    for shape in ("quadruped_rk", "point_feet_rk"):
+        with pytest.raises(ValueError, match="no kernel for"):
+            k1.kernel_instance(shape, "tassa", "cholesky")
+
+
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
     """No instantiation is needed for CPU tensors: sizes of no compiled
     shape go to the plain twin."""
@@ -228,7 +267,7 @@ def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [24, 30, 7, 15])
+@pytest.mark.parametrize("n", [24, 30, 7, 15, 12])
 def test_spd_inverse_takes_plain_path_on_cpu(n):
     g = np.random.RandomState(n)
     J = torch.as_tensor(g.randn(5, n + 3, n))

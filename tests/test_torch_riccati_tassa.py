@@ -225,7 +225,9 @@ def test_kernel_instances_match_the_cuda_source():
     cases = re.findall(r"case (\d+): return fn\(Inst<(\w+)Shape, Form::k(\w+), "
                        r"Solve::k(\w+)>\{\}\);", src)
     names = {"Srbd": "srbd", "IsrbdAl": "isrbd_al", "Lip": "lip",
-             "Quad": "quadruped", "QuadAl": "isrbd_al_quadruped"}
+             "Quad": "quadruped", "QuadAl": "isrbd_al_quadruped",
+             "PointFeet": "point_feet", "SrbdRk": "srbd_rk",
+             "QuadRk": "quadruped_rk", "PointFeetRk": "point_feet_rk"}
     parsed = [(names[s], f.lower(), g.lower()) for _, s, f, g in cases]
     assert [int(i) for i, *_ in cases] == list(range(len(cases)))
     assert tuple(parsed) == k1.KERNEL_INSTANCES

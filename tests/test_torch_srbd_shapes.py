@@ -1,14 +1,16 @@
 """PyTorch port, the compile-time sizes of the SRBD kernels, on the CPU.
 
 K3 (the trial), srbd_evaluate (csrc/srbd_rollout.cu) and K4 (the
-linearization, csrc/srbd_linearize.cu) are compiled for two sets of sizes,
-`srbd::KangarooShape` and `srbd::QuadShape` in csrc/srbd_common.cuh. These
-tests hold those structs against `kernels/linearize.py::KERNEL_SHAPES` and
-against what `build_srbd_problem` gives for the Kangaroo and the
-point-feet quadruped, and check that the wrappers refuse other sizes (a
-problem with three contacts, the biped on point feet) with a ValueError
-that names them before any device work (meta tensors stand in for CUDA
-ones), while CPU tensors take the plain twins.
+linearization, csrc/srbd_linearize.cu) are compiled for three topologies,
+`srbd::KangarooShape`, `srbd::QuadShape` and `srbd::PointFeetShape` in
+csrc/srbd_common.cuh, each under the Euler, RK2 and RK4 steps. These
+tests hold those structs and the instance order against
+`kernels/linearize.py::TOPOLOGIES` and `KERNEL_SHAPES` and against what
+`build_srbd_problem` gives for the Kangaroo, the point-feet quadruped and
+the point-feet biped, and check that the wrappers refuse other sizes (a
+problem with three contacts, a one-legged biped on line feet) with a
+ValueError that names them before any device work (meta tensors stand in
+for CUDA ones), while CPU tensors take the plain twins.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import linearize as k4
 from srbd_horizon_tpu_torch.kernels import rollout as k3
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
+from srbd_horizon_tpu_torch.models.kangaroo import point_feet
 from srbd_horizon_tpu_torch.runtime.loop import build_quadruped_loop, build_srbd_loop
 
 torch.set_num_threads(1)
@@ -39,15 +42,39 @@ def srbd():
 
 
 def test_shape_struct_matches_the_wrappers_table():
-    """KERNEL_SHAPES, in order, is the header's KangarooShape, QuadShape."""
+    """TOPOLOGIES, in order, is the header's KangarooShape, QuadShape,
+    PointFeetShape; KERNEL_SHAPES is each under the Euler step, then each
+    under RK2 and RK4 with every row of B live (the header's `Stepped`),
+    in the order of the header's `with_shape`; STEPS is its step tags'
+    order."""
     src = HEADER.read_text()
     found = re.findall(r"struct (\w+Shape) \{\s*static constexpr int ([^;]*);",
                        src)
-    assert [name for name, _ in found] == ["KangarooShape", "QuadShape"]
+    assert [name for name, _ in found] == ["KangarooShape", "QuadShape",
+                                           "PointFeetShape"]
     parsed = [{k.strip(): int(v) for k, v in
                (kv.split("=") for kv in body.split(","))} for _, body in found]
-    assert parsed == list(k4.KERNEL_SHAPES.values())
-    assert list(k4.KERNEL_SHAPES) == ["kangaroo", "quadruped"]
+    assert parsed == list(k4.TOPOLOGIES.values())
+    assert list(k4.TOPOLOGIES) == ["kangaroo", "quadruped", "point_feet"]
+    with_shape = src[src.index("inline int with_shape("):]
+    cases = re.findall(r"case (\d+): return fn\((?:Stepped<)?(\w+)Shape"
+                       r"(?:, (\w+)>)?", with_shape[:with_shape.index("default")])
+    names = {"Kangaroo": "kangaroo", "Quad": "quadruped",
+             "PointFeet": "point_feet"}
+    assert [int(i) for i, _, _ in cases] == list(range(len(k4.KERNEL_SHAPES)))
+    order = [names[topo] + ("_" + step.lower() if step else "")
+             for _, topo, step in cases]
+    assert order == list(k4.KERNEL_SHAPES)
+    for name, want in k4.KERNEL_SHAPES.items():
+        topology, _, step = name.partition("_rk")
+        topo = dict(k4.TOPOLOGIES[topology if step else name])
+        if step:
+            topo["n_ru"] = topo["nx"]
+        assert want == dict(topo, step="RK" + step if step else "EULER")
+    ids = re.findall(r"struct (Euler|Rk2|Rk4) \{\s*static constexpr int "
+                     r"id = (\d+)", src)
+    assert [(n.upper(), int(i)) for n, i in ids] == [
+        (st, i) for i, st in enumerate(k4.STEPS)]
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +87,21 @@ def quad():
                 wc=s._wc(torch.float64), prob=prob)
 
 
-@pytest.mark.parametrize("shape", ["kangaroo", "quadruped"])
-def test_srbd_problem_has_the_compiled_sizes(srbd, quad, shape):
-    case = srbd if shape == "kangaroo" else quad
+@pytest.fixture(scope="module")
+def point_feet_biped():
+    loop, prob = build_srbd_loop(
+        SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64),
+        DDPOptions(max_iters=1), robot=point_feet(), device="cpu")
+    s = loop.solver
+    return dict(ocp=prob.ocp, terms=s.terms, rows=s.rows,
+                wc=s._wc(torch.float64), prob=prob)
+
+
+@pytest.mark.parametrize("shape", ["kangaroo", "quadruped", "point_feet"])
+def test_srbd_problem_has_the_compiled_sizes(srbd, quad, point_feet_biped,
+                                             shape):
+    case = {"kangaroo": srbd, "quadruped": quad,
+            "point_feet": point_feet_biped}[shape]
     ocp = case["ocp"]
     assert RiccatiRows.from_ocp(ocp) == case["rows"]
     sizes = k4.kernel_sizes(case["terms"], ocp.nx, ocp.nu, case["rows"])
@@ -119,18 +158,20 @@ def _meta_args(srbd, nc, B=2, **topology):
 
 @pytest.mark.parametrize("name", ["srbd_linearize", "srbd_trial",
                                   "srbd_evaluate"])
-def test_wrappers_refuse_other_sizes_off_the_cpu(srbd, quad, name):
+def test_wrappers_refuse_other_sizes_off_the_cpu(srbd, quad, point_feet_biped,
+                                                 name):
     fn, args = _meta_args(srbd, nc=3)[name]
     launches = fn.launches
     with pytest.raises(ValueError, match="no kernel for the sizes"):
         fn(*args)
-    # the biped on point feet (nc 2: nx 25, nu 12) has no kernel either
-    fn, args = _meta_args(srbd, nc=2, contact_model=1)[name]
+    # the biped on point feet with the Kangaroo's two points a foot (nc 2,
+    # cm 2, one leg) has no kernel either
+    fn, args = _meta_args(srbd, nc=2, number_of_legs=1)[name]
     with pytest.raises(ValueError, match=r"no kernel for the sizes .*'nx': 25"):
         fn(*args)
-    # both compiled sizes pass the shape check and stop at the device check
-    for case in (srbd, quad):
-        fn, args = _meta_args(case, nc=4)[name]
+    # the compiled sizes pass the shape check and stop at the device check
+    for case, nc in ((srbd, 4), (quad, 4), (point_feet_biped, 2)):
+        fn, args = _meta_args(case, nc=nc)[name]
         with pytest.raises(ValueError, match="runs on cpu or cuda"):
             fn(*args)
     assert fn.launches == launches
