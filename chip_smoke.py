@@ -286,11 +286,35 @@ parallel, into build/kernels/), then:
      above 1e-4, or on launch counts that do not cover the trials and
      solves. `family_card_vs_cpu`: the point-feet walk (3 ticks) and the
      Kangaroo's RK4 fleet at B=8 (3 ticks) in float64, iterations equal,
-     plans, x, u0 and cost to 1e-9.
+     plans, x, u0 and cost to 1e-9;
+ 15. the execution modes and the Cholesky gain solve at the shapes phase
+     14 added (`modes_family_section`): K12 at the point-feet biped's and
+     the three RK shapes with each gain solve, K13 at the seven (topology,
+     step) families (its true defects in the problem's own step), K1's
+     Tassa-Cholesky form at the quadruped's Euler and RK shapes and the
+     biped's RK shape, each against its twin at B = 1, 64 and 512 (K12 in
+     float64 to 1e-8, K13 and K1 to 1e-9, float32 to 1e-6 of the float64
+     twin; K13's flags equal; K1 also with a NaN member and an indefinite
+     Quu), timed at B = 1, 512 and 4096, K12 beside K1-Tassa with the same
+     gain solve in the same call; the paths (float32, ns=20), each counted
+     from a reset just before to a read just after and failing on a
+     plain twin, on a launch of another instance, or on K4, K12 (K1),
+     K13 (K3) and srbd_evaluate launches that do not match the
+     iterations, trials and solves: the point-feet biped's dsrbd walk
+     under associative/linear (40 ticks, phase 14's height and progress
+     gates) and 10 ticks with Cholesky gains, the Kangaroo's RK2 fleet
+     (B=512, 3 ticks) and RK4 walk with Cholesky gains under the modes,
+     the quadruped's RK2 trot and RK4 trot (Cholesky gains) under the
+     modes, each followed by 5 ticks with Cholesky gains under the default
+     modes, its Euler trot with Cholesky gains, the biped's RK2 and RK4
+     walks under the modes and 5 RK2 ticks with Cholesky gains;
+     `mf_card_vs_cpu`: the point-feet walk and the Kangaroo's RK2 fleet at
+     B=8 under associative/linear in float64, 3 ticks each, iterations
+     equal, plans, x, u0 and cost to 1e-9.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-eighty-one rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+ninety-nine rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -303,8 +327,10 @@ with each gain solve, K13 for the SRBD problem and the LIP, K12 at the
 quadruped's shape with each gain solve and at the two AL shapes with
 Cholesky, K13 for the quadruped and both AL inner problems), and the
 thirty-two rows of phase 14 (K4, K3 and `srbd_evaluate` at its seven
-instances, K1's ten new instantiations, K2 at nu=12); the last line is
-{"ok": true, "device": {...}}.
+instances, K1's ten instantiations of PR 15, K2 at nu=12), and the
+eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
+seven families, K1's three Tassa-Cholesky instantiations); the last line
+is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -3410,9 +3436,10 @@ def modes_k12_check(p, sv, sizes, card):
     return e
 
 
-def modes_k13_check(p, sizes, card):
-    """`modes_check` of K13 at the point `p`, 1 and 4 α: float64 to 1e-9
-    with the flags equal, float32 by K12's rule; fails beyond either."""
+def modes_k13_check(p, sizes, card, alphas=(1, 4)):
+    """`modes_check` of K13 at the point `p` with each count of step sizes
+    in `alphas`: float64 to 1e-9 with the flags equal, float32 by K12's
+    rule; fails beyond either."""
     import torch
 
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
@@ -3420,7 +3447,7 @@ def modes_k13_check(p, sizes, card):
     f64, f32 = torch.float64, torch.float32
     e = dict(e64={}, e32={}, p32={}, abs32=0.0, flags_equal=True,
              f32_rule="err1: |kernel - twin| / max(1, |twin|)")
-    for nA in (1, 4):
+    for nA in alphas:
         for Bw in sizes:
             ref = k13.linear_trial_plain(*modes_k13_args(p, Bw, f64, nA))
             got = k13.linear_trial(*modes_k13_args(p, Bw, f64, nA))
@@ -3438,7 +3465,7 @@ def modes_k13_check(p, sizes, card):
                 e["p32"][key] = err1(q32, r32)
                 e["abs32"] = max(e["abs32"], abs_err(g32, r32))
     emit("modes_check", kernel="linear_trial", family=p["fam"], sizes=sizes,
-         tol_f64=1e-9, tol_f32=MODES_F32_TOL, card=card, **e)
+         alphas=alphas, tol_f64=1e-9, tol_f32=MODES_F32_TOL, card=card, **e)
     if max(e["e64"].values()) > 1e-9 or not e["flags_equal"]:
         fail(f"K13 ({p['fam']}) disagrees with its twin in float64: "
              f"{e['e64']}, flags equal {e['flags_equal']}")
@@ -3531,9 +3558,12 @@ def modes_k13_times(p, nA, sizes, serving_B):
         out = k13.linear_trial(*a32)
         ins = [x for x in a32[:14] if isinstance(x, torch.Tensor)]
         dev = a32[0].device
-        if fam in ("srbd", "quadruped"):
+        if s.terms.family == "srbd":
+            # every stage of the step evaluates the rates at its point
+            stages = {"EULER": 1, "RK2": 2, "RK4": 4}[s.terms.step]
             pt = k4.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
-            fam_fl = trial_flops(Bw, ns, nx, nu, s.terms.nc, s.terms.n_rho, nA)
+            fam_fl = stages * trial_flops(Bw, ns, nx, nu, s.terms.nc,
+                                          s.terms.n_rho, nA)
         elif fam == "lip":
             pt = k10.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
             fam_fl = lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA)
@@ -4297,13 +4327,13 @@ def modes_shapes_section(card, dev, sms):
                (k1, "riccati_backward"), (k12, "riccati_associative"),
                (k13, "linear_trial")) + tuple((k78, e) for e in AL_ENTRIES)
     k12_inst = {key: i for i, key in enumerate(k12.KERNEL_INSTANCES)}
-    k13_fam = {f[2]: i for i, f in enumerate(k13.FAMILIES)}
+    k13_fam = {name: i for i, name in enumerate(k13.FAMILY_NAMES)}
 
     def reset_counts():
         for mod, entry in COUNTED:
             getattr(mod, entry).launches = 0
         k12.riccati_associative.instance_launches[:] = [0] * len(k12_inst)
-        k13.linear_trial.family_launches[:] = [0] * len(k13_fam)
+        k13.linear_trial.family_launches[:] = [0] * len(k13.FAMILIES)
 
     def read_counts(shape):
         """The launches of every counted kernel, and of K12 and K13 at
@@ -4950,6 +4980,11 @@ FAMILY_HEIGHT_BAND = 0.08
 FAMILY_PROGRESS = 0.03          # forward progress at tick 39 (m)
 FAMILY_FLEET_WARM, FAMILY_FLEET_TIMED, FAMILY_SHORT_TICKS = 3, 20, 10
 FAMILY_SINGLE_TICKS, FAMILY_CHOLESKY_TICKS = 40, 10
+# K1's Tassa-Cholesky instantiations phase 15 adds, each with the instance
+# whose point checks it; phase 14 leaves them to phase 15
+MF_K1 = (("quadruped", "quadruped"), ("quadruped_rk", "quadruped_rk2"),
+         ("point_feet_rk", "point_feet_rk2"))
+MF_K1_INSTANCES = {(shape, "tassa", "cholesky") for shape, _ in MF_K1}
 
 
 def family_split(inst):
@@ -5129,7 +5164,7 @@ def family_check(inst, dev):
         a32 = tuple(v.float().contiguous() for v in a64)
         sweeps = {}
         for shape, form, solver in k1.KERNEL_INSTANCES:
-            if shape != k1_shape:
+            if shape != k1_shape or (shape, form, solver) in MF_K1_INSTANCES:
                 continue
             kw = dict(form=form, quu_solver=solver)
             r = k1.riccati_backward_plain(*a64, mu, rows, **kw)
@@ -5295,7 +5330,7 @@ def family_times(inst, dev, lin64, sweep64, pt):
             flop=stages * evaluate_flops(Bw, ns, nx, nc, n_rho))
         ka = repeat_members(k1a, Bw)
         for shape, form, solver in k1.KERNEL_INSTANCES:
-            if shape != k1_shape:
+            if shape != k1_shape or (shape, form, solver) in MF_K1_INSTANCES:
                 continue
             kw = dict(form=form, quu_solver=solver)
             out = k1.riccati_backward(*ka, mu, rows, **kw)
@@ -5321,7 +5356,7 @@ def family_times(inst, dev, lin64, sweep64, pt):
            f"srbd_trial_{inst}": pick(k3.trial_occupancy(f32, inst)),
            f"srbd_evaluate_{inst}": pick(k3.evaluate_occupancy(ns, f32, inst))}
     for shape, form, solver in k1.KERNEL_INSTANCES:
-        if shape == k1_shape:
+        if shape == k1_shape and (shape, form, solver) not in MF_K1_INSTANCES:
             kw = dict(form=form, quu_solver=solver)
             occ[k1_row_name(shape, form, solver)] = dict(
                 blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, **kw),
@@ -5696,7 +5731,7 @@ def family_section(card, dev, sms):
                   (f"srbd_evaluate_{inst}", k3, "evaluate", inst)]
     new_shapes = {k1_shapes[i]: i for i in reversed(FAMILY_INSTANCES)}
     for shape, form, solver in k1.KERNEL_INSTANCES:
-        if shape in new_shapes:
+        if shape in new_shapes and (shape, form, solver) not in MF_K1_INSTANCES:
             name = k1_row_name(shape, form, solver)
             specs.append((name, k1, name, new_shapes[shape]))
     rows_out = []
@@ -5750,6 +5785,489 @@ def family_section(card, dev, sms):
         fail(f"phase 14: kernels not launched on its paths: {missing}")
     emit("family_section", seconds=time.perf_counter() - t_section, card=card,
          rows=len(rows_out), path_launches=dict(path_launches))
+    return rows_out
+
+
+# ---------------- the execution modes at every SRBD topology and step (phase 15) ----
+
+# K12's shapes this phase adds, each checked and timed on the point of one
+# (topology, step) instance (RK2 and RK4 share K1's shape); K13's families
+# are the instances of FAMILY_INSTANCES themselves; K1's instantiations
+# are MF_K1 (above, with phase 14)
+MF_K12 = (("point_feet", "point_feet"), ("srbd_rk", "kangaroo_rk2"),
+          ("quadruped_rk", "quadruped_rk2"),
+          ("point_feet_rk", "point_feet_rk2"))
+MF_CHECK_B = (1, 64, B_MAIN)
+MF_TIME_B = (1, B_MAIN, B_LARGE)
+MF_TICKS, MF_SHORT_TICKS, MF_CHOLESKY_TICKS = 20, 10, 5
+MF_LINEAR = dict(riccati_mode="associative", forward_pass="linear")
+# A solve under forward_pass="linear" ends on the linearized pass's plan,
+# whose true defects close only as the iterations converge: the JAX
+# package's own point-feet walk under associative/linear reads a largest
+# defect norm of 6.47e-4 (float64; the port's CPU twins the same, equal
+# iterations) and 8.34e-4 (float32) at ticks 19 / 21 (`JAX_PLATFORMS=cpu
+# python tests/modes_walk_reference.py point_feet EULER f64 associative
+# linear 40`). The linear pass's paths are held to 1e-3, the others to 1e-4.
+MF_LINEAR_DEFECT = 1e-3
+
+
+def mf_k1_shape(inst):
+    """K1's shape name of a (topology, step) instance (RK2 and RK4 share
+    one)."""
+    topology, step = family_split(inst)
+    base = {"kangaroo": "srbd", "quadruped": "quadruped",
+            "point_feet": "point_feet"}[topology]
+    return base if step == "EULER" else base + "_rk"
+
+
+def mf_row_k12(shape, solver):
+    return ("riccati_associative_" + shape
+            + ("_cholesky" if solver == "cholesky" else ""))
+
+
+def mf_counts_reset():
+    """Zero every SRBD instance's and K1's counts (`family_counts_reset`),
+    K12's and K13's."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    family_counts_reset()
+    k12.riccati_associative.launches = 0
+    k12.riccati_associative.instance_launches[:] = [0] * len(
+        k12.KERNEL_INSTANCES)
+    k13.linear_trial.launches = 0
+    k13.linear_trial.family_launches[:] = [0] * len(k13.FAMILIES)
+
+
+def mf_counts():
+    """`family_counts` with K12's sweeps by instantiation and K13's
+    launches by family, under their row names (zeros left out)."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    out = family_counts()
+    for (shape, sv), n in zip(k12.KERNEL_INSTANCES,
+                              k12.riccati_associative.instance_launches):
+        if n:
+            out[mf_row_k12(shape, sv)] = n
+    for name, n in zip(k13.FAMILY_NAMES, k13.linear_trial.family_launches):
+        if n:
+            out["linear_trial_" + name] = n
+    return out
+
+
+def mf_point(inst, dev, seed):
+    """One (topology, step) instance's drawn point at B=512 in float64 on
+    the card (`family_point`'s plans and contact plan, linearized by K4)
+    with the gains of K12's block-Schur twin, D and merit0: the `p` the
+    modes' check and time helpers take (`fam`: K13's family name)."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    f64 = torch.float64
+    topology, step = family_split(inst)
+    loop64, prob = family_loop(topology, step, f64, dev)
+    loop32, _ = family_loop(topology, step, torch.float32, dev)
+    s, ocp = loop64.solver, prob.ocp
+    pt = family_point(loop64, prob, B_MAIN, dev, seed)
+    lin = k4.srbd_linearize(pt["X"], pt["U"], pt["params"], s.terms, s.rows,
+                            ocp.dt, s._wc(f64))
+    assert k1.kernel_shape(ocp.nx, ocp.nu, lin["Jt"].shape[1], s.rows) \
+        == mf_k1_shape(inst)
+    gains = k12.riccati_associative_plain(*(lin[k] for k in ORDER),
+                                          s.opts.mu0, s.rows)
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(pt["X"], pt["U"], pt["params"]) + \
+        s.opts.defect_weight * D
+    return dict(s=s, s32=loop32.solver, ocp=ocp, lin=lin, X=pt["X"],
+                U=pt["U"], x0=pt["x0"], params=pt["params"], gains=gains,
+                D=D, merit0=merit0, nt=lin["Jt"].shape[1], fam=inst)
+
+
+def mf_k1_check(shape, p, card):
+    """K1's Tassa form with the Cholesky gains at `shape` against its twin
+    at B = 1, 64 and 512: float64 to 1e-9, float32 to K1_F32_TOL of the
+    float64 twin; then `tassa_check` at B=512 (a NaN member, an indefinite
+    Quu). Returns the error figures; fails the run on disagreement."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    s = p["s"]
+    mu, rows = s.opts.mu0, s.rows
+    kw = dict(form="tassa", quu_solver="cholesky")
+    e = dict(e64={}, e32={}, p32={}, abs32=0.0)
+    for Bw in MF_CHECK_B:
+        a64 = tuple(p["lin"][k][:Bw].contiguous() for k in ORDER)
+        a32 = tuple(v.float().contiguous() for v in a64)
+        ref = k1.riccati_backward_plain(*a64, mu, rows, **kw)
+        got = k1.riccati_backward(*a64, mu, rows, **kw)
+        g32 = k1.riccati_backward(*a32, mu, rows, **kw)
+        p32 = k1.riccati_backward_plain(*a32, mu, rows, **kw)
+        torch.cuda.synchronize()
+        for name, g, r, gg, pp in zip(SWEEP_OUT, got, ref, g32, p32):
+            key = f"{name}_B{Bw}"
+            e["e64"][key], e["e32"][key] = rel_err(g, r), rel_err(gg, r)
+            e["p32"][key] = rel_err(pp, r)
+            e["abs32"] = max(e["abs32"], abs_err(gg, r))
+    emit("mf_k1_check", shape=shape, form="tassa", quu_solver="cholesky",
+         sizes=MF_CHECK_B, tol_f64=1e-9, tol_f32=K1_F32_TOL, card=card, **e)
+    if max(e["e64"].values()) > 1e-9 or max(e["e32"].values()) > K1_F32_TOL:
+        fail(f"K1 Tassa-Cholesky at {shape} disagrees with its twin: {e}")
+    tassa_check("mf_k1_tassa_check", k1, p["lin"], mu, rows, "cholesky",
+                FAMILY_NAN, shape=shape, B=B_MAIN, card=card)
+    return e
+
+
+def mf_k1_times(shape, p):
+    """K1's Tassa-Cholesky form at `shape` in float32 at B = 1, 512 and
+    4096 (members repeated), the twin at B = 1 and 512, the bytes, FLOPs
+    and bound of each call, its shared memory and blocks an SM."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    f32 = torch.float32
+    s, ocp = p["s"], p["ocp"]
+    mu, rows = s.opts.mu0, s.rows
+    kw = dict(form="tassa", quu_solver="cholesky")
+    lin32 = tuple(p["lin"][k].float().contiguous() for k in ORDER)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    ns, nx, nu, nt = ocp.ns, ocp.nx, ocp.nu, p["nt"]
+    t = dict(shared_memory_bytes=k1.shared_memory_bytes(nx, nu, nt, rows, f32,
+                                                        **kw),
+             blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, **kw),
+             by_B={})
+    for Bw in MF_TIME_B:
+        a = repeat_members(lin32, Bw)
+        out = k1.riccati_backward(*a, mu, rows, **kw)
+        nb = nbytes(*a, rows.packed(a[0].device), *out)
+        fl = tassa_flops(Bw, ns, nx, nu, nt, *sizes, "cholesky")
+        bms, by = bound(nb, fl, H100_FP64_TC_FLOP_PER_S)
+        t["by_B"][Bw] = dict(
+            ms=cuda_ms(lambda: k1.riccati_backward(*a, mu, rows, **kw),
+                       reps=10 if Bw < B_LARGE else 3),
+            plain_ms=(cuda_ms(lambda: k1.riccati_backward_plain(
+                *a, mu, rows, **kw), reps=2, warmup=1) if Bw <= B_MAIN
+                else None),
+            bytes=nb, flop=fl, bound_ms=bms, bound_by=by)
+    return t
+
+
+def mf_segment(inst, dev, card, opts, ticks, fleet=False, vx=0.3, start=5):
+    """One run of an instance's loop in float32 with DDPOptions `opts`
+    (with the dsrbd example's, or the quadruped example's on the
+    quadruped, under them): a robot on `MPCLoop.tick` for `ticks` ticks of
+    `walking_schedule(vx, start)` (the quadruped at vx 0.25), or the fleet
+    (B=512, shifted warm start, walk command vx 0.2, 0.005·N(0,1) pushes)
+    on `tick_batch`, one warm tick, then `ticks` timed; counted from a
+    reset just before to a read just after, the plain twins guarded.
+    Returns the figures with the launches by row name."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.runtime.loop import (TickInput, walk_command,
+                                                     walking_schedule)
+
+    topology, step = family_split(inst)
+    loop, prob = family_loop(topology, step, torch.float32, dev, opts=opts,
+                             shift=fleet)
+    if fleet:
+        g = np.random.RandomState(SEED)
+        xn = prob.initial_state.cpu().numpy()
+        carry = loop.init(torch.as_tensor(
+            xn[None] + 0.005 * g.randn(B_MAIN, xn.shape[0]),
+            dtype=torch.float32, device=dev))
+        inp = walk_command(B_MAIN, vx=0.2, device=dev)
+        carry, _ = loop.tick_batch(carry, inp)
+        tick = lambda c, i: loop.tick_batch(c, inp)
+    else:
+        carry = loop.init(prob.initial_state)
+        sched = walking_schedule(ticks, vx=0.25 if topology == "quadruped"
+                                 else vx, start=start, device=dev)
+        tick = lambda c, i: loop.tick(c, TickInput(*(a[i] for a in sched)))
+    torch.cuda.synchronize()
+    guards, restore_guards = guard_plain(family_twins() + (
+        (k12, ("riccati_associative_plain",)), (k13, ("linear_trial_plain",))))
+    n, restore = count_solver_calls(loop.solver)
+    mf_counts_reset()
+    syncs0, outs, tms = loop.solver.host_syncs, [], []
+    try:
+        for i in range(ticks):
+            t0 = time.perf_counter()
+            carry, o = tick(carry, i)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(o)
+        launches = mf_counts()
+    finally:
+        restore()
+        restore_guards()
+    com = torch.stack([o.x[..., :3] for o in outs]).cpu()
+    so = loop.solver.opts
+    res = dict(
+        instance=inst, B=B_MAIN if fleet else 1, dtype="float32", ticks=ticks,
+        riccati_mode=so.riccati_mode, forward_pass=so.forward_pass,
+        quu_solver=so.quu_solver, max_iters=so.max_iters,
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms),
+        syncs_per_tick=(loop.solver.host_syncs - syncs0) / ticks,
+        launches=launches, counted=dict(n),
+        finite=all(bool(torch.isfinite(v).all()) for o in outs
+                   for v in (o.x, o.u0, o.cost, o.srbd_residual)),
+        defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+        srbd_residual_max=max(float(o.srbd_residual.abs().max())
+                              for o in outs),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    if not fleet:
+        res.update(z0=float(prob.initial_state[2]),
+                   com_z_min=float(com[:, 2].min()),
+                   com_z_max=float(com[:, 2].max()),
+                   forward_progress_m=float(com[-1, 0] - com[0, 0]))
+    return res
+
+
+def mf_gates(tag, res, inst):
+    """Finite outputs; defects ≤ 1e-4 (MF_LINEAR_DEFECT under the linear
+    forward pass) and the Newton–Euler residual ≤ 1e-4; no
+    plain twin, torch.func transform or plain cost on the card; the
+    instance's K4 and srbd_evaluate launched (the evaluation two a solve)
+    and no other instance's; under the associative sweep one K12 sweep at
+    the shape's instantiation with the run's gain solve an iteration and
+    no K1, under the sequential one K1's sweep (the Tassa form with the
+    gain solve on one robot, the collapsed form on the fleet) an
+    iteration and no K12; K13 at the instance's family on the linear
+    trials and K3 on the rollout trials."""
+    L, n, k1_shape = res["launches"], res["counted"], mf_k1_shape(inst)
+    if not res["finite"]:
+        fail(f"{tag}: non-finite values")
+    limit = MF_LINEAR_DEFECT if res["forward_pass"] == "linear" else 1e-4
+    if res["defect_norm_max"] > limit or res["srbd_residual_max"] > 1e-4:
+        fail(f"{tag}: plans are not dynamically consistent (defect above "
+             f"{limit} or Newton-Euler residual above 1e-4): "
+             f"{res['defect_norm_max']}, {res['srbd_residual_max']}")
+    if (res["plain_twin_calls"] or res["torch_func_calls"]
+            or res["plain_cost_or_defect_calls"]):
+        fail(f"{tag} ran plain twins on the card: {res}")
+    assoc = res["riccati_mode"] == "associative"
+    sweep = (mf_row_k12(k1_shape, res["quu_solver"]) if assoc else
+             k1_row_name(k1_shape, "collapsed", "schur") if res["B"] > 1 else
+             k1_row_name(k1_shape, "tassa", res["quu_solver"]))
+    want = {f"srbd_linearize_{inst}": n["iterations"],
+            f"srbd_evaluate_{inst}": 2 * n["solves"], sweep: n["iterations"]}
+    if n["linear_trials"]:
+        want["linear_trial_" + inst] = n["linear_trials"]
+    if n["rollout_trials"]:
+        want[f"srbd_trial_{inst}"] = n["rollout_trials"]
+    if L != want or min(want.values()) == 0:
+        fail(f"{tag}: the path launched {L}, not {want} (counted {n})")
+    if res["forward_pass"] == "linear" and not n["linear_trials"]:
+        fail(f"{tag}: no linear trial ran under forward_pass='linear'")
+
+
+def modes_family_section(card, dev, sms):
+    """Phase 15: the JAX package's execution modes and the Cholesky gain
+    solve at every SRBD shape phase 14 added — K12 at the point-feet
+    biped's and the three RK shapes with both gain solves, K13 at the seven
+    (topology, step) families (the true defects in the problem's own
+    step), K1's Tassa-Cholesky form at `quadruped`, `quadruped_rk` and
+    `point_feet_rk`. `mf_check`: each against its twin at B = 1, 64 and
+    512 in float64 and float32 (K12 to K12_F64_TOL, K13 to 1e-9 with the
+    flags equal, K1 to 1e-9; float32 to 1e-6 of the float64 twin);
+    `mf_times`: float32 at B = 1, 512 and 4096, K12 beside K1-Tassa with
+    the same gain solve in the same call (`mf_k12_vs_k1_tassa`); the
+    paths at full width and ns=20 (`mf_segment`: the point-feet biped's
+    dsrbd walk under associative/linear and 10 ticks with Cholesky gains,
+    the Kangaroo's RK2 fleet at B=512 under the modes, its RK4 walk under
+    the modes with Cholesky gains, the quadruped's RK2 / RK4 trots under
+    the modes and a few ticks each with Cholesky gains under the default
+    ones, its Euler trot with Cholesky gains, the point-feet biped's RK2 /
+    RK4 walks under the modes and with Cholesky gains), each gated by
+    `mf_gates`; card = CPU in float64 (`mf_card_vs_cpu`: the point-feet
+    walk and the Kangaroo's RK2 fleet at B=8 under the modes). Returns the
+    eighteen kernel rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
+    from srbd_horizon_tpu_torch.solvers.options import ddp_example_options
+
+    t_section = time.perf_counter()
+    f64 = torch.float64
+    # ---- the points and their checks: K13 at every family, K12 and K1 at
+    # the shapes whose point each names ----
+    pts, errs, times = {}, {}, {}
+    k12_at = {inst: shape for shape, inst in MF_K12}
+    k1_at = {inst: shape for shape, inst in MF_K1}
+    for i, inst in enumerate(("quadruped",) + FAMILY_INSTANCES):
+        p = mf_point(inst, dev, SEED + 150 + i)
+        if inst != "quadruped":
+            errs["k13", inst] = modes_k13_check(p, MF_CHECK_B, card,
+                                                alphas=(4,))
+            for nA in (1, 4):
+                times["k13", inst, nA] = modes_k13_times(p, nA, MF_TIME_B,
+                                                         B_MAIN)
+        if inst in k12_at:
+            shape = k12_at[inst]
+            q = dict(p, fam=shape)
+            for sv in ("schur", "cholesky"):
+                errs["k12", shape, sv] = modes_k12_check(q, sv, MF_CHECK_B,
+                                                         card)
+                times["k12", shape, sv] = modes_k12_times(
+                    q, sv, MF_TIME_B, B_MAIN, sv)
+        if inst in k1_at:
+            shape = k1_at[inst]
+            errs["k1", shape] = mf_k1_check(shape, p, card)
+            times["k1", shape] = mf_k1_times(shape, p)
+        del p
+    torch.cuda.empty_cache()
+    emit("mf_times", card=card, dtype="float32", sms=sms,
+         rate="FP64 tensor cores, 67 TFLOP/s (K1, K12, K13 compute in "
+              "float64)",
+         **{"_".join(map(str, k)): v for k, v in times.items()})
+    emit("mf_k12_vs_k1_tassa", card=card, dtype="float32",
+         **{f"{shape}_{sv}": {str(Bw): dict(
+             riccati_associative_ms=v["ms"],
+             riccati_backward_tassa_ms=v["k1_tassa_ms"])
+             for Bw, v in times["k12", shape, sv]["by_B"].items()}
+            for shape, _ in MF_K12 for sv in ("schur", "cholesky")})
+
+    # ---- the paths ----
+    biped = lambda **kw: dataclasses.replace(ddp_example_options(), **kw)
+    quad = lambda **kw: DDPOptions(max_iters=5, alpha_converge_threshold=1e-12,
+                                   beta=1e-3, **kw)
+    chol = dict(quu_solver="cholesky")
+    T, S, C = MF_TICKS, MF_SHORT_TICKS, MF_CHOLESKY_TICKS
+    segments = (
+        ("mf_pf_walk", "point_feet", biped(**MF_LINEAR), FAMILY_SINGLE_TICKS,
+         False),
+        ("mf_pf_walk_cholesky", "point_feet", biped(**MF_LINEAR, **chol), S,
+         False),
+        ("mf_kangaroo_rk2_fleet", "kangaroo_rk2",
+         DDPOptions(max_iters=5, **MF_LINEAR), 3, True),
+        ("mf_kangaroo_rk4_walk_cholesky", "kangaroo_rk4",
+         biped(**MF_LINEAR, **chol), T, False),
+        ("mf_quadruped_rk2_trot", "quadruped_rk2", quad(**MF_LINEAR), T,
+         False),
+        ("mf_quadruped_rk2_trot_tassa_cholesky", "quadruped_rk2",
+         quad(**chol), C, False),
+        ("mf_quadruped_rk4_trot_cholesky", "quadruped_rk4",
+         quad(**MF_LINEAR, **chol), T, False),
+        ("mf_quadruped_rk4_trot_tassa_cholesky", "quadruped_rk4",
+         quad(**chol), C, False),
+        ("mf_quadruped_trot_tassa_cholesky", "quadruped", quad(**chol), S,
+         False),
+        ("mf_pf_rk2_walk", "point_feet_rk2", biped(**MF_LINEAR), S, False),
+        ("mf_pf_rk4_walk_cholesky", "point_feet_rk4",
+         biped(**MF_LINEAR, **chol), S, False),
+        ("mf_pf_rk2_walk_tassa_cholesky", "point_feet_rk2", biped(**chol), C,
+         False))
+    path_launches, by_path = defaultdict(int), defaultdict(dict)
+    for tag, inst, opts, ticks, fleet in segments:
+        res = mf_segment(inst, dev, card, opts, ticks, fleet=fleet)
+        emit(tag, **res)
+        mf_gates(tag, res, inst)
+        if tag == "mf_pf_walk":
+            if max(abs(res["com_z_min"] - FAMILY_HEIGHT),
+                   abs(res["com_z_max"] - FAMILY_HEIGHT)) > FAMILY_HEIGHT_BAND:
+                fail(f"{tag}: the CoM height left {FAMILY_HEIGHT} ± "
+                     f"{FAMILY_HEIGHT_BAND}: {res['com_z_min']}, "
+                     f"{res['com_z_max']}")
+            if not res["forward_progress_m"] > FAMILY_PROGRESS:
+                fail(f"{tag}: forward progress {res['forward_progress_m']} m "
+                     f"at tick 39, not above {FAMILY_PROGRESS}")
+        for k, v in res["launches"].items():
+            path_launches[k] += v
+            by_path[k][tag] = v
+
+    # ---- mf_card_vs_cpu: float64, 3 ticks each ----
+    def single_ticks(device, n_ticks):
+        loop, p = family_loop("point_feet", "EULER", f64, device,
+                              opts=biped(**MF_LINEAR))
+        sch = walking_schedule(n_ticks, vx=0.3, start=1, dtype=f64,
+                               device=device)
+        c, res = loop.init(p.initial_state), []
+        for i in range(n_ticks):
+            c, o = loop.tick(c, TickInput(*(a[i] for a in sch)))
+            res.append(o)
+        return c, res
+
+    def fleet_ticks(device, n_ticks):
+        from srbd_horizon_tpu_torch.runtime.loop import walk_command
+
+        loop, p = family_loop("kangaroo", "RK2", f64, device,
+                              opts=DDPOptions(max_iters=5, **MF_LINEAR),
+                              shift=True)
+        g = np.random.RandomState(SEED)
+        xn = p.initial_state.cpu().numpy()
+        c = loop.init(torch.as_tensor(xn[None] + 0.005 * g.randn(8, xn.shape[0]),
+                                      dtype=f64, device=device))
+        inp, res = walk_command(8, vx=0.2, dtype=f64, device=device), []
+        for _ in range(n_ticks):
+            c, o = loop.tick_batch(c, inp)
+            res.append(o)
+        return c, res
+
+    cvc = dict(tol=1e-9, modes="associative/linear",
+               point_feet_single=dict(ticks=3, walk="vx 0.3 from tick 1",
+                                      **family_versus(single_ticks(dev, 3),
+                                                      single_ticks("cpu", 3))),
+               kangaroo_rk2_fleet_B8=dict(ticks=3, **family_versus(
+                   fleet_ticks(dev, 3), fleet_ticks("cpu", 3))))
+    emit("mf_card_vs_cpu", **cvc)
+    if not (cvc["point_feet_single"]["ok"]
+            and cvc["kangaroo_rk2_fleet_B8"]["ok"]):
+        fail("the phase-15 card path and CPU path disagree")
+
+    # ---- the kernel rows: launches from this phase's paths ----
+    rows_out = []
+    for shape, _ in MF_K12:
+        for sv in ("schur", "cholesky"):
+            name = mf_row_k12(shape, sv)
+            rows_out.append(modes_k12_row(
+                name, times["k12", shape, sv], errs["k12", shape, sv],
+                path_launches.get(name, 0), B_MAIN, quu_solver=sv,
+                shape=shape, launches_by_path=by_path.get(name, {}),
+                launches_of="phase 15's paths"))
+    for inst in FAMILY_INSTANCES:
+        name = "linear_trial_" + inst
+        rows_out.append(modes_k13_row(
+            name, times["k13", inst, 1], times["k13", inst, 4],
+            errs["k13", inst], path_launches.get(name, 0), B_MAIN,
+            family=inst, launches_by_path=by_path.get(name, {}),
+            launches_of="phase 15's paths"))
+    for shape, _ in MF_K1:
+        name = k1_row_name(shape, "tassa", "cholesky")
+        t, e = times["k1", shape], errs["k1", shape]
+        b1 = t["by_B"][1]
+        rows_out.append(dict(kernel_row(
+            name, k1, path_launches.get(name, 0), b1["ms"], b1["plain_ms"],
+            b1["bound_ms"], b1["bound_by"], e, K1_F32_TOL, B=1,
+            quu_solver="cholesky",
+            ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
+            plain_ms_by_B={str(b): v["plain_ms"] for b, v in t["by_B"].items()},
+            bound_ms_by_B={str(b): v["bound_ms"] for b, v in t["by_B"].items()},
+            shared_memory_bytes=t["shared_memory_bytes"],
+            blocks_per_sm=t["blocks_per_sm"],
+            launches_by_path=by_path.get(name, {}),
+            launches_of="phase 15's paths"), replaces=k1.TASSA_REPLACES))
+    missing = [r["name"] for r in rows_out if r["launches"] == 0]
+    if missing:
+        fail(f"phase 15: kernels not launched on its paths: {missing}")
+    emit("modes_family_section", seconds=time.perf_counter() - t_section,
+         card=card, rows=len(rows_out), path_launches=dict(path_launches))
     return rows_out
 
 
@@ -7123,6 +7641,9 @@ def main():
 
     # ---------------- phase 14: the SRBD family at every topology and step --
     family_rows = family_section(card, dev, sms)
+
+    # ---------------- phase 15: the execution modes at every SRBD shape ----
+    family_rows += modes_family_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

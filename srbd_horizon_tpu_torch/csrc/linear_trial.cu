@@ -25,11 +25,15 @@
 //
 // The problem's step and rows come from the header its other kernels use,
 // evaluated as they evaluate them, at float64 (`FAMILIES`, a policy struct
-// each): the SRBD problem at both SRBD shapes (csrc/srbd_common.cuh, K3's
-// Euler step and rows; the Kangaroo and the point-feet quadruped), the LIP
-// (csrc/lip_common.cuh, K11's), and the isrbd AL inner problem at both AL
-// shapes (csrc/isrbd_common.cuh, K6's RK2 step of the double integrator and
-// its 240 / 236 stage and 101 / 97 terminal rows). The kernel carries
+// each): the SRBD problem at K3's nine (topology, step) instances
+// (csrc/srbd_common.cuh, K3's step and rows: the Kangaroo, the point-feet
+// quadruped and the point-feet biped, each under Euler, RK2 and RK4), the
+// LIP (csrc/lip_common.cuh, K11's), and the isrbd AL inner problem at both
+// AL shapes (csrc/isrbd_common.cuh, K6's RK2 step of the double integrator
+// and its 240 / 236 stage and 101 / 97 terminal rows). D̂ is measured in
+// the problem's own step, as JAX's `_true_defects` takes `ocp.step`: under
+// RK2 / RK4 `srbd::step_rows` forms the stage points in the warp's scratch
+// (nx values; none under Euler). The kernel carries
 // float32 tensors in float64 too, as K1 and K12 do, so that a float32 call
 // differs from the float64 twin by the rounding of its inputs and outputs
 // only.
@@ -64,14 +68,17 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kUnknownShape = -2;     // a family FAMILIES does not have
 
-// The SRBD problem at the shape S (srbd::KangarooShape, srbd::QuadShape):
-// sizes, the sliced rows' counts (K1's SrbdShape and QuadShape), constants,
-// parameters and the node's rows.
+// The SRBD problem at the (topology, step) instance S (srbd::KangarooShape,
+// QuadShape, PointFeetShape, or one of them under `srbd::Stepped<…, Rk2 |
+// Rk4>`): sizes, the sliced rows' counts (K1's shape: every input is a
+// live column of B, n_ru = nx under RK), constants, parameters, the
+// node's rows and the step.
 template <class S>
 struct SrbdFamily {
   static constexpr int nx = S::nx, nu = S::nu, nt = S::nt, n_rx = S::n_rx,
                        n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu,
-                       n_b = 3, n_uc = 24, pw = srbd::Layout<S>::pw;
+                       n_b = 3, n_uc = S::nu, pw = srbd::Layout<S>::pw,
+                       scratch = srbd::stage_scratch<S>();
   using Consts = srbd::Consts<double>;
   template <typename T>
   using Params = srbd::Params<T>;
@@ -87,18 +94,15 @@ struct SrbdFamily {
     if (lane < pw)
       p[lane] = static_cast<double>(*srbd::param_src<S>(P, row, lane));
   }
-  // this lane's share of the node's Σ‖ρ‖², and the Euler step's rows
-  // lane and lane + 32 into step (every lane must call it: the shuffles)
+  // this lane's share of the node's Σ‖ρ‖², and the step's rows lane and
+  // lane + 32 into step, its stage points in the warp's scratch xs (every
+  // lane must call it: the shuffles)
   __device__ static double stage(int lane, const double* x, const double* u,
                                  const double* p, const Consts& k,
-                                 double (&step)[2]) {
+                                 double (&step)[2], double* xs) {
     const srbd::Geometry<double> g = srbd::geometry<S>(x, k);
     const srbd::Rigid<double> rig = srbd::rigid_rates<S>(x, u, k, g, lane);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      step[c] = j < nx ? x[j] + k.dt * srbd::xdot_row<S>(j, x, u, rig) : 0.0;
-    }
+    srbd::step_rows<S>(x, u, rig, k, lane, xs, step);
     return srbd::stage_sq_lane<S>(lane, x, u, rig, p, k);
   }
   __device__ static double terminal(int lane, const double* x,
@@ -114,7 +118,8 @@ struct LipFamily {
   using S = lip::Shape;
   static constexpr int nx = S::nx, nu = S::nu, nt = S::nt, n_rx = S::n_rx,
                        n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu,
-                       n_b = 6, n_uc = 15, pw = lip::Layout<S>::pw;
+                       n_b = 6, n_uc = 15, pw = lip::Layout<S>::pw,
+                       scratch = 0;
   using Consts = lip::Consts<double>;
   template <typename T>
   using Params = lip::Params<T>;
@@ -131,7 +136,7 @@ struct LipFamily {
   }
   __device__ static double stage(int lane, const double* x, const double* u,
                                  const double* p, const Consts& k,
-                                 double (&step)[2]) {
+                                 double (&step)[2], double*) {
     step[0] = lane < nx ? x[lane] + k.dt * lip::xdot_row<S>(lane, x, u, k)
                         : 0.0;
     step[1] = 0.0;
@@ -154,7 +159,7 @@ struct IsrbdAlFamily {
   static constexpr int nx = S::nx, nu = S::nu, nt = S::n_term,
                        n_rx = S::n_rx, n_ru = S::n_ru, n_gx = S::n_gx,
                        n_gu = S::n_gu, n_b = S::n_b, n_uc = S::n_uc,
-                       pw = S::n_par;
+                       pw = S::n_par, scratch = 0;
   using Consts = isrbd::Consts<S, double>;
   template <typename T>
   using Params = isrbd::Params<T>;
@@ -178,7 +183,7 @@ struct IsrbdAlFamily {
   }
   __device__ static double stage(int lane, const double* x, const double* u,
                                  const double* p, const Consts& k,
-                                 double (&step)[2]) {
+                                 double (&step)[2], double*) {
     const double* xu = x;                          // u == x + nx
     const double hdt = 0.5 * k.dt;
     const isrbd::Rates<double> rt = isrbd::rates<S>(xu, hdt);
@@ -203,11 +208,13 @@ struct IsrbdAlFamily {
   }
 };
 
-// A warp's float64 buffers: δx, x̂, û, Kδx and the node's parameter row.
+// A warp's float64 buffers: δx, x̂, û, Kδx, the node's parameter row and
+// the step's stage-point scratch.
 template <class F>
 struct WarpBuf {
   static constexpr int dx = 0, xh = dx + F::nx, u = xh + F::nx, w = u + F::nu,
-                       p = w + F::nu, size = p + (F::pw + 31) / 32 * 32;
+                       p = w + F::nu, xs = p + (F::pw + 31) / 32 * 32,
+                       size = xs + F::scratch;
   static_assert(F::nx <= 64 && F::nu <= 32, "lane layout");
 };
 
@@ -291,7 +298,7 @@ linear_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     }
     __syncwarp();
     double step[2];
-    acc += F::stage(lane, xh, u, p, k, step);
+    acc += F::stage(lane, xh, u, p, k, step, sw + W::xs);
     double nxt[2] = {0.0, 0.0};
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
@@ -396,6 +403,13 @@ int with_family(int index, Fn fn) {
     case 2: return fn(SrbdFamily<srbd::QuadShape>{});
     case 3: return fn(IsrbdAlFamily<isrbd::KangarooAlShape>{});
     case 4: return fn(IsrbdAlFamily<isrbd::QuadAlShape>{});
+    case 5: return fn(SrbdFamily<srbd::PointFeetShape>{});
+    case 6: return fn(SrbdFamily<srbd::Stepped<srbd::KangarooShape, srbd::Rk2>>{});
+    case 7: return fn(SrbdFamily<srbd::Stepped<srbd::KangarooShape, srbd::Rk4>>{});
+    case 8: return fn(SrbdFamily<srbd::Stepped<srbd::QuadShape, srbd::Rk2>>{});
+    case 9: return fn(SrbdFamily<srbd::Stepped<srbd::QuadShape, srbd::Rk4>>{});
+    case 10: return fn(SrbdFamily<srbd::Stepped<srbd::PointFeetShape, srbd::Rk2>>{});
+    case 11: return fn(SrbdFamily<srbd::Stepped<srbd::PointFeetShape, srbd::Rk4>>{});
     default: return kUnknownShape;
   }
 }

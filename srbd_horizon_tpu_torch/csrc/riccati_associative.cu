@@ -31,12 +31,15 @@
 //      order by the member's last block to finish.
 // One launch a phase and one a scan stage: 8 a sweep at ns = 20.
 //
-// Instantiations (`with_instance`): K1's five shapes, with both gain solves
-// at the SRBD, LIP and quadruped shapes and with the Cholesky solve alone
-// at the two isrbd-AL shapes (the AL solver always asks its inner solver
-// for Cholesky). The AL shapes' element and gain blocks are the largest
-// (~117 KB and ~84 KB of shared memory): nu = 30 and the 103
-// Gauss–Newton rows of u, with a terminal stack of 101 / 97 rows.
+// Instantiations (`with_instance`): K1's nine shapes, with both gain
+// solves at the seven SRBD and LIP ones (the point-feet biped, and each
+// SRBD topology under RK2/RK4, whose two steps share K1's shape) and with
+// the Cholesky solve alone at the two isrbd-AL shapes (the AL solver
+// always asks its inner solver for Cholesky). The AL shapes' element and
+// gain blocks are the largest (~117 KB and ~84 KB of shared memory): nu =
+// 30 and the 103 Gauss–Newton rows of u, with a terminal stack of 101 / 97
+// rows. Under RK every row of B is live (n_ru = nx), which only widens the
+// staged Bs; the combine depends on nx alone.
 //
 // The dense A = I + Sx at rx and B = Bs at (ru, uc) are never formed: every
 // product with them runs over the live rows and columns only, where the
@@ -80,34 +83,9 @@ constexpr int kSmemExceeded = -1;
 // the gain solve (kernels/riccati_associative.py::QUU_SOLVERS)
 enum class Solve { kSchur, kCholesky };
 
-// K1's shape structs (csrc/riccati_backward.cu): the sizes of
-// kernels/riccati.py::KERNEL_SHAPES, in the order of KERNEL_INSTANCES here
-// (tests/test_torch_riccati_associative.py holds each to the table). The
-// four nx = 37 shapes share one combine kernel (it is templated on nx).
-struct SrbdShape {          // build_srbd_problem
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
-                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
-};
-
-struct LipShape {           // build_lip_problem
-  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
-                       n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
-};
-
-struct QuadShape {          // build_srbd_problem on the point-feet quadruped
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
-                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
-};
-
-struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
-  static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
-                       n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
-};
-
-struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
-  static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
-                       n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
-};
+// The shape structs are K1's (riccati_common.cuh); the combine kernel is
+// templated on nx, so the shapes of one nx share it (37: six shapes;
+// 25: the point-feet biped's two; 30: the LIP).
 
 // One element's float64 record in the workspace: A, C, J (nx×nx), b, η.
 template <int nx>
@@ -762,6 +740,14 @@ int with_instance(int inst, Fn fn) {
     case 5: return fn(Inst<QuadShape, Solve::kCholesky>{});
     case 6: return fn(Inst<IsrbdAlShape, Solve::kCholesky>{});
     case 7: return fn(Inst<QuadAlShape, Solve::kCholesky>{});
+    case 8: return fn(Inst<PointFeetShape, Solve::kSchur>{});
+    case 9: return fn(Inst<PointFeetShape, Solve::kCholesky>{});
+    case 10: return fn(Inst<SrbdRkShape, Solve::kSchur>{});
+    case 11: return fn(Inst<SrbdRkShape, Solve::kCholesky>{});
+    case 12: return fn(Inst<QuadRkShape, Solve::kSchur>{});
+    case 13: return fn(Inst<QuadRkShape, Solve::kCholesky>{});
+    case 14: return fn(Inst<PointFeetRkShape, Solve::kSchur>{});
+    case 15: return fn(Inst<PointFeetRkShape, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }

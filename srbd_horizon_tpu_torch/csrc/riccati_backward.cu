@@ -36,8 +36,9 @@
 // Design, one thread block of 4 warps per member, the node loop inside:
 //  * Compile-time sizes. The kernel is a template on a shape struct (one
 //    per OCP: SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape,
-//    PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape); every loop
-//    bound, tile count and shared-memory offset is a constant. The row sets stay a run-time
+//    PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape, in
+//    riccati_common.cuh, which K12 shares); every loop bound, tile count
+//    and shared-memory offset is a constant. The row sets stay a run-time
 //    int32 table, copied into shared memory once. The wrapper picks the
 //    instantiation from the sizes and refuses any other.
 //  * FP64 tensor cores. Every dense product of a node runs on warps over
@@ -92,12 +93,13 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); twenty-two instantiations are built (`with_instance`
-// below): the collapsed form with the inverse at every shape, and the
-// Tassa form with the inverse at SrbdShape, LipShape, QuadShape and the
-// four shapes of the point-feet biped and the RK steps (DDPOptions'
-// default), with Cholesky at IsrbdAlShape and QuadAlShape (the AL solver's
-// inner solve), at SrbdShape, LipShape, PointFeetShape and SrbdRkShape.
+// solve (Solve); twenty-five instantiations are built (`with_instance`
+// below): the collapsed form with the inverse at every shape, the Tassa
+// form with the inverse at every shape but the two AL ones (DDPOptions'
+// default), and the Tassa form with Cholesky at every shape (the AL
+// solver's inner solve at IsrbdAlShape and QuadAlShape; `MSDDP.solve`'s
+// quu_solver="cholesky" elsewhere, as the JAX package's `_backward` takes
+// it at any shape).
 // The collapsed ones compile to the code they had. The SRBD problem under
 // RK2 and RK4 (SrbdRkShape, QuadRkShape, PointFeetRkShape; the two steps
 // share each) has every row of B live (n_ru = nx, as the isrbd-AL shapes
@@ -137,63 +139,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmemExceeded = -1;   // kernels/riccati.py::SMEM_EXCEEDED
 constexpr int kUnknownShape = -2;   // kernels/riccati.py::UNKNOWN_SHAPE
 
-// ---- the instantiations (kernels/riccati.py::KERNEL_SHAPES, same order) ----
-
-struct SrbdShape {          // build_srbd_problem
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
-                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
-  static constexpr int min_blocks = 4;
-};
-
-struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
-  static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
-                       n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
-  static constexpr int min_blocks = 3;
-};
-
-struct LipShape {           // build_lip_problem
-  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
-                       n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
-  static constexpr int min_blocks = 4;
-};
-
-struct QuadShape {          // build_srbd_problem on the point-feet quadruped
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
-                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
-  static constexpr int min_blocks = 4;
-};
-
-struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
-  static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
-                       n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
-  static constexpr int min_blocks = 3;
-};
-
-struct PointFeetShape {     // build_srbd_problem on the point-feet biped
-  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 12,
-                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
-  static constexpr int min_blocks = 4;
-};
-
-// build_srbd_problem under RK2 or RK4 (the two steps share a shape): every
-// row of B is live
-struct SrbdRkShape {        // the Kangaroo
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
-                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
-  static constexpr int min_blocks = 4;
-};
-
-struct QuadRkShape {        // the point-feet quadruped
-  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
-                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
-  static constexpr int min_blocks = 4;
-};
-
-struct PointFeetRkShape {   // the point-feet biped
-  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 25,
-                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
-  static constexpr int min_blocks = 4;
-};
+// The shape structs (SrbdShape … PointFeetRkShape) are in riccati_common.cuh,
+// one definition for K1 and K12.
 
 // the value update (kernels/riccati.py::FORMS) and the gain solve
 // (QUU_SOLVERS)
@@ -791,6 +738,9 @@ int with_instance(int inst, Fn fn) {
     case 19: return fn(Inst<QuadRkShape, Form::kTassa, Solve::kSchur>{});
     case 20: return fn(Inst<PointFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
     case 21: return fn(Inst<PointFeetRkShape, Form::kTassa, Solve::kSchur>{});
+    case 22: return fn(Inst<QuadShape, Form::kTassa, Solve::kCholesky>{});
+    case 23: return fn(Inst<QuadRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 24: return fn(Inst<PointFeetRkShape, Form::kTassa, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }

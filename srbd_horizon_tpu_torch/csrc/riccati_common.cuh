@@ -19,6 +19,68 @@ namespace {
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
+// ---- the compile-time shapes of K1 and K12 ----
+// kernels/riccati.py::KERNEL_SHAPES holds the same sizes in the same order
+// (tests/test_torch_riccati_shapes.py reads them from here): nx, nu, the
+// terminal rows nt and the sizes of the row sets. `min_blocks` is K1's
+// launch bound (blocks an SM); K12 does not read it.
+
+struct SrbdShape {          // build_srbd_problem
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
+                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct IsrbdAlShape {       // the AL inner OCP of build_isrbd_problem
+  static constexpr int nx = 37, nu = 30, nt = 101, n_rx = 19, n_ru = 37,
+                       n_gx = 60, n_gu = 103, n_b = 9, n_uc = 18;
+  static constexpr int min_blocks = 3;
+};
+
+struct LipShape {           // build_lip_problem
+  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
+                       n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
+};
+
+struct QuadShape {          // build_srbd_problem on the point-feet quadruped
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 18,
+                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct QuadAlShape {        // the AL inner OCP of build_isrbd_problem on it
+  static constexpr int nx = 37, nu = 30, nt = 97, n_rx = 19, n_ru = 37,
+                       n_gx = 56, n_gu = 103, n_b = 9, n_uc = 18;
+  static constexpr int min_blocks = 3;
+};
+
+struct PointFeetShape {     // build_srbd_problem on the point-feet biped
+  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 12,
+                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
+  static constexpr int min_blocks = 4;
+};
+
+// build_srbd_problem under RK2 or RK4 (the two steps share a shape): every
+// row of B is live
+struct SrbdRkShape {        // the Kangaroo
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
+                       n_gx = 34, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct QuadRkShape {        // the point-feet quadruped
+  static constexpr int nx = 37, nu = 24, nt = 15, n_rx = 22, n_ru = 37,
+                       n_gx = 30, n_gu = 42, n_b = 3, n_uc = 24;
+  static constexpr int min_blocks = 4;
+};
+
+struct PointFeetRkShape {   // the point-feet biped
+  static constexpr int nx = 25, nu = 12, nt = 15, n_rx = 16, n_ru = 25,
+                       n_gx = 24, n_gu = 24, n_b = 3, n_uc = 12;
+  static constexpr int min_blocks = 4;
+};
+
 // Float64 workspace of the block-Schur inverse of an n×n matrix.
 __host__ __device__ constexpr int inv_work(int n) {
   return n <= 3 ? 0

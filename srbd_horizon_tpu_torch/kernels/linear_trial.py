@@ -28,15 +28,16 @@ Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
 (nα, B) — what K3 and K11 return, so the solver's line search takes either.
 
 The step in D̂ is the problem's own (`family_step`, as JAX's
-`_true_defects` takes `ocp.step`): the SRBD problem's step, Euler on the
-LIP, the RK2 step of the double integrator on the isrbd AL inner problem.
-The kernel holds the SRBD families under Euler only: the point-feet biped
-and the RK steps are refused (`family_index`; ROADMAP.md Queue 2).
+`_true_defects` takes `ocp.step`): the SRBD problem's step (Euler, RK2 or
+RK4), Euler on the LIP, the RK2 step of the double integrator on the
+isrbd AL inner problem; the kernel takes the same step.
 
-The kernel is compiled for five problems (`FAMILIES`): the SRBD problem of
-the Kangaroo and of the point-feet quadruped, the LIP, and the AL inner
-problem of both robots' isrbd problems (K1's five shapes); CUDA tensors of
-other sizes raise ValueError, CPU tensors take the twin at any size.
+The kernel is compiled for twelve problems (`FAMILIES`): the SRBD problem
+at each of its nine (topology, step) instances (the Kangaroo, the
+point-feet quadruped and the point-feet biped under Euler, RK2 and RK4),
+the LIP, and the AL inner problem of both the Kangaroo's and the
+quadruped's isrbd problems; CUDA tensors of other sizes raise ValueError,
+CPU tensors take the twin at any size.
 """
 
 from __future__ import annotations
@@ -65,12 +66,25 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1454"
 SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
 
 # the problems the kernel is compiled for, in the order of the .cu's
-# `with_family`: (terms.family, the linearization's shape name — K4's or
-# K5's `KERNEL_SHAPES` — and K1's shape)
+# `with_family` (appended, never reordered): (terms.family, the
+# linearization's shape name — K4's or K5's `KERNEL_SHAPES` — and K1's
+# shape). RK2 and RK4 share K1's shape, so K1's name does not pick a family.
 FAMILIES = (("srbd", "kangaroo", "srbd"), ("lip", None, "lip"),
             ("srbd", "quadruped", "quadruped"),
             ("isrbd_al", "kangaroo", "isrbd_al"),
-            ("isrbd_al", "quadruped", "isrbd_al_quadruped"))
+            ("isrbd_al", "quadruped", "isrbd_al_quadruped"),
+            ("srbd", "point_feet", "point_feet"),
+            ("srbd", "kangaroo_rk2", "srbd_rk"),
+            ("srbd", "kangaroo_rk4", "srbd_rk"),
+            ("srbd", "quadruped_rk2", "quadruped_rk"),
+            ("srbd", "quadruped_rk4", "quadruped_rk"),
+            ("srbd", "point_feet_rk2", "point_feet_rk"),
+            ("srbd", "point_feet_rk4", "point_feet_rk"))
+# each family's name, as `occupancy` takes it: K1's shape name where that
+# shape has one family, K4's name under RK, where two share K1's shape
+FAMILY_NAMES = ("srbd", "lip", "quadruped", "isrbd_al", "isrbd_al_quadruped",
+                "point_feet", "kangaroo_rk2", "kangaroo_rk4", "quadruped_rk2",
+                "quadruped_rk4", "point_feet_rk2", "point_feet_rk4")
 # each family's module of shape checks and parameter tensors
 _LINEARIZE = {"srbd": linearize, "lip": lip_linearize,
               "isrbd_al": isrbd_linearize}
@@ -185,16 +199,16 @@ def _kernel_fn(dtype):
     return fn
 
 
-def occupancy(shape: str = "srbd", dtype=torch.float32) -> dict:
+def occupancy(family: str = "srbd", dtype=torch.float32) -> dict:
     """K13's blocks resident on one SM, static shared memory bytes a block,
     registers and local (spilled) bytes a thread on the current card, for
-    the family at K1's shape name `shape`."""
+    the family named `family` (`FAMILY_NAMES`)."""
     fn = library("linear_trial").linear_trial_occupancy
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
     out = (ctypes.c_int * 4)()
-    idx = [f[2] for f in FAMILIES].index(shape)
+    idx = FAMILY_NAMES.index(family)
     err = fn(idx, int(dtype == torch.float64), out)
     if err != 0:
         raise RuntimeError(f"linear_trial occupancy failed: error {err}")

@@ -276,11 +276,13 @@ KERNEL_SHAPES = {
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
 # the block-Schur inverse serves the batched solves at every shape; the
-# Tassa form serves `MSDDP.solve`: with the inverse at the SRBD, LIP and
-# quadruped shapes (DDPOptions' default), with Cholesky at the two isrbd-AL
-# shapes (the AL solver's inner solve) and at the SRBD and LIP shapes; the
-# point-feet biped and the three RK shapes as their Euler counterparts.
-# CUDA tensors at another (shape, form, solver) raise ValueError.
+# Tassa form serves `MSDDP.solve`: with the inverse at every shape but the
+# two isrbd-AL ones (DDPOptions' default), with Cholesky at every shape
+# (the AL solver's inner solve at the isrbd-AL shapes; quu_solver=
+# "cholesky", which the JAX package's `_backward` takes at any shape,
+# elsewhere). Indices are appended, never reordered. CUDA tensors at
+# another (shape, form, solver) — the block-Schur Tassa form at the AL
+# shapes — raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "collapsed", "schur"),
     ("isrbd_al", "collapsed", "schur"),
@@ -304,6 +306,9 @@ KERNEL_INSTANCES = (
     ("quadruped_rk", "tassa", "schur"),
     ("point_feet_rk", "collapsed", "schur"),
     ("point_feet_rk", "tassa", "schur"),
+    ("quadruped", "tassa", "cholesky"),
+    ("quadruped_rk", "tassa", "cholesky"),
+    ("point_feet_rk", "tassa", "cholesky"),
 )
 
 # the launchers' own errors (no CUDA error has these values): the block's

@@ -50,10 +50,11 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1250"
 SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_associative.cu"
 
 # K12's instantiations, in the order of the .cu's `with_instance`: (K1's
-# shape name, gain solve). Both gain solves at the SRBD, LIP and quadruped
-# shapes; Cholesky alone at the two isrbd-AL shapes, whose only caller, the
-# AL solver's inner solve, always takes it. CUDA tensors of other sizes or
-# another gain solve raise ValueError.
+# shape name, gain solve). Both gain solves at the seven SRBD and LIP
+# shapes (the RK2 and RK4 steps share K1's shape); Cholesky alone at the two
+# isrbd-AL shapes, whose only caller, the AL solver's inner solve, always
+# takes it. Indices are appended, never reordered. CUDA tensors of other
+# sizes or another gain solve raise ValueError.
 KERNEL_INSTANCES = (
     ("srbd", "schur"),
     ("srbd", "cholesky"),
@@ -63,6 +64,14 @@ KERNEL_INSTANCES = (
     ("quadruped", "cholesky"),
     ("isrbd_al", "cholesky"),
     ("isrbd_al_quadruped", "cholesky"),
+    ("point_feet", "schur"),
+    ("point_feet", "cholesky"),
+    ("srbd_rk", "schur"),
+    ("srbd_rk", "cholesky"),
+    ("quadruped_rk", "schur"),
+    ("quadruped_rk", "cholesky"),
+    ("point_feet_rk", "schur"),
+    ("point_feet_rk", "cholesky"),
 )
 # the launchers' own errors, as K1's (kernels/riccati.py)
 SMEM_EXCEEDED = -1

@@ -42,38 +42,39 @@ def lm_transpose(A: torch.Tensor) -> torch.Tensor:
     return A.transpose(-1, -2)
 
 
+# the 3×3 adjugate, row-major: c_ij = a[p]·a[q] − a[r]·a[s] over A's
+# row-major entries, listed operand by operand (all p, then q, r, s)
+_ADJ3 = torch.tensor((4, 2, 1, 5, 0, 2, 3, 1, 0,
+                      8, 7, 5, 6, 8, 3, 7, 6, 4,
+                      5, 1, 2, 3, 2, 0, 4, 0, 1,
+                      7, 8, 4, 8, 6, 5, 6, 7, 3))
+# the 2×2 one: [d, −b; −c, a], the entries and their signs
+_ADJ2 = torch.tensor((3, 1, 2, 0))
+_ADJ2_SIGN = (1.0, -1.0, -1.0, 1.0)
+
+
+def adjugate3(A: torch.Tensor):
+    """The adjugate of (..., 3, 3) A as (..., 9) row-major cofactors and
+    its determinant a00·c00 + a01·c10 + a02·c20 (each cofactor one
+    product minus another, elementwise: the rounding of the written-out
+    formula, in four gathers)."""
+    a = A.reshape(A.shape[:-2] + (9,))
+    g = a.index_select(-1, _ADJ3.to(A.device)).unflatten(-1, (4, 9))
+    c = g[..., 0, :] * g[..., 1, :] - g[..., 2, :] * g[..., 3, :]
+    det = a[..., 0] * c[..., 0] + a[..., 1] * c[..., 3] + a[..., 2] * c[..., 6]
+    return c, det
+
+
 def _lm_inv2(A):
-    a, b = A[..., 0, 0], A[..., 0, 1]
-    c, d = A[..., 1, 0], A[..., 1, 1]
-    det = a * d - b * c
-    row0 = torch.stack([d, -b], dim=-1)
-    row1 = torch.stack([-c, a], dim=-1)
-    return torch.stack([row0, row1], dim=-2) / det[..., None, None]
+    a = A.reshape(A.shape[:-2] + (4,))
+    det = a[..., 0] * a[..., 3] - a[..., 1] * a[..., 2]
+    adj = a.index_select(-1, _ADJ2.to(A.device)) * a.new_tensor(_ADJ2_SIGN)
+    return (adj / det[..., None]).reshape(A.shape)
 
 
 def _lm_inv3(A):
-    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    c00 = a11 * a22 - a12 * a21
-    c01 = a02 * a21 - a01 * a22
-    c02 = a01 * a12 - a02 * a11
-    c10 = a12 * a20 - a10 * a22
-    c11 = a00 * a22 - a02 * a20
-    c12 = a02 * a10 - a00 * a12
-    c20 = a10 * a21 - a11 * a20
-    c21 = a01 * a20 - a00 * a21
-    c22 = a00 * a11 - a01 * a10
-    det = a00 * c00 + a01 * c10 + a02 * c20
-    adj = torch.stack(
-        [
-            torch.stack([c00, c01, c02], dim=-1),
-            torch.stack([c10, c11, c12], dim=-1),
-            torch.stack([c20, c21, c22], dim=-1),
-        ],
-        dim=-2,
-    )
-    return adj / det[..., None, None]
+    c, det = adjugate3(A)
+    return (c / det[..., None]).reshape(A.shape)
 
 
 def lm_spd_inverse(A: torch.Tensor) -> torch.Tensor:

@@ -6,15 +6,20 @@ from __future__ import annotations
 
 import torch
 
+from srbd_horizon_tpu_torch.math.linalg import adjugate3
+
+# the components a cross product pairs: (1, 2, 0) with (2, 0, 1)
+_CROSS_I = torch.tensor((1, 2, 0))
+_CROSS_J = torch.tensor((2, 0, 1))
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a × b over the last axis (written out: `torch.func` friendly and the
+    """a × b over the last axis: (a1b2 − a2b1, a2b0 − a0b2, a0b1 − a1b0),
+    each product minus another elementwise (`torch.func` friendly and the
     same arithmetic as the CUDA rollout)."""
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack(
-        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1
-    )
+    i, j = _CROSS_I.to(a.device), _CROSS_J.to(a.device)
+    return (a.index_select(-1, i) * b.index_select(-1, j)
+            - a.index_select(-1, j) * b.index_select(-1, i))
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -72,26 +77,12 @@ def quat_derivative_world(o: torch.Tensor, w_world: torch.Tensor) -> torch.Tenso
 
 
 def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x = A⁻¹ b for a 3×3 system via the adjugate (Cramer) formula — the
-    same formula the CUDA rollout evaluates."""
-    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    c00 = a11 * a22 - a12 * a21
-    c01 = a02 * a21 - a01 * a22
-    c02 = a01 * a12 - a02 * a11
-    c10 = a12 * a20 - a10 * a22
-    c11 = a00 * a22 - a02 * a20
-    c12 = a02 * a10 - a00 * a12
-    c20 = a10 * a21 - a11 * a20
-    c21 = a01 * a20 - a00 * a21
-    c22 = a00 * a11 - a01 * a10
-    det = a00 * c00 + a01 * c10 + a02 * c20
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    x0 = (c00 * b0 + c01 * b1 + c02 * b2) / det
-    x1 = (c10 * b0 + c11 * b1 + c12 * b2) / det
-    x2 = (c20 * b0 + c21 * b1 + c22 * b2) / det
-    return torch.stack([x0, x1, x2], dim=-1)
+    """x = A⁻¹ b for a 3×3 system via the adjugate (Cramer) formula —
+    xᵢ = (cᵢ₀b₀ + cᵢ₁b₁ + cᵢ₂b₂) / det, summed left to right, the same
+    formula the CUDA rollout evaluates."""
+    c, det = adjugate3(A)
+    cb = c.unflatten(-1, (3, 3)) * b[..., None, :]
+    return (cb[..., 0] + cb[..., 1] + cb[..., 2]) / det[..., None]
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

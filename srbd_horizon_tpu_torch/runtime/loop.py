@@ -279,10 +279,10 @@ def build_quadruped_loop(cfg: Optional[SRBDConfig] = None,
     fleet: `tick_batch` on x0 (B, nx), usually with
     `shift_warmstart=True`. `opts` may set any execution mode
     (`riccati_mode="associative"`, `forward_pass="linear"`: K12 and K13 at
-    the quadruped's shape, under the Euler step). `integrator` is the
-    problem's step ("EULER", "RK2" or "RK4"). Built on `device` (default
-    "cuda"; raises when CUDA is absent unless another device is given).
-    Returns (loop, problem)."""
+    the quadruped's shape under each step) and either gain solve.
+    `integrator` is the problem's step ("EULER", "RK2" or "RK4"). Built on
+    `device` (default "cuda"; raises when CUDA is absent unless another
+    device is given). Returns (loop, problem)."""
     dev = resolve_device(device)
     cfg = cfg or SRBDConfig(contact_model=1, number_of_legs=4)
     dtype = dtype or cfg.dtype

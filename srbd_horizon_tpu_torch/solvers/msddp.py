@@ -45,11 +45,13 @@ parallel line search's trial the linearized forward pass with the measured
 defects (`_forward_linear`, :1454, in the trial of :1507-1531) — kernel K13
 (`kernels/linear_trial.py`); the sequential line search always rolls out.
 Under either, `solve_batch` is the JAX package's `vmap(solve)`
-(`_solve_members`). Both kernels are compiled for K1's five shapes: the
-SRBD problem of the Kangaroo and of the point-feet quadruped, the LIP, and
-the AL inner problem of both robots (K12 with the Cholesky gain solve
-alone there, which the AL solver always takes); the solver refuses the
-modes on any other problem or gain solve.
+(`_solve_members`). Both kernels are compiled for K1's nine shapes: the
+SRBD problem of the Kangaroo, the point-feet quadruped and the point-feet
+biped under Euler, RK2 and RK4 (K13 a family for each step; K12 one
+instantiation for RK2 and RK4, which share K1's shape), the LIP, and the AL
+inner problem of both the Kangaroo and the quadruped (K12 with the
+Cholesky gain solve alone there, which the AL solver always takes); the
+solver refuses the modes on any other problem or gain solve.
 
 The JAX package's `lax.while_loop`/`lax.cond` decisions (the solve loop,
 the fan deepening, the fan and active-set compaction) are host decisions
@@ -175,9 +177,13 @@ class MSDDP:
         opts = self.opts
         if (opts.riccati_mode, opts.forward_pass) != ("sequential",
                                                        "nonlinear"):
-            # K12 and K13 exist at K1's five shapes (K12 with both gain
-            # solves, but Cholesky alone at the AL ones): a problem or gain
-            # solve without a kernel is refused on every device
+            # K12 and K13 exist at K1's nine shapes (K12 with both gain
+            # solves, but Cholesky alone at the AL ones; K13 at every SRBD
+            # topology and step, the LIP and both AL inner problems): a
+            # problem or gain solve without a kernel — the SRBD at
+            # contact_model 3 or 4, the LIP off its one shape or step,
+            # block-Schur gains at the AL shapes — is refused on every
+            # device
             try:
                 shape = FAMILIES[family_index(terms, ocp.nx, ocp.nu,
                                               self.rows)][2]
@@ -187,8 +193,10 @@ class MSDDP:
                 raise NotImplementedError(
                     f"riccati_mode={opts.riccati_mode!r}, forward_pass="
                     f"{opts.forward_pass!r}, quu_solver={opts.quu_solver!r}: "
-                    "K12 and K13 have no kernel for this problem; another "
-                    f"shape needs one (ROADMAP.md Queue 2): {err}") from None
+                    "K12 and K13 have no kernel for this problem: the SRBD "
+                    "at contact_model 3 or 4, the LIP off line feet or "
+                    "under RK, and block-Schur gains at the AL shapes have "
+                    f"none yet (ROADMAP.md Queue 2): {err}") from None
 
     @property
     def terms(self):

@@ -138,10 +138,17 @@ class WalkingPatternGenerator:
         params: Dict[str, torch.Tensor],
         state: WPGState,
         action: torch.Tensor,
+        terrain_z=0.0,
     ) -> Tuple[Dict[str, torch.Tensor], WPGState]:
         """One `steps_phase.set(action)` tick for every member: shift
         c_ref/cdot_switch one node back, then write the terminal node
-        (c_ref, cdot_switch, w_ref ← 0, orientation_tracking_gain)."""
+        (c_ref, cdot_switch, w_ref ← 0, orientation_tracking_gain).
+
+        `terrain_z` (a Python scalar, or a tensor of one value a member on
+        the WPG's device) offsets the written contact-height references, as
+        the JAX package's `advance` does (srbd_horizon_tpu/wpg.py:197-220):
+        added to the step action's terminal c_ref, written in place of 0 in
+        stance; the jump action keeps the shifted c_ref."""
         nc = self.contact_model * self.number_of_legs
         ns = self.nodes
         cm = self.contact_model
@@ -157,15 +164,16 @@ class WalkingPatternGenerator:
         else:   # the first contact_model contacts are the left foot
             is_left = torch.arange(nc, device=dev) < cm
         act = action.to(torch.int64)[..., None]              # (..., 1)
+        tz = torch.as_tensor(terrain_z, dtype=dtype, device=dev)[..., None]
 
         step_c = torch.where(
             is_left, self.l_cycle[ref_id][..., None], self.r_cycle[ref_id][..., None]
-        ).to(dtype)
+        ).to(dtype) + tz
         step_s = torch.where(
             is_left, self.l_switch[ref_id][..., None], self.r_switch[ref_id][..., None]
         ).to(dtype)
         jump_c = p["c_ref"][..., ns, :]
-        stance_c = torch.zeros_like(step_c)
+        stance_c = tz.expand_as(step_c)
 
         c_ref_T = torch.where(act == STEP, step_c,
                               torch.where(act == JUMP, jump_c, stance_c))

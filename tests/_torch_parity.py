@@ -26,6 +26,18 @@ from srbd_horizon_tpu_torch.solvers.msddp import MSDDP as TMSDDP
 CPU = "cpu"
 F64 = torch.float64
 
+# The JAX reference these tests hold the port to is compiled from the same
+# HLO without LLVM's optimization passes (XLA's backend optimization level
+# 0): its XLA compiles take 20-30% less time, and every comparison holds
+# at its tolerance as at the default level. Only a top-level jit takes
+# compiler options; a jit nested in one takes none.
+REFERENCE_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def jit(fun, **kw):
+    """`jax.jit` for the JAX reference (`REFERENCE_COMPILER_OPTIONS`)."""
+    return jax.jit(fun, compiler_options=REFERENCE_COMPILER_OPTIONS, **kw)
+
 # the option set the fleet bench and the batched-solver tests run
 SOLVER_OPTS = dict(max_iters=8, alpha_converge_threshold=1e-12, beta=1e-3)
 
@@ -437,7 +449,7 @@ def run_al_modes(jp, tp, mode, jax_side=True, vx=0.2):
         U0 = jnp.tile(jp.static_input[None], (jp.ocp.ns, 1))
         jon = dict(jp.ocp.params)
         jon["rdot_ref"] = jon["rdot_ref"].at[1:].set(jnp.array([vx, 0.0, 0.0]))
-        want = jax.jit(lambda x0, p, q: al_solve_then_online(
+        want = jit(lambda x0, p, q: al_solve_then_online(
             js, lambda x, u: js.init(x, U0=u), x0, U0, p, q))(
                 jp.initial_state, jp.ocp.params, jon)
     spy = ModesSpy(ts.inner)
@@ -523,25 +535,37 @@ def agree(got, want, where, fields, tol=1e-9):
 
 
 def solve_results(topology, integrator, ns=8, B=4, seed=0,
-                  jax_solve_batch=False):
+                  jax_solve_batch=False, vmap_solve=True, **overrides):
     """One topology under one step at ns nodes, float64 on the CPU, from
     pushed starts (0.02·N(0,1)) with a commanded terminal velocity: the
     port's `solve` (member 0) and `solve_batch` beside JAX's `solve` and
-    `vmap(solve)` (and, asked, JAX's `solve_batch`)."""
+    (with `vmap_solve`) `vmap(solve)`, and, asked, JAX's `solve_batch`;
+    both packages with max_iters=20 and `overrides` (an execution mode, a
+    gain solve), and a `ModesSpy` on the port's solver ("spy"). JAX's
+    `vmap(solve)` batches the jitted `solve`, whose trace it reuses (the
+    same program: XLA inlines the call). Under a mode JAX's `solve_batch`
+    is its `vmap(solve)` (msddp.py:1214), so that one result serves both
+    keys."""
     jp, tp = srbd_problems(topology, integrator, ns)
-    js, ts = solvers(jp, tp, max_iters=20)
+    js, ts = solvers(jp, tp, **dict(dict(max_iters=20), **overrides))
     x0 = perturbed_states(jp.initial_state, B, seed=seed, scale=0.02)
     params = fleet_params(jp.ocp.params, B)
     params["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
     jx0, jpar = to_jax(x0), to_jax(params)
     j0 = jax.vmap(js.init)(jx0)
     one = lambda t: {k: v[0] for k, v in t.items()}
-    out = dict(
-        jax_solve=jax.jit(js.solve)(js.init(jx0[0]), jx0[0], one(jpar)),
-        jax_vmap_solve=jax.jit(jax.vmap(js.solve))(j0, jx0, jpar))
-    if jax_solve_batch:
-        out["jax_solve_batch"] = jax.jit(js.solve_batch)(j0, jx0, jpar)
+    moded = (js.opts.riccati_mode, js.opts.forward_pass) != ("sequential",
+                                                             "nonlinear")
+    jsolve = jax.jit(js.solve)
+    out = dict(jax_solve=jit(jsolve)(js.init(jx0[0]), jx0[0], one(jpar)))
+    if vmap_solve or moded:
+        out["jax_vmap_solve"] = jit(jax.vmap(jsolve))(j0, jx0, jpar)
+    if moded:
+        out["jax_solve_batch"] = out["jax_vmap_solve"]
+    elif jax_solve_batch:
+        out["jax_solve_batch"] = jit(js.solve_batch)(j0, jx0, jpar)
     tx0, tpar = to_torch(x0), to_torch(params)
+    out["spy"] = ModesSpy(ts)
     out["solve"] = ts.solve(ts.init(tx0[0]), tx0[0], one(tpar))
     out["solve_batch"] = ts.solve_batch(ts.init(tx0), tx0, tpar)
     return out
@@ -559,7 +583,7 @@ def tick_results(topology, integrator, ns=8, B=4, ticks=3, seed=7):
                       w_ref=jnp.zeros((B, 3)))
     tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
                                  dtype=F64)
-    jtick = jax.jit(jax.vmap(jloop.tick))
+    jtick = jit(jax.vmap(jloop.tick))
     jc = jax.vmap(jloop.init)(jnp.asarray(x0))
     tc = tloop.init(torch.as_tensor(x0))
     out = []
@@ -579,9 +603,9 @@ def run_results(topology, integrator, ns=8, T=8, start=2, vx=0.3):
         topology, integrator, ns, max_iters=100,
         alpha_converge_threshold=1e-12, beta=1e-3)
     x0 = np.array(jp.initial_state)
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=vx, start=start,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=vx, start=start,
+                                      dtype=jnp.float64))
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)),
                        t_walking(T, vx=vx, start=start, dtype=F64,
                                  device=CPU))
@@ -599,9 +623,8 @@ def jax_trial(js, x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
     ks, Ks, d, dV1, dV2 = (jnp.asarray(np_of(v)) for v in (ks, Ks, d, dV1, dV2))
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2))
-    merit0 = jax.vmap(js.total_cost)(X, U, params) + nu_w * D
 
-    def one(a):
+    def one(a, merit0):
         Xn, Un = jax.vmap(
             lambda x0_, X_, U_, k_, K_, d_, p_: js._rollout(
                 x0_, X_, U_, k_, K_, d_, p_, a))(x0, X, U, ks, Ks, d, params)
@@ -612,7 +635,14 @@ def jax_trial(js, x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
               & jnp.isfinite(new_merit) & (a >= opts.alpha_converge_threshold))
         return Xn, Un, new_cost, new_merit, ok
 
-    return jax.jit(jax.vmap(one))(jnp.asarray(alphas)), merit0, D
+    def trials(alphas):
+        # merit0 in the same jit: JAX's op-by-op dispatch of `total_cost`
+        # would compile each of its primitives on its own
+        merit0 = jax.vmap(js.total_cost)(X, U, params) + nu_w * D
+        return jax.vmap(one, in_axes=(0, None))(alphas, merit0), merit0
+
+    res, merit0 = jit(trials)(jnp.asarray(alphas))
+    return res, merit0, D
 
 
 def jax_evaluate(js, X, U, params):
@@ -623,4 +653,242 @@ def jax_evaluate(js, X, U, params):
         defects = jax.vmap(js._true_defects)(X_, U_, p_)
         return cost, jnp.max(jnp.abs(defects), axis=(1, 2))
 
-    return jax.jit(run)(*to_jax((X, U, params)))
+    return jit(run)(*to_jax((X, U, params)))
+
+
+# ---------------- the execution modes' kernels at every SRBD shape ----------
+
+from srbd_horizon_tpu_torch.kernels import linear_trial as t_k13
+from srbd_horizon_tpu_torch.kernels import riccati as t_k1
+from srbd_horizon_tpu_torch.kernels import riccati_associative as t_k12
+
+SWEEP_ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
+SWEEP_MU = 1e-6
+TRIAL_ALPHAS = np.array([1.0, 0.5, 0.25, 0.125])
+
+
+def jax_linear_trials(js, x0, X, U, ks, Ks, lin, params, D, dV1, dV2):
+    """`_parallel_line_search`'s trial under forward_pass="linear"
+    (msddp.py:1507-1531), vmapped over the step sizes, from the JAX
+    solver's own methods (`_forward_linear`, `_true_defects`,
+    `total_cost`, the Armijo test): a jitted function of (alphas, merit0)."""
+    opts = js.opts
+    nu = jnp.asarray(opts.defect_weight, X.dtype)
+
+    def trial(a, merit0):
+        Xn, Un = js._forward_linear(x0, X, U, ks, Ks, lin, params, a)
+        dn = js._true_defects(Xn, Un, params)
+        D_new = jnp.sum(dn * dn)
+        new_cost = js.total_cost(Xn, Un, params)
+        new_merit = new_cost + nu * D_new
+        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu * D
+        ok = (
+            ((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
+            & jnp.isfinite(new_merit)
+            & (a >= opts.alpha_converge_threshold)
+        )
+        return Xn, Un, new_cost, new_merit, ok
+
+    return jit(jax.vmap(trial, in_axes=(0, None)))
+
+
+def jax_dense_lin(lin, rows, nr, nu):
+    """JAX's dense linearization (`MSDDP._linearize_impl`'s keys, one
+    member, numpy) holding the port's sliced one `lin` (batch of 1):
+    A = I + Sx on the rows rx, B = Bs on the rows ru and the inputs uc, the
+    residual Jacobians' rows gx / gu, zeros elsewhere — the exact zeros
+    JAX's own jacfwd holds off the declared rows."""
+    Sx, Bs, Jxp, Jup, rho, d, Jt, rt = (np_of(lin[k][0]) for k in SWEEP_ORDER)
+    ns, _, nx = Sx.shape
+    A = np.broadcast_to(np.eye(nx), (ns, nx, nx)).copy()
+    A[:, list(rows.rx)] += Sx
+    B = np.zeros((ns, nx, nu))
+    r, c = np.ix_(rows.ru, rows.uc)
+    B[:, r, c] = Bs
+    Jx = np.zeros((ns, nr, nx))
+    Jx[:, list(rows.gx)] = Jxp
+    Ju = np.zeros((ns, nr, nu))
+    Ju[:, list(rows.gu)] = Jup
+    return to_jax(dict(A=A, B=B, Jx=Jx, Ju=Ju, rho=rho, rt=rt, Jt=Jt, d=d))
+
+
+def modes_kernel_results(topology, integrator, parts=("k12", "k1", "k13"),
+                         ns=8, seed=41):
+    """The execution modes' kernels at one SRBD topology under one step, at
+    a drawn iterate (X ± 0.05·N around the initial state, U ± 0.1·N around
+    the static input, ns nodes, float64, CPU), the port's sliced
+    linearization of it handed to both packages (JAX's dense form:
+    `jax_dense_lin`; the K4 twin is held to JAX's jacfwd in
+    tests/test_torch_srbd_integrators.py), each JAX function of `parts`
+    compiled once: "k12", JAX's `_backward_associative` with each gain
+    solve beside K12's twin; "k1", JAX's `_backward` with Cholesky gains
+    beside K1's Tassa-Cholesky twin; "k13", JAX's linear trial
+    (`jax_linear_trials`, 4 step sizes, on the gains of K12's block-Schur
+    twin, from the iterate's merit and from one between the merits of
+    α = 1/2 and 1/4) beside K13's twin."""
+    jp, tp = srbd_problems(topology, integrator, ns)
+    rng = np.random.RandomState(seed)
+    nx, nu = jp.ocp.nx, jp.ocp.nu
+    X = np.asarray(jp.initial_state)[None] + 0.05 * rng.randn(ns + 1, nx)
+    U = np.asarray(jp.static_input)[None] + 0.1 * rng.randn(ns, nu)
+    params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
+    x0 = X[0] + 0.01 * rng.randn(nx)
+    pair = {sv: solvers(jp, tp, quu_solver=sv) for sv in ("schur", "cholesky")}
+    js, ts = pair["schur"]
+    jX, jU, jpar = to_jax((X, U, params))
+    p1 = {k: v[None] for k, v in to_torch(params).items()}
+    lin = ts._linearize_sliced(to_torch(X)[None], to_torch(U)[None], p1)
+    jlin = jax_dense_lin(lin, ts.rows, lin["rho"].shape[-1], nu)
+    args = tuple(lin[k] for k in SWEEP_ORDER)
+    out = dict(jp=jp, tp=tp, ts=ts, jlin=jlin, lin=lin,
+               k1_shape=t_k1.kernel_shape(nx, nu, lin["Jt"].shape[1], ts.rows))
+    twins = {sv: t_k12.riccati_associative_plain(*args, SWEEP_MU, ts.rows, sv)
+             for sv in pair}
+    if "k12" in parts:
+        for sv, (jsv, _) in pair.items():
+            want = jit(jsv._backward_associative)(jlin,
+                                                  jnp.asarray(SWEEP_MU))
+            out["k12", sv] = (tuple(w[None] for w in want), twins[sv])
+    if "k1" in parts:
+        jc, tc = pair["cholesky"]
+        want = jit(jc._backward)(jlin, jnp.asarray(SWEEP_MU))
+        out["k1_cholesky"] = (tuple(w[None] for w in want),
+                              tc._backward(lin, SWEEP_MU))
+    if "k13" in parts:
+        ks, Ks, dV1, dV2 = (np_of(t[0]) for t in twins["schur"])
+        D = jnp.sum(jlin["d"] * jlin["d"])
+        merit0 = (jit(js.total_cost)(jX, jU, jpar)
+                  + js.opts.defect_weight * D)
+        jtrial = jax_linear_trials(js, to_jax(x0), jX, jU, *to_jax(
+            (ks, Ks)), jlin, jpar, D, *to_jax((dV1, dV2)))
+        jres = jtrial(jnp.asarray(TRIAL_ALPHAS), merit0)
+        merit_mid = 0.5 * (jres[3][1] + jres[3][2])
+        t1 = lambda a: to_torch(np_of(a))[None]
+        trial_args = lambda m0: (
+            t1(x0), t1(X), t1(U), t1(ks), t1(Ks), lin["Sx"], lin["Bs"],
+            lin["d"], to_torch(TRIAL_ALPHAS), p1, t1(m0), t1(D), t1(dV1),
+            t1(dV2), ts.terms, ts.rows, ts.ocp.dt, ts._wc(F64),
+            ts.opts.defect_weight, ts.opts.beta,
+            ts.opts.alpha_converge_threshold)
+        out["k13_args"] = trial_args(merit0)
+        out["k13", "iterate"] = (jres,
+                                 t_k13.linear_trial_plain(*out["k13_args"]))
+        out["k13", "mid"] = (jtrial(jnp.asarray(TRIAL_ALPHAS), merit_mid),
+                             t_k13.linear_trial_plain(*trial_args(merit_mid)))
+    return out
+
+
+def modes_dispatch(topology, integrator):
+    """At one SRBD topology under one step (ns=8, CPU): `MSDDP` builds under
+    every non-default mode with each gain solve; returns K13's family
+    index and K12's instance indices by gain solve."""
+    _, tp = srbd_problems(topology, integrator, ns=8)
+    ocp = tp.ocp
+    for mode in MODES:
+        for sv in ("schur", "cholesky"):
+            TMSDDP(ocp, TDDPOptions(quu_solver=sv, **modes(*mode)))
+    s = TMSDDP(ocp, TDDPOptions())
+    fam = t_k13.family_index(s.terms, ocp.nx, ocp.nu, s.rows)
+    shape = t_k13.FAMILIES[fam][2]
+    return fam, {sv: t_k12.shape_instance(shape, sv)
+                 for sv in ("schur", "cholesky")}
+
+
+def check_k12(res, quu_solver):
+    """K12's twin against JAX's `_backward_associative`: ks, Ks, ΔV₁, ΔV₂
+    entry by entry to 1e-9 of max(1, |JAX|), and norm-wise to 1e-9."""
+    want, got = res["k12", quu_solver]
+    for name, g, w in zip(("ks", "Ks", "dV1", "dV2"), got, want):
+        g, w = np_of(g), np.asarray(w)
+        assert g.shape == w.shape, name
+        err = float(np.max(np.abs(g - w) / np.maximum(1.0, np.abs(w))))
+        assert err <= 1e-9, (name, err)
+        assert max_rel_err(g, w) <= 1e-9, name
+
+
+def check_k1_cholesky(res):
+    """K1's Tassa-Cholesky twin against JAX's `_backward` with
+    quu_solver="cholesky", to 1e-10 (tests/test_torch_riccati_tassa.py)."""
+    want, got = res["k1_cholesky"]
+    for name, g, w in zip(("ks", "Ks", "dV1", "dV2"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert max_rel_err(g, w) < 1e-10, name
+
+
+def check_k13(res, merit0):
+    """K13's twin against JAX's linear trial at one merit0 ("iterate" or
+    "mid"): plans, cost and merit to 1e-9, the flags equal."""
+    want, got = res["k13", merit0]
+    for name, g, w in zip(("Xn", "Un", "cost", "merit"), got, want):
+        g, w = np_of(g)[:, 0], np.asarray(w)
+        assert g.shape == w.shape, name
+        assert max_rel_err(g, w) < 1e-9, (name, max_rel_err(g, w))
+    np.testing.assert_array_equal(np_of(got[4])[:, 0], np.asarray(want[4]))
+
+
+def check_mode_solves(s, mode):
+    """`solve_results` under a mode: the port's `solve` against JAX's and
+    its `solve_batch` against JAX's `solve_batch` (`vmap(solve)`):
+    iterations and convergence equal, X, U and cost to 1e-9, the final
+    defect to 1e-12; the solver's K12/K1/K13 calls as `ModesSpy.check`
+    expects under a mode (under the default ones `solve_batch` runs the
+    collapsed sweep, which the spy does not count)."""
+    agree(s["solve"], s["jax_solve"], "solve", ("X", "U", "cost"))
+    assert abs(float(s["solve"].defect_norm)
+               - float(s["jax_solve"].defect_norm)) < 1e-12
+    agree(s["solve_batch"], s["jax_solve_batch"], "solve_batch",
+          ("X", "U", "cost"))
+    np.testing.assert_allclose(np_of(s["solve_batch"].defect_norm),
+                               np_of(s["jax_solve_batch"].defect_norm),
+                               rtol=0, atol=1e-12)
+    if mode != ("sequential", "nonlinear"):
+        s["spy"].check(mode)
+
+
+def check_dense_dynamics(res):
+    """The twins' dense A = I + Sx on rx and B = Bs on (ru, uc)
+    (`riccati_associative.dense_dynamics`, which K12's and K13's twins
+    build) equal to the scatter JAX's functions were handed, and B live in
+    rows Euler's step leaves dead (the rows the JAX builder declares under
+    every step, F10): under RK every row of B comes from the sliced
+    linearization."""
+    lin, rows = res["lin"], res["ts"].rows
+    A, Bd = t_k12.dense_dynamics(lin["Sx"], lin["Bs"], rows,
+                                 res["tp"].ocp.nu)
+    np.testing.assert_array_equal(np_of(A[0]), np.asarray(res["jlin"]["A"]))
+    np.testing.assert_array_equal(np_of(Bd[0]), np.asarray(res["jlin"]["B"]))
+    dead = sorted(set(range(A.shape[-1]))
+                  - {int(r) for r in res["jp"].ocp.dynamics_u_rows})
+    assert dead and float(Bd[0][:, dead].abs().max()) > 1e-6
+
+
+def euler_defects_miss(res, monkeypatch):
+    """K13's twin with an Euler step in its true defects: its merits' gap
+    to JAX's (relative), and its defect term's (merit − cost). Under RK
+    both are far above the 1e-9 `check_k13` holds the twin to."""
+    jres = res["k13", "iterate"][0]
+    euler = lambda terms, dt: (lambda x, u, f=t_k13.family_xdot(terms):
+                               x + dt * f(x, u))
+    monkeypatch.setattr(t_k13, "family_step", euler)
+    got = t_k13.linear_trial_plain(*res["k13_args"])
+    merit, cost = np_of(got[3])[:, 0], np_of(got[2])[:, 0]
+    want_merit, want_cost = np.asarray(jres[3]), np.asarray(jres[2])
+    return (max_rel_err(merit, want_merit),
+            max_rel_err(merit - cost, want_merit - want_cost))
+
+
+def six_contact_srbd(integrator="EULER"):
+    """The port's SRBD problem no K12/K13 kernel is compiled for: two legs
+    of three contacts each (contact_model=3, nc=6: nx=49, nu=36), ns=4,
+    under `integrator`, float64 on the CPU."""
+    from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants
+
+    line = t_feet()
+    w = line.foot_positions[2, 1]
+    feet = np.array([[0.08, 0.0, 0.0], [0.0, 0.0, 0.0], [-0.08, 0.0, 0.0],
+                     [0.08, w, 0.0], [0.0, w, 0.0], [-0.08, w, 0.0]])
+    robot = RobotConstants(mass=line.mass, inertia=line.inertia, com=line.com,
+                           foot_positions=feet,
+                           foot_frames=tuple(f"f{i}" for i in range(6)))
+    return t_build(TSRBDConfig(dtype=F64, ns=4, contact_model=3), robot,
+                   integrator=integrator, device=CPU)

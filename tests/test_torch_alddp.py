@@ -33,7 +33,7 @@ from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator as TWPG
 
 from _torch_parity import (
     F64, al_solvers, al_state_numpy, fleet_params, isrbd_problems,
-    jax_al_state, max_rel_err, np_of, perturbed_states, random_al_state,
+    jax_al_state, jit, max_rel_err, np_of, perturbed_states, random_al_state,
     tight_box_params, to_jax, to_torch, torch_al_state,
 )
 
@@ -199,7 +199,7 @@ def seeded(case):
     U0 = jnp.tile(jp.static_input[None], (NS, 1))
     params = fleet_params(jp.ocp.params, B)
     st0 = jax.vmap(lambda x: js.init(x, U0=U0))(jnp.asarray(x0))
-    jst = jax.jit(js.solve_batch)(st0, jnp.asarray(x0), to_jax(params))
+    jst = jit(js.solve_batch)(st0, jnp.asarray(x0), to_jax(params))
     return dict(x0=x0, params=params, jst=jst, seed=al_state_numpy(jst))
 
 
@@ -245,7 +245,7 @@ def test_serving_ticks_match_jax(case, seeded):
                                         prior=pr, phase=phase, prior_ema=1.0)
         return st, p1, w1, pr
 
-    jtick = jax.jit(jtick)
+    jtick = jit(jtick)
     action = np.ones(B, np.int32)
     rdot = np.tile([[0.1, 0.0, 0.0]], (B, 1))
     jst, jparams = seeded["jst"], to_jax(seeded["params"])
@@ -282,12 +282,12 @@ def test_serving_tick_without_prior_and_with_tail_prior(case, seeded):
     tst, tparams = torch_al_state(seeded["seed"]), to_torch(seeded["params"])
     phase = np.array([1, 2, 3, 4], np.int32)
     jx0, tx0 = jst.sol.X[:, 1], tst.sol.X[:, 1]
-    want = jax.jit(lambda s, x, p: jon.serving_tick_batch(s, x, p, outers=2))(
+    want = jit(lambda s, x, p: jon.serving_tick_batch(s, x, p, outers=2))(
         jst, jx0, jparams)
     got = ton.serving_tick_batch(tst, tx0, tparams, outers=2)
     _assert_states_close(got, want, 1e-7, "no prior")
     jpr = jax.vmap(lambda _: jon.init_phase_prior(P, jnp.float64))(jnp.arange(B))
-    want, jpr = jax.jit(lambda s, x, p, pr, ph: jon.serving_tick_batch(
+    want, jpr = jit(lambda s, x, p, pr, ph: jon.serving_tick_batch(
         s, x, p, outers=2, prior=pr, phase=ph))(jst, jx0, jparams, jpr,
                                                 jnp.asarray(phase))
     got, tpr = ton.serving_tick_batch(
@@ -333,8 +333,8 @@ def test_jax_batched_path_ignores_quu_solver(case, seeded):
     jst = seeded["jst"]
     p_in = jax.vmap(js._params_with_multipliers)(to_jax(seeded["params"]), jst)
     x0 = jst.sol.X[:, 0]
-    a = jax.jit(inner.solve_batch)(jst.sol, x0, p_in)
-    b = jax.jit(schur.solve_batch)(jst.sol, x0, p_in)
+    a = jit(inner.solve_batch)(jst.sol, x0, p_in)
+    b = jit(schur.solve_batch)(jst.sol, x0, p_in)
     for f in ("X", "U", "cost", "iterations"):
         np.testing.assert_array_equal(np.asarray(getattr(a, f)),
                                       np.asarray(getattr(b, f)))

@@ -23,8 +23,8 @@ from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
 from srbd_horizon_tpu_torch.wpg import WalkingPatternGenerator as TWPG
 
 from _torch_parity import (
-    F64, al_solvers, al_state_numpy, fleet_params, isrbd_problems, max_rel_err,
-    np_of, perturbed_states, to_jax, to_torch, torch_al_state,
+    F64, al_solvers, al_state_numpy, fleet_params, isrbd_problems, jit,
+    max_rel_err, np_of, perturbed_states, to_jax, to_torch, torch_al_state,
 )
 
 torch.set_num_threads(1)
@@ -42,7 +42,7 @@ def case():
     U0 = jnp.tile(jp.static_input[None], (NS, 1))
     params = fleet_params(jp.ocp.params, B)
     st0 = jax.vmap(lambda x: js.init(x, U0=U0))(jnp.asarray(x0))
-    jst = jax.jit(js.solve_batch)(st0, jnp.asarray(x0), to_jax(params))
+    jst = jit(js.solve_batch)(st0, jnp.asarray(x0), to_jax(params))
     return dict(jp=jp, tp=tp, ts=ts, params=params, jst=jst,
                 seed=al_state_numpy(jst))
 
@@ -71,7 +71,7 @@ def test_serving_ticks_match_jax_at_the_serving_horizon(case):
                                         prior=pr, phase=phase, prior_ema=1.0)
         return st, p1, w1, pr
 
-    jtick = jax.jit(jtick)
+    jtick = jit(jtick)
     action = np.ones(B, np.int32)
     rdot = np.tile([[0.1, 0.0, 0.0]], (B, 1))
     jst, jparams = case["jst"], to_jax(case["params"])

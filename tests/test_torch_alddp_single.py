@@ -18,6 +18,7 @@ import torch
 from _torch_parity import (
     al_solvers,
     isrbd_problems,
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -60,12 +61,12 @@ def _run(max_iters, **al):
     params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
     x0 = perturbed_states(jp.initial_state, 1, seed=13)[0]
     U0 = np.tile(np.asarray(jp.static_input)[None], (NS, 1))
-    jst = jax.jit(jal.solve)(jal.init(jnp.asarray(x0), jnp.asarray(U0)),
-                             jnp.asarray(x0), to_jax(params))
+    jst = jit(jal.solve)(jal.init(jnp.asarray(x0), jnp.asarray(U0)),
+                         jnp.asarray(x0), to_jax(params))
     tst = tal.solve(tal.init(to_torch(x0), to_torch(U0)), to_torch(x0),
                     to_torch(params))
     steps = [("solve", jst, tst)]
-    jonline, jshift = jax.jit(jal.solve_online), jax.jit(jal.shift_warmstart)
+    jonline, jshift = jit(jal.solve_online), jit(jal.shift_warmstart)
     for k in range(2):
         x0 = x0 + perturbed_states(np.zeros_like(x0), 1, seed=14 + k,
                                    scale=0.002)[0]
@@ -136,7 +137,7 @@ def test_unbatched_state_crosses_from_jax(serving):
     assert tst.rho.dim() == 0 and tst.sol.converged.dtype == torch.bool
     x0 = np.asarray(jst.sol.X[1])
     params = {k: np.asarray(v) for k, v in jal.ocp.params.items()}
-    jn = jax.jit(jal.solve_online)(jst, jnp.asarray(x0), to_jax(params))
+    jn = jit(jal.solve_online)(jst, jnp.asarray(x0), to_jax(params))
     tn = tal.solve_online(tst, to_torch(x0), to_torch(params))
     _same_decisions(tn, jn)
     assert max(_state_err(tn, jn).values()) < 1e-9

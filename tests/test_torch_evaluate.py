@@ -23,6 +23,7 @@ from _torch_parity import (
     fleet_params,
     isrbd_problems,
     jax_al_state,
+    jit,
     np_of,
     problems,
     random_al_state,
@@ -56,7 +57,7 @@ def srbd_case():
     X, U = trajectories(jp, B, seed=31)
     X[NAN_MEMBER, 7, 4] = np.nan
     params = fleet_params(jp.ocp.params, B)
-    want = jax.jit(lambda *a: _jax_evaluate(js, *a))(*to_jax((X, U, params)))
+    want = jit(lambda *a: _jax_evaluate(js, *a))(*to_jax((X, U, params)))
     args = (to_torch(X), to_torch(U), to_torch(params), ts.terms, tp.ocp.dt,
             ts._wc(torch.float64))
     return dict(ts=ts, args=args, want=want)
@@ -74,7 +75,7 @@ def isrbd_case():
     X, U = np.array(st["sol"]["X"]), np.array(st["sol"]["U"])
     U[NAN_MEMBER, 3, 0] = np.nan          # r̈ₓ: the RK2 step reads it
     jin = js._inner
-    want = jax.jit(lambda *a: _jax_evaluate(jin, *a))(
+    want = jit(lambda *a: _jax_evaluate(jin, *a))(
         jnp.asarray(X), jnp.asarray(U), jpin)
     args = (to_torch(X), to_torch(U), tpin, ts.terms, tp.ocp.dt)
     return dict(ts=ts, args=args, want=want)

@@ -25,6 +25,7 @@ from _torch_parity import (
     fleet_params,
     isrbd_problems,
     jax_al_state,
+    jit,
     np_of,
     problems,
     random_al_state,
@@ -58,7 +59,7 @@ def srbd_case():
     X, U = trajectories(jp, B, seed=41)
     x0 = X[:, 0] + 0.01 * np.random.RandomState(42).randn(B, X.shape[-1])
     params = fleet_params(jp.ocp.params, B)
-    want = jax.jit(lambda *a: _jax_pinned(js, *a))(*to_jax((X, U, params, x0)))
+    want = jit(lambda *a: _jax_pinned(js, *a))(*to_jax((X, U, params, x0)))
     return dict(ts=ts, solver=ts, X=to_torch(X), U=to_torch(U),
                 params=to_torch(params), x0=to_torch(x0),
                 rest=(ts.terms, tp.ocp.dt, ts._wc(torch.float64)), want=want)
@@ -75,7 +76,7 @@ def isrbd_case():
     tpin = ts._params_with_multipliers(to_torch(params), torch_al_state(st))
     X, U = np.array(st["sol"]["X"]), np.array(st["sol"]["U"])
     x0 = X[:, 0] + 0.01 * np.random.RandomState(45).randn(B, X.shape[-1])
-    want = jax.jit(lambda *a: _jax_pinned(js._inner, *a))(
+    want = jit(lambda *a: _jax_pinned(js._inner, *a))(
         jnp.asarray(X), jnp.asarray(U), jpin, jnp.asarray(x0))
     return dict(ts=ts, solver=ts.inner, X=to_torch(X), U=to_torch(U),
                 params=tpin, x0=to_torch(x0), rest=(ts.terms, tp.ocp.dt),

@@ -23,6 +23,7 @@ from _torch_parity import (
     al_solvers,
     isrbd_problems,
     jax_al_state,
+    jit,
     max_rel_err,
     np_of,
     random_al_state,
@@ -64,9 +65,9 @@ def case():
     tpin = ts._params_with_multipliers(to_torch(params), torch_al_state(st))
     X, U = st["sol"]["X"], st["sol"]["U"]
     jin = js._inner
-    jlin = jax.jit(jax.vmap(jin._linearize_sliced))(
+    jlin = jit(jax.vmap(jin._linearize_sliced))(
         jnp.asarray(X), jnp.asarray(U), jpin)
-    jback = jax.jit(jin._backward_lanemajor)(jlin, jnp.asarray(MU))
+    jback = jit(jin._backward_lanemajor)(jlin, jnp.asarray(MU))
     tlin = isrbd_linearize_plain(to_torch(X), to_torch(U), tpin, ts.terms,
                                  ts.inner.rows, tp.ocp.dt)
     rng = np.random.RandomState(23)
@@ -159,7 +160,7 @@ def trials(case):
     x0 = jnp.asarray(x0)
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2)).at[2].set(-jnp.inf)
-    cost0 = jax.vmap(jin.total_cost)(X, U, params)
+    cost0 = jit(jax.vmap(jin.total_cost))(X, U, params)
     merit0 = (cost0 + nu_w * D).at[2].set(cost0[2])
 
     def one(a):     # msddp.py:843-853
@@ -180,7 +181,7 @@ def trials(case):
     t = lambda a: to_torch(np_of(a))
     out = {}
     for nA in (1, 4):
-        want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+        want = jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
         args = (t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks),
                 t(d), to_torch(ALPHAS[:nA]), case["tpin"], t(merit0), t(D),
                 t(dV1), t(dV2), ts.terms, ts.ocp.dt,

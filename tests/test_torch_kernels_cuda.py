@@ -49,7 +49,11 @@ each topology under RK2 and RK4: K4, K3, srbd_evaluate, and K1 in every
 form compiled at their shapes) at B = 1, 64 and 133, K4, K3 and
 srbd_evaluate in float64 within 1e-12 of max(1, |twin|), by their float32
 rules, NaN members kept, each launch counted at its own instance, the
-problem with another step refused, with their occupancy, and K2 at nu=12.
+problem with another step refused, with their occupancy, and K2 at nu=12;
+and K12 (both gain solves) and K13 (the instance's own family, its step in
+the true defects) at those instances by the modes' rules, with their
+occupancy, and K1's Tassa-Cholesky form at the quadruped's shapes and the
+point-feet biped's RK shape.
 Skipped
 where no CUDA device is present (run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`)."""
@@ -1346,20 +1350,23 @@ def test_quadruped_evaluate_kernel_matches_plain(quad_case, Bw, pin):
 
 
 @pytest.mark.parametrize("Bw", [1, 133])
-@pytest.mark.parametrize("form", ["collapsed", "tassa"])
-def test_quadruped_riccati_kernel_matches_plain(quad_case, form, Bw):
-    """K1's two quadruped instantiations (the collapsed sweep of
+@pytest.mark.parametrize("form,solver", [("collapsed", "schur"),
+                                         ("tassa", "schur"),
+                                         ("tassa", "cholesky")])
+def test_quadruped_riccati_kernel_matches_plain(quad_case, form, solver, Bw):
+    """K1's three quadruped instantiations (the collapsed sweep of
     `solve_batch`, the Tassa sweep of `MSDDP.solve` with the block-Schur
-    gains) against the twin: float64 to 1e-9, float32 to K1_F32_TOL."""
+    or the Cholesky gains) against the twin: float64 to 1e-9, float32 to
+    K1_F32_TOL."""
     lin = _repeat_lin(quad_case["lin"], Bw)
     rows, mu = quad_case["rows"], quad_case["mu"]
 
     def run(fn, dtype):
         return fn(*(lin[k].to(dtype).contiguous() for k in ORDER), mu, rows,
-                  form=form)
+                  form=form, quu_solver=solver)
 
     ref = run(k1.riccati_backward_plain, torch.float64)
-    inst = k1.kernel_instance("quadruped", form)
+    inst = k1.kernel_instance("quadruped", form, solver)
     before = k1.riccati_backward.instance_launches[inst]
     got = run(k1.riccati_backward, torch.float64)
     got32 = run(k1.riccati_backward, torch.float32)
@@ -1390,15 +1397,23 @@ def test_quadruped_occupancy(quad_case, dtype):
 
 
 def test_quadruped_refuses_uncompiled_combinations(quad_case):
-    """K1 at the quadruped's sizes has no Cholesky Tassa instantiation:
-    ValueError before any launch."""
+    """K1 at the quadruped's sizes takes every form and gain solve (the
+    Cholesky Tassa form is instance 22); a gain solve K1 does not have
+    raises ValueError before any launch, as does the block-Schur Tassa
+    form at the quadruped's AL inner shape."""
     lin, rows = quad_case["lin"], quad_case["rows"]
     args = tuple(lin[k].float().contiguous() for k in ORDER)
     before = k1.riccati_backward.launches
-    with pytest.raises(ValueError, match="no kernel for"):
+    with pytest.raises(ValueError):
         k1.riccati_backward(*args, quad_case["mu"], rows, form="tassa",
-                            quu_solver="cholesky")
+                            quu_solver="lu")
+    with pytest.raises(ValueError, match="no kernel for"):
+        k1.kernel_instance("isrbd_al_quadruped", "tassa", "schur")
     assert k1.riccati_backward.launches == before
+    k1.riccati_backward(*args, quad_case["mu"], rows, form="tassa",
+                        quu_solver="cholesky")
+    torch.cuda.synchronize()
+    assert k1.riccati_backward.launches == before + 1
 
 
 # ---------------- the constrained quadruped: the isrbd kernels at QuadAlShape ----
@@ -1773,7 +1788,7 @@ def test_linear_trial_new_families_match_plain(request, shape, Bw, nA):
 
 
 def test_modes_kernels_refuse_other_shapes(quad_case, isrbd_case):
-    """K12 and K13 are compiled for K1's five shapes only (K12 with Cholesky
+    """K12 and K13 are compiled for K1's nine shapes only (K12 with Cholesky
     alone at the AL ones): a quadruped linearization with one residual row
     fewer, and the AL shape with the block-Schur gain solve, raise
     ValueError before any launch."""
@@ -1803,8 +1818,9 @@ def test_modes_kernels_refuse_other_shapes(quad_case, isrbd_case):
                          ids=["f32", "f64"])
 def test_modes_occupancy(card_case, lip_case, quad_case, isrbd_case, qc_case,
                          dtype):
-    """Each phase of every K12 instantiation, and K13 at every family,
-    report at least one block an SM."""
+    """Each phase of every K12 instantiation at K1's first five shapes,
+    and K13 at their families, report at least one block an SM (the
+    point-feet and RK shapes: `test_family_modes_occupancy`)."""
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
     from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
@@ -1813,12 +1829,15 @@ def test_modes_occupancy(card_case, lip_case, quad_case, isrbd_case, qc_case,
             "isrbd_al": isrbd_case["al"].inner.rows,
             "isrbd_al_quadruped": qc_case["al"].inner.rows}
     for shape, solver in k12.KERNEL_INSTANCES:
+        if shape not in rows:
+            continue
         sz = k1.KERNEL_SHAPES[shape]
         occ = k12.occupancy(sz["nx"], sz["nu"], sz["nt"], rows[shape], solver,
                             dtype)
         assert min(v for k, v in occ.items() if "blocks" in k) >= 1
-    for fam in k13.FAMILIES:
-        assert k13.occupancy(fam[2], dtype)["blocks_per_sm"] >= 1
+    for name in k13.FAMILY_NAMES:
+        if name in rows:
+            assert k13.occupancy(name, dtype)["blocks_per_sm"] >= 1
 
 
 # ---------------- the SRBD family at every topology and step ----------------
@@ -2075,3 +2094,107 @@ def test_spd_inverse_at_nu12():
     assert _rel(k1.spd_inverse(A), lm_spd_inverse(A)) <= 1e-9
     A32 = A.float()
     assert _rel(k1.spd_inverse(A32), lm_spd_inverse(A32.double())) <= 1e-6
+
+
+# K12 and K13 at the family's instances: K12 at the instance's K1 shape
+# with each gain solve, K13 at the instance's own family (its step in the
+# true defects)
+
+
+@pytest.mark.parametrize("Bw", FAMILY_B)
+@pytest.mark.parametrize("solver", ["schur", "cholesky"])
+def test_family_riccati_associative_matches_plain(family_case, solver, Bw):
+    """K12 at the instance's shape against its twin: float64 to
+    K12_F64_TOL, float32 to 1e-6 of the float64 twin on the same float32
+    inputs; the sweep counted at its instantiation."""
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = family_case
+    s, ocp = c["solver"], c["ocp"]
+    lin = {k: v[:Bw].contiguous() for k, v in c["lin"].items()}
+    args = lambda dtype: tuple(lin[k].to(dtype).contiguous() for k in ORDER)
+    inst = k12.kernel_instance(ocp.nx, ocp.nu, lin["Jt"].shape[1], s.rows,
+                               solver)
+    ref = k12.riccati_associative_plain(*args(torch.float64), s.opts.mu0,
+                                        s.rows, solver)
+    n0 = k12.riccati_associative.instance_launches[inst]
+    got = k12.riccati_associative(*args(torch.float64), s.opts.mu0, s.rows,
+                                  solver)
+    torch.cuda.synchronize()
+    assert k12.riccati_associative.instance_launches[inst] == n0 + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _rel(g, r) <= K12_F64_TOL
+    got32 = k12.riccati_associative(*args(torch.float32), s.opts.mu0, s.rows,
+                                    solver)
+    ref32 = k12.riccati_associative_plain(
+        *(a.double() for a in args(torch.float32)), s.opts.mu0, s.rows, solver)
+    for g, r in zip(got32, ref32):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+@pytest.mark.parametrize("Bw", FAMILY_B)
+def test_family_linear_trial_matches_plain(family_case, Bw, nA):
+    """K13 at the instance's family (the instance's step in the true
+    defects) against its twin: float64 to 1e-9 with the flags equal,
+    float32 to 1e-6 of the float64 twin on the same float32 inputs; the
+    launch counted at the family."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = family_case
+    s, ocp = c["solver"], c["ocp"]
+    fam = k13.family_index(s.terms, ocp.nx, ocp.nu, s.rows)
+    assert k13.FAMILY_NAMES[fam] == c["inst"]
+    lin = {k: v[:Bw].contiguous() for k, v in c["lin"].items()}
+    ks, Ks, dV1, dV2 = k12.riccati_associative_plain(
+        *(lin[k] for k in ORDER), s.opts.mu0, s.rows)
+    X, U, x0 = (c[k][:Bw].contiguous() for k in ("X", "U", "x0"))
+    params = {k: v[:Bw].contiguous() for k, v in c["params"].items()}
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(X, U, params) + s.opts.defect_weight * D
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125][:nA], dtype=torch.float64,
+                          device=X.device)
+
+    def args(dtype, cast=None):
+        t = lambda a: a.to(dtype).contiguous()
+        out = (t(x0), t(X), t(U), t(ks), t(Ks), t(lin["Sx"]), t(lin["Bs"]),
+               t(lin["d"]), t(alphas), {k: t(v) for k, v in params.items()},
+               t(merit0), t(D), t(dV1), t(dV2))
+        if cast is not None:
+            out = tuple({k: v.to(cast) for k, v in a.items()}
+                        if isinstance(a, dict) else a.to(cast) for a in out)
+        return out + (s.terms, s.rows, ocp.dt, s._wc(torch.float64),
+                      s.opts.defect_weight, s.opts.beta,
+                      s.opts.alpha_converge_threshold)
+
+    ref = k13.linear_trial_plain(*args(torch.float64))
+    n0 = k13.linear_trial.family_launches[fam]
+    got = k13.linear_trial(*args(torch.float64))
+    torch.cuda.synchronize()
+    assert k13.linear_trial.family_launches[fam] == n0 + 1
+    for g, r in zip(got[:4], ref[:4]):
+        assert g.shape == r.shape and _rel(g, r) <= 1e-9
+    assert torch.equal(got[4], ref[4])
+    got32 = k13.linear_trial(*args(torch.float32))
+    ref32 = k13.linear_trial_plain(*args(torch.float32, torch.float64))
+    for g, r in zip(got32[:4], ref32[:4]):
+        assert g.dtype == torch.float32 and _rel(g, r) <= K1_F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_family_modes_occupancy(family_case, dtype):
+    """K12's three phases with each gain solve and K13's family at the
+    instance report at least one block an SM."""
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    c = family_case
+    s, ocp = c["solver"], c["ocp"]
+    nt = c["lin"]["Jt"].shape[1]
+    for solver in ("schur", "cholesky"):
+        occ = k12.occupancy(ocp.nx, ocp.nu, nt, s.rows, solver, dtype)
+        assert min(v for k, v in occ.items() if "blocks" in k) >= 1
+    occ = k13.occupancy(c["inst"], dtype)
+    assert occ["blocks_per_sm"] >= 1 and occ["registers_per_thread"] > 0

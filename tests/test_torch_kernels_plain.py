@@ -19,6 +19,7 @@ import torch
 
 from _torch_parity import (
     fleet_params,
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -53,10 +54,10 @@ def case():
     B = 4
     X, U = trajectories(jp, B, seed=11)
     params = fleet_params(jp.ocp.params, B)
-    jlin = jax.jit(jax.vmap(
+    jlin = jit(jax.vmap(
         lambda x, u, p: js._linearize(x, u, p, sliced=True)
     ))(*to_jax((X, U, params)))
-    jback = jax.jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
+    jback = jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
     tlin = {k: to_torch(np_of(v)) for k, v in jlin.items()}
     x0 = perturbed_states(jp.initial_state, B, seed=12)
     return dict(jp=jp, tp=tp, js=js, ts=ts, X=X, U=U, params=params,
@@ -107,7 +108,7 @@ def rollouts(case):
                 x0_, X_, U_, k_, K_, d_, p_, a)
         )(x0, X, U, ks, Ks, d, params)
 
-    want = jax.jit(jax.vmap(one_alpha))(jnp.asarray(ALPHAS))
+    want = jit(jax.vmap(one_alpha))(jnp.asarray(ALPHAS))
     c = case["tp"].ocp.constants
     args = (to_torch(case["x0"]), to_torch(case["X"]), to_torch(case["U"]),
             to_torch(np_of(ks)), to_torch(np_of(Ks)), case["tlin"]["d"],
@@ -177,7 +178,7 @@ def trials(case):
     x0 = to_jax(x0)
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2)).at[2].set(-jnp.inf)
-    cost0 = jax.vmap(js.total_cost)(X, U, params)
+    cost0 = jit(jax.vmap(js.total_cost))(X, U, params)
     merit0 = (cost0 + nu_w * D).at[2].set(cost0[2])
 
     def one(a):     # msddp.py:843-853
@@ -198,7 +199,7 @@ def trials(case):
     t = lambda a: to_torch(np_of(a))
     out = {}
     for nA in (1, 4):
-        want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+        want = jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
         args = (t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks),
                 case["tlin"]["d"], to_torch(ALPHAS[:nA]), to_torch(case["params"]),
                 t(merit0), t(D), t(dV1), t(dV2), ts.terms, ts.ocp.dt,

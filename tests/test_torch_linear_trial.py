@@ -24,6 +24,8 @@ from _torch_parity import (
     al_solvers,
     isrbd_problems,
     jax_al_state,
+    jax_linear_trials,
+    jit,
     max_rel_err,
     np_of,
     problems,
@@ -86,41 +88,17 @@ def _pair(family):
     return js, ts, X, U, params
 
 
-def _jax_trials(js, x0, X, U, ks, Ks, lin, params, D, dV1, dV2):
-    """`_parallel_line_search`'s trial under forward_pass="linear", vmapped
-    over the step sizes, from the JAX solver's own methods: a jitted
-    function of merit0."""
-    opts = js.opts
-    nu = jnp.asarray(opts.defect_weight, X.dtype)
-
-    def trial(a, merit0):
-        Xn, Un = js._forward_linear(x0, X, U, ks, Ks, lin, params, a)
-        dn = js._true_defects(Xn, Un, params)
-        D_new = jnp.sum(dn * dn)
-        new_cost = js.total_cost(Xn, Un, params)
-        new_merit = new_cost + nu * D_new
-        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu * D
-        ok = (
-            ((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
-            & jnp.isfinite(new_merit)
-            & (a >= opts.alpha_converge_threshold)
-        )
-        return Xn, Un, new_cost, new_merit, ok
-
-    return jax.jit(jax.vmap(trial, in_axes=(0, None)))
-
-
 @pytest.fixture(scope="module", params=FAMILIES)
 def trials(request):
     js, ts, X, U, params = _pair(request.param)
     rng = np.random.RandomState(6)
     x0 = X[0] + 0.01 * rng.randn(X.shape[-1])
-    jlin = jax.jit(js._linearize)(to_jax(X), to_jax(U), to_jax(params))
-    ks, Ks, dV1, dV2 = jax.jit(js._backward)(jlin, jnp.asarray(1e-6))
+    jlin = jit(js._linearize)(to_jax(X), to_jax(U), to_jax(params))
+    ks, Ks, dV1, dV2 = jit(js._backward)(jlin, jnp.asarray(1e-6))
     D = jnp.sum(jlin["d"] * jlin["d"])
     merit0 = js.total_cost(to_jax(X), to_jax(U), to_jax(params)) + 1e5 * D
-    jtrial = _jax_trials(js, to_jax(x0), to_jax(X), to_jax(U), ks, Ks, jlin,
-                         to_jax(params), D, dV1, dV2)
+    jtrial = jax_linear_trials(js, to_jax(x0), to_jax(X), to_jax(U), ks, Ks,
+                               jlin, to_jax(params), D, dV1, dV2)
     jres = jtrial(jnp.asarray(ALPHAS), merit0)
     # a second merit0 between the merits of α = 1/2 and 1/4: the larger
     # steps pass the Armijo test, the smaller fail it

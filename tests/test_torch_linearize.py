@@ -13,6 +13,7 @@ import torch
 
 from _torch_parity import (
     fleet_params,
+    jit,
     max_rel_err,
     np_of,
     problems,
@@ -39,7 +40,7 @@ def linearized():
     B = 4
     X, U = trajectories(jp, B, seed=3)
     params = fleet_params(jp.ocp.params, B)
-    want = jax.jit(jax.vmap(
+    want = jit(jax.vmap(
         lambda x, u, p: js._linearize(x, u, p, sliced=True)
     ))(*to_jax((X, U, params)))
     got = ts._linearize_sliced(to_torch(X), to_torch(U), to_torch(params))
@@ -84,7 +85,7 @@ def random_points():
     p["cdot_switch"] = np.round(rng.uniform(0, 1, p["cdot_switch"].shape))
     assert np.all(np.abs(np.linalg.norm(x[..., 3:7], axis=-1) - 1.0) > 0.05)
     assert set(np.unique(p["cdot_switch"])) == {0.0, 1.0}
-    want = jax.jit(jax.vmap(
+    want = jit(jax.vmap(
         lambda x_, u_, p_: js._linearize(x_, u_, p_, sliced=True)
     ))(*to_jax((x, U, p)))
     args = (to_torch(x), to_torch(U), to_torch(p), ts.terms, ts.rows,
@@ -122,7 +123,7 @@ def point():
 @pytest.mark.parametrize("fn", ["total_cost", "_true_defects"])
 def test_cost_and_defects_match_jax(point, fn):
     js, ts, X, U, params = point
-    want = jax.jit(jax.vmap(getattr(js, fn)))(*to_jax((X, U, params)))
+    want = jit(jax.vmap(getattr(js, fn)))(*to_jax((X, U, params)))
     got = getattr(ts, fn)(to_torch(X), to_torch(U), to_torch(params))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
                                atol=1e-12)

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, to_jax, to_torch
+from _torch_parity import jit, max_rel_err, np_of, to_jax, to_torch
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
 from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
@@ -81,7 +81,7 @@ def case():
     js = JMSDDP(jp.ocp, JDDPOptions(**OPTS))
     ts = MSDDP(tp.ocp, DDPOptions(**OPTS))
     X, U, params, x0 = _plans(jp, seed=21)
-    jlin = jax.jit(jax.vmap(js._linearize))(*to_jax((X, U, params)))
+    jlin = jit(jax.vmap(js._linearize))(*to_jax((X, U, params)))
     tlin = k10.lip_linearize_plain(to_torch(X), to_torch(U), to_torch(params),
                                    ts.terms, ts.rows, tp.ocp.dt, ts._wc(F64))
     return dict(jp=jp, tp=tp, js=js, ts=ts, X=X, U=U, params=params, x0=x0,
@@ -136,11 +136,11 @@ def sweeps(case):
     `_backward_lanemajor`, and the unbatched Tassa `_backward` member by
     member with each gain solve."""
     js, jlin = case["js"], case["jlin"]
-    out = {"collapsed": jax.jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))}
+    out = {"collapsed": jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))}
     for solver in ("schur", "cholesky"):
         jm = dataclasses.replace(js, opts=dataclasses.replace(js.opts,
                                                               quu_solver=solver))
-        back = jax.jit(jm._backward)
+        back = jit(jm._backward)
         per = [back({k: v[b] for k, v in jlin.items()}, jnp.asarray(MU))
                for b in range(B)]
         out[solver] = tuple(np.stack([np.asarray(p[i]) for p in per])
@@ -191,7 +191,7 @@ def trials(case, sweeps):
     x0 = to_jax(x0)
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2)).at[2].set(-jnp.inf)
-    cost0 = jax.vmap(js.total_cost)(X, U, params)
+    cost0 = jit(jax.vmap(js.total_cost))(X, U, params)
     merit0 = (cost0 + nu_w * D).at[2].set(cost0[2])
 
     def one(a):     # the Armijo test of the line search (msddp.py:1494-1578)
@@ -212,7 +212,7 @@ def trials(case, sweeps):
     t = lambda a: to_torch(np_of(a))
     out = {}
     for nA in (1, 4):
-        want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+        want = jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
         args = (t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks),
                 case["tlin"]["d"], to_torch(ALPHAS[:nA]),
                 to_torch(case["params"]), t(merit0), t(D), t(dV1), t(dV2),

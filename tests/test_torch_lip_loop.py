@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of
+from _torch_parity import jit, max_rel_err, np_of
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
 from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
@@ -86,9 +86,9 @@ def walk():
     jp, jloop = _jax_loop()
     tloop, tp = build_lip_loop(SRBDConfig(dtype=F64), device="cpu")
     x0 = _x0(jp)
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=0.3, start=START,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=0.3, start=START,
+                                      dtype=jnp.float64))
     sched = walking_schedule(T, vx=0.3, start=START, dtype=F64, device="cpu")
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)), sched)
     return dict(jp=jp, jloop=jloop, tloop=tloop, tp=tp, x0=x0, jc=jc, jo=jo,
@@ -146,7 +146,7 @@ def test_u0_differences_are_floor_steps(walk):
     jsched = j_walking(T, vx=0.3, start=START, dtype=jnp.float64)
     jc = jloop.init(jnp.asarray(walk["x0"]))
     tc = tloop.init(torch.as_tensor(walk["x0"]))
-    jtick = jax.jit(jloop.tick)
+    jtick = jit(jloop.tick)
     for t in range(2):
         jc, _ = jtick(jc, jax.tree.map(lambda a: a[t], jsched))
         tc, _ = tloop.tick(tc, TTickInput(*(a[t] for a in walk["sched"])))
@@ -160,7 +160,7 @@ def test_u0_differences_are_floor_steps(walk):
             jloop.solver.opts, max_iters=iters))
         tm = MSDDP(tloop.solver.ocp, dataclasses.replace(tloop.solver.opts,
                                                          max_iters=iters))
-        sols[iters] = (jax.jit(jm.solve)(jc.sol, jc.x, jpar),
+        sols[iters] = (jit(jm.solve)(jc.sol, jc.x, jpar),
                        tm.solve(tc.sol, tc.x, tpar))
     (j1, t1), (jn, tn) = sols[1], sols[100]
     assert max_rel_err(t1.U, j1.U) < 1e-12
@@ -214,7 +214,7 @@ def test_tick_batch_matches_jax():
     tinp = TTickInput(action=torch.ones(B, dtype=torch.int32),
                       rdot_ref=torch.as_tensor(rdot),
                       w_ref=torch.zeros((B, 3), dtype=F64))
-    jtick = jax.jit(jloop.tick_batch)
+    jtick = jit(jloop.tick_batch)
     jc = jax.vmap(jloop.init)(jnp.asarray(x0))
     tc = tloop.init(torch.as_tensor(x0))
     for _ in range(3):
@@ -245,7 +245,7 @@ def test_build_lip_loop_on_cpu(walk):
         np.asarray(jc.x), {f: np.asarray(v) for f, v in jc.sol._asdict().items()},
         {k: np.asarray(v) for k, v in jc.params.items()},
         np.asarray(jc.wpg_state.step_counter), device="cpu", dtype=F64)
-    jtick = jax.jit(jloop.tick)
+    jtick = jit(jloop.tick)
     for _ in range(2):
         jc, jo = jtick(jc, jax.tree.map(lambda a: a[-1],
                                         j_walking(T, vx=0.3, start=START,

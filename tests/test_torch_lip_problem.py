@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, to_jax, to_torch
+from _torch_parity import jit, max_rel_err, np_of, to_jax, to_torch
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
 from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
@@ -201,8 +201,8 @@ def test_point_feet_builds_evaluates_and_solves_as_jax():
     with pytest.raises(ValueError, match="no kernel for the sizes"):
         k10.check_kernel_shape("lip_linearize", ts.terms, tp.ocp.nx, tp.ocp.nu,
                                ts.rows)
-    jsol = jax.jit(js.solve)(js.init(jp.initial_state), jp.initial_state,
-                             jp.ocp.params)
+    jsol = jit(js.solve)(js.init(jp.initial_state), jp.initial_state,
+                         jp.ocp.params)
     tsol = ts.solve(ts.init(tp.initial_state), tp.initial_state, tp.ocp.params)
     assert int(tsol.iterations) == int(jsol.iterations)
     assert float(tsol.defect_norm) < 1e-6

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, to_jax, to_torch
+from _torch_parity import jit, max_rel_err, np_of, to_jax, to_torch
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig
 from srbd_horizon_tpu.models.kangaroo import kangaroo_line_feet as j_feet
@@ -75,8 +75,8 @@ def test_solve_matches_jax(lip, mode, solver, scale):
     js = JMSDDP(jp.ocp, JDDPOptions(**opts))
     ts = MSDDP(tp.ocp, DDPOptions(**opts))
     x0 = _states(jp, 1, seed=31, scale=scale)[0]
-    jsol = jax.jit(js.solve)(js.init(jnp.asarray(x0)), jnp.asarray(x0),
-                             jp.ocp.params)
+    jsol = jit(js.solve)(js.init(jnp.asarray(x0)), jnp.asarray(x0),
+                         jp.ocp.params)
     before = list(k1.riccati_backward.instance_launches)
     tsol = ts.solve(ts.init(to_torch(x0)), to_torch(x0), tp.ocp.params)
     assert k1.riccati_backward.instance_launches == before    # the CPU: twins
@@ -97,7 +97,7 @@ def test_solve_batch_matches_jax(lip):
     params["rdot_ref"][:, -1, 0] = [0.3, 0.1, 0.0]
     params["cdot_switch"][1, 10:, :2] = 0.0
     jinit = jax.vmap(js.init)(jnp.asarray(x0))
-    jsol = jax.jit(js.solve_batch)(jinit, jnp.asarray(x0), to_jax(params))
+    jsol = jit(js.solve_batch)(jinit, jnp.asarray(x0), to_jax(params))
     tsol = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0), to_torch(params))
     assert tsol.X.shape == (B, 21, 30) and tsol.iterations.shape == (B,)
     assert bool(tsol.converged.all())

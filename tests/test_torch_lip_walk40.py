@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of
+from _torch_parity import jit, max_rel_err, np_of
 from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking
 from srbd_horizon_tpu_torch import SRBDConfig, build_lip_loop
 from srbd_horizon_tpu_torch.runtime.loop import walking_schedule
@@ -44,9 +44,9 @@ def _walk(push):
     tloop, _ = build_lip_loop(SRBDConfig(dtype=F64), device="cpu")
     rng = np.random.RandomState(41)
     x0 = np.array(jp.initial_state) + push * rng.randn(30)
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=VX, start=START,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=VX, start=START,
+                                      dtype=jnp.float64))
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)),
                        walking_schedule(T, vx=VX, start=START, dtype=F64,
                                         device="cpu"))
@@ -92,7 +92,7 @@ def test_x_is_the_integral_of_u0(walk):
     reproduces the port's closed-loop states: x differs from JAX's only
     through u0."""
     ocp = walk["jp"].ocp
-    step = jax.jit(lambda x, u: ocp.step(x, u, None, ocp.dt))
+    step = jit(lambda x, u: ocp.step(x, u, None, ocp.dt))
     x = jnp.asarray(walk["x0"])
     replay = []
     for u in np_of(walk["to"].u0):

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import np_of, perturbed_states, problems, solvers
+from _torch_parity import jit, np_of, perturbed_states, problems, solvers
 from srbd_horizon_tpu.runtime.loop import MPCLoop as JLoop
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
 from srbd_horizon_tpu.wpg import WalkingPatternGenerator as JWPG
@@ -42,7 +42,7 @@ def loops():
                       w_ref=jnp.zeros((B, 3)))
     tinp = tick_input_from_numpy(ACTIONS, RDOT, np.zeros((B, 3)),
                                  device="cpu", dtype=torch.float64)
-    return dict(jloop=jloop, tloop=tloop, jtick=jax.jit(jloop.tick_batch),
+    return dict(jloop=jloop, tloop=tloop, jtick=jit(jloop.tick_batch),
                 x0=x0, jinp=jinp, tinp=tinp)
 
 

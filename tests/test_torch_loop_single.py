@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, perturbed_states, problems, solvers
+from _torch_parity import (
+    jit, max_rel_err, np_of, perturbed_states, problems, solvers,
+)
 from srbd_horizon_tpu.runtime.loop import MPCLoop as JLoop
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
 from srbd_horizon_tpu.runtime.loop import standing_schedule as j_standing
@@ -50,9 +52,9 @@ def _loops(shift, max_iters):
 def single():
     jp, jloop, tloop = _loops(shift=False, max_iters=100)
     x0 = perturbed_states(jp.initial_state, 1, seed=7)[0]
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=0.3, start=START,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=0.3, start=START,
+                                      dtype=jnp.float64))
     sched = walking_schedule(T, vx=0.3, start=START, dtype=F64, device="cpu")
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)), sched)
     return dict(jloop=jloop, tloop=tloop, x0=x0, jc=jc, jo=jo, tc=tc, to=to,
@@ -114,7 +116,7 @@ def test_single_carry_crosses_from_jax(single):
     packages take the last 5 ticks from it."""
     jp, jloop, tloop = _loops(shift=False, max_iters=100)
     jsched = j_walking(T, vx=0.3, start=START, dtype=jnp.float64)
-    jtick = jax.jit(jloop.tick)
+    jtick = jit(jloop.tick)
     jc = jloop.init(jnp.asarray(single["x0"]))
     for t in range(10):
         jc, _ = jtick(jc, jax.tree.map(lambda a: a[t], jsched))
@@ -142,8 +144,8 @@ def test_run_batch_matches_jax():
               for v in (0.3, 0.1)]
     tsched = TTickInput(*(torch.stack(a, dim=1) for a in zip(*scheds)))
     jsched = JTickInput(*(jnp.asarray(np_of(a)) for a in tsched))
-    jc, jo = jax.jit(jloop.run_batch)(jax.vmap(jloop.init)(jnp.asarray(x0)),
-                                      jsched)
+    jc, jo = jit(jloop.run_batch)(jax.vmap(jloop.init)(jnp.asarray(x0)),
+                                  jsched)
     tc, to = tloop.run_batch(tloop.init(torch.as_tensor(x0)), tsched)
     assert to.x.shape == (T, B, 37) and to.iterations.shape == (T, B)
     _compare(jo, to)

@@ -17,9 +17,11 @@ twins), against the JAX package with the same options:
   instantiation: a six-contact isrbd problem through `ALDDP`, the AL inner
   OCP with the block-Schur gain solve under the associative sweep; and
   `family_index` / `kernel_instance` raise ValueError at sizes no kernel
-  has. (The quadruped and both AL inner OCPs run the modes:
+  has. (The quadruped, both AL inner OCPs, the point-feet biped and every
+  SRBD topology under RK2/RK4 run the modes:
   tests/test_torch_modes_quadruped.py, test_torch_modes_alddp.py,
-  test_torch_modes_quadruped_al.py.)
+  test_torch_modes_quadruped_al.py, test_torch_modes_point_feet.py,
+  test_torch_modes_{kangaroo,quadruped,point_feet}_rk.py.)
 """
 
 import jax
@@ -30,6 +32,7 @@ import torch
 
 from _torch_parity import (
     isrbd_problems,
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -88,7 +91,7 @@ def srbd_solves(srbd):
     out = {}
     for mode in MODES:
         js, ts = solvers(jp, tp, max_iters=20, **_modes(*mode))
-        jsol = jax.jit(js.solve)(js.init(to_jax(x0)), to_jax(x0), to_jax(params))
+        jsol = jit(js.solve)(js.init(to_jax(x0)), to_jax(x0), to_jax(params))
         calls = {"k12": 0, "k13": 0}
         backward, trial = ts._backward_associative, ts._trial
 
@@ -138,8 +141,8 @@ def lip():
         jsol = None
         if mode != ("sequential", "nonlinear"):
             js = JMSDDP(jp.ocp, JDDPOptions(**LIP_OPTS, **_modes(*mode)))
-            jsol = jax.jit(js.solve)(js.init(to_jax(x0)), to_jax(x0),
-                                     to_jax(params))
+            jsol = jit(js.solve)(js.init(to_jax(x0)), to_jax(x0),
+                                 to_jax(params))
         out[mode] = (jsol, tsol)
     return out
 
@@ -280,18 +283,22 @@ def test_kernel_lookups_refuse_sizes_without_a_kernel(srbd, change):
 
 def test_wrappers_name_their_kernels():
     """K12 and K13 name the JAX functions they replace and their sources;
-    K12 is built for K1's SRBD, LIP and quadruped shapes with both gain
-    solves and for the two AL shapes with Cholesky; K13 for those five of
-    K1's nine shapes. The point-feet biped's shape and the three RK shapes
-    have no K12 or K13 yet (ROADMAP.md Queue 2): the modes are refused
-    there."""
+    K12 is built for K1's seven SRBD and LIP shapes with both gain solves
+    and for the two AL shapes with Cholesky; K13 for a family at each of
+    K1's nine shapes, two at each RK shape (RK2 and RK4 share K1's shape,
+    not K13's step), each family named once in `FAMILY_NAMES`."""
     assert k12.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1250"
     assert k13.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1454"
-    queued = {"point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk"}
-    assert len(k1.KERNEL_SHAPES) == 9 and queued <= set(k1.KERNEL_SHAPES)
-    assert {s for s, _ in k12.KERNEL_INSTANCES} == set(k1.KERNEL_SHAPES) - queued
+    al = {"isrbd_al", "isrbd_al_quadruped"}
+    assert len(k1.KERNEL_SHAPES) == 9
+    assert {s for s, _ in k12.KERNEL_INSTANCES} == set(k1.KERNEL_SHAPES)
     assert set(k12.KERNEL_INSTANCES) == {
-        (s, q) for s in ("srbd", "lip", "quadruped") for q in k1.QUU_SOLVERS
-    } | {("isrbd_al", "cholesky"), ("isrbd_al_quadruped", "cholesky")}
-    assert {f[2] for f in k13.FAMILIES} == set(k1.KERNEL_SHAPES) - queued
+        (s, q) for s in set(k1.KERNEL_SHAPES) - al for q in k1.QUU_SOLVERS
+    } | {(s, "cholesky") for s in al}
+    assert len(k12.KERNEL_INSTANCES) == 16
+    assert {f[2] for f in k13.FAMILIES} == set(k1.KERNEL_SHAPES)
+    rk = [f[2] for f in k13.FAMILIES if f[2].endswith("_rk")]
+    assert sorted(rk) == sorted(2 * ["srbd_rk", "quadruped_rk",
+                                     "point_feet_rk"])
+    assert len(set(k13.FAMILY_NAMES)) == len(k13.FAMILIES) == 12
     assert k13.SOURCE.endswith("linear_trial.cu") and k3.SOURCE != k13.SOURCE

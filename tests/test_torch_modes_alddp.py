@@ -29,8 +29,8 @@ import pytest
 import torch
 
 from _torch_parity import (
-    F64, MODE_IDS, MODES, ModesSpy, al_agree, al_solvers, al_state_numpy,
-    fleet_params, isrbd_problems, max_rel_err, modes, perturbed_states,
+    F64, MODES, MODE_IDS, ModesSpy, al_agree, al_solvers, al_state_numpy,
+    fleet_params, isrbd_problems, jit, max_rel_err, modes, perturbed_states,
     run_al_modes, to_jax, to_torch, torch_al_state,
 )
 from srbd_horizon_tpu.wpg import WalkingPatternGenerator as JWPG
@@ -89,7 +89,7 @@ def test_serving_ticks_match_jax_under_the_modes():
     U0 = jnp.tile(jp.static_input[None], (NS, 1))
     params = fleet_params(jp.ocp.params, B)
     jst = jax.vmap(lambda x: joff.init(x, U0=U0))(jnp.asarray(x0))
-    jst = jax.jit(joff.solve_batch)(jst, jnp.asarray(x0), to_jax(params))
+    jst = jit(joff.solve_batch)(jst, jnp.asarray(x0), to_jax(params))
     jwpg = JWPG.build(0.0, NS, dtype=jnp.float64)
     twpg = TWPG.build(0.0, NS, dtype=F64, device="cpu")
     period = 2 * jwpg.step_nodes
@@ -102,7 +102,7 @@ def test_serving_ticks_match_jax_under_the_modes():
                                         prior=pr, phase=phase, prior_ema=1.0)
         return st, p1, w1, pr
 
-    jtick = jax.jit(jtick)
+    jtick = jit(jtick)
     action = np.ones(B, np.int32)
     rdot = np.tile([[0.1, 0.0, 0.0]], (B, 1))
     jparams, tparams = to_jax(params), to_torch(params)

@@ -1,7 +1,7 @@
 """PyTorch port, the fleet entry points under the JAX package's other
 execution modes (`riccati_mode="associative"`, K12, with
 `forward_pass="linear"`, K13) in float64 on the CPU (the kernels' plain
-twins): `MSDDP.solve_batch` at B=4 against `jax.jit(js.solve_batch)`,
+twins): `MSDDP.solve_batch` at B=4 against `jit(js.solve_batch)`,
 which is JAX's `vmap(solve)` under these modes (msddp.py:1213-1216), and
 `MPCLoop.tick_batch` for 3 ticks at B=4 against JAX's; iterations and
 convergence flags equal, plans to 1e-9."""
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, perturbed_states, problems, solvers, to_jax, to_torch
+from _torch_parity import (
+    jit, max_rel_err, perturbed_states, problems, solvers, to_jax, to_torch,
+)
 from srbd_horizon_tpu.runtime.loop import MPCLoop as JLoop
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
 from srbd_horizon_tpu.wpg import WalkingPatternGenerator as JWPG
@@ -47,8 +49,8 @@ def test_solve_batch_matches_jax_vmap_solve(srbd):
     x0 = perturbed_states(jp.initial_state, B, seed=8, scale=0.05)
     P = {k: np.broadcast_to(v[None], (B,) + v.shape).copy()
          for k, v in params.items()}
-    jsol = jax.jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)), to_jax(x0),
-                                   to_jax(P))
+    jsol = jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)), to_jax(x0),
+                               to_jax(P))
     syncs0 = ts.host_syncs
     tsol = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0), to_torch(P))
     syncs = ts.host_syncs - syncs0
@@ -84,7 +86,7 @@ def test_tick_batch_matches_jax(fleet_loops):
                       w_ref=jnp.zeros((B, 3)))
     tinp = tick_input_from_numpy(ACTIONS, RDOT, np.zeros((B, 3)), device="cpu",
                                  dtype=torch.float64)
-    jtick = jax.jit(jloop.tick_batch)
+    jtick = jit(jloop.tick_batch)
     jc = jax.vmap(jloop.init)(jnp.asarray(x0))
     tc = tloop.init(torch.as_tensor(x0))
     for _ in range(3):

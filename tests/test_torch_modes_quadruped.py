@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from _torch_parity import (
-    MODE_IDS, MODES, ModesSpy, max_rel_err, modes, np_of, perturbed_states,
-    quadruped_loops, quadruped_problems, to_jax, to_torch,
+    MODES, MODE_IDS, ModesSpy, jit, max_rel_err, modes, np_of,
+    perturbed_states, quadruped_loops, quadruped_problems, to_jax, to_torch,
 )
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
@@ -58,8 +58,8 @@ def solves():
         opts = dict(SOLVE_OPTS, quu_solver=case[2], **modes(*case[:2]))
         js, ts = JMSDDP(jp.ocp, JDDPOptions(**opts)), MSDDP(tp.ocp,
                                                            DDPOptions(**opts))
-        jsol = jax.jit(js.solve)(js.init(to_jax(x0)), to_jax(x0),
-                                 to_jax(params))
+        jsol = jit(js.solve)(js.init(to_jax(x0)), to_jax(x0),
+                             to_jax(params))
         spy = ModesSpy(ts)
         tsol = ts.solve(ts.init(to_torch(x0)), to_torch(x0), to_torch(params))
         out[case] = (jsol, tsol, spy)
@@ -83,9 +83,9 @@ def test_quadruped_run_matches_jax_under_the_modes():
     jp, jloop, tloop, tp = quadruped_loops(**FLEET_MODE)
     spy = ModesSpy(tloop.solver)
     x0 = np.array(jp.initial_state)
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=vx, start=start,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=vx, start=start,
+                                      dtype=jnp.float64))
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)),
                        walking_schedule(T, vx=vx, start=start,
                                         dtype=torch.float64, device="cpu"))
@@ -114,7 +114,7 @@ def test_quadruped_tick_batch_matches_jax_under_the_modes():
                       w_ref=jnp.zeros((B, 3)))
     tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device="cpu",
                                  dtype=torch.float64)
-    jtick = jax.jit(jloop.tick_batch)
+    jtick = jit(jloop.tick_batch)
     jc = jax.vmap(jloop.init)(jnp.asarray(x0))
     tc = tloop.init(torch.as_tensor(x0))
     for _ in range(3):

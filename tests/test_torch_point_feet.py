@@ -16,7 +16,9 @@ contact_model=1, number_of_legs=2)`: nc=2, nx=25, nu=12, 39 residual rows,
   - `MSDDP.solve` and `solve_batch` against JAX's `solve` and
     `vmap(solve)` at ns=8: iterations equal, X and U to 1e-9;
   - `MPCLoop.run` for 8 ticks of the dsrbd walk and `tick_batch` for 3
-    ticks at B=4 against JAX's `run` and `vmap(tick)`.
+    ticks at B=4 against JAX's `run` and `vmap(tick)`;
+  - the two other execution modes build here (K12 and K13 have its
+    shape; tests/test_torch_modes_point_feet.py holds them to JAX).
 """
 
 import dataclasses
@@ -28,9 +30,9 @@ import pytest
 import torch
 
 from _torch_parity import (
-    agree, fleet_params, jax_evaluate, jax_trial, max_rel_err, np_of,
-    perturbed_states, random_xup, run_results, solve_results, solvers,
-    srbd_problems, tick_results, to_jax, to_torch, trajectories,
+    agree, fleet_params, jax_evaluate, jax_trial, jit, max_rel_err, np_of,
+    perturbed_states, random_xup, run_results, six_contact_srbd, solve_results,
+    solvers, srbd_problems, tick_results, to_jax, to_torch, trajectories,
 )
 from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -129,10 +131,10 @@ def case(probs):
     params["rdot_ref"] = 0.3 * rng.randn(*params["rdot_ref"].shape)
     params["cdot_switch"] = rng.randint(0, 2, params["cdot_switch"].shape) * 1.0
     params["mask_track"] = rng.randint(0, 2, params["mask_track"].shape) * 1.0
-    jlin = jax.jit(jax.vmap(
+    jlin = jit(jax.vmap(
         lambda x, u, p: js._linearize(x, u, p, sliced=True)))(
             *to_jax((X, U, params)))
-    jback = jax.jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
+    jback = jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
     tlin = k4.srbd_linearize_plain(to_torch(X), to_torch(U), to_torch(params),
                                    ts.terms, ts.rows, tp.ocp.dt,
                                    ts._wc(torch.float64))
@@ -210,9 +212,9 @@ def test_tassa_sweep_twin_matches_jax(case, solver):
     jm = dataclasses.replace(js, opts=dataclasses.replace(js.opts,
                                                          quu_solver=solver))
     p = {k: v[0] for k, v in case["params"].items()}
-    jlin = jax.jit(jm._linearize)(jnp.asarray(case["X"][0]),
-                                  jnp.asarray(case["U"][0]), to_jax(p))
-    want = jax.jit(jm._backward)(jlin, jnp.asarray(MU))
+    jlin = jit(jm._linearize)(jnp.asarray(case["X"][0]),
+                              jnp.asarray(case["U"][0]), to_jax(p))
+    want = jit(jm._backward)(jlin, jnp.asarray(MU))
     tlin = {k: v[:1] for k, v in case["tlin"].items()}
     got = k1.riccati_backward_plain(*(tlin[k] for k in ORDER), MU, ts.rows,
                                     form="tassa", quu_solver=solver)
@@ -268,11 +270,20 @@ def test_tick_batch_matches_vmap_tick():
                                   ("sequential", "linear")],
                          ids=["associative", "linear"])
 def test_modes_are_refused(probs, mode):
-    """K12 and K13 have no kernel at the point-feet shape: `MSDDP` refuses
-    the two other execution modes on every device, naming ROADMAP.md."""
+    """K12 and K13 now have a kernel at the point-feet shape: `MSDDP` builds
+    the two other execution modes there (K13's point-feet family, K12's
+    `point_feet` instantiation), and refuses them, on every device and
+    naming ROADMAP.md, only where no kernel is compiled: the SRBD problem
+    at contact_model=3."""
     from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
     from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
     opts = DDPOptions(max_iters=2, riccati_mode=mode[0], forward_pass=mode[1])
+    s = MSDDP(probs[1].ocp, opts)
+    ocp = probs[1].ocp
+    assert k13.family_index(s.terms, ocp.nx, ocp.nu, s.rows) == 5
+    assert k12.shape_instance("point_feet", opts.quu_solver) == 8
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MSDDP(probs[1].ocp, opts)
+        MSDDP(six_contact_srbd().ocp, opts)

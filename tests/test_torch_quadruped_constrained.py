@@ -23,7 +23,7 @@ import torch
 from srbd_horizon_tpu_torch.runtime.serving import constrained_tick
 
 from _torch_parity import (
-    QUAD_VX, al_state_numpy, fleet_params, max_rel_err, np_of,
+    QUAD_VX, al_state_numpy, fleet_params, jit, max_rel_err, np_of,
     perturbed_states, quadruped_al_solvers, quadruped_isrbd_problems,
     quadruped_trot_wpgs, to_jax, to_torch, torch_constrained_trot,
 )
@@ -63,9 +63,9 @@ def _jax_single(problems):
     ns = jp.ocp.ns
     x0 = jp.initial_state
     U0 = jnp.tile(jp.static_input[None], (ns, 1))
-    st = jax.jit(joff.solve)(joff.init(x0, U0=U0), x0, jp.ocp.params)
+    st = jit(joff.solve)(joff.init(x0, U0=U0), x0, jp.ocp.params)
     states = [st]
-    tick = jax.jit(lambda st, x0, p: jon.solve_online(
+    tick = jit(lambda st, x0, p: jon.solve_online(
         jon.solve_online(jon.shift_warmstart(st), x0, p), x0, p))
     params, ws = dict(jp.ocp.params), jwpg.init_state()
     for _ in range(TICKS):
@@ -100,7 +100,7 @@ def test_fleet_serving_ticks_match_jax(problems):
     params = fleet_params(jp.ocp.params, B)
     U0 = jnp.tile(jp.static_input[None], (ns, 1))
     jst = jax.vmap(lambda x: joff.init(x, U0=U0))(jnp.asarray(x0))
-    jst = jax.jit(joff.solve_batch)(jst, jnp.asarray(x0), to_jax(params))
+    jst = jit(joff.solve_batch)(jst, jnp.asarray(x0), to_jax(params))
     tx0 = to_torch(x0)
     tU0 = tp.static_input[None].expand(ns, -1)
     tst = toff.solve_batch(toff.init(tx0, tU0), tx0, to_torch(params))
@@ -114,7 +114,7 @@ def test_fleet_serving_ticks_match_jax(problems):
                                         prior=pr, phase=phase, prior_ema=1.0)
         return st, p1, w1, pr
 
-    jtick = jax.jit(jtick)
+    jtick = jit(jtick)
     action = np.ones(B, np.int32)
     rdot = np.tile([[QUAD_VX, 0.0, 0.0]], (B, 1))
     jparams, tparams = to_jax(params), to_torch(params)

@@ -15,6 +15,7 @@ import torch
 
 from _torch_parity import (
     fleet_params,
+    jit,
     max_rel_err,
     np_of,
     quadruped_loops,
@@ -41,7 +42,7 @@ def batch():
     x0 = np.asarray(jp.initial_state)[None] + 0.02 * rng.randn(B, 37)
     params = fleet_params(jp.ocp.params, B)
     jsol = jax.vmap(js.init)(jnp.asarray(x0))
-    want = jax.jit(js.solve_batch)(jsol, jnp.asarray(x0), to_jax(params))
+    want = jit(js.solve_batch)(jsol, jnp.asarray(x0), to_jax(params))
     got = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0), to_torch(params))
     return got, want
 
@@ -77,7 +78,7 @@ def test_fleet_tick_matches_jax():
     tinp = TTickInput(action=torch.ones(B, dtype=torch.int32),
                       rdot_ref=torch.as_tensor(rdot),
                       w_ref=torch.zeros((B, 3), dtype=F64))
-    jtick = jax.jit(jloop.tick_batch)
+    jtick = jit(jloop.tick_batch)
     jc = jax.vmap(jloop.init)(jnp.asarray(x0))
     tc = tloop.init(torch.as_tensor(x0))
     for _ in range(3):

@@ -40,7 +40,7 @@ from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
 
 from _torch_parity import (
-    F64, QUAD_TOPOLOGY, al_state_numpy, fleet_params, jax_al_state,
+    F64, QUAD_TOPOLOGY, al_state_numpy, fleet_params, jax_al_state, jit,
     max_rel_err, np_of, quadruped_al_solvers, quadruped_isrbd_problems,
     random_al_state, random_xup, tight_box_params, to_jax, to_torch,
     torch_al_state,
@@ -199,8 +199,8 @@ def lin(case):
     tpin = ts._params_with_multipliers(to_torch(params), torch_al_state(st))
     X, U = st["sol"]["X"], st["sol"]["U"]
     jin = js._inner
-    jlin = jax.jit(jax.vmap(jin._linearize_sliced))(jnp.asarray(X), jnp.asarray(U), jpin)
-    jback = jax.jit(jin._backward_lanemajor)(jlin, jnp.asarray(MU))
+    jlin = jit(jax.vmap(jin._linearize_sliced))(jnp.asarray(X), jnp.asarray(U), jpin)
+    jback = jit(jin._backward_lanemajor)(jlin, jnp.asarray(MU))
     tlin = k5.isrbd_linearize_plain(to_torch(X), to_torch(U), tpin, ts.terms,
                                     ts.inner.rows, tp.ocp.dt)
     return dict(jpin=jpin, tpin=tpin, jlin=jlin, tlin=tlin, jback=jback)
@@ -238,7 +238,7 @@ def test_k6_plain_matches_jax(case, lin, nA):
     x0 = jnp.asarray(x0)
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2))
-    merit0 = jax.vmap(jin.total_cost)(X, U, params) + nu_w * D
+    merit0 = jit(jax.vmap(jin.total_cost))(X, U, params) + nu_w * D
 
     def one(a):     # msddp.py:843-853
         Xn, Un = jax.vmap(lambda x0_, X_, U_, k_, K_, d_, p_: jin._rollout(
@@ -250,7 +250,7 @@ def test_k6_plain_matches_jax(case, lin, nA):
               & jnp.isfinite(merit) & (a >= opts.alpha_converge_threshold))
         return Xn, Un, cost, merit, ok
 
-    want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+    want = jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
     t = lambda a: to_torch(np_of(a))
     got = k6.isrbd_trial_plain(
         t(x0), t(X), t(U), t(ks), t(Ks), t(d), to_torch(ALPHAS[:nA]),

@@ -29,6 +29,7 @@ import torch
 
 from _torch_parity import (
     fleet_params,
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -68,10 +69,10 @@ def case():
     params["c_ref"] = 0.05 * np.abs(rng.randn(*params["c_ref"].shape))
     params["cdot_switch"] = rng.randint(0, 2, params["cdot_switch"].shape) * 1.0
     params["mask_track"] = rng.randint(0, 2, params["mask_track"].shape) * 1.0
-    jlin = jax.jit(jax.vmap(
+    jlin = jit(jax.vmap(
         lambda x, u, p: js._linearize(x, u, p, sliced=True)
     ))(*to_jax((X, U, params)))
-    jback = jax.jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
+    jback = jit(js._backward_lanemajor)(jlin, jnp.asarray(MU))
     tlin = k4.srbd_linearize_plain(to_torch(X), to_torch(U), to_torch(params),
                                    ts.terms, ts.rows, tp.ocp.dt,
                                    ts._wc(torch.float64))
@@ -108,7 +109,7 @@ def test_linearize_twin_matches_jacfwd_at_random_points(case, key):
     x, u, p = random_xup(jp.ocp.params, 37, 24, seed=16, lead=(3, ns + 1))
     U = np.ascontiguousarray(u[:, :ns])
     x[..., 3:7] *= 1.1
-    want = jax.jit(jax.vmap(
+    want = jit(jax.vmap(
         lambda x_, u_, p_: js._linearize(x_, u_, p_, sliced=True)
     ))(*to_jax((x, U, p)))
     got = k4.srbd_linearize_plain(to_torch(x), to_torch(U), to_torch(p),
@@ -131,7 +132,7 @@ def trials(case):
     x0 = to_jax(x0)
     nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
     D = jnp.sum(d * d, axis=(1, 2))
-    merit0 = jax.vmap(js.total_cost)(X, U, params) + nu_w * D
+    merit0 = jit(jax.vmap(js.total_cost))(X, U, params) + nu_w * D
 
     def one(a):     # msddp.py:843-853
         Xn, Un = jax.vmap(
@@ -148,7 +149,7 @@ def trials(case):
     t = lambda a: to_torch(np_of(a))
     out = {}
     for nA in (1, 4):
-        want = jax.jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
+        want = jit(jax.vmap(one))(jnp.asarray(ALPHAS[:nA]))
         args = (t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks),
                 t(d), to_torch(ALPHAS[:nA]), to_torch(case["params"]),
                 t(merit0), t(D), t(dV1), t(dV2), ts.terms, ts.ocp.dt,
@@ -189,7 +190,7 @@ def test_evaluate_twin_matches_jax(case, pin):
         defects = jax.vmap(js._true_defects)(X_, U_, p_)
         return cost, jnp.max(jnp.abs(defects), axis=(1, 2))
 
-    want = jax.jit(jax_evaluate)(*to_jax((Xj, case["U"], case["params"])))
+    want = jit(jax_evaluate)(*to_jax((Xj, case["U"], case["params"])))
     got = k3.srbd_evaluate_plain(
         to_torch(X), to_torch(case["U"]), to_torch(case["params"]), ts.terms,
         case["tp"].ocp.dt, ts._wc(torch.float64),
@@ -217,8 +218,8 @@ def test_tassa_sweep_twin_matches_jax(case):
                                                          quu_solver="schur"))
     X, U = case["X"][0], case["U"][0]
     p = {k: v[0] for k, v in case["params"].items()}
-    jlin = jax.jit(jm._linearize)(jnp.asarray(X), jnp.asarray(U), to_jax(p))
-    want = jax.jit(jm._backward)(jlin, jnp.asarray(MU))
+    jlin = jit(jm._linearize)(jnp.asarray(X), jnp.asarray(U), to_jax(p))
+    want = jit(jm._backward)(jlin, jnp.asarray(MU))
     tlin = {k: v[:1] for k, v in case["tlin"].items()}
     got = k1.riccati_backward_plain(*(tlin[k] for k in ORDER), MU, ts.rows,
                                     form="tassa", quu_solver="schur")

@@ -26,6 +26,7 @@ from _torch_parity import (
     QUAD_OPTS,
     QUAD_TOPOLOGY,
     fleet_params,
+    jit,
     np_of,
     quadruped_loops,
     quadruped_problems,
@@ -133,7 +134,7 @@ def _advance_both(jg, tg, params, actions):
     (torch params, jax params)."""
     jp_, js_ = {k: jnp.asarray(v) for k, v in params.items()}, jg.init_state()
     tp_, ts_ = to_torch(params), tg.init_state()
-    jadvance = jax.jit(jg.advance)
+    jadvance = jit(jg.advance)
     for a in actions:
         jp_, js_ = jadvance(jp_, js_, int(a))
         tp_, ts_ = tg.advance(tp_, ts_, torch.tensor(int(a), dtype=torch.int32))

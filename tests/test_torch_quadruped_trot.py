@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel_err, np_of, quadruped_loops
+from _torch_parity import jit, max_rel_err, np_of, quadruped_loops
 from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking
 from srbd_horizon_tpu_torch.runtime.loop import walking_schedule
 
@@ -31,9 +31,9 @@ TOL = 1e-9
 def trot():
     jp, jloop, tloop, tp = quadruped_loops()
     x0 = np.array(jp.initial_state)
-    jc, jo = jax.jit(jloop.run)(jloop.init(jnp.asarray(x0)),
-                                j_walking(T, vx=VX, start=START,
-                                          dtype=jnp.float64))
+    jc, jo = jit(jloop.run)(jloop.init(jnp.asarray(x0)),
+                            j_walking(T, vx=VX, start=START,
+                                      dtype=jnp.float64))
     sched = walking_schedule(T, vx=VX, start=START, dtype=torch.float64,
                              device="cpu")
     tc, to = tloop.run(tloop.init(torch.as_tensor(x0)), sched)

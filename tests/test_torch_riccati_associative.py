@@ -31,6 +31,7 @@ from _torch_parity import (
     al_solvers,
     isrbd_problems,
     jax_al_state,
+    jit,
     max_rel_err,
     np_of,
     problems,
@@ -62,7 +63,12 @@ torch.set_num_threads(1)
 MU = 1e-6
 OUT = ("ks", "Ks", "dV1", "dV2")
 SOLVERS = ["schur", "cholesky"]
-INSTANCES = list(k12.KERNEL_INSTANCES)
+# the instantiations at the Kangaroo SRBD, LIP, quadruped and AL shapes;
+# those at the point-feet biped's and the RK shapes are held to JAX in
+# tests/test_torch_modes_{point_feet,kangaroo_rk,quadruped_rk,point_feet_rk}.py
+INSTANCES = [(f, s) for f, s in k12.KERNEL_INSTANCES
+             if f in ("srbd", "lip", "quadruped", "isrbd_al",
+                      "isrbd_al_quadruped")]
 INSTANCE_IDS = [f"{f}-{s}" for f, s in INSTANCES]
 AL_SHAPES = ("isrbd_al", "isrbd_al_quadruped")
 ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
@@ -96,9 +102,9 @@ def _al_sweeps(shape):
     tpin = ts._params_with_multipliers(to_torch(params), torch_al_state(st))
     X, U = st["sol"]["X"], st["sol"]["U"]
     jin = js._inner
-    jlin = jax.jit(jax.vmap(jin._linearize))(jnp.asarray(X), jnp.asarray(U),
-                                             jpin)
-    jres = jax.jit(jax.vmap(jin._backward_associative, in_axes=(0, None)))(
+    jlin = jit(jax.vmap(jin._linearize))(jnp.asarray(X), jnp.asarray(U),
+                                         jpin)
+    jres = jit(jax.vmap(jin._backward_associative, in_axes=(0, None)))(
         jlin, jnp.asarray(MU))
     lin = isrbd_linearize_plain(to_torch(X), to_torch(U), tpin, ts.terms,
                                 ts.inner.rows, tp.ocp.dt)
@@ -129,12 +135,12 @@ def sweeps():
                      + 0.05 * rng.randn(ns + 1, nx))
                 U = 0.1 * rng.randn(ns, nu)
                 params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
-                jlin = jax.jit(js._linearize)(to_jax(X), to_jax(U),
-                                              to_jax(params))
+                jlin = jit(js._linearize)(to_jax(X), to_jax(U),
+                                          to_jax(params))
                 lin = ts._linearize_sliced(
                     to_torch(X)[None], to_torch(U)[None],
                     {k: v[None] for k, v in to_torch(params).items()})
-            jres = jax.jit(js._backward_associative)(jlin, jnp.asarray(MU))
+            jres = jit(js._backward_associative)(jlin, jnp.asarray(MU))
             args = tuple(lin[k] for k in ORDER)
             twin = k12.riccati_associative_plain(*args, MU, ts.rows, solver)
             seq = ts._backward(lin, MU)
@@ -251,15 +257,20 @@ def test_plain_wrapper_takes_the_twin_on_cpu():
 
 
 def test_kernel_shapes_and_instances_match_the_cuda_source():
-    """The .cu's shape structs are K1's five sizes
-    (`riccati.KERNEL_SHAPES`), and its `with_instance` switch is
-    `KERNEL_INSTANCES`, in order."""
-    src = (Path(k12.__file__).resolve().parents[1] / "csrc"
-           / "riccati_associative.cu").read_text()
+    """K12 defines no shape struct of its own: it takes K1's nine from
+    csrc/riccati_common.cuh, whose sizes are `riccati.KERNEL_SHAPES`; its
+    `with_instance` switch is `KERNEL_INSTANCES`, in order."""
+    csrc = Path(k12.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "riccati_associative.cu").read_text()
+    assert not re.findall(r"struct \w+Shape \{", src)
+    assert '#include "riccati_common.cuh"' in src
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
-                         r"([^;]*);", src)
-    names = {"SrbdShape": "srbd", "LipShape": "lip", "QuadShape": "quadruped",
-             "IsrbdAlShape": "isrbd_al", "QuadAlShape": "isrbd_al_quadruped"}
+                         r"([^;]*);", (csrc / "riccati_common.cuh").read_text())
+    names = {"SrbdShape": "srbd", "IsrbdAlShape": "isrbd_al",
+             "LipShape": "lip", "QuadShape": "quadruped",
+             "QuadAlShape": "isrbd_al_quadruped",
+             "PointFeetShape": "point_feet", "SrbdRkShape": "srbd_rk",
+             "QuadRkShape": "quadruped_rk", "PointFeetRkShape": "point_feet_rk"}
     assert [s for s, _ in structs] == list(names)
     for s, body in structs:
         sizes = {k.strip(): int(v) for k, v in

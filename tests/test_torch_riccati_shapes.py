@@ -9,7 +9,7 @@ one with `kernel_shape` for CUDA tensors and refuses any other sizes (the
 LIP on point feet among them) with a ValueError that names them. These
 tests hold that choice against `RiccatiRows.from_ocp` of the nine
 problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
-structs and the instantiation switch of the CUDA source, and check that a
+structs and the instantiation switch of the CUDA sources, and check that a
 CPU tensor of any sizes still takes the plain twin, as does K2's
 standalone wrapper.
 """
@@ -40,7 +40,8 @@ from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
 
 torch.set_num_threads(1)
 
-SOURCE = Path(k1.__file__).resolve().parents[1] / "csrc" / "riccati_backward.cu"
+SHAPES_SOURCE = (Path(k1.__file__).resolve().parents[1] / "csrc"
+                 / "riccati_common.cuh")
 
 
 def _srbd_sizes(cfg=None, robot=None, integrator="EULER"):
@@ -153,10 +154,11 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 
 
 def test_kernel_shapes_match_the_cuda_source():
-    """KERNEL_SHAPES, in order, is the source's SrbdShape, IsrbdAlShape,
+    """KERNEL_SHAPES, in order, is the sources' SrbdShape, IsrbdAlShape,
     LipShape, QuadShape, QuadAlShape, PointFeetShape, SrbdRkShape,
-    QuadRkShape, PointFeetRkShape."""
-    src = SOURCE.read_text()
+    QuadRkShape, PointFeetRkShape (csrc/riccati_common.cuh, one definition
+    for K1 and K12)."""
+    src = SHAPES_SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
     assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape",
@@ -202,15 +204,15 @@ def test_lip_instantiations():
 
 def test_quadruped_instantiations():
     """The quadruped is compiled for the collapsed sweep (`solve_batch`) and
-    the Tassa sweep with the block-Schur gains (`MSDDP.solve` with
-    DDPOptions' default solver), not for the Cholesky Tassa form."""
+    the Tassa sweep with either gain solve (`MSDDP.solve`: DDPOptions'
+    default block-Schur solver, or quu_solver="cholesky", appended as
+    instance 22)."""
     for form in ("collapsed", "tassa"):
         i = k1.kernel_instance("quadruped", form, "schur")
         assert k1.KERNEL_INSTANCES[i] == ("quadruped", form, "schur")
     assert (k1.kernel_instance("quadruped", "collapsed", "cholesky")
             == k1.kernel_instance("quadruped", "collapsed", "schur"))
-    with pytest.raises(ValueError, match="no kernel for"):
-        k1.kernel_instance("quadruped", "tassa", "cholesky")
+    assert k1.kernel_instance("quadruped", "tassa", "cholesky") == 22
     # its AL inner OCP: the collapsed sweep (`ALDDP.solve_batch`) and the
     # Tassa sweep with Cholesky gains (`ALDDP.solve` / `solve_online`, whose
     # inner solver carries quu_solver="cholesky"); no block-Schur Tassa
@@ -226,11 +228,11 @@ def test_quadruped_instantiations():
 
 
 def test_point_feet_and_rk_instantiations():
-    """The point-feet biped has its Euler counterparts' forms (the collapsed
-    sweep, the Tassa sweep with either gain solve); the three RK shapes —
-    RK2 and RK4 share each — have the collapsed sweep and the block-Schur
-    Tassa sweep, and the Kangaroo's also the Cholesky one (the source's
-    `with_instance` order is held by test_torch_riccati_tassa.py)."""
+    """The point-feet biped and the three RK shapes — RK2 and RK4 share
+    each — have the collapsed sweep and the Tassa sweep with either gain
+    solve (the Cholesky ones at `quadruped_rk` and `point_feet_rk`
+    appended as 23 and 24; the source's `with_instance` order is held by
+    test_torch_riccati_tassa.py)."""
     want = {("point_feet", "collapsed", "schur"): 12,
             ("point_feet", "tassa", "schur"): 13,
             ("point_feet", "tassa", "cholesky"): 14,
@@ -243,9 +245,8 @@ def test_point_feet_and_rk_instantiations():
             ("point_feet_rk", "tassa", "schur"): 21}
     for key, i in want.items():
         assert k1.kernel_instance(*key) == i
-    for shape in ("quadruped_rk", "point_feet_rk"):
-        with pytest.raises(ValueError, match="no kernel for"):
-            k1.kernel_instance(shape, "tassa", "cholesky")
+    for shape, i in (("quadruped_rk", 23), ("point_feet_rk", 24)):
+        assert k1.kernel_instance(shape, "tassa", "cholesky") == i
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():

@@ -30,6 +30,7 @@ from _torch_parity import (
     fleet_params,
     isrbd_problems,
     jax_al_state,
+    jit,
     max_rel_err,
     np_of,
     problems,
@@ -102,8 +103,8 @@ def _jax_backward(jm, point, solver, mu=MU):
     jm = dataclasses.replace(jm, opts=dataclasses.replace(jm.opts,
                                                          quu_solver=solver))
     X, U, p = point
-    lin = jax.jit(jm._linearize)(jnp.asarray(X), jnp.asarray(U), to_jax(p))
-    return jax.jit(jm._backward)(lin, jnp.asarray(mu))
+    lin = jit(jm._linearize)(jnp.asarray(X), jnp.asarray(U), to_jax(p))
+    return jit(jm._backward)(lin, jnp.asarray(mu))
 
 
 def _tassa(tlin, rows, solver, mu=MU, fn=k1.riccati_backward_plain):

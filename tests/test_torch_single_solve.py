@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_parity import (
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -52,7 +53,7 @@ def runs(base):
         for solver in SOLVERS:
             js, ts = solvers(jp, tp, max_iters=20, line_search_mode=mode,
                              quu_solver=solver)
-            jsolve = jax.jit(js.solve)
+            jsolve = jit(js.solve)
             jc = jsolve(js.init(to_jax(x_cold)), to_jax(x_cold), to_jax(params))
             jw = jsolve(jc, to_jax(x_warm), to_jax(params))
             syncs0 = ts.host_syncs
@@ -107,8 +108,8 @@ def test_x0_gap_is_a_defect(base):
     x0_pert = x0.copy()
     x0_pert[0] += 0.05
     params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
-    jout = jax.jit(js.solve)(js.init(to_jax(x0), to_jax(U0)), to_jax(x0_pert),
-                             to_jax(params))
+    jout = jit(js.solve)(js.init(to_jax(x0), to_jax(U0)), to_jax(x0_pert),
+                         to_jax(params))
     tout = ts.solve(ts.init(to_torch(x0), to_torch(U0)), to_torch(x0_pert),
                     to_torch(params))
     np.testing.assert_array_equal(np_of(tout.X[0]), x0_pert)

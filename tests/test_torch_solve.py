@@ -12,6 +12,7 @@ import torch
 
 from _torch_parity import (
     fleet_params,
+    jit,
     max_rel_err,
     np_of,
     perturbed_states,
@@ -31,8 +32,8 @@ def _solve_both(B, x0, max_iters=8, **opts):
     jp, tp = problems()
     js, ts = solvers(jp, tp, max_iters=max_iters, **opts)
     params = fleet_params(jp.ocp.params, B)
-    jsol = jax.jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
-                                   to_jax(x0), to_jax(params))
+    jsol = jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
+                               to_jax(x0), to_jax(params))
     tsol = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0),
                           to_torch(params))
     return jsol, tsol, ts
@@ -105,8 +106,8 @@ def test_active_compaction_matches_jax():
 
     ts._iteration_batch = spy
     params = fleet_params(jp.ocp.params, B)
-    jsol = jax.jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
-                                   to_jax(x0), to_jax(params))
+    jsol = jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
+                               to_jax(x0), to_jax(params))
     tsol = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0),
                           to_torch(params))
     assert 32 in lanes_seen, lanes_seen        # the compacted level ran
@@ -133,8 +134,8 @@ def test_backtracking_fan_matches_jax(compact):
     B = 5
     x0 = perturbed_states(jp.initial_state, B, seed=8, scale=0.2)
     params = fleet_params(jp.ocp.params, B)
-    jsol = jax.jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
-                                   to_jax(x0), to_jax(params))
+    jsol = jit(js.solve_batch)(jax.vmap(js.init)(to_jax(x0)),
+                               to_jax(x0), to_jax(params))
     tsol = ts.solve_batch(ts.init(to_torch(x0)), to_torch(x0),
                           to_torch(params))
     assert fan_sizes and all(n == (1 if compact == 2 else B) for n in fan_sizes)

@@ -15,8 +15,9 @@ the point-feet biped), against the JAX package on the CPU in float64:
     `total_cost`, Armijo test and `_true_defects`, to 1e-12;
   - the dispatch: K4's, K3's and srbd_evaluate's shape check and K1's
     `kernel_shape` / `kernel_instance` pick the RK instance and never the
-    Euler one, K13's `family_index` refuses, and `MSDDP` refuses the two
-    other execution modes there, naming ROADMAP.md.
+    Euler one, K13's `family_index` finds the step's own family and
+    `MSDDP` builds the two other execution modes there (the SRBD problem
+    at contact_model=3 is refused them, naming ROADMAP.md).
 
 The solves and ticks under these steps are in
 `test_torch_srbd_integrators_<topology>.py`.
@@ -30,15 +31,15 @@ import pytest
 import torch
 
 from _torch_parity import (
-    fleet_params, jax_evaluate, jax_trial, max_rel_err, np_of,
-    perturbed_states, random_xup, solvers, srbd_problems, to_jax, to_torch,
-    trajectories,
+    fleet_params, jax_evaluate, jax_trial, jit, max_rel_err, np_of,
+    perturbed_states, random_xup, six_contact_srbd, solvers, srbd_problems,
+    to_jax, to_torch, trajectories,
 )
 from srbd_horizon_tpu_torch.config import DDPOptions
 from srbd_horizon_tpu_torch.kernels import linearize as k4
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels import rollout as k3
-from srbd_horizon_tpu_torch.kernels.linear_trial import family_index
+from srbd_horizon_tpu_torch.kernels.linear_trial import FAMILIES, family_index
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
 torch.set_num_threads(1)
@@ -74,7 +75,7 @@ def case(request):
     params["rdot_ref"] = 0.3 * rng.randn(*params["rdot_ref"].shape)
     params["cdot_switch"] = rng.randint(0, 2, params["cdot_switch"].shape) * 1.0
     params["mask_track"] = rng.randint(0, 2, params["mask_track"].shape) * 1.0
-    jdense = jax.jit(jax.vmap(
+    jdense = jit(jax.vmap(
         lambda x, u, p: js._linearize_impl(x, u, p, sliced=False)))(
             *to_jax((X, U, params)))
     tlin = k4.srbd_linearize_plain(to_torch(X), to_torch(U), to_torch(params),
@@ -93,7 +94,8 @@ def test_step_matches_jax(case):
     nx, nu = tp.ocp.nx, tp.ocp.nu
     x, u, p = random_xup(jp.ocp.params, nx, nu, seed=34, lead=(6,))
     dt = jp.ocp.dt
-    want = jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt))(*to_jax((x, u, p)))
+    want = jit(jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt)))(
+        *to_jax((x, u, p)))
     got = tp.ocp.step(to_torch(x), to_torch(u), to_torch(p), dt)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13,
                                atol=1e-13)
@@ -229,12 +231,17 @@ def test_kernel_shapes_pick_the_rk_instance(case):
                                   ("associative", "linear")],
                          ids=["associative", "linear", "both"])
 def test_modes_are_refused(case, mode):
-    """K12 and K13 have no kernel at the RK shapes: `family_index` raises
-    and `MSDDP` refuses the modes on every device, naming ROADMAP.md."""
+    """K12 and K13 now have a kernel at the RK shapes: `family_index` finds
+    the (topology, step) family — RK2 and RK4 each their own, on K1's
+    shared RK shape — and `MSDDP` builds the modes; they are refused, on
+    every device and naming ROADMAP.md, only where no kernel is compiled:
+    the SRBD problem at contact_model=3 under the same step."""
     ts, ocp = case["ts"], case["tp"].ocp
-    with pytest.raises(ValueError, match="no kernel"):
-        family_index(ts.terms, ocp.nx, ocp.nu, ts.rows)
+    fam = family_index(ts.terms, ocp.nx, ocp.nu, ts.rows)
+    assert FAMILIES[fam] == ("srbd", f"{case['topology']}_"
+                             f"{case['step'].lower()}", K1_RK[case["topology"]])
     opts = DDPOptions(max_iters=2, riccati_mode=mode[0], forward_pass=mode[1])
+    MSDDP(ocp, opts)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MSDDP(ocp, opts)
+        MSDDP(six_contact_srbd(case["step"]).ocp, opts)
     MSDDP(ocp, DDPOptions(max_iters=2))            # the default modes build

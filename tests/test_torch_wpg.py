@@ -12,7 +12,7 @@ import torch
 from srbd_horizon_tpu import wpg as jwpg
 from srbd_horizon_tpu_torch import wpg as twpg
 
-from _torch_parity import fleet_params, np_of, problems
+from _torch_parity import fleet_params, jit, np_of, problems
 
 torch.set_num_threads(1)
 
@@ -51,7 +51,7 @@ def test_advance_schedule_matches_jax(profile):
     base = fleet_params(jp.ocp.params, M)
     jparams = [{k: jnp.asarray(v[m]) for k, v in base.items()} for m in range(M)]
     jstates = [jg.init_state() for _ in range(M)]
-    jadvance = jax.jit(jg.advance)
+    jadvance = jit(jg.advance)
     tparams = {k: torch.as_tensor(v) for k, v in base.items()}
     tstate = tg.init_state((M,))
     for t in range(T):
