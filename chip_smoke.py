@@ -4980,11 +4980,6 @@ FAMILY_HEIGHT_BAND = 0.08
 FAMILY_PROGRESS = 0.03          # forward progress at tick 39 (m)
 FAMILY_FLEET_WARM, FAMILY_FLEET_TIMED, FAMILY_SHORT_TICKS = 3, 20, 10
 FAMILY_SINGLE_TICKS, FAMILY_CHOLESKY_TICKS = 40, 10
-# K1's Tassa-Cholesky instantiations phase 15 adds, each with the instance
-# whose point checks it; phase 14 leaves them to phase 15
-MF_K1 = (("quadruped", "quadruped"), ("quadruped_rk", "quadruped_rk2"),
-         ("point_feet_rk", "point_feet_rk2"))
-MF_K1_INSTANCES = {(shape, "tassa", "cholesky") for shape, _ in MF_K1}
 
 
 def family_split(inst):
@@ -5164,7 +5159,7 @@ def family_check(inst, dev):
         a32 = tuple(v.float().contiguous() for v in a64)
         sweeps = {}
         for shape, form, solver in k1.KERNEL_INSTANCES:
-            if shape != k1_shape or (shape, form, solver) in MF_K1_INSTANCES:
+            if shape != k1_shape:
                 continue
             kw = dict(form=form, quu_solver=solver)
             r = k1.riccati_backward_plain(*a64, mu, rows, **kw)
@@ -5330,7 +5325,7 @@ def family_times(inst, dev, lin64, sweep64, pt):
             flop=stages * evaluate_flops(Bw, ns, nx, nc, n_rho))
         ka = repeat_members(k1a, Bw)
         for shape, form, solver in k1.KERNEL_INSTANCES:
-            if shape != k1_shape or (shape, form, solver) in MF_K1_INSTANCES:
+            if shape != k1_shape:
                 continue
             kw = dict(form=form, quu_solver=solver)
             out = k1.riccati_backward(*ka, mu, rows, **kw)
@@ -5356,7 +5351,7 @@ def family_times(inst, dev, lin64, sweep64, pt):
            f"srbd_trial_{inst}": pick(k3.trial_occupancy(f32, inst)),
            f"srbd_evaluate_{inst}": pick(k3.evaluate_occupancy(ns, f32, inst))}
     for shape, form, solver in k1.KERNEL_INSTANCES:
-        if shape == k1_shape and (shape, form, solver) not in MF_K1_INSTANCES:
+        if shape == k1_shape:
             kw = dict(form=form, quu_solver=solver)
             occ[k1_row_name(shape, form, solver)] = dict(
                 blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, **kw),
@@ -5628,7 +5623,6 @@ def family_section(card, dev, sms):
     def k1_names(inst, forms):
         return [k1_row_name(k1_shapes[inst], f, s) for f, s in forms]
 
-    tassa = (("tassa", "schur"),)
     tassa_both = (("tassa", "schur"), ("tassa", "cholesky"))
     collapsed = (("collapsed", "schur"),)
 
@@ -5641,19 +5635,19 @@ def family_section(card, dev, sms):
             fail(f"{tag}: forward progress {res['forward_progress_m']} m at "
                  f"tick 39, not above {FAMILY_PROGRESS}")
 
-    T, C = FAMILY_SINGLE_TICKS, FAMILY_CHOLESKY_TICKS
-    singles = (("family_pf_single", "point_feet", T, C, tassa_both),
-               ("family_kangaroo_rk4_single", "kangaroo_rk4", T, C, tassa_both),
-               ("family_quadruped_rk4_single", "quadruped_rk4", T, 0, tassa),
-               ("family_pf_rk4_single", "point_feet_rk4", FAMILY_SHORT_TICKS,
-                0, tassa))
-    for tag, inst, ticks, chol, forms in singles:
+    T = FAMILY_SINGLE_TICKS
+    singles = (("family_pf_single", "point_feet", T),
+               ("family_kangaroo_rk4_single", "kangaroo_rk4", T),
+               ("family_quadruped_rk4_single", "quadruped_rk4", T),
+               ("family_pf_rk4_single", "point_feet_rk4", FAMILY_SHORT_TICKS))
+    for tag, inst, ticks in singles:
         quad = inst.startswith("quadruped")
         res, launches, guards, *_ = family_single_path(
-            inst, dev, card, ticks=ticks, cholesky_ticks=chol,
-            quadruped_walk=quad)
+            inst, dev, card, ticks=ticks,
+            cholesky_ticks=FAMILY_CHOLESKY_TICKS, quadruped_walk=quad)
         emit(tag, **res)
-        family_gates(tag, res, launches, inst, k1_names(inst, forms), guards)
+        family_gates(tag, res, launches, inst, k1_names(inst, tassa_both),
+                     guards)
         if ticks == FAMILY_SINGLE_TICKS and quad:
             if max(abs(res["com_z_min"] - res["z0"]),
                    abs(res["com_z_max"] - res["z0"])) >= QUAD_HEIGHT_BAND:
@@ -5731,7 +5725,7 @@ def family_section(card, dev, sms):
                   (f"srbd_evaluate_{inst}", k3, "evaluate", inst)]
     new_shapes = {k1_shapes[i]: i for i in reversed(FAMILY_INSTANCES)}
     for shape, form, solver in k1.KERNEL_INSTANCES:
-        if shape in new_shapes and (shape, form, solver) not in MF_K1_INSTANCES:
+        if shape in new_shapes:
             name = k1_row_name(shape, form, solver)
             specs.append((name, k1, name, new_shapes[shape]))
     rows_out = []
@@ -5792,8 +5786,11 @@ def family_section(card, dev, sms):
 
 # K12's shapes this phase adds, each checked and timed on the point of one
 # (topology, step) instance (RK2 and RK4 share K1's shape); K13's families
-# are the instances of FAMILY_INSTANCES themselves; K1's instantiations
-# are MF_K1 (above, with phase 14)
+# are the instances of FAMILY_INSTANCES themselves. Of K1's three
+# Tassa-Cholesky instantiations, this phase checks the Euler quadruped's;
+# phase 14 checks and times the RK shapes' with every K1 instantiation at
+# its shapes, and its rows count their launches over phase 14's and this
+# phase's paths.
 MF_K12 = (("point_feet", "point_feet"), ("srbd_rk", "kangaroo_rk2"),
           ("quadruped_rk", "quadruped_rk2"),
           ("point_feet_rk", "point_feet_rk2"))
@@ -5807,8 +5804,9 @@ MF_LINEAR = dict(riccati_mode="associative", forward_pass="linear")
 # defect norm of 6.47e-4 (float64; the port's CPU twins the same, equal
 # iterations) and 8.34e-4 (float32) at ticks 19 / 21 (`JAX_PLATFORMS=cpu
 # python tests/modes_walk_reference.py point_feet EULER f64 associative
-# linear 40`). The linear pass's paths are held to 1e-3, the others to 1e-4.
-MF_LINEAR_DEFECT = 1e-3
+# linear 40`). That instance's linear-pass paths are held to 1e-3; every
+# other path, and every instance whose reference reads below 1e-4, to 1e-4.
+MF_LINEAR_DEFECT = {"point_feet": 1e-3}
 
 
 def mf_k1_shape(inst):
@@ -5888,7 +5886,8 @@ def mf_point(inst, dev, seed):
 
 
 def mf_k1_check(shape, p, card):
-    """K1's Tassa form with the Cholesky gains at `shape` against its twin
+    """K1's Tassa form with the Cholesky gains at `shape` (the Euler
+    quadruped's; phase 14 checks the RK shapes') against its twin
     at B = 1, 64 and 512: float64 to 1e-9, float32 to K1_F32_TOL of the
     float64 twin; then `tassa_check` at B=512 (a NaN member, an indefinite
     Quu). Returns the error figures; fails the run on disagreement."""
@@ -6034,8 +6033,9 @@ def mf_segment(inst, dev, card, opts, ticks, fleet=False, vx=0.3, start=5):
 
 
 def mf_gates(tag, res, inst):
-    """Finite outputs; defects ≤ 1e-4 (MF_LINEAR_DEFECT under the linear
-    forward pass) and the Newton–Euler residual ≤ 1e-4; no
+    """Finite outputs; defects ≤ 1e-4 (MF_LINEAR_DEFECT's limit for its
+    instances under the linear forward pass) and the Newton–Euler
+    residual ≤ 1e-4; no
     plain twin, torch.func transform or plain cost on the card; the
     instance's K4 and srbd_evaluate launched (the evaluation two a solve)
     and no other instance's; under the associative sweep one K12 sweep at
@@ -6047,7 +6047,8 @@ def mf_gates(tag, res, inst):
     L, n, k1_shape = res["launches"], res["counted"], mf_k1_shape(inst)
     if not res["finite"]:
         fail(f"{tag}: non-finite values")
-    limit = MF_LINEAR_DEFECT if res["forward_pass"] == "linear" else 1e-4
+    limit = (MF_LINEAR_DEFECT.get(inst, 1e-4)
+             if res["forward_pass"] == "linear" else 1e-4)
     if res["defect_norm_max"] > limit or res["srbd_residual_max"] > 1e-4:
         fail(f"{tag}: plans are not dynamically consistent (defect above "
              f"{limit} or Newton-Euler residual above 1e-4): "
@@ -6071,15 +6072,16 @@ def mf_gates(tag, res, inst):
         fail(f"{tag}: no linear trial ran under forward_pass='linear'")
 
 
-def modes_family_section(card, dev, sms):
+def modes_family_section(card, dev, sms, family_rows):
     """Phase 15: the JAX package's execution modes and the Cholesky gain
     solve at every SRBD shape phase 14 added — K12 at the point-feet
     biped's and the three RK shapes with both gain solves, K13 at the seven
     (topology, step) families (the true defects in the problem's own
-    step), K1's Tassa-Cholesky form at `quadruped`, `quadruped_rk` and
-    `point_feet_rk`. `mf_check`: each against its twin at B = 1, 64 and
-    512 in float64 and float32 (K12 to K12_F64_TOL, K13 to 1e-9 with the
-    flags equal, K1 to 1e-9; float32 to 1e-6 of the float64 twin);
+    step), K1's Tassa-Cholesky form at `quadruped` (phase 14 checks it at
+    `quadruped_rk` and `point_feet_rk`; their rows add this phase's
+    launches). Each against its twin at B = 1, 64 and 512 in float64 and
+    float32 (K12 to K12_F64_TOL, K13 to 1e-9 with the flags equal at 1
+    and 4 step sizes, K1 to 1e-9; float32 to 1e-6 of the float64 twin);
     `mf_times`: float32 at B = 1, 512 and 4096, K12 beside K1-Tassa with
     the same gain solve in the same call (`mf_k12_vs_k1_tassa`); the
     paths at full width and ns=20 (`mf_segment`: the point-feet biped's
@@ -6091,7 +6093,7 @@ def modes_family_section(card, dev, sms):
     RK4 walks under the modes and with Cholesky gains), each gated by
     `mf_gates`; card = CPU in float64 (`mf_card_vs_cpu`: the point-feet
     walk and the Kangaroo's RK2 fleet at B=8 under the modes). Returns the
-    eighteen kernel rows."""
+    sixteen kernel rows."""
     import dataclasses
 
     import numpy as np
@@ -6110,12 +6112,13 @@ def modes_family_section(card, dev, sms):
     # the shapes whose point each names ----
     pts, errs, times = {}, {}, {}
     k12_at = {inst: shape for shape, inst in MF_K12}
-    k1_at = {inst: shape for shape, inst in MF_K1}
     for i, inst in enumerate(("quadruped",) + FAMILY_INSTANCES):
         p = mf_point(inst, dev, SEED + 150 + i)
-        if inst != "quadruped":
-            errs["k13", inst] = modes_k13_check(p, MF_CHECK_B, card,
-                                                alphas=(4,))
+        if inst == "quadruped":
+            errs["k1"] = mf_k1_check(inst, p, card)
+            times["k1"] = mf_k1_times(inst, p)
+        else:
+            errs["k13", inst] = modes_k13_check(p, MF_CHECK_B, card)
             for nA in (1, 4):
                 times["k13", inst, nA] = modes_k13_times(p, nA, MF_TIME_B,
                                                          B_MAIN)
@@ -6127,10 +6130,6 @@ def modes_family_section(card, dev, sms):
                                                          card)
                 times["k12", shape, sv] = modes_k12_times(
                     q, sv, MF_TIME_B, B_MAIN, sv)
-        if inst in k1_at:
-            shape = k1_at[inst]
-            errs["k1", shape] = mf_k1_check(shape, p, card)
-            times["k1", shape] = mf_k1_times(shape, p)
         del p
     torch.cuda.empty_cache()
     emit("mf_times", card=card, dtype="float32", sms=sms,
@@ -6248,21 +6247,28 @@ def modes_family_section(card, dev, sms):
             errs["k13", inst], path_launches.get(name, 0), B_MAIN,
             family=inst, launches_by_path=by_path.get(name, {}),
             launches_of="phase 15's paths"))
-    for shape, _ in MF_K1:
-        name = k1_row_name(shape, "tassa", "cholesky")
-        t, e = times["k1", shape], errs["k1", shape]
-        b1 = t["by_B"][1]
-        rows_out.append(dict(kernel_row(
-            name, k1, path_launches.get(name, 0), b1["ms"], b1["plain_ms"],
-            b1["bound_ms"], b1["bound_by"], e, K1_F32_TOL, B=1,
-            quu_solver="cholesky",
-            ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
-            plain_ms_by_B={str(b): v["plain_ms"] for b, v in t["by_B"].items()},
-            bound_ms_by_B={str(b): v["bound_ms"] for b, v in t["by_B"].items()},
-            shared_memory_bytes=t["shared_memory_bytes"],
-            blocks_per_sm=t["blocks_per_sm"],
-            launches_by_path=by_path.get(name, {}),
-            launches_of="phase 15's paths"), replaces=k1.TASSA_REPLACES))
+    name = k1_row_name("quadruped", "tassa", "cholesky")
+    t, e = times["k1"], errs["k1"]
+    b1 = t["by_B"][1]
+    rows_out.append(dict(kernel_row(
+        name, k1, path_launches.get(name, 0), b1["ms"], b1["plain_ms"],
+        b1["bound_ms"], b1["bound_by"], e, K1_F32_TOL, B=1,
+        quu_solver="cholesky",
+        ms_by_B={str(b): v["ms"] for b, v in t["by_B"].items()},
+        plain_ms_by_B={str(b): v["plain_ms"] for b, v in t["by_B"].items()},
+        bound_ms_by_B={str(b): v["bound_ms"] for b, v in t["by_B"].items()},
+        shared_memory_bytes=t["shared_memory_bytes"],
+        blocks_per_sm=t["blocks_per_sm"],
+        launches_by_path=by_path.get(name, {}),
+        launches_of="phase 15's paths"), replaces=k1.TASSA_REPLACES))
+    # phase 14's rows of K1's Tassa-Cholesky form at the RK shapes count
+    # this phase's launches too
+    for r in family_rows:
+        if r["name"].endswith("_tassa_cholesky") and r["name"] in by_path:
+            r["launches_by_path"] = {"phase 14's paths": r["launches"],
+                                     **by_path[r["name"]]}
+            r["launches"] += path_launches[r["name"]]
+            r["launches_of"] = "phase 14's and phase 15's paths"
     missing = [r["name"] for r in rows_out if r["launches"] == 0]
     if missing:
         fail(f"phase 15: kernels not launched on its paths: {missing}")
@@ -7643,7 +7649,7 @@ def main():
     family_rows = family_section(card, dev, sms)
 
     # ---------------- phase 15: the execution modes at every SRBD shape ----
-    family_rows += modes_family_section(card, dev, sms)
+    family_rows += modes_family_section(card, dev, sms, family_rows)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

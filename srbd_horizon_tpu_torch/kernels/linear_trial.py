@@ -67,24 +67,24 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
 
 # the problems the kernel is compiled for, in the order of the .cu's
 # `with_family` (appended, never reordered): (terms.family, the
-# linearization's shape name — K4's or K5's `KERNEL_SHAPES` — and K1's
-# shape). RK2 and RK4 share K1's shape, so K1's name does not pick a family.
-FAMILIES = (("srbd", "kangaroo", "srbd"), ("lip", None, "lip"),
-            ("srbd", "quadruped", "quadruped"),
-            ("isrbd_al", "kangaroo", "isrbd_al"),
-            ("isrbd_al", "quadruped", "isrbd_al_quadruped"),
-            ("srbd", "point_feet", "point_feet"),
-            ("srbd", "kangaroo_rk2", "srbd_rk"),
-            ("srbd", "kangaroo_rk4", "srbd_rk"),
-            ("srbd", "quadruped_rk2", "quadruped_rk"),
-            ("srbd", "quadruped_rk4", "quadruped_rk"),
-            ("srbd", "point_feet_rk2", "point_feet_rk"),
-            ("srbd", "point_feet_rk4", "point_feet_rk"))
-# each family's name, as `occupancy` takes it: K1's shape name where that
-# shape has one family, K4's name under RK, where two share K1's shape
-FAMILY_NAMES = ("srbd", "lip", "quadruped", "isrbd_al", "isrbd_al_quadruped",
-                "point_feet", "kangaroo_rk2", "kangaroo_rk4", "quadruped_rk2",
-                "quadruped_rk4", "point_feet_rk2", "point_feet_rk4")
+# linearization's shape name — K4's or K5's `KERNEL_SHAPES` —, K1's shape,
+# and the family's name, as `occupancy` takes it). RK2 and RK4 share K1's
+# shape, so K1's name does not pick a family: the name is K1's shape name
+# where that shape has one family, K4's name under RK.
+FAMILIES = (("srbd", "kangaroo", "srbd", "srbd"),
+            ("lip", None, "lip", "lip"),
+            ("srbd", "quadruped", "quadruped", "quadruped"),
+            ("isrbd_al", "kangaroo", "isrbd_al", "isrbd_al"),
+            ("isrbd_al", "quadruped", "isrbd_al_quadruped",
+             "isrbd_al_quadruped"),
+            ("srbd", "point_feet", "point_feet", "point_feet"),
+            ("srbd", "kangaroo_rk2", "srbd_rk", "kangaroo_rk2"),
+            ("srbd", "kangaroo_rk4", "srbd_rk", "kangaroo_rk4"),
+            ("srbd", "quadruped_rk2", "quadruped_rk", "quadruped_rk2"),
+            ("srbd", "quadruped_rk4", "quadruped_rk", "quadruped_rk4"),
+            ("srbd", "point_feet_rk2", "point_feet_rk", "point_feet_rk2"),
+            ("srbd", "point_feet_rk4", "point_feet_rk", "point_feet_rk4"))
+FAMILY_NAMES = tuple(f[3] for f in FAMILIES)
 # each family's module of shape checks and parameter tensors
 _LINEARIZE = {"srbd": linearize, "lip": lip_linearize,
               "isrbd_al": isrbd_linearize}
@@ -179,7 +179,7 @@ def family_index(terms, nx: int, nu: int, rows: RiccatiRows) -> int:
     if fam in _LINEARIZE:
         shape = _LINEARIZE[fam].check_kernel_shape("linear_trial", terms, nx,
                                                    nu)
-        for i, (name, lin_shape, k1_shape) in enumerate(FAMILIES):
+        for i, (name, lin_shape, k1_shape, _) in enumerate(FAMILIES):
             want = KERNEL_SHAPES[k1_shape]
             if (name, lin_shape) == (fam, shape) and \
                     have == {k: want[k] for k in have}:

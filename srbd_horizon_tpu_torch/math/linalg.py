@@ -44,13 +44,24 @@ def lm_transpose(A: torch.Tensor) -> torch.Tensor:
 
 # the 3×3 adjugate, row-major: c_ij = a[p]·a[q] − a[r]·a[s] over A's
 # row-major entries, listed operand by operand (all p, then q, r, s)
-_ADJ3 = torch.tensor((4, 2, 1, 5, 0, 2, 3, 1, 0,
-                      8, 7, 5, 6, 8, 3, 7, 6, 4,
-                      5, 1, 2, 3, 2, 0, 4, 0, 1,
-                      7, 8, 4, 8, 6, 5, 6, 7, 3))
-# the 2×2 one: [d, −b; −c, a], the entries and their signs
-_ADJ2 = torch.tensor((3, 1, 2, 0))
-_ADJ2_SIGN = (1.0, -1.0, -1.0, 1.0)
+_ADJ3 = (4, 2, 1, 5, 0, 2, 3, 1, 0,
+         8, 7, 5, 6, 8, 3, 7, 6, 4,
+         5, 1, 2, 3, 2, 0, 4, 0, 1,
+         7, 8, 4, 8, 6, 5, 6, 7, 3)
+# the 2×2 one: [d, −b; −c, a], the entries before their signs
+_ADJ2 = (3, 1, 2, 0)
+
+_TABLES: dict = {}
+
+
+def index_table(values: tuple, device) -> torch.Tensor:
+    """`values` as an int64 tensor on `device`, made once a device: a
+    host-to-device copy on each call would stall the stream."""
+    key = (values, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(values, device=device)
+    return t
 
 
 def adjugate3(A: torch.Tensor):
@@ -59,7 +70,7 @@ def adjugate3(A: torch.Tensor):
     product minus another, elementwise: the rounding of the written-out
     formula, in four gathers)."""
     a = A.reshape(A.shape[:-2] + (9,))
-    g = a.index_select(-1, _ADJ3.to(A.device)).unflatten(-1, (4, 9))
+    g = a.index_select(-1, index_table(_ADJ3, A.device)).unflatten(-1, (4, 9))
     c = g[..., 0, :] * g[..., 1, :] - g[..., 2, :] * g[..., 3, :]
     det = a[..., 0] * c[..., 0] + a[..., 1] * c[..., 3] + a[..., 2] * c[..., 6]
     return c, det
@@ -68,7 +79,8 @@ def adjugate3(A: torch.Tensor):
 def _lm_inv2(A):
     a = A.reshape(A.shape[:-2] + (4,))
     det = a[..., 0] * a[..., 3] - a[..., 1] * a[..., 2]
-    adj = a.index_select(-1, _ADJ2.to(A.device)) * a.new_tensor(_ADJ2_SIGN)
+    g = a.index_select(-1, index_table(_ADJ2, A.device))
+    adj = torch.cat([g[..., :1], -g[..., 1:3], g[..., 3:]], dim=-1)
     return (adj / det[..., None]).reshape(A.shape)
 
 

@@ -6,18 +6,18 @@ from __future__ import annotations
 
 import torch
 
-from srbd_horizon_tpu_torch.math.linalg import adjugate3
+from srbd_horizon_tpu_torch.math.linalg import adjugate3, index_table
 
 # the components a cross product pairs: (1, 2, 0) with (2, 0, 1)
-_CROSS_I = torch.tensor((1, 2, 0))
-_CROSS_J = torch.tensor((2, 0, 1))
+_CROSS_I = (1, 2, 0)
+_CROSS_J = (2, 0, 1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a × b over the last axis: (a1b2 − a2b1, a2b0 − a0b2, a0b1 − a1b0),
     each product minus another elementwise (`torch.func` friendly and the
     same arithmetic as the CUDA rollout)."""
-    i, j = _CROSS_I.to(a.device), _CROSS_J.to(a.device)
+    i, j = index_table(_CROSS_I, a.device), index_table(_CROSS_J, a.device)
     return (a.index_select(-1, i) * b.index_select(-1, j)
             - a.index_select(-1, j) * b.index_select(-1, i))
 

@@ -164,7 +164,9 @@ class WalkingPatternGenerator:
         else:   # the first contact_model contacts are the left foot
             is_left = torch.arange(nc, device=dev) < cm
         act = action.to(torch.int64)[..., None]              # (..., 1)
-        tz = torch.as_tensor(terrain_z, dtype=dtype, device=dev)[..., None]
+        # a scalar stays on the host; a tensor is already on the WPG's device
+        tz = (terrain_z.to(dtype)[..., None] if torch.is_tensor(terrain_z)
+              else terrain_z)
 
         step_c = torch.where(
             is_left, self.l_cycle[ref_id][..., None], self.r_cycle[ref_id][..., None]
@@ -173,7 +175,7 @@ class WalkingPatternGenerator:
             is_left, self.l_switch[ref_id][..., None], self.r_switch[ref_id][..., None]
         ).to(dtype)
         jump_c = p["c_ref"][..., ns, :]
-        stance_c = tz.expand_as(step_c)
+        stance_c = torch.zeros_like(step_c) + tz
 
         c_ref_T = torch.where(act == STEP, step_c,
                               torch.where(act == JUMP, jump_c, stance_c))

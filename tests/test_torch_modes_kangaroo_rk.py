@@ -85,7 +85,8 @@ def test_dense_dynamics_match_jax(step):
 def test_modes_build_and_dispatch(step):
     fam, inst = modes_dispatch(TOPOLOGY, step)
     assert fam == FAMILY[step]
-    assert k13.FAMILIES[fam] == ("srbd", f"kangaroo_{step.lower()}", "srbd_rk")
+    name = f"kangaroo_{step.lower()}"
+    assert k13.FAMILIES[fam] == ("srbd", name, "srbd_rk", name)
     assert k13.FAMILY_NAMES[fam] == f"kangaroo_{step.lower()}"
     assert inst == {"schur": 10, "cholesky": 11}
     for sv, i in inst.items():

@@ -84,7 +84,7 @@ def test_modes_build_and_dispatch():
     `point_feet` instantiations (8, 9)."""
     fam, inst = modes_dispatch("point_feet", "EULER")
     assert (fam, k13.FAMILY_NAMES[fam]) == (5, "point_feet")
-    assert k13.FAMILIES[fam] == ("srbd", "point_feet", "point_feet")
+    assert k13.FAMILIES[fam] == ("srbd",) + ("point_feet",) * 3
     assert inst == {"schur": 8, "cholesky": 9}
     for sv, i in inst.items():
         assert k12.KERNEL_INSTANCES[i] == ("point_feet", sv)

@@ -80,8 +80,8 @@ def test_dense_dynamics_match_jax(step):
 def test_modes_build_and_dispatch(step):
     fam, inst = modes_dispatch(TOPOLOGY, step)
     assert fam == FAMILY[step]
-    assert k13.FAMILIES[fam] == ("srbd", f"point_feet_{step.lower()}",
-                                 "point_feet_rk")
+    name = f"point_feet_{step.lower()}"
+    assert k13.FAMILIES[fam] == ("srbd", name, "point_feet_rk", name)
     assert k13.FAMILY_NAMES[fam] == f"point_feet_{step.lower()}"
     assert inst == {"schur": 14, "cholesky": 15}
     for sv, i in inst.items():

@@ -92,8 +92,8 @@ def test_dense_dynamics_match_jax(step):
 def test_modes_build_and_dispatch(step):
     fam, inst = modes_dispatch(TOPOLOGY, step)
     assert fam == FAMILY[step]
-    assert k13.FAMILIES[fam] == ("srbd", f"quadruped_{step.lower()}",
-                                 "quadruped_rk")
+    name = f"quadruped_{step.lower()}"
+    assert k13.FAMILIES[fam] == ("srbd", name, "quadruped_rk", name)
     assert k13.FAMILY_NAMES[fam] == f"quadruped_{step.lower()}"
     assert inst == {"schur": 12, "cholesky": 13}
     for sv, i in inst.items():

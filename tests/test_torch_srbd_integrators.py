@@ -238,8 +238,8 @@ def test_modes_are_refused(case, mode):
     the SRBD problem at contact_model=3 under the same step."""
     ts, ocp = case["ts"], case["tp"].ocp
     fam = family_index(ts.terms, ocp.nx, ocp.nu, ts.rows)
-    assert FAMILIES[fam] == ("srbd", f"{case['topology']}_"
-                             f"{case['step'].lower()}", K1_RK[case["topology"]])
+    name = f"{case['topology']}_{case['step'].lower()}"
+    assert FAMILIES[fam] == ("srbd", name, K1_RK[case["topology"]], name)
     opts = DDPOptions(max_iters=2, riccati_mode=mode[0], forward_pass=mode[1])
     MSDDP(ocp, opts)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -85,6 +85,28 @@ def test_advance_with_terrain_matches_jax(per_member):
         assert np.isclose(c_ref[m], tz[m]).any()
 
 
+@pytest.mark.parametrize("terrain", ["default", "scalar", "float64_tensor"])
+def test_terrain_keeps_the_wpg_dtype(terrain):
+    """A float32 WPG stays float32 under any `terrain_z`: a Python scalar
+    (the default 0.0 included) is added on the host, a tensor is cast to
+    the references' dtype; the default writes what terrain 0 writes."""
+    ns = 8
+    tg = twpg.WalkingPatternGenerator.build(0.0, ns, dtype=torch.float32,
+                                            device="cpu")
+    params = {"c_ref": torch.zeros(3, ns + 1, 4),
+              "cdot_switch": torch.ones(3, ns + 1, 4),
+              "w_ref": torch.zeros(3, ns + 1, 3),
+              "orientation_tracking_gain": torch.full((3, ns + 1, 1), 10.0)}
+    kw = {"default": {}, "scalar": {"terrain_z": 0.0},
+          "float64_tensor": {"terrain_z": torch.zeros(3, dtype=torch.float64)}}
+    action = torch.tensor([0, 1, 2], dtype=torch.int32)
+    got, _ = tg.advance(params, tg.init_state((3,)), action, **kw[terrain])
+    flat, _ = tg.advance(params, tg.init_state((3,)), action, terrain_z=0)
+    for k in FIELDS:
+        assert got[k].dtype == torch.float32, k
+        assert torch.equal(got[k], flat[k]), k
+
+
 def test_steps_onto_raised_terrain():
     """The port's closed loop (Kangaroo, float64, CPU): a walk on flat
     ground, then `advance(..., terrain_z=0.04)` with the step action each
