@@ -220,7 +220,11 @@ parallel, into build/kernels/), then:
     the same float32 inputs (both compute in float64), K13's flags equal;
     `modes_times`: both at B = 1, 8, 512, 4096 in float32 (ms, bytes,
     FLOPs counted from the code, bound at the FP64 tensor-core rate, plain
-    ms at B = 1 and 512, shared memory and blocks per SM of each phase),
+    ms at B = 1 and 512; of each K12 phase its device ms from the
+    profiler at B = 1 and 512, its shared memory a block — failing unless
+    it is what `riccati_associative.phase_bytes` states, or unless the
+    combine runs three blocks an SM — its blocks, registers and spilled
+    bytes; K12's rows carry them),
     K1's Tassa form at the same B in the same call (`k12_vs_k1_tassa`),
     `torch.linalg.solve` on the scan's stack of (I + C₁J₂) systems at
     B=512; `modes_single_path`: the dsrbd example's 40-tick walk under
@@ -331,6 +335,15 @@ instances, K1's ten instantiations of PR 15, K2 at nu=12), and the
 eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
 seven families, K1's three Tassa-Cholesky instantiations); the last line
 is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --k12-versus OTHER_TREE
+
+is a development run instead: it builds K12 from this checkout and from
+OTHER_TREE (an unpacked archive of another commit), holds each of its 16
+instantiations against the twin in float64 at B = 8 and 512 from both,
+times both in float32 at B = 1, 512 and 4096 in turns (other, this,
+this, other) with each phase's device ms, and prints one `k12_versus`
+line an instantiation and no result line.
 Imports nothing of JAX.
 """
 
@@ -3497,6 +3510,7 @@ def modes_k12_times(p, sv, sizes, serving_B, k1_solver):
              k1_tassa_quu_solver=k1_solver,
              occupancy_f32=k12.occupancy(nx, nu, nt, rows, sv, f32),
              occupancy_f64=k12.occupancy(nx, nu, nt, rows, sv, f64), by_B={})
+    k12_layout_gate(k1.kernel_shape(nx, nu, nt, rows), sv, t)
     for Bw in sizes:
         a32 = modes_k12_args(p, Bw, f32)
         reps = 10 if Bw < B_LARGE else 3
@@ -3534,6 +3548,26 @@ def modes_k12_times(p, sv, sizes, serving_B, k1_solver):
         lambda: k12.riccati_associative(*modes_k12_args(p, Bw, f32), mu,
                                         rows, sv)) for Bw in (1, serving_B)}
     return t
+
+
+def k12_layout_gate(shape, sv, t):
+    """Fails unless the card's shared memory a block of each K12 phase is
+    what `riccati_associative.phase_bytes` states for `shape` and the gain
+    solve `sv`, and the combine runs COMBINE_BLOCKS_PER_SM blocks an SM (at
+    every nx: the launch bound asks it of nx = 37). Records the stated
+    bytes in `t`."""
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    t["phase_bytes"] = k12.phase_bytes(shape, sv)
+    for occ in (t["occupancy_f32"], t["occupancy_f64"]):
+        got = {p: occ[f"{p}_shared_memory_bytes"] for p in t["phase_bytes"]}
+        if got != t["phase_bytes"]:
+            fail(f"K12 at ({shape}, {sv}): shared memory a block {got} on "
+                 f"the card, {t['phase_bytes']} stated by the wrapper")
+        if occ["combine_blocks_per_sm"] < k12.COMBINE_BLOCKS_PER_SM:
+            fail(f"K12's combine at ({shape}, {sv}) runs "
+                 f"{occ['combine_blocks_per_sm']} blocks an SM, not "
+                 f"{k12.COMBINE_BLOCKS_PER_SM}: {occ}")
 
 
 def modes_k13_times(p, nA, sizes, serving_B):
@@ -3601,6 +3635,7 @@ def modes_k12_row(name, t, err, launches, serving_B, **extra):
         bound_ms_serving_B=bs["bound_ms"], plain_ms_serving_B=bs["plain_ms"],
         torch_linalg_solve_ms_f64_serving_B=t["linalg_solve_ms_f64"],
         torch_linalg_solve_stack=t["linalg_solve_stack"],
+        phase_ms_by_B=t["phases"], phase_bytes=t["phase_bytes"],
         **t["occupancy_f32"], **extra), tol_f64=K12_F64_TOL)
 
 
@@ -6277,6 +6312,221 @@ def modes_family_section(card, dev, sms, family_rows):
     return rows_out
 
 
+# ---------------- K12 against another tree's (--k12-versus) ----------------
+
+K12_VERSUS_B = (1, B_MAIN, B_LARGE)
+K12_PHASES = ("element_kernel", "combine_kernel", "gain_kernel")
+
+
+def k12_shape_point(shape, dev, seed, Bm=B_MAIN):
+    """A float64 linearization point on the card at one of K1's nine
+    shapes (`riccati.KERNEL_SHAPES` name), Bm members, made by the plain
+    linearizers (no kernel library): the SRBD and LIP problems at iterates
+    drawn as phase 13 draws them (X ± 0.05·N, U 0.1·N), the two AL inner
+    problems at `draw_isrbd_point`'s active cones and boxes. Returns (lin,
+    rows, μ, nt)."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
+                                                        point_feet)
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+
+    f64 = torch.float64
+    g = np.random.RandomState(seed)
+    feet, quad = kangaroo_line_feet(), quadruped_point_feet()
+    if shape in ("isrbd_al", "isrbd_al_quadruped"):
+        d, a = al_serving_options(1)
+        if shape == "isrbd_al":
+            prob = build_isrbd_problem(SRBDConfig(dtype=f64), feet, device=dev,
+                                       cz_rho_weight=CZ_RHO_WEIGHT)
+            draw = dict(com_z=0.88, fz=98.0, fxy=60.0, u_box=(60.0, 130.0))
+        else:
+            prob = build_isrbd_problem(
+                SRBDConfig(dtype=f64, lip_height=float(quad.com[2]),
+                           **QUAD_TOPOLOGY), quad, device=dev)
+            draw = dict(com_z=float(prob.initial_state[2]), fz=78.0, fxy=50.0,
+                        u_box=(50.0, 110.0))
+        al = ALDDP(prob.ocp, d, a)
+        s, ocp = al.inner, prob.ocp
+        X, U, _, _, params = draw_isrbd_point(al, Bm, g, dev, **draw)
+        lin = k5.isrbd_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt)
+    else:
+        base = shape[:-3] if shape.endswith("_rk") else shape
+        step = "RK2" if shape.endswith("_rk") else "EULER"
+        if base == "lip":
+            prob = build_lip_problem(SRBDConfig(dtype=f64), feet, device=dev)
+        else:
+            cfg, robot = {
+                "srbd": (SRBDConfig(dtype=f64), feet),
+                "quadruped": (SRBDConfig(dtype=f64, **QUAD_TOPOLOGY), quad),
+                "point_feet": (SRBDConfig(dtype=f64, contact_model=1,
+                                          number_of_legs=2), point_feet())}[base]
+            prob = build_srbd_problem(cfg, robot, device=dev, integrator=step)
+        s, ocp = MSDDP(prob.ocp, DDPOptions()), prob.ocp
+        X = torch.as_tensor(prob.initial_state.cpu().numpy()[None, None]
+                            + 0.05 * g.randn(Bm, ocp.ns + 1, ocp.nx),
+                            device=dev)
+        U = torch.as_tensor(0.1 * g.randn(Bm, ocp.ns, ocp.nu), device=dev)
+        params = {k: v.expand((Bm,) + tuple(v.shape)).contiguous()
+                  for k, v in ocp.params.items()}
+        plain = k10.lip_linearize_plain if base == "lip" else \
+            k4.srbd_linearize_plain
+        lin = plain(X, U, params, s.terms, s.rows, ocp.dt, s._wc(f64))
+    return lin, s.rows, s.opts.mu0, lin["Jt"].shape[1]
+
+
+def k12_build_other(tree):
+    """Start nvcc on K12's source of another tree (its
+    `srbd_horizon_tpu_torch/csrc/`) into build/kernels/versus/, its report
+    beside it; returns a function that waits for it and loads the
+    library."""
+    import ctypes
+
+    from srbd_horizon_tpu_torch.kernels import build
+
+    out = build.BUILD_DIR / "versus"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libriccati_associative.so"
+    src = Path(tree) / "srbd_horizon_tpu_torch" / "csrc" / "riccati_associative.cu"
+    log = open(out / "riccati_associative.log", "w")
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                             str(lib), str(src)], stdout=log,
+                            stderr=subprocess.STDOUT)
+
+    def done():
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {src}: "
+                 f"{(out / 'riccati_associative.log').read_text()}")
+        return ctypes.CDLL(str(lib))
+    return done
+
+
+def ptxas_report(log_text):
+    """{kernel phase: {registers, spill_stores, spill_loads}} of each of
+    K12's kernels (their largest over the instantiations) from nvcc's
+    `-Xptxas -v` report."""
+    import re
+
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = next((p for p in K12_PHASES if p in m.group(1)), None)
+            continue
+        if fn is None:
+            continue
+        r = out.setdefault(fn, dict(registers=0, spill_stores=0,
+                                    spill_loads=0))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            r["spill_stores"] = max(r["spill_stores"], int(m.group(1)))
+            r["spill_loads"] = max(r["spill_loads"], int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = max(r["registers"], int(m.group(1)))
+    return out
+
+
+def k12_occupancy_raw(lib, inst, f64):
+    """The first six values of a K12 library's occupancy entry (shared
+    memory bytes and blocks an SM of each phase), for a library of either
+    tree."""
+    import ctypes
+
+    fn = lib.riccati_associative_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 16)()
+    if fn(inst, int(f64), out) != 0:
+        fail(f"riccati_associative_occupancy({inst}) failed")
+    names = ("element", "combine", "gain")
+    return ({f"{p}_shared_memory_bytes": out[i] for i, p in enumerate(names)}
+            | {f"{p}_blocks_per_sm": out[3 + i] for i, p in enumerate(names)})
+
+
+def k12_versus(other_tree, card):
+    """K12 of this tree against K12 of `other_tree` (an unpacked archive
+    of another commit) on the same card in one process: both libraries
+    built, each instantiation checked against the twin in float64 at B =
+    8 and 512 and timed in float32 at B = 1, 512 and 4096 in turns (other,
+    this, this, other), with each phase's device ms from the profiler, the
+    blocks an SM of each phase and ptxas' registers and spills. Prints one
+    `k12_versus` line an instantiation, then ptxas' figures of both."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import build
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    other_done = k12_build_other(other_tree)
+    build.build_all(["riccati_associative"], force=True)
+    this_lib = build.library("riccati_associative")
+    other_lib = other_done()
+    emit("k12_versus_build", seconds=time.perf_counter() - t0)
+    reports = {"this": ptxas_report(build.log_path("riccati_associative")
+                                    .read_text()),
+               "other": ptxas_report((build.BUILD_DIR / "versus" /
+                                      "riccati_associative.log").read_text())}
+    libs = {"this": this_lib, "other": other_lib}
+
+    def use(which):
+        build._loaded["riccati_associative"] = libs[which]
+
+    point = {}
+    for i, (shape, sv) in enumerate(k12.KERNEL_INSTANCES):
+        if shape not in point:      # one shape's point at a time
+            point = {shape: k12_shape_point(shape, dev, SEED + 170 + i)}
+        lin, rows, mu, nt = point[shape]
+        a64 = tuple(lin[k] for k in ORDER)
+        r = dict(instance=i, shape=shape, quu_solver=sv, card=card,
+                 e64={}, ms={}, phases={}, occupancy={})
+        for Bw in (8, B_MAIN):
+            a = tuple(modes_sub(t, Bw) for t in a64)
+            ref = k12.riccati_associative_plain(*a, mu, rows, sv)
+            for which in ("other", "this"):
+                use(which)
+                got = k12.riccati_associative(*a, mu, rows, sv)
+                torch.cuda.synchronize()
+                r["e64"][f"{which}_B{Bw}"] = max(
+                    rel_err(g_, w_) for g_, w_ in zip(got, ref))
+        for which in ("other", "this"):
+            use(which)
+            r["occupancy"][which] = k12_occupancy_raw(libs[which], i, False)
+        for Bw in K12_VERSUS_B:
+            a32 = tuple(modes_sub(t, Bw).float() for t in a64)
+            reps = 10 if Bw < B_LARGE else 3
+            for which in ("other", "this", "this", "other"):
+                use(which)
+                r["ms"].setdefault(which, {}).setdefault(str(Bw), []).append(
+                    cuda_ms(lambda: k12.riccati_associative(*a32, mu, rows,
+                                                            sv), reps=reps))
+            for which in ("other", "this"):
+                use(which)
+                r["phases"].setdefault(which, {})[str(Bw)] = k12_phase_ms(
+                    lambda: k12.riccati_associative(*a32, mu, rows, sv))
+            del a32
+        use("this")
+        emit("k12_versus", **r)
+        torch.cuda.empty_cache()
+    emit("k12_versus_done", seconds=time.perf_counter() - t0,
+         instances=len(k12.KERNEL_INSTANCES), ptxas=reports)
+
+
 def main():
     if not (HERE / "srbd_horizon_tpu_torch" / "__init__.py").exists():
         fail("srbd_horizon_tpu_torch/ not found next to chip_smoke.py; run "
@@ -6333,6 +6583,11 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
+    if "--k12-versus" in sys.argv:
+        # a development run: K12 of this tree against another's, and no
+        # result line
+        k12_versus(sys.argv[sys.argv.index("--k12-versus") + 1], card)
+        return
 
     t0 = time.perf_counter()
     build.build_all(force=True)

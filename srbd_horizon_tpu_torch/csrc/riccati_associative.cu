@@ -23,7 +23,7 @@
 //      choice of pivot: the first largest |entry|) and back substitution,
 //      then forms
 //          A = A₂MA₁   b = A₂Mb + b₂   C = (A₂MC₁)A₂ᵀ + C₂
-//          η = MA₁ᵀ(η₂ + J₂b₁) + η₁    J = A₁ᵀ(J₂MA₁) + J₁;
+//          η = MA₁ᵀ(η₂ + J₂b₁) + η₁    J = (A₁ᵀJ₂)MA₁ + J₁;
 //   3. gains, a (member, node) a block, from V at n+1 (the suffix's J, η):
 //          Qu = lu + BᵀVx_d   Qux = lux + Bᵀ(V A)   Quu = R̃ + Bᵀ(V B)
 //          [k K] = −Quu⁻¹[Qu Qux]   (the same gain solve as 1)
@@ -36,7 +36,7 @@
 // SRBD topology under RK2/RK4, whose two steps share K1's shape) and with
 // the Cholesky solve alone at the two isrbd-AL shapes (the AL solver
 // always asks its inner solver for Cholesky). The AL shapes' element and
-// gain blocks are the largest (~117 KB and ~84 KB of shared memory): nu =
+// gain blocks are the largest (~84 KB and ~60 KB of shared memory): nu =
 // 30 and the 103 Gauss–Newton rows of u, with a terminal stack of 101 / 97
 // rows. Under RK every row of B is live (n_ru = nx), which only widens the
 // staged Bs; the combine depends on nx alone.
@@ -57,13 +57,40 @@
 // 34 of a member take ~29 MFLOP against ~1.4 MFLOP of the sequential sweep
 // (K1), and each moves three 33 KB records through device memory.
 // chip_smoke.py computes the bound from its own inputs. At B=1 the 20
-// dependent nodes of K1 become 6 dependent stages here; at fleet sizes the
-// scan's 20× more arithmetic sets the time.
+// dependent nodes of K1 become 6 dependent stages here, each one combine's
+// latency; at fleet sizes the scan's 20× more arithmetic sets the time.
 //
-// Design: plain FMA loops a thread an output, the blocks' operands staged
-// in shared memory in float64 (the element and gain blocks reuse K1's
-// one-warp inverse and Cholesky factor on the FP64 tensor cores). A simple
-// kernel first: no tensor-core tiles in the combines yet.
+// Design. Every matrix product and Gram runs on the FP64 tensor cores
+// (mma.sync m16n8k4 through riccati_common.cuh's `mma_seg`/`Tiles`, K1's
+// tile routine), each output rounded in order of depth as a scalar FMA
+// loop rounds it; the tiles are padded in registers (rows and columns past
+// the edge clamped and dropped, depth past the end zero), never in shared
+// memory; the tiles of the products a phase forms together are shared out
+// over the block's warps, two a warp at a time. The combine (256 threads,
+// built for three blocks an SM) stages its operands with cp.async into
+// rows whose stride is 4 mod 8 doubles (`lead`: a fragment's 16 lanes of
+// a half-warp hit 16 banks, whichever way round it is read), forms
+// I + C₁J₂ and A₁ᵀJ₂ together, then eliminates [I + C₁J₂ | A₁ | C₁ |
+// b₁ − C₁η₂] as a blocked right-looking LU with partial pivoting: a panel
+// of kPanel columns is factored by one warp in registers (the pivot by a
+// warp reduction and a ballot, the row swap and the pivot's row by
+// shuffles), its swaps and its unit-triangular solve applied to the
+// columns right of it a thread a column, and the trailing rows updated on
+// the tensor cores, warp 0 first updating the next panel's columns and
+// factoring it while the other warps update the rest: two block barriers
+// a panel. Every entry receives the unblocked elimination's fused
+// multiply-adds in its order, so the pivots and factors are those of the
+// column-by-column elimination. The back substitution is blocked the same
+// way: a thread a right-hand side solves a kBlock-row diagonal block (the
+// pivots' reciprocals kept from the factorization), the rows above are
+// updated on the tensor cores. Shared memory: the augmented matrix and
+// three nx×nx buffers — J₂ (then A₂MC₁), A₂ and A₁ᵀJ₂ — 74,740 B at
+// nx = 37. The element and gain blocks (128 threads) form their Grams and
+// products on the same tiles and keep K1's gain solves: K2's one-warp
+// inverse then a product on the tensor cores, or the Cholesky factor and
+// its substitutions a thread a column; the inverse or factor, its
+// workspace and the solution take the place of operands already
+// consumed, so that four blocks share an SM at the nx = 37 SRBD shapes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -76,7 +103,12 @@
 namespace {
 
 constexpr int kThreads = 128;            // element and gain blocks
+constexpr int kWarps = kThreads / 32;
 constexpr int kCombineThreads = 256;
+constexpr int kCombineWarps = kCombineThreads / 32;
+constexpr int kCombineBlocks = 3;        // combine blocks an SM it is built for
+constexpr int kPanel = 6;                // the elimination's panel width
+constexpr int kBlock = 8;                // the substitution's block of rows
 constexpr int kUnknownShape = -2;        // kernels/riccati_associative.py
 constexpr int kSmemExceeded = -1;
 
@@ -86,6 +118,11 @@ enum class Solve { kSchur, kCholesky };
 // The shape structs are K1's (riccati_common.cuh); the combine kernel is
 // templated on nx, so the shapes of one nx share it (37: six shapes;
 // 25: the point-feet biped's two; 30: the LIP).
+
+// A row stride of at least n doubles that is 4 mod 8: the 16 lanes of a
+// half-warp then read a tensor-core fragment (4 rows × 4 columns, either
+// way round) from 16 different banks.
+__host__ __device__ constexpr int lead(int n) { return n + (12 - n % 8) % 8; }
 
 // One element's float64 record in the workspace: A, C, J (nx×nx), b, η.
 template <int nx>
@@ -138,20 +175,97 @@ __device__ __forceinline__ double b_at(const double* Bs, const int* r, int x,
   return (q < 0 || c < 0) ? 0.0 : Bs[q * S::n_uc + c];
 }
 
+// ---- the tensor-core tiles of a block ----
+
+// Which accumulator of an Acc a tile takes (compile-time, for generic
+// lambdas).
+template <int V>
+struct Slot {
+  static constexpr int value = V;
+};
+
+// Tile `item` of an M×N product of depth K into acc.c[P] on the calling
+// warp: a(i, k) is the left factor's row i at depth k, b(k, j) the right
+// factor's column j.
+template <int M, int N, int K, int P, class FA, class FB>
+__device__ __forceinline__ void tile_mma(int item, Acc& acc, FA a, FB b) {
+  tile_acc<M, N>(item, acc, [&](Acc& c, int ia0, int ia1, int jb) {
+    mma_seg<K, P>(c, a, ia0, ia1, [&](int k) { return b(k, jb); });
+  });
+}
+
+// Each element inside the matrix of tile `item` from acc.c[P]: epi(i, j, v).
+template <int M, int N, int P, class Epi>
+__device__ __forceinline__ void tile_put(int item, const Acc& acc, Epi epi) {
+  tile_store<M, N>(item, acc, [&](int i, int j, double v0, double v1) {
+    epi(i, j, P == 0 ? v0 : v1);
+  });
+}
+
+// The calling lane's four entries of tile `item` of an M×N product, in
+// its accumulator's order: f(r, i, j) for r = 0 … 3 (i and j may lie past
+// the edge).
+template <int M, int N, class F>
+__device__ __forceinline__ void tile_each(int item, F f) {
+  const int lane = threadIdx.x & 31;
+  const int i = item / Tiles<M, N>::cols * 16 + (lane >> 2);
+  const int j = item % Tiles<M, N>::cols * 8 + 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) f(r, i + 8 * (r >> 1), j + (r & 1));
+}
+
+// `count` tiles (of one or more products, numbered by the caller) shared
+// out over the block's Warps warps, this one `warp`, two a warp at a time:
+// job(item, Slot<P>{}, acc) accumulates a tile into acc.c[P] and
+// put(item, Slot<P>{}, acc) stores it.
+template <int Warps, class Job, class Put>
+__device__ __forceinline__ void block_jobs(int warp, int count, Job job,
+                                           Put put) {
+  for (int item = warp; item < count; item += 2 * Warps) {
+    const int item2 = item + Warps;
+    Acc acc;
+    job(item, Slot<0>{}, acc);
+    if (item2 < count) job(item2, Slot<1>{}, acc);
+    put(item, Slot<0>{}, acc);
+    if (item2 < count) put(item2, Slot<1>{}, acc);
+  }
+}
+
+// One M×N product of depth K on the block's warps: epi(i, j, v).
+template <int M, int N, int K, int Warps, class FA, class FB, class Epi>
+__device__ __forceinline__ void block_mma(int warp, FA a, FB b, Epi epi) {
+  block_jobs<Warps>(
+      warp, Tiles<M, N>::count,
+      [&](int item, auto slot, Acc& acc) {
+        tile_mma<M, N, K, decltype(slot)::value>(item, acc, a, b);
+      },
+      [&](int item, auto slot, const Acc& acc) {
+        tile_put<M, N, decltype(slot)::value>(item, acc, epi);
+      });
+}
+
 // ---- phase 1: the elements ----
 
-template <class S>
+// The staged operands and quadratics, then a region that holds the
+// residual rows (Jx, Ju, their ρ) until their Grams are formed and then
+// R̃'s inverse or factor F with the solution sol (K2's workspace where sol
+// goes, before it is written).
+template <class S, Solve G>
 struct ElemSmem {
   static constexpr int nx = S::nx, nu = S::nu, W = 1 + 2 * nx;
+  static constexpr int schur = G == Solve::kSchur;
   static constexpr int Sx = 0, Bs = Sx + S::n_rx * nx,
-                       Jxp = Bs + S::n_ru * S::n_uc, Jup = Jxp + S::n_gx * nx,
-                       rxp = Jup + S::n_gu * nu, rup = rxp + S::n_gx,
-                       d = rup + S::n_gu, lx = d + nx, lu = lx + nx,
+                       d = Bs + S::n_ru * S::n_uc, lx = d + nx, lu = lx + nx,
                        lxx = lu + nu, Rt = lxx + nx * nx, lux = Rt + nu * nu,
-                       F = lux + nu * nx, work = F + nu * nu,
-                       sol = work + inv_work(nu), doubles = sol + nu * W;
-  static_assert(S::nt * nx + S::nt <= doubles, "terminal staging");
+                       Jxp = lux + nu * nx, Jup = Jxp + S::n_gx * nx,
+                       rxp = Jup + S::n_gu * nu, rup = rxp + S::n_gx,
+                       F = Jxp, work = F + nu * nu, sol = work,
+                       doubles = Jxp + cmax(S::n_gx * nx + S::n_gu * nu +
+                                                S::n_gx + S::n_gu,
+                                            nu * nu + cmax(schur * inv_work(nu),
+                                                           nu * W));
   static constexpr int bytes = doubles * 8 + Rows<S>::count * 4;
+  static_assert(S::nt * nx + S::nt <= doubles, "terminal staging");
 };
 
 template <typename T>
@@ -169,14 +283,14 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
                const int* __restrict__ table, int B, int ns, int nr, double mu,
                double* __restrict__ elems, double* __restrict__ gains,
                unsigned* __restrict__ counters) {
-  using L = ElemSmem<S>;
+  using L = ElemSmem<S, G>;
   using E = Elem<S::nx>;
   using R = Rows<S>;
   constexpr int nx = S::nx, nu = S::nu, W = L::W;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const sm = reinterpret_cast<double*>(smem_raw);
   int* const r = reinterpret_cast<int*>(sm + L::doubles);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int n = blockIdx.x;
   const size_t b = blockIdx.y;
   double* const e = elems + (static_cast<size_t>(n) * B + b) * E::size;
@@ -190,19 +304,17 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
     stage(rtv, rt + b * nt, nt, tid, kThreads);
     if (tid == 0) counters[b] = 0u;
     __syncthreads();
-    for (int i = tid; i < 2 * nx * nx + nx; i += kThreads) e[i] = 0.0;
+    for (int i = tid; i < 2 * nx * nx; i += kThreads) e[i] = 0.0;
     for (int i = tid; i < nx; i += kThreads) {
       double s = 0.0;
       for (int q = 0; q < nt; ++q) s += jt[q * nx + i] * rtv[q];
       e[E::b + i] = 0.0;
       e[E::eta + i] = 2.0 * s;
     }
-    for (int o = tid; o < nx * nx; o += kThreads) {
-      const int i = o / nx, j = o % nx;
-      double s = 0.0;
-      for (int q = 0; q < nt; ++q) s += jt[q * nx + i] * jt[q * nx + j];
-      e[E::J + o] = 2.0 * s;
-    }
+    block_mma<nx, nx, nt, kWarps>(
+        warp, [&](int i, int q) { return jt[q * nx + i]; },
+        [&](int q, int j) { return jt[q * nx + j]; },
+        [&](int i, int j, double v) { e[E::J + i * nx + j] = 2.0 * v; });
     return;
   }
 
@@ -232,7 +344,8 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   double* const F = sm + L::F;
   double* const sol = sm + L::sol;
 
-  // the Gauss–Newton quadratics, and R̃ = luu + μI
+  // the Gauss–Newton quadratics: lx, lu a thread an entry; lxx = 2JxᵀJx,
+  // R̃ = 2JuᵀJu + μI and lux = 2Ju[bu]ᵀJx[bx] on the tensor cores
   for (int i = tid; i < nx + nu; i += kThreads) {
     double s = 0.0;
     if (i < nx) {
@@ -244,22 +357,42 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
       lu[u] = 2.0 * s;
     }
   }
-  for (int o = tid; o < nx * nx + nu * nu + nu * nx; o += kThreads) {
-    double s = 0.0;
-    if (o < nx * nx) {
-      const int i = o / nx, j = o % nx;
-      for (int q = 0; q < S::n_gx; ++q) s += jx[q * nx + i] * jx[q * nx + j];
-      lxx[o] = 2.0 * s;
-    } else if (o < nx * nx + nu * nu) {
-      const int p = o - nx * nx, i = p / nu, j = p % nu;
-      for (int q = 0; q < S::n_gu; ++q) s += ju[q * nu + i] * ju[q * nu + j];
-      Rt[p] = 2.0 * s + (i == j ? mu : 0.0);
-    } else {
-      const int p = o - nx * nx - nu * nu, u = p / nx, x = p % nx;
-      for (int q = 0; q < S::n_b; ++q)
-        s += ju[r[R::bu + q] * nu + u] * jx[r[R::bx + q] * nx + x];
-      lux[p] = 2.0 * s;
-    }
+  {
+    constexpr int c0 = Tiles<nx, nx>::count, c1 = Tiles<nu, nu>::count,
+                  c2 = Tiles<nu, nx>::count;
+    auto a0 = [&](int i, int q) { return jx[q * nx + i]; };
+    auto b0 = [&](int q, int j) { return jx[q * nx + j]; };
+    auto a1 = [&](int i, int q) { return ju[q * nu + i]; };
+    auto b1 = [&](int q, int j) { return ju[q * nu + j]; };
+    auto a2 = [&](int u, int q) { return ju[r[R::bu + q] * nu + u]; };
+    auto b2 = [&](int q, int x) { return jx[r[R::bx + q] * nx + x]; };
+    block_jobs<kWarps>(
+        warp, c0 + c1 + c2,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_mma<nx, nx, S::n_gx, P>(item, acc, a0, b0);
+          else if (item < c0 + c1)
+            tile_mma<nu, nu, S::n_gu, P>(item - c0, acc, a1, b1);
+          else
+            tile_mma<nu, nx, S::n_b, P>(item - c0 - c1, acc, a2, b2);
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nx, nx, P>(item, acc, [&](int i, int j, double v) {
+              lxx[i * nx + j] = 2.0 * v;
+            });
+          else if (item < c0 + c1)
+            tile_put<nu, nu, P>(item - c0, acc, [&](int i, int j, double v) {
+              Rt[i * nu + j] = 2.0 * v + (i == j ? mu : 0.0);
+            });
+          else
+            tile_put<nu, nx, P>(item - c0 - c1, acc,
+                                [&](int u, int x, double v) {
+                                  lux[u * nx + x] = 2.0 * v;
+                                });
+        });
   }
   __syncthreads();
 
@@ -269,16 +402,13 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
                                     : b_at<S>(sBs, r, c - 1 - nx, u);
   };
   if constexpr (G == Solve::kSchur) {
-    if (tid < 32) spd_inverse_warp<nu, nu, nu>(Rt, F, sm + L::work);
+    if (warp == 0) spd_inverse_warp<nu, nu, nu>(Rt, F, sm + L::work);
     __syncthreads();
-    for (int o = tid; o < nu * W; o += kThreads) {
-      const int i = o / W, c = o % W;
-      double s = 0.0;
-      for (int u = 0; u < nu; ++u) s += F[i * nu + u] * rhs(u, c);
-      sol[o] = s;
-    }
+    block_mma<nu, W, nu, kWarps>(
+        warp, [&](int i, int u) { return F[i * nu + u]; }, rhs,
+        [&](int i, int c, double v) { sol[i * W + c] = v; });
   } else {
-    if (tid < 32) cholesky_warp<nu>(Rt, F);
+    if (warp == 0) cholesky_warp<nu>(Rt, F);
     __syncthreads();
     for (int c = tid; c < W; c += kThreads) {
       for (int u = 0; u < nu; ++u) sol[u * W + c] = rhs(u, c);
@@ -287,28 +417,49 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   }
   __syncthreads();
 
-  // the element: A − B R̃⁻¹lux, C = B R̃⁻¹Bᵀ, lxx − luxᵀR̃⁻¹lux, then b, η
-  for (int o = tid; o < 3 * nx * nx; o += kThreads) {
-    const int m = o / (nx * nx), p = o % (nx * nx), i = p / nx, j = p % nx;
-    double s = 0.0;
-    if (m < 2) {          // B row i over the live inputs
+  // the element on the tensor cores: A − B R̃⁻¹lux, C = B R̃⁻¹Bᵀ (over the
+  // live inputs; B's dead rows give exact zeros), lxx − luxᵀR̃⁻¹lux; then
+  // b and η a thread an entry
+  {
+    constexpr int c0 = Tiles<nx, nx>::count;
+    auto bl = [&](int i, int c) {
       const int q = r[R::qpos + i];
-      if (q >= 0)
-        for (int c = 0; c < S::n_uc; ++c)
-          s += sBs[q * S::n_uc + c] *
-               sol[r[R::uc + c] * W + (m == 0 ? 1 + j : 1 + nx + j)];
-      if (m == 0) {
-        const int rr = r[R::rpos + i];
-        const double a = (i == j ? 1.0 : 0.0) +
-                         (rr >= 0 ? sSx[rr * nx + j] : 0.0);
-        e[E::A + p] = a - s;
-      } else {
-        e[E::C + p] = s;
-      }
-    } else {
-      for (int u = 0; u < nu; ++u) s += lux[u * nx + i] * sol[u * W + 1 + j];
-      e[E::J + p] = lxx[p] - s;
-    }
+      return q >= 0 ? sBs[q * S::n_uc + c] : 0.0;
+    };
+    auto bA = [&](int c, int j) { return sol[r[R::uc + c] * W + 1 + j]; };
+    auto bC = [&](int c, int j) { return sol[r[R::uc + c] * W + 1 + nx + j]; };
+    auto aJ = [&](int i, int u) { return lux[u * nx + i]; };
+    auto bJ = [&](int u, int j) { return sol[u * W + 1 + j]; };
+    block_jobs<kWarps>(
+        warp, 3 * c0,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_mma<nx, nx, S::n_uc, P>(item, acc, bl, bA);
+          else if (item < 2 * c0)
+            tile_mma<nx, nx, S::n_uc, P>(item - c0, acc, bl, bC);
+          else
+            tile_mma<nx, nx, nu, P>(item - 2 * c0, acc, aJ, bJ);
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nx, nx, P>(item, acc, [&](int i, int j, double v) {
+              const int rr = r[R::rpos + i];
+              const double a = (i == j ? 1.0 : 0.0) +
+                               (rr >= 0 ? sSx[rr * nx + j] : 0.0);
+              e[E::A + i * nx + j] = a - v;
+            });
+          else if (item < 2 * c0)
+            tile_put<nx, nx, P>(item - c0, acc, [&](int i, int j, double v) {
+              e[E::C + i * nx + j] = v;
+            });
+          else
+            tile_put<nx, nx, P>(item - 2 * c0, acc,
+                                [&](int i, int j, double v) {
+                                  e[E::J + i * nx + j] = lxx[i * nx + j] - v;
+                                });
+        });
   }
   for (int i = tid; i < 2 * nx; i += kThreads) {
     double s = 0.0;
@@ -331,176 +482,452 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
 
 // ---- phase 2: one combine a block ----
 
+// The augmented matrix [I + C₁J₂ | A₁ | C₁ | b₁ − C₁η₂] (nx × Wa, stride LA),
+// J₂ (later A₂MC₁) in X, A₂ in Y, A₁ᵀJ₂ in Z (stride L each), then w =
+// η₂ + J₂b₁, b₁, η₂, the pivots' reciprocals and the pivot rows (int).
 template <int nx>
 struct CombineSmem {
-  static constexpr int Wa = 3 * nx + 1;          // [I + C₁J₂ | A₁ | C₁ | b₁ − C₁η₂]
-  static constexpr int aug = 0, J2 = aug + nx * Wa, A2 = J2 + nx * nx,
-                       T1 = A2 + nx * nx, P = T1 + nx * nx, eta2 = P + nx * nx,
-                       b1 = eta2 + nx, w = b1 + nx, doubles = w + nx;
-  static constexpr int bytes = doubles * 8 + 8;  // + the pivot's row
+  static constexpr int Wa = 3 * nx + 1, L = lead(nx), LA = lead(Wa);
+  static constexpr int aug = 0, X = aug + nx * LA, Y = X + nx * L,
+                       Z = Y + nx * L, w = Z + nx * L, b1 = w + nx,
+                       eta2 = b1 + nx, rdiag = eta2 + nx, doubles = rdiag + nx;
+  static constexpr int bytes = doubles * 8 + nx * 4;
 };
 
+// a's rows of `slot` (0: lanes 0-31, 1: lanes 32-63 of the panel) — the
+// panel has two only at nx > 32
+template <int kSlots>
+__device__ __forceinline__ double slot_of(const double (&v)[2][kPanel], int s,
+                                          int c) {
+  return kSlots > 1 && s ? v[1][c] : v[0][c];
+}
+
+// Factor the panel of columns k0 … k0+kb−1, rows k0 … nx−1, of `a` (row
+// stride LA) on the calling warp in registers, row k0 + lane (+ 32) a
+// lane. For each column in turn: the pivot is the first largest |entry|
+// on or below the diagonal (LAPACK's idamax; a NaN counts as 0), found
+// from the entries' bits by a warp reduction of their high words and a
+// ballot (a second reduction only where high words tie); its row, read by
+// every lane, is swapped with the diagonal's across the panel; the
+// entries below become the multipliers (times the pivot's reciprocal, as
+// the unblocked elimination forms them) and update the panel's later
+// columns. The pivot rows go to piv, the reciprocals to rdiag.
+template <int nx, int LA>
+__device__ void factor_panel(double* a, int* piv, double* rdiag, int k0) {
+  constexpr int kSlots = (nx + 31) / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int kb = imin(kPanel, nx - k0);
+  double v[2][kPanel];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int rw = k0 + lane + 32 * s;
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      v[s][c] = (s < kSlots && rw < nx && c < kb) ? a[rw * LA + k0 + c] : 0.0;
+  }
+#pragma unroll
+  for (int jj = 0; jj < kPanel; ++jj) {
+    if (jj >= kb) break;
+    const int j = k0 + jj;        // row j is lane jj's first
+    // this lane's candidate: its first largest |entry| at or below j
+    unsigned long long key = 0ull;
+    int slot = -1;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int rw = k0 + lane + 32 * s;
+      if (rw >= j && rw < nx) {
+        const double x = fabs(v[s][jj]);
+        const unsigned long long k =
+            x >= 0.0 ? static_cast<unsigned long long>(__double_as_longlong(x))
+                     : 0ull;
+        if (slot < 0 || k > key) {
+          key = k;
+          slot = s;
+        }
+      }
+    }
+    const unsigned hi = __reduce_max_sync(kAll, static_cast<unsigned>(key >> 32));
+    unsigned m = __ballot_sync(kAll, slot >= 0 &&
+                                         static_cast<unsigned>(key >> 32) == hi);
+    if (__popc(m) > 1) {
+      const bool in = (m >> lane) & 1u;
+      const unsigned lo =
+          __reduce_max_sync(kAll, in ? static_cast<unsigned>(key) : 0u);
+      m = __ballot_sync(kAll, in && static_cast<unsigned>(key) == lo);
+    }
+    int p;
+    if constexpr (kSlots == 1) {
+      p = k0 + __ffs(m) - 1;
+    } else {              // rows of the first slot come first
+      const unsigned m0 = __ballot_sync(kAll, ((m >> lane) & 1u) && slot == 0);
+      p = m0 ? k0 + __ffs(m0) - 1 : k0 + 31 + __ffs(m);
+    }
+    const int lp = (p - k0) & 31, sp = (p - k0) >> 5;
+    double u[kPanel];     // row p: the diagonal's row after the swap
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      u[c] = __shfl_sync(kAll, slot_of<kSlots>(v, sp, c), lp);
+    if (p != j) {
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) {
+        const double xj = __shfl_sync(kAll, v[0][c], jj);
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int rw = k0 + lane + 32 * s;
+          if (rw == j)
+            v[s][c] = u[c];
+          else if (rw == p)
+            v[s][c] = xj;
+        }
+      }
+    }
+    const double rinv = __drcp_rn(u[jj]);
+    if (lane == 0) {
+      piv[j] = p;
+      rdiag[j] = rinv;
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int rw = k0 + lane + 32 * s;
+      if (rw > j && rw < nx) {
+        const double l = v[s][jj] * rinv;
+        v[s][jj] = l;
+#pragma unroll
+        for (int c = jj + 1; c < kPanel; ++c) v[s][c] = fma(-l, u[c], v[s][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int rw = k0 + lane + 32 * s;
+    if (rw < nx)
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c)
+        if (c < kb) a[rw * LA + k0 + c] = v[s][c];
+  }
+}
+
+// The panel k0 … k0+kb−1's row swaps, in order, and its unit lower
+// triangular solve (U₁₂ = L₁₁⁻¹A₁₂) on column c.
+template <int LA>
+__device__ __forceinline__ void swap_and_solve(double* a, const int* piv,
+                                               int k0, int kb, int c) {
+  for (int jj = 0; jj < kb; ++jj) {
+    const int j = k0 + jj, p = piv[j];
+    if (p != j) {
+      const double t = a[j * LA + c];
+      a[j * LA + c] = a[p * LA + c];
+      a[p * LA + c] = t;
+    }
+  }
+  double x[kPanel];
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) x[i] = i < kb ? a[(k0 + i) * LA + c] : 0.0;
+#pragma unroll
+  for (int i = 1; i < kPanel; ++i)
+    if (i < kb) {
+#pragma unroll
+      for (int l = 0; l < i; ++l)
+        x[i] = fma(-a[(k0 + i) * LA + k0 + l], x[l], x[i]);
+      a[(k0 + i) * LA + c] = x[i];
+    }
+}
+
+// The elimination's tile at rows r0 …, columns c0 … of the window rows
+// < R1, columns < C1 into acc.c[P]: its entries, then − a[:, kbase …
+// kbase+kb) · a[kbase … kbase+kb, :] in kb fused multiply-adds in order of
+// k (zero past kb).
+template <int LA, int K, int P>
+__device__ __forceinline__ void elim_acc(const double* a, Acc& acc, int r0,
+                                         int c0, int R1, int C1, int kbase,
+                                         int kb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = r0 + g + 8 * h, j = c0 + 2 * t + q;
+      acc.c[P][2 * h + q] = (i < R1 && j < C1) ? a[i * LA + j] : 0.0;
+    }
+  const int jb = imin(c0 + g, C1 - 1);
+  mma_seg<K, P>(
+      acc,
+      [&](int i, int k) { return k < kb ? -a[i * LA + kbase + k] : 0.0; },
+      imin(r0 + g, R1 - 1), imin(r0 + g + 8, R1 - 1),
+      [&](int k) { return k < kb ? a[(kbase + k) * LA + jb] : 0.0; });
+}
+
+template <int LA, int P>
+__device__ __forceinline__ void elim_put(double* a, const Acc& acc, int r0,
+                                         int c0, int R1, int C1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = r0 + g + 8 * h, j = c0 + 2 * t + q;
+      if (i < R1 && j < C1) a[i * LA + j] = acc.c[P][2 * h + q];
+    }
+}
+
+// a[R0 … R1, C0 … C1) −= a[R0 …, kbase … kbase+kb) · a[kbase … kbase+kb,
+// C0 …) on the tensor cores: the window's 16×8 tiles numbered row-major,
+// this warp taking tiles first, first + stride, … two at a time.
+template <int LA, int K>
+__device__ __forceinline__ void elim_tiles(double* a, int R0, int R1, int C0,
+                                           int C1, int kbase, int kb,
+                                           int first, int stride) {
+  const int ct = (C1 - C0 + 7) >> 3, count = ((R1 - R0 + 15) >> 4) * ct;
+  for (int item = first; item < count; item += 2 * stride) {
+    const int item2 = item + stride;
+    const int r0 = R0 + item / ct * 16, c0 = C0 + item % ct * 8;
+    const int r1 = R0 + item2 / ct * 16, c1 = C0 + item2 % ct * 8;
+    Acc acc;
+    elim_acc<LA, K, 0>(a, acc, r0, c0, R1, C1, kbase, kb);
+    if (item2 < count) elim_acc<LA, K, 1>(a, acc, r1, c1, R1, C1, kbase, kb);
+    elim_put<LA, 0>(a, acc, r0, c0, R1, C1);
+    if (item2 < count) elim_put<LA, 1>(a, acc, r1, c1, R1, C1);
+  }
+}
+
 template <int nx>
-__global__ void __launch_bounds__(kCombineThreads)
+__global__ void __launch_bounds__(kCombineThreads, kCombineBlocks)
 combine_kernel(double* __restrict__ elems, const int* __restrict__ plan,
                int B) {
   using L = CombineSmem<nx>;
   using E = Elem<nx>;
-  constexpr int Wa = L::Wa, nt = kCombineThreads;
+  constexpr int W = L::Wa, LA = L::LA, LD = L::L, nt = kCombineThreads;
+  constexpr int nblk = (nx + kBlock - 1) / kBlock;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const sm = reinterpret_cast<double*>(smem_raw);
   int* const piv = reinterpret_cast<int*>(sm + L::doubles);
   double* const a = sm + L::aug;
-  double* const J2 = sm + L::J2;
-  double* const A2 = sm + L::A2;
-  double* const T1 = sm + L::T1;
-  double* const P = sm + L::P;
-  double* const eta2 = sm + L::eta2;
-  double* const b1 = sm + L::b1;
+  double* const X = sm + L::X;
+  double* const Y = sm + L::Y;
+  double* const Z = sm + L::Z;
   double* const w = sm + L::w;
-  const int tid = threadIdx.x, lane = tid & 31;
+  double* const b1 = sm + L::b1;
+  double* const eta2 = sm + L::eta2;
+  double* const rdiag = sm + L::rdiag;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const size_t b = blockIdx.y;
   const int* c = plan + 3 * blockIdx.x;         // out, earlier, later
   double* const eo = elems + (static_cast<size_t>(c[0]) * B + b) * E::size;
   const double* const e1 = elems + (static_cast<size_t>(c[1]) * B + b) * E::size;
   const double* const e2 = elems + (static_cast<size_t>(c[2]) * B + b) * E::size;
+  static_assert(2 * nx <= kCombineThreads, "a thread an entry of b and η");
+  // b₂ or η₁ for this thread's entry of the output's b or η, read now
+  const double add = tid < nx ? e2[E::b + tid]
+                     : tid < 2 * nx ? e1[E::eta + tid - nx] : 0.0;
 
+  // J₂ → X, A₂ → Y, A₁ and C₁ → a's columns nx … 3nx−1, b₁, η₂
   for (int o = tid; o < nx * nx; o += nt) {
     const int i = o / nx, j = o % nx;
-    J2[o] = e2[E::J + o];
-    A2[o] = e2[E::A + o];
-    a[i * Wa + nx + j] = e1[E::A + o];
-    a[i * Wa + 2 * nx + j] = e1[E::C + o];
+    cp_async<8>(X + i * LD + j, e2 + E::J + o);
+    cp_async<8>(Y + i * LD + j, e2 + E::A + o);
+    cp_async<8>(a + i * LA + nx + j, e1 + E::A + o);
+    cp_async<8>(a + i * LA + 2 * nx + j, e1 + E::C + o);
   }
   for (int i = tid; i < nx; i += nt) {
-    eta2[i] = e2[E::eta + i];
-    b1[i] = e1[E::b + i];
+    cp_async<8>(b1 + i, e1 + E::b + i);
+    cp_async<8>(eta2 + i, e2 + E::eta + i);
   }
+  cp_async_wait_all();
   __syncthreads();
-  // I + C₁J₂ and b₁ − C₁η₂
-  for (int o = tid; o < nx * nx + nx; o += nt) {
-    const int i = o / nx, j = o % nx;
-    const double* c1 = a + i * Wa + 2 * nx;
+
+  // I + C₁J₂ → a's columns 0 … nx−1 and A₁ᵀJ₂ → Z, their tiles together;
+  // b₁ − C₁η₂ → a's column 3nx and w = η₂ + J₂b₁
+  {
+    constexpr int c0 = Tiles<nx, nx>::count;
+    auto aG = [&](int i, int k) { return a[i * LA + 2 * nx + k]; };
+    auto aS = [&](int i, int k) { return a[k * LA + nx + i]; };
+    auto bJ = [&](int k, int j) { return X[k * LD + j]; };
+    block_jobs<kCombineWarps>(
+        warp, 2 * c0,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_mma<nx, nx, nx, P>(item, acc, aG, bJ);
+          else
+            tile_mma<nx, nx, nx, P>(item - c0, acc, aS, bJ);
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nx, nx, P>(item, acc, [&](int i, int j, double v) {
+              a[i * LA + j] = (i == j ? 1.0 : 0.0) + v;
+            });
+          else
+            tile_put<nx, nx, P>(item - c0, acc, [&](int i, int j, double v) {
+              Z[i * LD + j] = v;
+            });
+        });
+  }
+  for (int o = tid; o < 2 * nx; o += nt) {
     double s = 0.0;
-    if (i < nx) {
-      for (int k = 0; k < nx; ++k) s += c1[k] * J2[k * nx + j];
-      a[i * Wa + j] = (i == j ? 1.0 : 0.0) + s;
+    if (o < nx) {
+      for (int k = 0; k < nx; ++k) s += a[o * LA + 2 * nx + k] * eta2[k];
+      a[o * LA + 3 * nx] = b1[o] - s;
     } else {
-      const double* c1r = a + j * Wa + 2 * nx;
-      for (int k = 0; k < nx; ++k) s += c1r[k] * eta2[k];
-      a[j * Wa + 3 * nx] = b1[j] - s;
-    }
-  }
-  __syncthreads();
-
-  // Gaussian elimination with partial pivoting across all Wa columns
-  for (int k = 0; k < nx; ++k) {
-    if (tid < 32) {
-      double best = -1.0;
-      int at = k;
-      for (int i = k + lane; i < nx; i += 32) {
-        const double v = fabs(a[i * Wa + k]);
-        if (v > best) {
-          best = v;
-          at = i;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const double ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, at, off);
-        if (ob > best || (ob == best && oa < at)) {
-          best = ob;
-          at = oa;
-        }
-      }
-      if (lane == 0) *piv = at;
-    }
-    __syncthreads();
-    const int p = *piv;
-    if (p != k)
-      for (int j = k + tid; j < Wa; j += nt) {
-        const double t = a[k * Wa + j];
-        a[k * Wa + j] = a[p * Wa + j];
-        a[p * Wa + j] = t;
-      }
-    __syncthreads();
-    const double rinv = 1.0 / a[k * Wa + k];
-    const int rows = nx - 1 - k, cols = Wa - 1 - k;
-    for (int o = tid; o < rows * cols; o += nt) {
-      const int i = k + 1 + o / cols, j = k + 1 + o % cols;
-      a[i * Wa + j] -= (a[i * Wa + k] * rinv) * a[k * Wa + j];
-    }
-    __syncthreads();
-  }
-  // back substitution, a thread a right-hand side, in place
-  for (int col = nx + tid; col < Wa; col += nt)
-    for (int i = nx - 1; i >= 0; --i) {
-      double s = a[i * Wa + col];
-      for (int j = i + 1; j < nx; ++j) s -= a[i * Wa + j] * a[j * Wa + col];
-      a[i * Wa + col] = s / a[i * Wa + i];
-    }
-  __syncthreads();
-
-  // M = [MA₁ | MC₁ | Mb] in a's columns nx … 3nx
-  const double* M = a + nx;
-  for (int o = tid; o < 3 * nx * nx + 2 * nx; o += nt) {
-    double s = 0.0;
-    if (o < 3 * nx * nx) {
-      const int m = o / (nx * nx), p = o % (nx * nx), i = p / nx, j = p % nx;
-      if (m == 0) {                       // A = A₂MA₁
-        for (int k = 0; k < nx; ++k) s += A2[i * nx + k] * M[k * Wa + j];
-        eo[E::A + p] = s;
-      } else if (m == 1) {                // J₂MA₁
-        for (int k = 0; k < nx; ++k) s += J2[i * nx + k] * M[k * Wa + j];
-        T1[p] = s;
-      } else {                            // A₂MC₁
-        for (int k = 0; k < nx; ++k) s += A2[i * nx + k] * M[k * Wa + nx + j];
-        P[p] = s;
-      }
-    } else if (o < 3 * nx * nx + nx) {    // b = A₂Mb + b₂
-      const int i = o - 3 * nx * nx;
-      for (int k = 0; k < nx; ++k) s += A2[i * nx + k] * M[k * Wa + 2 * nx];
-      eo[E::b + i] = s + e2[E::b + i];
-    } else {                              // η₂ + J₂b₁
-      const int i = o - 3 * nx * nx - nx;
-      for (int k = 0; k < nx; ++k) s += J2[i * nx + k] * b1[k];
+      const int i = o - nx;
+      for (int k = 0; k < nx; ++k) s += X[i * LD + k] * b1[k];
       w[i] = eta2[i] + s;
     }
   }
   __syncthreads();
-  for (int o = tid; o < nx * nx; o += nt) J2[o] = e1[E::A + o];   // A₁
+
+  // the blocked LU with partial pivoting across all W columns: a panel's
+  // swaps and solve a thread a column, then warp 0 updates the next
+  // panel's columns and factors that panel while the other warps update
+  // every column right of them
+  if (warp == 0) factor_panel<nx, LA>(a, piv, rdiag, 0);
   __syncthreads();
-  const double* A1 = J2;
-  for (int o = tid; o < 2 * nx * nx + nx; o += nt) {
-    double s = 0.0;
-    if (o < nx * nx) {                    // C = (A₂MC₁)A₂ᵀ + C₂
-      const int i = o / nx, j = o % nx;
-      for (int k = 0; k < nx; ++k) s += P[i * nx + k] * A2[j * nx + k];
-      eo[E::C + o] = s + e2[E::C + o];
-    } else if (o < 2 * nx * nx) {         // J = A₁ᵀ(J₂MA₁) + J₁
-      const int p = o - nx * nx, i = p / nx, j = p % nx;
-      for (int k = 0; k < nx; ++k) s += A1[k * nx + i] * T1[k * nx + j];
-      eo[E::J + p] = s + e1[E::J + p];
-    } else {                              // η = MA₁ᵀw + η₁
-      const int i = o - 2 * nx * nx;
-      for (int k = 0; k < nx; ++k) s += M[k * Wa + i] * w[k];
-      eo[E::eta + i] = s + e1[E::eta + i];
+  for (int k0 = 0; k0 < nx; k0 += kPanel) {
+    const int kb = imin(kPanel, nx - k0), r0 = k0 + kb;
+    for (int col = r0 + tid; col < W; col += nt)
+      swap_and_solve<LA>(a, piv, k0, kb, col);
+    __syncthreads();
+    if (r0 < nx) {
+      if (warp == 0) {
+        elim_tiles<LA, kPanel>(a, r0, nx, r0, r0 + kPanel, k0, kb, 0, 1);
+        __syncwarp();
+        factor_panel<nx, LA>(a, piv, rdiag, r0);
+      } else {
+        elim_tiles<LA, kPanel>(a, r0, nx, r0 + kPanel, W, k0, kb, warp - 1,
+                       kCombineWarps - 1);
+      }
     }
+    __syncthreads();
+  }
+
+  // the back substitution U M = a[:, nx …], M in place: bottom block
+  // first, a thread a right-hand side on its diagonal block, then the rows
+  // above on the tensor cores
+  for (int K = nblk - 1; K >= 0; --K) {
+    const int r0 = K * kBlock, kb = imin(kBlock, nx - r0);
+    for (int col = nx + tid; col < W; col += nt) {
+      double x[kBlock];
+#pragma unroll
+      for (int i = 0; i < kBlock; ++i)
+        x[i] = i < kb ? a[(r0 + i) * LA + col] : 0.0;
+#pragma unroll
+      for (int i = kBlock - 1; i >= 0; --i)
+        if (i < kb) {
+          double s = x[i];
+#pragma unroll
+          for (int l = i + 1; l < kBlock; ++l)
+            if (l < kb) s = fma(-a[(r0 + i) * LA + r0 + l], x[l], s);
+          x[i] = s * rdiag[r0 + i];
+          a[(r0 + i) * LA + col] = x[i];
+        }
+    }
+    __syncthreads();
+    if (r0 > 0) {
+      elim_tiles<LA, kBlock>(a, 0, r0, nx, W, r0, kb, warp, kCombineWarps);
+      __syncthreads();
+    }
+  }
+
+  // M = [MA₁ | MC₁ | Mb] in a's columns nx … 3nx: A = A₂MA₁ and J =
+  // (A₁ᵀJ₂)MA₁ + J₁ to the record, A₂MC₁ → X, their tiles together (each
+  // tile of J reads its J₁ before its products); b = A₂Mb + b₂ and η =
+  // MA₁ᵀw + η₁
+  const double* M = a + nx;
+  {
+    constexpr int c0 = Tiles<nx, nx>::count;
+    auto aY = [&](int i, int k) { return Y[i * LD + k]; };
+    auto aZ = [&](int i, int k) { return Z[i * LD + k]; };
+    auto bA = [&](int k, int j) { return M[k * LA + j]; };
+    auto bC = [&](int k, int j) { return M[k * LA + nx + j]; };
+    double pre[2][4];
+    block_jobs<kCombineWarps>(
+        warp, 3 * c0,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0) {
+            tile_mma<nx, nx, nx, P>(item, acc, aY, bA);
+          } else if (item < 2 * c0) {
+            tile_each<nx, nx>(item - c0, [&](int r, int i, int j) {
+              pre[P][r] = i < nx && j < nx ? e1[E::J + i * nx + j] : 0.0;
+            });
+            tile_mma<nx, nx, nx, P>(item - c0, acc, aZ, bA);
+          } else {
+            tile_mma<nx, nx, nx, P>(item - 2 * c0, acc, aY, bC);
+          }
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nx, nx, P>(item, acc, [&](int i, int j, double v) {
+              eo[E::A + i * nx + j] = v;
+            });
+          else if (item < 2 * c0)
+            tile_each<nx, nx>(item - c0, [&](int r, int i, int j) {
+              if (i < nx && j < nx)
+                eo[E::J + i * nx + j] = acc.c[P][r] + pre[P][r];
+            });
+          else
+            tile_put<nx, nx, P>(item - 2 * c0, acc,
+                                [&](int i, int j, double v) {
+                                  X[i * LD + j] = v;
+                                });
+        });
+  }
+  if (tid < 2 * nx) {
+    double s = 0.0;
+    if (tid < nx) {
+      for (int k = 0; k < nx; ++k) s += Y[tid * LD + k] * M[k * LA + 2 * nx];
+      eo[E::b + tid] = s + add;
+    } else {
+      const int i = tid - nx;
+      for (int k = 0; k < nx; ++k) s += M[k * LA + i] * w[k];
+      eo[E::eta + i] = s + add;
+    }
+  }
+  __syncthreads();
+  // C = (A₂MC₁)A₂ᵀ + C₂, each tile reading its C₂ before its products
+  {
+    double pre[2][4];
+    block_jobs<kCombineWarps>(
+        warp, Tiles<nx, nx>::count,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          tile_each<nx, nx>(item, [&](int r, int i, int j) {
+            pre[P][r] = i < nx && j < nx ? e2[E::C + i * nx + j] : 0.0;
+          });
+          tile_mma<nx, nx, nx, P>(
+              item, acc, [&](int i, int k) { return X[i * LD + k]; },
+              [&](int k, int j) { return Y[j * LD + k]; });
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          tile_each<nx, nx>(item, [&](int r, int i, int j) {
+            if (i < nx && j < nx)
+              eo[E::C + i * nx + j] = acc.c[P][r] + pre[P][r];
+          });
+        });
   }
 }
 
 // ---- phase 3: the gains ----
 
-template <class S>
+// The staged operands and Q terms, then a region that holds d, V, v and
+// the products V A, V B and Vx_d until the Q terms are formed and then
+// Quu's inverse or factor F, K2's workspace and [k K].
+template <class S, Solve G>
 struct GainSmem {
   static constexpr int nx = S::nx, nu = S::nu, Wk = 1 + nx;
+  static constexpr int schur = G == Solve::kSchur;
   static constexpr int Sx = 0, Bs = Sx + S::n_rx * nx,
-                       d = Bs + S::n_ru * S::n_uc, V = d + nx, v = V + nx * nx,
-                       Qu = v + nx, Qux = Qu + nu, Quu = Qux + nu * nx,
-                       Vxd = Quu + nu * nu, VA = Vxd + nx, VB = VA + nx * nx,
-                       F = VB + nx * nu, work = F + nu * nu,
-                       kK = work + inv_work(nu), red = kK + nu * Wk,
-                       doubles = red + 2;
+                       Qu = Bs + S::n_ru * S::n_uc, Qux = Qu + nu,
+                       Quu = Qux + nu * nx, d = Quu + nu * nu, V = d + nx,
+                       v = V + nx * nx, Vxd = v + nx, VA = Vxd + nx,
+                       VB = VA + nx * nx, F = d, work = F + nu * nu,
+                       kK = work + schur * inv_work(nu),
+                       doubles = d + cmax(3 * nx + 2 * nx * nx + nx * nu,
+                                          nu * nu + schur * inv_work(nu) +
+                                              nu * Wk);
   static constexpr int bytes = doubles * 8 + Rows<S>::count * 4 + 4;
 };
 
@@ -513,7 +940,7 @@ gain_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
             double* __restrict__ terms, unsigned* __restrict__ counters,
             T* __restrict__ ks, T* __restrict__ Ks, T* __restrict__ dV1,
             T* __restrict__ dV2) {
-  using L = GainSmem<S>;
+  using L = GainSmem<S, G>;
   using E = Elem<S::nx>;
   using R = Rows<S>;
   constexpr int nx = S::nx, nu = S::nu, Wk = L::Wk;
@@ -551,42 +978,79 @@ gain_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   double* const F = sm + L::F;
   double* const kK = sm + L::kK;
 
-  // Vx_d = Vx + Vxx d;  V A = V + V[:, rx] Sx;  V B = V[:, ru] Bs
-  for (int o = tid; o < nx + nx * nx + nx * nu; o += kThreads) {
+  // Vx_d = Vx + Vxx d a thread an entry; V A = V + V[:, rx] Sx and
+  // V B = V[:, ru] Bs on the tensor cores
+  for (int o = tid; o < nx; o += kThreads) {
     double s = 0.0;
-    if (o < nx) {
-      for (int j = 0; j < nx; ++j) s += V[o * nx + j] * sm[L::d + j];
-      Vxd[o] = sm[L::v + o] + s;
-    } else if (o < nx + nx * nx) {
-      const int p = o - nx, i = p / nx, j = p % nx;
-      for (int q = 0; q < S::n_rx; ++q)
-        s += V[i * nx + r[q]] * sSx[q * nx + j];
-      VA[p] = V[p] + s;
-    } else {
-      const int p = o - nx - nx * nx, i = p / nu, u = p % nu;
-      const int cu = r[R::upos + u];
-      if (cu >= 0)
-        for (int q = 0; q < S::n_ru; ++q)
-          s += V[i * nx + r[R::ru + q]] * sBs[q * S::n_uc + cu];
-      VB[p] = s;
-    }
+    for (int j = 0; j < nx; ++j) s += V[o * nx + j] * sm[L::d + j];
+    Vxd[o] = sm[L::v + o] + s;
+  }
+  auto bu = [&](int q, int u) {           // Bs at input u, zero if dead
+    const int cu = r[R::upos + u];
+    return cu >= 0 ? sBs[q * S::n_uc + cu] : 0.0;
+  };
+  {
+    constexpr int c0 = Tiles<nx, nx>::count, c1 = Tiles<nx, nu>::count;
+    auto aA = [&](int i, int q) { return V[i * nx + r[q]]; };
+    auto bA = [&](int q, int j) { return sSx[q * nx + j]; };
+    auto aB = [&](int i, int q) { return V[i * nx + r[R::ru + q]]; };
+    block_jobs<kWarps>(
+        warp, c0 + c1,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_mma<nx, nx, S::n_rx, P>(item, acc, aA, bA);
+          else
+            tile_mma<nx, nu, S::n_ru, P>(item - c0, acc, aB, bu);
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nx, nx, P>(item, acc, [&](int i, int j, double v) {
+              VA[i * nx + j] = V[i * nx + j] + v;
+            });
+          else
+            tile_put<nx, nu, P>(item - c0, acc, [&](int i, int u, double v) {
+              VB[i * nu + u] = v;
+            });
+        });
   }
   __syncthreads();
-  // Qu = lu + BᵀVx_d, Qux = lux + Bᵀ(V A), Quu = R̃ + Bᵀ(V B), in place
-  for (int o = tid; o < nu + nu * nx + nu * nu; o += kThreads) {
-    const int u = o < nu ? o : o < nu + nu * nx ? (o - nu) / nx
-                                                : (o - nu - nu * nx) / nu;
+  // Qu = lu + BᵀVx_d a thread an entry; Qux = lux + Bᵀ(V A) and Quu = R̃ +
+  // Bᵀ(V B) on the tensor cores, in place
+  for (int u = tid; u < nu; u += kThreads) {
     const int cu = r[R::upos + u];
     double s = 0.0;
     if (cu >= 0)
-      for (int q = 0; q < S::n_ru; ++q) {
-        const int x = r[R::ru + q];
-        const double bq = sBs[q * S::n_uc + cu];
-        s += bq * (o < nu ? Vxd[x]
-                   : o < nu + nu * nx ? VA[x * nx + (o - nu) % nx]
-                                      : VB[x * nu + (o - nu - nu * nx) % nu]);
-      }
-    Qu[o] += s;                                  // Qu, Qux, Quu contiguous
+      for (int q = 0; q < S::n_ru; ++q)
+        s += sBs[q * S::n_uc + cu] * Vxd[r[R::ru + q]];
+    Qu[u] += s;
+  }
+  {
+    constexpr int c0 = Tiles<nu, nx>::count, c1 = Tiles<nu, nu>::count;
+    auto aT = [&](int u, int q) { return bu(q, u); };
+    auto bX = [&](int q, int j) { return VA[r[R::ru + q] * nx + j]; };
+    auto bU = [&](int q, int v2) { return VB[r[R::ru + q] * nu + v2]; };
+    block_jobs<kWarps>(
+        warp, c0 + c1,
+        [&](int item, auto slot, Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_mma<nu, nx, S::n_ru, P>(item, acc, aT, bX);
+          else
+            tile_mma<nu, nu, S::n_ru, P>(item - c0, acc, aT, bU);
+        },
+        [&](int item, auto slot, const Acc& acc) {
+          constexpr int P = decltype(slot)::value;
+          if (item < c0)
+            tile_put<nu, nx, P>(item, acc, [&](int u, int j, double v) {
+              Qux[u * nx + j] += v;
+            });
+          else
+            tile_put<nu, nu, P>(item - c0, acc, [&](int u, int v2, double v) {
+              Quu[u * nu + v2] += v;
+            });
+        });
   }
   __syncthreads();
 
@@ -596,13 +1060,10 @@ gain_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   if constexpr (G == Solve::kSchur) {
     if (warp == 0) spd_inverse_warp<nu, nu, nu>(Quu, F, sm + L::work);
     __syncthreads();
-    for (int o = tid; o < nu * Wk; o += kThreads) {
-      const int i = o / Wk, c = o % Wk;
-      double s = 0.0;
-      for (int u = 0; u < nu; ++u)
-        s += F[i * nu + u] * (c == 0 ? Qu[u] : Qux[u * nx + c - 1]);
-      kK[o] = -s;
-    }
+    block_mma<nu, Wk, nu, kWarps>(
+        warp, [&](int i, int u) { return F[i * nu + u]; },
+        [&](int u, int c) { return c == 0 ? Qu[u] : Qux[u * nx + c - 1]; },
+        [&](int i, int c, double v) { kK[i * Wk + c] = -v; });
   } else {
     if (warp == 0) cholesky_warp<nu>(Quu, F);
     __syncthreads();
@@ -680,9 +1141,9 @@ int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
   if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double mu_t = static_cast<double>(static_cast<T>(mu));  // as the twin rounds it
-  int err = opt_in(element_kernel<S, T, G>, ElemSmem<S>::bytes);
+  int err = opt_in(element_kernel<S, T, G>, ElemSmem<S, G>::bytes);
   if (err != 0) return err;
-  element_kernel<S, T, G><<<dim3(ns + 1, B), kThreads, ElemSmem<S>::bytes,
+  element_kernel<S, T, G><<<dim3(ns + 1, B), kThreads, ElemSmem<S, G>::bytes,
                             st>>>(
       static_cast<const T*>(Sx), static_cast<const T*>(Bs),
       static_cast<const T*>(Jxp), static_cast<const T*>(Jup),
@@ -702,9 +1163,9 @@ int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
     if (err != 0) return err;
     off += stage_counts[s];
   }
-  err = opt_in(gain_kernel<S, T, G>, GainSmem<S>::bytes);
+  err = opt_in(gain_kernel<S, T, G>, GainSmem<S, G>::bytes);
   if (err != 0) return err;
-  gain_kernel<S, T, G><<<dim3(ns, B), kThreads, GainSmem<S>::bytes, st>>>(
+  gain_kernel<S, T, G><<<dim3(ns, B), kThreads, GainSmem<S, G>::bytes, st>>>(
       static_cast<const T*>(Sx), static_cast<const T*>(Bs),
       static_cast<const T*>(d), static_cast<const int*>(rows), B, ns, elems,
       gains, suffix, terms, counters, static_cast<T*>(ks),
@@ -752,12 +1213,21 @@ int with_instance(int inst, Fn fn) {
   }
 }
 
+// blocks of `kernel` resident on one SM at `threads` and `bytes` of
+// dynamic shared memory, into out[0]; its registers a thread and local
+// (spilled) bytes a thread into out[3] and out[6]
 template <class Kernel>
 int blocks_of(Kernel kernel, int threads, int bytes, int* out) {
-  const int err = opt_in(kernel, bytes);
+  int err = opt_in(kernel, bytes);
   if (err != 0) return err;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, kernel, threads, bytes));
+  if (err != 0) return err;
+  cudaFuncAttributes attr;
+  err = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  out[3] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return err;
 }
 
 }  // namespace
@@ -794,16 +1264,18 @@ int blocks_of(Kernel kernel, int threads, int bytes, int* out) {
 ASSOC_ENTRY(riccati_associative_f32, float)
 ASSOC_ENTRY(riccati_associative_f64, double)
 
-// Shared memory bytes a block of each phase takes (element, combine, gain),
-// and blocks of each resident on one SM, into out[0..5], for instantiation
-// `inst` and float32 (f64 = 0) or float64 tensors.
+// Shared memory bytes a block of each phase takes (element, combine, gain)
+// into out[0..2], blocks of each resident on one SM into out[3..5], their
+// registers a thread into out[6..8] and their local (spilled) bytes a
+// thread into out[9..11], for instantiation `inst` and float32 (f64 = 0)
+// or float64 tensors.
 extern "C" int riccati_associative_occupancy(int inst, int f64, int* out) {
   return with_instance(inst, [&](auto in) {
     using I = decltype(in);
     using S = typename I::S;
-    out[0] = ElemSmem<S>::bytes;
+    out[0] = ElemSmem<S, I::G>::bytes;
     out[1] = CombineSmem<S::nx>::bytes;
-    out[2] = GainSmem<S>::bytes;
+    out[2] = GainSmem<S, I::G>::bytes;
     int err = f64 ? blocks_of(element_kernel<S, double, I::G>, kThreads,
                               out[0], out + 3)
                   : blocks_of(element_kernel<S, float, I::G>, kThreads,

@@ -27,6 +27,19 @@ the twin makes the same combines on the same operands in the same order
 (34 for the 21 elements of ns = 20). `scan_plan` records that tree as the
 kernel's table: each combine's output slot and its two operands, grouped
 by dependency depth (6 stages at ns = 20), one kernel launch a stage.
+
+On the card every product and Gram of the three phases runs on the FP64
+tensor cores, and a combine eliminates its (I + C₁J₂) system as a blocked
+right-looking LU with partial pivoting, panels of 6 columns, with a
+blocked back substitution. `phase_bytes` states the shared memory a block
+of each phase takes, as the .cu lays it out: the combine's 74,740 B at
+nx = 37 let three blocks share an SM (`COMBINE_BLOCKS_PER_SM`); the
+element and gain blocks put the inverse, its workspace and the solution
+where the residual rows and the value-function products were once those
+are consumed, so that four share an SM at the nx = 37 SRBD shapes and the
+element block of the isrbd-AL shapes fits two (≤ 115,712 B); `occupancy`
+reads the same figures, the blocks an SM, registers and spilled bytes of
+each phase on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch
 
 from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
 from srbd_horizon_tpu_torch.kernels.riccati import (
+    KERNEL_SHAPES,
     QUU_SOLVERS,
     RiccatiRows,
     kernel_shape,
@@ -76,6 +90,44 @@ KERNEL_INSTANCES = (
 # the launchers' own errors, as K1's (kernels/riccati.py)
 SMEM_EXCEEDED = -1
 UNKNOWN_SHAPE = -2
+# the combine's blocks an SM, as its launch bound asks
+# (csrc/riccati_associative.cu kCombineBlocks)
+COMBINE_BLOCKS_PER_SM = 3
+
+
+def lead(n: int) -> int:
+    """The .cu's `lead`: a row stride of at least n doubles that is 4 mod
+    8."""
+    return n + (12 - n % 8) % 8
+
+
+def inv_work(n: int) -> int:
+    """riccati_common.cuh's `inv_work`: K2's float64 workspace at n×n."""
+    if n <= 3:
+        return 0
+    k, m = n // 2, n - n // 2
+    return k * m * 2 + m * m + max(inv_work(k), inv_work(m))
+
+
+def phase_bytes(shape: str, quu_solver: str) -> Dict[str, int]:
+    """The shared memory bytes a block of each phase takes at K1's shape
+    `shape` with the gain solve `quu_solver`, as csrc/riccati_associative.cu
+    lays them out (`ElemSmem`, `CombineSmem`, `GainSmem`)."""
+    z = KERNEL_SHAPES[shape]
+    nx, nu = z["nx"], z["nu"]
+    schur = int(quu_solver == "schur")
+    rows = (z["n_rx"] + z["n_ru"] + z["n_gx"] + z["n_gu"] + 2 * z["n_b"]
+            + z["n_uc"] + nu + 2 * nx)
+    sliced = z["n_rx"] * nx + z["n_ru"] * z["n_uc"]
+    element = (sliced + 2 * nx + nu + nx * nx + nu * nu + nu * nx
+               + max(z["n_gx"] * nx + z["n_gu"] * nu + z["n_gx"] + z["n_gu"],
+                     nu * nu + max(schur * inv_work(nu), nu * (1 + 2 * nx))))
+    combine = nx * lead(3 * nx + 1) + 3 * nx * lead(nx) + 4 * nx
+    gain = (sliced + nu + nu * nx + nu * nu
+            + max(3 * nx + 2 * nx * nx + nx * nu,
+                  nu * nu + schur * inv_work(nu) + nu * (1 + nx)))
+    return dict(element=element * 8 + rows * 4, combine=combine * 8 + nx * 4,
+                gain=gain * 8 + rows * 4 + 4)
 
 
 def odd_even_scan(fn, elems: List) -> List:
@@ -287,20 +339,23 @@ def _kernel_fn(dtype):
 
 def occupancy(nx: int, nu: int, nt: int, rows: RiccatiRows,
               quu_solver: str = "schur", dtype=torch.float32) -> dict:
-    """Shared memory bytes a block and blocks resident on one SM of each
-    phase (element, combine, gain) on the current card."""
+    """Shared memory bytes a block, blocks resident on one SM, registers
+    and local (spilled) bytes a thread of each phase (element, combine,
+    gain) on the current card."""
     fn = library("riccati_associative").riccati_associative_occupancy
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 12)()
     err = fn(kernel_instance(nx, nu, nt, rows, quu_solver),
              int(dtype == torch.float64), out)
     if err != 0:
         raise RuntimeError(f"riccati_associative occupancy failed: error {err}")
-    names = ("element", "combine", "gain")
-    return {f"{p}_shared_memory_bytes": out[i] for i, p in enumerate(names)} | {
-        f"{p}_blocks_per_sm": out[3 + i] for i, p in enumerate(names)}
+    fields = ("shared_memory_bytes", "blocks_per_sm", "registers",
+              "local_bytes")
+    return {f"{p}_{f}": out[3 * k + i]
+            for k, f in enumerate(fields)
+            for i, p in enumerate(("element", "combine", "gain"))}
 
 
 def riccati_associative(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,

@@ -304,13 +304,18 @@ def build_lip_loop(cfg: Optional[SRBDConfig] = None,
                    robot: Optional[RobotConstants] = None,
                    shift_warmstart: bool = False,
                    dtype=None,
-                   device="cuda"):
-    """The MPC loop on the LIP biped (Kangaroo line feet by default), in
-    the configuration of the JAX package's dlip example: `max_iters=100`,
+                   device="cuda",
+                   group_mask=None):
+    """The MPC loop on the LIP biped (Kangaroo line feet by default;
+    `SRBDConfig(contact_model=1, number_of_legs=2)` with
+    `robot=point_feet()` is the point-feet biped), in the configuration of
+    the JAX package's dlip example: `max_iters=100`,
     `alpha_converge_threshold=1e-12`, `beta=1e-3`, the WPG at the feet's
-    height, no SRBD telemetry and no warm-start shift. Built on `device`
-    (default "cuda"; raises when CUDA is absent unless another device is
-    given). Returns (loop, problem)."""
+    height, no SRBD telemetry and no warm-start shift. The WPG takes the
+    contact topology of `cfg` and, when given, `group_mask` (the contacts
+    that follow the first half-cycle). Built on `device` (default "cuda";
+    raises when CUDA is absent unless another device is given). Returns
+    (loop, problem)."""
     dev = resolve_device(device)
     cfg = cfg or SRBDConfig()
     dtype = dtype or cfg.dtype
@@ -320,7 +325,8 @@ def build_lip_loop(cfg: Optional[SRBDConfig] = None,
         max_iters=100, alpha_converge_threshold=1e-12, beta=1e-3))
     wpg = WalkingPatternGenerator.build(
         c_init_z=float(prob.initial_foot_position[0, 2]), nodes=cfg.ns,
-        dtype=dtype, device=dev)
+        contact_model=cfg.contact_model, number_of_legs=cfg.number_of_legs,
+        dtype=dtype, group_mask=group_mask, device=dev)
     loop = MPCLoop(solver=solver, wpg=wpg, shift_warmstart=shift_warmstart)
     return loop, prob
 

@@ -65,6 +65,25 @@ def _build_cycles(c_init_z: float, step_nodes: int, ss_share: float,
     return l_cycle, l_switch, r_cycle, r_switch
 
 
+_LEFT_MASKS: Dict[tuple, torch.Tensor] = {}
+
+
+def _left_mask(group_mask: Optional[Tuple[bool, ...]], nc: int, cm: int,
+               device) -> torch.Tensor:
+    """The (nc,) bool mask of the contacts that follow the A-cycle, made
+    once a device: `group_mask`, or the biped split (the first cm
+    contacts). A host-to-device copy on each advance would stall the
+    stream."""
+    key = (group_mask if group_mask is not None else ("split", nc, cm),
+           str(device))
+    t = _LEFT_MASKS.get(key)
+    if t is None:
+        t = _LEFT_MASKS[key] = (
+            torch.tensor(group_mask, device=device) if group_mask is not None
+            else torch.arange(nc, device=device) < cm)
+    return t
+
+
 def _shift_nodes(a: torch.Tensor) -> torch.Tensor:
     """Node j moves to j−1 (node axis −2); the terminal node keeps its
     value."""
@@ -159,10 +178,7 @@ class WalkingPatternGenerator:
         p["cdot_switch"] = _shift_nodes(p["cdot_switch"])
         dtype = p["c_ref"].dtype
         dev = p["c_ref"].device
-        if self.group_mask is not None:
-            is_left = torch.tensor(self.group_mask, device=dev)
-        else:   # the first contact_model contacts are the left foot
-            is_left = torch.arange(nc, device=dev) < cm
+        is_left = _left_mask(self.group_mask, nc, cm, dev)
         act = action.to(torch.int64)[..., None]              # (..., 1)
         # a scalar stays on the host; a tensor is already on the WPG's device
         tz = (terrain_z.to(dtype)[..., None] if torch.is_tensor(terrain_z)
