@@ -336,14 +336,20 @@ eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
 seven families, K1's three Tassa-Cholesky instantiations); the last line
 is {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --k12-versus OTHER_TREE
+    python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13]
 
-is a development run instead: it builds K12 from this checkout and from
-OTHER_TREE (an unpacked archive of another commit), holds each of its 16
-instantiations against the twin in float64 at B = 8 and 512 from both,
-times both in float32 at B = 1, 512 and 4096 in turns (other, this,
-this, other) with each phase's device ms, and prints one `k12_versus`
-line an instantiation and no result line.
+is a development run instead: it builds K12 and K13 (with the sources
+that share K13's node evaluation: the evaluate kernels, K3, K6, K11)
+from this checkout and from OTHER_TREE (an unpacked archive of another
+commit) and prints no result line. K12: each of its 16 instantiations
+held against the twin in float64 at B = 8 and 512 from both, both timed
+in float32 at B = 1, 512 and 4096 in turns (other, this, this, other)
+with each phase's device ms; one `k12_versus` line an instantiation. K13:
+each of its twelve families held against the twin in float64 (the flags
+equal) from both, both timed at B = 1, 512 and 4096 with one and four α
+in turns, this tree's chain alone; one `k13_versus` line a family; the
+evaluate kernels and the trials of both trees compared bit for bit and
+timed (`evaluate_versus`). Then ptxas' figures of both.
 Imports nothing of JAX.
 """
 
@@ -3582,10 +3588,16 @@ def modes_k13_times(p, nA, sizes, serving_B):
     from srbd_horizon_tpu_torch.kernels import linearize as k4
     from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 
+    from srbd_horizon_tpu_torch.kernels import build
+
     f32 = torch.float32
     ocp, s, rows, fam = p["ocp"], p["s"], p["s"].rows, p["fam"]
     ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
-    t = dict(occupancy_f32=k13.occupancy(fam, f32), by_B={})
+    t = dict(occupancy_f32=k13.occupancy(fam, f32, ns, nA),
+             phase_bytes=k13.phase_bytes(fam, f32, ns, nA),
+             ptxas=k13_ptxas(build.log_path("linear_trial").read_text())
+             .get(fam), by_B={})
+    k13_layout_gate(fam, t)
     for Bw in sizes:
         a32 = modes_k13_args(p, Bw, f32, nA)
         ms13 = cuda_ms(lambda: k13.linear_trial(*a32), reps=20)
@@ -3615,7 +3627,23 @@ def modes_k13_times(p, nA, sizes, serving_B):
         a32 = modes_k13_args(p, Bw, f32, nA)
         t["by_B"][Bw]["plain_ms"] = cuda_ms(
             lambda: k13.linear_trial_plain(*a32), reps=2, warmup=1)
+        # the chain alone, and the evaluation as the rest of the call
+        t["by_B"][Bw]["chain_ms"] = cuda_ms(
+            lambda: k13.linear_trial_chain(*a32), reps=20)
+        t["by_B"][Bw]["evaluation_ms"] = \
+            t["by_B"][Bw]["ms"] - t["by_B"][Bw]["chain_ms"]
+    a32 = modes_k13_args(p, 1, f32, nA)
+    t["host_us"] = host_us(lambda: k13.linear_trial(*a32))
     return t
+
+
+def k13_layout_gate(fam, t):
+    """Fails unless the card's shared memory a K13 block takes is what
+    `linear_trial.phase_bytes` states for the family (the .cu's `Smem`)."""
+    if t["occupancy_f32"]["shared_memory_bytes"] != t["phase_bytes"]["total"]:
+        fail(f"K13 at {fam}: {t['occupancy_f32']['shared_memory_bytes']} B "
+             f"of shared memory a block on the card, "
+             f"{t['phase_bytes']['total']} stated by the wrapper")
 
 
 def modes_k12_row(name, t, err, launches, serving_B, **extra):
@@ -3650,6 +3678,13 @@ def modes_k13_row(name, t1, t4, err, launches, serving_B, **extra):
         ms_by_B={str(b): v["ms"] for b, v in t1["by_B"].items()},
         ms_4alpha_by_B={str(b): v["ms"] for b, v in t4["by_B"].items()},
         bound_ms_serving_B=bs["bound_ms"], plain_ms_serving_B=bs["plain_ms"],
+        chain_ms_by_B={str(b): t1["by_B"][b]["chain_ms"]
+                       for b in (1, serving_B)},
+        evaluation_ms_by_B={str(b): t1["by_B"][b]["evaluation_ms"]
+                            for b in (1, serving_B)},
+        host_us=t1["host_us"], ptxas=t1["ptxas"],
+        phase_bytes_4alpha=t4["phase_bytes"],
+        blocks_per_sm_4alpha=t4["occupancy_f32"]["blocks_per_sm"],
         **t1["occupancy_f32"], **extra)
 
 
@@ -6386,59 +6421,221 @@ def k12_shape_point(shape, dev, seed, Bm=B_MAIN):
     return lin, s.rows, s.opts.mu0, lin["Jt"].shape[1]
 
 
-def k12_build_other(tree):
-    """Start nvcc on K12's source of another tree (its
-    `srbd_horizon_tpu_torch/csrc/`) into build/kernels/versus/, its report
-    beside it; returns a function that waits for it and loads the
-    library."""
+def k13_point(fam, dev, seed, Bm=B_MAIN):
+    """The `p` the modes' K13 helpers take (`modes_k13_args`) at K13's
+    family `fam` (`linear_trial.FAMILY_NAMES`), Bm members in float64 on
+    the card, made without a kernel library: the SRBD problem at its
+    (topology, step) and the LIP at iterates drawn as phase 13 draws them
+    (X ± 0.05·N, U 0.1·N), the AL inner problems at `draw_isrbd_point`'s
+    active cones and boxes; linearized by the plain linearizers, the gains
+    from K12's twin (Cholesky at the AL shapes, as phase 13)."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
+                                                        point_feet)
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+
+    f64 = torch.float64
+    g = np.random.RandomState(seed)
+    feet, quad = kangaroo_line_feet(), quadruped_point_feet()
+    sv = "schur"
+    if fam in ("isrbd_al", "isrbd_al_quadruped"):
+        d, a = al_serving_options(1)
+
+        def problem(dtype):
+            if fam == "isrbd_al":
+                return build_isrbd_problem(SRBDConfig(dtype=dtype), feet,
+                                           device=dev,
+                                           cz_rho_weight=CZ_RHO_WEIGHT)
+            return build_isrbd_problem(
+                SRBDConfig(dtype=dtype, lip_height=float(quad.com[2]),
+                           **QUAD_TOPOLOGY), quad, device=dev)
+        prob = problem(f64)
+        al = ALDDP(prob.ocp, d, a)
+        s, s32, ocp = al.inner, ALDDP(problem(torch.float32).ocp, d,
+                                      a).inner, prob.ocp
+        draw = (dict(com_z=0.88, fz=98.0, fxy=60.0, u_box=(60.0, 130.0))
+                if fam == "isrbd_al" else
+                dict(com_z=float(prob.initial_state[2]), fz=78.0, fxy=50.0,
+                     u_box=(50.0, 110.0)))
+        X, U, _, _, params = draw_isrbd_point(al, Bm, g, dev, **draw)
+        lin = k5.isrbd_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt)
+        sv = "cholesky"
+    else:
+        topology, step = family_split(fam)
+        topology = "kangaroo" if topology == "srbd" else topology
+
+        def problem(dtype):
+            if topology == "lip":
+                return build_lip_problem(SRBDConfig(dtype=dtype), feet,
+                                         device=dev)
+            cfg, robot = {
+                "kangaroo": (SRBDConfig(dtype=dtype), feet),
+                "quadruped": (SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY), quad),
+                "point_feet": (SRBDConfig(dtype=dtype, contact_model=1,
+                                          number_of_legs=2), point_feet())
+            }[topology]
+            return build_srbd_problem(cfg, robot, device=dev, integrator=step)
+        prob = problem(f64)
+        s, ocp = MSDDP(prob.ocp, DDPOptions()), prob.ocp
+        s32 = MSDDP(problem(torch.float32).ocp, DDPOptions())
+        X = torch.as_tensor(prob.initial_state.cpu().numpy()[None, None]
+                            + 0.05 * g.randn(Bm, ocp.ns + 1, ocp.nx),
+                            device=dev)
+        U = torch.as_tensor(0.1 * g.randn(Bm, ocp.ns, ocp.nu), device=dev)
+        params = {k: v.expand((Bm,) + tuple(v.shape)).contiguous()
+                  for k, v in ocp.params.items()}
+        plain = k10.lip_linearize_plain if topology == "lip" else \
+            k4.srbd_linearize_plain
+        lin = plain(X, U, params, s.terms, s.rows, ocp.dt, s._wc(f64))
+    gains = k12.riccati_associative_plain(*(lin[k] for k in ORDER),
+                                          s.opts.mu0, s.rows, sv)
+    x0 = X[:, 0] + torch.as_tensor(0.005 * g.randn(Bm, ocp.nx), device=dev)
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(X, U, params) + s.opts.defect_weight * D
+    return dict(s=s, s32=s32, ocp=ocp, lin=lin, X=X, U=U, x0=x0,
+                params=params, gains=gains, D=D, merit0=merit0,
+                nt=lin["Jt"].shape[1], fam=fam)
+
+
+def build_other(tree, names):
+    """Start one nvcc a source on the kernel sources `names` of another
+    tree (its `srbd_horizon_tpu_torch/csrc/`) into build/kernels/versus/,
+    each report beside its library; returns a function that waits for
+    them and loads the libraries ({name: CDLL})."""
     import ctypes
 
     from srbd_horizon_tpu_torch.kernels import build
 
     out = build.BUILD_DIR / "versus"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libriccati_associative.so"
-    src = Path(tree) / "srbd_horizon_tpu_torch" / "csrc" / "riccati_associative.cu"
-    log = open(out / "riccati_associative.log", "w")
-    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                             str(lib), str(src)], stdout=log,
-                            stderr=subprocess.STDOUT)
+    procs = {}
+    for name in names:
+        src = Path(tree) / "srbd_horizon_tpu_torch" / "csrc" / f"{name}.cu"
+        log = open(out / f"{name}.log", "w")
+        procs[name] = (log, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS,
+             *build.SOURCE_FLAGS.get(name, ()), "-o",
+             str(out / f"lib{name}.so"), str(src)],
+            stdout=log, stderr=subprocess.STDOUT))
 
     def done():
-        proc.wait()
-        log.close()
-        if proc.returncode != 0:
-            fail(f"nvcc failed on {src}: "
-                 f"{(out / 'riccati_associative.log').read_text()}")
-        return ctypes.CDLL(str(lib))
+        libs = {}
+        for name, (log, proc) in procs.items():
+            proc.wait()
+            log.close()
+            if proc.returncode != 0:
+                fail(f"nvcc failed on {tree}'s {name}.cu: "
+                     f"{(out / f'{name}.log').read_text()}")
+            libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+        return libs
     return done
+
+
+def other_wrapper(tree, module, libs):
+    """Another tree's kernel wrapper `kernels/<module>.py`, loaded as a
+    module of its own whose `library` returns that tree's libraries
+    (`libs`), for a wrapper whose C interface changed between the trees."""
+    import importlib.util
+
+    path = Path(tree) / "srbd_horizon_tpu_torch" / "kernels" / f"{module}.py"
+    spec = importlib.util.spec_from_file_location(f"versus_{module}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.library = lambda name: libs[name]
+    return mod
 
 
 def ptxas_report(log_text):
     """{kernel phase: {registers, spill_stores, spill_loads}} of each of
     K12's kernels (their largest over the instantiations) from nvcc's
     `-Xptxas -v` report."""
+    out = {}
+    for phase in K12_PHASES:
+        for r in ptxas_entries(log_text, phase, demangle=False).values():
+            o = out.setdefault(phase, dict.fromkeys(r, 0))
+            for k, v in r.items():
+                o[k] = max(o[k], v)
+    return out
+
+
+def ptxas_entries(log_text, kernel, demangle=True):
+    """{entry: {registers, spill_stores, spill_loads}} of each compiled
+    entry function whose mangled name holds `kernel`, from nvcc's
+    `-Xptxas -v` report, the names demangled where asked and c++filt is
+    found."""
     import re
+    import shutil
 
     out, fn = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line) or \
             re.search(r"Function properties for (\S+)", line)
         if m:
-            fn = next((p for p in K12_PHASES if p in m.group(1)), None)
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn is not None:
+                out.setdefault(fn, dict(registers=0, spill_stores=0,
+                                        spill_loads=0))
             continue
         if fn is None:
             continue
-        r = out.setdefault(fn, dict(registers=0, spill_stores=0,
-                                    spill_loads=0))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        r = out[fn]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m:
             r["spill_stores"] = max(r["spill_stores"], int(m.group(1)))
             r["spill_loads"] = max(r["spill_loads"], int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             r["registers"] = max(r["registers"], int(m.group(1)))
+    if demangle and shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True).stdout
+        out = dict(zip(names.splitlines(), out.values()))
     return out
+
+
+def k13_ptxas(log_text):
+    """K13's ptxas figures a family: {family: {"float32" | "float64":
+    {registers, spill_stores, spill_loads}}}, read from the demangled
+    names of `linear_trial_kernel`'s instantiations (with_family's
+    structs); the mangled entries as they are where c++filt is missing."""
+    import re
+
+    structs = {"srbd": "SrbdFamily<srbd::KangarooShape>", "lip": "LipFamily",
+               "quadruped": "SrbdFamily<srbd::QuadShape>",
+               "isrbd_al": "IsrbdAlFamily<isrbd::KangarooAlShape>",
+               "isrbd_al_quadruped": "IsrbdAlFamily<isrbd::QuadAlShape>",
+               "point_feet": "SrbdFamily<srbd::PointFeetShape>"}
+    for topo, shape in (("kangaroo", "KangarooShape"),
+                        ("quadruped", "QuadShape"),
+                        ("point_feet", "PointFeetShape")):
+        for step in ("Rk2", "Rk4"):
+            structs[f"{topo}_{step.lower()}"] = \
+                f"SrbdFamily<srbd::Stepped<srbd::{shape},srbd::{step}>>"
+    want = {v: k for k, v in structs.items()}
+    entries = ptxas_entries(log_text, "linear_trial_kernel")
+    out = {}
+    for name, r in entries.items():
+        m = re.search(r"linear_trial_kernel<(.*),\s*(float|double)>", name)
+        arg = m and m.group(1).replace("(anonymous namespace)::", "") \
+            .replace(" ", "")
+        if arg in want:
+            dt = "float64" if m.group(2) == "double" else "float32"
+            out.setdefault(want[arg], {})[dt] = r
+    return out or entries
 
 
 def k12_occupancy_raw(lib, inst, f64):
@@ -6458,34 +6655,63 @@ def k12_occupancy_raw(lib, inst, f64):
             | {f"{p}_blocks_per_sm": out[3 + i] for i, p in enumerate(names)})
 
 
-def k12_versus(other_tree, card):
-    """K12 of this tree against K12 of `other_tree` (an unpacked archive
-    of another commit) on the same card in one process: both libraries
-    built, each instantiation checked against the twin in float64 at B =
-    8 and 512 and timed in float32 at B = 1, 512 and 4096 in turns (other,
-    this, this, other), with each phase's device ms from the profiler, the
-    blocks an SM of each phase and ptxas' registers and spills. Prints one
-    `k12_versus` line an instantiation, then ptxas' figures of both."""
+VERSUS_PARTS = ("k12", "k13")
+# the sources the versus run builds from both trees: K12's, K13's, and the
+# evaluate kernels' (whose node evaluation K13 shares) with K3, K6, K11
+VERSUS_SOURCES = {"k12": ("riccati_associative",),
+                  "k13": ("linear_trial", "srbd_rollout", "isrbd_rollout",
+                          "lip_rollout")}
+K13_VERSUS_B = (1, B_MAIN, B_LARGE)
+
+
+def k12_versus(other_tree, card, parts=VERSUS_PARTS):
+    """K12 and K13 of this tree against those of `other_tree` (an
+    unpacked archive of another commit) on the same card in one process:
+    every library both need built from both trees at once, then
+    `k12_versus_part` and `k13_versus_part` (the parts named in
+    `parts`). Prints their lines, then ptxas' figures of both trees."""
     import torch
 
     from srbd_horizon_tpu_torch.kernels import build
-    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    other_done = k12_build_other(other_tree)
-    build.build_all(["riccati_associative"], force=True)
-    this_lib = build.library("riccati_associative")
-    other_lib = other_done()
-    emit("k12_versus_build", seconds=time.perf_counter() - t0)
-    reports = {"this": ptxas_report(build.log_path("riccati_associative")
-                                    .read_text()),
-               "other": ptxas_report((build.BUILD_DIR / "versus" /
-                                      "riccati_associative.log").read_text())}
-    libs = {"this": this_lib, "other": other_lib}
+    names = [n for part in parts for n in VERSUS_SOURCES[part]]
+    other_done = build_other(other_tree, names)
+    build.build_all(names, force=True)
+    libs = {"this": {n: build.library(n) for n in names},
+            "other": other_done()}
+    emit("k12_versus_build", seconds=time.perf_counter() - t0, sources=names)
+    logs = {"this": lambda n: build.log_path(n).read_text(),
+            "other": lambda n: (build.BUILD_DIR / "versus" /
+                                f"{n}.log").read_text()}
 
-    def use(which):
-        build._loaded["riccati_associative"] = libs[which]
+    def use(which, name):
+        build._loaded[name] = libs[which][name]
+
+    ptxas = {}
+    if "k12" in parts:
+        k12_versus_part(dev, card, use)
+        ptxas["k12"] = {w: ptxas_report(logs[w]("riccati_associative"))
+                        for w in logs}
+    if "k13" in parts:
+        k13_versus_part(other_tree, dev, card, use, libs["other"])
+        ptxas["k13"] = {w: k13_ptxas(logs[w]("linear_trial")) for w in logs}
+    for n in names:
+        use("this", n)
+    emit("k12_versus_done", seconds=time.perf_counter() - t0, parts=parts,
+         ptxas=ptxas)
+
+
+def k12_versus_part(dev, card, use):
+    """K12's 16 instantiations of both trees: each checked against the
+    twin in float64 at B = 8 and 512 and timed in float32 at B = 1, 512
+    and 4096 in turns (other, this, this, other), with each phase's device
+    ms from the profiler and the blocks an SM of each phase; one
+    `k12_versus` line an instantiation."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
     point = {}
     for i, (shape, sv) in enumerate(k12.KERNEL_INSTANCES):
@@ -6499,32 +6725,163 @@ def k12_versus(other_tree, card):
             a = tuple(modes_sub(t, Bw) for t in a64)
             ref = k12.riccati_associative_plain(*a, mu, rows, sv)
             for which in ("other", "this"):
-                use(which)
+                use(which, "riccati_associative")
                 got = k12.riccati_associative(*a, mu, rows, sv)
                 torch.cuda.synchronize()
                 r["e64"][f"{which}_B{Bw}"] = max(
                     rel_err(g_, w_) for g_, w_ in zip(got, ref))
         for which in ("other", "this"):
-            use(which)
-            r["occupancy"][which] = k12_occupancy_raw(libs[which], i, False)
+            use(which, "riccati_associative")
+            r["occupancy"][which] = k12_occupancy_raw(
+                k12.library("riccati_associative"), i, False)
         for Bw in K12_VERSUS_B:
             a32 = tuple(modes_sub(t, Bw).float() for t in a64)
             reps = 10 if Bw < B_LARGE else 3
             for which in ("other", "this", "this", "other"):
-                use(which)
+                use(which, "riccati_associative")
                 r["ms"].setdefault(which, {}).setdefault(str(Bw), []).append(
                     cuda_ms(lambda: k12.riccati_associative(*a32, mu, rows,
                                                             sv), reps=reps))
             for which in ("other", "this"):
-                use(which)
+                use(which, "riccati_associative")
                 r["phases"].setdefault(which, {})[str(Bw)] = k12_phase_ms(
                     lambda: k12.riccati_associative(*a32, mu, rows, sv))
             del a32
-        use("this")
+        use("this", "riccati_associative")
         emit("k12_versus", **r)
         torch.cuda.empty_cache()
-    emit("k12_versus_done", seconds=time.perf_counter() - t0,
-         instances=len(k12.KERNEL_INSTANCES), ptxas=reports)
+
+
+def k13_versus_part(other_tree, dev, card, use, other_libs):
+    """K13 of both trees at its twelve families (the other tree through
+    its own wrapper, whose C interface differs): each checked against the
+    twin in float64 at B = 8 and 512 with one and four α (`rel_err` a
+    output, the flags equal), timed in float32 at B = 1, 512 and 4096 with
+    one and four α in turns (other, this, this, other), this tree's chain
+    alone at B = 1 and 512 with one and four α (`linear_trial_chain`),
+    both trees' occupancy;
+    one `k13_versus` line a family. Then the kernels whose node evaluation
+    K13 shares and the trials in the same sources (srbd_evaluate at nine
+    SRBD instances, isrbd_evaluate at two AL shapes, lip_evaluate; K3, K6,
+    K11): both trees' outputs at B = 512 (with and without x0; four α),
+    bit-equal or not, and their float32 times at B = 1 and 512 in turns;
+    one `evaluate_versus` line a kernel and instance."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.solvers.msddp import _KERNELS
+
+    from srbd_horizon_tpu_torch.kernels import isrbd_rollout as k6
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    f64, f32 = torch.float64, torch.float32
+    old = other_wrapper(other_tree, "linear_trial", other_libs)
+    k13s = {"this": k13, "other": old}
+    # the evaluate and trial wrappers of both trees (each caches its entry
+    # functions, so the other tree's are modules of their own)
+    rollouts = {"this": {"srbd": k3, "isrbd_al": k6, "lip": k11},
+                "other": {fam: other_wrapper(other_tree, mod, other_libs)
+                          for fam, mod in (("srbd", "rollout"),
+                                           ("isrbd_al", "isrbd_rollout"),
+                                           ("lip", "lip_rollout"))}}
+    use("this", "linear_trial")
+    for i, fam in enumerate(k13.FAMILY_NAMES):
+        p = k13_point(fam, dev, SEED + 180 + i)
+        r = dict(family=fam, card=card, e64={}, flags_equal={}, ms={},
+                 chain_ms={}, occupancy={}, evaluate={})
+        for nA in (1, 4):
+            for Bw in (8, B_MAIN):
+                a = modes_k13_args(p, Bw, f64, nA)
+                ref = k13.linear_trial_plain(*a)
+                for which, mod in k13s.items():
+                    got = mod.linear_trial(*a)
+                    torch.cuda.synchronize()
+                    key = f"{which}_B{Bw}_{nA}a"
+                    r["e64"][key] = max(rel_err(g_, w_) for g_, w_ in
+                                        zip(got[:4], ref[:4]))
+                    r["flags_equal"][key] = bool(torch.equal(got[4], ref[4]))
+            for Bw in K13_VERSUS_B:
+                a32 = modes_k13_args(p, Bw, f32, nA)
+                reps = 20 if Bw < B_LARGE else 5
+                for which in ("other", "this", "this", "other"):
+                    r["ms"].setdefault(which, {}).setdefault(
+                        f"B{Bw}_{nA}a", []).append(cuda_ms(
+                            lambda: k13s[which].linear_trial(*a32),
+                            reps=reps))
+        for nA in (1, 4):
+            for Bw in (1, B_MAIN):
+                a32 = modes_k13_args(p, Bw, f32, nA)
+                r["chain_ms"][f"B{Bw}_{nA}a"] = cuda_ms(
+                    lambda: k13.linear_trial_chain(*a32), reps=20)
+        r["occupancy"]["this"] = k13.occupancy(fam, f32)
+        r["occupancy"]["other"] = old.occupancy(fam, f32)
+        r["phase_bytes"] = k13.phase_bytes(fam, f32)
+        emit("k13_versus", **r)
+        evaluate_versus(p, fam, card, rollouts)
+        del p
+        torch.cuda.empty_cache()
+
+
+def bits_equal(a, b):
+    """Whether two tensors hold the same bits (a NaN equal to itself)."""
+    import torch
+
+    if a.dtype.is_floating_point and a.dtype == b.dtype:
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        return torch.equal(a.contiguous().view(ints[a.dtype]),
+                           b.contiguous().view(ints[b.dtype]))
+    return torch.equal(a, b)
+
+
+def evaluate_versus(p, fam, card, rollouts):
+    """At K13's family `fam` (its drawn point `p`): the evaluate kernel and
+    the trial of the problem's family from both trees (`rollouts`: each
+    tree's wrapper modules by terms.family), outputs compared bit for bit
+    at B = 512 (evaluate with and without x0; the trial with four α),
+    float32 times at B = 1 and 512 in turns (other, this, this, other),
+    the trial's also with one α (this tree); one `evaluate_versus` line
+    each."""
+    import torch
+
+    s = p["s"]
+    terms, dt = s.terms, p["ocp"].dt
+    fam_name = terms.family
+    prefix = {"srbd": "srbd", "isrbd_al": "isrbd", "lip": "lip"}[fam_name]
+    for kind in ("evaluate", "trial"):
+        r = dict(kernel=f"{prefix}_{kind}", family=fam, card=card,
+                 bit_equal=True, ms={})
+
+        def call(which, Bw, dtype, with_x0=True, nA=4):
+            fn = getattr(rollouts[which][fam_name], f"{prefix}_{kind}")
+            fa = s._family_args(dtype)
+            if kind == "evaluate":
+                X, U = modes_sub(p["X"], Bw).to(dtype), \
+                    modes_sub(p["U"], Bw).to(dtype)
+                prm = {k: modes_sub(v, Bw).to(dtype)
+                       for k, v in p["params"].items()}
+                x0 = modes_sub(p["x0"], Bw).to(dtype) if with_x0 else None
+                return lambda: fn(X, U, prm, terms, dt, *fa, x0=x0)
+            a = modes_k13_args(p, Bw, dtype, nA)
+            return lambda: fn(*a[:5], a[7], *a[8:14], terms, dt, *fa,
+                              s.opts.defect_weight, s.opts.beta,
+                              s.opts.alpha_converge_threshold)
+        for variant in ((True, False) if kind == "evaluate" else (True,)):
+            outs = {w: call(w, B_MAIN, torch.float64, variant)()
+                    for w in ("other", "this")}
+            torch.cuda.synchronize()
+            r["bit_equal"] &= all(bits_equal(a_, b_) for a_, b_ in
+                                  zip(outs["other"], outs["this"]))
+        for Bw in (1, B_MAIN):
+            fns = {w: call(w, Bw, torch.float32) for w in ("other", "this")}
+            for w in ("other", "this", "this", "other"):
+                r["ms"].setdefault(w, {}).setdefault(str(Bw), []).append(
+                    cuda_ms(fns[w], reps=20))
+            if kind == "trial":                    # and with one α
+                fn1 = call("this", Bw, torch.float32, nA=1)
+                r.setdefault("this_1alpha_ms", {})[str(Bw)] = cuda_ms(fn1,
+                                                                     reps=20)
+        emit("evaluate_versus", **r)
 
 
 def main():
@@ -6584,9 +6941,12 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
     if "--k12-versus" in sys.argv:
-        # a development run: K12 of this tree against another's, and no
-        # result line
-        k12_versus(sys.argv[sys.argv.index("--k12-versus") + 1], card)
+        # a development run: K12 and K13 of this tree against another's,
+        # and no result line
+        parts = VERSUS_PARTS
+        if "--parts" in sys.argv:
+            parts = tuple(sys.argv[sys.argv.index("--parts") + 1].split(","))
+        k12_versus(sys.argv[sys.argv.index("--k12-versus") + 1], card, parts)
         return
 
     t0 = time.perf_counter()

@@ -3,8 +3,10 @@
 // the isrbd problem's constants, its double integrator stepped by RK2, and
 // the rows of the AL inner problem's stage and terminal stacks
 // (srbd_horizon_tpu_torch/problems/isrbd_al.py), evaluated in passes laid
-// out so that the lanes of one pass take one path. All three kernels
-// evaluate the dynamics and the rows through this one copy; the rotation,
+// out so that the lanes of one pass take one path, and a given plan's
+// node evaluated (isrbd_evaluate's body, which K13 in csrc/linear_trial.cu
+// runs too). All of them evaluate the dynamics and the rows through this
+// one copy; the rotation,
 // inertia and quaternion-rate helpers come from csrc/rigid_common.cuh,
 // which the SRBD kernels share.
 //
@@ -571,6 +573,66 @@ __device__ __forceinline__ void terminal_rows(int lane, const T* x, const T* p,
     const T srw = sr * k.sqw_T[q];
     row(lane, srw * (k.S_T[q] * terminal_eq_h(q, x, p, k)) + p[L::p_lamT + q] / srw);
   }
+}
+
+// ---- a given plan's node, evaluated (isrbd_evaluate, K13) ----
+
+// A stage node's geometry and rates, from the prepass: Iw (9), Iw ω (3)
+// and ȯ at the RK2 midpoint (4), what the rows and the step read of them.
+constexpr int kGeo = 16;
+
+// The prepass: one lane forms one stage node's geometry and RK2 rates
+// (geometry, rates) into `out`, the parts the rows and the step read. One
+// warp thus runs the geometry of 32 nodes in the instructions of one,
+// where every node's warp ran it whole.
+template <class S, typename T>
+__device__ __forceinline__ void node_geometry(const T* xu,
+                                              const Consts<S, T>& k, T* out) {
+  const Geometry<T> g = geometry(xu, k);
+  const Rates<T> r = rates<S>(xu, T(0.5) * k.dt);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) out[i] = g.Iw[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[9 + i] = g.h[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[12 + i] = r.odm[i];
+}
+
+// One warp evaluates stage node (xu, p) — u right after x — from its
+// prepass geometry `gs`: this lane's share of Σ‖ρ‖² over the stage rows
+// (returned) and rows lane and lane + 32 of rk2(x, u) into step (0 past
+// nx). Every lane must call it.
+template <class S, typename T>
+__device__ __forceinline__ T eval_stage(int lane, const T* xu, const T* p,
+                                        const T* gs, const Consts<S, T>& k,
+                                        T (&step)[2]) {
+  T acc = T(0);
+  auto square = [&acc](int, T v) { acc += v * v; };
+  const T hdt = T(0.5) * k.dt;
+  Geometry<T> geo{};                               // stage_rows reads Iw, h
+  Rates<T> rt{};                                   // step_row reads ȯ_mid
+#pragma unroll
+  for (int i = 0; i < 9; ++i) geo.Iw[i] = gs[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) geo.h[i] = gs[9 + i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rt.odm[i] = gs[12 + i];
+  stage_rows<false>(lane, xu, p, geo, k, square, [](int, T) {});
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = lane + 32 * c;
+    step[c] = j < S::nx ? step_row<S>(j, xu, rt, hdt, k.dt) : T(0);
+  }
+  return acc;
+}
+
+// This lane's share of the terminal node's ‖ρ_N(x, p)‖².
+template <class S, typename T>
+__device__ __forceinline__ T eval_terminal(int lane, const T* x, const T* p,
+                                           const Consts<S, T>& k) {
+  T acc = T(0);
+  terminal_rows(lane, x, p, k, [&acc](int, T v) { acc += v * v; });
+  return acc;
 }
 
 }  // namespace isrbd

@@ -402,9 +402,7 @@ struct K6 {
     static constexpr int xu = 0, p = L::n_xu, size = p + L::n_par;
   };
 
-  // A stage node's geometry and rates, from the prepass: Iw (9), Iw ω (3)
-  // and ȯ at the RK2 midpoint (4), what the rows and the step read of them.
-  static constexpr int kGeo = 16;
+  static constexpr int kGeo = isrbd::kGeo;
 
   // The records, the stage nodes' geometry, then the node sums and maxima.
   template <typename T>
@@ -453,24 +451,6 @@ struct K6 {
     cp_async_commit();
   }
 
-  // The prepass: one lane forms one stage node's geometry and RK2 rates
-  // (isrbd::geometry, isrbd::rates) into `out`, the parts the rows and the
-  // step read. One warp thus runs the geometry of 32 nodes in the
-  // instructions of one, where every node's warp ran it whole.
-  template <typename T>
-  __device__ static __forceinline__ void node_geometry(const T* xu,
-                                                const Consts<T>& k,
-                                                T* out) {
-    const isrbd::Geometry<T> g = isrbd::geometry(xu, k);
-    const isrbd::Rates<T> r = isrbd::rates<S>(xu, T(0.5) * k.dt);
-  #pragma unroll
-    for (int i = 0; i < 9; ++i) out[i] = g.Iw[i];
-  #pragma unroll
-    for (int i = 0; i < 3; ++i) out[9 + i] = g.h[i];
-  #pragma unroll
-    for (int i = 0; i < 4; ++i) out[12 + i] = r.odm[i];
-  }
-
   // One warp evaluates node n from its record and its geometry: this node's
   // Σ‖ρ‖² and largest |rk2(x, u) − X[n+1]| (stage nodes), or the terminal
   // rows' Σ, onto lane 0. X[n+1] comes from device memory, issued first.
@@ -483,7 +463,6 @@ struct K6 {
     const T* xu = rec + EvalNode::xu;
     const T* p = rec + EvalNode::p;
     T acc = T(0), dm = T(0);
-    auto square = [&acc](int, T v) { acc += v * v; };
     if (n < ns) {                                    // warp-uniform
       T xn[2];                                       // nx ≤ 64: two rows a lane
   #pragma unroll
@@ -491,25 +470,15 @@ struct K6 {
         const int j = lane + 32 * c;
         xn[c] = j < nx ? Xnext[j] : T(0);
       }
-      const T hdt = T(0.5) * k.dt;
-      isrbd::Geometry<T> geo{};                      // stage_rows reads Iw, h
-      isrbd::Rates<T> rt{};                          // step_row reads ȯ_mid
-  #pragma unroll
-      for (int i = 0; i < 9; ++i) geo.Iw[i] = gs[i];
-  #pragma unroll
-      for (int i = 0; i < 3; ++i) geo.h[i] = gs[9 + i];
-  #pragma unroll
-      for (int i = 0; i < 4; ++i) rt.odm[i] = gs[12 + i];
-      isrbd::stage_rows<false>(lane, xu, p, geo, k, square, [](int, T) {});
+      T step[2];
+      acc = isrbd::eval_stage<S>(lane, xu, p, gs, k, step);
   #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = lane + 32 * c;
-        if (j < nx)
-          dm = isrbd::nan_max(
-              dm, isrbd::abs_nan(isrbd::step_row<S>(j, xu, rt, hdt, k.dt) - xn[c]));
+        if (j < nx) dm = isrbd::nan_max(dm, isrbd::abs_nan(step[c] - xn[c]));
       }
     } else {
-      isrbd::terminal_rows(lane, xu, p, k, square);
+      acc = isrbd::eval_terminal<S>(lane, xu, p, k);
     }
     acc = isrbd::warp_sum(acc);
     dm = isrbd::warp_nan_max(dm);
@@ -589,7 +558,7 @@ isrbd_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   // (while the parameter rows stream in)
   if (warp == 0)
     for (int n = lane; n < ns; n += 32)
-      C::node_geometry(s + n * EN::size + EN::xu, k, geo + n * kGeo);
+      isrbd::node_geometry<S>(s + n * EN::size + EN::xu, k, geo + n * kGeo);
   cp_async_wait_group<0>();                        // the parameter rows too
   __syncthreads();
   for (int n = warp; n < ns1; n += kEvalWarps)

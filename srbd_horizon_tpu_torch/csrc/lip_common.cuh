@@ -2,8 +2,10 @@
 // and lip_evaluate (csrc/lip_rollout.cu): the sizes they are compiled for,
 // the problem's constants, the packed parameter row, the rows of the LIP
 // double integrator ẋ and of the stacked stage residual
-// ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual. All
-// three evaluate the dynamics and the residuals through this one copy.
+// ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual, and a
+// given plan's node evaluated (lip_evaluate's body, which K13 in
+// csrc/linear_trial.cu runs too). All of them evaluate the dynamics and
+// the residuals through this one copy.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/lip.py, nc contacts):
 //   x = [r(3), c(3nc), ṙ(3), ċ(3nc)]                        nx = 6 + 6nc
@@ -230,6 +232,27 @@ __device__ __forceinline__ T terminal_sq_lane(int lane, const T* x,
   if (lane >= S::nt) return T(0);
   const T v = tracking_row<S>(lane, x, p, T(1), k);
   return v * v;
+}
+
+// ---- a given plan's node, evaluated (lip_evaluate, K13) ----
+
+// One warp evaluates stage node (x, u, p): this lane's share of Σ‖ρ‖²
+// (returned) and, on lanes below nx, row `lane` of the Euler step
+// x + dt·ẋ(x, u) into *step.
+template <class S, typename T>
+__device__ __forceinline__ T eval_stage(int lane, const T* x, const T* u,
+                                        const T* p, const Consts<T>& k,
+                                        T* step) {
+  const T acc = stage_sq_lane<S>(lane, x, u, p, k);
+  if (lane < S::nx) *step = x[lane] + k.dt * xdot_row<S>(lane, x, u, k);
+  return acc;
+}
+
+// This lane's share of the terminal node's ‖ρ_N(x, p)‖².
+template <class S, typename T>
+__device__ __forceinline__ T eval_terminal(int lane, const T* x, const T* p,
+                                           const Consts<T>& k) {
+  return terminal_sq_lane<S>(lane, x, p, k);
 }
 
 }  // namespace lip

@@ -328,13 +328,11 @@ lip_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
     const T* x = rec + EN::x;
     T acc, dm = T(0);
     if (n < ns) {                                  // warp-uniform
-      acc = lip::stage_sq_lane<S>(lane, x, rec + EN::u, rec + EN::p, k);
-      if (lane < nx) {
-        const T step = x[lane] + k.dt * lip::xdot_row<S>(lane, x, rec + EN::u, k);
-        dm = lip::abs_nan(step - s[(n + 1) * EN::size + EN::x + lane]);
-      }
+      T step;
+      acc = lip::eval_stage<S>(lane, x, rec + EN::u, rec + EN::p, k, &step);
+      if (lane < nx) dm = lip::abs_nan(step - s[(n + 1) * EN::size + EN::x + lane]);
     } else {
-      acc = lip::terminal_sq_lane<S>(lane, x, rec + EN::p, k);
+      acc = lip::eval_terminal<S>(lane, x, rec + EN::p, k);
     }
     acc = lip::warp_sum(acc);
     dm = lip::warp_nan_max(dm);

@@ -4,10 +4,12 @@
 // rates of ẋ (every lane of a warp holds them in registers), the step
 // x⁺ = step(x, u) of the OCP's integrator (Euler, RK2 or RK4) on one warp,
 // and the rows of its stacked stage residual
-// ρ = [stage_residual; √w_c·stage_eq] and of its terminal residual. All
-// three evaluate the dynamics and the residuals through this one copy. The rotation, inertia and quaternion-rate helpers and the warp
-// reductions come from csrc/rigid_common.cuh, which the isrbd kernels
-// share.
+// ρ = [stage_residual; √w_c·stage_eq] and of its terminal residual, and a
+// given plan's node evaluated (srbd_evaluate's body, which K13 in
+// csrc/linear_trial.cu runs too). All of them evaluate the dynamics and
+// the residuals through this one copy. The rotation, inertia and
+// quaternion-rate helpers and the warp reductions come from
+// csrc/rigid_common.cuh, which the isrbd kernels share.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/srbd.py, nc contacts):
 //   x = [r(3), o(4, xyzw), c(3nc), ṙ(3), ω(3), ċ(3nc)]        nx = 13 + 6nc
@@ -562,6 +564,100 @@ __device__ T stage_rho_row(int g, const T* x, const T* u, const T* xd,
            u[6 * (q / 3) + 3 + q % 3];
   }
   return eq_row<S>(g - L::n_res, x, p, k);
+}
+
+// ---- a given plan's node, evaluated (srbd_evaluate, K13) ----
+
+// Width of parameter tensor t (kParams of them, in the order of
+// make_params) and its offset in the packed parameter row.
+template <class S>
+__host__ __device__ constexpr int param_dim(int t) {
+  return t < 2 ? 1 : t == 2 ? 4 : t < 5 ? 3 : S::nc;
+}
+
+template <class S>
+__host__ __device__ constexpr int param_off(int t) {
+  int o = 0;
+  for (int i = 0; i < t; ++i) o += param_dim<S>(i);
+  return o;
+}
+
+template <class S>
+constexpr bool packed_row_ok() {
+  return param_off<S>(kParams) == Layout<S>::pw &&
+         param_off<S>(3) == kP_rdot && param_off<S>(5) == kP_cref;
+}
+static_assert(packed_row_ok<KangarooShape>() && packed_row_ok<QuadShape>() &&
+                  packed_row_ok<PointFeetShape>(),
+              "packed parameter row");
+
+// A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).
+constexpr int kRates = 10;
+
+// The prepass: one lane computes one stage node's rigid-body rates
+// (geometry and the rows of rigid_rates, the contact sums in a loop) into
+// `out` — r̈, ω̇, ȯ. One warp thus runs the geometry of 32 nodes in the
+// instructions of one, where every node's warp ran it whole.
+template <class S, typename T>
+__device__ __forceinline__ void node_rates(const T* x, const T* u,
+                                           const Consts<T>& k, T* out) {
+  using L = Layout<S>;
+  const Geometry<T> g = geometry<S>(x, k);
+  T v0 = T(0), v1 = T(0), v2 = T(0), t0 = T(0), t1 = T(0), t2 = T(0);
+#pragma unroll
+  for (int q = 0; q < S::nc; ++q) {
+    const T* f = u + 6 * q + 3;
+    const T* cq = x + L::i_c + 3 * q;
+    const T p0 = cq[0] - x[0], p1 = cq[1] - x[1], p2 = cq[2] - x[2];
+    v0 += f[0];
+    v1 += f[1];
+    v2 += f[2];
+    t0 += p1 * f[2] - p2 * f[1];
+    t1 += p2 * f[0] - p0 * f[2];
+    t2 += p0 * f[1] - p1 * f[0];
+  }
+  const T* w = x + L::i_w;
+  const T b0 = t0 - (w[1] * g.h[2] - w[2] * g.h[1]);
+  const T b1 = t1 - (w[2] * g.h[0] - w[0] * g.h[2]);
+  const T b2 = t2 - (w[0] * g.h[1] - w[1] * g.h[0]);
+  out[0] = v0 / k.m_scaled;
+  out[1] = v1 / k.m_scaled;
+  out[2] = v2 / k.m_scaled - T(9.81);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[3 + i] = (g.C[i * 3] * b0 + g.C[i * 3 + 1] * b1 + g.C[i * 3 + 2] * b2) / g.det;
+  quat_rate(x + 3, w, out + 6);
+}
+
+// One warp evaluates stage node (x, u, p) from its prepass `rates`: this
+// lane's share of Σ‖ρ‖² (returned) and rows lane and lane + 32 of
+// step(x, u) into step (0 past nx; `xs` the warp's stage point under RK2
+// and RK4). Every lane must call it.
+template <class S, typename T>
+__device__ __forceinline__ T eval_stage(int lane, const T* x, const T* u,
+                                        const T* p, const T* rates,
+                                        const Consts<T>& k, T* xs,
+                                        T (&step)[2]) {
+  Rigid<T> rig;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    rig.rdd[i] = rates[i];
+    rig.wd[i] = rates[3 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rig.od[i] = rates[6 + i];
+  const T acc = stage_sq_lane<S>(lane, x, u, rig, p, k);
+  step_rows<S>(x, u, rig, k, lane, xs, step);
+  return acc;
+}
+
+// This lane's share of the terminal node's ‖ρ_N(x, p)‖².
+template <class S, typename T>
+__device__ __forceinline__ T eval_terminal(int lane, const T* x, const T* p,
+                                           const Consts<T>& k) {
+  if (lane >= S::nt) return T(0);
+  const T v = tracking_row<S>(lane, x, p, T(1), k);
+  return v * v;
 }
 
 }  // namespace srbd

@@ -116,7 +116,11 @@
 
 namespace {
 
+using srbd::kRates;
 using srbd::kUnknownShape;
+using srbd::node_rates;
+using srbd::param_dim;
+using srbd::param_off;
 using srbd::stage_scratch;
 constexpr int kWarps = 4;
 constexpr int kStages = 3;           // node buffers a warp: the ring's depth
@@ -326,33 +330,6 @@ struct EvalNode {
   static constexpr int x = 0, u = S::nx, p = u + S::nu,
                        size = p + srbd::Layout<S>::pw;
 };
-// A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).
-constexpr int kRates = 10;
-
-// Width of parameter tensor t (srbd::kParams of them, in the order of
-// srbd::make_params) and its offset in the packed parameter row.
-template <class S>
-__host__ __device__ constexpr int param_dim(int t) {
-  return t < 2 ? 1 : t == 2 ? 4 : t < 5 ? 3 : S::nc;
-}
-
-template <class S>
-__host__ __device__ constexpr int param_off(int t) {
-  int o = 0;
-  for (int i = 0; i < t; ++i) o += param_dim<S>(i);
-  return o;
-}
-
-template <class S>
-constexpr bool packed_row_ok() {
-  return param_off<S>(srbd::kParams) == srbd::Layout<S>::pw &&
-         param_off<S>(3) == srbd::kP_rdot && param_off<S>(5) == srbd::kP_cref;
-}
-static_assert(packed_row_ok<srbd::KangarooShape>() &&
-                  packed_row_ok<srbd::QuadShape>() &&
-                  packed_row_ok<srbd::PointFeetShape>(),
-              "packed parameter row");
-
 // The records, the stage nodes' rates, the node sums and maxima, then each
 // warp's stage point (RK2, RK4).
 template <class S, typename T>
@@ -402,41 +379,6 @@ __device__ __forceinline__ void stage_member(T* s, const T* __restrict__ X,
   cp_async_commit();
 }
 
-// The prepass: one lane computes one stage node's rigid-body rates
-// (srbd::geometry and the rows of srbd::rigid_rates, the contact sums in a
-// loop) into `out` — r̈, ω̇, ȯ. One warp thus runs the geometry of 32 nodes
-// in the instructions of one, where every node's warp ran it whole.
-template <class S, typename T>
-__device__ __forceinline__ void node_rates(const T* x, const T* u,
-                                           const srbd::Consts<T>& k, T* out) {
-  using L = srbd::Layout<S>;
-  const srbd::Geometry<T> g = srbd::geometry<S>(x, k);
-  T v0 = T(0), v1 = T(0), v2 = T(0), t0 = T(0), t1 = T(0), t2 = T(0);
-#pragma unroll
-  for (int q = 0; q < S::nc; ++q) {
-    const T* f = u + 6 * q + 3;
-    const T* cq = x + L::i_c + 3 * q;
-    const T p0 = cq[0] - x[0], p1 = cq[1] - x[1], p2 = cq[2] - x[2];
-    v0 += f[0];
-    v1 += f[1];
-    v2 += f[2];
-    t0 += p1 * f[2] - p2 * f[1];
-    t1 += p2 * f[0] - p0 * f[2];
-    t2 += p0 * f[1] - p1 * f[0];
-  }
-  const T* w = x + L::i_w;
-  const T b0 = t0 - (w[1] * g.h[2] - w[2] * g.h[1]);
-  const T b1 = t1 - (w[2] * g.h[0] - w[0] * g.h[2]);
-  const T b2 = t2 - (w[0] * g.h[1] - w[1] * g.h[0]);
-  out[0] = v0 / k.m_scaled;
-  out[1] = v1 / k.m_scaled;
-  out[2] = v2 / k.m_scaled - T(9.81);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    out[3 + i] = (g.C[i * 3] * b0 + g.C[i * 3 + 1] * b1 + g.C[i * 3 + 2] * b2) / g.det;
-  srbd::quat_rate(x + 3, w, out + 6);
-}
-
 // One warp evaluates node n from its record and its rates: this node's
 // Σ‖ρ‖² and largest |step(x, u) − X[n+1]| (stage nodes; `xs` the warp's
 // stage point under RK2 and RK4), or the terminal rows' Σ, onto lane 0.
@@ -460,25 +402,15 @@ __device__ __forceinline__ void evaluate_node(const T* rec, const T* rates,
       const int j = lane + 32 * c;
       xn[c] = j < S::nx ? Xnext[j] : T(0);
     }
-    srbd::Rigid<T> rig;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      rig.rdd[i] = rates[i];
-      rig.wd[i] = rates[3 + i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rig.od[i] = rates[6 + i];
-    acc = srbd::stage_sq_lane<S>(lane, x, u, rig, p, k);
     T step[2];
-    srbd::step_rows<S>(x, u, rig, k, lane, xs, step);
+    acc = srbd::eval_stage<S>(lane, x, u, p, rates, k, xs, step);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int j = lane + 32 * c;
       if (j < S::nx) dm = srbd::nan_max(dm, srbd::abs_nan(step[c] - xn[c]));
     }
-  } else if (lane < S::nt) {
-    const T v = srbd::tracking_row<S>(lane, x, p, T(1), k);
-    acc = v * v;
+  } else {
+    acc = srbd::eval_terminal<S>(lane, x, p, k);
   }
   acc = srbd::warp_sum(acc);
   dm = srbd::warp_nan_max(dm);

@@ -38,6 +38,15 @@ point-feet quadruped and the point-feet biped under Euler, RK2 and RK4),
 the LIP, and the AL inner problem of both the Kangaroo's and the
 quadruped's isrbd problems; CUDA tensors of other sizes raise ValueError,
 CPU tensors take the twin at any size.
+
+A block of eight warps takes one member and up to four of its α's
+(`ALPHAS_A_BLOCK`): each α's recursion runs on `chain_warps(nα)` warps
+while the others stage every node's operands into a ring in shared
+memory, then all eight evaluate the plans node-parallel. `phase_bytes`
+states the block's shared memory (the .cu's `Smem`), `occupancy` reads
+the card's blocks an SM, bytes, registers and spills, and
+`linear_trial_chain` launches the chain alone, so that the two phases can
+be timed apart.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from srbd_horizon_tpu_torch.kernels import (
     lip_linearize,
     linearize,
 )
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, library
+from srbd_horizon_tpu_torch.kernels.build import check_tensor, host_setup, library
 from srbd_horizon_tpu_torch.kernels.riccati import KERNEL_SHAPES, RiccatiRows
 from srbd_horizon_tpu_torch.kernels.riccati_associative import (
     dense_dynamics,
@@ -85,6 +94,122 @@ FAMILIES = (("srbd", "kangaroo", "srbd", "srbd"),
             ("srbd", "point_feet_rk2", "point_feet_rk", "point_feet_rk2"),
             ("srbd", "point_feet_rk4", "point_feet_rk", "point_feet_rk4"))
 FAMILY_NAMES = tuple(f[3] for f in FAMILIES)
+# what the block's layout needs of each family beyond K1's shape: the packed
+# parameter row's width, the prepass values of a stage node (the SRBD
+# rates, the AL geometry; the LIP has no prepass), a warp's stage point
+# (nx under RK2 / RK4), the blocks an SM the kernel's launch bound asks for
+FAMILY_LAYOUT = {
+    "srbd": dict(pw=20, rates=10, scratch=0, min_blocks=3),
+    "lip": dict(pw=12, rates=0, scratch=0, min_blocks=2),
+    "quadruped": dict(pw=20, rates=10, scratch=0, min_blocks=3),
+    "isrbd_al": dict(pw=357, rates=16, scratch=0, min_blocks=2),
+    "isrbd_al_quadruped": dict(pw=349, rates=16, scratch=0, min_blocks=2),
+    "point_feet": dict(pw=16, rates=10, scratch=0, min_blocks=2),
+    "kangaroo_rk2": dict(pw=20, rates=10, scratch=37, min_blocks=2),
+    "kangaroo_rk4": dict(pw=20, rates=10, scratch=37, min_blocks=2),
+    "quadruped_rk2": dict(pw=20, rates=10, scratch=37, min_blocks=2),
+    "quadruped_rk4": dict(pw=20, rates=10, scratch=37, min_blocks=2),
+    "point_feet_rk2": dict(pw=16, rates=10, scratch=25, min_blocks=2),
+    "point_feet_rk4": dict(pw=16, rates=10, scratch=25, min_blocks=2),
+}
+WARPS = 8                 # a block's warps (kWarps)
+ALPHAS_A_BLOCK = 4        # chain warps a block: the α's of one member
+STAGES = 3                # ring slots (kStages)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _family_shape(family: str) -> dict:
+    return KERNEL_SHAPES[FAMILIES[FAMILY_NAMES.index(family)][2]]
+
+
+def chain_warps(na: int) -> int:
+    """The chain warps each α takes in a block of na α's (the .cu's
+    `chain_warps`): four, two, then one; the block's other warps copy."""
+    return 4 if na == 1 else 2 if na == 2 else 1
+
+
+def chain_split(family: str, na: int) -> dict:
+    """The .cu's `ChainSplit<F, W>` for a block of na α's (W =
+    `chain_warps(na)`): how an α's W chain warps share a node out (W > 1:
+    the rows of K and Sx cut into h1 parts of len1 columns, those of Bs
+    into h3 parts of len3) and each α's scratch in doubles (δx, v, the
+    parts); `block` is the na α's scratch."""
+    z = _family_shape(family)
+    nx, nu, n_rx, n_ru, n_uc = (z[k] for k in ("nx", "nu", "n_rx", "n_ru",
+                                                "n_uc"))
+    W = chain_warps(na)
+    c = dict(rows1=nu + n_rx)
+    c["h1"] = max(1, min(4, 32 * W // c["rows1"]))
+    c["len1"] = -(-nx // c["h1"])
+    c["h3"] = max(1, min(4, 32 * W // n_ru))
+    c["len3"] = -(-n_uc // c["h3"])
+    c["dx"] = 0
+    c["v"] = _round_up(nx, 2)
+    c["p1"] = c["v"] + _round_up(n_uc, 2)
+    c["p3"] = c["p1"] + _round_up(max(n_rx + n_ru, c["rows1"] * c["h1"]), 2)
+    c["size"] = c["p3"] + _round_up(n_ru * c["h3"], 2)
+    c["block"] = na * c["size"]
+    return c
+
+
+def layout(family: str, dtype=torch.float32) -> dict:
+    """The .cu's `Smem<F, E>` for the family named `family` and tensors of
+    `dtype`: a ring slot's offsets and size (elements of the tensors' type,
+    Bs's rows at the odd stride bs_ld), the ring's bytes and those of the
+    ring and the chain's scratch (the largest `chain_split` block), an
+    evaluating warp's scratch (doubles), a node's packed parameter row
+    (elements), an (α, node) record (doubles), the row table (ints) and
+    the misc region's bytes (the table and the block's α's)."""
+    z, f = _family_shape(family), FAMILY_LAYOUT[family]
+    E = torch.finfo(dtype).bits // 8
+    vec = 16 // E
+    nx, nu, n_rx, n_ru, n_uc = (z[k] for k in ("nx", "nu", "n_rx", "n_ru",
+                                                "n_uc"))
+    m = dict(vec=vec, bs_ld=n_uc | 1, K=0)
+    m["Sx"] = m["K"] + _round_up(nu * nx, vec)
+    m["Bs"] = m["Sx"] + _round_up(n_rx * nx, vec)
+    m["k"] = m["Bs"] + _round_up(n_ru * m["bs_ld"], vec)
+    m["U"] = m["k"] + _round_up(nu, vec)
+    m["d"] = m["U"] + _round_up(nu, vec)
+    m["X"] = m["d"] + _round_up(nx, vec)
+    m["slot"] = m["X"] + _round_up(nx, vec)
+    m["ring_bytes"] = STAGES * m["slot"] * E
+    m["chain_bytes"] = m["ring_bytes"] + 8 * max(
+        chain_split(family, na)["block"] for na in range(1, ALPHAS_A_BLOCK + 1))
+    m["e_warp"] = _round_up(f["pw"], 2) + _round_up(f["scratch"], 2)
+    m["prow"] = _round_up(f["pw"], vec)
+    m["rec"] = _round_up(nx + nu, 2)
+    m["rows"] = _round_up(2 * nx + nu, 4)
+    m["misc_bytes"] = 4 * m["rows"] + 8 * ALPHAS_A_BLOCK
+    return m
+
+
+def phase_bytes(family: str, dtype=torch.float32, ns: int = 20,
+                nA: int = ALPHAS_A_BLOCK) -> dict:
+    """The shared memory one K13 block takes at the family named `family`,
+    ns stage nodes and nA step sizes a call (a block holds min(nA, 4)),
+    region by region: the ring and the chain warps' scratch, the
+    evaluation's scratch (which takes their place), the phase region (the
+    larger of the two), the member's parameter rows, the records, the row
+    table with the block's α's, and the block's total (its dynamic shared
+    memory)."""
+    m, f = layout(family, dtype), FAMILY_LAYOUT[family]
+    E = torch.finfo(dtype).bits // 8
+    na = min(nA, ALPHAS_A_BLOCK)
+    r16 = lambda v: _round_up(v, 16)
+    out = dict(ring=m["ring_bytes"], chain=m["chain_bytes"],
+               evaluation=8 * (na * ns * f["rates"] + 2 * na * (ns + 1)
+                               + WARPS * m["e_warp"]))
+    out["phase"] = r16(max(out["chain"], out["evaluation"]))
+    out["params"] = r16((ns + 1) * m["prow"] * E)
+    out["records"] = 8 * na * (ns + 1) * m["rec"]
+    out["misc"] = m["misc_bytes"]
+    out["total"] = (out["phase"] + out["params"] + out["records"]
+                    + out["misc"])
+    return out
 # each family's module of shape checks and parameter tensors
 _LINEARIZE = {"srbd": linearize, "lip": lip_linearize,
               "isrbd_al": isrbd_linearize}
@@ -193,23 +318,25 @@ def _kernel_fn(dtype):
     lib = library("linear_trial")
     fn = lib.linear_trial_f32 if dtype == torch.float32 else lib.linear_trial_f64
     if fn.argtypes is None:
-        fn.argtypes = ([_I] + [_P] * 15 + [_I] * 3 + [_P] + [_D] * 3
+        fn.argtypes = ([_I] + [_P] * 15 + [_I] * 3 + [_P] + [_D] * 3 + [_I]
                        + [_P] * 6)
         fn.restype = _I
     return fn
 
 
-def occupancy(family: str = "srbd", dtype=torch.float32) -> dict:
-    """K13's blocks resident on one SM, static shared memory bytes a block,
-    registers and local (spilled) bytes a thread on the current card, for
-    the family named `family` (`FAMILY_NAMES`)."""
+def occupancy(family: str = "srbd", dtype=torch.float32, ns: int = 20,
+              nA: int = ALPHAS_A_BLOCK) -> dict:
+    """K13's blocks resident on one SM, dynamic shared memory bytes a block
+    (`phase_bytes(...)["total"]`), registers and local (spilled) bytes a
+    thread on the current card, for the family named `family`
+    (`FAMILY_NAMES`), ns stage nodes and nA step sizes a call."""
     fn = library("linear_trial").linear_trial_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
     out = (ctypes.c_int * 4)()
     idx = FAMILY_NAMES.index(family)
-    err = fn(idx, int(dtype == torch.float64), out)
+    err = fn(idx, int(dtype == torch.float64), ns, nA, out)
     if err != 0:
         raise RuntimeError(f"linear_trial occupancy failed: error {err}")
     return dict(zip(("blocks_per_sm", "shared_memory_bytes",
@@ -228,6 +355,38 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
         return linear_trial_plain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params,
                                   merit0, D, dV1, dV2, terms, rows, dt, wc,
                                   nu_w, beta, alpha_min)
+    out, fam = _launch(1, x0, X, U, ks, Ks, Sx, Bs, d, alphas, params,
+                       merit0, D, dV1, dV2, terms, rows, dt, wc, nu_w, beta,
+                       alpha_min)
+    linear_trial.launches += 1
+    linear_trial.family_launches[fam] += 1
+    return out
+
+
+def linear_trial_chain(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0,
+                       D, dV1, dV2, terms, rows: RiccatiRows, dt: float,
+                       wc: float, nu_w: float, beta: float,
+                       alpha_min: float):
+    """K13's chain phase alone on CUDA tensors (`linear_trial`'s arguments):
+    Xn and Un, with cost, merit and ok left unwritten. For timing the two
+    phases apart; the solver never calls it, and it counts no launch."""
+    if d.device.type != "cuda":
+        raise ValueError(f"linear_trial_chain runs on cuda, got {d.device}")
+    return _launch(0, x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
+                   dV1, dV2, terms, rows, dt, wc, nu_w, beta, alpha_min)[0]
+
+
+def _setup(terms, nx: int, nu: int, rows: RiccatiRows, dt: float, wc: float):
+    """What K13 checks and builds once for (terms, sizes, dt, √w_c): the
+    family's index, and its scalars as a ctypes array."""
+    fam = family_index(terms, nx, nu, rows)
+    sc = (isrbd_linearize.kernel_scalars(terms, dt)
+          if terms.family == "isrbd_al" else terms.kernel_scalars(dt, wc))
+    return fam, (_D * len(sc))(*sc)
+
+
+def _launch(evaluate, x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
+            dV1, dV2, terms, rows, dt, wc, nu_w, beta, alpha_min):
     if d.device.type != "cuda":
         raise ValueError(f"linear_trial runs on cpu or cuda, got {d.device}")
     dtype, dev = d.dtype, d.device
@@ -235,7 +394,11 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
         raise ValueError(f"linear_trial takes float32 or float64, got {dtype}")
     Bsz, ns, nx = d.shape
     nu = U.shape[-1]
-    fam = family_index(terms, nx, nu, rows)
+    sizes = tuple(len(r) for r in (rows.rx, rows.ru, rows.gx, rows.gu,
+                                   rows.bx, rows.uc))
+    fam, scalars = host_setup(
+        terms, ("linear_trial", nx, nu, sizes, dt, wc),
+        lambda: _setup(terms, nx, nu, rows, dt, wc))
     nA = alphas.shape[0]
     check_tensor("x0", x0, (Bsz, nx), dtype, dev)
     check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
@@ -250,18 +413,15 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
         check_tensor(name, t, (Bsz,), dtype, dev)
     if terms.family == "isrbd_al":
         pt = isrbd_linearize.kernel_params(params, Bsz, ns, terms, dtype, dev)
-        sc = isrbd_linearize.kernel_scalars(terms, dt)
     else:
         pt = _LINEARIZE[terms.family].kernel_params(params, Bsz, ns, terms.nc,
                                                     dtype, dev)
-        sc = terms.kernel_scalars(dt, wc)
     Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
     Un = torch.empty((nA, Bsz, ns, nu), dtype=dtype, device=dev)
     cost = torch.empty((nA, Bsz), dtype=dtype, device=dev)
     merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
     ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
     ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    scalars = (_D * len(sc))(*sc)
     fn = _kernel_fn(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -271,14 +431,12 @@ def linear_trial(x0, X, U, ks, Ks, Sx, Bs, d, alphas, params, merit0, D,
             rows.packed(dev).data_ptr(), alphas.data_ptr(), ptrs,
             merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
             Bsz, ns, nA, scalars, float(nu_w), float(beta), float(alpha_min),
-            Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
-            ok.data_ptr(), stream,
+            evaluate, Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(),
+            merit.data_ptr(), ok.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"linear_trial kernel failed: CUDA error {err}")
-    linear_trial.launches += 1
-    linear_trial.family_launches[fam] += 1
-    return Xn, Un, cost, merit, ok
+    return (Xn, Un, cost, merit, ok), fam
 
 
 linear_trial.launches = 0
