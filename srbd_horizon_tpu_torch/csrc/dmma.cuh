@@ -1,9 +1,10 @@
 // The PTX instructions K1 and K2 issue directly, kept apart so that the
 // rest of riccati_backward.cu is plain CUDA C++; K3 (srbd_rollout.cu)
 // takes the cp.async helpers for its per-warp double buffer, K6
-// (isrbd_rollout.cu) those and the mbarriers between its two warps, and
-// the evaluation entries of both files the block-wide row staging
-// (cp_async_rows).
+// (isrbd_rollout.cu) those and the mbarriers between its two warps, the
+// evaluation entries of both files the block-wide row staging
+// (cp_async_rows), and K11 (lip_rollout.cu) the bulk copies it stages a
+// member with (tma_bulk, mbarrier_expect_tx, fence_mbarrier_init).
 //
 // FP64 tensor-core product, mma.sync.aligned.m16n8k4.row.col.f64 (sm_90
 // and later): D (16×8) = A (16×4) · B (4×8) + C, one warp, every lane
@@ -101,4 +102,35 @@ __device__ __forceinline__ void mbarrier_wait(unsigned long long* bar, int parit
         : "=r"(done)
         : "r"(a), "r"(parity)
         : "memory");
+}
+
+// Make the mbarrier inits of this thread visible to the bulk-copy unit
+// (before any bulk copy completes on them).
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival on `bar` that also adds `bytes` to the bytes its phase waits
+// for (the bulk copies that complete on it).
+__device__ __forceinline__ void mbarrier_expect_tx(unsigned long long* bar,
+                                                   unsigned bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(a),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory by the bulk-copy unit (cp.async.bulk, sm_90), one
+// instruction of one thread; the bytes count against `bar`'s phase.
+__device__ __forceinline__ void tma_bulk(void* smem, const void* global,
+                                         unsigned bytes,
+                                         unsigned long long* bar) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(d),
+      "l"(global), "r"(bytes), "r"(b)
+      : "memory");
 }

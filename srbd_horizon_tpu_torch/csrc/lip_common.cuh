@@ -2,8 +2,9 @@
 // and lip_evaluate (csrc/lip_rollout.cu): the sizes they are compiled for,
 // the problem's constants, the packed parameter row, the rows of the LIP
 // double integrator ẋ and of the stacked stage residual
-// ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual, and a
-// given plan's node evaluated (lip_evaluate's body, which K13 in
+// ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual, a
+// node's squared residual on one thread (K11's evaluation), and a given
+// plan's node evaluated on one warp (lip_evaluate's body, which K13 in
 // csrc/linear_trial.cu runs too). All of them evaluate the dynamics and
 // the residuals through this one copy.
 //
@@ -232,6 +233,33 @@ __device__ __forceinline__ T terminal_sq_lane(int lane, const T* x,
   if (lane >= S::nt) return T(0);
   const T v = tracking_row<S>(lane, x, p, T(1), k);
   return v * v;
+}
+
+// ‖ρ(x, u, p)‖² over the stage rows on one thread, the rows added in
+// order (K11 evaluates a node a thread).
+template <class S, typename T>
+__device__ __forceinline__ T stage_sq(const T* x, const T* u, const T* p,
+                                      const Consts<T>& k) {
+  T acc = T(0);
+#pragma unroll
+  for (int g = 0; g < S::n_rho; ++g) {
+    const T v = stage_rho_row<S>(g, x, u, p, k);
+    acc += v * v;
+  }
+  return acc;
+}
+
+// ‖ρ_N(x, p)‖² on one thread, the rows added in order.
+template <class S, typename T>
+__device__ __forceinline__ T terminal_sq(const T* x, const T* p,
+                                         const Consts<T>& k) {
+  T acc = T(0);
+#pragma unroll
+  for (int g = 0; g < S::nt; ++g) {
+    const T v = tracking_row<S>(g, x, p, T(1), k);
+    acc += v * v;
+  }
+  return acc;
 }
 
 // ---- a given plan's node, evaluated (lip_evaluate, K13) ----

@@ -18,8 +18,9 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   isrbd_al          K7 `isrbd_al_constraints`, K8 `isrbd_al_shift`,
                     `isrbd_al_params`, `isrbd_al_prior_update`
   lip_linearize     K10 `lip_linearize`; `lip_linearize_occupancy`
-  lip_rollout       K11 `lip_trial`, `lip_evaluate`; and, with no type
-                    suffix, `lip_trial_occupancy`, `lip_evaluate_occupancy`
+  lip_rollout       K11 `lip_trial` (and `lip_trial_chain`, its chain
+                    alone), `lip_evaluate`; and, with no type suffix,
+                    `lip_trial_occupancy`, `lip_evaluate_occupancy`
   riccati_associative  K12 `riccati_associative` (its three phases, launched
                     from one entry); `riccati_associative_occupancy`
   linear_trial      K13 `linear_trial`; `linear_trial_occupancy`
@@ -27,7 +28,8 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
 K3, `srbd_evaluate` and K4 include `csrc/srbd_common.cuh`, K5, K6,
 `isrbd_evaluate`, K7 and K8 `csrc/isrbd_common.cuh`, and both of those
 `csrc/rigid_common.cuh`; K10, K11 and `lip_evaluate` include
-`csrc/lip_common.cuh`; K1, K3, K6, K7 and K11 include `csrc/dmma.cuh`;
+`csrc/lip_common.cuh`; K1, K3, K6, K7 and K11 include `csrc/dmma.cuh`
+(K11 its bulk copies and mbarriers);
 K1 and K12 include `csrc/riccati_common.cuh` (K2's inverse, the Cholesky
 routine and the tiles they run on); K13 includes both `srbd_common.cuh` and
 `lip_common.cuh`.
