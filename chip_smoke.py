@@ -340,11 +340,11 @@ eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
 seven families, K1's three Tassa-Cholesky instantiations); the last line
 is {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11]
+    python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11,k7]
 
 is a development run instead: it builds K12, K13 (with the sources
-that share K13's node evaluation: the evaluate kernels, K3, K6, K11) and
-K11 (with K10's source) of the parts named
+that share K13's node evaluation: the evaluate kernels, K3, K6, K11),
+K11 (with K10's source) and K7 (with K8a-c, its source's) of the parts named
 from this checkout and from OTHER_TREE (an unpacked archive of another
 commit) and prints no result line. K12: each of its 16 instantiations
 held against the twin in float64 at B = 8 and 512 from both, both timed
@@ -360,8 +360,14 @@ float64 at B = 8 and 512 with one and four α (member 7 from a NaN x0),
 timed in float32 at B = 1, 512 and 4096 with one and four α in turns,
 this tree's chain alone, both trees' occupancy; one `k11_versus` line;
 then lip_evaluate, K10 and K13's LIP family of both trees, which share
-csrc/lip_common.cuh, bit for bit and timed (`k11_shared_versus`). Then
-ptxas' figures of both. Imports nothing of JAX.
+csrc/lip_common.cuh, bit for bit and timed (`k11_shared_versus`). K7:
+both trees at its two AL shapes and three modes, held to its twin by
+`al_check` and to each other bit for bit in float32 and float64 (static
+bounds and the overrides, a NaN member, a first and a later outer),
+timed in float32 at B = 1, 256 and 4096 in turns, with both trees'
+blocks an SM and wrapper host µs (this one's by part); one `k7_versus`
+line a shape; then K8a-c of both trees bit for bit and timed
+(`k7_shared_versus`). Then ptxas' figures of both. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -1577,7 +1583,8 @@ def al_entry_checks(tag, AL, X, U_nan, st, params, viol_later, priors, phase,
 
 def al_call_work(al32, name, args, kw, res):
     """Bytes and FLOPs of one float32 call of the AL entry `name` (K7's
-    offline mode as `isrbd_al_constraints_offline`) with these arguments
+    offline and eval modes as `isrbd_al_constraints_offline` and
+    `isrbd_al_constraints_eval`) with these arguments
     and result: each input read once and each output written once (K8a
     also one table row and flag a member, K8c the whole tables anew)."""
     from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
@@ -1586,15 +1593,18 @@ def al_call_work(al32, name, args, kw, res):
     ns, nx, nu = ocp.ns, ocp.nx, ocp.nu
     n_eq, n_eq_T, n_in = al32._sizes
     st = next((v for v in args if type(v).__name__ == "ALState"), kw.get("st"))
-    Bsz = st.rho.shape[0]
     if name.startswith("isrbd_al_constraints"):
+        Bsz = args[1].shape[0]
         ins = [args[1], args[2], *(args[3][k] for k in (
             "c_ref", "mask_srbd", "mask_lip", "mask_lipzone")),
-               *al32._bounds, st.lam_eq, st.lam_eq_T, st.rho]
+               *al32._bounds_from(args[3])]
+        if st is not None:             # the eval mode reads no state
+            ins += [st.lam_eq, st.lam_eq_T, st.rho]
         if kw.get("offline"):
             ins += [st.viol] + [getattr(st, f) for f in k78.MULTIPLIERS[2:]]
         return (al_bytes(ins, res),
                 al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in))
+    Bsz = st.rho.shape[0]
     if name == "isrbd_al_shift":
         phase = args[3]
         n = al_bytes([st.sol.X, st.sol.U, st.lam_eq_T,
@@ -2885,6 +2895,7 @@ def quadruped_constrained_section(card, dev, sms):
         "isrbd_al_constraints": ((al32, Xi32, Ui32, ap32), dict(st=ast32)),
         "isrbd_al_constraints_offline": ((al32, Xi32, Ui32, ap32),
                                          dict(st=ast32, offline=True)),
+        "isrbd_al_constraints_eval": ((al32, Xi32, Ui32, ap32), {}),
         "isrbd_al_shift": ((al32, ast32, full32, phase), {}),
         "isrbd_al_params": ((al32, ap32, ast32), {}),
         "isrbd_al_prior_update": ((al32, full32, ast32, phase, 1.0), {}),
@@ -2940,7 +2951,7 @@ def quadruped_constrained_section(card, dev, sms):
                 ea[2], Bw, ns, al32.terms, f32, dev), ea[-1], *out),
             flop=isrbd_evaluate_flops(Bw, ns, nx, nc, n_rho, n_term))
         for name, (a, kw) in al_calls.items():
-            entry = name.replace("_offline", "")
+            entry = name.replace("_offline", "").replace("_eval", "")
             kern, twin = getattr(k78, entry), getattr(k78, entry + "_plain")
             aw, kww = resize_members((a, kw), Bc, Bw)
             res = kern(*aw, **kww)
@@ -2966,7 +2977,8 @@ def quadruped_constrained_section(card, dev, sms):
             *ka, mu, rows, form=form, quu_solver=solver))
            for name, form, solver in K1_FORMS},
         **{name + "_quadruped": host_us(
-            lambda: getattr(k78, name.replace("_offline", ""))(*a, **kw))
+            lambda: getattr(k78, name.replace("_offline", "").replace(
+                "_eval", ""))(*a, **kw))
            for name, (a, kw) in al_calls.items()},
     }
     nt = n_term
@@ -2979,6 +2991,13 @@ def quadruped_constrained_section(card, dev, sms):
                       shared_memory_bytes=k1.shared_memory_bytes(
                           nx, nu, nt, rows, f32, form, solver))
            for name, form, solver in K1_FORMS})
+    # K7's wrapper by part, and its occupancy a mode
+    for name, (a, kw) in al_calls.items():
+        if name.startswith("isrbd_al_constraints"):
+            mode = 0 if not kw else 2 if kw.get("offline") else 1
+            host[name + "_quadruped_by_part"] = k7_host_split(k78, a, kw)
+            occ[name + "_quadruped"] = k78.constraints_occupancy(
+                mode, f32, ns, "quadruped")
     emit("qc_kernel_times", card=card, dtype="float32", sms=sms,
          times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
          host_us=host, occupancy=occ)
@@ -6558,6 +6577,81 @@ def k13_point(fam, dev, seed, Bm=B_MAIN):
                 nt=lin["Jt"].shape[1], fam=fam)
 
 
+K7_SHAPES = ("kangaroo", "quadruped")   # K7's AL shapes (KERNEL_SHAPES)
+K7_NAN = 7                  # the member whose plan and λ hold a NaN
+
+
+def k7_point(shape, dev, seed, Bm=B_CONSTRAINED):
+    """K7's inputs at one of its AL shapes, Bm members in float64 on the
+    card: the serving configuration's AL solvers in both types (the
+    Kangaroo's with the serving cz stiffness), a plan, state and box
+    overrides drawn by `draw_isrbd_point` (active cones and boxes), member
+    K7_NAN's r̈ₓ at node 3 and one of its λ NaN, a viol_prev drawn on
+    either side of the contraction test. Returns dict(al={dtype: ALDDP},
+    X, U, st, boxes (params with the overrides), static (without),
+    viol_later)."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import SRBDConfig
+    from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.options import al_serving_options
+
+    quad = quadruped_point_feet()
+
+    def problem(dtype):
+        if shape == "kangaroo":
+            return build_isrbd_problem(SRBDConfig(dtype=dtype),
+                                       kangaroo_line_feet(), device=dev,
+                                       cz_rho_weight=CZ_RHO_WEIGHT)
+        return build_isrbd_problem(
+            SRBDConfig(dtype=dtype, lip_height=float(quad.com[2]),
+                       **QUAD_TOPOLOGY), quad, device=dev)
+    prob = problem(torch.float64)
+    al = {torch.float64: ALDDP(prob.ocp, *al_serving_options(1)),
+          torch.float32: ALDDP(problem(torch.float32).ocp,
+                               *al_serving_options(1))}
+    draw = (dict(com_z=0.88, fz=98.0, fxy=60.0, u_box=(60.0, 130.0))
+            if shape == "kangaroo" else
+            dict(com_z=float(prob.initial_state[2]), fz=78.0, fxy=50.0,
+                 u_box=(50.0, 110.0)))
+    g = np.random.RandomState(seed)
+    X, U, st, params, _ = draw_isrbd_point(al[torch.float64], Bm, g, dev,
+                                           **draw)
+    U[K7_NAN, 3, 0] = float("nan")
+    st = st._replace(sol=st.sol._replace(X=X, U=U), lam_eq=st.lam_eq.clone())
+    st.lam_eq[K7_NAN, 2, 4] = float("nan")
+    viol_later = torch.as_tensor(10.0 ** g.uniform(-3, 3, Bm), device=dev)
+    return dict(al=al, X=X, U=U, st=st, boxes=params,
+                static=static_bounds(params), viol_later=viol_later)
+
+
+def k7_args(p, dtype, mode, bounds="static", Bw=None, later=False,
+            nan=True):
+    """(args, kwargs) of a K7 call at `k7_point`'s `p` in `dtype` and mode
+    ("eval", "online", "offline"), with the static bounds or the drawn
+    overrides ("boxes"), its members cut or repeated to Bw, viol_prev
+    drawn (`later`) or the state's (inf: a first outer), without member
+    K7_NAN's NaNs where `nan` is false."""
+    st = p["st"]._replace(viol=p["viol_later"]) if later else p["st"]
+    if not nan:
+        U = p["U"].clone()
+        U[K7_NAN, 3, 0] = 0.0
+        lam = st.lam_eq.clone()
+        lam[K7_NAN, 2, 4] = 0.0
+        st = st._replace(sol=st.sol._replace(U=U), lam_eq=lam)
+    Bsz = p["X"].shape[0]
+    tree = (st, p[bounds])
+    if Bw is not None:
+        tree = resize_members(tree, Bsz, Bw)
+    st, params = (cast_tree(t, dtype) for t in tree)
+    kw = {} if mode == "eval" else dict(st=st, offline=mode == "offline")
+    return (p["al"][dtype], st.sol.X, st.sol.U, params), kw
+
+
 def build_other(tree, names):
     """Start one nvcc a source on the kernel sources `names` of another
     tree (its `srbd_horizon_tpu_torch/csrc/`) into build/kernels/versus/,
@@ -6703,15 +6797,16 @@ def k12_occupancy_raw(lib, inst, f64):
             | {f"{p}_blocks_per_sm": out[3 + i] for i, p in enumerate(names)})
 
 
-VERSUS_PARTS = ("k12", "k13", "k11")
+VERSUS_PARTS = ("k12", "k13", "k11", "k7")
 # the sources the versus run builds from both trees: K12's, K13's, and the
 # evaluate kernels' (whose node evaluation K13 shares) with K3, K6, K11;
 # K11's with the kernels that share csrc/lip_common.cuh (lip_evaluate, K10,
-# K13's LIP family)
+# K13's LIP family); K7's source, which holds K8a-c too
 VERSUS_SOURCES = {"k12": ("riccati_associative",),
                   "k13": ("linear_trial", "srbd_rollout", "isrbd_rollout",
                           "lip_rollout"),
-                  "k11": ("lip_rollout", "lip_linearize", "linear_trial")}
+                  "k11": ("lip_rollout", "lip_linearize", "linear_trial"),
+                  "k7": ("isrbd_al",)}
 K13_VERSUS_B = (1, B_MAIN, B_LARGE)
 K11_VERSUS_B = (1, B_MAIN, B_LARGE)
 K11_NAN = 7                     # the member whose x0 is NaN in K11's check
@@ -6753,9 +6848,13 @@ def k12_versus(other_tree, card, parts=VERSUS_PARTS):
         ptxas["k13"] = {w: k13_ptxas(logs[w]("linear_trial")) for w in logs}
     failed = []
     if "k11" in parts:
-        failed = k11_versus_part(other_tree, dev, card, use, libs["other"])
+        failed += k11_versus_part(other_tree, dev, card, use, libs["other"])
         ptxas["k11"] = {w: ptxas_entries(logs[w]("lip_rollout"),
                                          "lip_trial_kernel") for w in logs}
+    if "k7" in parts:
+        failed += k7_versus_part(other_tree, dev, card, use, libs["other"])
+        ptxas["k7"] = {w: ptxas_entries(logs[w]("isrbd_al"), "isrbd_al")
+                       for w in logs}
     for n in names:
         use("this", n)
     emit("k12_versus_done", seconds=time.perf_counter() - t0, parts=parts,
@@ -7012,6 +7111,225 @@ def k11_versus_part(other_tree, dev, card, use, other_libs):
                     str(Bw), []).append(cuda_ms(lambda: fn(mods[w]), reps=50))
     emit("k11_shared_versus", **sh)
     torch.cuda.empty_cache()
+    return failed
+
+
+K7_MODES = ("eval", "online", "offline")
+K7_VERSUS_B = (1, B_CONSTRAINED, B_LARGE)
+
+
+def occupancy_estimate(registers, smem_bytes, threads=256):
+    """Blocks resident on one H100 SM for a kernel of `registers` a thread
+    (allocated 8 at a time), `smem_bytes` of shared memory a block (1 KB a
+    block reserved, 233,472 B an SM) and `threads` a block."""
+    regs = -(-max(registers, 1) // 8) * 8 * threads
+    return min(32, 2048 // threads, 65536 // regs,
+               233_472 // (smem_bytes + 1024))
+
+
+def k7_parent_smem(dtype, ns=20, nx=37, nu=30, nc=4):
+    """Shared memory a block of the first K7 design (`al_constraints_smem`
+    of its .cu): a record a node of x, u and the parameter slots up to the
+    LIP-zone mask, the stage nodes' Iw and Iw ω, the warps' maxima."""
+    import torch
+
+    rec = nx + nu + (8 + nc + 2) + 1
+    return torch.finfo(dtype).bits // 8 * ((ns + 1) * rec + ns * 12 + 8)
+
+
+def k7_host_split(k78, a, kw):
+    """Host µs of this tree's K7 wrapper by part: the checks and the setup
+    lookup (`_constraints_checked`), the one output buffer and its views
+    (`output_views`), the pointer arrays and the launch
+    (`_constraints_launch`), and the whole call."""
+    al, X, U, params = a
+    st, off = kw.get("st"), kw.get("offline", False)
+    s, mode, ins, strides = k78._constraints_checked(al, X, U, params, st, off)
+    buf, _ = k78.output_views(s.layout, s.total, X.dtype, X.device)
+    base, Bsz, ns = buf.data_ptr(), X.shape[0], X.shape[1] - 1
+    return dict(
+        checks=host_us(lambda: k78._constraints_checked(al, X, U, params, st,
+                                                        off)),
+        outputs=host_us(lambda: k78.output_views(s.layout, s.total, X.dtype,
+                                                 X.device)),
+        launch=host_us(lambda: k78._constraints_launch(
+            s, mode, ins, strides, base, Bsz, ns, X.device)),
+        call=host_us(lambda: k78.isrbd_al_constraints(*a, **kw)))
+
+
+def k7_versus_part(other_tree, dev, card, use, other_libs):
+    """K7 of both trees (the other through its own wrapper) at its two AL
+    shapes (`k7_point`), all three modes: each tree's outputs held to
+    `isrbd_al_constraints_plain` by `al_check` (float64 within AL_F64_TOL
+    of max(1, |twin|), float32 by K3's rule, NaN where the twin's, member
+    K7_NAN's NaNs) with the static bounds and the drawn overrides, offline
+    on a first and a later outer; both trees' outputs compared bit for bit
+    in float32 and float64; float32 times at B = 1, 256 and 4096 in turns
+    (other, this, this, other), with the bound of each case; both trees'
+    blocks an SM (this tree's from the card, the other's estimated from its
+    ptxas registers and shared memory); both wrappers' host µs, this one's
+    by part. One `k7_versus` line a shape. Then K8a-c, which share
+    csrc/isrbd_al.cu: both trees' outputs bit for bit (each also to its
+    twin) in both types, float32 times at B = 1, 256 and 4096 in turns;
+    one `k7_shared_versus` line a shape. Returns what failed."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import build
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+
+    f64, f32 = torch.float64, torch.float32
+    use("this", "isrbd_al")
+    old = other_wrapper(other_tree, "isrbd_al", other_libs)
+    mods = {"this": k78, "other": old}
+    other_regs = ptxas_entries(
+        (build.BUILD_DIR / "versus" / "isrbd_al.log").read_text(),
+        "isrbd_al_constraints_kernel")
+    failed = []
+    for si, shape in enumerate(K7_SHAPES):
+        p = k7_point(shape, dev, SEED + 200 + si)
+        ns = p["X"].shape[1] - 1
+        r = dict(shape=shape, card=card, bit_equal={}, twin={}, ms={},
+                 bound_ms={}, occupancy={}, host_us={})
+        for mode in K7_MODES:
+            for bounds in ("static", "boxes"):
+                for later in ((False, True) if mode == "offline" else (False,)):
+                    key = f"{mode}_{bounds}" + ("_later" if later else "")
+                    for dtype in (f64, f32):
+                        a, kw = k7_args(p, dtype, mode, bounds, later=later)
+                        outs = {w: outputs(m.isrbd_al_constraints(*a, **kw))
+                                for w, m in mods.items()}
+                        torch.cuda.synchronize()
+                        eq = all(bits_equal(x, y) for (_, x), (_, y) in
+                                 zip(outs["other"], outs["this"]))
+                        r["bit_equal"][f"{key}_{str(dtype)[6:]}"] = eq
+                        if not eq:
+                            failed.append(f"K7 {shape} {key} ({dtype}) differs "
+                                          "from the other tree's")
+                    for w, m in mods.items():
+                        r["twin"][f"{w}_{key}"] = al_check(
+                            "k7_versus_check", m.isrbd_al_constraints,
+                            k78.isrbd_al_constraints_plain,
+                            lambda d: k7_args(p, d, mode, bounds, later=later),
+                            exact=False, nan_member=K7_NAN, tree=w,
+                            shape=shape, mode=mode, bounds=bounds,
+                            later=later)
+        for mode in K7_MODES:
+            name = "isrbd_al_constraints" + ("" if mode == "online"
+                                             else f"_{mode}")
+            for Bw in K7_VERSUS_B:
+                a, kw = k7_args(p, f32, mode, Bw=Bw, nan=False)
+                reps = 50 if Bw < B_LARGE else 20
+                key = f"{mode}_B{Bw}"
+                for w in ("other", "this", "this", "other"):
+                    r["ms"].setdefault(w, {}).setdefault(key, []).append(
+                        cuda_ms(lambda: mods[w].isrbd_al_constraints(*a, **kw),
+                                reps=reps))
+                res = k78.isrbd_al_constraints(*a, **kw)
+                r["bound_ms"][key], _ = bound(*al_call_work(a[0], name, a, kw,
+                                                            res))
+                del a, kw, res
+            a, kw = k7_args(p, f32, mode, Bw=B_CONSTRAINED, nan=False)
+            r["host_us"][mode] = dict(
+                other=host_us(lambda: old.isrbd_al_constraints(*a, **kw)),
+                this=host_us(lambda: k78.isrbd_al_constraints(*a, **kw)),
+                this_by_part=k7_host_split(k78, a, kw))
+            m = K7_MODES.index(mode)
+            for dtype in (f32, f64):
+                dn = str(dtype)[6:]
+                r["occupancy"][f"this_{mode}_{dn}"] = k78.constraints_occupancy(
+                    m, dtype, ns, shape)
+        # the other tree's blocks an SM from its ptxas registers (its
+        # shared memory does not depend on the mode)
+        r["occupancy"]["other"] = {
+            name: dict(registers=v["registers"],
+                       blocks_per_sm_f32=occupancy_estimate(
+                           v["registers"], k7_parent_smem(f32, ns)),
+                       blocks_per_sm_f64=occupancy_estimate(
+                           v["registers"], k7_parent_smem(f64, ns)))
+            for name, v in other_regs.items()}
+        emit("k7_versus", **r)
+        failed += k8_versus(p, mods, card, shape)
+        del p
+        torch.cuda.empty_cache()
+    return failed
+
+
+def k8_versus(p, mods, card, shape):
+    """K8a-c of both trees at K7's point `p`: outputs bit for bit between
+    the trees and to their twins in float64 and float32 (K8a with each
+    prior, K8b with the static bounds and the overrides, K8c with the tail
+    and the full prior), float32 times at B = 1, 256 and 4096 in turns
+    (K8a and K8c with the full prior). One `k7_shared_versus` line; returns
+    what failed."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import isrbd_al as k78
+
+    dev = p["X"].device
+    al64 = p["al"][torch.float64]
+    Bsz, ns = p["X"].shape[0], p["X"].shape[1] - 1
+    n_eq, n_eq_T, _ = al64._sizes
+    g = np.random.RandomState(SEED + 210)
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    P_al = 20
+    phase = torch.as_tensor(g.randint(0, P_al, Bsz), dtype=torch.int32,
+                            device=dev)
+    phase[:3] = torch.tensor([0, 1, P_al - 1], dtype=torch.int32)
+    full = al64.init_full_phase_prior(P_al, Bsz)._replace(
+        lam_eq=t64(g.randn(Bsz, P_al, ns, n_eq)),
+        lam_eq_T=t64(g.randn(Bsz, P_al, n_eq_T)),
+        seen=torch.as_tensor(g.rand(Bsz, P_al) < 0.5, device=dev))
+    tail = al64.init_phase_prior(P_al, Bsz)._replace(
+        lam_tail=t64(g.randn(Bsz, P_al, n_eq)),
+        lam_T=t64(g.randn(Bsz, P_al, n_eq_T)),
+        seen_tail=torch.as_tensor(g.rand(Bsz, P_al) < 0.5, device=dev),
+        seen_T=torch.as_tensor(g.rand(Bsz, P_al) < 0.5, device=dev))
+    full.lam_eq[K7_NAN, :, 1, 1] = float("nan")
+    tail.lam_tail[K7_NAN, :, 3] = float("nan")
+    priors = {"none": None, "tail": tail, "full": full}
+
+    def calls(dtype, Bw=None):
+        tree = (p["st"], full, tail, p["static"], p["boxes"], phase)
+        if Bw is not None:
+            tree = resize_members(tree, Bsz, Bw)
+        st, fu, ta, static, boxes, ph = (cast_tree(t, dtype) for t in tree)
+        al = p["al"][dtype]
+        pr = {"none": None, "tail": ta, "full": fu}
+        out = {}
+        for k, v in pr.items():
+            out[f"k8a_{k}"] = ("isrbd_al_shift",
+                               (al, st, v, None if v is None else ph))
+        for k, v in (("static", static), ("boxes", boxes)):
+            out[f"k8b_{k}"] = ("isrbd_al_params", (al, v, st))
+        for k in ("tail", "full"):
+            out[f"k8c_{k}"] = ("isrbd_al_prior_update",
+                               (al, pr[k], st, ph, 0.5))
+        return out
+    r = dict(shape=shape, card=card, bit_equal={}, twin_bit_equal={}, ms={})
+    failed = []
+    for dtype in (torch.float64, torch.float32):
+        for key, (entry, a) in calls(dtype).items():
+            outs = {w: outputs(getattr(m, entry)(*a)) for w, m in mods.items()}
+            ref = outputs(getattr(k78, entry + "_plain")(*a))
+            torch.cuda.synchronize()
+            k = f"{key}_{str(dtype)[6:]}"
+            r["bit_equal"][k] = all(bits_equal(x, y) for (_, x), (_, y) in
+                                    zip(outs["other"], outs["this"]))
+            r["twin_bit_equal"][k] = all(bits_equal(x, y) for (_, x), (_, y)
+                                         in zip(outs["this"], ref))
+            if not (r["bit_equal"][k] and r["twin_bit_equal"][k]):
+                failed.append(f"{entry} ({shape}, {k}) differs from the other "
+                              "tree's or its twin")
+    for Bw in K7_VERSUS_B:
+        for key, (entry, a) in calls(torch.float32, Bw).items():
+            if key not in ("k8a_full", "k8b_static", "k8c_full"):
+                continue
+            for w in ("other", "this", "this", "other"):
+                fn = getattr(mods[w], entry)
+                r["ms"].setdefault(key, {}).setdefault(w, {}).setdefault(
+                    str(Bw), []).append(cuda_ms(lambda: fn(*a), reps=20))
+    emit("k7_shared_versus", **r)
     return failed
 
 
@@ -7685,13 +8003,14 @@ def main():
         "isrbd_al_constraints": ((al32, Xi32, Ui32, ap32), dict(st=ast32)),
         "isrbd_al_constraints_offline": ((al32, Xi32, Ui32, ap32),
                                          dict(st=ast32, offline=True)),
+        "isrbd_al_constraints_eval": ((al32, Xi32, Ui32, ap32), {}),
         "isrbd_al_shift": ((al32, ast32, full32, al_phase), {}),
         "isrbd_al_params": ((al32, ap32, ast32), {}),
         "isrbd_al_prior_update": ((al32, full32, ast32, al_phase, 1.0), {}),
     }
     al_times = {}
     for name, (a, kw) in al_calls.items():
-        entry = name.replace("_offline", "")
+        entry = name.replace("_offline", "").replace("_eval", "")
         kern, twin = getattr(k78, entry), getattr(k78, entry + "_plain")
         res = kern(*a, **kw)
         n_bytes, flop = al_call_work(al32, name, a, kw, res)
@@ -7706,6 +8025,12 @@ def main():
             plain_ms=cuda_ms(lambda: twin(*a, **kw), reps=5, warmup=1),
             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flop=flop,
             ms_by_B=by_B, host_us=host_us(lambda: kern(*a, **kw)))
+        if entry == "isrbd_al_constraints":
+            mode = 0 if not kw else 2 if kw.get("offline") else 1
+            al_times[name].update(
+                occupancy=k78.constraints_occupancy(mode, torch.float32,
+                                                    iocp.ns, "kangaroo"),
+                host_us_by_part=k7_host_split(k78, a, kw))
     emit("al_kernel_times", card=card, B=Bc, dtype="float32", **al_times)
 
     # timing at the constrained path's shapes and type (float32, B=256)

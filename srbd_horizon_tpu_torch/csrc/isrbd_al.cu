@@ -49,19 +49,44 @@
 // (ns=20) reads its plan and multipliers, ~5.4k values, in each entry, and
 // K7 does ~60 FLOP per equality row and a few per box row; K8c also copies
 // the member's P·(ns·n_eq + n_eq_T) table values. At B=256 that is 1-10 MB
-// an entry, 0.3-3 µs at 3.35 TB/s: the launch, not the work, is their
-// floor. Design: one block of eight warps a member, threads on
-// neighbouring elements of each member's contiguous run (coalesced); K7
-// stages the member's x, u and the four outer parameters it reads into a
-// record a node in shared memory with cp.async (cp_async_rows,
-// csrc/dmma.cuh), forms every stage node's R I Rᵀ and Iw ω on one warp (a
-// node a lane) while the other warps take the cone and box rows, then the
-// equality rows, and reduces the violation over the block. Compiled for
-// the shapes of csrc/isrbd_common.cuh only (`AL<S>` holds K7's constants
-// at each); the prior tables' period P and ns are run-time.
+// an entry, 0.3-3 µs at 3.35 TB/s: the launch and a member's round trips
+// to device memory, not the work, are their floor. K8: one block of eight
+// warps a member, threads on neighbouring elements of each member's
+// contiguous run (coalesced).
+//
+// K7: one block of eight warps a member, every value the mode reads
+// staged in one round at the start: x, u, c_ref and the three masks; the
+// bounds (the static (N, dim) tables at member stride 0, or the
+// per-member overrides); and by mode λ, λ_T, ρ, then viol_prev and the
+// μ's. Each run goes as the 16-byte-aligned window around it in 16-byte
+// cp.async copies by one warp's lanes (`stage_run`), landing in its own
+// region at its source's offset within 16 bytes (`landed`); the launcher
+// deals the runs out to the warps, the longest first to the least loaded
+// (`make_runs`, with each run's stride, elements and region), so a thread
+// sets up two or three runs, not every one. Every thread then waits once;
+// no load waits on a store or a barrier, and nothing is read from device
+// memory after it. (One bulk copy a run, from a lane each of one warp or
+// from a warp each, and the static tables left to L1 by prefetches, all
+// timed no better.) The Euler rows take three lanes a node (a warp ten
+// nodes, the last warps, which hold the fewest other elements): lane a
+// forms R, row a of R I and of Iw = R I Rᵀ and (Iw ω)_a, and takes the
+// other two entries of Iw ω from its neighbours by shuffles, so the
+// geometry needs no shared-memory round trip or block barrier. The other equality rows
+// go row by row over the nodes (a warp on one or two rows takes one
+// path), and every other output element (the cones, the boxes and their
+// multipliers) is one thread's, threads on neighbouring elements, and is
+// stored as soon as it is formed (coalesced; the stores wait on nothing).
+// One block barrier reduces the violation. A member's record (`reads`,
+// `run_count`; ~7.9k values offline with per-member bounds, 63 KB in
+// float64, 32 KB in float32) is held in shared memory, so no value waits
+// in registers for another. Compiled for the shapes of
+// csrc/isrbd_common.cuh only (`AL<S>` holds K7's constants at each); the
+// prior tables' period P and ns are run-time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
+
+#include <stdint.h>
 
 #include "isrbd_common.cuh"
 #include "dmma.cuh"
@@ -74,6 +99,17 @@ using isrbd::kUnknownShape;
 
 constexpr int kThreads = 256;        // a member a block
 constexpr int kWarps = kThreads / 32;
+constexpr int kEulerNodes = 10;      // a warp's nodes in K7's Euler pass
+// K7's blocks an SM that its launch bound asks registers for: five in
+// float32 (48 registers a thread), four in float64 (64; the offline
+// record's 63 KB holds three). Five to eight in float32 timed the same at
+// B = 256 and 4096: the fleet is held by the instructions a member takes,
+// not by the blocks in flight.
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 4;
+constexpr size_t kMaxSmem = 232448;  // the shared memory a block may take
+
+__host__ __device__ constexpr size_t round16(size_t v) { return (v + 15) / 16 * 16; }
 
 // Each product and sum rounded on its own, as separate torch ops round
 // them (nvcc would otherwise contract a·b + c into one fused multiply-add).
@@ -85,12 +121,18 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
-// a₀b₀ + a₁b₁ + a₂b₂ (entries sa and sb apart) as the twin's torch.matmul
-// forms its three-term sums on the card (a cuBLAS product): a₀b₀, then
-// fused multiply-adds in order of k.
+// a₀b₀ + a₁b₁ + a₂b₂ as the twin's torch.matmul forms its three-term sums
+// on the card (a cuBLAS product): a₀b₀, then fused multiply-adds in order
+// of k.
+template <typename T>
+__device__ __forceinline__ T dot3(T a0, T a1, T a2, T b0, T b1, T b2) {
+  return fma_rn(a2, b2, fma_rn(a1, b1, mul_rn(a0, b0)));
+}
+
+// The same of entries sa and sb apart.
 template <typename T>
 __device__ __forceinline__ T dot3(const T* a, int sa, const T* b, int sb) {
-  return fma_rn(a[2 * sa], b[2 * sb], fma_rn(a[sa], b[sb], mul_rn(a[0], b[0])));
+  return dot3(a[0], a[sa], a[2 * sa], b[0], b[sb], b[2 * sb]);
 }
 
 // (1 − e)·a + e·b with `ome` = 1 − e formed on the host, as the twin forms
@@ -130,9 +172,83 @@ enum Out {
 
 template <typename T>
 struct Ptrs {
-  const T* in[kIns];
-  T* out[kOuts];
+  const T* __restrict__ in[kIns];
+  T* __restrict__ out[kOuts];
   long long stride[4];               // x_lb, x_ub, u_lb, u_ub: member strides
+};
+
+// Whether `mode` reads input i: the plan, the references, the masks and
+// the bounds always; λ, λ_T and ρ in the updates; viol_prev and the μ's
+// offline, but μ_lb (the cones have no lower bound: μ_lb′ is 0).
+__host__ __device__ constexpr bool reads(int i, int mode) {
+  return i <= I_UUB || (i <= I_RHO && mode != kEval) || (i != I_MULB && mode == kOffline);
+}
+
+// The elements of input i a member holds (a bound's static table as many).
+template <class S>
+__host__ __device__ constexpr size_t run_count(int i, int ns) {
+  switch (i) {
+    case I_X: case I_XLB: case I_XUB: case I_MUXUB: case I_MUXLB: return (ns + 1) * size_t(S::nx);
+    case I_U: case I_ULB: case I_UUB: case I_MUUUB: case I_MUULB: return ns * size_t(S::nu);
+    case I_CREF: return (ns + 1) * size_t(S::nc);
+    case I_MSRBD: case I_MLIP: case I_MZONE: return ns + 1;
+    case I_LAM: return ns * size_t(S::n_eq);
+    case I_LAMT: return S::n_eq_T;
+    case I_MUUB: case I_MULB: return ns * size_t(S::n_in);
+    default: return 1;                       // ρ, viol_prev
+  }
+}
+
+// Input i's region in shared memory: its run and 16 bytes more (the run
+// lands at its source's offset within 16 bytes).
+template <class S, typename T>
+__host__ __device__ constexpr size_t region_bytes(int i, int ns) {
+  return round16(run_count<S>(i, ns) * sizeof(T) + 16);
+}
+
+// K7's shared memory: the regions of the inputs `mode` reads, in the order
+// of In, then the warps' maxima
+// (kernels/isrbd_al.py::constraints_smem_bytes states the same).
+template <class S, typename T>
+__host__ __device__ constexpr size_t constraints_smem_bytes(int mode, int ns) {
+  size_t bytes = 0;
+  for (int i = 0; i < kIns; ++i)
+    if (reads(i, mode)) bytes += region_bytes<S, T>(i, ns);
+  return bytes + round16(kWarps * sizeof(T));
+}
+
+// Where a run staged into the region at dst lands: at dst plus its
+// source's offset within 16 bytes, so that the 16-byte-aligned window
+// around it starts at dst.
+template <typename T>
+__device__ __forceinline__ T* landed(T* dst, const T* src) {
+  return dst + (reinterpret_cast<uintptr_t>(src) % 16) / sizeof(T);
+}
+
+// One warp stages the run of `count` elements at src into the region at
+// dst (`landed` reads it there): the 16-byte-aligned window around the run
+// in 16-byte cp.async copies, piece c by lane c % 32. The window reads only
+// the 16-byte blocks the run touches, so nothing outside the pages the
+// run's tensor maps, and it fits the region (region_bytes).
+template <typename T>
+__device__ __forceinline__ void stage_run(T* dst, const T* src, size_t count,
+                                          int lane) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = s / 16 * 16, hi = (s + count * sizeof(T) + 15) / 16 * 16;
+  const int pieces = static_cast<int>((hi - lo) / 16);
+  auto* d = reinterpret_cast<unsigned char*>(dst);
+  const auto* g = reinterpret_cast<const unsigned char*>(lo);
+  for (int c = lane; c < pieces; c += 32) cp_async<16>(d + 16 * c, g + 16 * c);
+}
+
+// What the launcher works out once for a call (make_runs): each input's
+// member stride in elements, the elements of its run, its region's byte
+// offset, and the warp that stages it.
+struct Runs {
+  long long stride[kIns];
+  int count[kIns];
+  int region[kIns];
+  int warp[kIns];
 };
 
 // K7's sizes, constants and device code at the shape S (the kernels
@@ -170,64 +286,96 @@ struct AL {
     return c;
   }
 
-  // One node's record in shared memory: x and u side by side, then the
-  // slots of the packed parameter row (isrbd::Layout) up to the LIP-zone
-  // mask, of which K7 fills c_ref and the three model masks, the only
-  // parameters the equality rows read.
-  struct Rec {
-    static constexpr int xu = 0, p = L::n_xu, size = p + L::p_mzone + 1;
-  };
-  static constexpr int kGeo = 12;             // a stage node's Iw (9) and Iw ω (3)
-
+  // Unscaled equality h_q of a stage node but the Euler rows: the rows of
+  // isrbd::stage_eq_h, read from the staged runs (the node's x, u and c_ref
+  // rows and its three masks, each apart).
   template <typename T>
-  static size_t constraints_smem_bytes(int ns) {
-    return sizeof(T) * ((ns + 1) * Rec::size + ns * kGeo + kWarps);
-  }
-
-  // The node's world inertia Iw = (R I) Rᵀ and Iw ω as the twin forms them
-  // (models/srbd.py::world_inertia and srbd_residual: matrix products).
-  template <typename T>
-  __device__ static __forceinline__ void node_inertia(const T* x, const isrbd::Consts<S, T>& k,
-                                               T* out) {
-    T R[9], RI[9];
-    rigid::quat_to_rot(x + 3, R);
-  #pragma unroll
-    for (int i = 0; i < 3; ++i)
-  #pragma unroll
-      for (int j = 0; j < 3; ++j) RI[i * 3 + j] = dot3(R + i * 3, 1, k.I + j, 3);
-  #pragma unroll
-    for (int i = 0; i < 3; ++i)
-  #pragma unroll
-      for (int j = 0; j < 3; ++j) out[i * 3 + j] = dot3(RI + i * 3, 1, R + j * 3, 1);
-  #pragma unroll
-    for (int i = 0; i < 3; ++i) out[9 + i] = dot3(out + i * 3, 1, x + L::i_w, 1);
-  }
-
-  // Unscaled equality h_q of the stage stack: isrbd::stage_eq_h, but the
-  // Euler rows Iw ω̇ + ω×Iw ω − Σ(c−r)×f with their products formed as the
-  // twin forms them (dot3), from the node's Iw and Iw ω in `gs`.
-  template <typename T>
-  __device__ static __forceinline__ T eq_row(int q, const T* xu, const T* p,
-                                             const T* gs,
-                                             const isrbd::Consts<S, T>& k) {
-    if (q < L::q_euler || q >= L::q_lip) {
-      const isrbd::Geometry<T> none{};                 // read by the Euler rows only
-      return isrbd::stage_eq_h(q, xu, p, none, k);
+  __device__ static __forceinline__ T eq_h(int q, const T* x, const T* u,
+                                           const T* cref, const T* msrbd,
+                                           const T* mlip, const T* mzone,
+                                           const isrbd::Consts<S, T>& k) {
+    if constexpr (L::n_relvel > 0) {
+      if (q < L::q_cz)
+        return x[isrbd::relvel_col<S>(q, true)] - x[isrbd::relvel_col<S>(q, false)];
     }
-    const int a = q - L::q_euler, a1 = (a + 1) % 3, a2 = (a + 2) % 3;
-    const T* r = xu;
-    const T* w = xu + L::i_w;
-    const T* u = xu + nx;
-    const T Iwd = dot3(gs + 3 * a, 1, u + 3, 1);
-    const T wxh = w[a1] * gs[9 + a2] - w[a2] * gs[9 + a1];
+    if (q < L::q_newton) return x[L::i_c + 3 * (q - L::q_cz) + 2] - cref[q - L::q_cz];
+    if (q < L::q_euler) {                        // Newton: m(r̈ + g) − Σf
+      const int a = q - L::q_newton;
+      T f = T(0);
+  #pragma unroll
+      for (int c = 0; c < nc; ++c) f += u[isrbd::col_f(c, a)];
+      const T acc = a == 2 ? u[a] + T(9.81) : u[a];
+      return *msrbd * (k.m * acc - f);
+    }
+    const T* r = x;
+    const T* w = x + L::i_w;
+    if (q < L::q_zone) {                         // LIP: m(r̈ − [η²(r − zmp) − g])
+      const int a = q - L::q_lip;
+      T zmp = T(0);
+      if (a < 2) {
+  #pragma unroll
+        for (int c = 0; c < nc; ++c) zmp += x[L::i_c + 3 * c + a];
+        zmp = zmp / T(nc);
+      }
+      T lip = k.eta2 * (r[a] - zmp);
+      if (a == 2) lip = lip - T(9.81);
+      return *mlip * (k.m * (u[a] - lip));
+    }
+    const int a = q - L::q_zone;                 // LIP zone: r_z, ω
+    return *mzone * (a == 0 ? x[2] - k.com_z : w[a - 1]);
+  }
+
+  // Unscaled terminal equality h_q (isrbd::terminal_eq_h from the runs).
+  template <typename T>
+  __device__ static __forceinline__ T terminal_h(int q, const T* x,
+                                                 const T* cref,
+                                                 const T* mzone,
+                                                 const isrbd::Consts<S, T>& k) {
+    if constexpr (L::n_relvel > 0) {
+      if (q < L::q_cz)
+        return x[isrbd::relvel_col<S>(q, true)] - x[isrbd::relvel_col<S>(q, false)];
+    }
+    if (q < L::q_cz + nc) return x[L::i_c + 3 * (q - L::q_cz) + 2] - cref[q - L::q_cz];
+    const int a = q - L::q_cz - nc;
+    return *mzone * (a == 0 ? x[2] - k.com_z : x[L::i_w + a - 1]);
+  }
+
+  // Euler row a (= lane % 3) of the stage node at x, u: Iw ω̇ + ω × Iw ω −
+  // Σ(c − r) × f, with Iw = (R I) Rᵀ and Iw ω formed as the twin's matrix
+  // products (models/srbd.py::world_inertia, srbd_residual): this lane
+  // forms row a of R I and of Iw and (Iw ω)_a, and takes (Iw ω)_{a+1},
+  // (Iw ω)_{a+2} from lanes `lane − a + (a+1)%3`, `… (a+2)%3`. Every lane of
+  // the warp calls it (the shuffles take all 32).
+  template <typename T>
+  __device__ static __forceinline__ T euler_row(int a, int lane, const T* x,
+                                                const T* u, const T* msrbd,
+                                                const isrbd::Consts<S, T>& k) {
+    T R[9];
+    rigid::quat_to_rot(x + 3, R);
+    const T* w = x + L::i_w;
+    const T Ra0 = a == 0 ? R[0] : a == 1 ? R[3] : R[6];
+    const T Ra1 = a == 0 ? R[1] : a == 1 ? R[4] : R[7];
+    const T Ra2 = a == 0 ? R[2] : a == 1 ? R[5] : R[8];
+    T RI[3], Iw[3];
+  #pragma unroll
+    for (int j = 0; j < 3; ++j) RI[j] = dot3(Ra0, Ra1, Ra2, k.I[j], k.I[3 + j], k.I[6 + j]);
+  #pragma unroll
+    for (int j = 0; j < 3; ++j)
+      Iw[j] = dot3(RI[0], RI[1], RI[2], R[3 * j], R[3 * j + 1], R[3 * j + 2]);
+    const T h = dot3(Iw[0], Iw[1], Iw[2], w[0], w[1], w[2]);
+    const int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+    const T h1 = __shfl_sync(0xffffffffu, h, lane - a + a1);
+    const T h2 = __shfl_sync(0xffffffffu, h, lane - a + a2);
+    const T Iwd = dot3(Iw[0], Iw[1], Iw[2], u[3], u[4], u[5]);
+    const T wxh = w[a1] * h2 - w[a2] * h1;
     T tau = T(0);
   #pragma unroll
     for (int c = 0; c < nc; ++c) {
-      const T* cc = xu + L::i_c + 3 * c;
+      const T* cc = x + L::i_c + 3 * c;
       const T* f = u + isrbd::col_f(c, 0);
-      tau += (cc[a1] - r[a1]) * f[a2] - (cc[a2] - r[a2]) * f[a1];
+      tau += (cc[a1] - x[a1]) * f[a2] - (cc[a2] - x[a2]) * f[a1];
     }
-    return p[L::p_msrbd] * ((Iwd + wxh) - tau);
+    return *msrbd * ((Iwd + wxh) - tau);
   }
 };
 
@@ -247,119 +395,129 @@ __device__ __forceinline__ T side(T mu, T rho, T gap, T bound) {
 }
 
 template <class S, typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+isrbd_al_constraints_kernel(const Ptrs<T> P, const Runs R, int ns,
                             const __grid_constant__ typename AL<S>::template AlConsts<T> c) {
   using C = AL<S>;
   using L = typename C::L;
-  using Rec = typename C::Rec;
   constexpr int nx = C::nx, nu = C::nu, nc = C::nc, n_eq = C::n_eq,
-                n_eq_T = C::n_eq_T, n_in = C::n_in, kGeo = C::kGeo;
+                n_eq_T = C::n_eq_T, n_in = C::n_in;
+  constexpr bool kOff = kMode == kOffline;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int ns1 = ns + 1;
-  T* geo = s + ns1 * Rec::size;
-  T* red = geo + ns * kGeo;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t b = blockIdx.x;
+  const int ns1 = ns + 1;
   const isrbd::Consts<S, T>& k = c.k;
-  constexpr bool kOff = kMode == kOffline;
 
-  // stage the member's nodes: x, u, c_ref and the masks
-  cp_async_rows<T, nx, kThreads>(s + Rec::xu, Rec::size,
-                                 P.in[I_X] + b * ns1 * nx, 0, ns1, tid);
-  cp_async_rows<T, nu, kThreads>(s + Rec::xu + nx, Rec::size,
-                                 P.in[I_U] + b * ns * nu, 0, ns, tid);
-  cp_async_rows<T, nc, kThreads>(s + Rec::p + L::p_cref, Rec::size,
-                                 P.in[I_CREF] + b * ns1 * nc, 0, ns1, tid);
-  cp_async_rows<T, 1, kThreads>(s + Rec::p + L::p_msrbd, Rec::size,
-                                P.in[I_MSRBD] + b * ns1, 0, ns1, tid);
-  cp_async_rows<T, 1, kThreads>(s + Rec::p + L::p_mlip, Rec::size,
-                                P.in[I_MLIP] + b * ns1, 0, ns1, tid);
-  cp_async_rows<T, 1, kThreads>(s + Rec::p + L::p_mzone, Rec::size,
-                                P.in[I_MZONE] + b * ns1, 0, ns1, tid);
-  cp_async_commit();
+  // input i: its member's run in device memory, and where it lands
+  auto source = [&](int i) -> const T* { return P.in[i] + b * R.stride[i]; };
+  auto run = [&](int i) -> T* {
+    return landed(reinterpret_cast<T*>(smem_raw + R.region[i]), source(i));
+  };
+  T* red = reinterpret_cast<T*>(
+      smem_raw + constraints_smem_bytes<S, T>(kMode, ns) - round16(kWarps * sizeof(T)));
+
+  // stage every run the mode reads, in one round: each warp issues the
+  // runs the launcher gave it, then every thread waits once
+#pragma unroll
+  for (int i = 0; i < kIns; ++i)
+    if (reads(i, kMode) && warp == R.warp[i])
+      stage_run(reinterpret_cast<T*>(smem_raw + R.region[i]), source(i), R.count[i], lane);
   cp_async_wait_all();
-  __syncthreads();
+  __syncthreads();                                   // every run is in
 
-  const T rho = kMode == kEval ? T(0) : P.in[I_RHO][b];
+  const T* x = run(I_X);
+  const T* u = run(I_U);
+  const T* cref = run(I_CREF);
+  const T* msrbd = run(I_MSRBD);
+  const T* mlip = run(I_MLIP);
+  const T* mzone = run(I_MZONE);
+  const T rho = kMode == kEval ? T(0) : *run(I_RHO);
   T vmax = T(0);
 
-  // warp 0: every stage node's world inertia and Iw ω, a node a lane
-  if (warp == 0)
-    for (int n = lane; n < ns; n += 32)
-      C::node_inertia(s + n * Rec::size + Rec::xu, k, geo + n * kGeo);
-
-  // the cones: g = A_fc f ≤ 0 (bounded above by 0 only)
-  for (int i = tid; i < ns * n_in; i += kThreads) {
-    const int n = i / n_in, j = i - n * n_in;
-    const T* f = s + n * Rec::size + Rec::xu + nx + isrbd::col_f(j / 5, 0);
-    const T g = dot3(f, 1, k.A_fc + 3 * (j % 5), 1);
-    vmax = nan_max(vmax, relu_nan(g));
-    const size_t o = b * ns * n_in + i;
-    if (kMode == kEval) P.out[O_G][o] = g;
-    if (kOff) {
-      P.out[O_MUUB][o] = relu_nan(add_rn(P.in[I_MUUB][o], mul_rn(rho, g)));
-      P.out[O_MULB][o] = T(0);
-    }
-  }
-  // the x boxes, every node
-  {
-    const T* lb = P.in[I_XLB] + b * P.stride[0];
-    const T* ub = P.in[I_XUB] + b * P.stride[1];
-    for (int i = tid; i < ns1 * nx; i += kThreads) {
-      const int n = i / nx;
-      const T v = s[n * Rec::size + Rec::xu + (i - n * nx)];
-      const T l = lb[i], u = ub[i];
-      vmax = nan_max(vmax, box_violation(v, l, u));
-      if (kOff) {
-        const size_t o = b * ns1 * nx + i;
-        P.out[O_MUXUB][o] = side(P.in[I_MUXUB][o], rho, v - u, u);
-        P.out[O_MUXLB][o] = side(P.in[I_MUXLB][o], rho, l - v, l);
-      }
-    }
-  }
-  // the u boxes, the stage nodes
-  {
-    const T* lb = P.in[I_ULB] + b * P.stride[2];
-    const T* ub = P.in[I_UUB] + b * P.stride[3];
-    for (int i = tid; i < ns * nu; i += kThreads) {
-      const int n = i / nu;
-      const T v = s[n * Rec::size + Rec::xu + nx + (i - n * nu)];
-      const T l = lb[i], u = ub[i];
-      vmax = nan_max(vmax, box_violation(v, l, u));
-      if (kOff) {
-        const size_t o = b * ns * nu + i;
-        P.out[O_MUUUB][o] = side(P.in[I_MUUUB][o], rho, v - u, u);
-        P.out[O_MUULB][o] = side(P.in[I_MUULB][o], rho, l - v, l);
-      }
-    }
-  }
-  __syncthreads();                                   // the geometry is in
-
-  // the stage equalities h = S·h_raw, and λ + (ρw)·h
-  for (int i = tid; i < ns * n_eq; i += kThreads) {
-    const int n = i / n_eq, q = i - n * n_eq;
-    const T* rec = s + n * Rec::size;
-    const T h = k.S[q] * C::eq_row(q, rec + Rec::xu, rec + Rec::p, geo + n * kGeo, k);
+  // the stage equalities h = S·h_raw, and λ + (ρw)·h: first the Euler
+  // rows, three lanes a node
+  auto put_eq = [&](int n, int q, T h) {
     vmax = nan_max(vmax, isrbd::abs_nan(h));
-    const size_t o = b * ns * n_eq + i;
+    const size_t o = (b * ns + n) * n_eq + q;
     if (kMode == kEval)
       P.out[O_H][o] = h;
     else
-      P.out[O_LAM][o] = add_rn(P.in[I_LAM][o], mul_rn(mul_rn(rho, c.w[q]), h));
+      P.out[O_LAM][o] = add_rn(run(I_LAM)[n * n_eq + q], mul_rn(mul_rn(rho, c.w[q]), h));
+  };
+  // (the last warps, which hold the fewest elements of the passes below)
+  for (int n0 = (kWarps - 1 - warp) * kEulerNodes; n0 < ns;
+       n0 += kWarps * kEulerNodes) {
+    const int a = lane % 3, m = n0 + lane / 3, n = m < ns ? m : n0;
+    const T h = C::euler_row(a, lane, x + n * nx, u + n * nu, msrbd + n, k);
+    if (lane < 3 * kEulerNodes && m < ns) {
+      const int q = L::q_euler + a;
+      put_eq(n, q, k.S[q] * h);
+    }
+  }
+  // the other stage equality rows, row by row (a warp's lanes on one or
+  // two rows of neighbouring nodes take one path)
+  #pragma unroll 2
+  for (int i = tid; i < ns * (n_eq - 3); i += kThreads) {
+    const int r = i / ns, n = i - r * ns;
+    const int q = r < L::q_euler ? r : r + 3;
+    put_eq(n, q, k.S[q] * C::eq_h(q, x + n * nx, u + n * nu, cref + n * nc,
+                                  msrbd + n, mlip + n, mzone + n, k));
   }
   // the terminal equalities hT = S_T·h_raw,T, and λ_T + (ρw_T)·hT
-  if (tid < n_eq_T) {
-    const int q = tid;
-    const T* rec = s + ns * Rec::size;
-    const T h = k.S_T[q] * isrbd::terminal_eq_h(q, rec + Rec::xu, rec + Rec::p, k);
+  if (warp == kWarps - 3 && lane < n_eq_T) {
+    const int q = lane;
+    const T h = k.S_T[q] * C::terminal_h(q, x + ns * nx, cref + ns * nc, mzone + ns, k);
     vmax = nan_max(vmax, isrbd::abs_nan(h));
     const size_t o = b * n_eq_T + q;
     if (kMode == kEval)
       P.out[O_HT][o] = h;
     else
-      P.out[O_LAMT][o] = add_rn(P.in[I_LAMT][o], mul_rn(mul_rn(rho, c.w_T[q]), h));
+      P.out[O_LAMT][o] = add_rn(run(I_LAMT)[q], mul_rn(mul_rn(rho, c.w_T[q]), h));
+  }
+  // the cones: g = A_fc f ≤ 0 (bounded above by 0 only)
+  #pragma unroll 2
+  for (int i = tid; i < ns * n_in; i += kThreads) {
+    const int n = i / n_in, j = i - n * n_in;
+    const T* f = u + n * nu + isrbd::col_f(j / 5, 0);
+    const T g = dot3(f, 1, k.A_fc + 3 * (j % 5), 1);
+    vmax = nan_max(vmax, relu_nan(g));
+    const size_t o = b * ns * n_in + i;
+    if (kMode == kEval) P.out[O_G][o] = g;
+    if (kOff) {
+      P.out[O_MUUB][o] = relu_nan(add_rn(run(I_MUUB)[i], mul_rn(rho, g)));
+      P.out[O_MULB][o] = T(0);
+    }
+  }
+  // the x boxes, every node
+  {
+    const T* lb = run(I_XLB);
+    const T* ub = run(I_XUB);
+    #pragma unroll 2
+    for (int i = tid; i < ns1 * nx; i += kThreads) {
+      const T v = x[i], l = lb[i], h = ub[i];
+      vmax = nan_max(vmax, box_violation(v, l, h));
+      if (kOff) {
+        const size_t o = b * ns1 * nx + i;
+        P.out[O_MUXUB][o] = side(run(I_MUXUB)[i], rho, v - h, h);
+        P.out[O_MUXLB][o] = side(run(I_MUXLB)[i], rho, l - v, l);
+      }
+    }
+  }
+  // the u boxes, the stage nodes
+  {
+    const T* lb = run(I_ULB);
+    const T* ub = run(I_UUB);
+    #pragma unroll 2
+    for (int i = tid; i < ns * nu; i += kThreads) {
+      const T v = u[i], l = lb[i], h = ub[i];
+      vmax = nan_max(vmax, box_violation(v, l, h));
+      if (kOff) {
+        const size_t o = b * ns * nu + i;
+        P.out[O_MUUUB][o] = side(run(I_MUUUB)[i], rho, v - h, h);
+        P.out[O_MUULB][o] = side(run(I_MUULB)[i], rho, l - v, l);
+      }
+    }
   }
 
   // the member's violation, then the penalty schedule
@@ -372,7 +530,7 @@ isrbd_al_constraints_kernel(const Ptrs<T> P, int ns,
     if (lane == 0) {
       P.out[O_VIOL][b] = v;
       if (kOff) {
-        const T prev = P.in[I_VIOLP][b];
+        const T prev = *run(I_VIOLP);
         T grown = rho * c.rho_growth;
         grown = grown > c.rho_max ? c.rho_max : grown;   // a NaN stays
         const bool grow = v > c.viol_decrease * prev && v > c.tol;
@@ -575,16 +733,81 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// K7's runs in `mode` at ns stage nodes: the member strides (the bounds'
+// from `bound_strides`, 0 for a static table), the regions in the order of
+// In (constraints_smem_bytes), and the warps that stage them, the longest
+// run first to the warp with the fewest pieces so far.
+template <class S, typename T>
+Runs make_runs(int mode, int ns, const long long* bound_strides) {
+  Runs R{};
+  int order[kIns], n = 0;
+  size_t off = 0;
+  for (int i = 0; i < kIns; ++i) {
+    R.count[i] = static_cast<int>(run_count<S>(i, ns));
+    R.stride[i] = i >= I_XLB && i <= I_UUB ? bound_strides[i - I_XLB] : R.count[i];
+    R.region[i] = static_cast<int>(off);
+    R.warp[i] = -1;
+    if (reads(i, mode)) {
+      off += region_bytes<S, T>(i, ns);
+      order[n++] = i;
+    }
+  }
+  for (int a = 1; a < n; ++a)                      // longest first (stable)
+    for (int j = a; j > 0 && R.count[order[j]] > R.count[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  long long load[kWarps] = {};
+  for (int a = 0; a < n; ++a) {
+    int w = 0;
+    for (int v = 1; v < kWarps; ++v)
+      if (load[v] < load[w]) w = v;
+    R.warp[order[a]] = w;
+    load[w] += (R.count[order[a]] * static_cast<long long>(sizeof(T)) + 30) / 16;
+  }
+  return R;
+}
+
 template <class S, typename T, int kMode>
 int launch_constraints_mode(const Ptrs<T>& P, int B, int ns,
                             const typename AL<S>::template AlConsts<T>& c,
                             cudaStream_t stream) {
-  const size_t bytes = AL<S>::template constraints_smem_bytes<T>(ns);
+  const size_t bytes = constraints_smem_bytes<S, T>(kMode, ns);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = isrbd_al_constraints_kernel<S, T, kMode>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<B, kThreads, bytes, stream>>>(P, ns, c);
+  kernel<<<B, kThreads, bytes, stream>>>(P, make_runs<S, T>(kMode, ns, P.stride), ns, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7's occupancy in `kMode` at ns stage nodes, into out[0..4]: blocks
+// resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), warps
+// a block, shared memory bytes a block, registers a thread and local
+// (spilled) bytes a thread (cudaFuncGetAttributes).
+template <class S, typename T, int kMode>
+int constraints_occupancy_mode(int ns, int* out) {
+  const size_t bytes = constraints_smem_bytes<S, T>(kMode, ns);
+  auto kernel = isrbd_al_constraints_kernel<S, T, kMode>;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads, bytes);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = kWarps;
+  out[2] = static_cast<int>(bytes);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+
+template <class S, typename T>
+int constraints_occupancy(int mode, int ns, int* out) {
+  if (mode == kEval) return constraints_occupancy_mode<S, T, kEval>(ns, out);
+  if (mode == kOnline) return constraints_occupancy_mode<S, T, kOnline>(ns, out);
+  if (mode == kOffline) return constraints_occupancy_mode<S, T, kOffline>(ns, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <class S, typename T>
@@ -691,6 +914,18 @@ int launch_prior_update(int prior, const void* const* in, const void* seen,
 
 CONSTRAINTS_ENTRY(isrbd_al_constraints_f32, float)
 CONSTRAINTS_ENTRY(isrbd_al_constraints_f64, double)
+
+// K7's occupancy for the shape at index `shape` (kernels/isrbd_linearize.py::
+// KERNEL_SHAPES), a mode (0-2) and float32 (f64 = 0) or float64, at ns
+// stage nodes: out[0..4] as constraints_occupancy_mode fills them.
+extern "C" int isrbd_al_constraints_occupancy(int shape, int mode, int f64,
+                                              int ns, int* out) {
+  return isrbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? constraints_occupancy<S, double>(mode, ns, out)
+               : constraints_occupancy<S, float>(mode, ns, out);
+  });
+}
 
 // K8a-c take the index of their shape in kernels/isrbd_linearize.py::
 // KERNEL_SHAPES first (kUnknownShape for another index).

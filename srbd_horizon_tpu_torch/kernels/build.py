@@ -16,7 +16,8 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
                     `isrbd_evaluate_occupancy`
   isrbd_linearize   K5 `isrbd_linearize`; `isrbd_linearize_occupancy`
   isrbd_al          K7 `isrbd_al_constraints`, K8 `isrbd_al_shift`,
-                    `isrbd_al_params`, `isrbd_al_prior_update`
+                    `isrbd_al_params`, `isrbd_al_prior_update`; and, with
+                    no type suffix, `isrbd_al_constraints_occupancy`
   lip_linearize     K10 `lip_linearize`; `lip_linearize_occupancy`
   lip_rollout       K11 `lip_trial` (and `lip_trial_chain`, its chain
                     alone), `lip_evaluate`; and, with no type suffix,
@@ -142,6 +143,16 @@ def check_tensor(name, t, shape, dtype, device, rows=False):
             raise ValueError(f"{name} must have contiguous rows")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_tensors(items, dtype, device):
+    """`check_tensor` on each (name, tensor, shape) of `items`, every
+    tensor of `dtype` on `device`: one pass of cheap comparisons, and the
+    full check (which raises) only for a tensor that fails them."""
+    for name, t, shape in items:
+        if (t.dtype != dtype or t.device != device or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(name, t, shape, dtype, device)
 
 
 def host_setup(terms, key: tuple, make: Callable[[], Any]):

@@ -32,6 +32,14 @@ online twin the equality update of `solve_online_batch` (:751-759).
 
 Every twin counts toward `PLAIN_TWINS`, the names `chip_smoke.py`'s spy
 wraps to show that no twin runs on the card on the constrained path.
+
+K7 stages every value its mode reads into shared memory in one round
+(`reads`, `run_count` and `constraints_smem_bytes` state that record as
+csrc/isrbd_al.cu lays it out; a call that would not fit raises
+ValueError), and a call's outputs are views of one buffer
+(`output_layout`). Its host work that does not change between calls (the
+shape check, the scalars, the layout, the static bounds' check) is done
+once (`host_setup`).
 """
 
 from __future__ import annotations
@@ -40,7 +48,14 @@ import ctypes
 
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, host_setup, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    EVALUATE_OCCUPANCY_FIELDS,
+    check_tensor,
+    check_tensors,
+    host_setup,
+    library,
+    occupancy_query,
+)
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     check_kernel_shape,
     kernel_scalars,
@@ -400,80 +415,240 @@ def _bound(name, b, Bsz, n, dim, dtype, dev):
     return n * dim
 
 
+# ---- K7's layout: what csrc/isrbd_al.cu stages, and its one output buffer ----
+
+NAME = "isrbd_al_constraints"
+MODES = ("eval", "online", "offline")
+MAX_SMEM = 232_448            # an H100 block's dynamic shared memory
+WARPS = 8                     # a member's block (kThreads / 32)
+# the kernel's inputs, in the order of its `In` (csrc/isrbd_al.cu)
+INPUTS = ("X", "U", "c_ref", "mask_srbd", "mask_lip", "mask_lipzone", "x_lb",
+          "x_ub", "u_lb", "u_ub", "lam_eq", "lam_eq_T", "rho", "viol",
+          "mu_ub", "mu_lb", "mu_x_ub", "mu_x_lb", "mu_u_ub", "mu_u_lb")
+BOUNDS = ("x_lb", "x_ub", "u_lb", "u_ub")
+OUT_ALIGN = 16                # bytes: where each output starts in its buffer
+
+
+def reads(i: int, mode: int) -> bool:
+    """Whether K7 in `mode` (0 eval, 1 online, 2 offline) reads input i of
+    INPUTS (the .cu's `reads`)."""
+    return i <= 9 or (i <= 12 and mode != 0) or (i != 15 and mode == 2)
+
+
+def run_count(i: int, ns: int, terms, nx: int, nu: int) -> int:
+    """The elements of input i a member holds (the .cu's `run_count`)."""
+    name = INPUTS[i]
+    if name in ("X", "x_lb", "x_ub", "mu_x_ub", "mu_x_lb"):
+        return (ns + 1) * nx
+    if name in ("U", "u_lb", "u_ub", "mu_u_ub", "mu_u_lb"):
+        return ns * nu
+    if name == "c_ref":
+        return (ns + 1) * terms.outer.nc
+    if name.startswith("mask"):
+        return ns + 1
+    if name == "lam_eq":
+        return ns * terms.n_eq
+    if name == "lam_eq_T":
+        return terms.n_eq_T
+    if name.startswith("mu_"):
+        return ns * terms.n_ineq
+    return 1                                      # rho, viol (viol_prev)
+
+
+def constraints_smem_bytes(mode: int, dtype, ns: int, terms, nx: int,
+                           nu: int) -> int:
+    """K7's shared memory a block (the .cu's `constraints_smem_bytes`): a
+    region for each input the mode reads, its run and 16 bytes more (the
+    run lands at its source's offset within 16 bytes), each a 16-byte
+    multiple, then the warps' maxima."""
+    e = torch.finfo(dtype).bits // 8
+    r16 = lambda v: -(-v // 16) * 16
+    return (sum(r16(run_count(i, ns, terms, nx, nu) * e + 16)
+                for i in range(len(INPUTS)) if reads(i, mode))
+            + r16(WARPS * e))
+
+
+def output_shapes(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int):
+    """K7's outputs in `mode`, in the order the entry returns them: (slot
+    of the kernel's `Out`, shape) — eval h, hT, g, viol; online λ, λ_T,
+    viol; offline the MULTIPLIERS, ρ and viol."""
+    n_eq, n_eq_T, n_in, ns1 = terms.n_eq, terms.n_eq_T, terms.n_ineq, ns + 1
+    if mode == 0:
+        return ((0, (Bsz, ns, n_eq)), (1, (Bsz, n_eq_T)), (2, (Bsz, ns, n_in)),
+                (12, (Bsz,)))
+    lam = ((3, (Bsz, ns, n_eq)), (4, (Bsz, n_eq_T)))
+    if mode == 1:
+        return lam + ((12, (Bsz,)),)
+    return lam + ((5, (Bsz, ns, n_in)), (6, (Bsz, ns, n_in)),
+                  (7, (Bsz, ns1, nx)), (8, (Bsz, ns1, nx)),
+                  (9, (Bsz, ns, nu)), (10, (Bsz, ns, nu)), (11, (Bsz,)),
+                  (12, (Bsz,)))
+
+
+def output_layout(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int,
+                  dtype):
+    """Where K7's outputs lie in a call's one buffer: ((slot, shape,
+    stride, element offset), …) in return order, each starting OUT_ALIGN
+    bytes apart from the buffer's start, and the buffer's elements."""
+    step = OUT_ALIGN // (torch.finfo(dtype).bits // 8)
+    views, off = [], 0
+    for slot, shape in output_shapes(mode, Bsz, ns, terms, nx, nu):
+        stride, n = [], 1
+        for d in reversed(shape):
+            stride.insert(0, n)
+            n *= d
+        views.append((slot, shape, tuple(stride), off))
+        off += -(-n // step) * step
+    return tuple(views), off
+
+
+def output_views(layout, total: int, dtype, device):
+    """One `torch.empty` of `total` elements cut into the contiguous views
+    of `layout` (`output_layout`): (the buffer, the views)."""
+    buf = torch.empty(total, dtype=dtype, device=device)
+    return buf, [buf.as_strided(shape, stride, off)
+                 for _, shape, stride, off in layout]
+
+
+class _ConstraintsSetup:
+    """K7's host work for one (terms, options, dt, device, dtype, mode, B,
+    ns), past the shape check: the entry with its argtypes, the scalars,
+    the output layout, the shared-memory check, the static bounds (checked
+    once) and the ctypes arrays of the bounds' member strides."""
+
+    def __init__(self, al, dev, dtype, mode, Bsz, ns, nx, nu):
+        terms = al.terms
+        self.al_opts = al.al_opts        # held: the key holds its id
+        smem = constraints_smem_bytes(mode, dtype, ns, terms, nx, nu)
+        if smem > MAX_SMEM:
+            raise ValueError(f"{NAME}: ns={ns} needs {smem} B of shared memory "
+                             f"a block in {MODES[mode]} mode ({MAX_SMEM} fit)")
+        self.fn = _fn(NAME, dtype, [_I, _P, _P, _P] + [_I] * 5 + [_P, _P])
+        self.scalars = _doubles(al_scalars(al, al.ocp.dt))
+        o = terms.outer
+        self.topology = (o.nc, o.contact_model, o.number_of_legs)
+        self.layout, self.total = output_layout(mode, Bsz, ns, terms, nx, nu,
+                                                dtype)
+        e = torch.finfo(dtype).bits // 8
+        self.out_slots = tuple((slot, off * e) for slot, _, _, off in self.layout)
+        self.outer = (("c_ref", (Bsz, ns + 1, o.nc)),
+                      ("mask_srbd", (Bsz, ns + 1, 1)),
+                      ("mask_lip", (Bsz, ns + 1, 1)),
+                      ("mask_lipzone", (Bsz, ns + 1, 1)))
+        self.bound_rows = ((ns + 1, nx), (ns + 1, nx), (ns, nu), (ns, nu))
+        # the static tables that pass the check (None: checked at each
+        # call that reads them, and raising there)
+        self.static = []
+        for name, b, (n, dim) in zip(BOUNDS, al._bounds, self.bound_rows):
+            try:
+                check_tensor(name, b, (n, dim), dtype, dev)
+                self.static.append(b)
+            except ValueError:
+                self.static.append(None)
+        n_eq, n_eq_T, n_in = terms.n_eq, terms.n_eq_T, terms.n_ineq
+        shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
+                      mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in),
+                      mu_x_ub=(Bsz, ns + 1, nx), mu_x_lb=(Bsz, ns + 1, nx),
+                      mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu),
+                      rho=(Bsz,), viol=(Bsz,))
+        fields = (() if mode == 0 else ("lam_eq", "lam_eq_T", "rho")
+                  if mode == 1 else MULTIPLIERS + ("rho", "viol"))
+        self.state = tuple((f, shapes[f]) for f in fields)
+        # the state's fields in the kernel's input slots 10 on (INPUTS)
+        self.state_ins = INPUTS[10:10 + (0, 3, 10)[mode]]
+        self.strides = {}
+        # the strides when every bound is its static table (the serving
+        # tick's case), or None where one of those fails its check
+        self.all_static = (None if None in self.static
+                           else self.stride_array((0, 0, 0, 0)))
+
+    def stride_array(self, strides):
+        arr = self.strides.get(strides)
+        if arr is None:
+            arr = self.strides[strides] = (ctypes.c_longlong * 4)(*strides)
+        return arr
+
+
+def _constraints_checked(al, X, U, params, st, offline):
+    """K7's host checks of a CUDA call: (its setup, the mode, the input
+    tensors in the kernel's order, the bounds' member strides as a ctypes
+    array). Raises ValueError on any tensor the kernel does not take."""
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    mode = 0 if st is None else 2 if offline else 1
+    _shape_setup(NAME, al, nx, nu)               # sizes first, then device
+    dev, dtype = _device(NAME, X)
+    s = host_setup(al.terms, (NAME, id(al.al_opts), al.ocp.dt, dev, dtype,
+                              mode, Bsz, ns),
+                   lambda: _ConstraintsSetup(al, dev, dtype, mode, Bsz, ns,
+                                             nx, nu))
+    outer = [params[k] for k, _ in s.outer]
+    items = [("X", X, (Bsz, ns1, nx)), ("U", U, (Bsz, ns, nu))]
+    items += [(k, t, shape) for (k, shape), t in zip(s.outer, outer)]
+    state = [getattr(st, f) for f, _ in s.state]
+    items += [(f, t, shape) for (f, shape), t in zip(s.state, state)]
+    check_tensors(items, dtype, dev)
+    bounds = al._bounds_from(params)
+    if s.all_static is not None and all(
+            b is t for b, t in zip(bounds, s.static)):
+        strides = s.all_static
+    else:
+        strides = s.stride_array(tuple(
+            0 if b is static else _bound(name, b, Bsz, n, dim, dtype, dev)
+            for name, b, static, (n, dim) in zip(BOUNDS, bounds, s.static,
+                                                  s.bound_rows)))
+    ins = [X, U, *outer, *bounds] + [None] * 10
+    ins[10:10 + len(s.state_ins)] = [getattr(st, f) for f in s.state_ins]
+    return s, mode, ins, strides
+
+
+def _constraints_launch(s, mode, ins, strides, out_base, Bsz, ns, dev):
+    """Launch K7 on the checked inputs, its outputs at `out_base` (the
+    buffer's address) as `s.layout` places them."""
+    outs = [None] * 13
+    for slot, off in s.out_slots:
+        outs[slot] = out_base + off
+    ptrs_in = (_P * 20)(*[None if t is None else t.data_ptr() for t in ins])
+    ptrs_out = (_P * 13)(*outs)
+    args = (mode, ptrs_in, ptrs_out, strides, Bsz, ns, *s.topology,
+            s.scalars)
+    if dev.index == torch.cuda.current_device():
+        err = s.fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = s.fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{NAME} kernel failed: CUDA error {err}")
+
+
 def isrbd_al_constraints(al, X, U, params, st=None, offline=False):
     """K7. Same contract as `isrbd_al_constraints_plain`; launches the CUDA
     kernel for CUDA tensors of the sizes of a shape in `KERNEL_SHAPES` (and
     counts the launch in `isrbd_al_constraints.launches`), raises
-    ValueError for any other."""
+    ValueError for any other. A call's outputs are views of one buffer
+    (`output_layout`)."""
     if X.device.type == "cpu":
         return isrbd_al_constraints_plain(al, X, U, params, st, offline)
-    Bsz, ns1, nx = X.shape
-    ns, nu = ns1 - 1, U.shape[-1]
-    name = "isrbd_al_constraints"
-    terms = al.terms
-    _shape_setup(name, al, nx, nu)
-    dev, dtype = _device(name, X)
-    scalars = host_setup(terms, (name, dtype, al.ocp.dt, al.al_opts),
-                         lambda: _doubles(al_scalars(al, al.ocp.dt)))
-    n_eq, n_eq_T, n_in, nc = terms.n_eq, terms.n_eq_T, terms.n_ineq, terms.outer.nc
-    check_tensor("X", X, (Bsz, ns1, nx), dtype, dev)
-    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
-    outer = [params[k] for k in ("c_ref", "mask_srbd", "mask_lip", "mask_lipzone")]
-    for key, t, dim in zip(("c_ref", "mask_srbd", "mask_lip", "mask_lipzone"),
-                           outer, (nc, 1, 1, 1)):
-        check_tensor(key, t, (Bsz, ns1, dim), dtype, dev)
-    x_lb, x_ub, u_lb, u_ub = al._bounds_from(params)
-    strides = (ctypes.c_longlong * 4)(
-        _bound("x_lb", x_lb, Bsz, ns1, nx, dtype, dev),
-        _bound("x_ub", x_ub, Bsz, ns1, nx, dtype, dev),
-        _bound("u_lb", u_lb, Bsz, ns, nu, dtype, dev),
-        _bound("u_ub", u_ub, Bsz, ns, nu, dtype, dev))
-    new = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
-    ins = [X, U, *outer, x_lb, x_ub, u_lb, u_ub] + [None] * 10
-    outs = [None] * 13
-    viol = new(Bsz)
-    outs[12] = viol
-    if st is None:
-        mode = 0
-        h, hT, g = new(Bsz, ns, n_eq), new(Bsz, n_eq_T), new(Bsz, ns, n_in)
-        outs[0:3] = [h, hT, g]
-        result = (h, hT, g, viol)
-    else:
-        mode = 2 if offline else 1
-        shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
-                      mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in),
-                      mu_x_ub=(Bsz, ns1, nx), mu_x_lb=(Bsz, ns1, nx),
-                      mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu),
-                      rho=(Bsz,), viol=(Bsz,))
-        fields = MULTIPLIERS + ("rho", "viol") if offline else (
-            "lam_eq", "lam_eq_T", "rho")
-        for f in fields:
-            check_tensor(f, getattr(st, f), shapes[f], dtype, dev)
-        ins[10:14] = [st.lam_eq, st.lam_eq_T, st.rho, st.viol if offline else None]
-        if offline:
-            ins[14:20] = [getattr(st, f) for f in MULTIPLIERS[2:]]
-            mults = [new(*shapes[f]) for f in MULTIPLIERS]
-            rho = new(Bsz)
-            outs[3:11] = mults
-            outs[11] = rho
-            result = tuple(mults) + (rho, viol)
-        else:
-            lam, lamT = new(Bsz, ns, n_eq), new(Bsz, n_eq_T)
-            outs[3:5] = [lam, lamT]
-            result = (lam, lamT, viol)
-    o_ = terms.outer
-    fn = _fn(name, dtype, [_I, _P, _P, _P] + [_I] * 5 + [_P, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(mode, _ptrs(ins), _ptrs(outs), strides, Bsz, ns, o_.nc,
-                 o_.contact_model, o_.number_of_legs, scalars, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    s, mode, ins, strides = _constraints_checked(al, X, U, params, st, offline)
+    buf, views = output_views(s.layout, s.total, X.dtype, X.device)
+    _constraints_launch(s, mode, ins, strides, buf.data_ptr(), X.shape[0],
+                        X.shape[1] - 1, X.device)
     isrbd_al_constraints.launches += 1
-    return result
+    return tuple(views)
 
 
 isrbd_al_constraints.launches = 0
+
+
+def constraints_occupancy(mode: int, dtype=torch.float32, ns: int = 20,
+                          shape: str = "kangaroo") -> dict:
+    """K7's occupancy in `mode` at the shape `shape` and ns stage nodes for
+    tensors of `dtype`: blocks resident on one SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
+    memory bytes a block, registers and local (spilled) bytes a thread."""
+    return occupancy_query("isrbd_al", "isrbd_al_constraints_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape), mode,
+                           int(dtype == torch.float64), ns)
 
 
 def _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev):

@@ -20,7 +20,8 @@ their twins with a NaN member: K7 in every mode, float64 to 1e-12 of
 max(1, |twin|) entry by entry and float32 by K3's rule, K8a with no, the
 tail and the full prior, K8b with and without bound overrides and K8c for
 both priors, bit for bit in both types, at B = 1 and 257 as well, counting
-their launches and refusing other sizes and non-contiguous views; and
+their launches and refusing other sizes and non-contiguous views, and K7
+called again on the views of its previous call's one output buffer; and
 K1's Tassa instantiations (`MSDDP.solve`'s sweep: SRBD with the
 block-Schur and with the Cholesky gain solve, isrbd with Cholesky)
 against the Tassa twin at B = 1 and 64 by K1's rules, a NaN member kept
@@ -803,6 +804,43 @@ def test_al_constraints_matches_plain(al_case, mode, bounds):
                             _cast(c["bounds"][bounds], d)), _cast(kw, d)),
             exact=False)
     assert k78.isrbd_al_constraints.launches == launches + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bounds", ["static", "boxes"])
+def test_al_constraints_twice_on_one_buffers_views(al_case, bounds, dtype):
+    """An offline K7 call, then an offline and an online one fed the views
+    of the previous call's one output buffer (as the next outer iteration
+    and the serving tick take them): every output a view of its call's
+    buffer, and each call's outputs the twin's on the same inputs (float64
+    to 1e-12 of max(1, |twin|); float32 by K3's rule against the float64
+    twin of the same values)."""
+    c = al_case
+    al = c["al"] if dtype == torch.float64 else c["al32"]
+    st = _cast(c["st"], dtype)
+    X, U, params = st.sol.X, st.sol.U, _cast(c["bounds"][bounds], dtype)
+    fields = k78.MULTIPLIERS + ("rho", "viol")
+    for offline in (True, True, False):
+        got = k78.isrbd_al_constraints(al, X, U, params, st=st, offline=offline)
+        want = k78.isrbd_al_constraints_plain(al, X, U, params, st=st,
+                                              offline=offline)
+        want64 = k78.isrbd_al_constraints_plain(
+            c["al"], *(_cast(t, torch.float64) for t in (X, U, params)),
+            st=_cast(st, torch.float64), offline=offline)
+        torch.cuda.synchronize()
+        base = got[0].untyped_storage().data_ptr()
+        assert all(t.untyped_storage().data_ptr() == base for t in got)
+        for n, (g, w, w64) in enumerate(zip(got, want, want64)):
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), n
+            fin = torch.isfinite(w)
+            assert torch.equal(fin, torch.isfinite(g)), n
+            if dtype == torch.float64:
+                e = float(((g - w).abs()[fin] / w.abs()[fin].clamp_min(1.0)).max())
+                assert e <= AL_F64_TOL, (n, e)
+            else:
+                assert _rel_fin(g, w64) <= 2 * _rel_fin(w, w64) + 1e-6, n
+        if offline:
+            st = st._replace(**dict(zip(fields, got)))
 
 
 @pytest.mark.parametrize("prior", ["none", "tail", "full"])
