@@ -76,7 +76,9 @@ parallel, into build/kernels/), then:
      float64 to 1e-12 of max(1, |twin|) entry by entry and in float32 by
      K3's rule, K8 bit-equal in both types, NaN where the twin has NaN;
      their times at B = 1, 256 and 4096 and their wrappers' host µs a call
-     (`al_kernel_times`); K1's Tassa form with Cholesky at the isrbd sizes
+     (`al_kernel_times`, with K7's, K8a's and K8b's occupancy), and one
+     launch that does nothing timed the same way (`launch_floor`); K1's
+     Tassa form with Cholesky at the isrbd sizes
      by the rules of 2, its times at B=1 and B=256;
   6. the constrained path: the fleet is seeded by the batched offline AL
      solve, then `ALDDP.serving_tick_batch` runs through
@@ -366,8 +368,14 @@ both trees at its two AL shapes and three modes, held to its twin by
 bounds and the overrides, a NaN member, a first and a later outer),
 timed in float32 at B = 1, 256 and 4096 in turns, with both trees'
 blocks an SM and wrapper host µs (this one's by part); one `k7_versus`
-line a shape; then K8a-c of both trees bit for bit and timed
-(`k7_shared_versus`). Then ptxas' figures of both. Imports nothing of JAX.
+line a shape; then K8a-c of both trees bit for bit (to each other and to
+their twins, float32 and float64, K8a under no, the tail and the full
+prior, K8b with the static bounds and the overrides, K8c with both
+priors, the NaN member), timed in turns at B = 1, 256 and 4096 (K8a with
+each prior, K8b with both bound cases, K8c with the full prior) beside
+their bounds, with both trees' wrapper host µs and this tree's K8a and
+K8b occupancy (`k7_shared_versus`). Then ptxas' figures of both. Imports
+nothing of JAX.
 """
 
 import dataclasses
@@ -917,6 +925,28 @@ def host_us(fn, calls=200, reset=None):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+def host_us_turns(fns, batches=8, calls=50):
+    """Host µs a call of each of `fns` ({name: fn}), `batches` batches of
+    `calls` calls each, the functions in turns within a batch (in order,
+    then in reverse): the median batch of each, which a garbage collection
+    inside one batch does not move."""
+    import torch
+
+    names = list(fns)
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    per = {n: [] for n in names}
+    for _ in range(batches):
+        for n in names + names[::-1]:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[n]()
+            per[n].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return {n: statistics.median(v) for n, v in per.items()}
 
 
 def evaluate_host_us(kernel, args32, x0, clear):
@@ -1606,16 +1636,26 @@ def al_call_work(al32, name, args, kw, res):
                 al_constraints_flops(Bsz, ns, nx, nu, n_eq, n_eq_T, n_in))
     Bsz = st.rho.shape[0]
     if name == "isrbd_al_shift":
-        phase = args[3]
-        n = al_bytes([st.sol.X, st.sol.U, st.lam_eq_T,
-                      *(getattr(st, f) for f in k78.ROLLED)], res)
-        return n + Bsz * (ns * n_eq + n_eq_T) * 4 + Bsz + nbytes(phase), 0
+        prior, phase = args[2], args[3]
+        rolled = [st.sol.X, st.sol.U, *(getattr(st, f) for f in k78.ROLLED)]
+        if prior is None:
+            return al_bytes(rolled, res), 0
+        # a table row and the flags of each member's phase
+        kind, _ = k78.prior_kind(prior)
+        row = (ns * n_eq if kind == 2 else n_eq) + n_eq_T
+        e = st.lam_eq.element_size()
+        return (al_bytes(rolled + [st.lam_eq_T], res) + Bsz * row * e
+                + Bsz * (3 - kind) + nbytes(phase)), 0
     if name == "isrbd_al_params":
+        # and the u-box overrides, padded
+        over = [k for k in ("u_lb", "u_ub") if k in args[1]]
         written = {k: v for k, v in res.items()
                    if k in ("al_lam_eq", "al_lam_eq_T", "al_mu_ub", "al_mu_lb",
-                            "al_rho", "al_mu_u_ub", "al_mu_u_lb")}
+                            "al_rho", "al_mu_u_ub", "al_mu_u_lb")
+                   or k in (f"al_{o}" for o in over)}
         return al_bytes([st.lam_eq, st.lam_eq_T, st.mu_ub, st.mu_lb, st.rho,
-                         st.mu_u_ub, st.mu_u_lb], written), 0
+                         st.mu_u_ub, st.mu_u_lb, *(args[1][o] for o in over)],
+                        written), 0
     prior, phase = args[1], args[3]
     return (al_bytes([st.lam_eq, st.lam_eq_T, phase, *prior], res),
             3 * Bsz * (ns * n_eq + n_eq_T))
@@ -6689,7 +6729,8 @@ def build_other(tree, names):
 def other_wrapper(tree, module, libs):
     """Another tree's kernel wrapper `kernels/<module>.py`, loaded as a
     module of its own whose `library` returns that tree's libraries
-    (`libs`), for a wrapper whose C interface changed between the trees."""
+    (`libs`) and whose `host_setup` keeps its own setups, for a wrapper
+    whose C interface changed between the trees."""
     import importlib.util
 
     path = Path(tree) / "srbd_horizon_tpu_torch" / "kernels" / f"{module}.py"
@@ -6697,6 +6738,15 @@ def other_wrapper(tree, module, libs):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.library = lambda name: libs[name]
+    # its own host setups: a setup holds its tree's entry functions
+    setups = {}
+
+    def host_setup(terms, key, make):
+        k = (id(terms),) + key
+        if k not in setups:
+            setups[k] = (terms, make())
+        return setups[k][1]
+    mod.host_setup = host_setup
     return mod
 
 
@@ -7259,8 +7309,12 @@ def k8_versus(p, mods, card, shape):
     the trees and to their twins in float64 and float32 (K8a with each
     prior, K8b with the static bounds and the overrides, K8c with the tail
     and the full prior), float32 times at B = 1, 256 and 4096 in turns
-    (K8a and K8c with the full prior). One `k7_shared_versus` line; returns
-    what failed."""
+    (other, this, this, other) of K8a with each prior, K8b with both
+    bound cases and K8c with the full prior, each beside its bound; both
+    trees' wrapper host µs a call of each (B = 256, in turns,
+    `host_us_turns`); this tree's occupancy of K8a (each prior) and K8b,
+    in both types. One
+    `k7_shared_versus` line; returns what failed."""
     import numpy as np
     import torch
 
@@ -7287,7 +7341,6 @@ def k8_versus(p, mods, card, shape):
         seen_T=torch.as_tensor(g.rand(Bsz, P_al) < 0.5, device=dev))
     full.lam_eq[K7_NAN, :, 1, 1] = float("nan")
     tail.lam_tail[K7_NAN, :, 3] = float("nan")
-    priors = {"none": None, "tail": tail, "full": full}
 
     def calls(dtype, Bw=None):
         tree = (p["st"], full, tail, p["static"], p["boxes"], phase)
@@ -7306,7 +7359,8 @@ def k8_versus(p, mods, card, shape):
             out[f"k8c_{k}"] = ("isrbd_al_prior_update",
                                (al, pr[k], st, ph, 0.5))
         return out
-    r = dict(shape=shape, card=card, bit_equal={}, twin_bit_equal={}, ms={})
+    r = dict(shape=shape, card=card, bit_equal={}, twin_bit_equal={}, ms={},
+             bound_ms={}, host_us={}, occupancy={})
     failed = []
     for dtype in (torch.float64, torch.float32):
         for key, (entry, a) in calls(dtype).items():
@@ -7321,14 +7375,30 @@ def k8_versus(p, mods, card, shape):
             if not (r["bit_equal"][k] and r["twin_bit_equal"][k]):
                 failed.append(f"{entry} ({shape}, {k}) differs from the other "
                               "tree's or its twin")
+    timed = ("k8a_none", "k8a_tail", "k8a_full", "k8b_static", "k8b_boxes",
+             "k8c_full")
     for Bw in K7_VERSUS_B:
         for key, (entry, a) in calls(torch.float32, Bw).items():
-            if key not in ("k8a_full", "k8b_static", "k8c_full"):
+            if key not in timed:
                 continue
             for w in ("other", "this", "this", "other"):
                 fn = getattr(mods[w], entry)
                 r["ms"].setdefault(key, {}).setdefault(w, {}).setdefault(
                     str(Bw), []).append(cuda_ms(lambda: fn(*a), reps=20))
+            res = getattr(k78, entry)(*a)
+            r["bound_ms"].setdefault(key, {})[str(Bw)], _ = bound(
+                *al_call_work(a[0], entry, a, {}, res))
+            if Bw == B_CONSTRAINED:
+                r["host_us"][key] = host_us_turns(
+                    {w: (lambda m=mods[w]: getattr(m, entry)(*a))
+                     for w in ("other", "this")})
+            del res
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype)[6:]
+        for kind, name in enumerate(k78.PRIORS):
+            r["occupancy"][f"k8a_{name}_{dn}"] = k78.shift_occupancy(
+                kind, dtype, shape)
+        r["occupancy"][f"k8b_{dn}"] = k78.params_occupancy(dtype, shape)
     emit("k7_shared_versus", **r)
     return failed
 
@@ -8031,7 +8101,15 @@ def main():
                 occupancy=k78.constraints_occupancy(mode, torch.float32,
                                                     iocp.ns, "kangaroo"),
                 host_us_by_part=k7_host_split(k78, a, kw))
+        elif entry == "isrbd_al_shift":
+            al_times[name]["occupancy"] = k78.shift_occupancy(2)
+        elif entry == "isrbd_al_params":
+            al_times[name]["occupancy"] = k78.params_occupancy()
     emit("al_kernel_times", card=card, B=Bc, dtype="float32", **al_times)
+    # one launch that does nothing, timed as the kernels are: the floor
+    # under every time above
+    emit("launch_floor", card=card,
+         ms=cuda_ms(lambda: torch.cuda._sleep(0), reps=20))
 
     # timing at the constrained path's shapes and type (float32, B=256)
     i32 = k5_args(torch.float32)

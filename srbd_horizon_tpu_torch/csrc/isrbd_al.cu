@@ -50,9 +50,12 @@
 // K7 does ~60 FLOP per equality row and a few per box row; K8c also copies
 // the member's P·(ns·n_eq + n_eq_T) table values. At B=256 that is 1-10 MB
 // an entry, 0.3-3 µs at 3.35 TB/s: the launch and a member's round trips
-// to device memory, not the work, are their floor. K8: one block of eight
-// warps a member, threads on neighbouring elements of each member's
-// contiguous run (coalesced).
+// to device memory, not the work, are their floor. K8: a block a member,
+// threads on neighbouring elements of each member's contiguous run
+// (coalesced); K8a and K8b hold every value a member reads in registers,
+// loaded in one round before any store (below), and K8a loads the prior's
+// phase first, its table row and flags as soon as the phase is in (two
+// dependent round trips, the second under the plan's).
 //
 // K7: one block of eight warps a member, every value the mode reads
 // staged in one round at the start: x, u, c_ref and the three masks; the
@@ -142,15 +145,23 @@ __device__ __forceinline__ T blend(T ome, T e, T a, T b) {
   return add_rn(mul_rn(ome, a), mul_rn(e, b));
 }
 
-// Entry `b` of an int32 or int64 phase vector, taken modulo P onto 0 … P−1
-// (a floor modulo, as torch indexes a table with a negative index and as
-// Python's % takes the tail prior's phase − 1).
+// An int32 or int64 phase vector's entry `b`, and that entry plus `shift`
+// taken modulo P onto 0 … P−1 (a floor modulo, as torch indexes a table
+// with a negative index and as Python's % takes the tail prior's
+// phase − 1). K8a loads the entry first and takes the modulo after
+// issuing the plan's loads; K8c takes both at once (phase_at).
+__device__ __forceinline__ long long phase_value(const void* phase, int bytes,
+                                                 size_t b) {
+  return bytes == 8 ? static_cast<const long long*>(phase)[b]
+                    : static_cast<const int*>(phase)[b];
+}
+__device__ __forceinline__ int phase_mod(long long v, int shift, int P) {
+  const long long r = (v + shift) % P;
+  return static_cast<int>(r < 0 ? r + P : r);
+}
 __device__ __forceinline__ int phase_at(const void* phase, int bytes, size_t b,
                                         int shift, int P) {
-  const long long v = (bytes == 8 ? static_cast<const long long*>(phase)[b]
-                                  : static_cast<const int*>(phase)[b]) + shift;
-  const long long r = v % P;
-  return static_cast<int>(r < 0 ? r + P : r);
+  return phase_mod(phase_value(phase, bytes, b), shift, P);
 }
 
 // ---- K7: isrbd_al_constraints ----
@@ -540,6 +551,48 @@ isrbd_al_constraints_kernel(const Ptrs<T> P, const Runs R, int ns,
   }
 }
 
+// ---- K8a and K8b: every value a member reads held in one round ----
+//
+// K8a and K8b copy: a member's runs rolled one node (K8a) or padded to
+// ns + 1 nodes (K8b). Each thread loads every element it will store, of
+// every run, into registers first (element i = base + s·threads + tid of
+// a run, s < slots), and stores only after the last load has issued: no
+// load waits on a store (a strided loop a run, as before, made each
+// iteration's load wait on the earlier runs' stores, which may alias), so
+// a member pays one round trip to device memory, not one a run. Threads on
+// neighbouring elements of a run load and store neighbouring addresses
+// (coalesced). One round holds slots·threads = 1024 elements of each run:
+// the whole member up to (ns + 1)·nx ≤ 1024 (ns ≤ 26 at nx = 37); a longer
+// horizon takes a round more, each loading before it stores.
+//
+// A block a member: K8a 1024 threads holding one element of each run,
+// K8b 256 holding four; the launch bounds ask for two and four blocks an
+// SM in float32 (32 and 64 registers a thread, no spill), half that in
+// float64. Held values live in registers, so the registers bound the
+// members an SM has in flight at large B: K8a's ten runs at four
+// elements a thread took 77-140 registers (one to three blocks an SM) and
+// ran its tail prior at B=4096 slower than the strided loops. Of the sizes
+// tried (tools/torch_k8_variants.py), one element a thread at two blocks
+// an SM ran no and the full prior fastest at B=4096 and within 4% of the
+// fastest at B = 1 and 256, without spilling; K8b's four elements at four
+// blocks ran fastest.
+constexpr int kShiftThreads = 1024;
+constexpr int kShiftSlots = 1;
+constexpr int kParamsThreads = 256;
+constexpr int kParamsSlots = 4;
+template <typename T>
+constexpr int kShiftMinBlocks = sizeof(T) == 4 ? 2 : 1;
+template <typename T>
+constexpr int kParamsMinBlocks = sizeof(T) == 4 ? 4 : 2;
+
+// The widest node of a shape's runs (the bound of a member's rounds).
+template <class S>
+__host__ __device__ constexpr int widest() {
+  constexpr int a = S::nx > S::nu ? S::nx : S::nu;
+  constexpr int c = S::n_eq > S::n_in ? S::n_eq : S::n_in;
+  return a > c ? a : c;
+}
+
 // ---- K8a: isrbd_al_shift ----
 
 enum Prior { kNone = 0, kTail = 1, kFull = 2 };
@@ -555,6 +608,21 @@ enum ShiftIn {
 // Outputs in the same order as the first ten inputs (λ_T only with a prior).
 constexpr int kShiftOuts = S_LAMT + 1;
 
+// The node width of rolled run r (r < S_LAMT), and whether it has the
+// terminal node (ns + 1 nodes; ns otherwise).
+template <class S>
+__host__ __device__ constexpr int shift_dim(int r) {
+  switch (r) {
+    case S_X: case S_MUXUB: case S_MUXLB: return S::nx;
+    case S_U: case S_MUUUB: case S_MUULB: return S::nu;
+    case S_LAM: return S::n_eq;
+    default: return S::n_in;
+  }
+}
+__host__ __device__ constexpr bool shift_terminal(int r) {
+  return r == S_X || r == S_MUXUB || r == S_MUXLB;
+}
+
 template <typename T>
 struct ShiftPtrs {
   const T* in[kShiftIns];
@@ -563,65 +631,78 @@ struct ShiftPtrs {
   T* out[kShiftOuts];
 };
 
-// Node n ← node n + 1 of an (N, kDim) run, the last node repeated.
-template <typename T, int kDim>
-__device__ __forceinline__ void roll(T* __restrict__ out,
-                                     const T* __restrict__ in, int N, int tid) {
-  for (int i = tid; i < N * kDim; i += kThreads) {
-    const int n = i / kDim;
-    out[i] = n + 1 < N ? in[i + kDim] : in[i];
-  }
+// The element of a run of `count` elements and nodes of `dim` that output
+// element i copies: node n ← node n + 1, the last node repeated.
+__device__ __forceinline__ int rolled(int i, int count, int dim) {
+  return i < count - dim ? i + dim : i;
 }
 
 template <class S, typename T, int kPrior>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kShiftThreads, kShiftMinBlocks<T>)
 isrbd_al_shift_kernel(const ShiftPtrs<T> P, int ns, int period,
                       const void* phase, int phase_bytes) {
-  constexpr int nx = S::nx, nu = S::nu, n_eq = S::n_eq, n_eq_T = S::n_eq_T,
-                n_in = S::n_in;
+  constexpr int n_eq = S::n_eq, n_eq_T = S::n_eq_T;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int ns1 = ns + 1;
-  roll<T, nx>(P.out[S_X] + b * ns1 * nx, P.in[S_X] + b * ns1 * nx, ns1, tid);
-  roll<T, nu>(P.out[S_U] + b * ns * nu, P.in[S_U] + b * ns * nu, ns, tid);
-  roll<T, n_in>(P.out[S_MUUB] + b * ns * n_in, P.in[S_MUUB] + b * ns * n_in, ns, tid);
-  roll<T, n_in>(P.out[S_MULB] + b * ns * n_in, P.in[S_MULB] + b * ns * n_in, ns, tid);
-  roll<T, nx>(P.out[S_MUXUB] + b * ns1 * nx, P.in[S_MUXUB] + b * ns1 * nx, ns1, tid);
-  roll<T, nx>(P.out[S_MUXLB] + b * ns1 * nx, P.in[S_MUXLB] + b * ns1 * nx, ns1, tid);
-  roll<T, nu>(P.out[S_MUUUB] + b * ns * nu, P.in[S_MUUUB] + b * ns * nu, ns, tid);
-  roll<T, nu>(P.out[S_MUULB] + b * ns * nu, P.in[S_MUULB] + b * ns * nu, ns, tid);
-
-  const T* lam = P.in[S_LAM] + b * ns * n_eq;
-  T* lam_out = P.out[S_LAM] + b * ns * n_eq;
-  if (kPrior == kNone) {
-    roll<T, n_eq>(lam_out, lam, ns, tid);
-    return;
-  }
-  // the terminal write's phase, and the stage tail row's (one tick older)
-  const int ph = phase_at(phase, phase_bytes, b, 0, period);
-  const size_t row = b * period + ph;
-  const bool seed_T = P.seen_T[row];
-  if (kPrior == kFull) {
-    const T* tab = P.in[S_TAB] + row * ns * n_eq;
-    for (int i = tid; i < ns * n_eq; i += kThreads) {
-      const int n = i / n_eq;
-      lam_out[i] = seed_T ? tab[i] : (n + 1 < ns ? lam[i + n_eq] : lam[i]);
+  // the prior's row hangs on the phase alone: its load goes first
+  const long long raw = kPrior == kNone ? 0 : phase_value(phase, phase_bytes, b);
+  for (int base = 0; base < ns1 * widest<S>(); base += kShiftSlots * kShiftThreads) {
+    T v[S_LAMT][kShiftSlots];        // the rolled runs' elements, held
+    T tab[kShiftSlots];              // the prior's stage entries, held
+    T lamT = T(0), tabT = T(0);
+    bool seed = false, seed_T = false;
+    // every run's loads
+#pragma unroll
+    for (int r = 0; r < S_LAMT; ++r) {
+      const int dim = shift_dim<S>(r);
+      const int count = (shift_terminal(r) ? ns1 : ns) * dim;
+      const T* in = P.in[r] + b * count;
+#pragma unroll
+      for (int s = 0; s < kShiftSlots; ++s) {
+        const int i = base + s * kShiftThreads + tid;
+        if (i < count) v[r][s] = in[rolled(i, count, dim)];
+      }
     }
-  } else {
-    const int tph = phase_at(phase, phase_bytes, b, -1, period);
-    const size_t trow = b * period + tph;
-    const bool seed_tail = P.seen[trow];
-    const T* tab = P.in[S_TAB] + trow * n_eq;
-    for (int i = tid; i < ns * n_eq; i += kThreads) {
-      const int n = i / n_eq;
-      lam_out[i] = n + 1 < ns ? lam[i + n_eq]
-                              : (seed_tail ? tab[i - n * n_eq] : lam[i]);
+    if (kPrior != kNone) {
+      // the terminal write's phase, and the stage tail row's (one tick
+      // older); the rows and both flags load without waiting on a flag,
+      // and the stores select
+      const int ph = phase_mod(raw, 0, period);
+      const int sph = kPrior == kTail ? phase_mod(raw, -1, period) : ph;
+      const size_t row = b * period + ph, srow = b * period + sph;
+      seed = P.seen[srow];
+      seed_T = P.seen_T[row];
+      const int last = (ns - 1) * n_eq;      // the tail row's first element
+      const T* st = P.in[S_TAB] + srow * (kPrior == kFull ? ns * n_eq : n_eq);
+#pragma unroll
+      for (int s = 0; s < kShiftSlots; ++s) {
+        const int i = base + s * kShiftThreads + tid;
+        if (kPrior == kFull ? i < ns * n_eq : i >= last && i < ns * n_eq)
+          tab[s] = st[kPrior == kFull ? i : i - last];
+      }
+      if (base == 0 && tid < n_eq_T) {
+        lamT = P.in[S_LAMT][b * n_eq_T + tid];
+        tabT = P.in[S_TABT][row * n_eq_T + tid];
+      }
     }
-  }
-  if (tid < n_eq_T) {
-    const T* tabT = P.in[S_TABT] + row * n_eq_T;
-    P.out[S_LAMT][b * n_eq_T + tid] =
-        seed_T ? tabT[tid] : P.in[S_LAMT][b * n_eq_T + tid];
+    // then the stores
+#pragma unroll
+    for (int r = 0; r < S_LAMT; ++r) {
+      const int count = (shift_terminal(r) ? ns1 : ns) * shift_dim<S>(r);
+      T* out = P.out[r] + b * count;
+#pragma unroll
+      for (int s = 0; s < kShiftSlots; ++s) {
+        const int i = base + s * kShiftThreads + tid;
+        if (i >= count) continue;
+        T x = v[r][s];
+        if (r == S_LAM && kPrior == kFull && seed) x = tab[s];
+        if (r == S_LAM && kPrior == kTail && seed && i >= (ns - 1) * n_eq) x = tab[s];
+        out[i] = x;
+      }
+    }
+    if (kPrior != kNone && base == 0 && tid < n_eq_T)
+      P.out[S_LAMT][b * n_eq_T + tid] = seed_T ? tabT : lamT;
   }
 }
 
@@ -635,36 +716,68 @@ struct ParamsPtrs {
   T* out[kParamsIO];                 // each (B, ns+1, dim); al_rho (B, ns+1, 1)
 };
 
-// An (ns, kDim) run padded to ns + 1 nodes with `pad` on the last.
-template <typename T, int kDim>
-__device__ __forceinline__ void pad_node(T* __restrict__ out,
-                                         const T* __restrict__ in, int ns,
-                                         T pad, int tid) {
-  for (int i = tid; i < (ns + 1) * kDim; i += kThreads)
-    out[i] = i < ns * kDim ? in[i] : pad;
+// The node width of input r (λ_T: its n_eq_T, tiled over the ns + 1
+// nodes; ρ: 1, broadcast to them), and the value a padded run (λ, the μ's,
+// the u boxes: ns nodes in, ns + 1 out) takes on its last node.
+template <class S>
+__host__ __device__ constexpr int params_dim(int r) {
+  switch (r) {
+    case A_LAM: return S::n_eq;
+    case A_LAMT: return S::n_eq_T;
+    case A_MUUB: case A_MULB: return S::n_in;
+    case A_RHO: return 1;
+    default: return S::nu;
+  }
+}
+template <typename T>
+__host__ __device__ constexpr T params_pad(int r) {
+  return r == A_ULB ? -T(INFINITY) : r == A_UUB ? T(INFINITY) : T(0);
 }
 
 template <class S, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kParamsThreads, kParamsMinBlocks<T>)
 isrbd_al_params_kernel(const ParamsPtrs<T> P, int ns) {
-  constexpr int nu = S::nu, n_eq = S::n_eq, n_eq_T = S::n_eq_T, n_in = S::n_in;
+  constexpr int n_eq_T = S::n_eq_T;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int ns1 = ns + 1;
-  const T inf = T(INFINITY);
-  pad_node<T, n_eq>(P.out[A_LAM] + b * ns1 * n_eq, P.in[A_LAM] + b * ns * n_eq, ns, T(0), tid);
-  pad_node<T, n_in>(P.out[A_MUUB] + b * ns1 * n_in, P.in[A_MUUB] + b * ns * n_in, ns, T(0), tid);
-  pad_node<T, n_in>(P.out[A_MULB] + b * ns1 * n_in, P.in[A_MULB] + b * ns * n_in, ns, T(0), tid);
-  pad_node<T, nu>(P.out[A_MUUUB] + b * ns1 * nu, P.in[A_MUUUB] + b * ns * nu, ns, T(0), tid);
-  pad_node<T, nu>(P.out[A_MUULB] + b * ns1 * nu, P.in[A_MUULB] + b * ns * nu, ns, T(0), tid);
-  if (P.in[A_ULB] != nullptr)
-    pad_node<T, nu>(P.out[A_ULB] + b * ns1 * nu, P.in[A_ULB] + b * ns * nu, ns, -inf, tid);
-  if (P.in[A_UUB] != nullptr)
-    pad_node<T, nu>(P.out[A_UUB] + b * ns1 * nu, P.in[A_UUB] + b * ns * nu, ns, inf, tid);
-  const T* lamT = P.in[A_LAMT] + b * n_eq_T;
-  T* tiled = P.out[A_LAMT] + b * ns1 * n_eq_T;
-  for (int i = tid; i < ns1 * n_eq_T; i += kThreads) tiled[i] = lamT[i % n_eq_T];
-  if (tid < ns1) P.out[A_RHO][b * ns1 + tid] = P.in[A_RHO][b];
+  const T rho = P.in[A_RHO][b];
+  for (int base = 0; base < ns1 * widest<S>(); base += kParamsSlots * kParamsThreads) {
+    T v[kParamsIO][kParamsSlots];    // each run's elements, held
+    // every run's loads: the padded runs' stage nodes, λ_T's entry of
+    // each element of its tiling
+#pragma unroll
+    for (int r = 0; r < kParamsIO; ++r) {
+      if (r == A_RHO) continue;
+      const T* in = P.in[r];
+      if (in == nullptr) continue;             // u_lb, u_ub not overridden
+      const int dim = params_dim<S>(r);
+#pragma unroll
+      for (int s = 0; s < kParamsSlots; ++s) {
+        const int i = base + s * kParamsThreads + tid;
+        if (r == A_LAMT) {
+          if (i < ns1 * n_eq_T) v[r][s] = in[b * n_eq_T + i % n_eq_T];
+        } else if (i < ns * dim) {
+          v[r][s] = in[b * ns * dim + i];
+        }
+      }
+    }
+    // then the stores: each run over ns + 1 nodes, the padded ones' last
+    // node their pad, ρ on every node
+#pragma unroll
+    for (int r = 0; r < kParamsIO; ++r) {
+      if (r != A_RHO && P.in[r] == nullptr) continue;
+      const int dim = params_dim<S>(r);
+      T* out = P.out[r] + b * ns1 * dim;
+#pragma unroll
+      for (int s = 0; s < kParamsSlots; ++s) {
+        const int i = base + s * kParamsThreads + tid;
+        if (i >= ns1 * dim) continue;
+        out[i] = r == A_RHO ? rho
+                 : r == A_LAMT || i < ns * dim ? v[r][s] : params_pad<T>(r);
+      }
+    }
+  }
 }
 
 // ---- K8c: isrbd_al_prior_update ----
@@ -810,6 +923,28 @@ int constraints_occupancy(int mode, int ns, int* out) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A K8 kernel's occupancy at `threads` a block into out[0..4], as
+// constraints_occupancy_mode fills them (no shared memory).
+template <class Kernel>
+int k8_occupancy(Kernel kernel, int threads, int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, 0);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = threads / 32;
+  out[2] = 0;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+
+template <class S, typename T>
+int shift_occupancy(int prior, int* out) {
+  if (prior == kNone) return k8_occupancy(isrbd_al_shift_kernel<S, T, kNone>, kShiftThreads, out);
+  if (prior == kTail) return k8_occupancy(isrbd_al_shift_kernel<S, T, kTail>, kShiftThreads, out);
+  if (prior == kFull) return k8_occupancy(isrbd_al_shift_kernel<S, T, kFull>, kShiftThreads, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <class S, typename T>
 int launch_constraints(int mode, const void* const* in, void* const* out,
                        const long long* strides, int B, int ns,
@@ -843,11 +978,11 @@ int launch_shift(int prior, const void* const* in, const void* seen,
   P.seen_T = static_cast<const bool*>(seen_T);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prior == kNone)
-    isrbd_al_shift_kernel<S, T, kNone><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kNone><<<B, kShiftThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   else if (prior == kTail)
-    isrbd_al_shift_kernel<S, T, kTail><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kTail><<<B, kShiftThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   else
-    isrbd_al_shift_kernel<S, T, kFull><<<B, kThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
+    isrbd_al_shift_kernel<S, T, kFull><<<B, kShiftThreads, 0, st>>>(P, ns, period, phase, phase_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -860,7 +995,7 @@ int launch_params(const void* const* in, void* const* out, int B, int ns,
     P.in[i] = static_cast<const T*>(in[i]);
     P.out[i] = static_cast<T*>(out[i]);
   }
-  isrbd_al_params_kernel<S, T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P, ns);
+  isrbd_al_params_kernel<S, T><<<B, kParamsThreads, 0, static_cast<cudaStream_t>(stream)>>>(P, ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -924,6 +1059,24 @@ extern "C" int isrbd_al_constraints_occupancy(int shape, int mode, int f64,
     using S = decltype(s);
     return f64 ? constraints_occupancy<S, double>(mode, ns, out)
                : constraints_occupancy<S, float>(mode, ns, out);
+  });
+}
+
+// K8a's occupancy for the shape at index `shape`, a prior (0-2) and
+// float32 (f64 = 0) or float64, and K8b's: out[0..4] as K7's.
+extern "C" int isrbd_al_shift_occupancy(int shape, int prior, int f64, int* out) {
+  return isrbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? shift_occupancy<S, double>(prior, out)
+               : shift_occupancy<S, float>(prior, out);
+  });
+}
+
+extern "C" int isrbd_al_params_occupancy(int shape, int f64, int* out) {
+  return isrbd::with_shape(shape, [&](auto s) {
+    using S = decltype(s);
+    return f64 ? k8_occupancy(isrbd_al_params_kernel<S, double>, kParamsThreads, out)
+               : k8_occupancy(isrbd_al_params_kernel<S, float>, kParamsThreads, out);
   });
 }
 

@@ -40,6 +40,13 @@ ValueError), and a call's outputs are views of one buffer
 (`output_layout`). Its host work that does not change between calls (the
 shape check, the scalars, the layout, the static bounds' check) is done
 once (`host_setup`).
+
+K8a and K8b hold every value a member reads in registers, loaded in one
+round before any store (csrc/isrbd_al.cu). K8a-c's host work is done once
+for each size as well (`shift_setup`, `params_setup`, `prior_setup`: the
+entry, the shapes, the output layout, K8b's static padded bounds, the
+pointer arrays a call fills in place), and a call's outputs are views of
+one buffer (`shift_layout`, `params_layout`, `prior_layout`).
 """
 
 from __future__ import annotations
@@ -362,11 +369,6 @@ def _doubles(values):
     return (_D * len(values))(*values)
 
 
-def _ptrs(tensors):
-    return (_P * len(tensors))(*(None if t is None else t.data_ptr()
-                                 for t in tensors))
-
-
 def _device(name: str, t):
     """The device and dtype of `t`, which must be CUDA float32/float64."""
     if t.device.type != "cuda":
@@ -386,7 +388,7 @@ def _shape_setup(name, al, nx, nu) -> int:
 def _check_phase(phase, Bsz, dev):
     if phase.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"phase must be int32 or int64, got {phase.dtype}")
-    check_tensor("phase", phase, (Bsz,), phase.dtype, dev)
+    check_tensors((("phase", phase, (Bsz,)),), phase.dtype, dev)
 
 
 def al_scalars(al, dt: float):
@@ -485,21 +487,28 @@ def output_shapes(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int):
                   (12, (Bsz,)))
 
 
-def output_layout(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int,
-                  dtype):
-    """Where K7's outputs lie in a call's one buffer: ((slot, shape,
-    stride, element offset), …) in return order, each starting OUT_ALIGN
-    bytes apart from the buffer's start, and the buffer's elements."""
+def layout_of(shapes, dtype):
+    """Where outputs of `shapes` ((slot, shape), …) lie in one buffer of
+    `dtype`: ((slot, shape, stride, element offset), …) in that order,
+    each starting OUT_ALIGN bytes apart from the buffer's start, and the
+    buffer's elements."""
     step = OUT_ALIGN // (torch.finfo(dtype).bits // 8)
     views, off = [], 0
-    for slot, shape in output_shapes(mode, Bsz, ns, terms, nx, nu):
+    for slot, shape in shapes:
         stride, n = [], 1
         for d in reversed(shape):
             stride.insert(0, n)
             n *= d
-        views.append((slot, shape, tuple(stride), off))
+        views.append((slot, tuple(shape), tuple(stride), off))
         off += -(-n // step) * step
     return tuple(views), off
+
+
+def output_layout(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int,
+                  dtype):
+    """Where K7's outputs lie in a call's one buffer (`layout_of`), in
+    return order."""
+    return layout_of(output_shapes(mode, Bsz, ns, terms, nx, nu), dtype)
 
 
 def output_views(layout, total: int, dtype, device):
@@ -508,6 +517,23 @@ def output_views(layout, total: int, dtype, device):
     buf = torch.empty(total, dtype=dtype, device=device)
     return buf, [buf.as_strided(shape, stride, off)
                  for _, shape, stride, off in layout]
+
+
+def state_shapes(Bsz: int, ns: int, terms, nx: int, nu: int) -> dict:
+    """The shapes of an `ALState`'s tensors at B members and ns stage
+    nodes (X and U those of its plan)."""
+    n_eq, n_eq_T, n_in, ns1 = terms.n_eq, terms.n_eq_T, terms.n_ineq, ns + 1
+    return dict(X=(Bsz, ns1, nx), U=(Bsz, ns, nu), lam_eq=(Bsz, ns, n_eq),
+                lam_eq_T=(Bsz, n_eq_T), mu_ub=(Bsz, ns, n_in),
+                mu_lb=(Bsz, ns, n_in), mu_x_ub=(Bsz, ns1, nx),
+                mu_x_lb=(Bsz, ns1, nx), mu_u_ub=(Bsz, ns, nu),
+                mu_u_lb=(Bsz, ns, nu), rho=(Bsz,), viol=(Bsz,))
+
+
+def _out_slots(layout, dtype):
+    """(slot, byte offset) of each view of a `layout_of` layout."""
+    e = torch.finfo(dtype).bits // 8
+    return tuple((slot, off * e) for slot, _, _, off in layout)
 
 
 class _ConstraintsSetup:
@@ -529,8 +555,7 @@ class _ConstraintsSetup:
         self.topology = (o.nc, o.contact_model, o.number_of_legs)
         self.layout, self.total = output_layout(mode, Bsz, ns, terms, nx, nu,
                                                 dtype)
-        e = torch.finfo(dtype).bits // 8
-        self.out_slots = tuple((slot, off * e) for slot, _, _, off in self.layout)
+        self.out_slots = _out_slots(self.layout, dtype)
         self.outer = (("c_ref", (Bsz, ns + 1, o.nc)),
                       ("mask_srbd", (Bsz, ns + 1, 1)),
                       ("mask_lip", (Bsz, ns + 1, 1)),
@@ -545,12 +570,7 @@ class _ConstraintsSetup:
                 self.static.append(b)
             except ValueError:
                 self.static.append(None)
-        n_eq, n_eq_T, n_in = terms.n_eq, terms.n_eq_T, terms.n_ineq
-        shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
-                      mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in),
-                      mu_x_ub=(Bsz, ns + 1, nx), mu_x_lb=(Bsz, ns + 1, nx),
-                      mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu),
-                      rho=(Bsz,), viol=(Bsz,))
+        shapes = state_shapes(Bsz, ns, terms, nx, nu)
         fields = (() if mode == 0 else ("lam_eq", "lam_eq_T", "rho")
                   if mode == 1 else MULTIPLIERS + ("rho", "viol"))
         self.state = tuple((f, shapes[f]) for f in fields)
@@ -602,6 +622,19 @@ def _constraints_checked(al, X, U, params, st, offline):
     return s, mode, ins, strides
 
 
+def _launch(name, fn, dev, *args):
+    """Call the C entry `fn` on `args` and the current raw stream of `dev`
+    (under a device context only where `dev` is not the current device);
+    raise RuntimeError on a failed launch."""
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+
+
 def _constraints_launch(s, mode, ins, strides, out_base, Bsz, ns, dev):
     """Launch K7 on the checked inputs, its outputs at `out_base` (the
     buffer's address) as `s.layout` places them."""
@@ -610,15 +643,8 @@ def _constraints_launch(s, mode, ins, strides, out_base, Bsz, ns, dev):
         outs[slot] = out_base + off
     ptrs_in = (_P * 20)(*[None if t is None else t.data_ptr() for t in ins])
     ptrs_out = (_P * 13)(*outs)
-    args = (mode, ptrs_in, ptrs_out, strides, Bsz, ns, *s.topology,
-            s.scalars)
-    if dev.index == torch.cuda.current_device():
-        err = s.fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = s.fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{NAME} kernel failed: CUDA error {err}")
+    _launch(NAME, s.fn, dev, mode, ptrs_in, ptrs_out, strides, Bsz, ns,
+            *s.topology, s.scalars)
 
 
 def isrbd_al_constraints(al, X, U, params, st=None, offline=False):
@@ -651,81 +677,237 @@ def constraints_occupancy(mode: int, dtype=torch.float32, ns: int = 20,
                            int(dtype == torch.float64), ns)
 
 
-def _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev):
-    """X, U and the node-indexed multipliers of `st`, checked, in the order
-    of `ROLLED` after X and U."""
-    ns1 = ns + 1
-    shapes = dict(lam_eq=(Bsz, ns, terms.n_eq), mu_ub=(Bsz, ns, terms.n_ineq),
-                  mu_lb=(Bsz, ns, terms.n_ineq), mu_x_ub=(Bsz, ns1, nx),
-                  mu_x_lb=(Bsz, ns1, nx), mu_u_ub=(Bsz, ns, nu),
-                  mu_u_lb=(Bsz, ns, nu))
-    check_tensor("X", st.sol.X, (Bsz, ns1, nx), dtype, dev)
-    check_tensor("U", st.sol.U, (Bsz, ns, nu), dtype, dev)
-    out = [st.sol.X, st.sol.U]
-    for f in ROLLED:
-        check_tensor(f, getattr(st, f), shapes[f], dtype, dev)
-        out.append(getattr(st, f))
-    return out
+# ---- K8a-c: their tensors, one output buffer a call, a setup a size ----
+#
+# A setup's pointer arrays are filled by each call just before its launch,
+# which copies them into the kernel's parameters: calls on one thread only
+# (two threads calling one entry at the same sizes would race on them).
+
+SHIFT = "isrbd_al_shift"
+PARAMS = "isrbd_al_params"
+PRIOR = "isrbd_al_prior_update"
+PRIORS = ("none", "tail", "full")      # the kernels' Prior (0, 1, 2)
+# K8a's inputs and outputs after X and U, in the kernel's ShiftIn order
+SHIFTED = ROLLED + ("lam_eq_T",)
+# K8b's state inputs and their al_* outputs, in the kernel's ParamsIn order
+# (then the u-box overrides u_lb, u_ub and their al_u_lb, al_u_ub)
+PARAMS_STATE = ("lam_eq", "lam_eq_T", "mu_ub", "mu_lb", "rho", "mu_u_ub",
+                "mu_u_lb")
+
+
+def prior_kind(prior):
+    """(the kernels' Prior, the period) of a prior or None."""
+    if prior is None:
+        return 0, 0
+    tab = prior[0]
+    return (2 if is_full(prior) else 1), (tab.shape[1] if tab.dim() > 1 else 0)
+
+
+def prior_shapes(kind: int, Bsz: int, period: int, ns: int, terms):
+    """A prior's tensors as the kernels take them, in its field order:
+    ((field, shape), …) of its tables (the state's dtype), then of its
+    seen flags (bool)."""
+    n_eq, n_eq_T = terms.n_eq, terms.n_eq_T
+    if kind == 2:
+        return ((("lam_eq", (Bsz, period, ns, n_eq)),
+                 ("lam_eq_T", (Bsz, period, n_eq_T))),
+                (("seen", (Bsz, period)),))
+    return ((("lam_tail", (Bsz, period, n_eq)),
+             ("lam_T", (Bsz, period, n_eq_T))),
+            (("seen_tail", (Bsz, period)), ("seen_T", (Bsz, period))))
+
+
+def shift_layout(kind: int, Bsz: int, ns: int, terms, nx: int, nu: int,
+                 dtype):
+    """K8a's outputs in one buffer (`layout_of`), in the kernel's order
+    (the slots of ShiftIn): X, U, the ROLLED fields and, with a prior,
+    λ_T."""
+    sh = state_shapes(Bsz, ns, terms, nx, nu)
+    fields = ("X", "U") + ROLLED + (("lam_eq_T",) if kind else ())
+    return layout_of(tuple(enumerate(sh[f] for f in fields)), dtype)
+
+
+def params_fields(over):
+    """K8b's written outputs, in the kernel's order (ParamsIn): (slot,
+    al_* key), the padded u boxes only where `over` (u_lb, u_ub
+    overridden) says."""
+    keys = tuple(f"al_{f}" for f in PARAMS_STATE) + ("al_u_lb", "al_u_ub")
+    return tuple((i, k) for i, k in enumerate(keys) if i < 7 or over[i - 7])
+
+
+def params_layout(over, Bsz: int, ns: int, terms, nu: int, dtype):
+    """K8b's written outputs in one buffer (`layout_of`), each (B, ns+1,
+    dim), in the order of `params_fields`."""
+    dims = dict(al_lam_eq=terms.n_eq, al_lam_eq_T=terms.n_eq_T,
+                al_mu_ub=terms.n_ineq, al_mu_lb=terms.n_ineq, al_rho=1,
+                al_mu_u_ub=nu, al_mu_u_lb=nu, al_u_lb=nu, al_u_ub=nu)
+    return layout_of(tuple((i, (Bsz, ns + 1, dims[k]))
+                           for i, k in params_fields(over)), dtype)
+
+
+def prior_layout(kind: int, Bsz: int, period: int, ns: int, terms, dtype):
+    """K8c's outputs in one buffer of `dtype`: the new tables' views
+    (`layout_of`, slots 0, 1), then the new flags' (bool; slots 2, and 3
+    for the tail prior) at byte offsets, each OUT_ALIGN-aligned. Returns
+    (the tables' layout, the flags' ((slot, shape, stride, byte offset),
+    …), the buffer's elements)."""
+    tables, flags = prior_shapes(kind, Bsz, period, ns, terms)
+    tab_layout, n = layout_of(tuple(enumerate(s for _, s in tables)), dtype)
+    e = torch.finfo(dtype).bits // 8
+    off, flag_layout = n * e, []
+    for slot, (_, shape) in enumerate(flags, start=2):
+        flag_layout.append((slot, shape, (shape[1], 1), off))
+        off += -(-shape[0] * shape[1] // OUT_ALIGN) * OUT_ALIGN
+    return tab_layout, tuple(flag_layout), -(-off // e)
+
+
+def prior_views(tab_layout, flag_layout, total: int, dtype, device):
+    """One `torch.empty` of `total` elements of `dtype` cut into K8c's
+    outputs (`prior_layout`): (the buffer, the table views, the flag
+    views)."""
+    buf = torch.empty(total, dtype=dtype, device=device)
+    flags = buf.view(torch.bool)
+    return (buf, [buf.as_strided(shape, stride, off)
+                  for _, shape, stride, off in tab_layout],
+            [flags.as_strided(shape, stride, off)
+             for _, shape, stride, off in flag_layout])
+
+
+class _ShiftSetup:
+    """K8a's host work for one (terms, device, dtype, prior kind, period, B,
+    ns), past the shape check: the entry with its argtypes, the state's
+    and the prior's tensors and shapes, the output layout and the pointer
+    arrays a call fills in place."""
+
+    def __init__(self, al, dtype, kind, period, Bsz, ns, nx, nu):
+        terms = al.terms
+        self.fn = _fn(SHIFT, dtype, [_I, _I, _P, _P, _P, _P] + [_I] * 3
+                      + [_P, _I, _P])
+        sh = state_shapes(Bsz, ns, terms, nx, nu)
+        self.state = (("X", sh["X"]), ("U", sh["U"])) + tuple(
+            (f, sh[f]) for f in SHIFTED)
+        self.tables, self.flags = (prior_shapes(kind, Bsz, period, ns, terms)
+                                   if kind else ((), ()))
+        self.layout, self.total = shift_layout(kind, Bsz, ns, terms, nx, nu,
+                                               dtype)
+        self.out_slots = _out_slots(self.layout, dtype)
+        self.ins = (_P * 12)()
+        self.outs = (_P * 10)()
+
+
+class _ParamsSetup:
+    """K8b's host work for one (terms, device, dtype, overrides, B, ns):
+    the entry with its argtypes, the state's tensors and shapes, the
+    written outputs' layout and keys, the static padded bounds and the
+    pointer arrays a call fills in place."""
+
+    def __init__(self, al, dev, dtype, over, Bsz, ns, nu):
+        terms = al.terms
+        self.fn = _fn(PARAMS, dtype, [_I, _P, _P, _I, _I, _P])
+        sh = state_shapes(Bsz, ns, terms, al.ocp.nx, nu)
+        self.state = tuple((f, sh[f]) for f in PARAMS_STATE)
+        self.over = tuple(k for k, o in zip(("u_lb", "u_ub"), over) if o)
+        self.over_shape = (Bsz, ns, nu)
+        self.keys = tuple(k for _, k in params_fields(over))
+        self.layout, self.total = params_layout(over, Bsz, ns, terms, nu,
+                                                dtype)
+        self.out_slots = _out_slots(self.layout, dtype)
+        self.bounds = dict(zip(("al_x_lb", "al_x_ub", "al_u_lb", "al_u_ub"),
+                               al._static_padded_bounds(Bsz, dtype, dev)))
+        self.ins = (_P * 9)()
+        self.outs = (_P * 9)()
+
+
+class _PriorSetup:
+    """K8c's host work for one (terms, device, dtype, prior kind, period, B,
+    ns): the entry with its argtypes, the state's and the prior's shapes,
+    the outputs' layout and the pointer arrays a call fills in place."""
+
+    def __init__(self, al, dtype, kind, period, Bsz, ns):
+        terms = al.terms
+        self.fn = _fn(PRIOR, dtype, [_I, _I, _P, _P, _P, _P, _P, _P]
+                      + [_I] * 3 + [_P, _I, _D, _P])
+        sh = state_shapes(Bsz, ns, terms, al.ocp.nx, al.ocp.nu)
+        self.state = (("lam_eq", sh["lam_eq"]), ("lam_eq_T", sh["lam_eq_T"]))
+        self.tables, self.flags = prior_shapes(kind, Bsz, period, ns, terms)
+        self.tab_layout, self.flag_layout, self.total = prior_layout(
+            kind, Bsz, period, ns, terms, dtype)
+        self.ins = (_P * 4)()
+        self.outs = (_P * 2)()
+
+
+def shift_setup(al, dev, dtype, kind, period, Bsz, ns, nx, nu):
+    """K8a's `_ShiftSetup` for these sizes, made once (`host_setup`)."""
+    return host_setup(al.terms, (SHIFT, dev, dtype, kind, period, Bsz, ns),
+                      lambda: _ShiftSetup(al, dtype, kind, period, Bsz, ns,
+                                          nx, nu))
+
+
+def params_setup(al, dev, dtype, over, Bsz, ns, nu):
+    """K8b's `_ParamsSetup` for these sizes and overrides, made once."""
+    return host_setup(al.terms, (PARAMS, dev, dtype, over, Bsz, ns),
+                      lambda: _ParamsSetup(al, dev, dtype, over, Bsz, ns, nu))
+
+
+def prior_setup(al, dev, dtype, kind, period, Bsz, ns):
+    """K8c's `_PriorSetup` for these sizes, made once."""
+    return host_setup(al.terms, (PRIOR, dev, dtype, kind, period, Bsz, ns),
+                      lambda: _PriorSetup(al, dtype, kind, period, Bsz, ns))
+
+
+def _named(fields, tensors):
+    """(name, tensor, shape) items for `check_tensors`."""
+    return [(f, t, shape) for (f, shape), t in zip(fields, tensors)]
+
+
+def _checked_prior(s, prior, phase, Bsz, dtype, dev):
+    """The prior's tables and flags as `s` (a K8a or K8c setup) takes them,
+    checked with the phase."""
+    tables = [getattr(prior, f) for f, _ in s.tables]
+    flags = [getattr(prior, f) for f, _ in s.flags]
+    check_tensors(_named(s.tables, tables), dtype, dev)
+    check_tensors(_named(s.flags, flags), torch.bool, dev)
+    _check_phase(phase, Bsz, dev)
+    return tables, flags
 
 
 def isrbd_al_shift(al, st, prior=None, phase=None):
     """K8a. Same contract as `isrbd_al_shift_plain` (bit for bit); launches
     the CUDA kernel for CUDA tensors (counted in `isrbd_al_shift.launches`),
-    raises ValueError for any other device or size."""
+    raises ValueError for any other device or size. A call's outputs are
+    views of one buffer (`shift_layout`)."""
     X = st.sol.X
     if X.device.type == "cpu":
         return isrbd_al_shift_plain(al, st, prior, phase)
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, st.sol.U.shape[-1]
-    name = "isrbd_al_shift"
-    terms = al.terms
-    shape_i = _shape_setup(name, al, nx, nu)
-    dev, dtype = _device(name, X)
-    ins = _state_tensors(st, Bsz, ns, nx, nu, terms, dtype, dev)
-    n_eq, n_eq_T = terms.n_eq, terms.n_eq_T
-    check_tensor("lam_eq_T", st.lam_eq_T, (Bsz, n_eq_T), dtype, dev)
-    outs = [torch.empty_like(t) for t in ins]
-    # the kernel's ShiftIn order: X, U, the ROLLED fields, λ_T, the tables
-    ins_k = ins + [st.lam_eq_T, None, None]
-    outs_k = outs + [None]
-    seen = seen_T = None
-    period, kind = 0, 0
-    if prior is not None:
-        full = is_full(prior)
-        kind = 2 if full else 1
-        _check_phase(phase, Bsz, dev)
-        if full:
-            period = prior.lam_eq.shape[1]
-            check_tensor("lam_eq table", prior.lam_eq, (Bsz, period, ns, n_eq), dtype, dev)
-            check_tensor("lam_eq_T table", prior.lam_eq_T, (Bsz, period, n_eq_T), dtype, dev)
-            check_tensor("seen", prior.seen, (Bsz, period), torch.bool, dev)
-            ins_k[10:12] = [prior.lam_eq, prior.lam_eq_T]
-            seen = seen_T = prior.seen
-        else:
-            period = prior.lam_tail.shape[1]
-            check_tensor("lam_tail table", prior.lam_tail, (Bsz, period, n_eq), dtype, dev)
-            check_tensor("lam_T table", prior.lam_T, (Bsz, period, n_eq_T), dtype, dev)
-            check_tensor("seen_tail", prior.seen_tail, (Bsz, period), torch.bool, dev)
-            check_tensor("seen_T", prior.seen_T, (Bsz, period), torch.bool, dev)
-            ins_k[10:12] = [prior.lam_tail, prior.lam_T]
-            seen, seen_T = prior.seen_tail, prior.seen_T
-        outs_k[9] = torch.empty_like(st.lam_eq_T)
-    fn = _fn(name, dtype, [_I, _I, _P, _P, _P, _P] + [_I] * 3 + [_P, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(shape_i, kind, _ptrs(ins_k),
-                 None if seen is None else seen.data_ptr(),
-                 None if seen_T is None else seen_T.data_ptr(), _ptrs(outs_k),
-                 Bsz, ns, period, None if phase is None else phase.data_ptr(),
-                 0 if phase is None else phase.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    shape_i = _shape_setup(SHIFT, al, nx, nu)    # sizes first, then device
+    dev, dtype = _device(SHIFT, X)
+    kind, period = prior_kind(prior)
+    s = shift_setup(al, dev, dtype, kind, period, Bsz, ns, nx, nu)
+    state = [X, st.sol.U] + [getattr(st, f) for f in SHIFTED]
+    check_tensors(_named(s.state, state), dtype, dev)
+    ins, outs = s.ins, s.outs
+    for i, t in enumerate(state):
+        ins[i] = t.data_ptr()
+    seen = seen_T = ph = None
+    if kind:
+        (tab, tabT), flags = _checked_prior(s, prior, phase, Bsz, dtype, dev)
+        ins[10], ins[11] = tab.data_ptr(), tabT.data_ptr()
+        seen = flags[0].data_ptr()
+        seen_T = flags[-1].data_ptr()
+        ph = phase.data_ptr()
+    else:
+        ins[10] = ins[11] = outs[9] = None
+    buf, views = output_views(s.layout, s.total, dtype, dev)
+    base = buf.data_ptr()
+    for slot, off in s.out_slots:
+        outs[slot] = base + off
+    _launch(SHIFT, s.fn, dev, shape_i, kind, ins, seen, seen_T, outs, Bsz, ns,
+            period, ph, phase.element_size() if kind else 0)
     isrbd_al_shift.launches += 1
-    sol = st.sol._replace(X=outs[0], U=outs[1])
-    fields = dict(zip(ROLLED, outs[2:]))
-    if prior is not None:
-        fields["lam_eq_T"] = outs_k[9]
-    return st._replace(sol=sol, **fields)
+    fields = dict(zip(SHIFTED, views[2:]))
+    return st._replace(sol=st.sol._replace(X=views[0], U=views[1]), **fields)
 
 
 isrbd_al_shift.launches = 0
@@ -735,54 +917,47 @@ def isrbd_al_params(al, params, st):
     """K8b. Same contract as `isrbd_al_params_plain` (bit for bit);
     launches the CUDA kernel for CUDA tensors (counted in
     `isrbd_al_params.launches`), raises ValueError for any other device or
-    size."""
+    size. The padded tensors it writes are views of one buffer
+    (`params_layout`)."""
     lam_eq = st.lam_eq
     if lam_eq.device.type == "cpu":
         return isrbd_al_params_plain(al, params, st)
-    name = "isrbd_al_params"
-    terms = al.terms
     nx, nu, ns = al.ocp.nx, al.ocp.nu, al.ocp.ns
-    shape_i = _shape_setup(name, al, nx, nu)
-    dev, dtype = _device(name, lam_eq)
-    Bsz, ns1 = lam_eq.shape[0], ns + 1
-    n_eq, n_eq_T, n_in = terms.n_eq, terms.n_eq_T, terms.n_ineq
-    shapes = dict(lam_eq=(Bsz, ns, n_eq), lam_eq_T=(Bsz, n_eq_T),
-                  mu_ub=(Bsz, ns, n_in), mu_lb=(Bsz, ns, n_in), rho=(Bsz,),
-                  mu_u_ub=(Bsz, ns, nu), mu_u_lb=(Bsz, ns, nu))
-    for f, shape in shapes.items():
-        check_tensor(f, getattr(st, f), shape, dtype, dev)
-    x_lb, x_ub, u_lb, u_ub = al._static_padded_bounds(Bsz, dtype, dev)
-    over = {k: params[k].to(dtype) for k in ("u_lb", "u_ub") if k in params}
-    for k, t in over.items():
-        check_tensor(k, t, (Bsz, ns, nu), dtype, dev)
-    new = lambda dim: torch.empty((Bsz, ns1, dim), dtype=dtype, device=dev)
-    out = dict(al_lam_eq=new(n_eq), al_lam_eq_T=new(n_eq_T),
-               al_mu_ub=new(n_in), al_mu_lb=new(n_in), al_rho=new(1),
-               al_mu_u_ub=new(nu), al_mu_u_lb=new(nu),
-               al_u_lb=new(nu) if "u_lb" in over else None,
-               al_u_ub=new(nu) if "u_ub" in over else None)
-    ins = [st.lam_eq, st.lam_eq_T, st.mu_ub, st.mu_lb, st.rho, st.mu_u_ub,
-           st.mu_u_lb, over.get("u_lb"), over.get("u_ub")]
-    fn = _fn(name, dtype, [_I, _P, _P, _I, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(shape_i, _ptrs(ins), _ptrs(list(out.values())), Bsz, ns,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    shape_i = _shape_setup(PARAMS, al, nx, nu)
+    dev, dtype = _device(PARAMS, lam_eq)
+    Bsz = lam_eq.shape[0]
+    over = ("u_lb" in params, "u_ub" in params)
+    s = params_setup(al, dev, dtype, over, Bsz, ns, nu)
+    state = [getattr(st, f) for f in PARAMS_STATE]
+    given = {k: params[k] if params[k].dtype == dtype else params[k].to(dtype)
+             for k in s.over}
+    check_tensors(_named(s.state, state)
+                  + [(k, t, s.over_shape) for k, t in given.items()],
+                  dtype, dev)
+    ins, outs = s.ins, s.outs
+    for i, t in enumerate(state):
+        ins[i] = t.data_ptr()
+    ins[7], ins[8] = (given[k].data_ptr() if k in given else None
+                      for k in ("u_lb", "u_ub"))
+    buf, views = output_views(s.layout, s.total, dtype, dev)
+    base = buf.data_ptr()
+    outs[7] = outs[8] = None
+    for slot, off in s.out_slots:
+        outs[slot] = base + off
+    _launch(PARAMS, s.fn, dev, shape_i, ins, outs, Bsz, ns)
     isrbd_al_params.launches += 1
+    out = dict(zip(s.keys, views))
+    b = s.bounds
+    bound = lambda k: (b[f"al_{k}"] if k not in params else params[k]
+                       if params[k].dtype == dtype else params[k].to(dtype))
     p = dict(params)
     p.update(al_lam_eq=out["al_lam_eq"], al_lam_eq_T=out["al_lam_eq_T"],
              al_mu_ub=out["al_mu_ub"], al_mu_lb=out["al_mu_lb"],
-             al_rho=out["al_rho"])
-    p["al_x_lb"] = params["x_lb"].to(dtype) if "x_lb" in params else x_lb
-    p["al_x_ub"] = params["x_ub"].to(dtype) if "x_ub" in params else x_ub
-    p["al_u_lb"] = out["al_u_lb"] if "u_lb" in over else u_lb
-    p["al_u_ub"] = out["al_u_ub"] if "u_ub" in over else u_ub
-    p["al_mu_x_ub"] = st.mu_x_ub
-    p["al_mu_x_lb"] = st.mu_x_lb
-    p["al_mu_u_ub"] = out["al_mu_u_ub"]
-    p["al_mu_u_lb"] = out["al_mu_u_lb"]
+             al_rho=out["al_rho"], al_x_lb=bound("x_lb"),
+             al_x_ub=bound("x_ub"), al_u_lb=out.get("al_u_lb", b["al_u_lb"]),
+             al_u_ub=out.get("al_u_ub", b["al_u_ub"]),
+             al_mu_x_ub=st.mu_x_ub, al_mu_x_lb=st.mu_x_lb,
+             al_mu_u_ub=out["al_mu_u_ub"], al_mu_u_lb=out["al_mu_u_lb"])
     for k in ("x_lb", "x_ub", "u_lb", "u_ub"):
         p.pop(k, None)
     return p
@@ -795,53 +970,54 @@ def isrbd_al_prior_update(al, prior, st, phase, ema: float):
     """K8c. Same contract as `isrbd_al_prior_update_plain` (bit for bit,
     out of place); launches the CUDA kernel for CUDA tensors (counted in
     `isrbd_al_prior_update.launches`), raises ValueError for any other
-    device or size."""
+    device or size. The new tables and flags are views of one buffer
+    (`prior_layout`)."""
     lam_eq = st.lam_eq
     if lam_eq.device.type == "cpu":
         return isrbd_al_prior_update_plain(al, prior, st, phase, ema)
-    name = "isrbd_al_prior_update"
-    terms = al.terms
-    nx, nu = al.ocp.nx, al.ocp.nu
-    shape_i = _shape_setup(name, al, nx, nu)
-    dev, dtype = _device(name, lam_eq)
-    Bsz, ns, n_eq = lam_eq.shape
-    n_eq_T = terms.n_eq_T
-    check_tensor("lam_eq", lam_eq, (Bsz, ns, terms.n_eq), dtype, dev)
-    check_tensor("lam_eq_T", st.lam_eq_T, (Bsz, n_eq_T), dtype, dev)
-    _check_phase(phase, Bsz, dev)
-    full = is_full(prior)
-    if full:
-        tab, tabT, seen, seen_T = prior.lam_eq, prior.lam_eq_T, prior.seen, None
-        period = tab.shape[1]
-        check_tensor("lam_eq table", tab, (Bsz, period, ns, n_eq), dtype, dev)
-    else:
-        tab, tabT, seen, seen_T = (prior.lam_tail, prior.lam_T,
-                                   prior.seen_tail, prior.seen_T)
-        period = tab.shape[1]
-        check_tensor("lam_tail table", tab, (Bsz, period, n_eq), dtype, dev)
-        check_tensor("seen_T", seen_T, (Bsz, period), torch.bool, dev)
-    check_tensor("terminal table", tabT, (Bsz, period, n_eq_T), dtype, dev)
-    check_tensor("seen", seen, (Bsz, period), torch.bool, dev)
-    new_tab, new_tabT = torch.empty_like(tab), torch.empty_like(tabT)
-    new_seen = torch.empty_like(seen)
-    new_seen_T = None if full else torch.empty_like(seen_T)
-    fn = _fn(name, dtype, [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 3
-             + [_P, _I, _D, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(shape_i, 2 if full else 1,
-                 _ptrs([lam_eq, st.lam_eq_T, tab, tabT]),
-                 seen.data_ptr(), None if full else seen_T.data_ptr(),
-                 _ptrs([new_tab, new_tabT]), new_seen.data_ptr(),
-                 None if full else new_seen_T.data_ptr(), Bsz, ns, period,
-                 phase.data_ptr(), phase.element_size(), float(ema), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    shape_i = _shape_setup(PRIOR, al, al.ocp.nx, al.ocp.nu)
+    dev, dtype = _device(PRIOR, lam_eq)
+    Bsz, ns = lam_eq.shape[0], lam_eq.shape[1] if lam_eq.dim() > 1 else 0
+    kind, period = prior_kind(prior)
+    s = prior_setup(al, dev, dtype, kind, period, Bsz, ns)
+    state = [lam_eq, st.lam_eq_T]
+    check_tensors(_named(s.state, state), dtype, dev)
+    (tab, tabT), flags = _checked_prior(s, prior, phase, Bsz, dtype, dev)
+    ins, outs = s.ins, s.outs
+    for i, t in enumerate(state + [tab, tabT]):
+        ins[i] = t.data_ptr()
+    buf, tables, new_flags = prior_views(s.tab_layout, s.flag_layout,
+                                         s.total, dtype, dev)
+    base = buf.data_ptr()
+    e = torch.finfo(dtype).bits // 8
+    outs[0], outs[1] = (base + off * e for _, _, _, off in s.tab_layout)
+    flag_out = [base + off for _, _, _, off in s.flag_layout]
+    full = kind == 2
+    _launch(PRIOR, s.fn, dev, shape_i, kind, ins, flags[0].data_ptr(),
+            None if full else flags[1].data_ptr(), outs, flag_out[0],
+            None if full else flag_out[1], Bsz, ns, period, phase.data_ptr(),
+            phase.element_size(), float(ema))
     isrbd_al_prior_update.launches += 1
-    if full:
-        return type(prior)(lam_eq=new_tab, lam_eq_T=new_tabT, seen=new_seen)
-    return type(prior)(lam_tail=new_tab, lam_T=new_tabT, seen_tail=new_seen,
-                       seen_T=new_seen_T)
+    return type(prior)(*tables, *new_flags)
 
 
 isrbd_al_prior_update.launches = 0
+
+
+def shift_occupancy(prior: int, dtype=torch.float32,
+                    shape: str = "kangaroo") -> dict:
+    """K8a's occupancy with the prior `prior` (0 none, 1 tail, 2 full) at
+    the shape `shape` for tensors of `dtype`: blocks resident on one SM,
+    warps a block, shared memory bytes a block (none), registers and local
+    (spilled) bytes a thread."""
+    return occupancy_query("isrbd_al", "isrbd_al_shift_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape), prior,
+                           int(dtype == torch.float64))
+
+
+def params_occupancy(dtype=torch.float32, shape: str = "kangaroo") -> dict:
+    """K8b's occupancy at the shape `shape` for tensors of `dtype`, as
+    `shift_occupancy` gives K8a's."""
+    return occupancy_query("isrbd_al", "isrbd_al_params_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64))
