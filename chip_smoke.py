@@ -137,9 +137,11 @@ parallel, into build/kernels/), then:
      `lip_kernel_times`: every LIP kernel at B = 1, 512, 4096 in float32
      (ms, plain ms, bytes, FLOPs, bound), K11 also with four α and its
      chain alone (`lip_trial_chain`) with one and four α, blocks per SM
-     (K11 in both types with one and four α, its shared memory held to
-     `lip_rollout.smem_bytes` and no spill: `k11_layout_gate`), wrapper
-     host µs;
+     (K10 with groups of one member-node and of 16 bytes, K11 in both
+     types with one and four α, lip_evaluate in both types; K11's and
+     lip_evaluate's shared memory held to `lip_rollout.smem_bytes` and
+     `evaluate_smem_bytes`, none of the three spilling: `lip_layout_gate`),
+     wrapper host µs;
      `lip_path`: the dlip example (`build_lip_loop`'s defaults: max_iters
      100, alpha_converge_threshold 1e-12, beta 1e-3, the WPG at the feet's
      height, no SRBD telemetry, no shift), 40 ticks of
@@ -356,13 +358,19 @@ each of its twelve families held against the twin in float64 (the flags
 equal) from both, both timed at B = 1, 512 and 4096 with one and four α
 in turns, this tree's chain alone; one `k13_versus` line a family; the
 evaluate kernels and the trials of both trees compared bit for bit and
-timed (`evaluate_versus`; K11's outputs held to its twin instead, its
-design being free to differ between the trees). K11: both trees held against `lip_trial_plain` in
+timed (`evaluate_versus`; the LIP's, K11's and lip_evaluate's, held to
+their twins instead, their designs free to differ between the trees). K11: both trees held against `lip_trial_plain` in
 float64 at B = 8 and 512 with one and four α (member 7 from a NaN x0),
 timed in float32 at B = 1, 512 and 4096 with one and four α in turns,
 this tree's chain alone, both trees' occupancy; one `k11_versus` line;
-then lip_evaluate, K10 and K13's LIP family of both trees, which share
-csrc/lip_common.cuh, bit for bit and timed (`k11_shared_versus`). K7:
+then K10, K11 and K13's LIP family of both trees, which share
+csrc/lip_common.cuh, bit for bit in both types, and lip_evaluate of both
+trees (with and without x0) held to its twin in float64 at B = 8 (1e-12
+of max(1, |twin|), a NaN member NaN, the pinned plan bit for bit), K10
+and lip_evaluate timed in float32 at B = 1, 512 and 4096 in turns beside
+their bounds and a fill of K10's output bytes, both trees' wrapper host
+µs in turns, this tree's occupancy and launch shapes against the card's
+(`k11_shared_versus`). K7:
 both trees at its two AL shapes and three modes, held to its twin by
 `al_check` and to each other bit for bit in float32 and float64 (static
 bounds and the overrides, a NaN member, a first and a later outer),
@@ -1712,10 +1720,12 @@ def lip_evaluate_flops(Bsz, ns, nx, n_rho):
     return Bsz * (ns * (5 * n_rho + 4 * nx) + 5 * 10 + 2 * ns)
 
 
-def k11_layout_gate(k11, occ, ns):
+def lip_layout_gate(k11, occ, ns):
     """Fail unless the card's shared memory a K11 block (the .cu's own
-    count, `trial_occupancy`) is what `smem_bytes` states, and the block
-    spills nothing, for float32 and float64 with one and four α."""
+    count, `trial_occupancy`) is what `smem_bytes` states, for float32 and
+    float64 with one and four α, and a lip_evaluate block's what
+    `evaluate_smem_bytes` states at its most members; and unless K10, K11
+    and lip_evaluate spill nothing and fit an SM."""
     import torch
 
     for key, dtype, nA in (("lip_trial", torch.float32, 1),
@@ -1726,8 +1736,17 @@ def k11_layout_gate(k11, occ, ns):
         if occ[key]["shared_memory_bytes"] != want:
             fail(f"K11 ({key}) takes {occ[key]['shared_memory_bytes']} B a "
                  f"block on the card; lip_rollout.smem_bytes states {want}")
-        if occ[key]["local_bytes_per_thread"] or occ[key]["blocks_per_sm"] < 1:
-            fail(f"K11 ({key}) spills or does not fit: {occ[key]}")
+    for key, dtype in (("lip_evaluate", torch.float32),
+                       ("lip_evaluate_f64", torch.float64)):
+        want = k11.evaluate_smem_bytes(dtype, ns)["total"]
+        if occ[key]["shared_memory_bytes"] != want:
+            fail(f"lip_evaluate ({key}) takes "
+                 f"{occ[key]['shared_memory_bytes']} B a block on the card; "
+                 f"lip_rollout.evaluate_smem_bytes states {want}")
+    for key, o in occ.items():
+        if key.startswith("lip_") and (o.get("local_bytes_per_thread")
+                                       or o["blocks_per_sm"] < 1):
+            fail(f"{key} spills or does not fit: {o}")
 
 
 def lip_section(card, dev, sms):
@@ -1932,11 +1951,14 @@ def lip_section(card, dev, sms):
             v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
     occ = dict(
         lip_linearize=k10.occupancy(f32),
+        lip_linearize_node=k10.occupancy(f32, vec=False),
+        lip_linearize_f64=k10.occupancy(f64),
         lip_trial=k11.trial_occupancy(f32, ns, 1),
         lip_trial_4alpha=k11.trial_occupancy(f32, ns, 4),
         lip_trial_f64=k11.trial_occupancy(f64, ns, 1),
         lip_trial_f64_4alpha=k11.trial_occupancy(f64, ns, 4),
         lip_evaluate=k11.evaluate_occupancy(ns, f32),
+        lip_evaluate_f64=k11.evaluate_occupancy(ns, f64),
         **{name: dict(blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32,
                                                      form, sv),
                       shared_memory_bytes=k1.shared_memory_bytes(
@@ -1955,7 +1977,7 @@ def lip_section(card, dev, sms):
     emit("lip_kernel_times", card=card, dtype="float32", sms=sms,
          times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
          occupancy=occ, wrapper_host_us=host)
-    k11_layout_gate(k11, occ, ns)
+    lip_layout_gate(k11, occ, ns)
     del lin64, lin32, k10_g32, k1_g32, ref64
 
     # ---- lip_path: the dlip example on MPCLoop.tick ----
@@ -7041,10 +7063,16 @@ def k11_versus_part(other_tree, dev, card, use, other_libs):
     equal; the NaN member rejected); both timed in float32 at B = 1, 512
     and 4096 with one and four α in turns (other, this, this, other), this
     tree's chain alone (`lip_trial_chain`), the bound of each case, both
-    trees' occupancy: one `k11_versus` line. Then lip_evaluate (with and
-    without x0), K10 and K13's LIP family of both trees, which share
-    csrc/lip_common.cuh: outputs bit for bit at B = 512 in both types,
-    float32 times at B = 1 and 512 in turns; one `k11_shared_versus` line.
+    trees' occupancy: one `k11_versus` line. Then K10, K11 and K13's LIP
+    family of both trees, which share csrc/lip_common.cuh, bit for bit at B
+    = 512 in both types; lip_evaluate of both trees (with and without x0)
+    against its twin in float64 at B = 8 with a NaN member (1e-12 of
+    max(1, |twin|), the NaN member NaN, the pinned plan bit for bit), this
+    tree's in float32 at B = 512 against the float64 twin; K10 and
+    lip_evaluate timed in float32 at B = 1, 512 and 4096 in turns (other,
+    this, this, other) beside their bounds, K11 and K13 at B = 1 and 512;
+    both trees' wrapper host µs in turns at B = 1 (`host_us_turns`); this
+    tree's occupancy and launch shapes: one `k11_shared_versus` line.
     Returns what failed, for the caller to report."""
     import torch
 
@@ -7122,23 +7150,34 @@ def k11_versus_part(other_tree, dev, card, use, other_libs):
         r["occupancy"][f"other_{name}"] = k11s["other"].trial_occupancy(dtype)
     emit("k11_versus", **r)
 
-    # the kernels that share csrc/lip_common.cuh, bit for bit and timed
+    # the kernels that share csrc/lip_common.cuh: K10, K11 and K13's LIP
+    # family bit for bit; lip_evaluate (its design free to differ) to its
+    # twin; all timed
     rows = s.rows
-    sh = dict(card=card, bit_equal={}, ms={})
+    sh = dict(card=card, tol_f64=LIP_F64_TOL, bit_equal={}, evaluate={},
+              ms={}, bound_ms={}, host_us={}, occupancy={})
+
+    def ev_inputs(Bw, dtype, nan=False):
+        X = modes_sub(p["X"], Bw).to(dtype)
+        if nan:
+            X[K11_NAN, 5, 4] = float("nan")
+        return (X, modes_sub(p["U"], Bw).to(dtype),
+                {k: modes_sub(v, Bw).to(dtype) for k, v in p["params"].items()},
+                modes_sub(p["x0"], Bw).to(dtype))
 
     def shared_calls(Bw, dtype):
-        X, U = modes_sub(p["X"], Bw).to(dtype), modes_sub(p["U"], Bw).to(dtype)
-        prm = {k: modes_sub(v, Bw).to(dtype) for k, v in p["params"].items()}
-        x0 = modes_sub(p["x0"], Bw).to(dtype)
+        X, U, prm, x0 = ev_inputs(Bw, dtype)
         w = s._wc(dtype)
         a13 = modes_k13_args(p, Bw, dtype, 4)
+        a11 = args(Bw, dtype, 4)
         return {
+            "lip_linearize": lambda m: tuple(m["lip_linearize"].lip_linearize(
+                X, U, prm, terms, rows, dt, w).values()),
             "lip_evaluate": lambda m: m["lip_rollout"].lip_evaluate(
                 X, U, prm, terms, dt, w),
             "lip_evaluate_pinned": lambda m: m["lip_rollout"].lip_evaluate(
                 X, U, prm, terms, dt, w, x0=x0),
-            "lip_linearize": lambda m: tuple(m["lip_linearize"].lip_linearize(
-                X, U, prm, terms, rows, dt, w).values()),
+            "lip_trial": lambda m: m["lip_rollout"].lip_trial(*a11),
             "linear_trial_lip": lambda m: m["linear_trial"].linear_trial(
                 *a13),
         }
@@ -7146,6 +7185,8 @@ def k11_versus_part(other_tree, dev, card, use, other_libs):
                      "linear_trial": k13}, "other": old}
     for dtype, name in ((f64, "float64"), (f32, "float32")):
         for kname, fn in shared_calls(B_MAIN, dtype).items():
+            if kname.startswith("lip_evaluate"):
+                continue
             outs = {w: fn(m) for w, m in mods.items()}
             torch.cuda.synchronize()
             eq = all(bits_equal(a_, b_) for a_, b_ in
@@ -7154,14 +7195,174 @@ def k11_versus_part(other_tree, dev, card, use, other_libs):
             if not eq:
                 failed.append(f"{kname} ({name}) differs from the other "
                               "tree's")
-    for Bw in (1, B_MAIN):
-        for kname, fn in shared_calls(Bw, f32).items():
+    # lip_evaluate against its twin: float64 at B=8 with a NaN member,
+    # float32 at B=512 against the float64 twin
+    for pin in (False, True):
+        kname = "lip_evaluate_pinned" if pin else "lip_evaluate"
+        X, U, prm, x0 = ev_inputs(8, f64, nan=True)
+        kw = dict(x0=x0) if pin else {}
+        ref = k11.lip_evaluate_plain(X, U, prm, terms, dt, s._wc(f64), **kw)
+        r = {}
+        for which, m in mods.items():
+            got = m["lip_rollout"].lip_evaluate(X, U, prm, terms, dt,
+                                                s._wc(f64), **kw)
+            torch.cuda.synchronize()
+            r[f"{which}_f64_B8"] = {n: err1(g, w) for n, g, w in
+                                    zip(("cost", "defect_max"), got, ref)}
+            r[f"{which}_nan_member_nan"] = bool(
+                torch.isnan(got[0][K11_NAN]) and torch.isnan(got[1][K11_NAN]))
+            if pin:
+                r[f"{which}_pinned_X_bit_equal"] = bits_equal(got[2], ref[2])
+        X, U, prm, x0 = ev_inputs(B_MAIN, f64)
+        kw = dict(x0=x0) if pin else {}
+        ref = k11.lip_evaluate_plain(X, U, prm, terms, dt, s._wc(f64), **kw)
+        kw32 = dict(x0=x0.float()) if pin else {}
+        got = k11.lip_evaluate(X.float(), U.float(),
+                               {k: v.float() for k, v in prm.items()}, terms,
+                               dt, s._wc(f32), **kw32)
+        torch.cuda.synchronize()
+        r["this_f32_B512_vs_f64_twin"] = {
+            n: err1(g, w) for n, g, w in zip(("cost", "defect_max"), got, ref)}
+        sh["evaluate"][kname] = r
+        if not (max(r["this_f64_B8"].values()) <= LIP_F64_TOL
+                and r["this_nan_member_nan"]
+                and r.get("this_pinned_X_bit_equal", True)):
+            failed.append(f"{kname} disagrees with its twin")
+    for Bw in K11_VERSUS_B:
+        calls = shared_calls(Bw, f32)
+        for kname, fn in calls.items():
+            if Bw == B_LARGE and kname in ("lip_trial", "linear_trial_lip"):
+                continue
             for w in ("other", "this", "this", "other"):
                 sh["ms"].setdefault(kname, {}).setdefault(w, {}).setdefault(
-                    str(Bw), []).append(cuda_ms(lambda: fn(mods[w]), reps=50))
+                    str(Bw), []).append(cuda_ms(lambda: fn(mods[w]),
+                                                reps=50 if Bw < B_LARGE else 20))
+        X, U, prm, x0 = ev_inputs(Bw, f32)
+        lin = calls["lip_linearize"](mods["this"])
+        # the card's write rate on K10's output bytes: one fill of as many
+        fill = torch.empty(sum(t.numel() for t in lin), dtype=f32, device=dev)
+        sh.setdefault("fill_ms", {})[str(Bw)] = cuda_ms(
+            lambda: fill.fill_(1.0), reps=50 if Bw < B_LARGE else 20)
+        del fill
+        sh["bound_ms"].setdefault("lip_linearize", {})[str(Bw)] = bound(
+            nbytes(X, U, *prm.values(), rows.packed(dev), *lin),
+            lip_linearize_flops(Bw, ns, p["ocp"].nx, terms.n_rho,
+                                len(rows.gx)))[0]
+        ev = calls["lip_evaluate_pinned"](mods["this"])
+        sh["bound_ms"].setdefault("lip_evaluate_pinned", {})[str(Bw)] = bound(
+            nbytes(X, U, *prm.values(), x0, *ev),
+            lip_evaluate_flops(Bw, ns, p["ocp"].nx, terms.n_rho))[0]
+        del calls, lin, ev
+    one = shared_calls(1, f32)
+    sh["host_us"] = host_us_turns({
+        f"{w}_{kname}": (lambda f=one[kname], m=mods[w]: f(m))
+        for kname in ("lip_linearize", "lip_evaluate", "lip_evaluate_pinned")
+        for w in ("other", "this")})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype, name in ((f32, "float32"), (f64, "float64")):
+        for vec in (True, False):
+            sh["occupancy"][f"lip_linearize_{name}_{'vec' if vec else 'node'}"] = \
+                k10.occupancy(dtype, vec)
+        occ = k11.evaluate_occupancy(ns, dtype)
+        occ["waves_at_B4096"] = -(-(-(-B_LARGE // k11.EVAL_MEMBERS))
+                                  // max(1, occ["blocks_per_sm"] * sms))
+        sh["occupancy"][f"lip_evaluate_{name}"] = occ
+    # the launch shapes the wrappers state against the card's own choice
+    import ctypes
+    g_nodes = k10.library("lip_linearize").lip_linearize_group_nodes
+    g_nodes.argtypes, g_nodes.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_int
+    members = k11.library("lip_rollout").lip_evaluate_members
+    members.argtypes, members.restype = [ctypes.c_int], ctypes.c_int
+    sh["schedule"] = {}
+    for Bw in K11_VERSUS_B:
+        r = dict(lip_linearize=k10.schedule(Bw, ns, f32, sms),
+                 lip_linearize_f64=k10.schedule(Bw, ns, f64, sms),
+                 lip_evaluate_members=k11.eval_members(Bw, sms))
+        card_side = (g_nodes(0, Bw * ns), g_nodes(1, Bw * ns), members(Bw))
+        r["card_agrees"] = card_side == (r["lip_linearize"][0],
+                                         r["lip_linearize_f64"][0],
+                                         r["lip_evaluate_members"])
+        if not r["card_agrees"]:
+            failed.append(f"the wrappers' launch shapes at B={Bw} are not "
+                          f"the card's {card_side}")
+        sh["schedule"][str(Bw)] = r
     emit("k11_shared_versus", **sh)
     torch.cuda.empty_cache()
+    emit("lip_ticks_versus", **lip_ticks_versus(dev, card, mods))
     return failed
+
+
+def lip_ticks_versus(dev, card, mods, rounds=2):
+    """The dlip example's tick (B=1, 20 ticks of a walk) and the LIP fleet's
+    (B=512, 3 warm and 10 timed ticks), each tree's K10, K11 and
+    lip_evaluate in the solver's kernel table in turns (other, this, this,
+    other; `rounds` times), K1 the same: tick p50 ms a turn."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.runtime.loop import (
+        TickInput,
+        build_lip_loop,
+        walk_command,
+        walking_schedule,
+    )
+    from srbd_horizon_tpu_torch.solvers import msddp
+
+    f32 = torch.float32
+    saved = msddp._KERNELS["lip"]
+
+    def use(which):
+        m = mods[which]
+        msddp._KERNELS["lip"] = (m["lip_linearize"].lip_linearize,
+                                 m["lip_rollout"].lip_trial,
+                                 m["lip_rollout"].lip_evaluate)
+
+    dl, dprob = build_lip_loop(SRBDConfig(), DDPOptions(
+        max_iters=100, alpha_converge_threshold=1e-12, beta=1e-3), device=dev)
+    sched = walking_schedule(20, vx=0.3, start=5, device=dev)
+    fl, fprob = build_lip_loop(SRBDConfig(), DDPOptions(max_iters=5),
+                               shift_warmstart=True, device=dev)
+    g = np.random.RandomState(SEED)
+    x0 = torch.as_tensor(fprob.initial_state.cpu().numpy()[None]
+                         + 0.005 * g.randn(B_MAIN, fprob.ocp.nx), dtype=f32,
+                         device=dev)
+    inp = walk_command(B_MAIN, vx=0.2, dtype=f32, device=dev)
+
+    def dlip():
+        carry, tms = dl.init(dprob.initial_state), []
+        for i in range(sched.action.shape[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, _ = dl.tick(carry, TickInput(*(a[i] for a in sched)))
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(tms)
+
+    def fleet():
+        carry, tms = fl.init(x0), []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, _ = fl.tick_batch(carry, inp)
+            torch.cuda.synchronize()
+            if i >= 3:
+                tms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(tms)
+    out = dict(card=card, dlip_tick_p50_ms={}, fleet_tick_p50_ms={},
+               order="other, this, this, other, a round")
+    try:
+        for which in ("other", "this"):           # warm both trees' paths
+            use(which)
+            dlip(), fleet()
+        for _ in range(rounds):
+            for which in ("other", "this", "this", "other"):
+                use(which)
+                out["dlip_tick_p50_ms"].setdefault(which, []).append(dlip())
+                out["fleet_tick_p50_ms"].setdefault(which, []).append(fleet())
+    finally:
+        msddp._KERNELS["lip"] = saved
+    return out
 
 
 K7_MODES = ("eval", "online", "offline")
@@ -7419,8 +7620,9 @@ def evaluate_versus(p, fam, card, rollouts):
     the trial of the problem's family from both trees (`rollouts`: each
     tree's wrapper modules by terms.family), outputs compared bit for bit
     at B = 512 (evaluate with and without x0; the trial with four α) —
-    but K11, redesigned since the parent, whose float64 outputs are held
-    to its twin (LIP_F64_TOL of max(1, |twin|), the flags equal) —,
+    but the LIP's, K11 and lip_evaluate, redesigned since the parent,
+    whose float64 outputs are held to their twins (LIP_F64_TOL of max(1,
+    |twin|); the flags equal, the pinned plan bit for bit) —,
     float32 times at B = 1 and 512 in turns (other, this, this, other),
     the trial's also with one α (this tree); one `evaluate_versus` line
     each."""
@@ -7445,30 +7647,37 @@ def evaluate_versus(p, fam, card, rollouts):
                 prm = {k: modes_sub(v, Bw).to(dtype)
                        for k, v in p["params"].items()}
                 x0 = modes_sub(p["x0"], Bw).to(dtype) if with_x0 else None
-                return lambda: fn(X, U, prm, terms, dt, *fa, x0=x0)
+                return functools.partial(fn, X, U, prm, terms, dt, *fa, x0=x0)
             a = modes_k13_args(p, Bw, dtype, nA)
             return functools.partial(fn, *a[:5], a[7], *a[8:14], terms, dt,
                                      *fa, s.opts.defect_weight, s.opts.beta,
                                      s.opts.alpha_converge_threshold)
-        to_twin = kind == "trial" and fam_name == "lip"
+        to_twin = fam_name == "lip"
         if to_twin:
             del r["bit_equal"]
             r.update(twin_err_f64={}, flags_equal={}, tol_f64=LIP_F64_TOL)
+            r["within_twin_tol"] = True
         for variant in ((True, False) if kind == "evaluate" else (True,)):
             calls = {w: call(w, B_MAIN, torch.float64, variant)
                      for w in ("other", "this")}
             outs = {w: f() for w, f in calls.items()}
             torch.cuda.synchronize()
             if to_twin:
-                ref = rollouts["this"]["lip"].lip_trial_plain(
-                    *calls["this"].args)
+                c = calls["this"]
+                plain = getattr(rollouts["this"]["lip"], f"lip_{kind}_plain")
+                ref = plain(*c.args, **c.keywords)
                 for w, got in outs.items():
-                    r["twin_err_f64"][w] = max(err1(g_, w_) for g_, w_ in
-                                               zip(got[:4], ref[:4]))
-                    r["flags_equal"][w] = bool(torch.equal(got[4], ref[4]))
-                r["within_twin_tol"] = (
-                    r["twin_err_f64"]["this"] <= LIP_F64_TOL
-                    and r["flags_equal"]["this"])
+                    key = f"{w}_x0" if kind == "evaluate" and variant else w
+                    n = 4 if kind == "trial" else 2
+                    r["twin_err_f64"][key] = max(err1(g_, w_) for g_, w_ in
+                                                 zip(got[:n], ref[:n]))
+                    # the flags of a trial, the pinned plan of an evaluation
+                    r["flags_equal"][key] = (
+                        bool(torch.equal(got[4], ref[4])) if kind == "trial"
+                        else len(got) < 3 or bits_equal(got[2], ref[2]))
+                r["within_twin_tol"] &= all(
+                    r["twin_err_f64"][k] <= LIP_F64_TOL and r["flags_equal"][k]
+                    for k in r["twin_err_f64"] if k.startswith("this"))
                 continue
             r["bit_equal"] &= all(bits_equal(a_, b_) for a_, b_ in
                                   zip(outs["other"], outs["this"]))

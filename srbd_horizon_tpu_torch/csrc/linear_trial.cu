@@ -26,8 +26,9 @@
 // The problem's step and rows are the evaluate kernels' (`FAMILIES`, a
 // policy struct each, in float64): the SRBD problem at K3's nine (topology,
 // step) instances (csrc/srbd_common.cuh's node_rates, eval_stage and
-// eval_terminal, srbd_evaluate's), the LIP (csrc/lip_common.cuh,
-// lip_evaluate's) and the isrbd AL inner problem at both AL shapes
+// eval_terminal, srbd_evaluate's), the LIP (csrc/lip_common.cuh's
+// warp-a-node eval_stage and eval_terminal) and the isrbd AL inner problem
+// at both AL shapes
 // (csrc/isrbd_common.cuh, isrbd_evaluate's: the RK2 step of the double
 // integrator, 240 / 236 stage and 101 / 97 terminal rows). D̂ is measured in
 // the problem's own step, as JAX's `_true_defects` takes `ocp.step`. The
@@ -150,8 +151,8 @@ struct SrbdFamily {
   }
 };
 
-// The LIP problem (lip::Shape; K1's LipShape): lip_evaluate's node
-// evaluation, no prepass.
+// The LIP problem (lip::Shape; K1's LipShape): lip_common.cuh's
+// warp-a-node evaluation, no prepass.
 struct LipFamily {
   using S = lip::Shape;
   static constexpr int nx = S::nx, nu = S::nu, n_rx = S::n_rx,

@@ -3,10 +3,10 @@
 // the problem's constants, the packed parameter row, the rows of the LIP
 // double integrator ẋ and of the stacked stage residual
 // ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual, a
-// node's squared residual on one thread (K11's evaluation), and a given
-// plan's node evaluated on one warp (lip_evaluate's body, which K13 in
-// csrc/linear_trial.cu runs too). All of them evaluate the dynamics and
-// the residuals through this one copy.
+// node's squared residual on one thread (K11's and lip_evaluate's
+// evaluation), and a given plan's node evaluated on one warp (K13's, in
+// csrc/linear_trial.cu). All of them evaluate the dynamics and the
+// residuals through this one copy.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/lip.py, nc contacts):
 //   x = [r(3), c(3nc), ṙ(3), ċ(3nc)]                        nx = 6 + 6nc
@@ -118,6 +118,13 @@ __device__ __forceinline__ const T* param_src(const Params<T>& P, size_t row,
   if (e < kP_cref + nc) return P.p[2] + row * nc + (e - kP_cref);
   return P.p[3] + row * nc + (e - kP_cref - nc);
 }
+
+// V values of T, aligned as one access: a 16-byte store at V = 16 /
+// sizeof(T) (K10's units, lip_evaluate's pinned plan), or one value.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Unit {
+  T v[V];
+};
 
 // ---- the dynamics ----
 
@@ -236,7 +243,7 @@ __device__ __forceinline__ T terminal_sq_lane(int lane, const T* x,
 }
 
 // ‖ρ(x, u, p)‖² over the stage rows on one thread, the rows added in
-// order (K11 evaluates a node a thread).
+// order (K11 and lip_evaluate evaluate a node a thread).
 template <class S, typename T>
 __device__ __forceinline__ T stage_sq(const T* x, const T* u, const T* p,
                                       const Consts<T>& k) {
@@ -262,7 +269,7 @@ __device__ __forceinline__ T terminal_sq(const T* x, const T* p,
   return acc;
 }
 
-// ---- a given plan's node, evaluated (lip_evaluate, K13) ----
+// ---- a given plan's node, evaluated on one warp (K13) ----
 
 // One warp evaluates stage node (x, u, p): this lane's share of Σ‖ρ‖²
 // (returned) and, on lanes below nx, row `lane` of the Euler step

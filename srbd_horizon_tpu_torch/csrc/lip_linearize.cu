@@ -26,27 +26,51 @@
 // the twin's scale × weight; a structural zero stays zero whatever the
 // scale), so the Jacobians agree with the twin bit for bit.
 //
-// Compiled for the sizes of `lip::Shape` only (csrc/lip_common.cuh): the
-// per-node output sizes, the smem layout and every loop bound are
-// constants; the wrapper refuses other sizes. The row table stays a
-// run-time input.
+// Compiled for the sizes of `lip::Shape` only (csrc/lip_common.cuh; the
+// kernel is a template of the shape, another shape an instance): the
+// per-node output sizes, the records and every loop bound are constants;
+// the wrapper refuses other sizes. The row table stays a run-time input:
+// the wrapper forms the templates from it, and the kernel reads its gx
+// rows for the scales of Jxp.
 //
 // What bounds it on an H100: bytes. A member-node writes 2,069 values
 // (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44, d 30) and reads 87; a member
 // adds rt and Jt, 310. At B=512, ns=20 that is ~85 MB of float32 out, 26 µs
-// at 3.35 TB/s, against a few hundred FLOP a member-node.
+// at 3.35 TB/s, against a few hundred FLOP a member-node. At B=1 the
+// 172 KB take ~0.05 µs of the card's rate: the launch and one node's
+// latency set the time.
 //
-// Design: a store stream. Each block first forms the templates (Sx, Bs,
-// Jxp unscaled, Jup, Jt) in shared memory, one entry a thread, and the
-// scale of each Jxp row; then it walks groups of kNodes consecutive stage
-// member-nodes (and, after the stage groups, groups of kNodes members'
-// terminal pairs), a grid-stride loop, so the templates are formed once a
-// block. For a group it stages the nodes' x, X[n+1], u and parameter rows
-// in shared memory, and the whole block streams each output: the group's
-// nodes' blocks of one output are contiguous in device memory, so
-// neighbouring threads store neighbouring elements, each copied from the
-// template (Jxp scaled by its row's mask or switch), and ρ and d one entry
-// a thread. No warp waits on another's arithmetic between stores.
+// Design: slots. The Jacobian templates (Sx, Bs, Jxp unscaled, Jup, Jt)
+// are formed once on the host (kernels/lip_linearize.py::templates, by the
+// entry formulas K10 had formed in every block, in the working type) and
+// kept on the device, each repeated kVec<T> times. A group is G
+// consecutive stage member-nodes (or G members' terminal pairs): G = 1
+// while B·ns is small, so that B=1 takes its 20 stage nodes and its
+// terminal node on 21 blocks, else G = kGroupUnits·kVec<T> (4 in float32,
+// 2 in float64), whose outputs, starting at a flat index divisible by G,
+// are 16-byte aligned in every field. A field of `per` values a node is
+// per·G/V units a group (a unit: V values, one 16-byte store, or at G = 1
+// one value); unit u of each template field belongs to one thread for the
+// whole launch (the fields' units dealt round the block, each field
+// starting where the last ended), which loads each once a group through
+// the read-only path (L1 after the block's first group);
+// the row scale of each of its Jxp values (the node's mask or switch, read
+// from gx) it forms once. The block walks its groups (a grid-stride loop,
+// kMinBlocks blocks an SM): the group's records (x, X[n+1], u and the
+// packed parameter row a node) arrive in registers, a slot a thread chosen
+// once (selects, no branch per value), go to one of two record buffers in
+// shared memory, and after one barrier the next group's loads are issued
+// before this group's stores, so no store waits on a load issued after it.
+// A template unit's store is its template (Jxp scaled as the twin scales
+// it); ρ, d and rt go a value a thread, row-major over the group's nodes
+// (a warp's lanes share rows), by the shared row functions in their
+// parent order. Each entry is as the twin forms it (the scaled entries
+// template × scale; a structural zero stays zero whatever the scale), so
+// the Jacobians agree with the twin and with the streaming kernel this
+// replaced bit for bit, and ρ and d, by the same functions in the same
+// order, with that kernel bit for bit. Held in registers instead, the
+// template units cost 128 registers and spills; larger groups spill their
+// Jxp scales (tools/torch_k10_variants.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -55,219 +79,306 @@
 
 namespace {
 
-using S = lip::Shape;
-using L = lip::Layout<S>;
-constexpr int kThreads = 256;
-constexpr int kNodes = 16;               // member-nodes (or members) a group
-constexpr int kBlocksPerSm = 4;          // the grid: at most this many an SM
+constexpr int kSlotThreads = 512;        // threads a block
+constexpr int kMinBlocks = 2;            // blocks an SM the registers are held to
+constexpr int kGroupUnits = 1;           // a fleet's group: kGroupUnits·kVec<T> nodes
 constexpr int kUnknownShape = -2;        // the sizes are not lip::Shape's
-constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho, nt = S::nt;
 
-// per-node sizes of the Jacobian blocks and the terminal Jacobian
-constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu, kJxp = S::n_gx * nx,
-              kJup = S::n_gu * nu, kJt = nt * nx;
-// shared memory (in T): the templates, then a group's node records
-constexpr int tSx = 0, tBs = tSx + kSx, tJxp = tBs + kBs, tJup = tJxp + kJxp,
-              tJt = tJup + kJup, tEnd = tJt + kJt;
-// a node record: x, X[n+1], u, the packed parameter row
-constexpr int rX = 0, rXn = nx, rU = 2 * nx, rP = 2 * nx + nu,
-              kRec = rP + L::pw;
-
+// member-nodes a 16-byte group: kVec<T> values of T are 16 bytes
 template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (tEnd + kNodes * kRec) + sizeof(int) * S::n_gx;
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// The sizes of shape S's outputs and records, and the template table.
+template <class S>
+struct K10 {
+  using L = lip::Layout<S>;
+  static constexpr int nx = S::nx, nu = S::nu, nr = S::n_rho, nt = S::nt;
+  // values a node of each field
+  static constexpr int kSx = S::n_rx * nx, kBs = S::n_ru * nu,
+                       kJxp = S::n_gx * nx, kJup = S::n_gu * nu,
+                       kJt = nt * nx;
+  // the template table in per-node templates: Sx, Bs, Jxp, Jup, Jt, each
+  // repeated kVec<T> times on the device (offsets × kVec<T>)
+  static constexpr int oSx = 0, oBs = oSx + kSx, oJxp = oBs + kBs,
+                       oJup = oJxp + kJxp, oJt = oJup + kJup,
+                       kTemplates = oJt + kJt;
+  // a node record: x, X[n+1], u, the packed parameter row
+  static constexpr int rX = 0, rXn = nx, rU = 2 * nx, rP = 2 * nx + nu,
+                       kRec = rP + L::pw;
+  // the first thread of each template field's units: Sx, Bs, Jxp, Jup
+  // dealt in order round the block, each starting where the last ended
+  static constexpr int kRotSx = 0, kRotBs = kSx % kSlotThreads,
+                       kRotJxp = (kSx + kBs) % kSlotThreads,
+                       kRotJup = (kSx + kBs + kJxp) % kSlotThreads, kRotJt = 0;
+};
+
+// Slots of a field of `per` units a group: the thread's units kSlotThreads
+// apart.
+__host__ __device__ constexpr int slots(int per) {
+  return (per + kSlotThreads - 1) / kSlotThreads;
 }
 
-// Jxp row scales: none, the tracking mask, or cdot_switch[q] (kCs + q)
-enum : int { kNone = 0, kMask = 1, kCs = 2 };
-
-// Row r, column c of dt·∂ẋ/∂x.
-template <typename T>
-__device__ T sx_entry(int r, int c, const lip::Consts<T>& k) {
-  if (r < 3) return c == L::i_rdot + r ? k.dt : T(0);               // ṙ
-  if (r < L::i_rdot) return c == L::i_cdot + r - 3 ? k.dt : T(0);   // ċ
-  if (r < L::i_cdot) return c == r - L::i_rdot ? k.dt * k.eta2 : T(0);  // η² r
-  return T(0);
+// This thread's unit of a field in slot s (-1 past the field's end).
+template <int per, int rot>
+__device__ __forceinline__ int unit_of(int tid, int s) {
+  const int u = (tid + kSlotThreads - rot) % kSlotThreads + s * kSlotThreads;
+  return u < per ? u : -1;
 }
 
-// Row r, column c of dt·∂ẋ/∂u.
-template <typename T>
-__device__ T bs_entry(int r, int c, const lip::Consts<T>& k) {
-  if (r >= L::i_rdot && r < L::i_cdot)
-    return c == r - L::i_rdot ? k.dt * (-k.eta2) : T(0);            // −η² z
-  if (r >= L::i_cdot) return c == 3 + r - L::i_cdot ? k.dt : T(0);  // c̈
-  return T(0);
-}
-
-// Column c of the contact block on axis a: the centroid's columns.
-__device__ __forceinline__ bool centroid_col(int c, int a) {
-  return c >= L::i_c && c < L::i_rdot && (c - L::i_c) % 3 == a;
-}
-
-// Row g < 6 (rz, rxy, ṙ) or rel row g − 6 of the tracking Jacobian with
-// the mask 1, column c.
-template <typename T>
-__device__ T tracking_entry(int g, int c, const lip::Consts<T>& k) {
-  if (g == 0) return c == 2 ? k.w_r : T(0);
-  if (g < 3) {
-    if (c == g - 1) return k.w_r;
-    return centroid_col(c, g - 1) ? -k.w_r / T(S::nc) : T(0);
+// Template unit u of a field (`oF` its offset in per-node templates): one
+// load through the read-only path, a hit in L1 after the block's first
+// group.
+template <int oF, typename T, int V>
+__device__ __forceinline__ lip::Unit<T, V> template_unit(
+    const T* __restrict__ tmpl, int u) {
+  const T* p = tmpl + oF * kVec<T> + u * V;
+  lip::Unit<T, V> x;
+  if constexpr (V == 1) {
+    x.v[0] = __ldg(p);
+  } else {
+    static_assert(sizeof(x) == 16, "a 16-byte unit");
+    const int4 r = __ldg(reinterpret_cast<const int4*>(p));
+    memcpy(&x, &r, sizeof(x));
   }
-  if (g < 6) return c == L::i_rdot + g - 3 ? k.w_rdot : T(0);
-  int a, b;
-  lip::rel_cols<S>(g - 6, &a, &b);
-  if (c == L::i_c + a) return -k.w_rel;
-  return c == L::i_c + b ? k.w_rel : T(0);
+  return x;
 }
 
-// Row r, column c of ∂ρ/∂x before its row's scale, and the scale (*kind).
-template <typename T>
-__device__ T jxp_entry(int r, int c, const lip::Consts<T>& k, int* kind) {
-  *kind = kNone;
-  if (r < 6 || (r >= 9 && r < 13)) {                  // the tracking rows
-    *kind = kMask;
-    return tracking_entry(r < 6 ? r : r - 3, c, k);
+// Store unit u of a group's field block at dst, of which the group's nodes
+// fill `valid` values: one store when the unit is whole, value by value
+// at the end of a partial group.
+template <typename T, int V>
+__device__ __forceinline__ void store_unit(T* __restrict__ dst, int u,
+                                           int valid, const lip::Unit<T, V>& x) {
+  if (u * V + V <= valid) {
+    *reinterpret_cast<lip::Unit<T, V>*>(dst + u * V) = x;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (u * V + j < valid) dst[u * V + j] = x.v[j];
   }
-  if (r < 9) return centroid_col(c, r - 6) ? -k.w_zmp / T(S::nc) : T(0);
-  if (r < 16) return c == r - 13 ? k.w_qddot * k.eta2 : T(0);    // r̈
-  if (r < L::n_res) return T(0);                       // c̈: inputs only
-  int q = r - L::n_res;                                // √w_c ∂eq/∂x
-  constexpr int per = 2 * (S::cm - 1);
-  if (q < L::n_rv) {
-    const int base = (q / per) * S::cm, rem = q % per;
-    const int i = rem / 2 + 1, ax = rem % 2;
-    if (c == L::i_cdot + 3 * base + ax) return k.wc;
-    return c == L::i_cdot + 3 * (base + i) + ax ? -k.wc : T(0);
+}
+
+// The scale of stage row r of ∂ρ/∂x: 0 for none, else 1 + its entry of
+// the packed parameter row (the tracking mask, or cdot_switch[q]).
+template <class S>
+__device__ int jxp_scale(int r) {
+  using L = lip::Layout<S>;
+  if (r < 6 || (r >= 9 && r < 13)) return 1 + lip::kP_mt;   // tracking rows
+  int q = r - L::n_res - L::n_rv - S::nc;
+  return q < 0 ? 0 : 1 + lip::Param<S>::cs + q / 2;         // ċxy rows
+}
+
+// A record slot, packed in one int: the node w in the group (bits 0-3),
+// the source (bits 4-7: 0 the node's x, 1 X[n+1], 2 u, 3 + t parameter
+// tensor t) and the element in its row (bits 8 on). A slot past the
+// group's records has source 15 and loads nothing.
+enum : int { kSrcX = 0, kSrcXn = 1, kSrcU = 2, kSrcP = 3, kSrcNone = 15 };
+
+template <class S>
+__device__ int rec_slot(int i, int V) {
+  using Z = K10<S>;
+  if (i >= V * Z::kRec) return kSrcNone << 4;
+  const int w = i / Z::kRec, e = i - w * Z::kRec;
+  int src, off;
+  if (e < Z::rXn) {
+    src = kSrcX, off = e;
+  } else if (e < Z::rU) {
+    src = kSrcXn, off = e - Z::rXn;
+  } else if (e < Z::rP) {
+    src = kSrcU, off = e - Z::rU;
+  } else {
+    const int p = e - Z::rP;
+    const int t = p < lip::kP_rdot ? 0 : p < lip::kP_cref ? 1
+                  : p < lip::Param<S>::cs ? 2 : 3;
+    src = kSrcP + t, off = p - lip::param_off<S>(t);
   }
-  q -= L::n_rv;
-  if (q < S::nc) return c == L::i_c + 3 * q + 2 ? k.wc : T(0);
-  q -= S::nc;
-  *kind = kCs + q / 2;
-  return c == L::i_cdot + 3 * (q / 2) + q % 2 ? k.wc : T(0);
+  return w | src << 4 | off << 8;
 }
 
-// Row r, column c of ∂ρ/∂u.
-template <typename T>
-__device__ T jup_entry(int r, int c, const lip::Consts<T>& k) {
-  if (r >= 6 && r < 9) return c == r - 6 ? k.w_zmp : T(0);        // zmp
-  if (r >= 13 && r < 16) return c == r - 13 ? -(k.w_qddot * k.eta2) : T(0);
-  if (r >= 16 && r < L::n_res) return c == 3 + r - 16 ? k.w_qddot : T(0);
-  return T(0);
+// The value record slot `slot` loads for member b's node n (row = b·(ns+1)
+// + n, q = b·ns + n), T(0) for none: every select, no branch.
+template <class S, typename T>
+__device__ __forceinline__ T rec_load(int slot, const T* __restrict__ X,
+                                      const T* __restrict__ U,
+                                      const lip::Params<T>& P, long long row,
+                                      long long q, bool terminal) {
+  using Z = K10<S>;
+  const int src = (slot >> 4) & 15, off = slot >> 8;
+  const T* base = src <= kSrcXn ? X : src == kSrcU ? U
+                  : src == kSrcP ? P.p[0] : src == kSrcP + 1 ? P.p[1]
+                  : src == kSrcP + 2 ? P.p[2] : P.p[3];
+  const int stride = src <= kSrcXn ? Z::nx : src == kSrcU ? Z::nu
+                     : lip::param_dim<S>(src - kSrcP);
+  const long long idx = (src == kSrcU ? q : row) + (src == kSrcXn);
+  const bool live = src != kSrcNone && !(terminal && (src == kSrcXn || src == kSrcU));
+  return live ? base[idx * stride + off] : T(0);
 }
 
-// The block forms the templates and the Jxp row scales.
 template <typename T>
-__device__ void form_templates(T* s, int* scale, const int* __restrict__ table,
-                               const lip::Consts<T>& k) {
-  const int* rx = table;
-  const int* ru = rx + S::n_rx;
-  const int* gx = ru + S::n_ru;
-  const int* gu = gx + S::n_gx;
-  for (int i = threadIdx.x; i < kSx; i += kThreads)
-    s[tSx + i] = sx_entry(rx[i / nx], i % nx, k);
-  for (int i = threadIdx.x; i < kBs; i += kThreads)
-    s[tBs + i] = bs_entry(ru[i / nu], i % nu, k);
-  for (int i = threadIdx.x; i < kJxp; i += kThreads) {
-    int kind;
-    s[tJxp + i] = jxp_entry(gx[i / nx], i % nx, k, &kind);
-    if (i % nx == 0) scale[i / nx] = kind;
+struct Out {
+  T *Sx, *Bs, *Jxp, *Jup, *rho, *d, *rt, *Jt;
+};
+
+// The block stores its units of a template field (per values a node,
+// `units` a group, oF its offset in per-node templates) for a group whose
+// nodes fill `valid` values of the block at dst.
+template <int per, int units, int rot, int oF, typename T, int V>
+__device__ __forceinline__ void store_template(T* __restrict__ dst,
+                                               const T* __restrict__ tmpl,
+                                               int valid, int tid) {
+#pragma unroll
+  for (int s = 0; s < slots(units); ++s) {
+    const int u = unit_of<units, rot>(tid, s);
+    if (u >= 0)
+      store_unit(dst, u, valid,
+                 template_unit<oF, T, V>(tmpl, units == per ? u : u % per));
   }
-  for (int i = threadIdx.x; i < kJup; i += kThreads)
-    s[tJup + i] = jup_entry(gu[i / nu], i % nu, k);
-  for (int i = threadIdx.x; i < kJt; i += kThreads)
-    s[tJt + i] = tracking_entry(i / nx, i % nx, k);
 }
 
-// The block streams `count` values of a per-node template (`per` values a
-// node) to dst, node after node.
-template <int per, typename T>
-__device__ __forceinline__ void stream_template(const T* tmpl,
-                                                T* __restrict__ dst,
-                                                int count) {
-  for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = tmpl[i % per];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// G member-nodes a group (1, or whole 16-byte units: V = kVec<T> values a
+// unit, G a multiple of V).
+template <class S, typename T, int G>
+__global__ void __launch_bounds__(kSlotThreads, kMinBlocks)
 lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
-                     lip::Params<T> P, const int* __restrict__ table, int B,
-                     int ns, int n_stage, int n_groups, lip::Consts<T> k,
-                     T* __restrict__ Sx, T* __restrict__ Bs,
-                     T* __restrict__ Jxp, T* __restrict__ Jup,
-                     T* __restrict__ rho, T* __restrict__ dfx,
-                     T* __restrict__ rt, T* __restrict__ Jt) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  T* rec = s + tEnd;
-  int* scale = reinterpret_cast<int*>(rec + kNodes * kRec);
+                     lip::Params<T> P, const int* __restrict__ table,
+                     const T* __restrict__ tmpl, int B, int ns, int n_stage,
+                     int n_groups, lip::Consts<T> k, Out<T> o) {
+  using Z = K10<S>;
+  constexpr int V = G == 1 ? 1 : kVec<T>;
+  static_assert(G % V == 0 && G <= 16, "whole units, 4 bits a node");
+  constexpr int kUnitsJxp = Z::kJxp * G / V, kRecSlots = slots(G * Z::kRec);
+  __shared__ __align__(16) T recs[2][G * Z::kRec];
   const int tid = threadIdx.x;
-  form_templates(s, scale, table, k);
-  const long long total = static_cast<long long>(B) * ns;
+  // this thread's record slots, once
+  int rs[kRecSlots];
+#pragma unroll
+  for (int s = 0; s < kRecSlots; ++s) rs[s] = rec_slot<S>(tid + s * kSlotThreads, G);
+  const int total = B * ns;                // stage member-nodes
 
-  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
-    __syncthreads();                       // templates; the last group's reads
-    if (grp < n_stage) {                   // kNodes stage member-nodes
-      const long long q0 = static_cast<long long>(grp) * kNodes;
-      const int nv = total - q0 < kNodes ? static_cast<int>(total - q0) : kNodes;
-      for (int i = tid; i < nv * kRec; i += kThreads) {
-        const int w = i / kRec, e = i - w * kRec;
-        const long long q = q0 + w;
-        const size_t b = q / ns;
-        const int n = static_cast<int>(q - static_cast<long long>(b) * ns);
-        const size_t row = b * (ns + 1) + n;
-        T v;
-        if (e < rXn) v = X[row * nx + e];
-        else if (e < rU) v = X[(row + 1) * nx + (e - rXn)];
-        else if (e < rP) v = U[(b * ns + n) * nu + (e - rU)];
-        else v = *lip::param_src<S>(P, row, e - rP);
-        rec[i] = v;
+  // the stage groups
+  T rv[kRecSlots];
+  auto load_stage = [&](int g) {
+#pragma unroll
+    for (int s = 0; s < kRecSlots; ++s) {
+      const int q = g * G + (rs[s] & 15);
+      rv[s] = q < total ? rec_load<S>(rs[s], X, U, P, q + q / ns, q, false)
+                        : T(0);
+    }
+  };
+  int g = blockIdx.x, buf = 0;
+  if (g < n_stage) load_stage(g);
+  // this thread's Jxp scales, once, while the first records load: each
+  // Jxp value's node in the group and scale (8 bits a value)
+  unsigned scale[slots(kUnitsJxp)];
+  const int* gx = table + S::n_rx + S::n_ru;
+#pragma unroll
+  for (int s = 0; s < slots(kUnitsJxp); ++s) {
+    const int u = unit_of<kUnitsJxp, Z::kRotJxp>(tid, s);
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int v = (u < 0 ? 0 : u) * V + j, w = v / Z::kJxp;
+      const int r = (v - w * Z::kJxp) / Z::nx;
+      bits |= static_cast<unsigned>(jxp_scale<S>(gx[r]) | (w << 4)) << (8 * j);
+    }
+    scale[s] = bits;
+  }
+  for (; g < n_stage; g += gridDim.x) {
+    T* rec = recs[buf];
+    buf ^= 1;
+#pragma unroll
+    for (int s = 0; s < kRecSlots; ++s)
+      if (tid + s * kSlotThreads < G * Z::kRec) rec[tid + s * kSlotThreads] = rv[s];
+    // the group's records are in
+    __syncthreads();
+    if (g + static_cast<int>(gridDim.x) < n_stage) load_stage(g + gridDim.x);
+    const long long q0 = static_cast<long long>(g) * G;
+    const int nv = total - q0 < G ? static_cast<int>(total - q0) : G;
+    store_template<Z::kSx, Z::kSx * G / V, Z::kRotSx, Z::oSx, T, V>(
+        o.Sx + q0 * Z::kSx, tmpl, nv * Z::kSx, tid);
+    store_template<Z::kBs, Z::kBs * G / V, Z::kRotBs, Z::oBs, T, V>(
+        o.Bs + q0 * Z::kBs, tmpl, nv * Z::kBs, tid);
+    store_template<Z::kJup, Z::kJup * G / V, Z::kRotJup, Z::oJup, T, V>(
+        o.Jup + q0 * Z::kJup, tmpl, nv * Z::kJup, tid);
+    T* Jxp = o.Jxp + q0 * Z::kJxp;
+#pragma unroll
+    for (int s = 0; s < slots(kUnitsJxp); ++s) {
+      const int u = unit_of<kUnitsJxp, Z::kRotJxp>(tid, s);
+      if (u < 0) continue;
+      const lip::Unit<T, V> t = template_unit<Z::oJxp, T, V>(
+          tmpl, kUnitsJxp == Z::kJxp ? u : u % Z::kJxp);
+      lip::Unit<T, V> x;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const unsigned bits = scale[s] >> (8 * j);
+        const int sid = bits & 15, w = (bits >> 4) & 15;
+        const T f = rec[w * Z::kRec + Z::rP + (sid ? sid - 1 : 0)];
+        x.v[j] = (sid == 0 || t.v[j] == T(0)) ? t.v[j] : t.v[j] * f;
       }
-      __syncthreads();
-      stream_template<kSx>(s + tSx, Sx + q0 * kSx, nv * kSx);
-      stream_template<kBs>(s + tBs, Bs + q0 * kBs, nv * kBs);
-      stream_template<kJup>(s + tJup, Jup + q0 * kJup, nv * kJup);
-      T* jo = Jxp + q0 * kJxp;
-      for (int i = tid; i < nv * kJxp; i += kThreads) {
-        const int w = i / kJxp, e = i - w * kJxp;
-        const T t = s[tJxp + e];
-        const int kind = scale[e / nx];
-        const T* p = rec + w * kRec + rP;
-        const T f = kind == kMask ? p[lip::kP_mt]
-                                  : p[lip::Param<S>::cs + (kind - kCs)];
-        jo[i] = (kind == kNone || t == T(0)) ? t : t * f;
-      }
-      T* ro = rho + q0 * nr;
-      for (int i = tid; i < nv * nr; i += kThreads) {
-        const int w = i / nr;
-        const T* r = rec + w * kRec;
-        ro[i] = lip::stage_rho_row<S>(i - w * nr, r + rX, r + rU, r + rP, k);
-      }
-      T* dd = dfx + q0 * nx;
-      for (int i = tid; i < nv * nx; i += kThreads) {
-        const int w = i / nx, j = i - w * nx;
-        const T* r = rec + w * kRec;
-        dd[i] = (r[rX + j] + k.dt * lip::xdot_row<S>(j, r + rX, r + rU, k)) -
-                r[rXn + j];
-      }
-    } else {                               // kNodes members' terminal pairs
-      const long long b0 = static_cast<long long>(grp - n_stage) * kNodes;
-      const int nv = B - b0 < kNodes ? static_cast<int>(B - b0) : kNodes;
-      for (int i = tid; i < nv * kRec; i += kThreads) {
-        const int w = i / kRec, e = i - w * kRec;
-        const size_t row = static_cast<size_t>(b0 + w) * (ns + 1) + ns;
-        if (e < rXn) rec[i] = X[row * nx + e];
-        else if (e >= rP) rec[i] = *lip::param_src<S>(P, row, e - rP);
-      }
-      __syncthreads();
-      stream_template<kJt>(s + tJt, Jt + b0 * kJt, nv * kJt);
-      T* ro = rt + b0 * nt;
-      for (int i = tid; i < nv * nt; i += kThreads) {
-        const int w = i / nt;
-        const T* r = rec + w * kRec;
-        ro[i] = lip::tracking_row<S>(i - w * nt, r + rX, r + rP, T(1), k);
+      store_unit(Jxp, u, nv * Z::kJxp, x);
+    }
+    // ρ and d a value a thread, row-major over the group's nodes (the
+    // lanes of a warp share rows, G nodes a row), by the shared row
+    // functions
+#pragma unroll
+    for (int s = 0; s < slots(G * (Z::nr + Z::nx)); ++s) {
+      const int i = tid + s * kSlotThreads;
+      if (i < G * Z::nr) {
+        const int g_ = i / G, w = i - g_ * G;
+        const T* r = rec + w * Z::kRec;
+        const T v = lip::stage_rho_row<S>(g_, r + Z::rX, r + Z::rU, r + Z::rP, k);
+        if (w < nv) o.rho[(q0 + w) * Z::nr + g_] = v;
+      } else if (i < G * (Z::nr + Z::nx)) {
+        const int j = (i - G * Z::nr) / G, w = i - G * Z::nr - j * G;
+        const T* r = rec + w * Z::kRec;
+        const T v = (r[Z::rX + j] + k.dt * lip::xdot_row<S>(j, r + Z::rX,
+                                                            r + Z::rU, k)) -
+                    r[Z::rXn + j];
+        if (w < nv) o.d[(q0 + w) * Z::nx + j] = v;
       }
     }
+    // the end of a stage group
   }
+
+  // the terminal groups: G members' rt and Jt
+  if (g < n_groups) {
+    auto load_terminal = [&](int gt) {
+#pragma unroll
+      for (int s = 0; s < kRecSlots; ++s) {
+        const int b = (gt - n_stage) * G + (rs[s] & 15);
+        rv[s] = b < B ? rec_load<S>(rs[s], X, U, P,
+                                    static_cast<long long>(b) * (ns + 1) + ns,
+                                    0, true)
+                      : T(0);
+      }
+    };
+    load_terminal(g);
+    for (; g < n_groups; g += gridDim.x) {
+      T* rec = recs[buf];
+      buf ^= 1;
+#pragma unroll
+      for (int s = 0; s < kRecSlots; ++s)
+        if (tid + s * kSlotThreads < G * Z::kRec) rec[tid + s * kSlotThreads] = rv[s];
+      __syncthreads();
+      if (g + static_cast<int>(gridDim.x) < n_groups) load_terminal(g + gridDim.x);
+      const long long b0 = static_cast<long long>(g - n_stage) * G;
+      const int nv = B - b0 < G ? static_cast<int>(B - b0) : G;
+      store_template<Z::kJt, Z::kJt * G / V, Z::kRotJt, Z::oJt, T, V>(
+          o.Jt + b0 * Z::kJt, tmpl, nv * Z::kJt, tid);
+#pragma unroll
+      for (int s = 0; s < slots(G * Z::nt); ++s) {
+        const int i = tid + s * kSlotThreads;   // rt a value a thread, row-major
+        const int g_ = i / G, w = i - g_ * G;
+        if (i < G * Z::nt) {
+          const T* r = rec + w * Z::kRec;
+          const T v = lip::tracking_row<S>(g_, r + Z::rX, r + Z::rP, T(1), k);
+          if (w < nv) o.rt[(b0 + w) * Z::nt + g_] = v;
+        }
+      }
+      // the end of a terminal group
+    }
+  }
+  // the block is done
 }
 
 int sm_count() {
@@ -282,83 +393,106 @@ int sm_count() {
   return count;
 }
 
+// The member-nodes a group at B·ns stage nodes: kVec<T>·kGroupUnits where
+// those groups fill every SM, else 1 (kernels/lip_linearize.py::group_nodes
+// states the same).
+template <typename T>
+constexpr int kGroupNodes = kVec<T> * kGroupUnits;
+
+template <typename T>
+int group_nodes(long long stage_nodes, int sms) {
+  return stage_nodes >= static_cast<long long>(kGroupNodes<T>) * sms
+             ? kGroupNodes<T>
+             : 1;
+}
+
+template <class S, typename T, int G>
+int launch_groups(const void* X, const void* U, const void* const* params,
+                  const void* table, const void* tmpl, int B, int ns,
+                  const double* scalars, const Out<T>& o, void* stream) {
+  const long long n_stage = (static_cast<long long>(B) * ns + G - 1) / G;
+  const long long n_groups = n_stage + (B + G - 1) / G;
+  const long long cap = static_cast<long long>(sm_count()) * kMinBlocks;
+  const unsigned grid = static_cast<unsigned>(n_groups < cap ? n_groups : cap);
+  lip_linearize_kernel<S, T, G><<<grid, kSlotThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const T*>(U),
+      lip::make_params<T>(params), static_cast<const int*>(table),
+      static_cast<const T*>(tmpl), B, ns, static_cast<int>(n_stage),
+      static_cast<int>(n_groups), lip::make_consts<T>(scalars), o);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* X, const void* U, const void* const* params,
-           const void* table, int B, int ns, int nc, int cm, int n_legs,
-           int n_rx, int n_ru, int n_gx, int n_gu, const double* scalars,
-           void* Sx, void* Bs, void* Jxp, void* Jup, void* rho, void* d,
-           void* rt, void* Jt, void* stream) {
+           const void* table, const void* tmpl, int B, int ns, int nc, int cm,
+           int n_legs, int n_rx, int n_ru, int n_gx, int n_gu,
+           const double* scalars, void* const* outs, void* stream) {
+  using S = lip::Shape;
   if (nc != S::nc || cm != S::cm || n_legs != S::n_legs || n_rx != S::n_rx ||
       n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
     return kUnknownShape;
   if (B == 0) return 0;
-  const long long stage_nodes = static_cast<long long>(B) * ns;
-  const long long n_stage = (stage_nodes + kNodes - 1) / kNodes;
-  const long long n_term = (B + kNodes - 1) / kNodes;
-  const long long n_groups = n_stage + n_term;
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  const unsigned grid = static_cast<unsigned>(n_groups < cap ? n_groups : cap);
-  const size_t bytes = smem_bytes<T>();
-  auto kernel = lip_linearize_kernel<T>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(X), static_cast<const T*>(U),
-      lip::make_params<T>(params), static_cast<const int*>(table), B, ns,
-      static_cast<int>(n_stage), static_cast<int>(n_groups),
-      lip::make_consts<T>(scalars), static_cast<T*>(Sx), static_cast<T*>(Bs),
-      static_cast<T*>(Jxp), static_cast<T*>(Jup), static_cast<T*>(rho),
-      static_cast<T*>(d), static_cast<T*>(rt), static_cast<T*>(Jt));
-  return static_cast<int>(cudaGetLastError());
+  const Out<T> o{static_cast<T*>(outs[0]), static_cast<T*>(outs[1]),
+                 static_cast<T*>(outs[2]), static_cast<T*>(outs[3]),
+                 static_cast<T*>(outs[4]), static_cast<T*>(outs[5]),
+                 static_cast<T*>(outs[6]), static_cast<T*>(outs[7])};
+  if (group_nodes<T>(static_cast<long long>(B) * ns, sm_count()) == 1)
+    return launch_groups<S, T, 1>(X, U, params, table, tmpl, B, ns, scalars,
+                                  o, stream);
+  return launch_groups<S, T, kGroupNodes<T>>(X, U, params, table, tmpl, B,
+                                             ns, scalars, o, stream);
 }
 
 }  // namespace
 
+// outs: Sx, Bs, Jxp, Jup, ρ, d, rt, Jt, each 16-byte aligned; tmpl the
+// template table (kernels/lip_linearize.py::templates), 16-byte aligned.
 #define LINEARIZE_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* X, const void* U,                           \
-                      const void* const* params, const void* table, int B,    \
-                      int ns, int nc, int cm, int n_legs, int n_rx, int n_ru, \
-                      int n_gx, int n_gu, const double* scalars, void* Sx,    \
-                      void* Bs, void* Jxp, void* Jup, void* rho, void* d,     \
-                      void* rt, void* Jt, void* stream) {                     \
-    return launch<T>(X, U, params, table, B, ns, nc, cm, n_legs, n_rx, n_ru,  \
-                     n_gx, n_gu, scalars, Sx, Bs, Jxp, Jup, rho, d, rt, Jt,   \
-                     stream);                                                 \
+                      const void* const* params, const void* table,           \
+                      const void* tmpl, int B, int ns, int nc, int cm,        \
+                      int n_legs, int n_rx, int n_ru, int n_gx, int n_gu,     \
+                      const double* scalars, void* const* outs,               \
+                      void* stream) {                                         \
+    return launch<T>(X, U, params, table, tmpl, B, ns, nc, cm, n_legs, n_rx,  \
+                     n_ru, n_gx, n_gu, scalars, outs, stream);                \
   }
 
 LINEARIZE_ENTRY(lip_linearize_f32, float)
 LINEARIZE_ENTRY(lip_linearize_f64, double)
 
-// K10's occupancy for float32 (f64 = 0) or float64 tensors into
+// K10's occupancy for float32 (f64 = 0) or float64 tensors, with groups
+// of one member-node (vec = 0) or of 16 bytes' worth (vec = 1), into
 // out[0..4]: blocks resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the grid takes at most
-// kBlocksPerSm of them an SM), warps a block, shared memory bytes a block,
+// kMinBlocks of them an SM), warps a block, shared memory bytes a block,
 // registers and local (spilled) bytes a thread.
-template <typename T>
+template <typename T, int G>
 int occupancy(int* out) {
-  const size_t bytes = smem_bytes<T>();
-  auto kernel = lip_linearize_kernel<T>;
-  cudaError_t e = cudaSuccess;
-  if (bytes > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads,
-                                                      bytes);
+  auto kernel = lip_linearize_kernel<lip::Shape, T, G>;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kSlotThreads, 0);
   cudaFuncAttributes attr{};
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  out[1] = kThreads / 32;
-  out[2] = static_cast<int>(bytes);
+  out[1] = kSlotThreads / 32;
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(e);
 }
 
-extern "C" int lip_linearize_occupancy(int f64, int* out) {
-  return f64 ? occupancy<double>(out) : occupancy<float>(out);
+extern "C" int lip_linearize_occupancy(int f64, int vec, int* out) {
+  if (f64)
+    return vec ? occupancy<double, kGroupNodes<double>>(out)
+               : occupancy<double, 1>(out);
+  return vec ? occupancy<float, kGroupNodes<float>>(out)
+             : occupancy<float, 1>(out);
+}
+
+// The members-nodes a group at B·ns stage nodes on the current card, for
+// float32 (f64 = 0) or float64 tensors.
+extern "C" int lip_linearize_group_nodes(int f64, long long stage_nodes) {
+  return f64 ? group_nodes<double>(stage_nodes, sm_count())
+             : group_nodes<float>(stage_nodes, sm_count());
 }

@@ -75,13 +75,20 @@
 // What bounds lip_evaluate: one member reads its plan and parameters,
 // ~1.2k values (4.7 KB in f32), and does ~0.3k FLOP a node; at B=512 that
 // is ~2.4 MB, 0.7 µs at 3.35 TB/s: the card's fill and one node's latency
-// set its time. Design as srbd_evaluate's: one block of seven warps a
-// member stages the member's x, u and parameter rows into a record a node
-// in shared memory with cp.async (neighbouring threads on neighbouring
-// elements, x and u first, node 0's x from x0 when it is given); warp w
-// evaluates nodes w, w+7, w+14 (its rows two a lane, its defects a row a
-// lane); one warp sums the stage nodes over its lanes, and the terminal
-// node last, as the twin adds the stage sum and the terminal sum.
+// set its time. Design: a warp a member and a thread a node, up to
+// kEvalMembers members a block (`eval_members`: as many as still give
+// every SM a block) and at least kEvalWarps warps (the rest stage only).
+// Neighbouring members' runs are contiguous, so a block stages six runs
+// (X, U, the four parameter tensors), each by one warp's bulk copy of its
+// 16-byte-aligned body and cp.async of its edges (`stage_run`, K11's), and
+// x0's rows by cp.async beside them; node 0 then takes x0's rows and the
+// pinned plan goes out from shared memory by 16-byte stores. Lane n
+// evaluates node n, its rows in order (`lip::stage_sq` / `terminal_sq`,
+// K11's one-thread functions) and its largest |defect|; lane 0 adds the
+// stage nodes in node order and the terminal node last, as K11 adds a
+// trial's, each node's sum by a shuffle. `eval_regions` states the shared
+// memory. The parent's warp a node (`lip::eval_stage`, still K13's) took
+// ~4× as long to evaluate a member.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -487,106 +494,180 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
 
 // ---- lip_evaluate ----
 
-constexpr int kEvalWarps = 7;                 // ns = 20: nodes w, w+7, w+14
-constexpr int kEvalThreads = 32 * kEvalWarps;
+constexpr int kEvalMembers = 8;    // members a block at most, a warp each
+constexpr int kEvalWarps = 4;      // warps a block at least (the rest stage)
 
-// One node's record in shared memory: x, u and the packed parameter row.
-struct EvalNode {
-  static constexpr int x = 0, u = nx, p = u + nu, size = p + L::pw;
+// The members a block at B members on `sms` SMs: the most, halving from
+// kEvalMembers, that still gives every SM a block (at least one).
+__host__ __device__ constexpr int eval_members(int B, int sms) {
+  int m = kEvalMembers;
+  while (m > 1 && (B + m - 1) / m < sms) m /= 2;
+  return m;
+}
+
+// The block's shared memory at ns stage nodes and `mb` members, tensors
+// of E bytes an element (kernels/lip_rollout.py::evaluate_smem_bytes
+// states the same), as byte offsets: the members' staged runs of X, U and
+// the four parameter tensors (each 16 bytes longer than the run: a run
+// lands at its source's offset within 16 bytes), x0's rows, the packed
+// parameter rows (a node's, packed by its thread), the barrier; and the
+// total.
+struct EvalRegions {
+  size_t X, U, mt, rd, cr, cs, x0, prm, bar, total;
 };
 
-// The records, then the node sums and maxima.
-template <typename T>
-size_t evaluate_smem_bytes(int ns) {
-  return sizeof(T) * ((ns + 1) * (EvalNode::size + 2));
+template <int E>
+__host__ __device__ constexpr EvalRegions eval_regions(int ns, int mb) {
+  EvalRegions r{};
+  const size_t m = static_cast<size_t>(mb), ns1 = static_cast<size_t>(ns) + 1;
+  r.X = 0;
+  r.U = r.X + round16(m * ns1 * nx * E + 16);
+  r.mt = r.U + round16(m * ns * nu * E + 16);
+  r.rd = r.mt + round16(m * ns1 * lip::param_dim<S>(0) * E + 16);
+  r.cr = r.rd + round16(m * ns1 * lip::param_dim<S>(1) * E + 16);
+  r.cs = r.cr + round16(m * ns1 * lip::param_dim<S>(2) * E + 16);
+  r.x0 = r.cs + round16(m * ns1 * lip::param_dim<S>(3) * E + 16);
+  r.prm = r.x0 + round16(m * nx * E);
+  r.bar = r.prm + round16(m * ns1 * kPw * E);
+  r.total = r.bar + 16;
+  return r;
 }
 
-// The block stages parameter tensors t … of the member's ns1 nodes (`row0`
-// is its first row, b·ns1).
-template <int t, typename T>
-__device__ __forceinline__ void stage_params(T* s, const lip::Params<T>& P,
-                                             size_t row0, int ns1, int tid) {
-  if constexpr (t < lip::kParams) {
-    constexpr int dim = lip::param_dim<S>(t);
-    cp_async_rows<T, dim, kEvalThreads>(s + EvalNode::p + lip::param_off<S>(t),
-                                        EvalNode::size, P.p[t] + row0 * dim,
-                                        0, ns1, tid);
-    stage_params<t + 1>(s, P, row0, ns1, tid);
-  }
-}
-static_assert(lip::param_off<S>(lip::kParams) == L::pw &&
-                  lip::param_off<S>(1) == lip::kP_rdot &&
-                  lip::param_off<S>(2) == lip::kP_cref,
-              "packed parameter row");
-
+// A block of `mb` members (a warp each; blockDim.x = 32·max(mb,
+// kEvalWarps), the warps past the members staging only; the last block may
+// hold fewer members): the members' runs of X, U and the parameter
+// tensors are contiguous, six runs a block, dealt to the warps, each
+// staged by one warp (`stage_run`: its 16-byte-aligned body by one bulk
+// copy, its edges by cp.async), x0's rows by cp.async beside them; node
+// 0's rows then take x0's, and the pinned plan goes out from shared memory
+// by 16-byte stores. Lane n of a member's warp evaluates node n
+// (`lip::stage_sq` / `lip::terminal_sq`, the rows in order; the node's
+// largest |defect| by `nan_max`), and lane 0 adds the stage nodes in node
+// order and the terminal node last, each node's sums by a shuffle.
 template <typename T>
-__global__ void __launch_bounds__(kEvalThreads)
+__global__ void __launch_bounds__(32 * kEvalMembers)
 lip_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
                     const T* __restrict__ x0, int x0_stride,
-                    lip::Params<T> P, int ns, lip::Consts<T> k,
-                    T* __restrict__ cost_out, T* __restrict__ dmax_out,
-                    T* __restrict__ Xpin) {
-  using EN = EvalNode;
+                    lip::Params<T> P, int B, int ns, int mb,
+                    lip::Consts<T> k, T* __restrict__ cost_out,
+                    T* __restrict__ dmax_out, T* __restrict__ Xpin) {
+  constexpr int E = sizeof(T), nc = S::nc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int ns1 = ns + 1;
-  T* node_cost = s + ns1 * EN::size;
-  T* node_dmax = node_cost + ns1;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t b = blockIdx.x;
-  const size_t row0 = b * ns1;
-  int from = 0;
-  if (x0 != nullptr) {
-    cp_async_rows<T, nx, kEvalThreads>(s + EN::x, EN::size,
-                                       x0 + b * x0_stride, 0, 1, tid);
-    from = 1;
+  const int ns1 = ns + 1, nw = blockDim.x / 32;
+  const int b0 = blockIdx.x * mb;
+  const int nm = B - b0 < mb ? B - b0 : mb;
+  const EvalRegions r = eval_regions<E>(ns, mb);
+  auto* bar = reinterpret_cast<unsigned long long*>(smem_raw + r.bar);
+  // the block's runs in device memory
+  const size_t row0 = static_cast<size_t>(b0) * ns1;
+  const T* gX = X + row0 * nx;
+  const T* gU = U + static_cast<size_t>(b0) * ns * nu;
+  const T* gmt = P.p[0] + row0;
+  const T* grd = P.p[1] + row0 * 3;
+  const T* gcr = P.p[2] + row0 * nc;
+  const T* gcs = P.p[3] + row0 * nc;
+  const size_t nX = static_cast<size_t>(nm) * ns1 * nx,
+               nU = static_cast<size_t>(nm) * ns * nu,
+               n1 = static_cast<size_t>(nm) * ns1;
+  T* sX = reinterpret_cast<T*>(smem_raw + r.X);
+  T* sU = reinterpret_cast<T*>(smem_raw + r.U);
+  T* smt = reinterpret_cast<T*>(smem_raw + r.mt);
+  T* srd = reinterpret_cast<T*>(smem_raw + r.rd);
+  T* scr = reinterpret_cast<T*>(smem_raw + r.cr);
+  T* scs = reinterpret_cast<T*>(smem_raw + r.cs);
+  T* sx0 = reinterpret_cast<T*>(smem_raw + r.x0);
+  const int tid = threadIdx.x, m = tid / 32, n = tid % 32;
+  if (tid == 0) {
+    mbarrier_init(bar, 1);
+    fence_mbarrier_init();
+    mbarrier_expect_tx(bar, body_bytes(gX, nX) + body_bytes(gU, nU) +
+                                body_bytes(gmt, n1) + body_bytes(grd, n1 * 3) +
+                                body_bytes(gcr, n1 * nc) +
+                                body_bytes(gcs, n1 * nc));
   }
-  cp_async_rows<T, nx, kEvalThreads>(s + EN::x, EN::size, X + row0 * nx,
-                                     from, ns1, tid);
-  cp_async_rows<T, nu, kEvalThreads>(s + EN::u, EN::size, U + b * ns * nu, 0,
-                                     ns, tid);
-  cp_async_commit();
-  stage_params<0>(s, P, row0, ns1, tid);
-  cp_async_commit();
-  cp_async_wait_group<1>();                        // x and u are in
   __syncthreads();
-  if (Xpin != nullptr) {                           // the pinned plan, as staged
-    T* out = Xpin + row0 * nx;
-    for (int i = tid; i < ns1 * nx; i += kEvalThreads) {
-      const int n = i / nx;
-      out[i] = s[n * EN::size + EN::x + (i - n * nx)];
+  // run i on warp i % nw
+  if (m == 0) stage_run(sX, gX, nX, bar, n);
+  if (m == 1 % nw) stage_run(sU, gU, nU, bar, n);
+  if (m == 2 % nw) stage_run(smt, gmt, n1, bar, n);
+  if (m == 3 % nw) stage_run(srd, grd, n1 * 3, bar, n);
+  if (m == 4 % nw) stage_run(scr, gcr, n1 * nc, bar, n);
+  if (m == 5 % nw) stage_run(scs, gcs, n1 * nc, bar, n);
+  if (x0 != nullptr)
+    for (int i = tid; i < nm * nx; i += blockDim.x) {
+      const int q = i / nx;
+      cp_async<E>(sx0 + i, x0 + static_cast<size_t>(b0 + q) * x0_stride +
+                               (i - q * nx));
+    }
+  cp_async_wait_all();
+  __syncthreads();                                 // the edges and x0's rows
+  mbarrier_wait(bar, 0);                           // the bodies
+  T* lX = landed(sX, gX);
+  if (x0 != nullptr) {                             // node 0 takes x0
+    for (int i = tid; i < nm * nx; i += blockDim.x) {
+      const int q = i / nx;
+      lX[static_cast<size_t>(q) * ns1 * nx + (i - q * nx)] = sx0[i];
+    }
+    __syncthreads();
+  }
+  // the pinned plan, with wide stores
+  if (Xpin != nullptr) {
+    constexpr int V = 16 / E;
+    T* dst = Xpin + row0 * nx;
+    const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
+    const int head = d % 16 == reinterpret_cast<uintptr_t>(gX) % 16
+                         ? static_cast<int>((16 - d % 16) % 16) / E
+                         : static_cast<int>(nX);
+    const int h = head < static_cast<int>(nX) ? head : static_cast<int>(nX);
+    const int body = (static_cast<int>(nX) - h) / V;
+    for (int i = tid; i < body; i += blockDim.x)
+      reinterpret_cast<lip::Unit<T, V>*>(dst + h)[i] =
+          reinterpret_cast<const lip::Unit<T, V>*>(lX + h)[i];
+    for (int i = tid; i < static_cast<int>(nX) - body * V; i += blockDim.x) {
+      const int e = i < h ? i : h + body * V + (i - h);
+      dst[e] = lX[e];
     }
   }
-  cp_async_wait_group<0>();                        // the parameter rows too
-  __syncthreads();
-  for (int n = warp; n < ns1; n += kEvalWarps) {
-    const T* rec = s + n * EN::size;
-    const T* x = rec + EN::x;
-    T acc, dm = T(0);
-    if (n < ns) {                                  // warp-uniform
-      T step;
-      acc = lip::eval_stage<S>(lane, x, rec + EN::u, rec + EN::p, k, &step);
-      if (lane < nx) dm = lip::abs_nan(step - s[(n + 1) * EN::size + EN::x + lane]);
+  // a node a thread
+  T c = T(0), dm = T(0);
+  if (m < nm && n <= ns) {
+    const int row = m * ns1 + n;
+    const T* lmt = landed(smt, gmt);
+    const T* lrd = landed(srd, grd);
+    const T* lcr = landed(scr, gcr);
+    const T* lcs = landed(scs, gcs);
+    T* p = reinterpret_cast<T*>(smem_raw + r.prm) + row * kPw;
+    p[lip::kP_mt] = lmt[row];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p[lip::kP_rdot + i] = lrd[row * 3 + i];
+#pragma unroll
+    for (int i = 0; i < nc; ++i) {
+      p[lip::kP_cref + i] = lcr[row * nc + i];
+      p[lip::Param<S>::cs + i] = lcs[row * nc + i];
+    }
+    const T* x = lX + static_cast<size_t>(row) * nx;
+    if (n < ns) {
+      const T* u = landed(sU, gU) + static_cast<size_t>(m * ns + n) * nu;
+      c = lip::stage_sq<S>(x, u, p, k);
+#pragma unroll
+      for (int j = 0; j < nx; ++j) {
+        const T step = x[j] + k.dt * lip::xdot_row<S>(j, x, u, k);
+        dm = lip::nan_max(dm, lip::abs_nan(step - x[nx + j]));
+      }
     } else {
-      acc = lip::eval_terminal<S>(lane, x, rec + EN::p, k);
-    }
-    acc = lip::warp_sum(acc);
-    dm = lip::warp_nan_max(dm);
-    if (lane == 0) {
-      node_cost[n] = acc;
-      node_dmax[n] = dm;
+      c = lip::terminal_sq<S>(x, p, k);
     }
   }
-  __syncthreads();
-  if (warp == 0) {   // the stage nodes over the lanes, then the terminal node
-    T c = lane < ns ? node_cost[lane] : T(0);
-    T m = lane < ns ? node_dmax[lane] : T(0);
-    c = lip::warp_sum(c);
-    m = lip::warp_nan_max(m);
-    if (lane == 0) {
-      cost_out[b] = c + node_cost[ns];
-      dmax_out[b] = m;
-    }
+  // the member's sums, one thread
+  T sum = T(0), dmax = T(0);
+  for (int i = 0; i < ns; ++i) {          // every lane shuffles, lane 0 keeps
+    sum += __shfl_sync(0xffffffffu, c, i);
+    dmax = lip::nan_max(dmax, __shfl_sync(0xffffffffu, dm, i));
+  }
+  const T terminal = __shfl_sync(0xffffffffu, c, ns);
+  if (m < nm && n == 0) {
+    cost_out[b0 + m] = sum + terminal;
+    dmax_out[b0 + m] = dmax;
   }
 }
 
@@ -638,6 +719,18 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
 template <typename T>
 int launch_evaluate(const void* X, const void* U, const void* x0,
                     int x0_stride, const void* const* params, int B, int ns,
@@ -646,32 +739,36 @@ int launch_evaluate(const void* X, const void* U, const void* x0,
   if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
+  const int mb = eval_members(B, sm_count());
+  const int warps = mb > kEvalWarps ? mb : kEvalWarps;
+  const size_t bytes = eval_regions<sizeof(T)>(ns, mb).total;
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = lip_evaluate_kernel<T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<B, kEvalThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(B + mb - 1) / mb, 32 * warps, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<const T*>(U),
-      static_cast<const T*>(x0), x0_stride, lip::make_params<T>(params), ns,
-      lip::make_consts<T>(scalars), static_cast<T*>(cost),
+      static_cast<const T*>(x0), x0_stride, lip::make_params<T>(params), B,
+      ns, mb, lip::make_consts<T>(scalars), static_cast<T*>(cost),
       static_cast<T*>(dmax), static_cast<T*>(Xpin));
   return static_cast<int>(cudaGetLastError());
 }
 
-// lip_evaluate's occupancy at ns stage nodes, into out[0..4]: blocks
-// resident on one SM, warps a block, shared memory bytes a block,
-// registers a thread and local (spilled) bytes a thread.
+// lip_evaluate's occupancy at ns stage nodes with `mb` members a block,
+// into out[0..4]: blocks resident on one SM, warps a block, shared memory
+// bytes a block, registers a thread and local (spilled) bytes a thread.
 template <typename T>
-int evaluate_occupancy(int ns, int* out) {
-  const size_t bytes = evaluate_smem_bytes<T>(ns);
+int evaluate_occupancy(int ns, int mb, int* out) {
+  const size_t bytes = eval_regions<sizeof(T)>(ns, mb).total;
   auto kernel = lip_evaluate_kernel<T>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
-                                                      kEvalThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, 32 * (mb > kEvalWarps ? mb : kEvalWarps), bytes);
   cudaFuncAttributes attr{};
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  out[1] = kEvalWarps;
+  out[1] = mb > kEvalWarps ? mb : kEvalWarps;
   out[2] = static_cast<int>(bytes);
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
@@ -741,10 +838,16 @@ EVALUATE_ENTRY(lip_evaluate_f32, float)
 EVALUATE_ENTRY(lip_evaluate_f64, double)
 
 // lip_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at ns
-// stage nodes (see evaluate_occupancy above).
+// stage nodes with the block of B=4096's launch, kEvalMembers members (see
+// evaluate_occupancy above).
 extern "C" int lip_evaluate_occupancy(int f64, int ns, int* out) {
-  return f64 ? evaluate_occupancy<double>(ns, out)
-             : evaluate_occupancy<float>(ns, out);
+  return f64 ? evaluate_occupancy<double>(ns, kEvalMembers, out)
+             : evaluate_occupancy<float>(ns, kEvalMembers, out);
+}
+
+// The members a lip_evaluate block takes at B members on the current card.
+extern "C" int lip_evaluate_members(int B) {
+  return eval_members(B, sm_count());
 }
 
 // K11's occupancy for float32 (f64 = 0) or float64 tensors at ns stage

@@ -155,6 +155,61 @@ def check_tensors(items, dtype, device):
             check_tensor(name, t, shape, dtype, device)
 
 
+OUT_ALIGN = 16                # bytes: where each output starts in its buffer
+
+
+def layout_of(shapes, dtype):
+    """Where outputs of `shapes` ((slot, shape), …) lie in one buffer of
+    `dtype`: ((slot, shape, stride, element offset), …) in that order,
+    each starting OUT_ALIGN bytes apart from the buffer's start, and the
+    buffer's elements."""
+    import torch
+
+    step = OUT_ALIGN // (torch.finfo(dtype).bits // 8)
+    views, off = [], 0
+    for slot, shape in shapes:
+        stride, n = [], 1
+        for d in reversed(shape):
+            stride.insert(0, n)
+            n *= d
+        views.append((slot, tuple(shape), tuple(stride), off))
+        off += -(-n // step) * step
+    return tuple(views), off
+
+
+def output_views(layout, total: int, dtype, device):
+    """One `torch.empty` of `total` elements cut into the contiguous views
+    of `layout` (`layout_of`): (the buffer, the views)."""
+    import torch
+
+    buf = torch.empty(total, dtype=dtype, device=device)
+    return buf, [buf.as_strided(shape, stride, off)
+                 for _, shape, stride, off in layout]
+
+
+def out_slots(layout, dtype):
+    """(slot, byte offset) of each view of a `layout_of` layout."""
+    import torch
+
+    e = torch.finfo(dtype).bits // 8
+    return tuple((slot, off * e) for slot, _, _, off in layout)
+
+
+def launch(name, fn, dev, *args):
+    """Call the C entry `fn` on `args` and the current raw stream of `dev`
+    (under a device context only where `dev` is not the current device);
+    raise RuntimeError on a failed launch."""
+    import torch
+
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+
+
 def host_setup(terms, key: tuple, make: Callable[[], Any]):
     """`make()`, computed once for each (terms, *key): the host work of a
     wrapper that does not change between its calls, such as its shape

@@ -57,11 +57,16 @@ import torch
 
 from srbd_horizon_tpu_torch.kernels.build import (
     EVALUATE_OCCUPANCY_FIELDS,
+    OUT_ALIGN,
     check_tensor,
     check_tensors,
     host_setup,
+    launch as _launch,
+    layout_of,
     library,
     occupancy_query,
+    out_slots as _out_slots,
+    output_views,
 )
 from srbd_horizon_tpu_torch.kernels.isrbd_linearize import (
     check_kernel_shape,
@@ -428,7 +433,6 @@ INPUTS = ("X", "U", "c_ref", "mask_srbd", "mask_lip", "mask_lipzone", "x_lb",
           "x_ub", "u_lb", "u_ub", "lam_eq", "lam_eq_T", "rho", "viol",
           "mu_ub", "mu_lb", "mu_x_ub", "mu_x_lb", "mu_u_ub", "mu_u_lb")
 BOUNDS = ("x_lb", "x_ub", "u_lb", "u_ub")
-OUT_ALIGN = 16                # bytes: where each output starts in its buffer
 
 
 def reads(i: int, mode: int) -> bool:
@@ -487,21 +491,6 @@ def output_shapes(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int):
                   (12, (Bsz,)))
 
 
-def layout_of(shapes, dtype):
-    """Where outputs of `shapes` ((slot, shape), …) lie in one buffer of
-    `dtype`: ((slot, shape, stride, element offset), …) in that order,
-    each starting OUT_ALIGN bytes apart from the buffer's start, and the
-    buffer's elements."""
-    step = OUT_ALIGN // (torch.finfo(dtype).bits // 8)
-    views, off = [], 0
-    for slot, shape in shapes:
-        stride, n = [], 1
-        for d in reversed(shape):
-            stride.insert(0, n)
-            n *= d
-        views.append((slot, tuple(shape), tuple(stride), off))
-        off += -(-n // step) * step
-    return tuple(views), off
 
 
 def output_layout(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int,
@@ -511,12 +500,6 @@ def output_layout(mode: int, Bsz: int, ns: int, terms, nx: int, nu: int,
     return layout_of(output_shapes(mode, Bsz, ns, terms, nx, nu), dtype)
 
 
-def output_views(layout, total: int, dtype, device):
-    """One `torch.empty` of `total` elements cut into the contiguous views
-    of `layout` (`output_layout`): (the buffer, the views)."""
-    buf = torch.empty(total, dtype=dtype, device=device)
-    return buf, [buf.as_strided(shape, stride, off)
-                 for _, shape, stride, off in layout]
 
 
 def state_shapes(Bsz: int, ns: int, terms, nx: int, nu: int) -> dict:
@@ -530,10 +513,6 @@ def state_shapes(Bsz: int, ns: int, terms, nx: int, nu: int) -> dict:
                 mu_u_lb=(Bsz, ns, nu), rho=(Bsz,), viol=(Bsz,))
 
 
-def _out_slots(layout, dtype):
-    """(slot, byte offset) of each view of a `layout_of` layout."""
-    e = torch.finfo(dtype).bits // 8
-    return tuple((slot, off * e) for slot, _, _, off in layout)
 
 
 class _ConstraintsSetup:
@@ -622,17 +601,6 @@ def _constraints_checked(al, X, U, params, st, offline):
     return s, mode, ins, strides
 
 
-def _launch(name, fn, dev, *args):
-    """Call the C entry `fn` on `args` and the current raw stream of `dev`
-    (under a device context only where `dev` is not the current device);
-    raise RuntimeError on a failed launch."""
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
 
 
 def _constraints_launch(s, mode, ins, strides, out_base, Bsz, ns, dev):

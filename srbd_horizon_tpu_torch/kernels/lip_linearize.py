@@ -23,7 +23,13 @@ rows are live at node 0 too: zmp and r̈, c̈ are never masked).
 
 What bounds the kernel on an H100: bytes — a member-node writes 2,069
 values (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44, d 30) and reads 87, and
-computes almost nothing (the note in the .cu gives the design).
+computes almost nothing (the note in the .cu gives the design: groups of
+one member-node at small B, of 16 bytes' worth at fleet sizes, the
+Jacobian templates formed once here by `templates` and kept on the
+device, `schedule` its launch). A call's host work: the shape check and a
+`_Setup` (entry, scalars, row and template tables, output layout, pointer
+arrays) made once a size through `host_setup`, one `check_tensors` pass,
+one buffer cut into the outputs (`build.output_views`), the raw stream.
 
 K10, K11 and lip_evaluate are compiled for one set of LIP sizes
 (`lip::Shape` in csrc/lip_common.cuh, `KERNEL_SHAPE` here); their wrappers
@@ -35,9 +41,19 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from srbd_horizon_tpu_torch.kernels.build import check_tensor, host_setup, library
+from srbd_horizon_tpu_torch.kernels.build import (
+    check_tensor,
+    check_tensors,
+    host_setup,
+    launch,
+    layout_of,
+    library,
+    out_slots,
+    output_views,
+)
 from srbd_horizon_tpu_torch.problems.lip import N_TERMINAL
 
 # the function K10 replaces (jacfwd under vmap, XLA-fused; the JAX package
@@ -193,13 +209,154 @@ def lip_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+NAME = "lip_linearize"
+
+# K10's block (the .cu's kSlotThreads, kMinBlocks, kGroupUnits): 512
+# threads, the grid at most two blocks an SM, a fleet's group
+# GROUP_UNITS · vec_nodes member-nodes
+THREADS = 512
+MIN_BLOCKS = 2
+GROUP_UNITS = 1
+# the outputs, in the kernel's and the returned dict's order
+FIELDS = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "rt", "Jt")
+# the per-node templates of the table, in its order (the .cu's K10<S>)
+TEMPLATES = ("Sx", "Bs", "Jxp", "Jup", "Jt")
 
 
-def _setup(terms, nx: int, nu: int, rows, dt: float, wc: float):
-    """What lip_linearize checks and builds once for (terms, dtype): the
-    sizes, and the scalars as a ctypes array."""
-    check_kernel_shape("lip_linearize", terms, nx, nu, rows)
-    return (ctypes.c_double * N_SCALARS)(*terms.kernel_scalars(dt, wc))
+def vec_nodes(dtype) -> int:
+    """Member-nodes a 16-byte group (the .cu's kVec<T>): 4 in float32, 2
+    in float64."""
+    return 16 // (torch.finfo(dtype).bits // 8)
+
+
+def group_nodes(Bsz: int, ns: int, dtype, sms: int) -> int:
+    """Member-nodes a K10 group at B members (the .cu's `group_nodes`):
+    GROUP_UNITS · `vec_nodes` where those groups fill every one of `sms`
+    SMs, else 1."""
+    v = GROUP_UNITS * vec_nodes(dtype)
+    return v if Bsz * ns >= v * sms else 1
+
+
+def schedule(Bsz: int, ns: int, dtype, sms: int):
+    """K10's launch at B members on `sms` SMs: (member-nodes a group G,
+    stage groups, all groups, blocks), as the .cu's `launch_groups` sets
+    them."""
+    v = group_nodes(Bsz, ns, dtype, sms)
+    n_stage = -(-Bsz * ns // v)
+    n_groups = n_stage + -(-Bsz // v)
+    return v, n_stage, n_groups, min(n_groups, sms * MIN_BLOCKS)
+
+
+def output_shapes(Bsz: int, ns: int, sizes: dict):
+    """K10's outputs ((slot, shape), …) in `FIELDS` order; `sizes` holds
+    nx, nu, n_rho and the row counts (`KERNEL_SHAPE`)."""
+    z = sizes
+    nx, nu = z["nx"], z["nu"]
+    return tuple(enumerate((
+        (Bsz, ns, z["n_rx"], nx), (Bsz, ns, z["n_ru"], nu),
+        (Bsz, ns, z["n_gx"], nx), (Bsz, ns, z["n_gu"], nu),
+        (Bsz, ns, z["n_rho"]), (Bsz, ns, nx), (Bsz, N_TERMINAL),
+        (Bsz, N_TERMINAL, nx))))
+
+
+def template_entries(terms, rows, dt: float, wc: float, dtype) -> dict:
+    """The Jacobian templates K10 stores, formed on the host in the working
+    type by the .cu's entry formulas (each product and quotient rounded as
+    the device rounds it), from the row table: Sx = dt·(∂ẋ/∂x)[rx], Bs =
+    dt·(∂ẋ/∂u)[ru], Jxp = (∂ρ/∂x)[gx] before its rows' scales (the tracking
+    mask and cdot_switch taken as 1), Jup = (∂ρ/∂u)[gu], Jt = ∂rt/∂x; each a
+    (rows, cols) numpy array."""
+    T = np.float32 if dtype == torch.float32 else np.float64
+    nc, cm, legs = terms.nc, terms.contact_model, terms.number_of_legs
+    nx, nu = 6 + 6 * nc, 3 + 3 * nc
+    i_c, i_rdot, i_cdot = 3, 3 + 3 * nc, 6 + 3 * nc
+    n_res, n_rv = 16 + 3 * nc, 2 * legs * (cm - 1)
+    (dt_, eta2, w_r, w_rdot, w_zmp, w_rel, w_qddot, wc_) = (
+        T(v) for v in terms.kernel_scalars(dt, wc)[:8])
+    zero, tnc = T(0), T(nc)
+
+    def centroid_col(c, a):
+        return i_c <= c < i_rdot and (c - i_c) % 3 == a
+
+    def sx(r, c):
+        if r < 3:
+            return dt_ if c == i_rdot + r else zero
+        if r < i_rdot:
+            return dt_ if c == i_cdot + r - 3 else zero
+        if r < i_cdot:
+            return dt_ * eta2 if c == r - i_rdot else zero
+        return zero
+
+    def bs(r, c):
+        if i_rdot <= r < i_cdot:
+            return dt_ * (-eta2) if c == r - i_rdot else zero
+        if r >= i_cdot:
+            return dt_ if c == 3 + r - i_cdot else zero
+        return zero
+
+    def tracking(g, c):
+        if g == 0:
+            return w_r if c == 2 else zero
+        if g < 3:
+            if c == g - 1:
+                return w_r
+            return -w_r / tnc if centroid_col(c, g - 1) else zero
+        if g < 6:
+            return w_rdot if c == i_rdot + g - 3 else zero
+        ax = 1 if (g - 6) % 2 == 0 else 0
+        a = (0 if g - 6 < 2 else 3 * (cm - 1)) + ax
+        b = (3 * cm if g - 6 < 2 else 3 * (nc - 1)) + ax
+        if c == i_c + a:
+            return -w_rel
+        return w_rel if c == i_c + b else zero
+
+    def jxp(r, c):
+        if r < 6 or 9 <= r < 13:
+            return tracking(r if r < 6 else r - 3, c)
+        if r < 9:
+            return -w_zmp / tnc if centroid_col(c, r - 6) else zero
+        if r < 16:
+            return w_qddot * eta2 if c == r - 13 else zero
+        if r < n_res:
+            return zero
+        q = r - n_res
+        per = 2 * (cm - 1)
+        if q < n_rv:
+            base, rem = (q // per) * cm, q % per
+            i, ax = rem // 2 + 1, rem % 2
+            if c == i_cdot + 3 * base + ax:
+                return wc_
+            return -wc_ if c == i_cdot + 3 * (base + i) + ax else zero
+        q -= n_rv
+        if q < nc:
+            return wc_ if c == i_c + 3 * q + 2 else zero
+        q -= nc
+        return wc_ if c == i_cdot + 3 * (q // 2) + q % 2 else zero
+
+    def jup(r, c):
+        if 6 <= r < 9:
+            return w_zmp if c == r - 6 else zero
+        if 13 <= r < 16:
+            return -(w_qddot * eta2) if c == r - 13 else zero
+        if 16 <= r < n_res:
+            return w_qddot if c == 3 + r - 16 else zero
+        return zero
+
+    def table(f, rs, ncol):
+        return np.array([[f(r, c) for c in range(ncol)] for r in rs], dtype=T)
+
+    return dict(Sx=table(sx, rows.rx, nx), Bs=table(bs, rows.ru, nu),
+                Jxp=table(jxp, rows.gx, nx), Jup=table(jup, rows.gu, nu),
+                Jt=table(tracking, range(N_TERMINAL), nx))
+
+
+def templates(terms, rows, dt: float, wc: float, dtype) -> np.ndarray:
+    """K10's template table: `template_entries` in `TEMPLATES` order, each
+    flattened and repeated `vec_nodes(dtype)` times (a 16-byte group's unit
+    u is then entries [u·V, u·V + V) of its field's run)."""
+    e = template_entries(terms, rows, dt, wc, dtype)
+    return np.concatenate([np.tile(e[k].ravel(), vec_nodes(dtype))
+                           for k in TEMPLATES])
 
 
 _kernel_fns = {}
@@ -208,26 +365,63 @@ _kernel_fns = {}
 def _kernel_fn(dtype):
     fn = _kernel_fns.get(dtype)
     if fn is None:
-        lib = library("lip_linearize")
+        lib = library(NAME)
         fn = (lib.lip_linearize_f32 if dtype == torch.float32
               else lib.lip_linearize_f64)
-        fn.argtypes = [_P] * 4 + [_I] * 9 + [_P] * 10
+        fn.argtypes = [_P] * 5 + [_I] * 9 + [_P] * 3
         fn.restype = _I
         _kernel_fns[dtype] = fn
     return fn
 
 
-def occupancy(dtype=torch.float32):
-    """K10's occupancy on the current card for tensors of `dtype`: blocks
-    resident on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`;
-    its grid takes at most four an SM), warps and shared memory bytes a
-    block, registers and local (spilled) bytes a thread."""
-    fn = library("lip_linearize").lip_linearize_occupancy
+class _Setup:
+    """K10's host work for one (terms, rows, device, dtype, B, ns, dt, wc):
+    the entry with its argtypes, the scalars, the row table and the
+    template table on the device, the output layout, the tensors' shapes
+    and the pointer arrays a call fills in place."""
+
+    def __init__(self, terms, rows, dev, dtype, Bsz, ns, nx, nu, dt, wc):
+        self.rows = rows                 # held: the key holds its id
+        self.fn = _kernel_fn(dtype)
+        self.scalars = (ctypes.c_double * N_SCALARS)(
+            *terms.kernel_scalars(dt, wc))
+        self.table = rows.packed(dev)
+        self.tmpl = torch.as_tensor(templates(terms, rows, dt, wc, dtype),
+                                    device=dev)
+        sizes = kernel_sizes(terms, nx, nu, rows)
+        self.layout, self.total = layout_of(output_shapes(Bsz, ns, sizes),
+                                            dtype)
+        self.out_slots = out_slots(self.layout, dtype)
+        nc = terms.nc
+        self.shapes = ((Bsz, ns + 1, nx), (Bsz, ns, nu)) + tuple(
+            (Bsz, ns + 1, d) for d in (1, 3, nc, nc))
+        self.args = (self.table.data_ptr(), self.tmpl.data_ptr(), Bsz, ns,
+                     nc, terms.contact_model, terms.number_of_legs,
+                     sizes["n_rx"], sizes["n_ru"], sizes["n_gx"],
+                     sizes["n_gu"], self.scalars)
+        self.params = (_P * len(PARAM_KEYS))()
+        self.outs = (_P * len(FIELDS))()
+
+
+def setup(terms, rows, dev, dtype, Bsz, ns, nx, nu, dt, wc):
+    """K10's `_Setup` for these sizes, made once (`host_setup`)."""
+    return host_setup(terms, (NAME, id(rows), dev, dtype, Bsz, ns, dt, wc),
+                      lambda: _Setup(terms, rows, dev, dtype, Bsz, ns, nx,
+                                     nu, dt, wc))
+
+
+def occupancy(dtype=torch.float32, vec: bool = True):
+    """K10's occupancy on the current card for tensors of `dtype`, with
+    16-byte groups (`vec`, the fleet's launch) or groups of one member-node:
+    blocks resident on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`;
+    its grid takes at most `MIN_BLOCKS` an SM), warps and shared memory
+    bytes a block, registers and local (spilled) bytes a thread."""
+    fn = library(NAME).lip_linearize_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, ctypes.POINTER(_I)]
         fn.restype = _I
     out = (_I * 5)()
-    err = fn(int(dtype == torch.float64), out)
+    err = fn(int(dtype == torch.float64), int(vec), out)
     if err != 0:
         raise RuntimeError(f"lip_linearize occupancy query failed: error {err}")
     return dict(blocks_per_sm=out[0], warps_per_block=out[1],
@@ -239,46 +433,42 @@ def lip_linearize(X, U, params, terms, rows, dt: float, wc: float):
     """K10. Same contract as `lip_linearize_plain`; launches the CUDA
     kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
     launch in `lip_linearize.launches`), raises ValueError for other
-    sizes."""
+    sizes. A call's outputs are views of one buffer (`output_shapes`, each
+    16-byte aligned)."""
     if X.device.type == "cpu":
         return lip_linearize_plain(X, U, params, terms, rows, dt, wc)
-    Bsz, ns1, nx = X.shape
-    ns, nc, nu = ns1 - 1, terms.nc, U.shape[-1]
+    nx, nu = X.shape[-1], U.shape[-1]
     dtype, dev = X.dtype, X.device
-    n_rows = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu))
-    scalars = host_setup(terms, ("lip_linearize", dtype, nx, nu, n_rows, dt,
-                                 wc),
-                         lambda: _setup(terms, nx, nu, rows, dt, wc))
+    host_setup(terms, (NAME, id(rows), nx, nu),       # sizes first, then device
+               lambda: (check_kernel_shape(NAME, terms, nx, nu, rows), rows))
     if dev.type != "cuda":
         raise ValueError(f"lip_linearize runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"lip_linearize takes float32 or float64, got {dtype}")
-    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
-    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
-    pt = kernel_params(params, Bsz, ns, nc, dtype, dev)
-    n_rx, n_ru, n_gx, n_gu = n_rows
-    nr = terms.n_rho
-    new = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
-    out = dict(Sx=new(Bsz, ns, n_rx, nx), Bs=new(Bsz, ns, n_ru, nu),
-               Jxp=new(Bsz, ns, n_gx, nx), Jup=new(Bsz, ns, n_gu, nu),
-               rho=new(Bsz, ns, nr), d=new(Bsz, ns, nx),
-               rt=new(Bsz, N_TERMINAL), Jt=new(Bsz, N_TERMINAL, nx))
-    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            X.data_ptr(), U.data_ptr(), ptrs, rows.packed(dev).data_ptr(),
-            Bsz, ns, nc, terms.contact_model, terms.number_of_legs,
-            n_rx, n_ru, n_gx, n_gu, scalars,
-            *(out[k].data_ptr() for k in ("Sx", "Bs", "Jxp", "Jup", "rho",
-                                           "d", "rt", "Jt")),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lip_linearize kernel failed: CUDA error {err}")
+    out = _launched(X, U, params, terms, rows, dt, wc)
     lip_linearize.launches += 1
     return out
+
+
+def _launched(X, U, params, terms, rows, dt, wc):
+    """K10's launch on X's device, past the shape and device checks: the
+    setup, one check of the tensors, the outputs cut from one buffer."""
+    Bsz, ns1, nx = X.shape
+    ns, nu = ns1 - 1, U.shape[-1]
+    dtype, dev = X.dtype, X.device
+    s = setup(terms, rows, dev, dtype, Bsz, ns, nx, nu, dt, wc)
+    pt = [params[k] for k in PARAM_KEYS]
+    check_tensors(zip(("X", "U") + PARAM_KEYS, [X, U] + pt, s.shapes),
+                  dtype, dev)
+    for i, t in enumerate(pt):
+        s.params[i] = t.data_ptr()
+    buf, views = output_views(s.layout, s.total, dtype, dev)
+    base = buf.data_ptr()
+    for slot, off in s.out_slots:
+        s.outs[slot] = base + off
+    launch(NAME, s.fn, dev, X.data_ptr(), U.data_ptr(), s.params, *s.args,
+           s.outs)
+    return dict(zip(FIELDS, views))
 
 
 lip_linearize.launches = 0

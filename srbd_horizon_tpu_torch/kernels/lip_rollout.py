@@ -34,7 +34,11 @@ package's solve computes with `jax.vmap(total_cost)` and
 `jax.vmap(_true_defects)` (msddp.py:1221-1240, :1484). Given x0 (B, nx),
 it evaluates the plan with node 0 pinned to x0 and returns that plan as a
 third output, written by the same launch. Its plain twin
-`lip_evaluate_plain` is `LIPTerms.total_cost` and the Euler step.
+`lip_evaluate_plain` is `LIPTerms.total_cost` and the Euler step. The
+kernel takes a warp a member and a thread a node, `eval_members(B)`
+members a block; `evaluate_smem_bytes` states its shared memory. Its
+wrapper's host work is K10's: a setup a size (`_EvalSetup`), one check
+pass, one buffer cut into the outputs, the raw stream.
 
 Both run on the sizes `lip_linearize.KERNEL_SHAPE` on CUDA tensors and
 raise ValueError for others; CPU tensors take the twins at any size.
@@ -49,13 +53,19 @@ import torch
 
 from srbd_horizon_tpu_torch.kernels.build import (
     check_tensor,
+    check_tensors,
     evaluate_occupancy as build_occupancy,
     host_setup,
+    launch,
+    layout_of,
     library,
+    out_slots,
+    output_views,
 )
 from srbd_horizon_tpu_torch.kernels.lip_linearize import (
     KERNEL_SHAPE,
     N_SCALARS,
+    PARAM_KEYS,
     check_kernel_shape,
     kernel_params,
 )
@@ -192,41 +202,122 @@ def _fn(entry, dtype, argtypes):
     return fn
 
 
+# lip_evaluate's block (the .cu's kEvalMembers, kEvalWarps): a warp a
+# member, a thread a node, at most eight members a block, at least four
+# warps (those past the members stage only)
+EVAL_MEMBERS = 8
+EVAL_WARPS = 4
+EVALUATE = "lip_evaluate"
+
+
+def eval_members(Bsz: int, sms: int) -> int:
+    """The members a lip_evaluate block takes at B members on `sms` SMs
+    (the .cu's `eval_members`): the most, halving from EVAL_MEMBERS, that
+    still gives every SM a block."""
+    m = EVAL_MEMBERS
+    while m > 1 and -(-Bsz // m) < sms:
+        m //= 2
+    return m
+
+
+def evaluate_smem_bytes(dtype=torch.float32, ns: int = 20,
+                        members: int = EVAL_MEMBERS) -> dict:
+    """The shared memory one lip_evaluate block takes at ns stage nodes
+    with `members` members, region by region (the .cu's `eval_regions`):
+    the members' staged runs of X, U and the four parameter tensors (each
+    16 bytes longer than the run), x0's rows, the packed parameter rows,
+    the barrier, and the total."""
+    z = KERNEL_SHAPE
+    nx, nu, nc = z["nx"], z["nu"], z["nc"]
+    E = torch.finfo(dtype).bits // 8
+    m, ns1, r16 = members, ns + 1, _round16
+    out = dict(X=r16(m * ns1 * nx * E + 16), U=r16(m * ns * nu * E + 16),
+               mt=r16(m * ns1 * E + 16), rd=r16(m * ns1 * 3 * E + 16),
+               cr=r16(m * ns1 * nc * E + 16), cs=r16(m * ns1 * nc * E + 16),
+               x0=r16(m * nx * E), prm=r16(m * ns1 * (4 + 2 * nc) * E),
+               bar=16)
+    out["total"] = sum(out.values())
+    return out
+
+
+def evaluate_shapes(Bsz: int, ns: int, nx: int, pinned: bool):
+    """lip_evaluate's outputs ((slot, shape), …): the cost, the largest
+    defect and, pinned, the pinned plan."""
+    out = ((0, (Bsz,)), (1, (Bsz,)))
+    return out + ((2, (Bsz, ns + 1, nx)),) if pinned else out
+
+
+class _EvalSetup:
+    """lip_evaluate's host work for one (terms, device, dtype, B, ns, dt,
+    wc, pinned), past the shape check: the entry with its argtypes, the
+    scalars, the tensors' shapes, the output layout and the parameter
+    pointer array a call fills in place."""
+
+    def __init__(self, terms, dtype, Bsz, ns, nx, nu, dt, wc, pinned):
+        if ns + 1 > 32:
+            raise ValueError(f"lip_evaluate takes at most 31 stage nodes, "
+                             f"got {ns}")
+        self.fn = _fn(EVALUATE, dtype,
+                      [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5)
+        self.scalars = (_D * N_SCALARS)(*terms.kernel_scalars(dt, wc))
+        nc = terms.nc
+        self.shapes = ((Bsz, ns + 1, nx), (Bsz, ns, nu)) + tuple(
+            (Bsz, ns + 1, d) for d in (1, 3, nc, nc))
+        self.x0_shape = (Bsz, nx)
+        self.layout, self.total = layout_of(
+            evaluate_shapes(Bsz, ns, nx, pinned), dtype)
+        self.out_slots = out_slots(self.layout, dtype)
+        self.args = (Bsz, ns, nc, terms.contact_model, terms.number_of_legs,
+                     self.scalars)
+        self.params = (_P * len(PARAM_KEYS))()
+
+
 def lip_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
     """lip_evaluate. Same contract as `lip_evaluate_plain`; launches the
     CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
     the launch in `lip_evaluate.launches`), raises ValueError for other
-    sizes."""
+    sizes. A call's outputs are views of one buffer (`evaluate_shapes`)."""
     if X.device.type == "cpu":
         return lip_evaluate_plain(X, U, params, terms, dt, wc, x0)
-    scalars = _checked_common("lip_evaluate", X, U, terms, dt, wc)
+    nx, nu = X.shape[-1], U.shape[-1]
+    dtype, dev = X.dtype, X.device
+    host_setup(terms, (EVALUATE, nx, nu),            # sizes first, then device
+               lambda: check_kernel_shape(EVALUATE, terms, nx, nu))
+    if dev.type != "cuda":
+        raise ValueError(f"lip_evaluate runs on cpu or cuda, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"lip_evaluate takes float32 or float64, got {dtype}")
+    out = _evaluate_launched(X, U, params, terms, dt, wc, x0)
+    lip_evaluate.launches += 1
+    return out
+
+
+def _evaluate_launched(X, U, params, terms, dt, wc, x0):
+    """lip_evaluate's launch on X's device, past the shape and device
+    checks: the setup, one check of the tensors, the outputs cut from one
+    buffer."""
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, U.shape[-1]
     dtype, dev = X.dtype, X.device
-    if ns + 1 > 32:
-        raise ValueError(f"lip_evaluate takes at most 31 stage nodes, got {ns}")
-    check_tensor("X", X, (Bsz, ns + 1, nx), dtype, dev)
-    check_tensor("U", U, (Bsz, ns, nu), dtype, dev)
-    if x0 is not None:                       # its rows may lie apart
-        check_tensor("x0", x0, (Bsz, nx), dtype, dev, rows=True)
-    pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
-    cost = torch.empty((Bsz,), dtype=dtype, device=dev)
-    dmax = torch.empty((Bsz,), dtype=dtype, device=dev)
-    Xp = None if x0 is None else torch.empty_like(X)
-    ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    fn = _fn("lip_evaluate", dtype, [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(X.data_ptr(), U.data_ptr(),
-                 None if x0 is None else x0.data_ptr(),
-                 0 if x0 is None else x0.stride(0), ptrs, Bsz, ns,
-                 terms.nc, terms.contact_model, terms.number_of_legs, scalars,
-                 cost.data_ptr(), dmax.data_ptr(),
-                 None if Xp is None else Xp.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"lip_evaluate kernel failed: CUDA error {err}")
-    lip_evaluate.launches += 1
-    return (cost, dmax) if Xp is None else (cost, dmax, Xp)
+    pinned = x0 is not None
+    s = host_setup(terms, (EVALUATE, dev, dtype, Bsz, ns, dt, wc, pinned),
+                   lambda: _EvalSetup(terms, dtype, Bsz, ns, nx, nu, dt, wc,
+                                      pinned))
+    pt = [params[k] for k in PARAM_KEYS]
+    check_tensors(zip(("X", "U") + PARAM_KEYS, [X, U] + pt, s.shapes),
+                  dtype, dev)
+    if pinned and (x0.dtype != dtype or x0.device != dev
+                   or x0.shape != s.x0_shape or x0.stride(-1) != 1):
+        check_tensor("x0", x0, s.x0_shape, dtype, dev, rows=True)
+    for i, t in enumerate(pt):
+        s.params[i] = t.data_ptr()
+    buf, views = output_views(s.layout, s.total, dtype, dev)
+    base = buf.data_ptr()
+    outs = [base + off for _, off in s.out_slots] + [None]
+    launch(EVALUATE, s.fn, dev, X.data_ptr(), U.data_ptr(),
+           x0.data_ptr() if pinned else None, x0.stride(0) if pinned else 0,
+           s.params, *s.args, *outs[:3])
+    return tuple(views)
 
 
 lip_evaluate.launches = 0
