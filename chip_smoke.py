@@ -322,11 +322,44 @@ parallel, into build/kernels/), then:
      walks under the modes and 5 RK2 ticks with Cholesky gains;
      `mf_card_vs_cpu`: the point-feet walk and the Kangaroo's RK2 fleet at
      B=8 under associative/linear in float64, 3 ticks each, iterations
-     equal, plans, x, u0 and cost to 1e-9.
+     equal, plans, x, u0 and cost to 1e-9;
+ 16. the LIP at every topology and step the JAX package's
+     `build_lip_problem` takes (`lip_family_section`): the point-feet
+     quadruped and biped under Euler and each topology under RK2 and RK4,
+     on K10, K11, lip_evaluate and K1 (K2 inside). `lip_family_check`:
+     each new instance against its twin at B = 1, 64 and 512 on random
+     plans, references, 0/1 switches and tracking masks with a NaN member
+     — K10 (its float64 Jacobians bit for bit), K11 at 1 and 4 α and
+     lip_evaluate plain and pinned (the pinned plan bit for bit) in
+     float64 within 1e-12 of max(1, |twin|) and in float32 by phase 10's
+     rules, K1 in every form at the instance's shape in float64 to 1e-9
+     and float32 to 1e-6 of the float64 twin; `lip_family_times`: each at
+     B = 1, 512 and 4096 in float32 beside the Kangaroo's Euler instance,
+     with bounds, blocks an SM, registers and spills (none allowed), the
+     shared memory held to `smem_bytes` / `evaluate_smem_bytes`; K2 at
+     nu=9 beside `torch.linalg.inv`; `lip_family_refusals`: K12 and K13 at
+     the new shapes raise their named ValueError on the card before any
+     launch and `MSDDP` refuses the modes there. The paths (float32,
+     ns=20): the point-feet biped's dlip walk (40 ticks, vx 0.3 from tick
+     10, then 10 Cholesky ticks; CoM height within 0.08 of 0.88, forward
+     progress above 0.03 m), the quadruped's LIP trot (the trot WPG, 40 +
+     10 ticks, forward progress), the Kangaroo's LIP fleets under RK2 and
+     RK4 (B=512, max_iters=5, warm start shifted, 0.005·N(0,1) pushes, 3 +
+     20 ticks, with phases, profile and idle share), 10-tick walks of the
+     Kangaroo, the quadruped and the biped under RK4 and 10-tick fleets of
+     the biped and the quadruped under Euler and RK2; every path fails on
+     a plain twin on the card, on a launch of another LIP instance (no
+     Euler instance on an RK path), on a defect above 1e-4, or on K10 and
+     K1 launches that do not match the iterations, K11's the trials and
+     lip_evaluate's two a solve. `lip_family_card_vs_cpu`: the point-feet
+     walk and the Kangaroo's RK4 LIP fleet at B=8 (3 ticks each) in
+     float64, with max_iters=1 everything to 1e-9, with the paths'
+     options iterations equal, the cost to 1e-9, x, u0 and the plans to
+     LIP_FLOOR_TOL.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-ninety-nine rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+139 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -341,8 +374,10 @@ Cholesky, K13 for the quadruped and both AL inner problems), and the
 thirty-two rows of phase 14 (K4, K3 and `srbd_evaluate` at its seven
 instances, K1's ten instantiations of PR 15, K2 at nu=12), and the
 eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
-seven families, K1's three Tassa-Cholesky instantiations); the last line
-is {"ok": true, "device": {...}}.
+seven families, K1's three Tassa-Cholesky instantiations), and the forty
+rows of phase 16 (K10, K11 and lip_evaluate at its eight instances, K1's
+fifteen instantiations at the five new LIP shapes, K2 at nu=9); the last
+line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11,k7]
 
@@ -6476,6 +6511,892 @@ def modes_family_section(card, dev, sms, family_rows):
     return rows_out
 
 
+# ---------------- the LIP at every topology and step (phase 16) -----------
+
+# the (topology, step) instances phase 16 adds, in lip_linearize.KERNEL_SHAPES
+# names: the point-feet quadruped and biped under Euler, each topology
+# under RK2 and RK4
+LIP_FAMILY_INSTANCES = ("quadruped", "point_feet", "kangaroo_rk2",
+                        "kangaroo_rk4", "quadruped_rk2", "quadruped_rk4",
+                        "point_feet_rk2", "point_feet_rk4")
+LIP_FAMILY_NAN = 7              # the member with a NaN state / plan
+
+
+def lip_family_loop(inst, dtype, device, opts=None, shift=False):
+    """The LIP loop of one instance (`build_lip_loop`: the dlip example's
+    options unless `opts` says otherwise; the point-feet biped with
+    `point_feet()`, the quadruped with its robot and the trot WPG)."""
+    from srbd_horizon_tpu_torch.config import SRBDConfig
+    from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
+                                                        point_feet)
+    from srbd_horizon_tpu_torch.models.quadruped import (quadruped_point_feet,
+                                                         trot_group_mask)
+    from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop
+
+    topology, step = family_split(inst)
+    topo, robot, mask = {
+        "kangaroo": ({}, kangaroo_line_feet, None),
+        "quadruped": (QUAD_TOPOLOGY, quadruped_point_feet, trot_group_mask()),
+        "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet,
+                       None)}[topology]
+    return build_lip_loop(SRBDConfig(dtype=dtype, **topo), opts,
+                          robot=robot(),
+                          shift_warmstart=shift, dtype=dtype, device=device,
+                          group_mask=mask, integrator=step)
+
+
+def lip_family_counts_reset():
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    for fn in (k10.lip_linearize, k11.lip_trial, k11.lip_evaluate):
+        fn.launches = 0
+        fn.shape_launches.update(dict.fromkeys(fn.shape_launches, 0))
+    k1.riccati_backward.launches = 0
+    k1.riccati_backward.instance_launches[:] = [0] * len(k1.KERNEL_INSTANCES)
+
+
+def lip_family_counts():
+    """The launches of every LIP instance of K10, K11, lip_evaluate and of
+    every K1 instantiation since the last reset (zeros left out)."""
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    out = {}
+    for name, fn in (("lip_linearize", k10.lip_linearize),
+                     ("lip_trial", k11.lip_trial),
+                     ("lip_evaluate", k11.lip_evaluate)):
+        for inst, n in fn.shape_launches.items():
+            if n:
+                out[f"{name}_{inst}"] = n
+    for (shape, form, solver), n in zip(k1.KERNEL_INSTANCES,
+                                        k1.riccati_backward.instance_launches):
+        if n:
+            out[k1_row_name(shape, form, solver)] = n
+    return out
+
+
+def lip_family_twins():
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    return ((k1, ("riccati_backward_plain",)),
+            (k11, ("lip_trial_plain", "lip_evaluate_plain")),
+            (k3, ("rollout_plain", "evaluate_plain")),
+            (k10, ("lip_linearize_plain",)))
+
+
+def lip_family_point(prob, B, dev, seed):
+    """A linearization point of one LIP instance at B members: plans around
+    the nominal state (0.03 / 0.1·N(0,1)), random references, 0/1
+    switches and tracking masks, x0 near node 0; member LIP_FAMILY_NAN
+    with a NaN in x0 and in a copy of the plan."""
+    import numpy as np
+    import torch
+
+    ocp = prob.ocp
+    ns, nx, nu, nc = ocp.ns, ocp.nx, ocp.nu, prob.nc
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    X = t(prob.initial_state.cpu().numpy()[None, None]
+          + 0.03 * rng.randn(B, ns + 1, nx))
+    U = t(prob.static_input.cpu().numpy()[None, None]
+          + 0.1 * rng.randn(B, ns, nu))
+    params = dict(rdot_ref=t(0.3 * rng.randn(B, ns + 1, 3)),
+                  c_ref=t(0.05 * np.abs(rng.randn(B, ns + 1, nc))),
+                  cdot_switch=t(rng.randint(0, 2, (B, ns + 1, nc))),
+                  mask_track=t(rng.randint(0, 2, (B, ns + 1, 1))))
+    x0 = X[:, 0] + t(0.005 * rng.randn(B, nx))
+    X_nan, x0_nan = X.clone(), x0.clone()
+    X_nan[LIP_FAMILY_NAN, 5, 4] = float("nan")
+    x0_nan[LIP_FAMILY_NAN] = float("nan")
+    return dict(X=X, U=U, params=params, x0=x0, X_nan=X_nan, x0_nan=x0_nan)
+
+
+def lip_family_check(inst, dev):
+    """K10, K1 (every instantiation at the instance's K1 shape), K11 (1 and
+    4 α) and lip_evaluate (plain and pinned) of one instance against their
+    twins at B = 1, 64 and 512: K10, K11 and lip_evaluate in float64 to
+    LIP_F64_TOL of max(1, |twin|), K10's Jacobians and the pinned plan bit
+    for bit, in float32 by phase 10's rules (within 2× the float32 twin's
+    error + 1e-6; K10 also below K4_F32_CAP); K1 in float64 to 1e-9, in
+    float32 to K1_F32_TOL of the float64 twin; K11's flags equal in
+    float64 and off the Armijo margin in float32; the NaN member (B > 1)
+    rejected by K11 and NaN in lip_evaluate. Returns the worst figures,
+    the K1 shape, the float64 twins' linearization and collapsed sweep at
+    B=512 and the point; fails the run on disagreement."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    f64, f32 = torch.float64, torch.float32
+    loop64, prob = lip_family_loop(inst, f64, dev)
+    loop32, _ = lip_family_loop(inst, f32, dev)
+    s64, s32 = loop64.solver, loop32.solver
+    ocp = prob.ocp
+    dt, rows, opts, mu = ocp.dt, s64.rows, s64.opts, s64.opts.mu0
+    if k10.check_kernel_shape("check", s64.terms, ocp.nx, ocp.nu,
+                              rows) != inst:
+        fail(f"lip_family_check: {inst}'s problem picks another instance")
+    pt = lip_family_point(prob, B_MAIN, dev, SEED + 16)
+    solver_of = lambda dtype: s64 if dtype == f64 else s32
+    cast = lambda a, dtype: a.to(dtype).contiguous()
+    worst = defaultdict(float)
+    bad = []
+    jac = ("Sx", "Bs", "Jxp", "Jup", "Jt")
+
+    def note(key, e64, e32, p32, abs32, rule32):
+        worst[key + "_e64"] = max(worst[key + "_e64"], e64)
+        worst[key + "_e32"] = max(worst[key + "_e32"], e32)
+        worst[key + "_p32"] = max(worst[key + "_p32"], p32)
+        worst[key + "_abs32"] = max(worst[key + "_abs32"], abs32)
+        if not rule32:
+            bad.append(f"{key} float32")
+
+    for Bw in FAMILY_CHECK_B:
+        p = family_sub(pt, Bw)
+        cp = lambda dtype: {k: cast(v, dtype) for k, v in p["params"].items()}
+        Xn = p["X_nan"] if Bw > LIP_FAMILY_NAN else p["X"]
+        # K10, with the NaN member's plan
+        lin = {}
+        for dtype in (f64, f32):
+            s = solver_of(dtype)
+            a = (cast(Xn, dtype), cast(p["U"], dtype), cp(dtype), s.terms,
+                 s.rows, dt, s._wc(dtype))
+            lin[dtype] = (k10.lip_linearize_plain(*a), k10.lip_linearize(*a))
+        ref = lin[f64][0]
+        e64 = max(err1(lin[f64][1][k], ref[k]) for k in ORDER)
+        e32 = {k: rel_err(lin[f32][1][k], ref[k]) for k in ORDER}
+        p32 = {k: rel_err(lin[f32][0][k], ref[k]) for k in ORDER}
+        if e64 > LIP_F64_TOL:
+            bad.append(f"K10 float64 at B={Bw}: {e64}")
+        if not all(torch.equal(lin[f64][1][k], ref[k]) for k in jac):
+            bad.append(f"K10 float64 Jacobians at B={Bw} not bit for bit the "
+                       "twin's")
+        note("k10", e64, max(e32.values()), max(p32.values()),
+             max(abs_err(lin[f32][1][k], ref[k]) for k in ORDER),
+             all(e32[k] <= 2 * p32[k] + 1e-6 and e32[k] <= K4_F32_CAP
+                 for k in ORDER))
+        # the sweep's inputs: the finite plan's linearization
+        a64 = k10.lip_linearize_plain(p["X"], p["U"], p["params"], s64.terms,
+                                      rows, dt, s64._wc(f64))
+        nt = a64["Jt"].shape[1]
+        k1_shape = k1.kernel_shape(ocp.nx, ocp.nu, nt, rows)
+        a64t = tuple(a64[k] for k in ORDER)
+        a32t = tuple(v.float().contiguous() for v in a64t)
+        sweeps = {}
+        for shape, form, solver in k1.KERNEL_INSTANCES:
+            if shape != k1_shape:
+                continue
+            kw = dict(form=form, quu_solver=solver)
+            r = k1.riccati_backward_plain(*a64t, mu, rows, **kw)
+            g = k1.riccati_backward(*a64t, mu, rows, **kw)
+            g32 = k1.riccati_backward(*a32t, mu, rows, **kw)
+            p32_ = k1.riccati_backward_plain(*a32t, mu, rows, **kw)
+            name = k1_row_name(shape, form, solver)
+            e64 = max(rel_err(x, y) for x, y in zip(g, r))
+            e32 = max(rel_err(x, y) for x, y in zip(g32, r))
+            if e64 > 1e-9:
+                bad.append(f"{name} float64 at B={Bw}: {e64}")
+            note(name, e64, e32, max(rel_err(x, y) for x, y in zip(p32_, r)),
+                 max(abs_err(x, y) for x, y in zip(g32, r)), e32 <= K1_F32_TOL)
+            sweeps[(form, solver)] = r
+        ks, Ks, dV1, dV2 = sweeps[("collapsed", "schur")]
+        d = a64["d"]
+        D = torch.sum(d * d, dim=(1, 2))
+        merit0 = s64.total_cost(p["X"], p["U"], p["params"]) + \
+            opts.defect_weight * D
+        # K11, 1 and 4 α; the NaN member starts from a NaN state
+        x0s = p["x0_nan"] if Bw > LIP_FAMILY_NAN else p["x0"]
+        alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f64, device=dev)
+        for nA in (1, 4):
+            outs = {}
+            for dtype in (f64, f32):
+                s = solver_of(dtype)
+                c = lambda a: cast(a, dtype)
+                a = (c(x0s), c(p["X"]), c(p["U"]), c(ks), c(Ks), c(d),
+                     c(alphas4[:nA]), cp(dtype), c(merit0), c(D), c(dV1),
+                     c(dV2), s.terms, dt, s._wc(dtype), opts.defect_weight,
+                     opts.beta, opts.alpha_converge_threshold)
+                outs[dtype] = (k11.lip_trial_plain(*a), k11.lip_trial(*a))
+            ref3 = outs[f64][0]
+            e64 = max(err1(g, r) for g, r in zip(outs[f64][1][:4], ref3[:4]))
+            e32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, outs[f32][1], ref3)}
+            p32 = {n: rel_err(g, r) for n, g, r in zip(TRIAL_OUT, outs[f32][0], ref3)}
+            al = alphas4[:nA, None]
+            margin = (merit0 - ref3[3]) - opts.beta * torch.clamp(
+                -(al * dV1 + al * al * dV2)
+                + (2 * al - al * al) * opts.defect_weight * D, min=1e-16)
+            near = margin.abs() <= 1e-4 * merit0.abs().clamp_min(1.0)
+            flips = int(((outs[f32][1][4] != ref3[4]) & ~near).sum())
+            if e64 > LIP_F64_TOL or not torch.equal(outs[f64][1][4], ref3[4]):
+                bad.append(f"K11 float64 at B={Bw}, {nA} α: {e64}")
+            if flips or (Bw > LIP_FAMILY_NAN
+                         and bool(outs[f64][1][4][:, LIP_FAMILY_NAN].any())):
+                bad.append(f"K11 flags at B={Bw}, {nA} α")
+            note("k11", e64, max(e32.values()), max(p32.values()),
+                 max(abs_err(g, r) for g, r in zip(outs[f32][1][:4], ref3[:4])),
+                 all(e32[n] <= 2 * p32[n] + 1e-6 for n in TRIAL_OUT))
+        # lip_evaluate, plain and pinned; the NaN member's plan holds a NaN
+        for pinned in (False, True):
+            outs = {}
+            for dtype in (f64, f32):
+                s = solver_of(dtype)
+                kw = dict(x0=cast(p["x0"], dtype)) if pinned else {}
+                a = (cast(Xn, dtype), cast(p["U"], dtype), cp(dtype), s.terms,
+                     dt, s._wc(dtype))
+                outs[dtype] = (k11.lip_evaluate_plain(*a, **kw),
+                               k11.lip_evaluate(*a, **kw))
+            refe = outs[f64][0]
+            e64 = max(err1(g, r) for g, r in zip(outs[f64][1][:2], refe[:2]))
+            e32 = [rel_err(g, r) for g, r in zip(outs[f32][1][:2], refe[:2])]
+            p32 = [rel_err(g, r) for g, r in zip(outs[f32][0][:2], refe[:2])]
+            if e64 > LIP_F64_TOL:
+                bad.append(f"lip_evaluate float64 at B={Bw}: {e64}")
+            if Bw > LIP_FAMILY_NAN and not all(
+                    bool(torch.isnan(o[LIP_FAMILY_NAN])) for out in
+                    (outs[f64][1], outs[f32][1]) for o in out[:2]):
+                bad.append(f"lip_evaluate NaN member at B={Bw}")
+            if pinned and not (
+                    bool(torch.equal(bits(outs[f64][1][2]), bits(refe[2])))
+                    and bool(torch.equal(bits(outs[f32][1][2]),
+                                         bits(outs[f32][0][2])))):
+                bad.append(f"lip_evaluate pinned plan at B={Bw}")
+            note("evaluate", e64, max(e32), max(p32),
+                 max(abs_err(g, r) for g, r in zip(outs[f32][1][:2], refe[:2])),
+                 all(a <= 2 * b + 1e-6 for a, b in zip(e32, p32)))
+    torch.cuda.synchronize()
+    res = dict(worst)
+    emit("lip_family_check", instance=inst, k1_shape=k1_shape,
+         B=FAMILY_CHECK_B, f64_tol=LIP_F64_TOL, k1_f64_tol=1e-9,
+         k1_f32_tol=K1_F32_TOL,
+         f32_rule="kernel <= 2*plain + 1e-6 (K10 also <= 1e-5)",
+         failures=bad, **res)
+    if bad:
+        fail(f"lip_family_check {inst}: {bad}")
+    return res, k1_shape, a64, (ks, Ks, dV1, dV2), pt
+
+
+def lip_family_times(inst, dev, lin64, sweep64, pt):
+    """One instance's kernels in float32 at B = 1, 512 and 4096 (members
+    repeated), the twins' at B ≤ 512: ms, the bytes and FLOPs the call
+    needs and its bound; K10's, K11's and lip_evaluate's occupancy
+    (blocks an SM, shared memory, registers, spills) with K11's and
+    lip_evaluate's shared memory held to `smem_bytes` and
+    `evaluate_smem_bytes` at the instance; K1's blocks an SM and shared
+    memory. {row name: {B: figures}}, {row name: occupancy}."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    f32, f64 = torch.float32, torch.float64
+    loop32, prob = lip_family_loop(inst, f32, dev)
+    s = loop32.solver
+    ocp = prob.ocp
+    ns, nx, nu, dt = ocp.ns, ocp.nx, ocp.nu, ocp.dt
+    rows, opts, mu = s.rows, s.opts, s.opts.mu0
+    n_rho = s.terms.n_rho
+    step = family_split(inst)[1]
+    stages = {"EULER": 1, "RK2": 2, "RK4": 4}[step]
+    c = lambda a: a.float().contiguous()
+    params = {k: c(v) for k, v in pt["params"].items()}
+    a10 = (c(pt["X"]), c(pt["U"]), params, s.terms, rows, dt, s._wc(f32))
+    ks, Ks, dV1, dV2 = (c(v) for v in sweep64)
+    d = c(lin64["d"])
+    D = torch.sum(d * d, dim=(1, 2))
+    merit0 = s.total_cost(a10[0], a10[1], params) + opts.defect_weight * D
+    alphas4 = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=f32, device=dev)
+    a11 = lambda nA: (c(pt["x0"]), a10[0], a10[1], ks, Ks, d, alphas4[:nA],
+                      params, merit0, D, dV1, dV2, s.terms, dt, s._wc(f32),
+                      opts.defect_weight, opts.beta,
+                      opts.alpha_converge_threshold)
+    aev = (a10[0], a10[1], params, s.terms, dt, s._wc(f32), c(pt["x0"]))
+    lin32 = {k: c(v) for k, v in lin64.items()}
+    k1a = tuple(lin32[k] for k in ORDER)
+    nt = lin32["Jt"].shape[1]
+    k1_shape = k1.kernel_shape(nx, nu, nt, rows)
+    sizes = (len(rows.rx), len(rows.ru), len(rows.gx), len(rows.gu),
+             len(rows.bx), len(rows.uc))
+    times = defaultdict(dict)
+    for Bw in FAMILY_TIME_B:
+        plain_too = Bw <= B_MAIN
+        pl = lambda fn, reps: (cuda_ms(fn, reps=reps, warmup=1) if plain_too
+                               else None)
+        la = repeat_members(a10, Bw)
+        out = k10.lip_linearize(*la)
+        times[f"lip_linearize_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k10.lip_linearize(*la), reps=20),
+            plain_ms=pl(lambda: k10.lip_linearize_plain(*la), 3),
+            bytes=nbytes(la[0], la[1], *la[2].values(), rows.packed(dev),
+                         *out.values()),
+            flop=lip_linearize_flops(Bw, ns, stages * nx, n_rho, len(rows.gx)))
+        ta = repeat_members(a11(1), Bw, skip=(6,))
+        out = k11.lip_trial(*ta)
+        times[f"lip_trial_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k11.lip_trial(*ta), reps=20),
+            plain_ms=pl(lambda: k11.lip_trial_plain(*ta), 3),
+            bytes=nbytes(*[v for v in ta[:12] if isinstance(v, torch.Tensor)],
+                         *ta[7].values(), *out),
+            flop=lip_trial_flops(Bw, ns, nx, nu, n_rho, 1)
+            + (stages - 1) * 4 * nx * ns * Bw)
+        ta4 = repeat_members(a11(4), Bw, skip=(6,))
+        times[f"lip_trial_{inst}"][Bw]["ms_4alpha"] = cuda_ms(
+            lambda: k11.lip_trial(*ta4), reps=20)
+        times[f"lip_trial_{inst}"][Bw]["chain_ms"] = cuda_ms(
+            lambda: k11.lip_trial_chain(*ta), reps=20)
+        ea = repeat_members(aev, Bw)
+        out = k11.lip_evaluate(*ea[:-1], x0=ea[-1])
+        times[f"lip_evaluate_{inst}"][Bw] = dict(
+            ms=cuda_ms(lambda: k11.lip_evaluate(*ea[:-1], x0=ea[-1]), reps=20),
+            plain_ms=pl(lambda: k11.lip_evaluate_plain(*ea[:-1], x0=ea[-1]), 3),
+            bytes=nbytes(ea[0], ea[1], *ea[2].values(), ea[-1], *out),
+            flop=lip_evaluate_flops(Bw, ns, stages * nx, n_rho))
+        ka = repeat_members(k1a, Bw)
+        for shape, form, solver in k1.KERNEL_INSTANCES:
+            if shape != k1_shape:
+                continue
+            kw = dict(form=form, quu_solver=solver)
+            out = k1.riccati_backward(*ka, mu, rows, **kw)
+            flop = (riccati_flops(Bw, ns, nx, nu, nt, *sizes)
+                    if form == "collapsed"
+                    else tassa_flops(Bw, ns, nx, nu, nt, *sizes, solver))
+            times[k1_row_name(shape, form, solver)][Bw] = dict(
+                ms=cuda_ms(lambda: k1.riccati_backward(*ka, mu, rows, **kw),
+                           reps=10),
+                plain_ms=pl(lambda: k1.riccati_backward_plain(
+                    *ka, mu, rows, **kw), 2),
+                bytes=nbytes(*ka, rows.packed(dev), *out), flop=flop,
+                fp64_tensor_cores=True)
+    for by_B in times.values():
+        for v in by_B.values():
+            rate = (H100_FP64_TC_FLOP_PER_S if v.pop("fp64_tensor_cores", False)
+                    else H100_F32_FLOP_PER_S)
+            v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flop"], rate)
+            v["achieved_GB_per_s"] = v["bytes"] / v["ms"] / 1e6
+    k10o = k10.occupancy(f32, True, inst)
+    occ = {f"lip_linearize_{inst}": dict(
+               k10o, node_groups=k10.occupancy(f32, False, inst),
+               f64=k10.occupancy(f64, True, inst)),
+           f"lip_trial_{inst}": dict(
+               k11.trial_occupancy(f32, ns, 1, inst),
+               four_alpha=k11.trial_occupancy(f32, ns, 4, inst),
+               f64=k11.trial_occupancy(f64, ns, 1, inst),
+               f64_four_alpha=k11.trial_occupancy(f64, ns, 4, inst)),
+           f"lip_evaluate_{inst}": dict(
+               k11.evaluate_occupancy(ns, f32, inst),
+               f64=k11.evaluate_occupancy(ns, f64, inst))}
+    # the card's shared memory a block against the wrappers' statement
+    t, e = occ[f"lip_trial_{inst}"], occ[f"lip_evaluate_{inst}"]
+    for o, want in ((t, k11.smem_bytes(f32, ns, 1, inst)["total"]),
+                    (t["four_alpha"], k11.smem_bytes(f32, ns, 4, inst)["total"]),
+                    (t["f64"], k11.smem_bytes(f64, ns, 1, inst)["total"]),
+                    (t["f64_four_alpha"],
+                     k11.smem_bytes(f64, ns, 4, inst)["total"]),
+                    (e, k11.evaluate_smem_bytes(f32, ns, shape=inst)["total"]),
+                    (e["f64"],
+                     k11.evaluate_smem_bytes(f64, ns, shape=inst)["total"])):
+        if o["shared_memory_bytes"] != want:
+            fail(f"lip_family_times {inst}: a block takes "
+                 f"{o['shared_memory_bytes']} B on the card; the wrapper "
+                 f"states {want}")
+    for key in (f"lip_linearize_{inst}", f"lip_trial_{inst}",
+                f"lip_evaluate_{inst}"):
+        o = occ[key]
+        subs = [o] + [v for v in o.values() if isinstance(v, dict)]
+        if any(v.get("local_bytes_per_thread") or v["blocks_per_sm"] < 1
+               for v in subs):
+            fail(f"lip_family_times: {key} spills or does not fit: {o}")
+    for shape, form, solver in k1.KERNEL_INSTANCES:
+        if shape == k1_shape:
+            kw = dict(form=form, quu_solver=solver)
+            occ[k1_row_name(shape, form, solver)] = dict(
+                blocks_per_sm=k1.blocks_per_sm(nx, nu, nt, rows, f32, **kw),
+                shared_memory_bytes=k1.shared_memory_bytes(nx, nu, nt, rows,
+                                                           f32, **kw))
+    return times, occ
+
+
+def lip_family_refusals(dev, inst, lin64):
+    """The execution modes at a LIP instance they have no kernel for: K12's
+    and K13's wrappers raise their named ValueError on the card before any
+    launch (no instance stands in), and `MSDDP` refuses the modes
+    (NotImplementedError naming ROADMAP.md). Returns what was seen."""
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+    loop64, prob = lip_family_loop(inst, torch.float64, dev)
+    s, ocp = loop64.solver, prob.ocp
+    a = tuple(lin64[k] for k in ORDER)
+    seen = {}
+    before = (k12.riccati_associative.launches, k13.linear_trial.launches)
+    for solver in ("schur", "cholesky"):
+        try:
+            k12.riccati_associative(*a, s.opts.mu0, s.rows, solver)
+            seen[f"k12_{solver}"] = "launched"
+        except ValueError as err:
+            seen[f"k12_{solver}"] = str(err)[:80]
+    B, ns = a[5].shape[0], ocp.ns
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float64, device=dev)
+    try:
+        k13.linear_trial(
+            z(B, ocp.nx), z(B, ns + 1, ocp.nx), z(B, ns, ocp.nu),
+            z(B, ns, ocp.nu), z(B, ns, ocp.nu, ocp.nx), a[0], a[1], a[5],
+            z(1) + 1.0, {k: v.expand((B,) + tuple(v.shape)).contiguous()
+                         for k, v in ocp.params.items()},
+            z(B), z(B), z(B), z(B), s.terms, s.rows, ocp.dt,
+            s._wc(torch.float64), s.opts.defect_weight, s.opts.beta,
+            s.opts.alpha_converge_threshold)
+        seen["k13"] = "launched"
+    except ValueError as err:
+        seen["k13"] = str(err)[:80]
+    for mode in (("associative", "nonlinear"), ("sequential", "linear")):
+        try:
+            MSDDP(ocp, DDPOptions(riccati_mode=mode[0], forward_pass=mode[1]))
+            seen["msddp_" + "_".join(mode)] = "built"
+        except NotImplementedError as err:
+            seen["msddp_" + "_".join(mode)] = "ROADMAP.md" in str(err)
+    torch.cuda.synchronize()
+    launched = (k12.riccati_associative.launches,
+                k13.linear_trial.launches) != before
+    ok = (not launched
+          and all(seen[f"k12_{sv}"].startswith("riccati_associative has no "
+                                               "kernel")
+                  for sv in ("schur", "cholesky"))
+          and seen["k13"].startswith("linear_trial has no kernel")
+          and all(v is True for k, v in seen.items() if k.startswith("msddp")))
+    if not ok:
+        fail(f"phase 16: the modes at {inst} did not refuse by name before "
+             f"any launch: {seen}")
+    return seen
+
+
+def lip_family_single(inst, dev, card, ticks, cholesky_ticks, vx=0.3):
+    """One robot of one LIP instance on `MPCLoop.tick` in float32 with the
+    dlip example's options: a walk (vx from tick 10), then `cholesky_ticks`
+    more with the Cholesky gain solve. Returns the figures, the launches
+    and the guards."""
+    import torch
+
+    from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
+
+    loop, prob = lip_family_loop(inst, torch.float32, dev)
+    sched = walking_schedule(ticks, vx=vx, start=10, device=dev)
+    opts = dataclasses.replace(loop.solver.opts, quu_solver="cholesky")
+    cloop = dataclasses.replace(loop, solver=dataclasses.replace(
+        loop.solver, opts=opts))
+    guards, restore_guards = guard_plain(lip_family_twins())
+    n, restore_count = count_solver_calls(loop.solver, cloop.solver)
+    carry = loop.init(prob.initial_state)
+    z0 = float(prob.initial_state[2])
+    outs, tms = [], []
+    lip_family_counts_reset()
+    syncs0 = loop.solver.host_syncs
+    for i in range(ticks):
+        inp = TickInput(*(a[i] for a in sched))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, out = loop.tick(carry, inp)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    syncs = loop.solver.host_syncs - syncs0
+    chol = []
+    for _ in range(cholesky_ticks):
+        carry, out = cloop.tick(carry, TickInput(*(a[-1] for a in sched)))
+        chol.append(out)
+    torch.cuda.synchronize()
+    launches = lip_family_counts()
+    restore_count()
+    restore_guards()
+    every = outs + chol
+    com = torch.stack([o.x[:3] for o in outs]).cpu()
+    res = dict(
+        instance=inst, B=1, dtype="float32", ticks=ticks,
+        cholesky_ticks=cholesky_ticks, walk=f"vx {vx} from tick 10",
+        options="the dlip example: max_iters=100, "
+                "alpha_converge_threshold=1e-12, beta=1e-3",
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms),
+        iterations_per_tick=[int(o.iterations) for o in every],
+        syncs_per_tick=syncs / ticks, launches=launches,
+        iterations=n["iterations"], trials=n["trials"], solves=n["solves"],
+        defect_norm_max=max(float(o.defect_norm) for o in every),
+        com_z_min=float(com[:, 2].min()), com_z_max=float(com[:, 2].max()),
+        z0=z0, forward_progress_m=float(com[-1, 0] - com[0, 0]),
+        final_com=carry.x[:3].tolist(),
+        finite=all(bool(torch.isfinite(v).all()) for o in every
+                   for v in (o.x, o.u0, o.cost)),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    return res, launches, guards
+
+
+def lip_family_fleet(inst, Bsz, dtype, device, max_iters=5, seed=SEED):
+    """The LIP fleet point on one instance: max_iters=5, the warm start
+    shifted, the walk command vx 0.2, pushes of 0.005·N(0,1)."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.runtime.loop import walk_command
+
+    loop, p = lip_family_loop(inst, dtype, device,
+                              opts=DDPOptions(max_iters=max_iters), shift=True)
+    g = np.random.RandomState(seed)
+    xn = p.initial_state.cpu().numpy()
+    xs = torch.as_tensor(xn[None] + 0.005 * g.randn(Bsz, xn.shape[0]),
+                         dtype=dtype, device=device)
+    return loop, loop.init(xs), walk_command(Bsz, vx=0.2, dtype=dtype,
+                                             device=device)
+
+
+def lip_family_fleet_path(inst, dev, card, warm, timed, profile=True):
+    """`MPCLoop.tick_batch` at B=512 in float32 on one LIP instance: `warm`
+    ticks, then `timed` ticks with the launches counted; with `profile`,
+    the phases inside 5 ticks and 2 profiled ticks (idle share, launches a
+    tick by span)."""
+    import torch
+
+    loop, c, inp = lip_family_fleet(inst, B_MAIN, torch.float32, dev)
+    guards, restore_guards = guard_plain(lip_family_twins())
+    cnt, restore = count_solver_calls(loop.solver)
+    for _ in range(warm):
+        c, _ = loop.tick_batch(c, inp)
+    torch.cuda.synchronize()
+    cnt.update(trials=0, solves=0, iterations=0)
+    lip_family_counts_reset()
+    syncs0 = loop.solver.host_syncs
+    tms, iters, outs = [], [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        c, o = loop.tick_batch(c, inp)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(float(o.iterations.float().mean()))
+        outs.append(o)
+    launches = lip_family_counts()
+    restore()
+    restore_guards()
+    res = dict(
+        instance=inst, B=B_MAIN, dtype="float32",
+        options="max_iters=5, shifted warm start, walk command vx 0.2, "
+                "0.005·N(0,1) pushes (seed 0)",
+        warmup_ticks=warm, ticks=timed,
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms),
+        members_per_s=B_MAIN / statistics.median(tms) * 1e3,
+        iters_mean=statistics.fmean(iters),
+        syncs_per_tick=(loop.solver.host_syncs - syncs0) / timed,
+        iterations=cnt["iterations"], trials=cnt["trials"],
+        solves=cnt["solves"], launches=launches,
+        finite=all(bool(torch.isfinite(v).all()) for o in outs
+                   for v in (o.x, o.u0, o.cost)) and bool(
+                       torch.isfinite(c.sol.X).all()),
+        defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    if profile:
+        step = lambda cc: loop.tick_batch(cc, inp)[0]
+        c, res["spans"] = tick_spans(loop.solver, step, c, ticks=5)
+        res["profile"] = profile_ticks(loop.solver, step, c, res["tick_p50_ms"])
+        res["device_idle_share"] = res["profile"]["device_idle_share"]
+        res["launches_by_span"] = res["profile"]["launches_by_span"]
+    return res, launches, guards
+
+
+def lip_family_gates(tag, res, launches, inst, k1_names, guards):
+    """The gates every phase-16 path shares: finite outputs, defects ≤ 1e-4;
+    the instance's K10, K11, lip_evaluate and the K1 forms `k1_names`
+    launched and nothing else of the LIP (no Euler instance on an RK
+    path); K10 and K1 one launch an iteration, K11 one a trial,
+    lip_evaluate two a solve; no plain twin, torch.func transform or
+    plain cost or defect on the card."""
+    if not res["finite"]:
+        fail(f"{tag}: non-finite values")
+    if res["defect_norm_max"] > 1e-4:
+        fail(f"{tag}: plans are not dynamically consistent (defect above "
+             f"1e-4): {res['defect_norm_max']}")
+    want = {f"{k}_{inst}" for k in ("lip_linearize", "lip_trial",
+                                    "lip_evaluate")} | set(k1_names)
+    if set(launches) != want:
+        fail(f"{tag}: the path launched {sorted(launches)}, not the kernels "
+             f"of its instance {sorted(want)}")
+    k1_total = sum(launches[k] for k in k1_names)
+    if not (launches[f"lip_linearize_{inst}"] == k1_total
+            == res["iterations"]):
+        fail(f"{tag}: K10 and K1 launches do not match the iterations: "
+             f"{launches}, {res['iterations']} iterations")
+    if launches[f"lip_trial_{inst}"] != res["trials"]:
+        fail(f"{tag}: K11 launches do not match the trials: {launches}, "
+             f"{res['trials']} trials")
+    if launches[f"lip_evaluate_{inst}"] != 2 * res["solves"]:
+        fail(f"{tag}: lip_evaluate launches are not two a solve: "
+             f"{launches}, {res['solves']} solves")
+    if any(guards[k]["n"] for k in guards):
+        fail(f"{tag}: the path ran plain twins on the card: "
+             f"{ {k: v['n'] for k, v in guards.items()} }")
+
+
+def lip_family_versus(card_run, cpu_run, floor):
+    """Card = CPU: iterations and convergence equal, the cost to 1e-9, x,
+    u0 and the plans to 1e-9 or, with `floor`, to LIP_FLOOR_TOL (F8)."""
+    r = family_versus(card_run, cpu_run)
+    plan = max(r[k] for k in ("x_rel_err", "u0_rel_err", "X_rel_err",
+                              "U_rel_err"))
+    r["ok"] = (r["iterations_equal"] and r["converged_equal"]
+               and r["cost_rel_err"] <= 1e-9
+               and plan <= (LIP_FLOOR_TOL if floor else 1e-9))
+    return r
+
+
+def lip_family_section(card, dev, sms):
+    """Phase 16: the LIP problem at every topology and step the JAX
+    package's `build_lip_problem` takes — the point-feet quadruped and
+    biped under Euler, and each topology under RK2 and RK4 — on K10, K11,
+    lip_evaluate and K1 (with K2 inside). The kernel checks
+    (`lip_family_check`) and times beside the Kangaroo's Euler instance
+    (`lip_family_times`), K2 at nu=9, the modes' refusal on the card, the
+    paths (the point-feet biped's dlip walk, the quadruped's LIP trot, the
+    Kangaroo's LIP fleets under RK2 and RK4, short runs for the rest) and
+    card = CPU in float64 (`lip_family_card_vs_cpu`). Returns the kernel
+    rows of the `kernels` line."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.runtime.loop import TickInput, walking_schedule
+
+    t_section = time.perf_counter()
+    f64 = torch.float64
+    errs, k1_shapes, times, occ, refusals = {}, {}, {}, {}, {}
+    pf_Jup = None
+    for inst in LIP_FAMILY_INSTANCES:
+        res, k1_shape, lin64, sweep64, pt = lip_family_check(inst, dev)
+        errs[inst], k1_shapes[inst] = res, k1_shape
+        t, o = lip_family_times(inst, dev, lin64, sweep64, pt)
+        times.update(t)
+        occ.update(o)
+        refusals[inst] = lip_family_refusals(dev, inst, lin64)
+        if inst == "point_feet":
+            pf_Jup = lin64["Jup"]
+        del lin64, sweep64, pt
+    # the Kangaroo's Euler instance, timed in the same call
+    loop64, prob = lip_family_loop("kangaroo", f64, dev)
+    pt = lip_family_point(prob, B_MAIN, dev, SEED + 16)
+    s = loop64.solver
+    lin64 = k10.lip_linearize_plain(pt["X"], pt["U"], pt["params"], s.terms,
+                                    s.rows, prob.ocp.dt, s._wc(f64))
+    sweep = k1.riccati_backward_plain(*(lin64[k] for k in ORDER),
+                                      s.opts.mu0, s.rows)
+    t, o = lip_family_times("kangaroo", dev, lin64, sweep, pt)
+    times.update(t)
+    occ.update(o)
+    del lin64, sweep, pt
+    emit("lip_family_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         occupancy=occ)
+    emit("lip_family_refusals", card=card, refusals=refusals)
+    k2 = k2_check("lip_family_k2_check", k1, pf_Jup, 1e-6, nu=9)
+    torch.cuda.empty_cache()
+
+    # ---- the paths ----
+    path_launches = defaultdict(int)
+
+    def add(launches):
+        for k, v in launches.items():
+            path_launches[k] += v
+
+    def k1_names(inst, forms):
+        return [k1_row_name(k1_shapes[inst], f, sv) for f, sv in forms]
+
+    tassa_both = (("tassa", "schur"), ("tassa", "cholesky"))
+    collapsed = (("collapsed", "schur"),)
+    singles = (("lip_family_pf_walk", "point_feet", FAMILY_SINGLE_TICKS, 0.3),
+               ("lip_family_quadruped_trot", "quadruped", FAMILY_SINGLE_TICKS,
+                0.25),
+               ("lip_family_kangaroo_rk4_walk", "kangaroo_rk4",
+                FAMILY_SHORT_TICKS, 0.3),
+               ("lip_family_quadruped_rk4_trot", "quadruped_rk4",
+                FAMILY_SHORT_TICKS, 0.25),
+               ("lip_family_pf_rk4_walk", "point_feet_rk4", FAMILY_SHORT_TICKS,
+                0.3))
+    for tag, inst, ticks, vx in singles:
+        res, launches, guards = lip_family_single(
+            inst, dev, card, ticks, FAMILY_CHOLESKY_TICKS, vx)
+        emit(tag, **res)
+        lip_family_gates(tag, res, launches, inst, k1_names(inst, tassa_both),
+                         guards)
+        if ticks == FAMILY_SINGLE_TICKS:
+            # the biped's walk holds the dlip CoM band; the quadruped's LIP
+            # (η² of the 0.88 m pendulum, as the JAX package's
+            # `build_lip_problem` takes the config) lifts its CoM from the
+            # feet's 0.40 m: its height is
+            # reported, its progress gated
+            quad = inst.startswith("quadruped")
+            z, band = LIP_HEIGHT, FAMILY_HEIGHT_BAND
+            if not quad and max(abs(res["com_z_min"] - z),
+                                abs(res["com_z_max"] - z)) > band:
+                fail(f"{tag}: the CoM height left {z} ± {band}: "
+                     f"{res['com_z_min']}, {res['com_z_max']}")
+            if not res["forward_progress_m"] > (0 if quad else FAMILY_PROGRESS):
+                fail(f"{tag}: forward progress {res['forward_progress_m']} m")
+        add(launches)
+
+    fleets = (("lip_family_kangaroo_rk2_fleet", "kangaroo_rk2",
+               FAMILY_FLEET_TIMED, True),
+              ("lip_family_kangaroo_rk4_fleet", "kangaroo_rk4",
+               FAMILY_FLEET_TIMED, True),
+              ("lip_family_short_fleet_point_feet", "point_feet",
+               FAMILY_SHORT_TICKS, False),
+              ("lip_family_short_fleet_quadruped", "quadruped",
+               FAMILY_SHORT_TICKS, False),
+              ("lip_family_short_fleet_quadruped_rk2", "quadruped_rk2",
+               FAMILY_SHORT_TICKS, False),
+              ("lip_family_short_fleet_point_feet_rk2", "point_feet_rk2",
+               FAMILY_SHORT_TICKS, False))
+    for tag, inst, timed, prof in fleets:
+        res, launches, guards = lip_family_fleet_path(
+            inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
+        emit(tag, **res)
+        lip_family_gates(tag, res, launches, inst, k1_names(inst, collapsed),
+                         guards)
+        add(launches)
+    torch.cuda.empty_cache()
+
+    # ---- lip_family_card_vs_cpu: float64, the point-feet walk and the
+    # Kangaroo's RK4 LIP fleet at B=8, 3 ticks each, with max_iters=1 (the
+    # exact step, no floor step) and with the paths' options ----
+    def single_ticks(device, n_ticks, **kw):
+        from srbd_horizon_tpu_torch.config import DDPOptions
+
+        o = dict(dict(max_iters=100, alpha_converge_threshold=1e-12,
+                      beta=1e-3), **kw)           # the dlip example's
+        loop, p = lip_family_loop("point_feet", f64, device,
+                                  opts=DDPOptions(**o))
+        sch = walking_schedule(n_ticks, vx=0.3, start=1, dtype=f64,
+                               device=device)
+        c = loop.init(p.initial_state)
+        res = []
+        for i in range(n_ticks):
+            c, o = loop.tick(c, TickInput(*(a[i] for a in sch)))
+            res.append(o)
+        return c, res
+
+    def fleet_ticks(device, n_ticks, max_iters):
+        loop, c, inp = lip_family_fleet("kangaroo_rk4", 8, f64, device,
+                                        max_iters=max_iters)
+        res = []
+        for _ in range(n_ticks):
+            c, o = loop.tick_batch(c, inp)
+            res.append(o)
+        return c, res
+
+    fvc = dict(
+        tol="exact_step (max_iters=1): all to 1e-9; options: iterations "
+            "equal, cost to 1e-9, x, u0, X, U to LIP_FLOOR_TOL",
+        floor_tol=LIP_FLOOR_TOL,
+        point_feet_walk=dict(
+            ticks=3, walk="vx 0.3 from tick 1",
+            exact_step=lip_family_versus(single_ticks(dev, 3, max_iters=1),
+                                         single_ticks("cpu", 3, max_iters=1),
+                                         floor=False),
+            options=lip_family_versus(single_ticks(dev, 3),
+                                      single_ticks("cpu", 3), floor=True)),
+        kangaroo_rk4_fleet_B8=dict(
+            ticks=3,
+            exact_step=lip_family_versus(fleet_ticks(dev, 3, 1),
+                                         fleet_ticks("cpu", 3, 1),
+                                         floor=False),
+            options=lip_family_versus(fleet_ticks(dev, 3, 5),
+                                      fleet_ticks("cpu", 3, 5), floor=True)))
+    emit("lip_family_card_vs_cpu", **fvc)
+    if not all(fvc[k][m]["ok"] for k in ("point_feet_walk",
+                                         "kangaroo_rk4_fleet_B8")
+               for m in ("exact_step", "options")):
+        fail("the phase-16 card path and CPU path disagree")
+
+    # ---- the kernel rows: launches from this phase's paths ----
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+    specs = []                 # (row name, module, error key, source instance)
+    for inst in LIP_FAMILY_INSTANCES:
+        specs += [(f"lip_linearize_{inst}", k10, "k10", inst),
+                  (f"lip_trial_{inst}", k11, "k11", inst),
+                  (f"lip_evaluate_{inst}", k11, "evaluate", inst)]
+    new_shapes = {k1_shapes[i]: i for i in reversed(LIP_FAMILY_INSTANCES)}
+    for shape, form, solver in k1.KERNEL_INSTANCES:
+        if shape in new_shapes:
+            name = k1_row_name(shape, form, solver)
+            specs.append((name, k1, name, new_shapes[shape]))
+    rows_out = []
+    for name, mod, key, inst in specs:
+        t, e = times[name], errs[inst]
+        tassa_row = "_tassa" in name
+        Bt = 1 if tassa_row else B_MAIN
+        tt = t[Bt]
+        err = dict(e64=e[key + "_e64"], e32=e[key + "_e32"],
+                   p32=e[key + "_p32"], abs32=e[key + "_abs32"])
+        tol32 = (K1_F32_TOL if mod is k1
+                 else f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+                 if key == "k10" else trial_tol)
+        base = (name.replace("_" + inst, "_kangaroo")
+                if mod is not k1 else None)
+        row = kernel_row(name, mod, path_launches.get(name, 0), tt["ms"],
+                         tt["plain_ms"], tt["bound_ms"], tt["bound_by"], err,
+                         tol32, B=Bt, instance=inst,
+                         ms_by_B={str(b): v["ms"] for b, v in t.items()},
+                         plain_ms_by_B={str(b): v["plain_ms"]
+                                        for b, v in t.items()},
+                         bound_ms_by_B={str(b): v["bound_ms"]
+                                        for b, v in t.items()},
+                         achieved_GB_per_s=tt["achieved_GB_per_s"],
+                         kangaroo_euler_ms_by_B=(
+                             {str(b): v["ms"] for b, v in times[base].items()}
+                             if base else None),
+                         launches_of="phase 16's paths", **occ.get(name, {}))
+        row["tol_f64"] = 1e-9 if mod is k1 else LIP_F64_TOL
+        if key == "evaluate":
+            row["replaces"] = k11.EVALUATE_REPLACES
+            row["pinned"] = True
+        elif tassa_row:
+            row["replaces"] = k1.TASSA_REPLACES
+        if key == "k11":
+            row["ms_4alpha"] = tt["ms_4alpha"]
+            row["chain_ms"] = tt["chain_ms"]
+        rows_out.append(row)
+    pf_shapes = {k1_shapes[i] for i in LIP_FAMILY_INSTANCES
+                 if i.startswith("point_feet")}
+    k2_launches = sum(path_launches.get(k1_row_name(*ki), 0)
+                      for ki in k1.KERNEL_INSTANCES
+                      if ki[0] in pf_shapes and ki[2] == "schur")
+    rows_out.append(dict(kernel_row(
+        "spd_inverse_nu9", k1, k2_launches, k2["ms_f32"], k2["plain_ms_f32"],
+        k2["bound_ms"], k2["bound_by"],
+        dict(e64=k2["f64_rel_err"], e32=k2["f32_rel_err"],
+             p32=k2["f32_plain_rel_err"], abs32=k2["f32_max_abs_err"]),
+        K2_F32_TOL, launches_of="K1 with the block-Schur inverse at the "
+        "point-feet LIP shapes on phase 16's paths (K2 runs inside K1)",
+        stack=k2["stack"], ms_f64=k2["ms_f64"],
+        library_ms_f32=k2["torch_linalg_inv_ms_f32"]),
+        replaces=k1.K2_REPLACES, library_ms=k2["torch_linalg_inv_ms_f64"]))
+    missing = [r["name"] for r in rows_out if r["launches"] == 0]
+    if missing:
+        fail(f"phase 16: kernels not launched on its paths: {missing}")
+    emit("lip_family_section", seconds=time.perf_counter() - t_section,
+         card=card, rows=len(rows_out), path_launches=dict(path_launches))
+    return rows_out
+
+
 # ---------------- K12 against another tree's (--k12-versus) ----------------
 
 K12_VERSUS_B = (1, B_MAIN, B_LARGE)
@@ -6748,28 +7669,64 @@ def build_other(tree, names):
     return done
 
 
+# the other tree's kernel modules a wrapper imports whose interface may
+# differ from this tree's (the LIP kernels' shape table, the occupancy
+# helpers): loaded from that tree first, in this order, and seen by its
+# wrappers' imports
+VERSUS_DEPS = ("build", "lip_linearize")
+_versus_deps = {}
+
+
 def other_wrapper(tree, module, libs):
     """Another tree's kernel wrapper `kernels/<module>.py`, loaded as a
     module of its own whose `library` returns that tree's libraries
     (`libs`) and whose `host_setup` keeps its own setups, for a wrapper
-    whose C interface changed between the trees."""
+    whose C interface changed between the trees. Its imports of the
+    modules in VERSUS_DEPS get that tree's copies."""
     import importlib.util
 
-    path = Path(tree) / "srbd_horizon_tpu_torch" / "kernels" / f"{module}.py"
-    spec = importlib.util.spec_from_file_location(f"versus_{module}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.library = lambda name: libs[name]
-    # its own host setups: a setup holds its tree's entry functions
-    setups = {}
+    import srbd_horizon_tpu_torch.kernels as pkg
 
-    def host_setup(terms, key, make):
-        k = (id(terms),) + key
-        if k not in setups:
-            setups[k] = (terms, make())
-        return setups[k][1]
-    mod.host_setup = host_setup
-    return mod
+    def load(name):
+        path = Path(tree) / "srbd_horizon_tpu_torch" / "kernels" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"versus_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.library = lambda n: libs[n]
+        # its own host setups: a setup holds its tree's entry functions
+        setups = {}
+
+        def host_setup(terms, key, make):
+            k = (id(terms),) + key
+            if k not in setups:
+                setups[k] = (terms, make())
+            return setups[k][1]
+        mod.host_setup = host_setup
+        return mod
+
+    deps = _versus_deps.setdefault(str(tree), {})
+    saved = {}
+    try:
+        for name in VERSUS_DEPS + (module,):
+            if name not in deps:
+                deps[name] = load(name)
+            full = f"srbd_horizon_tpu_torch.kernels.{name}"
+            if name not in saved:
+                saved[name] = (sys.modules.get(full), getattr(pkg, name, None))
+            sys.modules[full] = deps[name]
+            setattr(pkg, name, deps[name])
+        return deps[module]
+    finally:
+        for name, (m, attr) in saved.items():
+            full = f"srbd_horizon_tpu_torch.kernels.{name}"
+            if m is None:
+                sys.modules.pop(full, None)
+            else:
+                sys.modules[full] = m
+            if attr is None:
+                delattr(pkg, name)
+            else:
+                setattr(pkg, name, attr)
 
 
 def ptxas_report(log_text):
@@ -9089,6 +10046,9 @@ def main():
 
     # ---------------- phase 15: the execution modes at every SRBD shape ----
     family_rows += modes_family_section(card, dev, sms, family_rows)
+
+    # ---------------- phase 16: the LIP at every topology and step ----------
+    family_rows += lip_family_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

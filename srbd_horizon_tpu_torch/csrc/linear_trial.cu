@@ -151,10 +151,11 @@ struct SrbdFamily {
   }
 };
 
-// The LIP problem (lip::Shape; K1's LipShape): lip_common.cuh's
-// warp-a-node evaluation, no prepass.
+// The LIP problem at the Kangaroo's line feet under Euler
+// (lip::KangarooShape; K1's LipShape): lip_common.cuh's warp-a-node
+// evaluation, no prepass.
 struct LipFamily {
-  using S = lip::Shape;
+  using S = lip::KangarooShape;
   static constexpr int nx = S::nx, nu = S::nu, n_rx = S::n_rx,
                        n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu,
                        n_b = 6, n_uc = 15, pw = lip::Layout<S>::pw,

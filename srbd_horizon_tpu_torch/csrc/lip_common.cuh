@@ -1,12 +1,13 @@
 // Device code shared by the LIP kernels — K10 (csrc/lip_linearize.cu), K11
-// and lip_evaluate (csrc/lip_rollout.cu): the sizes they are compiled for,
-// the problem's constants, the packed parameter row, the rows of the LIP
-// double integrator ẋ and of the stacked stage residual
-// ρ = [stage_residual; √w_c·stage_eq] and of the terminal residual, a
-// node's squared residual on one thread (K11's and lip_evaluate's
-// evaluation), and a given plan's node evaluated on one warp (K13's, in
-// csrc/linear_trial.cu). All of them evaluate the dynamics and the
-// residuals through this one copy.
+// and lip_evaluate (csrc/lip_rollout.cu): the topologies and steps they are
+// compiled for, the problem's constants, the packed parameter row, the
+// rows of the LIP double integrator ẋ, the step x⁺ = step(x, u) of the
+// OCP's integrator (Euler, RK2 or RK4) a row a thread, the rows of the
+// stacked stage residual ρ = [stage_residual; √w_c·stage_eq] and of the
+// terminal residual, a node's squared residual on one thread (K11's and
+// lip_evaluate's evaluation), and a given plan's node evaluated on one
+// warp (K13's, in csrc/linear_trial.cu). All of them evaluate the dynamics
+// and the residuals through this one copy.
 //
 // Layouts (srbd_horizon_tpu_torch/problems/lip.py, nc contacts):
 //   x = [r(3), c(3nc), ṙ(3), ċ(3nc)]                        nx = 6 + 6nc
@@ -16,7 +17,9 @@
 // with r̈ = η²(r − z) − g e_z on all three axes (the reference's quirk).
 // rz, rxy, ṙ and rel are scaled by the tracking mask; zmp, r̈ and c̈ are
 // not, so they are live at node 0. The terminal residual is
-// [rz, rxy, ṙ, rel] with the mask 1.
+// [rz, rxy, ṙ, rel] with the mask 1. State row i < nx/2 (a position) and
+// row i + nx/2 (its velocity) form pair i, a linear system of its own
+// driven by input u[i]: the step of a row reads only its pair.
 
 #pragma once
 
@@ -25,30 +28,115 @@
 namespace lip {
 
 using rigid::abs_nan;
+using rigid::Euler;
+using rigid::full_stage;
 using rigid::nan_max;
+using rigid::Rk2;
+using rigid::Rk4;
 using rigid::warp_nan_max;
 using rigid::warp_sum;
 
-// The sizes the LIP kernels are compiled for: build_lip_problem with the
-// Kangaroo feet. kernels/lip_linearize.py::KERNEL_SHAPE holds the same
-// numbers (a test reads them from here); on CUDA tensors of any other sizes
+// The contact topologies the LIP kernels are compiled for, one struct a
+// robot: build_lip_problem with the Kangaroo's line feet, the quadruped's
+// point feet (models/quadruped.py) and the point-feet biped
+// (models/kangaroo.py::point_feet), each under the Euler step; `Stepped`
+// gives the same topology under RK2 or RK4.
+// kernels/lip_linearize.py::TOPOLOGIES holds the same numbers in the same
+// order (a test reads them from here); on CUDA tensors of any other sizes
 // the wrappers raise. The row counts are those of RiccatiRows.from_ocp
 // (the rows K10 emits and K1 reads).
-struct Shape {
+struct KangarooShape {
   static constexpr int nc = 4, cm = 2, n_legs = 2, nx = 30, nu = 15,
                        n_rho = 44, nt = 10, n_rx = 18, n_ru = 15, n_gx = 32,
                        n_gu = 18;
+  using Step = Euler;
 };
+
+struct QuadShape {
+  static constexpr int nc = 4, cm = 1, n_legs = 4, nx = 30, nu = 15,
+                       n_rho = 40, nt = 10, n_rx = 18, n_ru = 15, n_gx = 28,
+                       n_gu = 18;
+  using Step = Euler;
+};
+
+struct PointFeetShape {
+  static constexpr int nc = 2, cm = 1, n_legs = 2, nx = 18, nu = 9,
+                       n_rho = 28, nt = 10, n_rx = 12, n_ru = 9, n_gx = 22,
+                       n_gu = 12;
+  using Step = Euler;
+};
+
+// A topology under another step: the RK stages carry u into the position
+// rows through the velocities, so B has nx live rows (A − I keeps
+// Euler's).
+template <class Topo, class St>
+struct Stepped : Topo {
+  static constexpr int n_ru = Topo::nx;
+  using Step = St;
+};
+
+// A launcher's answer for sizes no shape above has.
+constexpr int kUnknownShape = -2;
+
+// fn(S{}) for the (topology, step) instance at `index` in the order of
+// kernels/lip_linearize.py::KERNEL_SHAPES — the three topologies under
+// Euler, then each under RK2 and RK4 — or kUnknownShape.
+template <class Fn>
+inline int with_shape(int index, Fn fn) {
+  switch (index) {
+    case 0: return fn(KangarooShape{});
+    case 1: return fn(QuadShape{});
+    case 2: return fn(PointFeetShape{});
+    case 3: return fn(Stepped<KangarooShape, Rk2>{});
+    case 4: return fn(Stepped<KangarooShape, Rk4>{});
+    case 5: return fn(Stepped<QuadShape, Rk2>{});
+    case 6: return fn(Stepped<QuadShape, Rk4>{});
+    case 7: return fn(Stepped<PointFeetShape, Rk2>{});
+    case 8: return fn(Stepped<PointFeetShape, Rk4>{});
+    default: return kUnknownShape;
+  }
+}
+
+template <class Topo, class Fn>
+inline int with_step(int step, Fn fn) {
+  switch (step) {
+    case Euler::id: return fn(Topo{});
+    case Rk2::id: return fn(Stepped<Topo, Rk2>{});
+    case Rk4::id: return fn(Stepped<Topo, Rk4>{});
+    default: return kUnknownShape;
+  }
+}
+
+template <class Topo>
+inline bool is_topology(int nc, int cm, int n_legs) {
+  return nc == Topo::nc && cm == Topo::cm && n_legs == Topo::n_legs;
+}
+
+// fn(S{}) for the instance of this contact topology (nc contacts of cm
+// points on n_legs legs) and step (Euler::id, Rk2::id, Rk4::id), or
+// kUnknownShape: the topology fixes nx, nu and n_rho, the step the rows of
+// B, so the two pick the instance.
+template <class Fn>
+inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
+  if (is_topology<KangarooShape>(nc, cm, n_legs))
+    return with_step<KangarooShape>(step, fn);
+  if (is_topology<QuadShape>(nc, cm, n_legs)) return with_step<QuadShape>(step, fn);
+  if (is_topology<PointFeetShape>(nc, cm, n_legs))
+    return with_step<PointFeetShape>(step, fn);
+  return kUnknownShape;
+}
 
 // Offsets and counts that follow from a shape.
 template <class S>
 struct Layout {
   static constexpr int nc = S::nc, nx = S::nx, nu = S::nu;
   static constexpr int i_c = 3, i_rdot = 3 + 3 * nc, i_cdot = 6 + 3 * nc;
+  static constexpr int half = nx / 2;                  // pair i: rows i, i + half
   static constexpr int n_res = 16 + 3 * nc;            // residual rows
   static constexpr int n_rv = 2 * S::n_legs * (S::cm - 1);
   static constexpr int pw = 4 + 2 * nc;                // packed parameter row
-  static_assert(nx == 6 + 6 * nc && nu == 3 + 3 * nc, "not a LIP layout");
+  static_assert(nx == 6 + 6 * nc && nu == 3 + 3 * nc && half == i_rdot,
+                "not a LIP layout");
   static_assert(S::n_rho == n_res + n_rv + 3 * nc, "ρ rows");
   static_assert(S::nt == 10 && pw <= 32, "terminal rows, parameter row");
 };
@@ -141,6 +229,70 @@ __device__ __forceinline__ T xdot_row(int j, const T* x, const T* u,
     return a == 2 ? v - T(9.81) : v;
   }
   return u[3 + (j - L::i_cdot)];
+}
+
+// ---- the step ----
+
+// ẋ of pair i's velocity row at position p: r̈ᵢ = η²(p − zᵢ) − g e_z
+// (i < 3), c̈ = u[i] on a contact coordinate (xdot_row's rows, by pair).
+template <typename T>
+__device__ __forceinline__ T pair_accel(int i, T p, const T* u,
+                                        const Consts<T>& k) {
+  if (i < 3) {
+    const T v = k.eta2 * (p - u[i]);
+    return i == 2 ? v - T(9.81) : v;
+  }
+  return u[i];
+}
+
+// Pair i's rows of x⁺ = step(x, u) under RK2 or RK4 on one thread: its
+// position p and velocity v through the stages, each stage point
+// x + c_s·dt·k_{s−1} and the k's summed as ocp/integrators.py forms and sums
+// them (k_s = (v_s, accel(p_s)), the stage's dt/2 as ½·dt, RK4's dt/6 as
+// dt / 6), into *pn and *vn.
+template <class S, typename T>
+__device__ __forceinline__ void step_pair(int i, const T* x, const T* u,
+                                          const Consts<T>& k, T* pn, T* vn) {
+  using St = typename S::Step;
+  static_assert(St::stages > 1, "Euler's rows are step_row's");
+  constexpr int h = Layout<S>::half;
+  const T p = x[i], v = x[i + h];
+  T kp = v, kv = pair_accel(i, p, u, k);
+  T sp = kp, sv = kv;                              // RK4's sum of the k's
+#pragma unroll
+  for (int s = 1; s < St::stages; ++s) {
+    const T cdt = full_stage<St>(s) ? k.dt : T(0.5) * k.dt;
+    const T ps = p + cdt * kp, vs = v + cdt * kv;
+    kp = vs;
+    kv = pair_accel(i, ps, u, k);
+    if constexpr (St::stages == 4) {
+      sp = s == 3 ? sp + kp : sp + T(2) * kp;
+      sv = s == 3 ? sv + kv : sv + T(2) * kv;
+    }
+  }
+  if constexpr (St::stages == 4) {
+    const T d6 = k.dt / T(6);
+    *pn = p + d6 * sp;
+    *vn = v + d6 * sv;
+  } else {
+    *pn = p + k.dt * kp;
+    *vn = v + k.dt * kv;
+  }
+}
+
+// Row j of x⁺ = step(x, u) on one thread: x + dt·ẋ under Euler; under RK2
+// and RK4 row j of its pair's stages (`step_pair`).
+template <class S, typename T>
+__device__ __forceinline__ T step_row(int j, const T* x, const T* u,
+                                      const Consts<T>& k) {
+  if constexpr (S::Step::stages == 1) {
+    return x[j] + k.dt * xdot_row<S>(j, x, u, k);
+  } else {
+    constexpr int h = Layout<S>::half;
+    T pn, vn;
+    step_pair<S>(j < h ? j : j - h, x, u, k, &pn, &vn);
+    return j < h ? pn : vn;
+  }
 }
 
 // ---- residual rows ----
@@ -272,14 +424,14 @@ __device__ __forceinline__ T terminal_sq(const T* x, const T* p,
 // ---- a given plan's node, evaluated on one warp (K13) ----
 
 // One warp evaluates stage node (x, u, p): this lane's share of Σ‖ρ‖²
-// (returned) and, on lanes below nx, row `lane` of the Euler step
-// x + dt·ẋ(x, u) into *step.
+// (returned) and, on lanes below nx, row `lane` of the step
+// x⁺ = step(x, u) into *step.
 template <class S, typename T>
 __device__ __forceinline__ T eval_stage(int lane, const T* x, const T* u,
                                         const T* p, const Consts<T>& k,
                                         T* step) {
   const T acc = stage_sq_lane<S>(lane, x, u, p, k);
-  if (lane < S::nx) *step = x[lane] + k.dt * xdot_row<S>(lane, x, u, k);
+  if (lane < S::nx) *step = step_row<S>(lane, x, u, k);
   return acc;
 }
 

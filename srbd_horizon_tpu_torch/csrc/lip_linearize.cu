@@ -3,39 +3,44 @@
 // launch.
 //
 // Replaces: the dense `MSDDP._linearize_impl` (srbd_horizon_tpu/solvers/
-// msddp.py:200-246), `jax.jacfwd` of the Euler step and of `_stage_rho`
+// msddp.py:200-246), `jax.jacfwd` of the problem's step and of `_stage_rho`
 // under `vmap`, which XLA fused on the TPU (the JAX package wrote no Pallas
 // kernel for it; its LIP problem declares no row sparsity, so JAX forms the
 // dense A, B, Jx, Ju). This kernel writes the rows the port's problem
 // declares (problems/lip.py::row_sets), which hold every nonzero of the
 // dense form. Plain twin: `kernels/lip_linearize.py::lip_linearize_plain`.
 // Per member-node (b, n):
-//     Sx  = dt·(∂ẋ/∂x)[rx]       (A − I on the live rows, A = I + dt ∂ẋ/∂x)
-//     Bs  = dt·(∂ẋ/∂u)[ru]       (B on the live rows)
+//     Sx  = (A − I)[rx]          (A = ∂step/∂x on the live rows)
+//     Bs  = B[ru]                (B = ∂step/∂u on the live rows)
 //     Jxp = (∂ρ/∂x)[gx]          Jup = (∂ρ/∂u)[gu]
-//     ρ   = [stage_residual; √w_c·stage_eq]     d = x + dt·ẋ − X[n+1]
+//     ρ   = [stage_residual; √w_c·stage_eq]     d = step(x, u) − X[n+1]
 // and per member the terminal rt and Jt = ∂rt/∂x. The row sets rx, ru, gx,
 // gu arrive as the int32 table K1 reads (kernels/riccati.py::RiccatiRows).
 //
 // The LIP is linear–quadratic, so every Jacobian entry is a constant of dt,
-// η², 1/nc, √w_c and the weights: Sx, Bs, Jup and Jt are the same for every
+// η², 1/nc, √w_c and the weights under every step (the host forms A and B
+// of RK2 and RK4 by the chain rule through the stages,
+// kernels/lip_linearize.py::step_blocks): Sx, Bs, Jup and Jt are the same for every
 // member-node, and Jxp is a constant template whose tracking rows (rz, rxy,
 // ṙ, rel) the node's `mask_track` scales and whose ċxy equality rows its
-// `cdot_switch` scales. Only ρ and d read the state. Each entry is formed
+// `cdot_switch` scales. Only ρ and d read the state; d is the step's own
+// (lip::step_row: the stages evaluated as ocp/integrators.py evaluates
+// them, not A·x + B·u, which rounds otherwise). Each entry is formed
 // as the twin forms it (the scaled entries as template × scale, equal to
 // the twin's scale × weight; a structural zero stays zero whatever the
 // scale), so the Jacobians agree with the twin bit for bit.
 //
-// Compiled for the sizes of `lip::Shape` only (csrc/lip_common.cuh; the
-// kernel is a template of the shape, another shape an instance): the
-// per-node output sizes, the records and every loop bound are constants;
-// the wrapper refuses other sizes. The row table stays a run-time input:
+// Compiled for the nine (topology, step) instances of csrc/lip_common.cuh
+// (the kernel is a template of the shape, `lip::with_topology` picks the
+// instance): the per-node output sizes, the records and every loop bound
+// are constants; the wrapper refuses other sizes. The row table stays a run-time input:
 // the wrapper forms the templates from it, and the kernel reads its gx
 // rows for the scales of Jxp.
 //
-// What bounds it on an H100: bytes. A member-node writes 2,069 values
-// (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44, d 30) and reads 87; a member
-// adds rt and Jt, 310. At B=512, ns=20 that is ~85 MB of float32 out, 26 µs
+// What bounds it on an H100: bytes. A member-node of the Kangaroo under
+// Euler writes 2,069 values (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44, d 30;
+// under RK Bs is 450) and reads 87; a member adds rt and Jt, 310. At
+// B=512, ns=20 that is ~85 MB of float32 out, 26 µs
 // at 3.35 TB/s, against a few hundred FLOP a member-node. At B=1 the
 // 172 KB take ~0.05 µs of the card's rate: the launch and one node's
 // latency set the time.
@@ -82,7 +87,6 @@ namespace {
 constexpr int kSlotThreads = 512;        // threads a block
 constexpr int kMinBlocks = 2;            // blocks an SM the registers are held to
 constexpr int kGroupUnits = 1;           // a fleet's group: kGroupUnits·kVec<T> nodes
-constexpr int kUnknownShape = -2;        // the sizes are not lip::Shape's
 
 // member-nodes a 16-byte group: kVec<T> values of T are 16 bytes
 template <typename T>
@@ -331,8 +335,7 @@ lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
       } else if (i < G * (Z::nr + Z::nx)) {
         const int j = (i - G * Z::nr) / G, w = i - G * Z::nr - j * G;
         const T* r = rec + w * Z::kRec;
-        const T v = (r[Z::rX + j] + k.dt * lip::xdot_row<S>(j, r + Z::rX,
-                                                            r + Z::rU, k)) -
+        const T v = lip::step_row<S>(j, r + Z::rX, r + Z::rU, k) -
                     r[Z::rXn + j];
         if (w < nv) o.d[(q0 + w) * Z::nx + j] = v;
       }
@@ -423,15 +426,13 @@ int launch_groups(const void* X, const void* U, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <class S, typename T>
 int launch(const void* X, const void* U, const void* const* params,
-           const void* table, const void* tmpl, int B, int ns, int nc, int cm,
-           int n_legs, int n_rx, int n_ru, int n_gx, int n_gu,
-           const double* scalars, void* const* outs, void* stream) {
-  using S = lip::Shape;
-  if (nc != S::nc || cm != S::cm || n_legs != S::n_legs || n_rx != S::n_rx ||
-      n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
-    return kUnknownShape;
+           const void* table, const void* tmpl, int B, int ns, int n_rx,
+           int n_ru, int n_gx, int n_gu, const double* scalars,
+           void* const* outs, void* stream) {
+  if (n_rx != S::n_rx || n_ru != S::n_ru || n_gx != S::n_gx || n_gu != S::n_gu)
+    return lip::kUnknownShape;
   if (B == 0) return 0;
   const Out<T> o{static_cast<T*>(outs[0]), static_cast<T*>(outs[1]),
                  static_cast<T*>(outs[2]), static_cast<T*>(outs[3]),
@@ -446,31 +447,37 @@ int launch(const void* X, const void* U, const void* const* params,
 
 }  // namespace
 
-// outs: Sx, Bs, Jxp, Jup, ρ, d, rt, Jt, each 16-byte aligned; tmpl the
-// template table (kernels/lip_linearize.py::templates), 16-byte aligned.
+// The instance is the topology (nc, cm, n_legs) under the step (its id,
+// lip::Euler / Rk2 / Rk4); outs: Sx, Bs, Jxp, Jup, ρ, d, rt, Jt, each
+// 16-byte aligned; tmpl the template table
+// (kernels/lip_linearize.py::templates), 16-byte aligned.
 #define LINEARIZE_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* X, const void* U,                           \
                       const void* const* params, const void* table,           \
                       const void* tmpl, int B, int ns, int nc, int cm,        \
-                      int n_legs, int n_rx, int n_ru, int n_gx, int n_gu,     \
-                      const double* scalars, void* const* outs,               \
+                      int n_legs, int step, int n_rx, int n_ru, int n_gx,     \
+                      int n_gu, const double* scalars, void* const* outs,     \
                       void* stream) {                                         \
-    return launch<T>(X, U, params, table, tmpl, B, ns, nc, cm, n_legs, n_rx,  \
-                     n_ru, n_gx, n_gu, scalars, outs, stream);                \
+    return lip::with_topology(nc, cm, n_legs, step, [&](auto shape) {        \
+      return launch<decltype(shape), T>(X, U, params, table, tmpl, B, ns,     \
+                                        n_rx, n_ru, n_gx, n_gu, scalars,      \
+                                        outs, stream);                        \
+    });                                                                       \
   }
 
 LINEARIZE_ENTRY(lip_linearize_f32, float)
 LINEARIZE_ENTRY(lip_linearize_f64, double)
 
-// K10's occupancy for float32 (f64 = 0) or float64 tensors, with groups
-// of one member-node (vec = 0) or of 16 bytes' worth (vec = 1), into
-// out[0..4]: blocks resident on one SM
+// K10's occupancy at the instance `shape` (its index in
+// kernels/lip_linearize.py::KERNEL_SHAPES) for float32 (f64 = 0) or
+// float64 tensors, with groups of one member-node (vec = 0) or of 16
+// bytes' worth (vec = 1), into out[0..4]: blocks resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the grid takes at most
 // kMinBlocks of them an SM), warps a block, shared memory bytes a block,
 // registers and local (spilled) bytes a thread.
-template <typename T, int G>
+template <class S, typename T, int G>
 int occupancy(int* out) {
-  auto kernel = lip_linearize_kernel<lip::Shape, T, G>;
+  auto kernel = lip_linearize_kernel<S, T, G>;
   cudaError_t e =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kSlotThreads, 0);
   cudaFuncAttributes attr{};
@@ -482,12 +489,15 @@ int occupancy(int* out) {
   return static_cast<int>(e);
 }
 
-extern "C" int lip_linearize_occupancy(int f64, int vec, int* out) {
-  if (f64)
-    return vec ? occupancy<double, kGroupNodes<double>>(out)
-               : occupancy<double, 1>(out);
-  return vec ? occupancy<float, kGroupNodes<float>>(out)
-             : occupancy<float, 1>(out);
+extern "C" int lip_linearize_occupancy(int shape, int f64, int vec, int* out) {
+  return lip::with_shape(shape, [&](auto sh) {
+    using S = decltype(sh);
+    if (f64)
+      return vec ? occupancy<S, double, kGroupNodes<double>>(out)
+                 : occupancy<S, double, 1>(out);
+    return vec ? occupancy<S, float, kGroupNodes<float>>(out)
+               : occupancy<S, float, 1>(out);
+  });
 }
 
 // The members-nodes a group at B·ns stage nodes on the current card, for

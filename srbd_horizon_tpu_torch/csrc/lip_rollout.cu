@@ -7,11 +7,12 @@
 // a `lax.scan` over the horizon, and the trial's `total_cost` (:158) with
 // the Armijo test of the line search (:1494-1578), all of which XLA fused
 // on the TPU (the JAX package wrote no Pallas kernel for them), with the
-// LIP Euler step (srbd_horizon_tpu/models/lip.py::lip_xdot) fused in.
+// LIP problem's step (Euler, RK2 or RK4 of
+// srbd_horizon_tpu/models/lip.py::lip_xdot) fused in.
 // Plain twin: `kernels/lip_rollout.py::lip_trial_plain`. Per member and α,
 // for n = 0 … ns−1:
 //     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
-//     x̂ₙ₊₁ = x̂ₙ + dt·ẋ(x̂ₙ, uₙ) − (1 − α) dₙ
+//     x̂ₙ₊₁ = step(x̂ₙ, uₙ) − (1 − α) dₙ
 // then
 //     cost  = Σₙ ‖ρ(x̂ₙ, uₙ, pₙ)‖² + ‖ρ_N(x̂_N, p_N)‖²
 //     merit = cost + ν (1 − α)² D
@@ -27,12 +28,13 @@
 // `jax.vmap(MSDDP._true_defects)` (msddp.py:1221-1240, :1484), the solve's
 // starting cost and its final defect norm: per member
 //     cost       = Σₙ ‖ρ(Xₙ, Uₙ, pₙ)‖² + ‖ρ_N(X_N, p_N)‖²
-//     defect_max = maxₙ,ᵢ |Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
+//     defect_max = maxₙ,ᵢ |step(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // and, given x0, node 0 pinned to x0 and the pinned plan written (the
 // solve's pin, msddp.py:1221; x0's rows may lie apart). Plain twin:
 // `kernels/lip_rollout.py::lip_evaluate_plain`.
 //
-// Both are compiled for the sizes of `lip::Shape` only, so every loop over
+// Both are compiled for the nine (topology, step) instances of
+// csrc/lip_common.cuh (`lip::with_topology` picks one), so every loop over
 // rows and columns has a constant trip count; the wrappers refuse other
 // sizes.
 //
@@ -61,7 +63,9 @@
 // j holds x̂ⱼ in a register; K(x̂ − X) takes two lanes a row, 15 columns
 // each, the columns' x̂ − X shuffled from their lanes, joined by one
 // shuffle; uᵢ then lives on lane i; the Euler step of row j reads x̂ and u
-// of lane j ± nx/2 by one shuffle each. x̂ₙ and uₙ go to Xn / Un and to a
+// of lane j ± nx/2 by one shuffle each (its pair), and under RK2 and RK4
+// each later stage reads the partner's stage point by one more shuffle (2
+// rounds a node under RK2, 4 under RK4). x̂ₙ and uₙ go to Xn / Un and to a
 // record an (α, node) in shared memory. After the chains every thread
 // evaluates an (α, node), its residual rows in order (`lip::stage_sq`,
 // `lip::terminal_sq`; a warp an (α, node), as lip_evaluate does, took
@@ -100,22 +104,28 @@
 
 namespace {
 
-using S = lip::Shape;
-using L = lip::Layout<S>;
 constexpr int kMaxAlphas = 4;        // α's of one member a block, a chain warp each
 constexpr int kPieceNodes = 2;       // nodes of K a bulk copy carries
 constexpr int kRing = 4;             // ring slots of K's pieces
 constexpr int kMinBlocks = 5;        // blocks an SM the registers are held to:
                                      // float32 with four α fits five by its bytes
-constexpr int kUnknownShape = -2;    // the sizes are not lip::Shape's
-constexpr int kPw = L::pw;           // a node's packed parameter row
-constexpr int nx = S::nx, nu = S::nu;
-constexpr int kHalf = nx / 2;        // K's columns a lane; the Euler step's partner lane
-static_assert(nx <= 32 && 2 * nu <= 32 && nx == 2 * kHalf && L::i_rdot == kHalf &&
-                  L::i_cdot == L::i_rdot + 3,
-              "a state row a lane, two lanes a K row, row j's ẋ on lane j ± nx/2");
-static_assert(kPieceNodes * nu * nx * 4 % 16 == 0,
-              "a piece of K keeps its member's offset within 16 bytes");
+
+// The launch bound of instance S's trial: kMinBlocks, but four for the RK
+// chains, whose stage values spilled at five (72 registers in float64).
+template <class S>
+constexpr int kTrialMinBlocks = S::Step::stages > 1 ? 4 : kMinBlocks;
+
+// The sizes of instance S: a node's packed parameter row, nx, nu, and
+// K's columns a lane (the step's partner lane is j ± kHalf).
+template <class S>
+struct Sizes {
+  using L = lip::Layout<S>;
+  static constexpr int kPw = L::pw, nx = S::nx, nu = S::nu, kHalf = L::half;
+  static_assert(nx <= 32 && 2 * nu <= 32 && L::i_cdot == L::i_rdot + 3,
+                "a state row a lane, two lanes a K row, row j's ẋ on lane j ± nx/2");
+  static_assert(kPieceNodes * nu * nx * 4 % 16 == 0,
+                "a piece of K keeps its member's offset within 16 bytes");
+};
 
 __host__ __device__ constexpr size_t round16(size_t v) {
   return (v + 15) / 16 * 16;
@@ -147,8 +157,9 @@ struct Regions {
   size_t ring, slot, X, d, U, k, par, prm, rec, bar, total;
 };
 
-template <int E>
+template <class S, int E>
 __host__ __device__ constexpr Regions regions(int ns, int na) {
+  constexpr int nx = S::nx, nu = S::nu, kPw = Sizes<S>::kPw;
   Regions r{};
   r.slot = round16(static_cast<size_t>(kPieceNodes) * nu * nx * E + 16);
   r.ring = 0;
@@ -216,13 +227,13 @@ __device__ __forceinline__ int piece_nodes(int p, int ns) {
 // `landed` offset; a window past either end of the tensor (a member's K
 // not on a 16-byte boundary, at the tensor's first or last piece) goes by
 // cp.async, waited for, then one arrival on `full`.
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ void issue_piece(T* slot, const T* gK, int p,
                                             int ns, const T* Ks0,
                                             const T* Ks1,
                                             unsigned long long* full,
                                             int lane) {
-  constexpr int E = sizeof(T);
+  constexpr int E = sizeof(T), nx = S::nx, nu = S::nu;
   const T* src = gK + p * kPieceNodes * (nu * nx);
   const int count = piece_nodes(p, ns) * (nu * nx);
   const uintptr_t lo = reinterpret_cast<uintptr_t>(src) / 16 * 16;
@@ -246,16 +257,20 @@ __device__ __forceinline__ void issue_piece(T* slot, const T* gK, int p,
 // lane's places (Kr: K's row i, columns 15h … 15h + 14, for lanes i and
 // i + 16; Xj, dj: row j = lane; Ui, ki: row i): x̂ − X (lane j holds x̂ⱼ),
 // uᵢ = (Uᵢ + α kᵢ) + Kᵢ(x̂ − X) (x̂ − X shuffled from the columns' lanes, the
-// two halves joined by one shuffle), x̂ₙ₊₁ = x̂ + dt·ẋ(x̂, u) − (1 − α) dₙ into
-// xh (row j's ẋ from lane j ± nx/2), and x̂ₙ, uₙ to Xn / Un and the record
-// last. Shuffles only: no barrier inside a node.
-template <typename T>
+// two halves joined by one shuffle), x̂ₙ₊₁ = step(x̂, u) − (1 − α) dₙ into
+// xh (row j's ẋ at each stage point from lane j ± nx/2, as lip::step_row
+// forms it), and x̂ₙ, uₙ to Xn / Un and the record last. Shuffles only: no
+// barrier inside a node.
+template <class S, typename T>
 __device__ __forceinline__ void chain_node(const T* Kr, T Xj, T dj, T Ui,
                                            T ki, T& xh, T alpha, T om,
                                            const lip::Consts<T>& k,
                                            T* __restrict__ Xo,
                                            T* __restrict__ Uo, T* rec,
                                            int lane) {
+  using L = lip::Layout<S>;
+  using St = typename S::Step;
+  constexpr int nx = S::nx, nu = S::nu, kHalf = Sizes<S>::kHalf;
   constexpr unsigned kAll = 0xffffffffu;
   const int kh = lane / 16;
   const T base = Ui + alpha * ki;
@@ -276,21 +291,38 @@ __device__ __forceinline__ void chain_node(const T* Kr, T Xj, T dj, T Ui,
   T sk = s0 + s1;
   sk += __shfl_xor_sync(kAll, sk, 16);
   const T u = base + sk;
-  // ẋ's row j (lip::xdot_row): ṙ, ċ = x̂ of lane j + nx/2; r̈ = η²(r − z)
-  // − g e_z and c̈ = u, from lane j − nx/2
+  // ẋ's row j at a point whose row j ± nx/2 is xo (lip::xdot_row): ṙ, ċ =
+  // the point's row j + nx/2; r̈ = η²(r − z) − g e_z and c̈ = u, from lane
+  // j − nx/2
   const int partner = lane < kHalf ? lane + kHalf : lane - kHalf;
-  const T xo = __shfl_sync(kAll, xh, partner);
   const T uo = __shfl_sync(kAll, u, partner);
-  T xd;
-  if (lane < L::i_rdot) {
-    xd = xo;
-  } else if (lane < L::i_cdot) {
-    const T v = k.eta2 * (xo - uo);
-    xd = lane - L::i_rdot == 2 ? v - T(9.81) : v;
+  const auto rate = [&](T xo) {
+    if (lane < L::i_rdot) return xo;
+    if (lane < L::i_cdot) {
+      const T v = k.eta2 * (xo - uo);
+      return lane - L::i_rdot == 2 ? v - T(9.81) : v;
+    }
+    return uo;
+  };
+  T xd = rate(__shfl_sync(kAll, xh, partner));
+  T xn;
+  if constexpr (St::stages == 1) {
+    xn = (xh + k.dt * xd) - om * dj;
   } else {
-    xd = uo;
+    // the later stages: the stage point x̂ + c_s·dt·k_{s−1}, its partner
+    // row by one shuffle, the k's summed as ocp/integrators.py sums them
+    T acc = xd;
+#pragma unroll
+    for (int s = 1; s < St::stages; ++s) {
+      const T cdt = lip::full_stage<St>(s) ? k.dt : T(0.5) * k.dt;
+      xd = rate(__shfl_sync(kAll, xh + cdt * xd, partner));
+      if constexpr (St::stages == 4) acc = s == 3 ? acc + xd : acc + T(2) * xd;
+    }
+    if constexpr (St::stages == 4)
+      xn = (xh + (k.dt / T(6)) * acc) - om * dj;
+    else
+      xn = (xh + k.dt * xd) - om * dj;
   }
-  const T xn = (xh + k.dt * xd) - om * dj;
   if (lane < nx) {
     Xo[lane] = xh;
     rec[lane] = xh;
@@ -304,7 +336,7 @@ __device__ __forceinline__ void chain_node(const T* Kr, T Xj, T dj, T Ui,
 
 // The packed parameter row entry e of node `row` from the member's staged
 // parameter tensors (mt, rdot_ref, c_ref, cdot_switch).
-template <typename T>
+template <class S, typename T>
 __device__ __forceinline__ T param_entry(const T* mt, const T* rd, const T* cr,
                                          const T* cs, int row, int e) {
   constexpr int nc = S::nc;
@@ -314,8 +346,8 @@ __device__ __forceinline__ T param_entry(const T* mt, const T* rd, const T* cr,
   return cs[row * nc + (e - lip::kP_cref - nc)];
 }
 
-template <typename T, bool kEvaluate>
-__global__ void __launch_bounds__(32 * (kMaxAlphas + 1), kMinBlocks)
+template <class S, typename T, bool kEvaluate>
+__global__ void __launch_bounds__(32 * (kMaxAlphas + 1), kTrialMinBlocks<S>)
 lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
                  const T* __restrict__ U, const T* __restrict__ ks,
                  const T* __restrict__ Ks, const T* __restrict__ d,
@@ -326,13 +358,15 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
                  T alpha_min, T* __restrict__ Xn, T* __restrict__ Un,
                  T* __restrict__ cost_out, T* __restrict__ merit_out,
                  bool* __restrict__ ok_out) {
+  constexpr int nx = S::nx, nu = S::nu, kPw = Sizes<S>::kPw,
+                kHalf = Sizes<S>::kHalf;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int groups = (nA + kMaxAlphas - 1) / kMaxAlphas;
   const size_t b = blockIdx.x / groups;
   const int a0 = (blockIdx.x % groups) * kMaxAlphas;
   const int na = nA - a0 < kMaxAlphas ? nA - a0 : kMaxAlphas;
   const int ns1 = ns + 1, np = pieces(ns), nc = S::nc;
-  const Regions r = regions<sizeof(T)>(ns, alphas_a_block(nA));
+  const Regions r = regions<S, sizeof(T)>(ns, alphas_a_block(nA));
   auto* full = reinterpret_cast<unsigned long long*>(smem_raw + r.bar);
   unsigned long long* empty = full + kRing;
   unsigned long long* runs = full + 2 * kRing;     // X, d, U, k
@@ -390,7 +424,7 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     stage_run(sk, gk, ns * nu, runs, lane);
     cp_async_commit();
     for (int p = 0; p < np && p < kRing; ++p)
-      issue_piece(ring + p * slot, gK, p, ns, Ks, Ks1, full + p, lane);
+      issue_piece<S>(ring + p * slot, gK, p, ns, Ks, Ks1, full + p, lane);
     stage_run(smt, gmt, ns1, pars, lane);
     stage_run(srd, grd, ns1 * 3, pars, lane);
     stage_run(scr, gcr, ns1 * nc, pars, lane);
@@ -403,7 +437,7 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
       const int s = p % kRing;
       if (lane == 0) mbarrier_wait(empty + s, (p / kRing - 1) & 1);
       __syncwarp();
-      issue_piece(ring + s * slot, gK, p, ns, Ks, Ks1, full + s, lane);
+      issue_piece<S>(ring + s * slot, gK, p, ns, Ks, Ks1, full + s, lane);
     }
     // the packed parameter rows, while the chains run
     cp_async_wait_group<0>();
@@ -416,7 +450,7 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     const T* lcs = landed(scs, gcs);
     for (int i = lane; i < ns1 * kPw; i += 32) {
       const int row = i / kPw;
-      prm[i] = param_entry(lmt, lrd, lcr, lcs, row, i - row * kPw);
+      prm[i] = param_entry<S>(lmt, lrd, lcr, lcs, row, i - row * kPw);
     }
   } else if (warp < na) {  // α a0 + warp's chain
     const size_t ma = static_cast<size_t>(a0 + warp) * B + b;
@@ -437,8 +471,9 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     int s = 0, m = 0, use = 0;                     // slot, node in piece, slot's use
     for (int n = 0; n < ns; ++n) {
       if (m == 0) mbarrier_wait(full + s, use & 1);
-      chain_node(Kl + s * slot + m * (nu * nx), Xl[n * nx], dl[n * nx],
-                 Ul[n * nu], kl[n * nu], xh, alpha, om, k, Xo, Uo, rec, lane);
+      chain_node<S>(Kl + s * slot + m * (nu * nx), Xl[n * nx], dl[n * nx],
+                    Ul[n * nu], kl[n * nu], xh, alpha, om, k, Xo, Uo, rec,
+                    lane);
       Xo += nx;
       Uo += nu;
       rec += nx + nu;
@@ -516,8 +551,9 @@ struct EvalRegions {
   size_t X, U, mt, rd, cr, cs, x0, prm, bar, total;
 };
 
-template <int E>
+template <class S, int E>
 __host__ __device__ constexpr EvalRegions eval_regions(int ns, int mb) {
+  constexpr int nx = S::nx, nu = S::nu, kPw = Sizes<S>::kPw;
   EvalRegions r{};
   const size_t m = static_cast<size_t>(mb), ns1 = static_cast<size_t>(ns) + 1;
   r.X = 0;
@@ -544,19 +580,20 @@ __host__ __device__ constexpr EvalRegions eval_regions(int ns, int mb) {
 // (`lip::stage_sq` / `lip::terminal_sq`, the rows in order; the node's
 // largest |defect| by `nan_max`), and lane 0 adds the stage nodes in node
 // order and the terminal node last, each node's sums by a shuffle.
-template <typename T>
+template <class S, typename T>
 __global__ void __launch_bounds__(32 * kEvalMembers)
 lip_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
                     const T* __restrict__ x0, int x0_stride,
                     lip::Params<T> P, int B, int ns, int mb,
                     lip::Consts<T> k, T* __restrict__ cost_out,
                     T* __restrict__ dmax_out, T* __restrict__ Xpin) {
-  constexpr int E = sizeof(T), nc = S::nc;
+  constexpr int E = sizeof(T), nc = S::nc, nx = S::nx, nu = S::nu,
+                kPw = Sizes<S>::kPw;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ns1 = ns + 1, nw = blockDim.x / 32;
   const int b0 = blockIdx.x * mb;
   const int nm = B - b0 < mb ? B - b0 : mb;
-  const EvalRegions r = eval_regions<E>(ns, mb);
+  const EvalRegions r = eval_regions<S, E>(ns, mb);
   auto* bar = reinterpret_cast<unsigned long long*>(smem_raw + r.bar);
   // the block's runs in device memory
   const size_t row0 = static_cast<size_t>(b0) * ns1;
@@ -649,10 +686,21 @@ lip_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
     if (n < ns) {
       const T* u = landed(sU, gU) + static_cast<size_t>(m * ns + n) * nu;
       c = lip::stage_sq<S>(x, u, p, k);
+      if constexpr (S::Step::stages == 1) {
 #pragma unroll
-      for (int j = 0; j < nx; ++j) {
-        const T step = x[j] + k.dt * lip::xdot_row<S>(j, x, u, k);
-        dm = lip::nan_max(dm, lip::abs_nan(step - x[nx + j]));
+        for (int j = 0; j < nx; ++j) {
+          const T step = lip::step_row<S>(j, x, u, k);
+          dm = lip::nan_max(dm, lip::abs_nan(step - x[nx + j]));
+        }
+      } else {                                     // a pair's stages once
+        constexpr int h = lip::Layout<S>::half;
+#pragma unroll 1
+        for (int i = 0; i < h; ++i) {
+          T pn, vn;
+          lip::step_pair<S>(i, x, u, k, &pn, &vn);
+          dm = lip::nan_max(dm, lip::abs_nan(pn - x[nx + i]));
+          dm = lip::nan_max(dm, lip::abs_nan(vn - x[nx + h + i]));
+        }
       }
     } else {
       c = lip::terminal_sq<S>(x, p, k);
@@ -671,10 +719,6 @@ lip_evaluate_kernel(const T* __restrict__ X, const T* __restrict__ U,
   }
 }
 
-bool is_shape(int nc, int cm, int n_legs) {
-  return nc == S::nc && cm == S::cm && n_legs == S::n_legs;
-}
-
 // Let a kernel take `bytes` of dynamic shared memory (above 48 KB only
 // after the attribute is raised).
 template <class Kernel>
@@ -686,20 +730,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 constexpr size_t kMaxSmem = 232448;   // an H100 block's dynamic shared memory
 
-template <typename T, bool kEvaluate>
+template <class S, typename T, bool kEvaluate>
 int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
                  const void* Ks, const void* d, const void* alphas,
                  const void* const* params, const void* merit0,
                  const void* D, const void* dV1, const void* dV2, int B,
-                 int ns, int nc, int cm, int n_legs, int nA,
-                 const double* scalars, double nu_w, double beta,
-                 double alpha_min, void* Xn, void* Un, void* cost,
-                 void* merit, void* ok, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
+                 int ns, int nA, const double* scalars, double nu_w,
+                 double beta, double alpha_min, void* Xn, void* Un,
+                 void* cost, void* merit, void* ok, void* stream) {
   if (static_cast<long long>(B) * nA == 0) return 0;
-  const size_t bytes = regions<sizeof(T)>(ns, alphas_a_block(nA)).total;
+  const size_t bytes = regions<S, sizeof(T)>(ns, alphas_a_block(nA)).total;
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = lip_trial_kernel<T, kEvaluate>;
+  auto kernel = lip_trial_kernel<S, T, kEvaluate>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>(B) *
@@ -731,19 +773,18 @@ int sm_count() {
   return count;
 }
 
-template <typename T>
+template <class S, typename T>
 int launch_evaluate(const void* X, const void* U, const void* x0,
                     int x0_stride, const void* const* params, int B, int ns,
-                    int nc, int cm, int n_legs, const double* scalars,
-                    void* cost, void* dmax, void* Xpin, void* stream) {
-  if (!is_shape(nc, cm, n_legs)) return kUnknownShape;
+                    const double* scalars, void* cost, void* dmax, void* Xpin,
+                    void* stream) {
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const int mb = eval_members(B, sm_count());
   const int warps = mb > kEvalWarps ? mb : kEvalWarps;
-  const size_t bytes = eval_regions<sizeof(T)>(ns, mb).total;
+  const size_t bytes = eval_regions<S, sizeof(T)>(ns, mb).total;
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = lip_evaluate_kernel<T>;
+  auto kernel = lip_evaluate_kernel<S, T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<(B + mb - 1) / mb, 32 * warps, bytes,
@@ -758,10 +799,10 @@ int launch_evaluate(const void* X, const void* U, const void* x0,
 // lip_evaluate's occupancy at ns stage nodes with `mb` members a block,
 // into out[0..4]: blocks resident on one SM, warps a block, shared memory
 // bytes a block, registers a thread and local (spilled) bytes a thread.
-template <typename T>
+template <class S, typename T>
 int evaluate_occupancy(int ns, int mb, int* out) {
-  const size_t bytes = eval_regions<sizeof(T)>(ns, mb).total;
-  auto kernel = lip_evaluate_kernel<T>;
+  const size_t bytes = eval_regions<S, sizeof(T)>(ns, mb).total;
+  auto kernel = lip_evaluate_kernel<S, T>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -779,10 +820,10 @@ int evaluate_occupancy(int ns, int mb, int* out) {
 // evaluating kernel, the solver's), into out[0..4]: blocks resident on one
 // SM, dynamic shared memory bytes a block, registers a thread, local
 // (spilled) bytes a thread, warps a block.
-template <typename T>
+template <class S, typename T>
 int trial_occupancy(int ns, int nA, int* out) {
-  const size_t bytes = regions<sizeof(T)>(ns, alphas_a_block(nA)).total;
-  auto kernel = lip_trial_kernel<T, true>;
+  const size_t bytes = regions<S, sizeof(T)>(ns, alphas_a_block(nA)).total;
+  auto kernel = lip_trial_kernel<S, T, true>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -800,21 +841,24 @@ int trial_occupancy(int ns, int nA, int* out) {
 
 // lip_trial_* run the trial; lip_trial_chain_* the same kernel with the
 // evaluation compiled out (Xn and Un; cost, merit and ok are not written):
-// chip_smoke.py times the chain alone with it.
+// chip_smoke.py times the chain alone with it. The instance is the
+// topology (nc, cm, n_legs) under the step (its id, lip::Euler / Rk2 /
+// Rk4).
 #define TRIAL_ENTRY(NAME, T, EVALUATE)                                        \
   extern "C" int NAME(                                                        \
       const void* x0, const void* X, const void* U, const void* ks,           \
       const void* Ks, const void* d, const void* alphas,                      \
       const void* const* params, const void* merit0, const void* D,           \
       const void* dV1, const void* dV2, int B, int ns, int nc, int cm,        \
-      int n_legs, int nA, const double* scalars, double nu_w, double beta,    \
-      double alpha_min, void* Xn, void* Un, void* cost, void* merit,          \
-      void* ok, void* stream) {                                               \
-    return launch_trial<T, EVALUATE>(x0, X, U, ks, Ks, d, alphas, params,     \
-                                     merit0, D, dV1, dV2, B, ns, nc, cm,      \
-                                     n_legs, nA, scalars, nu_w, beta,         \
-                                     alpha_min, Xn, Un, cost, merit, ok,      \
-                                     stream);                                 \
+      int n_legs, int step, int nA, const double* scalars, double nu_w,       \
+      double beta, double alpha_min, void* Xn, void* Un, void* cost,          \
+      void* merit, void* ok, void* stream) {                                  \
+    return lip::with_topology(nc, cm, n_legs, step, [&](auto shape) {        \
+      return launch_trial<decltype(shape), T, EVALUATE>(                      \
+          x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2, B, ns,    \
+          nA, scalars, nu_w, beta, alpha_min, Xn, Un, cost, merit, ok,        \
+          stream);                                                            \
+    });                                                                       \
   }
 
 TRIAL_ENTRY(lip_trial_f32, float, true)
@@ -827,22 +871,29 @@ TRIAL_ENTRY(lip_trial_chain_f64, double, false)
 #define EVALUATE_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* X, const void* U, const void* x0,           \
                       int x0_stride, const void* const* params, int B,        \
-                      int ns, int nc, int cm, int n_legs,                     \
+                      int ns, int nc, int cm, int n_legs, int step,           \
                       const double* scalars, void* cost, void* dmax,          \
                       void* Xpin, void* stream) {                             \
-    return launch_evaluate<T>(X, U, x0, x0_stride, params, B, ns, nc, cm,     \
-                              n_legs, scalars, cost, dmax, Xpin, stream);     \
+    return lip::with_topology(nc, cm, n_legs, step, [&](auto shape) {        \
+      return launch_evaluate<decltype(shape), T>(X, U, x0, x0_stride, params, \
+                                                 B, ns, scalars, cost, dmax,  \
+                                                 Xpin, stream);               \
+    });                                                                       \
   }
 
 EVALUATE_ENTRY(lip_evaluate_f32, float)
 EVALUATE_ENTRY(lip_evaluate_f64, double)
 
-// lip_evaluate's occupancy for float32 (f64 = 0) or float64 tensors at ns
-// stage nodes with the block of B=4096's launch, kEvalMembers members (see
-// evaluate_occupancy above).
-extern "C" int lip_evaluate_occupancy(int f64, int ns, int* out) {
-  return f64 ? evaluate_occupancy<double>(ns, kEvalMembers, out)
-             : evaluate_occupancy<float>(ns, kEvalMembers, out);
+// lip_evaluate's occupancy at the instance `shape` (its index in
+// kernels/lip_linearize.py::KERNEL_SHAPES) for float32 (f64 = 0) or
+// float64 tensors at ns stage nodes with the block of B=4096's launch,
+// kEvalMembers members (see evaluate_occupancy above).
+extern "C" int lip_evaluate_occupancy(int shape, int f64, int ns, int* out) {
+  return lip::with_shape(shape, [&](auto sh) {
+    using S = decltype(sh);
+    return f64 ? evaluate_occupancy<S, double>(ns, kEvalMembers, out)
+               : evaluate_occupancy<S, float>(ns, kEvalMembers, out);
+  });
 }
 
 // The members a lip_evaluate block takes at B members on the current card.
@@ -850,9 +901,13 @@ extern "C" int lip_evaluate_members(int B) {
   return eval_members(B, sm_count());
 }
 
-// K11's occupancy for float32 (f64 = 0) or float64 tensors at ns stage
-// nodes and nA step sizes a call (see trial_occupancy above).
-extern "C" int lip_trial_occupancy(int f64, int ns, int nA, int* out) {
-  return f64 ? trial_occupancy<double>(ns, nA, out)
-             : trial_occupancy<float>(ns, nA, out);
+// K11's occupancy at the instance `shape` (as above) for float32 (f64 =
+// 0) or float64 tensors at ns stage nodes and nA step sizes a call (see
+// trial_occupancy above).
+extern "C" int lip_trial_occupancy(int shape, int f64, int ns, int nA, int* out) {
+  return lip::with_shape(shape, [&](auto sh) {
+    using S = decltype(sh);
+    return f64 ? trial_occupancy<S, double>(ns, nA, out)
+               : trial_occupancy<S, float>(ns, nA, out);
+  });
 }

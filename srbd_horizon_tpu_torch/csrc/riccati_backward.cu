@@ -93,7 +93,7 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); twenty-five instantiations are built (`with_instance`
+// solve (Solve); forty instantiations are built (`with_instance`
 // below): the collapsed form with the inverse at every shape, the Tassa
 // form with the inverse at every shape but the two AL ones (DDPOptions'
 // default), and the Tassa form with Cholesky at every shape (the AL
@@ -103,7 +103,10 @@
 // The collapsed ones compile to the code they had. The SRBD problem under
 // RK2 and RK4 (SrbdRkShape, QuadRkShape, PointFeetRkShape; the two steps
 // share each) has every row of B live (n_ru = nx, as the isrbd-AL shapes
-// have), so its B-chain products run over nx rows, not 18 (12).
+// have), so its B-chain products run over nx rows, not 18 (12). The LIP
+// has a shape at each of its three topologies under Euler and under RK
+// (LipShape, LipRkShape, LipQuadShape, LipQuadRkShape, LipPointFeetShape,
+// LipPointFeetRkShape), each with all three forms.
 //  * Cholesky on one warp, in float64, column by column: lane i ≥ j forms
 //    A[i][j] − Σ_{k<j} L[i][k]L[j][k] in order of k, lane j's value is the
 //    pivot, √ of it is L[j][j], and the lanes below divide by it. A pivot
@@ -692,6 +695,8 @@ int inverse(const void* A, void* out, int M, int n, void* stream) {
     return launch_inverse<LipShape::nu, T>(A, out, M, stream);
   if (n == PointFeetShape::nu)
     return launch_inverse<PointFeetShape::nu, T>(A, out, M, stream);
+  if (n == LipPointFeetShape::nu)
+    return launch_inverse<LipPointFeetShape::nu, T>(A, out, M, stream);
   return kUnknownShape;
 }
 
@@ -741,6 +746,21 @@ int with_instance(int inst, Fn fn) {
     case 22: return fn(Inst<QuadShape, Form::kTassa, Solve::kCholesky>{});
     case 23: return fn(Inst<QuadRkShape, Form::kTassa, Solve::kCholesky>{});
     case 24: return fn(Inst<PointFeetRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 25: return fn(Inst<LipRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 26: return fn(Inst<LipRkShape, Form::kTassa, Solve::kSchur>{});
+    case 27: return fn(Inst<LipRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 28: return fn(Inst<LipQuadShape, Form::kCollapsed, Solve::kSchur>{});
+    case 29: return fn(Inst<LipQuadShape, Form::kTassa, Solve::kSchur>{});
+    case 30: return fn(Inst<LipQuadShape, Form::kTassa, Solve::kCholesky>{});
+    case 31: return fn(Inst<LipQuadRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 32: return fn(Inst<LipQuadRkShape, Form::kTassa, Solve::kSchur>{});
+    case 33: return fn(Inst<LipQuadRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 34: return fn(Inst<LipPointFeetShape, Form::kCollapsed, Solve::kSchur>{});
+    case 35: return fn(Inst<LipPointFeetShape, Form::kTassa, Solve::kSchur>{});
+    case 36: return fn(Inst<LipPointFeetShape, Form::kTassa, Solve::kCholesky>{});
+    case 37: return fn(Inst<LipPointFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 38: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kSchur>{});
+    case 39: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }
@@ -771,7 +791,7 @@ int with_instance(int inst, Fn fn) {
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
-// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 12, 15, 24 or 30: the
+// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 9, 12, 15, 24 or 30: the
 // device routine K1 runs, for timing and checking it by itself.
 extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
                                void* stream) {

@@ -81,6 +81,38 @@ struct PointFeetRkShape {   // the point-feet biped
   static constexpr int min_blocks = 4;
 };
 
+// build_lip_problem at the other topologies and steps: under RK2 and RK4
+// (which share a shape) every row of B is live
+struct LipRkShape {         // the Kangaroo's line feet under RK
+  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 30,
+                       n_gx = 32, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
+};
+
+struct LipQuadShape {       // the point-feet quadruped
+  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 15,
+                       n_gx = 28, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
+};
+
+struct LipQuadRkShape {     // the point-feet quadruped under RK
+  static constexpr int nx = 30, nu = 15, nt = 10, n_rx = 18, n_ru = 30,
+                       n_gx = 28, n_gu = 18, n_b = 6, n_uc = 15;
+  static constexpr int min_blocks = 4;
+};
+
+struct LipPointFeetShape {  // the point-feet biped
+  static constexpr int nx = 18, nu = 9, nt = 10, n_rx = 12, n_ru = 9,
+                       n_gx = 22, n_gu = 12, n_b = 6, n_uc = 9;
+  static constexpr int min_blocks = 4;
+};
+
+struct LipPointFeetRkShape {  // the point-feet biped under RK
+  static constexpr int nx = 18, nu = 9, nt = 10, n_rx = 12, n_ru = 18,
+                       n_gx = 22, n_gu = 12, n_b = 6, n_uc = 9;
+  static constexpr int min_blocks = 4;
+};
+
 // Float64 workspace of the block-Schur inverse of an n×n matrix.
 __host__ __device__ constexpr int inv_work(int n) {
   return n <= 3 ? 0

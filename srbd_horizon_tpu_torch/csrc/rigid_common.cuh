@@ -2,8 +2,9 @@
 // csrc/srbd_common.cuh) and the isrbd kernels (K5, K6, through
 // csrc/isrbd_common.cuh): the homogeneous quaternion rotation and its
 // derivatives, the world inertia, the 3×3 adjugate, the quaternion rate
-// ȯ = ½(ω,0)⊗o, cross-product matrix columns and the warp reductions. One
-// copy, so the two problem families cannot drift apart.
+// ȯ = ½(ω,0)⊗o, cross-product matrix columns and the warp reductions; and
+// the step tags the SRBD and the LIP kernels are compiled for. One copy, so
+// the problem families cannot drift apart.
 
 #pragma once
 
@@ -11,6 +12,28 @@
 #include <stddef.h>
 
 namespace rigid {
+
+// The steps (ocp/integrators.py; kernels/linearize.py::STEPS and
+// kernels/lip_linearize.py::STEPS, same order): the stage points of each
+// are x + c_s·dt·k_{s−1}, k_s = ẋ(stage point, u), and x⁺ = x + dt·k₁
+// (Euler), x + dt·k₂ (RK2, the explicit midpoint) or
+// x + dt/6·(k₁ + 2k₂ + 2k₃ + k₄) (RK4).
+struct Euler {
+  static constexpr int id = 0, stages = 1;
+};
+struct Rk2 {
+  static constexpr int id = 1, stages = 2;
+};
+struct Rk4 {
+  static constexpr int id = 2, stages = 4;
+};
+
+// c_s of stage s ≥ 1 (stage 0 is x itself): ½ for RK2's second stage and
+// RK4's second and third, 1 for RK4's fourth.
+template <class St>
+__host__ __device__ constexpr bool full_stage(int s) {
+  return St::stages == 4 && s == 3;
+}
 
 // R = quat_to_rot(o), the homogeneous (not normalized) form.
 template <typename T>

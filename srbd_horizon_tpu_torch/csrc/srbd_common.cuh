@@ -26,26 +26,8 @@ namespace srbd {
 
 using namespace rigid;
 
-// The steps (ocp/integrators.py; kernels/linearize.py::STEPS, same order):
-// the stage points of each are x + c_s·dt·k_{s−1}, k_s = ẋ(stage point, u),
-// and x⁺ = x + dt·k₁ (Euler), x + dt·k₂ (RK2, the explicit midpoint) or
-// x + dt/6·(k₁ + 2k₂ + 2k₃ + k₄) (RK4).
-struct Euler {
-  static constexpr int id = 0, stages = 1;
-};
-struct Rk2 {
-  static constexpr int id = 1, stages = 2;
-};
-struct Rk4 {
-  static constexpr int id = 2, stages = 4;
-};
-
-// c_s of stage s ≥ 1 (stage 0 is x itself): ½ for RK2's second stage and
-// RK4's second and third, 1 for RK4's fourth.
-template <class St>
-__host__ __device__ constexpr bool full_stage(int s) {
-  return St::stages == 4 && s == 3;
-}
+// The steps Euler, Rk2 and Rk4 (kernels/linearize.py::STEPS, same order)
+// and `full_stage` are rigid_common.cuh's.
 
 // The contact topologies the SRBD kernels are compiled for, one struct a
 // robot: build_srbd_problem with the Kangaroo's line feet, the quadruped's

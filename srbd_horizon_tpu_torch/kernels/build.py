@@ -250,18 +250,6 @@ def occupancy_query(lib_name: str, entry: str, fields, *args) -> dict:
     return dict(zip(fields, out))
 
 
-def evaluate_occupancy(name: str, ns: int, f64: bool) -> dict:
-    """An evaluation entry's occupancy on the current card (the LIP one;
-    the SRBD and isrbd ones take their shape, `kernels/rollout.py`,
-    `kernels/isrbd_rollout.py`), from
-    `<name>_evaluate_occupancy` in `lib<name>_rollout.so` at ns stage
-    nodes: blocks resident on one SM
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
-    memory bytes a block, registers and local (spilled) bytes a thread."""
-    return occupancy_query(f"{name}_rollout", f"{name}_evaluate_occupancy",
-                           EVALUATE_OCCUPANCY_FIELDS, int(f64), ns)
-
-
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""
     lib = _loaded.get(name)

@@ -29,15 +29,17 @@ Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
 
 The step in D̂ is the problem's own (`family_step`, as JAX's
 `_true_defects` takes `ocp.step`): the SRBD problem's step (Euler, RK2 or
-RK4), Euler on the LIP, the RK2 step of the double integrator on the
-isrbd AL inner problem; the kernel takes the same step.
+RK4), the LIP's (Euler at its one family here), the RK2 step of the
+double integrator on the isrbd AL inner problem; the kernel takes the
+same step.
 
 The kernel is compiled for twelve problems (`FAMILIES`): the SRBD problem
 at each of its nine (topology, step) instances (the Kangaroo, the
 point-feet quadruped and the point-feet biped under Euler, RK2 and RK4),
-the LIP, and the AL inner problem of both the Kangaroo's and the
-quadruped's isrbd problems; CUDA tensors of other sizes raise ValueError,
-CPU tensors take the twin at any size.
+the LIP at the Kangaroo's line feet under Euler, and the AL inner problem
+of both the Kangaroo's and the quadruped's isrbd problems; CUDA tensors of
+other sizes or steps (the LIP at the point-feet topologies or under RK)
+raise ValueError, CPU tensors take the twin at any size.
 
 A block of eight warps takes one member and up to four of its α's
 (`ALPHAS_A_BLOCK`): each α's recursion runs on `chain_warps(nα)` warps
@@ -81,7 +83,7 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
 # shape, so K1's name does not pick a family: the name is K1's shape name
 # where that shape has one family, K4's name under RK.
 FAMILIES = (("srbd", "kangaroo", "srbd", "srbd"),
-            ("lip", None, "lip", "lip"),
+            ("lip", "kangaroo", "lip", "lip"),
             ("srbd", "quadruped", "quadruped", "quadruped"),
             ("isrbd_al", "kangaroo", "isrbd_al", "isrbd_al"),
             ("isrbd_al", "quadruped", "isrbd_al_quadruped",
@@ -228,9 +230,9 @@ def family_xdot(terms):
 
 def family_step(terms, dt: float):
     """step(x, u) of the problem behind `terms`, its OCP's integrator: the
-    SRBD problem's own step (`SRBDTerms.step`), Euler on the LIP, the RK2
-    (midpoint) step on the isrbd AL inner problem
-    (srbd_horizon_tpu/ocp/integrators.py)."""
+    SRBD and the LIP problems' own step (`SRBDTerms.step`,
+    `LIPTerms.step`), the RK2 (midpoint) step on the isrbd AL inner
+    problem (srbd_horizon_tpu/ocp/integrators.py)."""
     xdot = family_xdot(terms)
     if terms.family == "isrbd_al":
         return lambda x, u: x + dt * xdot(x + 0.5 * dt * xdot(x, u), u)

@@ -7,34 +7,45 @@ raises.
 
 Both compute, in the batch-first layout K1 reads, what the JAX package's
 dense `MSDDP._linearize_impl` (srbd_horizon_tpu/solvers/msddp.py:200-246,
-`jax.jacfwd` of the Euler step and of `_stage_rho`; the JAX LIP problem
-declares no row sparsity) computes, sliced by the rows
+`jax.jacfwd` of the problem's step and of `_stage_rho`; the JAX LIP
+problem declares no row sparsity) computes, sliced by the rows
 `problems/lip.py::row_sets` declares, per member b and node n:
 
-    Sx  = dt·(∂ẋ/∂x)[rx]  (B,ns,|rx|,nx)    Bs  = dt·(∂ẋ/∂u)[ru]  (B,ns,|ru|,nu)
+    Sx  = (A − I)[rx]     (B,ns,|rx|,nx)    Bs  = B[ru]           (B,ns,|ru|,nu)
     Jxp = (∂ρ/∂x)[gx]     (B,ns,|gx|,nx)    Jup = (∂ρ/∂u)[gu]     (B,ns,|gu|,nu)
-    ρ   = [residual; √w_c·eq]  (B,ns,nr)     d   = x + dt·ẋ − X[n+1]  (B,ns,nx)
+    ρ   = [residual; √w_c·eq]  (B,ns,nr)     d   = step(x, u) − X[n+1]  (B,ns,nx)
     rt  = terminal residual (B,10)          Jt  = ∂rt/∂x (B,10,nx)
+
+with A = ∂step/∂x, B = ∂step/∂u of the problem's step (`LIPTerms.step`):
+under Euler A − I = dt·∂ẋ/∂x, B = dt·∂ẋ/∂u; under RK2 and RK4 the chain
+rule through the stages (`step_blocks`), and every row of B is live.
 
 The LIP is linear–quadratic: every Jacobian entry is a constant of dt, η²,
 1/nc and the weights, except the tracking rows, which `mask_track`
 scales, and the ċxy equality rows, which `cdot_switch` scales (those
-rows are live at node 0 too: zmp and r̈, c̈ are never masked).
+rows are live at node 0 too: zmp and r̈, c̈ are never masked). Each state
+pair (rₐ, ṙₐ) and (c_q, ċ_q) is its own linear system, so A and B are 2×2
+blocks and 2-vectors a pair.
 
-What bounds the kernel on an H100: bytes — a member-node writes 2,069
-values (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44, d 30) and reads 87, and
-computes almost nothing (the note in the .cu gives the design: groups of
-one member-node at small B, of 16 bytes' worth at fleet sizes, the
-Jacobian templates formed once here by `templates` and kept on the
-device, `schedule` its launch). A call's host work: the shape check and a
-`_Setup` (entry, scalars, row and template tables, output layout, pointer
-arrays) made once a size through `host_setup`, one `check_tensors` pass,
-one buffer cut into the outputs (`build.output_views`), the raw stream.
+What bounds the kernel on an H100: bytes — a member-node of the
+Kangaroo writes 2,069 values (Sx 540, Bs 225, Jxp 960, Jup 270, ρ 44,
+d 30; under RK Bs is 450) and reads 87, and computes almost nothing (the
+note in the .cu gives the design: groups of one member-node at small B,
+of 16 bytes' worth at fleet sizes, the Jacobian templates formed once
+here by `templates` and kept on the device, `schedule` its launch). A
+call's host work: the shape check and a `_Setup` (entry, scalars, row and
+template tables, output layout, pointer arrays) made once a size through
+`host_setup`, one `check_tensors` pass, one buffer cut into the outputs
+(`build.output_views`), the raw stream.
 
-K10, K11 and lip_evaluate are compiled for one set of LIP sizes
-(`lip::Shape` in csrc/lip_common.cuh, `KERNEL_SHAPE` here); their wrappers
-raise ValueError, naming the sizes, for CUDA tensors of any other, and
-take the plain twin for CPU tensors of any sizes.
+K10, K11 and lip_evaluate are compiled for three LIP topologies, the
+Kangaroo's line feet, the point-feet quadruped's and the point-feet
+biped's (`lip::KangarooShape`, `lip::QuadShape`, `lip::PointFeetShape` in
+csrc/lip_common.cuh, `TOPOLOGIES` here), each under the Euler, RK2 and RK4
+steps (`KERNEL_SHAPES`, the nine instances); their wrappers raise
+ValueError, naming the sizes and the step, for CUDA tensors of any other
+(an RK problem never reaches an Euler instance), and take the plain twin
+for CPU tensors of any sizes.
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ from srbd_horizon_tpu_torch.kernels.build import (
     out_slots,
     output_views,
 )
+from srbd_horizon_tpu_torch.kernels.linearize import STAGE_POINTS
+from srbd_horizon_tpu_torch.kernels.rollout import step_fn
 from srbd_horizon_tpu_torch.problems.lip import N_TERMINAL
 
 # the function K10 replaces (jacfwd under vmap, XLA-fused; the JAX package
@@ -61,11 +74,39 @@ from srbd_horizon_tpu_torch.problems.lip import N_TERMINAL
 REPLACES = "srbd_horizon_tpu/solvers/msddp.py:200"
 SOURCE = "srbd_horizon_tpu_torch/csrc/lip_linearize.cu"
 
-# The sizes K10, K11 and lip_evaluate are compiled for (`lip::Shape` in
-# csrc/lip_common.cuh): build_lip_problem with the Kangaroo feet. The row
-# counts are K10's (`RiccatiRows.from_ocp` of that OCP).
-KERNEL_SHAPE = dict(nc=4, cm=2, n_legs=2, nx=30, nu=15, n_rho=44, nt=10,
-                    n_rx=18, n_ru=15, n_gx=32, n_gu=18)
+# The topologies K10, K11 and lip_evaluate are compiled for, in the order
+# of the shape structs of csrc/lip_common.cuh (KangarooShape, QuadShape,
+# PointFeetShape): build_lip_problem with the Kangaroo's line feet, the
+# quadruped's point feet and the point-feet biped, under the Euler step.
+# The row counts are K10's (`RiccatiRows.from_ocp` of each OCP).
+TOPOLOGIES = {
+    "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=30, nu=15, n_rho=44, nt=10,
+                     n_rx=18, n_ru=15, n_gx=32, n_gu=18),
+    "quadruped": dict(nc=4, cm=1, n_legs=4, nx=30, nu=15, n_rho=40, nt=10,
+                      n_rx=18, n_ru=15, n_gx=28, n_gu=18),
+    "point_feet": dict(nc=2, cm=1, n_legs=2, nx=18, nu=9, n_rho=28, nt=10,
+                       n_rx=12, n_ru=9, n_gx=22, n_gu=12),
+}
+# the steps, in the order of csrc/lip_common.cuh's step tags (Euler, Rk2,
+# Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
+STEPS = ("EULER", "RK2", "RK4")
+
+
+def _instance(topology: str, step: str) -> dict:
+    sizes = dict(TOPOLOGIES[topology], step=step)
+    if step != "EULER":
+        sizes["n_ru"] = sizes["nx"]
+    return sizes
+
+
+# The (topology, step) instances K10, K11 and lip_evaluate are compiled
+# for, in the order of csrc/lip_common.cuh's `with_shape`: the three
+# topologies under Euler, then each under RK2 and RK4.
+KERNEL_SHAPES = {
+    **{name: _instance(name, "EULER") for name in TOPOLOGIES},
+    **{f"{name}_{step.lower()}": _instance(name, step)
+       for name in TOPOLOGIES for step in STEPS[1:]},
+}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "rdot_ref", "c_ref", "cdot_switch")
@@ -73,10 +114,10 @@ N_SCALARS = 13       # LIPTerms.kernel_scalars
 
 
 def kernel_sizes(terms, nx: int, nu: int, rows=None):
-    """The sizes a LIP kernel would be compiled for: the problem's, and
-    with `rows` (a `RiccatiRows`) the row counts K10 emits."""
+    """The sizes a LIP kernel would be compiled for: the problem's and its
+    step, and with `rows` (a `RiccatiRows`) the row counts K10 emits."""
     sizes = dict(nc=terms.nc, cm=terms.contact_model,
-                 n_legs=terms.number_of_legs, nx=nx, nu=nu,
+                 n_legs=terms.number_of_legs, step=terms.step, nx=nx, nu=nu,
                  n_rho=terms.n_rho, nt=N_TERMINAL)
     if rows is not None:
         sizes.update(n_rx=len(rows.rx), n_ru=len(rows.ru),
@@ -84,14 +125,27 @@ def kernel_sizes(terms, nx: int, nu: int, rows=None):
     return sizes
 
 
-def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None):
-    """Raise ValueError, naming the sizes, unless they are those the LIP
-    kernels are compiled for (`KERNEL_SHAPE`)."""
+def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None) -> str:
+    """The name of the instance in `KERNEL_SHAPES` that has these sizes and
+    this step (an RK problem never matches an Euler instance); ValueError,
+    naming the sizes, if the LIP kernels are compiled for none."""
     sizes = kernel_sizes(terms, nx, nu, rows)
-    if sizes != {k: KERNEL_SHAPE[k] for k in sizes}:
-        raise ValueError(
-            f"{name} has no kernel for the sizes {sizes}; it is compiled for "
-            f"{KERNEL_SHAPE} (csrc/lip_common.cuh)")
+    for shape, want in KERNEL_SHAPES.items():
+        if sizes == {k: want[k] for k in sizes}:
+            return shape
+    known = "; ".join(f"{shape} {want}" for shape, want in KERNEL_SHAPES.items())
+    raise ValueError(
+        f"{name} has no kernel for the sizes {sizes}; it is compiled for "
+        f"{known} (csrc/lip_common.cuh)")
+
+
+def shape_index(shape: str) -> int:
+    """The position of `shape` in `KERNEL_SHAPES`, which the C entries and
+    the occupancy entries take (`lip::with_shape`)."""
+    if shape not in KERNEL_SHAPES:
+        raise ValueError(f"no LIP kernel shape {shape!r}; the shapes are "
+                         f"{tuple(KERNEL_SHAPES)}")
+    return list(KERNEL_SHAPES).index(shape)
 
 
 def kernel_params(params, Bsz, ns, nc, dtype, device):
@@ -136,11 +190,13 @@ def lip_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
     """Plain PyTorch K10. X (B,ns+1,nx), U (B,ns,nu), params leaves
     (B,ns+1,dim), `terms` the problem's `LIPTerms`, `rows` its
     `RiccatiRows`, wc = √w_c in the working dtype. Returns the dict
-    Sx, Bs, Jxp, Jup, rho, rt, Jt, d (contiguous, batch-first)."""
+    Sx, Bs, Jxp, Jup, rho, rt, Jt, d (contiguous, batch-first). Sx and Bs
+    are the constants of the problem's step (`dynamics_entries`, the
+    tables K10's templates hold); d is the step's own defect."""
     Bsz, ns1, nx = X.shape
     ns, nu, nc = ns1 - 1, U.shape[-1], terms.nc
     cm, n_legs = terms.contact_model, terms.number_of_legs
-    i_rdot, i_cdot = 3 + 3 * nc, 6 + 3 * nc
+    i_cdot = 6 + 3 * nc
     n_res, nr = terms.n_res, terms.n_rho
     eta2 = terms.eta2
     idx = rows.index(X.device)
@@ -149,16 +205,10 @@ def lip_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
     x = X[:, :ns]
     p = {k: params[k][:, :ns] for k in PARAM_KEYS}
 
-    # ∂ẋ/∂x and ∂ẋ/∂u (constants)
-    Jxd = X.new_zeros(lead + (nx, nx))
-    Jud = X.new_zeros(lead + (nx, nu))
-    for j in range(3):
-        Jxd[..., j, i_rdot + j] = 1.0
-        Jxd[..., i_rdot + j, j] = eta2
-        Jud[..., i_rdot + j, j] = -eta2
-    for q in range(3 * nc):
-        Jxd[..., 3 + q, i_cdot + q] = 1.0
-        Jud[..., i_cdot + q, 3 + q] = 1.0
+    # A − I and B of the step (constants)
+    dyn = dynamics_entries(terms, rows, dt, X.dtype)
+    Sx, Bs = (torch.from_numpy(dyn[k]).to(X.device).expand(
+        lead + dyn[k].shape).contiguous() for k in ("Sx", "Bs"))
 
     # ∂ρ/∂x and ∂ρ/∂u of the stacked stage residual
     mt = p["mask_track"][..., 0]
@@ -195,15 +245,16 @@ def lip_linearize_plain(X, U, params, terms, rows, dt: float, wc: float):
     xT = X[:, ns]
     Jt = X.new_zeros((Bsz, N_TERMINAL, nx))
     _tracking_jac(Jt, terms, torch.ones_like(xT[:, 0]), 6)
+    step = step_fn(terms.xdot, dt, terms.step)
     return dict(
-        Sx=(dt * Jxd).index_select(-2, idx["rx"]).contiguous(),
-        Bs=(dt * Jud).index_select(-2, idx["ru"]).contiguous(),
+        Sx=Sx,
+        Bs=Bs,
         Jxp=Jrx.index_select(-2, idx["gx"]).contiguous(),
         Jup=Jru.index_select(-2, idx["gu"]).contiguous(),
         rho=terms.stage_rho(x, U, p, wc).contiguous(),
         rt=terms.terminal_residual(xT, p_term).contiguous(),
         Jt=Jt,
-        d=((x + dt * terms.xdot(x, U)) - X[:, 1:]).contiguous(),
+        d=(step(x, U) - X[:, 1:]).contiguous(),
     )
 
 
@@ -249,7 +300,7 @@ def schedule(Bsz: int, ns: int, dtype, sms: int):
 
 def output_shapes(Bsz: int, ns: int, sizes: dict):
     """K10's outputs ((slot, shape), …) in `FIELDS` order; `sizes` holds
-    nx, nu, n_rho and the row counts (`KERNEL_SHAPE`)."""
+    nx, nu, n_rho and the row counts (an entry of `KERNEL_SHAPES`)."""
     z = sizes
     nx, nu = z["nx"], z["nu"]
     return tuple(enumerate((
@@ -259,40 +310,96 @@ def output_shapes(Bsz: int, ns: int, sizes: dict):
         (Bsz, N_TERMINAL, nx))))
 
 
+def _pair_step(m, n, dt: float, step: str, T):
+    """(A − I, B) of one state pair (position, velocity) under the step
+    `step`, its ẋ = m·(p, v) + n·w + const with m a 2×2 and n a 2-vector
+    of T: the chain rule through the stages (dk_s = m (I + c_s·dt·dk_{s−1})
+    in x, m (c_s·dt·dk_{s−1}) + n in w), the stages summed as
+    ocp/integrators.py sums them, every product and sum rounded in T.
+    Under Euler, A − I = dt·m and B = dt·n."""
+    dt_ = T(dt)
+    scale = lambda f, a: [[f * a[i][j] for j in range(2)] for i in range(2)]
+    if step == "EULER":
+        return scale(dt_, m), [dt_ * n[0], dt_ * n[1]]
+    one, zero = T(1), T(0)
+    kx, ku = m, list(n)
+    kxs, kus = [kx], [ku]
+    for c in STAGE_POINTS[step][1:]:
+        cdt = T(c * dt)
+        y = [[(one if i == j else zero) + cdt * kx[i][j] for j in range(2)]
+             for i in range(2)]
+        kx = [[m[i][0] * y[0][j] + m[i][1] * y[1][j] for j in range(2)]
+              for i in range(2)]
+        ku = [(m[i][0] * (cdt * ku[0]) + m[i][1] * (cdt * ku[1])) + n[i]
+              for i in range(2)]
+        kxs.append(kx)
+        kus.append(ku)
+    if step == "RK2":
+        return scale(dt_, kxs[1]), [dt_ * kus[1][0], dt_ * kus[1][1]]
+    sixth, two = T(dt / 6.0), T(2)
+    comb = lambda v: ((v[0] + two * v[1]) + two * v[2]) + v[3]
+    amI = [[sixth * comb([k[i][j] for k in kxs]) for j in range(2)]
+           for i in range(2)]
+    return amI, [sixth * comb([k[i] for k in kus]) for i in range(2)]
+
+
+def step_blocks(terms, dt: float, dtype) -> dict:
+    """The step's A − I (2×2) and B (2-vector) of the two kinds of state
+    pair, in the working type: "com" — (rₐ, ṙₐ) with r̈ₐ = η²(rₐ − zₐ) − g
+    — and "contact" — (c_q, ċ_q) with c̈_q the input."""
+    T = np.float32 if dtype == torch.float32 else np.float64
+    eta2, one, zero = T(terms.eta2), T(1), T(0)
+    return dict(
+        com=_pair_step(((zero, one), (eta2, zero)), (zero, -eta2), dt,
+                       terms.step, T),
+        contact=_pair_step(((zero, one), (zero, zero)), (zero, one), dt,
+                           terms.step, T))
+
+
+def dynamics_entries(terms, rows, dt: float, dtype) -> dict:
+    """Sx = (A − I)[rx] and Bs = B[ru] of the problem's step, each a (rows,
+    cols) numpy array in the working type (K10's first two templates and
+    the twin's outputs), from `step_blocks`: state row r is the position
+    (r < nx/2) or velocity row of pair i = r mod nx/2, whose columns are i
+    and i + nx/2 in x and i in u. Made once for (rows, dt, dtype)."""
+    key = ("dynamics", rows.rx, rows.ru, float(dt), dtype)
+    if key not in terms._cache:
+        T = np.float32 if dtype == torch.float32 else np.float64
+        nc = terms.nc
+        nx, nu, half = 6 + 6 * nc, 3 + 3 * nc, 3 + 3 * nc
+        blocks = step_blocks(terms, dt, dtype)
+        Sx = np.zeros((len(rows.rx), nx), T)
+        Bs = np.zeros((len(rows.ru), nu), T)
+        for out, rs in ((Sx, rows.rx), (Bs, rows.ru)):
+            for k, r in enumerate(rs):
+                i, h = r % half, r // half
+                amI, b = blocks["com" if i < 3 else "contact"]
+                if out is Sx:
+                    out[k, i], out[k, i + half] = amI[h][0], amI[h][1]
+                else:
+                    out[k, i] = b[h]
+        terms._cache[key] = dict(Sx=Sx, Bs=Bs)
+    return terms._cache[key]
+
+
 def template_entries(terms, rows, dt: float, wc: float, dtype) -> dict:
     """The Jacobian templates K10 stores, formed on the host in the working
     type by the .cu's entry formulas (each product and quotient rounded as
-    the device rounds it), from the row table: Sx = dt·(∂ẋ/∂x)[rx], Bs =
-    dt·(∂ẋ/∂u)[ru], Jxp = (∂ρ/∂x)[gx] before its rows' scales (the tracking
-    mask and cdot_switch taken as 1), Jup = (∂ρ/∂u)[gu], Jt = ∂rt/∂x; each a
-    (rows, cols) numpy array."""
+    the device rounds it), from the row table: Sx = (A − I)[rx] and Bs =
+    B[ru] of the step (`dynamics_entries`), Jxp = (∂ρ/∂x)[gx] before its
+    rows' scales (the tracking mask and cdot_switch taken as 1), Jup =
+    (∂ρ/∂u)[gu], Jt = ∂rt/∂x; each a (rows, cols) numpy array."""
     T = np.float32 if dtype == torch.float32 else np.float64
     nc, cm, legs = terms.nc, terms.contact_model, terms.number_of_legs
     nx, nu = 6 + 6 * nc, 3 + 3 * nc
     i_c, i_rdot, i_cdot = 3, 3 + 3 * nc, 6 + 3 * nc
     n_res, n_rv = 16 + 3 * nc, 2 * legs * (cm - 1)
-    (dt_, eta2, w_r, w_rdot, w_zmp, w_rel, w_qddot, wc_) = (
+    (_, eta2, w_r, w_rdot, w_zmp, w_rel, w_qddot, wc_) = (
         T(v) for v in terms.kernel_scalars(dt, wc)[:8])
     zero, tnc = T(0), T(nc)
 
     def centroid_col(c, a):
         return i_c <= c < i_rdot and (c - i_c) % 3 == a
-
-    def sx(r, c):
-        if r < 3:
-            return dt_ if c == i_rdot + r else zero
-        if r < i_rdot:
-            return dt_ if c == i_cdot + r - 3 else zero
-        if r < i_cdot:
-            return dt_ * eta2 if c == r - i_rdot else zero
-        return zero
-
-    def bs(r, c):
-        if i_rdot <= r < i_cdot:
-            return dt_ * (-eta2) if c == r - i_rdot else zero
-        if r >= i_cdot:
-            return dt_ if c == 3 + r - i_cdot else zero
-        return zero
 
     def tracking(g, c):
         if g == 0:
@@ -345,7 +452,8 @@ def template_entries(terms, rows, dt: float, wc: float, dtype) -> dict:
     def table(f, rs, ncol):
         return np.array([[f(r, c) for c in range(ncol)] for r in rs], dtype=T)
 
-    return dict(Sx=table(sx, rows.rx, nx), Bs=table(bs, rows.ru, nu),
+    dyn = dynamics_entries(terms, rows, dt, dtype)
+    return dict(Sx=dyn["Sx"], Bs=dyn["Bs"],
                 Jxp=table(jxp, rows.gx, nx), Jup=table(jup, rows.gu, nu),
                 Jt=table(tracking, range(N_TERMINAL), nx))
 
@@ -368,7 +476,7 @@ def _kernel_fn(dtype):
         lib = library(NAME)
         fn = (lib.lip_linearize_f32 if dtype == torch.float32
               else lib.lip_linearize_f64)
-        fn.argtypes = [_P] * 5 + [_I] * 9 + [_P] * 3
+        fn.argtypes = [_P] * 5 + [_I] * 10 + [_P] * 3
         fn.restype = _I
         _kernel_fns[dtype] = fn
     return fn
@@ -382,6 +490,7 @@ class _Setup:
 
     def __init__(self, terms, rows, dev, dtype, Bsz, ns, nx, nu, dt, wc):
         self.rows = rows                 # held: the key holds its id
+        self.shape = check_kernel_shape(NAME, terms, nx, nu, rows)
         self.fn = _kernel_fn(dtype)
         self.scalars = (ctypes.c_double * N_SCALARS)(
             *terms.kernel_scalars(dt, wc))
@@ -397,7 +506,7 @@ class _Setup:
             (Bsz, ns + 1, d) for d in (1, 3, nc, nc))
         self.args = (self.table.data_ptr(), self.tmpl.data_ptr(), Bsz, ns,
                      nc, terms.contact_model, terms.number_of_legs,
-                     sizes["n_rx"], sizes["n_ru"], sizes["n_gx"],
+                     STEPS.index(terms.step), sizes["n_rx"], sizes["n_ru"], sizes["n_gx"],
                      sizes["n_gu"], self.scalars)
         self.params = (_P * len(PARAM_KEYS))()
         self.outs = (_P * len(FIELDS))()
@@ -410,18 +519,19 @@ def setup(terms, rows, dev, dtype, Bsz, ns, nx, nu, dt, wc):
                                      nu, dt, wc))
 
 
-def occupancy(dtype=torch.float32, vec: bool = True):
-    """K10's occupancy on the current card for tensors of `dtype`, with
-    16-byte groups (`vec`, the fleet's launch) or groups of one member-node:
+def occupancy(dtype=torch.float32, vec: bool = True, shape: str = "kangaroo"):
+    """K10's occupancy on the current card at the instance `shape` (a
+    `KERNEL_SHAPES` name) for tensors of `dtype`, with 16-byte groups
+    (`vec`, the fleet's launch) or groups of one member-node:
     blocks resident on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`;
     its grid takes at most `MIN_BLOCKS` an SM), warps and shared memory
     bytes a block, registers and local (spilled) bytes a thread."""
     fn = library(NAME).lip_linearize_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         fn.restype = _I
     out = (_I * 5)()
-    err = fn(int(dtype == torch.float64), int(vec), out)
+    err = fn(shape_index(shape), int(dtype == torch.float64), int(vec), out)
     if err != 0:
         raise RuntimeError(f"lip_linearize occupancy query failed: error {err}")
     return dict(blocks_per_sm=out[0], warps_per_block=out[1],
@@ -431,22 +541,25 @@ def occupancy(dtype=torch.float32, vec: bool = True):
 
 def lip_linearize(X, U, params, terms, rows, dt: float, wc: float):
     """K10. Same contract as `lip_linearize_plain`; launches the CUDA
-    kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the
-    launch in `lip_linearize.launches`), raises ValueError for other
-    sizes. A call's outputs are views of one buffer (`output_shapes`, each
-    16-byte aligned)."""
+    kernel for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `lip_linearize.launches` and
+    in its instance's entry of `lip_linearize.shape_launches`), raises
+    ValueError for others. A call's outputs are views of one buffer
+    (`output_shapes`, each 16-byte aligned)."""
     if X.device.type == "cpu":
         return lip_linearize_plain(X, U, params, terms, rows, dt, wc)
     nx, nu = X.shape[-1], U.shape[-1]
     dtype, dev = X.dtype, X.device
-    host_setup(terms, (NAME, id(rows), nx, nu),       # sizes first, then device
-               lambda: (check_kernel_shape(NAME, terms, nx, nu, rows), rows))
+    shape = host_setup(terms, (NAME, id(rows), nx, nu),  # sizes, then device
+                       lambda: (check_kernel_shape(NAME, terms, nx, nu, rows),
+                                rows))[0]
     if dev.type != "cuda":
         raise ValueError(f"lip_linearize runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"lip_linearize takes float32 or float64, got {dtype}")
     out = _launched(X, U, params, terms, rows, dt, wc)
     lip_linearize.launches += 1
+    lip_linearize.shape_launches[shape] += 1
     return out
 
 
@@ -472,3 +585,5 @@ def _launched(X, U, params, terms, rows, dt, wc):
 
 
 lip_linearize.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+lip_linearize.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)

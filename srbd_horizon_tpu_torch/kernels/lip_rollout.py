@@ -4,8 +4,9 @@ given plan.
 
 `lip_trial` is the wrapper the solver calls. A CPU tensor goes to
 `lip_trial_plain`: the PyTorch transcription of the JAX package's
-`MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:1391-1410) for the
-LIP Euler step evaluated for every α at once, then the trial's
+`MSDDP._rollout` (srbd_horizon_tpu/solvers/msddp.py:1391-1410) under the
+LIP problem's step (`LIPTerms.step`: Euler, RK2 or RK4) evaluated for
+every α at once, then the trial's
 `total_cost` (:158) and Armijo test (:1494-1578); a CUDA tensor
 launches the hand-written kernel in `csrc/lip_rollout.cu`, which does all
 three in one launch, or raises.
@@ -13,7 +14,7 @@ three in one launch, or raises.
 Per member and α, from x̂₀ = x0, for n = 0 … ns−1:
 
     uₙ    = Uₙ + α kₙ + Kₙ (x̂ₙ − Xₙ)
-    x̂ₙ₊₁ = x̂ₙ + dt·lip_xdot(x̂ₙ, uₙ) − (1 − α) dₙ
+    x̂ₙ₊₁ = step(x̂ₙ, uₙ) − (1 − α) dₙ
 
 then cost = Σₙ‖ρ(x̂ₙ, uₙ)‖² + ‖ρ_N(x̂_N)‖², merit = cost + ν(1−α)²D and
 ok = merit0 − merit ≥ β·max(expected, 1e-16) ∧ isfinite(merit) ∧ α ≥ α_min,
@@ -29,19 +30,22 @@ memory, `trial_occupancy` reads the card's figures for it, and
 
 `lip_evaluate`, the second entry of the same source, evaluates a given
 plan with no rollout: per member the cost and the largest
-|Xₙ + dt·ẋ(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the JAX
+|step(Xₙ, Uₙ) − Xₙ₊₁| (NaN if any entry is NaN), what the JAX
 package's solve computes with `jax.vmap(total_cost)` and
 `jax.vmap(_true_defects)` (msddp.py:1221-1240, :1484). Given x0 (B, nx),
 it evaluates the plan with node 0 pinned to x0 and returns that plan as a
 third output, written by the same launch. Its plain twin
-`lip_evaluate_plain` is `LIPTerms.total_cost` and the Euler step. The
+`lip_evaluate_plain` is `LIPTerms.total_cost` and the problem's step. The
 kernel takes a warp a member and a thread a node, `eval_members(B)`
 members a block; `evaluate_smem_bytes` states its shared memory. Its
 wrapper's host work is K10's: a setup a size (`_EvalSetup`), one check
 pass, one buffer cut into the outputs, the raw stream.
 
-Both run on the sizes `lip_linearize.KERNEL_SHAPE` on CUDA tensors and
-raise ValueError for others; CPU tensors take the twins at any size.
+Both run at the nine (topology, step) instances of
+`lip_linearize.KERNEL_SHAPES` on CUDA tensors and raise ValueError for
+others; CPU tensors take the twins at any size. Under RK2 and RK4 each
+chain node takes the step's stages, a partner-lane shuffle each
+(csrc/lip_common.cuh's `step_row` is the same step on one thread).
 """
 
 from __future__ import annotations
@@ -52,22 +56,25 @@ import functools
 import torch
 
 from srbd_horizon_tpu_torch.kernels.build import (
+    EVALUATE_OCCUPANCY_FIELDS,
     check_tensor,
     check_tensors,
-    evaluate_occupancy as build_occupancy,
     host_setup,
     launch,
     layout_of,
     library,
+    occupancy_query,
     out_slots,
     output_views,
 )
 from srbd_horizon_tpu_torch.kernels.lip_linearize import (
-    KERNEL_SHAPE,
+    KERNEL_SHAPES,
     N_SCALARS,
     PARAM_KEYS,
+    STEPS,
     check_kernel_shape,
     kernel_params,
+    shape_index,
 )
 from srbd_horizon_tpu_torch.kernels.rollout import (
     armijo_plain,
@@ -87,12 +94,14 @@ EVALUATE_REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1221"
 def lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
                     dV2, terms, dt: float, wc: float, nu_w: float,
                     beta: float, alpha_min: float):
-    """Plain PyTorch K11: the Euler rollout of the LIP double integrator
-    (`rollout.rollout_plain`), the cost Σ‖ρ‖² of each rolled plan
+    """Plain PyTorch K11: the rollout of the LIP double integrator under
+    the problem's step (`rollout.rollout_plain`), the cost Σ‖ρ‖² of each
+    rolled plan
     (`terms` is the problem's `LIPTerms`, wc = √w_c) and the Armijo test
     (`rollout.armijo_plain`). params leaves (B,ns+1,dim); merit0, D, dV1,
     dV2 (B,)."""
-    Xn, Un = rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, terms.xdot)
+    Xn, Un = rollout_plain(x0, X, U, ks, Ks, d, alphas, dt, terms.xdot,
+                           terms.step)
     new_cost = terms.total_cost(Xn, Un, params, wc)           # (nα, B)
     new_merit, ok = armijo_plain(new_cost, alphas, merit0, D, dV1, dV2, nu_w,
                                  beta, alpha_min)
@@ -101,13 +110,13 @@ def lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
 
 def lip_evaluate_plain(X, U, params, terms, dt: float, wc: float, x0=None):
     """Plain PyTorch lip_evaluate: the cost (B,) of each plan,
-    `terms.total_cost`, and its largest |defect| (B,) under the Euler step
-    (`rollout.evaluate_plain`, NaN kept). X (B,ns+1,nx), U
+    `terms.total_cost`, and its largest |defect| (B,) under the problem's
+    step (`rollout.evaluate_plain`, NaN kept). X (B,ns+1,nx), U
     (B,ns,nu), params leaves (B,ns+1,dim). Given x0 (B,nx), node 0 of the
     plan is x0, and the pinned plan is returned third."""
     return evaluate_plain(
         X, U, dt, terms.xdot,
-        lambda Xp: terms.total_cost(Xp, U, params, wc), x0)
+        lambda Xp: terms.total_cost(Xp, U, params, wc), x0, terms.step)
 
 
 # K11's block (the .cu's kMaxAlphas, kPieceNodes, kRing): a warp an α of
@@ -129,14 +138,16 @@ def alphas_a_block(nA: int) -> int:
     return min(nA, MAX_ALPHAS)
 
 
-def smem_bytes(dtype=torch.float32, ns: int = 20, nA: int = 1) -> dict:
-    """The shared memory one K11 block takes at ns stage nodes and nA step
-    sizes a call, region by region (the .cu's `regions`): the ring of K's
+def smem_bytes(dtype=torch.float32, ns: int = 20, nA: int = 1,
+               shape: str = "kangaroo") -> dict:
+    """The shared memory one K11 block takes at the instance `shape` (a
+    `KERNEL_SHAPES` name), ns stage nodes and nA step sizes a call, region
+    by region (the .cu's `regions`): the ring of K's
     pieces (after the chain the node sums), the member's staged runs of X,
     d, U and k and of its four parameter tensors (each 16 bytes longer than
     the run), the packed parameter rows, the records (x̂ then u an (α,
     node)), the barriers, and the total (its dynamic shared memory)."""
-    z = KERNEL_SHAPE
+    z = KERNEL_SHAPES[shape]
     nx, nu, nc = z["nx"], z["nu"], z["nc"]
     pw = 4 + 2 * nc
     E = torch.finfo(dtype).bits // 8
@@ -157,8 +168,8 @@ def smem_bytes(dtype=torch.float32, ns: int = 20, nA: int = 1) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _block_bytes(dtype, ns: int, nA: int) -> int:
-    return smem_bytes(dtype, ns, nA)["total"]
+def _block_bytes(dtype, ns: int, nA: int, shape: str) -> int:
+    return smem_bytes(dtype, ns, nA, shape)["total"]
 
 
 _P = ctypes.c_void_p
@@ -167,24 +178,25 @@ _D = ctypes.c_double
 
 
 def _setup(name, terms, nx: int, nu: int, dt: float, wc: float):
-    """What a wrapper checks and builds once for (terms, dtype): the sizes,
-    and the scalars as a ctypes array."""
-    check_kernel_shape(name, terms, nx, nu)
-    return (_D * N_SCALARS)(*terms.kernel_scalars(dt, wc))
+    """What a wrapper checks and builds once for (terms, dtype): the
+    instance's name, and the scalars as a ctypes array."""
+    shape = check_kernel_shape(name, terms, nx, nu)
+    return shape, (_D * N_SCALARS)(*terms.kernel_scalars(dt, wc))
 
 
 def _checked_common(name, X, U, terms, dt, wc):
     """The shared prologue of both wrappers on a non-CPU tensor: the cached
-    host setup, then the device and type."""
+    host setup (the instance's name and the scalars), then the device and
+    type."""
     nx, nu = X.shape[-1], U.shape[-1]
     dtype, dev = X.dtype, X.device
-    scalars = host_setup(terms, (name, dtype, nx, nu, dt, wc),
-                         lambda: _setup(name, terms, nx, nu, dt, wc))
+    out = host_setup(terms, (name, dtype, nx, nu, dt, wc),
+                     lambda: _setup(name, terms, nx, nu, dt, wc))
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name} takes float32 or float64, got {dtype}")
-    return scalars
+    return out
 
 
 _fns = {}
@@ -221,13 +233,15 @@ def eval_members(Bsz: int, sms: int) -> int:
 
 
 def evaluate_smem_bytes(dtype=torch.float32, ns: int = 20,
-                        members: int = EVAL_MEMBERS) -> dict:
-    """The shared memory one lip_evaluate block takes at ns stage nodes
-    with `members` members, region by region (the .cu's `eval_regions`):
+                        members: int = EVAL_MEMBERS,
+                        shape: str = "kangaroo") -> dict:
+    """The shared memory one lip_evaluate block takes at the instance
+    `shape`, ns stage nodes with `members` members, region by region (the
+    .cu's `eval_regions`):
     the members' staged runs of X, U and the four parameter tensors (each
     16 bytes longer than the run), x0's rows, the packed parameter rows,
     the barrier, and the total."""
-    z = KERNEL_SHAPE
+    z = KERNEL_SHAPES[shape]
     nx, nu, nc = z["nx"], z["nu"], z["nc"]
     E = torch.finfo(dtype).bits // 8
     m, ns1, r16 = members, ns + 1, _round16
@@ -257,8 +271,9 @@ class _EvalSetup:
         if ns + 1 > 32:
             raise ValueError(f"lip_evaluate takes at most 31 stage nodes, "
                              f"got {ns}")
+        self.shape = check_kernel_shape(EVALUATE, terms, nx, nu)
         self.fn = _fn(EVALUATE, dtype,
-                      [_P] * 3 + [_I, _P] + [_I] * 5 + [_P] * 5)
+                      [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 5)
         self.scalars = (_D * N_SCALARS)(*terms.kernel_scalars(dt, wc))
         nc = terms.nc
         self.shapes = ((Bsz, ns + 1, nx), (Bsz, ns, nu)) + tuple(
@@ -268,15 +283,17 @@ class _EvalSetup:
             evaluate_shapes(Bsz, ns, nx, pinned), dtype)
         self.out_slots = out_slots(self.layout, dtype)
         self.args = (Bsz, ns, nc, terms.contact_model, terms.number_of_legs,
-                     self.scalars)
+                     STEPS.index(terms.step), self.scalars)
         self.params = (_P * len(PARAM_KEYS))()
 
 
 def lip_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
     """lip_evaluate. Same contract as `lip_evaluate_plain`; launches the
-    CUDA kernel for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts
-    the launch in `lip_evaluate.launches`), raises ValueError for other
-    sizes. A call's outputs are views of one buffer (`evaluate_shapes`)."""
+    CUDA kernel for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `lip_evaluate.launches` and
+    in its instance's entry of `lip_evaluate.shape_launches`), raises
+    ValueError for others. A call's outputs are views of one buffer
+    (`evaluate_shapes`)."""
     if X.device.type == "cpu":
         return lip_evaluate_plain(X, U, params, terms, dt, wc, x0)
     nx, nu = X.shape[-1], U.shape[-1]
@@ -287,15 +304,16 @@ def lip_evaluate(X, U, params, terms, dt: float, wc: float, x0=None):
         raise ValueError(f"lip_evaluate runs on cpu or cuda, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"lip_evaluate takes float32 or float64, got {dtype}")
-    out = _evaluate_launched(X, U, params, terms, dt, wc, x0)
+    out, shape = _evaluate_launched(X, U, params, terms, dt, wc, x0)
     lip_evaluate.launches += 1
+    lip_evaluate.shape_launches[shape] += 1
     return out
 
 
 def _evaluate_launched(X, U, params, terms, dt, wc, x0):
     """lip_evaluate's launch on X's device, past the shape and device
     checks: the setup, one check of the tensors, the outputs cut from one
-    buffer."""
+    buffer. Returns the outputs and the instance's name."""
     Bsz, ns1, nx = X.shape
     ns, nu = ns1 - 1, U.shape[-1]
     dtype, dev = X.dtype, X.device
@@ -317,30 +335,38 @@ def _evaluate_launched(X, U, params, terms, dt, wc, x0):
     launch(EVALUATE, s.fn, dev, X.data_ptr(), U.data_ptr(),
            x0.data_ptr() if pinned else None, x0.stride(0) if pinned else 0,
            s.params, *s.args, *outs[:3])
-    return tuple(views)
+    return tuple(views), s.shape
 
 
 lip_evaluate.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+lip_evaluate.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)
 
 
-def evaluate_occupancy(ns: int, dtype=torch.float32):
-    """lip_evaluate's occupancy at ns stage nodes for tensors of `dtype`
-    (`build.evaluate_occupancy`)."""
-    return build_occupancy("lip", ns, dtype == torch.float64)
+def evaluate_occupancy(ns: int, dtype=torch.float32, shape: str = "kangaroo"):
+    """lip_evaluate's occupancy at the instance `shape` and ns stage nodes
+    for tensors of `dtype`, with the block of B=4096's launch (the most
+    members): blocks resident on one SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), warps and shared
+    memory bytes a block, registers and local (spilled) bytes a thread."""
+    return occupancy_query("lip_rollout", "lip_evaluate_occupancy",
+                           EVALUATE_OCCUPANCY_FIELDS, shape_index(shape),
+                           int(dtype == torch.float64), ns)
 
 
-def trial_occupancy(dtype=torch.float32, ns: int = 20, nA: int = 1):
+def trial_occupancy(dtype=torch.float32, ns: int = 20, nA: int = 1,
+                    shape: str = "kangaroo"):
     """K11's blocks resident on one SM of the current card
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), its dynamic shared
     memory bytes a block (`smem_bytes(...)["total"]`), registers and local
-    (spilled) bytes a thread and warps a block, for tensors of `dtype`, ns
-    stage nodes and nA step sizes a call."""
+    (spilled) bytes a thread and warps a block, at the instance `shape`
+    for tensors of `dtype`, ns stage nodes and nA step sizes a call."""
     fn = library("lip_rollout").lip_trial_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         fn.restype = _I
     out = (_I * 5)()
-    err = fn(int(dtype == torch.float64), ns, nA, out)
+    err = fn(shape_index(shape), int(dtype == torch.float64), ns, nA, out)
     if err != 0:
         raise RuntimeError(f"lip_trial occupancy query failed: error {err}")
     return dict(zip(("blocks_per_sm", "shared_memory_bytes",
@@ -352,16 +378,19 @@ def lip_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1, dV2,
               terms, dt: float, wc: float, nu_w: float, beta: float,
               alpha_min: float):
     """K11. Same contract as `lip_trial_plain`; launches the CUDA kernel
-    for CUDA tensors of the sizes `KERNEL_SHAPE` (and counts the launch in
-    `lip_trial.launches`), raises ValueError for other sizes."""
+    for CUDA tensors of the sizes and step of an instance in
+    `KERNEL_SHAPES` (and counts the launch in `lip_trial.launches` and in
+    its instance's entry of `lip_trial.shape_launches`), raises ValueError
+    for others."""
     if d.device.type == "cpu":
         return lip_trial_plain(x0, X, U, ks, Ks, d, alphas, params, merit0,
                                D, dV1, dV2, terms, dt, wc, nu_w, beta,
                                alpha_min)
-    out = _trial_launch("lip_trial", x0, X, U, ks, Ks, d, alphas, params,
-                        merit0, D, dV1, dV2, terms, dt, wc, nu_w, beta,
-                        alpha_min)
+    out, shape = _trial_launch("lip_trial", x0, X, U, ks, Ks, d, alphas,
+                               params, merit0, D, dV1, dV2, terms, dt, wc,
+                               nu_w, beta, alpha_min)
     lip_trial.launches += 1
+    lip_trial.shape_launches[shape] += 1
     return out
 
 
@@ -376,12 +405,12 @@ def lip_trial_chain(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
         raise ValueError(f"lip_trial_chain runs on cuda, got {d.device}")
     return _trial_launch("lip_trial_chain", x0, X, U, ks, Ks, d, alphas,
                          params, merit0, D, dV1, dV2, terms, dt, wc, nu_w,
-                         beta, alpha_min)[:2]
+                         beta, alpha_min)[0][:2]
 
 
 def _trial_launch(entry, x0, X, U, ks, Ks, d, alphas, params, merit0, D,
                   dV1, dV2, terms, dt, wc, nu_w, beta, alpha_min):
-    scalars = _checked_common("lip_trial", X, U, terms, dt, wc)
+    shape, scalars = _checked_common("lip_trial", X, U, terms, dt, wc)
     Bsz, ns, nx = d.shape
     nu = U.shape[-1]
     dtype, dev = d.dtype, d.device
@@ -395,7 +424,7 @@ def _trial_launch(entry, x0, X, U, ks, Ks, d, alphas, params, merit0, D,
     check_tensor("alphas", alphas, (nA,), dtype, dev)
     for name, t in (("merit0", merit0), ("D", D), ("dV1", dV1), ("dV2", dV2)):
         check_tensor(name, t, (Bsz,), dtype, dev)
-    if _block_bytes(dtype, ns, nA) > MAX_SMEM:
+    if _block_bytes(dtype, ns, nA, shape) > MAX_SMEM:
         raise ValueError(f"lip_trial's block does not fit {ns} stage nodes")
     pt = kernel_params(params, Bsz, ns, terms.nc, dtype, dev)
     Xn = torch.empty((nA, Bsz, ns + 1, nx), dtype=dtype, device=dev)
@@ -404,21 +433,23 @@ def _trial_launch(entry, x0, X, U, ks, Ks, d, alphas, params, merit0, D,
     merit = torch.empty((nA, Bsz), dtype=dtype, device=dev)
     ok = torch.empty((nA, Bsz), dtype=torch.bool, device=dev)
     ptrs = (_P * len(pt))(*(t.data_ptr() for t in pt))
-    fn = _fn(entry, dtype, [_P] * 12 + [_I] * 6 + [_P] + [_D] * 3 + [_P] * 6)
+    fn = _fn(entry, dtype, [_P] * 12 + [_I] * 7 + [_P] + [_D] * 3 + [_P] * 6)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             x0.data_ptr(), X.data_ptr(), U.data_ptr(), ks.data_ptr(),
             Ks.data_ptr(), d.data_ptr(), alphas.data_ptr(), ptrs,
             merit0.data_ptr(), D.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
-            Bsz, ns, terms.nc, terms.contact_model, terms.number_of_legs, nA,
-            scalars, float(nu_w), float(beta), float(alpha_min),
+            Bsz, ns, terms.nc, terms.contact_model, terms.number_of_legs,
+            STEPS.index(terms.step), nA, scalars, float(nu_w), float(beta), float(alpha_min),
             Xn.data_ptr(), Un.data_ptr(), cost.data_ptr(), merit.data_ptr(),
             ok.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel failed: CUDA error {err}")
-    return Xn, Un, cost, merit, ok
+    return (Xn, Un, cost, merit, ok), shape
 
 
 lip_trial.launches = 0
+# the launches of each (topology, step) instance, by its KERNEL_SHAPES name
+lip_trial.shape_launches = dict.fromkeys(KERNEL_SHAPES, 0)

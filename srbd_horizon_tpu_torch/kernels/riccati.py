@@ -245,13 +245,14 @@ def riccati_backward_plain(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# The kernel's compile-time shapes, in the order of csrc/riccati_backward.cu's
+# The kernel's compile-time shapes, in the order of csrc/riccati_common.cuh's
 # shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape,
-# PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape): nx, nu, the
-# terminal rows nt and the sizes of the row sets. The SRBD problem under
-# RK2 and under RK4 has every row of B live (n_ru = nx); the two steps
-# share their shape. Another problem needs a shape of its own there and
-# here.
+# PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape, LipRkShape,
+# LipQuadShape, LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape):
+# nx, nu, the terminal rows nt and the sizes of the row sets. The SRBD and
+# the LIP problems under RK2 and under RK4 have every row of B live (n_ru =
+# nx); the two steps share their shape. Another problem needs a shape of
+# its own there and here.
 KERNEL_SHAPES = {
     "srbd": dict(nx=37, nu=24, nt=15, n_rx=22, n_ru=18, n_gx=34, n_gu=42,
                  n_b=3, n_uc=24),
@@ -271,6 +272,16 @@ KERNEL_SHAPES = {
                          n_gu=42, n_b=3, n_uc=24),
     "point_feet_rk": dict(nx=25, nu=12, nt=15, n_rx=16, n_ru=25, n_gx=24,
                           n_gu=24, n_b=3, n_uc=12),
+    "lip_rk": dict(nx=30, nu=15, nt=10, n_rx=18, n_ru=30, n_gx=32, n_gu=18,
+                   n_b=6, n_uc=15),
+    "lip_quadruped": dict(nx=30, nu=15, nt=10, n_rx=18, n_ru=15, n_gx=28,
+                          n_gu=18, n_b=6, n_uc=15),
+    "lip_quadruped_rk": dict(nx=30, nu=15, nt=10, n_rx=18, n_ru=30, n_gx=28,
+                             n_gu=18, n_b=6, n_uc=15),
+    "lip_point_feet": dict(nx=18, nu=9, nt=10, n_rx=12, n_ru=9, n_gx=22,
+                           n_gu=12, n_b=6, n_uc=9),
+    "lip_point_feet_rk": dict(nx=18, nu=9, nt=10, n_rx=12, n_ru=18, n_gx=22,
+                              n_gu=12, n_b=6, n_uc=9),
 }
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
@@ -309,7 +320,11 @@ KERNEL_INSTANCES = (
     ("quadruped", "tassa", "cholesky"),
     ("quadruped_rk", "tassa", "cholesky"),
     ("point_feet_rk", "tassa", "cholesky"),
-)
+) + tuple((shape, form, solver)
+          for shape in ("lip_rk", "lip_quadruped", "lip_quadruped_rk",
+                        "lip_point_feet", "lip_point_feet_rk")
+          for form, solver in (("collapsed", "schur"), ("tassa", "schur"),
+                               ("tassa", "cholesky")))
 
 # the launchers' own errors (no CUDA error has these values): the block's
 # shared memory exceeds the card's opt-in limit; the sizes match no
@@ -464,7 +479,7 @@ riccati_backward.instance_launches = [0] * len(KERNEL_INSTANCES)
 
 def spd_inverse(A):
     """K2 alone: the block-Schur inverse K1 runs on Quu, over an (M, n, n)
-    stack of SPD matrices, n one of K1's nu (12, 15, 24, 30). Computes in float64
+    stack of SPD matrices, n one of K1's nu (9, 12, 15, 24, 30). Computes in float64
     for float32 tensors too. A CPU tensor goes to `lm_spd_inverse`; a CUDA
     tensor launches the kernel (counted in `spd_inverse.launches`) or
     raises. Nothing on the solver's path calls it: it is here to time and

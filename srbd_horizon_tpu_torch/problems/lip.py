@@ -4,9 +4,13 @@ K10 (`kernels/lip_linearize.py`), K11 and `lip_evaluate`
 (`kernels/lip_rollout.py`).
 
 For the Kangaroo line feet (nc=4): nx = 6 + 6nc = 30, nu = 3 + 3nc = 15,
-28 residual rows, 16 equality rows, 10 terminal rows. Every callable
-broadcasts over leading batch axes. The residual stacks are methods of
-`LIPTerms`, which also carries the constants the kernels read.
+28 residual rows, 16 equality rows, 10 terminal rows; the point-feet biped
+(nc=2) has nx 18, nu 9, 22 + 6 rows, the point-feet quadruped (nc=4, four
+legs) nx 30, nu 15, 28 + 12 rows. The step is the integrator
+`build_lip_problem` is given (EULER, RK2 or RK4, `ocp/integrators.py`).
+Every callable broadcasts over leading batch axes. The residual stacks are
+methods of `LIPTerms`, which also carries the constants the kernels read
+and the step's name.
 
 Layouts (the reference's order):
     x = [r(3), c_0..c_{nc-1}(3 each), ṙ(3), ċ_0..ċ_{nc-1}(3 each)]
@@ -73,6 +77,7 @@ class LIPTerms:
     com_z: float
     d1: Tuple[float, float]
     d2: Tuple[float, float]
+    step: str = "EULER"  # the OCP's integrator, which picks the kernels' instance
     _cache: Dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -189,10 +194,13 @@ class LIPTerms:
         return self._cache[key]
 
 
-def row_sets(nc: int, n_res: int, n_rho: int):
+def row_sets(nc: int, n_res: int, n_rho: int, step: str = "EULER"):
     """The declared Jacobian sparsity of the LIP OCP (the JAX problem
-    declares none; the port's blocksparse sweep needs it), for nc contacts:
-    (residual_x_rows, residual_u_rows, dynamics_x_rows, dynamics_u_rows)."""
+    declares none; the port's blocksparse sweep needs it), for nc contacts
+    under the step `step`: (residual_x_rows, residual_u_rows,
+    dynamics_x_rows, dynamics_u_rows). Under RK2 and RK4 the stages carry
+    u into r and c through ṙ and ċ (dt² terms), so every row of B is live;
+    A − I keeps Euler's rows (the ċ rows read only c̈, an input)."""
     i_rdot, i_cdot, nx = 3 + 3 * nc, 6 + 3 * nc, 6 + 6 * nc
     return (
         # rz … r̈ read r, c or ṙ; every equality row reads ċ or c
@@ -201,8 +209,8 @@ def row_sets(nc: int, n_res: int, n_rho: int):
         (6, 7, 8) + tuple(range(13, n_res)),
         # A − I: r ← ṙ, c ← ċ, ṙ ← r (η²)
         tuple(range(i_cdot)),
-        # B: ṙ ← z, ċ ← c̈
-        tuple(range(i_rdot, nx)),
+        # B: ṙ ← z, ċ ← c̈; under RK also r ← z, c ← c̈
+        tuple(range(i_rdot if step == "EULER" else 0, nx)),
     )
 
 
@@ -217,13 +225,14 @@ def _layouts(nc: int):
 
 def build_lip_problem(cfg: SRBDConfig, robot: RobotConstants, dtype=None,
                       integrator: str = "EULER", device="cuda") -> LIPProblem:
-    """Build the LIP OCP on `device` (default "cuda"; raises when CUDA is
-    absent unless another device is given)."""
+    """Build the LIP OCP under the step `integrator` ("EULER", "RK2" or
+    "RK4", as the JAX package's `build_lip_problem` takes it) on `device` (default "cuda"; raises
+    when CUDA is absent unless another device is given)."""
     dev = resolve_device(device)
-    if integrator.upper() != "EULER":
-        raise NotImplementedError(
-            f"integrator={integrator!r}: the DDP path uses EULER only"
-        )
+    step_name = integrator.upper()
+    if step_name not in integrators.BY_NAME:
+        raise ValueError(f"integrator={integrator!r}: one of "
+                         f"{tuple(integrators.BY_NAME)}")
     dtype = dtype or cfg.dtype
     ns, nc, cm = cfg.ns, cfg.nc, cfg.contact_model
     state_layout, input_layout = _layouts(nc)
@@ -247,10 +256,11 @@ def build_lip_problem(cfg: SRBDConfig, robot: RobotConstants, dtype=None,
         com_z=float(com[2]),
         d1=(float(d1[0]), float(d1[1])),
         d2=(float(d2[0]), float(d2[1])),
+        step=step_name,
     )
 
     xdot = lambda x, u, p: terms.xdot(x, u)
-    step = integrators.euler(xdot)
+    step = integrators.BY_NAME[step_name](xdot)
 
     params: Dict[str, torch.Tensor] = {
         "rdot_ref": torch.zeros((ns + 1, 3), dtype=dtype, device=dev),
@@ -258,7 +268,7 @@ def build_lip_problem(cfg: SRBDConfig, robot: RobotConstants, dtype=None,
         "cdot_switch": torch.ones((ns + 1, nc), dtype=dtype, device=dev),
         "mask_track": node_mask(ns, 1, ns + 1, dtype, dev)[:, None],
     }
-    gx, gu, rx, ru = row_sets(nc, terms.n_res, terms.n_rho)
+    gx, gu, rx, ru = row_sets(nc, terms.n_res, terms.n_rho, step_name)
 
     ocp = OCP(
         ns=ns,

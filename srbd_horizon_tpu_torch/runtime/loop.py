@@ -305,10 +305,14 @@ def build_lip_loop(cfg: Optional[SRBDConfig] = None,
                    shift_warmstart: bool = False,
                    dtype=None,
                    device="cuda",
-                   group_mask=None):
+                   group_mask=None,
+                   integrator: str = "EULER"):
     """The MPC loop on the LIP biped (Kangaroo line feet by default;
     `SRBDConfig(contact_model=1, number_of_legs=2)` with
-    `robot=point_feet()` is the point-feet biped), in the configuration of
+    `robot=point_feet()` is the point-feet biped; `contact_model=1,
+    number_of_legs=4` with `quadruped_point_feet()` and the trot's
+    `group_mask` the quadruped), its step `integrator` ("EULER", "RK2" or
+    "RK4"; the self-simulation steps by it too), in the configuration of
     the JAX package's dlip example: `max_iters=100`,
     `alpha_converge_threshold=1e-12`, `beta=1e-3`, the WPG at the feet's
     height, no SRBD telemetry and no warm-start shift. The WPG takes the
@@ -320,7 +324,7 @@ def build_lip_loop(cfg: Optional[SRBDConfig] = None,
     cfg = cfg or SRBDConfig()
     dtype = dtype or cfg.dtype
     prob = build_lip_problem(cfg, robot or kangaroo_line_feet(), dtype=dtype,
-                             device=dev)
+                             integrator=integrator, device=dev)
     solver = MSDDP(prob.ocp, opts or DDPOptions(
         max_iters=100, alpha_converge_threshold=1e-12, beta=1e-3))
     wpg = WalkingPatternGenerator.build(

@@ -6,6 +6,8 @@ each test compares the JAX function with its port on identical data.
 Arrays cross between the frameworks as numpy only.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -613,47 +615,64 @@ def run_results(topology, integrator, ns=8, T=8, start=2, vx=0.3):
 
 
 
-def jax_trial(js, x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
-    """JAX's line-search trial for every α of `alphas`, on numpy inputs: the
-    rollout (`_rollout`), `total_cost` and the Armijo test of
-    msddp.py:843-853. Returns (Xn, Un, cost, merit, ok) and the merit0 and
-    D it tested against."""
+def jax_trial_fn(js):
+    """JAX's line-search trial as a traceable function of (x0, X, U,
+    params, ks, Ks, d, dV1, dV2, alphas): for every α the rollout
+    (`_rollout`), `total_cost` and the Armijo test of msddp.py:843-853.
+    It returns (Xn, Un, cost, merit, ok) and the merit0 and D it tested
+    against."""
     opts = js.opts
-    x0, X, U, params = to_jax((x0, X, U, params))
-    ks, Ks, d, dV1, dV2 = (jnp.asarray(np_of(v)) for v in (ks, Ks, d, dV1, dV2))
-    nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
-    D = jnp.sum(d * d, axis=(1, 2))
 
-    def one(a, merit0):
-        Xn, Un = jax.vmap(
-            lambda x0_, X_, U_, k_, K_, d_, p_: js._rollout(
-                x0_, X_, U_, k_, K_, d_, p_, a))(x0, X, U, ks, Ks, d, params)
-        new_cost = jax.vmap(js.total_cost)(Xn, Un, params)
-        new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
-        expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu_w * D
-        ok = (((merit0 - new_merit) >= opts.beta * jnp.maximum(expected, 1e-16))
-              & jnp.isfinite(new_merit) & (a >= opts.alpha_converge_threshold))
-        return Xn, Un, new_cost, new_merit, ok
+    def trials(x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
+        nu_w = jnp.asarray(opts.defect_weight, jnp.float64)
+        D = jnp.sum(d * d, axis=(1, 2))
 
-    def trials(alphas):
-        # merit0 in the same jit: JAX's op-by-op dispatch of `total_cost`
+        def one(a, merit0):
+            Xn, Un = jax.vmap(
+                lambda x0_, X_, U_, k_, K_, d_, p_: js._rollout(
+                    x0_, X_, U_, k_, K_, d_, p_, a))(x0, X, U, ks, Ks, d,
+                                                     params)
+            new_cost = jax.vmap(js.total_cost)(Xn, Un, params)
+            new_merit = new_cost + nu_w * (1.0 - a) ** 2 * D
+            expected = -(a * dV1 + a**2 * dV2) + (2.0 * a - a**2) * nu_w * D
+            ok = (((merit0 - new_merit)
+                   >= opts.beta * jnp.maximum(expected, 1e-16))
+                  & jnp.isfinite(new_merit)
+                  & (a >= opts.alpha_converge_threshold))
+            return Xn, Un, new_cost, new_merit, ok
+
+        # merit0 in the same trace: JAX's op-by-op dispatch of `total_cost`
         # would compile each of its primitives on its own
         merit0 = jax.vmap(js.total_cost)(X, U, params) + nu_w * D
-        return jax.vmap(one, in_axes=(0, None))(alphas, merit0), merit0
+        return jax.vmap(one, in_axes=(0, None))(alphas, merit0), merit0, D
 
-    res, merit0 = jit(trials)(jnp.asarray(alphas))
-    return res, merit0, D
+    return trials
 
 
-def jax_evaluate(js, X, U, params):
+def jax_trial(js, x0, X, U, params, ks, Ks, d, dV1, dV2, alphas):
+    """JAX's line-search trial (`jax_trial_fn`) for every α of `alphas`, on
+    numpy inputs. Returns (Xn, Un, cost, merit, ok) and the merit0 and D
+    it tested against."""
+    x0, X, U, params = to_jax((x0, X, U, params))
+    ks, Ks, d, dV1, dV2 = (jnp.asarray(np_of(v)) for v in (ks, Ks, d, dV1, dV2))
+    return jit(jax_trial_fn(js))(x0, X, U, params, ks, Ks, d, dV1, dV2,
+                                 jnp.asarray(alphas))
+
+
+def jax_evaluate_fn(js):
     """JAX's `vmap(total_cost)` and the largest |·| of `vmap(_true_defects)`
-    of each plan, on numpy inputs."""
+    of each plan, as a traceable function of (X, U, params)."""
     def run(X_, U_, p_):
         cost = jax.vmap(js.total_cost)(X_, U_, p_)
         defects = jax.vmap(js._true_defects)(X_, U_, p_)
         return cost, jnp.max(jnp.abs(defects), axis=(1, 2))
 
-    return jit(run)(*to_jax((X, U, params)))
+    return run
+
+
+def jax_evaluate(js, X, U, params):
+    """`jax_evaluate_fn` on numpy inputs."""
+    return jit(jax_evaluate_fn(js))(*to_jax((X, U, params)))
 
 
 # ---------------- the execution modes' kernels at every SRBD shape ----------
@@ -892,3 +911,292 @@ def six_contact_srbd(integrator="EULER"):
                            foot_frames=tuple(f"f{i}" for i in range(6)))
     return t_build(TSRBDConfig(dtype=F64, ns=4, contact_model=3), robot,
                    integrator=integrator, device=CPU)
+
+
+# ---------------- the LIP at every topology and step ----------------
+
+from srbd_horizon_tpu.problems.lip import build_lip_problem as j_build_lip
+
+from srbd_horizon_tpu_torch.kernels import lip_linearize as t_k10
+from srbd_horizon_tpu_torch.kernels import lip_rollout as t_k11
+from srbd_horizon_tpu_torch.problems.lip import build_lip_problem as t_build_lip
+from srbd_horizon_tpu_torch.runtime.loop import build_lip_loop
+
+LIP_NAN_MEMBER = 1
+# F8 (ROADMAP Queue 3): the LIP's closed loop holds u0 and the plans to the
+# merit's rounding floor, x and the cost to 1e-9
+LIP_FLOOR_TOL = 1e-6
+
+
+def lip_problems(topology="kangaroo", integrator="EULER", ns=20):
+    """(jax LIPProblem, torch LIPProblem) of one topology (`TOPOLOGIES`)
+    under one step, float64 on the CPU, on a horizon of ns nodes of
+    0.05 s."""
+    kw, jr, tr, _ = TOPOLOGIES[topology]
+    shape = dict(ns=ns, T=0.05 * ns, **kw)
+    jp = j_build_lip(JSRBDConfig(dtype=jnp.float64, **shape), jr(),
+                     integrator=integrator)
+    tp = t_build_lip(TSRBDConfig(dtype=F64, **shape), tr(),
+                     integrator=integrator, device=CPU)
+    return jp, tp
+
+
+def lip_members(nc, lead, seed):
+    """Numpy (x, u, p) of random LIP members: states around the nominal
+    CoM height, random contacts and velocities, random references and 0/1
+    switches and tracking masks."""
+    rng = np.random.RandomState(seed)
+    nx, nu = 6 + 6 * nc, 3 + 3 * nc
+    x = rng.uniform(-0.3, 0.3, lead + (nx,))
+    x[..., 2] += 0.88
+    u = 0.3 * rng.randn(*lead, nu)
+    p = dict(rdot_ref=0.3 * rng.randn(*lead, 3),
+             c_ref=0.05 * np.abs(rng.randn(*lead, nc)),
+             cdot_switch=rng.randint(0, 2, lead + (nc,)).astype(np.float64),
+             mask_track=rng.randint(0, 2, lead + (1,)).astype(np.float64))
+    return x, u, p
+
+
+def lip_results(topology, integrator, ns=8, B=4, ticks=3):
+    """One LIP topology under one step at ns nodes, float64 on the CPU: the
+    port's node functions, K10, K11 (four α and one, a NaN start in member
+    LIP_NAN_MEMBER) and lip_evaluate twins (a NaN in that member's plan;
+    plain and pinned), `solve` (member 0) and `solve_batch` from pushed
+    starts (0.02·N(0,1), a commanded terminal velocity, max_iters=20), and
+    `tick_batch` of `build_lip_loop` (warm start shifted, mixed actions,
+    the trot WPG on the quadruped) for `ticks` ticks with SOLVER_OPTS and
+    with max_iters=1 (the exact Gauss–Newton step alone), beside the JAX
+    package's: its node functions, dense `_linearize_impl`, trial (on the
+    port's gains), `total_cost` and `_true_defects`, `solve`,
+    `vmap(solve)` and `vmap(tick)`, all in one JAX compile."""
+    jp, tp = lip_problems(topology, integrator, ns)
+    js, ts = solvers(jp, tp, max_iters=20)
+    nc = tp.nc
+    dt, wc = tp.ocp.dt, ts._wc(F64)
+    x, u, p = lip_members(nc, (16,), seed=1)
+    # a plan near the walk, random references, switches and masks
+    X, U = trajectories(jp, B, seed=31)
+    params = fleet_params(jp.ocp.params, B)
+    params.update(lip_members(nc, (B, ns + 1), seed=32)[2])
+    lin = t_k10.lip_linearize_plain(to_torch(X), to_torch(U),
+                                    to_torch(params), ts.terms, ts.rows, dt,
+                                    wc)
+    ks, Ks, dV1, dV2 = t_k1.riccati_backward_plain(
+        *(lin[k] for k in SWEEP_ORDER), SWEEP_MU, ts.rows)
+    x0 = perturbed_states(jp.initial_state, B, seed=33)
+    x0[LIP_NAN_MEMBER] = np.nan
+    Xe = X.copy()
+    Xe[LIP_NAN_MEMBER, 5, 4] = np.nan
+    Xp = Xe.copy()
+    Xp[:, 0] = perturbed_states(jp.initial_state, B, seed=34)
+    # the solves
+    sx0 = perturbed_states(jp.initial_state, B, seed=0, scale=0.02)
+    sparams = fleet_params(jp.ocp.params, B)
+    sparams["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
+    # the loops: the solver's options, and the exact step alone
+    kw, jr, tr, trot = TOPOLOGIES[topology]
+    loop_opts = dict(options=SOLVER_OPTS,
+                     exact_step=dict(SOLVER_OPTS, max_iters=1))
+    jloops = {k: JMPCLoop(
+        solver=JMSDDP(jp.ocp, JDDPOptions(**o)),
+        wpg=JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
+                       nodes=ns, dtype=jnp.float64,
+                       group_mask=j_trot() if trot else None, **kw),
+        shift_warmstart=True) for k, o in loop_opts.items()}
+    tloops = {k: build_lip_loop(
+        TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw),
+        TDDPOptions(**o), robot=tr(), shift_warmstart=True,
+        device=CPU, group_mask=t_trot() if trot else None,
+        integrator=integrator)[0] for k, o in loop_opts.items()}
+    lx0 = perturbed_states(jp.initial_state, B, seed=7)
+    actions = np.array([0, 1, 1, 1], np.int32)[:B]
+    rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
+    jinp = JTickInput(action=jnp.asarray(actions), rdot_ref=jnp.asarray(rdot),
+                      w_ref=jnp.zeros((B, 3)))
+
+    trials, evaluate = jax_trial_fn(js), jax_evaluate_fn(js)
+    jsolve = jax.jit(js.solve)
+    one = lambda t: {k: v[0] for k, v in t.items()}
+
+    def run(x, u, p, X, U, params, ks, Ks, dV1, dV2, x0, Xe, Xp, sx0, sparams,
+            lx0, alphas):
+        out = dict(
+            step=jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt))(x, u, p),
+            rho=jax.vmap(js._stage_rho)(x, u, p),
+            rt=jax.vmap(jp.ocp.terminal_residual)(x, p),
+            dense=jax.vmap(lambda a, b, c: js._linearize_impl(
+                a, b, c, sliced=False))(X, U, params))
+        out["trial"] = trials(x0, X, U, params, ks, Ks, out["dense"]["d"],
+                              dV1, dV2, alphas)
+        out["evaluate"] = evaluate(Xe, U, params)
+        out["evaluate_pinned"] = evaluate(Xp, U, params)
+        out["solve"] = jsolve(js.init(sx0[0]), sx0[0], one(sparams))
+        out["vmap_solve"] = jax.vmap(jsolve)(jax.vmap(js.init)(sx0), sx0,
+                                             sparams)
+        for k, jloop in jloops.items():
+            tick = jax.vmap(jloop.tick)
+            out[f"ticks_{k}"] = jax.lax.scan(
+                lambda c, _: tick(c, jinp), jax.vmap(jloop.init)(lx0), None,
+                length=ticks)
+        return out
+
+    j = jit(run)(*to_jax((x, u, p, X, U, params)),
+                 *(jnp.asarray(np_of(v)) for v in (ks, Ks, dV1, dV2)),
+                 *to_jax((x0, Xe, Xp, sx0, sparams, lx0, TRIAL_ALPHAS)))
+    t = lambda a: to_torch(np_of(a))
+    trial_args = (t(x0), to_torch(X), to_torch(U), ks, Ks, lin["d"])
+    merit0, D = t(j["trial"][1]), t(j["trial"][2])
+    opts = ts.opts
+    port = dict(
+        step=tp.ocp.step(to_torch(x), to_torch(u), to_torch(p), dt),
+        rho=ts._stage_rho(to_torch(x), to_torch(u), to_torch(p)),
+        rt=tp.ocp.terminal_residual(to_torch(x), to_torch(p)),
+        lin=lin,
+        trial={nA: t_k11.lip_trial_plain(
+            *trial_args, to_torch(TRIAL_ALPHAS[:nA]), to_torch(params),
+            merit0, D, dV1, dV2, ts.terms, dt, wc, opts.defect_weight,
+            opts.beta, opts.alpha_converge_threshold) for nA in (1, 4)},
+        evaluate=t_k11.lip_evaluate_plain(to_torch(Xe), to_torch(U),
+                                          to_torch(params), ts.terms, dt, wc),
+        evaluate_pinned=t_k11.lip_evaluate_plain(
+            to_torch(Xe), to_torch(U), to_torch(params), ts.terms, dt, wc,
+            to_torch(Xp[:, 0])))
+    tx0, tpar = to_torch(sx0), to_torch(sparams)
+    port["solve"] = ts.solve(ts.init(tx0[0]), tx0[0], one(tpar))
+    port["solve_batch"] = ts.solve_batch(ts.init(tx0), tx0, tpar)
+    tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
+                                 dtype=F64)
+    for k, tloop in tloops.items():
+        tc, outs = tloop.init(torch.as_tensor(lx0)), []
+        for _ in range(ticks):
+            tc, to = tloop.tick_batch(tc, tinp)
+            outs.append(to)
+        port[f"ticks_{k}"] = (tc, outs)
+    return dict(jp=jp, tp=tp, js=js, ts=ts, jax=j, port=port, X=X, U=U,
+                params=params, Xp=Xp)
+
+
+
+def check_lip_nodes(r, tol=1e-12):
+    """The build (sizes, layouts, x0, u0, params) equal, and the step, ρ
+    and the terminal residual at 16 random members to `tol`."""
+    jp, tp = r["jp"], r["tp"]
+    jo, to = jp.ocp, tp.ocp
+    assert (to.ns, to.nx, to.nu, to.dt) == (jo.ns, jo.nx, jo.nu, jo.dt)
+    assert to.state_layout.names == jo.state_layout.names
+    np.testing.assert_array_equal(np_of(tp.initial_state),
+                                  np.asarray(jp.initial_state))
+    np.testing.assert_array_equal(np_of(tp.static_input),
+                                  np.asarray(jp.static_input))
+    for k, v in jo.params.items():
+        np.testing.assert_array_equal(np_of(to.params[k]), np.asarray(v))
+    for key in ("step", "rho", "rt"):
+        got, want = r["port"][key], r["jax"][key]
+        assert tuple(got.shape) == want.shape, key
+        assert max_rel_err(got, want) < tol, key
+
+
+def check_lip_rows(r, seed=3):
+    """The declared rows are exact at a member with mask and switches 1:
+    every nonzero of ∂ρ/∂x, ∂ρ/∂u, A − I and B (`torch.func.jacfwd` of the
+    port's ρ and step) lies in them and every declared row has one; every
+    input drives the step; under RK2 and RK4 B's rows are all nx rows, A −
+    I's Euler's."""
+    tp, ts = r["tp"], r["ts"]
+    ocp, rows = tp.ocp, ts.rows
+    x, u, p = lip_members(tp.nc, (), seed)
+    p["cdot_switch"][:] = 1.0
+    p["mask_track"][:] = 1.0
+    x, u, p = to_torch(x), to_torch(u), to_torch(p)
+    jac = torch.func.jacfwd
+    rho = lambda a, b: ts._stage_rho(a, b, p)
+    step = lambda a, b: ocp.step(a, b, p, ocp.dt)
+    eye = torch.eye(ocp.nx, dtype=F64)
+    for J, live in ((jac(rho, 0)(x, u), rows.gx), (jac(rho, 1)(x, u), rows.gu),
+                    (jac(step, 0)(x, u) - eye, rows.rx),
+                    (jac(step, 1)(x, u), rows.ru)):
+        dead = [i for i in range(J.shape[0]) if i not in live]
+        assert bool((J[dead] == 0).all())
+        assert bool((J[list(live)] != 0).any(dim=1).all())
+    assert rows.rx == tuple(range(6 + 3 * tp.nc))
+    euler = ts.terms.step == "EULER"
+    assert rows.ru == tuple(range(3 + 3 * tp.nc if euler else 0, ocp.nx))
+    assert len(rows.uc) == ocp.nu
+
+
+def check_lip_linearize(r, key, tol=1e-12):
+    """K10's twin against JAX's dense jacfwd linearization, sliced by the
+    port's rows: Sx = (A − I)[rx], Bs = B[ru], Jxp = Jx[gx], Jup = Ju[gu],
+    ρ, the step's defects, the terminal residual and its Jacobian."""
+    rows, jd, nx = r["ts"].rows, r["jax"]["dense"], r["tp"].ocp.nx
+    want = {"Sx": (np.asarray(jd["A"]) - np.eye(nx))[:, :, list(rows.rx)],
+            "Bs": np.asarray(jd["B"])[:, :, list(rows.ru)],
+            "Jxp": np.asarray(jd["Jx"])[:, :, list(rows.gx)],
+            "Jup": np.asarray(jd["Ju"])[:, :, list(rows.gu)]}.get(key)
+    want = np.asarray(jd[key]) if want is None else want
+    got = r["port"]["lin"][key]
+    assert tuple(got.shape) == want.shape
+    assert max_rel_err(got, want) < tol
+
+
+def check_lip_trial(r, nA, tol=1e-12):
+    """K11's twin against JAX's trial at the first nA step sizes: Xn, Un,
+    cost and merit to `tol` (the NaN member NaN in both), the flags equal,
+    the NaN member rejected."""
+    got, want = r["port"]["trial"][nA], r["jax"]["trial"][0]
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(np_of(g), np.asarray(w)[:nA], rtol=tol,
+                                   atol=tol)
+    np.testing.assert_array_equal(np_of(got[4]), np.asarray(want[4])[:nA])
+    assert not bool(got[4][:, LIP_NAN_MEMBER].any())
+
+
+def check_lip_evaluate(r, pinned, tol=1e-12):
+    """lip_evaluate's twin against JAX's `total_cost` and the largest |·| of
+    `_true_defects` to `tol` of max(1, |JAX's|), the NaN member NaN; pinned,
+    the plan with node 0 replaced, exactly."""
+    key = "evaluate_pinned" if pinned else "evaluate"
+    got, want = r["port"][key], r["jax"][key]
+    for g, w in zip(got[:2], want):
+        g, w = np_of(g), np.asarray(w)
+        assert np.isnan(g[LIP_NAN_MEMBER]) and np.isnan(w[LIP_NAN_MEMBER])
+        ok = ~np.isnan(w)
+        assert np.all(np.abs(g[ok] - w[ok]) <= tol * np.maximum(1.0,
+                                                               np.abs(w[ok])))
+    if pinned:
+        np.testing.assert_array_equal(np_of(got[2]), r["Xp"])
+
+
+def check_lip_solves(r, tol=1e-9):
+    """`solve` against JAX's `solve`, `solve_batch` against its
+    `vmap(solve)`: iterations and convergence equal, the cost to `tol`, the
+    defects closed; the single solve's plans to `tol`, the batched plans to
+    the merit's rounding floor (LIP_FLOOR_TOL, F8: a second iteration's
+    accept at the floor can flip with the order of sums)."""
+    p, j = r["port"], r["jax"]
+    agree(p["solve"], j["solve"], "solve", ("X", "U", "cost"), tol)
+    agree(p["solve_batch"], j["vmap_solve"], "solve_batch", ("cost",), tol)
+    agree(p["solve_batch"], j["vmap_solve"], "solve_batch", ("X", "U"),
+          LIP_FLOOR_TOL)
+    assert int(p["solve"].iterations) > 1
+    assert float(p["solve_batch"].defect_norm.max()) < 1e-6
+
+
+def check_lip_ticks(r, exact, tol=1e-9):
+    """`tick_batch` of `build_lip_loop` against JAX's `vmap(tick)`, tick by
+    tick: iterations and convergence equal. With the exact step alone
+    (`exact`, max_iters=1: no floor step) the cost, x, u0 and the final
+    plans to `tol`. With the solver's options by F8's floor rule: the first
+    tick's cost to `tol` (both start from the same state), and the cost,
+    x, u0 and the final plans to LIP_FLOOR_TOL (the floor steps move u0,
+    the self-simulation carries them into x and the next ticks' starts)."""
+    key = "ticks_exact_step" if exact else "ticks_options"
+    (jc, jo), (tc, outs) = r["jax"][key], r["port"][key]
+    floor = tol if exact else LIP_FLOOR_TOL
+    for i, to in enumerate(outs):
+        want = types.SimpleNamespace(**{f: np.asarray(getattr(jo, f))[i]
+                                        for f in jo._fields})
+        agree(to, want, f"tick {i}", ("cost",), tol if i == 0 else floor)
+        agree(to, want, f"tick {i}", ("x", "u0"), floor)
+    for f in ("X", "U"):
+        assert max_rel_err(getattr(tc.sol, f), getattr(jc.sol, f)) < floor, f

@@ -1238,17 +1238,18 @@ def test_lip_occupancy(lip_case, dtype):
 
 
 def test_lip_kernels_refuse_unknown_shape(lip_case):
-    """K10, K11, lip_evaluate and K1 on CUDA tensors of the LIP on point
-    feet (nc 2): ValueError before any launch; nothing falls back."""
+    """K10, K11, lip_evaluate and K1 on CUDA tensors of a LIP topology no
+    instance has (nc 3): ValueError before any launch; nothing falls
+    back."""
     import dataclasses
 
     s = lip_case["solver"]
-    terms = dataclasses.replace(s.terms, nc=2, contact_model=1)
+    terms = dataclasses.replace(s.terms, nc=3, contact_model=1)
     dev = lip_case["X"].device
-    Bw, ns, nx, nu = 2, lip_case["ocp"].ns, 18, 9
+    Bw, ns, nx, nu = 2, lip_case["ocp"].ns, 24, 12
     e = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
-    params = dict(rdot_ref=e(Bw, ns + 1, 3), c_ref=e(Bw, ns + 1, 2),
-                  cdot_switch=e(Bw, ns + 1, 2), mask_track=e(Bw, ns + 1, 1))
+    params = dict(rdot_ref=e(Bw, ns + 1, 3), c_ref=e(Bw, ns + 1, 3),
+                  cdot_switch=e(Bw, ns + 1, 3), mask_track=e(Bw, ns + 1, 1))
     X, U = e(Bw, ns + 1, nx), e(Bw, ns, nu)
     dt, wc = lip_case["ocp"].dt, s._wc(torch.float64)
     counts = (k10.lip_linearize.launches, k11.lip_trial.launches,

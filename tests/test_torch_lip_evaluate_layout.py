@@ -9,12 +9,14 @@ source and the twin, with no JAX:
 - the members a block and the warps a block (`EVAL_MEMBERS`,
   `EVAL_WARPS`, `eval_members`) are the .cu's, and every SM gets a block;
 - the shared memory a block takes (`evaluate_smem_bytes`, region by
-  region) is the .cu's `eval_regions` run from its text, for float32 and
+  region) is the .cu's `eval_regions` run from its text, at every (topology,
+  step) instance of `lip_linearize.KERNEL_SHAPES`, for float32 and
   float64, ns ∈ {1, 8, 20, 31} and 1-8 members, within a block's limit;
 - `kernel_order_evaluate`, a torch model of the kernel's order of work (a
   node's rows added in order, the stage nodes in node order and the
-  terminal node last; a node's largest |defect| with NaN kept, then the
-  stage nodes' largest), agrees with `lip_evaluate_plain` to 1e-12 of
+  terminal node last; a node's largest |defect| under the problem's step
+  with NaN kept, then the stage nodes' largest), at every instance,
+  agrees with `lip_evaluate_plain` to 1e-12 of
   max(1, |twin|) in float64 and to 1e-5 in float32, with node 0 pinned and
   without, a member with a NaN in its plan NaN in both outputs;
 - each (B, dtype, ns, pin) builds its own setup, and the wrapper's call
@@ -35,7 +37,9 @@ from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import build
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
-from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.kernels.rollout import step_fn
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet, point_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.solvers import msddp
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
@@ -51,6 +55,22 @@ SMEM_PER_BLOCK = 232_448  # an H100's shared memory a block may take
 SMEM_PER_SM = 233_472     # and an SM's (each block also holds 1 KB of it)
 TOL = {F64: 1e-12, F32: 1e-5}
 NAN_MEMBER = 2
+SHAPES = tuple(k10.KERNEL_SHAPES)
+# each topology's SRBDConfig fields and robot
+LIP_TOPOLOGIES = {
+    "kangaroo": (dict(), kangaroo_line_feet),
+    "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
+    "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
+}
+
+
+def lip_problem(shape):
+    """The LIP problem of the instance `shape` on the CPU in float64."""
+    topology, _, rk = shape.partition("_rk")
+    kw, robot = LIP_TOPOLOGIES[topology]
+    return build_lip_problem(SRBDConfig(dtype=F64, **kw), robot(),
+                             integrator="RK" + rk if rk else "EULER",
+                             device="cpu")
 
 
 def _const(name):
@@ -61,6 +81,13 @@ def _const(name):
 def lip():
     prob = build_lip_problem(SRBDConfig(dtype=F64), kangaroo_line_feet(),
                              device="cpu")
+    return prob, MSDDP(prob.ocp, DDPOptions())
+
+
+@pytest.fixture(scope="module", params=SHAPES)
+def each_lip(request):
+    """The problem and solver of each (topology, step) instance."""
+    prob = lip_problem(request.param)
     return prob, MSDDP(prob.ocp, DDPOptions())
 
 
@@ -82,16 +109,18 @@ def test_block_constants_match_the_cuda_source():
     assert k11.eval_members(4096, 132) == 8 and k11.eval_members(1, 132) == 1
 
 
-def _source_regions(dtype, ns, members):
-    """The .cu's `eval_regions<E>(ns, mb)` run from its text (its statements
-    read as Python): each region's bytes and the total."""
+def _source_regions(dtype, ns, members, shape):
+    """The .cu's `eval_regions<S, E>(ns, mb)` run from its text (its
+    statements read as Python, the shape's sizes given): each region's
+    bytes and the total."""
     body = re.search(r"constexpr EvalRegions eval_regions\(int ns, int mb\) "
                      r"\{\n(.*?)\n\}", SOURCE, re.S)[1]
-    z = k10.KERNEL_SHAPE
+    z = k10.KERNEL_SHAPES[shape]
     py = []
     for line in body.split(";"):
         line = " ".join(line.split())
-        if not line or line.startswith(("EvalRegions r", "return")):
+        if not line or line.startswith(("EvalRegions r", "return",
+                                         "constexpr int nx = S::nx")):
             continue
         if line.startswith("const size_t m = static_cast<size_t>(mb), ns1 ="):
             py += ["m = mb", "ns1 = ns + 1"]
@@ -117,15 +146,17 @@ REGION_CASES = [(d, ns, m) for d in DTYPES for ns in (1, 8, 20, 31)
 @pytest.mark.parametrize("dtype,ns,members", REGION_CASES,
                          ids=[f"{str(d)[6:]}-ns{n}-m{m}"
                               for d, n, m in REGION_CASES])
-def test_smem_bytes_match_the_cuda_layout(dtype, ns, members):
+@pytest.mark.parametrize("shape", SHAPES)
+def test_smem_bytes_match_the_cuda_layout(dtype, ns, members, shape):
     """The wrapper's bytes are the .cu's `eval_regions`, region by region,
     and fit a block; each staged run's region holds the members' run and
     16 bytes more; in float32 eight members leave four blocks an SM."""
-    stated = k11.evaluate_smem_bytes(dtype, ns, members)
-    assert stated == _source_regions(dtype, ns, members)
+    stated = k11.evaluate_smem_bytes(dtype, ns, members, shape)
+    assert stated == _source_regions(dtype, ns, members, shape)
     assert sum(v for k, v in stated.items() if k != "total") == stated["total"]
     assert stated["total"] <= SMEM_PER_BLOCK
-    z, E, m = k10.KERNEL_SHAPE, torch.finfo(dtype).bits // 8, members
+    z = k10.KERNEL_SHAPES[shape]
+    E, m = torch.finfo(dtype).bits // 8, members
     assert stated["X"] >= m * (ns + 1) * z["nx"] * E + 16
     assert stated["U"] >= m * ns * z["nu"] * E + 16
     assert stated["x0"] >= m * z["nx"] * E
@@ -139,8 +170,9 @@ def kernel_order_evaluate(X, U, params, terms, dt, wc, x0=None):
     """The kernel's order of work in torch: node 0 pinned to x0 when given;
     each node's residual rows squared and added in row order (a thread a
     node), the stage nodes added in node order and the terminal node last;
-    each stage node's largest |x + dt·ẋ − X[n+1]| by the NaN rule, then the
-    stage nodes' largest. Returns (cost, defect_max[, the pinned plan])."""
+    each stage node's largest |step(x, u) − X[n+1]| by the NaN rule, then
+    the stage nodes' largest. Returns (cost, defect_max[, the pinned
+    plan])."""
     if x0 is not None:
         X = X.clone()
         X[:, 0] = x0
@@ -159,7 +191,7 @@ def kernel_order_evaluate(X, U, params, terms, dt, wc, x0=None):
     for n in range(ns):
         cost = cost + node[:, n]
     cost = cost + term
-    step = X[:, :ns] + dt * terms.xdot(X[:, :ns], U)
+    step = step_fn(terms.xdot, dt, terms.step)(X[:, :ns], U)
     dev = (step - X[:, 1:]).abs()
     nan = torch.isnan(dev).any(dim=-1).any(dim=-1)
     dmax = dev.amax(dim=(-1, -2)).masked_fill(nan, float("nan"))
@@ -192,8 +224,8 @@ def _err(got, want):
 @pytest.mark.parametrize("dtype,pinned",
                          [(d, p) for d in DTYPES for p in (False, True)],
                          ids=["f32", "f32-pinned", "f64", "f64-pinned"])
-def test_kernel_order_matches_the_twin(lip, dtype, pinned):
-    prob, s = lip
+def test_kernel_order_matches_the_twin(each_lip, dtype, pinned):
+    prob, s = each_lip
     X, U, params, x0 = _draw(prob, s, dtype)
     terms, dt, wc = s.terms, prob.ocp.dt, s._wc(dtype)
     kw = dict(x0=x0) if pinned else {}
@@ -242,12 +274,13 @@ def test_each_size_builds_its_own_setup(lip, no_library):
         k11._EvalSetup(terms, F64, 3, 32, ocp.nx, ocp.nu, ocp.dt, wc, False)
 
 
-def test_the_call_matches_the_entrys_argument_types(lip, monkeypatch):
+def test_the_call_matches_the_entrys_argument_types(each_lip, monkeypatch):
     """The launch passes exactly the entry's arguments (its argtypes and the
-    stream): x0 and its row stride, the outputs at their layout's offsets,
-    no plan pointer unpinned."""
-    prob, s = lip
-    ocp = prob.ocp
+    stream): x0 and its row stride, the topology and the step's id that
+    pick the instance, the outputs at their layout's offsets, no plan
+    pointer unpinned."""
+    prob, s = each_lip
+    ocp, t = prob.ocp, s.terms
     seen = {}
 
     class Entry:
@@ -275,11 +308,14 @@ def test_the_call_matches_the_entrys_argument_types(lip, monkeypatch):
         rows = torch.zeros(Bsz, 40)
         x0 = rows[:, 3:3 + ocp.nx]                   # rows 40 apart
         for pin in (None, x0):
-            out = k11._evaluate_launched(X, U, params, s.terms, ocp.dt,
-                                         s._wc(F32), pin)
+            out, shape = k11._evaluate_launched(X, U, params, s.terms,
+                                                ocp.dt, s._wc(F32), pin)
+            assert shape == k10.check_kernel_shape("t", t, ocp.nx, ocp.nu)
             args = seen["args"]
             assert len(args) == len(entry.argtypes)
             assert args[3] == (40 if pin is not None else 0)
+            assert args[5:11] == (Bsz, ns, t.nc, t.contact_model,
+                                  t.number_of_legs, k10.STEPS.index(t.step))
             assert list(args[-4:-1]) == [o.data_ptr() for o in out] + (
                 [None] if pin is None else [])
     finally:

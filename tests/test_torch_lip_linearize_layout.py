@@ -8,6 +8,7 @@ and the twin, with no JAX:
 
 - the block constants (threads, launch bound, a fleet's group) and the
   template table's layout parsed from the .cu equal the wrapper's;
+- at every (topology, step) instance of `KERNEL_SHAPES`:
 - the schedule (`schedule`, the .cu's `launch_groups` and grid-stride
   loops, its unit and record slots modelled from the source's constants):
   for B ∈ {1, 2, 3, 7, 512, 4096} and ns ∈ {1, 8, 20, 31} in both types,
@@ -20,6 +21,8 @@ and the twin, with no JAX:
   formulas in the working type) are the twin's Jacobians at mask 1 and
   switch 1 bit for bit in float64, within one unit in the last place in
   float32, and the template × scale rule gives the twin's Jxp bit for bit;
+  the step's blocks (`step_blocks`) are the chain rule of the step's own
+  Jacobian (`torch.func.jacfwd` of `ocp.step`) to 1e-14;
 - each (B, dtype, ns, rows) builds its own setup, and the wrapper's call
   matches the entry's argument types;
 - the outputs cut from one buffer are disjoint, 16-byte aligned and hold
@@ -38,7 +41,8 @@ import torch
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import build
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
-from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet, point_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.solvers import msddp
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
@@ -53,6 +57,23 @@ SOURCE = (Path(k10.__file__).resolve().parents[1] / "csrc"
 SMS = 132                      # an H100's SMs
 SIZES_B = (1, 2, 3, 7, 512, 4096)
 SIZES_NS = (1, 8, 20, 31)
+SHAPES = tuple(k10.KERNEL_SHAPES)
+# each topology's SRBDConfig fields and robot
+LIP_TOPOLOGIES = {
+    "kangaroo": (dict(), kangaroo_line_feet),
+    "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
+    "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
+}
+
+
+def lip_problem(shape, dtype=F64):
+    """The LIP problem of the instance `shape` (a `KERNEL_SHAPES` name) on
+    the CPU."""
+    topology, _, rk = shape.partition("_rk")
+    kw, robot = LIP_TOPOLOGIES[topology]
+    return build_lip_problem(SRBDConfig(dtype=dtype, **kw), robot(),
+                             integrator="RK" + rk if rk else "EULER",
+                             device="cpu")
 
 
 def _const(name):
@@ -64,6 +85,16 @@ def lip():
     prob = build_lip_problem(SRBDConfig(dtype=F64), kangaroo_line_feet(),
                              device="cpu")
     return prob, MSDDP(prob.ocp, DDPOptions())
+
+
+@pytest.fixture(scope="module", params=SHAPES)
+def each_lip(request):
+    """The problem and solver of each (topology, step) instance."""
+    prob = lip_problem(request.param)
+    s = MSDDP(prob.ocp, DDPOptions())
+    assert k10.check_kernel_shape("t", s.terms, prob.ocp.nx, prob.ocp.nu,
+                                  s.rows) == request.param
+    return prob, s
 
 
 def test_block_constants_match_the_cuda_source():
@@ -82,9 +113,9 @@ def test_block_constants_match_the_cuda_source():
 
 # ---------------- the schedule ----------------
 
-def _per():
+def _per(shape="kangaroo"):
     """Values a node of each field (the .cu's K10<S>)."""
-    z = k10.KERNEL_SHAPE
+    z = k10.KERNEL_SHAPES[shape]
     nx, nu = z["nx"], z["nu"]
     return dict(Sx=z["n_rx"] * nx, Bs=z["n_ru"] * nu, Jxp=z["n_gx"] * nx,
                 Jup=z["n_gu"] * nu, rho=z["n_rho"], d=nx, rt=z["nt"],
@@ -112,7 +143,11 @@ def test_units_tile_a_group_once():
     0 … units−1, each once, and a unit's values [u·V, u·V + V) tile the
     group's field block; the row-major values of ρ, d and rt are each
     (row, node) once."""
-    per, rot = _per(), _rotations(_per())
+    for shape in SHAPES:
+        _units_tile(_per(shape), _rotations(_per(shape)))
+
+
+def _units_tile(per, rot):
     for dtype in DTYPES:
         for G in (1, k10.GROUP_UNITS * k10.vec_nodes(dtype)):
             V = 1 if G == 1 else k10.vec_nodes(dtype)
@@ -178,10 +213,10 @@ def test_schedule_writes_every_node_once(Bsz, ns, dtype):
     assert G == 1 or n_stage >= SMS
 
 
-def _rec_slot(i, G):
+def _rec_slot(i, G, shape):
     """The .cu's `rec_slot`: (node in the group, source, element) of record
     slot i, source 15 past the group's records."""
-    z = k10.KERNEL_SHAPE
+    z = k10.KERNEL_SHAPES[shape]
     nx, nu = z["nx"], z["nu"]
     rec = 2 * nx + nu + 4 + 2 * z["nc"]
     if i >= G * rec:
@@ -205,13 +240,18 @@ def test_record_slots_load_each_value_once(dtype):
     """The record slots of a group (G nodes, `kRecSlots` a thread) load
     each node's x, X[n+1], u and 12 parameter values once; the source's
     record layout is x, X[n+1], u, the packed parameter row."""
-    z = k10.KERNEL_SHAPE
     assert re.search(r"rX = 0, rXn = nx, rU = 2 \* nx, rP = 2 \* nx \+ nu,\s+"
                      r"kRec = rP \+ L::pw;", SOURCE)
+    for shape in SHAPES:
+        _record_slots_once(dtype, shape)
+
+
+def _record_slots_once(dtype, shape):
+    z = k10.KERNEL_SHAPES[shape]
     for G in (1, k10.GROUP_UNITS * k10.vec_nodes(dtype)):
         rec = 2 * z["nx"] + z["nu"] + 4 + 2 * z["nc"]
         T = k10.THREADS
-        slots = [_rec_slot(t + s * T, G) for t in range(T)
+        slots = [_rec_slot(t + s * T, G, shape) for t in range(T)
                  for s in range(-(-G * rec // T))]
         live = [x for x in slots if x is not None]
         assert len(live) == len(set(live)) == G * rec
@@ -241,12 +281,12 @@ def _twin_at_unit_scales(prob, s, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-def test_templates_are_the_twins_jacobians(lip, dtype):
+def test_templates_are_the_twins_jacobians(each_lip, dtype):
     """The host templates are the twin's Jacobians at unit scales: bit for
     bit in float64, within one unit in the last place in float32 (the twin
     rounds some products in double first); the table repeats each
     template `vec_nodes` times in `TEMPLATES` order."""
-    prob, s = lip
+    prob, s = each_lip
     ocp = prob.ocp
     ent = k10.template_entries(s.terms, s.rows, ocp.dt, s._wc(dtype), dtype)
     twin = _twin_at_unit_scales(prob, s, dtype)
@@ -268,12 +308,34 @@ def test_templates_are_the_twins_jacobians(lip, dtype):
         np.testing.assert_array_equal(part, np.tile(ent[f].ravel(), V))
 
 
-def test_scaled_templates_give_the_twins_jxp(lip):
+def test_step_blocks_are_the_steps_jacobian(each_lip):
+    """Sx and Bs of the template table are (A − I)[rx] and B[ru] of the
+    problem's own step, A and B by `torch.func.jacfwd` of `ocp.step` at a
+    drawn point, to 1e-14 of their largest entry; the rows outside rx and
+    ru are zero there."""
+    prob, s = each_lip
+    ocp = prob.ocp
+    g = np.random.RandomState(11)
+    x = torch.tensor(g.randn(ocp.nx))
+    u = torch.tensor(g.randn(ocp.nu))
+    step = lambda a, b: ocp.step(a, b, None, ocp.dt)
+    A = torch.func.jacfwd(step, 0)(x, u) - torch.eye(ocp.nx, dtype=F64)
+    Bm = torch.func.jacfwd(step, 1)(x, u)
+    ent = k10.dynamics_entries(s.terms, s.rows, ocp.dt, F64)
+    for got, full, rows in ((ent["Sx"], A, s.rows.rx), (ent["Bs"], Bm, s.rows.ru)):
+        want = full[list(rows)]
+        assert float((torch.from_numpy(got) - want).abs().max()) <= \
+            1e-14 * float(want.abs().max())
+        dead = [r for r in range(ocp.nx) if r not in rows]
+        assert bool((full[dead] == 0).all())
+
+
+def test_scaled_templates_give_the_twins_jxp(each_lip):
     """Template × scale (the tracking mask or the node's switch; a zero
     entry kept zero) on drawn masks and switches gives the twin's Jxp bit
     for bit in float64, with the scales the .cu's `jxp_scale` reads from
     the row table."""
-    prob, s = lip
+    prob, s = each_lip
     ocp, nc = prob.ocp, prob.nc
     ent = k10.template_entries(s.terms, s.rows, ocp.dt, s._wc(F64), F64)
     g = np.random.RandomState(5)
@@ -340,11 +402,12 @@ def test_each_size_builds_its_own_setup(lip, no_library):
     assert first.tmpl.dtype == F64 and others[1].tmpl.dtype == F32
 
 
-def test_the_call_matches_the_entrys_argument_types(lip, monkeypatch):
+def test_the_call_matches_the_entrys_argument_types(each_lip, monkeypatch):
     """The launch passes exactly the entry's arguments (its argtypes and the
-    stream), the outputs at their layout's offsets."""
-    prob, s = lip
-    ocp = prob.ocp
+    stream): the topology and the step's id that pick the instance, the
+    row counts, the outputs at their layout's offsets."""
+    prob, s = each_lip
+    ocp, t = prob.ocp, s.terms
     seen = {}
 
     class Entry:
@@ -369,6 +432,10 @@ def test_the_call_matches_the_entrys_argument_types(lip, monkeypatch):
                   for k, v in ocp.params.items()}
         out = k10._launched(X, U, params, s.terms, s.rows, ocp.dt, s._wc(F32))
         assert len(seen["args"]) == len(Lib.lip_linearize_f32.argtypes)
+        assert seen["args"][5:15] == (
+            Bsz, ns, t.nc, t.contact_model, t.number_of_legs,
+            k10.STEPS.index(t.step), len(s.rows.rx), len(s.rows.ru),
+            len(s.rows.gx), len(s.rows.gu))
         outs = seen["args"][-2]
         assert [outs[i] for i in range(8)] == [out[f].data_ptr()
                                                for f in k10.FIELDS]
@@ -379,11 +446,11 @@ def test_the_call_matches_the_entrys_argument_types(lip, monkeypatch):
 
 # ---------------- the one output buffer ----------------
 
-def _one_buffer(lin, Bsz, ns, dtype):
+def _one_buffer(lin, Bsz, ns, dtype, shape="kangaroo"):
     """The twin's outputs moved into views of one buffer as the CUDA wrapper
     lays them out: (the buffer, the dict of views)."""
-    layout, total = build.layout_of(k10.output_shapes(Bsz, ns, k10.KERNEL_SHAPE),
-                                    dtype)
+    layout, total = build.layout_of(
+        k10.output_shapes(Bsz, ns, k10.KERNEL_SHAPES[shape]), dtype)
     buf, views = build.output_views(layout, total, dtype, CPU)
     for v, f in zip(views, k10.FIELDS):
         v.copy_(lin[f])
@@ -392,12 +459,13 @@ def _one_buffer(lin, Bsz, ns, dtype):
 
 @pytest.mark.parametrize("dtype,Bsz", [(d, b) for d in DTYPES for b in (1, 3)],
                          ids=["f32-B1", "f32-B3", "f64-B1", "f64-B3"])
-def test_output_views_hold_the_twins_outputs(lip, dtype, Bsz):
+def test_output_views_hold_the_twins_outputs(each_lip, dtype, Bsz):
     """The eight outputs as views of one buffer: disjoint, contiguous,
     16-byte aligned, of the twin's shapes, holding the twin's outputs once
     all are copied in."""
-    prob, s = lip
+    prob, s = each_lip
     ocp = prob.ocp
+    shape = k10.check_kernel_shape("t", s.terms, ocp.nx, ocp.nu, s.rows)
     g = np.random.RandomState(Bsz)
     X = torch.tensor(g.randn(Bsz, ocp.ns + 1, ocp.nx), dtype=dtype)
     U = torch.tensor(g.randn(Bsz, ocp.ns, ocp.nu), dtype=dtype)
@@ -405,7 +473,7 @@ def test_output_views_hold_the_twins_outputs(lip, dtype, Bsz):
               for k, v in ocp.params.items()}
     want = k10.lip_linearize_plain(X, U, params, s.terms, s.rows, ocp.dt,
                                    s._wc(dtype))
-    buf, views = _one_buffer(want, Bsz, ocp.ns, dtype)
+    buf, views = _one_buffer(want, Bsz, ocp.ns, dtype, shape)
     spans = []
     for f in k10.FIELDS:
         v = views[f]
@@ -433,13 +501,14 @@ def _lip_runs(prob, s):
     return got
 
 
-def test_solver_paths_agree_on_one_buffer_outputs(lip, monkeypatch):
+@pytest.mark.parametrize("shape", ["kangaroo", "point_feet_rk4"])
+def test_solver_paths_agree_on_one_buffer_outputs(shape, monkeypatch):
     """`MSDDP.solve_batch` and `MSDDP.solve` on K10's outputs laid out as
     views of one buffer give what they give on separate tensors, bit for
     bit, and leave every buffer as K10 wrote it: no consumer (K1, the
     compaction's index_select / index_copy, the line search) writes
     through them or across fields."""
-    prob, _ = lip
+    prob = lip_problem(shape)
     s = MSDDP(prob.ocp, DDPOptions(max_iters=4, active_compact_levels=2,
                                    line_search_compact=2))
     want = _lip_runs(prob, s)
@@ -447,7 +516,8 @@ def test_solver_paths_agree_on_one_buffer_outputs(lip, monkeypatch):
 
     def one_buffer_linearize(X, U, params, terms, rows, dt, wc):
         lin = k10.lip_linearize_plain(X, U, params, terms, rows, dt, wc)
-        buf, views = _one_buffer(lin, X.shape[0], X.shape[1] - 1, X.dtype)
+        buf, views = _one_buffer(lin, X.shape[0], X.shape[1] - 1, X.dtype,
+                                 shape)
         written.append((buf, buf.clone()))
         return views
     table = msddp._KERNELS

@@ -10,10 +10,15 @@ package's `build_lip_problem`, float64 on the CPU:
     nonzero lies in them, and every declared row has a nonzero;
   - the point-feet problem (nc = 2) builds, evaluates and solves on the
     CPU as the JAX package's does;
-  - the compiled sizes of K10, K11 and lip_evaluate (`lip::Shape`) held
-    against the wrappers' table and the problem, and the wrappers
-    refusing other sizes off the CPU (meta tensors stand in for CUDA
-    ones) before any launch.
+  - the compiled instances of K10, K11 and lip_evaluate (the topology
+    structs and `with_shape` of csrc/lip_common.cuh) held against the
+    wrappers' table and the problem, the wrappers refusing other sizes off
+    the CPU (meta tensors stand in for CUDA ones) before any launch, and
+    every instance's sizes passing the shape check and stopping at the
+    device check;
+  - K12 and K13 refusing the LIP at the point-feet topologies and under
+    RK by name (the modes at those shapes are not compiled yet), and
+    `MSDDP` refusing the modes there, naming ROADMAP.md.
 """
 
 import dataclasses
@@ -34,11 +39,16 @@ from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu.problems.lip import build_lip_problem as j_build
 from srbd_horizon_tpu.solvers.msddp import MSDDP as JMSDDP
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+from srbd_horizon_tpu_torch.kernels import linear_trial as k13
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+from srbd_horizon_tpu_torch.kernels import riccati as k1
+from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet as t_feet
+from srbd_horizon_tpu_torch.models.kangaroo import point_feet as t_point_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem as t_build
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
@@ -185,10 +195,10 @@ def test_declared_rows_hold_every_nonzero(lip, switches):
 
 
 def test_point_feet_builds_evaluates_and_solves_as_jax():
-    """contact_model 1 (nc = 2, nx 18, nu 9): no kernel is compiled for it,
-    so the CPU takes the twins; a 30-iteration solve from the initial
-    state closes the defects as the JAX package's does (tests/
-    test_configs.py), with its iterations and plan."""
+    """contact_model 1 (nc = 2, nx 18, nu 9): its kernels are the
+    `point_feet` instance; a 30-iteration solve from the initial state on
+    the CPU (the twins) closes the defects as the JAX package's does
+    (tests/test_configs.py), with its iterations and plan."""
     jp, tp = _pair(contact_model=1, number_of_legs=2)
     assert (tp.ocp.nx, tp.ocp.nu, tp.nc) == (18, 9, 2)
     np.testing.assert_array_equal(np_of(tp.initial_state), np.asarray(jp.initial_state))
@@ -198,22 +208,14 @@ def test_point_feet_builds_evaluates_and_solves_as_jax():
     want = jax.vmap(js.total_cost)(*to_jax((X, U, params)))
     got = ts.total_cost(to_torch(X), to_torch(U), to_torch(params))
     assert max_rel_err(got, want) < 1e-12
-    with pytest.raises(ValueError, match="no kernel for the sizes"):
-        k10.check_kernel_shape("lip_linearize", ts.terms, tp.ocp.nx, tp.ocp.nu,
-                               ts.rows)
+    assert k10.check_kernel_shape("lip_linearize", ts.terms, tp.ocp.nx,
+                                  tp.ocp.nu, ts.rows) == "point_feet"
     jsol = jit(js.solve)(js.init(jp.initial_state), jp.initial_state,
                          jp.ocp.params)
     tsol = ts.solve(ts.init(tp.initial_state), tp.initial_state, tp.ocp.params)
     assert int(tsol.iterations) == int(jsol.iterations)
     assert float(tsol.defect_norm) < 1e-6
     assert max_rel_err(tsol.X, jsol.X) < 1e-9
-
-
-@pytest.mark.parametrize("integrator", ["RK2", "RK4"])
-def test_other_integrators_raise(integrator):
-    with pytest.raises(NotImplementedError, match="EULER"):
-        t_build(SRBDConfig(dtype=F64), t_feet(), integrator=integrator,
-                device="cpu")
 
 
 def test_zmp_tracking_gain_is_carried():
@@ -232,26 +234,52 @@ def test_zmp_tracking_gain_is_carried():
 # ---------------- the compiled sizes of K10, K11 and lip_evaluate ----------------
 
 def test_shape_struct_matches_the_wrappers_table():
+    """The topology structs of csrc/lip_common.cuh are `TOPOLOGIES`, in
+    order; its `with_shape` switch is `KERNEL_SHAPES`, in order (the three
+    topologies under Euler, then each under RK2 and RK4, n_ru = nx); its
+    step tags' ids are `STEPS` (rigid_common.cuh's, shared with the SRBD
+    kernels)."""
     src = HEADER.read_text()
-    found = re.findall(r"struct Shape \{\s*static constexpr int ([^;]*);", src)
-    assert len(found) == 1
-    parsed = {k.strip(): int(v) for k, v in
-              (kv.split("=") for kv in found[0].split(","))}
-    assert parsed == k10.KERNEL_SHAPE
+    found = re.findall(r"struct (\w+)Shape \{\s*static constexpr int "
+                       r"([^;]*);", src)
+    names = {"Kangaroo": "kangaroo", "Quad": "quadruped",
+             "PointFeet": "point_feet"}
+    assert [names[n] for n, _ in found] == list(k10.TOPOLOGIES)
+    for n, body in found:
+        parsed = {k.strip(): int(v) for k, v in
+                  (kv.split("=") for kv in body.split(","))}
+        assert parsed == k10.TOPOLOGIES[names[n]]
+    with_shape = src[src.index("inline int with_shape("):]
+    cases = re.findall(r"case (\d+): return fn\((?:Stepped<)?(\w+)Shape"
+                       r"(?:, (\w+)>)?", with_shape[:with_shape.index("default")])
+    assert [int(i) for i, _, _ in cases] == list(range(len(k10.KERNEL_SHAPES)))
+    assert [names[t] + ("_" + st.lower() if st else "")
+            for _, t, st in cases] == list(k10.KERNEL_SHAPES)
+    for name, want in k10.KERNEL_SHAPES.items():
+        topology, _, rk = name.partition("_rk")
+        topo = dict(k10.TOPOLOGIES[topology])
+        if rk:
+            topo["n_ru"] = topo["nx"]
+        assert want == dict(topo, step="RK" + rk if rk else "EULER")
+    tags = (HEADER.parent / "rigid_common.cuh").read_text()
+    ids = re.findall(r"struct (Euler|Rk2|Rk4) \{\s*static constexpr int "
+                     r"id = (\d+)", tags)
+    assert [(n.upper(), int(i)) for n, i in ids] == [
+        (st, i) for i, st in enumerate(k10.STEPS)]
 
 
 def test_lip_problem_has_the_compiled_sizes(lip):
     _, tp = lip
     ts = MSDDP(tp.ocp, DDPOptions())
     sizes = k10.kernel_sizes(ts.terms, tp.ocp.nx, tp.ocp.nu, ts.rows)
-    assert sizes == k10.KERNEL_SHAPE
+    assert sizes == k10.KERNEL_SHAPES["kangaroo"]
     lin = k10.lip_linearize_plain(
         tp.initial_state[None, None].expand(1, tp.ocp.ns + 1, -1).contiguous(),
         tp.static_input[None, None].expand(1, tp.ocp.ns, -1).contiguous(),
         {k: v[None] for k, v in tp.ocp.params.items()}, ts.terms, ts.rows,
         tp.ocp.dt, ts._wc(F64))
-    assert lin["rt"].shape[-1] == lin["Jt"].shape[-2] == k10.KERNEL_SHAPE["nt"]
-    assert lin["rho"].shape[-1] == k10.KERNEL_SHAPE["n_rho"]
+    assert lin["rt"].shape[-1] == lin["Jt"].shape[-2] == 10
+    assert lin["rho"].shape[-1] == k10.KERNEL_SHAPES["kangaroo"]["n_rho"]
 
 
 def _meta_args(tp, ts, nc, B=2):
@@ -289,3 +317,82 @@ def test_wrappers_refuse_other_sizes_off_the_cpu(lip, name):
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         fn(*args)
     assert fn.launches == launches
+
+
+# ---------------- every (topology, step) instance ----------------
+
+LIP_TOPOLOGIES = {
+    "kangaroo": (dict(), t_feet),
+    "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
+    "point_feet": (dict(contact_model=1, number_of_legs=2), t_point_feet),
+}
+
+
+def _instance_solver(shape, **opts):
+    """The port's problem and solver of the instance `shape` on the CPU."""
+    topology, _, rk = shape.partition("_rk")
+    kw, robot = LIP_TOPOLOGIES[topology]
+    tp = t_build(SRBDConfig(dtype=F64, **kw), robot(),
+                 integrator="RK" + rk if rk else "EULER", device="cpu")
+    return tp, MSDDP(tp.ocp, DDPOptions(**opts))
+
+
+@pytest.mark.parametrize("shape", list(k10.KERNEL_SHAPES))
+@pytest.mark.parametrize("name", ["lip_linearize", "lip_trial", "lip_evaluate"])
+def test_each_instance_passes_the_shape_check(shape, name):
+    """Each instance's own problem passes the wrappers' shape check off the
+    CPU (meta tensors) and stops at the device check, launching nothing;
+    its sizes name that instance, and its step's row counts no other."""
+    tp, ts = _instance_solver(shape)
+    ocp, B, ns = tp.ocp, 2, tp.ocp.ns
+    nx, nu = ocp.nx, ocp.nu
+    assert k10.check_kernel_shape(name, ts.terms, nx, nu, ts.rows) == shape
+    e = lambda *sh: torch.empty(sh, dtype=F64, device="meta")
+    params = {k: e(B, ns + 1, v.shape[-1]) for k, v in ocp.params.items()}
+    X, U = e(B, ns + 1, nx), e(B, ns, nu)
+    dt, wc = ocp.dt, ts._wc(F64)
+    fn, args = {
+        "lip_linearize": (k10.lip_linearize,
+                          (X, U, params, ts.terms, ts.rows, dt, wc)),
+        "lip_trial": (k11.lip_trial,
+                      (e(B, nx), X, U, e(B, ns, nu), e(B, ns, nu, nx),
+                       e(B, ns, nx), e(1), params, e(B), e(B), e(B), e(B),
+                       ts.terms, dt, wc, 1e-3, 0.1, 1e-12)),
+        "lip_evaluate": (k11.lip_evaluate, (X, U, params, ts.terms, dt, wc)),
+    }[name]
+    launches = (fn.launches, dict(fn.shape_launches))
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        fn(*args)
+    assert (fn.launches, fn.shape_launches) == launches
+    other = "EULER" if ts.terms.step != "EULER" else "RK2"
+    swapped = dataclasses.replace(ts.terms, step=other)
+    with pytest.raises(ValueError, match="no kernel for the sizes"):
+        k10.check_kernel_shape(name, swapped, nx, nu, ts.rows)
+
+
+NEW_SHAPES = [s for s in k10.KERNEL_SHAPES if s != "kangaroo"]
+
+
+@pytest.mark.parametrize("shape", NEW_SHAPES)
+def test_modes_refuse_the_new_lip_shapes(shape):
+    """K12 and K13 are not compiled for the LIP off the Kangaroo's Euler
+    shape: K13's `family_index` and K12's instance lookup raise their named
+    ValueError for it (the wrappers' first checks, before any launch, with
+    either gain solve), no instance maps it onto another, and `MSDDP`
+    refuses the modes there on every device, naming ROADMAP.md; K1 takes
+    its own instance."""
+    tp, ts = _instance_solver(shape)
+    ocp = tp.ocp
+    nt = 10
+    with pytest.raises(ValueError, match="linear_trial has no kernel"):
+        k13.family_index(ts.terms, ocp.nx, ocp.nu, ts.rows)
+    k1_shape = k1.kernel_shape(ocp.nx, ocp.nu, nt, ts.rows)
+    assert k1_shape.startswith("lip") and k1_shape != "lip"
+    for solver in ("schur", "cholesky"):
+        with pytest.raises(ValueError, match="riccati_associative has no kernel"):
+            k12.kernel_instance(ocp.nx, ocp.nu, nt, ts.rows, solver)
+        assert k1.KERNEL_INSTANCES[k1.kernel_instance(
+            k1_shape, "tassa", solver)] == (k1_shape, "tassa", solver)
+    for mode in (("associative", "nonlinear"), ("sequential", "linear")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            MSDDP(ocp, DDPOptions(riccati_mode=mode[0], forward_pass=mode[1]))

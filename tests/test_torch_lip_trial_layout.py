@@ -2,7 +2,8 @@
 
 The card runs K11 (`lip_trial_kernel` in `csrc/lip_rollout.cu`); here no
 CUDA compiler exists. These tests hold what the wrapper states about the
-kernel against the source itself: for float32 and float64 tensors and 1-4
+kernel against the source itself: at each (topology, step) instance of
+`lip_linearize.KERNEL_SHAPES`, for float32 and float64 tensors and 1-4
 step sizes a call, the shared memory a block takes (`smem_bytes`, ns = 20,
 region by region) against the .cu's `regions` evaluated from its text,
 within the 232,448 B a block may take, and, in float32, the blocks an SM
@@ -10,10 +11,12 @@ the kernel's launch bound asks for within the 233,472 B of an SM (1 KB a
 block reserved); the wrapper's block constants (α's a block, nodes a piece
 of K, ring slots, the block limit) against the source. Then
 `kernel_order_trial`, a torch model of the kernel's order of work — the
-chain node after node for every α, x̂ₙ₊₁ = x̂ + dt·ẋ(x̂, u) − (1 − α)dₙ
-with u = (U + αk) + K(x̂ − X), then each node's ‖ρ‖² on its own, the stage
-nodes added in node order and the terminal node last, then the merit and
-the Armijo test — at the LIP's sizes (ns = 20, four α, drawn plans,
+chain node after node for every α, x̂ₙ₊₁ = step(x̂, u) − (1 − α)dₙ
+with u = (U + αk) + K(x̂ − X), the step's stages row by row from the
+partner row (row j ± nx/2) as the chain's lanes take them, then each
+node's ‖ρ‖² on its own, the stage nodes added in node order and the
+terminal node last, then the merit and the Armijo test — at each
+instance's sizes (ns = 20, four α, drawn plans,
 references, switches and masks linearized by the plain linearizer, the
 gains of K1's twin): its outputs agree with `lip_trial_plain` to 1e-12
 relative, and, on trials whose merit0 is drawn MARGIN (relative) off the
@@ -33,7 +36,8 @@ from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
 from srbd_horizon_tpu_torch.kernels import riccati as k1
 from srbd_horizon_tpu_torch.kernels.rollout import armijo_plain
-from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet
+from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet, point_feet
+from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
 from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
@@ -54,40 +58,60 @@ MARGIN = 1e-6             # merit0's distance from the Armijo threshold,
                           # relative to max(1, |merit|)
 ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
 DTYPES = (torch.float32, torch.float64)
-CASES = [(d, nA) for d in DTYPES for nA in (1, 2, 3, 4)]
+SHAPES = tuple(k10.KERNEL_SHAPES)
+CASES = [(d, nA, sh) for sh in SHAPES for d in DTYPES for nA in (1, 2, 3, 4)]
+# each topology's SRBDConfig fields and robot
+LIP_TOPOLOGIES = {
+    "kangaroo": (dict(), kangaroo_line_feet),
+    "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
+    "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
+}
 
 
-def _env():
+def lip_problem(shape):
+    """The LIP problem of the instance `shape` on the CPU in float64."""
+    topology, _, rk = shape.partition("_rk")
+    kw, robot = LIP_TOPOLOGIES[topology]
+    return build_lip_problem(SRBDConfig(dtype=F64, **kw), robot(),
+                             integrator="RK" + rk if rk else "EULER",
+                             device=CPU)
+
+
+def _env(shape="kangaroo"):
     """The .cu's namespace-scope `constexpr int` constants, evaluated with
-    the LIP's sizes (`KERNEL_SHAPE`) and the header's packed row width."""
-    z = k10.KERNEL_SHAPE
+    the instance's sizes (`KERNEL_SHAPES`) and the header's packed row
+    width."""
+    z = k10.KERNEL_SHAPES[shape]
     pw = re.search(r"static constexpr int pw = ([^;]+);", HEADER)[1]
     env = dict(nx=z["nx"], nu=z["nu"], nc=z["nc"])
-    env["L_pw"] = int(eval(pw.split("//")[0], {}, env))
+    env["kPw"] = int(eval(pw.split("//")[0], {}, env))
     for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", SOURCE,
                                  re.M):
+        if "S::" in expr:               # a template of the shape
+            continue
         py = re.sub(r"(?<!/)/(?!/)", "//", expr.replace("L::pw", "L_pw"))
         env[name] = int(eval(py, {}, env))
     return env
 
 
-def _source_regions(dtype, ns, nA):
-    """The .cu's `regions<E>(ns, na)` run from its text (its statements
-    read as Python): each region's bytes (the next offset less its own)
-    and the total."""
+def _source_regions(dtype, ns, nA, shape="kangaroo"):
+    """The .cu's `regions<S, E>(ns, na)` run from its text (its statements
+    read as Python, the shape's sizes given): each region's bytes (the
+    next offset less its own) and the total."""
     body = re.search(r"constexpr Regions regions\(int ns, int na\) \{\n(.*?)\n\}",
                      SOURCE, re.S)[1]
-    z = k10.KERNEL_SHAPE
+    z = k10.KERNEL_SHAPES[shape]
     body = body.replace("for (int q = 0; q < lip::kParams; ++q)", "for q in range(4):")
     py = []
     for line in body.split(";"):
         line = " ".join(line.split())
-        if not line or line.startswith(("Regions r", "return")):
+        if not line or line.startswith(("Regions r", "return",
+                                         "constexpr int nx = S::nx")):
             continue
         line = re.sub(r"static_cast<size_t>\(([^()]*)\)", r"(\1)", line)
         line = re.sub(r"r\.(\w+)", r"r['\1']", line)
         py.append(line.replace("lip::param_dim<S>(q)", "pdim[q]"))
-    env = dict(_env(), ns=ns, na=min(nA, 4), E=torch.finfo(dtype).bits // 8,
+    env = dict(_env(shape), ns=ns, na=min(nA, 4), E=torch.finfo(dtype).bits // 8,
                pdim=(1, 3, z["nc"], z["nc"]), r={},
                round16=lambda v: -(-v // 16) * 16, cmax=max)
     exec("\n".join(py), env)
@@ -98,14 +122,14 @@ def _source_regions(dtype, ns, nA):
     return sizes
 
 
-@pytest.mark.parametrize("dtype,nA", CASES,
-                         ids=[f"{str(d)[6:]}-{n}a" for d, n in CASES])
-def test_smem_bytes_match_the_cuda_layout(dtype, nA):
+@pytest.mark.parametrize("dtype,nA,shape", CASES,
+                         ids=[f"{sh}-{str(d)[6:]}-{n}a" for d, n, sh in CASES])
+def test_smem_bytes_match_the_cuda_layout(dtype, nA, shape):
     """The wrapper's bytes are the .cu's `regions`, region by region, and
     fit a block; in float32 the block leaves the blocks an SM the launch
     bound asks for."""
-    stated = k11.smem_bytes(dtype, NS, nA)
-    assert stated == _source_regions(dtype, NS, nA)
+    stated = k11.smem_bytes(dtype, NS, nA, shape)
+    assert stated == _source_regions(dtype, NS, nA, shape)
     assert sum(v for k, v in stated.items() if k != "total") == stated["total"]
     assert stated["total"] <= SMEM_PER_BLOCK == k11.MAX_SMEM
     if dtype == torch.float32:
@@ -117,12 +141,17 @@ def test_runs_leave_room_for_their_shift():
     at its source's offset within 16 bytes), a ring slot a piece of K and
     16 bytes; a piece is a 16-byte multiple long in both types, so every
     piece of a member keeps the first one's offset; after the chain the
-    ring holds the node sums."""
-    z = k10.KERNEL_SHAPE
+    ring holds the node sums; at every instance."""
+    for shape in SHAPES:
+        _room_for_shift(shape)
+
+
+def _room_for_shift(shape):
+    z = k10.KERNEL_SHAPES[shape]
     for dtype in DTYPES:
         E = torch.finfo(dtype).bits // 8
         for nA in (1, 4):
-            r = k11.smem_bytes(dtype, NS, nA)
+            r = k11.smem_bytes(dtype, NS, nA, shape)
             assert r["ring"] >= k11.RING * (k11.PIECE_NODES * z["nu"] * z["nx"] * E + 16)
             assert r["ring"] >= min(nA, 4) * (NS + 1) * E
             assert r["prm"] >= (NS + 1) * (4 + 2 * z["nc"]) * E
@@ -141,7 +170,11 @@ def test_block_constants_match_the_cuda_source():
     assert re.search(r"constexpr size_t kMaxSmem = (\d+);", SOURCE)[1] == \
         str(k11.MAX_SMEM)
     assert "kernel<<<blocks, 32 * (alphas_a_block(nA) + 1), bytes," in SOURCE
-    assert "__launch_bounds__(32 * (kMaxAlphas + 1), kMinBlocks)" in SOURCE
+    assert ("__launch_bounds__(32 * (kMaxAlphas + 1), kTrialMinBlocks<S>)"
+            in SOURCE)
+    # the Euler chains take kMinBlocks, the RK chains 4
+    assert re.search(r"kTrialMinBlocks = S::Step::stages > 1 \? 4 : "
+                     r"kMinBlocks;", SOURCE)
 
 
 @pytest.mark.parametrize("nA", (1, 2, 3, 4, 5, 8))
@@ -156,12 +189,11 @@ def test_alphas_a_block_match_the_cuda_source(nA):
 
 # ---- the order of work ----
 
-def _draw(seed):
-    """A drawn trial at the LIP's sizes: X, U near the initial state and
-    static input, random references, 0/1 switches and masks, x0 near X₀,
-    the plain linearization, the gains of K1's twin, the merit's D."""
-    prob = build_lip_problem(SRBDConfig(dtype=F64), kangaroo_line_feet(),
-                             device=CPU)
+def _draw(seed, shape):
+    """A drawn trial at the instance's sizes: X, U near the initial state
+    and static input, random references, 0/1 switches and masks, x0 near
+    X₀, the plain linearization, the gains of K1's twin, the merit's D."""
+    prob = lip_problem(shape)
     s, ocp = MSDDP(prob.ocp, DDPOptions()), prob.ocp
     ns, nx, nu, nc = ocp.ns, ocp.nx, ocp.nu, prob.nc
     assert ns == NS
@@ -192,12 +224,42 @@ def _args(p, merit0):
             s.opts.alpha_converge_threshold)
 
 
+def chain_step(terms, dt, xh, u):
+    """The step as the chain's lanes take it: lane j's ẋ at each stage
+    point from its partner lane j ± nx/2 (the pair's other row; u of lane
+    j − nx/2), the stage point x̂ + c_s·dt·k_{s−1} on every lane, the k's
+    summed as ocp/integrators.py sums them."""
+    nx = xh.shape[-1]
+    h = nx // 2
+    partner = torch.cat([torch.arange(h, nx), torch.arange(0, h)])
+    up = u[..., torch.arange(nx) % h]
+
+    def rate(xs):
+        xo = xs[..., partner]
+        acc = terms.eta2 * (xo - up)
+        acc = torch.where(torch.arange(nx) == h + 2, acc - 9.81, acc)
+        return torch.where(torch.arange(nx) < h, xo,
+                           torch.where(torch.arange(nx) < h + 3, acc, up))
+    k = rate(xh)
+    if terms.step == "EULER":
+        return xh + dt * k
+    acc = k
+    cs = (0.5,) if terms.step == "RK2" else (0.5, 0.5, 1.0)
+    for s, c in enumerate(cs, start=1):
+        k = rate(xh + (c * dt) * k)
+        if terms.step == "RK4":
+            acc = acc + k if s == 3 else acc + 2.0 * k
+    if terms.step == "RK2":
+        return xh + dt * k
+    return xh + (dt / 6.0) * acc
+
+
 def kernel_order_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
                        dV2, terms, dt, wc, nu_w, beta, alpha_min):
-    """K11's order of work: for every α the chain node after node, then
-    each node's ‖ρ‖² alone, the stage nodes added in node order, the
-    terminal node last, then the merit and the Armijo test. The twin's
-    arguments and outputs."""
+    """K11's order of work: for every α the chain node after node (the
+    step as `chain_step`), then each node's ‖ρ‖² alone, the stage nodes
+    added in node order, the terminal node last, then the merit and the
+    Armijo test. The twin's arguments and outputs."""
     ns = d.shape[1]
     Xs, Us, costs = [], [], []
     for a in alphas.tolist():
@@ -207,7 +269,7 @@ def kernel_order_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
                 "bij,bj->bi", Ks[:, n], xh - X[:, n])
             xa.append(xh)
             ua.append(u)
-            xh = (xh + dt * terms.xdot(xh, u)) - (1.0 - a) * d[:, n]
+            xh = chain_step(terms, dt, xh, u) - (1.0 - a) * d[:, n]
         xa.append(xh)
         Xa, Ua = torch.stack(xa, dim=1), torch.stack(ua, dim=1)
         p_stage = {k: v[:, :ns] for k, v in params.items()}
@@ -227,9 +289,9 @@ def kernel_order_trial(x0, X, U, ks, Ks, d, alphas, params, merit0, D, dV1,
     return torch.stack(Xs), torch.stack(Us), cost, merit, ok
 
 
-@pytest.fixture(scope="module")
-def draw():
-    return _draw(19)
+@pytest.fixture(scope="module", params=SHAPES)
+def draw(request):
+    return _draw(19, request.param)
 
 
 def test_kernel_order_matches_the_twin(draw):

@@ -283,20 +283,25 @@ def test_kernel_lookups_refuse_sizes_without_a_kernel(srbd, change):
 
 def test_wrappers_name_their_kernels():
     """K12 and K13 name the JAX functions they replace and their sources;
-    K12 is built for K1's seven SRBD and LIP shapes with both gain solves
-    and for the two AL shapes with Cholesky; K13 for a family at each of
-    K1's nine shapes, two at each RK shape (RK2 and RK4 share K1's shape,
-    not K13's step), each family named once in `FAMILY_NAMES`."""
+    K12 is built for K1's seven SRBD and Kangaroo-LIP shapes with both gain
+    solves and for the two AL shapes with Cholesky; K13 for a family at
+    each of those nine shapes, two at each SRBD RK shape (RK2 and RK4 share
+    K1's shape, not K13's step), each family named once in
+    `FAMILY_NAMES`; neither at K1's five other LIP shapes (the point-feet
+    topologies and RK), which wait for their instances."""
     assert k12.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1250"
     assert k13.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1454"
     al = {"isrbd_al", "isrbd_al_quadruped"}
-    assert len(k1.KERNEL_SHAPES) == 9
-    assert {s for s, _ in k12.KERNEL_INSTANCES} == set(k1.KERNEL_SHAPES)
+    lip_rest = {"lip_rk", "lip_quadruped", "lip_quadruped_rk",
+                "lip_point_feet", "lip_point_feet_rk"}
+    assert len(k1.KERNEL_SHAPES) == 14 and lip_rest <= set(k1.KERNEL_SHAPES)
+    modes = set(k1.KERNEL_SHAPES) - lip_rest
+    assert {s for s, _ in k12.KERNEL_INSTANCES} == modes
     assert set(k12.KERNEL_INSTANCES) == {
-        (s, q) for s in set(k1.KERNEL_SHAPES) - al for q in k1.QUU_SOLVERS
+        (s, q) for s in modes - al for q in k1.QUU_SOLVERS
     } | {(s, "cholesky") for s in al}
     assert len(k12.KERNEL_INSTANCES) == 16
-    assert {f[2] for f in k13.FAMILIES} == set(k1.KERNEL_SHAPES)
+    assert {f[2] for f in k13.FAMILIES} == modes
     rk = [f[2] for f in k13.FAMILIES if f[2].endswith("_rk")]
     assert sorted(rk) == sorted(2 * ["srbd_rk", "quadruped_rk",
                                      "point_feet_rk"])

@@ -257,9 +257,10 @@ def test_plain_wrapper_takes_the_twin_on_cpu():
 
 
 def test_kernel_shapes_and_instances_match_the_cuda_source():
-    """K12 defines no shape struct of its own: it takes K1's nine from
-    csrc/riccati_common.cuh, whose sizes are `riccati.KERNEL_SHAPES`; its
-    `with_instance` switch is `KERNEL_INSTANCES`, in order."""
+    """K12 defines no shape struct of its own: it takes K1's from
+    csrc/riccati_common.cuh (fourteen; K12 is built at nine of them), whose
+    sizes are `riccati.KERNEL_SHAPES`; its `with_instance` switch is
+    `KERNEL_INSTANCES`, in order."""
     csrc = Path(k12.__file__).resolve().parents[1] / "csrc"
     src = (csrc / "riccati_associative.cu").read_text()
     assert not re.findall(r"struct \w+Shape \{", src)
@@ -270,7 +271,11 @@ def test_kernel_shapes_and_instances_match_the_cuda_source():
              "LipShape": "lip", "QuadShape": "quadruped",
              "QuadAlShape": "isrbd_al_quadruped",
              "PointFeetShape": "point_feet", "SrbdRkShape": "srbd_rk",
-             "QuadRkShape": "quadruped_rk", "PointFeetRkShape": "point_feet_rk"}
+             "QuadRkShape": "quadruped_rk", "PointFeetRkShape": "point_feet_rk",
+             "LipRkShape": "lip_rk", "LipQuadShape": "lip_quadruped",
+             "LipQuadRkShape": "lip_quadruped_rk",
+             "LipPointFeetShape": "lip_point_feet",
+             "LipPointFeetRkShape": "lip_point_feet_rk"}
     assert [s for s, _ in structs] == list(names)
     for s, body in structs:
         sizes = {k.strip(): int(v) for k, v in

@@ -1,13 +1,14 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for nine sets of sizes, the
-SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
+K1 (`csrc/riccati_backward.cu`) is compiled for fourteen sets of sizes,
+the SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
 OCP of the point-feet quadruped, the AL inner OCP of its isrbd problem,
-the SRBD OCP of the point-feet biped, and the SRBD OCP of each of the
-three topologies under RK2 / RK4 (every row of B live); its wrapper picks
-one with `kernel_shape` for CUDA tensors and refuses any other sizes (the
-LIP on point feet among them) with a ValueError that names them. These
-tests hold that choice against `RiccatiRows.from_ocp` of the nine
+the SRBD OCP of the point-feet biped, the SRBD OCP of each of the three
+topologies under RK2 / RK4 (every row of B live), and the LIP OCP of the
+Kangaroo under RK and of the point-feet quadruped and biped under Euler
+and under RK; its wrapper picks one with `kernel_shape` for CUDA tensors
+and refuses any other sizes with a ValueError that names them. These
+tests hold that choice against `RiccatiRows.from_ocp` of the fourteen
 problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
 structs and the instantiation switch of the CUDA sources, and check that a
 CPU tensor of any sizes still takes the plain twin, as does K2's
@@ -88,12 +89,13 @@ def _isrbd_sizes(quadruped=False):
     return ocp.nx, ocp.nu, lin["Jt"].shape[1], rows
 
 
-def _lip_sizes(cfg=None, robot=None):
+def _lip_sizes(cfg=None, robot=None, integrator="EULER"):
     """(nx, nu, nt, rows) of the LIP OCP (`build_lip_problem`, as
-    `build_lip_loop` builds it), nt read off its linearization."""
+    `build_lip_loop` builds it; the Kangaroo's under Euler by default), nt
+    read off its linearization."""
     loop, prob = build_lip_loop(cfg or SRBDConfig(dtype=torch.float64),
                                 DDPOptions(max_iters=1), robot=robot,
-                                device="cpu")
+                                device="cpu", integrator=integrator)
     ocp, s = prob.ocp, loop.solver
     X = prob.initial_state[None, None].expand(1, ocp.ns + 1, -1).contiguous()
     U = prob.static_input[None, None].expand(1, ocp.ns, -1).contiguous()
@@ -116,11 +118,19 @@ def sizes():
             "point_feet": _srbd_sizes(pf, point_feet()),
             "srbd_rk": _srbd_sizes(integrator="RK2"),
             "quadruped_rk": _srbd_sizes(quad, quadruped_point_feet(), "RK4"),
-            "point_feet_rk": _srbd_sizes(pf, point_feet(), "RK2")}
+            "point_feet_rk": _srbd_sizes(pf, point_feet(), "RK2"),
+            "lip_rk": _lip_sizes(integrator="RK4"),
+            "lip_quadruped": _lip_sizes(quad, quadruped_point_feet()),
+            "lip_quadruped_rk": _lip_sizes(quad, quadruped_point_feet(),
+                                           "RK2"),
+            "lip_point_feet": _lip_sizes(pf, point_feet()),
+            "lip_point_feet_rk": _lip_sizes(pf, point_feet(), "RK4")}
 
 
 SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped",
-          "point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk"]
+          "point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk", "lip_rk",
+          "lip_quadruped", "lip_quadruped_rk", "lip_point_feet",
+          "lip_point_feet_rk"]
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -156,15 +166,19 @@ def test_kernel_shape_refuses_other_sizes(sizes, name, change):
 def test_kernel_shapes_match_the_cuda_source():
     """KERNEL_SHAPES, in order, is the sources' SrbdShape, IsrbdAlShape,
     LipShape, QuadShape, QuadAlShape, PointFeetShape, SrbdRkShape,
-    QuadRkShape, PointFeetRkShape (csrc/riccati_common.cuh, one definition
-    for K1 and K12)."""
+    QuadRkShape, PointFeetRkShape, LipRkShape, LipQuadShape,
+    LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape
+    (csrc/riccati_common.cuh, one definition for K1 and K12)."""
     src = SHAPES_SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
     assert [s for s, _ in structs] == ["SrbdShape", "IsrbdAlShape", "LipShape",
                                        "QuadShape", "QuadAlShape",
                                        "PointFeetShape", "SrbdRkShape",
-                                       "QuadRkShape", "PointFeetRkShape"]
+                                       "QuadRkShape", "PointFeetRkShape",
+                                       "LipRkShape", "LipQuadShape",
+                                       "LipQuadRkShape", "LipPointFeetShape",
+                                       "LipPointFeetRkShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -173,8 +187,10 @@ def test_kernel_shapes_match_the_cuda_source():
 
 
 def test_lip_on_point_feet_is_refused():
-    """The LIP on point feet (nc 2: nx 18, nu 9) has no instantiation; its
-    sizes are named in the refusal."""
+    """The LIP on point feet (nc 2: nx 18, nu 9) off its instantiation's
+    sizes is refused, its sizes named: its own sizes (the point-feet
+    biped's robot numbers) pick `lip_point_feet`, and with one residual row
+    fewer they pick none."""
     cfg = SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64)
     robot = RobotConstants(
         mass=40.0, inertia=np.diag([2.11556, 1.82968, 0.62288]),
@@ -183,8 +199,9 @@ def test_lip_on_point_feet_is_refused():
         foot_frames=("sole_0", "sole_1"))
     nx, nu, nt, rows = _lip_sizes(cfg, robot)
     assert (nx, nu, nt) == (18, 9, 10)
+    assert k1.kernel_shape(nx, nu, nt, rows) == "lip_point_feet"
     with pytest.raises(ValueError, match=r"no kernel for the sizes .*'nx': 18"):
-        k1.kernel_shape(nx, nu, nt, rows)
+        k1.kernel_shape(nx, nu, nt, _drop_last(rows, "gx"))
 
 
 def test_lip_instantiations():
@@ -249,6 +266,25 @@ def test_point_feet_and_rk_instantiations():
         assert k1.kernel_instance(shape, "tassa", "cholesky") == i
 
 
+def test_lip_family_instantiations():
+    """The LIP at the Kangaroo under RK and at the point-feet quadruped and
+    biped under Euler and under RK — RK2 and RK4 share each shape — has the
+    collapsed sweep and the Tassa sweep with either gain solve, appended as
+    25-39 in that order (the source's `with_instance` order is held by
+    test_torch_riccati_tassa.py)."""
+    shapes = ("lip_rk", "lip_quadruped", "lip_quadruped_rk",
+              "lip_point_feet", "lip_point_feet_rk")
+    forms = (("collapsed", "schur"), ("tassa", "schur"),
+             ("tassa", "cholesky"))
+    i = 25
+    for shape in shapes:
+        for form, solver in forms:
+            assert k1.kernel_instance(shape, form, solver) == i
+            assert k1.KERNEL_INSTANCES[i] == (shape, form, solver)
+            i += 1
+    assert len(k1.KERNEL_INSTANCES) == i == 40
+
+
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
     """No instantiation is needed for CPU tensors: sizes of no compiled
     shape go to the plain twin."""
@@ -268,7 +304,7 @@ def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [24, 30, 7, 15, 12])
+@pytest.mark.parametrize("n", [24, 30, 7, 15, 12, 9])
 def test_spd_inverse_takes_plain_path_on_cpu(n):
     g = np.random.RandomState(n)
     J = torch.as_tensor(g.randn(5, n + 3, n))

@@ -228,7 +228,11 @@ def test_kernel_instances_match_the_cuda_source():
     names = {"Srbd": "srbd", "IsrbdAl": "isrbd_al", "Lip": "lip",
              "Quad": "quadruped", "QuadAl": "isrbd_al_quadruped",
              "PointFeet": "point_feet", "SrbdRk": "srbd_rk",
-             "QuadRk": "quadruped_rk", "PointFeetRk": "point_feet_rk"}
+             "QuadRk": "quadruped_rk", "PointFeetRk": "point_feet_rk",
+             "LipRk": "lip_rk", "LipQuad": "lip_quadruped",
+             "LipQuadRk": "lip_quadruped_rk",
+             "LipPointFeet": "lip_point_feet",
+             "LipPointFeetRk": "lip_point_feet_rk"}
     parsed = [(names[s], f.lower(), g.lower()) for _, s, f, g in cases]
     assert [int(i) for i, *_ in cases] == list(range(len(cases)))
     assert tuple(parsed) == k1.KERNEL_INSTANCES

@@ -30,6 +30,7 @@ from srbd_horizon_tpu_torch.runtime.loop import build_quadruped_loop, build_srbd
 torch.set_num_threads(1)
 
 HEADER = Path(k4.__file__).resolve().parents[1] / "csrc" / "srbd_common.cuh"
+STEP_TAGS = HEADER.with_name("rigid_common.cuh")
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +73,7 @@ def test_shape_struct_matches_the_wrappers_table():
             topo["n_ru"] = topo["nx"]
         assert want == dict(topo, step="RK" + step if step else "EULER")
     ids = re.findall(r"struct (Euler|Rk2|Rk4) \{\s*static constexpr int "
-                     r"id = (\d+)", src)
+                     r"id = (\d+)", STEP_TAGS.read_text())
     assert [(n.upper(), int(i)) for n, i in ids] == [
         (st, i) for i, st in enumerate(k4.STEPS)]
 

@@ -41,8 +41,7 @@ VARIANTS = {
     "diag_no_rows": dict(replace={
         "lip::stage_rho_row<S>(g_, r + Z::rX, r + Z::rU, r + Z::rP, k)":
             "r[Z::rX + g_ % Z::nx]",
-        "(r[Z::rX + j] + k.dt * lip::xdot_row<S>(j, r + Z::rX,\n"
-        "                                                            r + Z::rU, k)) -\n"
+        "lip::step_row<S>(j, r + Z::rX, r + Z::rU, k) -\n"
         "                    r[Z::rXn + j]": "r[Z::rX + j]"}),
     "diag_no_scale": dict(replace={
         "x.v[j] = (sid == 0 || t.v[j] == T(0)) ? t.v[j] : t.v[j] * f;":

@@ -68,7 +68,8 @@ PARENT_STEPS = (
 BULK_ANCHORS = (
     ("    for (int n = 0; n < ns; ++n) {\n", 0),
     ("      if (m == 0) mbarrier_wait(full + s, use & 1);\n", 1),
-    ("                 Ul[n * nu], kl[n * nu], xh, alpha, om, k, Xo, Uo, rec, lane);\n", 2),
+    ("                    Ul[n * nu], kl[n * nu], xh, alpha, om, k, Xo, Uo, rec,\n"
+         "                    lane);\n", 2),
     ("<    }\n    if (lane < nx) {                               // x̂_N\n", 3),
 )
 BULK_STEPS = (("piece_wait", [(0, 1)]), ("node", [(1, 2)]),
