@@ -337,9 +337,8 @@ parallel, into build/kernels/), then:
      B = 1, 512 and 4096 in float32 beside the Kangaroo's Euler instance,
      with bounds, blocks an SM, registers and spills (none allowed), the
      shared memory held to `smem_bytes` / `evaluate_smem_bytes`; K2 at
-     nu=9 beside `torch.linalg.inv`; `lip_family_refusals`: K12 and K13 at
-     the new shapes raise their named ValueError on the card before any
-     launch and `MSDDP` refuses the modes there. The paths (float32,
+     nu=9 beside `torch.linalg.inv` (the execution modes at these shapes
+     are phase 17's). The paths (float32,
      ns=20): the point-feet biped's dlip walk (40 ticks, vx 0.3 from tick
      10, then 10 Cholesky ticks; CoM height within 0.08 of 0.88, forward
      progress above 0.03 m), the quadruped's LIP trot (the trot WPG, 40 +
@@ -355,11 +354,37 @@ parallel, into build/kernels/), then:
      walk and the Kangaroo's RK4 LIP fleet at B=8 (3 ticks each) in
      float64, with max_iters=1 everything to 1e-9, with the paths'
      options iterations equal, the cost to 1e-9, x, u0 and the plans to
-     LIP_FLOOR_TOL.
+     LIP_FLOOR_TOL;
+ 17. the execution modes at the LIP shapes phase 16 added
+     (`lip_modes_section`): K12 at K1's five new LIP shapes (nx = 30 and
+     the point-feet biped's nx = 18) with each gain solve, K13 at the
+     eight new (topology, step) families (the true defects in the
+     problem's own step), each against its twin at B = 1, 64 and 512
+     (float64 entry by entry to 1e-12 of max(1, |twin|) — K12 to 4× the
+     two float64 twins' own distance where that is larger —, K13's flags
+     equal at 1 and 4 step sizes; float32 to 1e-6 of the float64 twin)
+     and with a NaN member at B = 64 and 512 (its outputs non-finite and
+     rejected, every other member's bit for bit those without it); timed
+     at B = 1, 512 and 4096 in float32, K12 beside K1-Tassa and K13 beside
+     K11 (which on the LIP makes the same plans: held to 1e-9 on the card
+     in float64) in the same call; the paths (float32, ns=20), gated as
+     phase 15's: the point-feet biped's dlip walk under associative/linear
+     (40 ticks, the CoM height and progress gates) and 10 Cholesky ticks,
+     the quadruped's LIP trot under the modes (20 ticks) and 5 Cholesky
+     ticks, the Kangaroo's LIP fleet under RK2 (B=512, 3 ticks, phases,
+     profile and idle share), 10-tick runs of the Kangaroo's RK4 walk, the
+     quadruped's RK2 and RK4 trots and the biped's RK2 and RK4 walks (a
+     Cholesky run at each K12 shape), and 5 ticks each of
+     associative/nonlinear on the biped and sequential/linear on the
+     quadruped's RK4 fleet; no spill in any new K12 or K13 kernel
+     (ptxas); `lmf_card_vs_cpu`: every instance's fleet at B=8 under
+     associative/linear in float64, 3 ticks, with max_iters=1 everything
+     to 1e-9, with max_iters=5 by F8's rule (iterations equal, the cost at
+     tick 0 to 1e-9, the rest to LIP_FLOOR_TOL).
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-139 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+157 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -376,8 +401,9 @@ instances, K1's ten instantiations of PR 15, K2 at nu=12), and the
 eighteen rows of phase 15 (K12 at four shapes × two gain solves, K13 at
 seven families, K1's three Tassa-Cholesky instantiations), and the forty
 rows of phase 16 (K10, K11 and lip_evaluate at its eight instances, K1's
-fifteen instantiations at the five new LIP shapes, K2 at nu=9); the last
-line is {"ok": true, "device": {...}}.
+fifteen instantiations at the five new LIP shapes, K2 at nu=9), and the
+eighteen rows of phase 17 (K12 at five LIP shapes × two gain solves, K13
+at eight LIP families); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11,k7]
 
@@ -3774,9 +3800,12 @@ def modes_k13_times(p, nA, sizes, serving_B):
             pt = k4.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
             fam_fl = stages * trial_flops(Bw, ns, nx, nu, s.terms.nc,
                                           s.terms.n_rho, nA)
-        elif fam == "lip":
+        elif s.terms.family == "lip":
+            # the RK stages, ~4 FLOPs a row a later stage
+            stages = {"EULER": 1, "RK2": 2, "RK4": 4}[s.terms.step]
             pt = k10.kernel_params(a32[9], Bw, ns, s.terms.nc, f32, dev)
-            fam_fl = lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA)
+            fam_fl = (lip_trial_flops(Bw, ns, nx, nu, s.terms.n_rho, nA)
+                      + (stages - 1) * 4 * nx * ns * Bw * nA)
         else:
             pt = k5.kernel_params(a32[9], Bw, ns, s.terms, f32, dev)
             fam_fl = isrbd_trial_flops(Bw, ns, nx, nu, s.terms.outer.nc,
@@ -6057,13 +6086,13 @@ def mf_row_k12(shape, solver):
             + ("_cholesky" if solver == "cholesky" else ""))
 
 
-def mf_counts_reset():
-    """Zero every SRBD instance's and K1's counts (`family_counts_reset`),
-    K12's and K13's."""
+def mf_counts_reset(base=None):
+    """Zero every SRBD instance's and K1's counts (`family_counts_reset`, or
+    `base`'s), K12's and K13's."""
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
     from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
-    family_counts_reset()
+    (base or family_counts_reset)()
     k12.riccati_associative.launches = 0
     k12.riccati_associative.instance_launches[:] = [0] * len(
         k12.KERNEL_INSTANCES)
@@ -6071,13 +6100,13 @@ def mf_counts_reset():
     k13.linear_trial.family_launches[:] = [0] * len(k13.FAMILIES)
 
 
-def mf_counts():
-    """`family_counts` with K12's sweeps by instantiation and K13's
-    launches by family, under their row names (zeros left out)."""
+def mf_counts(base=None):
+    """`family_counts` (or `base`'s) with K12's sweeps by instantiation and
+    K13's launches by family, under their row names (zeros left out)."""
     from srbd_horizon_tpu_torch.kernels import linear_trial as k13
     from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 
-    out = family_counts()
+    out = (base or family_counts)()
     for (shape, sv), n in zip(k12.KERNEL_INSTANCES,
                               k12.riccati_associative.instance_launches):
         if n:
@@ -6924,64 +6953,6 @@ def lip_family_times(inst, dev, lin64, sweep64, pt):
     return times, occ
 
 
-def lip_family_refusals(dev, inst, lin64):
-    """The execution modes at a LIP instance they have no kernel for: K12's
-    and K13's wrappers raise their named ValueError on the card before any
-    launch (no instance stands in), and `MSDDP` refuses the modes
-    (NotImplementedError naming ROADMAP.md). Returns what was seen."""
-    import torch
-
-    from srbd_horizon_tpu_torch.config import DDPOptions
-    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
-    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
-    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
-
-    loop64, prob = lip_family_loop(inst, torch.float64, dev)
-    s, ocp = loop64.solver, prob.ocp
-    a = tuple(lin64[k] for k in ORDER)
-    seen = {}
-    before = (k12.riccati_associative.launches, k13.linear_trial.launches)
-    for solver in ("schur", "cholesky"):
-        try:
-            k12.riccati_associative(*a, s.opts.mu0, s.rows, solver)
-            seen[f"k12_{solver}"] = "launched"
-        except ValueError as err:
-            seen[f"k12_{solver}"] = str(err)[:80]
-    B, ns = a[5].shape[0], ocp.ns
-    z = lambda *sh: torch.zeros(sh, dtype=torch.float64, device=dev)
-    try:
-        k13.linear_trial(
-            z(B, ocp.nx), z(B, ns + 1, ocp.nx), z(B, ns, ocp.nu),
-            z(B, ns, ocp.nu), z(B, ns, ocp.nu, ocp.nx), a[0], a[1], a[5],
-            z(1) + 1.0, {k: v.expand((B,) + tuple(v.shape)).contiguous()
-                         for k, v in ocp.params.items()},
-            z(B), z(B), z(B), z(B), s.terms, s.rows, ocp.dt,
-            s._wc(torch.float64), s.opts.defect_weight, s.opts.beta,
-            s.opts.alpha_converge_threshold)
-        seen["k13"] = "launched"
-    except ValueError as err:
-        seen["k13"] = str(err)[:80]
-    for mode in (("associative", "nonlinear"), ("sequential", "linear")):
-        try:
-            MSDDP(ocp, DDPOptions(riccati_mode=mode[0], forward_pass=mode[1]))
-            seen["msddp_" + "_".join(mode)] = "built"
-        except NotImplementedError as err:
-            seen["msddp_" + "_".join(mode)] = "ROADMAP.md" in str(err)
-    torch.cuda.synchronize()
-    launched = (k12.riccati_associative.launches,
-                k13.linear_trial.launches) != before
-    ok = (not launched
-          and all(seen[f"k12_{sv}"].startswith("riccati_associative has no "
-                                               "kernel")
-                  for sv in ("schur", "cholesky"))
-          and seen["k13"].startswith("linear_trial has no kernel")
-          and all(v is True for k, v in seen.items() if k.startswith("msddp")))
-    if not ok:
-        fail(f"phase 16: the modes at {inst} did not refuse by name before "
-             f"any launch: {seen}")
-    return seen
-
-
 def lip_family_single(inst, dev, card, ticks, cholesky_ticks, vx=0.3):
     """One robot of one LIP instance on `MPCLoop.tick` in float32 with the
     dlip example's options: a walk (vx from tick 10), then `cholesky_ticks`
@@ -7165,8 +7136,8 @@ def lip_family_section(card, dev, sms):
     biped under Euler, and each topology under RK2 and RK4 — on K10, K11,
     lip_evaluate and K1 (with K2 inside). The kernel checks
     (`lip_family_check`) and times beside the Kangaroo's Euler instance
-    (`lip_family_times`), K2 at nu=9, the modes' refusal on the card, the
-    paths (the point-feet biped's dlip walk, the quadruped's LIP trot, the
+    (`lip_family_times`), K2 at nu=9, the paths (the point-feet biped's
+    dlip walk, the quadruped's LIP trot, the
     Kangaroo's LIP fleets under RK2 and RK4, short runs for the rest) and
     card = CPU in float64 (`lip_family_card_vs_cpu`). Returns the kernel
     rows of the `kernels` line."""
@@ -7179,7 +7150,7 @@ def lip_family_section(card, dev, sms):
 
     t_section = time.perf_counter()
     f64 = torch.float64
-    errs, k1_shapes, times, occ, refusals = {}, {}, {}, {}, {}
+    errs, k1_shapes, times, occ = {}, {}, {}, {}
     pf_Jup = None
     for inst in LIP_FAMILY_INSTANCES:
         res, k1_shape, lin64, sweep64, pt = lip_family_check(inst, dev)
@@ -7187,7 +7158,6 @@ def lip_family_section(card, dev, sms):
         t, o = lip_family_times(inst, dev, lin64, sweep64, pt)
         times.update(t)
         occ.update(o)
-        refusals[inst] = lip_family_refusals(dev, inst, lin64)
         if inst == "point_feet":
             pf_Jup = lin64["Jup"]
         del lin64, sweep64, pt
@@ -7206,7 +7176,6 @@ def lip_family_section(card, dev, sms):
     emit("lip_family_times", card=card, dtype="float32", sms=sms,
          times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
          occupancy=occ)
-    emit("lip_family_refusals", card=card, refusals=refusals)
     k2 = k2_check("lip_family_k2_check", k1, pf_Jup, 1e-6, nu=9)
     torch.cuda.empty_cache()
 
@@ -7393,6 +7362,630 @@ def lip_family_section(card, dev, sms):
     if missing:
         fail(f"phase 16: kernels not launched on its paths: {missing}")
     emit("lip_family_section", seconds=time.perf_counter() - t_section,
+         card=card, rows=len(rows_out), path_launches=dict(path_launches))
+    return rows_out
+
+
+# ---------------- the execution modes at every LIP shape (phase 17) -------
+
+# K1's LIP shapes phase 16 added, each with the instance whose drawn point
+# holds K12 there (RK2 and RK4 share a shape)
+LMF_K12 = (("lip_quadruped", "quadruped"), ("lip_point_feet", "point_feet"),
+           ("lip_rk", "kangaroo_rk2"), ("lip_quadruped_rk", "quadruped_rk2"),
+           ("lip_point_feet_rk", "point_feet_rk2"))
+LMF_NAN_B = (64, B_MAIN)        # the NaN-member checks' sizes
+# K12 and K13 in float64 at the LIP shapes: |kernel − twin| ≤ 1e-12 of
+# max(1, |twin|) entry by entry. K12 only where the value recursion's
+# conditioning leaves its float64 twin and K1's Tassa twin (the same
+# recursion summed sequentially) within 1e-12 of each other at the point:
+# elsewhere within LMF_FLOOR_FACTOR × their distance (`lmf_twin_floor`; an
+# NVIDIA H100 80GB HBM3 at 700.00 W read the kernel at 0.6-1.8× it, 2e-12
+# to 2e-9 at the random masks and switches of `lip_family_point`).
+LMF_F64_TOL = 1e-12
+LMF_FLOOR_FACTOR = 4.0
+
+
+def lmf_family(inst):
+    """K13's family name of a phase-16 LIP instance (lip_linearize.
+    KERNEL_SHAPES name)."""
+    return "lip_" + inst
+
+
+def lmf_k1_shape(inst):
+    """K1's shape name of a LIP instance (RK2 and RK4 share one)."""
+    topology, step = family_split(inst)
+    base = {"kangaroo": "lip", "quadruped": "lip_quadruped",
+            "point_feet": "lip_point_feet"}[topology]
+    return base if step == "EULER" else base + "_rk"
+
+
+def lmf_twins():
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    return lip_family_twins() + ((k12, ("riccati_associative_plain",)),
+                                 (k13, ("linear_trial_plain",)))
+
+
+def lmf_point(inst, dev, seed):
+    """One LIP instance's drawn point at B=512 in float64 on the card
+    (`lip_family_point`: plans, references, switches and masks, linearized
+    by K10) with the gains of K12's block-Schur twin, D and merit0: the `p`
+    the modes' check and time helpers take (`fam`: K13's family name)."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    f64 = torch.float64
+    loop64, prob = lip_family_loop(inst, f64, dev)
+    loop32, _ = lip_family_loop(inst, torch.float32, dev)
+    s, ocp = loop64.solver, prob.ocp
+    pt = lip_family_point(prob, B_MAIN, dev, seed)
+    lin = k10.lip_linearize(pt["X"], pt["U"], pt["params"], s.terms, s.rows,
+                            ocp.dt, s._wc(f64))
+    if k1.kernel_shape(ocp.nx, ocp.nu, lin["Jt"].shape[1], s.rows) \
+            != lmf_k1_shape(inst):
+        fail(f"lmf_point: {inst}'s problem picks another K1 shape")
+    gains = k12.riccati_associative_plain(*(lin[k] for k in ORDER),
+                                          s.opts.mu0, s.rows)
+    D = torch.sum(lin["d"] ** 2, dim=(1, 2))
+    merit0 = s.total_cost(pt["X"], pt["U"], pt["params"]) + \
+        s.opts.defect_weight * D
+    return dict(s=s, s32=loop32.solver, ocp=ocp, lin=lin, X=pt["X"],
+                U=pt["U"], x0=pt["x0"], params=pt["params"], gains=gains,
+                D=D, merit0=merit0, nt=lin["Jt"].shape[1],
+                fam=lmf_family(inst), inst=inst)
+
+
+def lmf_entrywise(e, key, tol, what):
+    """Fails unless every entry-by-entry float64 figure `e[key]` is ≤ tol."""
+    worst = max(e[key].values())
+    if worst > tol:
+        fail(f"{what} in float64: {worst} of max(1, |twin|) above {tol}: "
+             f"{e[key]}")
+
+
+def lmf_twin_floor(p, sv):
+    """The float64 twins' own disagreement at the point `p` (B=512): K12's
+    twin against K1's Tassa twin with the same gain solve, the same value
+    recursion summed another way (an associative scan of pivoted solves
+    against the sequential sweep), entry by entry, of max(1, |twin|)."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    mu, rows = p["s"].opts.mu0, p["s"].rows
+    a = modes_k12_args(p, B_MAIN, torch.float64)
+    r12 = k12.riccati_associative_plain(*a, mu, rows, sv)
+    r1 = k1.riccati_backward_plain(*a, mu, rows, form="tassa", quu_solver=sv)
+    return {name: err1(x, y) for name, x, y in zip(SWEEP_OUT, r12, r1)}
+
+
+def lmf_k13_check(p, card):
+    """`modes_k13_check` (float64 to 1e-9 with the flags equal, float32 to
+    MODES_F32_TOL) with the float64 figures entry by entry held to
+    LMF_F64_TOL of max(1, |twin|)."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+
+    e = modes_k13_check(p, MF_CHECK_B, card)
+    e["e64_entrywise"] = {}
+    for nA in (1, 4):
+        for Bw in MF_CHECK_B:
+            a = modes_k13_args(p, Bw, torch.float64, nA)
+            got, ref = k13.linear_trial(*a), k13.linear_trial_plain(*a)
+            for name, g, r in zip(TRIAL_OUT[:4], got, ref):
+                e["e64_entrywise"][f"{name}_B{Bw}_{nA}alpha"] = err1(g, r)
+    lmf_entrywise(e, "e64_entrywise", LMF_F64_TOL, f"K13 ({p['fam']})")
+    return e
+
+
+def lmf_nan_check(p, sv, card):
+    """K12 (gain solve `sv`) and K13 (1 and 4 α) at B = 64 and 512 in both
+    types with member LIP_FAMILY_NAN's input NaN (K12: one entry of its
+    defects; K13: its x0): that member's ΔV₁ / merits non-finite and its
+    flags false, every other member's outputs bit for bit those of the
+    same call without the NaN. Returns what was seen; fails otherwise."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+
+    mu, rows, m = p["s"].opts.mu0, p["s"].rows, LIP_FAMILY_NAN
+    seen, bad = {}, []
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype)[6:]
+        for Bw in LMF_NAN_B:
+            keep = torch.arange(Bw, device=p["X"].device) != m
+            a = modes_k12_args(p, Bw, dtype)
+            an = list(a)
+            an[5] = a[5].clone()
+            an[5][m, 5, 4] = float("nan")
+            g = k12.riccati_associative(*a, mu, rows, sv)
+            gn = k12.riccati_associative(*an, mu, rows, sv)
+            same = all(bits_equal(x[keep], y[keep]) for x, y in zip(g, gn))
+            nan_out = not bool(torch.isfinite(gn[2][m]))
+            seen[f"k12_{dn}_B{Bw}"] = dict(others_bit_equal=same,
+                                           member_dV1_nonfinite=nan_out)
+            if not (same and nan_out):
+                bad.append(f"K12 {dn} B={Bw}")
+            for nA in (1, 4):
+                a = list(modes_k13_args(p, Bw, dtype, nA))
+                out = k13.linear_trial(*a)
+                a[0] = a[0].clone()
+                a[0][m] = float("nan")
+                outn = k13.linear_trial(*a)
+                same = all(bits_equal(x[:, keep], y[:, keep])
+                           for x, y in zip(out, outn))
+                rejected = (not bool(torch.isfinite(outn[3][:, m]).any())
+                            and not bool(outn[4][:, m].any()))
+                seen[f"k13_{dn}_B{Bw}_{nA}alpha"] = dict(
+                    others_bit_equal=same, member_rejected=rejected)
+                if not (same and rejected):
+                    bad.append(f"K13 {dn} B={Bw} {nA} α")
+    torch.cuda.synchronize()
+    emit("lmf_nan_check", family=p["fam"], quu_solver=sv, member=m,
+         card=card, failures=bad, **seen)
+    if bad:
+        fail(f"phase 17: the NaN member at {p['fam']}: {bad}")
+    return seen
+
+
+def lmf_k11_beside(p, nA, sizes):
+    """K11 (the rollout trial) on K13's float32 inputs at `sizes` with `nA`
+    step sizes, timed in the same call as K13 (`modes_k13_times`): on the
+    LIP both give the same plans, so K11 is the other design of the same
+    work. Also K13's plans, costs and merits against K11's on the card in
+    float64 at B=512 (their twins agree to rounding; the CPU tests hold
+    them to 1e-9)."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+
+    def k11_args(a):
+        return a[:5] + (a[7], a[8], a[9], a[10], a[11], a[12], a[13],
+                        a[14], a[16], a[17], a[18], a[19], a[20])
+
+    out = dict(ms_by_B={})
+    for Bw in sizes:
+        a = k11_args(modes_k13_args(p, Bw, torch.float32, nA))
+        out["ms_by_B"][Bw] = cuda_ms(lambda: k11.lip_trial(*a), reps=20)
+    a = modes_k13_args(p, B_MAIN, torch.float64, nA)
+    g13, g11 = k13.linear_trial(*a), k11.lip_trial(*k11_args(a))
+    out["k13_vs_k11_rel_err_f64_B512"] = {
+        n: rel_err(x, y) for n, x, y in zip(TRIAL_OUT[:4], g13, g11)}
+    out["flags_equal_f64_B512"] = bool(torch.equal(g13[4], g11[4]))
+    return out
+
+
+# K1's LIP shape names phase 17 adds and their structs (riccati_common.cuh)
+LMF_K12_STRUCTS = {"lip_rk": "LipRkShape", "lip_quadruped": "LipQuadShape",
+                   "lip_quadruped_rk": "LipQuadRkShape",
+                   "lip_point_feet": "LipPointFeetShape",
+                   "lip_point_feet_rk": "LipPointFeetRkShape"}
+
+
+def lmf_occupancy_gate(times, card):
+    """No new K12 instantiation or K13 family spills: ptxas reports no
+    spill store or load for any of their kernels (K12's element and gain
+    kernels at each new shape and gain solve, the nx = 18 combine; K13's
+    family in float32 and float64), each phase fits at least one block an
+    SM, and K13 in float32 with four α runs the blocks an SM its launch
+    bound asks (`FAMILY_LAYOUT`). A stack frame without spills (a local
+    array) is reported, not gated. Prints the figures; fails otherwise."""
+    import re
+
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import build
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+
+    k12_log = build.log_path("riccati_associative").read_text()
+    out, bad = {}, []
+    for key, t in times.items():
+        if key[0] == "k13":
+            _, fam, nA = key
+            occ = dict(f32=t["occupancy_f32"],
+                       f64=k13.occupancy(fam, torch.float64, 20, nA))
+            want = k13.FAMILY_LAYOUT[fam]["min_blocks"] if nA == 4 else 1
+            for dt, o in occ.items():
+                if o["blocks_per_sm"] < 1 or (dt == "f32"
+                                              and o["blocks_per_sm"] < want):
+                    bad.append(f"K13 {fam} {nA} α {dt}: {o}")
+            spills = {dt: r for dt, r in (t["ptxas"] or {}).items()
+                      if isinstance(r, dict) and (r.get("spill_stores")
+                                                  or r.get("spill_loads"))}
+            if not t["ptxas"] or spills:
+                bad.append(f"K13 {fam}: ptxas {t['ptxas']}")
+            out[f"linear_trial_{fam}_{nA}alpha"] = dict(occ, ptxas=t["ptxas"])
+        else:
+            _, shape, sv = key
+            token = f"{len(LMF_K12_STRUCTS[shape])}{LMF_K12_STRUCTS[shape]}"
+            solve = "E0EE" if sv == "schur" else "E1EE"
+            px = {n: r for phase in ("element_kernel", "gain_kernel")
+                  for n, r in ptxas_entries(k12_log, phase,
+                                            demangle=False).items()
+                  if token + "E" in n and solve in n}
+            nx = k1.KERNEL_SHAPES[shape]["nx"]
+            px.update({n: r for n, r in ptxas_entries(
+                k12_log, "combine_kernel", demangle=False).items()
+                if f"ILi{nx}E" in n})
+            occ = dict(f32=t["occupancy_f32"], f64=t["occupancy_f64"])
+            for dt, o in occ.items():
+                if min(v for k, v in o.items()
+                       if k.endswith("_blocks_per_sm")) < 1:
+                    bad.append(f"K12 {shape} {sv} {dt}: {o}")
+            if len(px) != 5 or any(r["spill_stores"] or r["spill_loads"]
+                                   for r in px.values()):
+                bad.append(f"K12 {shape} {sv}: ptxas {px}")
+            out[mf_row_k12(shape, sv)] = dict(
+                occ, ptxas={re.sub(r"^.*?(element|gain|combine)_kernel",
+                                   r"\1", n)[:60]: r for n, r in px.items()})
+    emit("lmf_occupancy", card=card, failures=bad, **out)
+    if bad:
+        fail(f"phase 17: a new K12 instantiation or K13 family spills or "
+             f"does not fit: {bad}")
+
+
+def lmf_segment(inst, dev, card, opts, ticks, fleet=False, profile=False,
+                vx=0.3, start=2):
+    """One run of a LIP instance's loop in float32 with DDPOptions `opts`:
+    a robot on `MPCLoop.tick` for `ticks` ticks of `walking_schedule(vx,
+    start)` (the quadruped at vx 0.25), or the fleet (B=512, shifted warm
+    start, walk command vx 0.2, 0.005·N(0,1) pushes) on `tick_batch`, one
+    warm tick, then `ticks` timed, with `profile` the phases inside 5 ticks
+    and 2 profiled ticks (idle share, launches a tick by span); counted
+    from a reset just before to a read just after, the plain twins
+    guarded. Returns the figures with the launches by row name."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.runtime.loop import (TickInput, walk_command,
+                                                     walking_schedule)
+
+    topology, step = family_split(inst)
+    loop, prob = lip_family_loop(inst, torch.float32, dev, opts=opts,
+                                 shift=fleet)
+    if fleet:
+        g = np.random.RandomState(SEED)
+        xn = prob.initial_state.cpu().numpy()
+        carry = loop.init(torch.as_tensor(
+            xn[None] + 0.005 * g.randn(B_MAIN, xn.shape[0]),
+            dtype=torch.float32, device=dev))
+        inp = walk_command(B_MAIN, vx=0.2, device=dev)
+        carry, _ = loop.tick_batch(carry, inp)
+        tick = lambda c, i: loop.tick_batch(c, inp)
+    else:
+        carry = loop.init(prob.initial_state)
+        sched = walking_schedule(ticks, vx=0.25 if topology == "quadruped"
+                                 else vx, start=start, device=dev)
+        tick = lambda c, i: loop.tick(c, TickInput(*(a[i] for a in sched)))
+    torch.cuda.synchronize()
+    guards, restore_guards = guard_plain(lmf_twins())
+    n, restore = count_solver_calls(loop.solver)
+    mf_counts_reset(lip_family_counts_reset)
+    syncs0, outs, tms = loop.solver.host_syncs, [], []
+    try:
+        for i in range(ticks):
+            t0 = time.perf_counter()
+            carry, o = tick(carry, i)
+            torch.cuda.synchronize()
+            tms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(o)
+        launches = mf_counts(lip_family_counts)
+    finally:
+        restore()
+        restore_guards()
+    so = loop.solver.opts
+    res = dict(
+        instance=inst, B=B_MAIN if fleet else 1, dtype="float32", ticks=ticks,
+        riccati_mode=so.riccati_mode, forward_pass=so.forward_pass,
+        quu_solver=so.quu_solver, max_iters=so.max_iters,
+        tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
+        tick_mean_ms=statistics.fmean(tms),
+        syncs_per_tick=(loop.solver.host_syncs - syncs0) / ticks,
+        iterations_per_tick=n["iterations"] / ticks,
+        launches=launches, counted=dict(n),
+        finite=all(bool(torch.isfinite(v).all()) for o in outs
+                   for v in (o.x, o.u0, o.cost)),
+        defect_norm_max=max(float(o.defect_norm.max()) for o in outs),
+        **{k: v["n"] for k, v in guards.items()}, card=card)
+    if fleet:
+        res["members_per_s"] = B_MAIN / res["tick_p50_ms"] * 1e3
+    else:
+        com = torch.stack([o.x[..., :3] for o in outs]).cpu()
+        res.update(z0=float(prob.initial_state[2]),
+                   com_z_min=float(com[:, 2].min()),
+                   com_z_max=float(com[:, 2].max()),
+                   forward_progress_m=float(com[-1, 0] - com[0, 0]))
+    if profile:
+        step_fn = lambda cc: tick(cc, 0)[0]
+        carry, res["spans"] = tick_spans(loop.solver, step_fn, carry, ticks=5)
+        res["profile"] = profile_ticks(loop.solver, step_fn, carry,
+                                       res["tick_p50_ms"])
+        res["device_idle_share"] = res["profile"]["device_idle_share"]
+        res["launches_by_span"] = res["profile"]["launches_by_span"]
+    return res
+
+
+def lmf_gates(tag, res, inst):
+    """Finite outputs, defects ≤ 1e-4; no plain twin, torch.func transform
+    or plain cost on the card; the instance's K10 and lip_evaluate launched
+    (the evaluation two a solve) and no other instance's; under the
+    associative sweep one K12 sweep at the shape's instantiation with the
+    run's gain solve an iteration and no K1, under the sequential one K1's
+    sweep (the Tassa form with the gain solve, on one robot and on the
+    fleet's `vmap(solve)` alike) an iteration and no K12; K13 at the
+    instance's family on the linear trials and K11 on the rollout
+    trials."""
+    L, n, k1_shape = res["launches"], res["counted"], lmf_k1_shape(inst)
+    if not res["finite"]:
+        fail(f"{tag}: non-finite values")
+    if res["defect_norm_max"] > 1e-4:
+        fail(f"{tag}: plans are not dynamically consistent (defect above "
+             f"1e-4): {res['defect_norm_max']}")
+    if (res["plain_twin_calls"] or res["torch_func_calls"]
+            or res["plain_cost_or_defect_calls"]):
+        fail(f"{tag} ran plain twins on the card: {res}")
+    # every run here takes a non-default mode, under which a fleet's solve
+    # is `vmap(solve)`: K1 in the Tassa form with the gain solve
+    assoc = res["riccati_mode"] == "associative"
+    sweep = (mf_row_k12(k1_shape, res["quu_solver"]) if assoc else
+             k1_row_name(k1_shape, "tassa", res["quu_solver"]))
+    want = {f"lip_linearize_{inst}": n["iterations"],
+            f"lip_evaluate_{inst}": 2 * n["solves"], sweep: n["iterations"]}
+    if n["linear_trials"]:
+        want["linear_trial_" + lmf_family(inst)] = n["linear_trials"]
+    if n["rollout_trials"]:
+        want[f"lip_trial_{inst}"] = n["rollout_trials"]
+    if L != want or min(want.values()) == 0:
+        fail(f"{tag}: the path launched {L}, not {want} (counted {n})")
+    if res["forward_pass"] == "linear" and not n["linear_trials"]:
+        fail(f"{tag}: no linear trial ran under forward_pass='linear'")
+
+
+def lmf_versus(card_run, cpu_run, floor):
+    """Card = CPU: with max_iters=1 (`floor` false) iterations and
+    convergence equal, everything to 1e-9; with the fleets' options by F8's
+    rule: iterations and convergence equal, the cost at tick 0 to 1e-9,
+    the later ticks' costs, x, u0 and the plans to LIP_FLOOR_TOL (a floor
+    step moves u0, the self-simulation carries it into x and the next
+    ticks' starts)."""
+    r = family_versus(card_run, cpu_run)
+    r["cost_tick0_rel_err"] = rel_err(card_run[1][0].cost.cpu(),
+                                      cpu_run[1][0].cost)
+    rest = max(r[k] for k in ("cost_rel_err", "x_rel_err", "u0_rel_err",
+                              "X_rel_err", "U_rel_err"))
+    r["ok"] = (r["iterations_equal"] and r["converged_equal"]
+               and r["cost_tick0_rel_err"] <= 1e-9
+               and rest <= (LIP_FLOOR_TOL if floor else 1e-9))
+    return r
+
+
+def lmf_fleet_ticks(inst, device, n_ticks, max_iters, sv):
+    """`tick_batch` of one LIP instance's loop at B=8 in float64 under
+    associative/linear with the gain solve `sv` and max_iters (the warm
+    start shifted, walk command vx 0.2, 0.005·N(0,1) pushes): (carry,
+    outputs) after `n_ticks` ticks."""
+    import numpy as np
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+    from srbd_horizon_tpu_torch.runtime.loop import walk_command
+
+    f64 = torch.float64
+    loop, p = lip_family_loop(inst, f64, device, opts=DDPOptions(
+        max_iters=max_iters, quu_solver=sv, **MF_LINEAR), shift=True)
+    g = np.random.RandomState(SEED)
+    xn = p.initial_state.cpu().numpy()
+    c = loop.init(torch.as_tensor(xn[None] + 0.005 * g.randn(8, xn.shape[0]),
+                                  dtype=f64, device=device))
+    inp, res = walk_command(8, vx=0.2, dtype=f64, device=device), []
+    for _ in range(n_ticks):
+        c, o = loop.tick_batch(c, inp)
+        res.append(o)
+    return c, res
+
+
+def lip_modes_section(card, dev, sms):
+    """Phase 17: the JAX package's execution modes at every LIP shape phase
+    16 added — K12 at K1's five new LIP shapes (nx = 30 and, at the
+    point-feet biped's, nx = 18) with both gain solves, K13 at the eight
+    new (topology, step) families (the true defects in the problem's own
+    step). `lmf_k13_check` / `modes_k12_check`: each against its twin at
+    B = 1, 64 and 512 (K13 at 1 and 4 step sizes, its flags equal),
+    float64 entry by entry to LMF_F64_TOL of max(1, |twin|) (K12: or
+    LMF_FLOOR_FACTOR × the float64 twins' own distance, `lmf_twin_floor`,
+    where the recursion's conditioning puts it higher; and to K12_F64_TOL
+    norm-wise, as phases 13 and 15), float32 to MODES_F32_TOL of the
+    float64 twin; `lmf_nan_check`: a NaN member at B = 64 and 512. Times at B = 1, 512 and 4096 in float32: K12 beside
+    K1-Tassa with the same gain solve, K13 beside K11 (`lmf_k11_beside`),
+    each with its phases, blocks an SM, registers and spills. The paths at
+    full width (ns=20, float32; `lmf_segment`, gated by `lmf_gates`): the
+    point-feet biped's dlip walk under associative/linear (40 ticks, the
+    CoM height and progress gates) and 10 ticks with Cholesky gains; the
+    quadruped's LIP trot under the modes (20 ticks) and with Cholesky
+    gains; the Kangaroo's LIP fleet under RK2 at B=512 under
+    associative/linear, profiled; short runs of the Kangaroo's RK4 walk,
+    the quadruped's RK2 and RK4 trots and the biped's RK2 and RK4 walks,
+    a Cholesky run at each K12 shape; the two single modes once each.
+    Card = CPU in float64 at each instance (`lmf_fleet_ticks`, B=8, 3
+    ticks): with max_iters=1 iterations equal and everything to 1e-9, with
+    the fleets' options by F8's rule. Returns the eighteen kernel rows."""
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions
+
+    t_section = time.perf_counter()
+    # ---- the points and their checks and times ----
+    errs, times, nans, k11s = {}, {}, {}, {}
+    k12_at = {inst: shape for shape, inst in LMF_K12}
+    for i, inst in enumerate(LIP_FAMILY_INSTANCES):
+        p = lmf_point(inst, dev, SEED + 170 + i)
+        fam = p["fam"]
+        errs["k13", fam] = lmf_k13_check(p, card)
+        for nA in (1, 4):
+            times["k13", fam, nA] = modes_k13_times(p, nA, MF_TIME_B, B_MAIN)
+            k11s[fam, nA] = lmf_k11_beside(p, nA, MF_TIME_B)
+        if inst in k12_at:
+            shape = k12_at[inst]
+            q = dict(p, fam=shape)
+            for sv in ("schur", "cholesky"):
+                e = modes_k12_check(q, sv, MF_CHECK_B, card)
+                e["twin_floor_entrywise"] = lmf_twin_floor(q, sv)
+                e["tol_f64_entrywise"] = max(
+                    LMF_F64_TOL, LMF_FLOOR_FACTOR
+                    * max(e["twin_floor_entrywise"].values()))
+                emit("lmf_k12_floor", shape=shape, quu_solver=sv,
+                     kernel_entrywise=e["e64_entrywise"],
+                     twin_floor_entrywise=e["twin_floor_entrywise"],
+                     tol_f64_entrywise=e["tol_f64_entrywise"])
+                lmf_entrywise(e, "e64_entrywise", e["tol_f64_entrywise"],
+                              f"K12 ({shape}, {sv})")
+                errs["k12", shape, sv] = e
+                times["k12", shape, sv] = modes_k12_times(
+                    q, sv, MF_TIME_B, B_MAIN, sv)
+                nans[shape, sv] = lmf_nan_check(q, sv, card)
+        del p
+    torch.cuda.empty_cache()
+    emit("lmf_times", card=card, dtype="float32", sms=sms,
+         rate="FP64 tensor cores, 67 TFLOP/s (K1, K12, K13 compute in "
+              "float64)",
+         **{"_".join(map(str, k)): v for k, v in times.items()},
+         k11_beside={f"{f}_{nA}": v for (f, nA), v in k11s.items()})
+    emit("lmf_k12_vs_k1_tassa", card=card, dtype="float32",
+         **{f"{shape}_{sv}": {str(Bw): dict(
+             riccati_associative_ms=v["ms"],
+             riccati_backward_tassa_ms=v["k1_tassa_ms"])
+             for Bw, v in times["k12", shape, sv]["by_B"].items()}
+            for shape, _ in LMF_K12 for sv in ("schur", "cholesky")})
+    emit("lmf_k13_vs_k11", card=card, dtype="float32",
+         **{f"{f}_{nA}alpha": {str(Bw): dict(
+             linear_trial_ms=times["k13", f, nA]["by_B"][Bw]["ms"],
+             lip_trial_ms=v["ms_by_B"][Bw]) for Bw in MF_TIME_B}
+            for (f, nA), v in k11s.items()})
+    lmf_occupancy_gate(times, card)
+    for (f, nA), v in k11s.items():
+        if max(v["k13_vs_k11_rel_err_f64_B512"].values()) > 1e-9:
+            fail(f"phase 17: K13 and K11 at {f} ({nA} α) make different "
+                 f"plans on the card: {v}")
+
+    # ---- the paths ----
+    dlip = lambda **kw: DDPOptions(max_iters=100,
+                                   alpha_converge_threshold=1e-12, beta=1e-3,
+                                   **kw)
+    fleet = lambda **kw: DDPOptions(max_iters=5, **kw)
+    chol = dict(quu_solver="cholesky")
+    T, S, C = MF_TICKS, MF_SHORT_TICKS, MF_CHOLESKY_TICKS
+    single = lambda mode: dict(riccati_mode=mode[0], forward_pass=mode[1])
+    segments = (
+        ("lmf_pf_walk", "point_feet", dlip(**MF_LINEAR), FAMILY_SINGLE_TICKS,
+         False),
+        ("lmf_pf_walk_cholesky", "point_feet", dlip(**MF_LINEAR, **chol), S,
+         False),
+        ("lmf_quadruped_trot", "quadruped", dlip(**MF_LINEAR), T, False),
+        ("lmf_quadruped_trot_cholesky", "quadruped",
+         dlip(**MF_LINEAR, **chol), C, False),
+        ("lmf_kangaroo_rk2_fleet", "kangaroo_rk2", fleet(**MF_LINEAR), 3,
+         True),
+        ("lmf_kangaroo_rk4_walk_cholesky", "kangaroo_rk4",
+         dlip(**MF_LINEAR, **chol), S, False),
+        ("lmf_quadruped_rk2_trot", "quadruped_rk2", dlip(**MF_LINEAR), S,
+         False),
+        ("lmf_quadruped_rk4_trot_cholesky", "quadruped_rk4",
+         dlip(**MF_LINEAR, **chol), S, False),
+        ("lmf_pf_rk2_walk", "point_feet_rk2", dlip(**MF_LINEAR), S, False),
+        ("lmf_pf_rk4_walk_cholesky", "point_feet_rk4",
+         dlip(**MF_LINEAR, **chol), S, False),
+        ("lmf_pf_walk_associative_nonlinear", "point_feet",
+         dlip(**single(("associative", "nonlinear"))), C, False),
+        ("lmf_quadruped_rk4_fleet_sequential_linear", "quadruped_rk4",
+         fleet(**single(("sequential", "linear"))), C, True))
+    path_launches, by_path = defaultdict(int), defaultdict(dict)
+    for tag, inst, opts, ticks, is_fleet in segments:
+        res = lmf_segment(inst, dev, card, opts, ticks, fleet=is_fleet,
+                          profile=tag == "lmf_kangaroo_rk2_fleet",
+                          start=10 if ticks == FAMILY_SINGLE_TICKS else 2)
+        emit(tag, **res)
+        lmf_gates(tag, res, inst)
+        if tag == "lmf_pf_walk":
+            if max(abs(res["com_z_min"] - LIP_HEIGHT),
+                   abs(res["com_z_max"] - LIP_HEIGHT)) > FAMILY_HEIGHT_BAND:
+                fail(f"{tag}: the CoM height left {LIP_HEIGHT} ± "
+                     f"{FAMILY_HEIGHT_BAND}: {res['com_z_min']}, "
+                     f"{res['com_z_max']}")
+            if not res["forward_progress_m"] > FAMILY_PROGRESS:
+                fail(f"{tag}: forward progress {res['forward_progress_m']} m")
+        for k, v in res["launches"].items():
+            path_launches[k] += v
+            by_path[k][tag] = v
+    torch.cuda.empty_cache()
+
+    # ---- lmf_card_vs_cpu: float64 at every instance ----
+    cvc, bad = dict(tol="exact_step (max_iters=1): all to 1e-9; options "
+                        "(max_iters=5), F8's rule: iterations equal, the "
+                        "cost at tick 0 to 1e-9, the rest to "
+                        "LIP_FLOOR_TOL", floor_tol=LIP_FLOOR_TOL,
+                    modes="associative/linear", B=8, ticks=3), []
+    for i, inst in enumerate(LIP_FAMILY_INSTANCES):
+        sv = ("schur", "cholesky")[i % 2]
+        r = dict(quu_solver=sv)
+        for key, iters, floor in (("exact_step", 1, False),
+                                  ("options", 5, True)):
+            r[key] = lmf_versus(
+                lmf_fleet_ticks(inst, dev, 3, iters, sv),
+                lmf_fleet_ticks(inst, "cpu", 3, iters, sv), floor=floor)
+            if not r[key]["ok"]:
+                bad.append(f"{inst} {key}")
+        cvc[inst] = r
+    emit("lmf_card_vs_cpu", failures=bad, **cvc)
+    if bad:
+        fail(f"the phase-17 card path and CPU path disagree: {bad}")
+
+    # ---- the kernel rows: launches from this phase's paths ----
+    rows_out = []
+    for shape, _ in LMF_K12:
+        for sv in ("schur", "cholesky"):
+            name = mf_row_k12(shape, sv)
+            row = modes_k12_row(
+                name, times["k12", shape, sv], errs["k12", shape, sv],
+                path_launches.get(name, 0), B_MAIN, quu_solver=sv,
+                shape=shape, launches_by_path=by_path.get(name, {}),
+                launches_of="phase 17's paths",
+                nan_member=nans[shape, sv])
+            row["tol_f64"] = (
+                f"{errs['k12', shape, sv]['tol_f64_entrywise']} of max(1, "
+                f"|twin|): {LMF_F64_TOL}, or {LMF_FLOOR_FACTOR}x the twins' "
+                "own distance", K12_F64_TOL)
+            row["twin_floor_entrywise"] = errs["k12", shape, sv][
+                "twin_floor_entrywise"]
+            rows_out.append(row)
+    for inst in LIP_FAMILY_INSTANCES:
+        fam = lmf_family(inst)
+        name = "linear_trial_" + fam
+        row = modes_k13_row(
+            name, times["k13", fam, 1], times["k13", fam, 4],
+            errs["k13", fam], path_launches.get(name, 0), B_MAIN,
+            family=fam, launches_by_path=by_path.get(name, {}),
+            launches_of="phase 17's paths",
+            lip_trial_ms_by_B={str(b): v for b, v in
+                               k11s[fam, 1]["ms_by_B"].items()},
+            lip_trial_ms_4alpha_by_B={str(b): v for b, v in
+                                      k11s[fam, 4]["ms_by_B"].items()},
+            k13_vs_k11_rel_err_f64_B512=k11s[fam, 1][
+                "k13_vs_k11_rel_err_f64_B512"])
+        row["tol_f64"] = f"{LMF_F64_TOL} of max(1, |twin|)"
+        rows_out.append(row)
+    missing = [r["name"] for r in rows_out if r["launches"] == 0]
+    if missing:
+        fail(f"phase 17: kernels not launched on its paths: {missing}")
+    emit("lip_modes_section", seconds=time.perf_counter() - t_section,
          card=card, rows=len(rows_out), path_launches=dict(path_launches))
     return rows_out
 
@@ -7785,24 +8378,30 @@ def k13_ptxas(log_text):
     structs); the mangled entries as they are where c++filt is missing."""
     import re
 
-    structs = {"srbd": "SrbdFamily<srbd::KangarooShape>", "lip": "LipFamily",
-               "quadruped": "SrbdFamily<srbd::QuadShape>",
-               "isrbd_al": "IsrbdAlFamily<isrbd::KangarooAlShape>",
-               "isrbd_al_quadruped": "IsrbdAlFamily<isrbd::QuadAlShape>",
-               "point_feet": "SrbdFamily<srbd::PointFeetShape>"}
-    for topo, shape in (("kangaroo", "KangarooShape"),
-                        ("quadruped", "QuadShape"),
-                        ("point_feet", "PointFeetShape")):
+    shapes = {"kangaroo": "KangarooShape", "quadruped": "QuadShape",
+              "point_feet": "PointFeetShape"}
+    k1_lip = {"kangaroo": "Lip", "quadruped": "LipQuad",
+              "point_feet": "LipPointFeet"}
+    structs = {"srbd": "SrbdFamily<KangarooShape>",
+               "quadruped": "SrbdFamily<QuadShape>",
+               "point_feet": "SrbdFamily<PointFeetShape>",
+               "isrbd_al": "IsrbdAlFamily<KangarooAlShape>",
+               "isrbd_al_quadruped": "IsrbdAlFamily<QuadAlShape>"}
+    for topo, shape in shapes.items():
+        lip = "lip" if topo == "kangaroo" else "lip_" + topo
+        structs[lip] = f"LipFamily<{shape},{k1_lip[topo]}Shape>"
         for step in ("Rk2", "Rk4"):
             structs[f"{topo}_{step.lower()}"] = \
-                f"SrbdFamily<srbd::Stepped<srbd::{shape},srbd::{step}>>"
+                f"SrbdFamily<Stepped<{shape},{step}>>"
+            structs[f"lip_{topo}_{step.lower()}"] = \
+                f"LipFamily<Stepped<{shape},{step}>,{k1_lip[topo]}RkShape>"
     want = {v: k for k, v in structs.items()}
     entries = ptxas_entries(log_text, "linear_trial_kernel")
     out = {}
     for name, r in entries.items():
         m = re.search(r"linear_trial_kernel<(.*),\s*(float|double)>", name)
-        arg = m and m.group(1).replace("(anonymous namespace)::", "") \
-            .replace(" ", "")
+        arg = m and re.sub(r"\(anonymousnamespace\)::|\b(?:srbd|lip|isrbd|rigid)::",
+                           "", m.group(1).replace(" ", ""))
         if arg in want:
             dt = "float64" if m.group(2) == "double" else "float32"
             out.setdefault(want[arg], {})[dt] = r
@@ -10049,6 +10648,9 @@ def main():
 
     # ---------------- phase 16: the LIP at every topology and step ----------
     family_rows += lip_family_section(card, dev, sms)
+
+    # ---------------- phase 17: the execution modes at every LIP shape ------
+    family_rows += lip_modes_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

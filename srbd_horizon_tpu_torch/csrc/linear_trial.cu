@@ -26,9 +26,10 @@
 // The problem's step and rows are the evaluate kernels' (`FAMILIES`, a
 // policy struct each, in float64): the SRBD problem at K3's nine (topology,
 // step) instances (csrc/srbd_common.cuh's node_rates, eval_stage and
-// eval_terminal, srbd_evaluate's), the LIP (csrc/lip_common.cuh's
-// warp-a-node eval_stage and eval_terminal) and the isrbd AL inner problem
-// at both AL shapes
+// eval_terminal, srbd_evaluate's), the LIP at K11's nine
+// (csrc/lip_common.cuh's warp-a-node eval_stage and eval_terminal, the
+// step by `lip::step_row`) and the isrbd AL inner problem at both AL
+// shapes
 // (csrc/isrbd_common.cuh, isrbd_evaluate's: the RK2 step of the double
 // integrator, 240 / 236 stage and 101 / 97 terminal rows). D̂ is measured in
 // the problem's own step, as JAX's `_true_defects` takes `ocp.step`. The
@@ -94,6 +95,7 @@
 #include "dmma.cuh"
 #include "isrbd_common.cuh"
 #include "lip_common.cuh"
+#include "riccati_common.cuh"
 #include "srbd_common.cuh"
 
 namespace {
@@ -151,14 +153,23 @@ struct SrbdFamily {
   }
 };
 
-// The LIP problem at the Kangaroo's line feet under Euler
-// (lip::KangarooShape; K1's LipShape): lip_common.cuh's warp-a-node
-// evaluation, no prepass.
+// The LIP problem at the (topology, step) instance S (lip::KangarooShape,
+// QuadShape, PointFeetShape, or one of them under `lip::Stepped<…, Rk2 |
+// Rk4>`) with K1's shape K of its sliced linearization (LipShape,
+// LipQuadShape, LipPointFeetShape, or their RK shapes, which RK2 and RK4
+// share): lip_common.cuh's warp-a-node evaluation, whose step row is
+// `lip::step_row` in the instance's step (a lane's pair through the RK
+// stages in registers, no stage scratch), no prepass. The cross rows n_b
+// and the live inputs n_uc are K1's.
+template <class S, class K>
 struct LipFamily {
-  using S = lip::KangarooShape;
+  static_assert(K::nx == S::nx && K::nu == S::nu && K::nt == S::nt &&
+                    K::n_rx == S::n_rx && K::n_ru == S::n_ru &&
+                    K::n_gx == S::n_gx && K::n_gu == S::n_gu,
+                "K1's shape is the instance's");
   static constexpr int nx = S::nx, nu = S::nu, n_rx = S::n_rx,
                        n_ru = S::n_ru, n_gx = S::n_gx, n_gu = S::n_gu,
-                       n_b = 6, n_uc = 15, pw = lip::Layout<S>::pw,
+                       n_b = K::n_b, n_uc = K::n_uc, pw = lip::Layout<S>::pw,
                        n_params = lip::kParams, rates = 0, scratch = 0,
                        min_blocks = 2;
   using Consts = lip::Consts<double>;
@@ -235,7 +246,6 @@ struct IsrbdAlFamily {
 };
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // The chain warps an α takes when a block holds na α's: four for one α, two
 // each for two, one each for three or four; the other warps copy.
@@ -249,15 +259,18 @@ __host__ __device__ constexpr int chain_warps(int na) {
 // item i on lane i and item 63 − i past 31; scratch δx, v and the items.
 // W > 1: step 1 the rows of K and Sx against δx, each cut into h1 parts of
 // len1 columns, a (row, part) a lane; step 3 Bs's live rows against v in h3
-// parts of len3; the parts summed in order where they are read; scratch
-// δx, v, step 1's parts, step 3's parts.
+// parts of len3 (at most four parts, as many as the rows leave the 32W
+// lanes, none empty: nine inputs take three parts of three); the parts
+// summed in order where they are read; scratch δx, v, step 1's parts, step
+// 3's parts.
 template <class F, int W>
 struct ChainSplit {
   static constexpr int rows1 = F::nu + F::n_rx,
                        h1 = cmax(1, cmin(4, 32 * W / rows1)),
                        len1 = (F::nx + h1 - 1) / h1,
-                       h3 = cmax(1, cmin(4, 32 * W / F::n_ru)),
-                       len3 = (F::n_uc + h3 - 1) / h3;
+                       len3 = (F::n_uc + cmax(1, cmin(4, 32 * W / F::n_ru)) -
+                               1) / cmax(1, cmin(4, 32 * W / F::n_ru)),
+                       h3 = (F::n_uc + len3 - 1) / len3;
   static constexpr int dx = 0, v = round_up(F::nx, 2),
                        p1 = v + round_up(F::n_uc, 2),
                        p3 = p1 + round_up(cmax(F::n_rx + F::n_ru, rows1 * h1), 2),
@@ -889,7 +902,7 @@ template <class Fn>
 int with_family(int index, Fn fn) {
   switch (index) {
     case 0: return fn(SrbdFamily<srbd::KangarooShape>{});
-    case 1: return fn(LipFamily{});
+    case 1: return fn(LipFamily<lip::KangarooShape, LipShape>{});
     case 2: return fn(SrbdFamily<srbd::QuadShape>{});
     case 3: return fn(IsrbdAlFamily<isrbd::KangarooAlShape>{});
     case 4: return fn(IsrbdAlFamily<isrbd::QuadAlShape>{});
@@ -900,6 +913,14 @@ int with_family(int index, Fn fn) {
     case 9: return fn(SrbdFamily<srbd::Stepped<srbd::QuadShape, srbd::Rk4>>{});
     case 10: return fn(SrbdFamily<srbd::Stepped<srbd::PointFeetShape, srbd::Rk2>>{});
     case 11: return fn(SrbdFamily<srbd::Stepped<srbd::PointFeetShape, srbd::Rk4>>{});
+    case 12: return fn(LipFamily<lip::QuadShape, LipQuadShape>{});
+    case 13: return fn(LipFamily<lip::PointFeetShape, LipPointFeetShape>{});
+    case 14: return fn(LipFamily<lip::Stepped<lip::KangarooShape, lip::Rk2>, LipRkShape>{});
+    case 15: return fn(LipFamily<lip::Stepped<lip::KangarooShape, lip::Rk4>, LipRkShape>{});
+    case 16: return fn(LipFamily<lip::Stepped<lip::QuadShape, lip::Rk2>, LipQuadRkShape>{});
+    case 17: return fn(LipFamily<lip::Stepped<lip::QuadShape, lip::Rk4>, LipQuadRkShape>{});
+    case 18: return fn(LipFamily<lip::Stepped<lip::PointFeetShape, lip::Rk2>, LipPointFeetRkShape>{});
+    case 19: return fn(LipFamily<lip::Stepped<lip::PointFeetShape, lip::Rk4>, LipPointFeetRkShape>{});
     default: return kUnknownShape;
   }
 }

@@ -31,11 +31,12 @@
 //      order by the member's last block to finish.
 // One launch a phase and one a scan stage: 8 a sweep at ns = 20.
 //
-// Instantiations (`with_instance`): K1's nine shapes, with both gain
-// solves at the seven SRBD and LIP ones (the point-feet biped, and each
-// SRBD topology under RK2/RK4, whose two steps share K1's shape) and with
-// the Cholesky solve alone at the two isrbd-AL shapes (the AL solver
-// always asks its inner solver for Cholesky). The AL shapes' element and
+// Instantiations (`with_instance`): K1's fourteen shapes, with both gain
+// solves at the six SRBD and six LIP ones (each topology — the Kangaroo,
+// the point-feet quadruped, the point-feet biped — under Euler and under
+// RK2/RK4, whose two steps share K1's shape) and with the Cholesky solve
+// alone at the two isrbd-AL shapes (the AL solver always asks its inner
+// solver for Cholesky). The AL shapes' element and
 // gain blocks are the largest (~84 KB and ~60 KB of shared memory): nu =
 // 30 and the 103 Gauss–Newton rows of u, with a terminal stack of 101 / 97
 // rows. Under RK every row of B is live (n_ru = nx), which only widens the
@@ -117,7 +118,10 @@ enum class Solve { kSchur, kCholesky };
 
 // The shape structs are K1's (riccati_common.cuh); the combine kernel is
 // templated on nx, so the shapes of one nx share it (37: six shapes;
-// 25: the point-feet biped's two; 30: the LIP).
+// 25: the point-feet biped's two SRBD shapes; 30: the four LIP shapes of
+// the Kangaroo and the quadruped; 18: the point-feet biped's two LIP
+// shapes, whose 18 rows take three panels and a last substitution block of
+// two rows).
 
 // A row stride of at least n doubles that is 4 mod 8: the 16 lanes of a
 // half-warp then read a tensor-core fragment (4 rows × 4 columns, either
@@ -268,6 +272,23 @@ struct ElemSmem {
   static_assert(S::nt * nx + S::nt <= doubles, "terminal staging");
 };
 
+// Blocks an SM the element kernel's registers are held to (the minimum of
+// `element_kernel_bounded`'s launch bound): none, the compiler's choice
+// (`element_kernel`), but at the nx = 30 LIP shapes of the quadruped and of
+// RK, where that choice kept values in local memory (8 B of spill around a
+// division's slow path with the Cholesky gains, a 32 B stack frame with the
+// block-Schur ones); held to four blocks (104 registers on an H100's
+// ptxas), nothing goes to local memory. (Naming a minimum of one is not
+// the same as naming none: ptxas then takes more registers.)
+template <class S>
+constexpr int kElemMinBlocks = 0;
+template <>
+constexpr int kElemMinBlocks<LipRkShape> = 4;
+template <>
+constexpr int kElemMinBlocks<LipQuadShape> = 4;
+template <>
+constexpr int kElemMinBlocks<LipQuadRkShape> = 4;
+
 template <typename T>
 __device__ void stage(double* dst, const T* __restrict__ src, int count,
                       int tid, int threads) {
@@ -275,14 +296,14 @@ __device__ void stage(double* dst, const T* __restrict__ src, int count,
 }
 
 template <class S, typename T, Solve G>
-__global__ void __launch_bounds__(kThreads)
-element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
-               const T* __restrict__ Jxp, const T* __restrict__ Jup,
-               const T* __restrict__ rho, const T* __restrict__ d,
-               const T* __restrict__ Jt, const T* __restrict__ rt,
-               const int* __restrict__ table, int B, int ns, int nr, double mu,
-               double* __restrict__ elems, double* __restrict__ gains,
-               unsigned* __restrict__ counters) {
+__device__ __forceinline__ void element_body(
+    const T* __restrict__ Sx, const T* __restrict__ Bs,
+    const T* __restrict__ Jxp, const T* __restrict__ Jup,
+    const T* __restrict__ rho, const T* __restrict__ d,
+    const T* __restrict__ Jt, const T* __restrict__ rt,
+    const int* __restrict__ table, int B, int ns, int nr, double mu,
+    double* __restrict__ elems, double* __restrict__ gains,
+    unsigned* __restrict__ counters) {
   using L = ElemSmem<S, G>;
   using E = Elem<S::nx>;
   using R = Rows<S>;
@@ -478,6 +499,38 @@ element_kernel(const T* __restrict__ Sx, const T* __restrict__ Bs,
   double* const g = gains + bn * GainRec<S>::size;
   for (int o = tid; o < GainRec<S>::size; o += kThreads)
     g[o] = o < nu ? lu[o] : o < nu + nu * nx ? lux[o - nu] : Rt[o - nu - nu * nx];
+}
+
+#define ELEMENT_PARAMS                                                        \
+  const T *__restrict__ Sx, const T *__restrict__ Bs,                         \
+      const T *__restrict__ Jxp, const T *__restrict__ Jup,                   \
+      const T *__restrict__ rho, const T *__restrict__ d,                     \
+      const T *__restrict__ Jt, const T *__restrict__ rt,                     \
+      const int *__restrict__ table, int B, int ns, int nr, double mu,        \
+      double *__restrict__ elems, double *__restrict__ gains,                 \
+      unsigned *__restrict__ counters
+#define ELEMENT_ARGS \
+  Sx, Bs, Jxp, Jup, rho, d, Jt, rt, table, B, ns, nr, mu, elems, gains, counters
+
+// phase 1's kernel: a (member, node) a block, registers at the compiler's
+// choice, or held to kElemMinBlocks<S> blocks an SM (`element_entry`)
+template <class S, typename T, Solve G>
+__global__ void __launch_bounds__(kThreads) element_kernel(ELEMENT_PARAMS) {
+  element_body<S, T, G>(ELEMENT_ARGS);
+}
+
+template <class S, typename T, Solve G>
+__global__ void __launch_bounds__(kThreads, (kElemMinBlocks<S>))
+    element_kernel_bounded(ELEMENT_PARAMS) {
+  element_body<S, T, G>(ELEMENT_ARGS);
+}
+
+template <class S, typename T, Solve G>
+constexpr auto element_entry() {
+  if constexpr (kElemMinBlocks<S> > 0)
+    return element_kernel_bounded<S, T, G>;
+  else
+    return element_kernel<S, T, G>;
 }
 
 // ---- phase 2: one combine a block ----
@@ -1141,10 +1194,10 @@ int launch(const void* Sx, const void* Bs, const void* Jxp, const void* Jup,
   if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double mu_t = static_cast<double>(static_cast<T>(mu));  // as the twin rounds it
-  int err = opt_in(element_kernel<S, T, G>, ElemSmem<S, G>::bytes);
+  constexpr auto element = element_entry<S, T, G>();
+  int err = opt_in(element, ElemSmem<S, G>::bytes);
   if (err != 0) return err;
-  element_kernel<S, T, G><<<dim3(ns + 1, B), kThreads, ElemSmem<S, G>::bytes,
-                            st>>>(
+  element<<<dim3(ns + 1, B), kThreads, ElemSmem<S, G>::bytes, st>>>(
       static_cast<const T*>(Sx), static_cast<const T*>(Bs),
       static_cast<const T*>(Jxp), static_cast<const T*>(Jup),
       static_cast<const T*>(rho), static_cast<const T*>(d),
@@ -1209,6 +1262,16 @@ int with_instance(int inst, Fn fn) {
     case 13: return fn(Inst<QuadRkShape, Solve::kCholesky>{});
     case 14: return fn(Inst<PointFeetRkShape, Solve::kSchur>{});
     case 15: return fn(Inst<PointFeetRkShape, Solve::kCholesky>{});
+    case 16: return fn(Inst<LipRkShape, Solve::kSchur>{});
+    case 17: return fn(Inst<LipRkShape, Solve::kCholesky>{});
+    case 18: return fn(Inst<LipQuadShape, Solve::kSchur>{});
+    case 19: return fn(Inst<LipQuadShape, Solve::kCholesky>{});
+    case 20: return fn(Inst<LipQuadRkShape, Solve::kSchur>{});
+    case 21: return fn(Inst<LipQuadRkShape, Solve::kCholesky>{});
+    case 22: return fn(Inst<LipPointFeetShape, Solve::kSchur>{});
+    case 23: return fn(Inst<LipPointFeetShape, Solve::kCholesky>{});
+    case 24: return fn(Inst<LipPointFeetRkShape, Solve::kSchur>{});
+    case 25: return fn(Inst<LipPointFeetRkShape, Solve::kCholesky>{});
     default: return kUnknownShape;
   }
 }
@@ -1276,9 +1339,9 @@ extern "C" int riccati_associative_occupancy(int inst, int f64, int* out) {
     out[0] = ElemSmem<S, I::G>::bytes;
     out[1] = CombineSmem<S::nx>::bytes;
     out[2] = GainSmem<S, I::G>::bytes;
-    int err = f64 ? blocks_of(element_kernel<S, double, I::G>, kThreads,
+    int err = f64 ? blocks_of(element_entry<S, double, I::G>(), kThreads,
                               out[0], out + 3)
-                  : blocks_of(element_kernel<S, float, I::G>, kThreads,
+                  : blocks_of(element_entry<S, float, I::G>(), kThreads,
                               out[0], out + 3);
     if (err == 0)
       err = blocks_of(combine_kernel<S::nx>, kCombineThreads, out[1], out + 4);

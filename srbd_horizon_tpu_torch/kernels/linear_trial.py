@@ -28,18 +28,16 @@ Outputs are Xn (nα, B, ns+1, nx), Un (nα, B, ns, nu), cost, merit, ok
 (nα, B) — what K3 and K11 return, so the solver's line search takes either.
 
 The step in D̂ is the problem's own (`family_step`, as JAX's
-`_true_defects` takes `ocp.step`): the SRBD problem's step (Euler, RK2 or
-RK4), the LIP's (Euler at its one family here), the RK2 step of the
-double integrator on the isrbd AL inner problem; the kernel takes the
-same step.
+`_true_defects` takes `ocp.step`): the SRBD and the LIP problems' step
+(Euler, RK2 or RK4), the RK2 step of the double integrator on the isrbd
+AL inner problem; the kernel takes the same step.
 
-The kernel is compiled for twelve problems (`FAMILIES`): the SRBD problem
-at each of its nine (topology, step) instances (the Kangaroo, the
-point-feet quadruped and the point-feet biped under Euler, RK2 and RK4),
-the LIP at the Kangaroo's line feet under Euler, and the AL inner problem
-of both the Kangaroo's and the quadruped's isrbd problems; CUDA tensors of
-other sizes or steps (the LIP at the point-feet topologies or under RK)
-raise ValueError, CPU tensors take the twin at any size.
+The kernel is compiled for twenty problems (`FAMILIES`): the SRBD problem
+and the LIP problem each at their nine (topology, step) instances (the
+Kangaroo, the point-feet quadruped and the point-feet biped under Euler,
+RK2 and RK4), and the AL inner problem of both the Kangaroo's and the
+quadruped's isrbd problems; CUDA tensors of other sizes or steps raise
+ValueError, CPU tensors take the twin at any size.
 
 A block of eight warps takes one member and up to four of its α's
 (`ALPHAS_A_BLOCK`): each α's recursion runs on `chain_warps(nα)` warps
@@ -80,8 +78,10 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/linear_trial.cu"
 # `with_family` (appended, never reordered): (terms.family, the
 # linearization's shape name — K4's or K5's `KERNEL_SHAPES` —, K1's shape,
 # and the family's name, as `occupancy` takes it). RK2 and RK4 share K1's
-# shape, so K1's name does not pick a family: the name is K1's shape name
-# where that shape has one family, K4's name under RK.
+# shape, so K1's name does not pick a family: the linearization's shape
+# name (K4's, K10's) does, and the family's name is K1's shape name where
+# that shape has one family, K4's name under RK for the SRBD problem and
+# "lip_" + K10's for the LIP.
 FAMILIES = (("srbd", "kangaroo", "srbd", "srbd"),
             ("lip", "kangaroo", "lip", "lip"),
             ("srbd", "quadruped", "quadruped", "quadruped"),
@@ -94,15 +94,25 @@ FAMILIES = (("srbd", "kangaroo", "srbd", "srbd"),
             ("srbd", "quadruped_rk2", "quadruped_rk", "quadruped_rk2"),
             ("srbd", "quadruped_rk4", "quadruped_rk", "quadruped_rk4"),
             ("srbd", "point_feet_rk2", "point_feet_rk", "point_feet_rk2"),
-            ("srbd", "point_feet_rk4", "point_feet_rk", "point_feet_rk4"))
+            ("srbd", "point_feet_rk4", "point_feet_rk", "point_feet_rk4"),
+            ("lip", "quadruped", "lip_quadruped", "lip_quadruped"),
+            ("lip", "point_feet", "lip_point_feet", "lip_point_feet"),
+            ("lip", "kangaroo_rk2", "lip_rk", "lip_kangaroo_rk2"),
+            ("lip", "kangaroo_rk4", "lip_rk", "lip_kangaroo_rk4"),
+            ("lip", "quadruped_rk2", "lip_quadruped_rk", "lip_quadruped_rk2"),
+            ("lip", "quadruped_rk4", "lip_quadruped_rk", "lip_quadruped_rk4"),
+            ("lip", "point_feet_rk2", "lip_point_feet_rk",
+             "lip_point_feet_rk2"),
+            ("lip", "point_feet_rk4", "lip_point_feet_rk",
+             "lip_point_feet_rk4"))
 FAMILY_NAMES = tuple(f[3] for f in FAMILIES)
 # what the block's layout needs of each family beyond K1's shape: the packed
 # parameter row's width, the prepass values of a stage node (the SRBD
 # rates, the AL geometry; the LIP has no prepass), a warp's stage point
-# (nx under RK2 / RK4), the blocks an SM the kernel's launch bound asks for
+# (nx under RK2 / RK4 on the SRBD problem; the LIP's RK stages stay in
+# registers), the blocks an SM the kernel's launch bound asks for
 FAMILY_LAYOUT = {
     "srbd": dict(pw=20, rates=10, scratch=0, min_blocks=3),
-    "lip": dict(pw=12, rates=0, scratch=0, min_blocks=2),
     "quadruped": dict(pw=20, rates=10, scratch=0, min_blocks=3),
     "isrbd_al": dict(pw=357, rates=16, scratch=0, min_blocks=2),
     "isrbd_al_quadruped": dict(pw=349, rates=16, scratch=0, min_blocks=2),
@@ -113,6 +123,10 @@ FAMILY_LAYOUT = {
     "quadruped_rk4": dict(pw=20, rates=10, scratch=37, min_blocks=2),
     "point_feet_rk2": dict(pw=16, rates=10, scratch=25, min_blocks=2),
     "point_feet_rk4": dict(pw=16, rates=10, scratch=25, min_blocks=2),
+    # the LIP's packed row is 4 + 2nc (nc 4, the biped's point feet 2)
+    **{name: dict(pw=8 if "point_feet" in name else 12, rates=0, scratch=0,
+                  min_blocks=2)
+       for fam, _, _, name in FAMILIES if fam == "lip"},
 }
 WARPS = 8                 # a block's warps (kWarps)
 ALPHAS_A_BLOCK = 4        # chain warps a block: the α's of one member
@@ -137,7 +151,7 @@ def chain_split(family: str, na: int) -> dict:
     """The .cu's `ChainSplit<F, W>` for a block of na α's (W =
     `chain_warps(na)`): how an α's W chain warps share a node out (W > 1:
     the rows of K and Sx cut into h1 parts of len1 columns, those of Bs
-    into h3 parts of len3) and each α's scratch in doubles (δx, v, the
+    into h3 parts of len3, none empty) and each α's scratch in doubles (δx, v, the
     parts); `block` is the na α's scratch."""
     z = _family_shape(family)
     nx, nu, n_rx, n_ru, n_uc = (z[k] for k in ("nx", "nu", "n_rx", "n_ru",
@@ -146,8 +160,9 @@ def chain_split(family: str, na: int) -> dict:
     c = dict(rows1=nu + n_rx)
     c["h1"] = max(1, min(4, 32 * W // c["rows1"]))
     c["len1"] = -(-nx // c["h1"])
-    c["h3"] = max(1, min(4, 32 * W // n_ru))
-    c["len3"] = -(-n_uc // c["h3"])
+    parts3 = max(1, min(4, 32 * W // n_ru))
+    c["len3"] = -(-n_uc // parts3)
+    c["h3"] = -(-n_uc // c["len3"])
     c["dx"] = 0
     c["v"] = _round_up(nx, 2)
     c["p1"] = c["v"] + _round_up(n_uc, 2)

@@ -64,7 +64,7 @@ REPLACES = "srbd_horizon_tpu/solvers/msddp.py:1250"
 SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_associative.cu"
 
 # K12's instantiations, in the order of the .cu's `with_instance`: (K1's
-# shape name, gain solve). Both gain solves at the seven SRBD and LIP
+# shape name, gain solve). Both gain solves at the six SRBD and the six LIP
 # shapes (the RK2 and RK4 steps share K1's shape); Cholesky alone at the two
 # isrbd-AL shapes, whose only caller, the AL solver's inner solve, always
 # takes it. Indices are appended, never reordered. CUDA tensors of other
@@ -86,7 +86,10 @@ KERNEL_INSTANCES = (
     ("quadruped_rk", "cholesky"),
     ("point_feet_rk", "schur"),
     ("point_feet_rk", "cholesky"),
-)
+) + tuple((shape, solver)
+          for shape in ("lip_rk", "lip_quadruped", "lip_quadruped_rk",
+                        "lip_point_feet", "lip_point_feet_rk")
+          for solver in ("schur", "cholesky"))
 # the launchers' own errors, as K1's (kernels/riccati.py)
 SMEM_EXCEEDED = -1
 UNKNOWN_SHAPE = -2

@@ -315,9 +315,11 @@ def build_lip_loop(cfg: Optional[SRBDConfig] = None,
     "RK4"; the self-simulation steps by it too), in the configuration of
     the JAX package's dlip example: `max_iters=100`,
     `alpha_converge_threshold=1e-12`, `beta=1e-3`, the WPG at the feet's
-    height, no SRBD telemetry and no warm-start shift. The WPG takes the
-    contact topology of `cfg` and, when given, `group_mask` (the contacts
-    that follow the first half-cycle). Built on `device` (default "cuda";
+    height, no SRBD telemetry and no warm-start shift. `opts` may set any
+    execution mode (`riccati_mode="associative"`, `forward_pass="linear"`:
+    K12 and K13 at every topology and step) and either gain solve. The WPG
+    takes the contact topology of `cfg` and, when given, `group_mask` (the
+    contacts that follow the first half-cycle). Built on `device` (default "cuda";
     raises when CUDA is absent unless another device is given). Returns
     (loop, problem)."""
     dev = resolve_device(device)

@@ -177,13 +177,12 @@ class MSDDP:
         opts = self.opts
         if (opts.riccati_mode, opts.forward_pass) != ("sequential",
                                                        "nonlinear"):
-            # K12 and K13 exist at K1's nine shapes (K12 with both gain
+            # K12 and K13 exist at K1's fourteen shapes (K12 with both gain
             # solves, but Cholesky alone at the AL ones; K13 at every SRBD
-            # topology and step, the LIP and both AL inner problems): a
+            # and LIP topology and step and both AL inner problems): a
             # problem or gain solve without a kernel — the SRBD at
-            # contact_model 3 or 4, the LIP off its one shape or step,
-            # block-Schur gains at the AL shapes — is refused on every
-            # device
+            # contact_model 3 or 4, block-Schur gains at the AL shapes — is
+            # refused on every device
             try:
                 shape = FAMILIES[family_index(terms, ocp.nx, ocp.nu,
                                               self.rows)][2]
@@ -194,9 +193,9 @@ class MSDDP:
                     f"riccati_mode={opts.riccati_mode!r}, forward_pass="
                     f"{opts.forward_pass!r}, quu_solver={opts.quu_solver!r}: "
                     "K12 and K13 have no kernel for this problem: the SRBD "
-                    "at contact_model 3 or 4, the LIP off line feet or "
-                    "under RK, and block-Schur gains at the AL shapes have "
-                    f"none yet (ROADMAP.md Queue 2): {err}") from None
+                    "at contact_model 3 or 4 and block-Schur gains at the "
+                    f"AL shapes have none yet (ROADMAP.md Queue 2): {err}"
+                ) from None
 
     @property
     def terms(self):

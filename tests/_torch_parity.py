@@ -1200,3 +1200,235 @@ def check_lip_ticks(r, exact, tol=1e-9):
         agree(to, want, f"tick {i}", ("x", "u0"), floor)
     for f in ("X", "U"):
         assert max_rel_err(getattr(tc.sol, f), getattr(jc.sol, f)) < floor, f
+
+
+# ---------------- the execution modes at every LIP topology and step --------
+
+LINEAR = ("associative", "linear")
+
+
+def lip_modes_results(topology, integrator, quu_solver, parts=("k12", "k13"),
+                      single=None, ns=8, B=4, ticks=3, seed=41):
+    """The execution modes at one LIP topology under one step, float64 on
+    the CPU, beside the JAX package, in one JAX compile:
+
+      - the kernels at a drawn iterate (X ± 0.05·N around the initial state,
+        U ± 0.1·N around the static input, random references, switches and
+        tracking masks), the port's sliced linearization handed to both
+        (`jax_dense_lin`): with "k12" in `parts` JAX's
+        `_backward_associative` with each gain solve beside K12's twin;
+        with "k13" JAX's linear trial (`jax_linear_trials`' body, 4 step
+        sizes, the gains of K12's block-Schur twin) from the iterate's
+        merit and from one between the merits of α = 1/2 and 1/4 beside
+        K13's twin, and K11's twin (the rollout trial) at the same gains
+        and step sizes;
+      - `solve` (member 0) and `solve_batch` (B members) from pushed starts
+        (0.02·N(0,1), a commanded terminal velocity, max_iters=20) beside
+        JAX's `solve` and `vmap(solve)`, and `tick_batch` of
+        `build_lip_loop` (warm start shifted, mixed actions, the trot WPG
+        on the quadruped) for `ticks` ticks with SOLVER_OPTS and with
+        max_iters=1 beside JAX's `vmap(tick)`, under associative/linear
+        with `quu_solver`; given `single` (a mode of MODES), the solves
+        and the max_iters=1 ticks under that mode too; a `ModesSpy` on
+        each port solver.
+
+    The solves and ticks land under "port" / "jax" as `lip_results` lays
+    them out (`check_lip_solves`, `check_lip_ticks`), with the single
+    mode's under "port_single" / "jax_single"."""
+    jp, tp = lip_problems(topology, integrator, ns)
+    nc = tp.nc
+    nx, nu = jp.ocp.nx, jp.ocp.nu
+    rng = np.random.RandomState(seed)
+    X = np.asarray(jp.initial_state)[None] + 0.05 * rng.randn(ns + 1, nx)
+    U = np.asarray(jp.static_input)[None] + 0.1 * rng.randn(ns, nu)
+    params = {k: np.asarray(v) for k, v in jp.ocp.params.items()}
+    params.update(lip_members(nc, (ns + 1,), seed + 1)[2])
+    x0 = X[0] + 0.01 * rng.randn(nx)
+    pair = {sv: solvers(jp, tp, quu_solver=sv) for sv in ("schur", "cholesky")}
+    js, ts = pair["schur"]
+    p1 = {k: v[None] for k, v in to_torch(params).items()}
+    lin = ts._linearize_sliced(to_torch(X)[None], to_torch(U)[None], p1)
+    jlin = jax_dense_lin(lin, ts.rows, lin["rho"].shape[-1], nu)
+    args = tuple(lin[k] for k in SWEEP_ORDER)
+    twins = {sv: t_k12.riccati_associative_plain(*args, SWEEP_MU, ts.rows, sv)
+             for sv in pair}
+    ks, Ks, dV1, dV2 = (np_of(t[0]) for t in twins["schur"])
+
+    # the solves and the loops, under associative/linear and the single mode
+    sx0 = perturbed_states(jp.initial_state, B, seed=0, scale=0.02)
+    sparams = fleet_params(jp.ocp.params, B)
+    sparams["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
+    kw, jr, tr, trot = TOPOLOGIES[topology]
+    lx0 = perturbed_states(jp.initial_state, B, seed=7)
+    actions = np.array([0, 1, 1, 1], np.int32)[:B]
+    rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
+    jinp = JTickInput(action=jnp.asarray(actions), rdot_ref=jnp.asarray(rdot),
+                      w_ref=jnp.zeros((B, 3)))
+    runs = {"": dict(modes(*LINEAR), quu_solver=quu_solver)}
+    if single is not None:
+        runs["_single"] = modes(*single)
+    loop_opts = dict(options=SOLVER_OPTS,
+                     exact_step=dict(SOLVER_OPTS, max_iters=1))
+    jsolvers, jloops, tloops = {}, {}, {}
+    run_loops = {"": tuple(loop_opts), "_single": ("exact_step",)}
+    for r, mo in runs.items():
+        jsolvers[r], _ = solvers(jp, tp, **dict(dict(max_iters=20), **mo))
+        for k in run_loops[r]:
+            o = loop_opts[k]
+            jloops[r, k] = JMPCLoop(
+                solver=JMSDDP(jp.ocp, JDDPOptions(**o, **mo)),
+                wpg=JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
+                               nodes=ns, dtype=jnp.float64,
+                               group_mask=j_trot() if trot else None, **kw),
+                shift_warmstart=True)
+            tloops[r, k] = build_lip_loop(
+                TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw),
+                TDDPOptions(**o, **mo), robot=tr(), shift_warmstart=True,
+                device=CPU, group_mask=t_trot() if trot else None,
+                integrator=integrator)[0]
+    one = lambda t: {k: v[0] for k, v in t.items()}
+    opts = js.opts
+    nu_w = opts.defect_weight
+
+    def run(jlin, jx0, jX, jU, jpar, ks, Ks, dV1, dV2, alphas, sx0, sparams,
+            lx0):
+        out = {}
+        if "k12" in parts:
+            for sv, (jsv, _) in pair.items():
+                out["k12_" + sv] = jsv._backward_associative(jlin, SWEEP_MU)
+        if "k13" in parts:
+            D = jnp.sum(jlin["d"] * jlin["d"])
+
+            def trial(a, merit0):
+                Xn, Un = js._forward_linear(jx0, jX, jU, ks, Ks, jlin, jpar, a)
+                dn = js._true_defects(Xn, Un, jpar)
+                new_cost = js.total_cost(Xn, Un, jpar)
+                new_merit = new_cost + nu_w * jnp.sum(dn * dn)
+                expected = (-(a * dV1 + a**2 * dV2)
+                            + (2.0 * a - a**2) * nu_w * D)
+                ok = (((merit0 - new_merit)
+                       >= opts.beta * jnp.maximum(expected, 1e-16))
+                      & jnp.isfinite(new_merit)
+                      & (a >= opts.alpha_converge_threshold))
+                return Xn, Un, new_cost, new_merit, ok
+
+            trials = jax.vmap(trial, in_axes=(0, None))
+            merit0 = js.total_cost(jX, jU, jpar) + nu_w * D
+            out["merit0"], out["D"] = merit0, D
+            out["k13_iterate"] = trials(alphas, merit0)
+            mid = 0.5 * (out["k13_iterate"][3][1]
+                         + out["k13_iterate"][3][2])
+            out["merit_mid"] = mid
+            out["k13_mid"] = trials(alphas, mid)
+        for r, jsr in jsolvers.items():
+            solve = jax.jit(jsr.solve)
+            out["solve" + r] = solve(jsr.init(sx0[0]), sx0[0], one(sparams))
+            out["vmap_solve" + r] = jax.vmap(solve)(jax.vmap(jsr.init)(sx0),
+                                                     sx0, sparams)
+            for k in run_loops[r]:
+                tick = jax.vmap(jloops[r, k].tick)
+                out[f"ticks_{k}{r}"] = jax.lax.scan(
+                    lambda c, _: tick(c, jinp),
+                    jax.vmap(jloops[r, k].init)(lx0), None, length=ticks)
+        return out
+
+    j = jit(run)(jlin, *to_jax((x0, X, U, params)),
+                 *(jnp.asarray(v) for v in (ks, Ks, dV1, dV2)),
+                 *to_jax((TRIAL_ALPHAS, sx0, sparams, lx0)))
+    res = dict(jp=jp, tp=tp, ts=ts, lin=lin, twins=twins,
+               k1_shape=t_k1.kernel_shape(nx, nu, lin["Jt"].shape[1],
+                                          ts.rows))
+    if "k12" in parts:
+        for sv in pair:
+            res["k12", sv] = (tuple(w[None] for w in j["k12_" + sv]),
+                              twins[sv])
+    if "k13" in parts:
+        t1 = lambda a: to_torch(np_of(a))[None]
+        D = t1(j["D"])
+
+        def k13_args(m0):
+            return (t1(x0), t1(X), t1(U), t1(ks), t1(Ks), lin["Sx"],
+                    lin["Bs"], lin["d"], to_torch(TRIAL_ALPHAS), p1, t1(m0), D,
+                    t1(dV1), t1(dV2), ts.terms, ts.rows, ts.ocp.dt,
+                    ts._wc(F64), nu_w, opts.beta,
+                    opts.alpha_converge_threshold)
+
+        res["k13_args"] = k13_args(j["merit0"])
+        for m0, key in ((j["merit0"], "iterate"), (j["merit_mid"], "mid")):
+            res["k13", key] = (j["k13_" + key],
+                               t_k13.linear_trial_plain(*k13_args(m0)))
+        res["k11"] = t_k11.lip_trial_plain(
+            t1(x0), t1(X), t1(U), t1(ks), t1(Ks), lin["d"],
+            to_torch(TRIAL_ALPHAS), p1, t1(j["merit0"]), D, t1(dV1), t1(dV2),
+            ts.terms, ts.ocp.dt, ts._wc(F64), nu_w, opts.beta,
+            opts.alpha_converge_threshold)
+    tx0, tpar = to_torch(sx0), to_torch(sparams)
+    tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
+                                 dtype=F64)
+    for r, mo in runs.items():
+        _, tsr = solvers(jp, tp, **dict(dict(max_iters=20), **mo))
+        port = dict(spy=ModesSpy(tsr))
+        port["solve"] = tsr.solve(tsr.init(tx0[0]), tx0[0], one(tpar))
+        port["solve_batch"] = tsr.solve_batch(tsr.init(tx0), tx0, tpar)
+        for k in run_loops[r]:
+            tloop = tloops[r, k]
+            port[f"spy_{k}"] = ModesSpy(tloop.solver)
+            tc, outs = tloop.init(torch.as_tensor(lx0)), []
+            for _ in range(ticks):
+                tc, to = tloop.tick_batch(tc, tinp)
+                outs.append(to)
+            port[f"ticks_{k}"] = (tc, outs)
+        res["port" + r] = port
+        res["jax" + r] = dict(
+            solve=j["solve" + r], vmap_solve=j["vmap_solve" + r],
+            **{f"ticks_{k}": j[f"ticks_{k}{r}"] for k in run_loops[r]})
+        res["mode" + r] = (mo["riccati_mode"], mo["forward_pass"])
+    return res
+
+
+def check_k13_is_k11(res, tol=1e-9):
+    """The LIP's step is affine in (x, u), so the linear pass and the
+    rollout (which leaves (1 − α)·d open) make the same plans: K13's twin
+    against K11's twin at the same gains, step sizes and merit0 — plans,
+    costs and merits to `tol` relative (K13's merit measures the defects
+    the plan leaves, K11's takes (1 − α)²D), the flags equal. Returns the
+    figures."""
+    got, want = res["k13", "iterate"][1], res["k11"]
+    errs = {name: max_rel_err(g, w) for name, g, w in
+            zip(("Xn", "Un", "cost", "merit"), got, want)}
+    assert max(errs.values()) < tol, errs
+    np.testing.assert_array_equal(np_of(got[4]), np_of(want[4]))
+    return errs
+
+
+def check_lip_mode_runs(res, part, single=False):
+    """The solves or the ticks of `lip_modes_results` under its mode (or
+    under the single mode) against JAX: `part` "solves" by
+    `check_lip_solves`, "exact_step" or "options" by `check_lip_ticks`;
+    the port's K12 / K1 / K13 calls as `ModesSpy.check` expects under the
+    mode, on the solves or on the loop."""
+    r = "_single" if single else ""
+    view = dict(port=res["port" + r], jax=res["jax" + r])
+    if part == "solves":
+        check_lip_solves(view)
+        spy = "spy"
+    else:
+        check_lip_ticks(view, part == "exact_step")
+        spy = "spy_" + part
+    view["port"][spy].check(res["mode" + r])
+
+
+def lip_modes_dispatch(topology, integrator):
+    """At one LIP topology under one step (ns=8, CPU): `MSDDP` builds under
+    every non-default mode with each gain solve; returns K13's family
+    index and K12's instance indices by gain solve."""
+    _, tp = lip_problems(topology, integrator, ns=8)
+    ocp = tp.ocp
+    for mode in MODES:
+        for sv in ("schur", "cholesky"):
+            TMSDDP(ocp, TDDPOptions(quu_solver=sv, **modes(*mode)))
+    s = TMSDDP(ocp, TDDPOptions())
+    fam = t_k13.family_index(s.terms, ocp.nx, ocp.nu, s.rows)
+    shape = t_k13.FAMILIES[fam][2]
+    return fam, {sv: t_k12.shape_instance(shape, sv)
+                 for sv in ("schur", "cholesky")}

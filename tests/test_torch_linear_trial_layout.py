@@ -2,7 +2,7 @@
 
 The card runs K13 (`csrc/linear_trial.cu`); here no CUDA compiler exists.
 These tests hold what the wrapper states about the kernel against the
-source itself: at each of the twelve families and for float32 and float64
+source itself: at each of the twenty families and for float32 and float64
 tensors, the shared memory a block takes (`phase_bytes`, ns = 20, four α)
 against the `Smem` layout struct evaluated from the .cu's text, within the
 232,448 B a block may take, and — float32, four α — the blocks an SM the
@@ -193,7 +193,7 @@ def test_family_layout_matches_the_headers(family):
     z = KERNEL_SHAPES[k13.FAMILIES[k13.FAMILY_NAMES.index(family)][2]]
     kind = k13.FAMILIES[k13.FAMILY_NAMES.index(family)][0]
     rk = family.endswith(("rk2", "rk4"))
-    nc = 2 if family.startswith("point_feet") else 4
+    nc = 2 if "point_feet" in family else 4
     if kind == "srbd":
         rates = int(re.search(r"constexpr int kRates = (\d+);", srbd_h)[1])
         want = dict(pw=12 + 2 * nc, rates=rates, scratch=z["nx"] if rk else 0,
@@ -215,7 +215,7 @@ def test_family_layout_matches_the_headers(family):
 
 def _problem(family, dtype=torch.float64):
     """(solver, problem, ALDDP or None) of K13's family on the CPU: the
-    SRBD problem at its (topology, step), the LIP, or the AL inner problem
+    SRBD or the LIP problem at its (topology, step), or the AL inner problem
     of an isrbd problem (its serving options)."""
     feet, quad = kangaroo_line_feet(), quadruped_point_feet()
     if family in ("isrbd_al", "isrbd_al_quadruped"):
@@ -228,19 +228,18 @@ def _problem(family, dtype=torch.float64):
                 device=CPU)
         al = ALDDP(prob.ocp, *al_serving_options(1))
         return al.inner, prob, al
-    if family == "lip":
-        prob = build_lip_problem(SRBDConfig(dtype=dtype), feet, device=CPU)
-        return MSDDP(prob.ocp, DDPOptions()), prob, None
-    topo, _, step = family.partition("_rk")
+    lip = family == "lip" or family.startswith("lip_")
+    topo, _, step = family.removeprefix("lip_").partition("_rk")
     step = "RK" + step if step else "EULER"
-    topo = {"srbd": "kangaroo"}.get(topo, topo)
+    topo = {"srbd": "kangaroo", "lip": "kangaroo"}.get(topo, topo)
     cfg, robot = {
         "kangaroo": (SRBDConfig(dtype=dtype), feet),
         "quadruped": (SRBDConfig(dtype=dtype, contact_model=1,
                                  number_of_legs=4), quad),
         "point_feet": (SRBDConfig(dtype=dtype, contact_model=1,
                                   number_of_legs=2), point_feet())}[topo]
-    prob = build_srbd_problem(cfg, robot, device=CPU, integrator=step)
+    build = build_lip_problem if lip else build_srbd_problem
+    prob = build(cfg, robot, device=CPU, integrator=step)
     return MSDDP(prob.ocp, DDPOptions()), prob, None
 
 

@@ -15,10 +15,7 @@ package's `build_lip_problem`, float64 on the CPU:
     wrappers' table and the problem, the wrappers refusing other sizes off
     the CPU (meta tensors stand in for CUDA ones) before any launch, and
     every instance's sizes passing the shape check and stopping at the
-    device check;
-  - K12 and K13 refusing the LIP at the point-feet topologies and under
-    RK by name (the modes at those shapes are not compiled yet), and
-    `MSDDP` refusing the modes there, naming ROADMAP.md.
+    device check.
 """
 
 import dataclasses
@@ -39,11 +36,8 @@ from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu.problems.lip import build_lip_problem as j_build
 from srbd_horizon_tpu.solvers.msddp import MSDDP as JMSDDP
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
-from srbd_horizon_tpu_torch.kernels import linear_trial as k13
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
-from srbd_horizon_tpu_torch.kernels import riccati as k1
-from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
 from srbd_horizon_tpu_torch.kernels.riccati import RiccatiRows
 from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants
 from srbd_horizon_tpu_torch.models.kangaroo import kangaroo_line_feet as t_feet
@@ -368,31 +362,3 @@ def test_each_instance_passes_the_shape_check(shape, name):
     swapped = dataclasses.replace(ts.terms, step=other)
     with pytest.raises(ValueError, match="no kernel for the sizes"):
         k10.check_kernel_shape(name, swapped, nx, nu, ts.rows)
-
-
-NEW_SHAPES = [s for s in k10.KERNEL_SHAPES if s != "kangaroo"]
-
-
-@pytest.mark.parametrize("shape", NEW_SHAPES)
-def test_modes_refuse_the_new_lip_shapes(shape):
-    """K12 and K13 are not compiled for the LIP off the Kangaroo's Euler
-    shape: K13's `family_index` and K12's instance lookup raise their named
-    ValueError for it (the wrappers' first checks, before any launch, with
-    either gain solve), no instance maps it onto another, and `MSDDP`
-    refuses the modes there on every device, naming ROADMAP.md; K1 takes
-    its own instance."""
-    tp, ts = _instance_solver(shape)
-    ocp = tp.ocp
-    nt = 10
-    with pytest.raises(ValueError, match="linear_trial has no kernel"):
-        k13.family_index(ts.terms, ocp.nx, ocp.nu, ts.rows)
-    k1_shape = k1.kernel_shape(ocp.nx, ocp.nu, nt, ts.rows)
-    assert k1_shape.startswith("lip") and k1_shape != "lip"
-    for solver in ("schur", "cholesky"):
-        with pytest.raises(ValueError, match="riccati_associative has no kernel"):
-            k12.kernel_instance(ocp.nx, ocp.nu, nt, ts.rows, solver)
-        assert k1.KERNEL_INSTANCES[k1.kernel_instance(
-            k1_shape, "tassa", solver)] == (k1_shape, "tassa", solver)
-    for mode in (("associative", "nonlinear"), ("sequential", "linear")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            MSDDP(ocp, DDPOptions(riccati_mode=mode[0], forward_pass=mode[1]))

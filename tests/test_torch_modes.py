@@ -283,27 +283,27 @@ def test_kernel_lookups_refuse_sizes_without_a_kernel(srbd, change):
 
 def test_wrappers_name_their_kernels():
     """K12 and K13 name the JAX functions they replace and their sources;
-    K12 is built for K1's seven SRBD and Kangaroo-LIP shapes with both gain
-    solves and for the two AL shapes with Cholesky; K13 for a family at
-    each of those nine shapes, two at each SRBD RK shape (RK2 and RK4 share
-    K1's shape, not K13's step), each family named once in
-    `FAMILY_NAMES`; neither at K1's five other LIP shapes (the point-feet
-    topologies and RK), which wait for their instances."""
+    K12 is built for K1's six SRBD and six LIP shapes with both gain solves
+    and for the two AL shapes with Cholesky (26 instantiations); K13 for a
+    family at each of those fourteen shapes, two at each SRBD and LIP RK
+    shape (RK2 and RK4 share K1's shape, not K13's step; 20 families),
+    each family named once in `FAMILY_NAMES`."""
     assert k12.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1250"
     assert k13.REPLACES == "srbd_horizon_tpu/solvers/msddp.py:1454"
     al = {"isrbd_al", "isrbd_al_quadruped"}
     lip_rest = {"lip_rk", "lip_quadruped", "lip_quadruped_rk",
                 "lip_point_feet", "lip_point_feet_rk"}
     assert len(k1.KERNEL_SHAPES) == 14 and lip_rest <= set(k1.KERNEL_SHAPES)
-    modes = set(k1.KERNEL_SHAPES) - lip_rest
+    modes = set(k1.KERNEL_SHAPES)
     assert {s for s, _ in k12.KERNEL_INSTANCES} == modes
     assert set(k12.KERNEL_INSTANCES) == {
         (s, q) for s in modes - al for q in k1.QUU_SOLVERS
     } | {(s, "cholesky") for s in al}
-    assert len(k12.KERNEL_INSTANCES) == 16
+    assert len(k12.KERNEL_INSTANCES) == 26
     assert {f[2] for f in k13.FAMILIES} == modes
     rk = [f[2] for f in k13.FAMILIES if f[2].endswith("_rk")]
     assert sorted(rk) == sorted(2 * ["srbd_rk", "quadruped_rk",
-                                     "point_feet_rk"])
-    assert len(set(k13.FAMILY_NAMES)) == len(k13.FAMILIES) == 12
+                                     "point_feet_rk", "lip_rk",
+                                     "lip_quadruped_rk", "lip_point_feet_rk"])
+    assert len(set(k13.FAMILY_NAMES)) == len(k13.FAMILIES) == 20
     assert k13.SOURCE.endswith("linear_trial.cu") and k3.SOURCE != k13.SOURCE

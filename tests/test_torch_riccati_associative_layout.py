@@ -4,7 +4,7 @@ The card runs K12 (`csrc/riccati_associative.cu`); here no CUDA compiler
 exists. These tests hold what the wrapper states about the kernel against
 the source itself: the shared memory a block of each phase takes
 (`phase_bytes`) against the layout structs `ElemSmem`, `CombineSmem` and
-`GainSmem` evaluated from the .cu's text at each of the 16
+`GainSmem` evaluated from the .cu's text at each of the 26
 instantiations, each within the 232,448 B a block may take, the combine at
 nx = 37 within the 76,800 B that let three blocks share an SM and the
 element block of the isrbd-AL shapes within the 115,712 B of two, the
@@ -12,7 +12,8 @@ element and gain blocks at the nx = 37 SRBD shapes within the room of
 four; the panel width, substitution block and launch bound against the
 .cu's constants. Then `blocked_lu_solve`, a numpy model of the combine's
 blocked pivoted elimination at the kernel's panel width, on drawn combines
-at nx = 25, 30 and 37 in float64: it picks LAPACK's pivots (getrf through
+at nx = 18, 25, 30 and 37 in float64 (nx = 18: three panels and a last
+substitution block of two rows): it picks LAPACK's pivots (getrf through
 `torch.linalg.lu_factor`), takes the first of equal largest entries, and a
 combine built on it agrees with the twin's `combine_plain` to 1e-12
 relative, output by output, on draws whose I + C₁J₂ has a condition number
@@ -39,7 +40,7 @@ SMEM_PER_BLOCK = 232_448  # an H100's shared memory a block may take
 SMEM_PER_SM = 233_472     # and an SM's (each block also holds 1 KB of it)
 COND_MAX = 1e4            # the draws' largest condition number of I + C₁J₂
 COMBINE_TOL = 1e-12       # the model's combine against the twin's, relative
-NX = (25, 30, 37)
+NX = (18, 25, 30, 37)
 
 
 def _struct_fields(name):
