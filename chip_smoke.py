@@ -380,11 +380,31 @@ parallel, into build/kernels/), then:
      (ptxas); `lmf_card_vs_cpu`: every instance's fleet at B=8 under
      associative/linear in float64, 3 ticks, with max_iters=1 everything
      to 1e-9, with max_iters=5 by F8's rule (iterations equal, the cost at
-     tick 0 to 1e-9, the rest to LIP_FLOOR_TOL).
+     tick 0 to 1e-9, the rest to LIP_FLOOR_TOL);
+ 18. the square-feet biped (`square_feet_section`; contact_model=4, four
+     points a foot, nc=8: the SRBD at nx=61, nu=48, the LIP at nx=54,
+     nu=27; JAX's `TestNc8` robot, `square_feet_robot`) under Euler, RK2
+     and RK4: K4, K3 (1 and 4 α), srbd_evaluate, K10, K11, lip_evaluate
+     and K1's twelve new instantiations (csrc/riccati_backward_square_
+     feet.cu) against their twins at B = 1, 64 and 512 by phases 14's and
+     16's rules (`family_check`, `lip_family_check`: float64 to 1e-12 of
+     max(1, |twin|), K1 to 1e-9, the NaN members), timed at B = 1, 512
+     and 4096 beside their bounds with their occupancy (K3's and K1's
+     shared memory held to `rollout.trial_layout` and
+     `riccati.layout_bytes`), K2 alone at nu = 48 and 27 beside
+     `torch.linalg.inv`, JAX's TestNc8 bar on the card (a 30-iteration
+     standing solve: defects below 1e-6, each contact's F_z within 0.05
+     of m·g/8), the paths in float32 at ns=20 (the SRBD and LIP fleets at
+     B=512 under Euler with phases, profile and idle share, 10 ticks of
+     each fleet under RK2, a 40-tick walk of each problem under Euler and
+     10 ticks under RK4, each followed by 10 Cholesky ticks), gated as
+     phases 14 and 16 gate theirs; card = CPU in float64 at B=8 (3 ticks
+     of each fleet; the LIP with max_iters=1 to 1e-9 and with max_iters=5
+     by F8's rule) and the execution modes' refusal at contact_model=4.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-157 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+189 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -403,7 +423,10 @@ seven families, K1's three Tassa-Cholesky instantiations), and the forty
 rows of phase 16 (K10, K11 and lip_evaluate at its eight instances, K1's
 fifteen instantiations at the five new LIP shapes, K2 at nu=9), and the
 eighteen rows of phase 17 (K12 at five LIP shapes × two gain solves, K13
-at eight LIP families); the last line is {"ok": true, "device": {...}}.
+at eight LIP families), and the thirty-two rows of phase 18 (K4, K3,
+srbd_evaluate, K10, K11 and lip_evaluate at the square feet's three
+steps, K1's twelve square-feet instantiations, K2 at nu = 48 and 27); the
+last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11,k7]
 
@@ -5269,11 +5292,12 @@ def family_loop(topology, step, dtype, device, opts=None, shift=False):
         return build_quadruped_loop(SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY),
                                     opts, shift_warmstart=shift,
                                     device=device, integrator=step)
-    robot = point_feet() if topology == "point_feet" else kangaroo_line_feet()
-    topo = (dict(contact_model=1, number_of_legs=2)
-            if topology == "point_feet" else {})
+    robot, topo = {
+        "point_feet": (point_feet, dict(contact_model=1, number_of_legs=2)),
+        "square_feet": (square_feet_robot, SQUARE_TOPOLOGY),
+    }.get(topology, (kangaroo_line_feet, {}))
     return build_srbd_loop(SRBDConfig(dtype=dtype, **topo),
-                           opts or ddp_example_options(), robot=robot,
+                           opts or ddp_example_options(), robot=robot(),
                            shift_warmstart=shift, device=device,
                            integrator=step)
 
@@ -6567,7 +6591,8 @@ def lip_family_loop(inst, dtype, device, opts=None, shift=False):
         "kangaroo": ({}, kangaroo_line_feet, None),
         "quadruped": (QUAD_TOPOLOGY, quadruped_point_feet, trot_group_mask()),
         "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet,
-                       None)}[topology]
+                       None),
+        "square_feet": (SQUARE_TOPOLOGY, square_feet_robot, None)}[topology]
     return build_lip_loop(SRBDConfig(dtype=dtype, **topo), opts,
                           robot=robot(),
                           shift_warmstart=shift, dtype=dtype, device=device,
@@ -7990,6 +8015,405 @@ def lip_modes_section(card, dev, sms):
     return rows_out
 
 
+# ---------------- the square-feet biped (phase 18) ----------------
+
+# JAX's `TestNc8` robot (tests/test_configs.py): four contact points a foot
+# (contact_model=4, nc=8), the rows of `foot_positions` in the reference's
+# contact order, mass and inertia as the JAX package's test builds them
+SQUARE_TOPOLOGY = dict(contact_model=4, number_of_legs=2)
+SQUARE_FEET_POINTS = ((0.08, 0.03), (0.08, -0.03), (-0.08, 0.03),
+                      (-0.08, -0.03))
+SQUARE_LEGS_Y = (0.0, -0.18)
+# the (topology, step) instances of K4 / K3 / srbd_evaluate and of K10 /
+# K11 / lip_evaluate this phase adds (the two tables use the same names)
+SQUARE_INSTANCES = ("square_feet", "square_feet_rk2", "square_feet_rk4")
+# JAX's bar in TestNc8: each contact's F_z within this of m·g / (fs·8)
+# after a 30-iteration standing solve, the defects below SQUARE_STAND_DEFECT
+SQUARE_FZ_TOL = 0.05
+SQUARE_STAND_DEFECT = 1e-6
+# K1's and K2's instantiations at the square feet's shapes are built apart
+K1_SQUARE_SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward_square_feet.cu"
+
+
+def square_feet_robot():
+    """The square-feet biped as JAX's `_four_contact_feet()` builds it:
+    mass 40 kg, inertia diag(2.1, 1.8, 0.62), CoM (0, −0.09, 0.88), four
+    points a foot at (±0.08, ±0.03) around each leg's y (0 and −0.18)."""
+    import numpy as np
+
+    from srbd_horizon_tpu_torch.models.kangaroo import RobotConstants
+
+    pts = [[dx, y + dy, 0.0] for y in SQUARE_LEGS_Y
+           for dx, dy in SQUARE_FEET_POINTS]
+    return RobotConstants(mass=40.0, inertia=np.diag([2.1, 1.8, 0.62]),
+                          com=np.array([0.0, -0.09, 0.88]),
+                          foot_positions=np.asarray(pts),
+                          foot_frames=tuple(f"c{i}" for i in range(8)))
+
+
+def square_standing(dev, dtype):
+    """JAX's `TestNc8::test_srbd_nc8_solve` on the card: the square-feet
+    SRBD problem solved standing (max_iters=30 from the nominal state and
+    the static input) by `MSDDP.solve`; the defect norm, each contact's
+    F_z against m·g / (fs·8), the iterations and the launches."""
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+    prob = build_srbd_problem(SRBDConfig(dtype=dtype, **SQUARE_TOPOLOGY),
+                              square_feet_robot(), device=dev)
+    s = MSDDP(prob.ocp, DDPOptions(max_iters=30))
+    x0 = prob.initial_state
+    U0 = prob.static_input[None].expand(prob.ocp.ns, -1).contiguous()
+    family_counts_reset()
+    sol = s.solve(s.init(x0, U0=U0), x0, prob.ocp.params)
+    torch.cuda.synchronize()
+    launches = family_counts()
+    fz = sol.U[:, 5::6].double().cpu()                 # (ns, 8): f_z a contact
+    want = prob.mass * 9.81 / prob.force_scaling / 8
+    return dict(dtype=str(dtype)[6:], iterations=int(sol.iterations),
+                converged=bool(sol.converged),
+                defect_norm=float(sol.defect_norm), fz_expected=want,
+                fz_max_dev=float((fz - want).abs().max()),
+                fz_tol=SQUARE_FZ_TOL, cost=float(sol.cost),
+                finite=bool(torch.isfinite(sol.X).all()
+                            and torch.isfinite(sol.U).all())), launches
+
+
+def square_refusals():
+    """The execution modes at contact_model=4: `MSDDP` refuses K12 and K13
+    for both problems (NotImplementedError naming both and ROADMAP.md).
+    Returns the messages; fails the run if either builds."""
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+    cfg = SRBDConfig(dtype=torch.float64, ns=4, **SQUARE_TOPOLOGY)
+    out = {}
+    for name, build in (("srbd", build_srbd_problem),
+                        ("lip", build_lip_problem)):
+        prob = build(cfg, square_feet_robot(), device="cpu")
+        for mode in (dict(riccati_mode="associative"),
+                     dict(forward_pass="linear")):
+            key = f"{name}_{'_'.join(mode.values())}"
+            try:
+                MSDDP(prob.ocp, DDPOptions(**mode))
+            except NotImplementedError as err:
+                msg = str(err)
+                if not ("ROADMAP.md" in msg and "the SRBD and the LIP" in msg):
+                    fail(f"square_refusals: {key}: the refusal does not name "
+                         f"both problems and ROADMAP.md: {msg}")
+                out[key] = msg[:160]
+                continue
+            fail(f"square_refusals: the {name} problem at contact_model=4 "
+                 f"built under {mode}")
+    return out
+
+
+def square_feet_section(card, dev, sms):
+    """Phase 18: the square-feet biped (contact_model=4, nc=8: the SRBD at
+    nx=61, nu=48, the LIP at nx=54, nu=27) under Euler, RK2 and RK4 on K4,
+    K3, srbd_evaluate, K10, K11, lip_evaluate and K1 (its twelve new
+    instantiations, K2 inside). The kernel checks and times of phases 14
+    and 16 at the six (problem, step) instances (`family_check`,
+    `family_times`, `lip_family_check`, `lip_family_times`), K2 alone at
+    nu = 48 and 27, JAX's standing bar (`square_standing`), the paths (the
+    SRBD and LIP fleets at B=512 under Euler, an RK2 fleet of each, a
+    single-robot walk of each problem under Euler and under RK4, each with
+    Cholesky ticks after it), card = CPU in float64 at B=8 and the
+    execution modes' refusal (`square_refusals`). Returns the kernel rows
+    of the `kernels` line."""
+    import torch
+
+    from srbd_horizon_tpu_torch.kernels import linearize as k4
+    from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
+    from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
+    from srbd_horizon_tpu_torch.kernels import riccati as k1
+    from srbd_horizon_tpu_torch.kernels import rollout as k3
+
+    t_section = time.perf_counter()
+    parts = {}                    # seconds into the section at each part's end
+
+    def mark(part):
+        parts[part] = round(time.perf_counter() - t_section, 1)
+
+    f64 = torch.float64
+    errs, k1_shapes, times, occ = {}, {}, {}, {}
+    jup = {}
+    for inst in SQUARE_INSTANCES:
+        res, k1_shape, lin64, sweep64, pt = family_check(inst, dev)
+        errs["srbd", inst], k1_shapes["srbd", inst] = res, k1_shape
+        t, o = family_times(inst, dev, lin64, sweep64, pt)
+        times.update(t)
+        occ.update(o)
+        if inst == "square_feet":
+            jup[48] = lin64["Jup"]
+        del lin64, sweep64, pt
+        torch.cuda.empty_cache()
+    mark("srbd_checks_and_times")
+    for inst in SQUARE_INSTANCES:
+        res, k1_shape, lin64, sweep64, pt = lip_family_check(inst, dev)
+        errs["lip", inst], k1_shapes["lip", inst] = res, k1_shape
+        t, o = lip_family_times(inst, dev, lin64, sweep64, pt)
+        times.update(t)
+        occ.update(o)
+        if inst == "square_feet":
+            jup[27] = lin64["Jup"]
+        del lin64, sweep64, pt
+        torch.cuda.empty_cache()
+    mark("lip_checks_and_times")
+    # K3's block: the card's shared memory is the wrapper's reckoning
+    for inst in SQUARE_INSTANCES:
+        for dtype in (torch.float32, f64):
+            want = k3.trial_layout(dtype, inst)
+            got = k3.trial_occupancy(dtype, inst)
+            if (got["shared_memory_bytes"] != want["bytes"]
+                    or got["blocks_per_sm"] < 1):
+                fail(f"square_feet_section: K3 {inst} {dtype}: the card "
+                     f"holds {got}, the wrapper reckons {want}")
+            occ[f"srbd_trial_{inst}"][f"layout_{str(dtype)[6:]}"] = dict(
+                want, occupancy=got)
+    # K1: the card's shared memory is `layout_bytes`, and it fits
+    for shape in k1.SQUARE_FEET_SHAPES:
+        z = k1.KERNEL_SHAPES[shape]
+        # row sets of the shape's sizes (the queries read their lengths)
+        rows = k1.RiccatiRows(**{f: tuple(range(z[n])) for f, n in (
+            ("rx", "n_rx"), ("ru", "n_ru"), ("gx", "n_gx"), ("gu", "n_gu"),
+            ("bx", "n_b"), ("bu", "n_b"), ("uc", "n_uc"))})
+        for dtype in (torch.float32, f64):
+            for _, form, solver in (ki for ki in k1.KERNEL_INSTANCES
+                                    if ki[0] == shape):
+                kw = dict(form=form, quu_solver=solver)
+                smem = k1.shared_memory_bytes(z["nx"], z["nu"], z["nt"], rows,
+                                              dtype, **kw)
+                blocks = k1.blocks_per_sm(z["nx"], z["nu"], z["nt"], rows,
+                                          dtype, **kw)
+                if smem != k1.layout_bytes(shape, dtype) or blocks < 1:
+                    fail(f"square_feet_section: K1 {shape} {form} {solver} "
+                         f"{dtype}: {smem} B, {blocks} blocks an SM")
+                name = k1_row_name(shape, form, solver)
+                occ.setdefault(name, {})[str(dtype)[6:]] = dict(
+                    shared_memory_bytes=smem, blocks_per_sm=blocks)
+    emit("square_feet_times", card=card, dtype="float32", sms=sms,
+         times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
+         occupancy=occ)
+    k2 = {nu: k2_check(f"square_feet_k2_check_nu{nu}", k1, jup[nu], 1e-6,
+                       nu=nu) for nu in (48, 27)}
+    del jup
+    torch.cuda.empty_cache()
+    mark("occupancy_and_k2")
+
+    # ---- JAX's standing bar on the card ----
+    path_launches = defaultdict(int)
+
+    def add(launches):
+        for k, v in launches.items():
+            path_launches[k] += v
+
+    stand = {}
+    for dtype in (f64, torch.float32):
+        stand[str(dtype)[6:]], launches = square_standing(dev, dtype)
+        add(launches)
+    emit("square_feet_standing", card=card, **stand)
+    mark("standing")
+    st = stand["float64"]
+    if not (st["finite"] and st["defect_norm"] < SQUARE_STAND_DEFECT
+            and st["fz_max_dev"] <= SQUARE_FZ_TOL):
+        fail(f"square_feet_standing: JAX's TestNc8 bar not met: {st}")
+
+    # ---- the paths ----
+    def k1_names(problem, inst, forms):
+        return [k1_row_name(k1_shapes[problem, inst], f, sv) for f, sv in forms]
+
+    tassa_both = (("tassa", "schur"), ("tassa", "cholesky"))
+    collapsed = (("collapsed", "schur"),)
+
+    def walk_gates(tag, res, lip):
+        z, band = (LIP_HEIGHT if lip else FAMILY_HEIGHT), FAMILY_HEIGHT_BAND
+        if max(abs(res["com_z_min"] - z), abs(res["com_z_max"] - z)) > band:
+            fail(f"{tag}: the CoM height left {z} ± {band}: "
+                 f"{res['com_z_min']}, {res['com_z_max']}")
+        if not res["forward_progress_m"] > FAMILY_PROGRESS:
+            fail(f"{tag}: forward progress {res['forward_progress_m']} m, not "
+                 f"above {FAMILY_PROGRESS}")
+
+    summary = {}
+    for tag, inst, ticks in (("square_srbd_walk", "square_feet",
+                              FAMILY_SINGLE_TICKS),
+                             ("square_srbd_rk4_walk", "square_feet_rk4",
+                              FAMILY_SHORT_TICKS)):
+        res, launches, guards, *_ = family_single_path(
+            inst, dev, card, ticks=ticks,
+            cholesky_ticks=FAMILY_CHOLESKY_TICKS)
+        emit(tag, **res)
+        family_gates(tag, res, launches, inst,
+                     k1_names("srbd", inst, tassa_both), guards)
+        if ticks == FAMILY_SINGLE_TICKS:
+            walk_gates(tag, res, lip=False)
+        if launches.get(f"srbd_evaluate_{inst}", 0) != 2 * res["solves"]:
+            fail(f"{tag}: srbd_evaluate launches are not two a solve")
+        if launches.get(f"srbd_trial_{inst}", 0) != res["trials"]:
+            fail(f"{tag}: K3 launches do not cover the trials")
+        summary[tag] = res["tick_p50_ms"]
+        add(launches)
+    for tag, inst, timed, prof in (
+            ("square_srbd_fleet", "square_feet", FAMILY_FLEET_TIMED, True),
+            ("square_srbd_rk2_fleet", "square_feet_rk2", FAMILY_SHORT_TICKS,
+             False)):
+        res, launches, guards = family_fleet_path(
+            inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
+        emit(tag, **res)
+        family_gates(tag, res, launches, inst,
+                     k1_names("srbd", inst, collapsed), guards)
+        if launches.get(f"srbd_evaluate_{inst}", 0) != 2 * res["solves"]:
+            fail(f"{tag}: srbd_evaluate launches are not two a solve")
+        if launches.get(f"srbd_trial_{inst}", 0) != res["trials"]:
+            fail(f"{tag}: K3 launches do not cover the trials")
+        summary[tag] = (res["tick_p50_ms"], res.get("device_idle_share"))
+        add(launches)
+    torch.cuda.empty_cache()
+    for tag, inst, ticks in (("square_lip_walk", "square_feet",
+                              FAMILY_SINGLE_TICKS),
+                             ("square_lip_rk4_walk", "square_feet_rk4",
+                              FAMILY_SHORT_TICKS)):
+        res, launches, guards = lip_family_single(
+            inst, dev, card, ticks, FAMILY_CHOLESKY_TICKS, 0.3)
+        res = dict(res, problem="lip")
+        emit(tag, **res)
+        lip_family_gates(tag, res, launches, inst,
+                         k1_names("lip", inst, tassa_both), guards)
+        if ticks == FAMILY_SINGLE_TICKS:
+            walk_gates(tag, res, lip=True)
+        summary[tag] = res["tick_p50_ms"]
+        add(launches)
+    for tag, inst, timed, prof in (
+            ("square_lip_fleet", "square_feet", FAMILY_FLEET_TIMED, True),
+            ("square_lip_rk2_fleet", "square_feet_rk2", FAMILY_SHORT_TICKS,
+             False)):
+        res, launches, guards = lip_family_fleet_path(
+            inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
+        emit(tag, **res)
+        lip_family_gates(tag, res, launches, inst,
+                         k1_names("lip", inst, collapsed), guards)
+        summary[tag] = (res["tick_p50_ms"], res.get("device_idle_share"))
+        add(launches)
+    torch.cuda.empty_cache()
+    mark("paths")
+
+    # ---- square_feet_card_vs_cpu: float64, both fleets at B=8, 3 ticks;
+    # the LIP with max_iters=1 (the exact step) and with max_iters=5 by
+    # F8's floor rule ----
+    def fleet_ticks(lip, device, n_ticks, max_iters=5):
+        make = lip_family_fleet if lip else family_fleet
+        loop, c, inp = make("square_feet", 8, f64, device,
+                            max_iters=max_iters)
+        res = []
+        for _ in range(n_ticks):
+            c, o = loop.tick_batch(c, inp)
+            res.append(o)
+        return c, res
+
+    fvc = dict(
+        tol=1e-9, floor_tol=LIP_FLOOR_TOL,
+        srbd_fleet_B8=dict(ticks=3, **family_versus(
+            fleet_ticks(False, dev, 3), fleet_ticks(False, "cpu", 3))),
+        lip_fleet_B8=dict(
+            ticks=3,
+            exact_step=lip_family_versus(fleet_ticks(True, dev, 3, 1),
+                                         fleet_ticks(True, "cpu", 3, 1),
+                                         floor=False),
+            options=lip_family_versus(fleet_ticks(True, dev, 3),
+                                      fleet_ticks(True, "cpu", 3),
+                                      floor=True)))
+    emit("square_feet_card_vs_cpu", **fvc)
+    if not (fvc["srbd_fleet_B8"]["ok"] and fvc["lip_fleet_B8"]["exact_step"]["ok"]
+            and fvc["lip_fleet_B8"]["options"]["ok"]):
+        fail("the phase-18 card path and CPU path disagree")
+    refusals = square_refusals()
+    emit("square_feet_refusals", **refusals)
+    mark("card_vs_cpu_and_refusals")
+
+    # ---- the kernel rows: launches from this phase's paths ----
+    trial_tol = "2*plain_rel_err_f32 + 1e-6"
+    specs = []        # (row name, module, error key, (problem, instance))
+    for inst in SQUARE_INSTANCES:
+        specs += [(f"srbd_linearize_{inst}", k4, "k4", ("srbd", inst)),
+                  (f"srbd_trial_{inst}", k3, "k3", ("srbd", inst)),
+                  (f"srbd_evaluate_{inst}", k3, "evaluate", ("srbd", inst)),
+                  (f"lip_linearize_{inst}", k10, "k10", ("lip", inst)),
+                  (f"lip_trial_{inst}", k11, "k11", ("lip", inst)),
+                  (f"lip_evaluate_{inst}", k11, "evaluate", ("lip", inst))]
+    new_shapes = {k1_shapes[key]: key for key in reversed(list(k1_shapes))}
+    for shape, form, solver in k1.KERNEL_INSTANCES:
+        if shape in new_shapes:
+            name = k1_row_name(shape, form, solver)
+            specs.append((name, k1, name, new_shapes[shape]))
+    rows_out = []
+    for name, mod, key, src in specs:
+        t, e = times[name], errs[src]
+        tassa_row = "_tassa" in name
+        Bt = 1 if tassa_row else B_MAIN
+        tt = t[Bt]
+        err = dict(e64=e[key + "_e64"], e32=e[key + "_e32"],
+                   p32=e[key + "_p32"], abs32=e[key + "_abs32"])
+        tol32 = (K1_F32_TOL if mod is k1
+                 else f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
+                 if key in ("k4", "k10") else trial_tol)
+        row = kernel_row(name, mod, path_launches.get(name, 0), tt["ms"],
+                         tt["plain_ms"],
+                         tt["bound_ms"], tt["bound_by"], err, tol32, B=Bt,
+                         instance=src[1], problem=src[0],
+                         ms_by_B={str(b): v["ms"] for b, v in t.items()},
+                         plain_ms_by_B={str(b): v["plain_ms"]
+                                        for b, v in t.items()},
+                         bound_ms_by_B={str(b): v["bound_ms"]
+                                        for b, v in t.items()},
+                         achieved_GB_per_s=tt["achieved_GB_per_s"],
+                         launches_of="phase 18's paths", **occ.get(name, {}))
+        row["tol_f64"] = (1e-9 if mod is k1 else LIP_F64_TOL if src[0] == "lip"
+                          else FAMILY_F64_TOL)
+        if mod is k1:
+            row["source"] = K1_SQUARE_SOURCE
+        if key == "evaluate":
+            row["replaces"] = mod.EVALUATE_REPLACES
+        elif tassa_row:
+            row["replaces"] = k1.TASSA_REPLACES
+        if key in ("k3", "k11"):
+            row["ms_4alpha"] = tt["ms_4alpha"]
+        if key == "k11":
+            row["chain_ms"] = tt["chain_ms"]
+        rows_out.append(row)
+    for nu, problem in ((48, "srbd"), (27, "lip")):
+        shapes = {k1_shapes[problem, i] for i in SQUARE_INSTANCES}
+        k2_launches = sum(path_launches.get(k1_row_name(*ki), 0)
+                          for ki in k1.KERNEL_INSTANCES
+                          if ki[0] in shapes and ki[2] == "schur")
+        r = k2[nu]
+        rows_out.append(dict(kernel_row(
+            f"spd_inverse_nu{nu}", k1, k2_launches, r["ms_f32"],
+            r["plain_ms_f32"], r["bound_ms"], r["bound_by"],
+            dict(e64=r["f64_rel_err"], e32=r["f32_rel_err"],
+                 p32=r["f32_plain_rel_err"], abs32=r["f32_max_abs_err"]),
+            K2_F32_TOL, launches_of="K1 with the block-Schur inverse at the "
+            f"square-feet {problem.upper()} shapes on phase 18's paths (K2 "
+            "runs inside K1)", stack=r["stack"], ms_f64=r["ms_f64"],
+            library_ms_f32=r["torch_linalg_inv_ms_f32"]),
+            replaces=k1.K2_REPLACES, source=K1_SQUARE_SOURCE,
+            library_ms=r["torch_linalg_inv_ms_f64"]))
+    missing = [r["name"] for r in rows_out if r["launches"] == 0]
+    if missing:
+        fail(f"phase 18: kernels not launched on its paths: {missing}")
+    emit("square_feet_section", seconds=time.perf_counter() - t_section,
+         card=card, rows=len(rows_out), path_launches=dict(path_launches),
+         tick_p50_ms=summary, seconds_at_end_of=parts)
+    return rows_out
+
+
 # ---------------- K12 against another tree's (--k12-versus) ----------------
 
 K12_VERSUS_B = (1, B_MAIN, B_LARGE)
@@ -9318,7 +9742,9 @@ def main():
     build.build_all(force=True)
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          libraries=[str(build.library_path(n).relative_to(HERE))
-                    for n in build.KERNEL_SOURCES])
+                    for n in build.KERNEL_SOURCES],
+         seconds_by_library={n: round(v, 1)
+                             for n, v in build.build_seconds.items()})
     for name in build.KERNEL_SOURCES:
         for line in build.log_path(name).read_text().splitlines():
             if "registers" in line or "bytes stack" in line:
@@ -10651,6 +11077,9 @@ def main():
 
     # ---------------- phase 17: the execution modes at every LIP shape ------
     family_rows += lip_modes_section(card, dev, sms)
+
+    # ---------------- phase 18: the square-feet biped (contact_model=4) ----
+    family_rows += square_feet_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

@@ -38,9 +38,11 @@ using rigid::warp_sum;
 
 // The contact topologies the LIP kernels are compiled for, one struct a
 // robot: build_lip_problem with the Kangaroo's line feet, the quadruped's
-// point feet (models/quadruped.py) and the point-feet biped
-// (models/kangaroo.py::point_feet), each under the Euler step; `Stepped`
-// gives the same topology under RK2 or RK4.
+// point feet (models/quadruped.py), the point-feet biped
+// (models/kangaroo.py::point_feet) and the square-feet biped (four contact
+// points a foot, contact_model=4: nx=54, more state rows than a warp has
+// lanes), each under the Euler step; `Stepped` gives the same topology
+// under RK2 or RK4.
 // kernels/lip_linearize.py::TOPOLOGIES holds the same numbers in the same
 // order (a test reads them from here); on CUDA tensors of any other sizes
 // the wrappers raise. The row counts are those of RiccatiRows.from_ocp
@@ -66,6 +68,13 @@ struct PointFeetShape {
   using Step = Euler;
 };
 
+struct SquareFeetShape {
+  static constexpr int nc = 8, cm = 4, n_legs = 2, nx = 54, nu = 27,
+                       n_rho = 76, nt = 10, n_rx = 30, n_ru = 27, n_gx = 52,
+                       n_gu = 30;
+  using Step = Euler;
+};
+
 // A topology under another step: the RK stages carry u into the position
 // rows through the velocities, so B has nx live rows (A − I keeps
 // Euler's).
@@ -79,8 +88,9 @@ struct Stepped : Topo {
 constexpr int kUnknownShape = -2;
 
 // fn(S{}) for the (topology, step) instance at `index` in the order of
-// kernels/lip_linearize.py::KERNEL_SHAPES — the three topologies under
-// Euler, then each under RK2 and RK4 — or kUnknownShape.
+// kernels/lip_linearize.py::KERNEL_SHAPES — the first three topologies
+// under Euler, then each under RK2 and RK4, then the square-feet biped
+// under the three steps — or kUnknownShape.
 template <class Fn>
 inline int with_shape(int index, Fn fn) {
   switch (index) {
@@ -93,6 +103,9 @@ inline int with_shape(int index, Fn fn) {
     case 6: return fn(Stepped<QuadShape, Rk4>{});
     case 7: return fn(Stepped<PointFeetShape, Rk2>{});
     case 8: return fn(Stepped<PointFeetShape, Rk4>{});
+    case 9: return fn(SquareFeetShape{});
+    case 10: return fn(Stepped<SquareFeetShape, Rk2>{});
+    case 11: return fn(Stepped<SquareFeetShape, Rk4>{});
     default: return kUnknownShape;
   }
 }
@@ -123,6 +136,8 @@ inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
   if (is_topology<QuadShape>(nc, cm, n_legs)) return with_step<QuadShape>(step, fn);
   if (is_topology<PointFeetShape>(nc, cm, n_legs))
     return with_step<PointFeetShape>(step, fn);
+  if (is_topology<SquareFeetShape>(nc, cm, n_legs))
+    return with_step<SquareFeetShape>(step, fn);
   return kUnknownShape;
 }
 
@@ -367,15 +382,21 @@ __device__ T stage_rho_row(int g, const T* x, const T* u, const T* p,
   return eq_row<S>(g - L::n_res, x, p, k);
 }
 
-// This lane's share of ‖ρ(x, u, p)‖² over the stage rows: rows lane and
-// lane + 32. Every lane may call it; the sum over the warp is the node's.
+// Rows a lane takes when a warp sums a node's stage rows: two up to 64
+// rows, three for the square-feet biped's 76.
+template <class S>
+constexpr int kRowsALane = (S::n_rho + 31) / 32 < 2 ? 2 : (S::n_rho + 31) / 32;
+
+// This lane's share of ‖ρ(x, u, p)‖² over the stage rows: rows lane,
+// lane + 32 (and lane + 64, past 64 rows). Every lane may call it; the sum
+// over the warp is the node's.
 template <class S, typename T>
 __device__ __forceinline__ T stage_sq_lane(int lane, const T* x, const T* u,
                                            const T* p, const Consts<T>& k) {
-  static_assert(S::n_rho <= 64, "two rows a lane");
+  static_assert(S::n_rho <= 32 * kRowsALane<S>, "every row on a lane");
   T acc = T(0);
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
+  for (int c = 0; c < kRowsALane<S>; ++c) {
     const int g = lane + 32 * c;
     if (g < S::n_rho) {
       const T v = stage_rho_row<S>(g, x, u, p, k);

@@ -30,7 +30,7 @@
 // the twin's scale × weight; a structural zero stays zero whatever the
 // scale), so the Jacobians agree with the twin bit for bit.
 //
-// Compiled for the nine (topology, step) instances of csrc/lip_common.cuh
+// Compiled for the twelve (topology, step) instances of csrc/lip_common.cuh
 // (the kernel is a template of the shape, `lip::with_topology` picks the
 // instance): the per-node output sizes, the records and every loop bound
 // are constants; the wrapper refuses other sizes. The row table stays a run-time input:
@@ -87,6 +87,14 @@ namespace {
 constexpr int kSlotThreads = 512;        // threads a block
 constexpr int kMinBlocks = 2;            // blocks an SM the registers are held to
 constexpr int kGroupUnits = 1;           // a fleet's group: kGroupUnits·kVec<T> nodes
+
+// The launch bound's blocks an SM at instance S: kMinBlocks, but one for
+// the square-feet biped (nx = 54), whose 2,808 Jxp values a node give a
+// thread six slots of Jxp scales and units: held to 64 registers they
+// spilled 48 bytes a thread in float32 on an H100. The grid still takes
+// up to kMinBlocks blocks an SM.
+template <class S>
+constexpr int kBoundBlocks = S::nx > 32 ? 1 : kMinBlocks;
 
 // member-nodes a 16-byte group: kVec<T> values of T are 16 bytes
 template <typename T>
@@ -242,14 +250,16 @@ __device__ __forceinline__ void store_template(T* __restrict__ dst,
 // G member-nodes a group (1, or whole 16-byte units: V = kVec<T> values a
 // unit, G a multiple of V).
 template <class S, typename T, int G>
-__global__ void __launch_bounds__(kSlotThreads, kMinBlocks)
+__global__ void __launch_bounds__(kSlotThreads, kBoundBlocks<S>)
 lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
                      lip::Params<T> P, const int* __restrict__ table,
                      const T* __restrict__ tmpl, int B, int ns, int n_stage,
                      int n_groups, lip::Consts<T> k, Out<T> o) {
   using Z = K10<S>;
   constexpr int V = G == 1 ? 1 : kVec<T>;
-  static_assert(G % V == 0 && G <= 16, "whole units, 4 bits a node");
+  static_assert(G % V == 0 && G <= 8, "whole units, 4 bits a node (3 in a "
+                "Jxp scale)");
+  static_assert(lip::Param<S>::cs + S::nc < 32, "5 bits a Jxp scale");
   constexpr int kUnitsJxp = Z::kJxp * G / V, kRecSlots = slots(G * Z::kRec);
   __shared__ __align__(16) T recs[2][G * Z::kRec];
   const int tid = threadIdx.x;
@@ -272,7 +282,8 @@ lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
   int g = blockIdx.x, buf = 0;
   if (g < n_stage) load_stage(g);
   // this thread's Jxp scales, once, while the first records load: each
-  // Jxp value's node in the group and scale (8 bits a value)
+  // Jxp value's scale (5 bits: the square-feet biped's reach 20) and node
+  // in the group (3 bits), 8 bits a value
   unsigned scale[slots(kUnitsJxp)];
   const int* gx = table + S::n_rx + S::n_ru;
 #pragma unroll
@@ -283,7 +294,7 @@ lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
     for (int j = 0; j < V; ++j) {
       const int v = (u < 0 ? 0 : u) * V + j, w = v / Z::kJxp;
       const int r = (v - w * Z::kJxp) / Z::nx;
-      bits |= static_cast<unsigned>(jxp_scale<S>(gx[r]) | (w << 4)) << (8 * j);
+      bits |= static_cast<unsigned>(jxp_scale<S>(gx[r]) | (w << 5)) << (8 * j);
     }
     scale[s] = bits;
   }
@@ -315,7 +326,7 @@ lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const unsigned bits = scale[s] >> (8 * j);
-        const int sid = bits & 15, w = (bits >> 4) & 15;
+        const int sid = bits & 31, w = (bits >> 5) & 7;
         const T f = rec[w * Z::kRec + Z::rP + (sid ? sid - 1 : 0)];
         x.v[j] = (sid == 0 || t.v[j] == T(0)) ? t.v[j] : t.v[j] * f;
       }
@@ -402,6 +413,14 @@ int sm_count() {
 template <typename T>
 constexpr int kGroupNodes = kVec<T> * kGroupUnits;
 
+// The member-nodes a fleet's group at instance S: kGroupNodes<T>, but one
+// for the square feet (nx = 54), whose 16-byte groups spilled at the 128
+// registers 512 threads a block leave (40 bytes a thread in float32's
+// groups of four, 96 in float64's of two under RK2); one node a group
+// takes 94 registers in float32, no spill.
+template <class S, typename T>
+constexpr int kVecGroup = S::nx > 32 ? 1 : kGroupNodes<T>;
+
 template <typename T>
 int group_nodes(long long stage_nodes, int sms) {
   return stage_nodes >= static_cast<long long>(kGroupNodes<T>) * sms
@@ -441,8 +460,8 @@ int launch(const void* X, const void* U, const void* const* params,
   if (group_nodes<T>(static_cast<long long>(B) * ns, sm_count()) == 1)
     return launch_groups<S, T, 1>(X, U, params, table, tmpl, B, ns, scalars,
                                   o, stream);
-  return launch_groups<S, T, kGroupNodes<T>>(X, U, params, table, tmpl, B,
-                                             ns, scalars, o, stream);
+  return launch_groups<S, T, kVecGroup<S, T>>(X, U, params, table, tmpl, B,
+                                              ns, scalars, o, stream);
 }
 
 }  // namespace
@@ -493,9 +512,9 @@ extern "C" int lip_linearize_occupancy(int shape, int f64, int vec, int* out) {
   return lip::with_shape(shape, [&](auto sh) {
     using S = decltype(sh);
     if (f64)
-      return vec ? occupancy<S, double, kGroupNodes<double>>(out)
+      return vec ? occupancy<S, double, kVecGroup<S, double>>(out)
                  : occupancy<S, double, 1>(out);
-    return vec ? occupancy<S, float, kGroupNodes<float>>(out)
+    return vec ? occupancy<S, float, kVecGroup<S, float>>(out)
                : occupancy<S, float, 1>(out);
   });
 }

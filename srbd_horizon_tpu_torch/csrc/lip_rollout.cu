@@ -33,10 +33,19 @@
 // solve's pin, msddp.py:1221; x0's rows may lie apart). Plain twin:
 // `kernels/lip_rollout.py::lip_evaluate_plain`.
 //
-// Both are compiled for the nine (topology, step) instances of
+// Both are compiled for the twelve (topology, step) instances of
 // csrc/lip_common.cuh (`lip::with_topology` picks one), so every loop over
 // rows and columns has a constant trip count; the wrappers refuse other
 // sizes.
+//
+// The square-feet biped (`lip::SquareFeetShape`: nx=54, nu=27) has more
+// state rows than a warp has lanes, so its chain takes a pair a lane
+// (`kPairs`, `chain_node_pairs`): lane i < nx/2 holds pair i — x̂ᵢ, x̂ᵢ₊ₙₓ/₂
+// (a position and its velocity) and uᵢ, the input that drives them (nu =
+// nx/2) — and forms row i of K(x̂ − X) over all nx columns, each column's
+// x̂ − X shuffled from its pair's lane; the step of a pair reads only that
+// pair, so the partner shuffles of the other shapes drop out and the
+// stages run in the lane's registers, as lip::step_pair forms them.
 //
 // What bounds K11 on an H100: a member's gains, plan, defects and 12
 // parameter values a node, ~550 values a node (2.2 KB in float32), are
@@ -110,19 +119,31 @@ constexpr int kRing = 4;             // ring slots of K's pieces
 constexpr int kMinBlocks = 5;        // blocks an SM the registers are held to:
                                      // float32 with four α fits five by its bytes
 
-// The launch bound of instance S's trial: kMinBlocks, but four for the RK
-// chains, whose stage values spilled at five (72 registers in float64).
+// The chain's lane map at instance S: a state row a lane (nx ≤ 32), or
+// a state pair a lane (the square-feet biped's nx = 54).
 template <class S>
-constexpr int kTrialMinBlocks = S::Step::stages > 1 ? 4 : kMinBlocks;
+constexpr bool kPairs = (S::nx > 32);
+
+// The launch bound of instance S's trial: kMinBlocks, but four for the RK
+// chains, whose stage values spilled at five (72 registers in float64),
+// and two for a pair a lane, whose block (~91 KB in float32 at ns=20, four
+// α) two fill an SM.
+template <class S>
+constexpr int kTrialMinBlocks = kPairs<S> ? 2
+                                : S::Step::stages > 1 ? 4 : kMinBlocks;
 
 // The sizes of instance S: a node's packed parameter row, nx, nu, and
-// K's columns a lane (the step's partner lane is j ± kHalf).
+// K's columns a lane (the step's partner lane is j ± kHalf; with kPairs,
+// pair i's rows i and i + kHalf on lane i).
 template <class S>
 struct Sizes {
   using L = lip::Layout<S>;
   static constexpr int kPw = L::pw, nx = S::nx, nu = S::nu, kHalf = L::half;
-  static_assert(nx <= 32 && 2 * nu <= 32 && L::i_cdot == L::i_rdot + 3,
-                "a state row a lane, two lanes a K row, row j's ẋ on lane j ± nx/2");
+  static_assert(L::i_cdot == L::i_rdot + 3 &&
+                    (kPairs<S> ? kHalf <= 32 && nu == kHalf
+                               : nx <= 32 && 2 * nu <= 32),
+                "a state row a lane and two lanes a K row, row j's ẋ on lane "
+                "j ± nx/2; or a state pair and its input a lane");
   static_assert(kPieceNodes * nu * nx * 4 % 16 == 0,
                 "a piece of K keeps its member's offset within 16 bytes");
 };
@@ -334,6 +355,78 @@ __device__ __forceinline__ void chain_node(const T* Kr, T Xj, T dj, T Ui,
   if (lane < nx) xh = xn;
 }
 
+// One chain warp's node with a state pair a lane (kPairs): lane i < nx/2
+// holds x̂ᵢ (xp) and x̂ᵢ₊ₕ (xv), h = nx/2, and reads K's row i (Kr), Xᵢ,
+// Xᵢ₊ₕ, dᵢ, dᵢ₊ₕ, Uᵢ and kᵢ; uᵢ = (Uᵢ + α kᵢ) + Kᵢ(x̂ − X), the columns'
+// x̂ − X shuffled from their pairs' lanes (positions and velocities in two
+// partial sums); x̂ₙ₊₁ = step(x̂, u) − (1 − α) dₙ of the pair in registers
+// (its velocity's rate r̈ = η²(r − z) − g e_z or c̈ = u, its position's the
+// velocity; under RK2 and RK4 the stage points as lip::step_pair forms
+// them), and x̂ₙ, uₙ to Xn / Un and the record last. Lanes past nx/2 hold
+// lane nx/2 − 1's operands and store nothing.
+template <class S, typename T>
+__device__ __forceinline__ void chain_node_pairs(
+    const T* Kr, T Xp, T Xv, T dp, T dv, T Ui, T ki, T& xp, T& xv, T alpha,
+    T om, const lip::Consts<T>& k, T* __restrict__ Xo, T* __restrict__ Uo,
+    T* rec, int lane) {
+  using St = typename S::Step;
+  constexpr int nx = S::nx, h = Sizes<S>::kHalf;
+  constexpr unsigned kAll = 0xffffffffu;
+  const bool live = lane < h;
+  const T dxp = live ? xp - Xp : T(0), dxv = live ? xv - Xv : T(0);
+  T s0 = T(0), s1 = T(0);
+#pragma unroll
+  for (int c = 0; c < h; ++c) {
+    s0 += Kr[c] * __shfl_sync(kAll, dxp, c);
+    s1 += Kr[h + c] * __shfl_sync(kAll, dxv, c);
+  }
+  const T u = (Ui + alpha * ki) + (s0 + s1);
+  const int i = live ? lane : h - 1;
+  const auto accel = [&](T p) {                  // lip::pair_accel of pair i
+    if (i < 3) {
+      const T v = k.eta2 * (p - u);
+      return i == 2 ? v - T(9.81) : v;
+    }
+    return u;
+  };
+  T kp = xv, kv = accel(xp);
+  T np, nv;
+  if constexpr (St::stages == 1) {
+    np = (xp + k.dt * kp) - om * dp;
+    nv = (xv + k.dt * kv) - om * dv;
+  } else {
+    T sp = kp, sv = kv;                          // RK4's sum of the k's
+#pragma unroll
+    for (int s = 1; s < St::stages; ++s) {
+      const T cdt = lip::full_stage<St>(s) ? k.dt : T(0.5) * k.dt;
+      const T ps = xp + cdt * kp, vs = xv + cdt * kv;
+      kp = vs;
+      kv = accel(ps);
+      if constexpr (St::stages == 4) {
+        sp = s == 3 ? sp + kp : sp + T(2) * kp;
+        sv = s == 3 ? sv + kv : sv + T(2) * kv;
+      }
+    }
+    if constexpr (St::stages == 4) {
+      np = (xp + (k.dt / T(6)) * sp) - om * dp;
+      nv = (xv + (k.dt / T(6)) * sv) - om * dv;
+    } else {
+      np = (xp + k.dt * kp) - om * dp;
+      nv = (xv + k.dt * kv) - om * dv;
+    }
+  }
+  if (live) {
+    Xo[lane] = xp;
+    Xo[lane + h] = xv;
+    rec[lane] = xp;
+    rec[lane + h] = xv;
+    Uo[lane] = u;
+    rec[nx + lane] = u;
+    xp = np;
+    xv = nv;
+  }
+}
+
 // The packed parameter row entry e of node `row` from the member's staged
 // parameter tensors (mt, rdot_ref, c_ref, cdot_switch).
 template <class S, typename T>
@@ -451,6 +544,48 @@ lip_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     for (int i = lane; i < ns1 * kPw; i += 32) {
       const int row = i / kPw;
       prm[i] = param_entry<S>(lmt, lrd, lcr, lcs, row, i - row * kPw);
+    }
+  } else if (warp < na && kPairs<S>) {  // α a0 + warp's chain, a pair a lane
+    const size_t ma = static_cast<size_t>(a0 + warp) * B + b;
+    const int i = lane < kHalf ? lane : kHalf - 1;
+    const T* Kl = landed(ring, gK) + i * nx;
+    const T* Xl = landed(sX, gX) + i;
+    const T* dl = landed(sd, gd) + i;
+    const T* Ul = landed(sU, gU) + i;
+    const T* kl = landed(sk, gk) + i;
+    T* Xo = Xn + ma * ns1 * nx;
+    T* Uo = Un + ma * ns * nu;
+    T* rec = recs + static_cast<size_t>(warp) * ns1 * (nx + nu);
+    const T alpha = alphas[a0 + warp];
+    const T om = T(1) - alpha;
+    T xp = x0[b * nx + i], xv = x0[b * nx + i + kHalf];
+    mbarrier_wait(runs, 0);                        // X, d, U, k are in
+    int s = 0, m = 0, use = 0;                     // slot, node in piece, slot's use
+    for (int n = 0; n < ns; ++n) {
+      if (m == 0) mbarrier_wait(full + s, use & 1);
+      chain_node_pairs<S>(Kl + s * slot + m * (nu * nx), Xl[n * nx],
+                          Xl[n * nx + kHalf], dl[n * nx], dl[n * nx + kHalf],
+                          Ul[n * nu], kl[n * nu], xp, xv, alpha, om, k, Xo,
+                          Uo, rec, lane);
+      Xo += nx;
+      Uo += nu;
+      rec += nx + nu;
+      if (++m == kPieceNodes || n == ns - 1) {
+        // piece read: every lane's reads of the slot fed the node's
+        // shuffles, which lane 0 has passed
+        if (lane == 0) mbarrier_arrive(empty + s);
+        m = 0;
+        if (++s == kRing) {
+          s = 0;
+          ++use;
+        }
+      }
+    }
+    if (lane < kHalf) {                            // x̂_N
+      Xo[lane] = xp;
+      Xo[lane + kHalf] = xv;
+      rec[lane] = xp;
+      rec[lane + kHalf] = xv;
     }
   } else if (warp < na) {  // α a0 + warp's chain
     const size_t ma = static_cast<size_t>(a0 + warp) * B + b;
@@ -773,6 +908,17 @@ int sm_count() {
   return count;
 }
 
+// The members a lip_evaluate block takes at B members on `sms` SMs and ns
+// stage nodes, tensors of E bytes: eval_members', halved while the block
+// would not fit kMaxSmem (only the square feet's float64 block at ns past
+// 24 holds fewer than eight; kernels/lip_rollout.py::eval_members).
+template <class S, int E>
+int block_members(int B, int sms, int ns) {
+  int m = eval_members(B, sms);
+  while (m > 1 && eval_regions<S, E>(ns, m).total > kMaxSmem) m /= 2;
+  return m;
+}
+
 template <class S, typename T>
 int launch_evaluate(const void* X, const void* U, const void* x0,
                     int x0_stride, const void* const* params, int B, int ns,
@@ -780,7 +926,7 @@ int launch_evaluate(const void* X, const void* U, const void* x0,
                     void* stream) {
   if (ns + 1 > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const int mb = eval_members(B, sm_count());
+  const int mb = block_members<S, sizeof(T)>(B, sm_count(), ns);
   const int warps = mb > kEvalWarps ? mb : kEvalWarps;
   const size_t bytes = eval_regions<S, sizeof(T)>(ns, mb).total;
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);

@@ -93,10 +93,12 @@
 //   ΔV₁ += kᵀQu,  ΔV₂ += (½kᵀQuu)k,
 // summed left to right as `riccati_backward_plain` (form="tassa") sums it.
 // Two more compile-time parameters pick the value form (Form) and the gain
-// solve (Solve); forty instantiations are built (`with_instance`
-// below): the collapsed form with the inverse at every shape, the Tassa
-// form with the inverse at every shape but the two AL ones (DDPOptions'
-// default), and the Tassa form with Cholesky at every shape (the AL
+// solve (Solve); forty instantiations are built here (`with_instance`
+// below) and twelve more, the square-feet biped's, in
+// csrc/riccati_backward_square_feet.cu: the collapsed form with the
+// inverse at every shape, the Tassa form with the inverse at every shape
+// but the two AL ones (DDPOptions' default), and the Tassa form with
+// Cholesky at every shape (the AL
 // solver's inner solve at IsrbdAlShape and QuadAlShape; `MSDDP.solve`'s
 // quu_solver="cholesky" elsewhere, as the JAX package's `_backward` takes
 // it at any shape).
@@ -125,6 +127,18 @@
 //    100,868 B (isrbd): 0 new bytes.
 //  * At B=1 one block runs the whole sweep: its time is one member's
 //    latency, not a throughput.
+//
+// The square-feet biped (contact_model=4: SquareFeetShape, SquareFeetRkShape,
+// LipSquareFeetShape, LipSquareFeetRkShape in riccati_common.cuh, all three
+// forms each, instances 40-51) is compiled by
+// csrc/riccati_backward_square_feet.cu, which defines K1_SQUARE_FEET and
+// includes this file, into a library of its own, so that nvcc builds the
+// two in parallel. Its blocks are large: nx=61, nu=48 take 159,336 B
+// (collapsed, float32 tensors) to 226,244 B (RK, float64) — one block an
+// SM, so B=512 takes four waves of the 132 SMs — and the LIP's nx=54,
+// nu=27 96,964 to 133,144 B. K2 splits nu=48 at 24 (24, 12, 6, 3) and
+// nu=27 at 13 / 14; the Cholesky factor takes rows lane and lane + 32 past
+// 32 inputs (cholesky_warp).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
@@ -687,6 +701,13 @@ int launch_inverse(const void* A, void* out, int M, void* stream) {
 
 template <typename T>
 int inverse(const void* A, void* out, int M, int n, void* stream) {
+#ifdef K1_SQUARE_FEET
+  if (n == SquareFeetShape::nu)
+    return launch_inverse<SquareFeetShape::nu, T>(A, out, M, stream);
+  if (n == LipSquareFeetShape::nu)
+    return launch_inverse<LipSquareFeetShape::nu, T>(A, out, M, stream);
+  return kUnknownShape;
+#else
   if (n == SrbdShape::nu)
     return launch_inverse<SrbdShape::nu, T>(A, out, M, stream);
   if (n == IsrbdAlShape::nu)
@@ -698,6 +719,7 @@ int inverse(const void* A, void* out, int M, int n, void* stream) {
   if (n == LipPointFeetShape::nu)
     return launch_inverse<LipPointFeetShape::nu, T>(A, out, M, stream);
   return kUnknownShape;
+#endif
 }
 
 template <class S, typename T, Form F, Solve G>
@@ -721,6 +743,7 @@ struct Inst {
 template <class Fn>
 int with_instance(int inst, Fn fn) {
   switch (inst) {
+#ifndef K1_SQUARE_FEET
     case 0: return fn(Inst<SrbdShape, Form::kCollapsed, Solve::kSchur>{});
     case 1: return fn(Inst<IsrbdAlShape, Form::kCollapsed, Solve::kSchur>{});
     case 2: return fn(Inst<SrbdShape, Form::kTassa, Solve::kSchur>{});
@@ -761,6 +784,21 @@ int with_instance(int inst, Fn fn) {
     case 37: return fn(Inst<LipPointFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
     case 38: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kSchur>{});
     case 39: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kCholesky>{});
+#else
+    // csrc/riccati_backward_square_feet.cu: the square-feet biped's shapes
+    case 40: return fn(Inst<SquareFeetShape, Form::kCollapsed, Solve::kSchur>{});
+    case 41: return fn(Inst<SquareFeetShape, Form::kTassa, Solve::kSchur>{});
+    case 42: return fn(Inst<SquareFeetShape, Form::kTassa, Solve::kCholesky>{});
+    case 43: return fn(Inst<SquareFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 44: return fn(Inst<SquareFeetRkShape, Form::kTassa, Solve::kSchur>{});
+    case 45: return fn(Inst<SquareFeetRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 46: return fn(Inst<LipSquareFeetShape, Form::kCollapsed, Solve::kSchur>{});
+    case 47: return fn(Inst<LipSquareFeetShape, Form::kTassa, Solve::kSchur>{});
+    case 48: return fn(Inst<LipSquareFeetShape, Form::kTassa, Solve::kCholesky>{});
+    case 49: return fn(Inst<LipSquareFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 50: return fn(Inst<LipSquareFeetRkShape, Form::kTassa, Solve::kSchur>{});
+    case 51: return fn(Inst<LipSquareFeetRkShape, Form::kTassa, Solve::kCholesky>{});
+#endif
     default: return kUnknownShape;
   }
 }
@@ -791,8 +829,9 @@ int with_instance(int inst, Fn fn) {
 RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
-// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 9, 12, 15, 24 or 30: the
-// device routine K1 runs, for timing and checking it by itself.
+// Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 9, 12, 15, 24 or
+// 30 (27 or 48 in the square-feet library): the device routine K1 runs,
+// for timing and checking it by itself.
 extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
                                void* stream) {
   return inverse<float>(A, out, M, n, stream);

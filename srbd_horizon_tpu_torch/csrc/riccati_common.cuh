@@ -113,6 +113,34 @@ struct LipPointFeetRkShape {  // the point-feet biped under RK
   static constexpr int min_blocks = 4;
 };
 
+// The square-feet biped (contact_model=4, nc=8): build_srbd_problem
+// (nx=61, nu=48) and build_lip_problem (nx=54, nu=27), each under Euler
+// and under RK (which share a shape). A block takes 96,964-226,244 B of
+// shared memory (riccati_backward.cu's Layout): one or two an SM.
+struct SquareFeetShape {
+  static constexpr int nx = 61, nu = 48, nt = 15, n_rx = 34, n_ru = 30,
+                       n_gx = 54, n_gu = 78, n_b = 3, n_uc = 48;
+  static constexpr int min_blocks = 1;
+};
+
+struct SquareFeetRkShape {
+  static constexpr int nx = 61, nu = 48, nt = 15, n_rx = 34, n_ru = 61,
+                       n_gx = 54, n_gu = 78, n_b = 3, n_uc = 48;
+  static constexpr int min_blocks = 1;
+};
+
+struct LipSquareFeetShape {
+  static constexpr int nx = 54, nu = 27, nt = 10, n_rx = 30, n_ru = 27,
+                       n_gx = 52, n_gu = 30, n_b = 6, n_uc = 27;
+  static constexpr int min_blocks = 1;
+};
+
+struct LipSquareFeetRkShape {
+  static constexpr int nx = 54, nu = 27, nt = 10, n_rx = 30, n_ru = 54,
+                       n_gx = 52, n_gu = 30, n_b = 6, n_uc = 27;
+  static constexpr int min_blocks = 1;
+};
+
 // Float64 workspace of the block-Schur inverse of an n×n matrix.
 __host__ __device__ constexpr int inv_work(int n) {
   return n <= 3 ? 0
@@ -360,25 +388,40 @@ __device__ __forceinline__ void spd_inverse_warp(const double* A, double* out,
 }
 
 // L (lower, row-major, N×N) with A = L Lᵀ for SPD A (leading dim N) on the
-// calling warp, N ≤ 32: column j at a time, lane i ≥ j forms
-// s = A[i][j] − Σ_{k<j} L[i][k] L[j][k] in order of k; lane j's s is the
-// pivot, L[j][j] = √s, and L[i][j] = s / L[j][j] below it. A pivot that is
-// not positive, or NaN, makes the whole lower triangle NaN.
+// calling warp, N ≤ 64: column j at a time, the lane of row i ≥ j (rows
+// lane and lane + 32) forms s = A[i][j] − Σ_{k<j} L[i][k] L[j][k] in order
+// of k; row j's s is the pivot, L[j][j] = √s, and L[i][j] = s / L[j][j]
+// below it. A pivot that is not positive, or NaN, makes the whole lower
+// triangle NaN.
 template <int N>
 __device__ __forceinline__ void cholesky_warp(const double* A, double* L) {
-  static_assert(N <= 32, "one lane a row");
+  static_assert(N <= 64, "up to two rows a lane");
+  constexpr int R = (N + 31) / 32;                 // rows a lane
   const int lane = threadIdx.x & 31;
   bool bad = false;
   for (int j = 0; j < N; ++j) {
-    double s = 0.0;
-    if (lane >= j && lane < N) {
-      s = A[lane * N + j];
-      for (int k = 0; k < j; ++k) s -= L[lane * N + k] * L[j * N + k];
+    double s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      s[r] = 0.0;
+      if (i >= j && i < N) {
+        s[r] = A[i * N + j];
+        for (int k = 0; k < j; ++k) s[r] -= L[i * N + k] * L[j * N + k];
+      }
     }
-    const double pivot = __shfl_sync(0xffffffffu, s, j);
+    double pivot = __shfl_sync(0xffffffffu, s[0], j & 31);
+    if constexpr (R > 1) {
+      const double p1 = __shfl_sync(0xffffffffu, s[1], j & 31);
+      pivot = j < 32 ? pivot : p1;
+    }
     bad |= !(pivot > 0.0);
     const double dj = sqrt(pivot);
-    if (lane < N) L[lane * N + j] = lane < j ? 0.0 : lane == j ? dj : s / dj;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i < N) L[i * N + j] = i < j ? 0.0 : i == j ? dj : s[r] / dj;
+    }
     __syncwarp();
   }
   if (bad) {

@@ -31,9 +31,11 @@ using namespace rigid;
 
 // The contact topologies the SRBD kernels are compiled for, one struct a
 // robot: build_srbd_problem with the Kangaroo's line feet, the quadruped's
-// point feet (models/quadruped.py) and the point-feet biped
-// (models/kangaroo.py::point_feet), each under the Euler step; `Stepped`
-// gives the same topology under RK2 or RK4.
+// point feet (models/quadruped.py), the point-feet biped
+// (models/kangaroo.py::point_feet) and the square-feet biped (four contact
+// points a foot, contact_model=4: nc=8, nu=48, more inputs than a warp has
+// lanes), each under the Euler step; `Stepped` gives the same topology
+// under RK2 or RK4.
 // kernels/linearize.py::TOPOLOGIES holds the same numbers in the same order
 // (a test reads them from here); on CUDA tensors of any other sizes the
 // wrappers raise. The row counts are those of RiccatiRows.from_ocp (the
@@ -59,6 +61,13 @@ struct PointFeetShape {
   using Step = Euler;
 };
 
+struct SquareFeetShape {
+  static constexpr int nc = 8, cm = 4, n_legs = 2, nx = 61, nu = 48,
+                       n_rho = 129, nt = 15, n_rx = 34, n_ru = 30, n_gx = 54,
+                       n_gu = 78;
+  using Step = Euler;
+};
+
 // A topology under another step: the RK stages carry u into every state
 // row through ∂ẋ/∂x, so B has nx live rows (A − I keeps Euler's).
 template <class Topo, class St>
@@ -71,8 +80,9 @@ struct Stepped : Topo {
 constexpr int kUnknownShape = -2;
 
 // fn(S{}) for the (topology, step) instance at `index` in the order of
-// kernels/linearize.py::KERNEL_SHAPES — the three topologies under Euler,
-// then each under RK2 and RK4 — or kUnknownShape.
+// kernels/linearize.py::KERNEL_SHAPES — the first three topologies under
+// Euler, then each under RK2 and RK4, then the square-feet biped under the
+// three steps — or kUnknownShape.
 template <class Fn>
 inline int with_shape(int index, Fn fn) {
   switch (index) {
@@ -85,6 +95,9 @@ inline int with_shape(int index, Fn fn) {
     case 6: return fn(Stepped<QuadShape, Rk4>{});
     case 7: return fn(Stepped<PointFeetShape, Rk2>{});
     case 8: return fn(Stepped<PointFeetShape, Rk4>{});
+    case 9: return fn(SquareFeetShape{});
+    case 10: return fn(Stepped<SquareFeetShape, Rk2>{});
+    case 11: return fn(Stepped<SquareFeetShape, Rk4>{});
     default: return kUnknownShape;
   }
 }
@@ -115,6 +128,8 @@ inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
   if (is_topology<QuadShape>(nc, cm, n_legs)) return with_step<QuadShape>(step, fn);
   if (is_topology<PointFeetShape>(nc, cm, n_legs))
     return with_step<PointFeetShape>(step, fn);
+  if (is_topology<SquareFeetShape>(nc, cm, n_legs))
+    return with_step<SquareFeetShape>(step, fn);
   return kUnknownShape;
 }
 
@@ -478,48 +493,82 @@ __device__ T eq_row(int q, const T* x, const T* p, const Consts<T>& k) {
   return k.wc * h;
 }
 
-// This lane's share of ‖ρ(x, u, p)‖² over the stage rows, in two passes
-// that keep the lanes of a warp on few paths. Pass one: lane l < nu takes
-// the input rows of column l (c̈ᵢ, or fᵢ and its switch row), the next
-// lanes the first equality rows (up to 32 − nu of them; on the point-feet
-// biped all six, and lanes 18..31 take none). Pass two: lanes 0..14 the
-// tracking rows, lanes 15..20 the r̈ and ω̇ rows (from `r`), the next lanes
-// the remaining equality rows. Every lane must call it; the sum over the
-// warp is the node's cost.
+// The squares of the input rows of column l of u (c̈ᵢ, or fᵢ and its
+// switch row).
+template <class S, typename T>
+__device__ __forceinline__ T input_sq(int l, const T* u, const T* p,
+                                      const Consts<T>& k) {
+  const bool accel = l % 6 < 3;
+  const T ul = u[l];
+  const T v1 = (accel ? k.w_qddot : k.w_minf) * ul;
+  const T v2 = accel ? T(0)
+                     : (k.w_fswitch * (T(1) - p[kP_cref + S::nc + l / 6])) * ul;
+  return v1 * v1 + v2 * v2;
+}
+
+// This lane's share of ‖ρ(x, u, p)‖² over the stage rows, in passes that
+// keep the lanes of a warp on few paths. Up to 32 inputs (nu ≤ 32), two
+// passes: lane l < nu takes the input rows of column l, the next lanes
+// the first equality rows (up to 32 − nu of them; on the point-feet biped
+// all six, and lanes 18..31 take none); then lanes 0..14 the tracking
+// rows, lanes 15..20 the r̈ and ω̇ rows (from `r`), the next lanes the
+// remaining equality rows. Past 32 inputs (the square-feet biped's 48),
+// three: lane l takes the input rows of columns l and l + 32 (< nu); then
+// lanes 0..14 the tracking rows, 15..20 r̈ and ω̇, 21..31 the first 11
+// equality rows; then lane l the equality row 11 + l, while any are left.
+// Every lane must call it; the sum over the warp is the node's cost.
 template <class S, typename T>
 __device__ __forceinline__ T stage_sq_lane(int lane, const T* x, const T* u,
                                            const Rigid<T>& r, const T* p,
                                            const Consts<T>& k) {
   using L = Layout<S>;
   constexpr int n_eq = S::n_rho - L::n_res;
-  constexpr int eq1 = 32 - S::nu < n_eq ? 32 - S::nu : n_eq;   // pass one
-  static_assert(eq1 >= 0 && n_eq - eq1 <= 32 - 21,
-                "the two row passes cover the stage rows");
-  T acc;
-  if (lane < S::nu) {
-    const bool accel = lane % 6 < 3;
-    const T ul = u[lane];
-    const T v1 = (accel ? k.w_qddot : k.w_minf) * ul;
-    const T v2 = accel ? T(0)
-                       : (k.w_fswitch * (T(1) - p[kP_cref + S::nc + lane / 6])) * ul;
-    acc = v1 * v1 + v2 * v2;
-  } else if (S::nu + eq1 == 32 || lane < S::nu + eq1) {
-    const T v = eq_row<S>(lane - S::nu, x, p, k);
-    acc = v * v;
+  if constexpr (S::nu > 32) {
+    constexpr int eq2 = n_eq < 32 - 21 ? n_eq : 32 - 21;    // pass two
+    static_assert(S::nu <= 64 && n_eq - eq2 <= 32,
+                  "the three row passes cover the stage rows");
+    T acc = input_sq<S>(lane, u, p, k);
+    if (lane + 32 < S::nu) acc += input_sq<S>(lane + 32, u, p, k);
+    if (lane < 15) {
+      const T v = tracking_row<S>(lane, x, p, p[kP_mt], k);
+      acc += v * v;
+    } else if (lane < 21) {
+      const T v = k.w_qddot * accel_entry(r, lane - 15);
+      acc += v * v;
+    } else if (lane < 21 + eq2) {
+      const T v = eq_row<S>(lane - 21, x, p, k);
+      acc += v * v;
+    }
+    if (lane < n_eq - eq2) {
+      const T v = eq_row<S>(eq2 + lane, x, p, k);
+      acc += v * v;
+    }
+    return acc;
   } else {
-    acc = T(0);
+    constexpr int eq1 = 32 - S::nu < n_eq ? 32 - S::nu : n_eq;   // pass one
+    static_assert(eq1 >= 0 && n_eq - eq1 <= 32 - 21,
+                  "the two row passes cover the stage rows");
+    T acc;
+    if (lane < S::nu) {
+      acc = input_sq<S>(lane, u, p, k);
+    } else if (S::nu + eq1 == 32 || lane < S::nu + eq1) {
+      const T v = eq_row<S>(lane - S::nu, x, p, k);
+      acc = v * v;
+    } else {
+      acc = T(0);
+    }
+    if (lane < 15) {
+      const T v = tracking_row<S>(lane, x, p, p[kP_mt], k);
+      acc += v * v;
+    } else if (lane < 21) {
+      const T v = k.w_qddot * accel_entry(r, lane - 15);
+      acc += v * v;
+    } else if (lane < 21 + n_eq - eq1) {
+      const T v = eq_row<S>(eq1 + lane - 21, x, p, k);
+      acc += v * v;
+    }
+    return acc;
   }
-  if (lane < 15) {
-    const T v = tracking_row<S>(lane, x, p, p[kP_mt], k);
-    acc += v * v;
-  } else if (lane < 21) {
-    const T v = k.w_qddot * accel_entry(r, lane - 15);
-    acc += v * v;
-  } else if (lane < 21 + n_eq - eq1) {
-    const T v = eq_row<S>(eq1 + lane - 21, x, p, k);
-    acc += v * v;
-  }
-  return acc;
 }
 
 // Row g of the stacked stage residual ρ at (x, u, p); xd holds ẋ(x, u)
@@ -570,7 +619,8 @@ constexpr bool packed_row_ok() {
          param_off<S>(3) == kP_rdot && param_off<S>(5) == kP_cref;
 }
 static_assert(packed_row_ok<KangarooShape>() && packed_row_ok<QuadShape>() &&
-                  packed_row_ok<PointFeetShape>(),
+                  packed_row_ok<PointFeetShape>() &&
+                  packed_row_ok<SquareFeetShape>(),
               "packed parameter row");
 
 // A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).

@@ -26,12 +26,14 @@
 // where Rⱼ = ∂R/∂oⱼ of the homogeneous (not normalized) quat_to_rot, which
 // is linear in o — so the derivative holds for non-unit quaternions too.
 //
-// Compiled for nine instances (csrc/srbd_common.cuh): the Kangaroo's line
-// feet (`srbd::KangarooShape`), the quadruped's point feet
+// Compiled for twelve instances (csrc/srbd_common.cuh): the Kangaroo's
+// line feet (`srbd::KangarooShape`), the quadruped's point feet
 // (`srbd::QuadShape`, no relative-velocity rows: 69 stage rows, 30 of them
-// in Jxp) and the point-feet biped (`srbd::PointFeetShape`: nx=25, nu=12,
-// 45 stage rows), each under the Euler step and under RK2 and RK4
-// (`srbd::Stepped`). In each, the per-node output sizes, the smem layout
+// in Jxp), the point-feet biped (`srbd::PointFeetShape`: nx=25, nu=12,
+// 45 stage rows) and the square-feet biped (`srbd::SquareFeetShape`:
+// nx=61, nu=48, 129 stage rows; its inputs take two rounds of a warp's
+// lanes wherever a lane takes an input), each under the Euler step and
+// under RK2 and RK4 (`srbd::Stepped`). In each, the per-node output sizes, the smem layout
 // and every loop bound are constants; the contact topology and the step
 // pick the instantiation at launch, and the wrapper refuses other sizes.
 // The row table stays a run-time input.
@@ -82,7 +84,10 @@
 // block at a time (Sx, Bs, Jxp, Jup in turn through one 20 KB buffer; the
 // quadruped's Jxp 17.8 KB), so a block holds ~28 KB of shared memory in
 // float32 (~26 KB, the quadruped) and seven blocks share
-// an SM: while some compute their nodes' scalars, others stream. A staged
+// an SM: while some compute their nodes' scalars, others stream (the
+// square-feet biped's buffer holds 60 KB, four nodes' Jup of 78 × 48, and
+// a block 74-92 KB in float32 from Euler to RK4: two or three blocks an
+// SM; 145-181 KB in float64, one). A staged
 // block is filled with zeros (16-byte stores), then each warp writes its
 // node's nonzeros by the row kinds the block resolved once from the row
 // table (one entry, two entries, quaternion row, quaternion-error row,
@@ -720,7 +725,8 @@ srbd_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
       x[j] = X[row * nx + j];
       sw[C::wXn + j] = X[(row + 1) * nx + j];
     }
-    if (lane < nu) sw[C::wU + lane] = U[(b * ns + n) * nu + lane];
+    for (int j = lane; j < nu; j += 32)             // nu = 48 takes two rounds
+      sw[C::wU + j] = U[(b * ns + n) * nu + j];
     srbd::load_params<S>(P, row, lane, p);
   }
   __syncthreads();                                  // dslot cleared, loads

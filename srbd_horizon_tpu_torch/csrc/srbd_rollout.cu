@@ -31,11 +31,12 @@
 //     defect_max = maxₙ,ᵢ |step(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // Plain twin: `kernels/rollout.py::srbd_evaluate_plain`.
 //
-// Both are compiled for nine instances (csrc/srbd_common.cuh): the
+// Both are compiled for twelve instances (csrc/srbd_common.cuh): the
 // Kangaroo's line feet (`srbd::KangarooShape`, 73 stage rows), the
-// quadruped's point feet (`srbd::QuadShape`, 69: no relative-velocity rows)
-// and the point-feet biped (`srbd::PointFeetShape`, 45), each under the
-// Euler, RK2 and RK4 steps. In each, every loop over rows and columns has
+// quadruped's point feet (`srbd::QuadShape`, 69: no relative-velocity
+// rows), the point-feet biped (`srbd::PointFeetShape`, 45) and the
+// square-feet biped (`srbd::SquareFeetShape`, 129), each under the Euler,
+// RK2 and RK4 steps. In each, every loop over rows and columns has
 // a constant trip count and every offset is a constant; the contact
 // topology and the step pick the instantiation at launch, and the wrappers
 // refuse other sizes. Under RK2 and RK4 a node's step evaluates the rates
@@ -81,6 +82,15 @@
 // taken in another order than the plain twin's, so the two agree to
 // rounding, not bit for bit.
 //
+// The square-feet biped (`srbd::SquareFeetShape`, nx=61, nu=48, 129
+// stage rows) has more inputs than a warp has lanes: a lane takes rows
+// lane and lane + 32 of K(x̂ − X) and the input rows of columns lane and
+// lane + 32 (`stage_sq_lane`'s three passes), and its ring of three
+// nodes of K takes 38,800-39,040 B a warp in float32 (77,536-78,032 B in
+// float64), so a trial block holds `trial_warps` (member, α) warps — four,
+// or two in float64 — where the other shapes hold four: one block an SM
+// (kernels/rollout.py::trial_layout reckons the same).
+//
 // srbd_evaluate, when given x0, reads it in place of X[:, 0] (the solve's
 // node-0 pin, msddp.py:1221; x0's rows may lie apart, as a node of a plan
 // does) and writes the pinned plan to Xpin.
@@ -122,8 +132,14 @@ using srbd::node_rates;
 using srbd::param_dim;
 using srbd::param_off;
 using srbd::stage_scratch;
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;           // (member, α) warps a trial block, at most
 constexpr int kStages = 3;           // node buffers a warp: the ring's depth
+constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+
+// Rounds of a warp's lanes over the inputs: 2 past 32 inputs.
+template <class S>
+constexpr int kInputRounds = (S::nu + 31) / 32;
+static_assert(kInputRounds<srbd::SquareFeetShape> == 2, "nu ≤ 64");
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -201,6 +217,20 @@ __device__ void issue_node(T* buf, const T* __restrict__ Ks,
   cp_async_commit();
 }
 
+// The (member, α) warps a trial block of instance S holds with tensors of
+// T: kWarps, or as many as fit the card's shared memory a block (the
+// square-feet biped's ring of three nodes of K, 48 × 61, takes up to
+// 39,040 B a warp in float32, 78,032 B in float64: four warps, or two).
+template <class S, typename T>
+__host__ __device__ constexpr int trial_warps() {
+  constexpr size_t warp_bytes = sizeof(T) * TrialWarp<S, T>::size;
+  return 4 * warp_bytes <= kMaxSmem ? 4 : 2 * warp_bytes <= kMaxSmem ? 2 : 1;
+}
+static_assert(kWarps == 4 && trial_warps<srbd::Stepped<srbd::SquareFeetShape,
+                                                       srbd::Rk4>,
+                                         double>() == 2,
+              "the trial's warps a block follow from its shared memory");
+
 template <class S, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
 srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
@@ -217,7 +247,8 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
   using W = TrialWarp<S, T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long g =
+      static_cast<long long>(blockIdx.x) * trial_warps<S, T>() + warp;
   if (g >= static_cast<long long>(B) * nA) return;   // whole warp leaves
   const size_t b = g / nA;
   const size_t a = g % nA;
@@ -252,23 +283,32 @@ srbd_trial_kernel(const T* __restrict__ x0, const T* __restrict__ X,
     // the geometry needs x̂ only: it runs beside K(x̂ − X)
     const srbd::Geometry<T> geo = srbd::geometry<S>(xh, k);
     {   // uₙ: row i of K(x̂ − X) on lane i (the lanes past nu repeat the
-        // last), four partial sums to shorten the chain
-      const int i = lane < S::nu ? lane : S::nu - 1;
-      const T* Kr = buf + NB::K + i * S::nx;
-      T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+        // last; past 32 inputs rows lane and lane + 32), four partial sums
+        // to shorten the chain
+      const auto row = [&](int i) {
+        const T* Kr = buf + NB::K + i * S::nx;
+        T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
 #pragma unroll
-      for (int j = 0; j + 3 < S::nx; j += 4) {
-        s0 += Kr[j] * dx[j];
-        s1 += Kr[j + 1] * dx[j + 1];
-        s2 += Kr[j + 2] * dx[j + 2];
-        s3 += Kr[j + 3] * dx[j + 3];
-      }
+        for (int j = 0; j + 3 < S::nx; j += 4) {
+          s0 += Kr[j] * dx[j];
+          s1 += Kr[j + 1] * dx[j + 1];
+          s2 += Kr[j + 2] * dx[j + 2];
+          s3 += Kr[j + 3] * dx[j + 3];
+        }
 #pragma unroll
-      for (int j = S::nx / 4 * 4; j < S::nx; ++j) s0 += Kr[j] * dx[j];
-      const T ui = (buf[NB::U + i] + alpha * buf[NB::k + i]) + ((s0 + s1) + (s2 + s3));
-      if (lane < S::nu) {
-        u[i] = ui;
-        Un[((a * B + b) * ns + n) * S::nu + i] = ui;
+        for (int j = S::nx / 4 * 4; j < S::nx; ++j) s0 += Kr[j] * dx[j];
+        return (buf[NB::U + i] + alpha * buf[NB::k + i]) + ((s0 + s1) + (s2 + s3));
+      };
+      T* Uo = Un + ((a * B + b) * ns + n) * S::nu;
+#pragma unroll
+      for (int c = 0; c < kInputRounds<S>; ++c) {
+        const int i0 = lane + 32 * c;
+        const int i = i0 < S::nu ? i0 : S::nu - 1;
+        const T ui = row(i);
+        if (i0 < S::nu) {
+          u[i] = ui;
+          Uo[i] = ui;
+        }
       }
     }
     __syncwarp();
@@ -484,7 +524,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <class S, typename T>
 constexpr size_t trial_smem_bytes() {
-  return sizeof(T) * kWarps * TrialWarp<S, T>::size;
+  return sizeof(T) * trial_warps<S, T>() * TrialWarp<S, T>::size;
 }
 
 template <class S, typename T>
@@ -501,8 +541,9 @@ int launch_trial(const void* x0, const void* X, const void* U, const void* ks,
   auto kernel = srbd_trial_kernel<S, T>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned blocks = static_cast<unsigned>((pairs + kWarps - 1) / kWarps);
-  kernel<<<blocks, 32 * kWarps, bytes, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int warps = trial_warps<S, T>();
+  const unsigned blocks = static_cast<unsigned>((pairs + warps - 1) / warps);
+  kernel<<<blocks, 32 * warps, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x0), static_cast<const T*>(X),
       static_cast<const T*>(U), static_cast<const T*>(ks),
       static_cast<const T*>(Ks), static_cast<const T*>(d),
@@ -626,9 +667,11 @@ extern "C" int srbd_evaluate_occupancy(int shape, int f64, int ns, int* out) {
 extern "C" int srbd_trial_occupancy(int shape, int f64, int* out) {
   return srbd::with_shape(shape, [&](auto s) {
     using S = decltype(s);
-    return f64 ? occupancy(srbd_trial_kernel<S, double>, 32 * kWarps,
+    return f64 ? occupancy(srbd_trial_kernel<S, double>,
+                           32 * trial_warps<S, double>(),
                            trial_smem_bytes<S, double>(), out)
-               : occupancy(srbd_trial_kernel<S, float>, 32 * kWarps,
+               : occupancy(srbd_trial_kernel<S, float>,
+                           32 * trial_warps<S, float>(),
                            trial_smem_bytes<S, float>(), out);
   });
 }

@@ -8,6 +8,9 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   riccati_backward  K1 `riccati_backward`, K2 `spd_inverse`; and, with
                     no type suffix, `riccati_backward_smem_bytes` and
                     `riccati_backward_blocks_per_sm`
+  riccati_backward_square_feet  the same entries at the square-feet
+                    biped's four shapes (riccati_backward.cu's body,
+                    compiled apart so the two build in parallel)
   srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`; and, with no type
                     suffix, `srbd_trial_occupancy`, `srbd_evaluate_occupancy`
   srbd_linearize    K4 `srbd_linearize`; `srbd_linearize_occupancy`
@@ -47,12 +50,14 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("riccati_backward", "srbd_rollout", "srbd_linearize",
+KERNEL_SOURCES = ("riccati_backward", "riccati_backward_square_feet",
+                  "srbd_rollout", "srbd_linearize",
                   "isrbd_rollout", "isrbd_linearize", "isrbd_al",
                   "lip_linearize", "lip_rollout", "riccati_associative",
                   "linear_trial")
@@ -65,6 +70,8 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {"isrbd_al": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# seconds from the start of `build_all` to the end of each library's nvcc
+build_seconds: Dict[str, float] = {}
 _host_setups: Dict[tuple, tuple] = {}
 
 
@@ -102,6 +109,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> Dic
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
+    t0 = time.monotonic()
     for name in names:
         if not force and not _stale(name):
             continue
@@ -115,8 +123,13 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> Dic
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
     failed = []
+    pending = dict(procs)
+    while pending:                       # each compile's own seconds
+        for name in [n for n, (_, p) in pending.items() if p.poll() is not None]:
+            build_seconds[name] = time.monotonic() - t0
+            del pending[name]
+        time.sleep(0.2)
     for name, (tmp, proc) in procs.items():
-        proc.wait()
         if proc.returncode != 0:
             failed.append(f"{name} (rc {proc.returncode}):\n"
                           f"{log_path(name).read_text()}")

@@ -31,11 +31,13 @@ values (the quadruped 3,470, the point-feet biped 1,502; under RK the
 Kangaroo 4,078) and reads ~120, against a few thousand FLOP a stage point
 (the note in the .cu gives the design).
 
-K3, K4 and srbd_evaluate are compiled for three SRBD topologies, the
-Kangaroo's line feet, the point-feet quadruped's and the point-feet
-biped's (`srbd::KangarooShape`, `srbd::QuadShape`, `srbd::PointFeetShape`
-in csrc/srbd_common.cuh, `TOPOLOGIES` here), each under the Euler, RK2 and
-RK4 steps (`KERNEL_SHAPES`, the nine instances); their wrappers raise
+K3, K4 and srbd_evaluate are compiled for four SRBD topologies, the
+Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's
+and the square-feet biped's (four contact points a foot, contact_model=4:
+nc=8, nx=61, nu=48; `srbd::KangarooShape`, `srbd::QuadShape`,
+`srbd::PointFeetShape`, `srbd::SquareFeetShape` in csrc/srbd_common.cuh,
+`TOPOLOGIES` here), each under the Euler, RK2 and RK4 steps
+(`KERNEL_SHAPES`, the twelve instances); their wrappers raise
 ValueError, naming the sizes and the step, for CUDA tensors of any other
 (an RK problem never reaches an Euler instance), and take the plain twin
 for CPU tensors of any sizes.
@@ -66,9 +68,11 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_linearize.cu"
 
 # The topologies the SRBD kernels are compiled for, in the order of the
 # shape structs of csrc/srbd_common.cuh (KangarooShape, QuadShape,
-# PointFeetShape): build_srbd_problem with the Kangaroo's line feet, the
-# quadruped's point feet and the point-feet biped, under the Euler step.
-# The row counts are K4's (`RiccatiRows.from_ocp` of each OCP).
+# PointFeetShape, SquareFeetShape): build_srbd_problem with the Kangaroo's
+# line feet, the quadruped's point feet, the point-feet biped and the
+# square-feet biped (`SRBDConfig(contact_model=4, number_of_legs=2)`, four
+# points a foot), under the Euler step. The row counts are K4's
+# (`RiccatiRows.from_ocp` of each OCP).
 TOPOLOGIES = {
     "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
                      n_rx=22, n_ru=18, n_gx=34, n_gu=42),
@@ -76,6 +80,8 @@ TOPOLOGIES = {
                       n_rx=22, n_ru=18, n_gx=30, n_gu=42),
     "point_feet": dict(nc=2, cm=1, n_legs=2, nx=25, nu=12, n_rho=45, nt=15,
                        n_rx=16, n_ru=12, n_gx=24, n_gu=24),
+    "square_feet": dict(nc=8, cm=4, n_legs=2, nx=61, nu=48, n_rho=129,
+                        nt=15, n_rx=34, n_ru=30, n_gx=54, n_gu=78),
 }
 # the steps, in the order of csrc/srbd_common.cuh's step tags (Euler, Rk2,
 # Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
@@ -89,14 +95,23 @@ def _instance(topology: str, step: str) -> dict:
     return sizes
 
 
+def stepped_instances(instance, names) -> dict:
+    """`instance(name, step)` of the topologies `names` under Euler, then
+    of each under RK2 and RK4, keyed as `KERNEL_SHAPES` names them."""
+    return {
+        **{name: instance(name, "EULER") for name in names},
+        **{f"{name}_{step.lower()}": instance(name, step)
+           for name in names for step in STEPS[1:]},
+    }
+
+
 # The (topology, step) instances K3, K4 and srbd_evaluate are compiled
-# for, in the order of csrc/srbd_common.cuh's `with_shape`: the three
-# topologies under Euler, then each under RK2 and RK4.
+# for, in the order of csrc/srbd_common.cuh's `with_shape`: the first three
+# topologies under Euler, then each under RK2 and RK4, then the square-feet
+# biped under the three steps (appended, so the earlier indices stand).
 KERNEL_SHAPES = {
-    **{name: _instance(name, "EULER") for name in TOPOLOGIES},
-    **{f"{name}_{step.lower()}": _instance(name, step)
-       for name in TOPOLOGIES for step in STEPS[1:]},
-}
+    **stepped_instances(_instance, ("kangaroo", "quadruped", "point_feet")),
+    **stepped_instances(_instance, ("square_feet",))}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "orientation_tracking_gain", "oref", "rdot_ref",

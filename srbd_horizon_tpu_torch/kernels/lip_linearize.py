@@ -38,11 +38,12 @@ template tables, output layout, pointer arrays) made once a size through
 `host_setup`, one `check_tensors` pass, one buffer cut into the outputs
 (`build.output_views`), the raw stream.
 
-K10, K11 and lip_evaluate are compiled for three LIP topologies, the
-Kangaroo's line feet, the point-feet quadruped's and the point-feet
-biped's (`lip::KangarooShape`, `lip::QuadShape`, `lip::PointFeetShape` in
-csrc/lip_common.cuh, `TOPOLOGIES` here), each under the Euler, RK2 and RK4
-steps (`KERNEL_SHAPES`, the nine instances); their wrappers raise
+K10, K11 and lip_evaluate are compiled for four LIP topologies, the
+Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's
+and the square-feet biped's (`lip::KangarooShape`, `lip::QuadShape`,
+`lip::PointFeetShape`, `lip::SquareFeetShape` in csrc/lip_common.cuh,
+`TOPOLOGIES` here), each under the Euler, RK2 and RK4 steps
+(`KERNEL_SHAPES`, the twelve instances); their wrappers raise
 ValueError, naming the sizes and the step, for CUDA tensors of any other
 (an RK problem never reaches an Euler instance), and take the plain twin
 for CPU tensors of any sizes.
@@ -65,7 +66,10 @@ from srbd_horizon_tpu_torch.kernels.build import (
     out_slots,
     output_views,
 )
-from srbd_horizon_tpu_torch.kernels.linearize import STAGE_POINTS
+from srbd_horizon_tpu_torch.kernels.linearize import (
+    STAGE_POINTS,
+    stepped_instances,
+)
 from srbd_horizon_tpu_torch.kernels.rollout import step_fn
 from srbd_horizon_tpu_torch.problems.lip import N_TERMINAL
 
@@ -76,9 +80,11 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/lip_linearize.cu"
 
 # The topologies K10, K11 and lip_evaluate are compiled for, in the order
 # of the shape structs of csrc/lip_common.cuh (KangarooShape, QuadShape,
-# PointFeetShape): build_lip_problem with the Kangaroo's line feet, the
-# quadruped's point feet and the point-feet biped, under the Euler step.
-# The row counts are K10's (`RiccatiRows.from_ocp` of each OCP).
+# PointFeetShape, SquareFeetShape): build_lip_problem with the Kangaroo's
+# line feet, the quadruped's point feet, the point-feet biped and the
+# square-feet biped (contact_model=4, four points a foot: nx=54, nu=27),
+# under the Euler step. The row counts are K10's (`RiccatiRows.from_ocp`
+# of each OCP).
 TOPOLOGIES = {
     "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=30, nu=15, n_rho=44, nt=10,
                      n_rx=18, n_ru=15, n_gx=32, n_gu=18),
@@ -86,6 +92,8 @@ TOPOLOGIES = {
                       n_rx=18, n_ru=15, n_gx=28, n_gu=18),
     "point_feet": dict(nc=2, cm=1, n_legs=2, nx=18, nu=9, n_rho=28, nt=10,
                        n_rx=12, n_ru=9, n_gx=22, n_gu=12),
+    "square_feet": dict(nc=8, cm=4, n_legs=2, nx=54, nu=27, n_rho=76, nt=10,
+                        n_rx=30, n_ru=27, n_gx=52, n_gu=30),
 }
 # the steps, in the order of csrc/lip_common.cuh's step tags (Euler, Rk2,
 # Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
@@ -100,13 +108,12 @@ def _instance(topology: str, step: str) -> dict:
 
 
 # The (topology, step) instances K10, K11 and lip_evaluate are compiled
-# for, in the order of csrc/lip_common.cuh's `with_shape`: the three
-# topologies under Euler, then each under RK2 and RK4.
+# for, in the order of csrc/lip_common.cuh's `with_shape`: the first three
+# topologies under Euler, then each under RK2 and RK4, then the square-feet
+# biped under the three steps (appended, so the earlier indices stand).
 KERNEL_SHAPES = {
-    **{name: _instance(name, "EULER") for name in TOPOLOGIES},
-    **{f"{name}_{step.lower()}": _instance(name, step)
-       for name in TOPOLOGIES for step in STEPS[1:]},
-}
+    **stepped_instances(_instance, ("kangaroo", "quadruped", "point_feet")),
+    **stepped_instances(_instance, ("square_feet",))}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "rdot_ref", "c_ref", "cdot_switch")
@@ -280,19 +287,23 @@ def vec_nodes(dtype) -> int:
     return 16 // (torch.finfo(dtype).bits // 8)
 
 
-def group_nodes(Bsz: int, ns: int, dtype, sms: int) -> int:
+def group_nodes(Bsz: int, ns: int, dtype, sms: int,
+                shape: str = "kangaroo") -> int:
     """Member-nodes a K10 group at B members (the .cu's `group_nodes`):
     GROUP_UNITS · `vec_nodes` where those groups fill every one of `sms`
-    SMs, else 1."""
+    SMs, else 1; always 1 for the square feet (the .cu's `kVecGroup`:
+    their 16-byte groups spill)."""
     v = GROUP_UNITS * vec_nodes(dtype)
-    return v if Bsz * ns >= v * sms else 1
+    if Bsz * ns < v * sms or KERNEL_SHAPES[shape]["nx"] > 32:
+        return 1
+    return v
 
 
-def schedule(Bsz: int, ns: int, dtype, sms: int):
-    """K10's launch at B members on `sms` SMs: (member-nodes a group G,
-    stage groups, all groups, blocks), as the .cu's `launch_groups` sets
-    them."""
-    v = group_nodes(Bsz, ns, dtype, sms)
+def schedule(Bsz: int, ns: int, dtype, sms: int, shape: str = "kangaroo"):
+    """K10's launch at B members on `sms` SMs at the instance `shape`:
+    (member-nodes a group G, stage groups, all groups, blocks), as the
+    .cu's `launch_groups` sets them."""
+    v = group_nodes(Bsz, ns, dtype, sms, shape)
     n_stage = -(-Bsz * ns // v)
     n_groups = n_stage + -(-Bsz // v)
     return v, n_stage, n_groups, min(n_groups, sms * MIN_BLOCKS)

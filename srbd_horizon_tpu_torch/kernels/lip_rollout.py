@@ -41,7 +41,7 @@ members a block; `evaluate_smem_bytes` states its shared memory. Its
 wrapper's host work is K10's: a setup a size (`_EvalSetup`), one check
 pass, one buffer cut into the outputs, the raw stream.
 
-Both run at the nine (topology, step) instances of
+Both run at the twelve (topology, step) instances of
 `lip_linearize.KERNEL_SHAPES` on CUDA tensors and raise ValueError for
 others; CPU tensors take the twins at any size. Under RK2 and RK4 each
 chain node takes the step's stages, a partner-lane shuffle each
@@ -222,12 +222,19 @@ EVAL_WARPS = 4
 EVALUATE = "lip_evaluate"
 
 
-def eval_members(Bsz: int, sms: int) -> int:
+def eval_members(Bsz: int, sms: int, dtype=None, ns: int = 20,
+                 shape: str = "kangaroo") -> int:
     """The members a lip_evaluate block takes at B members on `sms` SMs
     (the .cu's `eval_members`): the most, halving from EVAL_MEMBERS, that
-    still gives every SM a block."""
+    still gives every SM a block; given `dtype`, also halved while the
+    block at ns stage nodes and the instance `shape` would not fit
+    MAX_SMEM (the .cu's `block_members`: the square feet's float64 block
+    past ns = 24)."""
     m = EVAL_MEMBERS
     while m > 1 and -(-Bsz // m) < sms:
+        m //= 2
+    while (dtype is not None and m > 1 and evaluate_smem_bytes(
+            dtype, ns, m, shape)["total"] > MAX_SMEM):
         m //= 2
     return m
 

@@ -248,8 +248,10 @@ _I = ctypes.c_int
 # The kernel's compile-time shapes, in the order of csrc/riccati_common.cuh's
 # shape structs (SrbdShape, IsrbdAlShape, LipShape, QuadShape, QuadAlShape,
 # PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape, LipRkShape,
-# LipQuadShape, LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape):
-# nx, nu, the terminal rows nt and the sizes of the row sets. The SRBD and
+# LipQuadShape, LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape,
+# SquareFeetShape, SquareFeetRkShape, LipSquareFeetShape,
+# LipSquareFeetRkShape): nx, nu, the terminal rows nt and the sizes of the
+# row sets. The SRBD and
 # the LIP problems under RK2 and under RK4 have every row of B live (n_ru =
 # nx); the two steps share their shape. Another problem needs a shape of
 # its own there and here.
@@ -282,7 +284,20 @@ KERNEL_SHAPES = {
                            n_gu=12, n_b=6, n_uc=9),
     "lip_point_feet_rk": dict(nx=18, nu=9, nt=10, n_rx=12, n_ru=18, n_gx=22,
                               n_gu=12, n_b=6, n_uc=9),
+    # the square-feet biped (contact_model=4, nc=8), both problems
+    "square_feet": dict(nx=61, nu=48, nt=15, n_rx=34, n_ru=30, n_gx=54,
+                        n_gu=78, n_b=3, n_uc=48),
+    "square_feet_rk": dict(nx=61, nu=48, nt=15, n_rx=34, n_ru=61, n_gx=54,
+                           n_gu=78, n_b=3, n_uc=48),
+    "lip_square_feet": dict(nx=54, nu=27, nt=10, n_rx=30, n_ru=27, n_gx=52,
+                            n_gu=30, n_b=6, n_uc=27),
+    "lip_square_feet_rk": dict(nx=54, nu=27, nt=10, n_rx=30, n_ru=54,
+                               n_gx=52, n_gu=30, n_b=6, n_uc=27),
 }
+# the shapes whose instantiations csrc/riccati_backward_square_feet.cu
+# builds, into a library of its own
+SQUARE_FEET_SHAPES = ("square_feet", "square_feet_rk", "lip_square_feet",
+                      "lip_square_feet_rk")
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
@@ -323,6 +338,7 @@ KERNEL_INSTANCES = (
 ) + tuple((shape, form, solver)
           for shape in ("lip_rk", "lip_quadruped", "lip_quadruped_rk",
                         "lip_point_feet", "lip_point_feet_rk")
+          + SQUARE_FEET_SHAPES
           for form, solver in (("collapsed", "schur"), ("tassa", "schur"),
                                ("tassa", "cholesky")))
 
@@ -366,8 +382,44 @@ def kernel_instance(shape: str, form: str = "collapsed",
     return KERNEL_INSTANCES.index(key)
 
 
-def _kernel_fn(dtype):
-    lib = library("riccati_backward")
+def library_name(inst: int) -> str:
+    """The kernel library that holds instantiation `inst`: the square-feet
+    biped's shapes are built by csrc/riccati_backward_square_feet.cu."""
+    return ("riccati_backward_square_feet"
+            if KERNEL_INSTANCES[inst][0] in SQUARE_FEET_SHAPES
+            else "riccati_backward")
+
+
+def _inv_work(n: int) -> int:
+    """riccati_common.cuh's `inv_work`: K2's float64 workspace at n×n."""
+    if n <= 3:
+        return 0
+    k, m = n // 2, n - n // 2
+    return k * m * 2 + m * m + max(_inv_work(k), _inv_work(m))
+
+
+def layout_bytes(shape: str, dtype=torch.float32) -> int:
+    """The dynamic shared memory one K1 block of the shape `shape` takes
+    for tensors of `dtype`, as csrc/riccati_backward.cu's `Layout<S,
+    T>::bytes` reckons it (the card's figure is `shared_memory_bytes`)."""
+    z = KERNEL_SHAPES[shape]
+    nx, nu, nt = z["nx"], z["nu"], z["nt"]
+    elem = torch.finfo(dtype).bits // 8
+    region = 3 * nx + nx * nx + 2 * nu + nu * nu + nu * nx + 2
+    blocks = nx * nx + z["n_ru"] * z["n_uc"]
+    node = (z["n_rx"] * nx + z["n_ru"] * z["n_uc"] + z["n_gx"] * nx
+            + z["n_gu"] * nu + z["n_gx"] + z["n_gu"] + nx)
+    terminal = nt * nx + nt
+    region_bytes = max(
+        blocks * 8 + (max(node, terminal) * elem + 7) // 8 * 8,
+        (nu * nu + nu * nx + max(_inv_work(nu), nx * nu + nu)) * 8)
+    rows = (z["n_rx"] + z["n_ru"] + z["n_gx"] + z["n_gu"] + 2 * z["n_b"]
+            + z["n_uc"])
+    return region * 8 + region_bytes + (rows + nu) * 4
+
+
+def _kernel_fn(dtype, inst: int):
+    lib = library(library_name(inst))
     fn = lib.riccati_backward_f32 if dtype == torch.float32 else lib.riccati_backward_f64
     if fn.argtypes is None:
         fn.argtypes = [_I] + [_P] * 9 + [_I] * 12 + [ctypes.c_double] + [_P] * 5
@@ -381,11 +433,11 @@ def shared_memory_bytes(nx: int, nu: int, nt: int, rows: RiccatiRows,
     """Dynamic shared memory one K1 block takes at these sizes, for tensors
     of `dtype` (the node's blocks stay in it on chip), as the launcher
     reckons it."""
-    fn = library("riccati_backward").riccati_backward_smem_bytes
+    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
+    fn = library(library_name(inst)).riccati_backward_smem_bytes
     if fn.argtypes is None:
         fn.argtypes = [_I, _I]
         fn.restype = ctypes.c_longlong
-    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
     return int(fn(inst, int(dtype == torch.float64)))
 
 
@@ -394,12 +446,12 @@ def blocks_per_sm(nx: int, nu: int, nt: int, rows: RiccatiRows,
                   quu_solver: str = "schur") -> int:
     """K1 blocks one SM of the current card holds at once at these sizes
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
-    fn = library("riccati_backward").riccati_backward_blocks_per_sm
+    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
+    fn = library(library_name(inst)).riccati_backward_blocks_per_sm
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
     blocks = ctypes.c_int(0)
-    inst = kernel_instance(kernel_shape(nx, nu, nt, rows), form, quu_solver)
     err = fn(inst, int(dtype == torch.float64), ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"riccati_backward occupancy query failed: error {err}")
@@ -447,7 +499,7 @@ def riccati_backward(Sx, Bs, Jxp, Jup, rho, d, Jt, rt, mu: float,
     dV1 = torch.empty((Bsz,), dtype=dtype, device=dev)
     dV2 = torch.empty((Bsz,), dtype=dtype, device=dev)
     table = rows.packed(dev)
-    fn = _kernel_fn(dtype)
+    fn = _kernel_fn(dtype, inst)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -479,7 +531,8 @@ riccati_backward.instance_launches = [0] * len(KERNEL_INSTANCES)
 
 def spd_inverse(A):
     """K2 alone: the block-Schur inverse K1 runs on Quu, over an (M, n, n)
-    stack of SPD matrices, n one of K1's nu (9, 12, 15, 24, 30). Computes in float64
+    stack of SPD matrices, n one of K1's nu (9, 12, 15, 24, 27, 30, 48: 27
+    and 48 from the square-feet library). Computes in float64
     for float32 tensors too. A CPU tensor goes to `lm_spd_inverse`; a CUDA
     tensor launches the kernel (counted in `spd_inverse.launches`) or
     raises. Nothing on the solver's path calls it: it is here to time and
@@ -497,7 +550,9 @@ def spd_inverse(A):
     check_tensor("A", A, tuple(A.shape), A.dtype, A.device)
     M, n = A.shape[0], A.shape[1]
     out = torch.empty_like(A)
-    lib = library("riccati_backward")
+    square = n in {KERNEL_SHAPES[s]["nu"] for s in SQUARE_FEET_SHAPES}
+    lib = library("riccati_backward_square_feet" if square
+                  else "riccati_backward")
     fn = lib.spd_inverse_f32 if A.dtype == torch.float32 else lib.spd_inverse_f64
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _I, _I, _P]

@@ -31,8 +31,8 @@ msddp.py:1221), written by the same launch. Its plain twin
 `srbd_evaluate_plain` is `SRBDTerms.total_cost` and the problem's step.
 
 Both run at the (topology, step) instances of `linearize.KERNEL_SHAPES`
-(the Kangaroo's, the quadruped's and the point-feet biped's, each under
-Euler, RK2 and RK4) on CUDA tensors and raise ValueError for others;
+(the Kangaroo's, the quadruped's, the point-feet biped's and the
+square-feet biped's, each under Euler, RK2 and RK4) on CUDA tensors and raise ValueError for others;
 CPU tensors take the twins at any size.
 """
 
@@ -246,6 +246,33 @@ def evaluate_occupancy(ns: int, dtype=torch.float32, shape: str = "kangaroo"):
     return occupancy_query("srbd_rollout", "srbd_evaluate_occupancy",
                            EVALUATE_OCCUPANCY_FIELDS, shape_index(shape),
                            int(dtype == torch.float64), ns)
+
+
+# K3's shared memory (csrc/srbd_rollout.cu): a warp's ring of RING node
+# buffers (K, U, k, X, d and the packed parameter row, each node's rounded
+# to 16 bytes), then x̂, x̂ − X, u and, under RK, the stage point; as many
+# (member, α) warps a block as fit MAX_SMEM, four at most
+RING = 3
+TRIAL_WARPS = 4
+MAX_SMEM = 232448
+
+
+def trial_layout(dtype=torch.float32, shape: str = "kangaroo") -> dict:
+    """K3's block at the shape `shape` for tensors of `dtype`, as
+    `NodeBuf`, `TrialWarp` and `trial_warps` of the .cu reckon it: values
+    a node buffer and a warp, warps a block and the block's bytes."""
+    z = KERNEL_SHAPES[shape]
+    E = torch.finfo(dtype).bits // 8
+    vec = 16 // E
+    up = lambda v: -(-v // vec) * vec
+    nx, nu, nc = z["nx"], z["nu"], z["nc"]
+    node = up(nu * nx + 2 * nu + 2 * nx + 12 + 2 * nc)
+    scratch = nx if z["step"] != "EULER" else 0
+    warp = up(RING * node + 2 * nx + nu + scratch)
+    warps = next(w for w in (TRIAL_WARPS, 2, 1)
+                 if w * warp * E <= MAX_SMEM or w == 1)
+    return dict(node_values=node, warp_values=warp, warps=warps,
+                bytes=warps * warp * E)
 
 
 def trial_occupancy(dtype=torch.float32, shape: str = "kangaroo"):

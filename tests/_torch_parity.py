@@ -471,18 +471,25 @@ from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
 from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking
 
+from _square_feet import SQUARE_TOPOLOGY
+from _square_feet import square_feet as t_square_feet
+from test_configs import _four_contact_feet as j_square_feet
+
 from srbd_horizon_tpu_torch.convert import tick_input_from_numpy
 from srbd_horizon_tpu_torch.models.kangaroo import point_feet as t_point_feet
 from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
 from srbd_horizon_tpu_torch.runtime.loop import walking_schedule as t_walking
 
-# the three contact topologies JAX's build_srbd_problem takes: (SRBDConfig
-# fields, jax robot, torch robot, the WPG's trot grouping or None)
+# the contact topologies JAX's build_srbd_problem takes: (SRBDConfig
+# fields, jax robot, torch robot, the WPG's trot grouping or None); the
+# square-feet biped's robot is the JAX package's test data (TestNc8's
+# `_four_contact_feet`), its torch copy `_square_feet.square_feet`
 TOPOLOGIES = {
     "kangaroo": (dict(), j_feet, t_feet, False),
     "quadruped": (QUAD_TOPOLOGY, j_quad, t_quad, True),
     "point_feet": (dict(contact_model=1, number_of_legs=2), j_point_feet,
                    t_point_feet, False),
+    "square_feet": (SQUARE_TOPOLOGY, j_square_feet, t_square_feet, False),
 }
 
 
@@ -1432,3 +1439,198 @@ def lip_modes_dispatch(topology, integrator):
     shape = t_k13.FAMILIES[fam][2]
     return fam, {sv: t_k12.shape_instance(shape, sv)
                  for sv in ("schur", "cholesky")}
+
+
+# ---------------- the square-feet biped (contact_model=4, nc=8) ----------------
+
+from srbd_horizon_tpu_torch.kernels import linearize as t_k4
+from srbd_horizon_tpu_torch.kernels import riccati as t_k1
+from srbd_horizon_tpu_torch.kernels import rollout as t_k3
+
+SRBD_ORDER = ("Sx", "Bs", "Jxp", "Jup", "rho", "d", "Jt", "rt")
+SRBD_NAN_MEMBER = 1
+SRBD_ALPHAS = np.array([1.0, 0.5, 0.25, 0.125])
+# JAX's TestNc8 bar (tests/test_configs.py): defects below 1e-6 and each
+# contact's F_z within 0.05 of m·g / (fs·8)
+NC8_DEFECT, NC8_FZ_TOL = 1e-6, 0.05
+
+
+def srbd_case(topology, step, ns=8, B=4, mu=1e-6):
+    """One (topology, step) of the SRBD problem at ns nodes, float64 on the
+    CPU: both problems and solvers, a point near the walk (plans around the
+    nominal state, random references, 0/1 switches and tracking masks), JAX's
+    dense linearization there, the port's K4 twin and the collapsed sweep
+    of its linearization, and pushed starts."""
+    jp, tp = srbd_problems(topology, step, ns)
+    js, ts = solvers(jp, tp)
+    X, U = trajectories(jp, B, seed=31)
+    params = fleet_params(jp.ocp.params, B)
+    rng = np.random.RandomState(32)
+    params["rdot_ref"] = 0.3 * rng.randn(*params["rdot_ref"].shape)
+    params["cdot_switch"] = rng.randint(0, 2, params["cdot_switch"].shape) * 1.0
+    params["mask_track"] = rng.randint(0, 2, params["mask_track"].shape) * 1.0
+    jdense = jit(jax.vmap(
+        lambda x, u, p: js._linearize_impl(x, u, p, sliced=False)))(
+            *to_jax((X, U, params)))
+    tlin = t_k4.srbd_linearize_plain(to_torch(X), to_torch(U),
+                                     to_torch(params), ts.terms, ts.rows,
+                                     tp.ocp.dt, ts._wc(torch.float64))
+    sweep = t_k1.riccati_backward_plain(*(tlin[k] for k in SRBD_ORDER), mu,
+                                        ts.rows)
+    return dict(topology=topology, step=step, jp=jp, tp=tp, js=js, ts=ts,
+                X=X, U=U, params=params, jdense=jdense, tlin=tlin,
+                sweep=sweep, x0=perturbed_states(jp.initial_state, B, seed=33))
+
+
+def check_srbd_node_functions(case, seed=34, tol=1e-12):
+    """The port's step, stage residual, equality rows and terminal residual
+    against JAX's at drawn points (the step to 1e-13)."""
+    jp, tp = case["jp"], case["tp"]
+    x, u, p = random_xup(jp.ocp.params, tp.ocp.nx, tp.ocp.nu, seed, lead=(6,))
+    jx, ju, jpar = to_jax((x, u, p))
+    tx, tu, tpar = to_torch(x), to_torch(u), to_torch(p)
+    dt = jp.ocp.dt
+    want = jit(jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt)))(jx, ju, jpar)
+    assert max_rel_err(tp.ocp.step(tx, tu, tpar, dt), want) < 1e-13
+    for fn in ("stage_residual", "stage_eq"):
+        want = jax.vmap(getattr(jp.ocp, fn))(jx, ju, jpar)
+        assert max_rel_err(getattr(tp.ocp, fn)(tx, tu, tpar), want) < tol, fn
+    want = jax.vmap(jp.ocp.terminal_residual)(jx, jpar)
+    assert max_rel_err(tp.ocp.terminal_residual(tx, tpar), want) < tol
+    assert tp.ocp.constants["terms"].step == case["step"]
+
+
+def check_srbd_declared_rows(case, seed):
+    """The declared rows are exact at drawn points with the tracking mask 1
+    and every switch 0, then 1: A − I, B and ∂ρ/∂x, ∂ρ/∂u of the solver's
+    stacked residual (`torch.func.jacfwd` of the port's step and ρ) are
+    zero off dynamics_x_rows, dynamics_u_rows, residual_x_rows and
+    residual_u_rows at both points, and every declared row is live at one
+    (a switch turns a force's switch rows on and a foot's velocity rows
+    off). Under RK every row of B is declared (the JAX package declares
+    Euler's: ROADMAP F10); under Euler the declarations are JAX's."""
+    jp, tp, ts = case["jp"], case["tp"], case["ts"]
+    ocp = tp.ocp
+    nx, nu = ocp.nx, ocp.nu
+    x, u, p0 = random_xup({k: np_of(v) for k, v in ocp.params.items()}, nx,
+                          nu, seed)
+    x, u = to_torch(x), to_torch(u)
+    jac = torch.func.jacfwd
+    eye = torch.eye(nx, dtype=F64)
+    mats = []
+    for switch in (0.0, 1.0):
+        p = dict(p0)
+        p["cdot_switch"] = np.full_like(p0["cdot_switch"], switch)
+        p["mask_track"] = np.ones_like(p0["mask_track"])
+        p = to_torch(p)
+        rho = lambda a, b: ts._stage_rho(a, b, p)
+        step = lambda a, b: ocp.step(a, b, p, ocp.dt)
+        mats.append((jac(step, 0)(x, u) - eye, jac(step, 1)(x, u),
+                     jac(rho, 0)(x, u), jac(rho, 1)(x, u)))
+    for i, rows in enumerate((ocp.dynamics_x_rows, ocp.dynamics_u_rows,
+                              ocp.residual_x_rows, ocp.residual_u_rows)):
+        rows = sorted(int(r) for r in rows)
+        n = mats[0][i].shape[0]
+        dead = sorted(set(range(n)) - set(rows))
+        live = torch.zeros(len(rows), dtype=torch.bool)
+        for m in mats:
+            assert bool((m[i][dead] == 0).all()), i
+            live |= (m[i][rows] != 0).any(dim=1)
+        assert bool(live.all()), (i, [r for r, ok in zip(rows, live) if not ok])
+    if case["step"] == "EULER":
+        for name in ("dynamics_x_rows", "dynamics_u_rows", "residual_x_rows",
+                     "residual_u_rows"):
+            assert (tuple(int(r) for r in getattr(ocp, name))
+                    == tuple(int(r) for r in getattr(jp.ocp, name))), name
+    else:
+        assert tuple(ocp.dynamics_u_rows) == tuple(range(nx))
+
+
+def check_srbd_linearize(case, key, tol=1e-12):
+    """The K4 twin's block `key` against JAX's dense Jacobians (A − I and B
+    of its step, the residual Jacobians) on the declared rows, its residuals
+    and defects."""
+    rows, jd, nx = case["ts"].rows, case["jdense"], case["tp"].ocp.nx
+    want = {"Sx": (np.asarray(jd["A"]) - np.eye(nx))[:, :, list(rows.rx)],
+            "Bs": np.asarray(jd["B"])[:, :, list(rows.ru)],
+            "Jxp": np.asarray(jd["Jx"])[:, :, list(rows.gx)],
+            "Jup": np.asarray(jd["Ju"])[:, :, list(rows.gu)]}.get(key)
+    want = np.asarray(jd[key]) if want is None else want
+    got = case["tlin"][key]
+    assert tuple(got.shape) == want.shape
+    assert max_rel_err(got, want) < tol
+
+
+def check_srbd_trial(case, nA, tol=1e-12):
+    """The K3 twin against JAX's trial on the case's plan, gains and
+    defects at nA step sizes; member SRBD_NAN_MEMBER starts from a NaN
+    state and is rejected."""
+    js, ts = case["js"], case["ts"]
+    opts = js.opts
+    ks, Ks, dV1, dV2 = case["sweep"]
+    d = case["jdense"]["d"]
+    x0 = np.array(case["x0"])
+    x0[SRBD_NAN_MEMBER] = np.nan
+    want, merit0, D = jax_trial(js, x0, case["X"], case["U"], case["params"],
+                                ks, Ks, d, dV1, dV2, SRBD_ALPHAS[:nA])
+    t = lambda a: to_torch(np_of(a))
+    got = t_k3.srbd_trial_plain(
+        t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks), t(d),
+        to_torch(SRBD_ALPHAS[:nA]), to_torch(case["params"]), t(merit0), t(D),
+        t(dV1), t(dV2), ts.terms, ts.ocp.dt, ts._wc(torch.float64),
+        opts.defect_weight, opts.beta, opts.alpha_converge_threshold)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+    assert not bool(got[4][:, SRBD_NAN_MEMBER].any())
+
+
+def check_srbd_evaluate(case, pin, tol=1e-12):
+    """The srbd_evaluate twin against JAX's `vmap(total_cost)` and the
+    largest |·| of `vmap(_true_defects)`, a NaN in one member's plan;
+    with `pin` node 0 pinned to x0 and the pinned plan returned."""
+    js, ts = case["js"], case["ts"]
+    X = np.array(case["X"])
+    X[SRBD_NAN_MEMBER, 5, 4] = np.nan
+    x0 = case["x0"] if pin else None
+    Xj = X.copy()
+    if pin:
+        Xj[:, 0] = x0
+    want = jax_evaluate(js, Xj, case["U"], case["params"])
+    got = t_k3.srbd_evaluate_plain(
+        to_torch(X), to_torch(case["U"]), to_torch(case["params"]), ts.terms,
+        case["tp"].ocp.dt, ts._wc(torch.float64),
+        None if x0 is None else to_torch(x0))
+    for g, w in zip(got[:2], want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
+        assert np.isnan(g.numpy()[SRBD_NAN_MEMBER])
+    if pin:
+        np.testing.assert_array_equal(got[2].numpy(), Xj)
+
+
+def check_srbd_dispatch(case, k4_shape, k1_shape):
+    """K4's, K3's and srbd_evaluate's check name the instance `k4_shape`,
+    K1's its shape `k1_shape` with all three forms, built in the library
+    of the square feet's shapes."""
+    ts, ocp = case["ts"], case["tp"].ocp
+    for name in ("srbd_linearize", "srbd_trial", "srbd_evaluate"):
+        assert t_k4.check_kernel_shape(name, ts.terms, ocp.nx, ocp.nu,
+                                       ts.rows) == k4_shape
+    assert t_k4.KERNEL_SHAPES[k4_shape]["step"] == case["step"]
+    assert t_k1.kernel_shape(ocp.nx, ocp.nu, t_k4.N_TRACK, ts.rows) == k1_shape
+    for form, solver in (("collapsed", "schur"), ("tassa", "schur"),
+                         ("tassa", "cholesky")):
+        inst = t_k1.kernel_instance(k1_shape, form, solver)
+        assert t_k1.KERNEL_INSTANCES[inst] == (k1_shape, form, solver)
+        assert t_k1.library_name(inst) == "riccati_backward_square_feet"
+
+
+def check_nc8_bar(prob, sol):
+    """JAX's `TestNc8::test_srbd_nc8_solve` bar on a standing solve: the
+    defect norm below NC8_DEFECT and each contact's F_z within NC8_FZ_TOL
+    of m·g / (fs·8)."""
+    assert float(sol.defect_norm) < NC8_DEFECT
+    fz = np_of(sol.U)[:, 5::6]
+    want = prob.mass * 9.81 / prob.force_scaling / 8
+    assert fz.shape[-1] == 8
+    np.testing.assert_allclose(fz, want, atol=NC8_FZ_TOL)

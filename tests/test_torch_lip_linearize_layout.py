@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import build
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
@@ -63,6 +64,7 @@ LIP_TOPOLOGIES = {
     "kangaroo": (dict(), kangaroo_line_feet),
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
+    "square_feet": (SQUARE_TOPOLOGY, square_feet),
 }
 
 

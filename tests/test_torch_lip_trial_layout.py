@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
 from srbd_horizon_tpu_torch.kernels import lip_rollout as k11
@@ -65,6 +66,7 @@ LIP_TOPOLOGIES = {
     "kangaroo": (dict(), kangaroo_line_feet),
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
+    "square_feet": (SQUARE_TOPOLOGY, square_feet),
 }
 
 
@@ -133,7 +135,9 @@ def test_smem_bytes_match_the_cuda_layout(dtype, nA, shape):
     assert sum(v for k, v in stated.items() if k != "total") == stated["total"]
     assert stated["total"] <= SMEM_PER_BLOCK == k11.MAX_SMEM
     if dtype == torch.float32:
-        assert SMEM_PER_SM // (stated["total"] + 1024) >= _env()["kMinBlocks"]
+        # the square feet's chains, a pair a lane, are bound to two
+        want = 2 if shape.startswith("square_feet") else _env()["kMinBlocks"]
+        assert SMEM_PER_SM // (stated["total"] + 1024) >= want
 
 
 def test_runs_leave_room_for_their_shift():
@@ -172,9 +176,11 @@ def test_block_constants_match_the_cuda_source():
     assert "kernel<<<blocks, 32 * (alphas_a_block(nA) + 1), bytes," in SOURCE
     assert ("__launch_bounds__(32 * (kMaxAlphas + 1), kTrialMinBlocks<S>)"
             in SOURCE)
-    # the Euler chains take kMinBlocks, the RK chains 4
-    assert re.search(r"kTrialMinBlocks = S::Step::stages > 1 \? 4 : "
-                     r"kMinBlocks;", SOURCE)
+    # the Euler chains take kMinBlocks, the RK chains 4, a pair a lane (the
+    # square feet's nx = 54) 2
+    assert re.search(r"kTrialMinBlocks = kPairs<S> \? 2\s+: S::Step::stages "
+                     r"> 1 \? 4 : kMinBlocks;", SOURCE)
+    assert re.search(r"constexpr bool kPairs = \(S::nx > 32\);", SOURCE)
 
 
 @pytest.mark.parametrize("nA", (1, 2, 3, 4, 5, 8))

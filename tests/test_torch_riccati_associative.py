@@ -258,7 +258,8 @@ def test_plain_wrapper_takes_the_twin_on_cpu():
 
 def test_kernel_shapes_and_instances_match_the_cuda_source():
     """K12 defines no shape struct of its own: it takes K1's from
-    csrc/riccati_common.cuh (fourteen; K12 is built at nine of them), whose
+    csrc/riccati_common.cuh (eighteen; K12 is built at fourteen of them,
+    not at the square feet's four), whose
     sizes are `riccati.KERNEL_SHAPES`; its `with_instance` switch is
     `KERNEL_INSTANCES`, in order."""
     csrc = Path(k12.__file__).resolve().parents[1] / "csrc"
@@ -275,7 +276,11 @@ def test_kernel_shapes_and_instances_match_the_cuda_source():
              "LipRkShape": "lip_rk", "LipQuadShape": "lip_quadruped",
              "LipQuadRkShape": "lip_quadruped_rk",
              "LipPointFeetShape": "lip_point_feet",
-             "LipPointFeetRkShape": "lip_point_feet_rk"}
+             "LipPointFeetRkShape": "lip_point_feet_rk",
+             "SquareFeetShape": "square_feet",
+             "SquareFeetRkShape": "square_feet_rk",
+             "LipSquareFeetShape": "lip_square_feet",
+             "LipSquareFeetRkShape": "lip_square_feet_rk"}
     assert [s for s, _ in structs] == list(names)
     for s, body in structs:
         sizes = {k.strip(): int(v) for k, v in

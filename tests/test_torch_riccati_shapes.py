@@ -1,15 +1,16 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for fourteen sets of sizes,
+K1 (`csrc/riccati_backward.cu`) is compiled for eighteen sets of sizes,
 the SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
 OCP of the point-feet quadruped, the AL inner OCP of its isrbd problem,
 the SRBD OCP of the point-feet biped, the SRBD OCP of each of the three
-topologies under RK2 / RK4 (every row of B live), and the LIP OCP of the
+topologies under RK2 / RK4 (every row of B live), the LIP OCP of the
 Kangaroo under RK and of the point-feet quadruped and biped under Euler
-and under RK; its wrapper picks one with `kernel_shape` for CUDA tensors
-and refuses any other sizes with a ValueError that names them. These
-tests hold that choice against `RiccatiRows.from_ocp` of the fourteen
-problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
+and under RK, and the square-feet biped's SRBD and LIP OCPs under Euler
+and under RK (csrc/riccati_backward_square_feet.cu); its wrapper picks one
+with `kernel_shape` for CUDA tensors and refuses any other sizes with a
+ValueError that names them. These tests hold that choice against
+`RiccatiRows.from_ocp` of the eighteen problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
 structs and the instantiation switch of the CUDA sources, and check that a
 CPU tensor of any sizes still takes the plain twin, as does K2's
 standalone wrapper.
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
 from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -111,6 +113,7 @@ def _lip_sizes(cfg=None, robot=None, integrator="EULER"):
 def sizes():
     quad = SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64)
     pf = SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64)
+    sq = SRBDConfig(dtype=torch.float64, **SQUARE_TOPOLOGY)
     return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
             "lip": _lip_sizes(),
             "quadruped": _srbd_sizes(quad, quadruped_point_feet()),
@@ -124,13 +127,18 @@ def sizes():
             "lip_quadruped_rk": _lip_sizes(quad, quadruped_point_feet(),
                                            "RK2"),
             "lip_point_feet": _lip_sizes(pf, point_feet()),
-            "lip_point_feet_rk": _lip_sizes(pf, point_feet(), "RK4")}
+            "lip_point_feet_rk": _lip_sizes(pf, point_feet(), "RK4"),
+            "square_feet": _srbd_sizes(sq, square_feet()),
+            "square_feet_rk": _srbd_sizes(sq, square_feet(), "RK4"),
+            "lip_square_feet": _lip_sizes(sq, square_feet()),
+            "lip_square_feet_rk": _lip_sizes(sq, square_feet(), "RK2")}
 
 
 SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped",
           "point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk", "lip_rk",
           "lip_quadruped", "lip_quadruped_rk", "lip_point_feet",
-          "lip_point_feet_rk"]
+          "lip_point_feet_rk", "square_feet", "square_feet_rk",
+          "lip_square_feet", "lip_square_feet_rk"]
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -167,7 +175,8 @@ def test_kernel_shapes_match_the_cuda_source():
     """KERNEL_SHAPES, in order, is the sources' SrbdShape, IsrbdAlShape,
     LipShape, QuadShape, QuadAlShape, PointFeetShape, SrbdRkShape,
     QuadRkShape, PointFeetRkShape, LipRkShape, LipQuadShape,
-    LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape
+    LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape, SquareFeetShape,
+    SquareFeetRkShape, LipSquareFeetShape, LipSquareFeetRkShape
     (csrc/riccati_common.cuh, one definition for K1 and K12)."""
     src = SHAPES_SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
@@ -178,7 +187,10 @@ def test_kernel_shapes_match_the_cuda_source():
                                        "QuadRkShape", "PointFeetRkShape",
                                        "LipRkShape", "LipQuadShape",
                                        "LipQuadRkShape", "LipPointFeetShape",
-                                       "LipPointFeetRkShape"]
+                                       "LipPointFeetRkShape", "SquareFeetShape",
+                                       "SquareFeetRkShape",
+                                       "LipSquareFeetShape",
+                                       "LipSquareFeetRkShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -282,7 +294,30 @@ def test_lip_family_instantiations():
             assert k1.kernel_instance(shape, form, solver) == i
             assert k1.KERNEL_INSTANCES[i] == (shape, form, solver)
             i += 1
-    assert len(k1.KERNEL_INSTANCES) == i == 40
+    assert i == 40
+
+
+def test_square_feet_instantiations():
+    """The square-feet biped's SRBD and LIP shapes, each under Euler and
+    under RK (RK2 and RK4 share a shape), have the collapsed sweep and the
+    Tassa sweep with either gain solve, appended as 40-51 in that order,
+    and are built into a library of their own
+    (csrc/riccati_backward_square_feet.cu); the rest stay in
+    riccati_backward's (the source's `with_instance` order is held by
+    test_torch_riccati_tassa.py)."""
+    forms = (("collapsed", "schur"), ("tassa", "schur"),
+             ("tassa", "cholesky"))
+    i = 40
+    for shape in ("square_feet", "square_feet_rk", "lip_square_feet",
+                  "lip_square_feet_rk"):
+        assert shape in k1.SQUARE_FEET_SHAPES
+        for form, solver in forms:
+            assert k1.kernel_instance(shape, form, solver) == i
+            assert k1.KERNEL_INSTANCES[i] == (shape, form, solver)
+            assert k1.library_name(i) == "riccati_backward_square_feet"
+            i += 1
+    assert len(k1.KERNEL_INSTANCES) == i == 52
+    assert {k1.library_name(j) for j in range(40)} == {"riccati_backward"}
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():

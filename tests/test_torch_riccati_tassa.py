@@ -221,7 +221,9 @@ def test_kernel_instances_resolve_and_others_are_refused():
 
 
 def test_kernel_instances_match_the_cuda_source():
-    """KERNEL_INSTANCES, in order, is the source's `with_instance` switch."""
+    """KERNEL_INSTANCES, in order, is the source's `with_instance` switch
+    (the square-feet biped's cases, 40-51, are the ones
+    csrc/riccati_backward_square_feet.cu compiles)."""
     src = SOURCE.read_text()
     cases = re.findall(r"case (\d+): return fn\(Inst<(\w+)Shape, Form::k(\w+), "
                        r"Solve::k(\w+)>\{\}\);", src)
@@ -232,7 +234,10 @@ def test_kernel_instances_match_the_cuda_source():
              "LipRk": "lip_rk", "LipQuad": "lip_quadruped",
              "LipQuadRk": "lip_quadruped_rk",
              "LipPointFeet": "lip_point_feet",
-             "LipPointFeetRk": "lip_point_feet_rk"}
+             "LipPointFeetRk": "lip_point_feet_rk",
+             "SquareFeet": "square_feet", "SquareFeetRk": "square_feet_rk",
+             "LipSquareFeet": "lip_square_feet",
+             "LipSquareFeetRk": "lip_square_feet_rk"}
     parsed = [(names[s], f.lower(), g.lower()) for _, s, f, g in cases]
     assert [int(i) for i, *_ in cases] == list(range(len(cases)))
     assert tuple(parsed) == k1.KERNEL_INSTANCES

@@ -1,0 +1,128 @@
+"""PyTorch port, the square-feet biped's SRBD problem (contact_model=4:
+four contact points a foot, nc=8, nx=61, nu=48; JAX's `TestNc8` robot)
+under the Euler step, against the JAX package on the CPU in float64 at ns=8
+(`_torch_parity.srbd_case`, `solve_results`, `tick_results`):
+
+  - the step, the stage residual, the equality rows and the terminal
+    residual at drawn points (the step to 1e-13, the rest to 1e-12);
+  - the declared rows exact at drawn points (every nonzero inside, every
+    declared row live), Euler's declarations JAX's, every row of B
+    declared under RK (ROADMAP F10);
+  - the K4 twin against JAX's dense `jacfwd` linearization, the K3 twin
+    (1 and 4 step sizes, a NaN start) and the srbd_evaluate twin (a NaN
+    in a plan, plain and pinned) against JAX's trial, `total_cost` and
+    `_true_defects`, to 1e-12;
+  - `MSDDP.solve` and `solve_batch` (B=4, pushes of 0.02) against JAX's
+    `solve` and `vmap(solve)`, and 3 `tick_batch` ticks against JAX's
+    `vmap(tick)`: iterations equal, plans, x, u0 and cost to 1e-9;
+  - JAX's `TestNc8` bar on the port's standing solve (defects below
+    1e-6, each contact's F_z within 0.05 of m·g/8);
+  - the dispatch: K4, K3, srbd_evaluate and K1 pick the square feet's
+    own instance, K1's in the square-feet library.
+"""
+
+import functools
+
+import pytest
+import torch
+
+from _torch_parity import (
+    SRBD_ORDER, agree, check_nc8_bar, check_srbd_declared_rows,
+    check_srbd_dispatch, check_srbd_evaluate, check_srbd_linearize,
+    check_srbd_node_functions, check_srbd_trial, max_rel_err, solve_results,
+    srbd_case, srbd_problems, tick_results,
+)
+from srbd_horizon_tpu_torch.config import DDPOptions
+from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+torch.set_num_threads(1)
+
+TOPOLOGY = "square_feet"
+STEPS = ("EULER",)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(step):
+    return srbd_case(TOPOLOGY, step)
+
+
+@functools.lru_cache(maxsize=None)
+def _solves(step):
+    return solve_results(TOPOLOGY, step)
+
+
+@pytest.fixture(scope="module", params=STEPS)
+def case(request):
+    return _case(request.param)
+
+
+@pytest.fixture(scope="module", params=STEPS)
+def solves(request):
+    return request.param, _solves(request.param)
+
+
+def test_problem_sizes(case):
+    tp = case["tp"]
+    assert (tp.ocp.nx, tp.ocp.nu, tp.nc) == (61, 48, 8)
+    assert tp.ocp.constants["terms"].n_rho == 129
+
+
+def test_node_functions_match_jax(case):
+    check_srbd_node_functions(case)
+
+
+@pytest.mark.parametrize("seed", [35, 36])
+def test_declared_rows_are_exact(case, seed):
+    check_srbd_declared_rows(case, seed)
+
+
+@pytest.mark.parametrize("key", SRBD_ORDER)
+def test_linearize_twin_matches_jax_dense(case, key):
+    check_srbd_linearize(case, key)
+
+
+@pytest.mark.parametrize("nA", [1, 4])
+def test_trial_twin_matches_jax(case, nA):
+    check_srbd_trial(case, nA)
+
+
+@pytest.mark.parametrize("pin", [False, True], ids=["plan", "pinned"])
+def test_evaluate_twin_matches_jax(case, pin):
+    check_srbd_evaluate(case, pin)
+
+
+def test_kernel_shapes_pick_the_instance(case):
+    check_srbd_dispatch(case, "square_feet", "square_feet")
+
+
+def test_solve_matches_jax(solves):
+    step, s = solves
+    agree(s["solve"], s["jax_solve"], f"{step} solve", ("X", "U", "cost"))
+    assert int(s["solve"].iterations) > 1
+
+
+def test_solve_batch_matches_vmap_solve(solves):
+    step, s = solves
+    agree(s["solve_batch"], s["jax_vmap_solve"], f"{step} solve_batch",
+          ("X", "U", "cost"))
+    assert float(s["solve_batch"].defect_norm.max()) < 1e-6
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_tick_batch_matches_vmap_tick(step):
+    for i, ((tc, to), (jc, jo)) in enumerate(tick_results(TOPOLOGY, step)):
+        agree(to, jo, f"{step} tick {i}", ("x", "u0", "cost"))
+        for f in ("X", "U"):
+            assert max_rel_err(getattr(tc.sol, f), getattr(jc.sol, f)) < 1e-9
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_standing_solve_meets_jaxs_bar(step):
+    """JAX's TestNc8 solve (max_iters=30 from the nominal state and the
+    static input tiled) on the port, under this step."""
+    _, tp = srbd_problems(TOPOLOGY, step)
+    s = MSDDP(tp.ocp, DDPOptions(max_iters=30))
+    U0 = tp.static_input[None].expand(tp.ocp.ns, -1).contiguous()
+    sol = s.solve(s.init(tp.initial_state, U0=U0), tp.initial_state,
+                  tp.ocp.params)
+    check_nc8_bar(tp, sol)
