@@ -401,10 +401,25 @@ parallel, into build/kernels/), then:
      phases 14 and 16 gate theirs; card = CPU in float64 at B=8 (3 ticks
      of each fleet; the LIP with max_iters=1 to 1e-9 and with max_iters=5
      by F8's rule) and the execution modes' refusal at contact_model=4.
+ 19. the line-feet quadruped (`line_feet_section`; contact_model=2 on four
+     legs, two points a foot, nc=8: the square feet's nx and nu, four
+     fewer rows of G; JAX's `TestLineFeetQuadruped` robot,
+     `line_feet_robot`) under Euler, RK2 and RK4, as phase 18 runs its
+     robot (`nc8_section`): the same kernel checks, times and occupancy at
+     its six instances and K1's twelve new instantiations
+     (csrc/riccati_backward_line_feet.cu), JAX's TestLineFeetQuadruped bar
+     on the card (a 20-iteration standing solve with
+     alpha_converge_threshold=1e-12 and beta=1e-3: converged, defects below
+     1e-6, Σ F_z within 1% of m·g), the trots with the 8-entry mask
+     (`line_feet_mask`; the quadruped example's options and vx 0.25 on the
+     SRBD, the dlip example's on the LIP; the SRBD trot's CoM within z0 ±
+     0.05 m, every trot's progress above 0), card = CPU in float64 at B=8,
+     and the refusals of the execution modes and of the isrbd path, each
+     naming nc=8 and ROADMAP.md.
 
 Each result is printed on a line of its own; a failed phase exits non-zero
 without a result. The next-to-last line is the kernel table as JSON,
-189 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
+219 rows (K4, K1, K3, K5, K1 at the isrbd sizes, K6,
 srbd_evaluate, isrbd_evaluate, K7, K8a, K8b, K8c, K2, K1's three Tassa
 instantiations, whose launches come from phases 8 and 9, the LIP rows of
 phase 10: K10, K1 at the LIP sizes, K11, lip_evaluate and K1's two LIP
@@ -425,8 +440,10 @@ fifteen instantiations at the five new LIP shapes, K2 at nu=9), and the
 eighteen rows of phase 17 (K12 at five LIP shapes × two gain solves, K13
 at eight LIP families), and the thirty-two rows of phase 18 (K4, K3,
 srbd_evaluate, K10, K11 and lip_evaluate at the square feet's three
-steps, K1's twelve square-feet instantiations, K2 at nu = 48 and 27); the
-last line is {"ok": true, "device": {...}}.
+steps, K1's twelve square-feet instantiations, K2 at nu = 48 and 27), and
+the thirty rows of phase 19 (the same six kernels at the line-feet
+quadruped's three steps, K1's twelve line-feet instantiations); the last
+line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --k12-versus OTHER_TREE [--parts k12,k13,k11,k7]
 
@@ -5278,10 +5295,12 @@ def family_split(inst):
 
 def family_loop(topology, step, dtype, device, opts=None, shift=False):
     """The MPC loop of one topology under one step: the quadruped example's
-    (`build_quadruped_loop`: max_iters=5, the trot WPG), or the biped's
-    (`build_srbd_loop`; the point-feet biped with `point_feet()`) with the
-    dsrbd example's options unless `opts` says otherwise."""
-    from srbd_horizon_tpu_torch.config import SRBDConfig
+    (`build_quadruped_loop`: max_iters=5, the trot WPG; on the line-feet
+    quadruped `build_srbd_loop` with its robot, the same options and the
+    trot's 8-entry mask), or the biped's (`build_srbd_loop`; the point-feet
+    biped with `point_feet()`) with the dsrbd example's options unless
+    `opts` says otherwise."""
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
     from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
                                                         point_feet)
     from srbd_horizon_tpu_torch.runtime.loop import (build_quadruped_loop,
@@ -5292,6 +5311,14 @@ def family_loop(topology, step, dtype, device, opts=None, shift=False):
         return build_quadruped_loop(SRBDConfig(dtype=dtype, **QUAD_TOPOLOGY),
                                     opts, shift_warmstart=shift,
                                     device=device, integrator=step)
+    if topology == "line_feet_quadruped":
+        # the quadruped example's options and trot, on the line feet
+        return build_srbd_loop(
+            SRBDConfig(dtype=dtype, **LINE_FEET_TOPOLOGY),
+            opts or DDPOptions(max_iters=5, alpha_converge_threshold=1e-12,
+                               beta=1e-3),
+            robot=line_feet_robot(), shift_warmstart=shift, device=device,
+            group_mask=line_feet_mask(), integrator=step)
     robot, topo = {
         "point_feet": (point_feet, dict(contact_model=1, number_of_legs=2)),
         "square_feet": (square_feet_robot, SQUARE_TOPOLOGY),
@@ -5731,7 +5758,8 @@ def family_single_path(inst, dev, card, ticks=40, cholesky_ticks=10,
         instance=inst, B=1, dtype="float32", ticks=ticks,
         cholesky_ticks=cholesky_ticks,
         walk=f"vx {vx} from tick 10",
-        options=("the quadruped example: max_iters=5" if topology == "quadruped"
+        options=("the quadruped example: max_iters=5"
+                 if topology in ("quadruped", "line_feet_quadruped")
                  else "the dsrbd example: max_iters=100") +
         ", alpha_converge_threshold=1e-12, beta=1e-3",
         tick_p50_ms=statistics.median(tms), tick_max_ms=max(tms),
@@ -6578,7 +6606,8 @@ LIP_FAMILY_NAN = 7              # the member with a NaN state / plan
 def lip_family_loop(inst, dtype, device, opts=None, shift=False):
     """The LIP loop of one instance (`build_lip_loop`: the dlip example's
     options unless `opts` says otherwise; the point-feet biped with
-    `point_feet()`, the quadruped with its robot and the trot WPG)."""
+    `point_feet()`, the quadruped with its robot and the trot WPG, the
+    line-feet quadruped with its robot and the trot's 8-entry mask)."""
     from srbd_horizon_tpu_torch.config import SRBDConfig
     from srbd_horizon_tpu_torch.models.kangaroo import (kangaroo_line_feet,
                                                         point_feet)
@@ -6592,7 +6621,9 @@ def lip_family_loop(inst, dtype, device, opts=None, shift=False):
         "quadruped": (QUAD_TOPOLOGY, quadruped_point_feet, trot_group_mask()),
         "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet,
                        None),
-        "square_feet": (SQUARE_TOPOLOGY, square_feet_robot, None)}[topology]
+        "square_feet": (SQUARE_TOPOLOGY, square_feet_robot, None),
+        "line_feet_quadruped": (LINE_FEET_TOPOLOGY, line_feet_robot,
+                                line_feet_mask())}[topology]
     return build_lip_loop(SRBDConfig(dtype=dtype, **topo), opts,
                           robot=robot(),
                           shift_warmstart=shift, dtype=dtype, device=device,
@@ -8015,7 +8046,7 @@ def lip_modes_section(card, dev, sms):
     return rows_out
 
 
-# ---------------- the square-feet biped (phase 18) ----------------
+# ---------------- the eight-contact robots (phases 18 and 19) ----------------
 
 # JAX's `TestNc8` robot (tests/test_configs.py): four contact points a foot
 # (contact_model=4, nc=8), the rows of `foot_positions` in the reference's
@@ -8034,6 +8065,22 @@ SQUARE_STAND_DEFECT = 1e-6
 # K1's and K2's instantiations at the square feet's shapes are built apart
 K1_SQUARE_SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward_square_feet.cu"
 
+# JAX's `TestLineFeetQuadruped` robot (tests/test_configs.py): the point-feet
+# quadruped with two contacts LINE_FEET_HALF either side of each foot along
+# x (contact_model=2 on four legs, nc=8), trotting with each foot's two
+# points in its leg's group
+LINE_FEET_TOPOLOGY = dict(contact_model=2, number_of_legs=4)
+LINE_FEET_HALF = 0.05
+LINE_FEET_INSTANCES = ("line_feet_quadruped", "line_feet_quadruped_rk2",
+                       "line_feet_quadruped_rk4")
+# JAX's bar in TestLineFeetQuadruped: a standing solve (max_iters=20,
+# alpha_converge_threshold=1e-12, beta=1e-3, from the nominal state)
+# converges, its defects below LINE_FEET_STAND_DEFECT, Σ F_z (each
+# contact's mean over the nodes) within LINE_FEET_FZ_RTOL of m·g / fs
+LINE_FEET_STAND_DEFECT = 1e-6
+LINE_FEET_FZ_RTOL = 0.01
+K1_LINE_FEET_SOURCE = "srbd_horizon_tpu_torch/csrc/riccati_backward_line_feet.cu"
+
 
 def square_feet_robot():
     """The square-feet biped as JAX's `_four_contact_feet()` builds it:
@@ -8049,6 +8096,30 @@ def square_feet_robot():
                           com=np.array([0.0, -0.09, 0.88]),
                           foot_positions=np.asarray(pts),
                           foot_frames=tuple(f"c{i}" for i in range(8)))
+
+
+def line_feet_robot():
+    """The line-feet quadruped as JAX's `TestLineFeetQuadruped` builds it:
+    the port's `quadruped_point_feet()` with each foot's point replaced by
+    two at ±LINE_FEET_HALF along x (c0, c1 lf's front and back, then rf,
+    lh, rh), frames c0…c7."""
+    import numpy as np
+
+    from srbd_horizon_tpu_torch.models.quadruped import quadruped_point_feet
+
+    q = quadruped_point_feet()
+    pts = [p + s * np.array([LINE_FEET_HALF, 0.0, 0.0])
+           for p in np.asarray(q.foot_positions) for s in (1.0, -1.0)]
+    return dataclasses.replace(q, foot_positions=np.asarray(pts),
+                               foot_frames=tuple(f"c{i}" for i in range(8)))
+
+
+def line_feet_mask():
+    """The trot's group mask over the eight contacts: each foot's two
+    points take their leg's entry of `trot_group_mask()`."""
+    from srbd_horizon_tpu_torch.models.quadruped import trot_group_mask
+
+    return tuple(g for g in trot_group_mask() for _ in range(2))
 
 
 def square_standing(dev, dtype):
@@ -8082,22 +8153,75 @@ def square_standing(dev, dtype):
                             and torch.isfinite(sol.U).all())), launches
 
 
-def square_refusals():
-    """The execution modes at contact_model=4: `MSDDP` refuses K12 and K13
-    for both problems (NotImplementedError naming both and ROADMAP.md).
-    Returns the messages; fails the run if either builds."""
+def square_standing_ok(st):
+    return (st["finite"] and st["defect_norm"] < SQUARE_STAND_DEFECT
+            and st["fz_max_dev"] <= SQUARE_FZ_TOL)
+
+
+def line_feet_standing(dev, dtype):
+    """JAX's `TestLineFeetQuadruped::test_srbd_cm2_legs4_solve` on the
+    card: the line-feet quadruped's SRBD problem solved standing
+    (max_iters=20, alpha_converge_threshold=1e-12, beta=1e-3, from the
+    nominal state) by `MSDDP.solve`; convergence, the defect norm, Σ F_z
+    of the contacts' node means against m·g / fs, the iterations and the
+    launches."""
     import torch
 
     from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
-    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
     from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
     from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
 
-    cfg = SRBDConfig(dtype=torch.float64, ns=4, **SQUARE_TOPOLOGY)
+    prob = build_srbd_problem(SRBDConfig(dtype=dtype, **LINE_FEET_TOPOLOGY),
+                              line_feet_robot(), device=dev)
+    s = MSDDP(prob.ocp, DDPOptions(max_iters=20, alpha_converge_threshold=1e-12,
+                                   beta=1e-3))
+    x0 = prob.initial_state
+    family_counts_reset()
+    sol = s.solve(s.init(x0), x0, prob.ocp.params)
+    torch.cuda.synchronize()
+    launches = family_counts()
+    fz = float(sol.U[:, 5::6].double().cpu().mean(dim=0).sum())
+    want = prob.mass * 9.81 / prob.force_scaling
+    return dict(dtype=str(dtype)[6:], iterations=int(sol.iterations),
+                converged=bool(sol.converged),
+                defect_norm=float(sol.defect_norm), fz_sum=fz,
+                fz_expected=want, fz_rel_dev=abs(fz - want) / want,
+                fz_rtol=LINE_FEET_FZ_RTOL, cost=float(sol.cost),
+                finite=bool(torch.isfinite(sol.X).all()
+                            and torch.isfinite(sol.U).all())), launches
+
+
+def line_feet_standing_ok(st):
+    return (st["finite"] and st["converged"]
+            and st["defect_norm"] < LINE_FEET_STAND_DEFECT
+            and st["fz_rel_dev"] <= LINE_FEET_FZ_RTOL)
+
+
+def nc8_refusals(topology, robot, isrbd):
+    """The execution modes at an eight-contact robot: `MSDDP` refuses K12
+    and K13 for both problems (NotImplementedError naming both problems,
+    nc=8 and ROADMAP.md) before any launch; with `isrbd`, the isrbd
+    kernels' shape check refuses the robot's AL inner problem too (naming
+    nc=8 and ROADMAP.md). Returns the messages; fails the run if any
+    builds or anything launches."""
+    import torch
+
+    from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
+    from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
+    from srbd_horizon_tpu_torch.kernels import linear_trial as k13
+    from srbd_horizon_tpu_torch.kernels import riccati_associative as k12
+    from srbd_horizon_tpu_torch.problems.isrbd import build_isrbd_problem
+    from srbd_horizon_tpu_torch.problems.lip import build_lip_problem
+    from srbd_horizon_tpu_torch.problems.srbd import build_srbd_problem
+    from srbd_horizon_tpu_torch.solvers.alddp import ALDDP
+    from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
+
+    cfg = SRBDConfig(dtype=torch.float64, ns=4, **topology)
     out = {}
+    before = (k12.riccati_associative.launches, k13.linear_trial.launches)
     for name, build in (("srbd", build_srbd_problem),
                         ("lip", build_lip_problem)):
-        prob = build(cfg, square_feet_robot(), device="cpu")
+        prob = build(cfg, robot(), device="cpu")
         for mode in (dict(riccati_mode="associative"),
                      dict(forward_pass="linear")):
             key = f"{name}_{'_'.join(mode.values())}"
@@ -8105,29 +8229,100 @@ def square_refusals():
                 MSDDP(prob.ocp, DDPOptions(**mode))
             except NotImplementedError as err:
                 msg = str(err)
-                if not ("ROADMAP.md" in msg and "the SRBD and the LIP" in msg):
-                    fail(f"square_refusals: {key}: the refusal does not name "
-                         f"both problems and ROADMAP.md: {msg}")
-                out[key] = msg[:160]
+                if not ("ROADMAP.md" in msg and "the SRBD and the LIP" in msg
+                        and "nc=8" in msg):
+                    fail(f"nc8_refusals: {key}: the refusal does not name "
+                         f"both problems, nc=8 and ROADMAP.md: {msg}")
+                out[key] = msg[:240]
                 continue
-            fail(f"square_refusals: the {name} problem at contact_model=4 "
-                 f"built under {mode}")
+            fail(f"nc8_refusals: the {name} problem at {topology} built "
+                 f"under {mode}")
+    if isrbd:
+        r = robot()
+        prob = build_isrbd_problem(
+            dataclasses.replace(cfg, lip_height=float(r.com[2])), r,
+            cz_rho_weight=None, device="cpu")
+        al = ALDDP(prob.ocp, DDPOptions(max_iters=1))
+        try:
+            k5.check_kernel_shape("isrbd_linearize", al.terms, prob.ocp.nx,
+                                  prob.ocp.nu, al.inner.rows)
+            fail(f"nc8_refusals: the isrbd kernels take {topology}")
+        except ValueError as err:
+            msg = str(err)
+            if not ("'nc': 8" in msg and "ROADMAP.md Queue 2 row 13" in msg):
+                fail(f"nc8_refusals: the isrbd refusal does not name nc=8 "
+                     f"and ROADMAP.md Queue 2 row 13: {msg}")
+            out["isrbd"] = msg[-240:]
+    if (k12.riccati_associative.launches,
+            k13.linear_trial.launches) != before:
+        fail("nc8_refusals: a refused mode launched K12 or K13")
     return out
+
+
+# One eight-contact robot's phase: its number, its name in the tags and
+# rows, the tags' prefix, the instances, K1's source, the standing check
+# and its gate, the single walks' vx and gates (a biped's band, or a
+# trot's z0 ± QUAD_HEIGHT_BAND with progress above 0), whether it has
+# rows of K2 alone (the square feet's library holds K2's standalone entry
+# at nu = 48 and 27), its refusals, and the rule its LIP fleet's card =
+# CPU takes under the fleet's options: phase 18's holds every tick's cost
+# to 1e-9 (`lip_family_versus`), phase 19's F8's rule as phase 17 and the
+# CPU tests (`check_lip_ticks`) take it (`lmf_versus`: the cost at tick 0
+# to 1e-9; the line-feet quadruped's floor steps, u0 ~1e-7, move the
+# self-simulated x by ~2e-8 and the later ticks' costs past 1e-9).
+NC8_PHASES = {
+    "square_feet": dict(
+        phase=18, prefix="square", instances=SQUARE_INSTANCES,
+        k1_source=K1_SQUARE_SOURCE, standing=square_standing,
+        standing_ok=square_standing_ok, bar="JAX's TestNc8 bar", vx=0.3,
+        trot=False, k2_rows=True,
+        refusals=lambda: nc8_refusals(SQUARE_TOPOLOGY, square_feet_robot,
+                                      isrbd=False),
+        lip_versus=lip_family_versus),
+    "line_feet_quadruped": dict(
+        phase=19, prefix="line_feet", instances=LINE_FEET_INSTANCES,
+        k1_source=K1_LINE_FEET_SOURCE, standing=line_feet_standing,
+        standing_ok=line_feet_standing_ok,
+        bar="JAX's TestLineFeetQuadruped bar", vx=0.25, trot=True,
+        k2_rows=False,
+        refusals=lambda: nc8_refusals(LINE_FEET_TOPOLOGY, line_feet_robot,
+                                      isrbd=True),
+        lip_versus=lmf_versus),
+}
 
 
 def square_feet_section(card, dev, sms):
     """Phase 18: the square-feet biped (contact_model=4, nc=8: the SRBD at
     nx=61, nu=48, the LIP at nx=54, nu=27) under Euler, RK2 and RK4 on K4,
     K3, srbd_evaluate, K10, K11, lip_evaluate and K1 (its twelve new
-    instantiations, K2 inside). The kernel checks and times of phases 14
-    and 16 at the six (problem, step) instances (`family_check`,
-    `family_times`, `lip_family_check`, `lip_family_times`), K2 alone at
-    nu = 48 and 27, JAX's standing bar (`square_standing`), the paths (the
-    SRBD and LIP fleets at B=512 under Euler, an RK2 fleet of each, a
-    single-robot walk of each problem under Euler and under RK4, each with
-    Cholesky ticks after it), card = CPU in float64 at B=8 and the
-    execution modes' refusal (`square_refusals`). Returns the kernel rows
-    of the `kernels` line."""
+    instantiations, K2 inside), as `nc8_section` runs it, with K2 alone at
+    nu = 48 and 27 and JAX's TestNc8 standing bar (`square_standing`)."""
+    return nc8_section("square_feet", card, dev, sms)
+
+
+def line_feet_section(card, dev, sms):
+    """Phase 19: the line-feet quadruped (contact_model=2 on four legs,
+    nc=8: the square feet's nx and nu, four fewer rows of G) under Euler,
+    RK2 and RK4 on K4, K3, srbd_evaluate, K10, K11, lip_evaluate and K1
+    (its twelve new instantiations, csrc/riccati_backward_line_feet.cu),
+    as `nc8_section` runs it: the trots with the 8-entry mask, JAX's
+    TestLineFeetQuadruped standing bar (`line_feet_standing`) and the
+    refusals of the modes and of the isrbd path."""
+    return nc8_section("line_feet_quadruped", card, dev, sms)
+
+
+def nc8_section(robot, card, dev, sms):
+    """One eight-contact robot's phase (`NC8_PHASES[robot]`) under Euler,
+    RK2 and RK4 on K4, K3, srbd_evaluate, K10, K11, lip_evaluate and K1.
+    The kernel checks and times of phases 14 and 16 at the six (problem,
+    step) instances (`family_check`, `family_times`, `lip_family_check`,
+    `lip_family_times`), the occupancy against the wrappers' reckoning,
+    K2 alone at nu = 48 and 27 where the phase has its rows, the standing
+    bar, the paths (the SRBD and LIP fleets at B=512 under Euler, an RK2
+    fleet of each, a single-robot walk or trot of each problem under Euler
+    and under RK4, each with Cholesky ticks after it), card = CPU in
+    float64 at B=8 and the refusals. Returns the kernel rows of the
+    `kernels` line."""
     import torch
 
     from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -8136,6 +8331,8 @@ def square_feet_section(card, dev, sms):
     from srbd_horizon_tpu_torch.kernels import riccati as k1
     from srbd_horizon_tpu_torch.kernels import rollout as k3
 
+    spec = NC8_PHASES[robot]
+    instances, pre, phase = spec["instances"], spec["prefix"], spec["phase"]
     t_section = time.perf_counter()
     parts = {}                    # seconds into the section at each part's end
 
@@ -8145,41 +8342,41 @@ def square_feet_section(card, dev, sms):
     f64 = torch.float64
     errs, k1_shapes, times, occ = {}, {}, {}, {}
     jup = {}
-    for inst in SQUARE_INSTANCES:
+    for inst in instances:
         res, k1_shape, lin64, sweep64, pt = family_check(inst, dev)
         errs["srbd", inst], k1_shapes["srbd", inst] = res, k1_shape
         t, o = family_times(inst, dev, lin64, sweep64, pt)
         times.update(t)
         occ.update(o)
-        if inst == "square_feet":
+        if inst == robot:
             jup[48] = lin64["Jup"]
         del lin64, sweep64, pt
         torch.cuda.empty_cache()
     mark("srbd_checks_and_times")
-    for inst in SQUARE_INSTANCES:
+    for inst in instances:
         res, k1_shape, lin64, sweep64, pt = lip_family_check(inst, dev)
         errs["lip", inst], k1_shapes["lip", inst] = res, k1_shape
         t, o = lip_family_times(inst, dev, lin64, sweep64, pt)
         times.update(t)
         occ.update(o)
-        if inst == "square_feet":
+        if inst == robot:
             jup[27] = lin64["Jup"]
         del lin64, sweep64, pt
         torch.cuda.empty_cache()
     mark("lip_checks_and_times")
     # K3's block: the card's shared memory is the wrapper's reckoning
-    for inst in SQUARE_INSTANCES:
+    for inst in instances:
         for dtype in (torch.float32, f64):
             want = k3.trial_layout(dtype, inst)
             got = k3.trial_occupancy(dtype, inst)
             if (got["shared_memory_bytes"] != want["bytes"]
                     or got["blocks_per_sm"] < 1):
-                fail(f"square_feet_section: K3 {inst} {dtype}: the card "
+                fail(f"{robot}_section: K3 {inst} {dtype}: the card "
                      f"holds {got}, the wrapper reckons {want}")
             occ[f"srbd_trial_{inst}"][f"layout_{str(dtype)[6:]}"] = dict(
                 want, occupancy=got)
     # K1: the card's shared memory is `layout_bytes`, and it fits
-    for shape in k1.SQUARE_FEET_SHAPES:
+    for shape in sorted(set(k1_shapes.values()), key=list(k1.KERNEL_SHAPES).index):
         z = k1.KERNEL_SHAPES[shape]
         # row sets of the shape's sizes (the queries read their lengths)
         rows = k1.RiccatiRows(**{f: tuple(range(z[n])) for f, n in (
@@ -8194,21 +8391,21 @@ def square_feet_section(card, dev, sms):
                 blocks = k1.blocks_per_sm(z["nx"], z["nu"], z["nt"], rows,
                                           dtype, **kw)
                 if smem != k1.layout_bytes(shape, dtype) or blocks < 1:
-                    fail(f"square_feet_section: K1 {shape} {form} {solver} "
+                    fail(f"{robot}_section: K1 {shape} {form} {solver} "
                          f"{dtype}: {smem} B, {blocks} blocks an SM")
                 name = k1_row_name(shape, form, solver)
                 occ.setdefault(name, {})[str(dtype)[6:]] = dict(
                     shared_memory_bytes=smem, blocks_per_sm=blocks)
-    emit("square_feet_times", card=card, dtype="float32", sms=sms,
+    emit(f"{robot}_times", card=card, dtype="float32", sms=sms,
          times={k: {str(b): v for b, v in d.items()} for k, d in times.items()},
          occupancy=occ)
-    k2 = {nu: k2_check(f"square_feet_k2_check_nu{nu}", k1, jup[nu], 1e-6,
-                       nu=nu) for nu in (48, 27)}
+    k2 = ({nu: k2_check(f"{robot}_k2_check_nu{nu}", k1, jup[nu], 1e-6, nu=nu)
+           for nu in (48, 27)} if spec["k2_rows"] else {})
     del jup
     torch.cuda.empty_cache()
     mark("occupancy_and_k2")
 
-    # ---- JAX's standing bar on the card ----
+    # ---- the standing bar on the card ----
     path_launches = defaultdict(int)
 
     def add(launches):
@@ -8217,14 +8414,13 @@ def square_feet_section(card, dev, sms):
 
     stand = {}
     for dtype in (f64, torch.float32):
-        stand[str(dtype)[6:]], launches = square_standing(dev, dtype)
+        stand[str(dtype)[6:]], launches = spec["standing"](dev, dtype)
         add(launches)
-    emit("square_feet_standing", card=card, **stand)
+    emit(f"{robot}_standing", card=card, **stand)
     mark("standing")
     st = stand["float64"]
-    if not (st["finite"] and st["defect_norm"] < SQUARE_STAND_DEFECT
-            and st["fz_max_dev"] <= SQUARE_FZ_TOL):
-        fail(f"square_feet_standing: JAX's TestNc8 bar not met: {st}")
+    if not spec["standing_ok"](st):
+        fail(f"{robot}_standing: {spec['bar']} not met: {st}")
 
     # ---- the paths ----
     def k1_names(problem, inst, forms):
@@ -8234,6 +8430,18 @@ def square_feet_section(card, dev, sms):
     collapsed = (("collapsed", "schur"),)
 
     def walk_gates(tag, res, lip):
+        if spec["trot"]:
+            # the SRBD trot holds z0 ± QUAD_HEIGHT_BAND (the point-feet
+            # quadruped's gate); the LIP lifts the CoM from the feet's 0.40 m
+            # to its 0.88 m pendulum, so its height is reported
+            z0, band = res["z0"], QUAD_HEIGHT_BAND
+            if not lip and max(abs(res["com_z_min"] - z0),
+                               abs(res["com_z_max"] - z0)) >= band:
+                fail(f"{tag}: the trot's CoM height left z0 ± {band}: "
+                     f"{res['com_z_min']}, {res['com_z_max']}")
+            if not res["forward_progress_m"] > 0:
+                fail(f"{tag}: the trot made no forward progress")
+            return
         z, band = (LIP_HEIGHT if lip else FAMILY_HEIGHT), FAMILY_HEIGHT_BAND
         if max(abs(res["com_z_min"] - z), abs(res["com_z_max"] - z)) > band:
             fail(f"{tag}: the CoM height left {z} ± {band}: "
@@ -8242,14 +8450,13 @@ def square_feet_section(card, dev, sms):
             fail(f"{tag}: forward progress {res['forward_progress_m']} m, not "
                  f"above {FAMILY_PROGRESS}")
 
+    euler, rk2, rk4 = instances
     summary = {}
-    for tag, inst, ticks in (("square_srbd_walk", "square_feet",
-                              FAMILY_SINGLE_TICKS),
-                             ("square_srbd_rk4_walk", "square_feet_rk4",
-                              FAMILY_SHORT_TICKS)):
+    for tag, inst, ticks in ((f"{pre}_srbd_walk", euler, FAMILY_SINGLE_TICKS),
+                             (f"{pre}_srbd_rk4_walk", rk4, FAMILY_SHORT_TICKS)):
         res, launches, guards, *_ = family_single_path(
             inst, dev, card, ticks=ticks,
-            cholesky_ticks=FAMILY_CHOLESKY_TICKS)
+            cholesky_ticks=FAMILY_CHOLESKY_TICKS, quadruped_walk=spec["trot"])
         emit(tag, **res)
         family_gates(tag, res, launches, inst,
                      k1_names("srbd", inst, tassa_both), guards)
@@ -8262,9 +8469,8 @@ def square_feet_section(card, dev, sms):
         summary[tag] = res["tick_p50_ms"]
         add(launches)
     for tag, inst, timed, prof in (
-            ("square_srbd_fleet", "square_feet", FAMILY_FLEET_TIMED, True),
-            ("square_srbd_rk2_fleet", "square_feet_rk2", FAMILY_SHORT_TICKS,
-             False)):
+            (f"{pre}_srbd_fleet", euler, FAMILY_FLEET_TIMED, True),
+            (f"{pre}_srbd_rk2_fleet", rk2, FAMILY_SHORT_TICKS, False)):
         res, launches, guards = family_fleet_path(
             inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
         emit(tag, **res)
@@ -8277,12 +8483,10 @@ def square_feet_section(card, dev, sms):
         summary[tag] = (res["tick_p50_ms"], res.get("device_idle_share"))
         add(launches)
     torch.cuda.empty_cache()
-    for tag, inst, ticks in (("square_lip_walk", "square_feet",
-                              FAMILY_SINGLE_TICKS),
-                             ("square_lip_rk4_walk", "square_feet_rk4",
-                              FAMILY_SHORT_TICKS)):
+    for tag, inst, ticks in ((f"{pre}_lip_walk", euler, FAMILY_SINGLE_TICKS),
+                             (f"{pre}_lip_rk4_walk", rk4, FAMILY_SHORT_TICKS)):
         res, launches, guards = lip_family_single(
-            inst, dev, card, ticks, FAMILY_CHOLESKY_TICKS, 0.3)
+            inst, dev, card, ticks, FAMILY_CHOLESKY_TICKS, spec["vx"])
         res = dict(res, problem="lip")
         emit(tag, **res)
         lip_family_gates(tag, res, launches, inst,
@@ -8292,9 +8496,8 @@ def square_feet_section(card, dev, sms):
         summary[tag] = res["tick_p50_ms"]
         add(launches)
     for tag, inst, timed, prof in (
-            ("square_lip_fleet", "square_feet", FAMILY_FLEET_TIMED, True),
-            ("square_lip_rk2_fleet", "square_feet_rk2", FAMILY_SHORT_TICKS,
-             False)):
+            (f"{pre}_lip_fleet", euler, FAMILY_FLEET_TIMED, True),
+            (f"{pre}_lip_rk2_fleet", rk2, FAMILY_SHORT_TICKS, False)):
         res, launches, guards = lip_family_fleet_path(
             inst, dev, card, FAMILY_FLEET_WARM if prof else 0, timed, prof)
         emit(tag, **res)
@@ -8305,13 +8508,12 @@ def square_feet_section(card, dev, sms):
     torch.cuda.empty_cache()
     mark("paths")
 
-    # ---- square_feet_card_vs_cpu: float64, both fleets at B=8, 3 ticks;
-    # the LIP with max_iters=1 (the exact step) and with max_iters=5 by
-    # F8's floor rule ----
+    # ---- card = CPU: float64, both fleets at B=8, 3 ticks; the LIP with
+    # max_iters=1 (the exact step) and with max_iters=5 by F8's floor
+    # rule ----
     def fleet_ticks(lip, device, n_ticks, max_iters=5):
         make = lip_family_fleet if lip else family_fleet
-        loop, c, inp = make("square_feet", 8, f64, device,
-                            max_iters=max_iters)
+        loop, c, inp = make(euler, 8, f64, device, max_iters=max_iters)
         res = []
         for _ in range(n_ticks):
             c, o = loop.tick_batch(c, inp)
@@ -8324,24 +8526,24 @@ def square_feet_section(card, dev, sms):
             fleet_ticks(False, dev, 3), fleet_ticks(False, "cpu", 3))),
         lip_fleet_B8=dict(
             ticks=3,
-            exact_step=lip_family_versus(fleet_ticks(True, dev, 3, 1),
-                                         fleet_ticks(True, "cpu", 3, 1),
-                                         floor=False),
-            options=lip_family_versus(fleet_ticks(True, dev, 3),
-                                      fleet_ticks(True, "cpu", 3),
-                                      floor=True)))
-    emit("square_feet_card_vs_cpu", **fvc)
+            exact_step=spec["lip_versus"](fleet_ticks(True, dev, 3, 1),
+                                          fleet_ticks(True, "cpu", 3, 1),
+                                          floor=False),
+            options=spec["lip_versus"](fleet_ticks(True, dev, 3),
+                                       fleet_ticks(True, "cpu", 3),
+                                       floor=True)))
+    emit(f"{robot}_card_vs_cpu", **fvc)
     if not (fvc["srbd_fleet_B8"]["ok"] and fvc["lip_fleet_B8"]["exact_step"]["ok"]
             and fvc["lip_fleet_B8"]["options"]["ok"]):
-        fail("the phase-18 card path and CPU path disagree")
-    refusals = square_refusals()
-    emit("square_feet_refusals", **refusals)
+        fail(f"the phase-{phase} card path and CPU path disagree")
+    refusals = spec["refusals"]()
+    emit(f"{robot}_refusals", **refusals)
     mark("card_vs_cpu_and_refusals")
 
     # ---- the kernel rows: launches from this phase's paths ----
     trial_tol = "2*plain_rel_err_f32 + 1e-6"
     specs = []        # (row name, module, error key, (problem, instance))
-    for inst in SQUARE_INSTANCES:
+    for inst in instances:
         specs += [(f"srbd_linearize_{inst}", k4, "k4", ("srbd", inst)),
                   (f"srbd_trial_{inst}", k3, "k3", ("srbd", inst)),
                   (f"srbd_evaluate_{inst}", k3, "evaluate", ("srbd", inst)),
@@ -8374,11 +8576,12 @@ def square_feet_section(card, dev, sms):
                          bound_ms_by_B={str(b): v["bound_ms"]
                                         for b, v in t.items()},
                          achieved_GB_per_s=tt["achieved_GB_per_s"],
-                         launches_of="phase 18's paths", **occ.get(name, {}))
+                         launches_of=f"phase {phase}'s paths",
+                         **occ.get(name, {}))
         row["tol_f64"] = (1e-9 if mod is k1 else LIP_F64_TOL if src[0] == "lip"
                           else FAMILY_F64_TOL)
         if mod is k1:
-            row["source"] = K1_SQUARE_SOURCE
+            row["source"] = spec["k1_source"]
         if key == "evaluate":
             row["replaces"] = mod.EVALUATE_REPLACES
         elif tassa_row:
@@ -8388,8 +8591,8 @@ def square_feet_section(card, dev, sms):
         if key == "k11":
             row["chain_ms"] = tt["chain_ms"]
         rows_out.append(row)
-    for nu, problem in ((48, "srbd"), (27, "lip")):
-        shapes = {k1_shapes[problem, i] for i in SQUARE_INSTANCES}
+    for nu, problem in ((48, "srbd"), (27, "lip")) if k2 else ():
+        shapes = {k1_shapes[problem, i] for i in instances}
         k2_launches = sum(path_launches.get(k1_row_name(*ki), 0)
                           for ki in k1.KERNEL_INSTANCES
                           if ki[0] in shapes and ki[2] == "schur")
@@ -8400,15 +8603,15 @@ def square_feet_section(card, dev, sms):
             dict(e64=r["f64_rel_err"], e32=r["f32_rel_err"],
                  p32=r["f32_plain_rel_err"], abs32=r["f32_max_abs_err"]),
             K2_F32_TOL, launches_of="K1 with the block-Schur inverse at the "
-            f"square-feet {problem.upper()} shapes on phase 18's paths (K2 "
-            "runs inside K1)", stack=r["stack"], ms_f64=r["ms_f64"],
+            f"square-feet {problem.upper()} shapes on phase {phase}'s paths "
+            "(K2 runs inside K1)", stack=r["stack"], ms_f64=r["ms_f64"],
             library_ms_f32=r["torch_linalg_inv_ms_f32"]),
-            replaces=k1.K2_REPLACES, source=K1_SQUARE_SOURCE,
+            replaces=k1.K2_REPLACES, source=spec["k1_source"],
             library_ms=r["torch_linalg_inv_ms_f64"]))
     missing = [r["name"] for r in rows_out if r["launches"] == 0]
     if missing:
-        fail(f"phase 18: kernels not launched on its paths: {missing}")
-    emit("square_feet_section", seconds=time.perf_counter() - t_section,
+        fail(f"phase {phase}: kernels not launched on its paths: {missing}")
+    emit(f"{robot}_section", seconds=time.perf_counter() - t_section,
          card=card, rows=len(rows_out), path_launches=dict(path_launches),
          tick_p50_ms=summary, seconds_at_end_of=parts)
     return rows_out
@@ -11080,6 +11283,10 @@ def main():
 
     # ---------------- phase 18: the square-feet biped (contact_model=4) ----
     family_rows += square_feet_section(card, dev, sms)
+
+    # ---------------- phase 19: the line-feet quadruped (contact_model=2,
+    # four legs) ----
+    family_rows += line_feet_section(card, dev, sms)
 
     lin_tol = f"2*plain_rel_err_f32 + 1e-6, and <= {K4_F32_CAP}"
     trial_tol = "2*plain_rel_err_f32 + 1e-6"

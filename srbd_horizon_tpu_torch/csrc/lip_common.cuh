@@ -39,10 +39,12 @@ using rigid::warp_sum;
 // The contact topologies the LIP kernels are compiled for, one struct a
 // robot: build_lip_problem with the Kangaroo's line feet, the quadruped's
 // point feet (models/quadruped.py), the point-feet biped
-// (models/kangaroo.py::point_feet) and the square-feet biped (four contact
+// (models/kangaroo.py::point_feet), the square-feet biped (four contact
 // points a foot, contact_model=4: nx=54, more state rows than a warp has
-// lanes), each under the Euler step; `Stepped` gives the same topology
-// under RK2 or RK4.
+// lanes) and the line-feet quadruped (two contact points a foot on four
+// legs, contact_model=2: the square feet's nx and nu, fewer
+// relative-velocity rows), each under the Euler step; `Stepped` gives the
+// same topology under RK2 or RK4.
 // kernels/lip_linearize.py::TOPOLOGIES holds the same numbers in the same
 // order (a test reads them from here); on CUDA tensors of any other sizes
 // the wrappers raise. The row counts are those of RiccatiRows.from_ocp
@@ -75,6 +77,13 @@ struct SquareFeetShape {
   using Step = Euler;
 };
 
+struct LineFeetQuadShape {
+  static constexpr int nc = 8, cm = 2, n_legs = 4, nx = 54, nu = 27,
+                       n_rho = 72, nt = 10, n_rx = 30, n_ru = 27, n_gx = 48,
+                       n_gu = 30;
+  using Step = Euler;
+};
+
 // A topology under another step: the RK stages carry u into the position
 // rows through the velocities, so B has nx live rows (A − I keeps
 // Euler's).
@@ -89,8 +98,8 @@ constexpr int kUnknownShape = -2;
 
 // fn(S{}) for the (topology, step) instance at `index` in the order of
 // kernels/lip_linearize.py::KERNEL_SHAPES — the first three topologies
-// under Euler, then each under RK2 and RK4, then the square-feet biped
-// under the three steps — or kUnknownShape.
+// under Euler, then each under RK2 and RK4, then the square-feet biped and
+// the line-feet quadruped, each under the three steps — or kUnknownShape.
 template <class Fn>
 inline int with_shape(int index, Fn fn) {
   switch (index) {
@@ -106,6 +115,9 @@ inline int with_shape(int index, Fn fn) {
     case 9: return fn(SquareFeetShape{});
     case 10: return fn(Stepped<SquareFeetShape, Rk2>{});
     case 11: return fn(Stepped<SquareFeetShape, Rk4>{});
+    case 12: return fn(LineFeetQuadShape{});
+    case 13: return fn(Stepped<LineFeetQuadShape, Rk2>{});
+    case 14: return fn(Stepped<LineFeetQuadShape, Rk4>{});
     default: return kUnknownShape;
   }
 }
@@ -138,6 +150,8 @@ inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
     return with_step<PointFeetShape>(step, fn);
   if (is_topology<SquareFeetShape>(nc, cm, n_legs))
     return with_step<SquareFeetShape>(step, fn);
+  if (is_topology<LineFeetQuadShape>(nc, cm, n_legs))
+    return with_step<LineFeetQuadShape>(step, fn);
   return kUnknownShape;
 }
 
@@ -383,7 +397,8 @@ __device__ T stage_rho_row(int g, const T* x, const T* u, const T* p,
 }
 
 // Rows a lane takes when a warp sums a node's stage rows: two up to 64
-// rows, three for the square-feet biped's 76.
+// rows, three for the square-feet biped's 76 and the line-feet
+// quadruped's 72.
 template <class S>
 constexpr int kRowsALane = (S::n_rho + 31) / 32 < 2 ? 2 : (S::n_rho + 31) / 32;
 

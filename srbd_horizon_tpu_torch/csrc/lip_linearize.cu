@@ -30,7 +30,7 @@
 // the twin's scale × weight; a structural zero stays zero whatever the
 // scale), so the Jacobians agree with the twin bit for bit.
 //
-// Compiled for the twelve (topology, step) instances of csrc/lip_common.cuh
+// Compiled for the fifteen (topology, step) instances of csrc/lip_common.cuh
 // (the kernel is a template of the shape, `lip::with_topology` picks the
 // instance): the per-node output sizes, the records and every loop bound
 // are constants; the wrapper refuses other sizes. The row table stays a run-time input:
@@ -91,8 +91,9 @@ constexpr int kGroupUnits = 1;           // a fleet's group: kGroupUnits·kVec<T
 // The launch bound's blocks an SM at instance S: kMinBlocks, but one for
 // the square-feet biped (nx = 54), whose 2,808 Jxp values a node give a
 // thread six slots of Jxp scales and units: held to 64 registers they
-// spilled 48 bytes a thread in float32 on an H100. The grid still takes
-// up to kMinBlocks blocks an SM.
+// spilled 48 bytes a thread in float32 on an H100 (the line-feet
+// quadruped's 2,592 take as many slots). The grid still takes up to
+// kMinBlocks blocks an SM.
 template <class S>
 constexpr int kBoundBlocks = S::nx > 32 ? 1 : kMinBlocks;
 
@@ -282,7 +283,7 @@ lip_linearize_kernel(const T* __restrict__ X, const T* __restrict__ U,
   int g = blockIdx.x, buf = 0;
   if (g < n_stage) load_stage(g);
   // this thread's Jxp scales, once, while the first records load: each
-  // Jxp value's scale (5 bits: the square-feet biped's reach 20) and node
+  // Jxp value's scale (5 bits: both eight-contact robots' reach 20) and node
   // in the group (3 bits), 8 bits a value
   unsigned scale[slots(kUnitsJxp)];
   const int* gx = table + S::n_rx + S::n_ru;

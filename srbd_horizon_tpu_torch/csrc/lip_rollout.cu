@@ -33,13 +33,14 @@
 // solve's pin, msddp.py:1221; x0's rows may lie apart). Plain twin:
 // `kernels/lip_rollout.py::lip_evaluate_plain`.
 //
-// Both are compiled for the twelve (topology, step) instances of
+// Both are compiled for the fifteen (topology, step) instances of
 // csrc/lip_common.cuh (`lip::with_topology` picks one), so every loop over
 // rows and columns has a constant trip count; the wrappers refuse other
 // sizes.
 //
-// The square-feet biped (`lip::SquareFeetShape`: nx=54, nu=27) has more
-// state rows than a warp has lanes, so its chain takes a pair a lane
+// The square-feet biped and the line-feet quadruped
+// (`lip::SquareFeetShape`, `lip::LineFeetQuadShape`: nx=54, nu=27) have
+// more state rows than a warp has lanes, so their chain takes a pair a lane
 // (`kPairs`, `chain_node_pairs`): lane i < nx/2 holds pair i — x̂ᵢ, x̂ᵢ₊ₙₓ/₂
 // (a position and its velocity) and uᵢ, the input that drives them (nu =
 // nx/2) — and forms row i of K(x̂ − X) over all nx columns, each column's
@@ -120,7 +121,7 @@ constexpr int kMinBlocks = 5;        // blocks an SM the registers are held to:
                                      // float32 with four α fits five by its bytes
 
 // The chain's lane map at instance S: a state row a lane (nx ≤ 32), or
-// a state pair a lane (the square-feet biped's nx = 54).
+// a state pair a lane (both eight-contact robots' nx = 54).
 template <class S>
 constexpr bool kPairs = (S::nx > 32);
 
@@ -910,8 +911,8 @@ int sm_count() {
 
 // The members a lip_evaluate block takes at B members on `sms` SMs and ns
 // stage nodes, tensors of E bytes: eval_members', halved while the block
-// would not fit kMaxSmem (only the square feet's float64 block at ns past
-// 24 holds fewer than eight; kernels/lip_rollout.py::eval_members).
+// would not fit kMaxSmem (only the eight-contact robots' float64 blocks at
+// ns past 24 hold fewer than eight; kernels/lip_rollout.py::eval_members).
 template <class S, int E>
 int block_members(int B, int sms, int ns) {
   int m = eval_members(B, sms);

@@ -140,6 +140,14 @@
 // nu=27 at 13 / 14; the Cholesky factor takes rows lane and lane + 32 past
 // 32 inputs (cholesky_warp).
 //
+// The line-feet quadruped (contact_model=2 on four legs: LineFeetQuadShape,
+// LineFeetQuadRkShape, LipLineFeetQuadShape, LipLineFeetQuadRkShape, all
+// three forms each, instances 52-63) is compiled the same way by
+// csrc/riccati_backward_line_feet.cu (K1_LINE_FEET), a third library that
+// builds beside the other two. Its shapes are the square feet's but for
+// four fewer rows of G; K2 runs inside K1 at nu = 48 and 27, whose
+// standalone entry is the square-feet library's.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kernels/build.py). Plain C interface for ctypes.
 
@@ -701,7 +709,10 @@ int launch_inverse(const void* A, void* out, int M, void* stream) {
 
 template <typename T>
 int inverse(const void* A, void* out, int M, int n, void* stream) {
-#ifdef K1_SQUARE_FEET
+#if defined(K1_LINE_FEET)
+  (void)A, (void)out, (void)M, (void)n, (void)stream;
+  return kUnknownShape;
+#elif defined(K1_SQUARE_FEET)
   if (n == SquareFeetShape::nu)
     return launch_inverse<SquareFeetShape::nu, T>(A, out, M, stream);
   if (n == LipSquareFeetShape::nu)
@@ -743,7 +754,7 @@ struct Inst {
 template <class Fn>
 int with_instance(int inst, Fn fn) {
   switch (inst) {
-#ifndef K1_SQUARE_FEET
+#if !defined(K1_SQUARE_FEET) && !defined(K1_LINE_FEET)
     case 0: return fn(Inst<SrbdShape, Form::kCollapsed, Solve::kSchur>{});
     case 1: return fn(Inst<IsrbdAlShape, Form::kCollapsed, Solve::kSchur>{});
     case 2: return fn(Inst<SrbdShape, Form::kTassa, Solve::kSchur>{});
@@ -784,7 +795,7 @@ int with_instance(int inst, Fn fn) {
     case 37: return fn(Inst<LipPointFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
     case 38: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kSchur>{});
     case 39: return fn(Inst<LipPointFeetRkShape, Form::kTassa, Solve::kCholesky>{});
-#else
+#elif defined(K1_SQUARE_FEET)
     // csrc/riccati_backward_square_feet.cu: the square-feet biped's shapes
     case 40: return fn(Inst<SquareFeetShape, Form::kCollapsed, Solve::kSchur>{});
     case 41: return fn(Inst<SquareFeetShape, Form::kTassa, Solve::kSchur>{});
@@ -798,6 +809,20 @@ int with_instance(int inst, Fn fn) {
     case 49: return fn(Inst<LipSquareFeetRkShape, Form::kCollapsed, Solve::kSchur>{});
     case 50: return fn(Inst<LipSquareFeetRkShape, Form::kTassa, Solve::kSchur>{});
     case 51: return fn(Inst<LipSquareFeetRkShape, Form::kTassa, Solve::kCholesky>{});
+#else
+    // csrc/riccati_backward_line_feet.cu: the line-feet quadruped's shapes
+    case 52: return fn(Inst<LineFeetQuadShape, Form::kCollapsed, Solve::kSchur>{});
+    case 53: return fn(Inst<LineFeetQuadShape, Form::kTassa, Solve::kSchur>{});
+    case 54: return fn(Inst<LineFeetQuadShape, Form::kTassa, Solve::kCholesky>{});
+    case 55: return fn(Inst<LineFeetQuadRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 56: return fn(Inst<LineFeetQuadRkShape, Form::kTassa, Solve::kSchur>{});
+    case 57: return fn(Inst<LineFeetQuadRkShape, Form::kTassa, Solve::kCholesky>{});
+    case 58: return fn(Inst<LipLineFeetQuadShape, Form::kCollapsed, Solve::kSchur>{});
+    case 59: return fn(Inst<LipLineFeetQuadShape, Form::kTassa, Solve::kSchur>{});
+    case 60: return fn(Inst<LipLineFeetQuadShape, Form::kTassa, Solve::kCholesky>{});
+    case 61: return fn(Inst<LipLineFeetQuadRkShape, Form::kCollapsed, Solve::kSchur>{});
+    case 62: return fn(Inst<LipLineFeetQuadRkShape, Form::kTassa, Solve::kSchur>{});
+    case 63: return fn(Inst<LipLineFeetQuadRkShape, Form::kTassa, Solve::kCholesky>{});
 #endif
     default: return kUnknownShape;
   }
@@ -830,8 +855,8 @@ RICCATI_ENTRY(riccati_backward_f32, float)
 RICCATI_ENTRY(riccati_backward_f64, double)
 
 // Quu⁻¹ alone, on an (M, n, n) stack of SPD matrices, n = 9, 12, 15, 24 or
-// 30 (27 or 48 in the square-feet library): the device routine K1 runs,
-// for timing and checking it by itself.
+// 30 (27 or 48 in the square-feet library; none in the line-feet one): the
+// device routine K1 runs, for timing and checking it by itself.
 extern "C" int spd_inverse_f32(const void* A, void* out, int M, int n,
                                void* stream) {
   return inverse<float>(A, out, M, n, stream);

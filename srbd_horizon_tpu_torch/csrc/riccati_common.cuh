@@ -141,6 +141,35 @@ struct LipSquareFeetRkShape {
   static constexpr int min_blocks = 1;
 };
 
+// The line-feet quadruped (contact_model=2 on four legs, nc=8): the square
+// feet's nx and nu, four fewer rows of G (its relative-velocity rows are 8,
+// not 12). A block takes 158,328 B (collapsed, float32 tensors) to
+// 224,244 B (RK, float64), the LIP's 96,068 to 131,368 B
+// (riccati_backward.cu's Layout).
+struct LineFeetQuadShape {
+  static constexpr int nx = 61, nu = 48, nt = 15, n_rx = 34, n_ru = 30,
+                       n_gx = 50, n_gu = 78, n_b = 3, n_uc = 48;
+  static constexpr int min_blocks = 1;
+};
+
+struct LineFeetQuadRkShape {
+  static constexpr int nx = 61, nu = 48, nt = 15, n_rx = 34, n_ru = 61,
+                       n_gx = 50, n_gu = 78, n_b = 3, n_uc = 48;
+  static constexpr int min_blocks = 1;
+};
+
+struct LipLineFeetQuadShape {
+  static constexpr int nx = 54, nu = 27, nt = 10, n_rx = 30, n_ru = 27,
+                       n_gx = 48, n_gu = 30, n_b = 6, n_uc = 27;
+  static constexpr int min_blocks = 1;
+};
+
+struct LipLineFeetQuadRkShape {
+  static constexpr int nx = 54, nu = 27, nt = 10, n_rx = 30, n_ru = 54,
+                       n_gx = 48, n_gu = 30, n_b = 6, n_uc = 27;
+  static constexpr int min_blocks = 1;
+};
+
 // Float64 workspace of the block-Schur inverse of an n×n matrix.
 __host__ __device__ constexpr int inv_work(int n) {
   return n <= 3 ? 0

@@ -32,10 +32,12 @@ using namespace rigid;
 // The contact topologies the SRBD kernels are compiled for, one struct a
 // robot: build_srbd_problem with the Kangaroo's line feet, the quadruped's
 // point feet (models/quadruped.py), the point-feet biped
-// (models/kangaroo.py::point_feet) and the square-feet biped (four contact
+// (models/kangaroo.py::point_feet), the square-feet biped (four contact
 // points a foot, contact_model=4: nc=8, nu=48, more inputs than a warp has
-// lanes), each under the Euler step; `Stepped` gives the same topology
-// under RK2 or RK4.
+// lanes) and the line-feet quadruped (two contact points a foot on four
+// legs, contact_model=2: nc=8, the square feet's nx and nu, fewer
+// relative-velocity rows), each under the Euler step; `Stepped` gives the
+// same topology under RK2 or RK4.
 // kernels/linearize.py::TOPOLOGIES holds the same numbers in the same order
 // (a test reads them from here); on CUDA tensors of any other sizes the
 // wrappers raise. The row counts are those of RiccatiRows.from_ocp (the
@@ -68,6 +70,13 @@ struct SquareFeetShape {
   using Step = Euler;
 };
 
+struct LineFeetQuadShape {
+  static constexpr int nc = 8, cm = 2, n_legs = 4, nx = 61, nu = 48,
+                       n_rho = 125, nt = 15, n_rx = 34, n_ru = 30, n_gx = 50,
+                       n_gu = 78;
+  using Step = Euler;
+};
+
 // A topology under another step: the RK stages carry u into every state
 // row through ∂ẋ/∂x, so B has nx live rows (A − I keeps Euler's).
 template <class Topo, class St>
@@ -81,8 +90,8 @@ constexpr int kUnknownShape = -2;
 
 // fn(S{}) for the (topology, step) instance at `index` in the order of
 // kernels/linearize.py::KERNEL_SHAPES — the first three topologies under
-// Euler, then each under RK2 and RK4, then the square-feet biped under the
-// three steps — or kUnknownShape.
+// Euler, then each under RK2 and RK4, then the square-feet biped and the
+// line-feet quadruped, each under the three steps — or kUnknownShape.
 template <class Fn>
 inline int with_shape(int index, Fn fn) {
   switch (index) {
@@ -98,6 +107,9 @@ inline int with_shape(int index, Fn fn) {
     case 9: return fn(SquareFeetShape{});
     case 10: return fn(Stepped<SquareFeetShape, Rk2>{});
     case 11: return fn(Stepped<SquareFeetShape, Rk4>{});
+    case 12: return fn(LineFeetQuadShape{});
+    case 13: return fn(Stepped<LineFeetQuadShape, Rk2>{});
+    case 14: return fn(Stepped<LineFeetQuadShape, Rk4>{});
     default: return kUnknownShape;
   }
 }
@@ -130,6 +142,8 @@ inline int with_topology(int nc, int cm, int n_legs, int step, Fn fn) {
     return with_step<PointFeetShape>(step, fn);
   if (is_topology<SquareFeetShape>(nc, cm, n_legs))
     return with_step<SquareFeetShape>(step, fn);
+  if (is_topology<LineFeetQuadShape>(nc, cm, n_legs))
+    return with_step<LineFeetQuadShape>(step, fn);
   return kUnknownShape;
 }
 
@@ -620,7 +634,8 @@ constexpr bool packed_row_ok() {
 }
 static_assert(packed_row_ok<KangarooShape>() && packed_row_ok<QuadShape>() &&
                   packed_row_ok<PointFeetShape>() &&
-                  packed_row_ok<SquareFeetShape>(),
+                  packed_row_ok<SquareFeetShape>() &&
+                  packed_row_ok<LineFeetQuadShape>(),
               "packed parameter row");
 
 // A stage node's rigid-body rates, from the prepass: r̈ (3), ω̇ (3), ȯ (4).

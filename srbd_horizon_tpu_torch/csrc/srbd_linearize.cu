@@ -26,13 +26,15 @@
 // where Rⱼ = ∂R/∂oⱼ of the homogeneous (not normalized) quat_to_rot, which
 // is linear in o — so the derivative holds for non-unit quaternions too.
 //
-// Compiled for twelve instances (csrc/srbd_common.cuh): the Kangaroo's
+// Compiled for fifteen instances (csrc/srbd_common.cuh): the Kangaroo's
 // line feet (`srbd::KangarooShape`), the quadruped's point feet
 // (`srbd::QuadShape`, no relative-velocity rows: 69 stage rows, 30 of them
 // in Jxp), the point-feet biped (`srbd::PointFeetShape`: nx=25, nu=12,
-// 45 stage rows) and the square-feet biped (`srbd::SquareFeetShape`:
+// 45 stage rows), the square-feet biped (`srbd::SquareFeetShape`:
 // nx=61, nu=48, 129 stage rows; its inputs take two rounds of a warp's
-// lanes wherever a lane takes an input), each under the Euler step and
+// lanes wherever a lane takes an input) and the line-feet quadruped
+// (`srbd::LineFeetQuadShape`: the same nx and nu, 125 stage rows, 50 of
+// them in Jxp), each under the Euler step and
 // under RK2 and RK4 (`srbd::Stepped`). In each, the per-node output sizes, the smem layout
 // and every loop bound are constants; the contact topology and the step
 // pick the instantiation at launch, and the wrapper refuses other sizes.
@@ -87,7 +89,8 @@
 // an SM: while some compute their nodes' scalars, others stream (the
 // square-feet biped's buffer holds 60 KB, four nodes' Jup of 78 × 48, and
 // a block 74-92 KB in float32 from Euler to RK4: two or three blocks an
-// SM; 145-181 KB in float64, one). A staged
+// SM; 145-181 KB in float64, one; the line-feet quadruped's Jup is the
+// same). A staged
 // block is filled with zeros (16-byte stores), then each warp writes its
 // node's nonzeros by the row kinds the block resolved once from the row
 // table (one entry, two entries, quaternion row, quaternion-error row,

@@ -31,11 +31,12 @@
 //     defect_max = maxₙ,ᵢ |step(Xₙ, Uₙ) − Xₙ₊₁|ᵢ   (NaN if any is NaN)
 // Plain twin: `kernels/rollout.py::srbd_evaluate_plain`.
 //
-// Both are compiled for twelve instances (csrc/srbd_common.cuh): the
+// Both are compiled for fifteen instances (csrc/srbd_common.cuh): the
 // Kangaroo's line feet (`srbd::KangarooShape`, 73 stage rows), the
 // quadruped's point feet (`srbd::QuadShape`, 69: no relative-velocity
-// rows), the point-feet biped (`srbd::PointFeetShape`, 45) and the
-// square-feet biped (`srbd::SquareFeetShape`, 129), each under the Euler,
+// rows), the point-feet biped (`srbd::PointFeetShape`, 45), the
+// square-feet biped (`srbd::SquareFeetShape`, 129) and the line-feet
+// quadruped (`srbd::LineFeetQuadShape`, 125), each under the Euler,
 // RK2 and RK4 steps. In each, every loop over rows and columns has
 // a constant trip count and every offset is a constant; the contact
 // topology and the step pick the instantiation at launch, and the wrappers
@@ -89,7 +90,9 @@
 // nodes of K takes 38,800-39,040 B a warp in float32 (77,536-78,032 B in
 // float64), so a trial block holds `trial_warps` (member, α) warps — four,
 // or two in float64 — where the other shapes hold four: one block an SM
-// (kernels/rollout.py::trial_layout reckons the same).
+// (kernels/rollout.py::trial_layout reckons the same). The line-feet
+// quadruped (`srbd::LineFeetQuadShape`) has the same nx and nu, so the
+// same lane map and ring; its three passes take 32 equality rows, not 36.
 //
 // srbd_evaluate, when given x0, reads it in place of X[:, 0] (the solve's
 // node-0 pin, msddp.py:1221; x0's rows may lie apart, as a node of a plan
@@ -139,7 +142,8 @@ constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 // Rounds of a warp's lanes over the inputs: 2 past 32 inputs.
 template <class S>
 constexpr int kInputRounds = (S::nu + 31) / 32;
-static_assert(kInputRounds<srbd::SquareFeetShape> == 2, "nu ≤ 64");
+static_assert(kInputRounds<srbd::SquareFeetShape> == 2 &&
+                  kInputRounds<srbd::LineFeetQuadShape> == 2, "nu ≤ 64");
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;

@@ -11,6 +11,9 @@ float32 and float64 (`<entry>_f32`, `<entry>_f64`):
   riccati_backward_square_feet  the same entries at the square-feet
                     biped's four shapes (riccati_backward.cu's body,
                     compiled apart so the two build in parallel)
+  riccati_backward_line_feet  K1 at the line-feet quadruped's four shapes
+                    (the same body, a third library; its `spd_inverse`
+                    entry knows no size)
   srbd_rollout      K3 `srbd_trial`, `srbd_evaluate`; and, with no type
                     suffix, `srbd_trial_occupancy`, `srbd_evaluate_occupancy`
   srbd_linearize    K4 `srbd_linearize`; `srbd_linearize_occupancy`
@@ -57,7 +60,8 @@ from typing import Any, Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("riccati_backward", "riccati_backward_square_feet",
-                  "srbd_rollout", "srbd_linearize",
+                  "riccati_backward_line_feet", "srbd_rollout",
+                  "srbd_linearize",
                   "isrbd_rollout", "isrbd_linearize", "isrbd_al",
                   "lip_linearize", "lip_rollout", "riccati_associative",
                   "linear_trial")

@@ -122,9 +122,12 @@ def check_kernel_shape(name: str, terms, nx: int, nu: int, rows=None) -> str:
             terms.check_cone_bounds()
             return shape
     known = "; ".join(f"{shape} {want}" for shape, want in KERNEL_SHAPES.items())
+    later = (" (the constrained path at nc=8, the square-feet biped and the "
+             "line-feet quadruped, is ROADMAP.md Queue 2 row 13)"
+             if sizes.get("nc") == 8 else "")
     raise ValueError(
         f"{name} has no kernel for the sizes {sizes}; it is compiled for "
-        f"{known} (csrc/isrbd_common.cuh)")
+        f"{known} (csrc/isrbd_common.cuh){later}")
 
 
 def shape_index(shape: str) -> int:

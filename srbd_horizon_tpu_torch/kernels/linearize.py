@@ -31,13 +31,15 @@ values (the quadruped 3,470, the point-feet biped 1,502; under RK the
 Kangaroo 4,078) and reads ~120, against a few thousand FLOP a stage point
 (the note in the .cu gives the design).
 
-K3, K4 and srbd_evaluate are compiled for four SRBD topologies, the
-Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's
-and the square-feet biped's (four contact points a foot, contact_model=4:
-nc=8, nx=61, nu=48; `srbd::KangarooShape`, `srbd::QuadShape`,
-`srbd::PointFeetShape`, `srbd::SquareFeetShape` in csrc/srbd_common.cuh,
-`TOPOLOGIES` here), each under the Euler, RK2 and RK4 steps
-(`KERNEL_SHAPES`, the twelve instances); their wrappers raise
+K3, K4 and srbd_evaluate are compiled for five SRBD topologies, the
+Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's,
+the square-feet biped's (four contact points a foot, contact_model=4:
+nc=8, nx=61, nu=48) and the line-feet quadruped's (two points a foot on
+four legs, contact_model=2: nc=8, the same nx and nu; `srbd::KangarooShape`,
+`srbd::QuadShape`, `srbd::PointFeetShape`, `srbd::SquareFeetShape`,
+`srbd::LineFeetQuadShape` in csrc/srbd_common.cuh, `TOPOLOGIES` here),
+each under the Euler, RK2 and RK4 steps (`KERNEL_SHAPES`, the fifteen
+instances); their wrappers raise
 ValueError, naming the sizes and the step, for CUDA tensors of any other
 (an RK problem never reaches an Euler instance), and take the plain twin
 for CPU tensors of any sizes.
@@ -68,11 +70,13 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/srbd_linearize.cu"
 
 # The topologies the SRBD kernels are compiled for, in the order of the
 # shape structs of csrc/srbd_common.cuh (KangarooShape, QuadShape,
-# PointFeetShape, SquareFeetShape): build_srbd_problem with the Kangaroo's
-# line feet, the quadruped's point feet, the point-feet biped and the
-# square-feet biped (`SRBDConfig(contact_model=4, number_of_legs=2)`, four
-# points a foot), under the Euler step. The row counts are K4's
-# (`RiccatiRows.from_ocp` of each OCP).
+# PointFeetShape, SquareFeetShape, LineFeetQuadShape): build_srbd_problem
+# with the Kangaroo's line feet, the quadruped's point feet, the point-feet
+# biped, the square-feet biped (`SRBDConfig(contact_model=4,
+# number_of_legs=2)`, four points a foot) and the line-feet quadruped
+# (`SRBDConfig(contact_model=2, number_of_legs=4)`, two points a foot),
+# under the Euler step. The row counts are K4's (`RiccatiRows.from_ocp` of
+# each OCP).
 TOPOLOGIES = {
     "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=37, nu=24, n_rho=73, nt=15,
                      n_rx=22, n_ru=18, n_gx=34, n_gu=42),
@@ -82,6 +86,9 @@ TOPOLOGIES = {
                        n_rx=16, n_ru=12, n_gx=24, n_gu=24),
     "square_feet": dict(nc=8, cm=4, n_legs=2, nx=61, nu=48, n_rho=129,
                         nt=15, n_rx=34, n_ru=30, n_gx=54, n_gu=78),
+    "line_feet_quadruped": dict(nc=8, cm=2, n_legs=4, nx=61, nu=48,
+                                n_rho=125, nt=15, n_rx=34, n_ru=30, n_gx=50,
+                                n_gu=78),
 }
 # the steps, in the order of csrc/srbd_common.cuh's step tags (Euler, Rk2,
 # Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
@@ -108,10 +115,12 @@ def stepped_instances(instance, names) -> dict:
 # The (topology, step) instances K3, K4 and srbd_evaluate are compiled
 # for, in the order of csrc/srbd_common.cuh's `with_shape`: the first three
 # topologies under Euler, then each under RK2 and RK4, then the square-feet
-# biped under the three steps (appended, so the earlier indices stand).
+# biped and the line-feet quadruped, each under the three steps (appended,
+# so the earlier indices stand).
 KERNEL_SHAPES = {
     **stepped_instances(_instance, ("kangaroo", "quadruped", "point_feet")),
-    **stepped_instances(_instance, ("square_feet",))}
+    **stepped_instances(_instance, ("square_feet",)),
+    **stepped_instances(_instance, ("line_feet_quadruped",))}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "orientation_tracking_gain", "oref", "rdot_ref",

@@ -38,12 +38,13 @@ template tables, output layout, pointer arrays) made once a size through
 `host_setup`, one `check_tensors` pass, one buffer cut into the outputs
 (`build.output_views`), the raw stream.
 
-K10, K11 and lip_evaluate are compiled for four LIP topologies, the
-Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's
-and the square-feet biped's (`lip::KangarooShape`, `lip::QuadShape`,
-`lip::PointFeetShape`, `lip::SquareFeetShape` in csrc/lip_common.cuh,
+K10, K11 and lip_evaluate are compiled for five LIP topologies, the
+Kangaroo's line feet, the point-feet quadruped's, the point-feet biped's,
+the square-feet biped's and the line-feet quadruped's
+(`lip::KangarooShape`, `lip::QuadShape`, `lip::PointFeetShape`,
+`lip::SquareFeetShape`, `lip::LineFeetQuadShape` in csrc/lip_common.cuh,
 `TOPOLOGIES` here), each under the Euler, RK2 and RK4 steps
-(`KERNEL_SHAPES`, the twelve instances); their wrappers raise
+(`KERNEL_SHAPES`, the fifteen instances); their wrappers raise
 ValueError, naming the sizes and the step, for CUDA tensors of any other
 (an RK problem never reaches an Euler instance), and take the plain twin
 for CPU tensors of any sizes.
@@ -80,11 +81,12 @@ SOURCE = "srbd_horizon_tpu_torch/csrc/lip_linearize.cu"
 
 # The topologies K10, K11 and lip_evaluate are compiled for, in the order
 # of the shape structs of csrc/lip_common.cuh (KangarooShape, QuadShape,
-# PointFeetShape, SquareFeetShape): build_lip_problem with the Kangaroo's
-# line feet, the quadruped's point feet, the point-feet biped and the
-# square-feet biped (contact_model=4, four points a foot: nx=54, nu=27),
-# under the Euler step. The row counts are K10's (`RiccatiRows.from_ocp`
-# of each OCP).
+# PointFeetShape, SquareFeetShape, LineFeetQuadShape): build_lip_problem
+# with the Kangaroo's line feet, the quadruped's point feet, the point-feet
+# biped, the square-feet biped (contact_model=4, four points a foot: nx=54,
+# nu=27) and the line-feet quadruped (contact_model=2 on four legs: the
+# same nx and nu), under the Euler step. The row counts are K10's
+# (`RiccatiRows.from_ocp` of each OCP).
 TOPOLOGIES = {
     "kangaroo": dict(nc=4, cm=2, n_legs=2, nx=30, nu=15, n_rho=44, nt=10,
                      n_rx=18, n_ru=15, n_gx=32, n_gu=18),
@@ -94,6 +96,8 @@ TOPOLOGIES = {
                        n_rx=12, n_ru=9, n_gx=22, n_gu=12),
     "square_feet": dict(nc=8, cm=4, n_legs=2, nx=54, nu=27, n_rho=76, nt=10,
                         n_rx=30, n_ru=27, n_gx=52, n_gu=30),
+    "line_feet_quadruped": dict(nc=8, cm=2, n_legs=4, nx=54, nu=27, n_rho=72,
+                                nt=10, n_rx=30, n_ru=27, n_gx=48, n_gu=30),
 }
 # the steps, in the order of csrc/lip_common.cuh's step tags (Euler, Rk2,
 # Rk4); under RK2 and RK4 every row of B is live (n_ru = nx)
@@ -110,10 +114,12 @@ def _instance(topology: str, step: str) -> dict:
 # The (topology, step) instances K10, K11 and lip_evaluate are compiled
 # for, in the order of csrc/lip_common.cuh's `with_shape`: the first three
 # topologies under Euler, then each under RK2 and RK4, then the square-feet
-# biped under the three steps (appended, so the earlier indices stand).
+# biped and the line-feet quadruped, each under the three steps (appended,
+# so the earlier indices stand).
 KERNEL_SHAPES = {
     **stepped_instances(_instance, ("kangaroo", "quadruped", "point_feet")),
-    **stepped_instances(_instance, ("square_feet",))}
+    **stepped_instances(_instance, ("square_feet",)),
+    **stepped_instances(_instance, ("line_feet_quadruped",))}
 
 # the parameter rows the residuals read, in the kernels' order
 PARAM_KEYS = ("mask_track", "rdot_ref", "c_ref", "cdot_switch")
@@ -291,8 +297,8 @@ def group_nodes(Bsz: int, ns: int, dtype, sms: int,
                 shape: str = "kangaroo") -> int:
     """Member-nodes a K10 group at B members (the .cu's `group_nodes`):
     GROUP_UNITS · `vec_nodes` where those groups fill every one of `sms`
-    SMs, else 1; always 1 for the square feet (the .cu's `kVecGroup`:
-    their 16-byte groups spill)."""
+    SMs, else 1; always 1 past 32 state rows, the eight-contact robots'
+    (the .cu's `kVecGroup`: their 16-byte groups spill)."""
     v = GROUP_UNITS * vec_nodes(dtype)
     if Bsz * ns < v * sms or KERNEL_SHAPES[shape]["nx"] > 32:
         return 1

@@ -41,7 +41,7 @@ members a block; `evaluate_smem_bytes` states its shared memory. Its
 wrapper's host work is K10's: a setup a size (`_EvalSetup`), one check
 pass, one buffer cut into the outputs, the raw stream.
 
-Both run at the twelve (topology, step) instances of
+Both run at the fifteen (topology, step) instances of
 `lip_linearize.KERNEL_SHAPES` on CUDA tensors and raise ValueError for
 others; CPU tensors take the twins at any size. Under RK2 and RK4 each
 chain node takes the step's stages, a partner-lane shuffle each
@@ -228,7 +228,7 @@ def eval_members(Bsz: int, sms: int, dtype=None, ns: int = 20,
     (the .cu's `eval_members`): the most, halving from EVAL_MEMBERS, that
     still gives every SM a block; given `dtype`, also halved while the
     block at ns stage nodes and the instance `shape` would not fit
-    MAX_SMEM (the .cu's `block_members`: the square feet's float64 block
+    MAX_SMEM (the .cu's `block_members`: the eight-contact float64 blocks
     past ns = 24)."""
     m = EVAL_MEMBERS
     while m > 1 and -(-Bsz // m) < sms:

@@ -250,8 +250,9 @@ _I = ctypes.c_int
 # PointFeetShape, SrbdRkShape, QuadRkShape, PointFeetRkShape, LipRkShape,
 # LipQuadShape, LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape,
 # SquareFeetShape, SquareFeetRkShape, LipSquareFeetShape,
-# LipSquareFeetRkShape): nx, nu, the terminal rows nt and the sizes of the
-# row sets. The SRBD and
+# LipSquareFeetRkShape, LineFeetQuadShape, LineFeetQuadRkShape,
+# LipLineFeetQuadShape, LipLineFeetQuadRkShape): nx, nu, the terminal rows
+# nt and the sizes of the row sets. The SRBD and
 # the LIP problems under RK2 and under RK4 have every row of B live (n_ru =
 # nx); the two steps share their shape. Another problem needs a shape of
 # its own there and here.
@@ -293,11 +294,25 @@ KERNEL_SHAPES = {
                             n_gu=30, n_b=6, n_uc=27),
     "lip_square_feet_rk": dict(nx=54, nu=27, nt=10, n_rx=30, n_ru=54,
                                n_gx=52, n_gu=30, n_b=6, n_uc=27),
+    # the line-feet quadruped (contact_model=2 on four legs, nc=8), both
+    # problems: the square feet's sizes but n_gx, which alone tells the two
+    # apart
+    "line_feet_quadruped": dict(nx=61, nu=48, nt=15, n_rx=34, n_ru=30,
+                                n_gx=50, n_gu=78, n_b=3, n_uc=48),
+    "line_feet_quadruped_rk": dict(nx=61, nu=48, nt=15, n_rx=34, n_ru=61,
+                                   n_gx=50, n_gu=78, n_b=3, n_uc=48),
+    "lip_line_feet_quadruped": dict(nx=54, nu=27, nt=10, n_rx=30, n_ru=27,
+                                    n_gx=48, n_gu=30, n_b=6, n_uc=27),
+    "lip_line_feet_quadruped_rk": dict(nx=54, nu=27, nt=10, n_rx=30,
+                                       n_ru=54, n_gx=48, n_gu=30, n_b=6,
+                                       n_uc=27),
 }
-# the shapes whose instantiations csrc/riccati_backward_square_feet.cu
-# builds, into a library of its own
+# the shapes whose instantiations csrc/riccati_backward_square_feet.cu and
+# csrc/riccati_backward_line_feet.cu build, each into a library of its own
 SQUARE_FEET_SHAPES = ("square_feet", "square_feet_rk", "lip_square_feet",
                       "lip_square_feet_rk")
+LINE_FEET_SHAPES = ("line_feet_quadruped", "line_feet_quadruped_rk",
+                    "lip_line_feet_quadruped", "lip_line_feet_quadruped_rk")
 
 # K1's instantiations, in the order of csrc/riccati_backward.cu's
 # `with_instance`: (shape, value form, gain solve). The collapsed form with
@@ -338,7 +353,7 @@ KERNEL_INSTANCES = (
 ) + tuple((shape, form, solver)
           for shape in ("lip_rk", "lip_quadruped", "lip_quadruped_rk",
                         "lip_point_feet", "lip_point_feet_rk")
-          + SQUARE_FEET_SHAPES
+          + SQUARE_FEET_SHAPES + LINE_FEET_SHAPES
           for form, solver in (("collapsed", "schur"), ("tassa", "schur"),
                                ("tassa", "cholesky")))
 
@@ -384,10 +399,14 @@ def kernel_instance(shape: str, form: str = "collapsed",
 
 def library_name(inst: int) -> str:
     """The kernel library that holds instantiation `inst`: the square-feet
-    biped's shapes are built by csrc/riccati_backward_square_feet.cu."""
-    return ("riccati_backward_square_feet"
-            if KERNEL_INSTANCES[inst][0] in SQUARE_FEET_SHAPES
-            else "riccati_backward")
+    biped's shapes are built by csrc/riccati_backward_square_feet.cu, the
+    line-feet quadruped's by csrc/riccati_backward_line_feet.cu."""
+    shape = KERNEL_INSTANCES[inst][0]
+    if shape in SQUARE_FEET_SHAPES:
+        return "riccati_backward_square_feet"
+    if shape in LINE_FEET_SHAPES:
+        return "riccati_backward_line_feet"
+    return "riccati_backward"
 
 
 def _inv_work(n: int) -> int:

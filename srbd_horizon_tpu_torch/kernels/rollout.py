@@ -31,8 +31,9 @@ msddp.py:1221), written by the same launch. Its plain twin
 `srbd_evaluate_plain` is `SRBDTerms.total_cost` and the problem's step.
 
 Both run at the (topology, step) instances of `linearize.KERNEL_SHAPES`
-(the Kangaroo's, the quadruped's, the point-feet biped's and the
-square-feet biped's, each under Euler, RK2 and RK4) on CUDA tensors and raise ValueError for others;
+(the Kangaroo's, the quadruped's, the point-feet biped's, the
+square-feet biped's and the line-feet quadruped's, each under Euler, RK2
+and RK4) on CUDA tensors and raise ValueError for others;
 CPU tensors take the twins at any size.
 """
 

@@ -179,12 +179,14 @@ class MSDDP:
                                                        "nonlinear"):
             # K12 and K13 exist at K1's first fourteen shapes (K12 with
             # both gain solves, but Cholesky alone at the AL ones; K13 at
-            # every SRBD and LIP topology and step but the square feet's,
-            # and both AL inner problems): a problem or gain solve without
-            # a kernel — the SRBD and the LIP at contact_model 3 or 4 (K1,
+            # every SRBD and LIP topology and step but the two with eight
+            # contacts, and both AL inner problems): a problem or gain
+            # solve without a kernel — the SRBD and the LIP at nc=8 (K1,
             # K3, K4, K10 and K11 run the square-feet biped, contact_model
-            # 4; the modes do not yet), block-Schur gains at the AL shapes —
-            # is refused on every device
+            # 4, and the line-feet quadruped, contact_model 2 on four legs;
+            # the modes do not yet) or at contact_model 3, block-Schur gains
+            # at the AL shapes — is refused on every device, before any
+            # launch
             try:
                 shape = FAMILIES[family_index(terms, ocp.nx, ocp.nu,
                                               self.rows)][2]
@@ -195,9 +197,11 @@ class MSDDP:
                     f"riccati_mode={opts.riccati_mode!r}, forward_pass="
                     f"{opts.forward_pass!r}, quu_solver={opts.quu_solver!r}: "
                     "K12 and K13 have no kernel for this problem: the SRBD "
-                    "and the LIP at contact_model 3 or 4 and block-Schur "
-                    "gains at the AL shapes have none yet (ROADMAP.md Queue "
-                    f"2): {err}"
+                    "and the LIP at contact_model 3 or 4 and at nc=8 (the "
+                    "square-feet biped, contact_model=4, and the line-feet "
+                    "quadruped, contact_model=2 on four legs: ROADMAP.md "
+                    "Queue 2 row 12) and block-Schur gains at the AL shapes "
+                    f"have none yet (ROADMAP.md Queue 2): {err}"
                 ) from None
 
     @property

@@ -6,6 +6,7 @@ each test compares the JAX function with its port on identical data.
 Arrays cross between the frameworks as numpy only.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -471,6 +472,9 @@ from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu.runtime.loop import TickInput as JTickInput
 from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking
 
+from _line_feet_quadruped import (HALF_LENGTH, LINE_FEET_TOPOLOGY,
+                                   line_feet_trot_mask)
+from _line_feet_quadruped import line_feet_quadruped as t_line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY
 from _square_feet import square_feet as t_square_feet
 from test_configs import _four_contact_feet as j_square_feet
@@ -480,16 +484,37 @@ from srbd_horizon_tpu_torch.models.kangaroo import point_feet as t_point_feet
 from srbd_horizon_tpu_torch.runtime.loop import build_srbd_loop
 from srbd_horizon_tpu_torch.runtime.loop import walking_schedule as t_walking
 
+
+
+def j_line_feet_quadruped():
+    """JAX's line-feet quadruped as `TestLineFeetQuadruped` builds it: the
+    JAX package's `quadruped_point_feet()` with two contacts HALF_LENGTH
+    either side of each foot along x, frames c0…c7."""
+    q = j_quad()
+    pts = []
+    for p in np.asarray(q.foot_positions):
+        pts.append(p + np.array([HALF_LENGTH, 0.0, 0.0]))
+        pts.append(p - np.array([HALF_LENGTH, 0.0, 0.0]))
+    return dataclasses.replace(q, foot_positions=np.asarray(pts),
+                               foot_frames=tuple(f"c{i}" for i in range(8)))
+
+
 # the contact topologies JAX's build_srbd_problem takes: (SRBDConfig
-# fields, jax robot, torch robot, the WPG's trot grouping or None); the
-# square-feet biped's robot is the JAX package's test data (TestNc8's
-# `_four_contact_feet`), its torch copy `_square_feet.square_feet`
+# fields, jax robot, torch robot, the WPG's group mask — the contacts that
+# follow the first half-cycle, one entry a contact — or None for the
+# biped split); the square-feet biped's robot is the JAX package's test
+# data (TestNc8's `_four_contact_feet`), its torch copy
+# `_square_feet.square_feet`; the line-feet quadruped's is
+# TestLineFeetQuadruped's, built here and in `_line_feet_quadruped`, with
+# the trot's 8-entry mask
 TOPOLOGIES = {
-    "kangaroo": (dict(), j_feet, t_feet, False),
-    "quadruped": (QUAD_TOPOLOGY, j_quad, t_quad, True),
+    "kangaroo": (dict(), j_feet, t_feet, None),
+    "quadruped": (QUAD_TOPOLOGY, j_quad, t_quad, t_trot()),
     "point_feet": (dict(contact_model=1, number_of_legs=2), j_point_feet,
-                   t_point_feet, False),
-    "square_feet": (SQUARE_TOPOLOGY, j_square_feet, t_square_feet, False),
+                   t_point_feet, None),
+    "square_feet": (SQUARE_TOPOLOGY, j_square_feet, t_square_feet, None),
+    "line_feet_quadruped": (LINE_FEET_TOPOLOGY, j_line_feet_quadruped,
+                            t_line_feet_quadruped, line_feet_trot_mask()),
 }
 
 
@@ -512,22 +537,20 @@ def srbd_loops(topology="kangaroo", integrator="EULER", ns=20, shift=False,
     feet's height, the trot grouping on the quadruped, the Newton–Euler
     telemetry on), float64 on the CPU; `overrides` are options of both
     solvers (SOLVER_OPTS by default)."""
-    kw, jr, tr, trot = TOPOLOGIES[topology]
+    kw, jr, tr, mask = TOPOLOGIES[topology]
     opts = dict(SOLVER_OPTS, **overrides)
     jp, _ = srbd_problems(topology, integrator, ns)
     cfg = TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw)
     js = JMSDDP(jp.ocp, JDDPOptions(**opts))
     wpg = JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
                      nodes=ns, dtype=jnp.float64,
-                     group_mask=j_trot() if trot else None,
-                     contact_model=cfg.contact_model,
+                     group_mask=mask, contact_model=cfg.contact_model,
                      number_of_legs=cfg.number_of_legs)
     jloop = JMPCLoop(solver=js, wpg=wpg, srbd_constants=jp.ocp.constants,
                      shift_warmstart=shift)
     tloop, tp = build_srbd_loop(cfg, TDDPOptions(**opts), robot=tr(),
                                 shift_warmstart=shift, device=CPU,
-                                group_mask=t_trot() if trot else None,
-                                integrator=integrator)
+                                group_mask=mask, integrator=integrator)
     return jp, jloop, tloop, tp
 
 
@@ -577,29 +600,6 @@ def solve_results(topology, integrator, ns=8, B=4, seed=0,
     out["spy"] = ModesSpy(ts)
     out["solve"] = ts.solve(ts.init(tx0[0]), tx0[0], one(tpar))
     out["solve_batch"] = ts.solve_batch(ts.init(tx0), tx0, tpar)
-    return out
-
-
-def tick_results(topology, integrator, ns=8, B=4, ticks=3, seed=7):
-    """`tick_batch` of the port's loop (warm start shifted, mixed actions)
-    beside JAX's `vmap(tick)`, `ticks` ticks, float64 on the CPU: a list of
-    ((torch carry, torch output), (jax carry, jax output)) a tick."""
-    jp, jloop, tloop, tp = srbd_loops(topology, integrator, ns, shift=True)
-    x0 = perturbed_states(jp.initial_state, B, seed=seed)
-    actions = np.array([0, 1, 1, 1], np.int32)[:B]
-    rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
-    jinp = JTickInput(action=jnp.asarray(actions), rdot_ref=jnp.asarray(rdot),
-                      w_ref=jnp.zeros((B, 3)))
-    tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
-                                 dtype=F64)
-    jtick = jit(jax.vmap(jloop.tick))
-    jc = jax.vmap(jloop.init)(jnp.asarray(x0))
-    tc = tloop.init(torch.as_tensor(x0))
-    out = []
-    for _ in range(ticks):
-        jc, jo = jtick(jc, jinp)
-        tc, to = tloop.tick_batch(tc, tinp)
-        out.append(((tc, to), (jc, jo)))
     return out
 
 
@@ -1001,19 +1001,19 @@ def lip_results(topology, integrator, ns=8, B=4, ticks=3):
     sparams = fleet_params(jp.ocp.params, B)
     sparams["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
     # the loops: the solver's options, and the exact step alone
-    kw, jr, tr, trot = TOPOLOGIES[topology]
+    kw, jr, tr, mask = TOPOLOGIES[topology]
     loop_opts = dict(options=SOLVER_OPTS,
                      exact_step=dict(SOLVER_OPTS, max_iters=1))
     jloops = {k: JMPCLoop(
         solver=JMSDDP(jp.ocp, JDDPOptions(**o)),
         wpg=JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
                        nodes=ns, dtype=jnp.float64,
-                       group_mask=j_trot() if trot else None, **kw),
+                       group_mask=mask, **kw),
         shift_warmstart=True) for k, o in loop_opts.items()}
     tloops = {k: build_lip_loop(
         TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw),
         TDDPOptions(**o), robot=tr(), shift_warmstart=True,
-        device=CPU, group_mask=t_trot() if trot else None,
+        device=CPU, group_mask=mask,
         integrator=integrator)[0] for k, o in loop_opts.items()}
     lx0 = perturbed_states(jp.initial_state, B, seed=7)
     actions = np.array([0, 1, 1, 1], np.int32)[:B]
@@ -1265,7 +1265,7 @@ def lip_modes_results(topology, integrator, quu_solver, parts=("k12", "k13"),
     sx0 = perturbed_states(jp.initial_state, B, seed=0, scale=0.02)
     sparams = fleet_params(jp.ocp.params, B)
     sparams["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
-    kw, jr, tr, trot = TOPOLOGIES[topology]
+    kw, jr, tr, mask = TOPOLOGIES[topology]
     lx0 = perturbed_states(jp.initial_state, B, seed=7)
     actions = np.array([0, 1, 1, 1], np.int32)[:B]
     rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
@@ -1286,12 +1286,12 @@ def lip_modes_results(topology, integrator, quu_solver, parts=("k12", "k13"),
                 solver=JMSDDP(jp.ocp, JDDPOptions(**o, **mo)),
                 wpg=JWPG.build(c_init_z=float(jp.initial_foot_position[0, 2]),
                                nodes=ns, dtype=jnp.float64,
-                               group_mask=j_trot() if trot else None, **kw),
+                               group_mask=mask, **kw),
                 shift_warmstart=True)
             tloops[r, k] = build_lip_loop(
                 TSRBDConfig(dtype=F64, ns=ns, T=0.05 * ns, **kw),
                 TDDPOptions(**o, **mo), robot=tr(), shift_warmstart=True,
-                device=CPU, group_mask=t_trot() if trot else None,
+                device=CPU, group_mask=mask,
                 integrator=integrator)[0]
     one = lambda t: {k: v[0] for k, v in t.items()}
     opts = js.opts
@@ -1441,7 +1441,7 @@ def lip_modes_dispatch(topology, integrator):
                  for sv in ("schur", "cholesky")}
 
 
-# ---------------- the square-feet biped (contact_model=4, nc=8) ----------------
+# ------------- the eight-contact robots (square feet, line-feet quadruped) -------------
 
 from srbd_horizon_tpu_torch.kernels import linearize as t_k4
 from srbd_horizon_tpu_torch.kernels import riccati as t_k1
@@ -1455,48 +1455,134 @@ SRBD_ALPHAS = np.array([1.0, 0.5, 0.25, 0.125])
 NC8_DEFECT, NC8_FZ_TOL = 1e-6, 0.05
 
 
-def srbd_case(topology, step, ns=8, B=4, mu=1e-6):
+def srbd_case(topology, step, ns=8, B=4, mu=1e-6, ticks=3, kernels=True,
+              jax_solve_batch=False):
     """One (topology, step) of the SRBD problem at ns nodes, float64 on the
-    CPU: both problems and solvers, a point near the walk (plans around the
-    nominal state, random references, 0/1 switches and tracking masks), JAX's
-    dense linearization there, the port's K4 twin and the collapsed sweep
-    of its linearization, and pushed starts."""
+    CPU, beside the JAX package's, all of JAX's side in one compile:
+
+      - with `kernels`, the node functions (step, stage residual, equality
+        rows, terminal residual) at six drawn points, and at a point near
+        the walk (plans around the nominal state, random references, 0/1
+        switches and tracking masks) JAX's dense linearization, its trial
+        at the four SRBD_ALPHAS on the port's collapsed sweep of its K4
+        twin's linearization (member SRBD_NAN_MEMBER from a NaN state), its
+        `total_cost` and `_true_defects` of a plan with a NaN (plain and
+        with node 0 pinned to the pushed starts);
+      - `solve` (member 0) and `vmap(solve)` from pushed starts (0.02·N(0,1),
+        a commanded terminal velocity, max_iters=20), as `solve_results`
+        computes them, and, with `jax_solve_batch`, JAX's `solve_batch`;
+      - `ticks` ticks of `vmap(tick)` of `srbd_loops` (warm start shifted,
+        mixed actions, pushed starts 0.01·N(0,1)), scanned, with each
+        tick's plans.
+
+    The port's side: with `kernels` its K4 twin and sweep there; `solve`,
+    `solve_batch` and `tick_batch` on the same inputs ("port")."""
     jp, tp = srbd_problems(topology, step, ns)
     js, ts = solvers(jp, tp)
-    X, U = trajectories(jp, B, seed=31)
-    params = fleet_params(jp.ocp.params, B)
-    rng = np.random.RandomState(32)
-    params["rdot_ref"] = 0.3 * rng.randn(*params["rdot_ref"].shape)
-    params["cdot_switch"] = rng.randint(0, 2, params["cdot_switch"].shape) * 1.0
-    params["mask_track"] = rng.randint(0, 2, params["mask_track"].shape) * 1.0
-    jdense = jit(jax.vmap(
-        lambda x, u, p: js._linearize_impl(x, u, p, sliced=False)))(
-            *to_jax((X, U, params)))
-    tlin = t_k4.srbd_linearize_plain(to_torch(X), to_torch(U),
-                                     to_torch(params), ts.terms, ts.rows,
-                                     tp.ocp.dt, ts._wc(torch.float64))
-    sweep = t_k1.riccati_backward_plain(*(tlin[k] for k in SRBD_ORDER), mu,
-                                        ts.rows)
-    return dict(topology=topology, step=step, jp=jp, tp=tp, js=js, ts=ts,
-                X=X, U=U, params=params, jdense=jdense, tlin=tlin,
-                sweep=sweep, x0=perturbed_states(jp.initial_state, B, seed=33))
+    dt = tp.ocp.dt
+    case = dict(topology=topology, step=step, jp=jp, tp=tp, js=js, ts=ts)
+    kargs = ()
+    if kernels:
+        X, U = trajectories(jp, B, seed=31)
+        params = fleet_params(jp.ocp.params, B)
+        rng = np.random.RandomState(32)
+        params["rdot_ref"] = 0.3 * rng.randn(*params["rdot_ref"].shape)
+        params["cdot_switch"] = (rng.randint(0, 2, params["cdot_switch"].shape)
+                                 * 1.0)
+        params["mask_track"] = (rng.randint(0, 2, params["mask_track"].shape)
+                                * 1.0)
+        tlin = t_k4.srbd_linearize_plain(to_torch(X), to_torch(U),
+                                         to_torch(params), ts.terms, ts.rows,
+                                         dt, ts._wc(torch.float64))
+        sweep = t_k1.riccati_backward_plain(*(tlin[k] for k in SRBD_ORDER),
+                                            mu, ts.rows)
+        x0 = perturbed_states(jp.initial_state, B, seed=33)
+        nodes = random_xup(jp.ocp.params, tp.ocp.nx, tp.ocp.nu, 34, lead=(6,))
+        tx0 = np.array(x0)
+        tx0[SRBD_NAN_MEMBER] = np.nan
+        Xe = np.array(X)
+        Xe[SRBD_NAN_MEMBER, 5, 4] = np.nan
+        Xp = Xe.copy()
+        Xp[:, 0] = x0
+        case.update(X=X, U=U, params=params, tlin=tlin, sweep=sweep, x0=x0,
+                    nodes=nodes, trial_x0=tx0, Xe=Xe, Xp=Xp)
+        kargs = (*to_jax(nodes), *to_jax((X, U, params)),
+                 *(jnp.asarray(np_of(v)) for v in sweep),
+                 *to_jax((tx0, Xe, Xp, SRBD_ALPHAS)))
+    # the solves (solve_results' inputs) and the ticks
+    js20, ts20 = solvers(jp, tp, max_iters=20)
+    sx0 = perturbed_states(jp.initial_state, B, seed=0, scale=0.02)
+    sparams = fleet_params(jp.ocp.params, B)
+    sparams["rdot_ref"][:, -1] = [0.2, 0.0, 0.0]
+    _, jloop, tloop, _ = srbd_loops(topology, step, ns, shift=True)
+    lx0 = perturbed_states(jp.initial_state, B, seed=7)
+    actions = np.array([0, 1, 1, 1], np.int32)[:B]
+    rdot = np.tile([0.2, 0.0, 0.0], (B, 1))
+    jinp = JTickInput(action=jnp.asarray(actions), rdot_ref=jnp.asarray(rdot),
+                      w_ref=jnp.zeros((B, 3)))
+
+    trials, evaluate = jax_trial_fn(js), jax_evaluate_fn(js)
+    jsolve = jax.jit(js20.solve)
+    jtick = jax.vmap(jloop.tick)
+    one = lambda t: {k: v[0] for k, v in t.items()}
+
+    def kernel_refs(nx_, nu_, np_, X_, U_, p_, ks, Ks, dV1, dV2, tx0_, Xe_,
+                    Xp_, alphas):
+        out = dict(
+            step=jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt))(nx_, nu_,
+                                                                    np_),
+            stage_residual=jax.vmap(jp.ocp.stage_residual)(nx_, nu_, np_),
+            stage_eq=jax.vmap(jp.ocp.stage_eq)(nx_, nu_, np_),
+            terminal=jax.vmap(jp.ocp.terminal_residual)(nx_, np_),
+            dense=jax.vmap(lambda x, u, p: js._linearize_impl(
+                x, u, p, sliced=False))(X_, U_, p_))
+        out["trial"] = trials(tx0_, X_, U_, p_, ks, Ks, out["dense"]["d"],
+                              dV1, dV2, alphas)
+        out["evaluate"] = evaluate(Xe_, U_, p_)
+        out["evaluate_pinned"] = evaluate(Xp_, U_, p_)
+        return out
+
+    def run(sx0_, sp_, lx0_, *kargs_):
+        out = kernel_refs(*kargs_) if kargs_ else {}
+        j0 = jax.vmap(js20.init)(sx0_)
+        out["solve"] = jsolve(js20.init(sx0_[0]), sx0_[0], one(sp_))
+        out["vmap_solve"] = jax.vmap(jsolve)(j0, sx0_, sp_)
+        if jax_solve_batch:
+            out["solve_batch"] = js20.solve_batch(j0, sx0_, sp_)
+
+        def tick(c, _):
+            c, o = jtick(c, jinp)
+            return c, (o, c.sol.X, c.sol.U)
+
+        out["ticks"] = jax.lax.scan(tick, jax.vmap(jloop.init)(lx0_), None,
+                                    length=ticks)[1]
+        return out
+
+    j = jit(run)(*to_jax((sx0, sparams, lx0)), *kargs)
+    stx0, stp = to_torch(sx0), to_torch(sparams)
+    port = dict(solve=ts20.solve(ts20.init(stx0[0]), stx0[0], one(stp)),
+                solve_batch=ts20.solve_batch(ts20.init(stx0), stx0, stp))
+    tinp = tick_input_from_numpy(actions, rdot, np.zeros((B, 3)), device=CPU,
+                                 dtype=F64)
+    tc, port["ticks"] = tloop.init(torch.as_tensor(lx0)), []
+    for _ in range(ticks):
+        tc, to = tloop.tick_batch(tc, tinp)
+        port["ticks"].append((to, tc.sol.X, tc.sol.U))
+    case.update(jax=j, port=port, jdense=j.get("dense"))
+    return case
 
 
-def check_srbd_node_functions(case, seed=34, tol=1e-12):
+def check_srbd_node_functions(case, tol=1e-12):
     """The port's step, stage residual, equality rows and terminal residual
-    against JAX's at drawn points (the step to 1e-13)."""
-    jp, tp = case["jp"], case["tp"]
-    x, u, p = random_xup(jp.ocp.params, tp.ocp.nx, tp.ocp.nu, seed, lead=(6,))
-    jx, ju, jpar = to_jax((x, u, p))
-    tx, tu, tpar = to_torch(x), to_torch(u), to_torch(p)
-    dt = jp.ocp.dt
-    want = jit(jax.vmap(lambda a, b, c: jp.ocp.step(a, b, c, dt)))(jx, ju, jpar)
-    assert max_rel_err(tp.ocp.step(tx, tu, tpar, dt), want) < 1e-13
+    against JAX's at the case's drawn points (the step to 1e-13)."""
+    tp, j = case["tp"], case["jax"]
+    tx, tu, tpar = (to_torch(v) for v in case["nodes"])
+    dt = tp.ocp.dt
+    assert max_rel_err(tp.ocp.step(tx, tu, tpar, dt), j["step"]) < 1e-13
     for fn in ("stage_residual", "stage_eq"):
-        want = jax.vmap(getattr(jp.ocp, fn))(jx, ju, jpar)
-        assert max_rel_err(getattr(tp.ocp, fn)(tx, tu, tpar), want) < tol, fn
-    want = jax.vmap(jp.ocp.terminal_residual)(jx, jpar)
-    assert max_rel_err(tp.ocp.terminal_residual(tx, tpar), want) < tol
+        got = getattr(tp.ocp, fn)(tx, tu, tpar)
+        assert max_rel_err(got, j[fn]) < tol, fn
+    assert max_rel_err(tp.ocp.terminal_residual(tx, tpar), j["terminal"]) < tol
     assert tp.ocp.constants["terms"].step == case["step"]
 
 
@@ -1563,25 +1649,23 @@ def check_srbd_linearize(case, key, tol=1e-12):
 
 def check_srbd_trial(case, nA, tol=1e-12):
     """The K3 twin against JAX's trial on the case's plan, gains and
-    defects at nA step sizes; member SRBD_NAN_MEMBER starts from a NaN
-    state and is rejected."""
+    defects at the first nA of SRBD_ALPHAS; member SRBD_NAN_MEMBER starts
+    from a NaN state and is rejected."""
     js, ts = case["js"], case["ts"]
     opts = js.opts
     ks, Ks, dV1, dV2 = case["sweep"]
-    d = case["jdense"]["d"]
-    x0 = np.array(case["x0"])
-    x0[SRBD_NAN_MEMBER] = np.nan
-    want, merit0, D = jax_trial(js, x0, case["X"], case["U"], case["params"],
-                                ks, Ks, d, dV1, dV2, SRBD_ALPHAS[:nA])
+    want, merit0, D = case["jax"]["trial"]
     t = lambda a: to_torch(np_of(a))
     got = t_k3.srbd_trial_plain(
-        t(x0), to_torch(case["X"]), to_torch(case["U"]), t(ks), t(Ks), t(d),
-        to_torch(SRBD_ALPHAS[:nA]), to_torch(case["params"]), t(merit0), t(D),
-        t(dV1), t(dV2), ts.terms, ts.ocp.dt, ts._wc(torch.float64),
-        opts.defect_weight, opts.beta, opts.alpha_converge_threshold)
+        t(case["trial_x0"]), to_torch(case["X"]), to_torch(case["U"]), ks,
+        Ks, t(case["jdense"]["d"]), to_torch(SRBD_ALPHAS[:nA]),
+        to_torch(case["params"]), t(merit0), t(D), dV1, dV2, ts.terms,
+        ts.ocp.dt, ts._wc(torch.float64), opts.defect_weight, opts.beta,
+        opts.alpha_converge_threshold)
     for g, w in zip(got[:4], want[:4]):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
-    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:nA], rtol=tol,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4])[:nA])
     assert not bool(got[4][:, SRBD_NAN_MEMBER].any())
 
 
@@ -1589,29 +1673,53 @@ def check_srbd_evaluate(case, pin, tol=1e-12):
     """The srbd_evaluate twin against JAX's `vmap(total_cost)` and the
     largest |·| of `vmap(_true_defects)`, a NaN in one member's plan;
     with `pin` node 0 pinned to x0 and the pinned plan returned."""
-    js, ts = case["js"], case["ts"]
-    X = np.array(case["X"])
-    X[SRBD_NAN_MEMBER, 5, 4] = np.nan
+    ts = case["ts"]
     x0 = case["x0"] if pin else None
-    Xj = X.copy()
-    if pin:
-        Xj[:, 0] = x0
-    want = jax_evaluate(js, Xj, case["U"], case["params"])
+    want = case["jax"]["evaluate_pinned" if pin else "evaluate"]
     got = t_k3.srbd_evaluate_plain(
-        to_torch(X), to_torch(case["U"]), to_torch(case["params"]), ts.terms,
-        case["tp"].ocp.dt, ts._wc(torch.float64),
+        to_torch(case["Xe"]), to_torch(case["U"]), to_torch(case["params"]),
+        ts.terms, case["tp"].ocp.dt, ts._wc(torch.float64),
         None if x0 is None else to_torch(x0))
     for g, w in zip(got[:2], want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
         assert np.isnan(g.numpy()[SRBD_NAN_MEMBER])
     if pin:
-        np.testing.assert_array_equal(got[2].numpy(), Xj)
+        np.testing.assert_array_equal(got[2].numpy(), case["Xp"])
 
 
-def check_srbd_dispatch(case, k4_shape, k1_shape):
+def check_srbd_solves(case, batched):
+    """`solve` against JAX's `solve` (or, `batched`, `solve_batch` against
+    its `vmap(solve)`): iterations and convergence equal, the plans and
+    the cost to 1e-9; the single solve iterates more than once, the
+    batched one closes its defects."""
+    p, j = case["port"], case["jax"]
+    if batched:
+        agree(p["solve_batch"], j["vmap_solve"], f"{case['step']} solve_batch",
+              ("X", "U", "cost"))
+        assert float(p["solve_batch"].defect_norm.max()) < 1e-6
+    else:
+        agree(p["solve"], j["solve"], f"{case['step']} solve",
+              ("X", "U", "cost"))
+        assert int(p["solve"].iterations) > 1
+
+
+def check_srbd_ticks(case):
+    """Each `tick_batch` tick against JAX's `vmap(tick)`: iterations and
+    convergence equal, x, u0 and the cost to 1e-9, and the carried plans to
+    1e-9."""
+    jo, jX, jU = case["jax"]["ticks"]
+    for i, (to, tX, tU) in enumerate(case["port"]["ticks"]):
+        want = types.SimpleNamespace(**{f: np.asarray(getattr(jo, f))[i]
+                                        for f in jo._fields})
+        agree(to, want, f"{case['step']} tick {i}", ("x", "u0", "cost"))
+        assert max_rel_err(tX, np.asarray(jX)[i]) < 1e-9
+        assert max_rel_err(tU, np.asarray(jU)[i]) < 1e-9
+
+
+def check_srbd_dispatch(case, k4_shape, k1_shape, library):
     """K4's, K3's and srbd_evaluate's check name the instance `k4_shape`,
-    K1's its shape `k1_shape` with all three forms, built in the library
-    of the square feet's shapes."""
+    K1's its shape `k1_shape` with all three forms, built in the kernel
+    library `library`."""
     ts, ocp = case["ts"], case["tp"].ocp
     for name in ("srbd_linearize", "srbd_trial", "srbd_evaluate"):
         assert t_k4.check_kernel_shape(name, ts.terms, ocp.nx, ocp.nu,
@@ -1622,7 +1730,7 @@ def check_srbd_dispatch(case, k4_shape, k1_shape):
                          ("tassa", "cholesky")):
         inst = t_k1.kernel_instance(k1_shape, form, solver)
         assert t_k1.KERNEL_INSTANCES[inst] == (k1_shape, form, solver)
-        assert t_k1.library_name(inst) == "riccati_backward_square_feet"
+        assert t_k1.library_name(inst) == library
 
 
 def check_nc8_bar(prob, sol):
@@ -1634,3 +1742,25 @@ def check_nc8_bar(prob, sol):
     want = prob.mass * 9.81 / prob.force_scaling / 8
     assert fz.shape[-1] == 8
     np.testing.assert_allclose(fz, want, atol=NC8_FZ_TOL)
+
+
+# JAX's TestLineFeetQuadruped bar (tests/test_configs.py): a standing solve
+# from the nominal state with max_iters=20, alpha_converge_threshold=1e-12
+# and beta=1e-3 converges, its defects below 1e-6 and Σ F_z (each contact's
+# mean over the nodes) within 1% of m·g / fs
+LINE_FEET_OPTS = dict(max_iters=20, alpha_converge_threshold=1e-12, beta=1e-3)
+LINE_FEET_DEFECT, LINE_FEET_FZ_RTOL = 1e-6, 0.01
+
+
+def check_line_feet_bar(prob, sol):
+    """JAX's `TestLineFeetQuadruped::test_srbd_cm2_legs4_solve` bar on a
+    standing solve: converged, the defect norm below LINE_FEET_DEFECT and
+    the sum over the eight contacts of each one's mean F_z within
+    LINE_FEET_FZ_RTOL of m·g / fs."""
+    assert bool(sol.converged)
+    assert float(sol.defect_norm) < LINE_FEET_DEFECT
+    fz = np_of(sol.U)[:, 5::6]
+    assert fz.shape[-1] == 8
+    np.testing.assert_allclose(fz.mean(axis=0).sum(),
+                               prob.mass * 9.81 / prob.force_scaling,
+                               rtol=LINE_FEET_FZ_RTOL)

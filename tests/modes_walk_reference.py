@@ -35,7 +35,6 @@ import torch  # noqa: E402
 from _torch_parity import TOPOLOGIES  # noqa: E402
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions  # noqa: E402
 from srbd_horizon_tpu.config import SRBDConfig as JSRBDConfig  # noqa: E402
-from srbd_horizon_tpu.models.quadruped import trot_group_mask  # noqa: E402
 from srbd_horizon_tpu.problems.srbd import build_srbd_problem  # noqa: E402
 from srbd_horizon_tpu.runtime.loop import MPCLoop as JMPCLoop  # noqa: E402
 from srbd_horizon_tpu.runtime.loop import walking_schedule as j_walking  # noqa: E402
@@ -50,7 +49,7 @@ from srbd_horizon_tpu_torch.runtime.loop import (  # noqa: E402
 
 
 def main(topology, step, dt, riccati_mode, forward_pass, ticks):
-    kw, jrobot, trobot, trot = TOPOLOGIES[topology]
+    kw, jrobot, trobot, mask = TOPOLOGIES[topology]
     quad = topology == "quadruped"
     opts = dict(max_iters=5 if quad else 100, alpha_converge_threshold=1e-12,
                 beta=1e-3, riccati_mode=riccati_mode,
@@ -64,7 +63,7 @@ def main(topology, step, dt, riccati_mode, forward_pass, ticks):
                             integrator=step)
     wpg = JWPG.build(float(jp.initial_foot_position[0, 2]), jp.ocp.ns,
                      dtype=jdtype,
-                     group_mask=trot_group_mask() if trot else None,
+                     group_mask=mask,
                      contact_model=kw.get("contact_model", 2),
                      number_of_legs=kw.get("number_of_legs", 2))
     jloop = JMPCLoop(solver=JMSDDP(jp.ocp, JDDPOptions(**opts)), wpg=wpg,

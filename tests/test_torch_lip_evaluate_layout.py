@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import build
@@ -63,6 +64,7 @@ LIP_TOPOLOGIES = {
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
     "square_feet": (SQUARE_TOPOLOGY, square_feet),
+    "line_feet_quadruped": (LINE_FEET_TOPOLOGY, line_feet_quadruped),
 }
 
 
@@ -155,14 +157,15 @@ def test_smem_bytes_match_the_cuda_layout(dtype, ns, members, shape):
     """The wrapper's bytes are the .cu's `eval_regions`, region by region,
     and fit a block; each staged run's region holds the members' run and
     16 bytes more; in float32 eight members leave four blocks an SM (two
-    at the square feet's nx = 54, nu = 27)."""
+    at the eight-contact robots' nx = 54, nu = 27)."""
     stated = k11.evaluate_smem_bytes(dtype, ns, members, shape)
     assert stated == _source_regions(dtype, ns, members, shape)
     assert sum(v for k, v in stated.items() if k != "total") == stated["total"]
     if stated["total"] > SMEM_PER_BLOCK:
         # the launcher halves the members until the block fits: only the
-        # square feet's float64 block past ns = 24 holds fewer than eight
-        assert shape.startswith("square_feet") and dtype == F64 and ns > 24
+        # eight-contact robots' float64 blocks past ns = 24 hold fewer
+        # than eight
+        assert k10.KERNEL_SHAPES[shape]["nc"] == 8 and dtype == F64 and ns > 24
         fit = k11.eval_members(4096, 132, dtype, ns, shape)
         assert fit < members
         assert k11.evaluate_smem_bytes(dtype, ns, fit, shape)["total"] <= \
@@ -175,7 +178,7 @@ def test_smem_bytes_match_the_cuda_layout(dtype, ns, members, shape):
     assert stated["U"] >= m * ns * z["nu"] * E + 16
     assert stated["x0"] >= m * z["nx"] * E
     if dtype == F32 and members == 8 and ns == 20:
-        want = 2 if shape.startswith("square_feet") else 4
+        want = 2 if k10.KERNEL_SHAPES[shape]["nc"] == 8 else 4
         assert SMEM_PER_SM // (stated["total"] + 1024) >= want
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import build
@@ -65,6 +66,7 @@ LIP_TOPOLOGIES = {
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
     "square_feet": (SQUARE_TOPOLOGY, square_feet),
+    "line_feet_quadruped": (LINE_FEET_TOPOLOGY, line_feet_quadruped),
 }
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from _torch_parity import jit, max_rel_err, np_of, to_jax, to_torch
 from srbd_horizon_tpu.config import DDPOptions as JDDPOptions
@@ -232,14 +233,16 @@ def test_shape_struct_matches_the_wrappers_table():
     """The topology structs of csrc/lip_common.cuh are `TOPOLOGIES`, in
     order; its `with_shape` switch is `KERNEL_SHAPES`, in order (the first
     three topologies under Euler, then each under RK2 and RK4, n_ru = nx,
-    then the square-feet biped under the three steps); its
+    then the square-feet biped and the line-feet quadruped, each under the
+    three steps); its
     step tags' ids are `STEPS` (rigid_common.cuh's, shared with the SRBD
     kernels)."""
     src = HEADER.read_text()
     found = re.findall(r"struct (\w+)Shape \{\s*static constexpr int "
                        r"([^;]*);", src)
     names = {"Kangaroo": "kangaroo", "Quad": "quadruped",
-             "PointFeet": "point_feet", "SquareFeet": "square_feet"}
+             "PointFeet": "point_feet", "SquareFeet": "square_feet",
+             "LineFeetQuad": "line_feet_quadruped"}
     assert [names[n] for n, _ in found] == list(k10.TOPOLOGIES)
     for n, body in found:
         parsed = {k.strip(): int(v) for k, v in
@@ -322,6 +325,7 @@ LIP_TOPOLOGIES = {
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), t_point_feet),
     "square_feet": (SQUARE_TOPOLOGY, square_feet),
+    "line_feet_quadruped": (LINE_FEET_TOPOLOGY, line_feet_quadruped),
 }
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import lip_linearize as k10
@@ -67,6 +68,7 @@ LIP_TOPOLOGIES = {
     "quadruped": (dict(contact_model=1, number_of_legs=4), quadruped_point_feet),
     "point_feet": (dict(contact_model=1, number_of_legs=2), point_feet),
     "square_feet": (SQUARE_TOPOLOGY, square_feet),
+    "line_feet_quadruped": (LINE_FEET_TOPOLOGY, line_feet_quadruped),
 }
 
 
@@ -135,8 +137,9 @@ def test_smem_bytes_match_the_cuda_layout(dtype, nA, shape):
     assert sum(v for k, v in stated.items() if k != "total") == stated["total"]
     assert stated["total"] <= SMEM_PER_BLOCK == k11.MAX_SMEM
     if dtype == torch.float32:
-        # the square feet's chains, a pair a lane, are bound to two
-        want = 2 if shape.startswith("square_feet") else _env()["kMinBlocks"]
+        # the eight-contact robots' chains, a pair a lane, are bound to two
+        want = (2 if k10.KERNEL_SHAPES[shape]["nc"] == 8
+                else _env()["kMinBlocks"])
         assert SMEM_PER_SM // (stated["total"] + 1024) >= want
 
 

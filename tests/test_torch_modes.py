@@ -293,11 +293,15 @@ def test_wrappers_name_their_kernels():
     al = {"isrbd_al", "isrbd_al_quadruped"}
     lip_rest = {"lip_rk", "lip_quadruped", "lip_quadruped_rk",
                 "lip_point_feet", "lip_point_feet_rk"}
-    # K1's square-feet shapes (contact_model=4) have no K12 or K13 yet
+    # K1's eight-contact shapes (the square-feet biped, contact_model=4,
+    # and the line-feet quadruped, contact_model=2 on four legs) have no
+    # K12 or K13 yet
     square = set(k1.SQUARE_FEET_SHAPES)
-    assert len(k1.KERNEL_SHAPES) == 18 and lip_rest <= set(k1.KERNEL_SHAPES)
+    line = set(k1.LINE_FEET_SHAPES)
+    assert len(k1.KERNEL_SHAPES) == 22 and lip_rest <= set(k1.KERNEL_SHAPES)
     assert len(square) == 4 and square <= set(k1.KERNEL_SHAPES)
-    modes = set(k1.KERNEL_SHAPES) - square
+    assert len(line) == 4 and line <= set(k1.KERNEL_SHAPES)
+    modes = set(k1.KERNEL_SHAPES) - square - line
     assert {s for s, _ in k12.KERNEL_INSTANCES} == modes
     assert set(k12.KERNEL_INSTANCES) == {
         (s, q) for s in modes - al for q in k1.QUU_SOLVERS

@@ -30,9 +30,10 @@ import pytest
 import torch
 
 from _torch_parity import (
-    agree, fleet_params, jax_evaluate, jax_trial, jit, max_rel_err, np_of,
-    perturbed_states, random_xup, run_results, six_contact_srbd, solve_results,
-    solvers, srbd_problems, tick_results, to_jax, to_torch, trajectories,
+    agree, check_srbd_solves, check_srbd_ticks, fleet_params, jax_evaluate,
+    jax_trial, jit, max_rel_err, np_of, perturbed_states, random_xup,
+    run_results, six_contact_srbd, solvers, srbd_case, srbd_problems, to_jax,
+    to_torch, trajectories,
 )
 from srbd_horizon_tpu.models.kangaroo import point_feet as j_point_feet
 from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -233,19 +234,21 @@ def test_shapes_pass_the_cuda_checks(case):
 
 @pytest.fixture(scope="module")
 def solves():
-    return solve_results("point_feet", "EULER", jax_solve_batch=True)
+    """`solve`, `solve_batch` and 3 `tick_batch` ticks beside JAX's `solve`,
+    `vmap(solve)`, `solve_batch` and `vmap(tick)`, one JAX compile."""
+    return srbd_case("point_feet", "EULER", kernels=False,
+                     jax_solve_batch=True)
 
 
 def test_solve_matches_jax(solves):
-    agree(solves["solve"], solves["jax_solve"], "solve", ("X", "U", "cost"))
+    check_srbd_solves(solves, batched=False)
 
 
 def test_solve_batch_matches_vmap_solve(solves):
-    agree(solves["solve_batch"], solves["jax_vmap_solve"], "solve_batch",
-          ("X", "U", "cost"))
+    check_srbd_solves(solves, batched=True)
     # under Euler JAX's batched path agrees with its vmap(solve)
-    agree(solves["jax_solve_batch"], solves["jax_vmap_solve"],
-          "jax solve_batch", ("X", "U"))
+    j = solves["jax"]
+    agree(j["solve_batch"], j["vmap_solve"], "jax solve_batch", ("X", "U"))
 
 
 def test_run_matches_jax():
@@ -258,12 +261,8 @@ def test_run_matches_jax():
     assert float(to.srbd_residual.abs().max()) < 1e-6
 
 
-def test_tick_batch_matches_vmap_tick():
-    for i, ((tc, to), (jc, jo)) in enumerate(tick_results("point_feet",
-                                                          "EULER")):
-        agree(to, jo, f"tick {i}", ("x", "u0", "cost"))
-        for f in ("X", "U"):
-            assert max_rel_err(getattr(tc.sol, f), getattr(jc.sol, f)) < 1e-9
+def test_tick_batch_matches_vmap_tick(solves):
+    check_srbd_ticks(solves)
 
 
 @pytest.mark.parametrize("mode", [("associative", "nonlinear"),

@@ -258,8 +258,8 @@ def test_plain_wrapper_takes_the_twin_on_cpu():
 
 def test_kernel_shapes_and_instances_match_the_cuda_source():
     """K12 defines no shape struct of its own: it takes K1's from
-    csrc/riccati_common.cuh (eighteen; K12 is built at fourteen of them,
-    not at the square feet's four), whose
+    csrc/riccati_common.cuh (twenty-two; K12 is built at fourteen of them,
+    not at the eight-contact robots' eight), whose
     sizes are `riccati.KERNEL_SHAPES`; its `with_instance` switch is
     `KERNEL_INSTANCES`, in order."""
     csrc = Path(k12.__file__).resolve().parents[1] / "csrc"
@@ -280,7 +280,11 @@ def test_kernel_shapes_and_instances_match_the_cuda_source():
              "SquareFeetShape": "square_feet",
              "SquareFeetRkShape": "square_feet_rk",
              "LipSquareFeetShape": "lip_square_feet",
-             "LipSquareFeetRkShape": "lip_square_feet_rk"}
+             "LipSquareFeetRkShape": "lip_square_feet_rk",
+             "LineFeetQuadShape": "line_feet_quadruped",
+             "LineFeetQuadRkShape": "line_feet_quadruped_rk",
+             "LipLineFeetQuadShape": "lip_line_feet_quadruped",
+             "LipLineFeetQuadRkShape": "lip_line_feet_quadruped_rk"}
     assert [s for s, _ in structs] == list(names)
     for s, body in structs:
         sizes = {k.strip(): int(v) for k, v in

@@ -1,16 +1,17 @@
 """PyTorch port, K1's compile-time instantiations, on the CPU.
 
-K1 (`csrc/riccati_backward.cu`) is compiled for eighteen sets of sizes,
+K1 (`csrc/riccati_backward.cu`) is compiled for twenty-two sets of sizes,
 the SRBD OCP, the AL inner OCP of the isrbd problem, the LIP OCP, the SRBD
 OCP of the point-feet quadruped, the AL inner OCP of its isrbd problem,
 the SRBD OCP of the point-feet biped, the SRBD OCP of each of the three
 topologies under RK2 / RK4 (every row of B live), the LIP OCP of the
 Kangaroo under RK and of the point-feet quadruped and biped under Euler
-and under RK, and the square-feet biped's SRBD and LIP OCPs under Euler
-and under RK (csrc/riccati_backward_square_feet.cu); its wrapper picks one
+and under RK, the square-feet biped's SRBD and LIP OCPs under Euler and
+under RK (csrc/riccati_backward_square_feet.cu) and the line-feet
+quadruped's (csrc/riccati_backward_line_feet.cu); its wrapper picks one
 with `kernel_shape` for CUDA tensors and refuses any other sizes with a
 ValueError that names them. These tests hold that choice against
-`RiccatiRows.from_ocp` of the eighteen problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
+`RiccatiRows.from_ocp` of the twenty-two problems, hold `KERNEL_SHAPES` and `KERNEL_INSTANCES` against the shape
 structs and the instantiation switch of the CUDA sources, and check that a
 CPU tensor of any sizes still takes the plain twin, as does K2's
 standalone wrapper.
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import isrbd_linearize as k5
@@ -114,6 +116,7 @@ def sizes():
     quad = SRBDConfig(contact_model=1, number_of_legs=4, dtype=torch.float64)
     pf = SRBDConfig(contact_model=1, number_of_legs=2, dtype=torch.float64)
     sq = SRBDConfig(dtype=torch.float64, **SQUARE_TOPOLOGY)
+    lf = SRBDConfig(dtype=torch.float64, **LINE_FEET_TOPOLOGY)
     return {"srbd": _srbd_sizes(), "isrbd_al": _isrbd_sizes(),
             "lip": _lip_sizes(),
             "quadruped": _srbd_sizes(quad, quadruped_point_feet()),
@@ -131,14 +134,22 @@ def sizes():
             "square_feet": _srbd_sizes(sq, square_feet()),
             "square_feet_rk": _srbd_sizes(sq, square_feet(), "RK4"),
             "lip_square_feet": _lip_sizes(sq, square_feet()),
-            "lip_square_feet_rk": _lip_sizes(sq, square_feet(), "RK2")}
+            "lip_square_feet_rk": _lip_sizes(sq, square_feet(), "RK2"),
+            "line_feet_quadruped": _srbd_sizes(lf, line_feet_quadruped()),
+            "line_feet_quadruped_rk": _srbd_sizes(lf, line_feet_quadruped(),
+                                                  "RK2"),
+            "lip_line_feet_quadruped": _lip_sizes(lf, line_feet_quadruped()),
+            "lip_line_feet_quadruped_rk": _lip_sizes(
+                lf, line_feet_quadruped(), "RK4")}
 
 
 SHAPES = ["srbd", "isrbd_al", "lip", "quadruped", "isrbd_al_quadruped",
           "point_feet", "srbd_rk", "quadruped_rk", "point_feet_rk", "lip_rk",
           "lip_quadruped", "lip_quadruped_rk", "lip_point_feet",
           "lip_point_feet_rk", "square_feet", "square_feet_rk",
-          "lip_square_feet", "lip_square_feet_rk"]
+          "lip_square_feet", "lip_square_feet_rk", "line_feet_quadruped",
+          "line_feet_quadruped_rk", "lip_line_feet_quadruped",
+          "lip_line_feet_quadruped_rk"]
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -176,8 +187,10 @@ def test_kernel_shapes_match_the_cuda_source():
     LipShape, QuadShape, QuadAlShape, PointFeetShape, SrbdRkShape,
     QuadRkShape, PointFeetRkShape, LipRkShape, LipQuadShape,
     LipQuadRkShape, LipPointFeetShape, LipPointFeetRkShape, SquareFeetShape,
-    SquareFeetRkShape, LipSquareFeetShape, LipSquareFeetRkShape
-    (csrc/riccati_common.cuh, one definition for K1 and K12)."""
+    SquareFeetRkShape, LipSquareFeetShape, LipSquareFeetRkShape,
+    LineFeetQuadShape, LineFeetQuadRkShape, LipLineFeetQuadShape,
+    LipLineFeetQuadRkShape (csrc/riccati_common.cuh, one definition for K1
+    and K12)."""
     src = SHAPES_SOURCE.read_text()
     structs = re.findall(r"struct (\w+Shape) \{[^}]*?static constexpr int "
                          r"([^;]*);", src)
@@ -190,7 +203,11 @@ def test_kernel_shapes_match_the_cuda_source():
                                        "LipPointFeetRkShape", "SquareFeetShape",
                                        "SquareFeetRkShape",
                                        "LipSquareFeetShape",
-                                       "LipSquareFeetRkShape"]
+                                       "LipSquareFeetRkShape",
+                                       "LineFeetQuadShape",
+                                       "LineFeetQuadRkShape",
+                                       "LipLineFeetQuadShape",
+                                       "LipLineFeetQuadRkShape"]
     parsed = []
     for _, body in structs:
         parsed.append({k.strip(): int(v) for k, v in
@@ -316,8 +333,32 @@ def test_square_feet_instantiations():
             assert k1.KERNEL_INSTANCES[i] == (shape, form, solver)
             assert k1.library_name(i) == "riccati_backward_square_feet"
             i += 1
-    assert len(k1.KERNEL_INSTANCES) == i == 52
+    assert i == 52
     assert {k1.library_name(j) for j in range(40)} == {"riccati_backward"}
+
+
+def test_line_feet_quadruped_instantiations():
+    """The line-feet quadruped's SRBD and LIP shapes, each under Euler and
+    under RK, have the three forms each, appended as 52-63 in that order,
+    and are built into a third library (csrc/riccati_backward_line_feet.cu).
+    Their sizes are the square feet's but for n_gx, so `kernel_shape`
+    tells the two apart by the rows of G alone."""
+    forms = (("collapsed", "schur"), ("tassa", "schur"),
+             ("tassa", "cholesky"))
+    i = 52
+    for shape, square in zip(k1.LINE_FEET_SHAPES, k1.SQUARE_FEET_SHAPES):
+        assert shape == square.replace("square_feet", "line_feet_quadruped")
+        z, w = k1.KERNEL_SHAPES[shape], k1.KERNEL_SHAPES[square]
+        assert {k for k in z if z[k] != w[k]} == {"n_gx"}
+        assert w["n_gx"] - z["n_gx"] == 4
+        for form, solver in forms:
+            assert k1.kernel_instance(shape, form, solver) == i
+            assert k1.KERNEL_INSTANCES[i] == (shape, form, solver)
+            assert k1.library_name(i) == "riccati_backward_line_feet"
+            i += 1
+    assert len(k1.KERNEL_INSTANCES) == i == 64
+    assert {k1.library_name(j) for j in range(40, 52)} == {
+        "riccati_backward_square_feet"}
 
 
 def test_wrapper_takes_plain_path_for_any_sizes_on_cpu():

@@ -223,7 +223,8 @@ def test_kernel_instances_resolve_and_others_are_refused():
 def test_kernel_instances_match_the_cuda_source():
     """KERNEL_INSTANCES, in order, is the source's `with_instance` switch
     (the square-feet biped's cases, 40-51, are the ones
-    csrc/riccati_backward_square_feet.cu compiles)."""
+    csrc/riccati_backward_square_feet.cu compiles; the line-feet
+    quadruped's, 52-63, csrc/riccati_backward_line_feet.cu's)."""
     src = SOURCE.read_text()
     cases = re.findall(r"case (\d+): return fn\(Inst<(\w+)Shape, Form::k(\w+), "
                        r"Solve::k(\w+)>\{\}\);", src)
@@ -237,7 +238,11 @@ def test_kernel_instances_match_the_cuda_source():
              "LipPointFeetRk": "lip_point_feet_rk",
              "SquareFeet": "square_feet", "SquareFeetRk": "square_feet_rk",
              "LipSquareFeet": "lip_square_feet",
-             "LipSquareFeetRk": "lip_square_feet_rk"}
+             "LipSquareFeetRk": "lip_square_feet_rk",
+             "LineFeetQuad": "line_feet_quadruped",
+             "LineFeetQuadRk": "line_feet_quadruped_rk",
+             "LipLineFeetQuad": "lip_line_feet_quadruped",
+             "LipLineFeetQuadRk": "lip_line_feet_quadruped_rk"}
     parsed = [(names[s], f.lower(), g.lower()) for _, s, f, g in cases]
     assert [int(i) for i, *_ in cases] == list(range(len(cases)))
     assert tuple(parsed) == k1.KERNEL_INSTANCES

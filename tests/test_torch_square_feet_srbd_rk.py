@@ -1,7 +1,7 @@
 """PyTorch port, the square-feet biped's SRBD problem (contact_model=4:
 four contact points a foot, nc=8, nx=61, nu=48; JAX's `TestNc8` robot)
 under RK2 and RK4, against the JAX package on the CPU in float64 at ns=8
-(`_torch_parity.srbd_case`, `solve_results`, `tick_results`):
+(`_torch_parity.srbd_case`: one JAX compile a step):
 
   - the step, the stage residual, the equality rows and the terminal
     residual at drawn points (the step to 1e-13, the rest to 1e-12);
@@ -27,10 +27,10 @@ import pytest
 import torch
 
 from _torch_parity import (
-    SRBD_ORDER, agree, check_nc8_bar, check_srbd_declared_rows,
-    check_srbd_dispatch, check_srbd_evaluate, check_srbd_linearize,
-    check_srbd_node_functions, check_srbd_trial, max_rel_err, solve_results,
-    srbd_case, srbd_problems, tick_results,
+    SRBD_ORDER, check_nc8_bar, check_srbd_declared_rows, check_srbd_dispatch,
+    check_srbd_evaluate, check_srbd_linearize, check_srbd_node_functions,
+    check_srbd_solves, check_srbd_ticks, check_srbd_trial, srbd_case,
+    srbd_problems,
 )
 from srbd_horizon_tpu_torch.config import DDPOptions
 from srbd_horizon_tpu_torch.solvers.msddp import MSDDP
@@ -46,19 +46,9 @@ def _case(step):
     return srbd_case(TOPOLOGY, step)
 
 
-@functools.lru_cache(maxsize=None)
-def _solves(step):
-    return solve_results(TOPOLOGY, step)
-
-
 @pytest.fixture(scope="module", params=STEPS)
 def case(request):
     return _case(request.param)
-
-
-@pytest.fixture(scope="module", params=STEPS)
-def solves(request):
-    return request.param, _solves(request.param)
 
 
 def test_problem_sizes(case):
@@ -95,28 +85,19 @@ def test_kernel_shapes_pick_the_instance(case):
     """RK2 and RK4 each have their own K4 / K3 / srbd_evaluate instance and
     share K1's shape."""
     check_srbd_dispatch(case, "square_feet_" + case["step"].lower(),
-                        "square_feet_rk")
+                        "square_feet_rk", "riccati_backward_square_feet")
 
 
-def test_solve_matches_jax(solves):
-    step, s = solves
-    agree(s["solve"], s["jax_solve"], f"{step} solve", ("X", "U", "cost"))
-    assert int(s["solve"].iterations) > 1
+def test_solve_matches_jax(case):
+    check_srbd_solves(case, batched=False)
 
 
-def test_solve_batch_matches_vmap_solve(solves):
-    step, s = solves
-    agree(s["solve_batch"], s["jax_vmap_solve"], f"{step} solve_batch",
-          ("X", "U", "cost"))
-    assert float(s["solve_batch"].defect_norm.max()) < 1e-6
+def test_solve_batch_matches_vmap_solve(case):
+    check_srbd_solves(case, batched=True)
 
 
-@pytest.mark.parametrize("step", STEPS)
-def test_tick_batch_matches_vmap_tick(step):
-    for i, ((tc, to), (jc, jo)) in enumerate(tick_results(TOPOLOGY, step)):
-        agree(to, jo, f"{step} tick {i}", ("x", "u0", "cost"))
-        for f in ("X", "U"):
-            assert max_rel_err(getattr(tc.sol, f), getattr(jc.sol, f)) < 1e-9
+def test_tick_batch_matches_vmap_tick(case):
+    check_srbd_ticks(case)
 
 
 @pytest.mark.parametrize("step", STEPS)

@@ -1,13 +1,14 @@
 """PyTorch port, the compile-time sizes of the SRBD kernels, on the CPU.
 
 K3 (the trial), srbd_evaluate (csrc/srbd_rollout.cu) and K4 (the
-linearization, csrc/srbd_linearize.cu) are compiled for four topologies,
-`srbd::KangarooShape`, `srbd::QuadShape`, `srbd::PointFeetShape` and
-`srbd::SquareFeetShape` in csrc/srbd_common.cuh, each under the Euler, RK2
-and RK4 steps. These tests hold those structs and the instance order
-against `kernels/linearize.py::TOPOLOGIES` and `KERNEL_SHAPES` and against
-what `build_srbd_problem` gives for the Kangaroo, the point-feet
-quadruped, the point-feet biped and the square-feet biped, and check that the wrappers refuse other sizes (a
+linearization, csrc/srbd_linearize.cu) are compiled for five topologies,
+`srbd::KangarooShape`, `srbd::QuadShape`, `srbd::PointFeetShape`,
+`srbd::SquareFeetShape` and `srbd::LineFeetQuadShape` in
+csrc/srbd_common.cuh, each under the Euler, RK2 and RK4 steps. These tests
+hold those structs and the instance order against
+`kernels/linearize.py::TOPOLOGIES` and `KERNEL_SHAPES` and against what
+`build_srbd_problem` gives for the Kangaroo, the point-feet quadruped, the
+point-feet biped, the square-feet biped and the line-feet quadruped, and check that the wrappers refuse other sizes (a
 problem with three contacts, a one-legged biped on line feet) with a
 ValueError that names them before any device work (meta tensors stand in
 for CUDA ones), while CPU tensors take the plain twins.
@@ -20,6 +21,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from _line_feet_quadruped import LINE_FEET_TOPOLOGY, line_feet_quadruped
 from _square_feet import SQUARE_TOPOLOGY, square_feet
 from srbd_horizon_tpu_torch.config import DDPOptions, SRBDConfig
 from srbd_horizon_tpu_torch.kernels import linearize as k4
@@ -45,26 +47,28 @@ def srbd():
 
 def test_shape_struct_matches_the_wrappers_table():
     """TOPOLOGIES, in order, is the header's KangarooShape, QuadShape,
-    PointFeetShape, SquareFeetShape; KERNEL_SHAPES is the first three under
-    the Euler step, then each under RK2 and RK4 with every row of B live
-    (the header's `Stepped`), then the square feet under the three steps,
-    in the order of the header's `with_shape`; STEPS is its step tags'
-    order."""
+    PointFeetShape, SquareFeetShape, LineFeetQuadShape; KERNEL_SHAPES is
+    the first three under the Euler step, then each under RK2 and RK4 with
+    every row of B live (the header's `Stepped`), then the square feet and
+    the line-feet quadruped, each under the three steps, in the order of
+    the header's `with_shape`; STEPS is its step tags' order."""
     src = HEADER.read_text()
     found = re.findall(r"struct (\w+Shape) \{\s*static constexpr int ([^;]*);",
                        src)
     assert [name for name, _ in found] == ["KangarooShape", "QuadShape",
-                                           "PointFeetShape", "SquareFeetShape"]
+                                           "PointFeetShape", "SquareFeetShape",
+                                           "LineFeetQuadShape"]
     parsed = [{k.strip(): int(v) for k, v in
                (kv.split("=") for kv in body.split(","))} for _, body in found]
     assert parsed == list(k4.TOPOLOGIES.values())
     assert list(k4.TOPOLOGIES) == ["kangaroo", "quadruped", "point_feet",
-                                   "square_feet"]
+                                   "square_feet", "line_feet_quadruped"]
     with_shape = src[src.index("inline int with_shape("):]
     cases = re.findall(r"case (\d+): return fn\((?:Stepped<)?(\w+)Shape"
                        r"(?:, (\w+)>)?", with_shape[:with_shape.index("default")])
     names = {"Kangaroo": "kangaroo", "Quad": "quadruped",
-             "PointFeet": "point_feet", "SquareFeet": "square_feet"}
+             "PointFeet": "point_feet", "SquareFeet": "square_feet",
+             "LineFeetQuad": "line_feet_quadruped"}
     assert [int(i) for i, _, _ in cases] == list(range(len(k4.KERNEL_SHAPES)))
     order = [names[topo] + ("_" + step.lower() if step else "")
              for _, topo, step in cases]
@@ -111,13 +115,25 @@ def square_feet_biped():
                 wc=s._wc(torch.float64), prob=prob)
 
 
+@pytest.fixture(scope="module")
+def line_feet_quad():
+    loop, prob = build_srbd_loop(
+        SRBDConfig(dtype=torch.float64, **LINE_FEET_TOPOLOGY),
+        DDPOptions(max_iters=1), robot=line_feet_quadruped(), device="cpu")
+    s = loop.solver
+    return dict(ocp=prob.ocp, terms=s.terms, rows=s.rows,
+                wc=s._wc(torch.float64), prob=prob)
+
+
 @pytest.mark.parametrize("shape", ["kangaroo", "quadruped", "point_feet",
-                                   "square_feet"])
+                                   "square_feet", "line_feet_quadruped"])
 def test_srbd_problem_has_the_compiled_sizes(srbd, quad, point_feet_biped,
-                                             square_feet_biped, shape):
+                                             square_feet_biped, line_feet_quad,
+                                             shape):
     case = {"kangaroo": srbd, "quadruped": quad,
             "point_feet": point_feet_biped,
-            "square_feet": square_feet_biped}[shape]
+            "square_feet": square_feet_biped,
+            "line_feet_quadruped": line_feet_quad}[shape]
     ocp = case["ocp"]
     assert RiccatiRows.from_ocp(ocp) == case["rows"]
     sizes = k4.kernel_sizes(case["terms"], ocp.nx, ocp.nu, case["rows"])
